@@ -1,0 +1,470 @@
+#!/usr/bin/env python3
+"""chip_smoke.py — the port's quickest proof that it runs on an NVIDIA card.
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero before the final line:
+
+1. build   — compile the CUDA kernels from ``deepspeed_tpu_torch/ops/
+             kernels/csrc`` (nvcc, sm_90a) and print ptxas's summary.
+2. parity  — both paged-attention kernels against their plain PyTorch
+             version at TinyLlama width (H=32, KV=4, D=64): K1 on 4 slots x
+             256-token chunks, K2 on 16 slots with contexts up to 2048, in
+             the multi-block (block_size 64) and linear (one block per
+             sequence) layouts; bf16 within 8e-3 max-abs and 2**-8 of the
+             plain output's norm, fp32 within 1e-4. Only the bf16 cases
+             reach K1's tensor-core kernel; fp32 K1 runs a CUDA-core
+             kernel of its own, so phase 4 does not cover the former.
+3. serving — TinyLlama-1.1B shape, all 22 layers, bf16, seeded random
+             weights made on the card: 16 prompts x 512 tokens through
+             ``InferenceEngineV2.generate`` (chunk 256, block 64, decode
+             loop 16), 64 new tokens each. Launch counters must equal
+             layers x steps of each kind.
+4. engine  — fp32 at full width with TF32 off: 4 prompts x 128 tokens, 16
+             new tokens, paged kernels token-identical to the dense path;
+             engine prefill logits against the full-sequence forward.
+5. timing  — each kernel at the serving shapes (CUDA events), its plain
+             version, ``F.scaled_dot_product_attention`` on the same live
+             K/V as a yardstick, and the bound (bytes over 3.35 TB/s,
+             FLOPs over 989 TFLOP/s, the larger).
+
+With ``--trace``, a torch.profiler window over the phase-3 engine's
+prefill and one decode loop call follows phase 3: the device's busy time
+against host wall time, and the top device ops.
+
+The last three lines are the ``kernels`` JSON, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3
+BF16_FLOPS_PER_S = 989e12         # H100 SXM dense bf16 tensor core
+# bf16 kernel-vs-plain limits: about twice the largest max-abs error read
+# on the card (3.9e-3, one bf16 ulp at magnitude 0.5-1), and one bf16
+# unit roundoff of the plain output's norm
+BF16_MAX_ABS, BF16_REL_NORM = 8e-3, 2.0 ** -8
+FP32_MAX_ABS = 1e-4
+H, KV, D = 32, 4, 64              # TinyLlama attention geometry
+SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/paged_attention.cu"
+REPLACES = {"paged_prefill": "deepspeed_tpu/ops/kernels/paged_attention.py:45",
+            "paged_decode": "deepspeed_tpu/ops/kernels/paged_attention.py:205"}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {res.stderr}")
+    return res.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------- inputs
+
+
+def paged_inputs(torch, rng, *, S, C, lens, block_size, maxb, dtype,
+                 shuffle=True):
+    """Random pool, per-sequence block tables (padded with 0) and q for
+    ``S`` sequences whose contexts are ``lens``; queries sit at the last
+    ``C`` positions of each context."""
+    import numpy as np
+    blocks = [-(-int(n) // block_size) for n in lens]
+    nb = max(sum(blocks), 1)
+    order = rng.permutation(nb) if shuffle else np.arange(nb)
+    tables = np.zeros((S, maxb), np.int32)
+    at = 0
+    for s, k in enumerate(blocks):
+        tables[s, :k] = order[at:at + k]
+        at += k
+    lens = np.asarray(lens, np.int32)
+    start = np.maximum(lens - C, 0).astype(np.int32)
+    slots = (nb + 1) * block_size
+    dev = "cuda"
+    kp = torch.randn(slots, KV * D, device=dev).to(dtype)
+    vp = torch.randn(slots, KV * D, device=dev).to(dtype)
+    q = torch.randn(S, C, H, D, device=dev).to(dtype)
+    t = lambda a: torch.from_numpy(a).to(dev)       # noqa: E731
+    return q, kp, vp, t(tables), t(start), t(lens)
+
+
+# ---------------------------------------------------------------- phases
+
+
+def phase_build():
+    from deepspeed_tpu_torch.ops.kernels import _build
+    t0 = time.perf_counter()
+    _build.build()
+    log(f"[build] {time.perf_counter() - t0:.1f} s")
+    for name, text in _build.build_logs.items():
+        for line in text.splitlines():
+            if "ptxas" in line and ("Used" in line or "spill" in line
+                                    or "Compiling" in line):
+                log(f"[build] {name}: {line.strip()}")
+
+
+def check_close(torch, what, got, ref):
+    """Max-abs and norm-relative error of a kernel's output against its
+    plain version; raises past the dtype's limits."""
+    diff = got.float() - ref.float()
+    err = diff.abs().max().item()
+    rel = (diff.norm() / ref.float().norm().clamp_min(1e-30)).item()
+    if got.dtype == torch.bfloat16:
+        ok, lim = err <= BF16_MAX_ABS and rel <= BF16_REL_NORM, \
+            f"max-abs {BF16_MAX_ABS}, rel-norm {BF16_REL_NORM:.3e}"
+    else:
+        ok, lim = err <= FP32_MAX_ABS, f"max-abs {FP32_MAX_ABS}"
+    log(f"{what} max_abs_err={err:.3e} rel_norm_err={rel:.3e} ({lim})")
+    if not ok:
+        raise AssertionError(f"{what} disagrees with plain: {err}, {rel}")
+    return err
+
+
+def phase_parity(torch):
+    import numpy as np
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    rng = np.random.default_rng(0)
+    worst = {"paged_prefill": 0.0, "paged_decode": 0.0}
+    dec_lens = rng.integers(1, 2049, 16)
+    dec_lens[0], dec_lens[3] = 2048, 0                 # slot 3 idle
+    cases = [
+        # (kernel, S, C, lens, block_size, maxb, window)
+        ("paged_prefill", 4, 256, [256, 512, 1024, 2048], 64, 32, None),
+        ("paged_prefill", 4, 256, [256, 512, 1024, 2048], 64, 32, 512),
+        ("paged_decode", 16, 1, dec_lens, 64, 32, None),
+        ("paged_decode", 16, 1, dec_lens, 2048, 1, None),  # linear layout
+        ("paged_decode", 16, 1, dec_lens, 64, 32, 512),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, S, C, lens, bs, maxb, window in cases:
+            q, kp, vp, tab, st, ln = paged_inputs(
+                torch, rng, S=S, C=C, lens=lens, block_size=bs, maxb=maxb,
+                dtype=dtype)
+            kw = dict(block_size=bs, sm_scale=D ** -0.5,
+                      sliding_window=window, num_kv_heads=KV)
+            got = getattr(pa, name)(q, kp, vp, tab, st, ln, **kw)
+            ref = pa.paged_attention_plain(q, kp, vp, tab, st, ln, **kw)
+            torch.cuda.synchronize()
+            idle = ln == 0
+            if idle.any() and got[idle].abs().max().item() != 0.0:
+                raise AssertionError(f"{name}: idle slot not zero")
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"{name}: non-finite output")
+            err = check_close(
+                torch, f"[parity] {name} {str(dtype)[6:]} bs={bs} "
+                f"maxb={maxb} window={window}", got, ref)
+            if dtype is torch.bfloat16:
+                worst[name] = max(worst[name], err)
+    return worst
+
+
+def phase_serving(torch):
+    import numpy as np
+    from deepspeed_tpu_torch.checkpoint import init_llama_params
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig)
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    cfg = LlamaConfig.tinyllama_1b(dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = init_llama_params(cfg, seed=0, device="cuda",
+                               dtype=torch.bfloat16)
+    rcfg = RaggedInferenceConfig(
+        max_seqs=16, chunk_size=256, block_size=64, num_blocks=256,
+        max_blocks_per_seq=16, dtype="bfloat16", decode_loop_steps=16,
+        attention_impl="paged_flash")
+    eng = InferenceEngineV2(cfg, params, rcfg, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[serving] weights + engine {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab_size, (16, 512)).tolist()
+    # warm-up outside the measured run (cuBLAS handles, kernel loading)
+    eng.generate([prompts[0][:80]], max_new_tokens=18)
+    for k in eng.timing:
+        eng.timing[k] = 0 if isinstance(eng.timing[k], int) else 0.0
+
+    pa.reset_launch_counts()
+    eng.runner.step_counts = {"prefill": 0, "decode": 0}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new_tokens=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pa.LAUNCHES)
+    steps = dict(eng.runner.step_counts)
+    peak = torch.cuda.max_memory_allocated()
+
+    L = cfg.num_layers
+    if launches["paged_prefill"] != L * steps["prefill"] \
+            or launches["paged_decode"] != L * steps["decode"]:
+        raise AssertionError(f"launches {launches} != {L} x steps {steps}")
+    if not (steps["prefill"] and steps["decode"]):
+        raise AssertionError(f"a kernel of the path never ran: {steps}")
+    if any(len(o) != 64 for o in out) \
+            or not all(0 <= t < cfg.vocab_size for o in out for t in o):
+        raise AssertionError("wrong output lengths or token ids")
+    if eng.free_blocks != rcfg.num_blocks:
+        raise AssertionError("KV blocks leaked")
+    logits = eng.put([99], [prompts[0]])[99]
+    eng.flush(99)
+    if not np.isfinite(logits).all():
+        raise AssertionError("non-finite logits")
+    tm = eng.timing
+    log(f"[serving] steps {steps} launches {launches} wall {wall:.3f} s")
+    log(f"[serving] prefill {tm['prefill_tokens']} tokens in "
+        f"{tm['prefill_s']:.4f} s; decode {tm['decode_tokens']} tokens in "
+        f"{tm['decode_s']:.4f} s = {tm['decode_tokens'] / tm['decode_s']:.1f}"
+        f" tok/s; peak memory {peak / 2**30:.2f} GiB")
+    log(f"[serving] first tokens {[o[:4] for o in out[:2]]}")
+    return {"launches": launches, "steps": steps,
+            "prefill_s": tm["prefill_s"], "decode_s": tm["decode_s"],
+            "decode_tokens": tm["decode_tokens"], "peak_bytes": peak
+            }, eng, prompts
+
+
+def phase_engine_parity(torch):
+    import numpy as np
+    from deepspeed_tpu_torch.checkpoint import init_llama_params
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig)
+    from deepspeed_tpu_torch.models.llama import Llama, LlamaConfig
+    # fp32 matmuls in full fp32: a reference states and sets both
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[engine] fp32, TF32 off (matmul and cuDNN)")
+    cfg = LlamaConfig.tinyllama_1b(dtype=torch.float32)
+    params = init_llama_params(cfg, seed=1, device="cuda",
+                               dtype=torch.float32)
+    prompts = np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (4, 128)).tolist()
+    gens = {}
+    for impl in ("paged_flash", "dense"):
+        rcfg = RaggedInferenceConfig(
+            max_seqs=4, chunk_size=64, block_size=64, num_blocks=32,
+            max_blocks_per_seq=4, dtype="float32", decode_loop_steps=8,
+            attention_impl=impl)
+        eng = InferenceEngineV2(cfg, params, rcfg, device="cuda")
+        gens[impl] = eng.generate(prompts, max_new_tokens=16)
+        if impl == "paged_flash":
+            logits = eng.put([9], [prompts[0]])[9]
+    if gens["paged_flash"] != gens["dense"]:
+        raise AssertionError(f"kernel tokens {gens['paged_flash']} != "
+                             f"dense {gens['dense']}")
+    full = Llama(cfg, params)(torch.tensor([prompts[0]], device="cuda"))
+    err = float(np.abs(full[0, -1].cpu().numpy() - logits).max())
+    log(f"[engine] tokens identical over {len(prompts)} x 16; prefill "
+        f"logits vs full forward max_abs_err={err:.3e} (tol 1e-3)")
+    if not err <= 1e-3:
+        raise AssertionError("engine prefill logits disagree with forward")
+    del params, eng, full
+    torch.cuda.empty_cache()
+
+
+def _time_ms(torch, fn, iters):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def _sdpa(q, k, v, mask):
+    """One PyTorch call on contiguous live K/V: q [S, H, C, D],
+    k/v [S, KV, T, D]."""
+    import torch.nn.functional as F
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def phase_timing(torch, serving, worst):
+    """Each kernel at the serving shapes: K1 on the second 256-token
+    prefill chunk of 16 x 512-token prompts, K2 on 16 slots at context
+    544 (mid-decode), bf16, block 64."""
+    import numpy as np
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    rng = np.random.default_rng(2)
+    rows = []
+    specs = [("paged_prefill", 16, 256, 512), ("paged_decode", 16, 1, 544)]
+    for name, S, C, ctx in specs:
+        q, kp, vp, tab, st, ln = paged_inputs(
+            torch, rng, S=S, C=C, lens=[ctx] * S, block_size=64, maxb=16,
+            dtype=torch.bfloat16)
+        kw = dict(block_size=64, sm_scale=D ** -0.5, sliding_window=None,
+                  num_kv_heads=KV)
+        fn = getattr(pa, name)
+        # the kernel against its plain version at these shapes too
+        got = fn(q, kp, vp, tab, st, ln, **kw)
+        ref = pa.paged_attention_plain(q, kp, vp, tab, st, ln, **kw)
+        err = check_close(torch, f"[timing] {name} at the serving shape",
+                          got, ref)
+        ms = _time_ms(torch, lambda: fn(q, kp, vp, tab, st, ln, **kw), 50)
+        plain_ms = _time_ms(torch, lambda: pa.paged_attention_plain(
+            q, kp, vp, tab, st, ln, **kw), 5)
+        # the same live K/V laid out contiguously, for the library call
+        j = torch.arange(ctx, device="cuda")
+        idx = tab.long()[:, j // 64] * 64 + j % 64            # [S, ctx]
+        kc = kp[idx].reshape(S, ctx, KV, D).transpose(1, 2).contiguous()
+        vc = vp[idx].reshape(S, ctx, KV, D).transpose(1, 2).contiguous()
+        qc = q.transpose(1, 2).contiguous()                   # [S, H, C, D]
+        pos = ctx - C + torch.arange(C, device="cuda")
+        mask = (j[None, :] <= pos[:, None])                   # [C, ctx]
+        lib_ms = _time_ms(torch, _sdpa(qc, kc, vc, mask), 50)
+        # bound: each input read once, each output written once (live
+        # K/V rows only), and the FLOPs of the causal pairs
+        pairs = S * sum(min(ctx, p + 1) for p in range(ctx - C, ctx))
+        flops = 4 * H * D * pairs
+        nbytes = (2 * S * ctx * KV * D + 2 * S * C * H * D) * 2 \
+            + tab.numel() * 4 + 2 * S * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        steps = serving["steps"]["prefill" if C > 1 else "decode"]
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name],
+            "launches": serving["launches"][name],
+            "launches_per_step": serving["launches"][name] // steps,
+            "steps": steps,
+            "max_abs_err": max(worst[name], err),
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+            "shape": {"S": S, "C": C, "H": H, "KV": KV, "D": D,
+                      "context": ctx, "block_size": 64, "dtype": "bf16"},
+            "bytes": nbytes, "flops": flops,
+        })
+        log(f"[timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
+            f"{lib_ms:.4f}, bound {max(t_bytes, t_ops):.4f} by "
+            f"{rows[-1]['bound_by']}; max_abs_err {err:.3e})")
+    return rows
+
+
+def _device_summary(prof, wall_s, steps, top=8):
+    """Device busy time (union of the trace's device intervals) against
+    the host wall time, device ops per step, and the top ops by device
+    time."""
+    from torch.autograd import DeviceType
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        return {"busy_s": None, "note": "no device events in the trace"}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, (cur_a, cur_b) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > cur_b:
+            busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    busy = (busy + cur_b - cur_a) / 1e6
+    by_name = {}
+    for e in evs:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + (e.time_range.end - e.time_range.start))
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"wall_s": wall_s, "busy_s": busy,
+            "idle_share": 1.0 - busy / wall_s,
+            "device_ops_per_step": len(evs) / steps,
+            "top": [{"name": n[:70], "count": c, "ms": t / 1e3}
+                    for n, (c, t) in ranked]}
+
+
+def phase_trace(torch, eng, prompts):
+    """``--trace`` only: torch.profiler over the phase-3 engine's prompt
+    put() (prefill) and one decode_batch of ``decode_loop_steps`` steps,
+    at the phase-3 shapes."""
+    from torch.profiler import ProfilerActivity, profile
+    uids = list(range(1000, 1000 + len(prompts)))
+    n = eng.config.decode_loop_steps
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+    before = eng.runner.step_counts["prefill"]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        first = eng.put(uids, prompts, _greedy=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["prefill"] = _device_summary(
+        prof, wall, eng.runner.step_counts["prefill"] - before)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.decode_batch(uids, [first[u] for u in uids], n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["decode"] = _device_summary(prof, wall, n)
+    for u in uids:
+        eng.flush(u)
+    for k, v in out.items():
+        log(f"[trace] {k}: {json.dumps(v)}")
+    return out
+
+
+def main(argv) -> int:
+    unknown = [a for a in argv if a != "--trace"]
+    if unknown:
+        print(f"chip_smoke: unknown arguments {unknown} (only --trace)",
+              file=sys.stderr)
+        return 2
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    if not (ROOT / "deepspeed_tpu_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(deepspeed_tpu_torch/ not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    torch.manual_seed(0)              # the kernel inputs' torch.randn
+    t_all = time.perf_counter()
+    card = card_line()
+    log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    phase_build()
+    worst = phase_parity(torch)
+    serving, eng, prompts = phase_serving(torch)
+    trace = phase_trace(torch, eng, prompts) if "--trace" in argv else None
+    del eng
+    torch.cuda.empty_cache()
+    phase_engine_parity(torch)
+    rows = phase_timing(torch, serving, worst)
+    log(f"[total] {time.perf_counter() - t_all:.1f} s")
+    result = {"kernels": rows, "card": card,
+              "serving": {k: serving[k] for k in
+                          ("prefill_s", "decode_s", "decode_tokens",
+                           "peak_bytes", "steps")}}
+    if trace is not None:
+        result["trace"] = trace
+    print(json.dumps(result), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

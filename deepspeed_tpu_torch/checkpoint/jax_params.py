@@ -1,0 +1,125 @@
+"""Llama parameter trees: from the JAX package's flax tree, or seeded.
+
+The tree keeps flax's paths and layouts: ``embed/embedding`` ``[V, M]``,
+``layer_i/{input_norm,post_attn_norm}/scale`` ``[M]``,
+``layer_i/attn/{q,k,v,o}_proj/kernel`` and
+``layer_i/mlp/{gate,up,down}_proj/kernel`` as ``[in, out]``,
+``final_norm/scale`` and ``lm_head/kernel`` ``[M, V]``. Matrices take the
+requested dtype; norm scales stay fp32 (they multiply fp32 statistics).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from ..models.llama import LlamaConfig
+from ..utils.device import resolve_device
+from ..utils.dtypes import resolve_dtype
+
+
+def llama_param_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Nested dict of shapes mirroring the flax tree of ``Llama(cfg)``."""
+    M, H, KV, D = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
+                   cfg.head_dim)
+    I, V = cfg.intermediate_size, cfg.vocab_size
+    tree: Dict[str, Any] = {"embed": {"embedding": (V, M)}}
+    for li in range(cfg.num_layers):
+        attn = {"q_proj": {"kernel": (M, H * D)},
+                "k_proj": {"kernel": (M, KV * D)},
+                "v_proj": {"kernel": (M, KV * D)},
+                "o_proj": {"kernel": (H * D, M)}}
+        if cfg.qkv_bias:
+            attn["q_proj"]["bias"] = (H * D,)
+            attn["k_proj"]["bias"] = (KV * D,)
+            attn["v_proj"]["bias"] = (KV * D,)
+        tree[f"layer_{li}"] = {
+            "input_norm": {"scale": (M,)},
+            "attn": attn,
+            "post_attn_norm": {"scale": (M,)},
+            "mlp": {"gate_proj": {"kernel": (M, I)},
+                    "up_proj": {"kernel": (M, I)},
+                    "down_proj": {"kernel": (I, M)}},
+        }
+    tree["final_norm"] = {"scale": (M,)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"kernel": (M, V)}
+    return tree
+
+
+def _is_scale(path: Tuple[str, ...]) -> bool:
+    return path[-1] == "scale"
+
+
+def _map_tree(shapes: Mapping[str, Any], fn, path=()) -> Dict[str, Any]:
+    out = {}
+    for k, v in shapes.items():
+        if isinstance(v, Mapping):
+            out[k] = _map_tree(v, fn, path + (k,))
+        else:
+            out[k] = fn(path + (k,), tuple(v))
+    return out
+
+
+def llama_params_from_numpy(tree: Mapping[str, Any], cfg: LlamaConfig,
+                            device: Any = None,
+                            dtype: Any = None) -> Dict[str, Any]:
+    """The JAX parameter tree (leaves as numpy arrays) -> the port's tree
+    of torch tensors on ``device`` (default ``cuda``). Every path and
+    shape is checked against ``cfg``; an extra or missing leaf raises."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype if dtype is not None else cfg.dtype)
+    shapes = llama_param_shapes(cfg)
+
+    def convert(path, shape):
+        node: Any = tree
+        for k in path:
+            if k not in node:
+                raise KeyError(f"missing parameter {'/'.join(path)}")
+            node = node[k]
+        arr = np.asarray(node)
+        if arr.shape != shape:
+            raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != "
+                             f"expected {shape}")
+        t = torch.from_numpy(np.array(arr, dtype=np.float32))   # a copy
+        return t.to(device=dev, dtype=torch.float32 if _is_scale(path)
+                    else dt)
+
+    out = _map_tree(shapes, convert)
+
+    def check_extra(src, ref, path=()):
+        for k, v in src.items():
+            if k not in ref:
+                raise KeyError(f"unexpected parameter {'/'.join(path + (k,))}")
+            if isinstance(v, Mapping):
+                check_extra(v, ref[k], path + (k,))
+
+    check_extra(tree, shapes)
+    return out
+
+
+def init_llama_params(cfg: LlamaConfig, seed: int = 0, device: Any = None,
+                      dtype: Any = None) -> Dict[str, Any]:
+    """Seeded random weights made directly on ``device`` (default ``cuda``)
+    with an explicit ``torch.Generator``. Matrices are normal with std
+    1/sqrt(fan_in) (the embedding std 1), so activations stay O(1) through
+    the layers and the logits are not flat; norm scales are ones."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype if dtype is not None else cfg.dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+
+    def make(path, shape):
+        if _is_scale(path):
+            return torch.ones(shape, dtype=torch.float32, device=dev)
+        if path[-1] == "bias":
+            return torch.zeros(shape, dtype=dt, device=dev)
+        std = 1.0 if path[0] == "embed" else 1.0 / math.sqrt(shape[0])
+        t = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=dev)
+        return (t * std).to(dt)
+
+    return _map_tree(llama_param_shapes(cfg), make)

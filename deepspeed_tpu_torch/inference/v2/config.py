@@ -1,0 +1,96 @@
+"""Ragged engine configuration (port of ``deepspeed_tpu/inference/v2/config.py``).
+
+Only the fields this port reads. Features the port does not have yet are
+refused here, at construction, with the knob's name:
+
+- ``tp_size`` / ``seq_size`` / ``ep_size`` > 1 (multi-device serving);
+- ``kv_cache_dtype="int8"`` (the quantized pool);
+- ``prefix_cache=True``;
+- ``serve_pipeline_depth`` > 0. The JAX package defaults to 2 (an
+  overlapped plan/dispatch/commit pipeline); this port runs depth 0, the
+  synchronous path the JAX package keeps as its parity oracle.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass
+class RaggedInferenceConfig:
+    # scheduler shape: slots per batch x max tokens per slot per step
+    max_seqs: int = 8
+    chunk_size: int = 128             # Dynamic-SplitFuse token chunk per seq
+    # KV pool
+    block_size: int = 64
+    num_blocks: int = 256             # pool size (blocks of block_size tokens)
+    max_blocks_per_seq: int = 32      # width of the block table
+    dtype: str = "bfloat16"           # KV pool dtype
+    kv_cache_dtype: str = "auto"      # "auto" = dtype; "int8" not ported
+    # "auto": the CUDA paged kernels on a card, the dense gather-and-mask
+    # path on the CPU; "paged_flash" / "dense" force one.
+    attention_impl: str = "auto"
+    tp_size: int = 1
+    seq_size: int = 1
+    ep_size: int = 1
+    prefix_cache: bool = False
+    serve_pipeline_depth: int = 0
+    # tokens generated per decode_loop call (one host sync per call);
+    # 0/1 sends every token through put()
+    decode_loop_steps: int = 16
+
+    def __post_init__(self):
+        if self.max_seqs <= 0 or self.chunk_size <= 0:
+            raise ValueError("max_seqs and chunk_size must be positive")
+        if self.block_size <= 0 or self.num_blocks <= 0:
+            raise ValueError("block_size and num_blocks must be positive")
+        if self.max_blocks_per_seq <= 0:
+            raise ValueError("max_blocks_per_seq must be positive")
+        if self.attention_impl not in ("auto", "paged_flash", "dense"):
+            raise ValueError(
+                f"attention_impl must be 'auto', 'paged_flash' or 'dense', "
+                f"got {self.attention_impl!r}")
+        if self.kv_cache_dtype == "int8":
+            raise NotImplementedError(
+                "kv_cache_dtype='int8' (quantized KV pool) is not ported "
+                "yet; use kv_cache_dtype='auto'")
+        if self.kv_cache_dtype != "auto":
+            raise ValueError(
+                f"kv_cache_dtype must be 'auto', got {self.kv_cache_dtype!r}")
+        for knob in ("tp_size", "seq_size", "ep_size"):
+            v = getattr(self, knob)
+            if v < 1:
+                raise ValueError(f"{knob} must be >= 1, got {v}")
+            if v > 1:
+                raise NotImplementedError(
+                    f"{knob}={v}: multi-device serving is not ported yet "
+                    f"(set {knob}=1)")
+        if self.prefix_cache:
+            raise NotImplementedError(
+                "prefix_cache=True is not ported yet")
+        if self.serve_pipeline_depth < 0:
+            raise ValueError(
+                f"serve_pipeline_depth must be >= 0, got "
+                f"{self.serve_pipeline_depth}")
+        if self.serve_pipeline_depth > 0:
+            raise NotImplementedError(
+                f"serve_pipeline_depth={self.serve_pipeline_depth}: the "
+                f"pipelined serve loop is not ported yet (use 0)")
+        if self.decode_loop_steps < 0:
+            raise ValueError(
+                f"decode_loop_steps must be >= 0, got "
+                f"{self.decode_loop_steps}")
+
+    def validate(self, model_cfg=None) -> None:
+        """Config x model checks, run at engine construction."""
+        if model_cfg is None:
+            return
+        from ...models.llama import LlamaConfig
+        if not isinstance(model_cfg, LlamaConfig):
+            raise NotImplementedError(
+                f"{type(model_cfg).__name__}: only the dense Llama runner "
+                f"is ported")
+
+    @property
+    def max_context(self) -> int:
+        return self.max_blocks_per_seq * self.block_size

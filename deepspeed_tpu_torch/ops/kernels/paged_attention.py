@@ -1,0 +1,229 @@
+"""Paged-KV flash attention (port of ``deepspeed_tpu/ops/kernels/paged_attention.py``).
+
+Flash attention that reads K/V straight through per-sequence block tables,
+so a step touches only the blocks a sequence occupies. Two hand-written
+CUDA kernels (``csrc/paged_attention.cu``) replace the two Pallas kernels:
+
+- ``paged_prefill`` (K1) for C > 1 queries per slot — replaces
+  ``_paged_kernel``;
+- ``paged_decode`` (K2) for C == 1 — replaces ``_decode_grouped_kernel``.
+
+Layout contract (as in the JAX package and ``kv_cache.py``): the pool is
+``[slots, KV*D]`` flat token rows with ``slots = (num_blocks + 1) *
+block_size`` (a trailing trash block); a ``[slots, KV, D]`` pool is viewed
+flat. Block tables are padded with 0 past each sequence's live blocks;
+nothing reads through a padded entry.
+
+Each wrapper runs its kernel for CUDA tensors (or raises) and the plain
+PyTorch version, :func:`paged_attention_plain`, for CPU tensors. Only a
+launch counts in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+#: kernel launches since the last :func:`reset_launch_counts`
+LAUNCHES: Dict[str, int] = {"paged_prefill": 0, "paged_decode": 0}
+
+#: the widest GQA group K2 serves in one block (csrc DEC_ROWS)
+MAX_DECODE_GROUP = 16
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, block_tables: torch.Tensor,
+                          start_pos: torch.Tensor, seq_lens: torch.Tensor, *,
+                          block_size: int, sm_scale: float,
+                          sliding_window: Optional[int],
+                          num_kv_heads: int) -> torch.Tensor:
+    """The kernels' function in plain PyTorch: gather each sequence's
+    context through its block table, mask, softmax in fp32.
+
+    Query ``c`` of slot ``s`` (position ``start_pos[s] + c``) attends key
+    ``j`` when ``j <= pos``, ``j < seq_lens[s]`` and, with a window,
+    ``j > pos - window``. A row with no such key (an idle slot,
+    ``seq_lens == 0``) is zeros. Products accumulate in fp32; as in the
+    Pallas kernels, the probabilities are cast to the pool dtype before
+    they multiply V, and the row sums are taken before that cast."""
+    S, C, H, D = q.shape
+    KV = num_kv_heads
+    g = H // KV
+    bs = block_size
+    maxb = block_tables.shape[1]
+    T = maxb * bs
+    dev = q.device
+    j = torch.arange(T, device=dev)
+    tables = block_tables.long()
+    rows = tables[:, j // bs] * bs + j % bs                     # [S, T]
+    k = k_pool[rows].reshape(S, T, KV, D).float()
+    v = v_pool[rows].reshape(S, T, KV, D).float()
+    pos = start_pos.long()[:, None] + torch.arange(C, device=dev)[None, :]
+    lens = seq_lens.long().clamp(max=T)
+    mask = (j[None, None, :] <= pos[:, :, None]) \
+        & (j[None, None, :] < lens[:, None, None])              # [S, C, T]
+    if sliding_window is not None:
+        mask = mask & (j[None, None, :] > pos[:, :, None] - sliding_window)
+    qg = q.float().reshape(S, C, KV, g, D)
+    s = torch.einsum("sckgd,stkd->skgct", qg, k) * sm_scale
+    s = s.masked_fill(~mask[:, None, None], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p.to(v_pool.dtype).float()
+    o = torch.einsum("skgct,stkd->sckgd", p, v) \
+        / torch.where(l == 0, torch.ones_like(l), l).permute(0, 3, 1, 2, 4)
+    return o.reshape(S, C, H, D).to(q.dtype)
+
+
+def _flat_pool(pool: torch.Tensor, num_kv_heads: Optional[int]):
+    if pool.dim() == 3:
+        return pool.reshape(pool.shape[0], -1), pool.shape[1]
+    if num_kv_heads is None:
+        raise ValueError("num_kv_heads required with a flat 2-D pool")
+    return pool, num_kv_heads
+
+
+def _check(q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,
+           block_size, KV, decode):
+    if q.dim() != 4:
+        raise ValueError(f"q must be [S, C, H, D], got {tuple(q.shape)}")
+    S, C, H, D = q.shape
+    if decode and C != 1:
+        raise ValueError(f"paged_decode takes C == 1, got C = {C}")
+    if H % KV:
+        raise ValueError(f"GQA requires H % KV == 0 ({H}/{KV})")
+    if k_pool.dim() != 2 or k_pool.shape != v_pool.shape:
+        raise ValueError("k_pool/v_pool must both be [slots, KV*D]")
+    slots, KVD = k_pool.shape
+    if KVD != KV * D:
+        raise ValueError(f"pool rows {KVD} != KV*D = {KV * D}")
+    if slots % block_size:
+        raise ValueError(
+            f"pool slots ({slots}) must be a multiple of block_size "
+            f"({block_size}); allocate (num_blocks+1)*block_size")
+    if block_tables.dim() != 2 or block_tables.shape[0] != S:
+        raise ValueError(f"block_tables must be [S={S}, MAXB]")
+    if start_pos.shape != (S,) or seq_lens.shape != (S,):
+        raise ValueError(f"start_pos and seq_lens must be [S={S}]")
+    if not q.is_cuda:
+        return
+    dev = q.device
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_tables", block_tables), ("start_pos", start_pos),
+                    ("seq_lens", seq_lens)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_tables", block_tables), ("start_pos", start_pos),
+                    ("seq_lens", seq_lens)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"q dtype {q.dtype}: the kernels take bf16 or fp32")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise ValueError(
+            f"pool dtype {k_pool.dtype}/{v_pool.dtype} != q dtype {q.dtype} "
+            f"(cast q to the pool dtype)")
+    for name, t in (("block_tables", block_tables), ("start_pos", start_pos),
+                    ("seq_lens", seq_lens)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {D}: the kernels take {KERNEL_HEAD_DIMS}")
+    if decode and H // KV > MAX_DECODE_GROUP:
+        raise ValueError(f"GQA group {H // KV} > {MAX_DECODE_GROUP}")
+
+
+def _run(name, q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,
+         block_size, sm_scale, sliding_window, num_kv_heads):
+    """Both wrappers: check the arguments, then the plain version for CPU
+    tensors, or launch kernel ``name`` and count the launch."""
+    decode = name == "paged_decode"
+    k_pool, KV = _flat_pool(k_pool, num_kv_heads)
+    v_pool, _ = _flat_pool(v_pool, KV)
+    _check(q, k_pool, v_pool, block_tables, start_pos, seq_lens,
+           block_size=block_size, KV=KV, decode=decode)
+    if not q.is_cuda:
+        return paged_attention_plain(
+            q, k_pool, v_pool, block_tables, start_pos, seq_lens,
+            block_size=block_size, sm_scale=sm_scale,
+            sliding_window=sliding_window, num_kv_heads=KV)
+    from . import _build
+    lib = _build.load("paged_attention")
+    S, C, H, D = q.shape
+    out = torch.empty_like(q)
+    window = int(sliding_window) if sliding_window is not None else 0
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    dims = [S, H, KV, D] if decode else [S, C, H, KV, D]
+    err = getattr(lib, f"{name}_launch")(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), start_pos.data_ptr(), seq_lens.data_ptr(),
+        out.data_ptr(), *dims, block_tables.shape[1], block_size,
+        float(sm_scale), window, int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: cudaError {err}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def paged_prefill(q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,
+                  block_size: int, sm_scale: float,
+                  sliding_window: Optional[int] = None,
+                  num_kv_heads: Optional[int] = None) -> torch.Tensor:
+    """K1: attention for q ``[S, C, H, D]``, any C >= 1 (CUDA kernel on a
+    card, the plain version on the CPU)."""
+    return _run("paged_prefill", q, k_pool, v_pool, block_tables, start_pos,
+                seq_lens, block_size=block_size, sm_scale=sm_scale,
+                sliding_window=sliding_window, num_kv_heads=num_kv_heads)
+
+
+def paged_decode(q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,
+                 block_size: int, sm_scale: float,
+                 sliding_window: Optional[int] = None,
+                 num_kv_heads: Optional[int] = None) -> torch.Tensor:
+    """K2: decode attention for q ``[S, 1, H, D]`` over any number of
+    blocks per sequence (the linear layout is MAXB = 1)."""
+    return _run("paged_decode", q, k_pool, v_pool, block_tables, start_pos,
+                seq_lens, block_size=block_size, sm_scale=sm_scale,
+                sliding_window=sliding_window, num_kv_heads=num_kv_heads)
+
+
+def flash_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, block_tables: torch.Tensor,
+                          start_pos: torch.Tensor, seq_lens: torch.Tensor, *,
+                          block_size: int, sm_scale: Optional[float] = None,
+                          sliding_window: Optional[int] = None,
+                          num_kv_heads: Optional[int] = None,
+                          alibi_slopes: Optional[torch.Tensor] = None,
+                          k_scales: Optional[torch.Tensor] = None,
+                          v_scales: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Flash attention over paged KV; K1 for C > 1, K2 for C == 1.
+
+    q ``[S, C, H, D]`` (the step's K/V already appended to the pool);
+    k_pool/v_pool ``[slots, KV*D]`` (or ``[slots, KV, D]``);
+    block_tables ``[S, MAXB]`` int32; start_pos ``[S]`` int32 — position
+    of ``q[s, 0]``; seq_lens ``[S]`` int32 — live context length (0 marks
+    an idle slot, which emits zeros). Returns ``[S, C, H, D]`` in q.dtype.
+    ALiBi and int8-pool scales are not ported yet."""
+    if alibi_slopes is not None:
+        raise NotImplementedError("ALiBi in the paged kernels is not ported")
+    if k_scales is not None or v_scales is not None \
+            or k_pool.dtype == torch.int8:
+        raise NotImplementedError("the int8 KV pool is not ported")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    fn = paged_decode if q.shape[1] == 1 else paged_prefill
+    return fn(q, k_pool, v_pool, block_tables, start_pos, seq_lens,
+              block_size=block_size, sm_scale=sm_scale,
+              sliding_window=sliding_window, num_kv_heads=num_kv_heads)

@@ -1,0 +1,26 @@
+"""Dtype-name mapping (port of ``deepspeed_tpu/utils/dtypes.py``)."""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+DTYPES = {
+    "float32": torch.float32, "fp32": torch.float32,
+    "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+    "float16": torch.float16, "fp16": torch.float16, "half": torch.float16,
+}
+
+
+def resolve_dtype(name: Any) -> torch.dtype:
+    """A dtype name (``"bf16"``, ``"float32"``, ...) or a ``torch.dtype``
+    -> ``torch.dtype``."""
+    if isinstance(name, torch.dtype):
+        return name
+    if not isinstance(name, str):
+        raise TypeError(f"expected a dtype name or torch.dtype, got {name!r}")
+    try:
+        return DTYPES[name.lower()]
+    except KeyError:
+        raise ValueError(f"Unknown dtype '{name}'. Known: {sorted(DTYPES)}")
