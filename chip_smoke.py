@@ -30,9 +30,37 @@ Phases, in order; any failure exits non-zero before the final line:
              K/V as a yardstick, and the bound (bytes over 3.35 TB/s,
              FLOPs over 989 TFLOP/s, the larger).
 
+6. flash parity — the three flash-attention kernels (forward, dQ, dK/dV)
+             against their plain PyTorch versions from the same inputs and
+             the same dO: T=200 (not a multiple of the 64-row tile),
+             Tq=128 against Tk=384 (the causal offset), GQA 8 -> 2 heads,
+             non-causal, head_dim 128, and the slice shape B=4, T=2048,
+             H=32, D=64. bf16 within 1.6e-2 max-abs and 2**-8 of the
+             plain output's norm (only bf16 reaches the tensor-core
+             kernels), fp32 (the CUDA-core parity kernels) within 1e-5.
+7. training — GPT-2-1.3B (``GPT2Config.xl_1p3b``: 24 layers, hidden
+             2048, 32 heads, vocab 50257) at full width and depth, seq
+             2048, bf16 compute with fp32 master params, seeded weights
+             made on the card, through ``initialize`` / ``train_batch``:
+             AdamW (lr 1e-4, weight decay 0.01), WarmupLR, clipping 1.0,
+             micro batch 4 x gas 2 on one seeded [8, 2049] batch; 2
+             warm-up steps, then 5 timed steps (CUDA events and host
+             wall). The 7 losses must be finite and fall; each flash
+             kernel's launches must equal layers x gas x timed steps.
+8. training parity — 2 layers at full width, seq 512, 5 steps on one
+             batch: the kernels' loss trajectory against the plain
+             versions' (swapped in for this comparison only), bf16 within
+             1e-4 relative, fp32 with TF32 off within 1e-6 relative
+             (about ten times the first readings, 1.1e-5 and 8.4e-8).
+9. flash timing — each flash kernel at the slice shape (CUDA events),
+             its plain version, ``F.scaled_dot_product_attention`` (causal)
+             forward and backward on the same q/k/v as a yardstick, and
+             the bound.
+
 With ``--trace``, a torch.profiler window over the phase-3 engine's
-prefill and one decode loop call follows phase 3: the device's busy time
-against host wall time, and the top device ops.
+prefill and one decode loop call follows phase 3, and one over a
+``train_batch`` follows phase 7: the device's busy time against host wall
+time, and the top device ops.
 
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -40,7 +68,10 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -54,10 +85,21 @@ BF16_FLOPS_PER_S = 989e12         # H100 SXM dense bf16 tensor core
 # unit roundoff of the plain output's norm
 BF16_MAX_ABS, BF16_REL_NORM = 8e-3, 2.0 ** -8
 FP32_MAX_ABS = 1e-4
+# flash kernels: twice the largest bf16 max-abs reading (7.8e-3 at the
+# slice shape, half a bf16 ulp at magnitude 2-4; outputs reach ~5); fp32
+# ten times the largest reading (9.5e-7)
+FLASH_BF16_MAX_ABS, FLASH_FP32_MAX_ABS = 1.6e-2, 1e-5
 H, KV, D = 32, 4, 64              # TinyLlama attention geometry
 SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/paged_attention.cu"
+FLASH_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/flash_attention.cu"
 REPLACES = {"paged_prefill": "deepspeed_tpu/ops/kernels/paged_attention.py:45",
-            "paged_decode": "deepspeed_tpu/ops/kernels/paged_attention.py:205"}
+            "paged_decode": "deepspeed_tpu/ops/kernels/paged_attention.py:205",
+            "flash_fwd": "deepspeed_tpu/ops/kernels/flash_attention.py:44",
+            "flash_bwd_dq": "deepspeed_tpu/ops/kernels/flash_attention.py:311",
+            "flash_bwd_dkv":
+                "deepspeed_tpu/ops/kernels/flash_attention.py:359"}
+# the training slice: GPT-2-1.3B, micro batch x gas, sequence
+TRAIN_MB, TRAIN_GAS, TRAIN_T, TRAIN_STEPS = 4, 2, 2048, 5
 
 
 def log(msg: str) -> None:
@@ -117,17 +159,18 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
-def check_close(torch, what, got, ref):
+def check_close(torch, what, got, ref, bf16_max_abs=BF16_MAX_ABS,
+                fp32_max_abs=FP32_MAX_ABS):
     """Max-abs and norm-relative error of a kernel's output against its
     plain version; raises past the dtype's limits."""
     diff = got.float() - ref.float()
     err = diff.abs().max().item()
     rel = (diff.norm() / ref.float().norm().clamp_min(1e-30)).item()
-    if got.dtype == torch.bfloat16:
-        ok, lim = err <= BF16_MAX_ABS and rel <= BF16_REL_NORM, \
-            f"max-abs {BF16_MAX_ABS}, rel-norm {BF16_REL_NORM:.3e}"
+    if got.dtype == torch.bfloat16 or "bfloat16" in what:
+        ok, lim = err <= bf16_max_abs and rel <= BF16_REL_NORM, \
+            f"max-abs {bf16_max_abs}, rel-norm {BF16_REL_NORM:.3e}"
     else:
-        ok, lim = err <= FP32_MAX_ABS, f"max-abs {FP32_MAX_ABS}"
+        ok, lim = err <= fp32_max_abs, f"max-abs {fp32_max_abs}"
     log(f"{what} max_abs_err={err:.3e} rel_norm_err={rel:.3e} ({lim})")
     if not ok:
         raise AssertionError(f"{what} disagrees with plain: {err}, {rel}")
@@ -419,6 +462,308 @@ def phase_trace(torch, eng, prompts):
     return out
 
 
+# ---------------------------------------------------------------- training
+
+
+def flash_inputs(torch, *, B, Tq, Tk, H, Hk, D, dtype, seed):
+    """q/k/v/dO as the model passes them: [B, H, T, D] views of BTHD
+    buffers (strided rows), made on the card from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def mk(T, h):
+        return torch.randn(B, T, h, D, generator=g, device="cuda").to(
+            dtype).transpose(1, 2)
+    return mk(Tq, H), mk(Tk, Hk), mk(Tk, Hk), mk(Tq, H)
+
+
+def flash_all(fa, q, k, v, do, *, causal, sm_scale, plain):
+    """Forward from q/k/v, then both backward kernels from the plain
+    forward's lse and the delta of the plain forward's O, so the three
+    kernels are each held against their plain version on equal inputs."""
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    ro, rlse = fa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * ro.float()).sum(-1).contiguous()
+    if plain:
+        return ([ro, rlse, fa.flash_bwd_dq_plain(q, k, v, do, rlse, delta,
+                                                 **kw),
+                 *fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)])
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    return [o, lse, fa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw),
+            *fa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)]
+
+
+FLASH_OUTPUTS = (("flash_fwd", "o"), ("flash_fwd", "lse"),
+                 ("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dk"),
+                 ("flash_bwd_dkv", "dv"))
+
+
+def phase_flash_parity(torch):
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 products
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    cases = [
+        # (B, Tq, Tk, H, Hk, D, causal)
+        (2, 200, 200, 4, 4, 64, True),
+        (2, 128, 384, 8, 2, 64, True),
+        (2, 200, 200, 8, 2, 64, False),
+        (1, 256, 256, 2, 2, 128, True),
+        (TRAIN_MB, TRAIN_T, TRAIN_T, 32, 32, 64, True),   # the slice shape
+    ]
+    for B, Tq, Tk, Hh, Hk, Dh, causal in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype is torch.float32 and Tq == TRAIN_T:
+                continue          # the CUDA-core oracle is slow at 2048
+            q, k, v, do = flash_inputs(torch, B=B, Tq=Tq, Tk=Tk, H=Hh,
+                                       Hk=Hk, D=Dh, dtype=dtype, seed=Tq)
+            kw = dict(causal=causal, sm_scale=Dh ** -0.5)
+            got = flash_all(fa, q, k, v, do, plain=False, **kw)
+            ref = flash_all(fa, q, k, v, do, plain=True, **kw)
+            torch.cuda.synchronize()
+            for (name, out), g_, r_ in zip(FLASH_OUTPUTS, got, ref):
+                if not torch.isfinite(g_.float()).all():
+                    raise AssertionError(f"{name} {out}: non-finite output")
+                err = check_close(
+                    torch, f"[flash parity] {name} {out} {str(dtype)[6:]} "
+                    f"B{B} Tq{Tq} Tk{Tk} H{Hh}/{Hk} D{Dh} causal={causal}",
+                    g_, r_, bf16_max_abs=FLASH_BF16_MAX_ABS,
+                    fp32_max_abs=FLASH_FP32_MAX_ABS)
+                if dtype is torch.bfloat16:
+                    worst[name] = max(worst[name], err)
+    return worst
+
+
+@contextlib.contextmanager
+def plain_flash(fa):
+    """The flash autograd Function with the plain versions swapped in for
+    the kernels, for the training-parity comparison only."""
+    saved = fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv
+    fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv = (
+        fa.flash_fwd_plain, fa.flash_bwd_dq_plain, fa.flash_bwd_dkv_plain)
+    try:
+        yield
+    finally:
+        fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv = saved
+
+
+def train_config(mb, gas):
+    return {"train_micro_batch_size_per_gpu": mb,
+            "gradient_accumulation_steps": gas,
+            "bf16": {"enabled": True},
+            "optimizer": {"type": "AdamW",
+                          "params": {"lr": 1e-4, "weight_decay": 0.01}},
+            "scheduler": {"type": "WarmupLR",
+                          "params": {"warmup_min_lr": 0.0,
+                                     "warmup_max_lr": 1e-4,
+                                     "warmup_num_steps": 10}},
+            "gradient_clipping": 1.0, "steps_per_print": 1000}
+
+
+def model_flops_per_token(cfg, T):
+    """6 x the matmul params (12 L C^2 per layer's four Dense kernels, and
+    the V x C tied LM head) + 12 L T C for attention's two products
+    forward and backward, counted without the causal half (the usual
+    MFU formula); biases, norms and the position table are left out."""
+    L, C, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
+    return 6 * (12 * L * C * C + V * C) + 12 * L * T * C
+
+
+def phase_training(torch, trace):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.checkpoint import init_gpt2_params
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, make_model
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    # bf16 compute: the only fp32 products are the LM head's, whose bf16
+    # operands are exact in TF32 (chunked_lm_xent's docstring)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cfg = GPT2Config.xl_1p3b(dtype=torch.bfloat16)
+    _, _, loss_fn = make_model(cfg)
+    t0 = time.perf_counter()
+    params = init_gpt2_params(cfg, seed=0, device="cuda")
+    engine, *_ = initialize(loss_fn=loss_fn, params=params,
+                            config=train_config(TRAIN_MB, TRAIN_GAS))
+    del params
+    n_params = sum(p.numel() for p in engine.state.params)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B = TRAIN_MB * TRAIN_GAS
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, TRAIN_T + 1),
+                                     generator=g, device="cuda")}
+    torch.cuda.synchronize()
+    log(f"[training] GPT-2-1.3B ({n_params} params) weights + engine "
+        f"{time.perf_counter() - t0:.1f} s")
+    losses = [engine.train_batch(batch) for _ in range(2)]     # warm-up
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    evs = [torch.cuda.Event(enable_timing=True)
+           for _ in range(TRAIN_STEPS + 1)]
+    t0 = time.perf_counter()
+    evs[0].record()
+    for i in range(TRAIN_STEPS):
+        losses.append(engine.train_batch(batch))
+        evs[i + 1].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(TRAIN_STEPS)]
+    losses = [float(x) for x in losses]
+    want = cfg.num_layers * TRAIN_GAS * TRAIN_STEPS
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"flash launches {launches} != layers x gas x "
+                             f"steps = {want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    step_s = sum(step_ms) / TRAIN_STEPS / 1e3
+    tokens = B * TRAIN_T
+    flops = model_flops_per_token(cfg, TRAIN_T) * tokens
+    out = {"params": n_params, "step_ms": step_ms, "host_wall_s": wall,
+           "tokens_per_s": tokens / step_s, "samples_per_s": B / step_s,
+           "model_tflops": flops / step_s / 1e12,
+           "mfu": flops / step_s / BF16_FLOPS_PER_S,
+           "flops_per_step": flops, "peak_bytes": peak, "losses": losses,
+           "launches": launches, "steps": TRAIN_STEPS,
+           "shape": {"micro_batch": TRAIN_MB, "gas": TRAIN_GAS,
+                     "seq": TRAIN_T, "layers": cfg.num_layers}}
+    log(f"[training] step {step_s * 1e3:.1f} ms (events; host wall "
+        f"{wall * 1e3:.1f} ms), {out['tokens_per_s']:.0f} tokens/s, "
+        f"{out['samples_per_s']:.2f} samples/s, {out['model_tflops']:.1f} "
+        f"model TFLOP/s, MFU {out['mfu']:.3f} of 989 TFLOP/s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"[training] step ms {[round(x, 2) for x in step_ms]}")
+    log(f"[training] losses {[round(x, 5) for x in losses]}; launches "
+        f"{launches}")
+    if trace:
+        out["trace"] = phase_train_trace(torch, engine, batch)
+    del engine, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_trace(torch, engine, batch):
+    """``--trace`` only: torch.profiler over one ``train_batch``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = _device_summary(prof, wall, 1, top=12)
+    log(f"[trace] train_batch: {json.dumps(out)}")
+    return out
+
+
+def phase_training_parity(torch):
+    """2 layers at full width, seq 512, 5 steps on one batch: the kernels'
+    losses against the plain versions' (bf16; fp32 with TF32 off)."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.checkpoint import init_gpt2_params
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, make_model
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, mb, gas = 512, 4, 2
+    g = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for prec, dtype, tol in (("bf16", torch.bfloat16, 1e-4),
+                             ("fp32", torch.float32, 1e-6)):
+        cfg = dataclasses.replace(GPT2Config.xl_1p3b(dtype=dtype),
+                                  num_layers=2)
+        tokens = torch.randint(0, cfg.vocab_size, (mb * gas, T + 1),
+                               generator=g, device="cuda")
+        runs = {}
+        for path in ("kernels", "plain"):
+            _, _, loss_fn = make_model(cfg)
+            ds = train_config(mb, gas)
+            if prec == "fp32":
+                del ds["bf16"]
+            engine, *_ = initialize(
+                loss_fn=loss_fn, config=ds,
+                params=init_gpt2_params(cfg, seed=1, device="cuda"))
+            with plain_flash(fa) if path == "plain" \
+                    else contextlib.nullcontext():
+                runs[path] = [float(engine.train_batch({"tokens": tokens}))
+                              for _ in range(5)]
+            del engine
+        rel = max(abs(a - b) / abs(b) for a, b in zip(runs["kernels"],
+                                                      runs["plain"]))
+        log(f"[training parity] {prec}: kernels {runs['kernels']} plain "
+            f"{runs['plain']} max rel {rel:.3e} (limit {tol})")
+        if not rel <= tol:
+            raise AssertionError(f"training parity {prec}: {rel} > {tol}")
+        out[prec] = {"kernels": runs["kernels"], "plain": runs["plain"],
+                     "max_rel": rel}
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_flash_timing(torch, train, worst):
+    """Each flash kernel at the slice shape (B=4, T=2048, H=32, D=64, bf16,
+    causal), q/k/v strided views of one qkv buffer as in the model."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    B, T, Hh, Dh = TRAIN_MB, TRAIN_T, 32, 64
+    g = torch.Generator(device="cuda").manual_seed(5)
+    qkv = torch.randn(B, T, 3 * Hh * Dh, generator=g, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (Hh, Dh)).transpose(1, 2)
+               for t in qkv.split(Hh * Dh, dim=-1))
+    do = torch.randn(B, T, Hh, Dh, generator=g, device="cuda").to(
+        torch.bfloat16).transpose(1, 2)
+    kw = dict(causal=True, sm_scale=Dh ** -0.5)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                      lambda: fa.flash_fwd_plain(q, k, v, **kw)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)),
+    }
+    # the library yardstick on the same q/k/v: SDPA forward, and its
+    # backward (one call computing dQ, dK and dV together)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 20)
+    so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    sdpa_bwd = _time_ms(torch, lambda: torch.autograd.grad(
+        so, (qs, ks, vs), do, retain_graph=True), 20)
+    pairs = B * Hh * T * (T + 1) // 2
+    el = B * Hh * T * Dh                  # elements of one [B, H, T, D]
+    work = {  # (matrix products per (query, key) pair, tensors in/out)
+        "flash_fwd": (2, 4, 1), "flash_bwd_dq": (3, 5, 2),
+        "flash_bwd_dkv": (4, 6, 2)}
+    rows = []
+    for name, (kern, plain) in calls.items():
+        ms = _time_ms(torch, kern, 20)
+        plain_ms = _time_ms(torch, plain, 3)
+        mm, n_bf16, n_rows = work[name]
+        flops = 2 * Dh * mm * pairs
+        nbytes = n_bf16 * el * 2 + n_rows * B * Hh * T * 4
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": REPLACES[name], "launches": train["launches"][name],
+            "launches_per_step": train["launches"][name] // TRAIN_STEPS,
+            "steps": TRAIN_STEPS, "max_abs_err": worst[name],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": sdpa_fwd if name == "flash_fwd" else None,
+            "sdpa_bwd_ms": sdpa_bwd,
+            "shape": {"B": B, "T": T, "H": Hh, "D": Dh, "dtype": "bf16",
+                      "causal": True},
+            "bytes": nbytes, "flops": flops})
+        log(f"[flash timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+            f"bound {max(t_ops, t_bytes):.4f} by {rows[-1]['bound_by']}; "
+            f"sdpa fwd {sdpa_fwd:.4f}, sdpa bwd {sdpa_bwd:.4f})")
+    return rows
+
+
 def main(argv) -> int:
     unknown = [a for a in argv if a != "--trace"]
     if unknown:
@@ -443,21 +788,29 @@ def main(argv) -> int:
     t_all = time.perf_counter()
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    tracing = "--trace" in argv
     phase_build()
     worst = phase_parity(torch)
+    flash_worst = phase_flash_parity(torch)
     serving, eng, prompts = phase_serving(torch)
-    trace = phase_trace(torch, eng, prompts) if "--trace" in argv else None
+    trace = phase_trace(torch, eng, prompts) if tracing else None
     del eng
     torch.cuda.empty_cache()
     phase_engine_parity(torch)
     rows = phase_timing(torch, serving, worst)
+    train = phase_training(torch, tracing)
+    train_parity = phase_training_parity(torch)
+    rows += phase_flash_timing(torch, train, flash_worst)
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     result = {"kernels": rows, "card": card,
               "serving": {k: serving[k] for k in
                           ("prefill_s", "decode_s", "decode_tokens",
-                           "peak_bytes", "steps")}}
+                           "peak_bytes", "steps")},
+              "training": {k: v for k, v in train.items() if k != "trace"},
+              "training_parity": train_parity}
     if trace is not None:
         result["trace"] = trace
+        result["train_trace"] = train["trace"]
     print(json.dumps(result), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

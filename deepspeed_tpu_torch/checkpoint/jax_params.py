@@ -1,11 +1,22 @@
-"""Llama parameter trees: from the JAX package's flax tree, or seeded.
+"""Llama and GPT-2 parameter trees: from the JAX package's flax tree, or
+seeded.
 
-The tree keeps flax's paths and layouts: ``embed/embedding`` ``[V, M]``,
-``layer_i/{input_norm,post_attn_norm}/scale`` ``[M]``,
+The Llama tree keeps flax's paths and layouts: ``embed/embedding``
+``[V, M]``, ``layer_i/{input_norm,post_attn_norm}/scale`` ``[M]``,
 ``layer_i/attn/{q,k,v,o}_proj/kernel`` and
 ``layer_i/mlp/{gate,up,down}_proj/kernel`` as ``[in, out]``,
 ``final_norm/scale`` and ``lm_head/kernel`` ``[M, V]``. Matrices take the
 requested dtype; norm scales stay fp32 (they multiply fp32 statistics).
+
+So does the GPT-2 tree: ``wte/embedding`` [V, C], ``wpe/embedding``
+[max_seq_len, C], ``h_i/{ln_1,ln_2}/{scale,bias}`` [C],
+``h_i/attn/c_attn/{kernel [C, 3C], bias [3C]}``,
+``h_i/attn/c_proj/{kernel [C, C], bias [C]}``,
+``h_i/mlp/c_fc/{kernel [C, 4C], bias [4C]}``,
+``h_i/mlp/c_proj/{kernel [4C, C], bias [C]}`` and ``ln_f/{scale,bias}``.
+Dense kernels stay in flax's ``[in, out]`` layout (the port's ``Dense``
+computes ``x @ kernel``); every leaf takes one dtype, the master params'
+(fp32 by default).
 """
 
 from __future__ import annotations
@@ -16,6 +27,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from ..models.gpt2 import GPT2Config
 from ..models.llama import LlamaConfig
 from ..utils.device import resolve_device
 from ..utils.dtypes import resolve_dtype
@@ -72,7 +84,15 @@ def llama_params_from_numpy(tree: Mapping[str, Any], cfg: LlamaConfig,
     shape is checked against ``cfg``; an extra or missing leaf raises."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype if dtype is not None else cfg.dtype)
-    shapes = llama_param_shapes(cfg)
+    return _from_numpy(tree, llama_param_shapes(cfg), lambda path: dict(
+        device=dev, dtype=torch.float32 if _is_scale(path) else dt))
+
+
+def _from_numpy(tree: Mapping[str, Any], shapes: Mapping[str, Any],
+                place) -> Dict[str, Any]:
+    """Copy every leaf of ``shapes`` out of the numpy ``tree`` into a
+    tensor (``place(path)`` gives its device and dtype), checking its
+    shape; a missing or an extra leaf raises."""
 
     def convert(path, shape):
         node: Any = tree
@@ -85,8 +105,7 @@ def llama_params_from_numpy(tree: Mapping[str, Any], cfg: LlamaConfig,
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != "
                              f"expected {shape}")
         t = torch.from_numpy(np.array(arr, dtype=np.float32))   # a copy
-        return t.to(device=dev, dtype=torch.float32 if _is_scale(path)
-                    else dt)
+        return t.to(**place(path))
 
     out = _map_tree(shapes, convert)
 
@@ -123,3 +142,67 @@ def init_llama_params(cfg: LlamaConfig, seed: int = 0, device: Any = None,
         return (t * std).to(dt)
 
     return _map_tree(llama_param_shapes(cfg), make)
+
+
+def gpt2_param_shapes(cfg: GPT2Config) -> Dict[str, Any]:
+    """Nested dict of shapes mirroring the flax tree of ``GPT2(cfg)``."""
+    C, V = cfg.hidden_size, cfg.vocab_size
+    F = cfg.mlp_ratio * C
+
+    def dense(din, dout):
+        d = {"kernel": (din, dout)}
+        if cfg.use_bias:
+            d["bias"] = (dout,)
+        return d
+
+    def norm():
+        return {"scale": (C,), "bias": (C,)}
+
+    tree: Dict[str, Any] = {"wte": {"embedding": (V, C)},
+                            "wpe": {"embedding": (cfg.max_seq_len, C)}}
+    for i in range(cfg.num_layers):
+        tree[f"h_{i}"] = {
+            "ln_1": norm(),
+            "attn": {"c_attn": dense(C, 3 * C), "c_proj": dense(C, C)},
+            "ln_2": norm(),
+            "mlp": {"c_fc": dense(C, F), "c_proj": dense(F, C)},
+        }
+    tree["ln_f"] = norm()
+    return tree
+
+
+def gpt2_params_from_numpy(tree: Mapping[str, Any], cfg: GPT2Config,
+                           device: Any = None,
+                           dtype: Any = None) -> Dict[str, Any]:
+    """The JAX GPT-2 tree (leaves as numpy arrays) -> the port's tree of
+    torch tensors on ``device`` (default ``cuda``) in ``dtype`` (default
+    ``cfg.param_dtype``). Paths and shapes are checked against ``cfg``."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype if dtype is not None else cfg.param_dtype)
+    return _from_numpy(tree, gpt2_param_shapes(cfg),
+                       lambda path: dict(device=dev, dtype=dt))
+
+
+def init_gpt2_params(cfg: GPT2Config, seed: int = 0, device: Any = None,
+                     dtype: Any = None) -> Dict[str, Any]:
+    """Seeded random GPT-2 weights made directly on ``device`` (default
+    ``cuda``) with an explicit ``torch.Generator``, at flax's default
+    scales: Dense kernels and embeddings normal with variance 1/fan_in
+    (an embedding's fan-in is its width), biases zero, LayerNorm scales
+    one."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype if dtype is not None else cfg.param_dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+
+    def make(path, shape):
+        if path[-1] == "scale":
+            return torch.ones(shape, dtype=dt, device=dev)
+        if path[-1] == "bias":
+            return torch.zeros(shape, dtype=dt, device=dev)
+        fan_in = shape[1] if path[-1] == "embedding" else shape[0]
+        t = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=dev)
+        return (t * (1.0 / math.sqrt(fan_in))).to(dt)
+
+    return _map_tree(gpt2_param_shapes(cfg), make)

@@ -1,0 +1,280 @@
+"""GPT-2-style causal transformer (port of ``deepspeed_tpu/models/gpt2.py``).
+
+The modules keep flax's parameter names and layouts, so a flax tree maps
+leaf for leaf: ``wte/embedding`` [V, C], ``wpe/embedding`` [max_seq, C],
+``h_i/{ln_1,ln_2}/{scale,bias}``, ``h_i/attn/{c_attn,c_proj}/{kernel,bias}``
+and ``h_i/mlp/{c_fc,c_proj}/{kernel,bias}`` with Dense kernels
+``[in, out]``, and ``ln_f``. The modules hold no weights of their own
+(their parameters live on the ``meta`` device); ``make_model``'s
+``loss_fn`` runs them through ``torch.func.functional_call`` on a nested
+param dict, the engine's contract.
+
+Numerics follow flax with ``dtype`` as the compute dtype: Dense promotes
+input, kernel and bias to it (the product rounded, then the bias added);
+LayerNorm takes its statistics in fp32 (E[x^2] - E[x]^2, clipped at 0) and
+returns the compute dtype; GELU is the tanh form (flax's default); the
+loss reads the tied embedding cast to the compute dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
+
+from ..utils.dtypes import resolve_dtype
+from ..utils.tree import flatten
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    max_seq_len: int = 1024
+    num_layers: int = 12
+    num_heads: int = 12
+    hidden_size: int = 768
+    mlp_ratio: int = 4
+    dropout: float = 0.0               # > 0 not ported (needs JAX's RNG)
+    dtype: Any = torch.bfloat16        # compute dtype
+    param_dtype: Any = torch.float32
+    remat: bool = False
+    # "full" (torch.utils.checkpoint per block) is ported; the named
+    # policies of the JAX package are not
+    remat_policy: str = "full"
+    use_bias: bool = True
+    layer_norm_eps: float = 1e-5
+    # "auto": the CUDA flash kernels for CUDA tensors, plain attention on
+    # the CPU; "flash" / "xla" force one path
+    attention_impl: str = "auto"
+    flash_block_q: int = 512           # tile hints for flash_attention
+    flash_block_k: int = 512
+    xent_chunks: int = 8
+    xent_remat: bool = True
+    xent_impl: str = "chunked"
+    xent_ignore_index: Optional[int] = None
+
+    @staticmethod
+    def tiny(**kw):
+        return GPT2Config(vocab_size=512, max_seq_len=128, num_layers=2,
+                          num_heads=4, hidden_size=64, **kw)
+
+    @staticmethod
+    def small(**kw):   # GPT-2 124M
+        return GPT2Config(**kw)
+
+    @staticmethod
+    def xl_1p3b(**kw):  # GPT-2 1.3B class (the BASELINE.md metric model)
+        return GPT2Config(num_layers=24, num_heads=32, hidden_size=2048,
+                          max_seq_len=2048, **kw)
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    def check_ported(self) -> None:
+        """Raise for what this slice does not serve."""
+        if self.dropout > 0:
+            raise NotImplementedError(
+                "GPT-2 dropout > 0 is not ported (it needs the JAX "
+                "package's RNG stream)")
+        if self.remat and self.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={self.remat_policy!r} is not ported; "
+                f"'full' is")
+        if self.attention_impl == "flash_sharded":
+            raise NotImplementedError(
+                "attention_impl='flash_sharded' is not ported (ROADMAP A8)")
+        if self.attention_impl not in ("auto", "flash", "xla"):
+            raise ValueError(
+                f"attention_impl must be 'auto', 'flash', 'flash_sharded' "
+                f"or 'xla', got {self.attention_impl!r}")
+        if self.xent_impl == "fused":
+            raise NotImplementedError(
+                "xent_impl='fused' is not ported yet (ROADMAP B4)")
+
+
+def _meta(*shape) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape, device="meta"))
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``kernel`` [in, out], ``bias`` [out]."""
+
+    def __init__(self, din: int, dout: int, cfg: GPT2Config):
+        super().__init__()
+        self.kernel = _meta(din, dout)
+        self.bias = _meta(dout) if cfg.use_bias else None
+        self.dtype = resolve_dtype(cfg.dtype)
+
+    def forward(self, x):
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: ``embedding`` [num, features]."""
+
+    def __init__(self, num: int, features: int, cfg: GPT2Config):
+        super().__init__()
+        self.embedding = _meta(num, features)
+        self.dtype = resolve_dtype(cfg.dtype)
+
+    def forward(self, ids):
+        return F.embedding(ids, self.embedding.to(self.dtype))
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=...)``: fp32 statistics, compute-dtype
+    output. ``F.layer_norm`` keeps the statistics, the scale and the bias
+    in fp32 for a bf16 input and rounds once; the engine's compute-dtype
+    scale and bias are exact in the input's dtype. It takes the variance
+    in two passes where flax takes E[x^2] - E[x]^2, a difference of fp32
+    rounding only."""
+
+    def __init__(self, features: int, cfg: GPT2Config):
+        super().__init__()
+        self.scale = _meta(features)
+        self.bias = _meta(features)
+        self.eps = cfg.layer_norm_eps
+        self.dtype = resolve_dtype(cfg.dtype)
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        return F.layer_norm(x, x.shape[-1:], self.scale.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
+
+
+def dense_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """``jax.nn.dot_product_attention``'s plain path for BTHD q/k/v: fp32
+    scores and softmax, probabilities in V's dtype before P.V."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * (1.0 / math.sqrt(q.shape[-1]))
+    if causal:
+        Tq, Tk = s.shape[-2], s.shape[-1]
+        mask = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.cfg = cfg
+        C = cfg.hidden_size
+        self.c_attn = Dense(C, 3 * C, cfg)
+        self.c_proj = Dense(C, C, cfg)
+
+    def forward(self, x):
+        cfg = self.cfg
+        B, T, C = x.shape
+        H, D = cfg.num_heads, cfg.head_dim
+        qkv = self.c_attn(x)
+        # contiguous thirds q | k | v, each [B, T, H, D] (views, no copy)
+        q, k, v = (t.unflatten(-1, (H, D)) for t in qkv.split(C, dim=-1))
+        impl = cfg.attention_impl
+        if impl == "auto":
+            # the kernels on a card, plain attention on the CPU (the JAX
+            # package: Pallas flash on one TPU, XLA attention elsewhere)
+            impl = "flash" if x.is_cuda else "xla"
+        if impl == "flash":
+            from ..ops.kernels.flash_attention import flash_attention
+            y = flash_attention(q, k, v, causal=True, layout="BTHD",
+                                block_q=cfg.flash_block_q,
+                                block_k=cfg.flash_block_k)
+        else:
+            y = dense_attention(q, k, v, causal=True)
+        return self.c_proj(y.reshape(B, T, C))
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        C = cfg.hidden_size
+        self.c_fc = Dense(C, cfg.mlp_ratio * C, cfg)
+        self.c_proj = Dense(cfg.mlp_ratio * C, C, cfg)
+
+    def forward(self, x):
+        return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.ln_1 = LayerNorm(cfg.hidden_size, cfg)
+        self.attn = CausalSelfAttention(cfg)
+        self.ln_2 = LayerNorm(cfg.hidden_size, cfg)
+        self.mlp = MLP(cfg)
+
+    def forward(self, x):
+        x = x + self.attn(self.ln_1(x))
+        return x + self.mlp(self.ln_2(x))
+
+
+def _run_block(block: Block, names, x, *tensors):
+    return functional_call(block, dict(zip(names, tensors)), (x,))
+
+
+class GPT2(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        cfg.check_ported()
+        self.cfg = cfg
+        self.wte = Embed(cfg.vocab_size, cfg.hidden_size, cfg)
+        self.wpe = Embed(cfg.max_seq_len, cfg.hidden_size, cfg)
+        for i in range(cfg.num_layers):
+            self.add_module(f"h_{i}", Block(cfg))
+        self.ln_f = LayerNorm(cfg.hidden_size, cfg)
+
+    def forward(self, tokens, return_hidden: bool = False):
+        cfg = self.cfg
+        T = tokens.shape[1]
+        x = self.wte(tokens) + self.wpe(
+            torch.arange(T, device=tokens.device)[None, :])
+        for i in range(cfg.num_layers):
+            block = getattr(self, f"h_{i}")
+            if cfg.remat:
+                # the block's tensors pass through checkpoint explicitly:
+                # its recompute runs in the backward pass, after an outer
+                # functional_call has put the meta parameters back
+                names, tensors = zip(*block.named_parameters())
+                x = checkpoint(_run_block, block, names, x, *tensors,
+                               use_reentrant=False)
+            else:
+                x = block(x)
+        x = self.ln_f(x)
+        if return_hidden:
+            return x
+        # tied-embedding unembed, as flax's Embed.attend in the compute dtype
+        return x @ self.wte.embedding.to(x.dtype).t()
+
+
+def make_model(cfg: GPT2Config):
+    """``(model, init_fn, loss_fn)``. ``loss_fn(params, batch, generator)``
+    is the engine's contract: batch = ``{"tokens": [B, T+1]}``, params the
+    nested dict of flax's paths, the mean next-token NLL through the
+    chunked LM-head loss. ``init_fn(seed=0, device=None)`` makes seeded
+    weights (``checkpoint.jax_params.init_gpt2_params``)."""
+    model = GPT2(cfg)
+
+    def init_fn(seed: int = 0, device: Any = None):
+        from ..checkpoint.jax_params import init_gpt2_params
+        return init_gpt2_params(cfg, seed=seed, device=device)
+
+    def loss_fn(params, batch, generator=None):
+        from ._lm_utils import lm_head_xent
+        tokens = batch["tokens"]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        hidden = functional_call(model, flatten(params), (inputs,),
+                                 {"return_hidden": True})
+        return lm_head_xent(hidden, params["wte"]["embedding"], targets, cfg)
+
+    return model, init_fn, loss_fn

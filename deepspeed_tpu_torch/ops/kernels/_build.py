@@ -38,6 +38,13 @@ SIGNATURES = {
         "paged_decode_launch": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     },
+    # pointers, a host pointer to the int64 strides, B, H, Hk, Tq, Tk, D,
+    # scale, causal, is_bf16, stream
+    "flash_attention": {
+        "flash_fwd_launch": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
+        "flash_bwd_dq_launch": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
+        "flash_bwd_dkv_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
+    },
 }
 
 

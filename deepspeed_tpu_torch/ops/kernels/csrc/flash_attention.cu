@@ -1,0 +1,858 @@
+// FlashAttention-2 forward and backward for Hopper (sm_90a): the three
+// kernels of the training path's attention.
+//
+// flash_fwd replaces the Pallas kernel `_fwd_kernel` with
+//   `_online_softmax_block` (deepspeed_tpu/ops/kernels/flash_attention.py:44
+//   and :92, launched at :276): online-softmax attention that writes O and
+//   the row logsumexp lse = m + log(l).
+// flash_bwd_dq replaces `_bwd_dq_kernel` (:311, launched at :436): dQ
+//   accumulated over the key tiles from lse and delta = rowsum(dO * O).
+// flash_bwd_dkv replaces `_bwd_dkv_kernel` (:359, launched at :473): dK and
+//   dV of one KV head accumulated over every query head of its GQA group
+//   and every query tile, so no atomics are needed (the Pallas grid fuses
+//   (group, q-tile) into its innermost axis at :461-495 for the same end).
+//
+// Bound on the H100: at the training shape (T = 2048, D = 64, causal) the
+// three are FLOP-bound -- 2, 3 and 4 matrix products per (query, key) tile
+// against O(T * D) bytes per row -- so bf16 runs on the tensor cores:
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate), one block of 4 warps, each
+// warp owning 16 rows of the block's 64-row tile, with the scores,
+// probabilities and accumulators kept in registers and the streamed 64-row
+// tiles of the other operand double-buffered in shared memory (cp.async:
+// the next tile's copy runs under this tile's products) and read as mma
+// fragments with ldmatrix. The score accumulators re-pack as the A
+// fragments of the next product without a trip through shared memory.
+// Fully masked key tiles above the causal diagonal are never read;
+// exponentials use the fast ex2-based __expf. Not done yet (what holds
+// them back): mma.sync instead of wgmma, no TMA, 64-row tiles with 4
+// warps, no persistent scheduling over the causal triangle's uneven work,
+// and the dkv block (at the register limit) re-reads Q and dO from device
+// memory for each of its key tiles.
+//
+// Numerics follow the Pallas kernels: scores in fp32 scaled after the
+// product; P cast to V's dtype before P.V with the row sums taken before
+// that cast; ds = p * (dp - delta) * scale cast to K's (dq) or Q's (dk)
+// dtype before its product; P cast to dO's dtype for dV; backward
+// probabilities exp(s - lse) are zero where masked and where lse is not
+// finite. A row with no live key (Tq > Tk under the bottom-right causal
+// diagonal) writes O = 0 and lse = -inf.
+//
+// fp32 inputs run simple CUDA-core kernels (one thread per row), a parity
+// oracle for the indexing (strides, causal offset, GQA, ragged edges) at a
+// tight tolerance; they are not meant to be fast.
+//
+// Layout: q/o/do/dq [B, H, Tq, D] and k/v/dk/dv [B, Hk, Tk, D] given by
+// element strides of (batch, head, time) with a unit head_dim stride, so
+// the BTHD views of a fused qkv projection need no copy. lse and delta are
+// contiguous fp32 [B, H, Tq]. The causal diagonal is bottom-right aligned:
+// query i sees key j iff j <= i + (Tk - Tq). Sequence edges are masked in
+// the kernels (no padded copies). Kernels launch on the caller's stream,
+// do not synchronise and allocate nothing; each C entry point returns
+// cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+struct Strides {
+  long long b, h, t;               // elements; the head_dim stride is 1
+};
+
+constexpr int NT = 128;            // threads per block of the mma kernels
+constexpr int BQ = 64;             // query rows per block (fwd, dq) / tile
+constexpr int BK = 64;             // key rows per tile (fwd, dq) / block
+constexpr int F32_NT = 128;        // threads per block of the fp32 kernels
+
+// c += a * b for one m16n8k16 tile. Fragment layout (PTX ISA, mma.m16n8k16
+// .bf16), with quad = lane / 4 and qi = lane % 4:
+//   a[0..3]: rows quad / quad+8 / quad / quad+8, columns 2qi..2qi+1 (+8
+//            for a[2], a[3]) of the 16 x 16 A tile;
+//   b0, b1:  rows (k) 2qi..2qi+1 (+8 for b1), column (n) quad of B;
+//   c[0..3]: rows quad, quad, quad+8, quad+8; columns 2qi, 2qi+1 (x2).
+// In each 32-bit register the lower column (or row for B) is the low half.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t ld2(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ const bf16* row_at(const bf16* base, Strides s,
+                                              int b, int h, int t) {
+  return base + b * s.b + h * s.h + (long long)t * s.t;
+}
+
+// The number of keys query row i sees: [0, limit). Rows past Tq see none.
+__device__ __forceinline__ int key_limit(int i, int Tq, int Tk, int causal) {
+  if (i >= Tq) return 0;
+  return causal ? min(Tk, max(0, i + Tk - Tq + 1)) : Tk;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Asynchronous global -> shared copies (cp.async): `bytes` from `src`, or
+// zeros when `live` is false (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. Plain: lane t gets row t / 4, columns
+// 2 (t % 4), +1 of each; .trans: column t / 4, rows 2 (t % 4), +1.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Start copying rows [r0, r0 + 64) of one (batch, head) into a [64][D + 8]
+// shared tile, 16 bytes a thread, without waiting; rows at or past `rows`
+// are zeros (a zero probability times a garbage row could be NaN).
+template <int D>
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
+                                           long long stride_t, int r0,
+                                           int rows) {
+  constexpr int LD = D + 8, CH = D / 8;
+  for (int i = threadIdx.x; i < 64 * CH; i += NT) {
+    const int r = i / CH, ch = i % CH;
+    const bool live = r0 + r < rows;
+    cp_async16(dst + r * LD + ch * 8,
+               src + (live ? (long long)(r0 + r) * stride_t + ch * 8 : 0),
+               live);
+  }
+}
+
+// A fragments of this thread's two rows (16-row warp tile) of a [*, D] row
+// set; rows at or past `rows` are zeros.
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4],
+                                       const bf16* base, long long stride_t,
+                                       const int (&row)[2], int rows, int qi) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool live = row[i] < rows;
+    const bf16* p = base + (long long)(live ? row[i] : 0) * stride_t + qi * 2;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      f[kk][i] = live ? ld2(p + kk * 16) : 0u;
+      f[kk][i + 2] = live ? ld2(p + kk * 16 + 8) : 0u;
+    }
+  }
+}
+
+// acc[16 x 64] = A[16 x D] . B^T with B a staged [64][D + 8] tile: the
+// product of this warp's rows with the tile's 64 rows. One ldmatrix gives
+// the B fragments of two 16-deep k-steps of one 8-row column tile.
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4],
+                                        const uint32_t (&a)[D / 16][4],
+                                        const bf16* tile, int lane) {
+  constexpr int LD = D + 8;
+  const bf16* base = tile + (lane & 7) * LD + (lane >> 3) * 8;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; kk += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, base + nt * 8 * LD + kk * 16);
+      mma_16816(acc[nt], a[kk], b[0], b[1]);
+      mma_16816(acc[nt], a[kk + 1], b[2], b[3]);
+    }
+  }
+}
+
+// out[16 x D] += P[16 x 64] . tile[64][D], P given as the C fragments of
+// an mma_abt result (re-packed to bf16 A fragments here). One transposing
+// ldmatrix gives the B fragments of two 8-wide output column tiles.
+template <int D>
+__device__ __forceinline__ void mma_pv(float (&out)[D / 8][4],
+                                       const float (&p)[8][4],
+                                       const bf16* tile, int lane) {
+  constexpr int LD = D + 8;
+  const bf16* base =
+      tile + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {pack2(p[2 * kk][0], p[2 * kk][1]),
+                           pack2(p[2 * kk][2], p[2 * kk][3]),
+                           pack2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int dn = 0; dn < D / 8; dn += 2) {
+      uint32_t b[4];
+      ldsm_x4_t(b, base + kk * 16 * LD + dn * 8);
+      mma_16816(out[dn], a, b[0], b[1]);
+      mma_16816(out[dn + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Shared memory of the mma kernels: two buffers of two [64][D + 8] bf16
+// tiles (double buffering), plus two [64] fp32 row vectors per buffer for
+// the dK/dV kernel's lse and delta.
+template <int D>
+__host__ __device__ constexpr int tile_elems() {
+  return 64 * (D + 8);
+}
+template <int D>
+constexpr size_t mma_smem_bytes(bool rows) {
+  return 4 * tile_elems<D>() * sizeof(bf16) + (rows ? 4 * 64 * sizeof(float)
+                                                    : 0);
+}
+
+// Store this thread's two rows of a [16 x D] fp32 accumulator (times
+// `mul[i]`) as bf16; rows at or past `rows` are skipped.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* base, long long stride_t,
+                                           const float (&acc)[D / 8][4],
+                                           const int (&row)[2], int rows,
+                                           const float (&mul)[2], int qi) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= rows) continue;
+    bf16* p = base + (long long)row[i] * stride_t;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      *reinterpret_cast<uint32_t*>(p + dn * 8 + qi * 2) =
+          pack2(acc[dn][2 * i] * mul[i], acc[dn][2 * i + 1] * mul[i]);
+  }
+}
+
+// ---------------------------------------------------------------- forward
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, Strides sq, Strides sk,
+                     Strides sv, Strides so, int H, int Hk, int Tq, int Tk,
+                     float scale, int causal) {
+  constexpr int ND = D / 8, TE = tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);   // [buf][K, V][64][D+8]
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hk);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int quad = lane / 4, qi = lane % 4;
+  const int row[2] = {q0 + warp * 16 + quad, q0 + warp * 16 + quad + 8};
+  const int lim[2] = {key_limit(row[0], Tq, Tk, causal),
+                      key_limit(row[1], Tq, Tk, causal)};
+  // the block's keys: those its last live row sees
+  const int kend = key_limit(min(q0 + BQ, Tq) - 1, Tq, Tk, causal);
+
+  uint32_t qf[D / 16][4];
+  load_a<D>(qf, row_at(q, sq, b, h, 0), sq.t, row, Tq, qi);
+  const bf16* kb = row_at(k, sk, b, hk, 0);
+  const bf16* vb = row_at(v, sv, b, hk, 0);
+
+  float acc[ND][4];
+#pragma unroll
+  for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};             // this thread's partial row sums
+
+  // K/V tiles double-buffered: the next tile's copy runs under this
+  // tile's products
+  if (kend > 0) {
+    stage_tile<D>(smem, kb, sk.t, 0, kend);
+    stage_tile<D>(smem + TE, vb, sv.t, 0, kend);
+    cp_async_commit();
+  }
+  for (int t0 = 0, it = 0; t0 < kend; t0 += BK, ++it) {
+    const bf16* ks = smem + (it & 1) * 2 * TE;
+    const bf16* vs = ks + TE;
+    if (t0 + BK < kend) {
+      bf16* nk = smem + ((it + 1) & 1) * 2 * TE;
+      stage_tile<D>(nk, kb, sk.t, t0 + BK, kend);
+      stage_tile<D>(nk + TE, vb, sv.t, t0 + BK, kend);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float sc[8][4];
+    mma_abt<D>(sc, qf, ks, lane);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e / 2, j = t0 + nt * 8 + qi * 2 + (e & 1);
+        const float x = j < lim[i] ? sc[nt][e] * scale : -INFINITY;
+        sc[nt][e] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    float alpha[2], m_safe[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      // a row with nothing live yet keeps m = -inf: exp through a finite
+      // stand-in so no (-inf) - (-inf) NaN appears; p and alpha come out 0
+      m_safe[i] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[i] = __expf(m[i] - m_safe[i]);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = __expf(sc[nt][e] - m_safe[e / 2]);
+        sc[nt][e] = p;
+        rs[e / 2] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dn][e] *= alpha[e / 2];
+    mma_pv<D>(acc, sc, vs, lane);
+    __syncthreads();
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    inv[i] = li == 0.f ? 0.f : 1.f / li;             // no live key: O = 0
+    if (qi == 0 && row[i] < Tq)
+      lse[((long long)b * H + h) * Tq + row[i]] =
+          li == 0.f ? -INFINITY : m[i] + logf(li);
+  }
+  store_rows<D>(o + b * so.b + h * so.h, so.t, acc, row, Tq, inv, qi);
+}
+
+// -------------------------------------------------------------- backward dq
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dq, Strides sq, Strides sk,
+                        Strides sv, Strides sdo, Strides sdq, int H, int Hk,
+                        int Tq, int Tk, float scale, int causal) {
+  constexpr int ND = D / 8, TE = tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);   // [buf][K, V][64][D+8]
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hk);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int quad = lane / 4, qi = lane % 4;
+  const int row[2] = {q0 + warp * 16 + quad, q0 + warp * 16 + quad + 8};
+  int lim[2];
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lim[i] = key_limit(row[i], Tq, Tk, causal);
+    const long long at = ((long long)b * H + h) * Tq + row[i];
+    lse_r[i] = row[i] < Tq ? lse[at] : -INFINITY;
+    delta_r[i] = row[i] < Tq ? delta[at] : 0.f;
+    if (!isfinite(lse_r[i])) lim[i] = 0;   // a row with no live key
+  }
+  const int kend = key_limit(min(q0 + BQ, Tq) - 1, Tq, Tk, causal);
+
+  uint32_t qf[D / 16][4], df[D / 16][4];
+  load_a<D>(qf, row_at(q, sq, b, h, 0), sq.t, row, Tq, qi);
+  load_a<D>(df, row_at(dout, sdo, b, h, 0), sdo.t, row, Tq, qi);
+  const bf16* kb = row_at(k, sk, b, hk, 0);
+  const bf16* vb = row_at(v, sv, b, hk, 0);
+
+  float acc[ND][4];
+#pragma unroll
+  for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+
+  if (kend > 0) {
+    stage_tile<D>(smem, kb, sk.t, 0, kend);
+    stage_tile<D>(smem + TE, vb, sv.t, 0, kend);
+    cp_async_commit();
+  }
+  for (int t0 = 0, it = 0; t0 < kend; t0 += BK, ++it) {
+    const bf16* ks = smem + (it & 1) * 2 * TE;
+    const bf16* vs = ks + TE;
+    if (t0 + BK < kend) {
+      bf16* nk = smem + ((it + 1) & 1) * 2 * TE;
+      stage_tile<D>(nk, kb, sk.t, t0 + BK, kend);
+      stage_tile<D>(nk + TE, vb, sv.t, t0 + BK, kend);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float sc[8][4], dp[8][4];
+    mma_abt<D>(sc, qf, ks, lane);
+    mma_abt<D>(dp, df, vs, lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e / 2, j = t0 + nt * 8 + qi * 2 + (e & 1);
+        const float p =
+            j < lim[i] ? __expf(sc[nt][e] * scale - lse_r[i]) : 0.f;
+        sc[nt][e] = p * (dp[nt][e] - delta_r[i]) * scale;      // ds
+      }
+    mma_pv<D>(acc, sc, ks, lane);                              // dq += ds.K
+    __syncthreads();
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(dq + b * sdq.b + h * sdq.h, sdq.t, acc, row, Tq, one, qi);
+}
+
+// ------------------------------------------------------------- backward dkv
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         Strides sq, Strides sk, Strides sv, Strides sdo,
+                         Strides sdk, Strides sdv, int H, int Hk, int Tq,
+                         int Tk, float scale, int causal) {
+  constexpr int ND = D / 8, TE = tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [buf][Q, dO][64][D+8] bf16, then [buf][lse, delta][64] fp32
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  float* rows_s = reinterpret_cast<float*>(smem + 4 * TE);
+  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
+  const int g = H / Hk, off = Tk - Tq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int quad = lane / 4, qi = lane % 4;
+  const int key[2] = {k0 + warp * 16 + quad, k0 + warp * 16 + quad + 8};
+
+  // K and V rows of this warp as A fragments (rows = keys)
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  load_a<D>(kf, row_at(k, sk, b, hk, 0), sk.t, key, Tk, qi);
+  load_a<D>(vf, row_at(v, sv, b, hk, 0), sv.t, key, Tk, qi);
+
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[dn][e] = dva[dn][e] = 0.f;
+
+  // the (query head, query tile) pairs of this block, walked in order:
+  // the query tiles from the first that sees key k0 (i + off >= k0)
+  const int qt0 = (causal ? max(0, k0 - off) : 0) / BQ;
+  const int nqt = (Tq + BQ - 1) / BQ - qt0;
+  const int steps = g * nqt;
+  // start the copies of pair `s` into buffer `buf`
+  auto stage = [&](int s, int buf) {
+    const int hh = hk * g + s / nqt, i0 = (qt0 + s % nqt) * BQ;
+    const long long rbase = ((long long)b * H + hh) * Tq;
+    bf16* t = smem + buf * 2 * TE;
+    stage_tile<D>(t, row_at(q, sq, b, hh, 0), sq.t, i0, Tq);
+    stage_tile<D>(t + TE, row_at(dout, sdo, b, hh, 0), sdo.t, i0, Tq);
+    float* rs = rows_s + buf * 2 * BQ;
+    for (int r = threadIdx.x; r < BQ; r += NT) {
+      const bool live = i0 + r < Tq;    // zeros past Tq (masked below)
+      cp_async4(rs + r, lse + (live ? rbase + i0 + r : 0), live);
+      cp_async4(rs + BQ + r, delta + (live ? rbase + i0 + r : 0), live);
+    }
+    cp_async_commit();
+  };
+  if (steps > 0) stage(0, 0);
+  for (int s = 0; s < steps; ++s) {
+    const int i0 = (qt0 + s % nqt) * BQ;
+    const bf16* qs = smem + (s & 1) * 2 * TE;
+    const bf16* dos = qs + TE;
+    const float* lse_s = rows_s + (s & 1) * 2 * BQ;
+    const float* delta_s = lse_s + BQ;
+    if (s + 1 < steps) {
+      stage(s + 1, (s + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    {
+      float st[8][4], dpt[8][4];        // S^T and dP^T: rows keys, cols q
+      mma_abt<D>(st, kf, qs, lane);
+      mma_abt<D>(dpt, vf, dos, lane);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = nt * 8 + qi * 2 + (e & 1), i = i0 + c;
+          const int j = key[e / 2];
+          const float ls = lse_s[c];
+          const bool valid = j < Tk && i < Tq && isfinite(ls) &&
+                             (!causal || j <= i + off);
+          const float p = valid ? __expf(st[nt][e] * scale - ls) : 0.f;
+          st[nt][e] = p;
+          dpt[nt][e] = p * (dpt[nt][e] - delta_s[c]) * scale;  // ds^T
+        }
+      mma_pv<D>(dva, st, dos, lane);                           // dV += P^T.dO
+      mma_pv<D>(dka, dpt, qs, lane);                           // dK += dS^T.Q
+    }
+    __syncthreads();
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(dk + b * sdk.b + hk * sdk.h, sdk.t, dka, key, Tk, one, qi);
+  store_rows<D>(dv + b * sdv.b + hk * sdv.h, sdv.t, dva, key, Tk, one, qi);
+}
+
+// ------------------------------------------------- fp32 (parity oracle)
+
+__device__ __forceinline__ const float* frow(const float* base, Strides s,
+                                             int b, int h, int t) {
+  return base + b * s.b + h * s.h + (long long)t * s.t;
+}
+
+template <int D>
+__device__ __forceinline__ float dot(const float* a, const float* b) {
+  float s = 0.f;
+#pragma unroll 16
+  for (int d = 0; d < D; ++d) s = fmaf(a[d], b[d], s);
+  return s;
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32_NT)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, Strides sq, Strides sk,
+                     Strides sv, Strides so, int B, int H, int Hk, int Tq,
+                     int Tk, float scale, int causal) {
+  const long long idx = (long long)blockIdx.x * F32_NT + threadIdx.x;
+  if (idx >= (long long)B * H * Tq) return;
+  const int i = idx % Tq, h = (idx / Tq) % H, b = idx / ((long long)Tq * H);
+  const int hk = h / (H / Hk);
+  const int lim = key_limit(i, Tq, Tk, causal);
+  const float* qr = frow(q, sq, b, h, i);
+  float acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  float m = -INFINITY, l = 0.f;
+  for (int j = 0; j < lim; ++j) {
+    const float s = dot<D>(qr, frow(k, sk, b, hk, j)) * scale;
+    const float m_new = fmaxf(m, s);
+    const float alpha = expf(m - m_new), p = expf(s - m_new);
+    l = l * alpha + p;
+    const float* vr = frow(v, sv, b, hk, j);
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] = acc[d] * alpha + p * vr[d];
+    m = m_new;
+  }
+  float* orow = o + b * so.b + h * so.h + (long long)i * so.t;
+  const float inv = l == 0.f ? 0.f : 1.f / l;
+#pragma unroll
+  for (int d = 0; d < D; ++d) orow[d] = acc[d] * inv;
+  lse[idx] = l == 0.f ? -INFINITY : m + logf(l);
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32_NT)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, Strides sq, Strides sk,
+                        Strides sv, Strides sdo, Strides sdq, int B, int H,
+                        int Hk, int Tq, int Tk, float scale, int causal) {
+  const long long idx = (long long)blockIdx.x * F32_NT + threadIdx.x;
+  if (idx >= (long long)B * H * Tq) return;
+  const int i = idx % Tq, h = (idx / Tq) % H, b = idx / ((long long)Tq * H);
+  const int hk = h / (H / Hk);
+  const float ls = lse[idx], dl = delta[idx];
+  const int lim = isfinite(ls) ? key_limit(i, Tq, Tk, causal) : 0;
+  const float* qr = frow(q, sq, b, h, i);
+  const float* dr = frow(dout, sdo, b, h, i);
+  float acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int j = 0; j < lim; ++j) {
+    const float* kr = frow(k, sk, b, hk, j);
+    const float p = expf(dot<D>(qr, kr) * scale - ls);
+    const float ds = p * (dot<D>(dr, frow(v, sv, b, hk, j)) - dl) * scale;
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, kr[d], acc[d]);
+  }
+  float* out = dq + b * sdq.b + h * sdq.h + (long long)i * sdq.t;
+#pragma unroll
+  for (int d = 0; d < D; ++d) out[d] = acc[d];
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32_NT)
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         Strides sq, Strides sk, Strides sv, Strides sdo,
+                         Strides sdk, Strides sdv, int B, int H, int Hk,
+                         int Tq, int Tk, float scale, int causal) {
+  const long long idx = (long long)blockIdx.x * F32_NT + threadIdx.x;
+  if (idx >= (long long)B * Hk * Tk) return;
+  const int j = idx % Tk, hk = (idx / Tk) % Hk, b = idx / ((long long)Tk * Hk);
+  const int g = H / Hk;
+  const int istart = causal ? max(0, j - (Tk - Tq)) : 0;
+  const float* kr = frow(k, sk, b, hk, j);
+  const float* vr = frow(v, sv, b, hk, j);
+  float dka[D], dva[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) dka[d] = dva[d] = 0.f;
+  for (int hh = hk * g; hh < (hk + 1) * g; ++hh) {
+    for (int i = istart; i < Tq; ++i) {
+      const long long r = ((long long)b * H + hh) * Tq + i;
+      const float ls = lse[r];
+      if (!isfinite(ls)) continue;
+      const float* qr = frow(q, sq, b, hh, i);
+      const float* dr = frow(dout, sdo, b, hh, i);
+      const float p = expf(dot<D>(qr, kr) * scale - ls);
+      const float ds = p * (dot<D>(dr, vr) - delta[r]) * scale;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        dva[d] = fmaf(p, dr[d], dva[d]);
+        dka[d] = fmaf(ds, qr[d], dka[d]);
+      }
+    }
+  }
+  float* ok = dk + b * sdk.b + hk * sdk.h + (long long)j * sdk.t;
+  float* ov = dv + b * sdv.b + hk * sdv.h + (long long)j * sdv.t;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    ok[d] = dka[d];
+    ov[d] = dva[d];
+  }
+}
+
+// ------------------------------------------------------------ dispatch
+
+struct Dims {
+  int B, H, Hk, Tq, Tk, D;
+  float scale;
+  int causal;
+};
+
+bool dims_ok(const Dims& d) {
+  return d.B > 0 && d.H > 0 && d.Hk > 0 && d.H % d.Hk == 0 && d.Tq > 0 &&
+         d.Tk > 0 && (d.D == 64 || d.D == 128) && d.B <= 65535 &&
+         d.H <= 65535;
+}
+
+// the mma kernels load 16 bytes per row chunk: every row must start on a
+// 16-byte boundary (base pointers, and strides in multiples of 8 elements)
+bool aligned(const void* const* ptrs, int np, const long long* strides,
+             int ns) {
+  for (int i = 0; i < np; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
+  for (int i = 0; i < ns; ++i)
+    if (strides[i] % 8) return false;
+  return true;
+}
+
+Strides st(const long long* s, int i) {
+  return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+}
+
+unsigned blocks_for(long long n) {
+  return (unsigned)((n + F32_NT - 1) / F32_NT);
+}
+
+// Opt the kernel in to more than 48 KB of dynamic shared memory where it
+// needs it (head_dim 128), then launch.
+template <typename K>
+cudaError_t smem_opt_in(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <int D>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
+                void* lse, const long long* s, const Dims& d, bool bf,
+                cudaStream_t stream) {
+  if (bf) {
+    dim3 grid((d.Tq + BQ - 1) / BQ, d.H, d.B);
+    constexpr size_t smem = mma_smem_bytes<D>(false);
+    cudaError_t err = smem_opt_in(flash_fwd_mma_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_mma_kernel<D><<<grid, NT, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
+        (float*)lse, st(s, 0), st(s, 1), st(s, 2), st(s, 3), d.H, d.Hk,
+        d.Tq, d.Tk, d.scale, d.causal);
+  } else {
+    flash_fwd_f32_kernel<D><<<blocks_for((long long)d.B * d.H * d.Tq),
+                              F32_NT, 0, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o,
+        (float*)lse, st(s, 0), st(s, 1), st(s, 2), st(s, 3), d.B, d.H,
+        d.Hk, d.Tq, d.Tk, d.scale, d.causal);
+  }
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd_dq(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, const long long* s, const Dims& d, bool bf,
+                   cudaStream_t stream) {
+  if (bf) {
+    dim3 grid((d.Tq + BQ - 1) / BQ, d.H, d.B);
+    constexpr size_t smem = mma_smem_bytes<D>(false);
+    cudaError_t err = smem_opt_in(flash_bwd_dq_mma_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_mma_kernel<D><<<grid, NT, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        (const float*)lse, (const float*)delta, (bf16*)dq, st(s, 0),
+        st(s, 1), st(s, 2), st(s, 3), st(s, 4), d.H, d.Hk, d.Tq, d.Tk,
+        d.scale, d.causal);
+  } else {
+    flash_bwd_dq_f32_kernel<D><<<blocks_for((long long)d.B * d.H * d.Tq),
+                                 F32_NT, 0, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const float*)dout, (const float*)lse, (const float*)delta,
+        (float*)dq, st(s, 0), st(s, 1), st(s, 2), st(s, 3), st(s, 4), d.B,
+        d.H, d.Hk, d.Tq, d.Tk, d.scale, d.causal);
+  }
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dk, void* dv, const long long* s, const Dims& d,
+                    bool bf, cudaStream_t stream) {
+  if (bf) {
+    dim3 grid((d.Tk + BK - 1) / BK, d.Hk, d.B);
+    constexpr size_t smem = mma_smem_bytes<D>(true);
+    cudaError_t err = smem_opt_in(flash_bwd_dkv_mma_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_mma_kernel<D><<<grid, NT, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
+        st(s, 0), st(s, 1), st(s, 2), st(s, 3), st(s, 4), st(s, 5), d.H,
+        d.Hk, d.Tq, d.Tk, d.scale, d.causal);
+  } else {
+    flash_bwd_dkv_f32_kernel<D><<<blocks_for((long long)d.B * d.Hk * d.Tk),
+                                  F32_NT, 0, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const float*)dout, (const float*)lse, (const float*)delta,
+        (float*)dk, (float*)dv, st(s, 0), st(s, 1), st(s, 2), st(s, 3),
+        st(s, 4), st(s, 5), d.B, d.H, d.Hk, d.Tq, d.Tk, d.scale, d.causal);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q [B, H, Tq, D], k / v [B, Hk, Tk, D], o like q (element strides of
+// batch, head and time for q, k, v, o in `strides[12]`); lse [B, H, Tq]
+// fp32 contiguous.
+int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
+                     void* lse, const long long* strides, int B, int H,
+                     int Hk, int Tq, int Tk, int D, float scale, int causal,
+                     int is_bf16, void* stream) {
+  const Dims d{B, H, Hk, Tq, Tk, D, scale, causal};
+  const void* ptrs[4] = {q, k, v, o};
+  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
+  if (is_bf16 && !aligned(ptrs, 4, strides, 12))
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(D == 64 ? fwd<64>(q, k, v, o, lse, strides, d, is_bf16, s)
+                       : fwd<128>(q, k, v, o, lse, strides, d, is_bf16, s));
+}
+
+// + dout like q, delta like lse, dq like q (strides of q, k, v, dout, dq in
+// `strides[15]`)
+int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dq, const long long* strides, int B, int H,
+                        int Hk, int Tq, int Tk, int D, float scale,
+                        int causal, int is_bf16, void* stream) {
+  const Dims d{B, H, Hk, Tq, Tk, D, scale, causal};
+  const void* ptrs[5] = {q, k, v, dout, dq};
+  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
+  if (is_bf16 && !aligned(ptrs, 5, strides, 15))
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(D == 64 ? bwd_dq<64>(q, k, v, dout, lse, delta, dq, strides,
+                                    d, is_bf16, s)
+                       : bwd_dq<128>(q, k, v, dout, lse, delta, dq, strides,
+                                     d, is_bf16, s));
+}
+
+// + dk / dv like k (strides of q, k, v, dout, dk, dv in `strides[18]`)
+int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dk, void* dv, const long long* strides, int B,
+                         int H, int Hk, int Tq, int Tk, int D, float scale,
+                         int causal, int is_bf16, void* stream) {
+  const Dims d{B, H, Hk, Tq, Tk, D, scale, causal};
+  const void* ptrs[6] = {q, k, v, dout, dk, dv};
+  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
+  if (is_bf16 && !aligned(ptrs, 6, strides, 18))
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(D == 64 ? bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv,
+                                     strides, d, is_bf16, s)
+                       : bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv,
+                                      strides, d, is_bf16, s));
+}
+
+}  // extern "C"

@@ -24,3 +24,17 @@ def resolve_dtype(name: Any) -> torch.dtype:
         return DTYPES[name.lower()]
     except KeyError:
         raise ValueError(f"Unknown dtype '{name}'. Known: {sorted(DTYPES)}")
+
+
+def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
+    """Cast the floating-point tensors of a nested dict/list/tuple tree to
+    ``dtype``; other leaves unchanged. fp32 returns the tree as it is."""
+    if dtype == torch.float32:
+        return tree
+    if isinstance(tree, dict):
+        return {k: cast_floating(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_floating(v, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree

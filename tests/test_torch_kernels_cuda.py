@@ -1,4 +1,4 @@
-"""The CUDA kernels against their plain version, on the card only.
+"""The CUDA kernels against their plain versions, on the card only.
 
 This file imports no JAX (the card's machine has none), so it runs there:
 ``python -m pytest tests/test_torch_kernels_cuda.py -q``. Without a card
@@ -58,3 +58,45 @@ def test_kernels_match_plain_on_card(window):
             rel = (diff.norm() / ref.float().norm()).item()
             assert err <= tol and rel <= rel_tol, (dt, qq.shape, err, rel)
             assert not got[3].any(), "idle slot must emit zeros"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 200, 200, 4, 4, 64, True),        # T not a multiple of the tile
+    (2, 128, 384, 8, 2, 64, True),        # causal offset, GQA 8 -> 2
+    (2, 200, 200, 8, 2, 64, False),       # non-causal
+    (1, 256, 256, 2, 2, 128, True),       # head_dim 128
+])
+def test_flash_kernels_match_plain_on_card(shape):
+    """The three flash kernels against their plain versions on the card,
+    with BTHD views (strided rows) as the model passes them. Limits as in
+    chip_smoke.py: bf16 1.6e-2 max-abs and 2**-8 of the plain output's
+    norm (only bf16 reaches the tensor-core kernels), fp32 1e-5 max-abs
+    (the CUDA-core parity kernels), TF32 off for the plain fp32 products."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Tq, Tk, H, Hk, D, causal = shape
+    rng = np.random.default_rng(3)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in
+            ((B, Tq, H, D), (B, Tk, Hk, D), (B, Tk, Hk, D), (B, Tq, H, D))]
+    kw = dict(causal=causal, sm_scale=D ** -0.5)
+    for dt, tol, rel_tol in ((torch.float32, 1e-5, 1.0),
+                             (torch.bfloat16, 1.6e-2, 2.0 ** -8)):
+        q, k, v, do = (torch.from_numpy(a).cuda().to(dt).transpose(1, 2)
+                       for a in arrs)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        ro, rlse = fa.flash_fwd_plain(q, k, v, **kw)
+        delta = (do.float() * ro.float()).sum(-1).contiguous()
+        got = [o, lse, fa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw),
+               *fa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)]
+        ref = [ro, rlse, fa.flash_bwd_dq_plain(q, k, v, do, rlse, delta,
+                                               **kw),
+               *fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)]
+        torch.cuda.synchronize()
+        for name, g, r in zip(("o", "lse", "dq", "dk", "dv"), got, ref):
+            diff = g.float() - r.float()
+            err = diff.abs().max().item()
+            rel = (diff.norm() / r.float().norm()).item()
+            assert err <= tol and rel <= rel_tol, (dt, name, err, rel)

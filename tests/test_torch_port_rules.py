@@ -46,6 +46,23 @@ def test_cuda_requested_without_a_card_raises(monkeypatch):
     from deepspeed_tpu_torch.checkpoint import init_llama_params
     with pytest.raises(RuntimeError, match="CUDA"):
         init_llama_params(LlamaConfig.tiny(), seed=0)
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.checkpoint import init_gpt2_params
+    from deepspeed_tpu_torch.config.config import Config
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, make_model
+    from deepspeed_tpu_torch.runtime.engine import Engine
+    cfg = GPT2Config.tiny()
+    _, init_fn, loss_fn = make_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_gpt2_params(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_fn(seed=0)
+    params = init_gpt2_params(cfg, seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize(loss_fn=loss_fn, params=params,
+                   config={"train_batch_size": 2})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(loss_fn, params, Config.load({"train_batch_size": 2}))
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -67,14 +84,21 @@ def test_chip_smoke_refuses_without_card_or_checkout(tmp_path, alone):
 
 def test_import_builds_no_kernel():
     """Import every module of the port with process spawning disabled;
-    no library may be loaded and no nvcc started."""
+    no library may be loaded and no nvcc started. The walk reaches the
+    training slice's modules too (config, runtime, ops, models)."""
     code = (
         "import subprocess, sys, pkgutil, importlib\n"
         "def _no(*a, **k): raise AssertionError('spawned at import')\n"
         "subprocess.Popen = _no\n"
         "import deepspeed_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    p.__path__, p.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "need = {'config.config', 'runtime.engine', 'runtime.lr_schedules',\n"
+        "        'runtime.loss_scaler', 'ops.optimizers', 'models.gpt2',\n"
+        "        'models._lm_utils', 'ops.kernels.flash_attention'}\n"
+        "assert {p.__name__ + '.' + n for n in need} <= set(names), names\n"
         "from deepspeed_tpu_torch.ops.kernels import _build\n"
         "assert not _build._libs and not _build.build_logs\n"
         "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n"
