@@ -56,11 +56,45 @@ Phases, in order; any failure exits non-zero before the final line:
              its plain version, ``F.scaled_dot_product_attention`` (causal)
              forward and backward on the same q/k/v as a yardstick, and
              the bound.
+10. xent parity — the three fused-xent kernels against their plain
+             versions from the same inputs (the backward from the plain
+             forward's lse): bf16 and fp32 (the CUDA-core kernels), V =
+             50304 and 50257, N = 1000 (not a multiple of the 64-token
+             tile) with ignore ids (-100) and an id >= V, z-loss 1e-4 and
+             label smoothing 0.1, and the slice shape N = 4096 in bf16.
+             fp32, and the logit sum in bf16, within 1e-5 of the plain
+             output's norm; bf16 lse and target logit within 1e-3
+             absolute, dh and dE within 2**-8 of the plain output's norm
+             and XENT_BF16_MAX_REL of its largest magnitude.
+11. gpt1p3b — the JAX package's bench configuration (``bench.py``
+             ``bench_train("gpt1p3b")``: GPT-2, 24 layers, hidden 2048, 16
+             heads of 128, vocab 50304, seq 2048, bf16 params with fp32
+             LayerNorms, remat ``qkv_out``, AdamW lr 3e-4 with bf16
+             moments, bf16 gradient accumulation, micro batch 2, clip 1.0,
+             no scheduler, its seeded batch) at full width and depth with
+             ``xent_impl="fused"``: 2 warm-up and 5 timed steps (CUDA
+             events); losses finite and falling; launches 1 per step for
+             each xent kernel, 2 x 24 for flash_fwd (the ``qkv_out``
+             recompute), 24 for each flash backward kernel. Then the same
+             with ``xent_impl="chunked"``: its step-0 loss within 1e-5
+             relative of the fused run's, both step times side by side.
+12. fused training parity — 2 layers of that configuration, seq 512, 5
+             steps on 5 seeded batches: the kernels' losses against the
+             plain versions' (xent and flash swapped in), bf16 within 1e-4
+             relative, fp32 (params, compute, moments) with TF32 off
+             within 1e-6.
+13. xent timing — each xent kernel at the slice shape (N = 4096, V =
+             50304, C = 2048, bf16), its plain version, its bound, and two
+             library calls on the same h, E and t: ``F.linear`` +
+             ``F.cross_entropy(reduction="sum")`` forward, and its backward
+             (dh and dE together); the peak memory of a lone
+             ``fused_lm_xent`` forward and backward, which must stay below
+             one bf16 [N, V] tensor.
 
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3, and one over a
-``train_batch`` follows phase 7: the device's busy time against host wall
-time, and the top device ops.
+``train_batch`` follows phases 7 and 11: the device's busy time against
+host wall time, and the top device ops.
 
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -89,6 +123,13 @@ FP32_MAX_ABS = 1e-4
 # slice shape, half a bf16 ulp at magnitude 2-4; outputs reach ~5); fp32
 # ten times the largest reading (9.5e-7)
 FLASH_BF16_MAX_ABS, FLASH_FP32_MAX_ABS = 1.6e-2, 1e-5
+# xent kernels: fp32 (and the logit sum, an fp32 sum of V logits whose
+# order differs: 3.7e-3 apart at magnitude 1.9e3 in bf16) within 1e-5 of
+# the plain output's norm; bf16 lse and target logit within 1e-3
+# absolute; bf16 dh / dE max-abs within XENT_BF16_MAX_REL of the plain
+# output's largest magnitude, twice the largest first reading (4.4e-3,
+# about one bf16 ulp), and within 2**-8 of its norm
+XENT_REL, XENT_BF16_ROWS_ABS, XENT_BF16_MAX_REL = 1e-5, 1e-3, 9e-3
 H, KV, D = 32, 4, 64              # TinyLlama attention geometry
 SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/paged_attention.cu"
 FLASH_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/flash_attention.cu"
@@ -97,9 +138,16 @@ REPLACES = {"paged_prefill": "deepspeed_tpu/ops/kernels/paged_attention.py:45",
             "flash_fwd": "deepspeed_tpu/ops/kernels/flash_attention.py:44",
             "flash_bwd_dq": "deepspeed_tpu/ops/kernels/flash_attention.py:311",
             "flash_bwd_dkv":
-                "deepspeed_tpu/ops/kernels/flash_attention.py:359"}
+                "deepspeed_tpu/ops/kernels/flash_attention.py:359",
+            "xent_fwd": "deepspeed_tpu/ops/kernels/fused_xent.py:57",
+            "xent_bwd_dh": "deepspeed_tpu/ops/kernels/fused_xent.py:165",
+            "xent_bwd_de": "deepspeed_tpu/ops/kernels/fused_xent.py:192"}
+XENT_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/fused_xent.cu"
 # the training slice: GPT-2-1.3B, micro batch x gas, sequence
 TRAIN_MB, TRAIN_GAS, TRAIN_T, TRAIN_STEPS = 4, 2, 2048, 5
+# the gpt1p3b slice: micro batch, sequence; N = XENT_N tokens per step
+BENCH_MB, BENCH_T = 2, 2048
+XENT_N, XENT_V, XENT_C = BENCH_MB * BENCH_T, 50304, 2048
 
 
 def log(msg: str) -> None:
@@ -508,6 +556,7 @@ def phase_flash_parity(torch):
         (2, 200, 200, 8, 2, 64, False),
         (1, 256, 256, 2, 2, 128, True),
         (TRAIN_MB, TRAIN_T, TRAIN_T, 32, 32, 64, True),   # the slice shape
+        (BENCH_MB, BENCH_T, BENCH_T, 16, 16, 128, True),  # gpt1p3b's heads
     ]
     for B, Tq, Tk, Hh, Hk, Dh, causal in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -764,6 +813,381 @@ def phase_flash_timing(torch, train, worst):
     return rows
 
 
+# ---------------------------------------------------------------- fused xent
+
+
+XENT_OUTPUTS = (("xent_fwd", "lse"), ("xent_fwd", "tgt"),
+                ("xent_fwd", "lsum"), ("xent_bwd_dh", "dh"),
+                ("xent_bwd_de", "dE"))
+
+
+def xent_inputs(torch, *, N, V, C, dtype, seed, bad_ids=True):
+    """h like ln_f's output (unit rows), E like the seeded init scaled so
+    the logits have std 2, targets with ignore ids (-100) and one id >= V,
+    made on the card from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn(N, C, generator=g, device="cuda").to(dtype)
+    e = (torch.randn(V, C, generator=g, device="cuda")
+         * (2.0 / math.sqrt(C))).to(dtype)
+    t = torch.randint(0, V, (N,), generator=g, device="cuda",
+                      dtype=torch.int32)
+    if bad_ids:
+        t[::9] = -100
+        t[5] = V + 3
+    return h, e, t
+
+
+def xent_all(fx, h, e, t, scale, *, plain, **kw):
+    """The three kernels (or plain versions); both backward ones from the
+    plain forward's lse, so each is held against its plain version on
+    equal inputs."""
+    ref = fx.fused_xent_fwd_plain(h, e, t)
+    lse = ref[0]
+    if plain:
+        return [*ref, fx.fused_xent_dh_plain(scale, h, e, t, lse, **kw),
+                fx.fused_xent_de_plain(scale, h, e, t, lse, **kw)]
+    return [*fx.xent_fwd(h, e, t), fx.xent_bwd_dh(scale, h, e, t, lse, **kw),
+            fx.xent_bwd_de(scale, h, e, t, lse, **kw)]
+
+
+def phase_xent_parity(torch):
+    from deepspeed_tpu_torch.ops.kernels import fused_xent as fx
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 products
+    worst = {"xent_fwd": 0.0, "xent_bwd_dh": 0.0, "xent_bwd_de": 0.0}
+    cases = [
+        # (N, V, ignore, z, eps, dtypes)
+        (1000, 50257, -100, 1e-4, 0.1, ("fp32", "bf16")),
+        (1000, 50304, None, 0.0, 0.0, ("fp32", "bf16")),
+        (XENT_N, XENT_V, None, 0.0, 0.0, ("bf16",)),    # the slice shape
+    ]
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    for N, V, ignore, z, eps, names in cases:
+        for dn in names:
+            h, e, t = xent_inputs(torch, N=N, V=V, C=XENT_C,
+                                  dtype=dtypes[dn], seed=N + V,
+                                  bad_ids=N != XENT_N)
+            scale = torch.tensor([1.0 / N], device="cuda")
+            kw = dict(ignore=ignore, z=z, eps=eps)
+            got = xent_all(fx, h, e, t, scale, plain=False, **kw)
+            ref = xent_all(fx, h, e, t, scale, plain=True, **kw)
+            torch.cuda.synchronize()
+            for i, ((name, out), g_, r_) in enumerate(zip(XENT_OUTPUTS, got,
+                                                          ref)):
+                what = (f"[xent parity] {name} {out} {dn} N{N} V{V} "
+                        f"C{XENT_C} ignore={ignore} z={z} eps={eps}")
+                if g_.dtype != r_.dtype or g_.shape != r_.shape:
+                    raise AssertionError(f"{what}: {g_.dtype} "
+                                         f"{tuple(g_.shape)} != plain")
+                if not torch.isfinite(g_.float()).all():
+                    raise AssertionError(f"{what}: non-finite output")
+                diff = g_.float() - r_.float()
+                err = diff.abs().max().item()
+                rel = (diff.norm() / r_.float().norm().clamp_min(1e-30)
+                       ).item()
+                if dn == "fp32" or out == "lsum":
+                    ok, lim = rel <= XENT_REL, f"rel-norm {XENT_REL}"
+                elif i < 3:
+                    ok, lim = err <= XENT_BF16_ROWS_ABS, \
+                        f"max-abs {XENT_BF16_ROWS_ABS}"
+                else:
+                    top = r_.float().abs().max().item()
+                    ok = err <= XENT_BF16_MAX_REL * top and \
+                        rel <= BF16_REL_NORM
+                    lim = (f"max-abs {XENT_BF16_MAX_REL} x {top:.3e}, "
+                           f"rel-norm {BF16_REL_NORM:.3e}")
+                log(f"{what} max_abs_err={err:.3e} rel_norm_err={rel:.3e} "
+                    f"({lim})")
+                if not ok:
+                    raise AssertionError(f"{what} disagrees with plain")
+                if dn == "bf16":
+                    worst[name] = max(worst[name], err)
+            del h, e, t, got, ref
+    torch.cuda.empty_cache()
+    return worst
+
+
+def gpt1p3b_config(torch, **kw):
+    """``bench.py`` ``bench_train("gpt1p3b")``'s model: 24 layers, hidden
+    2048, 16 heads (head_dim 128), vocab 50304, max_seq_len 2049, bf16
+    params (fp32 LayerNorms), remat ``qkv_out``, flash tiles 1024."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    base = dict(vocab_size=50304, max_seq_len=BENCH_T + 1, num_layers=24,
+                num_heads=16, hidden_size=2048, dtype=torch.bfloat16,
+                param_dtype=torch.bfloat16, remat=True,
+                remat_policy="qkv_out", flash_block_q=1024,
+                flash_block_k=1024, xent_impl="fused")
+    base.update(kw)
+    return GPT2Config(**base)
+
+
+def gpt1p3b_ds(bf16=True):
+    """``bench.py``'s engine config for gpt1p3b (one card: ZeRO stage 0)."""
+    ds = {"train_micro_batch_size_per_gpu": BENCH_MB,
+          "gradient_accumulation_steps": 1,
+          "optimizer": {"type": "AdamW",
+                        "params": {"lr": 3e-4, "weight_decay": 0.01,
+                                   "moment_dtype": "bfloat16"}},
+          "bf16": {"enabled": True},
+          "data_types": {"grad_accum_dtype": "bfloat16"},
+          "zero_optimization": {"stage": 0},
+          "gradient_clipping": 1.0, "steps_per_print": 10_000}
+    if not bf16:
+        del ds["bf16"], ds["data_types"]
+        del ds["optimizer"]["params"]["moment_dtype"]
+    return ds
+
+
+def run_gpt1p3b(torch, xent_impl, trace=False):
+    """2 warm-up and 5 timed steps of the gpt1p3b configuration on the
+    bench's batch; per-step CUDA events, launches of the timed steps."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.checkpoint import init_gpt2_params
+    from deepspeed_tpu_torch.models.gpt2 import make_model
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_xent as fx
+    cfg = gpt1p3b_config(torch, xent_impl=xent_impl)
+    _, _, loss_fn = make_model(cfg)
+    t0 = time.perf_counter()
+    engine, *_ = initialize(loss_fn=loss_fn, config=gpt1p3b_ds(),
+                            params=init_gpt2_params(cfg, seed=0,
+                                                    device="cuda"))
+    n_params = sum(p.numel() for p in engine.state.params)
+    tokens = np.random.RandomState(0).randint(0, 50304,
+                                              size=(BENCH_MB, BENCH_T + 1))
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses = [engine.train_batch(batch) for _ in range(2)]     # warm-up
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    fx.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    evs = [torch.cuda.Event(enable_timing=True)
+           for _ in range(TRAIN_STEPS + 1)]
+    evs[0].record()
+    for i in range(TRAIN_STEPS):
+        losses.append(engine.train_batch(batch))
+        evs[i + 1].record()
+    torch.cuda.synchronize()
+    launches = {**fa.LAUNCHES, **fx.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(TRAIN_STEPS)]
+    out = {"params": n_params, "setup_s": setup_s, "step_ms": step_ms,
+           "losses": [float(x) for x in losses], "launches": launches,
+           "peak_bytes": peak}
+    if trace:
+        out["trace"] = phase_train_trace(torch, engine, batch)
+    del engine, batch
+    torch.cuda.empty_cache()
+    return cfg, out
+
+
+def phase_gpt1p3b(torch, trace):
+    # bf16 compute: the chunked run's only fp32 products are its LM head's,
+    # whose bf16 operands are exact in TF32 (chunked_lm_xent's docstring)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cfg, fused = run_gpt1p3b(torch, "fused", trace)
+    L = cfg.num_layers
+    want = {"xent_fwd": TRAIN_STEPS, "xent_bwd_dh": TRAIN_STEPS,
+            "xent_bwd_de": TRAIN_STEPS, "flash_fwd": 2 * L * TRAIN_STEPS,
+            "flash_bwd_dq": L * TRAIN_STEPS, "flash_bwd_dkv": L * TRAIN_STEPS}
+    if fused["launches"] != want:
+        raise AssertionError(f"launches {fused['launches']} != {want}")
+    losses = fused["losses"]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    _, chunked = run_gpt1p3b(torch, "chunked")
+    if any(chunked["launches"][k] for k in ("xent_fwd", "xent_bwd_dh",
+                                            "xent_bwd_de")):
+        raise AssertionError("the chunked run launched an xent kernel")
+    rel0 = abs(chunked["losses"][0] - losses[0]) / abs(losses[0])
+    if not rel0 <= 1e-5:
+        raise AssertionError(f"step-0 loss fused {losses[0]} vs chunked "
+                             f"{chunked['losses'][0]}: {rel0} > 1e-5")
+    tokens = BENCH_MB * BENCH_T
+    flops = model_flops_per_token(cfg, BENCH_T) * tokens
+    for run in (fused, chunked):
+        step_s = sum(run["step_ms"]) / TRAIN_STEPS / 1e3
+        run.update(tokens_per_s=tokens / step_s,
+                   model_tflops=flops / step_s / 1e12,
+                   mfu=flops / step_s / BF16_FLOPS_PER_S)
+    log(f"[gpt1p3b] {fused['params']} params; fused: step "
+        f"{sum(fused['step_ms']) / TRAIN_STEPS:.1f} ms, "
+        f"{fused['tokens_per_s']:.0f} tokens/s, {fused['model_tflops']:.1f} "
+        f"model TFLOP/s, MFU {fused['mfu']:.4f}; chunked: step "
+        f"{sum(chunked['step_ms']) / TRAIN_STEPS:.1f} ms, "
+        f"{chunked['tokens_per_s']:.0f} tokens/s, MFU "
+        f"{chunked['mfu']:.4f}; peak memory fused "
+        f"{fused['peak_bytes'] / 2**30:.2f} GiB, chunked "
+        f"{chunked['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"[gpt1p3b] step ms fused {[round(x, 2) for x in fused['step_ms']]}"
+        f" chunked {[round(x, 2) for x in chunked['step_ms']]}")
+    log(f"[gpt1p3b] losses fused {[round(x, 5) for x in losses]}; chunked "
+        f"{[round(x, 5) for x in chunked['losses']]}; step-0 rel "
+        f"{rel0:.3e} (limit 1e-5); launches {fused['launches']}")
+    return {"fused": fused, "chunked": chunked, "flops_per_step": flops,
+            "step0_rel": rel0,
+            "shape": {"micro_batch": BENCH_MB, "seq": BENCH_T,
+                      "layers": cfg.num_layers, "heads": cfg.num_heads,
+                      "hidden": cfg.hidden_size, "vocab": cfg.vocab_size}}
+
+
+@contextlib.contextmanager
+def plain_xent(fx):
+    """The fused-xent autograd Function with the plain versions swapped in
+    for the kernels, for the training-parity comparison only."""
+    saved = fx.xent_fwd, fx.xent_bwd_dh, fx.xent_bwd_de
+    fx.xent_fwd, fx.xent_bwd_dh, fx.xent_bwd_de = (
+        fx.fused_xent_fwd_plain, fx.fused_xent_dh_plain,
+        fx.fused_xent_de_plain)
+    try:
+        yield
+    finally:
+        fx.xent_fwd, fx.xent_bwd_dh, fx.xent_bwd_de = saved
+
+
+def phase_fused_training_parity(torch):
+    """2 layers of the gpt1p3b configuration, seq 512, 5 steps on 5
+    seeded batches: the kernels' losses against the plain versions' (bf16;
+    fp32 params, compute and moments with TF32 off)."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.checkpoint import init_gpt2_params
+    from deepspeed_tpu_torch.models.gpt2 import make_model
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_xent as fx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T = 512
+    g = torch.Generator(device="cuda").manual_seed(2)
+    out = {}
+    for prec, dtype, tol in (("bf16", torch.bfloat16, 1e-4),
+                             ("fp32", torch.float32, 1e-6)):
+        cfg = gpt1p3b_config(torch, num_layers=2, dtype=dtype,
+                             param_dtype=dtype)
+        # a fresh batch each step: on one repeated batch lr 3e-4 drives
+        # the loss from 11.3 to 0.5 in 5 steps, and bf16 rounding of the
+        # params amplifies the plain/kernel differences along the way
+        batches = [torch.randint(0, cfg.vocab_size, (BENCH_MB, T + 1),
+                                 generator=g, device="cuda")
+                   for _ in range(5)]
+        runs = {}
+        for path in ("kernels", "plain"):
+            _, _, loss_fn = make_model(cfg)
+            engine, *_ = initialize(
+                loss_fn=loss_fn, config=gpt1p3b_ds(prec == "bf16"),
+                params=init_gpt2_params(cfg, seed=1, device="cuda"))
+            fx.reset_launch_counts()
+            with contextlib.ExitStack() as stack:
+                if path == "plain":
+                    stack.enter_context(plain_flash(fa))
+                    stack.enter_context(plain_xent(fx))
+                runs[path] = [float(engine.train_batch({"tokens": b}))
+                              for b in batches]
+            n = list(fx.LAUNCHES.values())
+            if (path == "kernels" and not all(n)) or \
+                    (path == "plain" and any(n)):
+                raise AssertionError(f"{path}: xent launches {fx.LAUNCHES}")
+            del engine
+        rel = max(abs(a - b) / abs(b) for a, b in zip(runs["kernels"],
+                                                      runs["plain"]))
+        log(f"[fused training parity] {prec}: kernels {runs['kernels']} "
+            f"plain {runs['plain']} max rel {rel:.3e} (limit {tol})")
+        if not rel <= tol:
+            raise AssertionError(f"fused training parity {prec}: {rel} > "
+                                 f"{tol}")
+        out[prec] = {"kernels": runs["kernels"], "plain": runs["plain"],
+                     "max_rel": rel}
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_xent_timing(torch, bench, worst):
+    """Each xent kernel at the slice shape (N = 4096 tokens of one step,
+    V = 50304, C = 2048, bf16), its plain version, the library pair and
+    the bound; the peak memory of a lone fused_lm_xent."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import fused_xent as fx
+    N, V, C = XENT_N, XENT_V, XENT_C
+    h, e, t = xent_inputs(torch, N=N, V=V, C=C, dtype=torch.bfloat16,
+                          seed=7, bad_ids=False)
+    scale = torch.tensor([1.0 / N], device="cuda")
+    kw = dict(ignore=None, z=0.0, eps=0.0)
+    lse = fx.xent_fwd(h, e, t)[0]
+    calls = {
+        "xent_fwd": (lambda: fx.xent_fwd(h, e, t),
+                     lambda: fx.fused_xent_fwd_plain(h, e, t)),
+        "xent_bwd_dh": (lambda: fx.xent_bwd_dh(scale, h, e, t, lse, **kw),
+                        lambda: fx.fused_xent_dh_plain(scale, h, e, t, lse,
+                                                       **kw)),
+        "xent_bwd_de": (lambda: fx.xent_bwd_de(scale, h, e, t, lse, **kw),
+                        lambda: fx.fused_xent_de_plain(scale, h, e, t, lse,
+                                                       **kw)),
+    }
+    # the library pair on the same h, E, t: bf16 logits, then the loss
+    hs, es = (x.detach().requires_grad_() for x in (h, e))
+    tl = t.long()
+    lib_fwd = _time_ms(torch, lambda: F.cross_entropy(
+        F.linear(h, e), tl, reduction="sum"), 20)
+    loss = F.cross_entropy(F.linear(hs, es), tl, reduction="sum")
+    lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(
+        loss, (hs, es), retain_graph=True), 20)
+    del loss, hs, es
+    torch.cuda.empty_cache()
+    # a lone forward and backward of the loss: no [N, V] tensor
+    hl, el = (x.detach().requires_grad_() for x in (h, e))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fx.fused_lm_xent(hl, el, t).backward()
+    torch.cuda.synchronize()
+    lone_peak = torch.cuda.max_memory_allocated() - base
+    if not lone_peak < N * V * 2:
+        raise AssertionError(f"fused_lm_xent peaked {lone_peak} bytes over "
+                             f"its inputs: an [N, V] tensor was made")
+    log(f"[xent timing] lone fused_lm_xent forward+backward: peak "
+        f"{lone_peak / 2**20:.1f} MiB over its inputs (one bf16 [N, V] "
+        f"tensor is {N * V * 2 / 2**20:.1f} MiB)")
+    del hl, el
+    mm = 2 * N * V * C
+    in_bytes = (N * C + V * C) * 2 + N * 4
+    work = {  # (logits products, bytes in/out)
+        "xent_fwd": (1, in_bytes + 3 * N * 4),
+        "xent_bwd_dh": (2, in_bytes + N * 4 + N * C * 2),
+        "xent_bwd_de": (2, in_bytes + N * 4 + V * C * 2)}
+    rows = []
+    for name, (kern, plain) in calls.items():
+        ms = _time_ms(torch, kern, 20)
+        plain_ms = _time_ms(torch, plain, 3)
+        n_mm, nbytes = work[name]
+        flops = n_mm * mm
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        launches = bench["fused"]["launches"][name]
+        rows.append({
+            "name": name, "route": "cuda", "source": XENT_SOURCE,
+            "replaces": REPLACES[name], "launches": launches,
+            "launches_per_step": launches // TRAIN_STEPS,
+            "steps": TRAIN_STEPS, "max_abs_err": worst[name],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": {"xent_fwd": lib_fwd,
+                           "xent_bwd_dh": lib_bwd}.get(name),
+            "library_calls": "F.linear + F.cross_entropy(sum), bf16; "
+                             "forward, and backward (dh and dE together)",
+            "library_fwd_ms": lib_fwd, "library_bwd_ms": lib_bwd,
+            "lone_call_peak_bytes": lone_peak,
+            "shape": {"N": N, "V": V, "C": C, "dtype": "bf16"},
+            "bytes": nbytes, "flops": flops})
+        log(f"[xent timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+            f"bound {max(t_ops, t_bytes):.4f} by {rows[-1]['bound_by']}; "
+            f"library forward {lib_fwd:.4f}, backward {lib_bwd:.4f})")
+    del h, e, t
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv) -> int:
     unknown = [a for a in argv if a != "--trace"]
     if unknown:
@@ -792,6 +1216,7 @@ def main(argv) -> int:
     phase_build()
     worst = phase_parity(torch)
     flash_worst = phase_flash_parity(torch)
+    xent_worst = phase_xent_parity(torch)
     serving, eng, prompts = phase_serving(torch)
     trace = phase_trace(torch, eng, prompts) if tracing else None
     del eng
@@ -801,16 +1226,24 @@ def main(argv) -> int:
     train = phase_training(torch, tracing)
     train_parity = phase_training_parity(torch)
     rows += phase_flash_timing(torch, train, flash_worst)
+    bench = phase_gpt1p3b(torch, tracing)
+    fused_parity = phase_fused_training_parity(torch)
+    rows += phase_xent_timing(torch, bench, xent_worst)
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     result = {"kernels": rows, "card": card,
               "serving": {k: serving[k] for k in
                           ("prefill_s", "decode_s", "decode_tokens",
                            "peak_bytes", "steps")},
               "training": {k: v for k, v in train.items() if k != "trace"},
-              "training_parity": train_parity}
+              "training_parity": train_parity,
+              "gpt1p3b": {k: ({kk: vv for kk, vv in v.items()
+                               if kk != "trace"} if isinstance(v, dict)
+                              else v) for k, v in bench.items()},
+              "fused_training_parity": fused_parity}
     if trace is not None:
         result["trace"] = trace
         result["train_trace"] = train["trace"]
+        result["gpt1p3b_trace"] = bench["fused"]["trace"]
     print(json.dumps(result), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

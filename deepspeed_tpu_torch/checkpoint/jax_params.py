@@ -15,8 +15,9 @@ So does the GPT-2 tree: ``wte/embedding`` [V, C], ``wpe/embedding``
 ``h_i/mlp/c_fc/{kernel [C, 4C], bias [4C]}``,
 ``h_i/mlp/c_proj/{kernel [4C, C], bias [C]}`` and ``ln_f/{scale,bias}``.
 Dense kernels stay in flax's ``[in, out]`` layout (the port's ``Dense``
-computes ``x @ kernel``); every leaf takes one dtype, the master params'
-(fp32 by default).
+computes ``x @ kernel``). The LayerNorm scales and biases are fp32 whatever
+``param_dtype`` is, as flax makes them (its ``nn.LayerNorm`` is built
+without ``param_dtype``); every other leaf takes ``param_dtype``.
 """
 
 from __future__ import annotations
@@ -64,6 +65,14 @@ def llama_param_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
 
 def _is_scale(path: Tuple[str, ...]) -> bool:
     return path[-1] == "scale"
+
+
+def _is_layer_norm(path: Tuple[str, ...]) -> bool:
+    return len(path) > 1 and path[-2] in ("ln_1", "ln_2", "ln_f")
+
+
+def _gpt2_dtype(path: Tuple[str, ...], dt: torch.dtype) -> torch.dtype:
+    return torch.float32 if _is_layer_norm(path) else dt
 
 
 def _map_tree(shapes: Mapping[str, Any], fn, path=()) -> Dict[str, Any]:
@@ -176,11 +185,12 @@ def gpt2_params_from_numpy(tree: Mapping[str, Any], cfg: GPT2Config,
                            dtype: Any = None) -> Dict[str, Any]:
     """The JAX GPT-2 tree (leaves as numpy arrays) -> the port's tree of
     torch tensors on ``device`` (default ``cuda``) in ``dtype`` (default
-    ``cfg.param_dtype``). Paths and shapes are checked against ``cfg``."""
+    ``cfg.param_dtype``; the LayerNorm leaves stay fp32). Paths and shapes
+    are checked against ``cfg``."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype if dtype is not None else cfg.param_dtype)
-    return _from_numpy(tree, gpt2_param_shapes(cfg),
-                       lambda path: dict(device=dev, dtype=dt))
+    return _from_numpy(tree, gpt2_param_shapes(cfg), lambda path: dict(
+        device=dev, dtype=_gpt2_dtype(path, dt)))
 
 
 def init_gpt2_params(cfg: GPT2Config, seed: int = 0, device: Any = None,
@@ -189,7 +199,8 @@ def init_gpt2_params(cfg: GPT2Config, seed: int = 0, device: Any = None,
     ``cuda``) with an explicit ``torch.Generator``, at flax's default
     scales: Dense kernels and embeddings normal with variance 1/fan_in
     (an embedding's fan-in is its width), biases zero, LayerNorm scales
-    one."""
+    one. The LayerNorm leaves are fp32, the rest ``dtype`` (default
+    ``cfg.param_dtype``)."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype if dtype is not None else cfg.param_dtype)
     gen = torch.Generator(device=dev)
@@ -197,9 +208,10 @@ def init_gpt2_params(cfg: GPT2Config, seed: int = 0, device: Any = None,
 
     def make(path, shape):
         if path[-1] == "scale":
-            return torch.ones(shape, dtype=dt, device=dev)
+            return torch.ones(shape, dtype=_gpt2_dtype(path, dt), device=dev)
         if path[-1] == "bias":
-            return torch.zeros(shape, dtype=dt, device=dev)
+            return torch.zeros(shape, dtype=_gpt2_dtype(path, dt),
+                               device=dev)
         fan_in = shape[1] if path[-1] == "embedding" else shape[0]
         t = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=dev)

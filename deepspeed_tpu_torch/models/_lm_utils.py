@@ -41,25 +41,35 @@ def lm_head_xent(hidden: torch.Tensor, head: torch.Tensor,
     """LM-head loss dispatch for the model zoo: reads the ``xent_*`` knobs
     off ``cfg`` (with the JAX package's defaults). ``head_layout`` is
     "vc" for a [V, C] head (the tied embedding) or "cv" for a [C, V] Dense
-    kernel. ``xent_impl="fused"`` (the streaming Pallas kernel in the JAX
-    package) is not ported yet (ROADMAP B4)."""
+    kernel. ``xent_impl="fused"`` runs the streaming kernels
+    (``ops/kernels/fused_xent.py``), which want [V, C] rows: "cv" pays one
+    transposed copy there, as in the JAX package. The JAX package's
+    shard_map branches (a manual seam, several devices) are not ported:
+    under a process group of more than one rank the fused path raises
+    (ROADMAP A8)."""
     if head_layout not in ("vc", "cv"):
         raise ValueError(f"head_layout must be 'vc' or 'cv', "
                          f"got {head_layout!r}")
     impl = getattr(cfg, "xent_impl", "chunked")
-    if impl == "fused":
-        raise NotImplementedError(
-            "xent_impl='fused' (the fused LM-head cross-entropy kernels) is "
-            "not ported yet (ROADMAP B4)")
-    if impl != "chunked":
+    if impl not in ("chunked", "fused"):
         raise ValueError(
             f"xent_impl must be 'chunked' or 'fused', got {impl!r}")
+    ignore = getattr(cfg, "xent_ignore_index", None)
+    if impl == "fused":
+        if torch.distributed.is_available() and \
+                torch.distributed.is_initialized() and \
+                torch.distributed.get_world_size() > 1:
+            raise NotImplementedError(
+                "xent_impl='fused' over several ranks (the JAX package's "
+                "shard_map wrapper) is not ported (ROADMAP A8)")
+        from ..ops.kernels.fused_xent import fused_lm_xent
+        if head_layout == "cv":
+            head = head.t().contiguous()
+        return fused_lm_xent(hidden, head, targets, ignore_index=ignore)
     return chunked_lm_xent(hidden, head, targets,
                            num_chunks=getattr(cfg, "xent_chunks", 8),
                            remat=getattr(cfg, "xent_remat", True),
-                           ignore_index=getattr(cfg, "xent_ignore_index",
-                                                None),
-                           head_layout=head_layout)
+                           ignore_index=ignore, head_layout=head_layout)
 
 
 def _chunk_nll(h: torch.Tensor, emb: torch.Tensor, t: torch.Tensor,

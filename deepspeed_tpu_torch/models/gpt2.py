@@ -44,8 +44,8 @@ class GPT2Config:
     dtype: Any = torch.bfloat16        # compute dtype
     param_dtype: Any = torch.float32
     remat: bool = False
-    # "full" (torch.utils.checkpoint per block) is ported; the named
-    # policies of the JAX package are not
+    # "full", "dots", "no_mlp", "no_gelu", "qkv_out" or "save:<names>"
+    # over CHECKPOINT_NAMES: what a block keeps for its backward (below)
     remat_policy: str = "full"
     use_bias: bool = True
     layer_norm_eps: float = 1e-5
@@ -83,10 +83,8 @@ class GPT2Config:
             raise NotImplementedError(
                 "GPT-2 dropout > 0 is not ported (it needs the JAX "
                 "package's RNG stream)")
-        if self.remat and self.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r} is not ported; "
-                f"'full' is")
+        if self.remat:
+            kept_stages(self.remat_policy)           # ValueError if unknown
         if self.attention_impl == "flash_sharded":
             raise NotImplementedError(
                 "attention_impl='flash_sharded' is not ported (ROADMAP A8)")
@@ -94,9 +92,6 @@ class GPT2Config:
             raise ValueError(
                 f"attention_impl must be 'auto', 'flash', 'flash_sharded' "
                 f"or 'xla', got {self.attention_impl!r}")
-        if self.xent_impl == "fused":
-            raise NotImplementedError(
-                "xent_impl='fused' is not ported yet (ROADMAP B4)")
 
 
 def _meta(*shape) -> nn.Parameter:
@@ -173,18 +168,18 @@ class CausalSelfAttention(nn.Module):
         self.c_attn = Dense(C, 3 * C, cfg)
         self.c_proj = Dense(C, C, cfg)
 
-    def forward(self, x):
+    def core(self, qkv):
+        """Attention of the fused qkv projection [B, T, 3C] -> [B, T, C]."""
         cfg = self.cfg
-        B, T, C = x.shape
+        B, T, C = qkv.shape[0], qkv.shape[1], cfg.hidden_size
         H, D = cfg.num_heads, cfg.head_dim
-        qkv = self.c_attn(x)
         # contiguous thirds q | k | v, each [B, T, H, D] (views, no copy)
         q, k, v = (t.unflatten(-1, (H, D)) for t in qkv.split(C, dim=-1))
         impl = cfg.attention_impl
         if impl == "auto":
             # the kernels on a card, plain attention on the CPU (the JAX
             # package: Pallas flash on one TPU, XLA attention elsewhere)
-            impl = "flash" if x.is_cuda else "xla"
+            impl = "flash" if qkv.is_cuda else "xla"
         if impl == "flash":
             from ..ops.kernels.flash_attention import flash_attention
             y = flash_attention(q, k, v, causal=True, layout="BTHD",
@@ -192,7 +187,7 @@ class CausalSelfAttention(nn.Module):
                                 block_k=cfg.flash_block_k)
         else:
             y = dense_attention(q, k, v, causal=True)
-        return self.c_proj(y.reshape(B, T, C))
+        return y.reshape(B, T, C)
 
 
 class MLP(nn.Module):
@@ -202,8 +197,82 @@ class MLP(nn.Module):
         self.c_fc = Dense(C, cfg.mlp_ratio * C, cfg)
         self.c_proj = Dense(cfg.mlp_ratio * C, C, cfg)
 
-    def forward(self, x):
-        return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
+
+#: the JAX package's ``checkpoint_name`` tags of a block's activations
+CHECKPOINT_NAMES = ("qkv", "attn_out", "mlp_pre_act", "mlp_act")
+#: a block as a chain of stages: each stage's name and the names it reads
+#: ("x" is the block's input); "qkv", "attn_out", "mlp_pre_act" and
+#: "mlp_act" are the tagged activations, "mlp_out" the MLP's last product
+STAGES = (("ln_1", ("x",)), ("qkv", ("ln_1",)), ("attn", ("qkv",)),
+          ("attn_out", ("attn",)), ("res", ("x", "attn_out")),
+          ("ln_2", ("res",)), ("mlp_pre_act", ("ln_2",)),
+          ("mlp_act", ("mlp_pre_act",)), ("mlp_out", ("mlp_act",)),
+          ("out", ("res", "mlp_out")))
+_READS = dict(STAGES)
+
+
+def kept_stages(policy: str) -> frozenset:
+    """The stages whose outputs a block keeps for its backward under a
+    remat policy, as the JAX package's ``jax.checkpoint`` policies keep
+    them (``deepspeed_tpu/models/gpt2.py:198-231``); the block's input is
+    always kept. ``dots`` keeps the Dense products' outputs (never the
+    attention kernel's inside: a Pallas call is no ``dot_general``);
+    ``no_mlp`` / ``no_gelu`` keep everything but the named activations;
+    ``qkv_out`` keeps qkv and the attention output; ``save:a,b`` the
+    named ones; ``full`` nothing."""
+    every = frozenset(name for name, _ in STAGES)
+    if policy == "full":
+        return frozenset()
+    if policy == "dots":
+        return frozenset(("qkv", "attn_out", "mlp_pre_act", "mlp_out"))
+    if policy == "no_mlp":
+        return every - {"mlp_pre_act", "mlp_act"}
+    if policy == "no_gelu":
+        return every - {"mlp_act"}
+    if policy == "qkv_out":
+        return frozenset(("qkv", "attn_out"))
+    if policy.startswith("save:"):
+        names = frozenset(n for n in policy[5:].split(",") if n)
+        unknown = names - set(CHECKPOINT_NAMES)
+        if unknown:
+            raise ValueError(f"remat_policy {policy!r}: unknown names "
+                             f"{sorted(unknown)}; known {CHECKPOINT_NAMES}")
+        return names
+    raise ValueError(f"unknown remat_policy {policy!r}: 'full', 'dots', "
+                     f"'no_mlp', 'no_gelu', 'qkv_out' or 'save:<names>'")
+
+
+def _evaluated(target: str, have) -> list:
+    """The stages computing ``target`` evaluates from the names in
+    ``have``, in order."""
+    out: list = []
+
+    def visit(name):
+        if name in have or name in out:
+            return
+        for dep in _READS[name]:
+            visit(dep)
+        out.append(name)
+    visit(target)
+    return out
+
+
+def remat_segments(policy: str):
+    """The block's forward as segments ``(target, inputs, recompute)``:
+    each computes ``target`` from the kept ``inputs``; a segment that
+    evaluates a stage the policy does not keep runs under
+    ``torch.utils.checkpoint`` (``recompute``), the others run plainly."""
+    kept = kept_stages(policy) | {"out"}
+    have = {"x"}
+    segs = []
+    for name, _ in STAGES:
+        if name not in kept:
+            continue
+        ev = _evaluated(name, have)
+        inputs = tuple(sorted({d for s in ev for d in _READS[s]} & have))
+        segs.append((name, inputs, any(s not in kept for s in ev)))
+        have.add(name)
+    return segs
 
 
 class Block(nn.Module):
@@ -214,13 +283,38 @@ class Block(nn.Module):
         self.ln_2 = LayerNorm(cfg.hidden_size, cfg)
         self.mlp = MLP(cfg)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+    def stage(self, name: str, *a):
+        if name == "ln_1":
+            return self.ln_1(a[0])
+        if name == "qkv":
+            return self.attn.c_attn(a[0])
+        if name == "attn":
+            return self.attn.core(a[0])
+        if name == "attn_out":
+            return self.attn.c_proj(a[0])
+        if name == "ln_2":
+            return self.ln_2(a[0])
+        if name == "mlp_pre_act":
+            return self.mlp.c_fc(a[0])
+        if name == "mlp_act":
+            return F.gelu(a[0], approximate="tanh")
+        if name == "mlp_out":
+            return self.mlp.c_proj(a[0])
+        return a[0] + a[1]                              # "res", "out"
+
+    def forward(self, x, target: str = "out"):
+        """The block (``x`` a tensor), or one stage ``target`` of it from a
+        dict of the stages already computed."""
+        env = dict(x) if isinstance(x, dict) else {"x": x}
+        for name in _evaluated(target, env):
+            env[name] = self.stage(name, *(env[d] for d in _READS[name]))
+        return env[target]
 
 
-def _run_block(block: Block, names, x, *tensors):
-    return functional_call(block, dict(zip(names, tensors)), (x,))
+def _run_segment(block: Block, names, target, inputs, *tensors):
+    n = len(inputs)
+    return functional_call(block, dict(zip(names, tensors[n:])),
+                           (dict(zip(inputs, tensors[:n])), target))
 
 
 class GPT2(nn.Module):
@@ -239,17 +333,24 @@ class GPT2(nn.Module):
         T = tokens.shape[1]
         x = self.wte(tokens) + self.wpe(
             torch.arange(T, device=tokens.device)[None, :])
+        segments = remat_segments(cfg.remat_policy) if cfg.remat else None
         for i in range(cfg.num_layers):
             block = getattr(self, f"h_{i}")
-            if cfg.remat:
-                # the block's tensors pass through checkpoint explicitly:
-                # its recompute runs in the backward pass, after an outer
-                # functional_call has put the meta parameters back
-                names, tensors = zip(*block.named_parameters())
-                x = checkpoint(_run_block, block, names, x, *tensors,
-                               use_reentrant=False)
-            else:
+            if segments is None:
                 x = block(x)
+                continue
+            # a segment's recompute runs in the backward pass, after an
+            # outer functional_call has put the meta parameters back: the
+            # block's tensors pass through checkpoint explicitly
+            names, tensors = zip(*block.named_parameters())
+            env = {"x": x}
+            for target, inputs, recompute in segments:
+                given = {k: env[k] for k in inputs}
+                env[target] = checkpoint(
+                    _run_segment, block, names, target, inputs,
+                    *given.values(), *tensors, use_reentrant=False) \
+                    if recompute else block(given, target)
+            x = env["out"]
         x = self.ln_f(x)
         if return_hidden:
             return x
@@ -260,9 +361,10 @@ class GPT2(nn.Module):
 def make_model(cfg: GPT2Config):
     """``(model, init_fn, loss_fn)``. ``loss_fn(params, batch, generator)``
     is the engine's contract: batch = ``{"tokens": [B, T+1]}``, params the
-    nested dict of flax's paths, the mean next-token NLL through the
-    chunked LM-head loss. ``init_fn(seed=0, device=None)`` makes seeded
-    weights (``checkpoint.jax_params.init_gpt2_params``)."""
+    nested dict of flax's paths, the mean next-token NLL through
+    ``lm_head_xent`` (chunked or fused, by ``cfg.xent_impl``).
+    ``init_fn(seed=0, device=None)`` makes seeded weights
+    (``checkpoint.jax_params.init_gpt2_params``)."""
     model = GPT2(cfg)
 
     def init_fn(seed: int = 0, device: Any = None):

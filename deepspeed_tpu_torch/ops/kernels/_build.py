@@ -45,6 +45,14 @@ SIGNATURES = {
         "flash_bwd_dq_launch": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
         "flash_bwd_dkv_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
     },
+    # h, e, targets, out, partials, N, V, C, splits, is_bf16, stream
+    "fused_xent": {
+        "xent_fwd_launch": [_P] * 5 + [_I] * 5 + [_P],
+        # scale, h, e, targets, lse, out, N, V, C, has_ignore, ignore, z,
+        # eps, is_bf16, out_f32, stream
+        "xent_bwd_dh_launch": [_P] * 6 + [_I] * 5 + [_F, _F, _I, _I, _P],
+        "xent_bwd_de_launch": [_P] * 6 + [_I] * 5 + [_F, _F, _I, _I, _P],
+    },
 }
 
 

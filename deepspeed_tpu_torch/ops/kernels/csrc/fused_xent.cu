@@ -1,0 +1,760 @@
+// Fused LM-head cross-entropy for Hopper (sm_90a): the three kernels of
+// the streaming xent, none of which writes the [N, V] logits to memory.
+//
+// xent_fwd replaces the Pallas kernel `_fwd_kernel`
+//   (deepspeed_tpu/ops/kernels/fused_xent.py:57, launched at :118): per
+//   token, the online logsumexp over the vocabulary, the target logit and
+//   the sum of the real vocabulary's logits. A block owns 64 tokens and one
+//   split of the vocabulary and writes partial (max, sum, target, total)
+//   rows; a second small kernel combines the splits (the Pallas grid walks
+//   the whole vocabulary in order on one core, a GPU block cannot).
+// xent_bwd_dh replaces `_dh_kernel` (:165, launched at :280):
+//   dh = scale * P' . E over the vocabulary walk.
+// xent_bwd_de replaces `_de_kernel` (:192, launched at :299):
+//   dE = scale * P'^T . h over the token walk.
+// P' is `_grad_p` (:144): (1 + 2 z lse) P - (1 - eps) onehot - eps / V over
+// the real vocabulary, zero for a token whose target is out of range or
+// the ignore id, and for tokens past N.
+//
+// Bound on the H100: operations. One logits product is 2 N V C FLOP
+// (8.4e11 at N = 4096, V = 50304, C = 2048: 0.85 ms at 989 TFLOP/s)
+// against ~0.2 GB of operands, so bf16 runs on the tensor cores
+// (mma.sync m16n8k16, fp32 accumulate, 4 warps of 16 rows each, ldmatrix
+// fragments, 64 x 64 operand slabs of the C axis double-buffered in shared
+// memory with cp.async).
+//
+// The backward's design, and its cost. The Pallas kernels keep a whole
+// [Tb, C] (dh) or [Vb, C] (dE) fp32 accumulator in VMEM; at C = 2048 that
+// is more than an SM's shared memory and registers. So a backward block
+// owns a 64-row tile of the output and a CB-column slab of it (CB = 128),
+// walks the opposite axis in 64-wide tiles, recomputes each logits tile
+// over the full C, forms P' in registers, casts it to bf16 (where the
+// Pallas kernels cast) and multiplies it into its slab. The logits product
+// is thus repeated C / CB times: at C = 2048 each backward kernel does
+// 16 logits products plus its own, 17 in all, where the bound counts 2.
+// A thread-block cluster sharing the logits tile through distributed
+// shared memory, and wgmma with TMA, are the way down (later work).
+//
+// Numerics follow the Pallas kernels: logits in fp32 from bf16 operands;
+// the target logit taken before the vocabulary mask (rows of E past V are
+// staged as zeros, so an id in the padded tile reads 0, as with the JAX
+// wrapper's zero padding); the 1e-37 floor inside the log; P' cast to
+// bf16 before its product, sums in fp32, scale applied at the end.
+//
+// fp32 inputs run simple CUDA-core kernels (256 threads, 4 x 4 outputs a
+// thread from 64 x 16 shared tiles), a parity oracle for the indexing and
+// masking at a tight tolerance; they are not meant to be fast.
+//
+// Layout: h [N, C], E [V, C] row-major and contiguous, targets int32 [N],
+// lse fp32 [N], scale a one-element fp32 device array (the loss's
+// cotangent, read on the device: no host sync). C is a multiple of 64.
+// Ragged token and vocabulary tiles are masked in the kernels (no padded
+// copies). Kernels launch on the caller's stream, do not synchronise and
+// allocate nothing; each C entry point returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int NT = 128;            // threads of the mma kernels (4 warps)
+constexpr int BM = 64;             // rows of a block's tile
+constexpr int BN = 64;             // columns of a logits tile
+constexpr int BK = 64;             // depth of one staged slab of C
+constexpr int LDK = BK + 8;        // padded slab row (conflict-free ldmatrix)
+constexpr int SLAB = BM * LDK;     // elements of one staged slab
+constexpr int F_NT = 256;          // threads of the fp32 kernels
+constexpr int FK = 16;             // depth of an fp32 shared tile
+constexpr int FB = 64;             // fp32 output slab width
+
+// c += a * b for one m16n8k16 tile. Fragment layout (PTX ISA, mma.m16n8k16
+// .bf16), with quad = lane / 4 and qi = lane % 4:
+//   a[0..3]: rows quad / quad+8 / quad / quad+8, columns 2qi..2qi+1 (+8
+//            for a[2], a[3]) of the 16 x 16 A tile;
+//   b0, b1:  rows (k) 2qi..2qi+1 (+8 for b1), column (n) quad of B;
+//   c[0..3]: rows quad, quad, quad+8, quad+8; columns 2qi, 2qi+1 (x2).
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without waiting, or zeros when `live` is false
+// (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. Plain: lane t gets row t / 4, columns
+// 2 (t % 4), +1 of each; .trans: column t / 4, rows 2 (t % 4), +1.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Start copying rows [r0, r0 + 64), columns [k0, k0 + W) of a row-major
+// [rows, C] matrix into a [64][W + 8] shared tile; rows at or past `rows`
+// are zeros.
+template <int W>
+__device__ __forceinline__ void stage(bf16* dst, const bf16* src, int C,
+                                      int r0, int rows, int k0) {
+  constexpr int CH = W / 8;
+  for (int i = threadIdx.x; i < BM * CH; i += NT) {
+    const int r = i / CH, ch = i % CH;
+    const bool live = r0 + r < rows;
+    cp_async16(dst + r * (W + 8) + ch * 8,
+               src + (live ? (long long)(r0 + r) * C + k0 + ch * 8 : 0),
+               live);
+  }
+}
+
+// acc[16 x 64] += A[16 x 64] . B[64 x 64]^T over one staged slab: this
+// warp's 16 rows of the A slab against the 64 rows of the B slab.
+__device__ __forceinline__ void mma_slab(float (&acc)[8][4], const bf16* a,
+                                         const bf16* b, int warp, int lane) {
+  const bf16* abase = a + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8)
+                              * LDK + (lane >> 4) * 8;
+  uint32_t af[BK / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) ldsm_x4(af[kk], abase + kk * 16);
+  const bf16* bbase = b + (lane & 7) * LDK + (lane >> 3) * 8;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; kk += 2) {
+      uint32_t r[4];
+      ldsm_x4(r, bbase + nt * 8 * LDK + kk * 16);
+      mma_16816(acc[nt], af[kk], r[0], r[1]);
+      mma_16816(acc[nt], af[kk + 1], r[2], r[3]);
+    }
+  }
+}
+
+// out[16 x W] += P[16 x 64] . tile[64][W], P given as the C fragments of a
+// mma_slab result (re-packed to bf16 A fragments here).
+template <int W>
+__device__ __forceinline__ void mma_pv(float (&out)[W / 8][4],
+                                       const float (&p)[8][4],
+                                       const bf16* tile, int lane) {
+  constexpr int LD = W + 8;
+  const bf16* base =
+      tile + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {pack2(p[2 * kk][0], p[2 * kk][1]),
+                           pack2(p[2 * kk][2], p[2 * kk][3]),
+                           pack2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int dn = 0; dn < W / 8; dn += 2) {
+      uint32_t b[4];
+      ldsm_x4_t(b, base + kk * 16 * LD + dn * 8);
+      mma_16816(out[dn], a, b[0], b[1]);
+      mma_16816(out[dn + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The K-loop's wait before computing step `s` of `steps` (kk = s % nk):
+// the group of step s must have landed. Younger groups may still fly: the
+// next step's, and (at kk == 0 of a backward tile that is not also its
+// last k-step) the operand slab issued this step.
+__device__ __forceinline__ void wait_step(int s, int steps, int kk, int nk,
+                                          bool slab) {
+  if (kk == nk - 1) {
+    if (s + 1 < steps) cp_async_wait<1>(); else cp_async_wait<0>();
+  } else if (kk == 0 && slab) {
+    cp_async_wait<2>();
+  } else {
+    cp_async_wait<1>();
+  }
+}
+
+struct Grad {                        // P' parameters
+  int V, has_ignore, ignore;
+  float z, eps;
+};
+
+// One element of P' for a logit `x` at vocabulary id `v` of a token with
+// lse `ls` and target `t`, `live` false for a token past N; FAST takes the
+// ex2-based exponential (the tensor-core kernels), else the accurate one.
+template <bool FAST>
+__device__ __forceinline__ float grad_p(float x, int v, float ls, int t,
+                                        bool live, const Grad& g) {
+  const bool valid = live && t >= 0 && t < g.V &&
+                     !(g.has_ignore && t == g.ignore);
+  if (!valid || v >= g.V) return 0.f;
+  float p = FAST ? __expf(x - ls) : expf(x - ls);
+  if (g.z != 0.f) p *= 1.f + 2.f * g.z * ls;
+  if (v == t) p -= 1.f - g.eps;
+  if (g.eps != 0.f) p -= g.eps / g.V;
+  return p;
+}
+
+// ---------------------------------------------------------------- forward
+
+__global__ void __launch_bounds__(NT)
+xent_fwd_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ e,
+                    const int* __restrict__ tgt, float* __restrict__ part,
+                    int N, int V, int C, int splits) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);    // [buf][h, E][64][LDK]
+  const int r0 = blockIdx.x * BM, sp = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int quad = lane / 4, qi = lane % 4;
+  const int row[2] = {r0 + warp * 16 + quad, r0 + warp * 16 + quad + 8};
+  const int nvt = (V + BN - 1) / BN;
+  const int jt0 = (int)((long long)sp * nvt / splits);
+  const int jt1 = (int)((long long)(sp + 1) * nvt / splits);
+  int t[2];
+  float m[2], l[2], g[2], s[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    t[i] = row[i] < N ? tgt[row[i]] : -1;
+    m[i] = -INFINITY;
+    l[i] = g[i] = s[i] = 0.f;
+  }
+  const int nk = C / BK, steps = (jt1 - jt0) * nk;
+  float sc[8][4];
+  if (steps > 0) {
+    stage<BK>(smem, h, C, r0, N, 0);
+    stage<BK>(smem + SLAB, e, C, jt0 * BN, V, 0);
+    cp_async_commit();
+  }
+  for (int st = 0; st < steps; ++st) {
+    const int j = jt0 + st / nk, kk = st % nk;
+    if (kk == 0) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) sc[nt][x] = 0.f;
+    }
+    if (st + 1 < steps) {
+      const int j1 = jt0 + (st + 1) / nk, k1 = ((st + 1) % nk) * BK;
+      bf16* nb = smem + ((st + 1) & 1) * 2 * SLAB;
+      stage<BK>(nb, h, C, r0, N, k1);
+      stage<BK>(nb + SLAB, e, C, j1 * BN, V, k1);
+      cp_async_commit();
+    }
+    wait_step(st, steps, kk, nk, false);
+    __syncthreads();
+    const bf16* cur = smem + (st & 1) * 2 * SLAB;
+    mma_slab(sc, cur, cur + SLAB, warp, lane);
+    if (kk == nk - 1) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int i = x / 2, col = j * BN + nt * 8 + qi * 2 + (x & 1);
+          const float v = sc[nt][x];
+          if (col == t[i]) g[i] += v;            // before the vocab mask
+          if (col < V) s[i] += v;
+          sc[nt][x] = col < V ? v : -INFINITY;
+          mx[i] = fmaxf(mx[i], sc[nt][x]);
+        }
+      float alpha[2], m_safe[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        m_safe[i] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[i] = __expf(m[i] - m_safe[i]);
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          rs[x / 2] += __expf(sc[nt][x] - m_safe[x / 2]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], o);
+      g[i] += __shfl_xor_sync(0xffffffffu, g[i], o);
+      s[i] += __shfl_xor_sync(0xffffffffu, s[i], o);
+    }
+    if (qi == 0 && row[i] < N) {
+      const long long at = (long long)sp * N + row[i], plane =
+          (long long)splits * N;
+      part[at] = m[i];
+      part[plane + at] = l[i];
+      part[2 * plane + at] = g[i];
+      part[3 * plane + at] = s[i];
+    }
+  }
+}
+
+// lse, target logit and logit sum of each token from the splits' partials
+__global__ void xent_combine_kernel(const float* __restrict__ part,
+                                    float* __restrict__ out, int N,
+                                    int splits) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= N) return;
+  const long long plane = (long long)splits * N;
+  float mx = -INFINITY;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part[(long long)s * N + r]);
+  const float m_safe = mx == -INFINITY ? 0.f : mx;
+  float l = 0.f, g = 0.f, t = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const long long at = (long long)s * N + r;
+    l += part[plane + at] * expf(part[at] - m_safe);
+    g += part[2 * plane + at];
+    t += part[3 * plane + at];
+  }
+  out[r] = mx + logf(fmaxf(l, 1e-37f));
+  out[N + r] = g;
+  out[2 * N + r] = t;
+}
+
+// -------------------------------------------------------------- backward
+
+template <int W>
+constexpr size_t bwd_smem_bytes() {
+  return (4 * SLAB + BM * (W + 8)) * sizeof(bf16) + 2 * BN * sizeof(float);
+}
+
+// One block: a 64-row tile of the output (tokens for dh, vocabulary rows
+// for dE) and its W-column slab, walking the other axis in 64-wide tiles.
+template <bool DE, int W, typename OutT>
+__global__ void __launch_bounds__(NT)
+xent_bwd_mma_kernel(const float* __restrict__ scale,
+                    const bf16* __restrict__ h, const bf16* __restrict__ e,
+                    const int* __restrict__ tgt,
+                    const float* __restrict__ lse, OutT* __restrict__ out,
+                    int N, int C, Grad gp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [buf][rows, cols][64][LDK], the operand slab [64][W + 8], then (dE)
+  // the column tile's lse and targets
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* slab = smem + 4 * SLAB;
+  float* lse_s = reinterpret_cast<float*>(slab + BM * (W + 8));
+  int* tgt_s = reinterpret_cast<int*>(lse_s + BN);
+  const int V = gp.V;
+  const bf16* R = DE ? e : h;
+  const bf16* Q = DE ? h : e;
+  const int nrows = DE ? V : N, ncols = DE ? N : V;
+  const int r0 = blockIdx.x * BM, c0 = blockIdx.y * W;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int quad = lane / 4, qi = lane % 4;
+  const int row[2] = {r0 + warp * 16 + quad, r0 + warp * 16 + quad + 8};
+  float ls_r[2] = {0.f, 0.f};
+  int t_r[2] = {-1, -1};
+  if (!DE) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row[i] < N) {
+        ls_r[i] = lse[row[i]];
+        t_r[i] = tgt[row[i]];
+      }
+  }
+  float acc[W / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < W / 8; ++dn)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[dn][x] = 0.f;
+
+  const int nk = C / BK, steps = ((ncols + BN - 1) / BN) * nk;
+  float sc[8][4];
+  stage<BK>(smem, R, C, r0, nrows, 0);
+  stage<BK>(smem + SLAB, Q, C, 0, ncols, 0);
+  cp_async_commit();
+  for (int st = 0; st < steps; ++st) {
+    const int j = st / nk, kk = st % nk;
+    if (kk == 0) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) sc[nt][x] = 0.f;
+      // the operand slab of this column tile (the previous tile's product
+      // finished before the last __syncthreads)
+      stage<W>(slab, Q, C, j * BN, ncols, c0);
+      cp_async_commit();
+      if (DE)
+        for (int c = threadIdx.x; c < BN; c += NT) {
+          const int tok = j * BN + c;
+          lse_s[c] = tok < N ? lse[tok] : 0.f;
+          tgt_s[c] = tok < N ? tgt[tok] : -1;
+        }
+    }
+    if (st + 1 < steps) {
+      const int k1 = ((st + 1) % nk) * BK;
+      bf16* nb = smem + ((st + 1) & 1) * 2 * SLAB;
+      stage<BK>(nb, R, C, r0, nrows, k1);
+      stage<BK>(nb + SLAB, Q, C, ((st + 1) / nk) * BN, ncols, k1);
+      cp_async_commit();
+    }
+    wait_step(st, steps, kk, nk, true);
+    __syncthreads();
+    const bf16* cur = smem + (st & 1) * 2 * SLAB;
+    mma_slab(sc, cur, cur + SLAB, warp, lane);
+    if (kk == nk - 1) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int i = x / 2, c = nt * 8 + qi * 2 + (x & 1);
+          const int col = j * BN + c;
+          sc[nt][x] = DE ? grad_p<true>(sc[nt][x], row[i], lse_s[c],
+                                        tgt_s[c], col < N, gp)
+                         : grad_p<true>(sc[nt][x], col, ls_r[i], t_r[i],
+                                        row[i] < N, gp);
+        }
+      mma_pv<W>(acc, sc, slab, lane);
+    }
+    __syncthreads();
+  }
+  const float sf = scale[0];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= nrows) continue;
+    OutT* p = out + (long long)row[i] * C + c0 + qi * 2;
+#pragma unroll
+    for (int dn = 0; dn < W / 8; ++dn) {
+      const float a = acc[dn][2 * i] * sf, b = acc[dn][2 * i + 1] * sf;
+      if constexpr (sizeof(OutT) == 2) {
+        *reinterpret_cast<uint32_t*>(p + dn * 8) = pack2(a, b);
+      } else {
+        *reinterpret_cast<float2*>(p + dn * 8) = make_float2(a, b);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------- fp32 (parity oracle)
+
+// s[4][4] = A[rows ar0.., C] . B[rows br0.., C]^T for this thread's rows
+// ty + 16 i and columns tx + 16 j of the 64 x 64 tile; rows past the
+// operands' ends read zeros.
+__device__ __forceinline__ void f32_logits(float (&s)[4][4],
+                                           const float* __restrict__ A,
+                                           int arows, int ar0,
+                                           const float* __restrict__ B,
+                                           int brows, int br0, int C,
+                                           float* As, float* Bs) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+  for (int k0 = 0; k0 < C; k0 += FK) {
+    for (int x = threadIdx.x; x < 64 * FK; x += F_NT) {
+      const int r = x / FK, k = x % FK;
+      As[r * (FK + 1) + k] =
+          ar0 + r < arows ? A[(long long)(ar0 + r) * C + k0 + k] : 0.f;
+      Bs[r * (FK + 1) + k] =
+          br0 + r < brows ? B[(long long)(br0 + r) * C + k0 + k] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < FK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = As[(ty + 16 * i) * (FK + 1) + k];
+        b[i] = Bs[(tx + 16 * i) * (FK + 1) + k];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// the 16 threads of a half-warp that share a row
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float half_max(float v) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__global__ void __launch_bounds__(F_NT)
+xent_fwd_f32_kernel(const float* __restrict__ h, const float* __restrict__ e,
+                    const int* __restrict__ tgt, float* __restrict__ part,
+                    int N, int V, int C, int splits) {
+  __shared__ float As[64 * (FK + 1)], Bs[64 * (FK + 1)];
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int r0 = blockIdx.x * 64, sp = blockIdx.y;
+  const int nvt = (V + BN - 1) / BN;
+  const int jt0 = (int)((long long)sp * nvt / splits);
+  const int jt1 = (int)((long long)(sp + 1) * nvt / splits);
+  int t[4];
+  float m[4], l[4], g[4], s[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 16 * i;
+    t[i] = r < N ? tgt[r] : -1;
+    m[i] = -INFINITY;
+    l[i] = g[i] = s[i] = 0.f;
+  }
+  for (int j = jt0; j < jt1; ++j) {
+    float x[4][4];
+    f32_logits(x, h, N, r0, e, V, j * BN, C, As, Bs);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = j * BN + tx + 16 * c;
+        if (col == t[i]) g[i] += x[i][c];
+        if (col < V) s[i] += x[i][c];
+        x[i][c] = col < V ? x[i][c] : -INFINITY;
+        mx = fmaxf(mx, x[i][c]);
+      }
+      const float m_new = fmaxf(m[i], half_max(mx));
+      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) rs += expf(x[i][c] - m_safe);
+      l[i] = l[i] * expf(m[i] - m_safe) + rs;
+      m[i] = m_new;
+    }
+  }
+  const long long plane = (long long)splits * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lt = half_sum(l[i]), gt = half_sum(g[i]), st = half_sum(s[i]);
+    const int r = r0 + ty + 16 * i;
+    if (tx == 0 && r < N) {
+      const long long at = (long long)sp * N + r;
+      part[at] = m[i];
+      part[plane + at] = lt;
+      part[2 * plane + at] = gt;
+      part[3 * plane + at] = st;
+    }
+  }
+}
+
+template <bool DE>
+__global__ void __launch_bounds__(F_NT)
+xent_bwd_f32_kernel(const float* __restrict__ scale,
+                    const float* __restrict__ h, const float* __restrict__ e,
+                    const int* __restrict__ tgt,
+                    const float* __restrict__ lse, float* __restrict__ out,
+                    int N, int C, Grad gp) {
+  __shared__ float As[64 * (FK + 1)], Bs[64 * (FK + 1)];
+  __shared__ float Ps[64 * 65], Qs[64 * 65];
+  const int V = gp.V;
+  const float* R = DE ? e : h;
+  const float* Q = DE ? h : e;
+  const int nrows = DE ? V : N, ncols = DE ? N : V;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int r0 = blockIdx.x * 64, c0 = blockIdx.y * FB;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int j0 = 0; j0 < ncols; j0 += BN) {
+    float x[4][4];
+    f32_logits(x, R, nrows, r0, Q, ncols, j0, C, As, Bs);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = r0 + ty + 16 * i, col = j0 + tx + 16 * c;
+        const int tok = DE ? col : r, voc = DE ? r : col;
+        const bool live = tok < N;
+        const float p = grad_p<false>(x[i][c], voc, live ? lse[tok] : 0.f,
+                               live ? tgt[tok] : -1, live, gp);
+        Ps[(ty + 16 * i) * 65 + tx + 16 * c] = p;
+      }
+    for (int y = threadIdx.x; y < 64 * FB; y += F_NT) {
+      const int r = y / FB, c = y % FB;
+      Qs[r * 65 + c] = j0 + r < ncols ? Q[(long long)(j0 + r) * C + c0 + c]
+                                      : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < BN; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = Ps[(ty + 16 * i) * 65 + k];
+        b[i] = Qs[k * 65 + tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
+    }
+    __syncthreads();
+  }
+  const float sf = scale[0];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 16 * i;
+    if (r >= nrows) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      out[(long long)r * C + c0 + tx + 16 * c] = acc[i][c] * sf;
+  }
+}
+
+// ------------------------------------------------------------ dispatch
+
+template <typename K>
+cudaError_t smem_opt_in(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+bool aligned16(const void* const* ptrs, int n) {
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
+  return true;
+}
+
+bool dims_ok(int N, int V, int C) {
+  return N > 0 && V > 0 && C > 0 && C % BK == 0;
+}
+
+template <bool DE, int W, typename OutT>
+cudaError_t bwd_mma(const void* scale, const void* h, const void* e,
+                    const void* tgt, const void* lse, void* out, int N,
+                    int C, const Grad& gp, cudaStream_t stream) {
+  const int nrows = DE ? gp.V : N;
+  dim3 grid((nrows + BM - 1) / BM, C / W);
+  constexpr size_t smem = bwd_smem_bytes<W>();
+  auto kernel = xent_bwd_mma_kernel<DE, W, OutT>;
+  cudaError_t err = smem_opt_in(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NT, smem, stream>>>(
+      (const float*)scale, (const bf16*)h, (const bf16*)e, (const int*)tgt,
+      (const float*)lse, (OutT*)out, N, C, gp);
+  return cudaGetLastError();
+}
+
+template <bool DE>
+cudaError_t bwd(const void* scale, const void* h, const void* e,
+                const void* tgt, const void* lse, void* out, int N, int V,
+                int C, int has_ignore, int ignore, float z, float eps,
+                int is_bf16, int out_f32, void* stream) {
+  if (!dims_ok(N, V, C)) return cudaErrorInvalidValue;
+  const void* ptrs[3] = {h, e, out};
+  const Grad gp{V, has_ignore, ignore, z, eps};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!is_bf16) {
+    const int nrows = DE ? V : N;
+    dim3 grid((nrows + 63) / 64, C / FB);
+    xent_bwd_f32_kernel<DE><<<grid, F_NT, 0, s>>>(
+        (const float*)scale, (const float*)h, (const float*)e,
+        (const int*)tgt, (const float*)lse, (float*)out, N, C, gp);
+    return cudaGetLastError();
+  }
+  if (!aligned16(ptrs, 3)) return cudaErrorMisalignedAddress;
+  if (C % 128 == 0)
+    return out_f32 ? bwd_mma<DE, 128, float>(scale, h, e, tgt, lse, out, N,
+                                             C, gp, s)
+                   : bwd_mma<DE, 128, bf16>(scale, h, e, tgt, lse, out, N,
+                                            C, gp, s);
+  return out_f32 ? bwd_mma<DE, 64, float>(scale, h, e, tgt, lse, out, N, C,
+                                          gp, s)
+                 : bwd_mma<DE, 64, bf16>(scale, h, e, tgt, lse, out, N, C,
+                                         gp, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// h [N, C], e [V, C] (bf16 or fp32, contiguous), tgt int32 [N] -> out fp32
+// [3, N] (lse, target logit, logit sum); part fp32 [4, splits, N] scratch.
+int xent_fwd_launch(const void* h, const void* e, const void* tgt, void* out,
+                    void* part, int N, int V, int C, int splits, int is_bf16,
+                    void* stream) {
+  if (!dims_ok(N, V, C) || splits < 1 || splits > (V + BN - 1) / BN)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid((N + BM - 1) / BM, splits);
+  if (is_bf16) {
+    const void* ptrs[2] = {h, e};
+    if (!aligned16(ptrs, 2)) return (int)cudaErrorMisalignedAddress;
+    constexpr size_t smem = 4 * SLAB * sizeof(bf16);
+    xent_fwd_mma_kernel<<<grid, NT, smem, s>>>(
+        (const bf16*)h, (const bf16*)e, (const int*)tgt, (float*)part, N, V,
+        C, splits);
+  } else {
+    xent_fwd_f32_kernel<<<grid, F_NT, 0, s>>>(
+        (const float*)h, (const float*)e, (const int*)tgt, (float*)part, N,
+        V, C, splits);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  xent_combine_kernel<<<(N + 255) / 256, 256, 0, s>>>(
+      (const float*)part, (float*)out, N, splits);
+  return (int)cudaGetLastError();
+}
+
+// scale fp32 [1], h, e, tgt as above, lse fp32 [N] -> out [N, C] (dh) in
+// h's dtype, or fp32 when out_f32
+int xent_bwd_dh_launch(const void* scale, const void* h, const void* e,
+                       const void* tgt, const void* lse, void* out, int N,
+                       int V, int C, int has_ignore, int ignore, float z,
+                       float eps, int is_bf16, int out_f32, void* stream) {
+  return (int)bwd<false>(scale, h, e, tgt, lse, out, N, V, C, has_ignore,
+                         ignore, z, eps, is_bf16, out_f32, stream);
+}
+
+// as above -> out [V, C] (dE) in h's dtype, or fp32 when out_f32
+int xent_bwd_de_launch(const void* scale, const void* h, const void* e,
+                       const void* tgt, const void* lse, void* out, int N,
+                       int V, int C, int has_ignore, int ignore, float z,
+                       float eps, int is_bf16, int out_f32, void* stream) {
+  return (int)bwd<true>(scale, h, e, tgt, lse, out, N, V, C, has_ignore,
+                        ignore, z, eps, is_bf16, out_f32, stream);
+}
+
+}  // extern "C"

@@ -2,12 +2,13 @@
 ``deepspeed_tpu/runtime/engine.py``: ``TrainState``, ``StepMetrics``,
 ``Engine.train_batch`` / ``eval_batch`` and the accessors).
 
-The JAX engine compiles one step: cast the fp32 master params to the
-compute dtype, take gradients with respect to those copies for each
-micro-batch (cast to ``grad_accum_dtype`` and summed), average over the
-accumulation steps, unscale under fp16, clip by the global norm, update
-with optax, keep the old state on an fp16 overflow, update the loss scale
-and advance the step counter. This engine runs the same step eagerly in
+The JAX engine compiles one step: cast the master params (fp32, or
+``param_dtype`` with fp32 LayerNorms) to the compute dtype, take
+gradients with respect to those copies for each micro-batch (cast to
+``grad_accum_dtype`` and summed), average over the accumulation steps,
+unscale under fp16, clip by the global norm, update with optax, keep the
+old state on an fp16 overflow, update the loss scale and advance the step
+counter. This engine runs the same step eagerly in
 that order. The compute-dtype copies are fresh leaf tensors whose
 gradients autograd returns in the compute dtype; it does not use
 ``torch.autocast``, which keeps fp32 leaves and yields fp32 gradients. The
@@ -42,9 +43,10 @@ LossFn = Callable[..., Any]    # (params, batch, generator) -> loss | (loss, aux
 
 
 class TrainState(NamedTuple):
-    """What the step reads and writes: the fp32 master params (flat, in
-    the tree's order), the optimizer state, the loss-scale state and the
-    step counter (advanced only by applied updates)."""
+    """What the step reads and writes: the master params (flat, in the
+    tree's order, each in its own dtype), the optimizer state, the
+    loss-scale state and the step counter (advanced only by applied
+    updates)."""
     step: int
     params: List[torch.Tensor]
     opt_state: AdamState
@@ -123,7 +125,7 @@ class Engine:
 
     @property
     def params(self) -> Dict[str, Any]:
-        """The fp32 master params as the caller's nested dict."""
+        """The master params as the caller's nested dict."""
         return unflatten(dict(zip(self._names, self.state.params)))
 
     def _compute_copies(self) -> List[torch.Tensor]:

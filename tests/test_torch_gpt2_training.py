@@ -27,7 +27,7 @@ from deepspeed_tpu_torch.checkpoint import (gpt2_param_shapes,
                                             gpt2_params_from_numpy,
                                             init_gpt2_params)
 from deepspeed_tpu_torch.config.config import Config, ConfigError
-from deepspeed_tpu_torch.models._lm_utils import chunked_lm_xent
+from deepspeed_tpu_torch.models._lm_utils import chunked_lm_xent, lm_head_xent
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, make_model
 from deepspeed_tpu_torch.ops.optimizers import build_optimizer
 from deepspeed_tpu_torch.runtime import lr_schedules
@@ -160,12 +160,46 @@ def test_param_bridge_and_seeded_init_follow_the_flax_tree():
         gpt2_params_from_numpy(bad, tcfg, device="cpu")
 
 
-def test_gpt2_refuses_what_the_slice_does_not_serve():
-    for kw in (dict(dropout=0.1), dict(remat=True, remat_policy="dots"),
-               dict(attention_impl="flash_sharded"),
-               dict(xent_impl="fused")):
+def test_param_dtypes_follow_flax_with_bf16_params():
+    """With ``param_dtype=bf16`` flax keeps every LayerNorm scale and bias
+    in fp32 (its ``nn.LayerNorm`` takes no ``param_dtype``); the seeded
+    init and the bridge give the same dtype per path."""
+    jp = _flax_params(JaxGPT2Config.tiny(param_dtype=jnp.bfloat16))
+    want = {".".join(str(k.key) for k in path): str(np.asarray(v).dtype)
+            for path, v in jax.tree_util.tree_flatten_with_path(jp)[0]}
+    assert want["h_0.ln_1.scale"] == "float32"
+    assert want["h_0.attn.c_attn.kernel"] == "bfloat16"
+    tcfg = GPT2Config.tiny(param_dtype=torch.bfloat16)
+    for tree in (init_gpt2_params(tcfg, seed=0, device="cpu"),
+                 gpt2_params_from_numpy(_np_tree(jp), tcfg, device="cpu")):
+        got = {k: str(v.dtype)[6:] for k, v in flatten(tree).items()}
+        assert got == want
+
+
+def test_gpt2_refuses_what_the_slice_does_not_serve(monkeypatch):
+    """Dropout (with and without remat: the JAX package's RNG stream) and
+    ``flash_sharded`` raise at ``make_model``; the fused loss raises under
+    a process group of more than one rank, for either head layout (the
+    shard_map wrappers, ROADMAP A8)."""
+    for kw in (dict(dropout=0.1), dict(remat=True, remat_policy="dots",
+                                       dropout=0.1),
+               dict(attention_impl="flash_sharded")):
         with pytest.raises(NotImplementedError):
             make_model(GPT2Config.tiny(**kw))
+    import torch.distributed as dist
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
+    cfg = GPT2Config.tiny(xent_impl="fused")
+    for layout, head in (("vc", torch.zeros(8, 4)),
+                         ("cv", torch.zeros(4, 8))):
+        with pytest.raises(NotImplementedError, match="A8"):
+            lm_head_xent(torch.zeros(1, 2, 4), head,
+                         torch.zeros(1, 2, dtype=torch.long), cfg,
+                         head_layout=layout)
+    with pytest.raises(ValueError):
+        make_model(GPT2Config.tiny(remat=True, remat_policy="everything"))
+    with pytest.raises(ValueError):
+        make_model(GPT2Config.tiny(remat=True, remat_policy="save:qkv,h"))
 
 
 def test_gpt2_remat_full_matches_no_remat():
@@ -183,6 +217,74 @@ def test_gpt2_remat_full_matches_no_remat():
         grads.append([v.grad for v in flat.values()])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+REMAT_POLICIES = ["full", "dots", "no_mlp", "no_gelu", "qkv_out",
+                  "save:qkv,attn_out,mlp_pre_act"]
+
+
+@pytest.mark.parametrize("policy", REMAT_POLICIES)
+def test_gpt2_remat_policy_matches_no_remat_and_jax(policy, monkeypatch):
+    """Each policy's loss and grads (tiny GPT-2, fp32, the flash path's
+    plain versions) against no remat within 1e-6 and against the JAX
+    model under the same policy (Pallas flash in interpret mode) within
+    1e-5. The flash forward runs once per layer in the forward and once
+    more in the backward exactly when the policy does not keep the
+    attention's output (its lse is recomputed)."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    calls = []
+    inner = fa.flash_fwd
+    monkeypatch.setattr(fa, "flash_fwd",
+                        lambda *a, **k: calls.append(1) or inner(*a, **k))
+    jcfg = JaxGPT2Config.tiny(dtype=jnp.float32, attention_impl="flash",
+                              remat=True, remat_policy=policy)
+    jp = _flax_params(jcfg)
+    _, _, jloss = jax_make_model(jcfg)
+    toks = np.random.default_rng(3).integers(0, 512, (2, 33)).astype(
+        np.int32)
+    jl, jg = jax.value_and_grad(jloss)(jp, {"tokens": jnp.asarray(toks)},
+                                       None)
+    jgf = _jax_grad_by_path(jg)
+    grads = {}
+    for remat in (False, True):
+        cfg = GPT2Config.tiny(dtype=torch.float32, attention_impl="flash",
+                              remat=remat, remat_policy=policy)
+        _, _, tloss = make_model(cfg)
+        flat = flatten(gpt2_params_from_numpy(_np_tree(jp), cfg,
+                                              device="cpu"))
+        for v in flat.values():
+            v.requires_grad_(True)
+        calls.clear()
+        tl = tloss(unflatten(flat), {"tokens": torch.from_numpy(toks)})
+        forward_calls = len(calls)
+        tl.backward()
+        grads[remat] = {k: v.grad for k, v in flat.items()}
+        np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    recompute = policy in ("full", "dots", "qkv_out") or \
+        policy.startswith("save:")
+    assert forward_calls == 2 and \
+        len(calls) == forward_calls + (2 if recompute else 0)
+    for name, g in grads[True].items():
+        torch.testing.assert_close(g, grads[False][name], atol=1e-6,
+                                   rtol=1e-6)
+        np.testing.assert_allclose(g.numpy(), jgf[name], atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("policy,kept", [
+    ("qkv_out", {"qkv", "attn_out"}),
+    ("dots", {"qkv", "attn_out", "mlp_pre_act", "mlp_out"}),
+    ("save:mlp_act", {"mlp_act"}),
+    ("full", set()),
+])
+def test_remat_segments_keep_what_the_jax_policy_saves(policy, kept):
+    """Under a save-only policy every segment is checkpointed and reads
+    only the block's input and the kept activations."""
+    from deepspeed_tpu_torch.models.gpt2 import remat_segments
+    segs = remat_segments(policy)
+    assert {t for t, _, _ in segs} == kept | {"out"}
+    assert all(rec for _, _, rec in segs)
+    assert set().union(*(set(i) for _, i, _ in segs)) <= kept | {"x"}
 
 
 # ---------------------------------------------------------------- schedules
@@ -256,7 +358,8 @@ def test_batch_size_resolution_matches(sizes):
     {"wall_clock_breakdown": True},
     {"mesh": {"data": 2}},
     {"optimizer": {"type": "Lamb", "params": {}}},
-    {"optimizer": {"type": "AdamW", "params": {"moment_dtype": "bf16"}}},
+    {"optimizer": {"type": "Adam", "params": {"moment_dtype": "bf16",
+                                               "adam_w_mode": False}}},
 ])
 def test_config_refuses_unported_features(extra):
     cfg = {"train_batch_size": 2, **extra}
@@ -301,25 +404,31 @@ def _ds(prec):
     return ds
 
 
-def _run_both(prec, steps):
+def _run_both(prec, steps, ds=None, batch=4, param_dtype=None, **cfg_kw):
     """``steps`` train_batch calls on both engines from the same flax
-    params and batches; per-step (loss, grad norm, loss scale, lr)."""
+    params and batches; per-step (loss, grad norm, loss scale, lr).
+    ``param_dtype`` is a (jax, torch) pair; ``cfg_kw`` go to both
+    ``GPT2Config.tiny``s."""
     jd, td = DTYPES.get(prec, (jnp.float32, torch.float32))
-    jcfg = JaxGPT2Config.tiny(dtype=jd, attention_impl="xla")
-    tcfg = GPT2Config.tiny(dtype=td, attention_impl="xla")
+    jpd, tpd = param_dtype or (jnp.float32, torch.float32)
+    jcfg = JaxGPT2Config.tiny(dtype=jd, attention_impl="xla",
+                              param_dtype=jpd, **cfg_kw)
+    tcfg = GPT2Config.tiny(dtype=td, attention_impl="xla", param_dtype=tpd,
+                           **cfg_kw)
     jp = _flax_params(jcfg)
     _, _, jloss = jax_make_model(jcfg)
     _, _, tloss = make_model(tcfg)
     topo = build_mesh(MeshConfig(data=1), devices=jax.devices()[:1])
-    jeng, *_ = dstpu.initialize(loss_fn=jloss, params=jp, config=_ds(prec),
+    ds = ds or _ds(prec)
+    jeng, *_ = dstpu.initialize(loss_fn=jloss, params=jp, config=ds,
                                 topology=topo)
     teng, *_ = initialize(
-        loss_fn=tloss, config=_ds(prec), device="cpu",
+        loss_fn=tloss, config=ds, device="cpu",
         params=gpt2_params_from_numpy(_np_tree(jp), tcfg, device="cpu"))
     rng = np.random.default_rng(7)
     out = []
     for _ in range(steps):
-        toks = rng.integers(0, 512, (4, 33)).astype(np.int32)
+        toks = rng.integers(0, 512, (batch, 33)).astype(np.int32)
         jl = float(jeng.train_batch({"tokens": jnp.asarray(toks)}))
         tl = float(teng.train_batch({"tokens": torch.from_numpy(toks)}))
         out.append(((jl, tl),
@@ -397,6 +506,88 @@ def test_engine_fp16_loss_scale_trajectory_is_identical():
     assert teng.skipped_steps == jeng.skipped_steps > 0
     assert teng.state.step == int(jeng.state.step)
     assert [s for _, _, (s, _), _ in out][-1] < 2.0 ** 24
+
+
+def test_engine_fused_xent_fp32_trajectory_matches():
+    """5 steps of ``GPT2Config.tiny(xent_impl="fused")`` in fp32 (AdamW,
+    WarmupLR, clip 1.0, gas 2): the port's plain path against the JAX
+    engine running the Pallas kernels in interpret mode; losses within
+    1e-5 relative, grad norms within 1e-4 (the JAX engine's jitted norm,
+    as in ``test_engine_fp32_trajectory_matches``)."""
+    out, _, _ = _run_both("fp32", 5, xent_impl="fused")
+    for (jl, tl), (jg, tg), _, (jlr, tlr) in out:
+        np.testing.assert_allclose(tl, jl, rtol=1e-5)
+        np.testing.assert_allclose(tg, jg, rtol=1e-4)
+        np.testing.assert_allclose(tlr, jlr, rtol=1e-6)
+
+
+def test_engine_bench_gpt1p3b_config_in_miniature_matches():
+    """The bench's ``gpt1p3b`` training configuration on the tiny model:
+    bf16 params (fp32 LayerNorms), bf16 compute, fused xent, remat
+    ``qkv_out``, AdamW with bf16 moments, bf16 gradient accumulation, micro
+    batch 2, gas 1, clip 1.0, no scheduler; 5 steps against the JAX engine.
+    Both round to bf16 at different places (see the bf16 trajectory test),
+    so losses within 5e-4 relative and grad norms within 5e-3; the
+    LayerNorm master weights stay fp32 on both sides."""
+    ds = {"train_micro_batch_size_per_gpu": 2,
+          "gradient_accumulation_steps": 1, "bf16": {"enabled": True},
+          "data_types": {"grad_accum_dtype": "bfloat16"},
+          "optimizer": {"type": "AdamW",
+                        "params": {"lr": 3e-4, "weight_decay": 0.01,
+                                   "moment_dtype": "bfloat16"}},
+          "gradient_clipping": 1.0, "steps_per_print": 1000}
+    kw = dict(param_dtype=(jnp.bfloat16, torch.bfloat16), remat=True,
+              remat_policy="qkv_out", xent_impl="fused")
+    out, jeng, teng = _run_both("bf16", 5, ds=ds, batch=2, **kw)
+    for (jl, tl), (jg, tg), _, (jlr, tlr) in out:
+        np.testing.assert_allclose(tl, jl, rtol=5e-4)
+        np.testing.assert_allclose(tg, jg, rtol=5e-3)
+        assert tlr == 3e-4 and jlr == pytest.approx(3e-4, rel=1e-6)
+    assert teng.params["h_0"]["ln_1"]["scale"].dtype == torch.float32
+    assert teng.params["h_0"]["mlp"]["c_fc"]["kernel"].dtype == \
+        torch.bfloat16
+    assert jeng.state.params["h_0"]["ln_1"]["scale"].dtype == jnp.float32
+
+
+def test_compact_adamw_matches_adamw_compact():
+    """``moment_dtype="bfloat16"`` AdamW against the JAX package's
+    ``adamw_compact`` over 5 steps with a WarmupLR schedule, on a bf16 and
+    an fp32 leaf from numpy-seeded values: the same fp32 arithmetic on the
+    same stored values, so the bf16 moments and params agree to one bf16
+    ulp (2^-8 relative) and the fp32 leaf within 1e-6."""
+    from deepspeed_tpu.ops.optimizers import build_optimizer as jax_opt
+    rng = np.random.default_rng(5)
+    shapes = {"w": (8, 16), "ln": (16,)}
+    init = {k: rng.standard_normal(v).astype(np.float32)
+            for k, v in shapes.items()}
+    jdt = {"w": jnp.bfloat16, "ln": jnp.float32}
+    tdt = {"w": torch.bfloat16, "ln": torch.float32}
+    params = {"lr": 1e-2, "weight_decay": 0.01, "moment_dtype": "bfloat16"}
+    sched = dict(warmup_min_lr=0.0, warmup_max_lr=1e-2, warmup_num_steps=3)
+    jtx = jax_opt("AdamW", params, learning_rate=jax_sched.build_schedule(
+        "WarmupLR", sched, base_lr=1e-2))
+    topt = build_optimizer("AdamW", params, learning_rate=lr_schedules
+                           .build_schedule("WarmupLR", sched, base_lr=1e-2))
+    jp = {k: jnp.asarray(v, jdt[k]) for k, v in init.items()}
+    tp = [torch.tensor(init[k]).to(tdt[k]) for k in shapes]
+    jstate, tstate = jtx.init(jp), topt.init(tp)
+    for _ in range(5):
+        g = {k: rng.standard_normal(v).astype(np.float32)
+             for k, v in shapes.items()}
+        ju, jstate = jtx.update({k: jnp.asarray(v) for k, v in g.items()},
+                                jstate, jp)
+        jp = {k: jp[k] + ju[k].astype(jp[k].dtype) for k in jp}
+        tstate = topt.update([torch.tensor(g[k]) for k in shapes], tstate,
+                             tp)
+    assert tstate.count == 5 and all(m.dtype == torch.bfloat16
+                                     for m in tstate.mu + tstate.nu)
+    for i, k in enumerate(shapes):
+        tol = 2.0 ** -8 if k == "w" else 1e-6
+        for got, want in ((tp[i], jp[k]), (tstate.mu[i], jstate.mu[k]),
+                          (tstate.nu[i], jstate.nu[k])):
+            want = np.asarray(want, np.float32)
+            np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                                       atol=tol * np.abs(want).max())
 
 
 def test_initialize_validates_and_evaluates():

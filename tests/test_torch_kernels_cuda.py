@@ -66,6 +66,7 @@ def test_kernels_match_plain_on_card(window):
     (2, 128, 384, 8, 2, 64, True),        # causal offset, GQA 8 -> 2
     (2, 200, 200, 8, 2, 64, False),       # non-causal
     (1, 256, 256, 2, 2, 128, True),       # head_dim 128
+    (1, 320, 320, 16, 16, 128, True),     # the gpt1p3b heads (16 x 128)
 ])
 def test_flash_kernels_match_plain_on_card(shape):
     """The three flash kernels against their plain versions on the card,
@@ -100,3 +101,55 @@ def test_flash_kernels_match_plain_on_card(shape):
             err = diff.abs().max().item()
             rel = (diff.norm() / r.float().norm()).item()
             assert err <= tol and rel <= rel_tol, (dt, name, err, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (200, 1000, 256, None, 0.0, 0.0),     # ragged token and vocab tiles
+    (130, 777, 192, -100, 1e-4, 0.1),     # C % 128 != 0: 64-column slabs
+])
+def test_xent_kernels_match_plain_on_card(shape):
+    """The three fused-xent kernels against their plain versions on the
+    card at small ragged shapes, with ignore ids and an id >= V among the
+    targets. Limits as in chip_smoke.py: fp32 (the CUDA-core kernels) and
+    the bf16 logit sum within 1e-5 of the plain output's norm; bf16 lse
+    and target logit within 1e-3 absolute, dh and dE within 2**-8 of the
+    plain output's norm and 9e-3 of its largest magnitude; TF32 off for
+    the plain fp32 products."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import fused_xent as fx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    N, V, C, ignore, z, eps = shape
+    rng = np.random.default_rng(4)
+    h = rng.standard_normal((N, C)).astype(np.float32)
+    e = (rng.standard_normal((V, C)) * 2 / np.sqrt(C)).astype(np.float32)
+    t = rng.integers(0, V, N).astype(np.int32)
+    t[::7] = -100
+    t[3] = V + 2
+    kw = dict(ignore=ignore, z=z, eps=eps)
+    for dt, rows_tol in ((torch.float32, None), (torch.bfloat16, 1e-3)):
+        hh, ee = (torch.from_numpy(a).cuda().to(dt) for a in (h, e))
+        tt = torch.from_numpy(t).cuda()
+        scale = torch.tensor([0.37], device="cuda")
+        ref = fx.fused_xent_fwd_plain(hh, ee, tt)
+        got = fx.xent_fwd(hh, ee, tt)
+        lse = ref[0]
+        ref += (fx.fused_xent_dh_plain(scale, hh, ee, tt, lse, **kw),
+                fx.fused_xent_de_plain(scale, hh, ee, tt, lse, **kw))
+        got += (fx.xent_bwd_dh(scale, hh, ee, tt, lse, **kw),
+                fx.xent_bwd_de(scale, hh, ee, tt, lse, **kw))
+        torch.cuda.synchronize()
+        for i, (name, g, r) in enumerate(zip(
+                ("lse", "tgt", "lsum", "dh", "de"), got, ref)):
+            assert g.dtype == r.dtype and g.shape == r.shape, name
+            diff = g.float() - r.float()
+            rel = (diff.norm() / r.float().norm()).item()
+            err = diff.abs().max().item()
+            if dt is torch.float32 or name == "lsum":
+                assert rel <= 1e-5, (dt, name, rel)
+            elif i < 3:
+                assert err <= rows_tol, (dt, name, err)
+            else:
+                top = r.float().abs().max().item()
+                assert rel <= 2.0 ** -8 and err <= 9e-3 * top, (name, err)
