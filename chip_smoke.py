@@ -90,11 +90,49 @@ Phases, in order; any failure exits non-zero before the final line:
              (dh and dE together); the peak memory of a lone
              ``fused_lm_xent`` forward and backward, which must stay below
              one bf16 [N, V] tensor.
+14. woq parity — both group-quantization kernels against their plain
+             version (codes, scales and zeros identical): symmetric and
+             asymmetric, 8 and 4 bits, fp32 and bf16, groups of 64 and
+             128, a [300, 517] tensor (a ragged tail group, an all-zero
+             group) and the Llama-2-7B [4096, 11008] bf16 leaf; the fp6
+             GEMM at M = 1, 64, 333, 4096 on the four Llama-2-7B weight
+             shapes ([4096, 4096], [4096, 11008], [11008, 4096], LM head
+             [4096, 32000]) and K = 1000, N / 4 = 260, bf16 within
+             FP6_BF16_MAX_ABS and 2**-8 of the plain output's norm, fp32
+             (the CUDA-core kernel) within 1e-5 of it; the paged kernels at
+             Llama-2-7B's heads (H = KV = 32, D = 128), bf16 within
+             PAGED7_BF16_MAX_ABS and 2**-8 of the norm, fp32 within 1e-4.
+15. woq serving — Llama-2-7B (``LlamaConfig.llama2_7b``: 32 layers,
+             hidden 4096, 32 heads of 128, no GQA, vocab 32000,
+             intermediate 11008) at full width and depth, bf16, seeded
+             weights made on the card, served as the JAX package's
+             example serves it (``examples/llama7b_serve_woq.py:52-89``):
+             64 prompts x 512 tokens, 128 new tokens, chunk 512, block 640,
+             one block per sequence, 66 blocks, decode loop 32, bf16 KV.
+             Four runs, one engine alive at a time: bf16; int8 WOQ (group
+             128, ``embed``/``norm``/``lm_head`` excluded); int4; fused fp6.
+             Each prints its weight bytes, quantize seconds, prefill s,
+             decode tok/s and peak memory. Launches: 224 ``quantize_sym``
+             at each int run's load, 224 ``fp6_matmul`` per step of the fp6
+             run, 32 per step of each paged kernel.
+16. woq engine — fp32, TF32 off, Llama-2-7B width with 2 layers, 4
+             prompts x 128 tokens, 16 new tokens: the fused-fp6 engine
+             against itself with ``fp6_matmul_plain`` swapped in (tokens
+             identical, prefill logits within 1e-4 of the norm), and the
+             int8 engine against a dense engine given the dequantized tree
+             (tokens identical).
+17. woq timing — ``fp6_matmul`` at M = 64 and 4096 on the three
+             Llama-2-7B projection shapes, each call on its own copy of
+             the weight (the copies exceed the L2 cache), with its plain
+             version, ``torch.matmul`` against the unpacked bf16 weight as
+             a yardstick, and the bound; ``quantize_sym`` / ``quantize_asym``
+             on the [4096, 11008] bf16 leaf (no PyTorch call computes
+             them); the paged kernels at the Llama-2-7B serving shapes.
 
 With ``--trace``, a torch.profiler window over the phase-3 engine's
-prefill and one decode loop call follows phase 3, and one over a
-``train_batch`` follows phases 7 and 11: the device's busy time against
-host wall time, and the top device ops.
+prefill and one decode loop call follows phase 3 and each phase-15 run,
+and one over a ``train_batch`` follows phases 7 and 11: the device's busy
+time against host wall time, and the top device ops.
 
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -104,6 +142,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -141,8 +180,33 @@ REPLACES = {"paged_prefill": "deepspeed_tpu/ops/kernels/paged_attention.py:45",
                 "deepspeed_tpu/ops/kernels/flash_attention.py:359",
             "xent_fwd": "deepspeed_tpu/ops/kernels/fused_xent.py:57",
             "xent_bwd_dh": "deepspeed_tpu/ops/kernels/fused_xent.py:165",
-            "xent_bwd_de": "deepspeed_tpu/ops/kernels/fused_xent.py:192"}
+            "xent_bwd_de": "deepspeed_tpu/ops/kernels/fused_xent.py:192",
+            "fp6_matmul": "deepspeed_tpu/ops/kernels/fp6_gemm.py:80",
+            "quantize_sym": "deepspeed_tpu/ops/kernels/quantization.py:86",
+            "quantize_asym": "deepspeed_tpu/ops/kernels/quantization.py:94"}
 XENT_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/fused_xent.cu"
+FP6_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/fp6_gemm.cu"
+QUANT_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/quantization.cu"
+F32_FLOPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
+# Llama-2-7B: attention geometry, and the [K, N] of its matmul weights
+H7, KV7, D7 = 32, 32, 128
+W7_SHAPES = {"q/k/v/o_proj": (4096, 4096), "gate/up_proj": (4096, 11008),
+             "down_proj": (11008, 4096), "lm_head": (4096, 32000)}
+# fp6 GEMM against its plain version: bf16 within FP6_BF16_MAX_ABS (twice
+# the largest first reading, 3.125e-2: one bf16 ulp at outputs of 4-8)
+# and 2**-8 of the plain output's norm, fp32 within FP6_FP32_REL of it
+FP6_BF16_MAX_ABS, FP6_FP32_REL = 6.25e-2, 1e-5
+# the paged kernels at Llama-2-7B's heads (D = 128, no GQA): bf16 within
+# twice the largest first reading (7.8e-3, one ulp at outputs of 1-2, at
+# phase 2's 8e-3 limit) and 2**-8 of the norm; fp32 as phase 2
+PAGED7_BF16_MAX_ABS = 1.6e-2
+# the WOQ serving runs: the JAX package's 7B example
+# (examples/llama7b_serve_woq.py:52-89), bf16 KV pool
+WOQ_SEQS, WOQ_PROMPT, WOQ_GEN = 64, 512, 128
+WOQ_MODES = {"bf16": None, "int8": {"num_bits": 8},
+             "int4": {"num_bits": 4},
+             "fp6_fused": {"dtype": "fp6", "fused_gemm": True}}
+WOQ_EXCLUDED = ["embed", "norm", "lm_head"]
 # the training slice: GPT-2-1.3B, micro batch x gas, sequence
 TRAIN_MB, TRAIN_GAS, TRAIN_T, TRAIN_STEPS = 4, 2, 2048, 5
 # the gpt1p3b slice: micro batch, sequence; N = XENT_N tokens per step
@@ -168,11 +232,12 @@ def card_line() -> str:
 
 
 def paged_inputs(torch, rng, *, S, C, lens, block_size, maxb, dtype,
-                 shuffle=True):
+                 shuffle=True, heads=(H, KV, D)):
     """Random pool, per-sequence block tables (padded with 0) and q for
     ``S`` sequences whose contexts are ``lens``; queries sit at the last
-    ``C`` positions of each context."""
+    ``C`` positions of each context. ``heads``: (H, KV, D)."""
     import numpy as np
+    H, KV, D = heads
     blocks = [-(-int(n) // block_size) for n in lens]
     nb = max(sum(blocks), 1)
     order = rng.permutation(nb) if shuffle else np.arange(nb)
@@ -388,47 +453,71 @@ def _sdpa(q, k, v, mask):
                                                   enable_gqa=True)
 
 
+def time_paged(torch, rng, name, *, S, C, ctx, block_size, maxb,
+               heads=(H, KV, D), bf16_max_abs=BF16_MAX_ABS):
+    """Kernel ``name`` at one shape (bf16, every slot at context ``ctx``,
+    queries at its last C positions): its time, its plain version's,
+    ``F.scaled_dot_product_attention`` on the same live K/V laid out
+    contiguously, the bound, and the kernel's error against its plain
+    version there."""
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    Hh, KVh, Dh = heads
+    q, kp, vp, tab, st, ln = paged_inputs(
+        torch, rng, S=S, C=C, lens=[ctx] * S, block_size=block_size,
+        maxb=maxb, dtype=torch.bfloat16, heads=heads)
+    kw = dict(block_size=block_size, sm_scale=Dh ** -0.5,
+              sliding_window=None, num_kv_heads=KVh)
+    fn = getattr(pa, name)
+    # the kernel against its plain version at these shapes too
+    got = fn(q, kp, vp, tab, st, ln, **kw)
+    ref = pa.paged_attention_plain(q, kp, vp, tab, st, ln, **kw)
+    err = check_close(torch, f"[timing] {name} at S={S} C={C} ctx={ctx} "
+                      f"H={Hh} KV={KVh} D={Dh}", got, ref,
+                      bf16_max_abs=bf16_max_abs)
+    del got, ref
+    ms = _time_ms(torch, lambda: fn(q, kp, vp, tab, st, ln, **kw), 50)
+    plain_ms = _time_ms(torch, lambda: pa.paged_attention_plain(
+        q, kp, vp, tab, st, ln, **kw), 3)
+    j = torch.arange(ctx, device="cuda")
+    idx = tab.long()[:, j // block_size] * block_size + j % block_size
+    kc = kp[idx].reshape(S, ctx, KVh, Dh).transpose(1, 2).contiguous()
+    vc = vp[idx].reshape(S, ctx, KVh, Dh).transpose(1, 2).contiguous()
+    qc = q.transpose(1, 2).contiguous()                   # [S, H, C, D]
+    pos = ctx - C + torch.arange(C, device="cuda")
+    mask = (j[None, :] <= pos[:, None])                   # [C, ctx]
+    lib_ms = _time_ms(torch, _sdpa(qc, kc, vc, mask), 50)
+    # bound: each input read once, each output written once (live K/V
+    # rows only), and the FLOPs of the causal pairs
+    pairs = S * sum(min(ctx, p + 1) for p in range(ctx - C, ctx))
+    flops = 4 * Hh * Dh * pairs
+    nbytes = (2 * S * ctx * KVh * Dh + 2 * S * C * Hh * Dh) * 2 \
+        + tab.numel() * 4 + 2 * S * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": lib_ms, "max_abs_err": err,
+           "shape": {"S": S, "C": C, "H": Hh, "KV": KVh, "D": Dh,
+                     "context": ctx, "block_size": block_size,
+                     "dtype": "bf16"},
+           "bytes": nbytes, "flops": flops}
+    log(f"[timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
+        f"{lib_ms:.4f}, bound {out['bound_ms']:.4f} by {out['bound_by']}; "
+        f"max_abs_err {err:.3e})")
+    return out
+
+
 def phase_timing(torch, serving, worst):
     """Each kernel at the serving shapes: K1 on the second 256-token
     prefill chunk of 16 x 512-token prompts, K2 on 16 slots at context
     544 (mid-decode), bf16, block 64."""
     import numpy as np
-    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
     rng = np.random.default_rng(2)
     rows = []
     specs = [("paged_prefill", 16, 256, 512), ("paged_decode", 16, 1, 544)]
     for name, S, C, ctx in specs:
-        q, kp, vp, tab, st, ln = paged_inputs(
-            torch, rng, S=S, C=C, lens=[ctx] * S, block_size=64, maxb=16,
-            dtype=torch.bfloat16)
-        kw = dict(block_size=64, sm_scale=D ** -0.5, sliding_window=None,
-                  num_kv_heads=KV)
-        fn = getattr(pa, name)
-        # the kernel against its plain version at these shapes too
-        got = fn(q, kp, vp, tab, st, ln, **kw)
-        ref = pa.paged_attention_plain(q, kp, vp, tab, st, ln, **kw)
-        err = check_close(torch, f"[timing] {name} at the serving shape",
-                          got, ref)
-        ms = _time_ms(torch, lambda: fn(q, kp, vp, tab, st, ln, **kw), 50)
-        plain_ms = _time_ms(torch, lambda: pa.paged_attention_plain(
-            q, kp, vp, tab, st, ln, **kw), 5)
-        # the same live K/V laid out contiguously, for the library call
-        j = torch.arange(ctx, device="cuda")
-        idx = tab.long()[:, j // 64] * 64 + j % 64            # [S, ctx]
-        kc = kp[idx].reshape(S, ctx, KV, D).transpose(1, 2).contiguous()
-        vc = vp[idx].reshape(S, ctx, KV, D).transpose(1, 2).contiguous()
-        qc = q.transpose(1, 2).contiguous()                   # [S, H, C, D]
-        pos = ctx - C + torch.arange(C, device="cuda")
-        mask = (j[None, :] <= pos[:, None])                   # [C, ctx]
-        lib_ms = _time_ms(torch, _sdpa(qc, kc, vc, mask), 50)
-        # bound: each input read once, each output written once (live
-        # K/V rows only), and the FLOPs of the causal pairs
-        pairs = S * sum(min(ctx, p + 1) for p in range(ctx - C, ctx))
-        flops = 4 * H * D * pairs
-        nbytes = (2 * S * ctx * KV * D + 2 * S * C * H * D) * 2 \
-            + tab.numel() * 4 + 2 * S * 4
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        t = time_paged(torch, rng, name, S=S, C=C, ctx=ctx, block_size=64,
+                       maxb=16)
         steps = serving["steps"]["prefill" if C > 1 else "decode"]
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE,
@@ -436,18 +525,7 @@ def phase_timing(torch, serving, worst):
             "launches": serving["launches"][name],
             "launches_per_step": serving["launches"][name] // steps,
             "steps": steps,
-            "max_abs_err": max(worst[name], err),
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms,
-            "shape": {"S": S, "C": C, "H": H, "KV": KV, "D": D,
-                      "context": ctx, "block_size": 64, "dtype": "bf16"},
-            "bytes": nbytes, "flops": flops,
-        })
-        log(f"[timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
-            f"{lib_ms:.4f}, bound {max(t_bytes, t_ops):.4f} by "
-            f"{rows[-1]['bound_by']}; max_abs_err {err:.3e})")
+            **t, "max_abs_err": max(worst[name], t["max_abs_err"])})
     return rows
 
 
@@ -1188,6 +1266,460 @@ def phase_xent_timing(torch, bench, worst):
     return rows
 
 
+# ---------------------------------------------------------------- WOQ serving
+
+
+def _quant_case(torch, qz, x, *, bits, gs, sym, what):
+    """One quantize_blockwise launch against its plain version on the
+    same tensor: codes, scales (and zeros) must be identical. Returns
+    the largest difference (0.0)."""
+    got = qz.quantize_blockwise(x, bits=bits, group_size=gs, symmetric=sym)
+    ref = qz.quantize_blockwise_plain(x, bits=bits, group_size=gs,
+                                      symmetric=sym)
+    torch.cuda.synchronize()
+    pairs = [(got.values, ref.values), (got.scale, ref.scale)]
+    if not sym:
+        pairs.append((got.zero, ref.zero))
+    err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    same = all(a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in pairs)
+    log(f"[woq parity] {'quantize_sym' if sym else 'quantize_asym'} {what} "
+        f"bits={bits} group={gs}: codes and scales "
+        f"{'identical' if same else 'DIFFER'} (max diff {err:.3e})")
+    if not same:
+        raise AssertionError(f"quantize {what} differs from plain")
+    return err
+
+
+def _check_fp6(torch, what, got, ref):
+    diff = got.float() - ref.float()
+    err = diff.abs().max().item()
+    rel = (diff.norm() / ref.float().norm().clamp_min(1e-30)).item()
+    if got.dtype == torch.bfloat16:
+        ok = err <= FP6_BF16_MAX_ABS and rel <= BF16_REL_NORM
+        lim = f"max-abs {FP6_BF16_MAX_ABS}, rel-norm {BF16_REL_NORM:.3e}"
+    else:
+        ok, lim = rel <= FP6_FP32_REL, f"rel-norm {FP6_FP32_REL}"
+    log(f"{what} max_abs_err={err:.3e} rel_norm_err={rel:.3e} ({lim})")
+    if not ok or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{what} disagrees with plain: {err}, {rel}")
+    return err
+
+
+def phase_woq_parity(torch):
+    """B6 both kernels, B5, and the paged kernels at Llama-2-7B's heads
+    (H = KV = 32, D = 128), each against its plain version."""
+    import numpy as np
+    from deepspeed_tpu_torch.ops.kernels import fp6_gemm as f6
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    from deepspeed_tpu_torch.ops.kernels import quantization as qz
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 products
+    g = torch.Generator(device="cuda").manual_seed(14)
+    worst = {k: 0.0 for k in ("quantize_sym", "quantize_asym", "fp6_matmul",
+                              "paged_prefill", "paged_decode")}
+    # B6: 300 x 517 is no multiple of 64 or 128 (a ragged tail group);
+    # the first group is all zeros, two spans are 40x and 1e-3x
+    x = torch.randn(300, 517, generator=g, device="cuda")
+    x.view(-1)[:128] = 0.0
+    x.view(-1)[1000:3000] *= 40.0
+    x.view(-1)[5000:7000] *= 1e-3
+    for dt in (torch.float32, torch.bfloat16):
+        for sym in (True, False):
+            for bits in (8, 4):
+                for gs in (64, 128):
+                    err = _quant_case(torch, qz, x.to(dt), bits=bits, gs=gs,
+                                      sym=sym, what=f"[300, 517] "
+                                      f"{str(dt)[6:]}")
+                    k = "quantize_sym" if sym else "quantize_asym"
+                    worst[k] = max(worst[k], err)
+    leaf = (torch.randn(4096, 11008, generator=g, device="cuda")
+            / 64.0).to(torch.bfloat16)
+    for bits in (8, 4):
+        for sym in (True, False):
+            k = "quantize_sym" if sym else "quantize_asym"
+            worst[k] = max(worst[k], _quant_case(
+                torch, qz, leaf, bits=bits, gs=128, sym=sym,
+                what="Llama-2-7B gate_proj [4096, 11008] bfloat16"))
+    del x, leaf
+    # B5: the four Llama-2-7B weight shapes, and K = 1000, N / 4 = 260
+    # (ragged depth and column tiles, no 16-byte chunks)
+    shapes = list(W7_SHAPES.items()) + [("ragged", (1000, 1040))]
+    for wname, (K, N) in shapes:
+        w = torch.randn(K, N, generator=g, device="cuda") / math.sqrt(K)
+        fw = f6.fp6_gemm_pack(w)
+        del w
+        for M in (1, 64, 333, 4096):
+            xm = torch.randn(M, K, generator=g, device="cuda")
+            for dt in (torch.bfloat16, torch.float32):
+                got = f6.fp6_matmul(xm.to(dt), fw)
+                ref = f6.fp6_matmul_plain(xm.to(dt), fw)
+                err = _check_fp6(torch, f"[woq parity] fp6_matmul {wname} "
+                                 f"M={M} K={K} N={N} {str(dt)[6:]}", got,
+                                 ref)
+                if dt is torch.bfloat16:
+                    worst["fp6_matmul"] = max(worst["fp6_matmul"], err)
+                del got, ref
+        del fw
+    torch.cuda.empty_cache()
+    # the paged kernels at D = 128, H = KV = 32, with the existing limits
+    rng = np.random.default_rng(14)
+    dec = rng.integers(1, 641, 64)
+    dec[5] = 0                                        # an idle slot
+    cases = [("paged_prefill", 4, 512, [512, 560, 600, 640], 640, 1),
+             ("paged_prefill", 4, 256, [256, 512, 640, 300], 64, 10),
+             ("paged_decode", 64, 1, dec, 640, 1),
+             ("paged_decode", 16, 1, dec[:16], 64, 10)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, S, C, lens, bs, maxb in cases:
+            q, kp, vp, tab, st, ln = paged_inputs(
+                torch, rng, S=S, C=C, lens=lens, block_size=bs, maxb=maxb,
+                dtype=dtype, heads=(H7, KV7, D7))
+            kw = dict(block_size=bs, sm_scale=D7 ** -0.5,
+                      sliding_window=None, num_kv_heads=KV7)
+            got = getattr(pa, name)(q, kp, vp, tab, st, ln, **kw)
+            ref = pa.paged_attention_plain(q, kp, vp, tab, st, ln, **kw)
+            torch.cuda.synchronize()
+            idle = ln == 0
+            if idle.any() and got[idle].abs().max().item() != 0.0:
+                raise AssertionError(f"{name}: idle slot not zero")
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"{name}: non-finite output")
+            err = check_close(
+                torch, f"[woq parity] {name} {str(dtype)[6:]} H=KV=32 "
+                f"D=128 bs={bs} maxb={maxb}", got, ref,
+                bf16_max_abs=PAGED7_BF16_MAX_ABS)
+            if dtype is torch.bfloat16:
+                worst[name] = max(worst[name], err)
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _woq_config(mode, group_size=128):
+    return {"quantized_weights": {**WOQ_MODES[mode],
+                                  "group_size": group_size,
+                                  "excluded_modules": WOQ_EXCLUDED}}
+
+
+def phase_woq_serving(torch, trace=False):
+    """Llama-2-7B at full width and depth, bf16, seeded weights made on
+    the card, served through ``InferenceEngineV2.generate`` as the JAX
+    package's 7B example serves it, dense and in three WOQ modes; one
+    engine alive at a time. With ``trace``, a profiler window over each
+    engine's prefill and one decode loop call follows its run."""
+    import numpy as np
+    from deepspeed_tpu_torch.checkpoint import init_llama_params
+    from deepspeed_tpu_torch.inference.quantization import (
+        quantize_model_params, woq_memory_bytes)
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig)
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.ops.kernels import fp6_gemm as f6
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    from deepspeed_tpu_torch.ops.kernels import quantization as qz
+    cfg = LlamaConfig.llama2_7b(max_seq_len=2048, dtype=torch.bfloat16)
+    rcfg = RaggedInferenceConfig(
+        max_seqs=WOQ_SEQS, chunk_size=WOQ_PROMPT,
+        block_size=WOQ_PROMPT + WOQ_GEN, num_blocks=WOQ_SEQS + 2,
+        max_blocks_per_seq=1, dtype="bfloat16", decode_loop_steps=32,
+        attention_impl="paged_flash")
+    prompts = np.random.RandomState(0).randint(
+        1, cfg.vocab_size, size=(WOQ_SEQS, WOQ_PROMPT)).tolist()
+    L = cfg.num_layers
+    mm_per_step = 7 * L               # q, k, v, o, gate, up, down
+    runs, first = {}, None
+    for mode in WOQ_MODES:
+        t0 = time.perf_counter()
+        params = init_llama_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        dense_bytes = woq_memory_bytes(params)
+        qz.reset_launch_counts()
+        f6.reset_launch_counts()
+        t0 = time.perf_counter()
+        if WOQ_MODES[mode] is not None:
+            params = quantize_model_params(params, _woq_config(mode))
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        load_launches = {**qz.LAUNCHES, **f6.LAUNCHES}
+        weight_bytes = woq_memory_bytes(params)
+        eng = InferenceEngineV2(cfg, params, rcfg, device="cuda")
+        del params
+        torch.cuda.empty_cache()
+        # warm-up outside the measured run: a prefill, one decode loop
+        # call and a put() tail
+        eng.generate([prompts[0][:80]], max_new_tokens=40)
+        for k in eng.timing:
+            eng.timing[k] = 0 if isinstance(eng.timing[k], int) else 0.0
+
+        pa.reset_launch_counts()
+        f6.reset_launch_counts()
+        qz.reset_launch_counts()
+        eng.runner.step_counts = {"prefill": 0, "decode": 0}
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new_tokens=WOQ_GEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**pa.LAUNCHES, **f6.LAUNCHES, **qz.LAUNCHES}
+        steps = dict(eng.runner.step_counts)
+        peak = torch.cuda.max_memory_allocated()
+
+        fused = mode == "fp6_fused"
+        want = {"paged_prefill": L * steps["prefill"],
+                "paged_decode": L * steps["decode"],
+                "fp6_matmul": mm_per_step * sum(steps.values()) if fused
+                else 0, "quantize_sym": 0, "quantize_asym": 0}
+        if launches != want:
+            raise AssertionError(f"[woq serving] {mode}: launches "
+                                 f"{launches} != {want}")
+        want_load = mm_per_step if mode in ("int8", "int4") else 0
+        if load_launches != {"quantize_sym": want_load, "quantize_asym": 0,
+                             "fp6_matmul": 0}:
+            raise AssertionError(f"[woq serving] {mode}: load launches "
+                                 f"{load_launches}, want {want_load} "
+                                 f"quantize_sym")
+        if not (steps["prefill"] and steps["decode"]):
+            raise AssertionError(f"a kernel of the path never ran: {steps}")
+        if any(len(o) != WOQ_GEN for o in out) \
+                or not all(0 <= t < cfg.vocab_size for o in out for t in o):
+            raise AssertionError("wrong output lengths or token ids")
+        if eng.free_blocks != rcfg.num_blocks:
+            raise AssertionError("KV blocks leaked")
+        logits = eng.put([999], [prompts[0]])[999]
+        eng.flush(999)
+        if not np.isfinite(logits).all():
+            raise AssertionError("non-finite logits")
+        tm = eng.timing
+        first = first or [o[0] for o in out]
+        agree = sum(o[0] == f for o, f in zip(out, first)) / len(out)
+        runs[mode] = {
+            "weight_bytes": weight_bytes, "dense_bytes": dense_bytes,
+            "init_s": init_s, "quantize_s": quant_s,
+            "load_launches": load_launches, "launches": launches,
+            "steps": steps, "wall_s": wall, "prefill_s": tm["prefill_s"],
+            "prefill_tokens": tm["prefill_tokens"],
+            "decode_s": tm["decode_s"], "decode_tokens": tm["decode_tokens"],
+            "decode_tok_s": tm["decode_tokens"] / tm["decode_s"],
+            "peak_bytes": peak, "first_token_agreement_with_bf16": agree}
+        log(f"[woq serving] {mode}: weights {weight_bytes / 1e9:.3f} GB "
+            f"(dense {dense_bytes / 1e9:.3f}), quantize {quant_s:.3f} s "
+            f"({load_launches['quantize_sym']} quantize_sym launches), "
+            f"steps {steps}, prefill {tm['prefill_tokens']} tokens in "
+            f"{tm['prefill_s']:.4f} s, decode {tm['decode_tokens']} tokens "
+            f"in {tm['decode_s']:.4f} s = {runs[mode]['decode_tok_s']:.1f} "
+            f"tok/s, wall {wall:.3f} s, peak memory {peak / 2**30:.2f} GiB, "
+            f"first tokens agree with bf16 {agree:.3f}; launches {launches}")
+        if trace:
+            log(f"[trace] Llama-2-7B {mode}:")
+            runs[mode]["trace"] = phase_trace(torch, eng, prompts)
+        del eng
+        torch.cuda.empty_cache()
+    return runs
+
+
+@contextlib.contextmanager
+def plain_fp6(f6):
+    """``fp6_matmul`` with its plain version swapped in (``woq_mm`` looks
+    it up at each call), for the engine-parity comparison only."""
+    saved = f6.fp6_matmul
+    f6.fp6_matmul = f6.fp6_matmul_plain
+    try:
+        yield
+    finally:
+        f6.fp6_matmul = saved
+
+
+def phase_woq_engine_parity(torch):
+    """fp32 with TF32 off, Llama-2-7B width with 2 layers: the fused-fp6
+    engine against itself with the plain fp6 GEMM, and the int8 engine
+    against a dense engine given the dequantized tree."""
+    import numpy as np
+    from deepspeed_tpu_torch.checkpoint import init_llama_params
+    from deepspeed_tpu_torch.inference.quantization import (
+        dequantize_tree, quantize_model_params)
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig)
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.ops.kernels import fp6_gemm as f6
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.llama2_7b(num_layers=2, max_seq_len=2048,
+                                dtype=torch.float32)
+    params = init_llama_params(cfg, seed=3, device="cuda",
+                               dtype=torch.float32)
+    prompts = np.random.default_rng(3).integers(
+        1, cfg.vocab_size, (4, 128)).tolist()
+
+    def serve(tree):
+        rcfg = RaggedInferenceConfig(
+            max_seqs=4, chunk_size=64, block_size=64, num_blocks=32,
+            max_blocks_per_seq=4, dtype="float32", decode_loop_steps=8,
+            attention_impl="paged_flash")
+        eng = InferenceEngineV2(cfg, tree, rcfg, device="cuda")
+        gen = eng.generate(prompts, max_new_tokens=16)
+        return gen, eng.put([9], [prompts[0]])[9]
+
+    fp6 = quantize_model_params(params, _woq_config("fp6_fused"))
+    f6.reset_launch_counts()
+    gen_k, log_k = serve(fp6)
+    n_kernel = f6.LAUNCHES["fp6_matmul"]
+    with plain_fp6(f6):
+        gen_p, log_p = serve(fp6)
+    if not n_kernel or f6.LAUNCHES["fp6_matmul"] != n_kernel:
+        raise AssertionError(f"fp6 launches: kernels {n_kernel}, then "
+                             f"{f6.LAUNCHES['fp6_matmul']}")
+    rel = float(np.linalg.norm(log_k - log_p) / np.linalg.norm(log_p))
+    log(f"[woq engine] fp6 fused, kernel vs plain: tokens "
+        f"{'identical' if gen_k == gen_p else 'DIFFER'} over 4 x 16; "
+        f"prefill logits rel-norm {rel:.3e} (limit 1e-4)")
+    if gen_k != gen_p or not rel <= 1e-4:
+        raise AssertionError("fp6 engine: kernel and plain disagree")
+    del fp6
+    int8 = quantize_model_params(params, _woq_config("int8"))
+    gen_q, log_q = serve(int8)
+    gen_d, log_d = serve(dequantize_tree(int8))
+    rel8 = float(np.linalg.norm(log_q - log_d) / np.linalg.norm(log_d))
+    log(f"[woq engine] int8 vs the dense engine on its dequantized tree: "
+        f"tokens {'identical' if gen_q == gen_d else 'DIFFER'}; prefill "
+        f"logits rel-norm {rel8:.3e}")
+    if gen_q != gen_d:
+        raise AssertionError("int8 engine and dense engine disagree")
+    del params, int8
+    torch.cuda.empty_cache()
+    return {"fp6_logits_rel": rel, "int8_logits_rel": rel8,
+            "fp6_launches": n_kernel}
+
+
+def _time_ring_ms(torch, fns, iters):
+    """Mean ms of ``iters`` calls cycling through ``fns`` (each on its own
+    copy of the operands, so that the ring exceeds the 50 MB L2 cache and
+    every call reads its weight from device memory, as in decode)."""
+    ring = itertools.cycle(fns)
+    return _time_ms(torch, lambda: next(ring)(), iters)
+
+
+def phase_woq_timing(torch, woq, worst, rows):
+    """fp6_matmul at M = 64 and 4096 for each Llama-2-7B projection, with
+    its plain version, ``torch.matmul`` against the unpacked bf16 weight
+    and the bound; quantize_sym / quantize_asym on the [4096, 11008] bf16
+    leaf; the paged kernels at Llama-2-7B's serving shapes (D = 128)."""
+    import numpy as np
+    from deepspeed_tpu_torch.ops.kernels import fp6_gemm as f6
+    from deepspeed_tpu_torch.ops.kernels import quantization as qz
+    g = torch.Generator(device="cuda").manual_seed(17)
+    shapes = []
+    for wname, (K, N) in list(W7_SHAPES.items())[:3]:
+        J = N // 4
+        w = torch.randn(K, N, generator=g, device="cuda") / math.sqrt(K)
+        fw = f6.fp6_gemm_pack(w)
+        del w
+        wbytes = 3 * K * J + 4 * J * 4
+        n = max(2, math.ceil(150e6 / wbytes))
+        fws = [f6.Fp6GemmWeight(fw.bytes3.clone(), fw.scale.clone(),
+                                fw.shape) for _ in range(n)]
+        wb = f6.fp6_gemm_unpack(fw).to(torch.bfloat16)
+        wbs = [wb.clone() for _ in range(max(2, math.ceil(150e6 /
+                                                          (K * N * 2))))]
+        for M in (64, 4096):
+            x = torch.randn(M, K, generator=g, device="cuda").to(
+                torch.bfloat16)
+            ms = _time_ring_ms(torch, [lambda f=f: f6.fp6_matmul(x, f)
+                                       for f in fws], 50)
+            plain_ms = _time_ring_ms(
+                torch, [lambda f=f: f6.fp6_matmul_plain(x, f)
+                        for f in fws], 3)
+            lib_ms = _time_ring_ms(torch, [lambda b=b: torch.matmul(x, b)
+                                           for b in wbs], 50)
+            nbytes = M * K * 2 + wbytes + M * N * 2
+            flops = 2 * M * K * N
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / BF16_FLOPS_PER_S * 1e3
+            shapes.append({
+                "weight": wname, "M": M, "K": K, "N": N, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "flops": flops, "weight_copies": len(fws)})
+            log(f"[woq timing] fp6_matmul {wname} M={M} K={K} N={N}: "
+                f"{ms:.4f} ms (plain {plain_ms:.4f}, torch.matmul bf16 "
+                f"{lib_ms:.4f}, bound {max(t_bytes, t_ops):.4f} by "
+                f"{shapes[-1]['bound_by']})")
+        del fws, wbs, fw, wb
+        torch.cuda.empty_cache()
+    fp6_run = woq["fp6_fused"]
+    fp6_steps = sum(fp6_run["steps"].values())
+    main = next(r for r in shapes if r["weight"] == "gate/up_proj"
+                and r["M"] == 64)
+    out = [{"name": "fp6_matmul", "route": "cuda", "source": FP6_SOURCE,
+            "replaces": REPLACES["fp6_matmul"],
+            "launches": fp6_run["launches"]["fp6_matmul"],
+            "launches_per_step": fp6_run["launches"]["fp6_matmul"]
+            // fp6_steps, "steps": fp6_steps,
+            "max_abs_err": worst["fp6_matmul"],
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "bytes", "flops")},
+            "library_call": "torch.matmul(x, W) with W the unpacked weight "
+                            "in bf16",
+            "shape": {k: main[k] for k in ("weight", "M", "K", "N")},
+            "shapes": shapes}]
+    # B6 on the Llama-2-7B gate_proj leaf, bf16, 8 bits, group 128
+    leaf = (torch.randn(4096, 11008, generator=g, device="cuda")
+            / 64.0).to(torch.bfloat16)
+    n = leaf.numel()
+    ng = -(-n // 128)
+    int8_run = woq["int8"]
+    for name, sym in (("quantize_sym", True), ("quantize_asym", False)):
+        kw = dict(bits=8, group_size=128, symmetric=sym)
+        ms = _time_ms(torch, lambda: qz.quantize_blockwise(leaf, **kw), 50)
+        plain_ms = _time_ms(torch, lambda: qz.quantize_blockwise_plain(
+            leaf, **kw), 5)
+        nbytes = n * 2 + n + ng * 4 * (1 if sym else 2)
+        flops = 3 * n                 # a max, a division, a rounding
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        launches = int8_run["load_launches"][name]
+        out.append({
+            "name": name, "route": "cuda", "source": QUANT_SOURCE,
+            "replaces": REPLACES[name], "launches": launches,
+            "on_main_path": sym,
+            "launches_note": "at load, one per quantized weight of the "
+                             "int8 run" if sym else
+                             "no caller passes symmetric=False; held in "
+                             "the parity phase only",
+            "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call computes it",
+            "shape": {"leaf": [4096, 11008], "dtype": "bf16", "bits": 8,
+                      "group_size": 128},
+            "bytes": nbytes, "flops": flops})
+        log(f"[woq timing] {name} [4096, 11008] bf16: {ms:.4f} ms (plain "
+            f"{plain_ms:.4f}, bound {max(t_bytes, t_ops):.4f} by "
+            f"{out[-1]['bound_by']})")
+    del leaf
+    torch.cuda.empty_cache()
+    # the paged kernels at the 7B serving shapes: the prefill step (64
+    # slots x 512 queries) and mid-decode (64 slots at context 576)
+    rng = np.random.default_rng(17)
+    bf16_run = woq["bf16"]
+    for row in rows:
+        if row["name"] not in ("paged_prefill", "paged_decode"):
+            continue
+        C = WOQ_PROMPT if row["name"] == "paged_prefill" else 1
+        ctx = WOQ_PROMPT if C > 1 else WOQ_PROMPT + WOQ_GEN // 2
+        t = time_paged(torch, rng, row["name"], S=WOQ_SEQS, C=C, ctx=ctx,
+                       block_size=WOQ_PROMPT + WOQ_GEN, maxb=1,
+                       heads=(H7, KV7, D7),
+                       bf16_max_abs=PAGED7_BF16_MAX_ABS)
+        t["launches"] = bf16_run["launches"][row["name"]]
+        t["max_abs_err"] = max(t["max_abs_err"], worst[row["name"]])
+        row["llama2_7b"] = t
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     unknown = [a for a in argv if a != "--trace"]
     if unknown:
@@ -1213,24 +1745,37 @@ def main(argv) -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     tracing = "--trace" in argv
-    phase_build()
-    worst = phase_parity(torch)
-    flash_worst = phase_flash_parity(torch)
-    xent_worst = phase_xent_parity(torch)
-    serving, eng, prompts = phase_serving(torch)
-    trace = phase_trace(torch, eng, prompts) if tracing else None
+    phase_s = {}
+
+    def run(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[fn.__name__] = time.perf_counter() - t0
+        log(f"[phase] {fn.__name__}: {phase_s[fn.__name__]:.1f} s")
+        return out
+
+    run(phase_build)
+    worst = run(phase_parity, torch)
+    flash_worst = run(phase_flash_parity, torch)
+    xent_worst = run(phase_xent_parity, torch)
+    serving, eng, prompts = run(phase_serving, torch)
+    trace = run(phase_trace, torch, eng, prompts) if tracing else None
     del eng
     torch.cuda.empty_cache()
-    phase_engine_parity(torch)
-    rows = phase_timing(torch, serving, worst)
-    train = phase_training(torch, tracing)
-    train_parity = phase_training_parity(torch)
-    rows += phase_flash_timing(torch, train, flash_worst)
-    bench = phase_gpt1p3b(torch, tracing)
-    fused_parity = phase_fused_training_parity(torch)
-    rows += phase_xent_timing(torch, bench, xent_worst)
+    run(phase_engine_parity, torch)
+    rows = run(phase_timing, torch, serving, worst)
+    train = run(phase_training, torch, tracing)
+    train_parity = run(phase_training_parity, torch)
+    rows += run(phase_flash_timing, torch, train, flash_worst)
+    bench = run(phase_gpt1p3b, torch, tracing)
+    fused_parity = run(phase_fused_training_parity, torch)
+    rows += run(phase_xent_timing, torch, bench, xent_worst)
+    woq_worst = run(phase_woq_parity, torch)
+    woq = run(phase_woq_serving, torch, tracing)
+    woq_parity = run(phase_woq_engine_parity, torch)
+    rows += run(phase_woq_timing, torch, woq, woq_worst, rows)
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
-    result = {"kernels": rows, "card": card,
+    result = {"kernels": rows, "card": card, "phase_s": phase_s,
               "serving": {k: serving[k] for k in
                           ("prefill_s", "decode_s", "decode_tokens",
                            "peak_bytes", "steps")},
@@ -1239,11 +1784,15 @@ def main(argv) -> int:
               "gpt1p3b": {k: ({kk: vv for kk, vv in v.items()
                                if kk != "trace"} if isinstance(v, dict)
                               else v) for k, v in bench.items()},
-              "fused_training_parity": fused_parity}
+              "fused_training_parity": fused_parity,
+              "woq_serving": {m: {k: v for k, v in r.items() if k != "trace"}
+                              for m, r in woq.items()},
+              "woq_engine_parity": woq_parity}
     if trace is not None:
         result["trace"] = trace
         result["train_trace"] = train["trace"]
         result["gpt1p3b_trace"] = bench["fused"]["trace"]
+        result["woq_trace"] = {m: r["trace"] for m, r in woq.items()}
     print(json.dumps(result), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,9 @@ import torch
 
 from ..models.gpt2 import GPT2Config
 from ..models.llama import LlamaConfig
+from ..ops.fp_quantizer import FORMATS, FPQuantizedTensor
+from ..ops.kernels.fp6_gemm import Fp6GemmWeight
+from ..ops.kernels.quantization import QuantizedTensor
 from ..utils.device import resolve_device
 from ..utils.dtypes import resolve_dtype
 
@@ -97,11 +100,74 @@ def llama_params_from_numpy(tree: Mapping[str, Any], cfg: LlamaConfig,
         device=dev, dtype=torch.float32 if _is_scale(path) else dt))
 
 
+def woq_params_from_numpy(tree: Mapping[str, Any], cfg: LlamaConfig,
+                          device: Any = None,
+                          dtype: Any = None) -> Dict[str, Any]:
+    """The JAX package's weight-only-quantized Llama tree -> the port's.
+    Its leaves are the JAX ``QuantizedTensor``, ``Fp6GemmWeight`` or
+    ``FPQuantizedTensor`` (arrays as numpy), or dense numpy arrays; each
+    packed leaf becomes the port's NamedTuple of the same name with the
+    same bits on ``device`` (default ``cuda``), each dense leaf a tensor
+    as :func:`llama_params_from_numpy` makes it. Paths, the logical shape
+    of every leaf and the shapes of the packed arrays are checked."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype if dtype is not None else cfg.dtype)
+    return _from_numpy(tree, llama_param_shapes(cfg), lambda path: dict(
+        device=dev, dtype=torch.float32 if _is_scale(path) else dt),
+        packed=lambda path, shape, node: _packed_leaf(path, shape, node,
+                                                      dev))
+
+
+def _packed_leaf(path, shape, node, dev):
+    """A packed WOQ leaf of the JAX package (any NamedTuple with its
+    field names) -> the port's, arrays copied bit for bit."""
+    name = "/".join(path)
+    if tuple(node.shape) != shape:
+        raise ValueError(f"{name}: logical shape {tuple(node.shape)} != "
+                         f"expected {shape}")
+    n = math.prod(shape)
+
+    def arr(field, want):
+        a = getattr(node, field)
+        if a is None:
+            return None
+        a = np.asarray(a)
+        if a.shape != want:
+            raise ValueError(f"{name}.{field}: shape {a.shape} != {want}")
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    fields = tuple(node._fields)
+    if fields == QuantizedTensor._fields:
+        bits, gs = int(node.bits), int(node.group_size)
+        ng = -(-n // gs)
+        if bits not in (8, 4):
+            raise ValueError(f"{name}: bits {bits}")
+        return QuantizedTensor(
+            arr("values", (ng, gs if bits == 8 else gs // 2)),
+            arr("scale", (ng, 1)), arr("zero", (ng, 1)), shape, bits, gs)
+    if fields == Fp6GemmWeight._fields:
+        K, N = shape
+        return Fp6GemmWeight(arr("bytes3", (3, K, N // 4)),
+                             arr("scale", (4, N // 4)), shape)
+    if fields == FPQuantizedTensor._fields:
+        q_bits, gs = int(node.q_bits), int(node.group_size)
+        if q_bits not in FORMATS:
+            raise ValueError(f"{name}: q_bits {q_bits}")
+        n_codes = -(-n // gs) * gs
+        per = {8: (1, 1), 6: (4, 3), 12: (2, 3)}[q_bits]
+        nbytes = -(-n_codes // per[0]) * per[1]
+        return FPQuantizedTensor(arr("codes", (nbytes,)),
+                                 arr("scale", (n_codes // gs, 1)), shape,
+                                 q_bits, gs, bool(node.packed))
+    raise TypeError(f"{name}: unknown packed leaf with fields {fields}")
+
+
 def _from_numpy(tree: Mapping[str, Any], shapes: Mapping[str, Any],
-                place) -> Dict[str, Any]:
+                place, packed=None) -> Dict[str, Any]:
     """Copy every leaf of ``shapes`` out of the numpy ``tree`` into a
     tensor (``place(path)`` gives its device and dtype), checking its
-    shape; a missing or an extra leaf raises."""
+    shape; a missing or an extra leaf raises. With ``packed``, a
+    NamedTuple leaf becomes ``packed(path, shape, node)``."""
 
     def convert(path, shape):
         node: Any = tree
@@ -109,6 +175,8 @@ def _from_numpy(tree: Mapping[str, Any], shapes: Mapping[str, Any],
             if k not in node:
                 raise KeyError(f"missing parameter {'/'.join(path)}")
             node = node[k]
+        if packed is not None and hasattr(node, "_fields"):
+            return packed(path, shape, node)
         arr = np.asarray(node)
         if arr.shape != shape:
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != "

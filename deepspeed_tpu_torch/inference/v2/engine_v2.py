@@ -25,6 +25,7 @@ import torch
 
 from ...utils.device import resolve_device
 from ...utils.dtypes import resolve_dtype
+from ..quantization import dequantize_tree
 from .blocked_allocator import OutOfBlocksError
 from .config import RaggedInferenceConfig
 from .kv_cache import BlockedKVCache
@@ -62,8 +63,13 @@ class _InFlightStep:
 
 
 def _move_tree(tree, device):
+    """The parameter tree on ``device``; a packed WOQ leaf (a NamedTuple
+    of tensors and metadata) moves field by field."""
     if isinstance(tree, dict):
         return {k: _move_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(v.to(device) if isinstance(v, torch.Tensor)
+                            else v for v in tree))
     return tree.to(device)
 
 
@@ -73,6 +79,7 @@ class InferenceEngineV2:
                  device: Any = None):
         """``model_cfg``: a :class:`~...models.llama.LlamaConfig`.
         ``params``: its parameter tree (``checkpoint/jax_params.py``),
+        dense or weight-only-quantized (``inference/quantization.py``),
         moved to ``device`` if it lives elsewhere. ``device`` defaults to
         ``cuda`` and raises without a card; pass ``"cpu"`` for the plain
         path."""
@@ -81,6 +88,8 @@ class InferenceEngineV2:
         self.config.validate(model_cfg)
         self.model_cfg = model_cfg
         self.runner = LlamaRaggedRunner(model_cfg, self.config)
+        if not self.runner.supports_fused_woq:
+            params = dequantize_tree(params, keep_fused=False)
         self.params = _move_tree(params, self.device)
         self.kv_cache = BlockedKVCache(
             self.config, self.runner.num_layers, self.runner.kv_heads,

@@ -20,6 +20,8 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from ...ops.kernels import fp6_gemm
+from ..quantization import dequantize_leaf
 from .config import RaggedInferenceConfig
 
 
@@ -121,6 +123,22 @@ def paged_attention(pool: torch.Tensor, li: int, q, k, v,
     return _grouped_dense_attention(q, k_ctx, v_ctx, mask, scale, dtype)
 
 
+def woq_mm(h: torch.Tensor, w: Any, dtype) -> torch.Tensor:
+    """``h @ w`` with weight-only-quantized dispatch: an
+    ``Fp6GemmWeight`` goes through the fused fp6 GEMM (h in its dtype); a
+    ``QuantizedTensor`` or ``FPQuantizedTensor`` is dequantized here, at
+    its use, to f32 and cast to ``dtype`` (``bf16(f32(v) * scale)``, as
+    the JAX runner's dequantize-then-cast); a dense tensor is cast to
+    ``dtype``. The JAX runner dequantizes the whole tree at the top of its
+    jitted step and XLA fuses each dequant into its matmul; eagerly, a
+    whole-tree f32 view of a 7B model would be 27 GB a step."""
+    if isinstance(w, fp6_gemm.Fp6GemmWeight):
+        # looked up at each call, so that a comparison can swap in the
+        # plain version
+        return fp6_gemm.fp6_matmul(h, w)
+    return h @ dequantize_leaf(w).to(dtype)
+
+
 class RaggedRunnerBase:
     """Shared runner plumbing: the step, its greedy variant and the decode
     loop around a family's ``step_fn(params, pool, batch, *, model_cfg,
@@ -128,6 +146,9 @@ class RaggedRunnerBase:
     (``step_counts``: C > 1 is prefill, C == 1 is decode)."""
 
     step_fn = None
+    #: the runner's matmuls go through ``woq_mm`` (fused fp6 capable);
+    #: for a runner without it the engine dequantizes a packed tree
+    supports_fused_woq = False
 
     def __init__(self, model_cfg: Any, cfg: RaggedInferenceConfig,
                  compute_dtype: Any = None):

@@ -52,6 +52,11 @@ class LlamaConfig:
         return LlamaConfig(**kw)
 
     @staticmethod
+    def llama2_7b(**kw):
+        """The Llama-2-7B shape (meta-llama/Llama-2-7b): the defaults."""
+        return LlamaConfig(**kw)
+
+    @staticmethod
     def tinyllama_1b(**kw):
         """The TinyLlama-1.1B shape (TinyLlama/TinyLlama-1.1B)."""
         kw.setdefault("vocab_size", 32000)

@@ -30,6 +30,7 @@ _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: C signatures of each library's entry points
 SIGNATURES = {
     "paged_attention": {
@@ -52,6 +53,15 @@ SIGNATURES = {
         # eps, is_bf16, out_f32, stream
         "xent_bwd_dh_launch": [_P] * 6 + [_I] * 5 + [_F, _F, _I, _I, _P],
         "xent_bwd_de_launch": [_P] * 6 + [_I] * 5 + [_F, _F, _I, _I, _P],
+    },
+    # x, values, scale, zero, n, group_size, bits, symmetric, recip,
+    # is_bf16, stream
+    "quantization": {
+        "quantize_launch": [_P] * 4 + [_L, _I, _I, _I, _F, _I, _P],
+    },
+    # x, bytes3, scale, out, M, K, J, is_bf16, stream
+    "fp6_gemm": {
+        "fp6_matmul_launch": [_P] * 4 + [_I] * 4 + [_P],
     },
 }
 

@@ -153,3 +153,102 @@ def test_xent_kernels_match_plain_on_card(shape):
             else:
                 top = r.float().abs().max().item()
                 assert rel <= 2.0 ** -8 and err <= 9e-3 * top, (name, err)
+
+
+def _close_bf16(got, ref):
+    """bf16 kernel output against its plain version: within 2**-8 of the
+    plain output's norm, and each element within one bf16 ulp of the
+    plain output's largest magnitude (2**-7 of it): both sum the same
+    exact products in f32, in another order, then round."""
+    diff = got.float() - ref.float()
+    top = ref.float().abs().max().item()
+    rel = (diff.norm() / ref.float().norm()).item()
+    return rel <= 2.0 ** -8 and diff.abs().max().item() <= 2.0 ** -7 * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_kernels_match_plain_on_card(symmetric, bits):
+    """Both group-quantization kernels against their plain version on the
+    same CUDA tensor: codes, scales and zeros identical, fp32 and bf16,
+    groups of 64 and 128, a ragged tail group and an all-zero group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import quantization as qz
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((300, 517)).astype(np.float32)
+    x.reshape(-1)[:128] = 0.0
+    x.reshape(-1)[1000:3000] *= 40.0
+    name = "quantize_sym" if symmetric else "quantize_asym"
+    for dt in (torch.float32, torch.bfloat16):
+        xx = torch.from_numpy(x).cuda().to(dt)
+        for gs in (64, 128):
+            qz.reset_launch_counts()
+            got = qz.quantize_blockwise(xx, bits=bits, group_size=gs,
+                                        symmetric=symmetric)
+            ref = qz.quantize_blockwise_plain(xx, bits=bits, group_size=gs,
+                                              symmetric=symmetric)
+            torch.cuda.synchronize()
+            assert qz.LAUNCHES[name] == 1
+            assert torch.equal(got.values, ref.values), (dt, gs)
+            assert torch.equal(got.scale, ref.scale), (dt, gs)
+            assert (got.zero is None) == symmetric
+            if not symmetric:
+                assert torch.equal(got.zero, ref.zero), (dt, gs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [
+    (1, 256, 512),
+    (64, 512, 11008),     # N/4 = 2752 (Llama-2-7B's gate/up)
+    (333, 1000, 1040),    # K % 32 != 0, N/4 = 260 (plain loads, ragged)
+    (40, 100, 40),        # no 16-byte chunks at all
+])
+def test_fp6_kernel_matches_plain_on_card(M, K, N):
+    """fp6_matmul against its plain version on the card: bf16 on the
+    tensor cores (``_close_bf16``), fp32 on the CUDA-core kernel within
+    1e-5 of the plain output's norm (TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import fp6_gemm as f6
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(M)
+    w = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K)).astype(
+        np.float32)).cuda()
+    fw = f6.fp6_gemm_pack(w)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    for dt in (torch.float32, torch.bfloat16):
+        xx = x.cuda().to(dt)
+        f6.reset_launch_counts()
+        got = f6.fp6_matmul(xx, fw)
+        ref = f6.fp6_matmul_plain(xx, fw)
+        torch.cuda.synchronize()
+        assert f6.LAUNCHES["fp6_matmul"] == 1
+        assert got.dtype == dt and got.shape == (M, N)
+        if dt is torch.bfloat16:
+            assert _close_bf16(got, ref), (M, K, N)
+        else:
+            rel = ((got - ref).norm() / ref.norm()).item()
+            assert rel <= 1e-5, (M, K, N, rel)
+
+
+@pytest.mark.cuda
+def test_woq_kernels_raise_on_unsupported_dtype():
+    """A CUDA tensor of a dtype the kernels do not take raises; nothing
+    falls back to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import fp6_gemm as f6
+    from deepspeed_tpu_torch.ops.kernels import quantization as qz
+    x = torch.randn(8, 64, device="cuda", dtype=torch.float16)
+    qz.reset_launch_counts()
+    f6.reset_launch_counts()
+    with pytest.raises(ValueError, match="dtype"):
+        qz.quantize_blockwise(x, bits=8, group_size=64)
+    fw = f6.fp6_gemm_pack(torch.randn(64, 32, device="cuda"))
+    with pytest.raises(ValueError, match="dtype"):
+        f6.fp6_matmul(x, fw)
+    with pytest.raises(ValueError):
+        f6.fp6_matmul(x.float(), fw._replace(scale=fw.scale.cpu()))
+    assert not any(qz.LAUNCHES.values()) and not any(f6.LAUNCHES.values())

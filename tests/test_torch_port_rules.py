@@ -85,7 +85,8 @@ def test_chip_smoke_refuses_without_card_or_checkout(tmp_path, alone):
 def test_import_builds_no_kernel():
     """Import every module of the port with process spawning disabled;
     no library may be loaded and no nvcc started. The walk reaches the
-    training slice's modules too (config, runtime, ops, models)."""
+    training slice's modules too (config, runtime, ops, models) and the
+    WOQ slice's (the quantizers and the fp6 GEMM)."""
     code = (
         "import subprocess, sys, pkgutil, importlib\n"
         "def _no(*a, **k): raise AssertionError('spawned at import')\n"
@@ -97,7 +98,9 @@ def test_import_builds_no_kernel():
         "    importlib.import_module(n)\n"
         "need = {'config.config', 'runtime.engine', 'runtime.lr_schedules',\n"
         "        'runtime.loss_scaler', 'ops.optimizers', 'models.gpt2',\n"
-        "        'models._lm_utils', 'ops.kernels.flash_attention'}\n"
+        "        'models._lm_utils', 'ops.kernels.flash_attention',\n"
+        "        'ops.kernels.fp6_gemm', 'ops.kernels.quantization',\n"
+        "        'ops.fp_quantizer', 'inference.quantization'}\n"
         "assert {p.__name__ + '.' + n for n in need} <= set(names), names\n"
         "from deepspeed_tpu_torch.ops.kernels import _build\n"
         "assert not _build._libs and not _build.build_logs\n"
