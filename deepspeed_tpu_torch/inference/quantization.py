@@ -120,29 +120,22 @@ def quantize_model_params(params: Any, cfg: Dict) -> Any:
     return out
 
 
-def dequantize_leaf(x: Any, dtype: Any = None,
-                    keep_fused: bool = False) -> Any:
-    """One leaf of :func:`dequantize_tree`: an f32 (or ``dtype``) tensor
-    for a packed leaf, anything else as it is."""
+def dequantize_leaf(x: Any) -> Any:
+    """One leaf of :func:`dequantize_tree`: an f32 tensor for a packed
+    leaf, anything else as it is."""
     if isinstance(x, QuantizedTensor):
-        out = dequantize_blockwise(x)
-    elif isinstance(x, FPQuantizedTensor):
-        out = fp_dequantize(x)
-    elif isinstance(x, Fp6GemmWeight) and not keep_fused:
-        out = fp6_gemm_unpack(x)
-    else:
-        return x
-    return out.to(dtype) if dtype is not None else out
+        return dequantize_blockwise(x)
+    if isinstance(x, FPQuantizedTensor):
+        return fp_dequantize(x)
+    if isinstance(x, Fp6GemmWeight):
+        return fp6_gemm_unpack(x)
+    return x
 
 
-def dequantize_tree(params: Any, dtype: Any = None,
-                    keep_fused: bool = False) -> Any:
-    """Dequantized view of a WOQ params tree. ``keep_fused=True`` leaves
-    ``Fp6GemmWeight`` leaves intact for runners whose matmuls go through
-    ``woq_mm``; the default unpacks them so that plain ``@`` consumers see
-    dense tensors."""
-    return _map_leaves(params, lambda _, x: dequantize_leaf(x, dtype,
-                                                            keep_fused))
+def dequantize_tree(params: Any) -> Any:
+    """Dequantized (dense) view of a WOQ params tree, fused fp6 GEMM
+    leaves included."""
+    return _map_leaves(params, lambda _, x: dequantize_leaf(x))
 
 
 def woq_memory_bytes(params: Any) -> int:

@@ -25,7 +25,6 @@ import torch
 
 from ...utils.device import resolve_device
 from ...utils.dtypes import resolve_dtype
-from ..quantization import dequantize_tree
 from .blocked_allocator import OutOfBlocksError
 from .config import RaggedInferenceConfig
 from .kv_cache import BlockedKVCache
@@ -88,8 +87,6 @@ class InferenceEngineV2:
         self.config.validate(model_cfg)
         self.model_cfg = model_cfg
         self.runner = LlamaRaggedRunner(model_cfg, self.config)
-        if not self.runner.supports_fused_woq:
-            params = dequantize_tree(params, keep_fused=False)
         self.params = _move_tree(params, self.device)
         self.kv_cache = BlockedKVCache(
             self.config, self.runner.num_layers, self.runner.kv_heads,

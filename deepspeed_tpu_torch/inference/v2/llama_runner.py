@@ -86,4 +86,3 @@ class LlamaRaggedRunner(RaggedRunnerBase):
     dense Llama step above, whose matmuls dispatch through ``woq_mm``."""
 
     step_fn = staticmethod(_llama_ragged_step)
-    supports_fused_woq = True

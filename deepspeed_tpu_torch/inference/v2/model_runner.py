@@ -20,7 +20,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from ...ops.kernels import fp6_gemm
+from ...ops.kernels.fp6_gemm import Fp6GemmWeight, fp6_matmul
 from ..quantization import dequantize_leaf
 from .config import RaggedInferenceConfig
 
@@ -132,10 +132,8 @@ def woq_mm(h: torch.Tensor, w: Any, dtype) -> torch.Tensor:
     ``dtype``. The JAX runner dequantizes the whole tree at the top of its
     jitted step and XLA fuses each dequant into its matmul; eagerly, a
     whole-tree f32 view of a 7B model would be 27 GB a step."""
-    if isinstance(w, fp6_gemm.Fp6GemmWeight):
-        # looked up at each call, so that a comparison can swap in the
-        # plain version
-        return fp6_gemm.fp6_matmul(h, w)
+    if isinstance(w, Fp6GemmWeight):
+        return fp6_matmul(h, w)
     return h @ dequantize_leaf(w).to(dtype)
 
 
@@ -146,9 +144,6 @@ class RaggedRunnerBase:
     (``step_counts``: C > 1 is prefill, C == 1 is decode)."""
 
     step_fn = None
-    #: the runner's matmuls go through ``woq_mm`` (fused fp6 capable);
-    #: for a runner without it the engine dequantizes a packed tree
-    supports_fused_woq = False
 
     def __init__(self, model_cfg: Any, cfg: RaggedInferenceConfig,
                  compute_dtype: Any = None):

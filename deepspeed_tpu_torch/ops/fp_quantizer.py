@@ -143,8 +143,3 @@ def fp_dequantize(t: FPQuantizedTensor,
                              exp_bits, man_bits) * t.scale
     return vals.reshape(-1)[:n].reshape(t.shape).to(dtype)
 
-
-def fp_quant_dequant(x: torch.Tensor, q_bits: int = 6,
-                     group_size: int = 128) -> torch.Tensor:
-    """Fake-quant round trip in the target minifloat format."""
-    return fp_dequantize(fp_quantize(x, q_bits, group_size), x.dtype)

@@ -123,9 +123,6 @@ def test_fp_quantize_identical_to_jax(q_bits, shape, group):
     assert (got.shape, got.q_bits, got.group_size, got.packed) == \
         (tuple(want.shape), q_bits, group, True)
     _same(jfp.fp_dequantize(want), fp.fp_dequantize(got), "dequantized")
-    _same(jfp.fp_quant_dequant(jnp.asarray(x), q_bits, group),
-          fp.fp_quant_dequant(torch.from_numpy(x), q_bits, group),
-          "quant_dequant")
 
 
 # ---------------------------------------------------- quantize_model_params
@@ -208,22 +205,23 @@ def test_quantize_model_params_matches_jax(dense_trees, name):
         jax.tree.map(jnp.asarray, tree))
 
 
-@pytest.mark.parametrize("keep_fused", [False, True])
-def test_dequantize_tree_matches_jax(dense_trees, keep_fused):
+@pytest.mark.parametrize("name", ["int8", "fp8", "fp6_fused_all"])
+def test_dequantize_tree_matches_jax(dense_trees, name):
+    """The dense view of a quantized tree (fused fp6 GEMM leaves unpacked
+    too) equals the JAX package's, leaf for leaf."""
     tree, cfg, params = dense_trees
-    qcfg = {"quantized_weights": {"dtype": "fp6", "fused_gemm": True,
-                                  "excluded_modules": ["norm"]}}
+    qcfg = {"quantized_weights": {"excluded_modules": ["norm"],
+                                  **WOQ_CONFIGS[name]}}
     jtree = jwoq.quantize_model_params(jax.tree.map(jnp.asarray, tree),
                                        qcfg)
-    got = woq.dequantize_tree(woq.quantize_model_params(params, qcfg),
-                              keep_fused=keep_fused)
-    want = jwoq.dequantize_tree(jtree, keep_fused=keep_fused)
-    fused = got["layer_0"]["mlp"]["up_proj"]["kernel"]
-    assert isinstance(fused, woq.Fp6GemmWeight) == keep_fused
+    got = woq.dequantize_tree(woq.quantize_model_params(params, qcfg))
+    want = jwoq.dequantize_tree(jtree)
     want_np = dict(_leaves(jax.tree.map(np.asarray, want)))
-    for path, g in _leaves(got):
-        if isinstance(g, torch.Tensor):
-            _same(want_np[path], g, path)
+    got_np = dict(_leaves(got))
+    assert sorted(got_np) == sorted(want_np)
+    for path, g in got_np.items():
+        assert isinstance(g, torch.Tensor), path
+        _same(want_np[path], g, path)
 
 
 def test_quantize_model_params_errors_match_jax(dense_trees):
