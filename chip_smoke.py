@@ -135,6 +135,37 @@ Phases, in order; any failure exits non-zero before the final line:
              on the [4096, 11008] bf16 leaf (no PyTorch call computes
              them); the paged kernels at the Llama-2-7B serving shapes.
 
+18-21, the ops layer's entry points, each called with its kernel's
+launch count at 0 and read just after, at the width of the public model
+it serves, then held against the plain version and timed beside its
+bound and one library call:
+18. norms  — ``fused_rms_norm`` on x [32768, 4096] bf16 (Llama-2-7B's
+             hidden over phase 15's 64 x 512-token prefill step) and
+             ``fused_layer_norm`` on [8192, 2048] bf16 (GPT2Config.xl_1p3b
+             over phase 7's micro batch of 4 x 2048); fp32, a ragged
+             [1000, 4100], and each backward (the JAX package's VJP in
+             plain PyTorch) against autograd of the plain version;
+             ``F.rms_norm`` / ``F.layer_norm`` as the library calls.
+19. adamw  — ``fused_adamw_update`` on one flat f32 buffer of
+             GPT2Config.xl_1p3b's 1,315,723,264 parameters, 3 steps, p, m
+             and v bit-identical to the plain version's after each; a
+             ragged n with bf16 gradients; ``torch.optim.AdamW(fused=True)``
+             on the same buffers as the library call.
+20. sparse — ``sparse_attention(impl="flash")`` at BERT-large's attention
+             width (16 heads of 64), B = 4, T = 4096, 128-blocks:
+             BSLongformer (window 3, global block 0), BigBird (a layout per
+             head) and BSLongformer with one query block cleared (zeros);
+             fp32 at B = 1; SDPA on the token-level boolean mask as the
+             library call.
+21. evoformer — ``DS4Sci_EvoformerAttention`` at AlphaFold 2's
+             fine-tuning sizes: MSA row attention with pair bias [1, 512,
+             384, 8, 32] and triangle attention [1, 384, 384, 4, 32], -1e9
+             mask biases on ~20% of the keys, f32 pair bias; the four bias
+             combinations at a ragged S = 300 in bf16 and fp32 with a fully
+             masked row; one backward of the MSA case against the plain
+             path's gradients; SDPA on [B N, H, S, D] with mask + pair bias
+             as ``attn_mask`` as the library call.
+
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
 and one over a ``train_batch`` follows phases 7 and 11: the device's busy
@@ -189,7 +220,13 @@ REPLACES = {"paged_prefill": "deepspeed_tpu/ops/kernels/paged_attention.py:45",
             "xent_bwd_de": "deepspeed_tpu/ops/kernels/fused_xent.py:192",
             "fp6_matmul": "deepspeed_tpu/ops/kernels/fp6_gemm.py:80",
             "quantize_sym": "deepspeed_tpu/ops/kernels/quantization.py:86",
-            "quantize_asym": "deepspeed_tpu/ops/kernels/quantization.py:94"}
+            "quantize_asym": "deepspeed_tpu/ops/kernels/quantization.py:94",
+            "rms_norm": "deepspeed_tpu/ops/kernels/normalization.py:34",
+            "layer_norm": "deepspeed_tpu/ops/kernels/normalization.py:96",
+            "adamw": "deepspeed_tpu/ops/kernels/fused_optimizer.py:27",
+            "flash_sparse_fwd":
+                "deepspeed_tpu/ops/kernels/flash_attention.py:117",
+            "evoformer_fwd": "deepspeed_tpu/ops/kernels/evoformer.py:39"}
 XENT_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/fused_xent.cu"
 FP6_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/fp6_gemm.cu"
 QUANT_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/quantization.cu"
@@ -219,6 +256,25 @@ WOQ_EXCLUDED = ["embed", "norm", "lm_head"]
 # max-abs; the same order as the 9.8e-4 that the plain versions alone
 # give at hidden 64 on the CPU, where no kernel runs)
 WOQ_BF16_LOGITS_REL, WOQ_BF16_LOGITS_MAX_ABS = 5e-3, 3e-2
+# the ops slice (phases 18-21): sources, widths and limits
+NORM_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/normalization.cu"
+ADAMW_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/fused_optimizer.cu"
+SPARSE_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/sparse_attention.cu"
+EVO_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/evoformer.cu"
+# BERT-large attention (the JAX package's BertConfig.bert_large: 16 heads
+# of 64) at a long-sequence batch, 128-blocks
+SPARSE_B, SPARSE_H, SPARSE_T, SPARSE_D = 4, 16, 4096, 64
+# AlphaFold 2 fine-tuning (supplementary Table 4: N_res 384, N_clust 512):
+# MSA row attention with pair bias (Algorithm 7: 8 heads, c = 32) and
+# triangle attention (Algorithm 13: 4 heads, c = 32), as (B, N, S, H, D)
+EVO_MSA, EVO_TRI = (1, 512, 384, 8, 32), (1, 384, 384, 4, 32)
+# kernel-vs-plain limits of the ops slice: bf16 max-abs at about twice
+# the first readings (norms 1.562e-2, one ulp at outputs of 2-4; sparse
+# 3.906e-3; evoformer 7.812e-3) and 2**-8 of the plain output's norm; fp32
+# max-abs 1e-5 (first readings 4.9e-7 to 1.43e-6)
+NORM_BF16_MAX_ABS, SPARSE_BF16_MAX_ABS, EVO_BF16_MAX_ABS = 3.2e-2, 8e-3, \
+    1.6e-2
+OPS_FP32_MAX_ABS = 1e-5
 # the training slice: GPT-2-1.3B, micro batch x gas, sequence
 TRAIN_MB, TRAIN_GAS, TRAIN_T, TRAIN_STEPS = 4, 2, 2048, 5
 # the gpt1p3b slice: micro batch, sequence; N = XENT_N tokens per step
@@ -1777,6 +1833,488 @@ def phase_woq_timing(torch, woq, worst, rows):
     return out
 
 
+# ---------------------------------------------------------------- ops slice
+
+
+def _bound(nbytes, flops, flops_per_s):
+    """The least time for the work: bytes over the memory rate or
+    operations over the compute rate, the larger (ms), and which."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _device_ms(torch, fn, iters):
+    """Device time per call: the summed durations of the device events
+    (kernels, copies) of ``iters`` calls under torch.profiler, over
+    ``iters``; None when the trace holds no device event. Unlike CUDA
+    events around back-to-back calls it leaves out the host's time
+    between launches, which a call of a few tens of microseconds can
+    exceed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        return None
+    return sum(e.time_range.end - e.time_range.start for e in evs) / iters \
+        / 1e3
+
+
+def _op_row(name, source, launches, err, ms, plain_ms, lib_ms, nbytes, flops,
+            flops_per_s, **extra):
+    bound_ms, by = _bound(nbytes, flops, flops_per_s)
+    dev = extra.get("device_ms")
+    lib_dev = extra.get("library_device_ms")
+    log(f"[ops timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, library "
+        f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}, bound "
+        f"{bound_ms:.4f} by {by}; launches {launches}, max_abs_err "
+        f"{err:.3e}); device time {dev}, library device time {lib_dev}")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
+            "bytes": nbytes, "flops": flops, **extra}
+
+
+def phase_norm_ops(torch):
+    """Phase 18: ``fused_rms_norm`` at Llama-2-7B's hidden over phase 15's
+    prefill step (x [32768, 4096] bf16, bf16 weight, eps 1e-5) and
+    ``fused_layer_norm`` at GPT2Config.xl_1p3b over phase 7's micro batch
+    (x [8192, 2048] bf16, fp32 weight and bias, eps 1e-5), launched from
+    the entry points with the counts at 0, each against its plain version;
+    then fp32, a ragged [1000, 4100], a backward through each Function
+    against autograd of the plain version (fp32), and the timings with
+    ``F.rms_norm`` / ``F.layer_norm`` as the library calls."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import normalization as nm
+    g = torch.Generator(device="cuda").manual_seed(18)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa
+    x = rnd(32768, 4096).to(torch.bfloat16)
+    w = (1 + 0.1 * rnd(4096)).to(torch.bfloat16)
+    xl = rnd(8192, 2048).to(torch.bfloat16)
+    wl, bl = 1 + 0.1 * rnd(2048), 0.1 * rnd(2048)
+    torch.cuda.synchronize()
+    nm.reset_launch_counts()
+    y = nm.fused_rms_norm(x, w, eps=1e-5)
+    yl = nm.fused_layer_norm(xl, wl, bl, eps=1e-5)
+    torch.cuda.synchronize()
+    launches = dict(nm.LAUNCHES)
+    if not all(launches.values()):
+        raise AssertionError(f"norm entry points launched {launches}")
+    worst = {
+        "rms_norm": check_close(
+            torch, "[ops] rms_norm [32768, 4096] bf16", y,
+            nm.rms_norm_plain(x, w, 1e-5), bf16_max_abs=NORM_BF16_MAX_ABS),
+        "layer_norm": check_close(
+            torch, "[ops] layer_norm [8192, 2048] bf16", yl,
+            nm.layer_norm_plain(xl, wl, bl, 1e-5),
+            bf16_max_abs=NORM_BF16_MAX_ABS)}
+    del y, yl
+    xr = rnd(1000, 4100)
+    wr, br = 1 + 0.1 * rnd(4100), 0.1 * rnd(4100)
+    for dt in (torch.float32, torch.bfloat16):
+        for what, xx in (("[32768, 4096]", x), ("[1000, 4100]", xr)):
+            xx = xx.to(dt)
+            ww = wr if xx.shape[1] == 4100 else w.float()
+            worst["rms_norm"] = max(worst["rms_norm"], check_close(
+                torch, f"[ops] rms_norm {what} {str(dt)[6:]}",
+                nm.fused_rms_norm(xx, ww),
+                nm.rms_norm_plain(xx, ww, 1e-6),
+                bf16_max_abs=NORM_BF16_MAX_ABS,
+                fp32_max_abs=OPS_FP32_MAX_ABS))
+        for what, xx, ww, bb in (("[8192, 2048]", xl, wl, bl),
+                                 ("[1000, 4100]", xr, wr, br)):
+            xx = xx.to(dt)
+            worst["layer_norm"] = max(worst["layer_norm"], check_close(
+                torch, f"[ops] layer_norm {what} {str(dt)[6:]}",
+                nm.fused_layer_norm(xx, ww, bb),
+                nm.layer_norm_plain(xx, ww, bb, 1e-5),
+                bf16_max_abs=NORM_BF16_MAX_ABS,
+                fp32_max_abs=OPS_FP32_MAX_ABS))
+    # the hand-written backward against autograd of the plain version
+    xf = xl.float().requires_grad_(True)
+    wf, bf = wl.clone().requires_grad_(True), bl.clone().requires_grad_(True)
+    cot = rnd(8192, 2048)
+    for name in ("rms_norm", "layer_norm"):
+        ins = (xf, wf) if name == "rms_norm" else (xf, wf, bf)
+        fused = (nm.fused_rms_norm(xf, wf) if name == "rms_norm"
+                 else nm.fused_layer_norm(xf, wf, bf))
+        plain = (nm.rms_norm_plain(xf, wf, 1e-6) if name == "rms_norm"
+                 else nm.layer_norm_plain(xf, wf, bf, 1e-5))
+        got = torch.autograd.grad(fused, ins, cot)
+        ref = torch.autograd.grad(plain, ins, cot)
+        for arg, a, r in zip("xwb", got, ref):
+            rel = ((a - r).norm() / r.norm()).item()
+            log(f"[ops] {name} backward d{arg} fp32: rel_norm_err {rel:.3e} "
+                f"(1e-5)")
+            if not rel <= 1e-5:
+                raise AssertionError(f"{name} backward d{arg}: {rel}")
+    del xf, wf, bf, cot, xr
+    rows = []
+    wl16, bl16 = wl.to(xl.dtype), bl.to(xl.dtype)   # cast outside the timing
+    for name, xx, args, lib in (
+            ("rms_norm", x, (w, 1e-5),
+             lambda: F.rms_norm(x, (4096,), w, 1e-5)),
+            ("layer_norm", xl, (wl, bl, 1e-5),
+             lambda: F.layer_norm(xl, (2048,), wl16, bl16, 1e-5))):
+        kern = getattr(nm, f"fused_{name}")
+        plain = getattr(nm, f"{name}_plain")
+        kw = {"eps": args[-1]}
+        ms = _time_ms(torch, lambda: kern(xx, *args[:-1], **kw), 50)
+        dev_ms = _device_ms(torch, lambda: kern(xx, *args[:-1], **kw), 20)
+        plain_ms = _time_ms(torch, lambda: plain(xx, *args), 10)
+        lib_ms = _time_ms(torch, lib, 50)
+        lib_dev_ms = _device_ms(torch, lib, 20)
+        n = xx.numel()
+        nbytes = 2 * n * 2 + sum(a.numel() * a.element_size()
+                                 for a in args[:-1])
+        rows.append(_op_row(
+            name, NORM_SOURCE, launches[name], worst[name], ms, plain_ms,
+            lib_ms, nbytes, 4 * n, F32_FLOPS_PER_S, device_ms=dev_ms,
+            library_device_ms=lib_dev_ms,
+            launches_note="one call of the entry point",
+            library_call=f"F.{name}, weights in bf16",
+            shape={"x": list(xx.shape), "dtype": "bf16"}))
+    del x, xl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_adamw_op(torch):
+    """Phase 19: ``fused_adamw_update`` on one flat f32 buffer of
+    GPT2Config.xl_1p3b's parameter count (counted from the port's tree),
+    f32 gradients, 3 steps from the entry point with the count at 0, each
+    step's p, m and v held bit-identical to the plain version's on copies
+    of the full buffers (the plain version in chunks of 2**27, elementwise,
+    so the chunking changes no bit); a ragged n with bf16 gradients; then
+    the timing, with one ``torch.optim.AdamW(fused=True)`` step on the
+    same buffers as the library call."""
+    from deepspeed_tpu_torch.checkpoint.jax_params import gpt2_param_shapes
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    from deepspeed_tpu_torch.ops.kernels import fused_optimizer as fo
+    from deepspeed_tpu_torch.utils.tree import flatten
+    n = sum(math.prod(s) for s in flatten(
+        gpt2_param_shapes(GPT2Config.xl_1p3b())).values())
+    kw = dict(lr=1e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    chunk = 1 << 27
+
+    def plain_chunks(p, gg, m, v, step):
+        for a in range(0, p.numel(), chunk):
+            s = slice(a, a + chunk)
+            fo.fused_adamw_update_plain(p[s], gg[s], m[s], v[s], step, **kw)
+
+    def same(a, b):
+        return torch.equal(a, b)
+
+    # a ragged n with bf16 gradients first (small)
+    nr = 10_000_003
+    pr = torch.randn(nr, generator=g, device="cuda")
+    mr, vr = torch.zeros_like(pr), torch.zeros_like(pr)
+    cr = [t.clone() for t in (pr, mr, vr)]
+    for step in (1, 2, 3):
+        gr = (1e-3 * torch.randn(nr, generator=g, device="cuda")).to(
+            torch.bfloat16)
+        fo.fused_adamw_update(pr, gr, mr, vr, step, **kw)
+        fo.fused_adamw_update_plain(*cr[:1], gr, *cr[1:], step, **kw)
+    if not all(same(a, b) for a, b in zip((pr, mr, vr), cr)):
+        raise AssertionError("adamw bf16-g ragged n: not bit-identical")
+    log(f"[ops] adamw n={nr} bf16 g, 3 steps: p, m, v bit-identical")
+    del pr, mr, vr, cr, gr
+    # the main path: one flat buffer of GPT-2-1.3B's parameters
+    p = torch.randn(n, generator=g, device="cuda").mul_(0.02)
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    grad = torch.empty_like(p)
+    copies = [t.clone() for t in (p, m, v)]
+    torch.cuda.synchronize()
+    fo.reset_launch_counts()
+    for step in (1, 2, 3):
+        grad.normal_(generator=g).mul_(1e-3)
+        out = fo.fused_adamw_update(p, grad, m, v, step, **kw)
+        if not (out[0] is p and out[1] is m and out[2] is v):
+            raise AssertionError("adamw did not update in place")
+        launches = fo.LAUNCHES["adamw"]
+        plain_chunks(*copies[:1], grad, *copies[1:], step)
+    torch.cuda.synchronize()
+    if launches != 3:
+        raise AssertionError(f"adamw launches {launches} != 3")
+    diff = max((a - b).abs().max().item() for a, b in zip((p, m, v), copies))
+    if not all(same(a, b) for a, b in zip((p, m, v), copies)):
+        raise AssertionError(f"adamw n={n}: not bit-identical ({diff})")
+    log(f"[ops] adamw n={n} f32 g, 3 steps: p, m, v bit-identical to the "
+        f"plain version")
+    del copies
+    torch.cuda.empty_cache()
+    ms = _time_ms(torch, lambda: fo.fused_adamw_update(p, grad, m, v, 4,
+                                                       **kw), 10)
+    dev_ms = _device_ms(torch, lambda: fo.fused_adamw_update(
+        p, grad, m, v, 4, **kw), 5)
+    plain_ms = _time_ms(torch, lambda: fo.fused_adamw_update_plain(
+        p, grad, m, v, 4, **kw), 2)
+    param = torch.nn.Parameter(p)
+    param.grad = grad
+    opt = torch.optim.AdamW([param], lr=kw["lr"], betas=(kw["b1"], kw["b2"]),
+                            eps=kw["eps"], weight_decay=kw["weight_decay"],
+                            fused=True)
+    lib_ms = _time_ms(torch, opt.step, 5)
+    lib_dev_ms = _device_ms(torch, opt.step, 3)
+    del opt, param, p, m, v, grad
+    torch.cuda.empty_cache()
+    return [_op_row("adamw", ADAMW_SOURCE, launches, diff, ms, plain_ms,
+                    lib_ms, 28 * n, 15 * n, F32_FLOPS_PER_S,
+                    device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                    launches_note="3 steps of the entry point",
+                    library_call="torch.optim.AdamW(fused=True).step() on "
+                                 "the same buffers",
+                    shape={"n": n, "g": "fp32", "dtype": "fp32"})]
+
+
+def phase_sparse_op(torch):
+    """Phase 20: block-sparse attention at BERT-large's attention width
+    (16 heads of 64) over B = 4 sequences of 4096 tokens (block 128, the
+    kernel's granularity, so ``coarsening_is_exact`` holds), from the
+    entry points with the count at 0: ``SparseSelfAttention(cfg,
+    impl="flash")`` with BSLongformer (window 3, global block 0) and
+    BigBird (1 random, window 3, 1 global, a layout per head), and
+    ``sparse_attention(impl="flash")`` on BSLongformer with one query
+    block of head 0 cleared (its rows must be zeros); each against the
+    plain version (the layouts are the configs' own: BigBird's random
+    blocks come from its seed), and fp32
+    on the CUDA-core kernel; timing per layout with
+    ``F.scaled_dot_product_attention`` on the token-level boolean mask as
+    the library call."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    B, Hh, T, Dh = SPARSE_B, SPARSE_H, SPARSE_T, SPARSE_D
+    g = torch.Generator(device="cuda").manual_seed(20)
+    q, k, v = (torch.randn(B, Hh, T, Dh, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    cfgs = {
+        "bslongformer": sa.BSLongformerSparsityConfig(
+            Hh, block=128, num_sliding_window_blocks=3,
+            global_block_indices=[0]),
+        "bigbird": sa.BigBirdSparsityConfig(
+            Hh, block=128, num_random_blocks=1, num_sliding_window_blocks=3,
+            num_global_blocks=1, different_layout_per_head=True)}
+    layouts = {name: c.make_layout(T) for name, c in cfgs.items()}
+    empty = layouts["bslongformer"].copy()
+    empty[0, 5] = False
+    layouts["bslongformer_empty_row"] = empty
+    cfgs["bslongformer_empty_row"] = cfgs["bslongformer"]
+    mods = {name: sa.SparseSelfAttention(cfgs[name], impl="flash")
+            for name in ("bslongformer", "bigbird")}
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    outs = {name: mod(q, k, v) for name, mod in mods.items()}
+    outs["bslongformer_empty_row"] = sa.sparse_attention(
+        q, k, v, cfgs["bslongformer"], impl="flash", layout=empty)
+    torch.cuda.synchronize()
+    launches = fa.SPARSE_LAUNCHES["flash_sparse_fwd"]
+    if launches != len(layouts):
+        raise AssertionError(f"flash_sparse_fwd launches {launches}")
+    scale = Dh ** -0.5
+    worst = 0.0
+    for name, o in outs.items():
+        if not torch.isfinite(o.float()).all():
+            raise AssertionError(f"sparse {name}: non-finite output")
+        ref = fa.flash_attention_sparse_plain(q, k, v, layouts[name],
+                                              sm_scale=scale)
+        worst = max(worst, check_close(
+            torch, f"[ops] flash_sparse_fwd {name} bf16 "
+            f"({int(layouts[name].sum())} of {layouts[name].size} blocks)",
+            o, ref, bf16_max_abs=SPARSE_BF16_MAX_ABS))
+        del ref
+    if outs["bslongformer_empty_row"][0, 0, 5 * 128:6 * 128].any():
+        raise AssertionError("a query block with no allowed block: not 0")
+    del outs
+    torch.cuda.empty_cache()
+    qf, kf, vf = (t[:1].float() for t in (q, k, v))
+    check_close(torch, "[ops] flash_sparse_fwd bigbird fp32 (B = 1)",
+                fa.flash_attention_sparse(qf, kf, vf, layouts["bigbird"],
+                                          layout="BHTD"),
+                fa.flash_attention_sparse_plain(qf, kf, vf,
+                                                layouts["bigbird"],
+                                                sm_scale=scale),
+                fp32_max_abs=OPS_FP32_MAX_ABS)
+    del qf, kf, vf
+    per = {}
+    for name in ("bslongformer", "bigbird"):
+        lay = layouts[name]
+        ms = _time_ms(torch, lambda: sa.sparse_attention(
+            q, k, v, cfgs[name], impl="flash", layout=lay), 20)
+        dev_ms = _device_ms(torch, lambda: sa.sparse_attention(
+            q, k, v, cfgs[name], impl="flash", layout=lay), 10)
+        plain_ms = _time_ms(torch, lambda: fa.flash_attention_sparse_plain(
+            q, k, v, lay, sm_scale=scale), 2)
+        mask = sa.token_mask(lay, 128, "cuda")[None]      # [1, H, T, T]
+        lib_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), 10)
+        lib_dev_ms = _device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), 5)
+        del mask
+        allowed = int(lay.sum())
+        flops = 4 * B * allowed * 128 * 128 * Dh
+        nbytes = 4 * B * Hh * T * Dh * 2
+        per[name] = (ms, plain_ms, lib_ms, nbytes, flops, allowed, dev_ms,
+                     lib_dev_ms)
+        bound_ms, by = _bound(nbytes, flops, BF16_FLOPS_PER_S)
+        log(f"[ops timing] flash_sparse_fwd {name} ({allowed} of "
+            f"{lay.size} blocks): {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
+            f"{lib_ms:.4f}, bound {bound_ms:.4f} by {by}); device time "
+            f"{dev_ms}, sdpa device time {lib_dev_ms}")
+        torch.cuda.empty_cache()
+    ms, plain_ms, lib_ms, nbytes, flops, allowed, dev_ms, lib_dev_ms = \
+        per["bslongformer"]
+    del q, k, v
+    torch.cuda.empty_cache()
+    return [_op_row(
+        "flash_sparse_fwd", SPARSE_SOURCE, launches, worst, ms, plain_ms,
+        lib_ms, nbytes, flops, BF16_FLOPS_PER_S, device_ms=dev_ms,
+        library_device_ms=lib_dev_ms,
+        launches_note="one entry-point call per layout (3)",
+        library_call="F.scaled_dot_product_attention with the token-level "
+                     "boolean mask",
+        shape={"B": B, "H": Hh, "T": T, "D": Dh, "layout": "bslongformer",
+               "allowed_blocks": allowed, "dtype": "bf16"},
+        layouts={n: dict(zip(("ms", "plain_ms", "library_ms", "bytes",
+                              "flops", "allowed_blocks", "device_ms",
+                              "library_device_ms"), r))
+                 for n, r in per.items()})]
+
+
+def _evo_inputs(torch, g, shape, dtype=None):
+    """q/k/v [B, N, S, H, D] (bf16 unless ``dtype``), the mask bias [B, N,
+    1, 1, S] (-1e9 on ~20% of the keys) and the pair bias [B, 1, H, S, S]
+    (f32)."""
+    dtype = dtype or torch.bfloat16
+    B, N, S, Hh, Dh = shape
+    q, k, v = (torch.randn(*shape, generator=g, device="cuda").to(dtype)
+               for _ in range(3))
+    drop = torch.rand(B, N, 1, 1, S, generator=g, device="cuda") < 0.2
+    mask = torch.where(drop, -1e9, 0.0)
+    pair = torch.randn(B, 1, Hh, S, S, generator=g, device="cuda")
+    return q, k, v, mask, pair
+
+
+def phase_evoformer_op(torch):
+    """Phase 21: ``DS4Sci_EvoformerAttention`` at AlphaFold 2's
+    fine-tuning sizes, bf16 with f32 biases: MSA row attention with pair
+    bias ([1, 512, 384, 8, 32]) and triangle attention ([1, 384, 384, 4,
+    32]), from the entry point with the count at 0, each against the
+    plain version; a ragged S = 300, the four bias combinations and fp32
+    on smaller MSA stacks; one backward of the MSA case against the plain
+    path's gradients; timing with ``F.scaled_dot_product_attention`` on
+    [B N, H, S, D] with mask + pair bias as its ``attn_mask`` (built
+    outside the timed window) as the library call."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.evoformer_attn import \
+        DS4Sci_EvoformerAttention as evo
+    from deepspeed_tpu_torch.ops.kernels import evoformer as ek
+    g = torch.Generator(device="cuda").manual_seed(21)
+    cases = {"msa": _evo_inputs(torch, g, EVO_MSA),
+             "triangle": _evo_inputs(torch, g, EVO_TRI)}
+    torch.cuda.synchronize()
+    ek.reset_launch_counts()
+    outs = {name: evo(q, k, v, [mask, pair])
+            for name, (q, k, v, mask, pair) in cases.items()}
+    torch.cuda.synchronize()
+    launches = ek.LAUNCHES["evoformer_fwd"]
+    if launches != len(cases):
+        raise AssertionError(f"evoformer_fwd launches {launches}")
+    worst = 0.0
+    for name, (q, k, v, mask, pair) in cases.items():
+        ref = ek.evoformer_flash_plain(q, k, v, mask[:, :, 0, 0],
+                                       pair[:, 0])
+        worst = max(worst, check_close(
+            torch, f"[ops] evoformer_fwd {name} {list(q.shape)} bf16",
+            outs[name], ref, bf16_max_abs=EVO_BF16_MAX_ABS))
+        del ref
+    del outs
+    # the four bias combinations, ragged S, fp32, and a fully masked row
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, mask, pair = _evo_inputs(torch, g, (1, 64, 300, 8, 32), dt)
+        mask[0, 3] = float("-inf")
+        for mb, pb in ((None, None), (mask, None), (None, pair),
+                       (mask, pair)):
+            mb2 = None if mb is None else mb[:, :, 0, 0]
+            pb2 = None if pb is None else pb[:, 0]
+            got = ek.evoformer_flash(q, k, v, mb2, pb2)
+            err = check_close(
+                torch, f"[ops] evoformer_fwd [1, 64, 300, 8, 32] "
+                f"{str(dt)[6:]} mask={mb is not None} pair={pb is not None}",
+                got, ek.evoformer_flash_plain(q, k, v, mb2, pb2),
+                bf16_max_abs=EVO_BF16_MAX_ABS, fp32_max_abs=OPS_FP32_MAX_ABS)
+            if mb is not None and got[0, 3].any():
+                raise AssertionError("evoformer: a fully masked row not 0")
+            if dt is torch.bfloat16:
+                worst = max(worst, err)
+    # one backward of the MSA case against the plain path's gradients
+    q, k, v, mask, pair = (t.detach().requires_grad_(True)
+                           for t in cases["msa"])
+    cot = torch.randn(EVO_MSA, generator=g, device="cuda").to(torch.bfloat16)
+    ins = (q, k, v, mask, pair)
+    got = torch.autograd.grad(evo(q, k, v, [mask, pair]), ins, cot)
+    ref = torch.autograd.grad(evo(q, k, v, [mask, pair], use_kernel=False),
+                              ins, cot)
+    for arg, a, r in zip(("q", "k", "v", "mask", "pair"), got, ref):
+        rel = ((a.float() - r.float()).norm()
+               / r.float().norm().clamp_min(1e-30)).item()
+        log(f"[ops] evoformer backward d{arg}: rel_norm_err {rel:.3e} (1e-5)")
+        if not rel <= 1e-5:
+            raise AssertionError(f"evoformer backward d{arg}: {rel}")
+    del q, k, v, mask, pair, cot, got, ref, ins
+    torch.cuda.empty_cache()
+    per = {}
+    for name, (q, k, v, mask, pair) in cases.items():
+        B, N, S, Hh, Dh = q.shape
+        mb2, pb2 = mask[:, :, 0, 0], pair[:, 0]
+        ms = _time_ms(torch, lambda: ek.evoformer_flash(q, k, v, mb2, pb2),
+                      20)
+        dev_ms = _device_ms(torch, lambda: ek.evoformer_flash(
+            q, k, v, mb2, pb2), 10)
+        plain_ms = _time_ms(torch, lambda: ek.evoformer_flash_plain(
+            q, k, v, mb2, pb2), 2)
+        qs, ks, vs = (t.reshape(B * N, S, Hh, Dh).transpose(1, 2)
+                      .contiguous() for t in (q, k, v))
+        am = (mask + pair).reshape(B * N, Hh, S, S).to(q.dtype)
+        lib_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=am), 10)
+        lib_dev_ms = _device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=am), 5)
+        del qs, ks, vs, am
+        nbytes = 4 * q.numel() * 2 + mb2.numel() * 4 + pb2.numel() * 4
+        flops = 4 * B * N * Hh * S * S * Dh
+        per[name] = (ms, plain_ms, lib_ms, nbytes, flops, dev_ms, lib_dev_ms)
+        bound_ms, by = _bound(nbytes, flops, BF16_FLOPS_PER_S)
+        log(f"[ops timing] evoformer_fwd {name} {list(q.shape)}: {ms:.4f} "
+            f"ms (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, bound "
+            f"{bound_ms:.4f} by {by}); device time {dev_ms}, sdpa device "
+            f"time {lib_dev_ms}")
+        torch.cuda.empty_cache()
+    del cases
+    torch.cuda.empty_cache()
+    ms, plain_ms, lib_ms, nbytes, flops, dev_ms, lib_dev_ms = per["msa"]
+    return [_op_row(
+        "evoformer_fwd", EVO_SOURCE, launches, worst, ms, plain_ms, lib_ms,
+        nbytes, flops, BF16_FLOPS_PER_S, device_ms=dev_ms,
+        library_device_ms=lib_dev_ms,
+        launches_note="one entry-point call per case (MSA, triangle)",
+        library_call="F.scaled_dot_product_attention on [B N, H, S, D] "
+                     "with mask + pair bias as attn_mask (bf16, built "
+                     "outside the timed window)",
+        shape={"q": list(EVO_MSA), "case": "msa", "dtype": "bf16"},
+        cases={n: dict(zip(("ms", "plain_ms", "library_ms", "bytes",
+                            "flops", "device_ms", "library_device_ms"), r))
+               for n, r in per.items()})]
+
+
 def main(argv) -> int:
     unknown = [a for a in argv if a != "--trace"]
     if unknown:
@@ -1831,6 +2369,10 @@ def main(argv) -> int:
     woq = run(phase_woq_serving, torch, tracing)
     woq_parity = run(phase_woq_engine_parity, torch)
     rows += run(phase_woq_timing, torch, woq, woq_worst, rows)
+    rows += run(phase_norm_ops, torch)
+    rows += run(phase_adamw_op, torch)
+    rows += run(phase_sparse_op, torch)
+    rows += run(phase_evoformer_op, torch)
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     result = {"kernels": rows, "card": card, "phase_s": phase_s,
               "serving": {k: serving[k] for k in

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source compiles on first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``build/`` at the repository root (listed in ``.gitignore``). The
-library's name carries a hash of its source, so an edited source rebuilds
-and a stale library is never loaded. Nothing here runs at import time.
+library's name carries a hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited source or header rebuilds and a stale
+library is never loaded. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -63,6 +64,24 @@ SIGNATURES = {
     "fp6_gemm": {
         "fp6_matmul_launch": [_P] * 4 + [_I] * 4 + [_P],
     },
+    # x, w, b, out, rows, hidden, eps, layer_norm, dtype code, stream
+    "normalization": {
+        "norm_fwd_launch": [_P] * 4 + [_I, _I, _F, _I, _I, _P],
+    },
+    # p, g, m, v, hyper, n, g_is_bf16, stream
+    "fused_optimizer": {
+        "adamw_launch": [_P] * 5 + [_L, _I, _P],
+    },
+    # q, k, v, o, row_ptr, tiles, host strides, B, H, Hk, Tq, Tk, D, nq,
+    # block_q, scale, is_bf16, stream
+    "sparse_attention": {
+        "sparse_fwd_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+    },
+    # q, k, v, o, mask bias, pair bias, host strides, B, N, H, Sq, Sk, D,
+    # scale, is_bf16, stream
+    "evoformer": {
+        "evoformer_fwd_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+    },
 }
 
 
@@ -78,8 +97,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

@@ -23,25 +23,39 @@ plain PyTorch version (``flash_fwd_plain``, ``flash_bwd_dq_plain``,
 casts as the Pallas kernels: P to V's dtype before P.V, ds to K's (dQ) or
 Q's (dK) dtype, P to dO's dtype for dV. Only a launch counts in
 :data:`LAUNCHES`.
+
+A fourth kernel, ``flash_sparse_fwd`` (``csrc/sparse_attention.cu``),
+replaces ``_fwd_sparse_kernel``: block-sparse attention forward over a
+static ``(H, nq, nk)`` block mask, behind :func:`flash_attention_sparse`
+(plain version :func:`flash_attention_sparse_plain`). It counts in
+:data:`SPARSE_LAUNCHES`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0}
 KERNEL_HEAD_DIMS = (64, 128)
+#: block-sparse forward launches (a dict of its own: the training phases
+#: hold every entry of :data:`LAUNCHES` to layers x steps)
+SPARSE_LAUNCHES: Dict[str, int] = {"flash_sparse_fwd": 0}
+SPARSE_HEAD_DIMS = (32, 64, 128)
+_TILE = 64                       # key rows of one tile of the sparse kernel
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, SPARSE_LAUNCHES):
+        for k in d:
+            d[k] = 0
 
 
 # ------------------------------------------------------------ plain versions
@@ -305,3 +319,186 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if layout == "BTHD":
         o = o.transpose(1, 2)
     return (o, lse) if return_lse else o
+
+
+# ------------------------------------------------------------ block-sparse
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _token_mask(block_mask: np.ndarray, block_q: int, block_k: int, tq: int,
+                tk: int, device) -> torch.Tensor:
+    """The block mask at token level: ``[H, Tq, Tk]`` bool, expanded on
+    ``device``."""
+    bm = torch.from_numpy(np.asarray(block_mask) > 0).to(device)
+    return bm.repeat_interleave(block_q, dim=1).repeat_interleave(
+        block_k, dim=2)[:, :tq, :tk]
+
+
+def flash_attention_sparse_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, block_mask, *,
+                                 sm_scale: float, block_q: int = 128,
+                                 block_k: int = 128) -> torch.Tensor:
+    """``flash_sparse_fwd``'s function in plain PyTorch, ``[B, H, T, D]``:
+    softmax over the keys of the allowed ``block_q x block_k`` blocks
+    (keys past Tk never count), P cast to V's dtype before P.V with the
+    sums taken before; a row with no allowed key gives zeros."""
+    B, H, Tq, D = q.shape
+    Hk, Tk = k.shape[1], k.shape[2]
+    live = _token_mask(block_mask, block_q, block_k, Tq, Tk, q.device)
+    s, _ = _scores(q, k, causal=False, sm_scale=sm_scale)
+    s = s.masked_fill(~live.reshape(Hk, H // Hk, Tq, Tk), float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum("bkgqt,bktd->bkgqd", p.to(v.dtype).float(), v.float())
+    o = pv / torch.where(l == 0, torch.ones_like(l), l)
+    return o.reshape(B, H, Tq, D).to(q.dtype)
+
+
+def sparse_tile_csr(block_mask: np.ndarray, block_k: int, tk: int,
+                    device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(row_ptr, tiles)``: for each (head, query block), in order, the
+    64-key tiles of its allowed key blocks that start below ``tk``
+    (ascending), as int32 CSR on ``device``; built on the host once per
+    mask and kept on the device (the kernel only reads them)."""
+    bm = np.asarray(block_mask) > 0
+    return _tile_csr(bm.tobytes(), bm.shape, block_k, tk, str(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _tile_csr(mask_bytes: bytes, shape: Tuple[int, int, int], block_k: int,
+              tk: int, device: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    bm = np.frombuffer(mask_bytes, dtype=bool).reshape(shape)
+    h, nq, nk = shape
+    per = block_k // _TILE
+    live = np.repeat(bm, per, axis=2)                   # [h, nq, nk * per]
+    live &= (np.arange(nk * per) * _TILE < tk)[None, None, :]
+    counts = live.reshape(h * nq, -1).sum(axis=1)
+    row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    tiles = np.nonzero(live.reshape(h * nq, -1))[1].astype(np.int32)
+    return (torch.from_numpy(row_ptr).to(device),
+            torch.from_numpy(np.concatenate([tiles, [0]]).astype(np.int32)
+                             ).to(device))
+
+
+def flash_sparse_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     block_mask: np.ndarray, *, sm_scale: float,
+                     block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """The block-sparse forward on ``[B, H, T, D]`` (CUDA kernel on a card,
+    the plain version on the CPU); ``block_mask`` a host array of shape
+    ``(H, ceil(Tq / block_q), ceil(Tk / block_k))``."""
+    _check_sparse(q, k, v)
+    if not q.is_cuda:
+        return flash_attention_sparse_plain(q, k, v, block_mask,
+                                            sm_scale=sm_scale,
+                                            block_q=block_q, block_k=block_k)
+    if block_q % _TILE or block_k % _TILE:
+        raise ValueError(f"block_q {block_q} / block_k {block_k}: the kernel "
+                         f"takes multiples of {_TILE}")
+    B, H, Tq, D = q.shape
+    Hk, Tk = k.shape[1], k.shape[2]
+    row_ptr, tiles = sparse_tile_csr(block_mask, block_k, Tk, q.device)
+    o = _empty_like_order(q)
+    from . import _build
+    lib = _build.load("sparse_attention")
+    flat = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    strides = (ctypes.c_longlong * len(flat))(*flat)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.sparse_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        row_ptr.data_ptr(), tiles.data_ptr(), ctypes.addressof(strides), B,
+        H, Hk, Tq, Tk, D, np.asarray(block_mask).shape[1], block_q,
+        float(sm_scale), int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_sparse_fwd failed: cudaError {err}")
+    SPARSE_LAUNCHES["flash_sparse_fwd"] += 1
+    return o
+
+
+def _check_sparse(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B, H, T, D]")
+    B, H, _, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if H % k.shape[1]:
+        raise ValueError(f"GQA requires q_heads % kv_heads == 0 "
+                         f"({H}/{k.shape[1]})")
+    if not q.is_cuda:
+        return
+    for t in (k, v):
+        if t.device != q.device:
+            raise ValueError(f"a tensor on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"k/v dtype {t.dtype} != q dtype {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"q dtype {q.dtype}: the kernel takes bf16 or fp32")
+    for t in (q, k, v):
+        if t.stride(-1) != 1:
+            raise ValueError("the kernel needs a unit head_dim stride")
+    if D not in SPARSE_HEAD_DIMS:
+        raise ValueError(f"head_dim {D}: the kernel takes {SPARSE_HEAD_DIMS}")
+
+
+class _SparseFlash(torch.autograd.Function):
+    """Forward only, as the Pallas kernel (no VJP): a backward raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, block_mask, sm_scale, block_q, block_k):
+        return flash_sparse_fwd(q, k, v, block_mask, sm_scale=sm_scale,
+                                block_q=block_q, block_k=block_k)
+
+    @staticmethod
+    def backward(ctx, do):
+        raise RuntimeError(
+            "flash_attention_sparse is forward-only (no backward, as the "
+            "JAX package's kernel); train through sparse_attention's "
+            "masked path (impl='xla')")
+
+
+def flash_attention_sparse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           block_mask, *, sm_scale: Optional[float] = None,
+                           block_q: int = 128, block_k: int = 128,
+                           layout: str = "BTHD") -> torch.Tensor:
+    """Block-sparse flash attention (forward): ``block_mask`` is a static
+    host ``(heads, ceil(T / block_q), ceil(T / block_k))`` bool/int layout
+    (numpy or a CPU tensor); masked blocks are never read. q in
+    ``layout`` (BTHD or BHTD); k/v with a KV head count dividing H (GQA
+    reads the group's KV head, no repeat). Inference-oriented: a backward
+    through it raises; training paths use the masked attention of
+    ``ops.sparse_attention``."""
+    if layout == "BTHD":
+        q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    elif layout != "BHTD":
+        raise ValueError(f"unknown layout {layout!r}")
+    b, h, tq, d = q.shape
+    hk = k.shape[1]
+    if hk != h and h % hk:
+        raise ValueError(f"GQA requires q_heads % kv_heads == 0 ({h}/{hk})")
+    tk = k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    block_q = min(block_q, _round_up(tq, 128))
+    block_k = min(block_k, _round_up(tk, 128))
+    nq, nk = -(-tq // block_q), -(-tk // block_k)
+    if isinstance(block_mask, torch.Tensor):
+        if block_mask.is_cuda:
+            raise ValueError(
+                "flash_attention_sparse needs a static host block_mask "
+                "(numpy or a CPU tensor); it determines the kernel's tile "
+                "lists, built on the host")
+        block_mask = block_mask.numpy()
+    bm = np.asarray(block_mask)
+    if bm.shape != (h, nq, nk):
+        raise ValueError(
+            f"block_mask shape {bm.shape} != (heads={h}, nq={nq}, nk={nk}) "
+            f"for block_q={block_q}, block_k={block_k}")
+    o = _SparseFlash.apply(q, k, v, bm, float(sm_scale), block_q, block_k)
+    if layout == "BTHD":
+        o = o.transpose(1, 2)
+    return o

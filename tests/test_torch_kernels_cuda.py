@@ -252,3 +252,211 @@ def test_woq_kernels_raise_on_unsupported_dtype():
     with pytest.raises(ValueError):
         f6.fp6_matmul(x.float(), fw._replace(scale=fw.scale.cpu()))
     assert not any(qz.LAUNCHES.values()) and not any(f6.LAUNCHES.values())
+
+
+def _within_ulp_bf16(got, ref):
+    """Each bf16 element within one bf16 ulp of the plain output (2**-7 of
+    its magnitude bounds the ulp of its binade and the one below), or
+    within 1e-5 of the output's largest magnitude: where x - mean or
+    w x^ + b cancels to near zero the ulp falls below the f32 statistics'
+    own rounding, which differs between the two in summation order."""
+    diff = (got.float() - ref.float()).abs()
+    floor = 1e-5 * ref.float().abs().max()
+    return bool((diff <= torch.maximum(2.0 ** -7 * ref.float().abs(),
+                                       floor)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,hidden", [(64, 256), (48, 4100), (7, 8192),
+                                         (33, 3)])
+def test_norm_kernels_match_plain_on_card(rows, hidden):
+    """Both norm kernels against their plain versions on the card: bf16
+    within one bf16 ulp of the plain output (``_within_ulp_bf16``: the f32
+    statistics differ in summation order and rsqrt's last bit only), fp32
+    within 2e-6 of the
+    plain output's largest magnitude; hidden sizes off the 16-byte vector
+    (4100, 3) take the scalar path; rows of 8192 (Llama-70B) in one block's
+    loop; fp16 runs too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import normalization as nm
+    rng = np.random.default_rng(hidden)
+    x = torch.from_numpy(rng.standard_normal((rows, hidden)).astype(
+        np.float32) * 3 + 0.5).cuda()
+    w = torch.from_numpy(1 + 0.1 * rng.standard_normal(hidden).astype(
+        np.float32)).cuda()
+    b = torch.from_numpy(0.1 * rng.standard_normal(hidden).astype(
+        np.float32)).cuda()
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        xx = x.to(dt)
+        nm.reset_launch_counts()
+        got = [nm.fused_rms_norm(xx, w), nm.fused_layer_norm(xx, w, b)]
+        ref = [nm.rms_norm_plain(xx, w, 1e-6),
+               nm.layer_norm_plain(xx, w, b, 1e-5)]
+        torch.cuda.synchronize()
+        assert nm.LAUNCHES == {"rms_norm": 1, "layer_norm": 1}
+        for g, r in zip(got, ref):
+            assert g.dtype == dt and g.shape == xx.shape
+            if dt is torch.float32:
+                err = (g - r).abs().max().item()
+                assert err <= 2e-6 * r.abs().max().item(), (rows, hidden, err)
+            elif dt is torch.bfloat16:
+                assert _within_ulp_bf16(g, r), (rows, hidden)
+            else:
+                assert torch.allclose(g.float(), r.float(), rtol=2e-3,
+                                      atol=2e-3), (rows, hidden)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(4096, 0), (1000003, 0), (5000, 1)])
+def test_adamw_kernel_bit_identical_to_plain_on_card(n, offset):
+    """The AdamW kernel against its plain version over 3 steps from the
+    same buffers: p, m and v bit-identical (no FMA contraction; the same
+    f32 hyper-parameters), f32 and bf16 gradients, a ragged n, and buffers
+    one element off the 16-byte vector alignment (the scalar path). The
+    kernel updates in place: the returned tensors are the inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import fused_optimizer as fo
+    rng = np.random.default_rng(n)
+    base = [torch.from_numpy(a).cuda() for a in (
+        rng.standard_normal(n + offset).astype(np.float32),
+        (0.01 * rng.standard_normal(n + offset)).astype(np.float32),
+        (1e-4 * rng.random(n + offset)).astype(np.float32))]
+    grads = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+             .cuda() for _ in range(3)]
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
+    for gdt in (torch.float32, torch.bfloat16):
+        kp, km, kv = (t.clone()[offset:] for t in base)
+        pp, pm, pv = (t.clone()[offset:] for t in base)
+        fo.reset_launch_counts()
+        for step in (1, 2, 3):
+            g = grads[step - 1].to(gdt)
+            out = fo.fused_adamw_update(kp, g, km, kv, step, **kw)
+            assert out[0] is kp and out[1] is km and out[2] is kv
+            fo.fused_adamw_update_plain(pp, g, pm, pv, step, **kw)
+        torch.cuda.synchronize()
+        assert fo.LAUNCHES["adamw"] == 3
+        for a, r in ((kp, pp), (km, pm), (kv, pv)):
+            assert torch.equal(a, r), (n, offset, gdt,
+                                       (a - r).abs().max().item())
+    # lr and step as device tensors: the same bits, no host sync needed
+    kp, km, kv = (t.clone()[offset:] for t in base)
+    pp, pm, pv = (t.clone()[offset:] for t in base)
+    lr = torch.tensor(1e-3, device="cuda")
+    step = torch.tensor(1, device="cuda")
+    fo.fused_adamw_update(kp, grads[0], km, kv, step, **{**kw, "lr": lr})
+    fo.fused_adamw_update_plain(pp, grads[0], pm, pv, 1, **kw)
+    assert torch.equal(kp, pp) and torch.equal(kv, pv)
+
+
+def _sparse_case(rng, B, H, Hk, T, D, dt):
+    nb = -(-T // 128)
+    bm = rng.random((H, nb, nb)) < 0.5
+    bm[0, nb - 1] = False                       # a q-block with no key
+    bm[:, 0, 0] = True
+    mk = lambda h: torch.from_numpy(                            # noqa: E731
+        rng.standard_normal((B, T, h, D)).astype(np.float32)).cuda().to(dt)
+    return bm, mk(H), mk(Hk), mk(Hk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hk,T,D", [
+    (2, 4, 4, 384, 64),
+    (1, 4, 2, 300, 32),       # ragged T, GQA 4 -> 2
+    (1, 2, 2, 256, 128),
+])
+def test_sparse_kernel_matches_plain_on_card(B, H, Hk, T, D):
+    """The block-sparse kernel against its plain version on the card, on
+    BTHD views (strided rows): bf16 (``_close_bf16``) and fp32 within 1e-5
+    (the CUDA-core kernel, TF32 off for the plain products); a query block
+    with no allowed key block gives zeros; a backward raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(T + D)
+    for dt in (torch.float32, torch.bfloat16):
+        bm, q, k, v = _sparse_case(rng, B, H, Hk, T, D, dt)
+        fa.reset_launch_counts()
+        got = fa.flash_attention_sparse(q, k, v, bm)
+        ref = fa.flash_attention_sparse_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bm,
+            sm_scale=D ** -0.5).transpose(1, 2)
+        torch.cuda.synchronize()
+        assert fa.SPARSE_LAUNCHES["flash_sparse_fwd"] == 1
+        assert got.shape == q.shape and got.dtype == dt
+        nb = bm.shape[1]
+        assert not got[:, (nb - 1) * 128:, 0].any()
+        if dt is torch.bfloat16:
+            assert _close_bf16(got, ref), (B, H, Hk, T, D)
+        else:
+            assert (got - ref).abs().max().item() <= 1e-5, (B, H, Hk, T, D)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fa.flash_attention_sparse(q, k, v, bm).sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D", [(40, 32), (130, 64), (64, 32)])
+@pytest.mark.parametrize("biases", ["none", "mask", "pair", "both"])
+def test_evoformer_kernel_matches_plain_on_card(S, D, biases):
+    """The Evoformer kernel against its plain version on the card: the four
+    bias combinations, ragged S, D = 32 and 64, a row of MSA keys all at
+    -inf (zeros out) and -1e9 mask biases; bf16 (``_close_bf16``) and fp32
+    within 1e-5 (the CUDA-core kernel, TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import evoformer as ev
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, N, H = 2, 3, 4
+    rng = np.random.default_rng(S * D)
+    arr = lambda *s: torch.from_numpy(                          # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).cuda()
+    mask = torch.where(torch.from_numpy(rng.random((B, N, S)) < 0.2).cuda(),
+                       -1e9, 0.0).float()
+    mask[0, 1] = float("-inf")                  # every key of (0, 1) masked
+    mb = mask if biases in ("mask", "both") else None
+    pb = arr(B, H, S, S) if biases in ("pair", "both") else None
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (arr(B, N, S, H, D).to(dt) for _ in range(3))
+        ev.reset_launch_counts()
+        got = ev.evoformer_flash(q, k, v, mb, pb)
+        ref = ev.evoformer_flash_plain(q, k, v, mb, pb)
+        torch.cuda.synchronize()
+        assert ev.LAUNCHES["evoformer_fwd"] == 1
+        assert got.shape == q.shape and torch.isfinite(got.float()).all()
+        if mb is not None:
+            assert not got[0, 1].any()
+        if dt is torch.bfloat16:
+            assert _close_bf16(got, ref), (S, D, biases)
+        else:
+            assert (got - ref).abs().max().item() <= 1e-5, (S, D, biases)
+
+
+@pytest.mark.cuda
+def test_slice5_kernels_raise_on_unsupported_input():
+    """CUDA tensors the kernels do not take raise; nothing falls back to
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import evoformer as ev
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_optimizer as fo
+    fa.reset_launch_counts()
+    ev.reset_launch_counts()
+    fo.reset_launch_counts()
+    h = torch.randn(1, 128, 2, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_sparse(h, h, h, np.ones((2, 1, 1), bool))
+    with pytest.raises(ValueError, match="host"):
+        fa.flash_attention_sparse(h.float(), h.float(), h.float(),
+                                  torch.ones(2, 1, 1, device="cuda"))
+    e = torch.randn(1, 2, 16, 2, 128, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        ev.evoformer_flash(e, e, e)
+    p = torch.zeros(64, device="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        fo.fused_adamw_update(p, p.half(), p.clone(), p.clone(), 1, lr=1e-3)
+    assert fa.SPARSE_LAUNCHES["flash_sparse_fwd"] == 0
+    assert ev.LAUNCHES["evoformer_fwd"] == 0 and fo.LAUNCHES["adamw"] == 0

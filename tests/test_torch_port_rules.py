@@ -85,8 +85,9 @@ def test_chip_smoke_refuses_without_card_or_checkout(tmp_path, alone):
 def test_import_builds_no_kernel():
     """Import every module of the port with process spawning disabled;
     no library may be loaded and no nvcc started. The walk reaches the
-    training slice's modules too (config, runtime, ops, models) and the
-    WOQ slice's (the quantizers and the fp6 GEMM)."""
+    training slice's modules too (config, runtime, ops, models), the WOQ
+    slice's (the quantizers and the fp6 GEMM) and the ops slice's (norms,
+    AdamW, sparse and Evoformer attention)."""
     code = (
         "import subprocess, sys, pkgutil, importlib\n"
         "def _no(*a, **k): raise AssertionError('spawned at import')\n"
@@ -100,7 +101,10 @@ def test_import_builds_no_kernel():
         "        'runtime.loss_scaler', 'ops.optimizers', 'models.gpt2',\n"
         "        'models._lm_utils', 'ops.kernels.flash_attention',\n"
         "        'ops.kernels.fp6_gemm', 'ops.kernels.quantization',\n"
-        "        'ops.fp_quantizer', 'inference.quantization'}\n"
+        "        'ops.fp_quantizer', 'inference.quantization',\n"
+        "        'ops.kernels.normalization', 'ops.kernels.fused_optimizer',\n"
+        "        'ops.kernels.evoformer', 'ops.sparse_attention',\n"
+        "        'ops.evoformer_attn'}\n"
         "assert {p.__name__ + '.' + n for n in need} <= set(names), names\n"
         "from deepspeed_tpu_torch.ops.kernels import _build\n"
         "assert not _build._libs and not _build.build_logs\n"
