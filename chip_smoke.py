@@ -166,6 +166,18 @@ bound and one library call:
              path's gradients; SDPA on [B N, H, S, D] with mask + pair bias
              as ``attn_mask`` as the library call.
 
+22. c1      — fault C1, the inputs the kernels refused before: K1 and K2
+             at head dims 16, 32, 80 and 96 and a GQA group of 32 (bf16
+             and fp32, against the plain version); a ``LlamaConfig.tiny``
+             engine (head_dim 16) and a 2-layer engine at Phi-3-mini's
+             widths (head_dim 96) under ``attention_impl="auto"``,
+             token-identical to the dense engine (fp32, TF32 off);
+             ``GPT2Config.tiny`` (head_dim 16) trained 5 steps in fp16 and
+             in bf16 through the flash kernels against the same engine on
+             dense attention (C1_TRAIN_REL); ``DS4Sci_EvoformerAttention``
+             at head dims 16 and 48 (zero-padded to 64) against its plain
+             path. Each check holds its kernel's launch count above 0.
+
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
 and one over a ``train_batch`` follows phases 7 and 11: the device's busy
@@ -328,7 +340,34 @@ def paged_inputs(torch, rng, *, S, C, lens, block_size, maxb, dtype,
 # ---------------------------------------------------------------- phases
 
 
+def ptxas_summary(text):
+    """{entry function: {registers, spill_stores, spill_loads,
+    static_smem_bytes}} from ptxas's ``-v`` report of one library."""
+    import re
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"registers": None, "spill_stores": None,
+                       "spill_loads": None, "static_smem_bytes": 0}
+        elif fn is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                out[fn]["spill_stores"] = int(m.group(1))
+                out[fn]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[fn]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                out[fn]["static_smem_bytes"] = int(m.group(1)) if m else 0
+    return out
+
+
 def phase_build():
+    """Compile every kernel library; log ptxas's report and return it per
+    library and entry function."""
     from deepspeed_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
     _build.build()
@@ -338,6 +377,8 @@ def phase_build():
             if "ptxas" in line and ("Used" in line or "spill" in line
                                     or "Compiling" in line):
                 log(f"[build] {name}: {line.strip()}")
+    return {name: ptxas_summary(text)
+            for name, text in _build.build_logs.items()}
 
 
 def check_close(torch, what, got, ref, bf16_max_abs=BF16_MAX_ABS,
@@ -1001,15 +1042,18 @@ def phase_xent_parity(torch):
     torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 products
     worst = {"xent_fwd": 0.0, "xent_bwd_dh": 0.0, "xent_bwd_de": 0.0}
     cases = [
-        # (N, V, ignore, z, eps, dtypes)
-        (1000, 50257, -100, 1e-4, 0.1, ("fp32", "bf16")),
-        (1000, 50304, None, 0.0, 0.0, ("fp32", "bf16")),
-        (XENT_N, XENT_V, None, 0.0, 0.0, ("bf16",)),    # the slice shape
+        # (N, V, C, ignore, z, eps, dtypes)
+        (1000, 50257, XENT_C, -100, 1e-4, 0.1, ("fp32", "bf16")),
+        (1000, 50304, XENT_C, None, 0.0, 0.0, ("fp32", "bf16")),
+        (XENT_N, XENT_V, XENT_C, None, 0.0, 0.0, ("bf16",)),  # the slice
+        # the backward's odd cluster (3 x 256) and two slab groups
+        (1000, 50257, 768, -100, 1e-4, 0.1, ("bf16",)),
+        (1000, 50304, 4096, -100, 0.0, 0.0, ("bf16",)),
     ]
     dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
-    for N, V, ignore, z, eps, names in cases:
+    for N, V, C, ignore, z, eps, names in cases:
         for dn in names:
-            h, e, t = xent_inputs(torch, N=N, V=V, C=XENT_C,
+            h, e, t = xent_inputs(torch, N=N, V=V, C=C,
                                   dtype=dtypes[dn], seed=N + V,
                                   bad_ids=N != XENT_N)
             scale = torch.tensor([1.0 / N], device="cuda")
@@ -1020,7 +1064,7 @@ def phase_xent_parity(torch):
             for i, ((name, out), g_, r_) in enumerate(zip(XENT_OUTPUTS, got,
                                                           ref)):
                 what = (f"[xent parity] {name} {out} {dn} N{N} V{V} "
-                        f"C{XENT_C} ignore={ignore} z={z} eps={eps}")
+                        f"C{C} ignore={ignore} z={z} eps={eps}")
                 if g_.dtype != r_.dtype or g_.shape != r_.shape:
                     raise AssertionError(f"{what}: {g_.dtype} "
                                          f"{tuple(g_.shape)} != plain")
@@ -1248,11 +1292,14 @@ def phase_fused_training_parity(torch):
     return out
 
 
-def phase_xent_timing(torch, bench, worst):
+def phase_xent_timing(torch, bench, worst, ptxas):
     """Each xent kernel at the slice shape (N = 4096 tokens of one step,
     V = 50304, C = 2048, bf16), its plain version, the library pair and
-    the bound; the peak memory of a lone fused_lm_xent."""
+    the bound; the peak memory of a lone fused_lm_xent. The backward rows
+    also carry their bound share, cluster plan, and phase 1's ptxas report
+    and the dynamic shared memory of the kernel instance they ran."""
     import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import _build
     from deepspeed_tpu_torch.ops.kernels import fused_xent as fx
     N, V, C = XENT_N, XENT_V, XENT_C
     h, e, t = xent_inputs(torch, N=N, V=V, C=C, dtype=torch.bfloat16,
@@ -1326,9 +1373,24 @@ def phase_xent_timing(torch, bench, worst):
             "lone_call_peak_bytes": lone_peak,
             "shape": {"N": N, "V": V, "C": C, "dtype": "bf16"},
             "bytes": nbytes, "flops": flops})
+        rows[-1]["bound_share"] = rows[-1]["bound_ms"] / ms
+        if name != "xent_fwd":
+            CL, W, G = fx.bwd_plan(C)
+            inst = (f"xent_bwd_cluster_kernelILb{int(name == 'xent_bwd_de')}"
+                    f"ELi{W}E13__nv_bfloat16")
+            rows[-1].update(
+                plan={"cluster": CL, "slab_width": W, "slab_groups": G},
+                dynamic_smem_bytes=_build.load(
+                    "fused_xent").xent_bwd_smem_bytes(W),
+                ptxas=[v for k, v in ptxas.get("fused_xent", {}).items()
+                       if inst in k])
+            log(f"[xent timing] {name}: cluster {CL} x slab {W} x {G} "
+                f"group(s); ptxas {rows[-1]['ptxas']}; dynamic shared "
+                f"memory {rows[-1]['dynamic_smem_bytes']} bytes")
         log(f"[xent timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, "
-            f"bound {max(t_ops, t_bytes):.4f} by {rows[-1]['bound_by']}; "
-            f"library forward {lib_fwd:.4f}, backward {lib_bwd:.4f})")
+            f"bound {max(t_ops, t_bytes):.4f} by {rows[-1]['bound_by']}, "
+            f"{rows[-1]['bound_share']:.1%} of it; library forward "
+            f"{lib_fwd:.4f}, backward {lib_bwd:.4f})")
     del h, e, t
     torch.cuda.empty_cache()
     return rows
@@ -2315,6 +2377,155 @@ def phase_evoformer_op(torch):
                for n, r in per.items()})]
 
 
+# ---------------------------------------------------------------- fault C1
+
+# GPT2Config.tiny's losses through the flash kernels against the same
+# engine on dense attention, over 5 steps: within two unit roundoffs of
+# the working type (fp16 2**-11, bf16 2**-8; on the CPU the plain flash
+# path reads 3.4e-5 and 1.6e-4 from dense)
+C1_TRAIN_REL = {"fp16": 1e-3, "bf16": 8e-3}
+
+
+def phi3_width(**kw):
+    """Phi-3-mini's widths (hidden 3072, 32 heads of 96, no GQA,
+    intermediate 8192, vocab 32064), which the JAX registry serves through
+    its Llama runner (``deepspeed_tpu/models/registry.py:343``)."""
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    base = dict(vocab_size=32064, hidden_size=3072, num_heads=32,
+                num_kv_heads=32, intermediate_size=8192, num_layers=32)
+    base.update(kw)
+    return LlamaConfig(**base)
+
+
+def phase_c1_shapes(torch):
+    """Phase 22 (fault C1): inputs that the JAX package computes and the
+    port's kernels refused before, each through its kernel on the card,
+    the launch count rising, against its plain or dense twin."""
+    import numpy as np
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.checkpoint import (init_gpt2_params,
+                                                init_llama_params)
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig)
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, make_model
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.ops.evoformer_attn import \
+        DS4Sci_EvoformerAttention as evo
+    from deepspeed_tpu_torch.ops.kernels import evoformer as ek
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    rng = np.random.default_rng(22)
+    out = {}
+    # K1 and K2 at the new head dims and a GQA group of 32
+    for heads in ((4, 2, 16), (8, 2, 32), (32, 32, 80), (32, 32, 96),
+                  (32, 1, 64)):
+        Hh, KVh, Dh = heads
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, S, C, lens in (
+                    ("paged_prefill", 4, 100, [100, 300, 700, 1000]),
+                    ("paged_decode", 16, 1, rng.integers(1, 1500, 16))):
+                q, kp, vp, tab, st, ln = paged_inputs(
+                    torch, rng, S=S, C=C, lens=lens, block_size=64, maxb=24,
+                    dtype=dtype, heads=heads)
+                kw = dict(block_size=64, sm_scale=Dh ** -0.5,
+                          sliding_window=None, num_kv_heads=KVh)
+                pa.reset_launch_counts()
+                got = getattr(pa, name)(q, kp, vp, tab, st, ln, **kw)
+                torch.cuda.synchronize()
+                if pa.LAUNCHES[name] != 1:
+                    raise AssertionError(f"{name} {heads}: {pa.LAUNCHES}")
+                check_close(
+                    torch, f"[c1] {name} H={Hh} KV={KVh} D={Dh} "
+                    f"{str(dtype)[6:]}", got,
+                    pa.paged_attention_plain(q, kp, vp, tab, st, ln, **kw),
+                    bf16_max_abs=BF16_MAX_ABS if Dh <= 64
+                    else PAGED7_BF16_MAX_ABS)
+    # engines under "auto" against dense, fp32 with TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for label, cfg, P, bs, nb, mb in (
+            ("LlamaConfig.tiny", LlamaConfig.tiny(dtype=torch.float32), 32,
+             16, 32, 8),
+            ("phi3 width, 2 layers",
+             phi3_width(num_layers=2, dtype=torch.float32), 128, 64, 16,
+             4)):
+        params = init_llama_params(cfg, seed=22, device="cuda",
+                                   dtype=torch.float32)
+        prompts = rng.integers(1, cfg.vocab_size, (4, P)).tolist()
+        gens, launches = {}, {}
+        for impl in ("auto", "dense"):
+            rcfg = RaggedInferenceConfig(
+                max_seqs=4, chunk_size=P // 2, block_size=bs, num_blocks=nb,
+                max_blocks_per_seq=mb, dtype="float32", decode_loop_steps=8,
+                attention_impl=impl)
+            eng = InferenceEngineV2(cfg, params, rcfg, device="cuda")
+            pa.reset_launch_counts()
+            gens[impl] = eng.generate(prompts, max_new_tokens=16)
+            launches[impl] = dict(pa.LAUNCHES)
+            del eng
+        if not all(launches["auto"].values()) or any(
+                launches["dense"].values()):
+            raise AssertionError(f"{label}: launches {launches}")
+        if gens["auto"] != gens["dense"]:
+            raise AssertionError(f"{label}: kernel tokens {gens['auto']} "
+                                 f"!= dense {gens['dense']}")
+        log(f"[c1] {label} (head_dim {cfg.head_dim}, fp32): tokens "
+            f"identical to dense over 4 x 16; launches {launches['auto']}")
+        out[label] = launches["auto"]
+        del params
+    torch.cuda.empty_cache()
+    # GPT2Config.tiny (head_dim 16) training in fp16 and bf16
+    g = torch.Generator(device="cuda").manual_seed(22)
+    batches = [torch.randint(0, 512, (2, 129), generator=g, device="cuda")
+               for _ in range(5)]
+    for prec, dtype in (("fp16", torch.float16), ("bf16", torch.bfloat16)):
+        ds = {"train_micro_batch_size_per_gpu": 2,
+              "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "AdamW",
+                            "params": {"lr": 1e-3, "weight_decay": 0.01}},
+              "gradient_clipping": 1.0, "steps_per_print": 10_000,
+              prec: {"enabled": True}}
+        losses, launches = {}, {}
+        for impl in ("auto", "xla"):
+            cfg = GPT2Config.tiny(dtype=dtype, attention_impl=impl)
+            _, _, loss_fn = make_model(cfg)
+            engine, *_ = initialize(loss_fn=loss_fn, config=ds,
+                                    params=init_gpt2_params(
+                                        cfg, seed=22, device="cuda"))
+            fa.reset_launch_counts()
+            losses[impl] = [float(engine.train_batch({"tokens": b}))
+                            for b in batches]
+            launches[impl] = dict(fa.LAUNCHES)
+            del engine
+        if not all(launches["auto"].values()) or any(
+                launches["xla"].values()):
+            raise AssertionError(f"GPT-2 {prec}: launches {launches}")
+        if not all(math.isfinite(x) for x in losses["auto"]):
+            raise AssertionError(f"GPT-2 {prec}: losses {losses['auto']}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["auto"],
+                                                      losses["xla"]))
+        log(f"[c1] GPT2Config.tiny (head_dim 16) {prec}: flash "
+            f"{losses['auto']} dense {losses['xla']} max rel {rel:.3e} "
+            f"(limit {C1_TRAIN_REL[prec]}); launches {launches['auto']}")
+        if not rel <= C1_TRAIN_REL[prec]:
+            raise AssertionError(f"GPT-2 {prec}: {rel}")
+        out[f"gpt2_tiny_{prec}"] = {"max_rel": rel,
+                                    "launches": launches["auto"]}
+    # DS4Sci_EvoformerAttention at head dims 16 (native) and 48 (padded)
+    for Dh in (16, 48):
+        q, k, v, mask, pair = _evo_inputs(torch, g, (1, 16, 130, 4, Dh))
+        ek.reset_launch_counts()
+        got = evo(q, k, v, [mask, pair])
+        torch.cuda.synchronize()
+        if ek.LAUNCHES["evoformer_fwd"] != 1:
+            raise AssertionError(f"evoformer D={Dh}: {ek.LAUNCHES}")
+        check_close(torch, f"[c1] DS4Sci_EvoformerAttention [1, 16, 130, 4, "
+                    f"{Dh}] bf16", got,
+                    evo(q, k, v, [mask, pair], use_kernel=False),
+                    bf16_max_abs=EVO_BF16_MAX_ABS)
+    return out
+
+
 def main(argv) -> int:
     unknown = [a for a in argv if a != "--trace"]
     if unknown:
@@ -2349,7 +2560,7 @@ def main(argv) -> int:
         log(f"[phase] {fn.__name__}: {phase_s[fn.__name__]:.1f} s")
         return out
 
-    run(phase_build)
+    ptxas = run(phase_build)
     worst = run(phase_parity, torch)
     flash_worst = run(phase_flash_parity, torch)
     xent_worst = run(phase_xent_parity, torch)
@@ -2364,7 +2575,7 @@ def main(argv) -> int:
     rows += run(phase_flash_timing, torch, train, flash_worst)
     bench = run(phase_gpt1p3b, torch, tracing)
     fused_parity = run(phase_fused_training_parity, torch)
-    rows += run(phase_xent_timing, torch, bench, xent_worst)
+    rows += run(phase_xent_timing, torch, bench, xent_worst, ptxas)
     woq_worst = run(phase_woq_parity, torch)
     woq = run(phase_woq_serving, torch, tracing)
     woq_parity = run(phase_woq_engine_parity, torch)
@@ -2373,6 +2584,7 @@ def main(argv) -> int:
     rows += run(phase_adamw_op, torch)
     rows += run(phase_sparse_op, torch)
     rows += run(phase_evoformer_op, torch)
+    c1 = run(phase_c1_shapes, torch)
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     result = {"kernels": rows, "card": card, "phase_s": phase_s,
               "serving": {k: serving[k] for k in
@@ -2386,7 +2598,7 @@ def main(argv) -> int:
               "fused_training_parity": fused_parity,
               "woq_serving": {m: {k: v for k, v in r.items() if k != "trace"}
                               for m, r in woq.items()},
-              "woq_engine_parity": woq_parity}
+              "woq_engine_parity": woq_parity, "c1": c1}
     if trace is not None:
         result["trace"] = trace
         result["train_trace"] = train["trace"]

@@ -41,7 +41,7 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     },
     # pointers, a host pointer to the int64 strides, B, H, Hk, Tq, Tk, D,
-    # scale, causal, is_bf16, stream
+    # scale, causal, dtype code (0 fp32, 1 bf16, 2 fp16), stream
     "flash_attention": {
         "flash_fwd_launch": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
         "flash_bwd_dq_launch": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
@@ -51,9 +51,13 @@ SIGNATURES = {
     "fused_xent": {
         "xent_fwd_launch": [_P] * 5 + [_I] * 5 + [_P],
         # scale, h, e, targets, lse, out, N, V, C, has_ignore, ignore, z,
-        # eps, is_bf16, out_f32, stream
-        "xent_bwd_dh_launch": [_P] * 6 + [_I] * 5 + [_F, _F, _I, _I, _P],
-        "xent_bwd_de_launch": [_P] * 6 + [_I] * 5 + [_F, _F, _I, _I, _P],
+        # eps, is_bf16, out_f32, cluster size, slab width, slab groups,
+        # stream
+        "xent_bwd_dh_launch": [_P] * 6 + [_I] * 5 + [_F, _F] + [_I] * 5
+        + [_P],
+        "xent_bwd_de_launch": [_P] * 6 + [_I] * 5 + [_F, _F] + [_I] * 5
+        + [_P],
+        "xent_bwd_smem_bytes": [_I],
     },
     # x, values, scale, zero, n, group_size, bits, symmetric, recip,
     # is_bf16, stream

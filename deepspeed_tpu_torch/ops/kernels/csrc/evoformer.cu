@@ -18,7 +18,11 @@
 // tensor-core tile of flash_fwd_mma_kernel (flash_tile.cuh): one block of
 // 4 warps owns 64 query rows of one (b, n, h), K/V tiles of 64 keys
 // double-buffered in shared memory by cp.async, mma.sync m16n8k16 with
-// fp32 accumulators; D = 32 and 64 are instantiated. The kernel reads
+// fp32 accumulators. D = 16, 32 and 64 run natively; the wrapper zero-pads
+// q, k and v along D to the next of these for any other D <= 64 (the
+// scores are unchanged and the output is sliced back), and raises
+// NotImplementedError above 64 (the D = 64 instance already takes 251
+// registers a thread, so a D = 128 one would spill). The kernel reads
 // q/k/v/o through their strides, so the [B, N, S, H, D] tensors need no
 // transposed [B N, H, S, D] copies (the JAX wrapper makes them, :159).
 // Each thread reads the biases of its own score elements straight from
@@ -265,7 +269,7 @@ int evoformer_fwd_launch(const void* q, const void* k, const void* v,
                          int B, int N, int H, int Sq, int Sk, int D,
                          float scale, int is_bf16, void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || H > 65535 ||
-      (long long)B * N > 65535 || (D != 32 && D != 64))
+      (long long)B * N > 65535 || (D != 16 && D != 32 && D != 64))
     return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     const void* ptrs[4] = {q, k, v, o};
@@ -282,7 +286,9 @@ int evoformer_fwd_launch(const void* q, const void* k, const void* v,
   const Args a{q, k, v, o, (const float*)mask_bias, (const float*)pair_bias,
                st(0), st(1), st(2), st(3), B, N, H, Sq, Sk, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(D == 32 ? fwd<32>(a, is_bf16, s) : fwd<64>(a, is_bf16, s));
+  return (int)(D == 16   ? fwd<16>(a, is_bf16, s)
+               : D == 32 ? fwd<32>(a, is_bf16, s)
+                         : fwd<64>(a, is_bf16, s));
 }
 
 }  // extern "C"

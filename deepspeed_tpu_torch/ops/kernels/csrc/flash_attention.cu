@@ -14,8 +14,9 @@
 //
 // Bound on the H100: at the training shape (T = 2048, D = 64, causal) the
 // three are FLOP-bound -- 2, 3 and 4 matrix products per (query, key) tile
-// against O(T * D) bytes per row -- so bf16 runs on the tensor cores:
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate), one block of 4 warps, each
+// against O(T * D) bytes per row -- so bf16 and fp16 run on the tensor
+// cores: mma.sync m16n8k16 (bf16 or fp16 in, fp32 accumulate; the kernels
+// are templated on the element type T), one block of 4 warps, each
 // warp owning 16 rows of the block's 64-row tile, with the scores,
 // probabilities and accumulators kept in registers and the streamed 64-row
 // tiles of the other operand double-buffered in shared memory (cp.async:
@@ -28,6 +29,9 @@
 // warps, no persistent scheduling over the causal triangle's uneven work,
 // and the dkv block (at the register limit) re-reads Q and dO from device
 // memory for each of its key tiles.
+//
+// Head dims 16, 32, 64 and 128 are instantiated (the GPT-2 configs' 16 and
+// 64, the bench's 128), for fp32, bf16 and fp16.
 //
 // Numerics follow the Pallas kernels: scores in fp32 scaled after the
 // product; P cast to V's dtype before P.V with the row sums taken before
@@ -56,8 +60,9 @@ namespace {
 
 constexpr int F32_NT = 128;        // threads per block of the fp32 kernels
 
-__device__ __forceinline__ const bf16* row_at(const bf16* base, Strides s,
-                                              int b, int h, int t) {
+template <typename T>
+__device__ __forceinline__ const T* row_at(const T* base, Strides s, int b,
+                                           int h, int t) {
   return base + b * s.b + h * s.h + (long long)t * s.t;
 }
 
@@ -67,27 +72,27 @@ __device__ __forceinline__ int key_limit(int i, int Tq, int Tk, int causal) {
   return causal ? min(Tk, max(0, i + Tk - Tq + 1)) : Tk;
 }
 
-// Shared memory of the mma kernels: two buffers of two [64][D + 8] bf16
+// Shared memory of the mma kernels: two buffers of two [64][D + 8] 16-bit
 // tiles (double buffering), plus two [64] fp32 row vectors per buffer for
 // the dK/dV kernel's lse and delta.
 template <int D>
 constexpr size_t mma_smem_bytes(bool rows) {
-  return 4 * tile_elems<D>() * sizeof(bf16) + (rows ? 4 * 64 * sizeof(float)
-                                                    : 0);
+  return 4 * tile_elems<D>() * sizeof(uint16_t) +
+         (rows ? 4 * 64 * sizeof(float) : 0);
 }
 
 // ---------------------------------------------------------------- forward
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(NT)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
+flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, Strides sq, Strides sk,
                      Strides sv, Strides so, int H, int Hk, int Tq, int Tk,
                      float scale, int causal) {
   constexpr int ND = D / 8, TE = tile_elems<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);   // [buf][K, V][64][D+8]
+  T* smem = reinterpret_cast<T*>(smem_raw);   // [buf][K, V][64][D+8]
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hk);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -100,8 +105,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   uint32_t qf[D / 16][4];
   load_a<D>(qf, row_at(q, sq, b, h, 0), sq.t, row, Tq, qi);
-  const bf16* kb = row_at(k, sk, b, hk, 0);
-  const bf16* vb = row_at(v, sv, b, hk, 0);
+  const T* kb = row_at(k, sk, b, hk, 0);
+  const T* vb = row_at(v, sv, b, hk, 0);
 
   float acc[ND][4];
 #pragma unroll
@@ -119,10 +124,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
   }
   for (int t0 = 0, it = 0; t0 < kend; t0 += BK, ++it) {
-    const bf16* ks = smem + (it & 1) * 2 * TE;
-    const bf16* vs = ks + TE;
+    const T* ks = smem + (it & 1) * 2 * TE;
+    const T* vs = ks + TE;
     if (t0 + BK < kend) {
-      bf16* nk = smem + ((it + 1) & 1) * 2 * TE;
+      T* nk = smem + ((it + 1) & 1) * 2 * TE;
       stage_tile<D>(nk, kb, sk.t, t0 + BK, kend);
       stage_tile<D>(nk + TE, vb, sv.t, t0 + BK, kend);
       cp_async_commit();
@@ -132,7 +137,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
     float sc[8][4];
-    mma_abt<D>(sc, qf, ks, lane);
+    mma_abt<D, T>(sc, qf, ks, lane);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
@@ -169,7 +174,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int dn = 0; dn < ND; ++dn)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[dn][e] *= alpha[e / 2];
-    mma_pv<D>(acc, sc, vs, lane);
+    mma_pv<D, T>(acc, sc, vs, lane);
     __syncthreads();
   }
 
@@ -189,19 +194,19 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // -------------------------------------------------------------- backward dq
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
+flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        bf16* __restrict__ dq, Strides sq, Strides sk,
+                        T* __restrict__ dq, Strides sq, Strides sk,
                         Strides sv, Strides sdo, Strides sdq, int H, int Hk,
                         int Tq, int Tk, float scale, int causal) {
   constexpr int ND = D / 8, TE = tile_elems<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);   // [buf][K, V][64][D+8]
+  T* smem = reinterpret_cast<T*>(smem_raw);   // [buf][K, V][64][D+8]
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hk);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -222,8 +227,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint32_t qf[D / 16][4], df[D / 16][4];
   load_a<D>(qf, row_at(q, sq, b, h, 0), sq.t, row, Tq, qi);
   load_a<D>(df, row_at(dout, sdo, b, h, 0), sdo.t, row, Tq, qi);
-  const bf16* kb = row_at(k, sk, b, hk, 0);
-  const bf16* vb = row_at(v, sv, b, hk, 0);
+  const T* kb = row_at(k, sk, b, hk, 0);
+  const T* vb = row_at(v, sv, b, hk, 0);
 
   float acc[ND][4];
 #pragma unroll
@@ -237,10 +242,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
   }
   for (int t0 = 0, it = 0; t0 < kend; t0 += BK, ++it) {
-    const bf16* ks = smem + (it & 1) * 2 * TE;
-    const bf16* vs = ks + TE;
+    const T* ks = smem + (it & 1) * 2 * TE;
+    const T* vs = ks + TE;
     if (t0 + BK < kend) {
-      bf16* nk = smem + ((it + 1) & 1) * 2 * TE;
+      T* nk = smem + ((it + 1) & 1) * 2 * TE;
       stage_tile<D>(nk, kb, sk.t, t0 + BK, kend);
       stage_tile<D>(nk + TE, vb, sv.t, t0 + BK, kend);
       cp_async_commit();
@@ -250,8 +255,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
     float sc[8][4], dp[8][4];
-    mma_abt<D>(sc, qf, ks, lane);
-    mma_abt<D>(dp, df, vs, lane);
+    mma_abt<D, T>(sc, qf, ks, lane);
+    mma_abt<D, T>(dp, df, vs, lane);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -261,7 +266,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             j < lim[i] ? __expf(sc[nt][e] * scale - lse_r[i]) : 0.f;
         sc[nt][e] = p * (dp[nt][e] - delta_r[i]) * scale;      // ds
       }
-    mma_pv<D>(acc, sc, ks, lane);                              // dq += ds.K
+    mma_pv<D, T>(acc, sc, ks, lane);                              // dq += ds.K
     __syncthreads();
   }
   const float one[2] = {1.f, 1.f};
@@ -270,22 +275,22 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ------------------------------------------------------------- backward dkv
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
+flash_bwd_dkv_mma_kernel(const T* __restrict__ q,
+                         const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         T* __restrict__ dk, T* __restrict__ dv,
                          Strides sq, Strides sk, Strides sv, Strides sdo,
                          Strides sdk, Strides sdv, int H, int Hk, int Tq,
                          int Tk, float scale, int causal) {
   constexpr int ND = D / 8, TE = tile_elems<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // [buf][Q, dO][64][D+8] bf16, then [buf][lse, delta][64] fp32
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  // [buf][Q, dO][64][D+8] T, then [buf][lse, delta][64] fp32
+  T* smem = reinterpret_cast<T*>(smem_raw);
   float* rows_s = reinterpret_cast<float*>(smem + 4 * TE);
   const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
   const int g = H / Hk, off = Tk - Tq;
@@ -313,7 +318,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   auto stage = [&](int s, int buf) {
     const int hh = hk * g + s / nqt, i0 = (qt0 + s % nqt) * BQ;
     const long long rbase = ((long long)b * H + hh) * Tq;
-    bf16* t = smem + buf * 2 * TE;
+    T* t = smem + buf * 2 * TE;
     stage_tile<D>(t, row_at(q, sq, b, hh, 0), sq.t, i0, Tq);
     stage_tile<D>(t + TE, row_at(dout, sdo, b, hh, 0), sdo.t, i0, Tq);
     float* rs = rows_s + buf * 2 * BQ;
@@ -327,8 +332,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   if (steps > 0) stage(0, 0);
   for (int s = 0; s < steps; ++s) {
     const int i0 = (qt0 + s % nqt) * BQ;
-    const bf16* qs = smem + (s & 1) * 2 * TE;
-    const bf16* dos = qs + TE;
+    const T* qs = smem + (s & 1) * 2 * TE;
+    const T* dos = qs + TE;
     const float* lse_s = rows_s + (s & 1) * 2 * BQ;
     const float* delta_s = lse_s + BQ;
     if (s + 1 < steps) {
@@ -340,8 +345,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
     __syncthreads();
     {
       float st[8][4], dpt[8][4];        // S^T and dP^T: rows keys, cols q
-      mma_abt<D>(st, kf, qs, lane);
-      mma_abt<D>(dpt, vf, dos, lane);
+      mma_abt<D, T>(st, kf, qs, lane);
+      mma_abt<D, T>(dpt, vf, dos, lane);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -355,8 +360,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
           st[nt][e] = p;
           dpt[nt][e] = p * (dpt[nt][e] - delta_s[c]) * scale;  // ds^T
         }
-      mma_pv<D>(dva, st, dos, lane);                           // dV += P^T.dO
-      mma_pv<D>(dka, dpt, qs, lane);                           // dK += dS^T.Q
+      mma_pv<D, T>(dva, st, dos, lane);                           // dV += P^T.dO
+      mma_pv<D, T>(dka, dpt, qs, lane);                           // dK += dS^T.Q
     }
     __syncthreads();
   }
@@ -497,16 +502,19 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
 
 // ------------------------------------------------------------ dispatch
 
+// the element type of a launch: the C entry points' `dtype` argument
+enum Dtype { F32 = 0, BF16 = 1, F16 = 2 };
+
 struct Dims {
   int B, H, Hk, Tq, Tk, D;
   float scale;
   int causal;
 };
 
-bool dims_ok(const Dims& d) {
+bool dims_ok(const Dims& d, int dtype) {
   return d.B > 0 && d.H > 0 && d.Hk > 0 && d.H % d.Hk == 0 && d.Tq > 0 &&
-         d.Tk > 0 && (d.D == 64 || d.D == 128) && d.B <= 65535 &&
-         d.H <= 65535;
+         d.Tk > 0 && (d.D == 16 || d.D == 32 || d.D == 64 || d.D == 128) &&
+         d.B <= 65535 && d.H <= 65535 && dtype >= F32 && dtype <= F16;
 }
 
 // the mma kernels load 16 bytes per row chunk: every row must start on a
@@ -528,52 +536,84 @@ unsigned blocks_for(long long n) {
   return (unsigned)((n + F32_NT - 1) / F32_NT);
 }
 
+template <int D, typename T>
+cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
+                    void* lse, const long long* s, const Dims& d,
+                    cudaStream_t stream) {
+  dim3 grid((d.Tq + BQ - 1) / BQ, d.H, d.B);
+  constexpr size_t smem = mma_smem_bytes<D>(false);
+  cudaError_t err = smem_opt_in(flash_fwd_mma_kernel<D, T>, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_mma_kernel<D, T><<<grid, NT, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, st(s, 0),
+      st(s, 1), st(s, 2), st(s, 3), d.H, d.Hk, d.Tq, d.Tk, d.scale,
+      d.causal);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
-                void* lse, const long long* s, const Dims& d, bool bf,
+                void* lse, const long long* s, const Dims& d, int dtype,
                 cudaStream_t stream) {
-  if (bf) {
-    dim3 grid((d.Tq + BQ - 1) / BQ, d.H, d.B);
-    constexpr size_t smem = mma_smem_bytes<D>(false);
-    cudaError_t err = smem_opt_in(flash_fwd_mma_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    flash_fwd_mma_kernel<D><<<grid, NT, smem, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
-        (float*)lse, st(s, 0), st(s, 1), st(s, 2), st(s, 3), d.H, d.Hk,
-        d.Tq, d.Tk, d.scale, d.causal);
-  } else {
-    flash_fwd_f32_kernel<D><<<blocks_for((long long)d.B * d.H * d.Tq),
-                              F32_NT, 0, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o,
-        (float*)lse, st(s, 0), st(s, 1), st(s, 2), st(s, 3), d.B, d.H,
-        d.Hk, d.Tq, d.Tk, d.scale, d.causal);
-  }
+  if (dtype == BF16) return fwd_mma<D, bf16>(q, k, v, o, lse, s, d, stream);
+  if (dtype == F16) return fwd_mma<D, f16>(q, k, v, o, lse, s, d, stream);
+  flash_fwd_f32_kernel<D><<<blocks_for((long long)d.B * d.H * d.Tq), F32_NT,
+                            0, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o,
+      (float*)lse, st(s, 0), st(s, 1), st(s, 2), st(s, 3), d.B, d.H, d.Hk,
+      d.Tq, d.Tk, d.scale, d.causal);
+  return cudaGetLastError();
+}
+
+template <int D, typename T>
+cudaError_t bwd_dq_mma(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dq, const long long* s, const Dims& d,
+                       cudaStream_t stream) {
+  dim3 grid((d.Tq + BQ - 1) / BQ, d.H, d.B);
+  constexpr size_t smem = mma_smem_bytes<D>(false);
+  cudaError_t err = smem_opt_in(flash_bwd_dq_mma_kernel<D, T>, smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_mma_kernel<D, T><<<grid, NT, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dq, st(s, 0), st(s, 1),
+      st(s, 2), st(s, 3), st(s, 4), d.H, d.Hk, d.Tq, d.Tk, d.scale,
+      d.causal);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
-                   void* dq, const long long* s, const Dims& d, bool bf,
+                   void* dq, const long long* s, const Dims& d, int dtype,
                    cudaStream_t stream) {
-  if (bf) {
-    dim3 grid((d.Tq + BQ - 1) / BQ, d.H, d.B);
-    constexpr size_t smem = mma_smem_bytes<D>(false);
-    cudaError_t err = smem_opt_in(flash_bwd_dq_mma_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_mma_kernel<D><<<grid, NT, smem, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (const float*)delta, (bf16*)dq, st(s, 0),
-        st(s, 1), st(s, 2), st(s, 3), st(s, 4), d.H, d.Hk, d.Tq, d.Tk,
-        d.scale, d.causal);
-  } else {
-    flash_bwd_dq_f32_kernel<D><<<blocks_for((long long)d.B * d.H * d.Tq),
-                                 F32_NT, 0, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v,
-        (const float*)dout, (const float*)lse, (const float*)delta,
-        (float*)dq, st(s, 0), st(s, 1), st(s, 2), st(s, 3), st(s, 4), d.B,
-        d.H, d.Hk, d.Tq, d.Tk, d.scale, d.causal);
-  }
+  if (dtype == BF16)
+    return bwd_dq_mma<D, bf16>(q, k, v, dout, lse, delta, dq, s, d, stream);
+  if (dtype == F16)
+    return bwd_dq_mma<D, f16>(q, k, v, dout, lse, delta, dq, s, d, stream);
+  flash_bwd_dq_f32_kernel<D><<<blocks_for((long long)d.B * d.H * d.Tq),
+                               F32_NT, 0, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dq, st(s, 0), st(s, 1),
+      st(s, 2), st(s, 3), st(s, 4), d.B, d.H, d.Hk, d.Tq, d.Tk, d.scale,
+      d.causal);
+  return cudaGetLastError();
+}
+
+template <int D, typename T>
+cudaError_t bwd_dkv_mma(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dk, void* dv, const long long* s, const Dims& d,
+                        cudaStream_t stream) {
+  dim3 grid((d.Tk + BK - 1) / BK, d.Hk, d.B);
+  constexpr size_t smem = mma_smem_bytes<D>(true);
+  cudaError_t err = smem_opt_in(flash_bwd_dkv_mma_kernel<D, T>, smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_mma_kernel<D, T><<<grid, NT, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, st(s, 0),
+      st(s, 1), st(s, 2), st(s, 3), st(s, 4), st(s, 5), d.H, d.Hk, d.Tq,
+      d.Tk, d.scale, d.causal);
   return cudaGetLastError();
 }
 
@@ -581,27 +621,28 @@ template <int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, const long long* s, const Dims& d,
-                    bool bf, cudaStream_t stream) {
-  if (bf) {
-    dim3 grid((d.Tk + BK - 1) / BK, d.Hk, d.B);
-    constexpr size_t smem = mma_smem_bytes<D>(true);
-    cudaError_t err = smem_opt_in(flash_bwd_dkv_mma_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_mma_kernel<D><<<grid, NT, smem, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
-        st(s, 0), st(s, 1), st(s, 2), st(s, 3), st(s, 4), st(s, 5), d.H,
-        d.Hk, d.Tq, d.Tk, d.scale, d.causal);
-  } else {
-    flash_bwd_dkv_f32_kernel<D><<<blocks_for((long long)d.B * d.Hk * d.Tk),
-                                  F32_NT, 0, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v,
-        (const float*)dout, (const float*)lse, (const float*)delta,
-        (float*)dk, (float*)dv, st(s, 0), st(s, 1), st(s, 2), st(s, 3),
-        st(s, 4), st(s, 5), d.B, d.H, d.Hk, d.Tq, d.Tk, d.scale, d.causal);
-  }
+                    int dtype, cudaStream_t stream) {
+  if (dtype == BF16)
+    return bwd_dkv_mma<D, bf16>(q, k, v, dout, lse, delta, dk, dv, s, d,
+                                stream);
+  if (dtype == F16)
+    return bwd_dkv_mma<D, f16>(q, k, v, dout, lse, delta, dk, dv, s, d,
+                               stream);
+  flash_bwd_dkv_f32_kernel<D><<<blocks_for((long long)d.B * d.Hk * d.Tk),
+                                F32_NT, 0, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv,
+      st(s, 0), st(s, 1), st(s, 2), st(s, 3), st(s, 4), st(s, 5), d.B, d.H,
+      d.Hk, d.Tq, d.Tk, d.scale, d.causal);
   return cudaGetLastError();
 }
+
+// fn<D>(args...) for the head dim of the launch (dims_ok has checked it)
+#define BY_HEAD_DIM(D, fn, ...)                                 \
+  ((D) == 16   ? fn<16>(__VA_ARGS__)                           \
+   : (D) == 32 ? fn<32>(__VA_ARGS__)                           \
+   : (D) == 64 ? fn<64>(__VA_ARGS__)                           \
+               : fn<128>(__VA_ARGS__))
 
 }  // namespace
 
@@ -609,19 +650,18 @@ extern "C" {
 
 // q [B, H, Tq, D], k / v [B, Hk, Tk, D], o like q (element strides of
 // batch, head and time for q, k, v, o in `strides[12]`); lse [B, H, Tq]
-// fp32 contiguous.
+// fp32 contiguous. dtype: 0 fp32, 1 bf16, 2 fp16.
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                      void* lse, const long long* strides, int B, int H,
                      int Hk, int Tq, int Tk, int D, float scale, int causal,
-                     int is_bf16, void* stream) {
+                     int dtype, void* stream) {
   const Dims d{B, H, Hk, Tq, Tk, D, scale, causal};
   const void* ptrs[4] = {q, k, v, o};
-  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
-  if (is_bf16 && !aligned(ptrs, 4, strides, 12))
+  if (!dims_ok(d, dtype)) return (int)cudaErrorInvalidValue;
+  if (dtype != F32 && !aligned(ptrs, 4, strides, 12))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(D == 64 ? fwd<64>(q, k, v, o, lse, strides, d, is_bf16, s)
-                       : fwd<128>(q, k, v, o, lse, strides, d, is_bf16, s));
+  return (int)BY_HEAD_DIM(D, fwd, q, k, v, o, lse, strides, d, dtype, s);
 }
 
 // + dout like q, delta like lse, dq like q (strides of q, k, v, dout, dq in
@@ -630,17 +670,15 @@ int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dq, const long long* strides, int B, int H,
                         int Hk, int Tq, int Tk, int D, float scale,
-                        int causal, int is_bf16, void* stream) {
+                        int causal, int dtype, void* stream) {
   const Dims d{B, H, Hk, Tq, Tk, D, scale, causal};
   const void* ptrs[5] = {q, k, v, dout, dq};
-  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
-  if (is_bf16 && !aligned(ptrs, 5, strides, 15))
+  if (!dims_ok(d, dtype)) return (int)cudaErrorInvalidValue;
+  if (dtype != F32 && !aligned(ptrs, 5, strides, 15))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(D == 64 ? bwd_dq<64>(q, k, v, dout, lse, delta, dq, strides,
-                                    d, is_bf16, s)
-                       : bwd_dq<128>(q, k, v, dout, lse, delta, dq, strides,
-                                     d, is_bf16, s));
+  return (int)BY_HEAD_DIM(D, bwd_dq, q, k, v, dout, lse, delta, dq, strides,
+                          d, dtype, s);
 }
 
 // + dk / dv like k (strides of q, k, v, dout, dk, dv in `strides[18]`)
@@ -648,17 +686,15 @@ int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dk, void* dv, const long long* strides, int B,
                          int H, int Hk, int Tq, int Tk, int D, float scale,
-                         int causal, int is_bf16, void* stream) {
+                         int causal, int dtype, void* stream) {
   const Dims d{B, H, Hk, Tq, Tk, D, scale, causal};
   const void* ptrs[6] = {q, k, v, dout, dk, dv};
-  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
-  if (is_bf16 && !aligned(ptrs, 6, strides, 18))
+  if (!dims_ok(d, dtype)) return (int)cudaErrorInvalidValue;
+  if (dtype != F32 && !aligned(ptrs, 6, strides, 18))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(D == 64 ? bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv,
-                                     strides, d, is_bf16, s)
-                       : bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv,
-                                      strides, d, is_bf16, s));
+  return (int)BY_HEAD_DIM(D, bwd_dkv, q, k, v, dout, lse, delta, dk, dv,
+                          strides, d, dtype, s);
 }
 
 }  // extern "C"

@@ -17,23 +17,37 @@
 // the ignore id, and for tokens past N.
 //
 // Bound on the H100: operations. One logits product is 2 N V C FLOP
-// (8.4e11 at N = 4096, V = 50304, C = 2048: 0.85 ms at 989 TFLOP/s)
-// against ~0.2 GB of operands, so bf16 runs on the tensor cores
-// (mma.sync m16n8k16, fp32 accumulate, 4 warps of 16 rows each, ldmatrix
-// fragments, 64 x 64 operand slabs of the C axis double-buffered in shared
-// memory with cp.async).
+// (8.44e11 at N = 4096, V = 50304, C = 2048: 0.853 ms at 989 TFLOP/s)
+// against ~0.2 GB of operands. The forward does one; each backward kernel
+// does two, the logits and its output product: 1.7067 ms each at that
+// shape. The forward runs mma.sync m16n8k16 (fp32 accumulate, 4 warps of
+// 16 rows each, ldmatrix fragments, 64 x 64 operand slabs of the C axis
+// double-buffered in shared memory with cp.async).
 //
-// The backward's design, and its cost. The Pallas kernels keep a whole
-// [Tb, C] (dh) or [Vb, C] (dE) fp32 accumulator in VMEM; at C = 2048 that
-// is more than an SM's shared memory and registers. So a backward block
-// owns a 64-row tile of the output and a CB-column slab of it (CB = 128),
-// walks the opposite axis in 64-wide tiles, recomputes each logits tile
-// over the full C, forms P' in registers, casts it to bf16 (where the
-// Pallas kernels cast) and multiplies it into its slab. The logits product
-// is thus repeated C / CB times: at C = 2048 each backward kernel does
-// 16 logits products plus its own, 17 in all, where the bound counts 2.
-// A thread-block cluster sharing the logits tile through distributed
-// shared memory, and wgmma with TMA, are the way down (later work).
+// The backward's design. The Pallas kernels keep a whole [Tb, C] (dh) or
+// [Vb, C] (dE) fp32 accumulator in VMEM; at C = 2048 that is more than an
+// SM's shared memory and registers, so the output's C axis has to be split
+// across blocks, and each split needs every logits tile. Rather than
+// recompute a tile once per split (17 products at C = 2048), a
+// thread-block cluster of CL blocks owns a 128-row output tile
+// (tokens for dh, vocabulary rows for dE), block b the W-column slab b of
+// it (CL W = C; at C = 2048 CL = 8 and W = 256; `bwd_plan` in
+// ops/kernels/fused_xent.py picks them). The cluster walks the other axis
+// in rounds of CL 64-wide tiles. Block b computes the logits of tile round
+// CL + b over the full C, forms P' in registers, casts it to bf16 (where
+// the Pallas kernels cast) and leaves the 16 KB tile in its shared memory;
+// after a cluster barrier every block copies each of the round's CL tiles
+// from its owner (distributed shared memory) and multiplies it into its
+// [128, W] fp32 accumulator. So each logits tile is computed once and each
+// kernel does its two products; a C over 8 x 256 splits into G slab groups
+// (blockIdx.z) that each compute the logits again (G + 1 products).
+// Both products run on wgmma (two consumer warpgroups of 64 rows, fp32
+// accumulators in registers, m64n64k16 for the logits, m64nWk16 for the
+// output with the Q slab MN-major), every operand in shared memory in the
+// 128-byte-swizzled layout that TMA writes: the logits' K-steps through a
+// 4-deep ring (one step's products left in flight), the output's Q slabs
+// double-buffered, one thread issuing the TMA boxes on mbarriers. The
+// sums run over 64-wide K-steps and over the tiles in order.
 //
 // Numerics follow the Pallas kernels: logits in fp32 from bf16 operands;
 // the target logit taken before the vocabulary mask (rows of E past V are
@@ -52,10 +66,16 @@
 // copies). Kernels launch on the caller's stream, do not synchronise and
 // allocate nothing; each C entry point returns cudaGetLastError().
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -112,17 +132,11 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8. Plain: lane t gets row t / 4, columns
-// 2 (t % 4), +1 of each; .trans: column t / 4, rows 2 (t % 4), +1.
+// row l % 8 of matrix l / 8; lane t gets row t / 4, columns 2 (t % 4), +1
+// of each.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }
@@ -165,44 +179,10 @@ __device__ __forceinline__ void mma_slab(float (&acc)[8][4], const bf16* a,
   }
 }
 
-// out[16 x W] += P[16 x 64] . tile[64][W], P given as the C fragments of a
-// mma_slab result (re-packed to bf16 A fragments here).
-template <int W>
-__device__ __forceinline__ void mma_pv(float (&out)[W / 8][4],
-                                       const float (&p)[8][4],
-                                       const bf16* tile, int lane) {
-  constexpr int LD = W + 8;
-  const bf16* base =
-      tile + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pack2(p[2 * kk][0], p[2 * kk][1]),
-                           pack2(p[2 * kk][2], p[2 * kk][3]),
-                           pack2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dn = 0; dn < W / 8; dn += 2) {
-      uint32_t b[4];
-      ldsm_x4_t(b, base + kk * 16 * LD + dn * 8);
-      mma_16816(out[dn], a, b[0], b[1]);
-      mma_16816(out[dn + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// The K-loop's wait before computing step `s` of `steps` (kk = s % nk):
-// the group of step s must have landed. Younger groups may still fly: the
-// next step's, and (at kk == 0 of a backward tile that is not also its
-// last k-step) the operand slab issued this step.
-__device__ __forceinline__ void wait_step(int s, int steps, int kk, int nk,
-                                          bool slab) {
-  if (kk == nk - 1) {
-    if (s + 1 < steps) cp_async_wait<1>(); else cp_async_wait<0>();
-  } else if (kk == 0 && slab) {
-    cp_async_wait<2>();
-  } else {
-    cp_async_wait<1>();
-  }
+// The forward K-loop's wait before computing step `s` of `steps`: the
+// group of step s must have landed; the next step's may still fly.
+__device__ __forceinline__ void wait_step(int s, int steps) {
+  if (s + 1 < steps) cp_async_wait<1>(); else cp_async_wait<0>();
 }
 
 struct Grad {                        // P' parameters
@@ -271,7 +251,7 @@ xent_fwd_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ e,
       stage<BK>(nb + SLAB, e, C, j1 * BN, V, k1);
       cp_async_commit();
     }
-    wait_step(st, steps, kk, nk, false);
+    wait_step(st, steps);
     __syncthreads();
     const bf16* cur = smem + (st & 1) * 2 * SLAB;
     mma_slab(sc, cur, cur + SLAB, warp, lane);
@@ -350,35 +330,352 @@ __global__ void xent_combine_kernel(const float* __restrict__ part,
 }
 
 // -------------------------------------------------------------- backward
+//
+// A cluster of CL blocks owns a 128-row output tile; block b (its rank)
+// owns the W-column slab (z CL + b) W of it (z: the slab group,
+// blockIdx.z), two warpgroups of 64 rows each. Rounds of CL column tiles:
+// block b computes the logits of tile round CL + b over the full C (wgmma,
+// operands K-major in shared memory, the Q operand shared by the two
+// warpgroups), forms P' in registers and leaves it as bf16 in its shared
+// memory, where every block of the cluster reads it (distributed shared
+// memory, copied into a local staging buffer) to multiply the round's CL
+// tiles into its slab (wgmma, P' K-major and the Q slab MN-major in shared
+// memory). Operands arrive by TMA in 64 x 64 boxes (8 KB, rows of 128
+// bytes) with the 128-byte swizzle that wgmma reads without bank
+// conflicts, completing on an mbarrier a buffer.
 
-template <int W>
-constexpr size_t bwd_smem_bytes() {
-  return (4 * SLAB + BM * (W + 8)) * sizeof(bf16) + 2 * BN * sizeof(float);
+constexpr int BW_NT = 256;             // threads: two warpgroups
+constexpr int BW_M = 128;              // output rows of a cluster
+constexpr int BW_STAGES = 4;           // logits ring: buffers ...
+constexpr int BW_AHEAD = BW_STAGES - 2;  // ... and K-steps loaded ahead
+constexpr int BW_SLABS = 2;            // Q slabs of the output product
+constexpr int TILE = BM * BK;          // elements of one 64 x 64 box
+constexpr int STAGE = (BW_M + BN) * BK;  // elements of one ring buffer
+constexpr int PTILE = BW_M * BN;       // elements of one [128 x 64] P' tile
+
+// Shared memory of a backward block: the logits ring [stage][R [128 x
+// 64], Q [64 x 64]], BW_SLABS [64 x W] Q slabs of the output product, this
+// block's P' tile, two P' tiles staged for the output product, (dE) the
+// logits tile's lse and targets, and an mbarrier for each ring buffer and
+// slab. P' tiles are K-major and 128-byte swizzled, as TMA would write
+// them, so that wgmma reads them as its A operand.
+__host__ __device__ constexpr size_t bwd_smem_bytes(int W) {
+  return (BW_STAGES * STAGE + BW_SLABS * BN * W + 3 * PTILE) * sizeof(bf16) +
+         2 * BN * sizeof(float) + (BW_STAGES + BW_SLABS) * sizeof(uint64_t);
 }
 
-// One block: a 64-row tile of the output (tokens for dh, vocabulary rows
-// for dE) and its W-column slab, walking the other axis in 64-wide tiles.
+// wgmma operand descriptor of a 128-byte-swizzled layout (as TMA's
+// SWIZZLE_128B writes it: rows of 128 bytes in 1 KB atoms of 8 rows, each
+// 16-byte chunk XORed with its row within the atom; atoms 1024-aligned).
+// K-major (rows along M/N, K within the row): sbo = 1024, the atom stride
+// along M/N, and lbo unused; a k16 step adds 32 bytes. MN-major (rows
+// along K, 64 M/N elements a row): sbo = 1024, the atom stride along K,
+// and lbo the stride of the 64-wide blocks along M/N.
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
+                                            uint32_t sbo) {
+  const uint32_t a = smem_addr(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pin a wgmma's accumulators at this point of the program: otherwise the
+// compiler may place their definitions between the wgmmas of a batch, and
+// ptxas then serializes every wgmma of the function (C7515). Before each
+// batch's wgmma.fence and after its wait.
+template <int n>
+__device__ __forceinline__ void fence_regs(float (&d)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// this thread's shared-memory writes visible to the async proxy (wgmma)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+// the one arrival of a buffer's phase, expecting `bytes` of TMA copies
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+// one TMA box: the map's box (64 columns by 64 or 128 rows) at column
+// `col` and row `row`, 128-byte swizzled into `dst` (rows past the map's
+// end are zeros), completing on `bar`
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* tm,
+                                        int col, int row, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(col), "r"(row),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// d += A . B for one m64nNk16 bf16 wgmma with fp32 accumulators (d in
+// the accumulator layout), A and B from shared-memory descriptors (A
+// K-major; B K-major, or MN-major when TB = 1).
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int scale_d,
+                                         std::integral_constant<int, 64>) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                         int scale_d,
+                                         std::integral_constant<int, 128>) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b,
+                                         int scale_d,
+                                         std::integral_constant<int, 256>) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+// Load K-step `s` of the logits of rows [r0, +128) of R against rows [j0,
+// +64) of Q into ring buffer `buf`: one box of each, K-major. Called by
+// thread 0.
+__device__ __forceinline__ void logits_load(bf16* ring, uint64_t* full,
+                                            const CUtensorMap* tmR,
+                                            const CUtensorMap* tmQ, int r0,
+                                            int j0, int s, int buf) {
+  mbar_expect(full + buf, STAGE * sizeof(bf16));
+  tma_box(ring + buf * STAGE, tmR, s * BK, r0, full + buf);
+  tma_box(ring + buf * STAGE + BW_M * BK, tmQ, s * BK, j0, full + buf);
+}
+
+// Load the output product's Q slab of column tile `j` (rows [64 j, +64),
+// columns [c0, c0 + W)) into slab buffer `buf`: W / 64 boxes of 64
+// columns, MN-major (K = the 64 rows) with the boxes 8 KB apart along N.
+// Called by thread 0.
+template <int W>
+__device__ __forceinline__ void slab_load(bf16* slabs, uint64_t* bar,
+                                          const CUtensorMap* tmQ, int j,
+                                          int c0, int buf) {
+  mbar_expect(bar + buf, BN * W * sizeof(bf16));
+#pragma unroll
+  for (int nb = 0; nb < W / 64; ++nb)
+    tma_box(slabs + buf * BN * W + nb * TILE, tmQ, c0 + nb * 64, j * BN,
+            bar + buf);
+}
+
+// The TMA loads of one backward block, issued by thread 0 in the order the
+// block consumes them, and the consumers' view of them: running counts of
+// logits K-steps and Q slabs issued and used, whose buffer and mbarrier
+// phase follow from the count.
+struct BwdPipe {
+  bf16 *ring, *slabs;
+  uint64_t *full, *slab_full;
+  const CUtensorMap *tmR, *tmQ;
+  int r0, c0, nk;
+  int lg_issued = 0, lg_used = 0, sl_issued = 0, sl_used = 0;
+
+  // logits K-steps [s0, s1) of column tile `jt`
+  __device__ void issue_logits(int jt, int s0, int s1) {
+    for (int s = s0; s < min(s1, nk); ++s, ++lg_issued)
+      if (threadIdx.x == 0)
+        logits_load(ring, full, tmR, tmQ, r0, jt * BN, s,
+                    lg_issued % BW_STAGES);
+  }
+  // the next logits K-step has landed; its ring buffer
+  __device__ const bf16* use_logits() {
+    const int buf = lg_used % BW_STAGES;
+    mbar_wait(full + buf, (lg_used / BW_STAGES) & 1);
+    ++lg_used;
+    return ring + buf * STAGE;
+  }
+  template <int W>
+  __device__ void issue_slab(int j) {
+    if (threadIdx.x == 0)
+      slab_load<W>(slabs, slab_full, tmQ, j, c0, sl_issued % BW_SLABS);
+    ++sl_issued;
+  }
+  template <int W>
+  __device__ const bf16* use_slab() {
+    const int buf = sl_used % BW_SLABS;
+    mbar_wait(slab_full + buf, (sl_used / BW_SLABS) & 1);
+    ++sl_used;
+    return slabs + buf * BN * W;
+  }
+};
+
+// sc = R[r0 + 64 wg, +64) . Q[64 jt, +64)^T over the full C for
+// warpgroup wg: 64-wide K-steps through the ring, BW_AHEAD of them in
+// flight (the first BW_AHEAD issued before the call), four m64n64k16 wgmma
+// a step with one step's products left in flight. sc holds the 64 x 64
+// fp32 tile in the accumulator layout (warp w of the warpgroup: rows 16 w
+// + lane / 4 (+8); element 4 n + x at column 8 n + 2 (lane % 4) + (x & 1),
+// row +8 for x >= 2), the m16n8 C-fragment layout of mma.sync.
+__device__ __forceinline__ void logits_tile(float (&sc)[32], BwdPipe& pipe,
+                                            int jt, int wg) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  fence_regs(sc);
+  for (int ks = 0; ks < pipe.nk; ++ks) {
+    const bf16* a = pipe.use_logits();
+    __syncthreads();               // step ks - 2's products are done
+    pipe.issue_logits(jt, ks + BW_AHEAD, ks + BW_AHEAD + 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_ss<0>(sc, wg_desc(a + wg * TILE + kk * 16, 16, 1024),
+                  wg_desc(a + BW_M * BK + kk * 16, 16, 1024), 1,
+                  std::integral_constant<int, 64>());
+    wg_commit();
+    wg_wait<1>();
+  }
+  wg_wait<0>();
+  fence_regs(sc);
+}
+
+// Byte offset of element (r, c) of a K-major, 128-byte-swizzled bf16 tile
+// with 64 columns: rows of 128 bytes in 1 KB atoms of 8 rows, 16-byte
+// chunk c / 8 of row r stored at chunk (c / 8) ^ (r % 8).
+__device__ __forceinline__ int swizzled(int r, int c) {
+  return (r / 8) * 1024 + (r % 8) * 128 + (((c / 8) ^ (r % 8)) * 16) +
+         (c % 8) * 2;
+}
+
+// Copy block `rank`'s P' tile into `dst` (16 bytes a thread a step) and
+// make the copy visible to wgmma.
+__device__ __forceinline__ void stage_ptile(bf16* dst, bf16* own,
+                                            cg::cluster_group& cluster,
+                                            int rank) {
+  const uint4* src =
+      reinterpret_cast<const uint4*>(cluster.map_shared_rank(own, rank));
+  uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int i = 0; i < PTILE / 8 / BW_NT; ++i)
+    d[threadIdx.x + i * BW_NT] = src[threadIdx.x + i * BW_NT];
+  fence_async_smem();
+}
+
 template <bool DE, int W, typename OutT>
-__global__ void __launch_bounds__(NT)
-xent_bwd_mma_kernel(const float* __restrict__ scale,
-                    const bf16* __restrict__ h, const bf16* __restrict__ e,
-                    const int* __restrict__ tgt,
-                    const float* __restrict__ lse, OutT* __restrict__ out,
-                    int N, int C, Grad gp) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // [buf][rows, cols][64][LDK], the operand slab [64][W + 8], then (dE)
-  // the column tile's lse and targets
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  bf16* slab = smem + 4 * SLAB;
-  float* lse_s = reinterpret_cast<float*>(slab + BM * (W + 8));
+__global__ void __launch_bounds__(BW_NT, 1)
+xent_bwd_cluster_kernel(const __grid_constant__ CUtensorMap tm_r,
+                        const __grid_constant__ CUtensorMap tm_q,
+                        const float* __restrict__ scale,
+                        const int* __restrict__ tgt,
+                        const float* __restrict__ lse,
+                        OutT* __restrict__ out, int N, int C, int CL,
+                        Grad gp) {
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(bwd_smem);
+  bf16* slabs = ring + BW_STAGES * STAGE;              // [BW_SLABS][64 x W]
+  bf16* pown = slabs + BW_SLABS * BN * W;              // this block's P'
+  bf16* pstage = pown + PTILE;                         // [2] staged P'
+  float* lse_s = reinterpret_cast<float*>(pstage + 2 * PTILE);
   int* tgt_s = reinterpret_cast<int*>(lse_s + BN);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(tgt_s + BN);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = (int)cluster.block_rank();
   const int V = gp.V;
-  const bf16* R = DE ? e : h;
-  const bf16* Q = DE ? h : e;
   const int nrows = DE ? V : N, ncols = DE ? N : V;
-  const int r0 = blockIdx.x * BM, c0 = blockIdx.y * W;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int quad = lane / 4, qi = lane % 4;
+  const int r0 = blockIdx.y * BW_M, c0 = (blockIdx.z * CL + b) * W;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32, quad = lane / 4, qi = lane % 4;
   const int row[2] = {r0 + warp * 16 + quad, r0 + warp * 16 + quad + 8};
   float ls_r[2] = {0.f, 0.f};
   int t_r[2] = {-1, -1};
@@ -390,62 +687,90 @@ xent_bwd_mma_kernel(const float* __restrict__ scale,
         t_r[i] = tgt[row[i]];
       }
   }
-  float acc[W / 8][4];
+  if (threadIdx.x < BW_STAGES + BW_SLABS) mbar_init(bars + threadIdx.x);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+  BwdPipe pipe{ring, slabs, bars, bars + BW_STAGES, &tm_r, &tm_q, r0, c0,
+               C / BK};
+  float acc[W / 2];
 #pragma unroll
-  for (int dn = 0; dn < W / 8; ++dn)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) acc[dn][x] = 0.f;
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+  const int ntiles = (ncols + BN - 1) / BN;
+  const int rounds = (ntiles + CL - 1) / CL;
 
-  const int nk = C / BK, steps = ((ncols + BN - 1) / BN) * nk;
-  float sc[8][4];
-  stage<BK>(smem, R, C, r0, nrows, 0);
-  stage<BK>(smem + SLAB, Q, C, 0, ncols, 0);
-  cp_async_commit();
-  for (int st = 0; st < steps; ++st) {
-    const int j = st / nk, kk = st % nk;
-    if (kk == 0) {
+  cluster_arrive();              // every block has started before a read
+  if (b < ntiles) pipe.issue_logits(b, 0, BW_AHEAD);   // round 0's first
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int j0 = rd * CL, jend = min(j0 + CL, ntiles);
+    const int jt = j0 + b;                             // this block's tile
+    uint32_t pk[16];             // P' as bf16 pairs: rows quad, quad + 8
+    if (jt < ntiles) {
+      if (DE && threadIdx.x < BN) {
+        const int tok = jt * BN + threadIdx.x;
+        lse_s[threadIdx.x] = tok < N ? lse[tok] : 0.f;
+        tgt_s[threadIdx.x] = tok < N ? tgt[tok] : -1;
+      }
+      float sc[32];
+      logits_tile(sc, pipe, jt, wg);
+      float p[32];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int n = 0; n < 32; ++n) {
+        const int i = (n % 4) / 2, c = (n / 4) * 8 + qi * 2 + (n & 1);
+        const int col = jt * BN + c;
+        p[n] = DE ? grad_p<true>(sc[n], row[i], lse_s[c], tgt_s[c],
+                                 col < N, gp)
+                  : grad_p<true>(sc[n], col, ls_r[i], t_r[i], row[i] < N,
+                                 gp);
+      }
 #pragma unroll
-        for (int x = 0; x < 4; ++x) sc[nt][x] = 0.f;
-      // the operand slab of this column tile (the previous tile's product
-      // finished before the last __syncthreads)
-      stage<W>(slab, Q, C, j * BN, ncols, c0);
-      cp_async_commit();
-      if (DE)
-        for (int c = threadIdx.x; c < BN; c += NT) {
-          const int tok = j * BN + c;
-          lse_s[c] = tok < N ? lse[tok] : 0.f;
-          tgt_s[c] = tok < N ? tgt[tok] : -1;
-        }
+      for (int i = 0; i < 16; ++i) pk[i] = pack2(p[2 * i], p[2 * i + 1]);
     }
-    if (st + 1 < steps) {
-      const int k1 = ((st + 1) % nk) * BK;
-      bf16* nb = smem + ((st + 1) & 1) * 2 * SLAB;
-      stage<BK>(nb, R, C, r0, nrows, k1);
-      stage<BK>(nb + SLAB, Q, C, ((st + 1) / nk) * BN, ncols, k1);
-      cp_async_commit();
+    __syncthreads();                     // the ring is free (dE: lse_s too)
+    // keep the copies flowing through the cluster barriers: the next
+    // round's first logits steps and this round's first Q slabs
+    if (jt + CL < ntiles) pipe.issue_logits(jt + CL, 0, BW_AHEAD);
+    for (int j = j0; j < min(j0 + BW_SLABS - 1, jend); ++j)
+      pipe.issue_slab<W>(j);
+    cluster_wait();              // peers are done reading the last round's
+    if (jt < ntiles) {
+      const int r = warp * 16 + quad;
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        char* base = reinterpret_cast<char*>(pown);
+        const int c = nt * 8 + qi * 2;
+        *reinterpret_cast<uint32_t*>(base + swizzled(r, c)) = pk[2 * nt];
+        *reinterpret_cast<uint32_t*>(base + swizzled(r + 8, c)) =
+            pk[2 * nt + 1];
+      }
     }
-    wait_step(st, steps, kk, nk, true);
+    cluster_arrive();
+    cluster_wait();                        // the round's tiles are in place
+    // each round tile's P' is staged from its block into local shared
+    // memory one tile ahead of its product
+    stage_ptile(pstage, pown, cluster, 0);
     __syncthreads();
-    const bf16* cur = smem + (st & 1) * 2 * SLAB;
-    mma_slab(sc, cur, cur + SLAB, warp, lane);
-    if (kk == nk - 1) {
+    for (int j = j0; j < jend; ++j) {
+      const int t = j - j0;
+      if (j + BW_SLABS - 1 < jend) pipe.issue_slab<W>(j + BW_SLABS - 1);
+      const bf16* qs = pipe.use_slab<W>();
+      const bf16* pa = pstage + (t % 2) * PTILE + wg * TILE;
+      fence_regs(acc);
+      wg_fence();
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          const int i = x / 2, c = nt * 8 + qi * 2 + (x & 1);
-          const int col = j * BN + c;
-          sc[nt][x] = DE ? grad_p<true>(sc[nt][x], row[i], lse_s[c],
-                                        tgt_s[c], col < N, gp)
-                         : grad_p<true>(sc[nt][x], col, ls_r[i], t_r[i],
-                                        row[i] < N, gp);
-        }
-      mma_pv<W>(acc, sc, slab, lane);
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_ss<1>(acc, wg_desc(pa + kk * 16, 16, 1024),
+                    wg_desc(qs + kk * 1024, TILE * sizeof(bf16), 1024), 1,
+                    std::integral_constant<int, W>());
+      wg_commit();
+      if (j + 1 < jend)
+        stage_ptile(pstage + ((t + 1) % 2) * PTILE, pown, cluster, t + 1);
+      wg_wait<0>();
+      fence_regs(acc);
+      __syncthreads();     // the slab's and P' buffers may be refilled
     }
-    __syncthreads();
+    cluster_arrive();                      // done reading the round's tiles
   }
+  cluster_wait();
   const float sf = scale[0];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -453,11 +778,12 @@ xent_bwd_mma_kernel(const float* __restrict__ scale,
     OutT* p = out + (long long)row[i] * C + c0 + qi * 2;
 #pragma unroll
     for (int dn = 0; dn < W / 8; ++dn) {
-      const float a = acc[dn][2 * i] * sf, b = acc[dn][2 * i + 1] * sf;
+      const float a = acc[dn * 4 + 2 * i] * sf;
+      const float b2 = acc[dn * 4 + 2 * i + 1] * sf;
       if constexpr (sizeof(OutT) == 2) {
-        *reinterpret_cast<uint32_t*>(p + dn * 8) = pack2(a, b);
+        *reinterpret_cast<uint32_t*>(p + dn * 8) = pack2(a, b2);
       } else {
-        *reinterpret_cast<float2*>(p + dn * 8) = make_float2(a, b);
+        *reinterpret_cast<float2*>(p + dn * 8) = make_float2(a, b2);
       }
     }
   }
@@ -643,14 +969,6 @@ xent_bwd_f32_kernel(const float* __restrict__ scale,
 
 // ------------------------------------------------------------ dispatch
 
-template <typename K>
-cudaError_t smem_opt_in(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 bool aligned16(const void* const* ptrs, int n) {
   for (int i = 0; i < n; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
@@ -661,33 +979,109 @@ bool dims_ok(int N, int V, int C) {
   return N > 0 && V > 0 && C > 0 && C % BK == 0;
 }
 
+// A 2-D TMA map of a row-major bf16 [rows, C] matrix, boxes of 64 columns
+// by `box_rows` rows with the 128-byte swizzle. cuTensorMapEncodeTiled is
+// looked up once through the runtime, so the library links no libcuda.
+cudaError_t row_major_map(CUtensorMap* map, const void* base, int rows,
+                          int C, int box_rows) {
+  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                             void*, const cuuint64_t*, const cuuint64_t*,
+                             const cuuint32_t*, const cuuint32_t*,
+                             CUtensorMapInterleave, CUtensorMapSwizzle,
+                             CUtensorMapL2promotion,
+                             CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                              cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || !fn)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)C * sizeof(bf16)};
+  const cuuint32_t box[2] = {BK, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// One backward launch on a cluster of CL blocks (W-column slabs, G slab
+// groups: CL W G = C). Refused before launch when no cluster of this size
+// and shared memory fits on the device.
 template <bool DE, int W, typename OutT>
-cudaError_t bwd_mma(const void* scale, const void* h, const void* e,
-                    const void* tgt, const void* lse, void* out, int N,
-                    int C, const Grad& gp, cudaStream_t stream) {
+cudaError_t bwd_cluster(const void* scale, const void* h, const void* e,
+                        const void* tgt, const void* lse, void* out, int N,
+                        int C, int CL, int G, const Grad& gp,
+                        cudaStream_t stream) {
   const int nrows = DE ? gp.V : N;
-  dim3 grid((nrows + BM - 1) / BM, C / W);
-  constexpr size_t smem = bwd_smem_bytes<W>();
-  auto kernel = xent_bwd_mma_kernel<DE, W, OutT>;
-  cudaError_t err = smem_opt_in(kernel, smem);
+  CUtensorMap tm_r, tm_q;                // R in 128-row boxes, Q in 64
+  cudaError_t err = row_major_map(&tm_r, DE ? e : h, nrows, C, BW_M);
+  if (err == cudaSuccess)
+    err = row_major_map(&tm_q, DE ? h : e, DE ? N : gp.V, C, BN);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, smem, stream>>>(
-      (const float*)scale, (const bf16*)h, (const bf16*)e, (const int*)tgt,
-      (const float*)lse, (OutT*)out, N, C, gp);
+  constexpr size_t smem = bwd_smem_bytes(W);
+  auto kernel = xent_bwd_cluster_kernel<DE, W, OutT>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL, (nrows + BW_M - 1) / BW_M, G);
+  cfg.blockDim = dim3(BW_NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kernel, tm_r, tm_q, (const float*)scale,
+                           (const int*)tgt, (const float*)lse, (OutT*)out, N,
+                           C, CL, gp);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <bool DE, typename OutT>
+cudaError_t bwd_plan(const void* scale, const void* h, const void* e,
+                     const void* tgt, const void* lse, void* out, int N,
+                     int C, int CL, int W, int G, const Grad& gp,
+                     cudaStream_t s) {
+  if (W == 256)
+    return bwd_cluster<DE, 256, OutT>(scale, h, e, tgt, lse, out, N, C, CL,
+                                      G, gp, s);
+  if (W == 128)
+    return bwd_cluster<DE, 128, OutT>(scale, h, e, tgt, lse, out, N, C, CL,
+                                      G, gp, s);
+  return bwd_cluster<DE, 64, OutT>(scale, h, e, tgt, lse, out, N, C, CL, G,
+                                   gp, s);
 }
 
 template <bool DE>
 cudaError_t bwd(const void* scale, const void* h, const void* e,
                 const void* tgt, const void* lse, void* out, int N, int V,
                 int C, int has_ignore, int ignore, float z, float eps,
-                int is_bf16, int out_f32, void* stream) {
+                int is_bf16, int out_f32, int CL, int W, int G,
+                void* stream) {
   if (!dims_ok(N, V, C)) return cudaErrorInvalidValue;
   const void* ptrs[3] = {h, e, out};
   const Grad gp{V, has_ignore, ignore, z, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nrows = DE ? V : N;
   if (!is_bf16) {
-    const int nrows = DE ? V : N;
     dim3 grid((nrows + 63) / 64, C / FB);
     xent_bwd_f32_kernel<DE><<<grid, F_NT, 0, s>>>(
         (const float*)scale, (const float*)h, (const float*)e,
@@ -695,15 +1089,13 @@ cudaError_t bwd(const void* scale, const void* h, const void* e,
     return cudaGetLastError();
   }
   if (!aligned16(ptrs, 3)) return cudaErrorMisalignedAddress;
-  if (C % 128 == 0)
-    return out_f32 ? bwd_mma<DE, 128, float>(scale, h, e, tgt, lse, out, N,
-                                             C, gp, s)
-                   : bwd_mma<DE, 128, bf16>(scale, h, e, tgt, lse, out, N,
-                                            C, gp, s);
-  return out_f32 ? bwd_mma<DE, 64, float>(scale, h, e, tgt, lse, out, N, C,
-                                          gp, s)
-                 : bwd_mma<DE, 64, bf16>(scale, h, e, tgt, lse, out, N, C,
-                                         gp, s);
+  if (CL < 1 || CL > 8 || G < 1 || (W != 64 && W != 128 && W != 256) ||
+      (long long)CL * W * G != C || (nrows + BW_M - 1) / BW_M > 65535)
+    return cudaErrorInvalidValue;
+  return out_f32 ? bwd_plan<DE, float>(scale, h, e, tgt, lse, out, N, C, CL,
+                                       W, G, gp, s)
+                 : bwd_plan<DE, bf16>(scale, h, e, tgt, lse, out, N, C, CL,
+                                      W, G, gp, s);
 }
 
 }  // namespace
@@ -739,22 +1131,31 @@ int xent_fwd_launch(const void* h, const void* e, const void* tgt, void* out,
 }
 
 // scale fp32 [1], h, e, tgt as above, lse fp32 [N] -> out [N, C] (dh) in
-// h's dtype, or fp32 when out_f32
+// h's dtype, or fp32 when out_f32. bf16 runs on clusters of `cl` blocks,
+// each a `w`-column slab, `groups` slab groups (cl w groups = C; the plan
+// of ops/kernels/fused_xent.py `bwd_plan`); fp32 ignores the three.
 int xent_bwd_dh_launch(const void* scale, const void* h, const void* e,
                        const void* tgt, const void* lse, void* out, int N,
                        int V, int C, int has_ignore, int ignore, float z,
-                       float eps, int is_bf16, int out_f32, void* stream) {
+                       float eps, int is_bf16, int out_f32, int cl, int w,
+                       int groups, void* stream) {
   return (int)bwd<false>(scale, h, e, tgt, lse, out, N, V, C, has_ignore,
-                         ignore, z, eps, is_bf16, out_f32, stream);
+                         ignore, z, eps, is_bf16, out_f32, cl, w, groups,
+                         stream);
 }
+
+// the dynamic shared memory of one backward block with w-column slabs
+int xent_bwd_smem_bytes(int w) { return (int)bwd_smem_bytes(w); }
 
 // as above -> out [V, C] (dE) in h's dtype, or fp32 when out_f32
 int xent_bwd_de_launch(const void* scale, const void* h, const void* e,
                        const void* tgt, const void* lse, void* out, int N,
                        int V, int C, int has_ignore, int ignore, float z,
-                       float eps, int is_bf16, int out_f32, void* stream) {
+                       float eps, int is_bf16, int out_f32, int cl, int w,
+                       int groups, void* stream) {
   return (int)bwd<true>(scale, h, e, tgt, lse, out, N, V, C, has_ignore,
-                        ignore, z, eps, is_bf16, out_f32, stream);
+                        ignore, z, eps, is_bf16, out_f32, cl, w, groups,
+                        stream);
 }
 
 }  // extern "C"

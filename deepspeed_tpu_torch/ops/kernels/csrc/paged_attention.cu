@@ -17,6 +17,9 @@
 //   on the CUDA cores. Both keep device-memory traffic at the live rows:
 //   the key loop covers [lo, hi) of the tile (causal end, sequence
 //   length and sliding window), never a dead or padded table entry.
+//   Head dims 16, 32, 64, 80, 96 and 128 are instantiated (the tiny test
+//   config's 16, TinyLlama's 64, phi-2's 80, phi3's 96, Llama's 128);
+//   the tensor-core loops step D in 16s, so every multiple of 16 fits.
 //
 // K2 paged_decode replaces the Pallas kernel `_decode_grouped_kernel`
 //   (paged_attention.py:205, launched at :615). One query per sequence;
@@ -24,9 +27,11 @@
 //   query heads, so each K/V row is read from device memory once for all
 //   g heads. Bound on the H100: the bytes of the live K/V rows (decode
 //   attention does 4*D FLOPs per 4*D bytes of bf16 K/V per head group --
-//   far below the ridge). Each K/V element is loaded once per block.
+//   far below the ridge). Each K/V element is loaded once per block. A
+//   group wider than DEC_ROWS query heads splits across ceil(g / DEC_ROWS)
+//   blocks (a third grid axis), each reading the KV head's rows once.
 //   Split-K over the context (flash-decoding) is not done yet, so a batch
-//   of S sequences fills only S * KV blocks.
+//   of S sequences fills only S * KV * ceil(g / DEC_ROWS) blocks.
 //
 // Both: online softmax in fp32 with the -inf guards of the Pallas kernels
 // (a row with no live key emits zeros, never NaN), K/V tiles staged in
@@ -47,12 +52,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int NT = 256;            // threads per block
 constexpr int PF_ROWS = 32;        // K1: queries per block
 constexpr int PF_TK = 32;          // K1: keys per tile
-constexpr int DEC_ROWS = 16;       // K2: max query heads per KV head (g)
+constexpr int DEC_ROWS = 16;       // K2: query heads of a block
 constexpr int DEC_TK = 64;         // K2: keys per tile
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -86,9 +93,9 @@ constexpr size_t smem_bytes() {
 }
 
 // One block attends ROWS query rows that share one KV head against the
-// keys of one sequence. DECODE: rows are the g heads of KV head
-// blockIdx.y at query 0. PREFILL: rows are PF_ROWS consecutive queries
-// (tile blockIdx.y) of head blockIdx.z.
+// keys of one sequence. DECODE: rows are heads [blockIdx.z * ROWS, +ROWS)
+// of the g heads of KV head blockIdx.y, at query 0. PREFILL: rows are
+// PF_ROWS consecutive queries (tile blockIdx.y) of head blockIdx.z.
 template <typename T, int D, int ROWS, int TK, bool DECODE>
 __global__ void __launch_bounds__(NT)
 paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
@@ -103,9 +110,9 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   int kvh, h0, c0, nrows;
   if (DECODE) {
     kvh = blockIdx.y;
-    h0 = kvh * g;
+    h0 = kvh * g + blockIdx.z * ROWS;
     c0 = 0;
-    nrows = g;
+    nrows = min(ROWS, g - (int)blockIdx.z * ROWS);
   } else {
     h0 = blockIdx.z;
     kvh = h0 / g;
@@ -516,7 +523,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid = DECODE ? dim3(S, KV, 1)
+  dim3 grid = DECODE ? dim3(S, KV, (H / KV + ROWS - 1) / ROWS)
                      : dim3(S, (C + ROWS - 1) / ROWS, H);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
@@ -525,6 +532,38 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   return cudaGetLastError();
 }
 
+// fn<D>(args...) for the head dims the kernels are instantiated for;
+// cudaErrorInvalidValue for any other
+#define BY_HEAD_DIM(D, fn, ...)                                          \
+  ((D) == 16    ? fn<16>(__VA_ARGS__)                                   \
+   : (D) == 32  ? fn<32>(__VA_ARGS__)                                   \
+   : (D) == 64  ? fn<64>(__VA_ARGS__)                                   \
+   : (D) == 80  ? fn<80>(__VA_ARGS__)                                   \
+   : (D) == 96  ? fn<96>(__VA_ARGS__)                                   \
+   : (D) == 128 ? fn<128>(__VA_ARGS__)                                  \
+                : cudaErrorInvalidValue)
+
+template <typename T, bool DECODE>
+struct ByDim {
+  static constexpr int ROWS = DECODE ? DEC_ROWS : PF_ROWS;
+  static constexpr int TK = DECODE ? DEC_TK : PF_TK;
+  template <int D>
+  static cudaError_t run(const void* q, const void* k_pool,
+                         const void* v_pool, const int* t, const int* sp,
+                         const int* sl, void* out, int S, int C, int H,
+                         int KV, int maxb, int bs, float sm_scale, int window,
+                         cudaStream_t st) {
+    // K1 in bf16 runs on the tensor cores; the rest on the CUDA cores
+    if constexpr (!DECODE && std::is_same<T, __nv_bfloat16>::value)
+      return launch_mma<D>(q, k_pool, v_pool, t, sp, sl, out, S, C, H, KV,
+                           maxb, bs, sm_scale, window, st);
+    else
+      return launch<T, D, ROWS, TK, DECODE>(q, k_pool, v_pool, t, sp, sl,
+                                            out, S, C, H, KV, maxb, bs,
+                                            sm_scale, window, st);
+  }
+};
+
 template <bool DECODE>
 int dispatch(const void* q, const void* k_pool, const void* v_pool,
              const void* tables, const void* start_pos, const void* seq_lens,
@@ -532,42 +571,20 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
              float sm_scale, int window, int is_bf16, void* stream) {
   if (S <= 0 || H <= 0 || KV <= 0 || H % KV || bs <= 0 || maxb <= 0)
     return (int)cudaErrorInvalidValue;
-  if (DECODE ? (C != 1 || H / KV > DEC_ROWS) : C < 1)
-    return (int)cudaErrorInvalidValue;
-  constexpr int ROWS = DECODE ? DEC_ROWS : PF_ROWS;
-  constexpr int TK = DECODE ? DEC_TK : PF_TK;
+  if (DECODE ? C != 1 : C < 1) return (int)cudaErrorInvalidValue;
   const int* t = static_cast<const int*>(tables);
   const int* sp = static_cast<const int*>(start_pos);
   const int* sl = static_cast<const int*>(seq_lens);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (is_bf16) {
-    if constexpr (DECODE) {
-      if (D == 64)
-        err = launch<__nv_bfloat16, 64, ROWS, TK, true>(
-            q, k_pool, v_pool, t, sp, sl, out, S, C, H, KV, maxb, bs,
-            sm_scale, window, st);
-      else if (D == 128)
-        err = launch<__nv_bfloat16, 128, ROWS, TK, true>(
-            q, k_pool, v_pool, t, sp, sl, out, S, C, H, KV, maxb, bs,
-            sm_scale, window, st);
-    } else {                                  // K1 bf16: tensor cores
-      if (D == 64)
-        err = launch_mma<64>(q, k_pool, v_pool, t, sp, sl, out, S, C, H, KV,
-                             maxb, bs, sm_scale, window, st);
-      else if (D == 128)
-        err = launch_mma<128>(q, k_pool, v_pool, t, sp, sl, out, S, C, H, KV,
-                              maxb, bs, sm_scale, window, st);
-    }
-  } else if (D == 64) {
-    err = launch<float, 64, ROWS, TK, DECODE>(
-        q, k_pool, v_pool, t, sp, sl, out, S, C, H, KV, maxb, bs, sm_scale,
-        window, st);
-  } else if (D == 128) {
-    err = launch<float, 128, ROWS, TK, DECODE>(
-        q, k_pool, v_pool, t, sp, sl, out, S, C, H, KV, maxb, bs, sm_scale,
-        window, st);
-  }
+  using BF = ByDim<__nv_bfloat16, DECODE>;
+  using FP = ByDim<float, DECODE>;
+  cudaError_t err =
+      is_bf16 ? BY_HEAD_DIM(D, BF::template run, q, k_pool, v_pool, t, sp,
+                            sl, out, S, C, H, KV, maxb, bs, sm_scale, window,
+                            st)
+              : BY_HEAD_DIM(D, FP::template run, q, k_pool, v_pool, t, sp,
+                            sl, out, S, C, H, KV, maxb, bs, sm_scale, window,
+                            st);
   return (int)err;
 }
 

@@ -19,6 +19,11 @@ chunked path (``ops.evoformer_attn.DS4Sci_EvoformerAttention`` with
 extra forward's work, no backward kernel. Its forward launches the kernel
 for CUDA tensors (or raises) and runs :func:`evoformer_flash_plain` for CPU
 tensors. Only a launch counts in :data:`LAUNCHES`.
+
+The kernel runs head dims 16, 32 and 64 natively. For any other D up to
+64 the wrapper zero-pads q, k and v along D to the next of these (the
+scores and so the softmax are unchanged; the output is sliced back) and
+keeps the scale of the true D; a D above 64 raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,7 +35,9 @@ import torch
 
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"evoformer_fwd": 0}
-KERNEL_HEAD_DIMS = (32, 64)
+#: head dims the kernel is instantiated for; others up to the last are
+#: zero-padded to the next one (:func:`kernel_head_dim`)
+KERNEL_HEAD_DIMS = (16, 32, 64)
 _M_FLOOR = -1e30
 
 
@@ -60,6 +67,17 @@ def evoformer_flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pv = torch.einsum("bnhqk,bnkhd->bnhqd", p.to(v.dtype).float(), v.float())
     o = pv / torch.where(l == 0, torch.ones_like(l), l)
     return o.permute(0, 1, 3, 2, 4).to(q.dtype)
+
+
+def kernel_head_dim(D: int) -> int:
+    """The kernel instance that serves head dim ``D``: the least of
+    :data:`KERNEL_HEAD_DIMS` at or above it."""
+    for d in KERNEL_HEAD_DIMS:
+        if D <= d:
+            return d
+    raise NotImplementedError(
+        f"head_dim {D}: the Evoformer kernel for head dims over "
+        f"{KERNEL_HEAD_DIMS[-1]} is not ported")
 
 
 def _check(q, k, v, mask_bias, pair_bias):
@@ -100,8 +118,9 @@ def evoformer_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t in (q, k, v):
         if t.stride(-1) != 1:
             raise ValueError("the kernel needs a unit head_dim stride")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {D}: the kernel takes {KERNEL_HEAD_DIMS}")
+    Dk = kernel_head_dim(D)
+    if Dk != D:
+        q, k, v = (torch.nn.functional.pad(t, (0, Dk - D)) for t in (q, k, v))
     # the biases as f32, contiguous (no copy when they already are)
     mb = None if mask_bias is None else \
         mask_bias.to(torch.float32).contiguous()
@@ -117,12 +136,12 @@ def evoformer_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = lib.evoformer_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         0 if mb is None else mb.data_ptr(), 0 if pb is None else pb.data_ptr(),
-        ctypes.addressof(strides), B, N, H, Sq, Sk, D, float(D ** -0.5),
+        ctypes.addressof(strides), B, N, H, Sq, Sk, Dk, float(D ** -0.5),
         int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"evoformer_fwd failed: cudaError {err}")
     LAUNCHES["evoformer_fwd"] += 1
-    return o
+    return o if Dk == D else o[..., :D]
 
 
 def _evo_ref(q, k, v, mask_bias, pair_bias):

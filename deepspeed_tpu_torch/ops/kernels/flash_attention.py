@@ -44,7 +44,9 @@ import torch
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0}
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+#: the kernels' element types, by the code their C entry points take
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: block-sparse forward launches (a dict of its own: the training phases
 #: hold every entry of :data:`LAUNCHES` to layers x steps)
 SPARSE_LAUNCHES: Dict[str, int] = {"flash_sparse_fwd": 0}
@@ -160,6 +162,18 @@ def _empty_like_order(x: torch.Tensor,
     return buf.permute([order.index(d) for d in range(4)])
 
 
+def check_kernel_shape(head_dim: int, dtype: torch.dtype) -> None:
+    """Raise ValueError unless the three kernels take this head dim and
+    dtype (the wrappers' check for CUDA tensors; the CPU tests call it on
+    the configs the port trains)."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"q dtype {dtype}: the kernels take bf16, fp16 or "
+                         f"fp32")
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim}: the kernels take "
+                         f"{KERNEL_HEAD_DIMS}")
+
+
 def _check(q, k, v, *rest):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, T, D]")
@@ -175,16 +189,13 @@ def _check(q, k, v, *rest):
     for t in (k, v) + rest:
         if t.device != q.device:
             raise ValueError(f"a tensor on {t.device}, q on {q.device}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"q dtype {q.dtype}: the kernels take bf16 or fp32")
+    check_kernel_shape(D, q.dtype)
     for t in (k, v):
         if t.dtype != q.dtype:
             raise ValueError(f"k/v dtype {t.dtype} != q dtype {q.dtype}")
     for t in (q, k, v):
         if t.stride(-1) != 1:
             raise ValueError("the kernels need a unit head_dim stride")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {D}: the kernels take {KERNEL_HEAD_DIMS}")
 
 
 def _check_rows(q, do, lse, delta):
@@ -214,7 +225,7 @@ def _launch(name: str, ptrs, strided, q, k, *, causal, sm_scale) -> None:
     err = getattr(lib, f"{name}_launch")(
         *[t.data_ptr() for t in ptrs], ctypes.addressof(strides), B, H, Hk,
         Tq, Tk, D, float(sm_scale), int(bool(causal)),
-        int(q.dtype == torch.bfloat16), stream)
+        KERNEL_DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: cudaError {err}")
     LAUNCHES[name] += 1

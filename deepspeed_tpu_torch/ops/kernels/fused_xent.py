@@ -13,7 +13,12 @@ Pallas kernels; none writes the [N, V] logits to device memory:
 with P' = d(sum of the rows' losses)/d(logits) (``_grad_p``): ``(1 +
 2 z lse) P - (1 - eps) onehot - eps / V`` over the real vocabulary, zero
 for a row whose target is out of range or ignored. Both backward kernels
-recompute the logits tiles instead of reading them.
+recompute the logits instead of reading them, each tile once: a
+thread-block cluster of CL blocks owns 128 output rows, block b a
+W-column slab of them; each block computes one logits tile of a round,
+forms P' and shares it with the cluster through distributed shared
+memory, and every block multiplies the round's tiles into its slab, both
+products on wgmma (:func:`bwd_plan` picks CL and W).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain PyTorch version (``fused_xent_fwd_plain``, ``fused_xent_dh_plain``,
@@ -206,6 +211,28 @@ def xent_fwd(h2: torch.Tensor, emb: torch.Tensor, tgt: torch.Tensor
     return out[0], out[1], out[2]
 
 
+#: slab widths the backward kernels are instantiated for, widest first
+BWD_WIDTHS = (256, 128, 64)
+#: blocks of a backward cluster, at most (the portable cluster size)
+BWD_MAX_CLUSTER = 8
+
+
+def bwd_plan(C: int) -> Tuple[int, int, int]:
+    """``(CL, W, G)`` of the backward kernels for hidden size ``C``: a
+    cluster of CL blocks, each a W-column slab of the output, and G slab
+    groups, CL * W * G == C. The fewest groups (each computes the logits
+    again), then the widest slab; a C that one cluster covers (up to
+    8 * 256) takes one group."""
+    if C <= 0 or C % 64:
+        raise ValueError(f"hidden size {C}: the kernels take a multiple of "
+                         f"64")
+    for G in range(1, C // 64 + 1):
+        for W in BWD_WIDTHS:
+            if C % (G * W) == 0 and C // (G * W) <= BWD_MAX_CLUSTER:
+                return C // (G * W), W, G
+    raise AssertionError("unreachable: W = 64, G = C / 64 always fits")
+
+
 def _fwd_splits(N: int, V: int, device: torch.device) -> int:
     """Vocabulary splits of the forward: enough (token tile, split) blocks
     for about four per SM, each split at least one 64-column tile."""
@@ -225,7 +252,7 @@ def _bwd(name, scale, h2, emb, tgt, lse, ignore, z, eps, out_rows,
             t.data_ptr(), lse.contiguous().data_ptr(), out.data_ptr(), N, V,
             C, int(ignore is not None), int(ignore or 0), float(z),
             float(eps), int(h.dtype == torch.bfloat16),
-            int(out_dtype == torch.float32), _stream(h))
+            int(out_dtype == torch.float32), *bwd_plan(C), _stream(h))
     return out
 
 
@@ -308,8 +335,9 @@ def fused_lm_xent(hidden: torch.Tensor, embedding: torch.Tensor,
     the divisor and both gradients, as do ids outside [0, V).
     ``z_loss`` adds ``z * lse^2`` per valid position; ``label_smoothing``
     mixes the target with the uniform distribution. ``token_block`` and
-    ``vocab_block`` are accepted as tile hints; the kernels' tiles are
-    fixed (64 tokens by 64 vocabulary rows).
+    ``vocab_block`` are accepted as tile hints and not used: the kernels
+    pick their own tiles (64 rows by 64 columns of the logits, the
+    backward's slabs from the hidden size, :func:`bwd_plan`).
     """
     for name, b in (("token_block", token_block),
                     ("vocab_block", vocab_block)):

@@ -29,9 +29,9 @@ import torch
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"paged_prefill": 0, "paged_decode": 0}
 
-#: the widest GQA group K2 serves in one block (csrc DEC_ROWS)
-MAX_DECODE_GROUP = 16
-KERNEL_HEAD_DIMS = (64, 128)
+#: head dims both kernels are instantiated for (any GQA group: K2 splits a
+#: group wider than its 16-row block across blocks)
+KERNEL_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 
 
 def reset_launch_counts() -> None:
@@ -85,6 +85,21 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return o.reshape(S, C, H, D).to(q.dtype)
 
 
+def check_kernel_shape(num_heads: int, num_kv_heads: int, head_dim: int,
+                       dtype: torch.dtype) -> None:
+    """Raise ValueError unless both kernels take these heads and dtype
+    (the wrappers' check for CUDA tensors; the CPU tests call it on the
+    configs the port serves)."""
+    if num_heads % num_kv_heads:
+        raise ValueError(f"GQA requires H % KV == 0 ({num_heads}/"
+                         f"{num_kv_heads})")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"q dtype {dtype}: the kernels take bf16 or fp32")
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim}: the kernels take "
+                         f"{KERNEL_HEAD_DIMS}")
+
+
 def _flat_pool(pool: torch.Tensor, num_kv_heads: Optional[int]):
     if pool.dim() == 3:
         return pool.reshape(pool.shape[0], -1), pool.shape[1]
@@ -128,8 +143,7 @@ def _check(q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,
                     ("seq_lens", seq_lens)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"q dtype {q.dtype}: the kernels take bf16 or fp32")
+    check_kernel_shape(H, KV, D, q.dtype)
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise ValueError(
             f"pool dtype {k_pool.dtype}/{v_pool.dtype} != q dtype {q.dtype} "
@@ -138,10 +152,6 @@ def _check(q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,
                     ("seq_lens", seq_lens)):
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {D}: the kernels take {KERNEL_HEAD_DIMS}")
-    if decode and H // KV > MAX_DECODE_GROUP:
-        raise ValueError(f"GQA group {H // KV} > {MAX_DECODE_GROUP}")
 
 
 def _run(name, q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,

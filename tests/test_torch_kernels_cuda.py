@@ -107,11 +107,17 @@ def test_flash_kernels_match_plain_on_card(shape):
 @pytest.mark.parametrize("shape", [
     (200, 1000, 256, None, 0.0, 0.0),     # ragged token and vocab tiles
     (130, 777, 192, -100, 1e-4, 0.1),     # C % 128 != 0: 64-column slabs
+    (100, 3001, 64, -100, 0.0, 0.0),      # a cluster of one block
+    (333, 1500, 768, -100, 0.0, 0.1),     # an odd cluster (3 x 256)
+    (260, 2100, 2048, None, 1e-4, 0.0),   # the gpt1p3b cluster (8 x 256)
+    (150, 1300, 4096, -100, 0.0, 0.0),    # two slab groups of 8 x 256
 ])
 def test_xent_kernels_match_plain_on_card(shape):
     """The three fused-xent kernels against their plain versions on the
     card at small ragged shapes, with ignore ids and an id >= V among the
-    targets. Limits as in chip_smoke.py: fp32 (the CUDA-core kernels) and
+    targets, at hidden sizes that cover each backward cluster plan
+    (``fused_xent.bwd_plan``). Limits as in chip_smoke.py: fp32 (the
+    CUDA-core kernels) and
     the bf16 logit sum within 1e-5 of the plain output's norm; bf16 lse
     and target logit within 1e-3 absolute, dh and dE within 2**-8 of the
     plain output's norm and 9e-3 of its largest magnitude; TF32 off for
@@ -398,11 +404,13 @@ def test_sparse_kernel_matches_plain_on_card(B, H, Hk, T, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,D", [(40, 32), (130, 64), (64, 32)])
+@pytest.mark.parametrize("S,D", [(40, 32), (130, 64), (64, 32), (40, 16),
+                                 (130, 48)])
 @pytest.mark.parametrize("biases", ["none", "mask", "pair", "both"])
 def test_evoformer_kernel_matches_plain_on_card(S, D, biases):
     """The Evoformer kernel against its plain version on the card: the four
-    bias combinations, ragged S, D = 32 and 64, a row of MSA keys all at
+    bias combinations, ragged S, D = 16, 32 and 64 natively and D = 48
+    zero-padded to 64 by the wrapper, a row of MSA keys all at
     -inf (zeros out) and -1e9 mask biases; bf16 (``_close_bf16``) and fp32
     within 1e-5 (the CUDA-core kernel, TF32 off)."""
     if not torch.cuda.is_available():
@@ -453,10 +461,113 @@ def test_slice5_kernels_raise_on_unsupported_input():
         fa.flash_attention_sparse(h.float(), h.float(), h.float(),
                                   torch.ones(2, 1, 1, device="cuda"))
     e = torch.randn(1, 2, 16, 2, 128, device="cuda")
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(NotImplementedError, match="head_dim"):
         ev.evoformer_flash(e, e, e)
     p = torch.zeros(64, device="cuda")
     with pytest.raises(ValueError, match="dtype"):
         fo.fused_adamw_update(p, p.half(), p.clone(), p.clone(), 1, lr=1e-3)
     assert fa.SPARSE_LAUNCHES["flash_sparse_fwd"] == 0
     assert ev.LAUNCHES["evoformer_fwd"] == 0 and fo.LAUNCHES["adamw"] == 0
+
+
+# ------------------------------------------------ fault C1: widened kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H,KV", [
+    (16, 4, 2),         # LlamaConfig.tiny's heads
+    (32, 8, 2),
+    (80, 8, 8),         # phi-2's head_dim
+    (96, 8, 4),         # phi3's head_dim
+    (64, 32, 1),        # a GQA group of 32: K2 over two 16-head blocks
+])
+def test_paged_kernels_c1_shapes_match_plain_on_card(D, H, KV):
+    """K1 and K2 at the head dims and the GQA group that the kernels took
+    only after fault C1, against the plain version: bf16 within 8e-3
+    max-abs (1.6e-2 above D = 64, chip_smoke.py's D = 128 limit) and 2**-8
+    of the plain output's norm, fp32 within 1e-4; a ragged chunk (C = 40)
+    and an idle slot, which must be zeros. Each call launches its
+    kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(D * H + KV)
+    S, C, bs, nb, maxb = 4, 40, 16, 24, 8
+    kp, vp = _pool(rng, nb, bs, KV, D)
+    tables = np.zeros((S, maxb), np.int32)
+    perm = rng.permutation(nb)
+    for s in range(3):
+        tables[s, :8] = perm[s * 8:(s + 1) * 8]
+    start = np.array([0, 30, 88, 0], np.int32)
+    lens = np.array([C, 30 + C, 88 + C, 0], np.int32)        # slot 3 idle
+    q = rng.standard_normal((S, C, H, D)).astype(np.float32)
+    bf16_tol = 8e-3 if D <= 64 else 1.6e-2
+    for dt, tol, rel_tol in ((torch.float32, 1e-4, 1.0),
+                             (torch.bfloat16, bf16_tol, 2.0 ** -8)):
+        args = [torch.from_numpy(a).cuda() for a in
+                (q, kp, vp, tables, start, lens)]
+        args[:3] = [a.to(dt) for a in args[:3]]
+        for name, qq, st in (
+                ("paged_prefill", args[0], args[4]),
+                ("paged_decode", args[0][:, :1].contiguous(),
+                 torch.clamp(args[5] - 1, min=0))):
+            kw = dict(block_size=bs, sm_scale=D ** -0.5,
+                      sliding_window=None, num_kv_heads=KV)
+            port.reset_launch_counts()
+            got = port.flash_paged_attention(
+                qq, args[1], args[2], args[3], st, args[5], **kw)
+            ref = port.paged_attention_plain(
+                qq.cpu(), args[1].cpu(), args[2].cpu(), args[3].cpu(),
+                st.cpu(), args[5].cpu(), **kw)
+            torch.cuda.synchronize()
+            assert port.LAUNCHES[name] == 1, port.LAUNCHES
+            diff = got.float().cpu() - ref.float()
+            err = diff.abs().max().item()
+            rel = (diff.norm() / ref.float().norm()).item()
+            assert err <= tol and rel <= rel_tol, (dt, name, err, rel)
+            assert not got[3].any(), "idle slot must emit zeros"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [
+    ("fp16", 64), ("fp16", 128),          # fp16 at the GPT-2 head dims
+    ("fp16", 16), ("bf16", 16), ("fp32", 16),   # GPT2Config.tiny's heads
+    ("bf16", 32), ("fp16", 32), ("fp32", 32),
+])
+def test_flash_kernels_c1_match_plain_on_card(dtype, D):
+    """The three flash kernels in fp16 and at head dims 16 and 32 (fault
+    C1) against their plain versions, with BTHD views, a ragged T, GQA 4
+    -> 2 and the causal diagonal. Limits: bf16 as chip_smoke.py (1.6e-2
+    max-abs, 2**-8 of the norm); fp16 4e-3 max-abs (about one fp16 ulp at
+    outputs of 4-8; fp16 keeps three more bits than bf16) and 2**-8 of the
+    norm; fp32 1e-5 (TF32 off for the plain products)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt, tol, rel_tol = {"fp16": (torch.float16, 4e-3, 2.0 ** -8),
+                        "bf16": (torch.bfloat16, 1.6e-2, 2.0 ** -8),
+                        "fp32": (torch.float32, 1e-5, 1.0)}[dtype]
+    B, T, H, Hk = 2, 200, 4, 2
+    rng = np.random.default_rng(D)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in
+            ((B, T, H, D), (B, T, Hk, D), (B, T, Hk, D), (B, T, H, D))]
+    kw = dict(causal=True, sm_scale=D ** -0.5)
+    q, k, v, do = (torch.from_numpy(a).cuda().to(dt).transpose(1, 2)
+                   for a in arrs)
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    ro, rlse = fa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * ro.float()).sum(-1).contiguous()
+    got = [o, lse, fa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw),
+           *fa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)]
+    ref = [ro, rlse, fa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw),
+           *fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)]
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1}
+    for name, g, r in zip(("o", "lse", "dq", "dk", "dv"), got, ref):
+        assert g.dtype == r.dtype, (name, g.dtype, r.dtype)
+        diff = g.float() - r.float()
+        err = diff.abs().max().item()
+        rel = (diff.norm() / r.float().norm()).item()
+        assert err <= tol and rel <= rel_tol, (dtype, D, name, err, rel)
