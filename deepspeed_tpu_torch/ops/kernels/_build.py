@@ -57,7 +57,6 @@ SIGNATURES = {
         + [_P],
         "xent_bwd_de_launch": [_P] * 6 + [_I] * 5 + [_F, _F] + [_I] * 5
         + [_P],
-        "xent_bwd_smem_bytes": [_I],
     },
     # x, values, scale, zero, n, group_size, bits, symmetric, recip,
     # is_bf16, stream

@@ -1144,9 +1144,6 @@ int xent_bwd_dh_launch(const void* scale, const void* h, const void* e,
                          stream);
 }
 
-// the dynamic shared memory of one backward block with w-column slabs
-int xent_bwd_smem_bytes(int w) { return (int)bwd_smem_bytes(w); }
-
 // as above -> out [V, C] (dE) in h's dtype, or fp32 when out_f32
 int xent_bwd_de_launch(const void* scale, const void* h, const void* e,
                        const void* tgt, const void* lse, void* out, int N,

@@ -163,15 +163,17 @@ def _empty_like_order(x: torch.Tensor,
 
 
 def check_kernel_shape(head_dim: int, dtype: torch.dtype) -> None:
-    """Raise ValueError unless the three kernels take this head dim and
-    dtype (the wrappers' check for CUDA tensors; the CPU tests call it on
-    the configs the port trains)."""
+    """Raise unless the three kernels take this head dim and dtype (the
+    wrappers' check for CUDA tensors; the CPU tests call it on the configs
+    the port trains): ValueError for a dtype the kernels do not take,
+    NotImplementedError for a head dim that is not ported."""
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"q dtype {dtype}: the kernels take bf16, fp16 or "
                          f"fp32")
     if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {head_dim}: the kernels take "
-                         f"{KERNEL_HEAD_DIMS}")
+        raise NotImplementedError(
+            f"head_dim {head_dim}: the flash kernels for head dims other "
+            f"than {KERNEL_HEAD_DIMS} are not ported")
 
 
 def _check(q, k, v, *rest):

@@ -87,17 +87,19 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
 
 def check_kernel_shape(num_heads: int, num_kv_heads: int, head_dim: int,
                        dtype: torch.dtype) -> None:
-    """Raise ValueError unless both kernels take these heads and dtype
-    (the wrappers' check for CUDA tensors; the CPU tests call it on the
-    configs the port serves)."""
+    """Raise unless both kernels take these heads and dtype (the wrappers'
+    check for CUDA tensors; the CPU tests call it on the configs the port
+    serves): ValueError for malformed heads or a dtype the kernels do not
+    take, NotImplementedError for a head dim that is not ported."""
     if num_heads % num_kv_heads:
         raise ValueError(f"GQA requires H % KV == 0 ({num_heads}/"
                          f"{num_kv_heads})")
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q dtype {dtype}: the kernels take bf16 or fp32")
     if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {head_dim}: the kernels take "
-                         f"{KERNEL_HEAD_DIMS}")
+        raise NotImplementedError(
+            f"head_dim {head_dim}: the paged-attention kernels for head "
+            f"dims other than {KERNEL_HEAD_DIMS} are not ported")
 
 
 def _flat_pool(pool: torch.Tensor, num_kv_heads: Optional[int]):

@@ -50,8 +50,10 @@ def test_paged_kernels_take_any_gqa_group(group):
 
 
 def test_paged_kernels_refuse_what_they_do_not_take():
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(NotImplementedError, match="head_dim 40"):
         pa.check_kernel_shape(4, 2, 40, torch.bfloat16)
+    with pytest.raises(ValueError, match="GQA"):
+        pa.check_kernel_shape(4, 3, 64, torch.bfloat16)
     with pytest.raises(ValueError, match="dtype"):
         pa.check_kernel_shape(4, 2, 64, torch.float16)
 
@@ -72,7 +74,7 @@ def test_gpt2_configs_lie_in_the_flash_kernels_accepted_set(name, dtype):
 
 
 def test_flash_kernels_refuse_what_they_do_not_take():
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(NotImplementedError, match="head_dim 48"):
         fa.check_kernel_shape(48, torch.bfloat16)
     with pytest.raises(ValueError, match="dtype"):
         fa.check_kernel_shape(64, torch.float64)
