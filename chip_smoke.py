@@ -13,10 +13,14 @@ Phases, in order; any failure exits non-zero before the final line:
              version at TinyLlama width (H=32, KV=4, D=64): K1 on 4 slots x
              256-token chunks, K2 on 16 slots with contexts up to 2048, in
              the multi-block (block_size 64) and linear (one block per
-             sequence) layouts; bf16 within 8e-3 max-abs and 2**-8 of the
+             sequence) layouts, and on 16 slots with contexts up to 8192
+             (several context splits, each K2 case printing its
+             ``decode_plan``), once with a 700-key window whose edge falls
+             inside a split; bf16 within 8e-3 max-abs and 2**-8 of the
              plain output's norm, fp32 within 1e-4. Only the bf16 cases
-             reach K1's tensor-core kernel; fp32 K1 runs a CUDA-core
-             kernel of its own, so phase 4 does not cover the former.
+             reach the tensor-core kernels (K1's, and K2's split kernel);
+             fp32 runs CUDA-core kernels of its own, so
+             phase 4 does not cover the former.
 3. serving — TinyLlama-1.1B shape, all 22 layers, bf16, seeded random
              weights made on the card: 16 prompts x 512 tokens through
              ``InferenceEngineV2.generate`` (chunk 256, block 64, decode
@@ -28,7 +32,10 @@ Phases, in order; any failure exits non-zero before the final line:
 5. timing  — each kernel at the serving shapes (CUDA events), its plain
              version, ``F.scaled_dot_product_attention`` on the same live
              K/V as a yardstick, and the bound (bytes over 3.35 TB/s,
-             FLOPs over 989 TFLOP/s, the larger).
+             FLOPs over 989 TFLOP/s, the larger), the bound's share of the
+             kernel's time and, for K2, its plan; the kernel and SDPA also
+             in a CUDA graph (``_graph_ms``: device time without the
+             host's launch cost).
 
 6. flash parity — the three flash-attention kernels (forward, dQ, dK/dV)
              against their plain PyTorch versions from the same inputs and
@@ -98,7 +105,9 @@ Phases, in order; any failure exits non-zero before the final line:
              symmetric kernel on the [4096, 4096] and [11008, 4096] leaves;
              the fp6 GEMM at M = 1, 64, 333, 4096 on the four Llama-2-7B
              weight shapes ([4096, 4096], [4096, 11008], [11008, 4096], LM
-             head [4096, 32000]) and K = 1000, N / 4 = 260, and at the
+             head [4096, 32000]) and K = 1000, N / 4 = 260 (and at M = 128
+             and 129, either side of the route threshold, on [11008,
+             4096]), bit-identical between two calls, and at the
              serving prefill step's M = 64 x 512 on the three projections
              (bf16), bf16 within FP6_BF16_MAX_ABS and 2**-8 of the plain
              output's norm, fp32 (the CUDA-core kernel) within 1e-5 of
@@ -115,7 +124,8 @@ Phases, in order; any failure exits non-zero before the final line:
              Four runs, one engine alive at a time: bf16; int8 WOQ (group
              128, ``embed``/``norm``/``lm_head`` excluded); int4; fused fp6.
              Each prints its weight bytes, quantize seconds, prefill s,
-             decode tok/s and peak memory. Launches: 224 ``quantize_sym``
+             decode tok/s (beside the reading of the earlier kernels) and
+             peak memory. Launches: 224 ``quantize_sym``
              at each int run's load, 224 ``fp6_matmul`` per step of the fp6
              run, 32 per step of each paged kernel.
 16. woq engine — TF32 off, Llama-2-7B width with 2 layers, 4 prompts
@@ -127,11 +137,15 @@ Phases, in order; any failure exits non-zero before the final line:
              serves it), prefill and 16 teacher-forced decode steps:
              logits within WOQ_BF16_LOGITS_REL of the norm and
              WOQ_BF16_LOGITS_MAX_ABS.
-17. woq timing — ``fp6_matmul`` at M = 64 and 4096 on the three
+17. woq timing — ``fp6_matmul`` at M = 64, 256 and 4096 on the three
              Llama-2-7B projection shapes, each call on its own copy of
              the weight (the copies exceed the L2 cache), with its plain
              version, ``torch.matmul`` against the unpacked bf16 weight as
-             a yardstick, and the bound; ``quantize_sym`` / ``quantize_asym``
+             a yardstick, the bound (a K split's workspace traffic
+             counted), its share and the ``fp6_plan`` (route, row tiles,
+             K split); the kernel and ``torch.matmul`` also in a CUDA
+             graph; the kernels row reports the shape that loses most
+             to ``torch.matmul`` there; ``quantize_sym`` / ``quantize_asym``
              on the [4096, 11008] bf16 leaf (no PyTorch call computes
              them); the paged kernels at the Llama-2-7B serving shapes.
 
@@ -185,7 +199,13 @@ bound and one library call:
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
 and one over a ``train_batch`` follows phases 7 and 11: the device's busy
-time against host wall time, and the top device ops.
+time against host wall time (each phase-15 decode window prints its idle
+share), and the top device ops.
+
+``--fp6-sweep`` builds the kernels and runs only a table of the fp6 GEMM's
+launch plans (64, 128 or 256 rows a block, K split into 1-8 ranges) on the
+three Llama-2-7B projection shapes at M from 128 to 4096 beside
+``torch.matmul``, which ``fp6_plan``'s route choices are read from.
 
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -269,6 +289,13 @@ WOQ_MODES = {"bf16": None, "int8": {"num_bits": 8},
              "int4": {"num_bits": 4},
              "fp6_fused": {"dtype": "fp6", "fused_gemm": True}}
 WOQ_EXCLUDED = ["embed", "norm", "lm_head"]
+# phase 15's decode tok/s and the fp6 prefill s as the earlier kernels
+# read them (K2 on the CUDA cores without a context split, the fp6 GEMM on
+# one mma.sync route without a K split; H100 80GB HBM3 at 700 W): each run
+# prints its reading beside these
+WOQ_EARLIER_TOK_S = {"bf16": 772.5, "int8": 462.8, "int4": 405.2,
+                     "fp6_fused": 465.7}
+WOQ_EARLIER_FP6_PREFILL_S = 4.68
 # the bf16 fused-fp6 engine against the dense engine on its dequantized
 # tree (phase 16): teacher-forced logits within these limits of the dense
 # engine's, about twice the first readings (2.598e-3 of the norm, 1.446e-2
@@ -356,8 +383,9 @@ def phase_build():
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if "ptxas" in line and ("Used" in line or "spill" in line
-                                    or "Compiling" in line):
+            if ("ptxas" in line and ("Used" in line or "spill" in line
+                                     or "Compiling" in line)) \
+                    or "C7515" in line or "arning" in line:
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -390,6 +418,10 @@ def phase_parity(torch):
     worst = {"paged_prefill": 0.0, "paged_decode": 0.0}
     dec_lens = rng.integers(1, 2049, 16)
     dec_lens[0], dec_lens[3] = 2048, 0                 # slot 3 idle
+    # up to 8192 keys: K2 splits the context (an empty split past a short
+    # sequence, a sequence ending inside a split)
+    long_lens = rng.integers(1, 8193, 16)
+    long_lens[:6] = [8192, 1, 63, 64, 65, 0]
     cases = [
         # (kernel, S, C, lens, block_size, maxb, window)
         ("paged_prefill", 4, 256, [256, 512, 1024, 2048], 64, 32, None),
@@ -397,6 +429,9 @@ def phase_parity(torch):
         ("paged_decode", 16, 1, dec_lens, 64, 32, None),
         ("paged_decode", 16, 1, dec_lens, 2048, 1, None),  # linear layout
         ("paged_decode", 16, 1, dec_lens, 64, 32, 512),
+        ("paged_decode", 16, 1, long_lens, 64, 128, None),
+        # the window's edge (pos - 699) falls inside a split
+        ("paged_decode", 16, 1, long_lens, 64, 128, 700),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for name, S, C, lens, bs, maxb, window in cases:
@@ -413,9 +448,12 @@ def phase_parity(torch):
                 raise AssertionError(f"{name}: idle slot not zero")
             if not torch.isfinite(got.float()).all():
                 raise AssertionError(f"{name}: non-finite output")
+            plan = ""
+            if name == "paged_decode":
+                plan = f" plan {_k2_plan(pa, q, S, KV, H // KV, maxb, bs)}"
             err = check_close(
                 torch, f"[parity] {name} {str(dtype)[6:]} bs={bs} "
-                f"maxb={maxb} window={window}", got, ref)
+                f"maxb={maxb} window={window}{plan}", got, ref)
             if dtype is torch.bfloat16:
                 worst[name] = max(worst[name], err)
     return worst
@@ -524,6 +562,12 @@ def phase_engine_parity(torch):
     torch.cuda.empty_cache()
 
 
+def sm_count(device):
+    """The card's SM count (the kernels' plans read it)."""
+    from deepspeed_tpu_torch.utils.device import sm_count as count
+    return count(device)
+
+
 def _time_ms(torch, fn, iters):
     for _ in range(3):
         fn()
@@ -538,12 +582,47 @@ def _time_ms(torch, fn, iters):
     return a.elapsed_time(b) / iters
 
 
+def _graph_ms(torch, fns, reps=20):
+    """Device time per call without the host's launch cost: one pass over
+    ``fns`` captured in a CUDA graph, replayed ``reps`` times between two
+    CUDA events. Back-to-back launches of a call of a few tens of
+    microseconds are bound by the host (Python, ctypes, the launch), which
+    ``_time_ms`` then measures instead of the device."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for f in fns:
+            f()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / (reps * len(fns))
+    del g
+    return ms
+
+
 def _sdpa(q, k, v, mask):
     """One PyTorch call on contiguous live K/V: q [S, H, C, D],
     k/v [S, KV, T, D]."""
     import torch.nn.functional as F
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
+
+
+def _k2_plan(pa, q, S, KV, g, maxb, bs):
+    """K2's plan for these shapes on this card, as a dict."""
+    hc, splits, kps = pa.decode_plan(S, KV, g, maxb * bs,
+                                     sm_count(q.device))
+    return {"head_chunks": hc, "splits": splits, "keys_per_split": kps,
+            "blocks": S * KV * hc * splits}
 
 
 def time_paged(torch, rng, name, *, S, C, ctx, block_size, maxb,
@@ -579,6 +658,8 @@ def time_paged(torch, rng, name, *, S, C, ctx, block_size, maxb,
     pos = ctx - C + torch.arange(C, device="cuda")
     mask = (j[None, :] <= pos[:, None])                   # [C, ctx]
     lib_ms = _time_ms(torch, _sdpa(qc, kc, vc, mask), 50)
+    graph_ms = _graph_ms(torch, [lambda: fn(q, kp, vp, tab, st, ln, **kw)])
+    lib_graph_ms = _graph_ms(torch, [_sdpa(qc, kc, vc, mask)])
     # bound: each input read once, each output written once (live K/V
     # rows only), and the FLOPs of the causal pairs
     pairs = S * sum(min(ctx, p + 1) for p in range(ctx - C, ctx))
@@ -593,10 +674,16 @@ def time_paged(torch, rng, name, *, S, C, ctx, block_size, maxb,
            "shape": {"S": S, "C": C, "H": Hh, "KV": KVh, "D": Dh,
                      "context": ctx, "block_size": block_size,
                      "dtype": "bf16"},
-           "bytes": nbytes, "flops": flops}
+           "bytes": nbytes, "flops": flops, "graph_ms": graph_ms,
+           "library_graph_ms": lib_graph_ms}
+    out["bound_share"] = out["bound_ms"] / ms
+    if C == 1:
+        out["plan"] = _k2_plan(pa, q, S, KVh, Hh // KVh, maxb, block_size)
     log(f"[timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
-        f"{lib_ms:.4f}, bound {out['bound_ms']:.4f} by {out['bound_by']}; "
-        f"max_abs_err {err:.3e})")
+        f"{lib_ms:.4f}, bound {out['bound_ms']:.4f} by {out['bound_by']}, "
+        f"{out['bound_share']:.1%} of it; max_abs_err {err:.3e}; in a CUDA "
+        f"graph {graph_ms:.4f} against sdpa {lib_graph_ms:.4f})"
+        + (f"; plan {out['plan']}" if C == 1 else ""))
     return out
 
 
@@ -1460,16 +1547,22 @@ def phase_woq_parity(torch):
         fw = f6.fp6_gemm_pack(w)
         del w
         ms = [1, 64, 333, 4096]
+        if wname == "down_proj":
+            ms += [128, 129]          # either side of the route threshold
         if wname in list(W7_SHAPES)[:3]:
             ms.append(WOQ_SEQS * WOQ_PROMPT)
         for M in ms:
             xm = torch.randn(M, K, generator=g, device="cuda")
             for dt in (torch.bfloat16, torch.float32)[:1 if M > 4096 else 2]:
                 got = f6.fp6_matmul(xm.to(dt), fw)
+                if not torch.equal(got, f6.fp6_matmul(xm.to(dt), fw)):
+                    raise AssertionError(f"fp6_matmul {wname} M={M} "
+                                         f"{dt}: two calls differ")
                 ref = f6.fp6_matmul_plain(xm.to(dt), fw)
+                plan = f6.fp6_plan(M, K, N // 4, sm_count(xm.device))
                 err = _check_fp6(torch, f"[woq parity] fp6_matmul {wname} "
-                                 f"M={M} K={K} N={N} {str(dt)[6:]}", got,
-                                 ref)
+                                 f"M={M} K={K} N={N} {str(dt)[6:]} "
+                                 f"{plan.route} ks={plan.ks}", got, ref)
                 if dt is torch.bfloat16:
                     worst["fp6_matmul"] = max(worst["fp6_matmul"], err)
                 del got, ref
@@ -1622,11 +1715,15 @@ def phase_woq_serving(torch, trace=False):
             f"steps {steps}, prefill {tm['prefill_tokens']} tokens in "
             f"{tm['prefill_s']:.4f} s, decode {tm['decode_tokens']} tokens "
             f"in {tm['decode_s']:.4f} s = {runs[mode]['decode_tok_s']:.1f} "
-            f"tok/s, wall {wall:.3f} s, peak memory {peak / 2**30:.2f} GiB, "
+            f"tok/s (earlier kernels {WOQ_EARLIER_TOK_S[mode]}"
+            + (f"; prefill {WOQ_EARLIER_FP6_PREFILL_S} s" if fused else "")
+            + f"), wall {wall:.3f} s, peak memory {peak / 2**30:.2f} GiB, "
             f"first tokens agree with bf16 {agree:.3f}; launches {launches}")
         if trace:
             log(f"[trace] Llama-2-7B {mode}:")
             runs[mode]["trace"] = phase_trace(torch, eng, prompts)
+            log(f"[trace] Llama-2-7B {mode} decode window: device idle "
+                f"share {runs[mode]['trace']['decode'].get('idle_share')}")
         del eng
         torch.cuda.empty_cache()
     return runs
@@ -1749,6 +1846,86 @@ def _time_ring_ms(torch, fns, iters):
     return _time_ms(torch, lambda: next(ring)(), iters)
 
 
+FP6_SWEEP_MS = (128, 129, 192, 256, 384, 512, 768, 1024, 1536, 2048, 4096)
+
+
+def fp6_plan_sweep(torch):
+    """``--fp6-sweep`` only: fp6_matmul on the three Llama-2-7B projection
+    shapes at M from 128 to 4096 under every launch plan the wgmma kernel
+    takes there (64, 128 or 256 rows a block; K split into 1-8 ranges that
+    one wave of blocks holds), in a CUDA graph, each call on its own
+    weight copy (the copies exceed the L2 cache), beside torch.matmul on
+    the unpacked bf16 weight; every plan's output held against the plain
+    version. ``fp6_plan``'s choices are read from this table."""
+    from deepspeed_tpu_torch.ops.kernels import fp6_gemm as f6
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(23)
+    sms = sm_count(torch.device("cuda"))
+    table = []
+    for wname, (K, N) in list(W7_SHAPES.items())[:3]:
+        J = N // 4
+        w = torch.randn(K, N, generator=g, device="cuda") / math.sqrt(K)
+        fw = f6.fp6_gemm_pack(w)
+        del w
+        wbytes = 3 * K * J + 4 * J * 4
+        fws = [f6.Fp6GemmWeight(fw.bytes3.clone(), fw.scale.clone(),
+                                fw.shape)
+               for _ in range(max(2, math.ceil(150e6 / wbytes)))]
+        wb = f6.fp6_gemm_unpack(fw).to(torch.bfloat16)
+        wbs = [wb.clone() for _ in range(max(2, math.ceil(150e6 /
+                                                          (K * N * 2))))]
+        slabs = -(-K // f6.SK_BK)
+        for M in FP6_SWEEP_MS:
+            x = torch.randn(M, K, generator=g, device="cuda").to(
+                torch.bfloat16)
+            ref = f6.fp6_matmul_plain(x, fw)
+            chosen = f6.fp6_plan(M, K, J, sms)
+            lib = _graph_ms(torch, [lambda b=b: torch.matmul(x, b)
+                                    for b in wbs])
+            row = {"weight": wname, "M": M, "library_graph_ms": lib,
+                   "chosen": chosen._asdict(), "plans": []}
+            out = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+            seen = set()
+            for mt in (1, 2, 4):
+                tiles = -(-J // f6.SK_JT) * -(-M // (f6.SK_BM * mt))
+                if mt == 1 and M > 256:
+                    continue
+                for want in range(1, f6.SK_MAX_CLUSTER + 1):
+                    kps = -(-slabs // want) * f6.SK_BK
+                    ks = -(-K // kps)
+                    if (mt, ks) in seen or (
+                            ks > 1 and ks * tiles > (2 if mt == 1 else 1)
+                            * sms):
+                        continue
+                    seen.add((mt, ks))
+                    plan = f6.Fp6Plan(
+                        "decode" if mt < 4 else "prefill", mt, ks, kps,
+                        (ks, -(-J // f6.SK_JT), -(-M // (f6.SK_BM * mt))),
+                        256 if mt == 1 else 512)
+                    f6._launch(x, fws[0], out, plan)
+                    check_close(torch, f"[fp6 sweep] {wname} M={M} mt={mt} "
+                                f"ks={ks}", out, ref,
+                                bf16_max_abs=FP6_BF16_MAX_ABS)
+                    ms = _graph_ms(torch, [
+                        lambda f=f: f6._launch(x, f, out, plan)
+                        for f in fws])
+                    row["plans"].append({"mt": mt, "ks": ks, "ms": ms})
+            best = min(row["plans"], key=lambda r: r["ms"])
+            mine = next(r for r in row["plans"] if (r["mt"], r["ks"]) ==
+                        (chosen.mt, chosen.ks))
+            row.update(best=best, chosen_ms=mine["ms"])
+            log(f"[fp6 sweep] {wname} M={M}: torch.matmul {lib:.4f} ms; "
+                f"fp6_plan mt={chosen.mt} ks={chosen.ks} {mine['ms']:.4f} "
+                f"({mine['ms'] / lib:.2f}x); best mt={best['mt']} "
+                f"ks={best['ks']} {best['ms']:.4f}; all " + ", ".join(
+                    f"{r['mt']}/{r['ks']} {r['ms']:.4f}"
+                    for r in row["plans"]))
+            table.append(row)
+        del fws, wbs, fw, wb
+        torch.cuda.empty_cache()
+    return table
+
+
 def phase_woq_timing(torch, woq, worst, rows):
     """fp6_matmul at M = 64 and 4096 for each Llama-2-7B projection, with
     its plain version, ``torch.matmul`` against the unpacked bf16 weight
@@ -1756,6 +1933,7 @@ def phase_woq_timing(torch, woq, worst, rows):
     leaf; the paged kernels at Llama-2-7B's serving shapes (D = 128)."""
     import numpy as np
     from deepspeed_tpu_torch.ops.kernels import fp6_gemm as f6
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
     from deepspeed_tpu_torch.ops.kernels import quantization as qz
     g = torch.Generator(device="cuda").manual_seed(17)
     shapes = []
@@ -1771,9 +1949,10 @@ def phase_woq_timing(torch, woq, worst, rows):
         wb = f6.fp6_gemm_unpack(fw).to(torch.bfloat16)
         wbs = [wb.clone() for _ in range(max(2, math.ceil(150e6 /
                                                           (K * N * 2))))]
-        for M in (64, 4096):
+        for M in (64, 256, 4096):
             x = torch.randn(M, K, generator=g, device="cuda").to(
                 torch.bfloat16)
+            plan = f6.fp6_plan(M, K, J, sm_count(x.device))
             ms = _time_ring_ms(torch, [lambda f=f: f6.fp6_matmul(x, f)
                                        for f in fws], 50)
             plain_ms = _time_ring_ms(
@@ -1781,7 +1960,14 @@ def phase_woq_timing(torch, woq, worst, rows):
                         for f in fws], 3)
             lib_ms = _time_ring_ms(torch, [lambda b=b: torch.matmul(x, b)
                                            for b in wbs], 50)
-            nbytes = M * K * 2 + wbytes + M * N * 2
+            # without the host's launch cost, each call on its own copy
+            graph_ms = _graph_ms(torch, [lambda f=f: f6.fp6_matmul(x, f)
+                                         for f in fws])
+            lib_graph_ms = _graph_ms(torch, [lambda b=b: torch.matmul(x, b)
+                                             for b in wbs])
+            # a K split's fp32 partials are written once and read once
+            ws_bytes = 2 * plan.ks * M * N * 4 if plan.ks > 1 else 0
+            nbytes = M * K * 2 + wbytes + M * N * 2 + ws_bytes
             flops = 2 * M * K * N
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / BF16_FLOPS_PER_S * 1e3
@@ -1790,17 +1976,33 @@ def phase_woq_timing(torch, woq, worst, rows):
                 "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "flops": flops, "weight_copies": len(fws)})
+                "bound_share": max(t_bytes, t_ops) / ms,
+                "vs_library": ms / lib_ms, "graph_ms": graph_ms,
+                "library_graph_ms": lib_graph_ms,
+                "graph_vs_library": graph_ms / lib_graph_ms,
+                "graph_bound_share": max(t_bytes, t_ops) / graph_ms,
+                "plan": {"route": plan.route, "row_tiles": plan.mt,
+                         "k_splits": plan.ks, "k_per_split": plan.kps,
+                         "grid": plan.grid, "threads": plan.block},
+                "bytes": nbytes, "workspace_bytes": ws_bytes,
+                "flops": flops, "weight_copies": len(fws)})
             log(f"[woq timing] fp6_matmul {wname} M={M} K={K} N={N}: "
                 f"{ms:.4f} ms (plain {plain_ms:.4f}, torch.matmul bf16 "
-                f"{lib_ms:.4f}, bound {max(t_bytes, t_ops):.4f} by "
-                f"{shapes[-1]['bound_by']})")
+                f"{lib_ms:.4f}: {ms / lib_ms:.2f}x; in a CUDA graph "
+                f"{graph_ms:.4f} against {lib_graph_ms:.4f}: "
+                f"{graph_ms / lib_graph_ms:.2f}x; bound "
+                f"{max(t_bytes, t_ops):.4f} by {shapes[-1]['bound_by']} "
+                f"(workspace {ws_bytes} B), {shapes[-1]['bound_share']:.1%}"
+                f" of it, {shapes[-1]['graph_bound_share']:.1%} in the "
+                f"graph; plan {shapes[-1]['plan']})")
         del fws, wbs, fw, wb
         torch.cuda.empty_cache()
     fp6_run = woq["fp6_fused"]
     fp6_steps = sum(fp6_run["steps"].values())
-    main = next(r for r in shapes if r["weight"] == "gate/up_proj"
-                and r["M"] == 64)
+    # the row reports the shape that loses most to torch.matmul on the
+    # device (in a CUDA graph: back-to-back calls at M = 64 measure the
+    # host's launch cost, which the events' ratio then ranks instead)
+    main = max(shapes, key=lambda r: r["graph_vs_library"])
     out = [{"name": "fp6_matmul", "route": "cuda", "source": FP6_SOURCE,
             "replaces": REPLACES["fp6_matmul"],
             "launches": fp6_run["launches"]["fp6_matmul"],
@@ -1808,7 +2010,11 @@ def phase_woq_timing(torch, woq, worst, rows):
             // fp6_steps, "steps": fp6_steps,
             "max_abs_err": worst["fp6_matmul"],
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "bytes", "flops")},
+                                    "library_ms", "bytes", "flops",
+                                    "bound_share", "plan", "graph_ms",
+                                    "library_graph_ms", "workspace_bytes")},
+            "worst_vs_library": main["vs_library"],
+            "worst_graph_vs_library": main["graph_vs_library"],
             "library_call": "torch.matmul(x, W) with W the unpacked weight "
                             "in bf16",
             "shape": {k: main[k] for k in ("weight", "M", "K", "N")},
@@ -2526,10 +2732,10 @@ def phase_c1_shapes(torch):
 
 
 def main(argv) -> int:
-    unknown = [a for a in argv if a != "--trace"]
+    unknown = [a for a in argv if a not in ("--trace", "--fp6-sweep")]
     if unknown:
-        print(f"chip_smoke: unknown arguments {unknown} (only --trace)",
-              file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {unknown} (only --trace, "
+              f"--fp6-sweep)", file=sys.stderr)
         return 2
     try:
         import torch
@@ -2551,6 +2757,11 @@ def main(argv) -> int:
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     tracing = "--trace" in argv
     phase_s = {}
+    if "--fp6-sweep" in argv:
+        phase_build()
+        print(json.dumps({"fp6_sweep": fp6_plan_sweep(torch), "card": card}),
+              flush=True)
+        return 0
 
     def run(fn, *args):
         t0 = time.perf_counter()

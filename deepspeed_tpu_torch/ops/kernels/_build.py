@@ -37,8 +37,10 @@ SIGNATURES = {
     "paged_attention": {
         "paged_prefill_launch": [_P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-        "paged_decode_launch": [_P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+        # ..., out, part, counters, S, H, KV, D, maxb, bs, scale, window,
+        # is_bf16, splits, keys per split, stream
+        "paged_decode_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _I,
+                                                      _P],
     },
     # pointers, a host pointer to the int64 strides, B, H, Hk, Tq, Tk, D,
     # scale, causal, dtype code (0 fp32, 1 bf16, 2 fp16), stream
@@ -63,9 +65,10 @@ SIGNATURES = {
     "quantization": {
         "quantize_launch": [_P] * 4 + [_L, _I, _I, _I, _F, _I, _P],
     },
-    # x, bytes3, scale, out, M, K, J, is_bf16, stream
+    # x, bytes3, scale, out, workspace, counters, M, K, J, is_bf16, route,
+    # row tiles, K splits, depth of a split, stream
     "fp6_gemm": {
-        "fp6_matmul_launch": [_P] * 4 + [_I] * 4 + [_P],
+        "fp6_matmul_launch": [_P] * 6 + [_I] * 8 + [_P],
     },
     # x, w, b, out, rows, hidden, eps, layer_norm, dtype code, stream
     "normalization": {

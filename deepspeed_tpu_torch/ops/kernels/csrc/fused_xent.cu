@@ -59,6 +59,10 @@
 // thread from 64 x 16 shared tiles), a parity oracle for the indexing and
 // masking at a tight tolerance; they are not meant to be fast.
 //
+// The Hopper machinery (wgmma descriptors and products, mbarriers, TMA
+// boxes and maps, the cluster launch) lives in hopper.cuh, shared with
+// fp6_gemm.cu.
+//
 // Layout: h [N, C], E [V, C] row-major and contiguous, targets int32 [N],
 // lse fp32 [N], scale a one-element fp32 device array (the loss's
 // cotangent, read on the device: no host sync). C is a multiple of 64.
@@ -74,6 +78,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -109,10 +115,6 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // 16 bytes global -> shared without waiting, or zeros when `live` is false
@@ -364,176 +366,6 @@ __host__ __device__ constexpr size_t bwd_smem_bytes(int W) {
          2 * BN * sizeof(float) + (BW_STAGES + BW_SLABS) * sizeof(uint64_t);
 }
 
-// wgmma operand descriptor of a 128-byte-swizzled layout (as TMA's
-// SWIZZLE_128B writes it: rows of 128 bytes in 1 KB atoms of 8 rows, each
-// 16-byte chunk XORed with its row within the atom; atoms 1024-aligned).
-// K-major (rows along M/N, K within the row): sbo = 1024, the atom stride
-// along M/N, and lbo unused; a k16 step adds 32 bytes. MN-major (rows
-// along K, 64 M/N elements a row): sbo = 1024, the atom stride along K,
-// and lbo the stride of the 64-wide blocks along M/N.
-__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
-                                            uint32_t sbo) {
-  const uint32_t a = smem_addr(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Pin a wgmma's accumulators at this point of the program: otherwise the
-// compiler may place their definitions between the wgmmas of a batch, and
-// ptxas then serializes every wgmma of the function (C7515). Before each
-// batch's wgmma.fence and after its wait.
-template <int n>
-__device__ __forceinline__ void fence_regs(float (&d)[n]) {
-#pragma unroll
-  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// this thread's shared-memory writes visible to the async proxy (wgmma)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar)) : "memory");
-}
-// the one arrival of a buffer's phase, expecting `bytes` of TMA copies
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-}
-// one TMA box: the map's box (64 columns by 64 or 128 rows) at column
-// `col` and row `row`, 128-byte swizzled into `dst` (rows past the map's
-// end are zeros), completing on `bar`
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* tm,
-                                        int col, int row, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(tm)), "r"(col), "r"(row),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-// d += A . B for one m64nNk16 bf16 wgmma with fp32 accumulators (d in
-// the accumulator layout), A and B from shared-memory descriptors (A
-// K-major; B K-major, or MN-major when TB = 1).
-template <int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
-                                         int scale_d,
-                                         std::integral_constant<int, 64>) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
-}
-
-template <int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
-                                         int scale_d,
-                                         std::integral_constant<int, 128>) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
-}
-
-template <int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b,
-                                         int scale_d,
-                                         std::integral_constant<int, 256>) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
-}
-
 // Load K-step `s` of the logits of rows [r0, +128) of R against rows [j0,
 // +64) of Q into ring buffer `buf`: one box of each, K-major. Called by
 // thread 0.
@@ -628,14 +460,6 @@ __device__ __forceinline__ void logits_tile(float (&sc)[32], BwdPipe& pipe,
   }
   wg_wait<0>();
   fence_regs(sc);
-}
-
-// Byte offset of element (r, c) of a K-major, 128-byte-swizzled bf16 tile
-// with 64 columns: rows of 128 bytes in 1 KB atoms of 8 rows, 16-byte
-// chunk c / 8 of row r stored at chunk (c / 8) ^ (r % 8).
-__device__ __forceinline__ int swizzled(int r, int c) {
-  return (r / 8) * 1024 + (r % 8) * 128 + (((c / 8) ^ (r % 8)) * 16) +
-         (c % 8) * 2;
 }
 
 // Copy block `rank`'s P' tile into `dst` (16 bytes a thread a step) and
@@ -980,37 +804,14 @@ bool dims_ok(int N, int V, int C) {
 }
 
 // A 2-D TMA map of a row-major bf16 [rows, C] matrix, boxes of 64 columns
-// by `box_rows` rows with the 128-byte swizzle. cuTensorMapEncodeTiled is
-// looked up once through the runtime, so the library links no libcuda.
+// by `box_rows` rows with the 128-byte swizzle.
 cudaError_t row_major_map(CUtensorMap* map, const void* base, int rows,
                           int C, int box_rows) {
-  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                             void*, const cuuint64_t*, const cuuint64_t*,
-                             const cuuint32_t*, const cuuint32_t*,
-                             CUtensorMapInterleave, CUtensorMapSwizzle,
-                             CUtensorMapL2promotion,
-                             CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (!encode) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                              cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || !fn)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<Encode>(fn);
-  }
   const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)C * sizeof(bf16)};
   const cuuint32_t box[2] = {BK, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base,
+                           dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // One backward launch on a cluster of CL blocks (W-column slabs, G slab
@@ -1029,30 +830,10 @@ cudaError_t bwd_cluster(const void* scale, const void* h, const void* e,
   if (err != cudaSuccess) return err;
   constexpr size_t smem = bwd_smem_bytes(W);
   auto kernel = xent_bwd_cluster_kernel<DE, W, OutT>;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL, (nrows + BW_M - 1) / BW_M, G);
-  cfg.blockDim = dim3(BW_NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
-  if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(&cfg, kernel, tm_r, tm_q, (const float*)scale,
-                           (const int*)tgt, (const float*)lse, (OutT*)out, N,
-                           C, CL, gp);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return cluster_launch(kernel, dim3(CL, (nrows + BW_M - 1) / BW_M, G),
+                        dim3(BW_NT), smem, CL, stream, tm_r, tm_q,
+                        (const float*)scale, (const int*)tgt,
+                        (const float*)lse, (OutT*)out, N, C, CL, gp);
 }
 
 template <bool DE, typename OutT>

@@ -22,16 +22,30 @@
 //   the tensor-core loops step D in 16s, so every multiple of 16 fits.
 //
 // K2 paged_decode replaces the Pallas kernel `_decode_grouped_kernel`
-//   (paged_attention.py:205, launched at :615). One query per sequence;
-//   one block per (sequence, KV head) serves that KV head's g = H / KV
-//   query heads, so each K/V row is read from device memory once for all
-//   g heads. Bound on the H100: the bytes of the live K/V rows (decode
-//   attention does 4*D FLOPs per 4*D bytes of bf16 K/V per head group --
-//   far below the ridge). Each K/V element is loaded once per block. A
-//   group wider than DEC_ROWS query heads splits across ceil(g / DEC_ROWS)
-//   blocks (a third grid axis), each reading the KV head's rows once.
-//   Split-K over the context (flash-decoding) is not done yet, so a batch
-//   of S sequences fills only S * KV * ceil(g / DEC_ROWS) blocks.
+//   (paged_attention.py:205, launched at :615). One query per sequence.
+//   Bound on the H100: the bytes of the live K/V rows. Decode attention
+//   does 4*D FLOPs per 4*D bytes of bf16 K/V per head group, far below the
+//   ridge: at Llama-2-7B's decode (64 sequences at context 576, 32 KV
+//   heads of 128) the live K/V is 0.6 GB, 0.1806 ms at 3.35 TB/s. So the
+//   design is about keeping bytes in flight on every SM, as
+//   flash-decoding: paged_decode_split_kernel takes one block of 4 warps
+//   per (sequence, KV head, chunk of <= 16 of its query heads, split of
+//   the context), so a short batch still fills the card (the split count
+//   comes from the shapes alone, `decode_plan` in paged_attention.py; no
+//   host read of seq_lens). K and V stay bf16 and stream into a ring of 3
+//   or 4 shared-memory stages by 16-byte cp.async, one block-table read
+//   per staged row, one __syncthreads a 64-key tile. Both products run on
+//   mma.sync m16n8k16: the group's query heads, padded to 16 rows, are the
+//   A fragment held in registers for the whole range, K arrives through
+//   ldmatrix as B and V through ldmatrix.trans (the padding costs tensor-
+//   core work only, which the byte bound leaves idle). Each warp takes 16
+//   keys of a tile with its own online softmax in registers; the four
+//   warps merge at the end in warp order. One split writes the bf16 output;
+//   several write fp32 partials (o, m, l), and the last split of each
+//   (sequence, KV head, head chunk) to arrive, counted by an atomic,
+//   merges them in split order (deterministic, one launch). A split wholly
+//   outside the live range skips the key loop (m = -inf, l = 0).
+//   fp32 K2 (the parity oracle) runs paged_attn_kernel on the CUDA cores.
 //
 // Both: online softmax in fp32 with the -inf guards of the Pallas kernels
 // (a row with no live key emits zeros, never NaN), K/V tiles staged in
@@ -59,20 +73,14 @@ namespace {
 constexpr int NT = 256;            // threads per block
 constexpr int PF_ROWS = 32;        // K1: queries per block
 constexpr int PF_TK = 32;          // K1: keys per tile
-constexpr int DEC_ROWS = 16;       // K2: query heads of a block
-constexpr int DEC_TK = 64;         // K2: keys per tile
+constexpr int DEC_ROWS = 16;       // K2 fp32: query heads of a block
+constexpr int DEC_TK = 64;         // K2 fp32: keys per tile
 
+// the CUDA-core kernel runs fp32 only (the parity oracle)
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -310,6 +318,42 @@ __device__ __forceinline__ uint32_t ld2(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared without waiting, or zeros when `live` is false
+// (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. Plain: lane t gets row t / 4, columns
+// 2 (t % 4), +1 of each; .trans: column t / 4, rows 2 (t % 4), +1.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
+                                        const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
+                                          const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
 // The live key range [lo, hi) of the query at chunk row c (window <= 0:
 // none); a row past the chunk or with no live key has lo == hi.
 __device__ __forceinline__ void live_range(int c, int C, int start,
@@ -493,6 +537,373 @@ paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ------------------------------------------ K2 in bf16: flash-decoding
+
+constexpr int DEC_NT = 128;        // K2 bf16: threads per block (4 warps)
+constexpr int DEC_TILE = 64;       // K2 bf16: keys per staged tile, 16 a warp
+constexpr int DEC_HEADS = 16;      // K2 bf16: query heads of a block (mma M)
+
+// stages of the K/V ring: deeper where a tile is small
+template <int D>
+__host__ __device__ constexpr int dec_stages() { return D <= 64 ? 4 : 3; }
+
+// The K/V ring [stage][K, V][DEC_TILE][D + 8] bf16; after the key loop
+// the same bytes hold the four warps' partial states (o [16][D], m [16],
+// l [16] fp32 each).
+template <int D>
+__host__ __device__ constexpr size_t dec_smem_bytes() {
+  const size_t ring = (size_t)dec_stages<D>() * 2 * DEC_TILE * (D + 8) *
+                      sizeof(__nv_bfloat16);
+  const size_t merge = (size_t)4 * DEC_HEADS * (D + 2) * sizeof(float);
+  return ring > merge ? ring : merge;
+}
+
+// After a split's block has written its partials: count it in cnt[group]
+// (one counter a (sequence, KV head, head chunk)); the last split of the
+// group to arrive merges the group's splits in split order, m = max m_i,
+// l = sum l_i e^(m_i - m), o = sum o_i e^(m_i - m) / l (an empty split,
+// m_i = -inf, adds nothing; a head with none live comes out zeros), and
+// resets the counter for the next call. Whichever block merges, the sum
+// and its bits are the same. The weights e^(m_i - m) and l of each row
+// are formed once in `wl` (shared memory, [nrows][splits + 1]). Called by
+// every thread of the block.
+__device__ __forceinline__ void dec_merge_if_last(
+    const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
+    int* __restrict__ cnt, float* wl, size_t row0, int nrows, int D,
+    int splits, size_t ml_base) {
+  __shared__ int last;
+  __threadfence();               // this split's partials, visible to all
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int group = blockIdx.z * gridDim.y + blockIdx.y;
+    last = atomicAdd(cnt + group, 1) == splits - 1;
+    if (last) cnt[group] = 0;    // every split of the group has counted
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();               // the other splits' partials, seen here
+  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
+    const float* ml = part + ml_base + (row0 + r) * splits * 2;
+    float* w = wl + r * (splits + 1);
+    float mm = -INFINITY;
+    for (int sp = 0; sp < splits; ++sp) mm = fmaxf(mm, __ldcg(ml + 2 * sp));
+    float ll = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float mi = __ldcg(ml + 2 * sp);
+      // an empty split's o was never written: weight 0, and never read
+      const float wt = mi == -INFINITY ? 0.f : expf(mi - mm);
+      ll += mi == -INFINITY ? 0.f : __ldcg(ml + 2 * sp + 1) * wt;
+      w[sp] = wt;
+    }
+    w[splits] = ll;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nrows * D; i += blockDim.x) {
+    const int r = i / D, d = i % D;
+    const float* w = wl + r * (splits + 1);
+    const float* o = part + (row0 + r) * splits * D + d;
+    float oo = 0.f;
+    for (int sp = 0; sp < splits; ++sp)
+      if (w[sp] != 0.f) oo += __ldcg(o + (size_t)sp * D) * w[sp];
+    const float ll = w[splits];
+    out[(row0 + r) * D + d] = __float2bfloat16(ll == 0.f ? 0.f : oo / ll);
+  }
+}
+
+// One block per (split blockIdx.x, KV head and head chunk blockIdx.y,
+// sequence blockIdx.z): up to 16 query heads of one KV head (the group's
+// g rows padded to 16, the mma's M) against the split's keys
+// [sp * kps, (sp + 1) * kps) intersected with the live range. The keys
+// stream in 64-key tiles through a ring of cp.async stages; warp w takes
+// keys [16 w, 16 w + 16) of each tile with its own online softmax in
+// registers, and the four warps' states merge at the end. One split: the
+// bf16 output; several: fp32 partials (o unnormalised, m, l) in `part`,
+// which the group's last split merges (dec_merge_if_last).
+template <int D>
+__global__ void __launch_bounds__(DEC_NT)
+paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k_pool,
+                          const __nv_bfloat16* __restrict__ v_pool,
+                          const int* __restrict__ tables,
+                          const int* __restrict__ start_pos,
+                          const int* __restrict__ seq_lens,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ part, int* __restrict__ cnt,
+                          int H, int KV, int maxb, int bs, float sm_scale,
+                          int window, int kps) {
+  constexpr int ST = dec_stages<D>();
+  constexpr int LD = D + 8;          // padded smem row: no bank conflicts
+  constexpr int CH = D / 8;          // 16-byte chunks of a K/V row
+  constexpr int KS = D / 16;         // k-steps of Q.K^T
+  constexpr int ND = D / 8;          // 8-wide column tiles of the output
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(dec_smem);
+
+  const int sp = blockIdx.x, splits = gridDim.x, s = blockIdx.z;
+  const int g = H / KV, hc = gridDim.y / KV;
+  const int kvh = blockIdx.y / hc, chunk = blockIdx.y % hc;
+  const int h0 = kvh * g + chunk * DEC_HEADS;
+  const int nrows = min(DEC_HEADS, g - chunk * DEC_HEADS);
+  const int KVD = KV * D;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int quad = lane / 4, qi = lane % 4;
+
+  // every head of the block shares the query position: one live range,
+  // cut to this split (never past the block table)
+  const int pos = start_pos[s];
+  const int seq_len = min(seq_lens[s], maxb * bs);
+  const int hi = max(0, min(seq_len, pos + 1));
+  const int lo = window > 0 ? min(max(0, pos - window + 1), hi) : 0;
+  const int a = max(lo, sp * kps), b = min(hi, (sp + 1) * kps);
+  const size_t row0 = (size_t)s * H + h0;     // q / out row of head h0
+  // part: o [S H][splits][D], then (m, l) [S H][splits]
+  const size_t ml_base = (size_t)gridDim.z * H * splits * D;
+
+  if (a >= b) {                      // nothing live here: an empty split
+    if (splits == 1) {               // (an idle slot): zeros
+      for (int i = tid; i < nrows * D; i += DEC_NT)
+        out[row0 * D + i] = __float2bfloat16(0.f);
+      return;
+    }
+    if (tid < nrows) {
+      float* ml = part + ml_base + ((row0 + tid) * splits + sp) * 2;
+      ml[0] = -INFINITY;
+      ml[1] = 0.f;
+    }
+    dec_merge_if_last(part, out, cnt, reinterpret_cast<float*>(dec_smem),
+                      row0, nrows, D, splits, ml_base);
+    return;
+  }
+
+  // Q as A fragments, held for the whole range (rows past the group are
+  // zeros)
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = quad + 8 * i;
+    const bool live = r < nrows;
+    const __nv_bfloat16* qr = q + (row0 + (live ? r : 0)) * D + qi * 2;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      qf[kk][i] = live ? ld2(qr + kk * 16) : 0u;
+      qf[kk][i + 2] = live ? ld2(qr + kk * 16 + 8) : 0u;
+    }
+  }
+
+  // tile t: keys [a + 64 t, +64) into stage t % ST, 16 bytes a copy; one
+  // block-table read per row a thread stages; rows past b are zeros (P is
+  // 0 there, and 0 * garbage could be NaN)
+  const int ntiles = (b - a + DEC_TILE - 1) / DEC_TILE;
+  const int* table = tables + (size_t)s * maxb;
+  auto prefetch = [&](int t) {
+    if (t < ntiles) {
+      __nv_bfloat16* ks = ring + (t % ST) * 2 * DEC_TILE * LD;
+      __nv_bfloat16* vs = ks + DEC_TILE * LD;
+      const int t0 = a + t * DEC_TILE;
+      for (int i = tid; i < DEC_TILE * CH; i += DEC_NT) {
+        const int r = i / CH, ch = i % CH, j = t0 + r;
+        const bool live = j < b;
+        size_t off = 0;
+        if (live)
+          off = ((size_t)table[j / bs] * bs + (j % bs)) * KVD +
+                (size_t)kvh * D + ch * 8;
+        cp_async16(ks + r * LD + ch * 8, k_pool + off, live);
+        cp_async16(vs + r * LD + ch * 8, v_pool + off, live);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float o[ND][4];
+#pragma unroll
+  for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};             // this thread's partial row sums
+
+#pragma unroll
+  for (int t = 0; t < ST - 1; ++t) prefetch(t);
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();                   // tile t landed; t - 1 consumed
+    prefetch(t + ST - 1);
+    const __nv_bfloat16* ks = ring + (t % ST) * 2 * DEC_TILE * LD;
+    const __nv_bfloat16* vs = ks + DEC_TILE * LD;
+    const int kw = a + t * DEC_TILE + warp * 16;   // this warp's 16 keys
+    if (kw >= b) continue;             // warp-uniform: all dead
+
+    // scores: 16 rows x 16 keys, K through ldmatrix as B (matrix i: keys
+    // +8 (i / 2), dims +8 (i % 2) of the k-step)
+    float sc[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+    const __nv_bfloat16* kb =
+        ks + (warp * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
+        ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t r4[4];
+      ldsm_x4(r4, kb + kk * 16);
+      mma_16816(sc[0], qf[kk], r4[0], r4[1]);
+      mma_16816(sc[1], qf[kk], r4[2], r4[3]);
+    }
+    // (an int8 pool would scale score column j by its K scale here, and
+    // p column j by its V scale before the cast below: the scales belong
+    // to the (token, KV head), never to the staged K/V tiles)
+    // mask, scale, row max over the quad that shares a row
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = kw + nt * 8 + qi * 2 + (e & 1);
+        const float x = j < b ? sc[nt][e] * sm_scale : -INFINITY;
+        sc[nt][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float alpha[2], m_safe[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      // a row with nothing live yet keeps m = -inf: exp through a finite
+      // stand-in so no (-inf) - (-inf) NaN appears; p and alpha come out 0
+      m_safe[i] = (m_new == -INFINITY) ? 0.f : m_new;
+      alpha[i] = expf(m[i] - m_safe[i]);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sc[nt][e] - m_safe[e / 2]);
+        sc[nt][e] = p;
+        rs[e / 2] += p;                 // the row sums before the cast
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dn][e] *= alpha[e / 2];
+    // o += P.V on p cast to bf16; V through ldmatrix.trans as B (matrix
+    // i: keys +8 (i % 2), dims +8 (i / 2))
+    const uint32_t pa[4] = {pack2(sc[0][0], sc[0][1]),
+                            pack2(sc[0][2], sc[0][3]),
+                            pack2(sc[1][0], sc[1][1]),
+                            pack2(sc[1][2], sc[1][3])};
+    const __nv_bfloat16* vb =
+        vs + (warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+        (lane >> 4) * 8;
+#pragma unroll
+    for (int dn = 0; dn < ND; dn += 2) {
+      uint32_t r4[4];
+      ldsm_x4_t(r4, vb + dn * 8);
+      mma_16816(o[dn], pa, r4[0], r4[1]);
+      mma_16816(o[dn + 1], pa, r4[2], r4[3]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                     // the ring is free for the merge
+
+  // the warps' states, then a merge in warp order
+  float* ow = reinterpret_cast<float*>(dec_smem);     // [4][16][D]
+  float* mw = ow + 4 * DEC_HEADS * D;                  // [4][16]
+  float* lw = mw + 4 * DEC_HEADS;                      // [4][16]
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = warp * DEC_HEADS + quad + 8 * i;
+    if (qi == 0) {
+      mw[r] = m[i];
+      lw[r] = l[i];
+    }
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn)
+      *reinterpret_cast<float2*>(ow + r * D + dn * 8 + qi * 2) =
+          make_float2(o[dn][2 * i], o[dn][2 * i + 1]);
+  }
+  __syncthreads();
+  for (int i = tid; i < nrows * D; i += DEC_NT) {
+    const int r = i / D, d = i % D;
+    float mm = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mm = fmaxf(mm, mw[w * DEC_HEADS + r]);
+    const float m_safe = (mm == -INFINITY) ? 0.f : mm;
+    float ll = 0.f, oo = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float wt = expf(mw[w * DEC_HEADS + r] - m_safe);  // -inf: 0
+      ll += lw[w * DEC_HEADS + r] * wt;
+      oo += ow[(w * DEC_HEADS + r) * D + d] * wt;
+    }
+    if (splits == 1) {
+      out[(row0 + r) * D + d] =
+          __float2bfloat16(ll == 0.f ? 0.f : oo / ll);   // idle rows: 0
+    } else {
+      part[((row0 + r) * splits + sp) * D + d] = oo;
+      if (d == 0) {
+        float* ml = part + ml_base + ((row0 + r) * splits + sp) * 2;
+        ml[0] = mm;
+        ml[1] = ll;
+      }
+    }
+  }
+  if (splits > 1)                // (its first barrier also ends the reads
+                                 // of the warps' states that `wl` reuses)
+    dec_merge_if_last(part, out, cnt, reinterpret_cast<float*>(dec_smem),
+                      row0, nrows, D, splits, ml_base);
+}
+
+template <int D>
+cudaError_t launch_decode_split(const void* q, const void* k_pool,
+                                const void* v_pool, const int* tables,
+                                const int* start_pos, const int* seq_lens,
+                                void* out, void* part, void* cnt, int S,
+                                int H, int KV, int maxb, int bs,
+                                float sm_scale, int window, int splits,
+                                int kps, cudaStream_t stream) {
+  // 16-byte K/V row loads, 4-byte q loads
+  if (((uintptr_t)k_pool | (uintptr_t)v_pool) % 16 || (uintptr_t)q % 4)
+    return cudaErrorMisalignedAddress;
+  const int hc = (H / KV + DEC_HEADS - 1) / DEC_HEADS;
+  // the splits must cover the table's capacity, within the grid's limits
+  // the merge's weights [16][splits + 1] fit in the block's shared memory
+  constexpr size_t smem = dec_smem_bytes<D>();
+  if (splits < 1 || kps < 1 ||
+      (size_t)DEC_HEADS * (splits + 1) * sizeof(float) > smem ||
+      (splits > 1 && (part == nullptr || cnt == nullptr)) ||
+      (long long)splits * kps < (long long)maxb * bs || S > 65535 ||
+      (long long)KV * hc > 65535)
+    return cudaErrorInvalidValue;
+  auto kern = paged_decode_split_kernel<D>;
+  // the shared memory attribute is a device's: set once per head dim and
+  // device, not every step (every launch past the table's devices)
+  constexpr int MAX_DEV = 64;
+  static bool attr_set[MAX_DEV] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEV || !attr_set[dev]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEV) attr_set[dev] = true;
+  }
+  kern<<<dim3(splits, KV * hc, S), DEC_NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_pool),
+      static_cast<const __nv_bfloat16*>(v_pool), tables, start_pos, seq_lens,
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part),
+      static_cast<int*>(cnt), H, KV, maxb, bs, sm_scale, window, kps);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k_pool, const void* v_pool,
                        const int* tables, const int* start_pos,
@@ -553,7 +964,7 @@ struct ByDim {
                          const int* sl, void* out, int S, int C, int H,
                          int KV, int maxb, int bs, float sm_scale, int window,
                          cudaStream_t st) {
-    // K1 in bf16 runs on the tensor cores; the rest on the CUDA cores
+    // K1 in bf16 runs on the tensor cores; fp32 (both) on the CUDA cores
     if constexpr (!DECODE && std::is_same<T, __nv_bfloat16>::value)
       return launch_mma<D>(q, k_pool, v_pool, t, sp, sl, out, S, C, H, KV,
                            maxb, bs, sm_scale, window, st);
@@ -564,28 +975,8 @@ struct ByDim {
   }
 };
 
-template <bool DECODE>
-int dispatch(const void* q, const void* k_pool, const void* v_pool,
-             const void* tables, const void* start_pos, const void* seq_lens,
-             void* out, int S, int C, int H, int KV, int D, int maxb, int bs,
-             float sm_scale, int window, int is_bf16, void* stream) {
-  if (S <= 0 || H <= 0 || KV <= 0 || H % KV || bs <= 0 || maxb <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (DECODE ? C != 1 : C < 1) return (int)cudaErrorInvalidValue;
-  const int* t = static_cast<const int*>(tables);
-  const int* sp = static_cast<const int*>(start_pos);
-  const int* sl = static_cast<const int*>(seq_lens);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using BF = ByDim<__nv_bfloat16, DECODE>;
-  using FP = ByDim<float, DECODE>;
-  cudaError_t err =
-      is_bf16 ? BY_HEAD_DIM(D, BF::template run, q, k_pool, v_pool, t, sp,
-                            sl, out, S, C, H, KV, maxb, bs, sm_scale, window,
-                            st)
-              : BY_HEAD_DIM(D, FP::template run, q, k_pool, v_pool, t, sp,
-                            sl, out, S, C, H, KV, maxb, bs, sm_scale, window,
-                            st);
-  return (int)err;
+bool heads_ok(int S, int H, int KV, int maxb, int bs) {
+  return S > 0 && H > 0 && KV > 0 && H % KV == 0 && bs > 0 && maxb > 0;
 }
 
 }  // namespace
@@ -600,21 +991,46 @@ int paged_prefill_launch(const void* q, const void* k_pool,
                          void* out, int S, int C, int H, int KV, int D,
                          int maxb, int bs, float sm_scale, int window,
                          int is_bf16, void* stream) {
-  return dispatch<false>(q, k_pool, v_pool, tables, start_pos, seq_lens, out,
-                         S, C, H, KV, D, maxb, bs, sm_scale, window, is_bf16,
-                         stream);
+  if (!heads_ok(S, H, KV, maxb, bs) || C < 1)
+    return (int)cudaErrorInvalidValue;
+  const int* t = static_cast<const int*>(tables);
+  const int* sp = static_cast<const int*>(start_pos);
+  const int* sl = static_cast<const int*>(seq_lens);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using BF = ByDim<__nv_bfloat16, false>;
+  using FP = ByDim<float, false>;
+  return (int)(is_bf16 ? BY_HEAD_DIM(D, BF::template run, q, k_pool, v_pool,
+                                     t, sp, sl, out, S, C, H, KV, maxb, bs,
+                                     sm_scale, window, st)
+                       : BY_HEAD_DIM(D, FP::template run, q, k_pool, v_pool,
+                                     t, sp, sl, out, S, C, H, KV, maxb, bs,
+                                     sm_scale, window, st));
 }
 
-// as above with C == 1
+// as above with C == 1. bf16 runs the split kernel on `splits` splits of
+// `kps` keys each (splits * kps >= maxb * bs; the plan of
+// ops/kernels/paged_attention.py `decode_plan`), with fp32 partials in
+// `part` [S * H * splits * (D + 2)] and zeroed int32 counters `cnt` [S *
+// KV * head chunks] (left zeroed) when splits > 1; fp32 ignores the four.
 int paged_decode_launch(const void* q, const void* k_pool,
                         const void* v_pool, const void* tables,
                         const void* start_pos, const void* seq_lens,
-                        void* out, int S, int H, int KV, int D, int maxb,
-                        int bs, float sm_scale, int window, int is_bf16,
-                        void* stream) {
-  return dispatch<true>(q, k_pool, v_pool, tables, start_pos, seq_lens, out,
-                        S, 1, H, KV, D, maxb, bs, sm_scale, window, is_bf16,
-                        stream);
+                        void* out, void* part, void* cnt, int S, int H, int KV,
+                        int D, int maxb, int bs, float sm_scale, int window,
+                        int is_bf16, int splits, int kps, void* stream) {
+  if (!heads_ok(S, H, KV, maxb, bs)) return (int)cudaErrorInvalidValue;
+  const int* t = static_cast<const int*>(tables);
+  const int* sp = static_cast<const int*>(start_pos);
+  const int* sl = static_cast<const int*>(seq_lens);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using FP = ByDim<float, true>;
+  return (int)(is_bf16
+                   ? BY_HEAD_DIM(D, launch_decode_split, q, k_pool, v_pool,
+                                 t, sp, sl, out, part, cnt, S, H, KV, maxb, bs,
+                                 sm_scale, window, splits, kps, st)
+                   : BY_HEAD_DIM(D, FP::template run, q, k_pool, v_pool, t,
+                                 sp, sl, out, S, 1, H, KV, maxb, bs,
+                                 sm_scale, window, st));
 }
 
 }  // extern "C"

@@ -7,6 +7,14 @@ CUDA kernels (``csrc/paged_attention.cu``) replace the two Pallas kernels:
 - ``paged_prefill`` (K1) for C > 1 queries per slot — replaces
   ``_paged_kernel``;
 - ``paged_decode`` (K2) for C == 1 — replaces ``_decode_grouped_kernel``.
+  In bf16 it is split-context flash-decoding: one block per (sequence, KV
+  head, chunk of <= 16 query heads, split of the context), K/V streamed
+  as bf16 by 16-byte ``cp.async``, both products on ``mma.sync``; the last
+  split of each group to finish merges the splits' fp32 partials in split
+  order.
+  :func:`decode_plan` picks the splits from the shapes alone, so a decode
+  step reads nothing back from the card. fp32 runs a CUDA-core kernel,
+  the parity oracle.
 
 Layout contract (as in the JAX package and ``kv_cache.py``): the pool is
 ``[slots, KV*D]`` flat token rows with ``slots = (num_blocks + 1) *
@@ -21,10 +29,13 @@ launch counts in :data:`LAUNCHES`.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
 import torch
+
+from ...utils.device import scratch, sm_count
 
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"paged_prefill": 0, "paged_decode": 0}
@@ -32,6 +43,45 @@ LAUNCHES: Dict[str, int] = {"paged_prefill": 0, "paged_decode": 0}
 #: head dims both kernels are instantiated for (any GQA group: K2 splits a
 #: group wider than its 16-row block across blocks)
 KERNEL_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+
+#: K2 (bf16): query heads of a block, keys of a staged tile, the fewest
+#: keys worth a split of their own, the blocks the plan aims for in SMs (a
+#: few waves), and the most splits (the merge keeps a weight a split and
+#: query head in the block's shared memory)
+DEC_HEADS, DEC_TILE, DEC_MIN_SPLIT_KEYS, DEC_WAVES = 16, 64, 128, 4
+DEC_MAX_SPLITS = 256
+#: CUDA's grid limits on the y and z axes (K2: KV heads x head chunks,
+#: sequences)
+GRID_YZ_MAX = 65535
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(S: int, KV: int, g: int, cap: int, sms: int):
+    """K2's launch plan from shapes alone (no read of ``seq_lens``, so no
+    device sync): ``(head_chunks, splits, keys_per_split)`` for ``S``
+    sequences of ``KV`` KV heads with ``g`` query heads each, over a block
+    table of ``cap = maxb * block_size`` keys, on a card of ``sms`` SMs.
+
+    A block serves up to 16 query heads of one KV head (``head_chunks``
+    per KV head). The context splits into ``splits`` ranges of
+    ``keys_per_split`` keys (a multiple of the 64-key tile; together they
+    cover ``cap``) until S x KV x head_chunks x splits reaches
+    ``DEC_WAVES`` blocks an SM, each split keeping at least
+    ``DEC_MIN_SPLIT_KEYS`` keys, and at most ``DEC_MAX_SPLITS`` splits. A
+    split past a sequence's live range skips the key loop."""
+    if min(S, KV, g, cap, sms) < 1:
+        raise ValueError(f"decode_plan({S}, {KV}, {g}, {cap}, {sms})")
+    head_chunks = -(-g // DEC_HEADS)
+    pairs = S * KV * head_chunks
+    tiles = -(-cap // DEC_TILE)
+    most = max(1, min(DEC_MAX_SPLITS,
+                      tiles // (DEC_MIN_SPLIT_KEYS // DEC_TILE)))
+    splits = max(1, min(-(-DEC_WAVES * sms // pairs), most))
+    per = -(-tiles // splits)
+    return head_chunks, -(-tiles // per), per * DEC_TILE
+
+
+_LIB = None                        # the loaded kernel library
 
 
 def reset_launch_counts() -> None:
@@ -170,18 +220,34 @@ def _run(name, q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,
             q, k_pool, v_pool, block_tables, start_pos, seq_lens,
             block_size=block_size, sm_scale=sm_scale,
             sliding_window=sliding_window, num_kv_heads=KV)
-    from . import _build
-    lib = _build.load("paged_attention")
+    global _LIB
+    if _LIB is None:
+        from . import _build
+        _LIB = _build.load("paged_attention")
+    lib = _LIB
     S, C, H, D = q.shape
+    maxb = block_tables.shape[1]
     out = torch.empty_like(q)
     window = int(sliding_window) if sliding_window is not None else 0
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    dims = [S, H, KV, D] if decode else [S, C, H, KV, D]
-    err = getattr(lib, f"{name}_launch")(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), start_pos.data_ptr(), seq_lens.data_ptr(),
-        out.data_ptr(), *dims, block_tables.shape[1], block_size,
-        float(sm_scale), window, int(q.dtype == torch.bfloat16), stream)
+    common = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+              block_tables.data_ptr(), start_pos.data_ptr(),
+              seq_lens.data_ptr(), out.data_ptr())
+    if decode:
+        hc, splits, kps = decode_plan(S, KV, H // KV, maxb * block_size,
+                                      sm_count(q.device))
+        part = cnt = 0
+        if splits > 1 and q.dtype == torch.bfloat16:
+            part, cnt = scratch(q.device, stream, S * H * splits * (D + 2),
+                                S * KV * hc)
+        err = lib.paged_decode_launch(
+            *common, part, cnt, S, H, KV, D, maxb, block_size,
+            float(sm_scale), window, int(q.dtype == torch.bfloat16), splits,
+            kps, stream)
+    else:
+        err = lib.paged_prefill_launch(
+            *common, S, C, H, KV, D, maxb, block_size, float(sm_scale),
+            window, int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: cudaError {err}")
     LAUNCHES[name] += 1

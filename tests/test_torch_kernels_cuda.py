@@ -210,11 +210,18 @@ def test_quantize_kernels_match_plain_on_card(symmetric, bits):
     (64, 512, 11008),     # N/4 = 2752 (Llama-2-7B's gate/up)
     (333, 1000, 1040),    # K % 32 != 0, N/4 = 260 (plain loads, ragged)
     (40, 100, 40),        # no 16-byte chunks at all
+    # Llama-2-7B's down and gate/up at both routes (fp6_plan): the decode
+    # route's one and two row tiles, the threshold, the ragged K split of
+    # K = 11008 and J = 2752's ragged column tile, the prefill route with
+    # its K split (M = 129, 384: a ragged second row tile) and without
+    *[(M, K, N) for K, N in ((11008, 4096), (4096, 11008))
+      for M in (16, 64, 65, 128, 129, 384, 4096)],
 ])
 def test_fp6_kernel_matches_plain_on_card(M, K, N):
     """fp6_matmul against its plain version on the card: bf16 on the
     tensor cores (``_close_bf16``), fp32 on the CUDA-core kernel within
-    1e-5 of the plain output's norm (TF32 off)."""
+    1e-5 of the plain output's norm (TF32 off); a second call gives the
+    same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from deepspeed_tpu_torch.ops.kernels import fp6_gemm as f6
@@ -231,6 +238,7 @@ def test_fp6_kernel_matches_plain_on_card(M, K, N):
         ref = f6.fp6_matmul_plain(xx, fw)
         torch.cuda.synchronize()
         assert f6.LAUNCHES["fp6_matmul"] == 1
+        assert torch.equal(got, f6.fp6_matmul(xx, fw)), (M, K, N, dt)
         assert got.dtype == dt and got.shape == (M, N)
         if dt is torch.bfloat16:
             assert _close_bf16(got, ref), (M, K, N)
@@ -571,3 +579,108 @@ def test_flash_kernels_c1_match_plain_on_card(dtype, D):
         err = diff.abs().max().item()
         rel = (diff.norm() / r.float().norm()).item()
         assert err <= tol and rel <= rel_tol, (dtype, D, name, err, rel)
+
+
+# ------------------------------------------ K2 as split-context decoding
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D,bs,maxb,window", [
+    (32, 4, 64, 64, 128, None),       # TinyLlama's heads (GQA 8), paged
+    (32, 4, 64, 8192, 1, None),       # the linear layout
+    (32, 4, 64, 64, 128, 700),        # a window edge inside a split
+    (32, 1, 64, 64, 128, None),       # GQA 32: two head chunks
+    (32, 32, 128, 8192, 1, 1000),     # Llama-2-7B's heads, linear, window
+    (32, 4, 128, 64, 128, None),      # GQA 8 at D = 128
+    (32, 1, 128, 64, 128, 700),       # GQA 32 at D = 128, window
+])
+def test_paged_decode_splits_match_plain_on_card(H, KV, D, bs, maxb,
+                                                 window):
+    """K2 over contexts of 1, 63, 64, 65, 2048 and 8192 keys in one call
+    (ragged seq_lens, an idle slot, a sequence ending inside a split),
+    split as ``decode_plan`` splits an 8192-key table, against the plain
+    version: bf16 within 8e-3 max-abs (1.6e-2 at D = 128) and 2**-8 of the
+    plain output's norm, fp32 within 1e-4. The idle slot is zeros, two
+    calls give the same bits, and each call counts one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(H * KV + D + (window or 0))
+    lens = np.array([1, 63, 64, 65, 2048, 8192, 0, 3000], np.int32)
+    S = len(lens)
+    nb = S * maxb
+    kp, vp = _pool(rng, nb, bs, KV, D)
+    tables = rng.permutation(nb).astype(np.int32).reshape(S, maxb)
+    start = np.maximum(lens - 1, 0).astype(np.int32)
+    q = rng.standard_normal((S, 1, H, D)).astype(np.float32)
+    _, splits, _ = port.decode_plan(S, KV, H // KV, maxb * bs,
+                                    port.sm_count(torch.device("cuda")))
+    assert splits > 1
+    kw = dict(block_size=bs, sm_scale=D ** -0.5, sliding_window=window,
+              num_kv_heads=KV)
+    for dt, tol, rel_tol in ((torch.float32, 1e-4, 1.0),
+                             (torch.bfloat16, 8e-3 if D <= 64 else 1.6e-2,
+                              2.0 ** -8)):
+        args = [torch.from_numpy(a).cuda() for a in
+                (q, kp, vp, tables, start, lens)]
+        args[:3] = [a.to(dt) for a in args[:3]]
+        port.reset_launch_counts()
+        got = port.paged_decode(*args, **kw)
+        again = port.paged_decode(*args, **kw)
+        torch.cuda.synchronize()
+        assert port.LAUNCHES["paged_decode"] == 2, port.LAUNCHES
+        assert torch.equal(got, again), dt
+        ref = port.paged_attention_plain(*(a.cpu() for a in args), **kw)
+        diff = got.float().cpu() - ref.float()
+        err = diff.abs().max().item()
+        rel = (diff.norm() / ref.float().norm()).item()
+        assert err <= tol and rel <= rel_tol, (dt, err, rel)
+        assert not got[6].any(), "idle slot must emit zeros"
+
+
+@pytest.mark.cuda
+def test_kernels_run_on_a_second_card():
+    """K2 split over its context and the fp6 GEMM's wgmma kernel (over 48
+    KB of dynamic shared memory; a K split on a cooperative launch, one
+    and two row tiles) on cuda:0, then cuda:1, in one process: the shared
+    memory attribute and the occupancy belong to a device, so the second
+    card must get its own. Each against its plain version, bf16 within
+    the limits above."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from deepspeed_tpu_torch.ops.kernels import fp6_gemm as f6
+    rng = np.random.default_rng(11)
+    S, H, KV, D, bs, maxb = 4, 8, 2, 128, 64, 32
+    lens = np.array([1, 700, 2048, 0], np.int32)
+    kp, vp = _pool(rng, S * maxb, bs, KV, D)
+    tables = rng.permutation(S * maxb).astype(np.int32).reshape(S, maxb)
+    start = np.maximum(lens - 1, 0).astype(np.int32)
+    q = rng.standard_normal((S, 1, H, D)).astype(np.float32)
+    K, N = 2048, 1024
+    w = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K)).astype(
+        np.float32))
+    x = torch.from_numpy(rng.standard_normal((256, K)).astype(np.float32))
+    kw = dict(block_size=bs, sm_scale=D ** -0.5, sliding_window=None,
+              num_kv_heads=KV)
+    for dev in ("cuda:0", "cuda:1"):
+        with torch.cuda.device(dev):
+            args = [torch.from_numpy(a).to(dev) for a in
+                    (q, kp, vp, tables, start, lens)]
+            args[:3] = [a.to(torch.bfloat16) for a in args[:3]]
+            _, splits, _ = port.decode_plan(S, KV, H // KV, maxb * bs,
+                                            port.sm_count(args[0].device))
+            assert splits > 1
+            got = port.paged_decode(*args, **kw)
+            ref = port.paged_attention_plain(*args, **kw)
+            diff = got.float() - ref.float()
+            assert diff.abs().max().item() <= 1.6e-2, dev
+            assert (diff.norm() / ref.float().norm()).item() <= 2.0 ** -8
+            assert not got[3].any(), dev
+            fw = f6.fp6_gemm_pack(w.to(dev))
+            for M in (64, 128, 256):
+                xx = x[:M].to(dev).to(torch.bfloat16)
+                plan = f6.fp6_plan(M, K, N // 4, port.sm_count(xx.device))
+                assert plan.route != "mma" and plan.ks > 1, plan
+                got = f6.fp6_matmul(xx, fw)
+                assert _close_bf16(got, f6.fp6_matmul_plain(xx, fw)), \
+                    (dev, M)
+            torch.cuda.synchronize()
