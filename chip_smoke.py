@@ -39,12 +39,16 @@ Phases, in order; any failure exits non-zero before the final line:
 
 6. flash parity — the three flash-attention kernels (forward, dQ, dK/dV)
              against their plain PyTorch versions from the same inputs and
-             the same dO: T=200 (not a multiple of the 64-row tile),
-             Tq=128 against Tk=384 (the causal offset), GQA 8 -> 2 heads,
-             non-causal, head_dim 128, and the slice shape B=4, T=2048,
-             H=32, D=64. bf16 within 1.6e-2 max-abs and 2**-8 of the
-             plain output's norm (only bf16 reaches the tensor-core
-             kernels), fp32 (the CUDA-core parity kernels) within 1e-5.
+             the same dO, each kernel launched once a case: T=200 (not a
+             multiple of the tiles), Tq=128 against Tk=384 (the causal
+             offset), GQA 8 -> 2 heads, non-causal, Tq=300 against Tk=200
+             with GQA 4 (100 rows with no live key: O = 0 and lse = -inf
+             exactly), head_dim 128, the slice shape B=4, T=2048, H=32,
+             D=64, and the gpt1p3b heads. bf16 within 1.6e-2 max-abs and
+             2**-8 of the plain output's norm, fp16 within 4e-3 and 2**-8
+             (both reach the tensor-core kernels: the forward's wgmma one
+             at these head dims), fp32 (the CUDA-core parity kernels)
+             within 1e-5.
 7. training — GPT-2-1.3B (``GPT2Config.xl_1p3b``: 24 layers, hidden
              2048, 32 heads, vocab 50257) at full width and depth, seq
              2048, bf16 compute with fp32 master params, seeded weights
@@ -59,13 +63,17 @@ Phases, in order; any failure exits non-zero before the final line:
              versions' (swapped in for this comparison only), bf16 within
              1e-4 relative, fp32 with TF32 off within 1e-6 relative
              (about ten times the first readings, 1.1e-5 and 8.4e-8).
-9. flash timing — each flash kernel at the slice shape (CUDA events),
-             its plain version, ``F.scaled_dot_product_attention`` (causal)
-             forward and backward on the same q/k/v as a yardstick, and
-             the bound.
+9. flash timing — each flash kernel at the slice shape (CUDA events, and
+             in a CUDA graph), its plain version,
+             ``F.scaled_dot_product_attention`` (causal) forward (events
+             and graph) and backward on the same q/k/v as a yardstick,
+             the bound and the graph time's share of it; the forward also
+             at the gpt1p3b heads (B=2, T=2048, H=16, D=128) beside SDPA,
+             its plain version and its bound.
 10. xent parity — the three fused-xent kernels against their plain
              versions from the same inputs (the backward from the plain
-             forward's lse): bf16 and fp32 (the CUDA-core kernels), V =
+             forward's lse), each launched once a case: bf16 and fp32
+             (the CUDA-core kernels), V =
              50304 and 50257, N = 1000 (not a multiple of the 64-token
              tile) with ignore ids (-100) and an id >= V, z-loss 1e-4 and
              label smoothing 0.1, and the slice shape N = 4096 in bf16.
@@ -91,10 +99,13 @@ Phases, in order; any failure exits non-zero before the final line:
              relative, fp32 (params, compute, moments) with TF32 off
              within 1e-6.
 13. xent timing — each xent kernel at the slice shape (N = 4096, V =
-             50304, C = 2048, bf16), its plain version, its bound, and two
-             library calls on the same h, E and t: ``F.linear`` +
-             ``F.cross_entropy(reduction="sum")`` forward, and its backward
-             (dh and dE together); the peak memory of a lone
+             50304, C = 2048, bf16; the forward's ``fwd_plan`` printed), by
+             CUDA events and in a CUDA graph, its plain version, its bound
+             and the graph time's share of it, and two library calls on
+             the same h, E and t: ``F.linear`` +
+             ``F.cross_entropy(reduction="sum")`` forward (events and
+             graph), and its backward (dh and dE together); the peak
+             memory of a lone
              ``fused_lm_xent`` forward and backward, which must stay below
              one bf16 [N, V] tensor.
 14. woq parity — both group-quantization kernels against their plain
@@ -812,20 +823,36 @@ def phase_flash_parity(torch):
         (2, 200, 200, 4, 4, 64, True),
         (2, 128, 384, 8, 2, 64, True),
         (2, 200, 200, 8, 2, 64, False),
+        (1, 300, 200, 4, 1, 64, True),      # 100 rows with no live key
         (1, 256, 256, 2, 2, 128, True),
+        (1, 300, 200, 4, 1, 128, True),
         (TRAIN_MB, TRAIN_T, TRAIN_T, 32, 32, 64, True),   # the slice shape
         (BENCH_MB, BENCH_T, BENCH_T, 16, 16, 128, True),  # gpt1p3b's heads
     ]
     for B, Tq, Tk, Hh, Hk, Dh, causal in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             if dtype is torch.float32 and Tq == TRAIN_T:
                 continue          # the CUDA-core oracle is slow at 2048
+            if dtype is torch.float16 and Tq == TRAIN_T and Dh == 64:
+                continue          # fp16 at 2048 once, at D = 128
             q, k, v, do = flash_inputs(torch, B=B, Tq=Tq, Tk=Tk, H=Hh,
                                        Hk=Hk, D=Dh, dtype=dtype, seed=Tq)
             kw = dict(causal=causal, sm_scale=Dh ** -0.5)
+            fa.reset_launch_counts()
             got = flash_all(fa, q, k, v, do, plain=False, **kw)
+            if fa.LAUNCHES != {"flash_fwd": 1, "flash_bwd_dq": 1,
+                               "flash_bwd_dkv": 1}:
+                raise AssertionError(f"flash parity launches {fa.LAUNCHES}")
             ref = flash_all(fa, q, k, v, do, plain=True, **kw)
             torch.cuda.synchronize()
+            # rows with no live key: lse = -inf in both, O = 0 exactly
+            dead = ~torch.isfinite(ref[1])
+            if not torch.equal(dead, ~torch.isfinite(got[1])) or (
+                    dead.any() and (got[0][dead] != 0).any()):
+                raise AssertionError(f"flash_fwd B{B} Tq{Tq} Tk{Tk}: rows "
+                                     f"with no live key not O = 0, -inf")
+            got[1] = got[1].masked_fill(dead, 0.0)
+            ref[1] = ref[1].masked_fill(dead, 0.0)
             for (name, out), g_, r_ in zip(FLASH_OUTPUTS, got, ref):
                 if not torch.isfinite(g_.float()).all():
                     raise AssertionError(f"{name} {out}: non-finite output")
@@ -1004,17 +1031,40 @@ def phase_training_parity(torch):
     return out
 
 
+def _flash_qkv(torch, B, T, Hh, Dh, seed):
+    """q, k, v as strided [B, H, T, D] views of one [B, T, 3 H D] qkv
+    buffer, as the model slices its projection."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(B, T, 3 * Hh * Dh, generator=g, device="cuda").to(
+        torch.bfloat16)
+    return [t.unflatten(-1, (Hh, Dh)).transpose(1, 2)
+            for t in qkv.split(Hh * Dh, dim=-1)]
+
+
+def _flash_bound(B, T, Hh, Dh, products, n_bf16, n_rows):
+    """(bound ms, bound_by, bytes, flops) of a causal flash kernel doing
+    ``products`` matrix products a live (query, key) pair, reading and
+    writing ``n_bf16`` [B, H, T, D] bf16 tensors and ``n_rows`` fp32
+    [B, H, T] rows."""
+    pairs = B * Hh * T * (T + 1) // 2
+    flops = 2 * Dh * products * pairs
+    nbytes = n_bf16 * B * Hh * T * Dh * 2 + n_rows * B * Hh * T * 4
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", nbytes, flops)
+
+
 def phase_flash_timing(torch, train, worst):
     """Each flash kernel at the slice shape (B=4, T=2048, H=32, D=64, bf16,
-    causal), q/k/v strided views of one qkv buffer as in the model."""
+    causal), q/k/v strided views of one qkv buffer as in the model, by
+    CUDA events and in a CUDA graph; the forward also at the gpt1p3b
+    shape (B=2, T=2048, H=16, D=128), beside SDPA and its bound."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
     B, T, Hh, Dh = TRAIN_MB, TRAIN_T, 32, 64
-    g = torch.Generator(device="cuda").manual_seed(5)
-    qkv = torch.randn(B, T, 3 * Hh * Dh, generator=g, device="cuda").to(
-        torch.bfloat16)
-    q, k, v = (t.unflatten(-1, (Hh, Dh)).transpose(1, 2)
-               for t in qkv.split(Hh * Dh, dim=-1))
+    q, k, v = _flash_qkv(torch, B, T, Hh, Dh, 5)
+    g = torch.Generator(device="cuda").manual_seed(6)
     do = torch.randn(B, T, Hh, Dh, generator=g, device="cuda").to(
         torch.bfloat16).transpose(1, 2)
     kw = dict(causal=True, sm_scale=Dh ** -0.5)
@@ -1033,41 +1083,67 @@ def phase_flash_timing(torch, train, worst):
     # the library yardstick on the same q/k/v: SDPA forward, and its
     # backward (one call computing dQ, dK and dV together)
     qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa_fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), 20)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True)
+    sdpa_fwd = _time_ms(torch, sdpa, 20)
+    sdpa_fwd_graph = _graph_ms(torch, [sdpa])
     so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
     sdpa_bwd = _time_ms(torch, lambda: torch.autograd.grad(
         so, (qs, ks, vs), do, retain_graph=True), 20)
-    pairs = B * Hh * T * (T + 1) // 2
-    el = B * Hh * T * Dh                  # elements of one [B, H, T, D]
     work = {  # (matrix products per (query, key) pair, tensors in/out)
         "flash_fwd": (2, 4, 1), "flash_bwd_dq": (3, 5, 2),
         "flash_bwd_dkv": (4, 6, 2)}
     rows = []
     for name, (kern, plain) in calls.items():
         ms = _time_ms(torch, kern, 20)
+        graph = _graph_ms(torch, [kern])
         plain_ms = _time_ms(torch, plain, 3)
-        mm, n_bf16, n_rows = work[name]
-        flops = 2 * Dh * mm * pairs
-        nbytes = n_bf16 * el * 2 + n_rows * B * Hh * T * 4
-        t_ops = flops / BF16_FLOPS_PER_S * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound, by, nbytes, flops = _flash_bound(B, T, Hh, Dh, *work[name])
         rows.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": REPLACES[name], "launches": train["launches"][name],
             "launches_per_step": train["launches"][name] // TRAIN_STEPS,
             "steps": TRAIN_STEPS, "max_abs_err": worst[name],
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ms": ms, "graph_ms": graph, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "bound_share": bound / graph,
             "library_ms": sdpa_fwd if name == "flash_fwd" else None,
             "sdpa_bwd_ms": sdpa_bwd,
             "shape": {"B": B, "T": T, "H": Hh, "D": Dh, "dtype": "bf16",
                       "causal": True},
             "bytes": nbytes, "flops": flops})
-        log(f"[flash timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, "
-            f"bound {max(t_ops, t_bytes):.4f} by {rows[-1]['bound_by']}; "
-            f"sdpa fwd {sdpa_fwd:.4f}, sdpa bwd {sdpa_bwd:.4f})")
+        log(f"[flash timing] {name}: {ms:.4f} ms (graph {graph:.4f}, "
+            f"plain {plain_ms:.4f}, bound {bound:.4f} by {by}, "
+            f"{bound / graph:.1%} of it; sdpa fwd {sdpa_fwd:.4f} "
+            f"(graph {sdpa_fwd_graph:.4f}), sdpa bwd {sdpa_bwd:.4f})")
+    rows[0]["library_graph_ms"] = sdpa_fwd_graph
+    # the forward at the gpt1p3b heads (16 of 128)
+    B2, H2, D2 = BENCH_MB, 16, 128
+    q2, k2, v2 = _flash_qkv(torch, B2, T, H2, D2, 7)
+    kw2 = dict(causal=True, sm_scale=D2 ** -0.5)
+    kern2 = lambda: fa.flash_fwd(q2, k2, v2, **kw2)  # noqa: E731
+    sdpa2 = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q2, k2, v2, is_causal=True)
+    err2 = check_close(torch, f"[flash timing] flash_fwd o B{B2} T{T} "
+                       f"H{H2} D{D2}", kern2()[0],
+                       fa.flash_fwd_plain(q2, k2, v2, **kw2)[0],
+                       bf16_max_abs=FLASH_BF16_MAX_ABS)
+    bound2, by2, _, _ = _flash_bound(B2, T, H2, D2, 2, 4, 1)
+    d128 = {"shape": {"B": B2, "T": T, "H": H2, "D": D2, "dtype": "bf16",
+                      "causal": True},
+            "ms": _time_ms(torch, kern2, 20),
+            "graph_ms": _graph_ms(torch, [kern2]),
+            "plain_ms": _time_ms(torch, lambda: fa.flash_fwd_plain(
+                q2, k2, v2, **kw2), 3),
+            "library_ms": _time_ms(torch, sdpa2, 20),
+            "library_graph_ms": _graph_ms(torch, [sdpa2]),
+            "bound_ms": bound2, "bound_by": by2, "max_abs_err": err2}
+    d128["bound_share"] = bound2 / d128["graph_ms"]
+    rows[0]["d128"] = d128
+    log(f"[flash timing] flash_fwd at B{B2} T{T} H{H2} D{D2}: "
+        f"{d128['ms']:.4f} ms (graph {d128['graph_ms']:.4f}, plain "
+        f"{d128['plain_ms']:.4f}, bound {bound2:.4f} by {by2}, "
+        f"{d128['bound_share']:.1%} of it; sdpa {d128['library_ms']:.4f}, "
+        f"graph {d128['library_graph_ms']:.4f})")
     return rows
 
 
@@ -1129,7 +1205,10 @@ def phase_xent_parity(torch):
                                   bad_ids=N != XENT_N)
             scale = torch.tensor([1.0 / N], device="cuda")
             kw = dict(ignore=ignore, z=z, eps=eps)
+            fx.reset_launch_counts()
             got = xent_all(fx, h, e, t, scale, plain=False, **kw)
+            if any(v != 1 for v in fx.LAUNCHES.values()):
+                raise AssertionError(f"xent parity launches {fx.LAUNCHES}")
             ref = xent_all(fx, h, e, t, scale, plain=True, **kw)
             torch.cuda.synchronize()
             for i, ((name, out), g_, r_) in enumerate(zip(XENT_OUTPUTS, got,
@@ -1389,8 +1468,10 @@ def phase_xent_timing(torch, bench, worst):
     # the library pair on the same h, E, t: bf16 logits, then the loss
     hs, es = (x.detach().requires_grad_() for x in (h, e))
     tl = t.long()
-    lib_fwd = _time_ms(torch, lambda: F.cross_entropy(
-        F.linear(h, e), tl, reduction="sum"), 20)
+    lib = lambda: F.cross_entropy(F.linear(h, e), tl,  # noqa: E731
+                                  reduction="sum")
+    lib_fwd = _time_ms(torch, lib, 20)
+    lib_fwd_graph = _graph_ms(torch, [lib], reps=10)
     loss = F.cross_entropy(F.linear(hs, es), tl, reduction="sum")
     lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(
         loss, (hs, es), retain_graph=True), 20)
@@ -1417,9 +1498,13 @@ def phase_xent_timing(torch, bench, worst):
         "xent_fwd": (1, in_bytes + 3 * N * 4),
         "xent_bwd_dh": (2, in_bytes + N * 4 + N * C * 2),
         "xent_bwd_de": (2, in_bytes + N * 4 + V * C * 2)}
+    splits = fx.fwd_plan(N, V, C, sm_count(h.device))
+    log(f"[xent timing] xent_fwd plan: {splits} vocabulary splits of "
+        f"256-row tiles, {-(-N // fx.FWD_TOKENS) * splits} blocks")
     rows = []
     for name, (kern, plain) in calls.items():
         ms = _time_ms(torch, kern, 20)
+        graph = _graph_ms(torch, [kern], reps=10)
         plain_ms = _time_ms(torch, plain, 3)
         n_mm, nbytes = work[name]
         flops = n_mm * mm
@@ -1431,7 +1516,7 @@ def phase_xent_timing(torch, bench, worst):
             "replaces": REPLACES[name], "launches": launches,
             "launches_per_step": launches // TRAIN_STEPS,
             "steps": TRAIN_STEPS, "max_abs_err": worst[name],
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "graph_ms": graph, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": {"xent_fwd": lib_fwd,
@@ -1442,17 +1527,21 @@ def phase_xent_timing(torch, bench, worst):
             "lone_call_peak_bytes": lone_peak,
             "shape": {"N": N, "V": V, "C": C, "dtype": "bf16"},
             "bytes": nbytes, "flops": flops})
-        rows[-1]["bound_share"] = rows[-1]["bound_ms"] / ms
-        if name != "xent_fwd":
+        rows[-1]["bound_share"] = rows[-1]["bound_ms"] / graph
+        if name == "xent_fwd":
+            rows[-1]["plan"] = {"splits": splits}
+            rows[-1]["library_graph_ms"] = lib_fwd_graph
+        else:
             CL, W, G = fx.bwd_plan(C)
             rows[-1]["plan"] = {"cluster": CL, "slab_width": W,
                                 "slab_groups": G}
             log(f"[xent timing] {name}: cluster {CL} x slab {W} x {G} "
                 f"group(s)")
-        log(f"[xent timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, "
-            f"bound {max(t_ops, t_bytes):.4f} by {rows[-1]['bound_by']}, "
-            f"{rows[-1]['bound_share']:.1%} of it; library forward "
-            f"{lib_fwd:.4f}, backward {lib_bwd:.4f})")
+        log(f"[xent timing] {name}: {ms:.4f} ms (graph {graph:.4f}, plain "
+            f"{plain_ms:.4f}, bound {max(t_ops, t_bytes):.4f} by "
+            f"{rows[-1]['bound_by']}, {rows[-1]['bound_share']:.1%} of it; "
+            f"library forward {lib_fwd:.4f} (graph {lib_fwd_graph:.4f}), "
+            f"backward {lib_bwd:.4f})")
     del h, e, t
     torch.cuda.empty_cache()
     return rows

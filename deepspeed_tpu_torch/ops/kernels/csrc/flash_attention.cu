@@ -15,23 +15,36 @@
 // Bound on the H100: at the training shape (T = 2048, D = 64, causal) the
 // three are FLOP-bound -- 2, 3 and 4 matrix products per (query, key) tile
 // against O(T * D) bytes per row -- so bf16 and fp16 run on the tensor
-// cores: mma.sync m16n8k16 (bf16 or fp16 in, fp32 accumulate; the kernels
-// are templated on the element type T), one block of 4 warps, each
-// warp owning 16 rows of the block's 64-row tile, with the scores,
-// probabilities and accumulators kept in registers and the streamed 64-row
-// tiles of the other operand double-buffered in shared memory (cp.async:
-// the next tile's copy runs under this tile's products) and read as mma
-// fragments with ldmatrix. The score accumulators re-pack as the A
-// fragments of the next product without a trip through shared memory.
-// Fully masked key tiles above the causal diagonal are never read;
-// exponentials use the fast ex2-based __expf. Not done yet (what holds
-// them back): mma.sync instead of wgmma, no TMA, 64-row tiles with 4
-// warps, no persistent scheduling over the causal triangle's uneven work,
-// and the dkv block (at the register limit) re-reads Q and dO from device
-// memory for each of its key tiles.
+// cores.
+//
+// The forward at D = 64 and 128 (the training paths' head dims) is built
+// for Hopper (flash_fwd_wgmma_kernel, hopper.cuh): a persistent block an
+// SM walks work items of 192 (D = 64) or 128 (D = 128) query rows, 64 a
+// consumer warpgroup, both products on wgmma (Q K^T from shared memory,
+// P V with P in registers), K/V tiles of 128 keys by TMA in rings on
+// mbarriers filled by a producer warp, the consumers taking turns on the
+// tensor cores, the causal triangle's items dealt heaviest first. D = 16
+// and 32 (GPT2Config.tiny, untimed) keep the mma.sync forward.
+//
+// The backward pair, and the forward at D = 16 and 32: mma.sync m16n8k16
+// (bf16 or fp16 in, fp32 accumulate; the kernels are templated on the
+// element type T), one block of 4 warps, each warp owning 16 rows of the
+// block's 64-row tile, with the scores, probabilities and accumulators
+// kept in registers and the streamed 64-row tiles of the other operand
+// double-buffered in shared memory (cp.async: the next tile's copy runs
+// under this tile's products) and read as mma fragments with ldmatrix. The
+// score accumulators re-pack as the A fragments of the next product
+// without a trip through shared memory. Fully masked key tiles above the
+// causal diagonal are never read; exponentials use the fast ex2-based
+// __expf. Not done yet in the pair (what holds it back): mma.sync instead
+// of wgmma, no TMA, 64-row tiles with 4 warps, no scheduling over the
+// causal triangle's uneven work, and the dkv block (at the register
+// limit) re-reads Q and dO from device memory for each of its key tiles.
 //
 // Head dims 16, 32, 64 and 128 are instantiated (the GPT-2 configs' 16 and
-// 64, the bench's 128), for fp32, bf16 and fp16.
+// 64, the bench's 128), for fp32, bf16 and fp16. The wgmma forward takes
+// q/k/v whose base addresses and strides (those of dims longer than 1)
+// are 16-byte multiples, as TMA needs; the wrapper raises for others.
 //
 // Numerics follow the Pallas kernels: scores in fp32 scaled after the
 // product; P cast to V's dtype before P.V with the row sums taken before
@@ -55,6 +68,7 @@
 // cudaGetLastError().
 
 #include "flash_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -190,6 +204,424 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
           li == 0.f ? -INFINITY : m[i] + logf(li);
   }
   store_rows<D>(o + b * so.b + h * so.h, so.t, acc, row, Tq, inv, qi);
+}
+
+// ------------------------------------------------ forward, D = 64 and 128
+//
+// A block owns 64 NC query rows of a work item (one (batch, head, query
+// tile)): warpgroup 0 is the producer (one thread issues TMA boxes after
+// the warpgroup gives back its registers), warpgroups 1..NC the consumers,
+// 64 rows each. K and V tiles of 128 keys arrive in two rings of
+// ws_stages buffers, each buffer on a `full` barrier (TMA's bytes landed)
+// and an `empty` one (every consumer done with it); K runs one tile ahead
+// of V, and a K buffer is freed as soon as its scores are computed. Q is
+// double-buffered across work items. Every box is [rows x 64 columns]
+// with the 128-byte swizzle (a D = 128 row spans two boxes), read by a 4-D
+// tensor map over (d, time, head, batch) with the caller's strides, so
+// strided BTHD views need no copy and rows past the sequence arrive as
+// zeros.
+//
+// A consumer warpgroup runs S = Q K^T on m64n128k16 wgmma from shared
+// memory (both K-major), the online softmax on the fp32 accumulators in
+// registers, and O += P V on m64nDk16 wgmma with P as register A fragments
+// (the probabilities cast to the element type and packed in pairs) and V
+// MN-major from shared memory. Two overlaps hide the softmax: within a
+// warpgroup, S_t is issued together with P V_{t-1} and its softmax runs
+// while P V_{t-1} is on the tensor cores; across warpgroups, the consumers
+// take turns to issue their products (named barriers), so one issues
+// while the others run their softmax rather than all in step (they read
+// the same K/V tiles). Tiles wholly below the causal diagonal skip the
+// mask; tiles wholly above it are never loaded.
+//
+// The grid is persistent, one block an SM: the work items, heaviest first
+// (every (batch, head)'s last query tile, then the tiles before, heads of
+// a GQA group side by side), are dealt to the blocks in rounds that
+// alternate direction, so the causal triangle's long and short items pair
+// up; the producer loads the next item's Q and first tiles while the
+// consumers finish this one. `flash_attention.fwd_schedule` states the
+// deal.
+
+constexpr int WS_K = 128;            // keys of a K/V tile
+
+// consumer warpgroups (64 query rows each) and ring depth by head dim
+template <int D>
+__host__ __device__ constexpr int ws_consumers() {
+  return D == 64 ? 3 : 2;
+}
+template <int D>
+__host__ __device__ constexpr int ws_stages() {
+  return D == 64 ? 3 : 2;
+}
+template <int D>
+__host__ __device__ constexpr int ws_threads() {
+  return 128 * (1 + ws_consumers<D>());
+}
+template <int D>
+__host__ __device__ constexpr size_t ws_smem_bytes() {
+  return (size_t)(2 * 64 * ws_consumers<D>() * D +
+                  ws_stages<D>() * 2 * WS_K * D) * 2 +
+         (4 + 4 * ws_stages<D>()) * sizeof(uint64_t);
+}
+
+// Softmax of one [64 x 128] score tile in place (this thread's two rows,
+// 32 columns each) at keys [k0, +128): scale, the mask (MASK: key j of row
+// i is live iff j < lim[i]), the running max m and sum l (this thread's
+// columns), the probabilities left in sc, and alpha, the factor that
+// rescales O to the new max. POS: scale > 0, so the row max of the scaled
+// scores is the scaled max of the raw ones and the scale folds into the
+// exponent's multiplier (one multiply an element fewer).
+template <bool MASK, bool POS>
+__device__ __forceinline__ void ws_softmax(float (&sc)[64], int k0,
+                                           const int (&lim)[2], float scale,
+                                           float (&m)[2], float (&l)[2],
+                                           float (&alpha)[2], int qi) {
+  float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      float v = POS ? sc[4 * n + x] : sc[4 * n + x] * scale;
+      if (MASK && k0 + n * 8 + qi * 2 + (x & 1) >= lim[x / 2]) v = -INFINITY;
+      sc[4 * n + x] = v;
+      mx[x / 2][x & 1] = fmaxf(mx[x / 2][x & 1], v);
+    }
+  float m_neg[2];
+  const float mul = POS ? scale * LOG2E : LOG2E;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mr = fmaxf(mx[i][0], mx[i][1]);
+    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 1));
+    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
+    if (POS) mr *= scale;
+    const float m_new = fmaxf(m[i], mr);
+    // a row with nothing live yet keeps m = -inf: exp through a finite
+    // stand-in so no (-inf) - (-inf) NaN appears; p and alpha come out 0
+    const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+    alpha[i] = ex2((m[i] - m_safe) * LOG2E);
+    m[i] = m_new;
+    m_neg[i] = -m_safe * LOG2E;
+  }
+  float rs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float p = ex2(fmaf(sc[4 * n + x], mul, m_neg[x / 2]));
+      sc[4 * n + x] = p;
+      rs[x / 2][x & 1] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    l[i] = l[i] * alpha[i] + (rs[i][0] + rs[i][1]);
+}
+
+// What one consumer warpgroup carries from tile to tile. Tiles are
+// counted over the block's whole walk (kbase: the K/V tiles of the work
+// items before this one), which picks each tile's ring buffer and phase.
+template <int D, typename T>
+struct WsState {
+  static constexpr int S = ws_stages<D>(), NC = ws_consumers<D>();
+  static constexpr int BOX = WS_K * 64, TKV = WS_K * D;   // elements
+  static constexpr int QBOX = 64 * NC * 64;
+  const T *qa, *kring, *vring;
+  uint64_t *kfull, *vfull, *kempty, *vempty;
+  int lim[2], live_all, qi, cw, kbase;
+  float scale;
+  float sc[64], acc[D / 2], m[2], l[2], alpha[2];
+  uint32_t pa[8][4];
+  bool signal;
+
+  // The consumers take turns on the tensor cores, in the order of cw
+  // (named barrier 1 + cw: its turn): one issues its products while the
+  // others run their softmax. The last consumer opens each work item's
+  // first round and passes its last turn of the item to no one, so the
+  // turns balance within the item.
+  __device__ __forceinline__ void turn() { bar_sync<256>(1 + cw); }
+  __device__ __forceinline__ void pass() {
+    bar_arrive<256>(1 + (cw + 1) % NC);
+  }
+
+  __device__ __forceinline__ void wait_k(int t) {
+    const int g = kbase + t;
+    mbar_wait(kfull + g % S, (g / S) & 1);
+  }
+  __device__ __forceinline__ void wait_v(int t) {
+    const int g = kbase + t;
+    mbar_wait(vfull + g % S, (g / S) & 1);
+  }
+  // issue S = Q K_t^T into sc, committed
+  __device__ __forceinline__ void scores(int t) {
+    const T* ks = kring + ((kbase + t) % S) * TKV;
+    fence_regs(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<0, T>(sc, wg_desc(qa + (kk / 4) * QBOX + (kk % 4) * 16, 16,
+                                 1024),
+                     wg_desc(ks + (kk / 4) * BOX + (kk % 4) * 16, 16, 1024),
+                     kk > 0, std::integral_constant<int, WS_K>());
+    wg_commit();
+  }
+  // O rescaled by the last softmax's alpha, then O += P V_t issued,
+  // committed
+  __device__ __forceinline__ void pv(int t) {
+    const T* vs = vring + ((kbase + t) % S) * TKV;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[4 * n + x] *= alpha[x / 2];
+    wait_v(t);
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < WS_K / 16; ++kk)
+      wgmma_rs<1, T>(acc, pa[kk], wg_desc(vs + kk * 16 * 64, BOX * 2, 1024),
+                     1, std::integral_constant<int, D>());
+    wg_commit();
+  }
+  __device__ __forceinline__ void softmax(int t) {
+    const int k0 = t * WS_K;
+    const bool mask = k0 + WS_K > live_all;
+    if (scale > 0.f) {
+      if (mask)
+        ws_softmax<true, true>(sc, k0, lim, scale, m, l, alpha, qi);
+      else
+        ws_softmax<false, true>(sc, k0, lim, scale, m, l, alpha, qi);
+    } else {
+      if (mask)
+        ws_softmax<true, false>(sc, k0, lim, scale, m, l, alpha, qi);
+      else
+        ws_softmax<false, false>(sc, k0, lim, scale, m, l, alpha, qi);
+    }
+  }
+  // the probabilities as T pairs in the A fragments of the P V product;
+  // the sums above were taken before this cast to V's dtype
+  __device__ __forceinline__ void pack_p() {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack2<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  }
+  __device__ __forceinline__ void free_k(int t) {
+    if (signal) mbar_arrive(kempty + (kbase + t) % S);
+  }
+  __device__ __forceinline__ void free_v(int t) {
+    if (signal) mbar_arrive(vempty + (kbase + t) % S);
+  }
+  // tile 0: S_0 and its softmax
+  __device__ __forceinline__ void first() {
+    if (cw == NC - 1) bar_arrive<256>(1);      // opens the item's round
+    wait_k(0);
+    turn();
+    scores(0);
+    pass();
+    wg_wait<0>();
+    fence_regs(sc);
+    free_k(0);
+    softmax(0);
+    pack_p();
+  }
+  // tile t (>= 1): S_t and P V_{t-1} on the tensor cores together, S_t's
+  // softmax under P V_{t-1}
+  __device__ __forceinline__ void step(int t) {
+    wait_k(t);
+    turn();
+    scores(t);
+    pv(t - 1);
+    pass();
+    wg_wait<1>();                             // S_t done
+    fence_regs(sc);
+    free_k(t);
+    softmax(t);
+    wg_wait<0>();                             // P V_{t-1} done
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+    free_v(t - 1);
+    pack_p();
+  }
+  // the last tile's P V
+  __device__ __forceinline__ void last(int t) {
+    turn();
+    pv(t);
+    if (cw != NC - 1) pass();
+    wg_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+    free_v(t);
+  }
+};
+
+// Work item `item` of the schedule: every (batch, head)'s last query tile,
+// then the tiles before, heads of one GQA group side by side.
+struct WsItem {
+  int b, h, hk, q0, ntiles;
+  __device__ __forceinline__ WsItem(int item, int rows, int B, int H, int Hk,
+                                    int Tq, int Tk, int causal) {
+    const int nqt = (Tq + rows - 1) / rows, BH = B * H;
+    const int qt = nqt - 1 - item / BH, bh = item % BH;
+    b = bh / H;
+    h = bh % H;
+    hk = h / (H / Hk);
+    q0 = qt * rows;
+    // the item's keys: those its last live row sees
+    const int kend = key_limit(min(q0 + rows, Tq) - 1, Tq, Tk, causal);
+    ntiles = (kend + WS_K - 1) / WS_K;
+  }
+};
+
+// The r-th work item of this block: rounds of gridDim.x items, dealt
+// forward in even rounds and backward in odd ones.
+__device__ __forceinline__ int ws_item(int r) {
+  return r * (int)gridDim.x +
+         (r & 1 ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(ws_threads<D>(), 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       T* __restrict__ o, float* __restrict__ lse,
+                       Strides so, int B, int H, int Hk, int Tq, int Tk,
+                       float scale, int causal) {
+  using St = WsState<D, T>;
+  constexpr int S = St::S, NC = St::NC, NB = D / 64;
+  constexpr int BOX = St::BOX, QBOX = St::QBOX, TKV = St::TKV;
+  constexpr int ROWS = 64 * NC, TQ = ROWS * D;
+  extern __shared__ __align__(1024) unsigned char ws_smem[];
+  T* qs = reinterpret_cast<T*>(ws_smem);               // [2][NB][ROWS x 64]
+  T* kring = qs + 2 * TQ;                              // [S][NB][128 x 64]
+  T* vring = kring + S * TKV;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(vring + S * TKV);
+  uint64_t* qempty = qfull + 2;
+  uint64_t* kfull = qempty + 2;
+  uint64_t* vfull = kfull + S;
+  uint64_t* kempty = vfull + S;
+  uint64_t* vempty = kempty + S;
+  const int items = ((Tq + ROWS - 1) / ROWS) * B * H;
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(qfull + i);
+      mbar_init(qempty + i, NC);
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(kfull + s);
+      mbar_init(vfull + s);
+      mbar_init(kempty + s, NC);
+      mbar_init(vempty + s, NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    set_max_regs<24, false>();
+    if (threadIdx.x != 0) return;
+    // tile g of the block's walk of K or V into its ring once the
+    // consumers freed the buffer
+    auto load = [&](const CUtensorMap* tm, T* ring, uint64_t* full,
+                    uint64_t* empty, int g, int row, int hk, int b) {
+      const int st = g % S;
+      mbar_wait(empty + st, ((g / S) & 1) ^ 1);
+      mbar_expect(full + st, TKV * sizeof(T));
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        tma_box4(ring + st * TKV + nb * BOX, tm, nb * 64, row, hk, b,
+                 full + st);
+    };
+    int kbase = 0, qn = 0;
+    for (int r = 0; r * (int)gridDim.x < items; ++r) {
+      if (ws_item(r) >= items) continue;
+      const WsItem it(ws_item(r), ROWS, B, H, Hk, Tq, Tk, causal);
+      if (it.ntiles == 0) continue;
+      const int qb = qn & 1;
+      mbar_wait(qempty + qb, ((qn >> 1) & 1) ^ 1);
+      mbar_expect(qfull + qb, TQ * sizeof(T));
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        tma_box4(qs + qb * TQ + nb * QBOX, &tm_q, nb * 64, it.q0, it.h, it.b,
+                 qfull + qb);
+      load(&tm_k, kring, kfull, kempty, kbase, 0, it.hk, it.b);
+      for (int t = 0; t < it.ntiles; ++t) {
+        if (t + 1 < it.ntiles)
+          load(&tm_k, kring, kfull, kempty, kbase + t + 1, (t + 1) * WS_K,
+               it.hk, it.b);
+        load(&tm_v, vring, vfull, vempty, kbase + t, t * WS_K, it.hk, it.b);
+      }
+      kbase += it.ntiles;
+      ++qn;
+    }
+    return;
+  }
+  set_max_regs<NC == 2 ? 240 : 160, true>();
+  const int cw = wg - 1;                      // rows 64 cw of an item
+  const int lane = threadIdx.x % 32, qi = lane % 4;
+  const int rloc = cw * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;
+  St w;
+  w.kring = kring;
+  w.vring = vring;
+  w.kfull = kfull;
+  w.vfull = vfull;
+  w.kempty = kempty;
+  w.vempty = vempty;
+  w.qi = qi;
+  w.cw = cw;
+  w.scale = scale;
+  w.signal = threadIdx.x % 128 == 0;
+  w.kbase = 0;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) w.sc[i] = 0.f;
+  int qn = 0;
+  for (int r = 0; r * (int)gridDim.x < items; ++r) {
+    if (ws_item(r) >= items) continue;
+    const WsItem it(ws_item(r), ROWS, B, H, Hk, Tq, Tk, causal);
+    const int row[2] = {it.q0 + rloc, it.q0 + rloc + 8};
+    w.lim[0] = key_limit(row[0], Tq, Tk, causal);
+    w.lim[1] = key_limit(row[1], Tq, Tk, causal);
+    // keys every row of this warpgroup sees (none when its first row is
+    // past Tq: such rows are never stored, the mask is then moot)
+    const int first = it.q0 + cw * 64;
+    w.live_all = first < Tq ? key_limit(first, Tq, Tk, causal) : Tk;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) w.acc[i] = 0.f;
+    w.m[0] = w.m[1] = -INFINITY;
+    w.l[0] = w.l[1] = 0.f;                    // this thread's partial sums
+    const int n = it.ntiles;
+    if (n > 0) {
+      const int qb = qn & 1;
+      w.qa = qs + qb * TQ + cw * 64 * 64;     // this warpgroup's rows of Q
+      mbar_wait(qfull + qb, (qn >> 1) & 1);
+      w.first();
+      for (int t = 1; t < n; ++t) w.step(t);
+      w.last(n - 1);
+      if (w.signal) mbar_arrive(qempty + qb);   // Q read for the last time
+      w.kbase += n;
+      ++qn;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float li = w.l[i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      const float inv = li == 0.f ? 0.f : 1.f / li;   // no live key: O = 0
+      if (row[i] >= Tq) continue;
+      if (qi == 0)
+        lse[((long long)it.b * H + it.h) * Tq + row[i]] =
+            li == 0.f ? -INFINITY : w.m[i] + logf(li);
+      T* p = o + it.b * so.b + it.h * so.h + (long long)row[i] * so.t +
+             qi * 2;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<uint32_t*>(p + c * 8) = pack2<T>(
+            w.acc[4 * c + 2 * i] * inv, w.acc[4 * c + 2 * i + 1] * inv);
+    }
+  }
 }
 
 // -------------------------------------------------------------- backward dq
@@ -551,12 +983,81 @@ cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// A 4-D TMA map over a [B, Hx, T, D] view with element strides `s` of
+// (batch, head, time), boxes of `rows` rows x 64 columns, 128-byte
+// swizzle. A dim of extent 1 takes a packed stride (its own is never
+// used), so only the strides that address data need to be 16-byte
+// multiples.
+template <typename T>
+cudaError_t bhtd_map(CUtensorMap* map, const void* base, Strides s, int B,
+                     int Hx, int T_, int D, int rows) {
+  const long long st_ = T_ > 1 ? s.t : D;
+  const long long sh = Hx > 1 ? s.h : st_ * T_;
+  const long long sb = B > 1 ? s.b : sh * Hx;
+  if (reinterpret_cast<uintptr_t>(base) % 16 || st_ % 8 || sh % 8 || sb % 8)
+    return cudaErrorMisalignedAddress;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T_, (cuuint64_t)Hx,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st_ * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  return encode_tensor_map(map,
+                           std::is_same<T, f16>::value
+                               ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                           4, base, dims, strides, box,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int D, typename T>
+cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                      void* lse, const long long* s, const Dims& d,
+                      cudaStream_t stream) {
+  constexpr int rows = 64 * ws_consumers<D>();
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = bhtd_map<T>(&tq, q, st(s, 0), d.B, d.H, d.Tq, D, rows);
+  if (err == cudaSuccess)
+    err = bhtd_map<T>(&tk, k, st(s, 1), d.B, d.Hk, d.Tk, D, WS_K);
+  if (err == cudaSuccess)
+    err = bhtd_map<T>(&tv, v, st(s, 2), d.B, d.Hk, d.Tk, D, WS_K);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = ws_smem_bytes<D>();
+  constexpr unsigned threads = ws_threads<D>();
+  int per_sm = 0;
+  err = blocks_per_sm(reinterpret_cast<const void*>(
+                          flash_fwd_wgmma_kernel<D, T>),
+                      threads, smem, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long items = (long long)((d.Tq + rows - 1) / rows) * d.B * d.H;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long cap = (long long)sms * per_sm;   // one wave, persistent
+  const unsigned grid = (unsigned)(items < cap ? items : cap);
+  flash_fwd_wgmma_kernel<D, T><<<grid, threads, smem, stream>>>(
+      tq, tk, tv, (T*)o, (float*)lse, st(s, 3), d.B, d.H, d.Hk, d.Tq, d.Tk,
+      d.scale, d.causal);
+  return cudaGetLastError();
+}
+
+// bf16 and fp16 at D = 64 and 128 run the wgmma kernel; at D = 16 and 32
+// (GPT2Config.tiny's shapes, untimed) the mma.sync one.
 template <int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 void* lse, const long long* s, const Dims& d, int dtype,
                 cudaStream_t stream) {
-  if (dtype == BF16) return fwd_mma<D, bf16>(q, k, v, o, lse, s, d, stream);
-  if (dtype == F16) return fwd_mma<D, f16>(q, k, v, o, lse, s, d, stream);
+  if constexpr (D >= 64) {
+    if (dtype == BF16)
+      return fwd_wgmma<D, bf16>(q, k, v, o, lse, s, d, stream);
+    if (dtype == F16) return fwd_wgmma<D, f16>(q, k, v, o, lse, s, d, stream);
+  } else {
+    if (dtype == BF16) return fwd_mma<D, bf16>(q, k, v, o, lse, s, d, stream);
+    if (dtype == F16) return fwd_mma<D, f16>(q, k, v, o, lse, s, d, stream);
+  }
   flash_fwd_f32_kernel<D><<<blocks_for((long long)d.B * d.H * d.Tq), F32_NT,
                             0, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o,
@@ -658,7 +1159,9 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
   const Dims d{B, H, Hk, Tq, Tk, D, scale, causal};
   const void* ptrs[4] = {q, k, v, o};
   if (!dims_ok(d, dtype)) return (int)cudaErrorInvalidValue;
-  if (dtype != F32 && !aligned(ptrs, 4, strides, 12))
+  // the wgmma kernel's TMA maps check their own (16-byte base and strides
+  // of the dims that address data)
+  if (dtype != F32 && D < 64 && !aligned(ptrs, 4, strides, 12))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)BY_HEAD_DIM(D, fwd, q, k, v, o, lse, strides, d, dtype, s);

@@ -70,9 +70,12 @@ __device__ __forceinline__ uint32_t ld2(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+#ifndef PORT_SMEM_ADDR                // hopper.cuh defines the same
+#define PORT_SMEM_ADDR
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+#endif
 
 // Asynchronous global -> shared copies (cp.async): `bytes` from `src`, or
 // zeros when `live` is false (src is then not read).

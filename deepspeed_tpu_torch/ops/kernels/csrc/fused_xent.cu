@@ -4,10 +4,11 @@
 // xent_fwd replaces the Pallas kernel `_fwd_kernel`
 //   (deepspeed_tpu/ops/kernels/fused_xent.py:57, launched at :118): per
 //   token, the online logsumexp over the vocabulary, the target logit and
-//   the sum of the real vocabulary's logits. A block owns 64 tokens and one
-//   split of the vocabulary and writes partial (max, sum, target, total)
-//   rows; a second small kernel combines the splits (the Pallas grid walks
-//   the whole vocabulary in order on one core, a GPU block cannot).
+//   the sum of the real vocabulary's logits. A block owns 128 tokens and
+//   one split (a contiguous range of 256-row vocabulary tiles) and writes
+//   partial (max, sum, target, total) rows; a second small kernel combines
+//   the splits in split order (the Pallas grid walks the whole vocabulary
+//   in order on one core, a GPU block cannot).
 // xent_bwd_dh replaces `_dh_kernel` (:165, launched at :280):
 //   dh = scale * P' . E over the vocabulary walk.
 // xent_bwd_de replaces `_de_kernel` (:192, launched at :299):
@@ -20,9 +21,21 @@
 // (8.44e11 at N = 4096, V = 50304, C = 2048: 0.853 ms at 989 TFLOP/s)
 // against ~0.2 GB of operands. The forward does one; each backward kernel
 // does two, the logits and its output product: 1.7067 ms each at that
-// shape. The forward runs mma.sync m16n8k16 (fp32 accumulate, 4 warps of
-// 16 rows each, ldmatrix fragments, 64 x 64 operand slabs of the C axis
-// double-buffered in shared memory with cp.async).
+// shape.
+//
+// The forward's design. A GEMM with a cheap epilogue: what bounds it
+// besides the tensor cores is the operands' traffic from L2 into shared
+// memory, since every block reads its h tile again for each vocabulary
+// tile. 128 x 256 output tiles (two consumer warpgroups on m64n256k16
+// wgmma, the accumulators in registers, raised to 232 a thread with
+// setmaxnreg) cut that traffic per FLOP by 2.7 against 64 x 64 ones; one
+// producer warp keeps TMA boxes in a 4-deep ring on mbarriers, so the
+// consumers never wait on a __syncthreads. A split's vocabulary range is
+// contiguous, so the token tiles working on it at once (all of them at the
+// training shape: fwd_plan fills the card in one wave) read each E tile
+// from device memory about once, through L2. Sharing each E box between
+// two token tiles of a cluster by TMA multicast was built and timed
+// slower on the card than these independent blocks, and was taken out.
 //
 // The backward's design. The Pallas kernels keep a whole [Tb, C] (dh) or
 // [Vb, C] (dE) fp32 accumulator in VMEM; at C = 2048 that is more than an
@@ -87,104 +100,16 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int NT = 128;            // threads of the mma kernels (4 warps)
-constexpr int BM = 64;             // rows of a block's tile
-constexpr int BN = 64;             // columns of a logits tile
+constexpr int BM = 64;             // rows of a 64 x 64 box
+constexpr int BN = 64;             // columns of a backward logits tile
 constexpr int BK = 64;             // depth of one staged slab of C
-constexpr int LDK = BK + 8;        // padded slab row (conflict-free ldmatrix)
-constexpr int SLAB = BM * LDK;     // elements of one staged slab
 constexpr int F_NT = 256;          // threads of the fp32 kernels
 constexpr int FK = 16;             // depth of an fp32 shared tile
 constexpr int FB = 64;             // fp32 output slab width
 
-// c += a * b for one m16n8k16 tile. Fragment layout (PTX ISA, mma.m16n8k16
-// .bf16), with quad = lane / 4 and qi = lane % 4:
-//   a[0..3]: rows quad / quad+8 / quad / quad+8, columns 2qi..2qi+1 (+8
-//            for a[2], a[3]) of the 16 x 16 A tile;
-//   b0, b1:  rows (k) 2qi..2qi+1 (+8 for b1), column (n) quad of B;
-//   c[0..3]: rows quad, quad, quad+8, quad+8; columns 2qi, 2qi+1 (x2).
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 16 bytes global -> shared without waiting, or zeros when `live` is false
-// (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(live ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8; lane t gets row t / 4, columns 2 (t % 4), +1
-// of each.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// Start copying rows [r0, r0 + 64), columns [k0, k0 + W) of a row-major
-// [rows, C] matrix into a [64][W + 8] shared tile; rows at or past `rows`
-// are zeros.
-template <int W>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src, int C,
-                                      int r0, int rows, int k0) {
-  constexpr int CH = W / 8;
-  for (int i = threadIdx.x; i < BM * CH; i += NT) {
-    const int r = i / CH, ch = i % CH;
-    const bool live = r0 + r < rows;
-    cp_async16(dst + r * (W + 8) + ch * 8,
-               src + (live ? (long long)(r0 + r) * C + k0 + ch * 8 : 0),
-               live);
-  }
-}
-
-// acc[16 x 64] += A[16 x 64] . B[64 x 64]^T over one staged slab: this
-// warp's 16 rows of the A slab against the 64 rows of the B slab.
-__device__ __forceinline__ void mma_slab(float (&acc)[8][4], const bf16* a,
-                                         const bf16* b, int warp, int lane) {
-  const bf16* abase = a + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8)
-                              * LDK + (lane >> 4) * 8;
-  uint32_t af[BK / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) ldsm_x4(af[kk], abase + kk * 16);
-  const bf16* bbase = b + (lane & 7) * LDK + (lane >> 3) * 8;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; kk += 2) {
-      uint32_t r[4];
-      ldsm_x4(r, bbase + nt * 8 * LDK + kk * 16);
-      mma_16816(acc[nt], af[kk], r[0], r[1]);
-      mma_16816(acc[nt], af[kk + 1], r[2], r[3]);
-    }
-  }
-}
-
-// The forward K-loop's wait before computing step `s` of `steps`: the
-// group of step s must have landed; the next step's may still fly.
-__device__ __forceinline__ void wait_step(int s, int steps) {
-  if (s + 1 < steps) cp_async_wait<1>(); else cp_async_wait<0>();
 }
 
 struct Grad {                        // P' parameters
@@ -210,101 +135,182 @@ __device__ __forceinline__ float grad_p(float x, int v, float ls, int t,
 
 // ---------------------------------------------------------------- forward
 
-__global__ void __launch_bounds__(NT)
-xent_fwd_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ e,
-                    const int* __restrict__ tgt, float* __restrict__ part,
-                    int N, int V, int C, int splits) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);    // [buf][h, E][64][LDK]
-  const int r0 = blockIdx.x * BM, sp = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int quad = lane / 4, qi = lane % 4;
-  const int row[2] = {r0 + warp * 16 + quad, r0 + warp * 16 + quad + 8};
-  const int nvt = (V + BN - 1) / BN;
+// A forward block: 128 tokens (rows r0..) against the vocabulary tiles
+// [jt0, jt1) of its split, 256 rows each, over the full C. Warpgroup 0 is
+// the producer: after giving back its registers, one thread issues the
+// TMA boxes of each 64-deep K-step (h [128 x 64], E [256 x 64] in two
+// 128-row halves, 128-byte swizzled) into a FW_STAGES-deep ring, each
+// buffer waiting on its `empty` barrier for the consumers to free it.
+// Warpgroups 1 and 2 are the consumers, 64 tokens each: m64n256k16 wgmma
+// with both operands in shared memory, one K-step's products left in
+// flight while the next is issued, the [64 x 256] fp32 logits in
+// registers (128 a thread).
+//
+// After a tile's C walk the consumers fold it into their running (m, l,
+// g, s) in registers: target and sum gathers before the vocabulary mask
+// (E's rows past V arrive as TMA's zeros, so their logits are exactly 0:
+// an id in the padded range reads 0 and the sum is unchanged), the row
+// max over the real columns, a rescale and the exp-sum. Only the last
+// tile of the vocabulary can hold columns past V.
+constexpr int FW_CONS = 2;                   // consumer warpgroups
+constexpr int FW_NT = 128 * (FW_CONS + 1);   // + the producer warpgroup
+constexpr int FW_M = 64 * FW_CONS;           // tokens of a block
+constexpr int FW_N = 256;                    // vocabulary rows of a tile
+constexpr int FW_HALF = 128;                 // rows of one E box
+constexpr int FW_STAGES = 4;
+constexpr int FW_STAGE = (FW_M + FW_N) * BK; // elements of a ring buffer
+
+__host__ __device__ constexpr size_t fwd_smem_bytes() {
+  return FW_STAGES * FW_STAGE * sizeof(bf16) +
+         2 * FW_STAGES * sizeof(uint64_t);
+}
+
+// Fold one [64 x 256] logits tile at vocabulary column c0 into this
+// thread's two rows' running max m, sum l (of exp(x - m), this thread's
+// columns only), target logit g and logit sum s. RAGGED: the tile holds
+// columns past V.
+template <bool RAGGED>
+__device__ __forceinline__ void fold_tile(const float (&acc)[128], int c0,
+                                          int V, const int (&t)[2],
+                                          float (&m)[2], float (&l)[2],
+                                          float (&g)[2], float (&s)[2],
+                                          int qi) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < 32; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = x / 2, col = c0 + n * 8 + qi * 2 + (x & 1);
+      const float v = acc[4 * n + x];
+      if (col == t[i]) g[i] += v;
+      s[i] += v;
+      if (!RAGGED || col < V) mx[i] = fmaxf(mx[i], v);
+    }
+  float m_neg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+    l[i] *= ex2((m[i] - m_safe) * LOG2E);
+    m[i] = m_new;
+    m_neg[i] = -m_safe * LOG2E;
+  }
+#pragma unroll
+  for (int n = 0; n < 32; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = x / 2, col = c0 + n * 8 + qi * 2 + (x & 1);
+      const float p = ex2(fmaf(acc[4 * n + x], LOG2E, m_neg[i]));
+      if (!RAGGED || col < V) l[i] += p;
+    }
+}
+
+__global__ void __launch_bounds__(FW_NT, 1)
+xent_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
+                      const __grid_constant__ CUtensorMap tm_e,
+                      const int* __restrict__ tgt, float* __restrict__ part,
+                      int N, int V, int C, int splits) {
+  extern __shared__ __align__(1024) unsigned char fw_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(fw_smem);    // [stage][h 128, E 256]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + FW_STAGES * FW_STAGE);
+  uint64_t* empty = full + FW_STAGES;
+  const int r0 = blockIdx.x * FW_M, sp = blockIdx.y;
+  const int nvt = (V + FW_N - 1) / FW_N;
   const int jt0 = (int)((long long)sp * nvt / splits);
   const int jt1 = (int)((long long)(sp + 1) * nvt / splits);
-  int t[2];
-  float m[2], l[2], g[2], s[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    t[i] = row[i] < N ? tgt[row[i]] : -1;
-    m[i] = -INFINITY;
-    l[i] = g[i] = s[i] = 0.f;
-  }
-  const int nk = C / BK, steps = (jt1 - jt0) * nk;
-  float sc[8][4];
-  if (steps > 0) {
-    stage<BK>(smem, h, C, r0, N, 0);
-    stage<BK>(smem + SLAB, e, C, jt0 * BN, V, 0);
-    cp_async_commit();
-  }
-  for (int st = 0; st < steps; ++st) {
-    const int j = jt0 + st / nk, kk = st % nk;
-    if (kk == 0) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) sc[nt][x] = 0.f;
+  const int nk = C / BK;
+  // warp-uniform for ptxas (C7518)
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FW_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, FW_CONS);
     }
-    if (st + 1 < steps) {
-      const int j1 = jt0 + (st + 1) / nk, k1 = ((st + 1) % nk) * BK;
-      bf16* nb = smem + ((st + 1) & 1) * 2 * SLAB;
-      stage<BK>(nb, h, C, r0, N, k1);
-      stage<BK>(nb + SLAB, e, C, j1 * BN, V, k1);
-      cp_async_commit();
-    }
-    wait_step(st, steps);
-    __syncthreads();
-    const bf16* cur = smem + (st & 1) * 2 * SLAB;
-    mma_slab(sc, cur, cur + SLAB, warp, lane);
-    if (kk == nk - 1) {
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          const int i = x / 2, col = j * BN + nt * 8 + qi * 2 + (x & 1);
-          const float v = sc[nt][x];
-          if (col == t[i]) g[i] += v;            // before the vocab mask
-          if (col < V) s[i] += v;
-          sc[nt][x] = col < V ? v : -INFINITY;
-          mx[i] = fmaxf(mx[i], sc[nt][x]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    set_max_regs<40, false>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int j = jt0; j < jt1; ++j)
+        for (int ks = 0; ks < nk; ++ks, ++it) {
+          const int st = it % FW_STAGES;
+          mbar_wait(empty + st, ((it / FW_STAGES) & 1) ^ 1);
+          bf16* buf = ring + st * FW_STAGE;
+          mbar_expect(full + st, FW_STAGE * sizeof(bf16));
+          tma_box(buf, &tm_h, ks * BK, r0, full + st);
+          tma_box(buf + FW_M * BK, &tm_e, ks * BK, j * FW_N, full + st);
+          tma_box(buf + (FW_M + FW_HALF) * BK, &tm_e, ks * BK,
+                  j * FW_N + FW_HALF, full + st);
         }
-      float alpha[2], m_safe[2], rs[2] = {0.f, 0.f};
+    }
+  } else {
+    set_max_regs<232, true>();
+    const int cw = wg - 1;                        // rows 64 cw of the block
+    const int lane = threadIdx.x % 32, qi = lane % 4;
+    const int row0 = r0 + cw * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;
+    const int row[2] = {row0, row0 + 8};
+    const bool signal = threadIdx.x % 128 == 0;
+    int t[2];
+    float m[2], l[2], g[2], s[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float m_new = fmaxf(m[i], mx[i]);
-        m_safe[i] = m_new == -INFINITY ? 0.f : m_new;
-        alpha[i] = __expf(m[i] - m_safe[i]);
-        m[i] = m_new;
+    for (int i = 0; i < 2; ++i) {
+      t[i] = row[i] < N ? tgt[row[i]] : -1;
+      m[i] = -INFINITY;
+      l[i] = g[i] = s[i] = 0.f;
+    }
+    auto release = [&](int st) {             // ring buffer `st` is free
+      if (signal) mbar_arrive(empty + st);
+    };
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    int it = 0;
+    for (int j = jt0; j < jt1; ++j) {
+      fence_regs(acc);
+      for (int ks = 0; ks < nk; ++ks, ++it) {
+        const int st = it % FW_STAGES;
+        mbar_wait(full + st, (it / FW_STAGES) & 1);
+        const bf16* a = ring + st * FW_STAGE + cw * 64 * BK;
+        const bf16* b = ring + st * FW_STAGE + FW_M * BK;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_ss<0>(acc, wg_desc(a + kk * 16, 16, 1024),
+                      wg_desc(b + kk * 16, 16, 1024), ks > 0 || kk > 0,
+                      std::integral_constant<int, FW_N>());
+        wg_commit();
+        wg_wait<1>();
+        if (ks > 0) release((it - 1) % FW_STAGES);
       }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int x = 0; x < 4; ++x)
-          rs[x / 2] += __expf(sc[nt][x] - m_safe[x / 2]);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+      wg_wait<0>();
+      fence_regs(acc);
+      release((it - 1) % FW_STAGES);
+      if ((j + 1) * FW_N > V)
+        fold_tile<true>(acc, j * FW_N, V, t, m, l, g, s, qi);
+      else
+        fold_tile<false>(acc, j * FW_N, V, t, m, l, g, s, qi);
     }
-    __syncthreads();
-  }
+    const long long plane = (long long)splits * N;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], o);
-      g[i] += __shfl_xor_sync(0xffffffffu, g[i], o);
-      s[i] += __shfl_xor_sync(0xffffffffu, s[i], o);
-    }
-    if (qi == 0 && row[i] < N) {
-      const long long at = (long long)sp * N + row[i], plane =
-          (long long)splits * N;
-      part[at] = m[i];
-      part[plane + at] = l[i];
-      part[2 * plane + at] = g[i];
-      part[3 * plane + at] = s[i];
+      for (int o = 1; o < 4; o <<= 1) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], o);
+        g[i] += __shfl_xor_sync(0xffffffffu, g[i], o);
+        s[i] += __shfl_xor_sync(0xffffffffu, s[i], o);
+      }
+      if (qi == 0 && row[i] < N) {
+        const long long at = (long long)sp * N + row[i];
+        part[at] = m[i];
+        part[plane + at] = l[i];
+        part[2 * plane + at] = g[i];
+        part[3 * plane + at] = s[i];
+      }
     }
   }
 }
@@ -885,26 +891,39 @@ extern "C" {
 
 // h [N, C], e [V, C] (bf16 or fp32, contiguous), tgt int32 [N] -> out fp32
 // [3, N] (lse, target logit, logit sum); part fp32 [4, splits, N] scratch.
+// bf16 splits the vocabulary into `splits` contiguous ranges of 256-row
+// tiles (the plan of ops/kernels/fused_xent.py `fwd_plan`); fp32 walks
+// 64-row tiles in the same number of ranges.
 int xent_fwd_launch(const void* h, const void* e, const void* tgt, void* out,
                     void* part, int N, int V, int C, int splits, int is_bf16,
                     void* stream) {
-  if (!dims_ok(N, V, C) || splits < 1 || splits > (V + BN - 1) / BN)
+  if (!dims_ok(N, V, C) || splits < 1 || splits > (V + FW_N - 1) / FW_N ||
+      splits > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((N + BM - 1) / BM, splits);
+  cudaError_t err;
   if (is_bf16) {
     const void* ptrs[2] = {h, e};
     if (!aligned16(ptrs, 2)) return (int)cudaErrorMisalignedAddress;
-    constexpr size_t smem = 4 * SLAB * sizeof(bf16);
-    xent_fwd_mma_kernel<<<grid, NT, smem, s>>>(
-        (const bf16*)h, (const bf16*)e, (const int*)tgt, (float*)part, N, V,
-        C, splits);
+    CUtensorMap tm_h, tm_e;              // boxes of 128 rows x 64 columns
+    err = row_major_map(&tm_h, h, N, C, FW_M);
+    if (err == cudaSuccess) err = row_major_map(&tm_e, e, V, C, FW_HALF);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0;
+    err = blocks_per_sm(reinterpret_cast<const void*>(xent_fwd_wgmma_kernel),
+                        FW_NT, fwd_smem_bytes(), &per_sm);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    xent_fwd_wgmma_kernel<<<dim3((N + FW_M - 1) / FW_M, splits), FW_NT,
+                            fwd_smem_bytes(), s>>>(
+        tm_h, tm_e, (const int*)tgt, (float*)part, N, V, C, splits);
+    err = cudaGetLastError();
   } else {
-    xent_fwd_f32_kernel<<<grid, F_NT, 0, s>>>(
+    xent_fwd_f32_kernel<<<dim3((N + 63) / 64, splits), F_NT, 0, s>>>(
         (const float*)h, (const float*)e, (const int*)tgt, (float*)part, N,
         V, C, splits);
+    err = cudaGetLastError();
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   xent_combine_kernel<<<(N + 255) / 256, 256, 0, s>>>(
       (const float*)part, (float*)out, N, splits);

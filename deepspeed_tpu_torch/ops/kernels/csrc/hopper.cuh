@@ -1,24 +1,33 @@
 // Hopper (sm_90a) machinery shared by the port's wgmma kernels
-// (fused_xent.cu, fp6_gemm.cu): thin wrappers over single PTX
-// instructions, and three host helpers.
+// (fused_xent.cu, fp6_gemm.cu, flash_attention.cu): thin wrappers over
+// single PTX instructions, and three host helpers.
 //
 //   smem_addr        a generic pointer as a 32-bit shared-memory address
 //   swizzled         byte offset of an element in a 128-byte-swizzled tile
 //   wg_desc          wgmma operand descriptor of a 128-byte-swizzled tile
 //   wg_fence / wg_commit / wg_wait
 //                    wgmma.fence / commit_group / wait_group
-//   fence_regs       pins accumulators between wgmma batches (ptxas C7515)
-//   wgmma_ss         one m64nNk16 bf16 wgmma, A and B from shared memory,
-//                    N = 64, 128 or 256, fp32 accumulators in registers
+//   fence_regs       pins accumulators (or register A fragments) between
+//                    wgmma batches (ptxas C7515)
+//   wgmma_ss         one m64nNk16 wgmma, A and B from shared memory, bf16
+//                    at N = 64 and 256, bf16 or fp16 at N = 128, fp32
+//                    accumulators
+//   wgmma_rs         the same with A from registers, N = 64 or 128
+//   ex2              2^x on the MUFU
+//   set_max_regs     setmaxnreg: a warpgroup gives up (producer) or takes
+//                    (consumers) registers of the block's budget
+//   bar_sync / bar_arrive
+//                    a named barrier of `N` threads (bar.sync / bar.arrive)
 //   fence_async_smem fence.proxy.async.shared::cta: ordinary shared stores
 //                    made visible to wgmma and TMA (the async proxy)
 //   cluster_arrive / cluster_wait
 //                    barrier.cluster.arrive.release / wait.acquire
-//   mbar_init / mbar_expect / mbar_wait
-//                    mbarrier.init / arrive.expect_tx / try_wait.parity
-//   tma_box / tma_box3
-//                    one 2-D or 3-D TMA box (cp.async.bulk.tensor) into
-//                    shared memory, completing on an mbarrier
+//   mbar_init / mbar_expect / mbar_wait / mbar_arrive
+//                    mbarrier.init / arrive.expect_tx / try_wait.parity /
+//                    a plain arrival
+//   tma_box / tma_box3 / tma_box4
+//                    one 2-D, 3-D or 4-D TMA box (cp.async.bulk.tensor)
+//                    into shared memory, completing on an mbarrier
 //   encode_tensor_map (host)
 //                    cuTensorMapEncodeTiled, looked up once through the
 //                    runtime so that no library links libcuda
@@ -29,11 +38,14 @@
 //                    cudaLaunchKernelEx with a cluster dimension along x,
 //                    refused before launch when no such cluster fits
 //
-// Everything sits in an anonymous namespace, as in each source; a source
-// that includes this header includes no other that defines smem_addr.
+// Everything sits in an anonymous namespace, as in each source;
+// flash_tile.cuh defines smem_addr under the same guard, so a source may
+// include both.
 #pragma once
 #include <cuda.h>
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include <mutex>
@@ -41,9 +53,12 @@
 
 namespace {
 
+#ifndef PORT_SMEM_ADDR
+#define PORT_SMEM_ADDR
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+#endif
 
 // Byte offset of element (r, c) of a 128-byte-swizzled bf16 tile with 64
 // columns (as TMA's SWIZZLE_128B writes it): rows of 128 bytes in 1 KB
@@ -87,6 +102,39 @@ __device__ __forceinline__ void fence_regs(float (&d)[n]) {
 #pragma unroll
   for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int n>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+// Registers a thread of this warpgroup may hold from here on: the
+// producer of a warp-specialized block gives its share back (INC false),
+// the consumers take it (INC true). Every warp of the warpgroup executes
+// it; the kernel's launch bounds fix the count each starts with.
+template <int REGS, bool INC>
+__device__ __forceinline__ void set_max_regs() {
+  if constexpr (INC)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+  else
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+// 2^x on the MUFU (ex2.approx; -inf gives 0): exp(x) = ex2(x LOG2E)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float LOG2E = 1.4426950408889634f;
+// named barrier `id` (1-15; 0 is __syncthreads) of N threads: wait for all
+// N, or count this thread's warp in without waiting
+template <int N>
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
 // this thread's shared-memory writes visible to the async proxy (wgmma)
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -123,6 +171,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
 }
+// one arrival on this block's barrier
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
 // one TMA box of a 2-D map at (x, y) = (`col`, `row`) into `dst`
 // (elements past the map's end are zeros), completing on `bar`
 __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* tm,
@@ -145,11 +198,18 @@ __device__ __forceinline__ void tma_box3(void* dst, const CUtensorMap* tm,
       : "memory");
 }
 
-// d += A . B for one m64nNk16 bf16 wgmma with fp32 accumulators (d in
-// the accumulator layout: warp w of the warpgroup holds rows 16 w +
-// lane / 4 (+8); element 4 n + x at column 8 n + 2 (lane % 4) + (x & 1),
-// row +8 for x >= 2), A and B from shared-memory descriptors (A K-major;
-// B K-major, or MN-major when TB = 1).
+// d += A . B for one m64nNk16 wgmma of 16-bit operands (bf16; T = bf16
+// or fp16 where a kernel takes both) with fp32 accumulators (d in the
+// accumulator layout: warp w of the warpgroup holds rows 16 w + lane / 4
+// (+8); element 4 n + x at column 8 n + 2 (lane % 4) + (x & 1), row +8
+// for x >= 2). wgmma_ss: A and B
+// from shared-memory descriptors (A K-major; B K-major, or MN-major when
+// TB = 1). wgmma_rs: A from registers, the four 32-bit registers of this
+// thread's m16n8k16 A fragment of its warp's 16 rows (a0: row lane / 4,
+// columns 2 (lane % 4), +1; a1: row +8; a2: columns +8; a3: both), the
+// layout an accumulator's elements 8 kk .. 8 kk + 7 take when packed in
+// pairs, so a product's result feeds the next product's A without a trip
+// through shared memory.
 template <int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
                                          int scale_d,
@@ -170,11 +230,34 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
 }
 
-template <int TB>
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
                                          int scale_d,
                                          std::integral_constant<int, 128>) {
-  asm volatile(
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+  } else {
+    asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{"
@@ -195,6 +278,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+  }
 }
 
 template <int TB>
@@ -239,9 +323,114 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b
       : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
 }
 
+template <int TB, typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d,
+                                         std::integral_constant<int, 64>) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TB));
+  } else {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TB));
+  }
+}
+
+template <int TB, typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d,
+                                         std::integral_constant<int, 128>) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TB));
+  } else {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TB));
+  }
+}
+
+// the same for a 4-D map at (x, y, z, w)
+__device__ __forceinline__ void tma_box4(void* dst, const CUtensorMap* tm,
+                                         int x, int y, int z, int w,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(x), "r"(y), "r"(z), "r"(w),
+      "r"(smem_addr(bar))
+      : "memory");
+}
 // ------------------------------------------------------------------ host
 
-// A tiled TMA map of `rank` (2 or 3) dimensions, innermost first: `dims`
+// A tiled TMA map of `rank` (2 to 5) dimensions, innermost first: `dims`
 // elements, `strides` the byte strides of dims 1.. (rank - 1 of them),
 // boxes of `box` elements, no interleave, L2 promotion of 128 bytes,
 // out-of-range elements read as zeros.
@@ -268,7 +457,7 @@ inline cudaError_t encode_tensor_map(CUtensorMap* map, CUtensorMapDataType dt,
       return cudaErrorNotSupported;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint32_t step[3] = {1, 1, 1};
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
       map, dt, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box,
       step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,

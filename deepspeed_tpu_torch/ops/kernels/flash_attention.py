@@ -4,7 +4,11 @@
 Three hand-written CUDA kernels (``csrc/flash_attention.cu``) replace the
 three Pallas kernels of the training path:
 
-- ``flash_fwd`` — replaces ``_fwd_kernel``: O and the row logsumexp;
+- ``flash_fwd`` — replaces ``_fwd_kernel``: O and the row logsumexp; at
+  head dims 64 and 128 in bf16/fp16 a wgmma + TMA kernel (a persistent
+  block an SM, work items of 192 or 128 query rows against 128-key K/V
+  tiles, heaviest first: :func:`fwd_schedule`), at 16 and 32 an mma.sync
+  one;
 - ``flash_bwd_dq`` — replaces ``_bwd_dq_kernel``: dQ over the key tiles;
 - ``flash_bwd_dkv`` — replaces ``_bwd_dkv_kernel``: dK/dV of each KV head
   over every query head of its GQA group and every query tile.
@@ -36,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +49,13 @@ import torch
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0}
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+#: head dims whose bf16/fp16 forward runs the wgmma + TMA kernel (the
+#: training paths'); 16 and 32 (GPT2Config.tiny, untimed) run mma.sync
+WGMMA_FWD_HEAD_DIMS = (64, 128)
+#: query rows of a wgmma forward work item by head dim (64 for each
+#: consumer warpgroup), keys of one of its K/V tiles
+FWD_ROWS = {64: 192, 128: 128}
+FWD_KEYS = 128
 #: the kernels' element types, by the code their C entry points take
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: block-sparse forward launches (a dict of its own: the training phases
@@ -200,6 +211,68 @@ def _check(q, k, v, *rest):
             raise ValueError("the kernels need a unit head_dim stride")
 
 
+def _check_tma(q, k, v) -> None:
+    """The wgmma forward reads q, k and v (2-byte elements) through TMA
+    maps: each base address and each stride of a (batch, head, time) dim
+    longer than 1 must be a 16-byte multiple. Raise, naming the first
+    that is not."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} starts at an address that is not a "
+                             f"16-byte multiple: the flash forward's TMA "
+                             f"maps need one")
+        for label, n, st in zip(("batch", "head", "time"), t.shape,
+                                t.stride()):
+            if n > 1 and st % 8:
+                raise ValueError(
+                    f"{name}'s {label} stride is {st} elements ({2 * st} "
+                    f"bytes): the flash forward's TMA maps need 16-byte "
+                    f"multiples")
+
+
+def _key_limit(i: int, Tq: int, Tk: int, causal: bool) -> int:
+    """Keys [0, limit) that query row ``i`` sees (none past Tq)."""
+    if i >= Tq:
+        return 0
+    return min(Tk, max(0, i + Tk - Tq + 1)) if causal else Tk
+
+
+def fwd_key_tiles(qt: int, rows: int, Tq: int, Tk: int,
+                  causal: bool) -> int:
+    """The K/V tiles the wgmma forward loads for query tile ``qt`` of
+    ``rows`` rows: those holding a key that its last live row sees; the
+    tiles past them are above the causal diagonal for every row."""
+    kend = _key_limit(min((qt + 1) * rows, Tq) - 1, Tq, Tk, causal)
+    return -(-kend // FWD_KEYS)
+
+
+def fwd_schedule(B: int, H: int, Tq: int, Tk: int, causal: bool, D: int,
+                 sms: int) -> List[List[Tuple[int, int, int, int]]]:
+    """The wgmma forward's work, as its kernel deals it: for each of its
+    ``min(items, sms)`` persistent blocks, the ``(b, h, query tile, K/V
+    tiles)`` items it walks, in order. The items run heaviest first
+    (every (batch, head)'s last query tile, then the tiles before it, the
+    heads of a GQA group side by side) and are dealt in rounds of one item
+    a block, forward in even rounds and backward in odd ones, so that
+    under the causal diagonal each block's long and short items even
+    out."""
+    rows = FWD_ROWS[D]
+    nqt = -(-Tq // rows)
+    items = nqt * B * H
+    grid = min(items, sms)
+    out: List[List[Tuple[int, int, int, int]]] = [[] for _ in range(grid)]
+    for r in range(-(-items // grid)):
+        for blk in range(grid):
+            item = r * grid + (grid - 1 - blk if r % 2 else blk)
+            if item >= items:
+                continue
+            qt = nqt - 1 - item // (B * H)
+            bh = item % (B * H)
+            out[blk].append((bh // H, bh % H, qt,
+                             fwd_key_tiles(qt, rows, Tq, Tk, causal)))
+    return out
+
+
 def _check_rows(q, do, lse, delta):
     """The backward's extra inputs: dO like q, lse/delta contiguous fp32."""
     if do.shape != q.shape:
@@ -241,6 +314,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v)
     if not q.is_cuda:
         return flash_fwd_plain(q, k, v, causal=causal, sm_scale=sm_scale)
+    if q.dtype != torch.float32 and q.shape[-1] in WGMMA_FWD_HEAD_DIMS:
+        _check_tma(q, k, v)
     o = _empty_like_order(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _launch("flash_fwd", (q, k, v, o, lse), (q, k, v, o), q, k,
@@ -317,7 +392,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (GQA: query head ``h`` reads KV head ``h // (H // Hk)``, never a
     repeated copy). ``sm_scale`` defaults to 1/sqrt(D). ``block_q`` /
     ``block_k`` are accepted as tile hints; the kernels' tiles are fixed
-    (64 rows). ``return_lse`` also returns the row logsumexp ``[B, H, Tq]``
+    (the forward's 192 or 128 rows at head dims 64 and 128, else 64). ``return_lse`` also returns the row logsumexp ``[B, H, Tq]``
     fp32, itself differentiable (ring attention combines partials by it).
     """
     if layout == "BTHD":

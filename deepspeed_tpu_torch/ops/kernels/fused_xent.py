@@ -6,7 +6,9 @@ Pallas kernels; none writes the [N, V] logits to device memory:
 
 - ``xent_fwd`` — replaces ``_fwd_kernel``: per-token logsumexp over the
   vocabulary (online, as flash attention's softmax), the target logit and
-  the sum of the real vocabulary's logits (label smoothing's term);
+  the sum of the real vocabulary's logits (label smoothing's term); 128 x
+  256 logits tiles on wgmma, TMA-fed, the vocabulary in contiguous splits
+  merged in split order (:func:`fwd_plan`);
 - ``xent_bwd_dh`` — replaces ``_dh_kernel``: dh = scale * P' . E;
 - ``xent_bwd_de`` — replaces ``_de_kernel``: dE = scale * P'^T . h;
 
@@ -38,9 +40,12 @@ it when the vocab tile does not divide V).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from ...utils.device import sm_count
 
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"xent_fwd": 0, "xent_bwd_dh": 0,
@@ -202,13 +207,45 @@ def xent_fwd(h2: torch.Tensor, emb: torch.Tensor, tgt: torch.Tensor
     h, e, t = _operands(h2, emb, tgt)
     N, C = h.shape
     V = e.shape[0]
-    splits = _fwd_splits(N, V, h.device)
+    splits = fwd_plan(N, V, C, sm_count(h.device))
     out = torch.empty(3, N, dtype=torch.float32, device=h.device)
     part = torch.empty(4, splits, N, dtype=torch.float32, device=h.device)
     _launch("xent_fwd", h.data_ptr(), e.data_ptr(), t.data_ptr(),
             out.data_ptr(), part.data_ptr(), N, V, C, splits,
             int(h.dtype == torch.bfloat16), _stream(h))
     return out[0], out[1], out[2]
+
+
+#: tokens and vocabulary rows of one forward tile
+FWD_TOKENS = 128
+FWD_VOCAB = 256
+#: a block's fixed cost in tiles' worth of work (pipeline fill, partials)
+FWD_BLOCK_COST = 0.5
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(N: int, V: int, C: int, sms: int) -> int:
+    """The forward's vocabulary splits for N tokens, V vocabulary rows,
+    hidden size C on a card of ``sms`` SMs (one block an SM): the
+    ``ceil(V / 256)`` tiles split into contiguous ranges, as many as give
+    the fewest waves of (token tile, split) blocks times tiles a block
+    (plus :data:`FWD_BLOCK_COST`), the fewest splits among equals. Each
+    split holds at least one tile. From shapes alone, so the same call
+    gives the same split and the same bits."""
+    if N <= 0 or V <= 0 or C <= 0 or C % 64:
+        raise ValueError(f"N {N}, V {V}, C {C}: the forward takes positive "
+                         f"sizes, C a multiple of 64")
+    if sms <= 0:
+        raise ValueError(f"sms {sms} must be positive")
+    tiles_n = -(-N // FWD_TOKENS)
+    tiles_v = -(-V // FWD_VOCAB)
+    best = None
+    for splits in range(1, min(tiles_v, 65535) + 1):
+        waves = -(-tiles_n * splits // sms)
+        cost = waves * (-(-tiles_v // splits) + FWD_BLOCK_COST)
+        if best is None or cost < best[0]:
+            best = (cost, splits)
+    return best[1]
 
 
 #: slab widths the backward kernels are instantiated for, widest first
@@ -231,15 +268,6 @@ def bwd_plan(C: int) -> Tuple[int, int, int]:
             if C % (G * W) == 0 and C // (G * W) <= BWD_MAX_CLUSTER:
                 return C // (G * W), W, G
     raise AssertionError("unreachable: W = 64, G = C / 64 always fits")
-
-
-def _fwd_splits(N: int, V: int, device: torch.device) -> int:
-    """Vocabulary splits of the forward: enough (token tile, split) blocks
-    for about four per SM, each split at least one 64-column tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles_n = -(-N // 64)
-    tiles_v = -(-V // 64)
-    return max(1, min(tiles_v, -(-4 * sms // tiles_n)))
 
 
 def _bwd(name, scale, h2, emb, tgt, lse, ignore, z, eps, out_rows,
@@ -336,8 +364,9 @@ def fused_lm_xent(hidden: torch.Tensor, embedding: torch.Tensor,
     ``z_loss`` adds ``z * lse^2`` per valid position; ``label_smoothing``
     mixes the target with the uniform distribution. ``token_block`` and
     ``vocab_block`` are accepted as tile hints and not used: the kernels
-    pick their own tiles (64 rows by 64 columns of the logits, the
-    backward's slabs from the hidden size, :func:`bwd_plan`).
+    pick their own tiles (the forward 128 tokens by 256 vocabulary rows,
+    :func:`fwd_plan`; the backward 128 rows by 64 columns of the logits,
+    its slabs from the hidden size, :func:`bwd_plan`).
     """
     for name, b in (("token_block", token_block),
                     ("vocab_block", vocab_block)):

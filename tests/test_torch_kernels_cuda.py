@@ -684,3 +684,143 @@ def test_kernels_run_on_a_second_card():
                 assert _close_bf16(got, f6.fp6_matmul_plain(xx, fw)), \
                     (dev, M)
             torch.cuda.synchronize()
+
+
+# ------------------------ the wgmma xent and flash forwards (Hopper)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,V,C", [
+    (1, 50257, 64), (1, 50304, 2048),
+    (127, 50304, 64), (127, 50257, 768), (127, 50304, 4096),
+    (4097, 50257, 64), (4097, 50304, 768), (4097, 50257, 2048),
+    (4097, 50304, 4096), (4096, 50304, 2048),
+    (300, 1, 64), (129, 257, 128),        # one ragged vocabulary tile, two
+])
+def test_xent_fwd_wgmma_matches_plain_on_card(N, V, C):
+    """The wgmma + TMA xent forward against its plain version at the GPT-2
+    vocabularies (V = 50257 leaves a ragged last 256-row tile, 50304 half
+    a tile), ragged token counts (one token tile, a cluster with an empty
+    peer, 4097) and C from 64 to 4096, with the ignore id, an id in the
+    padded tile and one beyond it among the targets; two calls give the
+    same bits. Limits as chip_smoke.py: lse and target logit 1e-3
+    absolute, the logit sum 1e-5 of the plain output's norm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import fused_xent as fx
+    g = torch.Generator(device="cuda").manual_seed(N + V + C)
+    h = torch.randn(N, C, generator=g, device="cuda").bfloat16()
+    e = (torch.randn(V, C, generator=g, device="cuda")
+         * (2.0 / C ** 0.5)).bfloat16()
+    t = torch.randint(0, V, (N,), generator=g, device="cuda",
+                      dtype=torch.int32)
+    t[::5] = -100
+    t[N // 2] = V + 3                       # inside the padded tile
+    t[N - 1] = V + 1000                     # beyond it
+    fx.reset_launch_counts()
+    got = fx.xent_fwd(h, e, t)
+    again = fx.xent_fwd(h, e, t)
+    ref = fx.fused_xent_fwd_plain(h, e, t)
+    torch.cuda.synchronize()
+    assert fx.LAUNCHES["xent_fwd"] == 2
+    for name, a, b, r in zip(("lse", "tgt", "lsum"), got, again, ref):
+        assert torch.equal(a, b), name       # bit-identical call to call
+        assert torch.isfinite(a).all(), name
+        diff = a - r
+        if name == "lsum":
+            assert (diff.norm() / r.norm()).item() <= 1e-5, name
+        else:
+            assert diff.abs().max().item() <= 1e-3, (name,
+                                                     diff.abs().max())
+    assert got[1][N // 2] == 0 and got[1][N - 1] == 0
+
+
+def _fwd_inputs(dt, B, Tq, Tk, H, Hk, D, fused):
+    """q, k, v as [B, H, T, D] views of BTHD buffers: one fused qkv buffer
+    when ``fused`` (as the GPT-2 block slices its projection), else three."""
+    g = torch.Generator(device="cuda").manual_seed(B * Tq + Tk + D)
+    if fused:
+        qkv = torch.randn(B, Tq, (H + 2 * Hk) * D, generator=g,
+                          device="cuda").to(dt)
+        q, k, v = qkv.split([H * D, Hk * D, Hk * D], dim=-1)
+        return [x.unflatten(-1, (-1, D)).transpose(1, 2) for x in (q, k, v)]
+    return [torch.randn(B, T, h, D, generator=g, device="cuda").to(
+        dt).transpose(1, 2) for T, h in ((Tq, H), (Tk, Hk), (Tk, Hk))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "fp16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,Tq,Tk,H,Hk,causal,fused", [
+    (2, 128, 384, 8, 2, True, False),     # Tq < Tk, causal offset, GQA 4
+    (1, 300, 200, 4, 1, True, False),     # Tq > Tk: 100 rows see no key
+    (2, 333, 333, 6, 2, True, True),      # strided views of a fused qkv
+    (1, 200, 520, 4, 4, False, False),    # non-causal, ragged
+])
+def test_flash_fwd_wgmma_matches_plain_on_card(dtype, D, B, Tq, Tk, H, Hk,
+                                               causal, fused):
+    """The wgmma + TMA flash forward (head dims 64 and 128) against its
+    plain version: o within the flash limits (bf16 1.6e-2, fp16 4e-3
+    max-abs, both 2**-8 of the norm), lse within 1e-4 where finite, and
+    rows with no live key exactly O = 0, lse = -inf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    dt, tol = {"bf16": (torch.bfloat16, 1.6e-2),
+               "fp16": (torch.float16, 4e-3)}[dtype]
+    q, k, v = _fwd_inputs(dt, B, Tq, Tk, H, Hk, D, fused)
+    kw = dict(causal=causal, sm_scale=D ** -0.5)
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    ro, rlse = fa.flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd"] == 1
+    assert o.dtype == dt and o.shape == q.shape
+    diff = o.float() - ro.float()
+    assert diff.abs().max().item() <= tol, diff.abs().max()
+    assert (diff.norm() / ro.float().norm()).item() <= 2.0 ** -8
+    live = torch.isfinite(rlse)
+    assert torch.equal(torch.isfinite(lse), live)
+    assert (lse[live] - rlse[live]).abs().max().item() <= 1e-4
+    dead = ~live
+    if dead.any():
+        assert torch.all(lse[dead] == float("-inf"))
+        assert torch.all(o[dead] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sm_scale", [-0.125, 0.0])
+def test_flash_fwd_wgmma_any_scale_matches_plain_on_card(sm_scale):
+    """A scale that is not positive takes the softmax path that scales
+    each score before the max (a positive one folds the scale into the
+    exponent): both against the plain version, bf16 limits as above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    q, k, v = _fwd_inputs(torch.bfloat16, 2, 200, 300, 4, 2, 64, False)
+    kw = dict(causal=True, sm_scale=sm_scale)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    ro, rlse = fa.flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    diff = o.float() - ro.float()
+    assert diff.abs().max().item() <= 1.6e-2
+    assert (diff.norm() / ro.float().norm()).item() <= 2.0 ** -8
+    assert (lse - rlse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_fwd_raises_on_a_stride_tma_cannot_take():
+    """A q/k/v stride that is not a 16-byte multiple raises, naming it; the
+    kernel is not launched and nothing else runs in its place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    B, T, H, D = 2, 64, 4, 64
+    buf = torch.randn(B, T, H * D + 4, device="cuda").bfloat16()
+    q = buf[..., :H * D].unflatten(-1, (H, D)).transpose(1, 2)
+    k, v = (torch.randn(B, H, T, D, device="cuda").bfloat16()
+            for _ in range(2))
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="q's time stride is 260"):
+        fa.flash_fwd(q, k, v, causal=True, sm_scale=D ** -0.5)
+    assert fa.LAUNCHES["flash_fwd"] == 0
