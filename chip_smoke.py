@@ -37,9 +37,13 @@ Phases, in order; any failure exits non-zero before the final line:
              in a CUDA graph (``_graph_ms``: device time without the
              host's launch cost).
 
-6. flash parity — the three flash-attention kernels (forward, dQ, dK/dV)
-             against their plain PyTorch versions from the same inputs and
-             the same dO, each kernel launched once a case: T=200 (not a
+6. flash parity — the flash-attention forward and backward against
+             their plain PyTorch versions from the same inputs and the
+             same dO, each launched once a case (the backward's launches
+             by its route: at head dims 64 and 128 in bf16/fp16 the wgmma
+             kernel with its prep and cast passes, where dK and dV must
+             also come out bit-identical from a second call; in fp32 the
+             dq / dkv pair), a seeded lse cotangent in two cases: T=200 (not a
              multiple of the tiles), Tq=128 against Tk=384 (the causal
              offset), GQA 8 -> 2 heads, non-causal, Tq=300 against Tk=200
              with GQA 4 (100 rows with no live key: O = 0 and lse = -inf
@@ -56,20 +60,24 @@ Phases, in order; any failure exits non-zero before the final line:
              AdamW (lr 1e-4, weight decay 0.01), WarmupLR, clipping 1.0,
              micro batch 4 x gas 2 on one seeded [8, 2049] batch; 2
              warm-up steps, then 5 timed steps (CUDA events and host
-             wall). The 7 losses must be finite and fall; each flash
-             kernel's launches must equal layers x gas x timed steps.
+             wall). The 7 losses must be finite and fall; the launches of
+             the flash forward and of each kernel of the backward's route
+             must equal layers x gas x timed steps, the other route's 0.
 8. training parity — 2 layers at full width, seq 512, 5 steps on one
              batch: the kernels' loss trajectory against the plain
              versions' (swapped in for this comparison only), bf16 within
              1e-4 relative, fp32 with TF32 off within 1e-6 relative
              (about ten times the first readings, 1.1e-5 and 8.4e-8).
-9. flash timing — each flash kernel at the slice shape (CUDA events, and
-             in a CUDA graph), its plain version,
-             ``F.scaled_dot_product_attention`` (causal) forward (events
-             and graph) and backward on the same q/k/v as a yardstick,
-             the bound and the graph time's share of it; the forward also
-             at the gpt1p3b heads (B=2, T=2048, H=16, D=128) beside SDPA,
-             its plain version and its bound.
+9. flash timing — the flash forward and the whole backward (prep, main
+             kernel, cast: ``flash_bwd``) at the slice shape (CUDA events,
+             and in a CUDA graph; the backward's three kernels also by
+             torch.profiler), their plain versions,
+             ``F.scaled_dot_product_attention`` (causal) forward and
+             backward (dQ, dK, dV; in a graph: forward and backward
+             captured together less the forward), events and graph, on
+             the same q/k/v as yardsticks, the bound (the backward's: five products a live
+             pair) and the graph time's share of it; both also at the
+             gpt1p3b heads (B=2, T=2048, H=16, D=128).
 10. xent parity — the three fused-xent kernels against their plain
              versions from the same inputs (the backward from the plain
              forward's lse), each launched once a case: bf16 and fp32
@@ -90,7 +98,8 @@ Phases, in order; any failure exits non-zero before the final line:
              ``xent_impl="fused"``: 2 warm-up and 5 timed steps (CUDA
              events); losses finite and falling; launches 1 per step for
              each xent kernel, 2 x 24 for flash_fwd (the ``qkv_out``
-             recompute), 24 for each flash backward kernel. Then the same
+             recompute), 24 for each kernel of the flash backward's wgmma
+             route. Then the same
              with ``xent_impl="chunked"``: its step-0 loss within 1e-5
              relative of the fused run's, both step times side by side.
 12. fused training parity — 2 layers of that configuration, seq 512, 5
@@ -197,7 +206,8 @@ bound and one library call:
              engine (head_dim 16) and a 2-layer engine at Phi-3-mini's
              widths (head_dim 96) under ``attention_impl="auto"``,
              token-identical to the dense engine (fp32, TF32 off); the
-             three flash kernels at ``GPT2Config.tiny``'s shapes (B 2, H
+             flash forward and the dq / dkv pair at ``GPT2Config.tiny``'s
+             shapes (B 2, H
              4, T 128, head_dim 16, causal) in fp16 and bf16 against their
              plain versions (bf16 FLASH_BF16_MAX_ABS, fp16
              FLASH_FP16_MAX_ABS, both 2**-8 of the norm), then that config
@@ -206,6 +216,9 @@ bound and one library call:
              ``DS4Sci_EvoformerAttention``
              at head dims 16 and 48 (zero-padded to 64) against its plain
              path. Each check holds its kernel's launch count above 0.
+             The dq / dkv pair's kernels-line rows (the backward at head
+             dims 16 and 32) come from here: launches of the two tiny
+             training runs, times at the tiny shape.
 
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
@@ -262,6 +275,8 @@ FLASH_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/flash_attention.cu"
 REPLACES = {"paged_prefill": "deepspeed_tpu/ops/kernels/paged_attention.py:45",
             "paged_decode": "deepspeed_tpu/ops/kernels/paged_attention.py:205",
             "flash_fwd": "deepspeed_tpu/ops/kernels/flash_attention.py:44",
+            "flash_bwd": "deepspeed_tpu/ops/kernels/flash_attention.py:311, "
+                         "deepspeed_tpu/ops/kernels/flash_attention.py:359",
             "flash_bwd_dq": "deepspeed_tpu/ops/kernels/flash_attention.py:311",
             "flash_bwd_dkv":
                 "deepspeed_tpu/ops/kernels/flash_attention.py:359",
@@ -793,43 +808,57 @@ def flash_inputs(torch, *, B, Tq, Tk, H, Hk, D, dtype, seed):
     return mk(Tq, H), mk(Tk, Hk), mk(Tk, Hk), mk(Tq, H)
 
 
-def flash_all(fa, q, k, v, do, *, causal, sm_scale, plain):
-    """Forward from q/k/v, then both backward kernels from the plain
-    forward's lse and the delta of the plain forward's O, so the three
-    kernels are each held against their plain version on equal inputs."""
+def flash_all(fa, q, k, v, do, *, causal, sm_scale, plain, dlse=None):
+    """Forward from q/k/v, then the backward from the plain forward's o and
+    lse (and the lse cotangent ``dlse``), so the forward and the backward
+    are each held against their plain version on equal inputs."""
     kw = dict(causal=causal, sm_scale=sm_scale)
     ro, rlse = fa.flash_fwd_plain(q, k, v, **kw)
-    delta = (do.float() * ro.float()).sum(-1).contiguous()
     if plain:
-        return ([ro, rlse, fa.flash_bwd_dq_plain(q, k, v, do, rlse, delta,
-                                                 **kw),
-                 *fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)])
+        return [ro, rlse, *fa.flash_bwd_plain(q, k, v, do, ro, rlse, dlse,
+                                              **kw)]
     o, lse = fa.flash_fwd(q, k, v, **kw)
-    return [o, lse, fa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw),
-            *fa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)]
+    return [o, lse, *fa.flash_bwd(q, k, v, do, ro, rlse, dlse, **kw)]
 
 
-FLASH_OUTPUTS = (("flash_fwd", "o"), ("flash_fwd", "lse"),
-                 ("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dk"),
-                 ("flash_bwd_dkv", "dv"))
+def flash_outputs(fa, D, dtype):
+    """(kernels-line row, output) of each of ``flash_all``'s outputs: the
+    backward's row is its route's (``fa.bwd_launch_names``)."""
+    names = fa.bwd_launch_names(D, dtype)
+    dq_row, dkv_row = ("flash_bwd", "flash_bwd") if "flash_bwd" in names \
+        else names
+    return (("flash_fwd", "o"), ("flash_fwd", "lse"), (dq_row, "dq"),
+            (dkv_row, "dk"), (dkv_row, "dv"))
+
+
+def flash_want(fa, D, dtype, n_fwd, n_bwd):
+    """The launch counts of ``n_fwd`` forwards and ``n_bwd`` backwards at
+    head dim D in ``dtype``: every entry of ``fa.LAUNCHES``, the other
+    route's at 0."""
+    want = dict.fromkeys(fa.LAUNCHES, 0)
+    want["flash_fwd"] = n_fwd
+    for name in fa.bwd_launch_names(D, dtype):
+        want[name] = n_bwd
+    return want
 
 
 def phase_flash_parity(torch):
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 products
-    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    worst = {"flash_fwd": 0.0, "flash_bwd": 0.0}
     cases = [
-        # (B, Tq, Tk, H, Hk, D, causal)
-        (2, 200, 200, 4, 4, 64, True),
-        (2, 128, 384, 8, 2, 64, True),
-        (2, 200, 200, 8, 2, 64, False),
-        (1, 300, 200, 4, 1, 64, True),      # 100 rows with no live key
-        (1, 256, 256, 2, 2, 128, True),
-        (1, 300, 200, 4, 1, 128, True),
-        (TRAIN_MB, TRAIN_T, TRAIN_T, 32, 32, 64, True),   # the slice shape
-        (BENCH_MB, BENCH_T, BENCH_T, 16, 16, 128, True),  # gpt1p3b's heads
+        # (B, Tq, Tk, H, Hk, D, causal, an lse cotangent)
+        (2, 200, 200, 4, 4, 64, True, False),
+        (2, 128, 384, 8, 2, 64, True, False),
+        (2, 200, 200, 8, 2, 64, False, True),
+        (1, 300, 200, 4, 1, 64, True, False),   # 100 rows with no live key
+        (1, 256, 256, 2, 2, 128, True, False),
+        (1, 300, 200, 4, 1, 128, True, True),
+        (2, 256, 256, 8, 2, 128, True, False),  # GQA 8 -> 2 at D = 128
+        (TRAIN_MB, TRAIN_T, TRAIN_T, 32, 32, 64, True, False),  # the slice
+        (BENCH_MB, BENCH_T, BENCH_T, 16, 16, 128, True, False),  # gpt1p3b
     ]
-    for B, Tq, Tk, Hh, Hk, Dh, causal in cases:
+    for B, Tq, Tk, Hh, Hk, Dh, causal, with_dlse in cases:
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             if dtype is torch.float32 and Tq == TRAIN_T:
                 continue          # the CUDA-core oracle is slow at 2048
@@ -838,12 +867,26 @@ def phase_flash_parity(torch):
             q, k, v, do = flash_inputs(torch, B=B, Tq=Tq, Tk=Tk, H=Hh,
                                        Hk=Hk, D=Dh, dtype=dtype, seed=Tq)
             kw = dict(causal=causal, sm_scale=Dh ** -0.5)
+            g = torch.Generator(device="cuda").manual_seed(Tk)
+            kw["dlse"] = torch.randn(B, Hh, Tq, generator=g, device="cuda") \
+                * 0.1 if with_dlse else None
             fa.reset_launch_counts()
             got = flash_all(fa, q, k, v, do, plain=False, **kw)
-            if fa.LAUNCHES != {"flash_fwd": 1, "flash_bwd_dq": 1,
-                               "flash_bwd_dkv": 1}:
-                raise AssertionError(f"flash parity launches {fa.LAUNCHES}")
+            want = flash_want(fa, Dh, dtype, 1, 1)
+            if fa.LAUNCHES != want:
+                raise AssertionError(f"flash parity launches {fa.LAUNCHES}"
+                                     f" != {want}")
             ref = flash_all(fa, q, k, v, do, plain=True, **kw)
+            if "flash_bwd" in fa.bwd_launch_names(Dh, dtype):
+                # dK and dV: one block owns each key tile (no atomics)
+                again = fa.flash_bwd(q, k, v, do, ref[0], ref[1],
+                                     kw["dlse"], causal=causal,
+                                     sm_scale=kw["sm_scale"])
+                if not (torch.equal(again[1], got[3])
+                        and torch.equal(again[2], got[4])):
+                    raise AssertionError(f"flash_bwd B{B} Tq{Tq} D{Dh} "
+                                         f"{dtype}: dK/dV differ between "
+                                         f"two calls")
             torch.cuda.synchronize()
             # rows with no live key: lse = -inf in both, O = 0 exactly
             dead = ~torch.isfinite(ref[1])
@@ -853,15 +896,17 @@ def phase_flash_parity(torch):
                                      f"with no live key not O = 0, -inf")
             got[1] = got[1].masked_fill(dead, 0.0)
             ref[1] = ref[1].masked_fill(dead, 0.0)
-            for (name, out), g_, r_ in zip(FLASH_OUTPUTS, got, ref):
+            for (name, out), g_, r_ in zip(flash_outputs(fa, Dh, dtype),
+                                           got, ref):
                 if not torch.isfinite(g_.float()).all():
                     raise AssertionError(f"{name} {out}: non-finite output")
                 err = check_close(
                     torch, f"[flash parity] {name} {out} {str(dtype)[6:]} "
-                    f"B{B} Tq{Tq} Tk{Tk} H{Hh}/{Hk} D{Dh} causal={causal}",
+                    f"B{B} Tq{Tq} Tk{Tk} H{Hh}/{Hk} D{Dh} causal={causal}"
+                    f"{' dlse' if with_dlse else ''}",
                     g_, r_, bf16_max_abs=FLASH_BF16_MAX_ABS,
                     fp32_max_abs=FLASH_FP32_MAX_ABS)
-                if dtype is torch.bfloat16:
+                if dtype is torch.bfloat16 and name in worst:
                     worst[name] = max(worst[name], err)
     return worst
 
@@ -870,13 +915,12 @@ def phase_flash_parity(torch):
 def plain_flash(fa):
     """The flash autograd Function with the plain versions swapped in for
     the kernels, for the training-parity comparison only."""
-    saved = fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv
-    fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv = (
-        fa.flash_fwd_plain, fa.flash_bwd_dq_plain, fa.flash_bwd_dkv_plain)
+    saved = fa.flash_fwd, fa.flash_bwd
+    fa.flash_fwd, fa.flash_bwd = fa.flash_fwd_plain, fa.flash_bwd_plain
     try:
         yield
     finally:
-        fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv = saved
+        fa.flash_fwd, fa.flash_bwd = saved
 
 
 def train_config(mb, gas):
@@ -941,10 +985,11 @@ def phase_training(torch, trace):
     peak = torch.cuda.max_memory_allocated()
     step_ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(TRAIN_STEPS)]
     losses = [float(x) for x in losses]
-    want = cfg.num_layers * TRAIN_GAS * TRAIN_STEPS
-    if any(n != want for n in launches.values()):
+    n = cfg.num_layers * TRAIN_GAS * TRAIN_STEPS
+    want = flash_want(fa, cfg.head_dim, cfg.dtype, n, n)
+    if launches != want:
         raise AssertionError(f"flash launches {launches} != layers x gas x "
-                             f"steps = {want}")
+                             f"steps: {want}")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite and falling: {losses}")
@@ -984,8 +1029,23 @@ def phase_train_trace(torch, engine, batch):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     out = _device_summary(prof, wall, 1, top=12)
+    out["flash_ms"] = _kernel_ms_by_name(prof, "flash_")
     log(f"[trace] train_batch: {json.dumps(out)}")
     return out
+
+
+def _kernel_ms_by_name(prof, part):
+    """Device ms and count of each kernel whose name holds ``part``, keyed
+    by the name's first 60 characters past the namespace."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or part not in e.name:
+            continue
+        key = e.name[e.name.index(part):][:60]
+        n, ms = out.get(key, (0, 0.0))
+        out[key] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
+    return {k: {"count": n, "ms": ms} for k, (n, ms) in out.items()}
 
 
 def phase_training_parity(torch):
@@ -1055,95 +1115,120 @@ def _flash_bound(B, T, Hh, Dh, products, n_bf16, n_rows):
             else "bytes", nbytes, flops)
 
 
+def _sdpa_bwd_ms(torch, q, k, v, do):
+    """The library yardstick of the backward: SDPA's backward (dQ, dK and
+    dV, the backend SDPA picks) on the same q/k/v/dO. By events, one
+    ``torch.autograd.grad`` call a step on a kept graph; in a CUDA graph,
+    forward and backward captured together, less the forward alone.
+    Returns (events ms, graph ms)."""
+    import torch.nn.functional as F
+
+    def fwd():
+        # fresh leaves a call: their autograd nodes then belong to the
+        # stream the call runs on (the graph's, while it is captured)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        return F.scaled_dot_product_attention(*leaves, is_causal=True), \
+            leaves
+
+    o, leaves = fwd()
+    ev = _time_ms(torch, lambda: torch.autograd.grad(
+        o, leaves, do, retain_graph=True), 20)
+    both = _graph_ms(torch, [lambda: torch.autograd.grad(*fwd(), do)])
+    return ev, both - _graph_ms(torch, [fwd])
+
+
+def _bwd_kernel_ms(torch, fn, iters=5):
+    """Device ms per call of the backward's three kernels (prep, main,
+    cast) under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = next((k for k in ("prep", "wgmma", "cast") if k in e.name),
+                   "other")
+        out[key] = out.get(key, 0.0) + \
+            (e.time_range.end - e.time_range.start) / 1e3 / iters
+    return out
+
+
 def phase_flash_timing(torch, train, worst):
-    """Each flash kernel at the slice shape (B=4, T=2048, H=32, D=64, bf16,
-    causal), q/k/v strided views of one qkv buffer as in the model, by
-    CUDA events and in a CUDA graph; the forward also at the gpt1p3b
-    shape (B=2, T=2048, H=16, D=128), beside SDPA and its bound."""
+    """The flash forward and the whole backward (prep, main kernel, cast)
+    at the slice shape (B=4, T=2048, H=32, D=64, bf16, causal) and at the
+    gpt1p3b heads (B=2, H=16, D=128), q/k/v strided views of one qkv
+    buffer as in the model, by CUDA events and in a CUDA graph, beside
+    SDPA's forward and its flash backward op and their bounds."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
-    B, T, Hh, Dh = TRAIN_MB, TRAIN_T, 32, 64
-    q, k, v = _flash_qkv(torch, B, T, Hh, Dh, 5)
-    g = torch.Generator(device="cuda").manual_seed(6)
-    do = torch.randn(B, T, Hh, Dh, generator=g, device="cuda").to(
-        torch.bfloat16).transpose(1, 2)
-    kw = dict(causal=True, sm_scale=Dh ** -0.5)
-    o, lse = fa.flash_fwd(q, k, v, **kw)
-    delta = (do.float() * o.float()).sum(-1).contiguous()
-    calls = {
-        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
-                      lambda: fa.flash_fwd_plain(q, k, v, **kw)),
-        "flash_bwd_dq": (
-            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
-            lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)),
-        "flash_bwd_dkv": (
-            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
-            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)),
-    }
-    # the library yardstick on the same q/k/v: SDPA forward, and its
-    # backward (one call computing dQ, dK and dV together)
-    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, is_causal=True)
-    sdpa_fwd = _time_ms(torch, sdpa, 20)
-    sdpa_fwd_graph = _graph_ms(torch, [sdpa])
-    so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    sdpa_bwd = _time_ms(torch, lambda: torch.autograd.grad(
-        so, (qs, ks, vs), do, retain_graph=True), 20)
-    work = {  # (matrix products per (query, key) pair, tensors in/out)
-        "flash_fwd": (2, 4, 1), "flash_bwd_dq": (3, 5, 2),
-        "flash_bwd_dkv": (4, 6, 2)}
+    T = TRAIN_T
+    out = {"flash_fwd": {}, "flash_bwd": {}}
+    for B, Hh, Dh, seed in ((TRAIN_MB, 32, 64, 5), (BENCH_MB, 16, 128, 7)):
+        q, k, v = _flash_qkv(torch, B, T, Hh, Dh, seed)
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        do = torch.randn(B, T, Hh, Dh, generator=g, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+        kw = dict(causal=True, sm_scale=Dh ** -0.5)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        calls = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                          lambda: fa.flash_fwd_plain(q, k, v, **kw),
+                          lambda: F.scaled_dot_product_attention(
+                              q, k, v, is_causal=True),
+                          (2, 4, 1)),
+            "flash_bwd": (lambda: fa.flash_bwd(q, k, v, do, o, lse, None,
+                                               **kw),
+                          lambda: fa.flash_bwd_plain(q, k, v, do, o, lse,
+                                                     None, **kw),
+                          None, (5, 8, 1)),
+        }
+        shape = {"B": B, "T": T, "H": Hh, "D": Dh, "dtype": "bf16",
+                 "causal": True}
+        for name, (kern, plain, lib, work) in calls.items():
+            if Dh == 64:
+                err = worst[name]
+            else:   # the parity phase's bf16 cases at this shape, again
+                got, ref = kern(), plain()
+                err = max(check_close(
+                    torch, f"[flash timing] {name} {i} B{B} T{T} H{Hh} "
+                    f"D{Dh}", g_, r_, bf16_max_abs=FLASH_BF16_MAX_ABS)
+                    for i, g_, r_ in zip(range(3), got, ref)
+                    if g_.dtype == torch.bfloat16)
+            bound, by, nbytes, flops = _flash_bound(B, T, Hh, Dh, *work)
+            lib_ms, lib_graph = (_time_ms(torch, lib, 20),
+                                 _graph_ms(torch, [lib])) if lib else \
+                _sdpa_bwd_ms(torch, q, k, v, do)
+            r = {"shape": shape, "max_abs_err": err,
+                 "ms": _time_ms(torch, kern, 20),
+                 "graph_ms": _graph_ms(torch, [kern]),
+                 "plain_ms": _time_ms(torch, plain, 3),
+                 "library_ms": lib_ms, "library_graph_ms": lib_graph,
+                 "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                 "flops": flops}
+            r["bound_share"] = bound / r["graph_ms"]
+            if name == "flash_bwd":
+                r["kernel_ms"] = _bwd_kernel_ms(torch, kern)
+            out[name][Dh] = r
+            log(f"[flash timing] {name} B{B} T{T} H{Hh} D{Dh}: "
+                f"{r['ms']:.4f} ms (graph {r['graph_ms']:.4f}, plain "
+                f"{r['plain_ms']:.4f}, bound {bound:.4f} by {by}, "
+                f"{r['bound_share']:.1%} of it; library {r['library_ms']:.4f}"
+                f", graph {r['library_graph_ms']:.4f})"
+                + (f"; kernels {r['kernel_ms']}" if "kernel_ms" in r else ""))
     rows = []
-    for name, (kern, plain) in calls.items():
-        ms = _time_ms(torch, kern, 20)
-        graph = _graph_ms(torch, [kern])
-        plain_ms = _time_ms(torch, plain, 3)
-        bound, by, nbytes, flops = _flash_bound(B, T, Hh, Dh, *work[name])
-        rows.append({
-            "name": name, "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": REPLACES[name], "launches": train["launches"][name],
-            "launches_per_step": train["launches"][name] // TRAIN_STEPS,
-            "steps": TRAIN_STEPS, "max_abs_err": worst[name],
-            "ms": ms, "graph_ms": graph, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "bound_share": bound / graph,
-            "library_ms": sdpa_fwd if name == "flash_fwd" else None,
-            "sdpa_bwd_ms": sdpa_bwd,
-            "shape": {"B": B, "T": T, "H": Hh, "D": Dh, "dtype": "bf16",
-                      "causal": True},
-            "bytes": nbytes, "flops": flops})
-        log(f"[flash timing] {name}: {ms:.4f} ms (graph {graph:.4f}, "
-            f"plain {plain_ms:.4f}, bound {bound:.4f} by {by}, "
-            f"{bound / graph:.1%} of it; sdpa fwd {sdpa_fwd:.4f} "
-            f"(graph {sdpa_fwd_graph:.4f}), sdpa bwd {sdpa_bwd:.4f})")
-    rows[0]["library_graph_ms"] = sdpa_fwd_graph
-    # the forward at the gpt1p3b heads (16 of 128)
-    B2, H2, D2 = BENCH_MB, 16, 128
-    q2, k2, v2 = _flash_qkv(torch, B2, T, H2, D2, 7)
-    kw2 = dict(causal=True, sm_scale=D2 ** -0.5)
-    kern2 = lambda: fa.flash_fwd(q2, k2, v2, **kw2)  # noqa: E731
-    sdpa2 = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q2, k2, v2, is_causal=True)
-    err2 = check_close(torch, f"[flash timing] flash_fwd o B{B2} T{T} "
-                       f"H{H2} D{D2}", kern2()[0],
-                       fa.flash_fwd_plain(q2, k2, v2, **kw2)[0],
-                       bf16_max_abs=FLASH_BF16_MAX_ABS)
-    bound2, by2, _, _ = _flash_bound(B2, T, H2, D2, 2, 4, 1)
-    d128 = {"shape": {"B": B2, "T": T, "H": H2, "D": D2, "dtype": "bf16",
-                      "causal": True},
-            "ms": _time_ms(torch, kern2, 20),
-            "graph_ms": _graph_ms(torch, [kern2]),
-            "plain_ms": _time_ms(torch, lambda: fa.flash_fwd_plain(
-                q2, k2, v2, **kw2), 3),
-            "library_ms": _time_ms(torch, sdpa2, 20),
-            "library_graph_ms": _graph_ms(torch, [sdpa2]),
-            "bound_ms": bound2, "bound_by": by2, "max_abs_err": err2}
-    d128["bound_share"] = bound2 / d128["graph_ms"]
-    rows[0]["d128"] = d128
-    log(f"[flash timing] flash_fwd at B{B2} T{T} H{H2} D{D2}: "
-        f"{d128['ms']:.4f} ms (graph {d128['graph_ms']:.4f}, plain "
-        f"{d128['plain_ms']:.4f}, bound {bound2:.4f} by {by2}, "
-        f"{d128['bound_share']:.1%} of it; sdpa {d128['library_ms']:.4f}, "
-        f"graph {d128['library_graph_ms']:.4f})")
+    for name, by_d in out.items():
+        r = dict(by_d[64])
+        r.update(name=name, route="cuda", source=FLASH_SOURCE,
+                 replaces=REPLACES[name], launches=train["launches"][name],
+                 launches_per_step=train["launches"][name] // TRAIN_STEPS,
+                 steps=TRAIN_STEPS, d128=by_d[128])
+        rows.append(r)
     return rows
 
 
@@ -1324,14 +1409,16 @@ def run_gpt1p3b(torch, xent_impl, trace=False):
 
 
 def phase_gpt1p3b(torch, trace):
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
     # bf16 compute: the chunked run's only fp32 products are its LM head's,
     # whose bf16 operands are exact in TF32 (chunked_lm_xent's docstring)
     torch.backends.cuda.matmul.allow_tf32 = True
     cfg, fused = run_gpt1p3b(torch, "fused", trace)
     L = cfg.num_layers
     want = {"xent_fwd": TRAIN_STEPS, "xent_bwd_dh": TRAIN_STEPS,
-            "xent_bwd_de": TRAIN_STEPS, "flash_fwd": 2 * L * TRAIN_STEPS,
-            "flash_bwd_dq": L * TRAIN_STEPS, "flash_bwd_dkv": L * TRAIN_STEPS}
+            "xent_bwd_de": TRAIN_STEPS,
+            **flash_want(fa, cfg.head_dim, cfg.dtype, 2 * L * TRAIN_STEPS,
+                         L * TRAIN_STEPS)}
     if fused["launches"] != want:
         raise AssertionError(f"launches {fused['launches']} != {want}")
     losses = fused["losses"]
@@ -2745,10 +2832,11 @@ def phase_c1_shapes(torch):
         out[label] = launches["auto"]
         del params
     torch.cuda.empty_cache()
-    # GPT2Config.tiny (head_dim 16): the three flash kernels at its
-    # shapes (B 2, H 4, T 128), then training, in fp16 and bf16
+    # GPT2Config.tiny (head_dim 16): the flash forward and the dq / dkv
+    # pair at its shapes (B 2, H 4, T 128), then training, in fp16 and bf16
     tiny = GPT2Config.tiny()
     Dh = tiny.head_dim
+    pair_err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for dtype in (torch.float16, torch.bfloat16):
         q, k, v, do = flash_inputs(torch, B=2, Tq=tiny.max_seq_len,
                                    Tk=tiny.max_seq_len, H=tiny.num_heads,
@@ -2758,20 +2846,24 @@ def phase_c1_shapes(torch):
         fa.reset_launch_counts()
         got = flash_all(fa, q, k, v, do, plain=False, **kw)
         torch.cuda.synchronize()
-        if fa.LAUNCHES != {"flash_fwd": 1, "flash_bwd_dq": 1,
-                           "flash_bwd_dkv": 1}:
+        if fa.LAUNCHES != flash_want(fa, Dh, dtype, 1, 1):
             raise AssertionError(f"flash {dtype} D={Dh}: {fa.LAUNCHES}")
         ref = flash_all(fa, q, k, v, do, plain=True, **kw)
-        for (name, o), g_, r_ in zip(FLASH_OUTPUTS, got, ref):
+        for (name, o), g_, r_ in zip(flash_outputs(fa, Dh, dtype), got,
+                                     ref):
             if g_.dtype != r_.dtype or not torch.isfinite(g_.float()).all():
                 raise AssertionError(f"{name} {o} {dtype}: {g_.dtype}, "
                                      f"non-finite or not {r_.dtype}")
-            check_close(torch, f"[c1] {name} {o} {str(dtype)[6:]} B2 "
-                        f"T{tiny.max_seq_len} H{tiny.num_heads} D{Dh} "
-                        f"causal", g_, r_, bf16_max_abs=FLASH_BF16_MAX_ABS)
+            err = check_close(torch, f"[c1] {name} {o} {str(dtype)[6:]} B2 "
+                              f"T{tiny.max_seq_len} H{tiny.num_heads} "
+                              f"D{Dh} causal", g_, r_,
+                              bf16_max_abs=FLASH_BF16_MAX_ABS)
+            if dtype is torch.bfloat16 and name in pair_err:
+                pair_err[name] = max(pair_err[name], err)
     g = torch.Generator(device="cuda").manual_seed(22)
     batches = [torch.randint(0, 512, (2, 129), generator=g, device="cuda")
                for _ in range(5)]
+    pair_launches = dict.fromkeys(pair_err, 0)
     for prec, dtype in (("fp16", torch.float16), ("bf16", torch.bfloat16)):
         ds = {"train_micro_batch_size_per_gpu": 2,
               "gradient_accumulation_steps": 1,
@@ -2791,9 +2883,13 @@ def phase_c1_shapes(torch):
                             for b in batches]
             launches[impl] = dict(fa.LAUNCHES)
             del engine
-        if not all(launches["auto"].values()) or any(
+        route = ("flash_fwd",) + fa.bwd_launch_names(Dh, dtype)
+        if not all(n > 0 if k in route else n == 0
+                   for k, n in launches["auto"].items()) or any(
                 launches["xla"].values()):
             raise AssertionError(f"GPT-2 {prec}: launches {launches}")
+        for k in pair_launches:
+            pair_launches[k] += launches["auto"][k]
         if not all(math.isfinite(x) for x in losses["auto"]):
             raise AssertionError(f"GPT-2 {prec}: losses {losses['auto']}")
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses["auto"],
@@ -2817,7 +2913,48 @@ def phase_c1_shapes(torch):
                     f"{Dh}] bf16", got,
                     evo(q, k, v, [mask, pair], use_kernel=False),
                     bf16_max_abs=EVO_BF16_MAX_ABS)
-    return out
+    return out, pair_rows(torch, fa, tiny, pair_launches, pair_err)
+
+
+def pair_rows(torch, fa, tiny, launches, err):
+    """The kernels-line rows of the dq / dkv pair, the backward at head
+    dims 16 and 32: launches of phase 22's two GPT2Config.tiny training
+    runs, times at its shape (B 2, H 4, T 128, D 16, bf16, causal) by
+    events and in a CUDA graph, beside SDPA's backward."""
+    B, T, Hh, Dh = 2, tiny.max_seq_len, tiny.num_heads, tiny.head_dim
+    q, k, v, do = flash_inputs(torch, B=B, Tq=T, Tk=T, H=Hh, Hk=Hh, D=Dh,
+                               dtype=torch.bfloat16, seed=23)
+    kw = dict(causal=True, sm_scale=Dh ** -0.5)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa.flash_bwd_delta_plain(o, do)
+    lib_ms, lib_graph = _sdpa_bwd_ms(torch, q, k, v, do)
+    rows = []
+    for name, kern, plain, work in (
+            ("flash_bwd_dq",
+             lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw),
+             (3, 5, 2)),
+            ("flash_bwd_dkv",
+             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw),
+             (4, 6, 2))):
+        bound, by, nbytes, flops = _flash_bound(B, T, Hh, Dh, *work)
+        r = {"name": name, "route": "cuda", "source": FLASH_SOURCE,
+             "replaces": REPLACES[name], "launches": launches[name],
+             "max_abs_err": err[name], "ms": _time_ms(torch, kern, 20),
+             "graph_ms": _graph_ms(torch, [kern]),
+             "plain_ms": _time_ms(torch, plain, 3), "bound_ms": bound,
+             "bound_by": by, "library_ms": lib_ms,
+             "library_graph_ms": lib_graph, "bytes": nbytes, "flops": flops,
+             "shape": {"B": B, "T": T, "H": Hh, "D": Dh, "dtype": "bf16",
+                       "causal": True},
+             "path": "phase 22, GPT2Config.tiny training"}
+        log(f"[c1] {name} (the pair, head dims 16 and 32): {r['ms']:.4f} "
+            f"ms (graph {r['graph_ms']:.4f}, plain {r['plain_ms']:.4f}, "
+            f"bound {bound:.4f} by {by}; library dQ+dK+dV {lib_ms:.4f}, "
+            f"graph {lib_graph:.4f}); launches {launches[name]}")
+        rows.append(r)
+    return rows
 
 
 def main(argv) -> int:
@@ -2883,7 +3020,8 @@ def main(argv) -> int:
     rows += run(phase_adamw_op, torch)
     rows += run(phase_sparse_op, torch)
     rows += run(phase_evoformer_op, torch)
-    c1 = run(phase_c1_shapes, torch)
+    c1, c1_rows = run(phase_c1_shapes, torch)
+    rows += c1_rows
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     result = {"kernels": rows, "card": card, "phase_s": phase_s,
               "serving": {k: serving[k] for k in

@@ -48,6 +48,8 @@ SIGNATURES = {
         "flash_fwd_launch": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
         "flash_bwd_dq_launch": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
         "flash_bwd_dkv_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
+        # q, k, v, dout, o, lse, dlse, dq, dk, dv, dQ workspace, rows, ...
+        "flash_bwd_launch": [_P] * 13 + [_I] * 6 + [_F, _I, _I, _P],
     },
     # h, e, targets, out, partials, N, V, C, splits, is_bf16, stream
     "fused_xent": {

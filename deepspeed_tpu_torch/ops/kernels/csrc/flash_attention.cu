@@ -1,21 +1,26 @@
-// FlashAttention-2 forward and backward for Hopper (sm_90a): the three
-// kernels of the training path's attention.
+// FlashAttention-2 forward and backward for Hopper (sm_90a): the kernels
+// of the training path's attention.
 //
 // flash_fwd replaces the Pallas kernel `_fwd_kernel` with
 //   `_online_softmax_block` (deepspeed_tpu/ops/kernels/flash_attention.py:44
 //   and :92, launched at :276): online-softmax attention that writes O and
 //   the row logsumexp lse = m + log(l).
-// flash_bwd_dq replaces `_bwd_dq_kernel` (:311, launched at :436): dQ
-//   accumulated over the key tiles from lse and delta = rowsum(dO * O).
-// flash_bwd_dkv replaces `_bwd_dkv_kernel` (:359, launched at :473): dK and
-//   dV of one KV head accumulated over every query head of its GQA group
-//   and every query tile, so no atomics are needed (the Pallas grid fuses
-//   (group, q-tile) into its innermost axis at :461-495 for the same end).
+// flash_bwd replaces `_bwd_dq_kernel` (:311, launched at :436) and
+//   `_bwd_dkv_kernel` (:359, launched at :473) together at head dims 64
+//   and 128 in bf16 / fp16: flash_bwd_wgmma_kernel computes dQ, dK and dV
+//   in one pass over the (query tile, key tile) pairs, between a prep pass
+//   (delta = rowsum(dO * O) - dlse, the dQ workspace zeroed) and a cast
+//   pass (dQ out of its fp32 workspace).
+// flash_bwd_dq / flash_bwd_dkv, the pair the Pallas split copies (dQ over
+//   the key tiles; dK and dV of one KV head over every query head of its
+//   GQA group and every query tile, so no atomics are needed: the Pallas
+//   grid fuses (group, q-tile) into its innermost axis at :461-495 for the
+//   same end), run the backward at head dims 16 and 32 and in fp32.
 //
-// Bound on the H100: at the training shape (T = 2048, D = 64, causal) the
-// three are FLOP-bound -- 2, 3 and 4 matrix products per (query, key) tile
-// against O(T * D) bytes per row -- so bf16 and fp16 run on the tensor
-// cores.
+// Bound on the H100: at the training shape (T = 2048, D = 64, causal)
+// attention is FLOP-bound -- 2 matrix products per (query, key) pair
+// forward, 5 backward (7 in the pair) -- against O(T * D) bytes per row,
+// so bf16 and fp16 run on the tensor cores.
 //
 // The forward at D = 64 and 128 (the training paths' head dims) is built
 // for Hopper (flash_fwd_wgmma_kernel, hopper.cuh): a persistent block an
@@ -26,25 +31,32 @@
 // tensor cores, the causal triangle's items dealt heaviest first. D = 16
 // and 32 (GPT2Config.tiny, untimed) keep the mma.sync forward.
 //
-// The backward pair, and the forward at D = 16 and 32: mma.sync m16n8k16
-// (bf16 or fp16 in, fp32 accumulate; the kernels are templated on the
-// element type T), one block of 4 warps, each warp owning 16 rows of the
-// block's 64-row tile, with the scores, probabilities and accumulators
-// kept in registers and the streamed 64-row tiles of the other operand
-// double-buffered in shared memory (cp.async: the next tile's copy runs
-// under this tile's products) and read as mma fragments with ldmatrix. The
-// score accumulators re-pack as the A fragments of the next product
-// without a trip through shared memory. Fully masked key tiles above the
-// causal diagonal are never read; exponentials use the fast ex2-based
-// __expf. Not done yet in the pair (what holds it back): mma.sync instead
-// of wgmma, no TMA, 64-row tiles with 4 warps, no scheduling over the
-// causal triangle's uneven work, and the dkv block (at the register
-// limit) re-reads Q and dO from device memory for each of its key tiles.
+// The backward at D = 64 and 128 (flash_bwd_wgmma_kernel): a persistent
+// block an SM walks work items of (batch, KV head, 128 keys), dK and dV in
+// the registers of two consumer warpgroups (64 keys each) over every query
+// tile of the GQA group, Q / dO / lse / delta streamed by TMA and bulk
+// copies through a ring filled by a producer warp, S^T and dP^T on wgmma
+// from shared memory, dV and dK on wgmma with P^T and dS^T as register A
+// fragments, dQ on wgmma from dS^T in shared memory (the transposed-A
+// form) added into an fp32 workspace by bulk reduce-add (see its section).
+//
+// The mma.sync kernels (the forward at D = 16 and 32, the dq / dkv pair):
+// mma.sync m16n8k16 (bf16 or fp16 in, fp32 accumulate; the kernels are
+// templated on the element type T), one block of 4 warps, each warp
+// owning 16 rows of the block's 64-row tile, with the scores,
+// probabilities and accumulators kept in registers and the streamed
+// 64-row tiles of the other operand double-buffered in shared memory
+// (cp.async: the next tile's copy runs under this tile's products) and
+// read as mma fragments with ldmatrix. The score accumulators re-pack as
+// the A fragments of the next product without a trip through shared
+// memory. Fully masked key tiles above the causal diagonal are never
+// read; exponentials use the fast ex2-based __expf.
 //
 // Head dims 16, 32, 64 and 128 are instantiated (the GPT-2 configs' 16 and
-// 64, the bench's 128), for fp32, bf16 and fp16. The wgmma forward takes
-// q/k/v whose base addresses and strides (those of dims longer than 1)
-// are 16-byte multiples, as TMA needs; the wrapper raises for others.
+// 64, the bench's 128), for fp32, bf16 and fp16. The wgmma kernels take
+// q/k/v (and the backward's dO) whose base addresses and strides (those
+// of dims longer than 1) are 16-byte multiples, as TMA needs; the wrapper
+// raises for others.
 //
 // Numerics follow the Pallas kernels: scores in fp32 scaled after the
 // product; P cast to V's dtype before P.V with the row sums taken before
@@ -624,6 +636,465 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ----------------------------------------------- backward, D = 64 and 128
+//
+// One main kernel computes dQ, dK and dV with five products a (query
+// tile, key tile) pair: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO,
+// dK += dS^T Q and dQ += dS K (the Pallas pair, and the mma.sync pair
+// below, take seven: each half recomputes S and dP).
+//
+// A work item is (batch, KV head, 128-key tile). Its block walks every
+// query tile that sees the key tile, for every query head of the GQA
+// group, in the Pallas order (query head, then query tile), keeping dK and
+// dV of its keys in registers: one block owns the item, so they need no
+// atomics and come out bit-identical from call to call. Warpgroup 0 is
+// the producer (one thread: the K and V tiles once an item by TMA, then
+// Q, dO and the item's rows of lse and delta through a ring of BW_STAGES
+// buffers on mbarriers); warpgroups 1 and 2 the consumers, 64 keys each,
+// 240 registers a thread (setmaxnreg). A consumer runs S^T and dP^T on
+// m64nBQk16 wgmma from shared memory (both K-major), the probabilities
+// and dS^T on the fp32 accumulators, then dV and dK on m64nDk16 wgmma
+// with P^T and dS^T as register A fragments and dO and Q MN-major from
+// shared memory. dS^T (cast to the element type, as for dK) goes once to
+// shared memory, double-buffered across tiles; when both halves are in,
+// each consumer takes a 64 x 64 block of the tile's dQ on wgmma with dS
+// read MN-major (the transposed-A form) and K MN-major, and adds it into
+// an fp32 workspace with one bulk reduce-add (cp.reduce.async.bulk ...
+// add.f32). dQ's summation order over the key tiles thus varies from call
+// to call; dK's and dV's does not.
+//
+// Query tiles are 128 rows at D = 64 and 64 at D = 128 (registers: a
+// consumer holds dK and dV of 64 keys, D fp32 each, beside S^T and dP^T
+// of 64 keys x BQ queries). The grid is persistent, one block an SM; the
+// items run (batch, KV head) by (batch, KV head), its key tiles in order,
+// dealt in rounds of alternating direction (ws_item): the blocks at work
+// at one time share a few heads, whose Q, dO and dQ workspace then stay
+// in L2 (items dealt key tile by key tile instead, every block on a head
+// of its own, spilled the 67 MB workspace of the training shape to device
+// memory and took a third longer), and a block's items vary in key tile
+// from round to round, which evens out the causal triangle.
+// `flash_attention.bwd_schedule` states the deal.
+//
+// Two small passes go with each launch: flash_bwd_prep_kernel before (one
+// read of dO and O: delta = rowsum(dO O) - dlse and lse in base 2, +inf
+// for a row with no live key or past Tq, into the tile-ordered row buffer;
+// the dQ workspace zeroed), flash_bwd_cast_kernel after (the workspace to
+// dQ's dtype in its strided layout).
+
+constexpr int BW_K = 128;            // keys of a work item, 64 a consumer
+constexpr int BW_STAGES = 2;         // ring depth of the Q / dO tiles
+constexpr int BW_THREADS = 384;      // producer + two consumer warpgroups
+constexpr int BW_BLOCK = 64 * 64;    // fp32 elements of a dQ block
+
+// query rows of a tile by head dim
+template <int D>
+__host__ __device__ constexpr int bw_rows() {
+  return D == 64 ? 128 : 64;
+}
+
+// Shared memory, byte offsets: the K and V tiles ([D / 64][128 x 64]
+// 128-byte-swizzled boxes), the Q and dO rings ([D / 64][BQ x 64]), two
+// dS^T buffers ([BQ / 64][128 keys x 64 queries], swizzled), each
+// consumer's dQ block (fp32, in its accumulator order), the ring's rows
+// (lse in base 2, delta: [2][BQ] fp32), and the barriers.
+template <int D>
+struct BwSmem {
+  static constexpr int BQ = bw_rows<D>();
+  static constexpr int TKV = BW_K * D, TQ = BQ * D, TDS = BW_K * BQ;
+  static constexpr size_t K = 0, V = K + TKV * 2, Q = V + TKV * 2,
+                          DO = Q + BW_STAGES * TQ * 2,
+                          DS = DO + BW_STAGES * TQ * 2,
+                          DQ = DS + 2 * TDS * 2,
+                          ROWS = DQ + 2 * BW_BLOCK * 4,
+                          BARS = ROWS + BW_STAGES * 2 * BQ * 4,
+                          BYTES = BARS + (2 + 2 * BW_STAGES) * 8;
+};
+
+// Work item `item`: (batch, KV head) item / nkt, key tile item % nkt;
+// the query tiles [qt0, qt0 + nq) of each of the group's G query heads see
+// it (nq = 0: no row sees a key of the tile, and dK = dV = 0).
+struct BwItem {
+  int b, hk, k0, qt0, nq, ntiles;
+  __device__ __forceinline__ BwItem(int item, int Hk, int G, int Tq, int Tk,
+                                    int causal, int BQ) {
+    const int nkt = (Tk + BW_K - 1) / BW_K;
+    const int kt = item % nkt, bh = item / nkt;
+    b = bh / Hk;
+    hk = bh % Hk;
+    k0 = kt * BW_K;
+    const int nqt = (Tq + BQ - 1) / BQ;
+    qt0 = causal ? max(0, k0 - (Tk - Tq)) / BQ : 0;
+    nq = max(0, nqt - qt0);
+    ntiles = G * nq;
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  if constexpr (std::is_same<T, f16>::value)
+    return __half22float2(*reinterpret_cast<__half2*>(&v));
+  else
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale in place
+// on this thread's accumulators of S^T and dP^T (rows: keys kr[0], kr[1];
+// columns: queries q0 + 8 n + 2 qi (+1)); lse2 is lse log2(e), +inf for a
+// row with no live key. MASK: zero where key j is past Tk, query i past
+// Tq, or (causal) j > i + off.
+template <bool MASK, int BQ>
+__device__ __forceinline__ void bw_probs(float (&s)[BQ / 2],
+                                         float (&dp)[BQ / 2],
+                                         const float* lse2, const float* dlt,
+                                         float scale, const int (&kr)[2],
+                                         int q0, int Tq, int Tk, int off,
+                                         int causal, int qi) {
+  const float sl2 = scale * LOG2E;
+#pragma unroll
+  for (int n = 0; n < BQ / 8; ++n) {
+    const int c = 8 * n + 2 * qi;
+    const float2 l = *reinterpret_cast<const float2*>(lse2 + c);
+    const float2 d = *reinterpret_cast<const float2*>(dlt + c);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int e = x & 1;
+      float p = ex2(fmaf(s[4 * n + x], sl2, -(e ? l.y : l.x)));
+      if (MASK) {
+        const int i = q0 + c + e, j = kr[x / 2];
+        if (!(j < Tk && i < Tq && (!causal || j <= i + off))) p = 0.f;
+      }
+      s[4 * n + x] = p;
+      dp[4 * n + x] = p * (dp[4 * n + x] - (e ? d.y : d.x)) * scale;
+    }
+  }
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ rows,
+                       float* __restrict__ ws, T* __restrict__ dk,
+                       T* __restrict__ dv, Strides sdk, Strides sdv, int B,
+                       int H, int Hk, int Tq, int Tk, float scale,
+                       int causal) {
+  using L = BwSmem<D>;
+  constexpr int BQ = L::BQ, NB = D / 64, S = BW_STAGES;
+  constexpr int TKV = L::TKV, TQ = L::TQ, TDS = L::TDS;
+  extern __shared__ __align__(1024) unsigned char bw_smem[];
+  T* ks = reinterpret_cast<T*>(bw_smem + L::K);
+  T* vs = reinterpret_cast<T*>(bw_smem + L::V);
+  T* qring = reinterpret_cast<T*>(bw_smem + L::Q);
+  T* doring = reinterpret_cast<T*>(bw_smem + L::DO);
+  T* dss = reinterpret_cast<T*>(bw_smem + L::DS);
+  float* dqs = reinterpret_cast<float*>(bw_smem + L::DQ);
+  float* rring = reinterpret_cast<float*>(bw_smem + L::ROWS);
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(bw_smem + L::BARS);
+  uint64_t* kvempty = kvfull + 1;
+  uint64_t* full = kvempty + 1;
+  uint64_t* empty = full + S;
+  const int G = H / Hk, off = Tk - Tq, nqt = (Tq + BQ - 1) / BQ;
+  const int items = ((Tk + BW_K - 1) / BW_K) * B * Hk;
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    mbar_init(kvfull);
+    mbar_init(kvempty, 2);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s);
+      mbar_init(empty + s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    set_max_regs<24, false>();
+    if (threadIdx.x != 0) return;
+    int g = 0, n_it = 0;
+    for (int r = 0; r * (int)gridDim.x < items; ++r) {
+      if (ws_item(r) >= items) continue;
+      const BwItem it(ws_item(r), Hk, G, Tq, Tk, causal, BQ);
+      if (it.ntiles == 0) continue;
+      mbar_wait(kvempty, (n_it & 1) ^ 1);
+      mbar_expect(kvfull, 2 * TKV * sizeof(T));
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        tma_box4(ks + nb * BW_K * 64, &tm_k, nb * 64, it.k0, it.hk, it.b,
+                 kvfull);
+        tma_box4(vs + nb * BW_K * 64, &tm_v, nb * 64, it.k0, it.hk, it.b,
+                 kvfull);
+      }
+      for (int t = 0; t < it.ntiles; ++t, ++g) {
+        const int h = it.hk * G + t / it.nq, qt = it.qt0 + t % it.nq;
+        const int st = g % S;
+        mbar_wait(empty + st, ((g / S) & 1) ^ 1);
+        mbar_expect(full + st, 2 * TQ * sizeof(T) + 2 * BQ * sizeof(float));
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          tma_box4(qring + st * TQ + nb * BQ * 64, &tm_q, nb * 64, qt * BQ,
+                   h, it.b, full + st);
+          tma_box4(doring + st * TQ + nb * BQ * 64, &tm_do, nb * 64,
+                   qt * BQ, h, it.b, full + st);
+        }
+        bulk_load(rring + st * 2 * BQ,
+                  rows + (((long long)it.b * H + h) * nqt + qt) * 2 * BQ,
+                  2 * BQ * sizeof(float), full + st);
+      }
+      ++n_it;
+    }
+    return;
+  }
+  set_max_regs<240, true>();
+  const int w = wg - 1;                       // keys 64 w .. of an item
+  const int tid = threadIdx.x % 128, lane = tid % 32, qi = lane % 4;
+  const int krow = 64 * w + 16 * (tid / 32) + lane / 4;   // and krow + 8
+  const bool signal = tid == 0;
+  // this consumer's 64 x 64 block of a dQ tile: rows m0, columns n0
+  const int m0 = D == 64 ? 64 * w : 0, n0 = D == 64 ? 0 : 64 * w;
+  float* dqb = dqs + w * BW_BLOCK;
+  float dka[D / 2], dva[D / 2];
+  int g = 0, n_it = 0;
+  for (int r = 0; r * (int)gridDim.x < items; ++r) {
+    if (ws_item(r) >= items) continue;
+    const BwItem it(ws_item(r), Hk, G, Tq, Tk, causal, BQ);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    const int kr[2] = {it.k0 + krow, it.k0 + krow + 8};
+    if (it.ntiles > 0) {
+      mbar_wait(kvfull, n_it & 1);
+      for (int t = 0; t < it.ntiles; ++t, ++g) {
+        const int h = it.hk * G + t / it.nq, qt = it.qt0 + t % it.nq;
+        const int q0 = qt * BQ, st = g % S;
+        const T* qs = qring + st * TQ;
+        const T* dos = doring + st * TQ;
+        const float* lse2 = rring + st * 2 * BQ;
+        T* dsb = dss + (g & 1) * TDS;
+        mbar_wait(full + st, (g / S) & 1);
+        // S^T = K Q^T and dP^T = V dO^T (this consumer's 64 keys)
+        float s[BQ / 2], dp[BQ / 2];
+        fence_regs(s);
+        fence_regs(dp);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int a = (kk / 4) * BW_K * 64 + w * 64 * 64 + (kk % 4) * 16;
+          const int b = (kk / 4) * BQ * 64 + (kk % 4) * 16;
+          wgmma_ss<0, T>(s, wg_desc(ks + a, 16, 1024),
+                         wg_desc(qs + b, 16, 1024), kk > 0,
+                         std::integral_constant<int, BQ>());
+          wgmma_ss<0, T>(dp, wg_desc(vs + a, 16, 1024),
+                         wg_desc(dos + b, 16, 1024), kk > 0,
+                         std::integral_constant<int, BQ>());
+        }
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        const int kw0 = it.k0 + 64 * w;
+        if (q0 + BQ > Tq || kw0 + 64 > Tk || (causal && kw0 + 63 > q0 + off))
+          bw_probs<true, BQ>(s, dp, lse2, lse2 + BQ, scale, kr, q0, Tq, Tk,
+                             off, causal, qi);
+        else
+          bw_probs<false, BQ>(s, dp, lse2, lse2 + BQ, scale, kr, q0, Tq, Tk,
+                              off, causal, qi);
+        // P^T (dO's dtype) and dS^T (Q's and K's) as A fragments; dS^T
+        // into this consumer's rows of the shared buffer
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            pa[kk][x] = pack2<T>(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+            da[kk][x] = pack2<T>(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+          }
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+          const int c = 8 * n + 2 * qi;
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi)
+            *reinterpret_cast<uint32_t*>(
+                reinterpret_cast<unsigned char*>(dsb + (c / 64) * BW_K * 64) +
+                swizzled(krow + 8 * hi, c % 64)) = da[n / 2][2 * (n % 2) + hi];
+        }
+        fence_async_smem();
+        // dV += P^T dO, dK += dS^T Q
+        fence_regs(dva);
+        fence_regs(dka);
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          fence_regs(pa[kk]);
+          fence_regs(da[kk]);
+        }
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs<1, T>(dva, pa[kk],
+                         wg_desc(dos + kk * 16 * 64, BQ * 64 * 2, 1024), 1,
+                         std::integral_constant<int, D>());
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs<1, T>(dka, da[kk],
+                         wg_desc(qs + kk * 16 * 64, BQ * 64 * 2, 1024), 1,
+                         std::integral_constant<int, D>());
+        wg_commit();
+        // both consumers' dS^T in: dQ block = dS[m0 .., :] K[:, n0 ..]
+        bar_sync<256>(1);
+        float dq[32];
+        fence_regs(dq);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BW_K / 16; ++kk)
+          wgmma_ss<1, T, 1>(
+              dq, wg_desc(dsb + (m0 / 64) * BW_K * 64 + kk * 16 * 64,
+                          BW_K * 64 * 2, 1024),
+              wg_desc(ks + (n0 / 64) * BW_K * 64 + kk * 16 * 64,
+                      BW_K * 64 * 2, 1024),
+              kk > 0, std::integral_constant<int, 64>());
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(dva);
+        fence_regs(dka);
+        fence_regs(dq);
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          fence_regs(pa[kk]);
+          fence_regs(da[kk]);
+        }
+        if (signal) mbar_arrive(empty + st);   // Q, dO and rows read
+        // the block into shared memory once the last reduce has read it,
+        // then added into the workspace
+        if (signal) bulk_wait<0, true>();
+        bar_sync<128>(2 + w);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float4*>(dqb + (j * 128 + tid) * 4) =
+              make_float4(dq[4 * j], dq[4 * j + 1], dq[4 * j + 2],
+                          dq[4 * j + 3]);
+        fence_async_smem();
+        bar_sync<128>(2 + w);
+        if (signal) {
+          bulk_reduce_add(
+              ws + ((((long long)it.b * H + h) * nqt + qt) * 2 + w) *
+                       BW_BLOCK,
+              dqb, BW_BLOCK * sizeof(float));
+          bulk_commit();
+        }
+      }
+      if (signal) mbar_arrive(kvempty);        // K and V read
+      ++n_it;
+    }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      if (kr[hi] >= Tk) continue;
+      T* pk = dk + it.b * sdk.b + it.hk * sdk.h + (long long)kr[hi] * sdk.t +
+              2 * qi;
+      T* pv = dv + it.b * sdv.b + it.hk * sdv.h + (long long)kr[hi] * sdv.t +
+              2 * qi;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        *reinterpret_cast<uint32_t*>(pk + 8 * c) =
+            pack2<T>(dka[4 * c + 2 * hi], dka[4 * c + 2 * hi + 1]);
+        *reinterpret_cast<uint32_t*>(pv + 8 * c) =
+            pack2<T>(dva[4 * c + 2 * hi], dva[4 * c + 2 * hi + 1]);
+      }
+    }
+  }
+  if (signal) bulk_wait<0, false>();
+}
+
+// D / 8 threads a row of the padded query range (B H nqt BQ rows), 16
+// bytes of dO and of O each: delta = rowsum(dO O) - dlse and lse log2(e)
+// (+inf where lse is not finite or the row is past Tq; delta 0 there)
+// into the row buffer [B H nqt][2][BQ], and the row's D floats of the dQ
+// workspace zeroed.
+template <int D, typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_prep_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dlse,
+                      float* __restrict__ rows, float* __restrict__ ws,
+                      Strides so, Strides sdo, int H, int Tq,
+                      long long n_rows) {
+  constexpr int BQ = bw_rows<D>(), CH = D / 8;
+  const long long row = ((long long)blockIdx.x * 256 + threadIdx.x) / CH;
+  const int ch = threadIdx.x % CH;
+  if (row >= n_rows) return;         // whole rows: CH divides the warp
+  const int nqt = (Tq + BQ - 1) / BQ, Tp = nqt * BQ;
+  const int i = (int)(row % Tp);
+  const long long bh = row / Tp;
+  const int b = (int)(bh / H), h = (int)(bh % H);
+  float dot = 0.f;
+  if (i < Tq) {
+    const uint4 a = *reinterpret_cast<const uint4*>(
+        dout + b * sdo.b + h * sdo.h + (long long)i * sdo.t + 8 * ch);
+    const uint4 c = *reinterpret_cast<const uint4*>(
+        o + b * so.b + h * so.h + (long long)i * so.t + 8 * ch);
+    const uint32_t av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = unpack2<T>(av[e]), y = unpack2<T>(cv[e]);
+      dot = fmaf(x.x, y.x, fmaf(x.y, y.y, dot));
+    }
+  }
+#pragma unroll
+  for (int m = CH / 2; m > 0; m /= 2)
+    dot += __shfl_xor_sync(0xffffffffu, dot, m);
+  float4* wr = reinterpret_cast<float4*>(ws + row * D + 8 * ch);
+  wr[0] = wr[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (ch == 0) {
+    float* rr = rows + (bh * nqt + i / BQ) * 2 * BQ + i % BQ;
+    float l2 = INFINITY, de = 0.f;
+    if (i < Tq) {
+      const float ls = lse[bh * Tq + i];
+      l2 = isfinite(ls) ? ls * LOG2E : INFINITY;
+      de = dot - (dlse ? dlse[bh * Tq + i] : 0.f);
+    }
+    rr[0] = l2;
+    rr[BQ] = de;
+  }
+}
+
+// dQ [B, H, Tq, D] (strided) from the workspace: one block a 64 x 64 dQ
+// block. Its float4s are read in order (float4 j of consumer thread t
+// holds accumulator elements 4 j .. 4 j + 3: rows r and r + 8, columns c
+// and c + 1, r = 16 (t / 32) + (t % 32) / 4, c = 8 j + 2 (t % 4)) into
+// shared memory as rows, which go out 16 bytes a thread.
+template <int D, typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_cast_kernel(const float* __restrict__ ws, T* __restrict__ dq,
+                      Strides sdq, int H, int Tq) {
+  constexpr int BQ = bw_rows<D>(), LD = 64 + 4;
+  __shared__ __align__(16) float tile[64 * LD];
+  const int nqt = (Tq + BQ - 1) / BQ, nb = blockIdx.x % 2;
+  const long long t_ = blockIdx.x / 2, bh = t_ / nqt;
+  const int b = (int)(bh / H), h = (int)(bh % H);
+  const float4* src =
+      reinterpret_cast<const float4*>(ws + (long long)blockIdx.x * BW_BLOCK);
+  for (int e = threadIdx.x; e < BW_BLOCK / 4; e += 256) {
+    const float4 x = src[e];
+    const int j = e / 128, t = e % 128;
+    const int r = 16 * (t / 32) + (t % 32) / 4, c = 8 * j + 2 * (t % 4);
+    tile[r * LD + c] = x.x;
+    tile[r * LD + c + 1] = x.y;
+    tile[(r + 8) * LD + c] = x.z;
+    tile[(r + 8) * LD + c + 1] = x.w;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 64 * 8; e += 256) {
+    const int r = e / 8, ch = e % 8;
+    const int row = (int)(t_ % nqt) * BQ + (D == 64 ? 64 * nb : 0) + r;
+    if (row >= Tq) continue;
+    const float* x = tile + r * LD + 8 * ch;
+    const uint4 out = {pack2<T>(x[0], x[1]), pack2<T>(x[2], x[3]),
+                       pack2<T>(x[4], x[5]), pack2<T>(x[6], x[7])};
+    *reinterpret_cast<uint4*>(dq + b * sdq.b + h * sdq.h +
+                              (long long)row * sdq.t +
+                              (D == 64 ? 0 : 64 * nb) + 8 * ch) = out;
+  }
+}
+
 // -------------------------------------------------------------- backward dq
 
 template <int D, typename T>
@@ -1088,10 +1559,14 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, const long long* s, const Dims& d, int dtype,
                    cudaStream_t stream) {
-  if (dtype == BF16)
-    return bwd_dq_mma<D, bf16>(q, k, v, dout, lse, delta, dq, s, d, stream);
-  if (dtype == F16)
-    return bwd_dq_mma<D, f16>(q, k, v, dout, lse, delta, dq, s, d, stream);
+  if constexpr (D < 64) {
+    if (dtype == BF16)
+      return bwd_dq_mma<D, bf16>(q, k, v, dout, lse, delta, dq, s, d, stream);
+    if (dtype == F16)
+      return bwd_dq_mma<D, f16>(q, k, v, dout, lse, delta, dq, s, d, stream);
+  } else if (dtype != F32) {
+    return cudaErrorInvalidValue;          // flash_bwd_launch's wgmma kernel
+  }
   flash_bwd_dq_f32_kernel<D><<<blocks_for((long long)d.B * d.H * d.Tq),
                                F32_NT, 0, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
@@ -1123,18 +1598,77 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, const long long* s, const Dims& d,
                     int dtype, cudaStream_t stream) {
-  if (dtype == BF16)
-    return bwd_dkv_mma<D, bf16>(q, k, v, dout, lse, delta, dk, dv, s, d,
-                                stream);
-  if (dtype == F16)
-    return bwd_dkv_mma<D, f16>(q, k, v, dout, lse, delta, dk, dv, s, d,
-                               stream);
+  if constexpr (D < 64) {
+    if (dtype == BF16)
+      return bwd_dkv_mma<D, bf16>(q, k, v, dout, lse, delta, dk, dv, s, d,
+                                  stream);
+    if (dtype == F16)
+      return bwd_dkv_mma<D, f16>(q, k, v, dout, lse, delta, dk, dv, s, d,
+                                 stream);
+  } else if (dtype != F32) {
+    return cudaErrorInvalidValue;          // flash_bwd_launch's wgmma kernel
+  }
   flash_bwd_dkv_f32_kernel<D><<<blocks_for((long long)d.B * d.Hk * d.Tk),
                                 F32_NT, 0, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
       (const float*)lse, (const float*)delta, (float*)dk, (float*)dv,
       st(s, 0), st(s, 1), st(s, 2), st(s, 3), st(s, 4), st(s, 5), d.B, d.H,
       d.Hk, d.Tq, d.Tk, d.scale, d.causal);
+  return cudaGetLastError();
+}
+
+// The backward at D = 64 and 128 in bf16 / fp16: the prep pass, the main
+// kernel on a persistent grid, the cast of dQ, on `stream` in that order.
+// ws: the dQ workspace (B H nqt BQ D fp32), rows: B H nqt 2 BQ fp32.
+template <int D, typename T>
+cudaError_t bwd_wgmma(const void* q, const void* k, const void* v,
+                      const void* dout, const void* o, const void* lse,
+                      const void* dlse, void* dq, void* dk, void* dv,
+                      void* ws, void* rows, const long long* s,
+                      const Dims& d, cudaStream_t stream) {
+  constexpr int BQ = bw_rows<D>();
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = bhtd_map<T>(&tq, q, st(s, 0), d.B, d.H, d.Tq, D, BQ);
+  if (err == cudaSuccess)
+    err = bhtd_map<T>(&tk, k, st(s, 1), d.B, d.Hk, d.Tk, D, BW_K);
+  if (err == cudaSuccess)
+    err = bhtd_map<T>(&tv, v, st(s, 2), d.B, d.Hk, d.Tk, D, BW_K);
+  if (err == cudaSuccess)
+    err = bhtd_map<T>(&tdo, dout, st(s, 3), d.B, d.H, d.Tq, D, BQ);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = BwSmem<D>::BYTES;
+  int per_sm = 0;
+  err = blocks_per_sm(reinterpret_cast<const void*>(
+                          flash_bwd_wgmma_kernel<D, T>),
+                      BW_THREADS, smem, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long items =
+      (long long)((d.Tk + BW_K - 1) / BW_K) * d.B * d.Hk;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long n_rows =
+      (long long)d.B * d.H * ((d.Tq + BQ - 1) / BQ) * BQ;
+  flash_bwd_prep_kernel<D, T><<<(unsigned)((n_rows * (D / 8) + 255) / 256),
+                                 256, 0, stream>>>(
+      (const T*)o, (const T*)dout, (const float*)lse, (const float*)dlse,
+      (float*)rows, (float*)ws, st(s, 4), st(s, 3), d.H, d.Tq, n_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long cap = (long long)sms * per_sm;   // one wave, persistent
+  flash_bwd_wgmma_kernel<D, T>
+      <<<(unsigned)(items < cap ? items : cap), BW_THREADS, smem, stream>>>(
+          tq, tk, tv, tdo, (const float*)rows, (float*)ws, (T*)dk, (T*)dv,
+          st(s, 6), st(s, 7), d.B, d.H, d.Hk, d.Tq, d.Tk, d.scale, d.causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_cast_kernel<D, T><<<(unsigned)(n_rows * D / BW_BLOCK), 256, 0,
+                                 stream>>>((const float*)ws, (T*)dq,
+                                           st(s, 5), d.H, d.Tq);
   return cudaGetLastError();
 }
 
@@ -1198,6 +1732,44 @@ int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)BY_HEAD_DIM(D, bwd_dkv, q, k, v, dout, lse, delta, dk, dv,
                           strides, d, dtype, s);
+}
+
+// The backward at D = 64 and 128, bf16 or fp16 (flash_bwd_wgmma_kernel
+// and its two passes): q [B, H, Tq, D], k / v [B, Hk, Tk, D], dout, o and
+// dq like q, dk / dv like k (element strides of batch, head and time of
+// q, k, v, dout, o, dq, dk, dv in `strides[24]`); lse [B, H, Tq] fp32
+// contiguous, dlse like lse or null; ws and rows the workspaces
+// (flash_attention.bwd_workspace_floats).
+int flash_bwd_launch(const void* q, const void* k, const void* v,
+                     const void* dout, const void* o, const void* lse,
+                     const void* dlse, void* dq, void* dk, void* dv, void* ws,
+                     void* rows, const long long* strides, int B, int H,
+                     int Hk, int Tq, int Tk, int D, float scale, int causal,
+                     int dtype, void* stream) {
+  const Dims d{B, H, Hk, Tq, Tk, D, scale, causal};
+  const void* ptrs[4] = {o, dq, dk, dv};
+  const long long out_strides[12] = {
+      strides[12], strides[13], strides[14], strides[15], strides[16],
+      strides[17], strides[18], strides[19], strides[20], strides[21],
+      strides[22], strides[23]};
+  if (!dims_ok(d, dtype) || dtype == F32 || (D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  // q, k, v, dout: the TMA maps check theirs; o, dq, dk, dv are read and
+  // written in 4-byte pairs
+  if (!aligned(ptrs, 4, out_strides, 12))
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return (int)(dtype == BF16
+                     ? bwd_wgmma<64, bf16>(q, k, v, dout, o, lse, dlse, dq,
+                                           dk, dv, ws, rows, strides, d, s)
+                     : bwd_wgmma<64, f16>(q, k, v, dout, o, lse, dlse, dq,
+                                          dk, dv, ws, rows, strides, d, s));
+  return (int)(dtype == BF16
+                   ? bwd_wgmma<128, bf16>(q, k, v, dout, o, lse, dlse, dq,
+                                          dk, dv, ws, rows, strides, d, s)
+                   : bwd_wgmma<128, f16>(q, k, v, dout, o, lse, dlse, dq, dk,
+                                         dv, ws, rows, strides, d, s));
 }
 
 }  // extern "C"

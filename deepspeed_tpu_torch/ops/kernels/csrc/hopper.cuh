@@ -10,8 +10,8 @@
 //   fence_regs       pins accumulators (or register A fragments) between
 //                    wgmma batches (ptxas C7515)
 //   wgmma_ss         one m64nNk16 wgmma, A and B from shared memory, bf16
-//                    at N = 64 and 256, bf16 or fp16 at N = 128, fp32
-//                    accumulators
+//                    at N = 256, bf16 or fp16 at N = 64 and 128 (A
+//                    K-major, or MN-major when TA = 1), fp32 accumulators
 //   wgmma_rs         the same with A from registers, N = 64 or 128
 //   ex2              2^x on the MUFU
 //   set_max_regs     setmaxnreg: a warpgroup gives up (producer) or takes
@@ -28,6 +28,11 @@
 //   tma_box / tma_box3 / tma_box4
 //                    one 2-D, 3-D or 4-D TMA box (cp.async.bulk.tensor)
 //                    into shared memory, completing on an mbarrier
+//   bulk_load / bulk_reduce_add / bulk_commit / bulk_wait
+//                    contiguous bulk copies: global to shared on an
+//                    mbarrier; shared fp32 added into global
+//                    (cp.reduce.async.bulk) in bulk groups, and the waits
+//                    on those groups
 //   encode_tensor_map (host)
 //                    cuTensorMapEncodeTiled, looked up once through the
 //                    runtime so that no library links libcuda
@@ -203,34 +208,41 @@ __device__ __forceinline__ void tma_box3(void* dst, const CUtensorMap* tm,
 // accumulator layout: warp w of the warpgroup holds rows 16 w + lane / 4
 // (+8); element 4 n + x at column 8 n + 2 (lane % 4) + (x & 1), row +8
 // for x >= 2). wgmma_ss: A and B
-// from shared-memory descriptors (A K-major; B K-major, or MN-major when
-// TB = 1). wgmma_rs: A from registers, the four 32-bit registers of this
+// from shared-memory descriptors (A K-major, or MN-major when TA = 1; B
+// K-major, or MN-major when TB = 1). wgmma_rs: A from registers, the four 32-bit registers of this
 // thread's m16n8k16 A fragment of its warp's 16 rows (a0: row lane / 4,
 // columns 2 (lane % 4), +1; a1: row +8; a2: columns +8; a3: both), the
 // layout an accumulator's elements 8 kk .. 8 kk + 7 take when packed in
 // pairs, so a product's result feeds the next product's A without a trip
 // through shared memory.
-template <int TB>
+template <int TB, typename T = __nv_bfloat16, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
                                          int scale_d,
                                          std::integral_constant<int, 64>) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+#define PORT_WGMMA_SS64(TY)                                                    \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "             \
+      "{"                                                                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31"                                                               \
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),\
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),\
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),\
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),\
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),\
+        "+f"(d[30]), "+f"(d[31])                                             \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB))
+  if constexpr (std::is_same<T, __half>::value)
+    PORT_WGMMA_SS64("f16");
+  else
+    PORT_WGMMA_SS64("bf16");
+#undef PORT_WGMMA_SS64
 }
 
-template <int TB, typename T = __nv_bfloat16>
+template <int TB, typename T = __nv_bfloat16, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
                                          int scale_d,
                                          std::integral_constant<int, 128>) {
@@ -243,7 +255,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -255,7 +267,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   } else {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -265,7 +277,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -277,7 +289,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
 }
 
@@ -427,6 +439,40 @@ __device__ __forceinline__ void tma_box4(void* dst, const CUtensorMap* tm,
       "l"(reinterpret_cast<uint64_t>(tm)), "r"(x), "r"(y), "r"(z), "r"(w),
       "r"(smem_addr(bar))
       : "memory");
+}
+// `bytes` (a 16-byte multiple) from global `src` into shared `dst` by the
+// bulk copy engine (no tensor map), completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// global dst[i] += shared src[i] over `bytes` (a 16-byte multiple) of
+// fp32, done by the bulk copy engine at L2 (atomic per element), in this
+// thread's current bulk group
+__device__ __forceinline__ void bulk_reduce_add(float* dst, const float* src,
+                                                uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+      "[%0], [%1], %2;\n" ::"l"(__cvta_generic_to_global(dst)),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's bulk groups are pending: READ,
+// until their shared sources have been read (the buffer may be reused);
+// otherwise until their writes are done
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 // ------------------------------------------------------------------ host
 

@@ -1,32 +1,38 @@
 """Flash attention, forward and backward (port of
 ``deepspeed_tpu/ops/kernels/flash_attention.py``).
 
-Three hand-written CUDA kernels (``csrc/flash_attention.cu``) replace the
-three Pallas kernels of the training path:
+Hand-written CUDA kernels (``csrc/flash_attention.cu``) replace the three
+Pallas kernels of the training path:
 
 - ``flash_fwd`` — replaces ``_fwd_kernel``: O and the row logsumexp; at
   head dims 64 and 128 in bf16/fp16 a wgmma + TMA kernel (a persistent
   block an SM, work items of 192 or 128 query rows against 128-key K/V
   tiles, heaviest first: :func:`fwd_schedule`), at 16 and 32 an mma.sync
   one;
-- ``flash_bwd_dq`` — replaces ``_bwd_dq_kernel``: dQ over the key tiles;
-- ``flash_bwd_dkv`` — replaces ``_bwd_dkv_kernel``: dK/dV of each KV head
-  over every query head of its GQA group and every query tile.
+- ``flash_bwd`` — replaces ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
+  together at head dims 64 and 128 in bf16/fp16: one wgmma + TMA kernel
+  (``flash_bwd_wgmma_kernel``: work items of (batch, KV head, 128-key
+  tile), dK/dV in registers over every query tile of the GQA group, dQ
+  added into an fp32 workspace by bulk reduce-add; :func:`bwd_schedule`)
+  between a prep pass (delta = rowsum(dO * O) - dlse, the workspace
+  zeroed) and a cast pass (the workspace to dQ), three launches of one
+  call;
+- ``flash_bwd_dq`` / ``flash_bwd_dkv`` — the mma.sync pair at head dims 16
+  and 32, and the CUDA-core pair in fp32, from a delta computed in
+  PyTorch (as the JAX package computes it in XLA).
 
-``delta = rowsum(dO * O)`` (minus the lse cotangent when lse is an output)
-is computed in PyTorch between them, as the JAX package computes it in
-XLA. Tensors are ``[B, H, T, D]`` views of any strides with a unit head_dim
+Tensors are ``[B, H, T, D]`` views of any strides with a unit head_dim
 stride, so BTHD activations pass as transposed views without a copy; the
 kernels mask the ragged sequence edges themselves instead of padding to
 the tile. The causal diagonal is bottom-right aligned (query ``i`` sees key
 ``j`` iff ``j <= i + Tk - Tq``).
 
-Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
-plain PyTorch version (``flash_fwd_plain``, ``flash_bwd_dq_plain``,
-``flash_bwd_dkv_plain``) for CPU tensors. The plain versions make the same
-casts as the Pallas kernels: P to V's dtype before P.V, ds to K's (dQ) or
-Q's (dK) dtype, P to dO's dtype for dV. Only a launch counts in
-:data:`LAUNCHES`.
+Each wrapper launches its kernels for CUDA tensors (or raises) and runs its
+plain PyTorch version (``flash_fwd_plain``, ``flash_bwd_plain``,
+``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain``) for CPU tensors. The plain
+versions make the same casts as the Pallas kernels: P to V's dtype before
+P.V, ds to K's (dQ) or Q's (dK) dtype, P to dO's dtype for dV. Only a
+launch counts in :data:`LAUNCHES`, each kernel under its own name.
 
 A fourth kernel, ``flash_sparse_fwd`` (``csrc/sparse_attention.cu``),
 replaces ``_fwd_sparse_kernel``: block-sparse attention forward over a
@@ -46,8 +52,9 @@ import numpy as np
 import torch
 
 #: kernel launches since the last :func:`reset_launch_counts`
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
-                            "flash_bwd_dkv": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_prep": 0,
+                            "flash_bwd": 0, "flash_bwd_cast": 0,
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 #: head dims whose bf16/fp16 forward runs the wgmma + TMA kernel (the
 #: training paths'); 16 and 32 (GPT2Config.tiny, untimed) run mma.sync
@@ -56,6 +63,13 @@ WGMMA_FWD_HEAD_DIMS = (64, 128)
 #: consumer warpgroup), keys of one of its K/V tiles
 FWD_ROWS = {64: 192, 128: 128}
 FWD_KEYS = 128
+#: head dims whose bf16/fp16 backward runs the wgmma + TMA kernel; 16 and
+#: 32, and fp32 at every head dim, run the dq / dkv pair
+WGMMA_BWD_HEAD_DIMS = (64, 128)
+#: query rows of a tile of the wgmma backward by head dim, keys of its
+#: work item (64 for each consumer warpgroup)
+BWD_ROWS = {64: 128, 128: 64}
+BWD_KEYS = 128
 #: the kernels' element types, by the code their C entry points take
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: block-sparse forward launches (a dict of its own: the training phases
@@ -159,6 +173,28 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal: bool,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_delta_plain(o, do, dlse=None) -> torch.Tensor:
+    """``delta = rowsum(dO * O)`` in fp32, minus the lse cotangent when lse
+    is an output (the JAX package's ``_bwd``), contiguous ``[B, H, Tq]``:
+    the function of the backward's prep pass."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.contiguous()
+
+
+def flash_bwd_plain(q, k, v, do, o, lse, dlse=None, *, causal: bool,
+                    sm_scale: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``flash_bwd``'s function: ``(dq, dk, dv)`` from the forward's o and
+    lse, and the cotangents dO and (when lse is an output) dlse."""
+    delta = flash_bwd_delta_plain(o, do, dlse)
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
 # ------------------------------------------------------------ the kernels
 
 
@@ -174,7 +210,7 @@ def _empty_like_order(x: torch.Tensor,
 
 
 def check_kernel_shape(head_dim: int, dtype: torch.dtype) -> None:
-    """Raise unless the three kernels take this head dim and dtype (the
+    """Raise unless the flash kernels take this head dim and dtype (the
     wrappers' check for CUDA tensors; the CPU tests call it on the configs
     the port trains): ValueError for a dtype the kernels do not take,
     NotImplementedError for a head dim that is not ported."""
@@ -211,23 +247,36 @@ def _check(q, k, v, *rest):
             raise ValueError("the kernels need a unit head_dim stride")
 
 
-def _check_tma(q, k, v) -> None:
-    """The wgmma forward reads q, k and v (2-byte elements) through TMA
-    maps: each base address and each stride of a (batch, head, time) dim
-    longer than 1 must be a 16-byte multiple. Raise, naming the first
-    that is not."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_tma(q, k, v, do=None, what: str = "forward") -> None:
+    """The wgmma kernels read q, k, v (and the backward dO; 2-byte
+    elements) through TMA maps: each base address and each stride of a
+    (batch, head, time) dim longer than 1 must be a 16-byte multiple.
+    Raise, naming the first that is not."""
+    named = (("q", q), ("k", k), ("v", v)) + ((("dO", do),)
+                                              if do is not None else ())
+    for name, t in named:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} starts at an address that is not a "
-                             f"16-byte multiple: the flash forward's TMA "
+                             f"16-byte multiple: the flash {what}'s TMA "
                              f"maps need one")
         for label, n, st in zip(("batch", "head", "time"), t.shape,
                                 t.stride()):
             if n > 1 and st % 8:
                 raise ValueError(
                     f"{name}'s {label} stride is {st} elements ({2 * st} "
-                    f"bytes): the flash forward's TMA maps need 16-byte "
+                    f"bytes): the flash {what}'s TMA maps need 16-byte "
                     f"multiples")
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """t itself when TMA can read it (see :func:`_check_tma`; a broadcast
+    dim, stride 0, counts as unreadable), else a dense copy: autograd hands
+    the backward dO in whatever layout the graph produced (an expanded
+    zero, a sliced view)."""
+    ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        n == 1 or (st and st % 8 == 0)
+        for n, st in zip(t.shape[:3], t.stride()[:3]))
+    return t if ok else t.contiguous()
 
 
 def _key_limit(i: int, Tq: int, Tk: int, causal: bool) -> int:
@@ -271,6 +320,63 @@ def fwd_schedule(B: int, H: int, Tq: int, Tk: int, causal: bool, D: int,
             out[blk].append((bh // H, bh % H, qt,
                              fwd_key_tiles(qt, rows, Tq, Tk, causal)))
     return out
+
+
+def bwd_query_tiles(kt: int, Tq: int, Tk: int, causal: bool,
+                    D: int) -> range:
+    """The query tiles (of ``BWD_ROWS[D]`` rows) that see key tile ``kt``
+    (of ``BWD_KEYS`` keys) in the wgmma backward: under the bottom-right
+    causal diagonal those from the first holding a row ``i`` with
+    ``i + Tk - Tq >= kt * BWD_KEYS``; empty when no row sees the tile."""
+    rows = BWD_ROWS[D]
+    nqt = -(-Tq // rows)
+    first = max(0, kt * BWD_KEYS - (Tk - Tq)) // rows if causal else 0
+    return range(min(first, nqt), nqt)
+
+
+def bwd_schedule(B: int, H: int, Hk: int, Tq: int, Tk: int, causal: bool,
+                 D: int, sms: int) -> List[List[Tuple[int, int, int, int]]]:
+    """The wgmma backward's work, as its kernel deals it: for each of its
+    ``min(items, sms)`` persistent blocks, the ``(b, hk, key tile,
+    query tiles)`` items it walks, in order (query tiles counted over the
+    GQA group's ``H // Hk`` heads: the block walks each head's
+    :func:`bwd_query_tiles`, head by head). The items run (batch, KV
+    head) by (batch, KV head), its key tiles in order, and are dealt in
+    rounds of one item a block, forward in even rounds and backward in odd
+    ones: the blocks at work at one time share a few heads (whose Q, dO
+    and dQ workspace then stay in L2), and each block's key tile changes
+    from round to round, so that its long and short items even out under
+    the causal diagonal."""
+    nkt = -(-Tk // BWD_KEYS)
+    items = nkt * B * Hk
+    grid = min(items, sms)
+    out: List[List[Tuple[int, int, int, int]]] = [[] for _ in range(grid)]
+    for r in range(-(-items // grid)):
+        for blk in range(grid):
+            item = r * grid + (grid - 1 - blk if r % 2 else blk)
+            if item >= items:
+                continue
+            bh, kt = divmod(item, nkt)
+            n = (H // Hk) * len(bwd_query_tiles(kt, Tq, Tk, causal, D))
+            out[blk].append((bh // Hk, bh % Hk, kt, n))
+    return out
+
+
+def bwd_workspace_floats(B: int, H: int, Tq: int, D: int) -> Tuple[int, int]:
+    """fp32 elements of the wgmma backward's two workspaces: the dQ
+    accumulator (every query tile of every (batch, head), padded to whole
+    tiles) and the prep pass's rows (lse in base 2 and delta, per tile)."""
+    rows = BWD_ROWS[D]
+    tiles = B * H * -(-Tq // rows)
+    return tiles * rows * D, tiles * 2 * rows
+
+
+def bwd_launch_names(head_dim: int, dtype: torch.dtype) -> Tuple[str, ...]:
+    """The :data:`LAUNCHES` entries one backward on the card adds one to:
+    the wgmma kernel and its two passes, or the dq / dkv pair."""
+    if dtype != torch.float32 and head_dim in WGMMA_BWD_HEAD_DIMS:
+        return ("flash_bwd_prep", "flash_bwd", "flash_bwd_cast")
+    return ("flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _check_rows(q, do, lse, delta):
@@ -323,6 +429,66 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o, lse
 
 
+def _check_pair_route(q) -> None:
+    if bwd_launch_names(q.shape[-1], q.dtype)[0] != "flash_bwd_dq":
+        raise ValueError(
+            f"head_dim {q.shape[-1]} in {q.dtype}: the backward runs "
+            f"flash_bwd's wgmma kernel (the dq / dkv pair takes head dims "
+            f"16 and 32, and fp32)")
+
+
+def flash_bwd(q, k, v, do, o, lse, dlse=None, *, causal: bool,
+              sm_scale: float
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward: ``(dq, dk, dv)`` from the forward's o and lse and the
+    cotangents dO and (when lse is an output) dlse. On a card at head dims
+    64 and 128 in bf16/fp16 the wgmma kernel with its prep and cast
+    passes; otherwise delta in PyTorch and the dq / dkv pair; on the CPU
+    :func:`flash_bwd_plain`."""
+    _check(q, k, v, do, o, lse)
+    if o.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} != q {tuple(q.shape)}")
+    if dlse is not None and dlse.shape != q.shape[:3]:
+        raise ValueError("dlse must be [B, H, Tq]")
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    if not q.is_cuda:
+        _check_rows(q, do, lse, lse)
+        return flash_bwd_plain(q, k, v, do, o, lse, dlse, **kw)
+    if bwd_launch_names(q.shape[-1], q.dtype)[0] == "flash_bwd_dq":
+        delta = flash_bwd_delta_plain(o, do, dlse)
+        return (flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    if dlse is not None:
+        dlse = dlse.float().contiguous()
+    _check_rows(q, do, lse, lse if dlse is None else dlse)
+    if o.dtype != q.dtype or o.stride(-1) != 1:
+        raise ValueError("o must have q's dtype and a unit head_dim stride")
+    _check_tma(q, k, v, do, what="backward")
+    B, H, Tq, D = q.shape
+    dq, dk, dv = _empty_like_order(q), _empty_like_order(k), \
+        _empty_like_order(v)
+    from ...utils.device import scratch
+    n_dq, n_rows = bwd_workspace_floats(B, H, Tq, D)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws, _ = scratch(q.device, stream, n_dq + n_rows, 0)
+    from . import _build
+    lib = _build.load("flash_attention")
+    flat = [s for t in (q, k, v, do, o, dq, dk, dv) for s in t.stride()[:3]]
+    strides = (ctypes.c_longlong * len(flat))(*flat)
+    err = lib.flash_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        o.data_ptr(), lse.data_ptr(),
+        None if dlse is None else dlse.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), ws, ws + 4 * n_dq,
+        ctypes.addressof(strides), B, H, k.shape[1], Tq, k.shape[2], D,
+        float(sm_scale), int(bool(causal)), KERNEL_DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd failed: cudaError {err}")
+    for name in bwd_launch_names(D, q.dtype):
+        LAUNCHES[name] += 1
+    return dq, dk, dv
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
                  sm_scale: float) -> torch.Tensor:
     """dQ from lse and delta (CUDA kernel on a card, plain on the CPU)."""
@@ -331,6 +497,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
     if not q.is_cuda:
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal,
                                   sm_scale=sm_scale)
+    _check_pair_route(q)
     dq = _empty_like_order(q)
     _launch("flash_bwd_dq", (q, k, v, do, lse, delta, dq), (q, k, v, do, dq),
             q, k, causal=causal, sm_scale=sm_scale)
@@ -345,6 +512,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
     if not q.is_cuda:
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal,
                                    sm_scale=sm_scale)
+    _check_pair_route(q)
     dk = _empty_like_order(k)
     dv = _empty_like_order(v)
     _launch("flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
@@ -369,15 +537,10 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(o)
-        elif do.stride(-1) != 1:
-            do = do.contiguous()
-        delta = (do.float() * o.float()).sum(dim=-1)
-        if dlse is not None:
-            delta = delta - dlse.float()
-        delta = delta.contiguous()
-        kw = dict(causal=ctx.causal, sm_scale=ctx.sm_scale)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        elif q.is_cuda:
+            do = _tma_ready(do)
+        dq, dk, dv = flash_bwd(q, k, v, do, o, lse, dlse, causal=ctx.causal,
+                               sm_scale=ctx.sm_scale)
         return dq, dk, dv, None, None
 
 

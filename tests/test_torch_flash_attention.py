@@ -124,8 +124,9 @@ def test_cpu_path_counts_no_launch_and_refuses_bad_input():
     port.reset_launch_counts()
     x = torch.randn(1, 8, 2, 8)
     port.flash_attention(x, x, x)
-    assert port.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                             "flash_bwd_dkv": 0}
+    assert port.LAUNCHES == {"flash_fwd": 0, "flash_bwd_prep": 0,
+                             "flash_bwd": 0, "flash_bwd_cast": 0,
+                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     with pytest.raises(ValueError):
         port.flash_attention(x, x, x, layout="TBHD")
     with pytest.raises(ValueError):               # 2 query heads over 3

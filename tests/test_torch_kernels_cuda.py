@@ -67,13 +67,16 @@ def test_kernels_match_plain_on_card(window):
     (2, 200, 200, 8, 2, 64, False),       # non-causal
     (1, 256, 256, 2, 2, 128, True),       # head_dim 128
     (1, 320, 320, 16, 16, 128, True),     # the gpt1p3b heads (16 x 128)
+    (2, 256, 256, 8, 2, 128, True),       # GQA 8 -> 2 at head_dim 128
 ])
 def test_flash_kernels_match_plain_on_card(shape):
-    """The three flash kernels against their plain versions on the card,
-    with BTHD views (strided rows) as the model passes them. Limits as in
-    chip_smoke.py: bf16 1.6e-2 max-abs and 2**-8 of the plain output's
-    norm (only bf16 reaches the tensor-core kernels), fp32 1e-5 max-abs
-    (the CUDA-core parity kernels), TF32 off for the plain fp32 products."""
+    """The flash forward and backward (``flash_bwd``) against their plain
+    versions on the card, with BTHD views (strided rows) as the model
+    passes them: fp32 (the CUDA-core parity kernels), bf16 and fp16 (at
+    these head dims the wgmma backward, which must give dK and dV
+    bit-identical from a second call). Limits as in chip_smoke.py: bf16
+    1.6e-2 max-abs, fp16 4e-3, both 2**-8 of the plain output's norm;
+    fp32 1e-5 max-abs, TF32 off for the plain fp32 products."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
@@ -84,23 +87,27 @@ def test_flash_kernels_match_plain_on_card(shape):
             ((B, Tq, H, D), (B, Tk, Hk, D), (B, Tk, Hk, D), (B, Tq, H, D))]
     kw = dict(causal=causal, sm_scale=D ** -0.5)
     for dt, tol, rel_tol in ((torch.float32, 1e-5, 1.0),
-                             (torch.bfloat16, 1.6e-2, 2.0 ** -8)):
+                             (torch.bfloat16, 1.6e-2, 2.0 ** -8),
+                             (torch.float16, 4e-3, 2.0 ** -8)):
         q, k, v, do = (torch.from_numpy(a).cuda().to(dt).transpose(1, 2)
                        for a in arrs)
+        fa.reset_launch_counts()
         o, lse = fa.flash_fwd(q, k, v, **kw)
         ro, rlse = fa.flash_fwd_plain(q, k, v, **kw)
-        delta = (do.float() * ro.float()).sum(-1).contiguous()
-        got = [o, lse, fa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw),
-               *fa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)]
-        ref = [ro, rlse, fa.flash_bwd_dq_plain(q, k, v, do, rlse, delta,
-                                               **kw),
-               *fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)]
+        got = [o, lse, *fa.flash_bwd(q, k, v, do, ro, rlse, **kw)]
+        ref = [ro, rlse, *fa.flash_bwd_plain(q, k, v, do, ro, rlse, **kw)]
         torch.cuda.synchronize()
+        for name in fa.bwd_launch_names(D, dt):
+            assert fa.LAUNCHES[name] == 1, (dt, fa.LAUNCHES)
         for name, g, r in zip(("o", "lse", "dq", "dk", "dv"), got, ref):
             diff = g.float() - r.float()
             err = diff.abs().max().item()
             rel = (diff.norm() / r.float().norm()).item()
             assert err <= tol and rel <= rel_tol, (dt, name, err, rel)
+        if dt != torch.float32:
+            again = fa.flash_bwd(q, k, v, do, ro, rlse, **kw)
+            assert torch.equal(again[1], got[3])
+            assert torch.equal(again[2], got[4])
 
 
 @pytest.mark.cuda
@@ -542,8 +549,10 @@ def test_paged_kernels_c1_shapes_match_plain_on_card(D, H, KV):
     ("bf16", 32), ("fp16", 32), ("fp32", 32),
 ])
 def test_flash_kernels_c1_match_plain_on_card(dtype, D):
-    """The three flash kernels in fp16 and at head dims 16 and 32 (fault
-    C1) against their plain versions, with BTHD views, a ragged T, GQA 4
+    """The flash forward and backward in fp16 and at head dims 16 and 32
+    (fault C1; the backward's route by head dim and dtype: the dq / dkv
+    pair at 16 and 32 and in fp32, the wgmma kernel at 64 and 128)
+    against their plain versions, with BTHD views, a ragged T, GQA 4
     -> 2 and the causal diagonal. Limits: bf16 as chip_smoke.py (1.6e-2
     max-abs, 2**-8 of the norm); fp16 4e-3 max-abs (about one fp16 ulp at
     outputs of 4-8; fp16 keeps three more bits than bf16) and 2**-8 of the
@@ -565,14 +574,13 @@ def test_flash_kernels_c1_match_plain_on_card(dtype, D):
     fa.reset_launch_counts()
     o, lse = fa.flash_fwd(q, k, v, **kw)
     ro, rlse = fa.flash_fwd_plain(q, k, v, **kw)
-    delta = (do.float() * ro.float()).sum(-1).contiguous()
-    got = [o, lse, fa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw),
-           *fa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)]
-    ref = [ro, rlse, fa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw),
-           *fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)]
+    got = [o, lse, *fa.flash_bwd(q, k, v, do, ro, rlse, **kw)]
+    ref = [ro, rlse, *fa.flash_bwd_plain(q, k, v, do, ro, rlse, **kw)]
     torch.cuda.synchronize()
-    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1,
-                           "flash_bwd_dkv": 1}
+    want = dict.fromkeys(fa.LAUNCHES, 0)
+    want["flash_fwd"] = 1
+    want.update(dict.fromkeys(fa.bwd_launch_names(D, dt), 1))
+    assert fa.LAUNCHES == want
     for name, g, r in zip(("o", "lse", "dq", "dk", "dv"), got, ref):
         assert g.dtype == r.dtype, (name, g.dtype, r.dtype)
         diff = g.float() - r.float()
@@ -824,3 +832,15 @@ def test_flash_fwd_raises_on_a_stride_tma_cannot_take():
     with pytest.raises(ValueError, match="q's time stride is 260"):
         fa.flash_fwd(q, k, v, causal=True, sm_scale=D ** -0.5)
     assert fa.LAUNCHES["flash_fwd"] == 0
+    # the backward reads dO by TMA too; and the dq / dkv pair refuses the
+    # head dims of the wgmma backward instead of running in its place
+    k2, v2 = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (k, v))
+    qq = torch.randn(B, H, T, D, device="cuda").bfloat16()
+    o, lse = fa.flash_fwd(qq, k2, v2, causal=True, sm_scale=D ** -0.5)
+    with pytest.raises(ValueError, match="dO's time stride is 260"):
+        fa.flash_bwd(qq, k2, v2, q, o, lse, causal=True, sm_scale=D ** -0.5)
+    delta = fa.flash_bwd_delta_plain(o, qq)
+    with pytest.raises(ValueError, match="wgmma"):
+        fa.flash_bwd_dq(qq, k2, v2, qq, lse, delta, causal=True,
+                        sm_scale=D ** -0.5)
+    assert fa.LAUNCHES["flash_bwd"] == fa.LAUNCHES["flash_bwd_dq"] == 0
