@@ -11,13 +11,16 @@ Phases, in order; any failure exits non-zero before the final line:
              kernels/csrc`` (nvcc, sm_90a) and print ptxas's summary.
 2. parity  — both paged-attention kernels against their plain PyTorch
              version at TinyLlama width (H=32, KV=4, D=64): K1 on 4 slots x
-             256-token chunks, K2 on 16 slots with contexts up to 2048, in
+             256-token chunks (bf16: the wgmma kernel, K/V by TMA at block
+             64 and by the cp.async gather at block 16, with a window and
+             an idle slot), K2 on 16 slots with contexts up to 2048, in
              the multi-block (block_size 64) and linear (one block per
              sequence) layouts, and on 16 slots with contexts up to 8192
              (several context splits, each K2 case printing its
              ``decode_plan``), once with a 700-key window whose edge falls
              inside a split; bf16 within 8e-3 max-abs and 2**-8 of the
-             plain output's norm, fp32 within 1e-4. Only the bf16 cases
+             plain output's norm, fp32 within 1e-4; every case also
+             bit-identical between two calls. Only the bf16 cases
              reach the tensor-core kernels (K1's, and K2's split kernel);
              fp32 runs CUDA-core kernels of its own, so
              phase 4 does not cover the former.
@@ -33,9 +36,10 @@ Phases, in order; any failure exits non-zero before the final line:
              version, ``F.scaled_dot_product_attention`` on the same live
              K/V as a yardstick, and the bound (bytes over 3.35 TB/s,
              FLOPs over 989 TFLOP/s, the larger), the bound's share of the
-             kernel's time and, for K2, its plan; the kernel and SDPA also
-             in a CUDA graph (``_graph_ms``: device time without the
-             host's launch cost).
+             kernel's time and, for K2, its plan (K1: its route and
+             ``prefill_plan``); the kernel and SDPA also in a CUDA graph
+             (``_graph_ms``: device time without the host's launch
+             cost).
 
 6. flash parity — the flash-attention forward and backward against
              their plain PyTorch versions from the same inputs and the
@@ -198,7 +202,10 @@ bound and one library call:
              combinations at a ragged S = 300 in bf16 and fp32 with a fully
              masked row; one backward of the MSA case against the plain
              path's gradients; SDPA on [B N, H, S, D] with mask + pair bias
-             as ``attn_mask`` as the library call.
+             as ``attn_mask`` as the library call; the kernel in CUDA
+             graphs with both biases, the mask bias only and neither (what
+             the biases cost), and the pair-bias bytes through L2 that
+             ``evo_plan``'s rows a block imply.
 
 22. c1      — fault C1, the inputs the kernels refused before: K1 and K2
              at head dims 16, 32, 80 and 96 and a GQA group of 32 (bf16
@@ -452,6 +459,9 @@ def phase_parity(torch):
         # (kernel, S, C, lens, block_size, maxb, window)
         ("paged_prefill", 4, 256, [256, 512, 1024, 2048], 64, 32, None),
         ("paged_prefill", 4, 256, [256, 512, 1024, 2048], 64, 32, 512),
+        # K1's cp.async gather route (a block size that is no multiple of
+        # the 64-row TMA box), a window edge inside a tile, an idle slot
+        ("paged_prefill", 4, 256, [256, 0, 1000, 2048], 16, 128, 100),
         ("paged_decode", 16, 1, dec_lens, 64, 32, None),
         ("paged_decode", 16, 1, dec_lens, 2048, 1, None),  # linear layout
         ("paged_decode", 16, 1, dec_lens, 64, 32, 512),
@@ -474,9 +484,16 @@ def phase_parity(torch):
                 raise AssertionError(f"{name}: idle slot not zero")
             if not torch.isfinite(got.float()).all():
                 raise AssertionError(f"{name}: non-finite output")
+            # one block owns each output (K1's items, K2's merge in split
+            # order): a second call gives the same bits
+            if not torch.equal(got, getattr(pa, name)(q, kp, vp, tab, st,
+                                                      ln, **kw)):
+                raise AssertionError(f"{name}: two calls differ")
             plan = ""
             if name == "paged_decode":
                 plan = f" plan {_k2_plan(pa, q, S, KV, H // KV, maxb, bs)}"
+            else:
+                plan = f" route {pa.prefill_route(C, D, dtype, bs)}"
             err = check_close(
                 torch, f"[parity] {name} {str(dtype)[6:]} bs={bs} "
                 f"maxb={maxb} window={window}{plan}", got, ref)
@@ -703,13 +720,22 @@ def time_paged(torch, rng, name, *, S, C, ctx, block_size, maxb,
            "bytes": nbytes, "flops": flops, "graph_ms": graph_ms,
            "library_graph_ms": lib_graph_ms}
     out["bound_share"] = out["bound_ms"] / ms
+    out["graph_bound_share"] = out["bound_ms"] / graph_ms
     if C == 1:
         out["plan"] = _k2_plan(pa, q, S, KVh, Hh // KVh, maxb, block_size)
+    else:
+        out["kernel_route"] = pa.prefill_route(C, Dh, q.dtype, block_size)
+        if out["kernel_route"].startswith("wgmma"):
+            plan = pa.prefill_plan(S, C, Hh, maxb * block_size,
+                                   sm_count(q.device))
+            out["plan"] = {"items": plan.items, "grid": plan.grid}
     log(f"[timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
         f"{lib_ms:.4f}, bound {out['bound_ms']:.4f} by {out['bound_by']}, "
         f"{out['bound_share']:.1%} of it; max_abs_err {err:.3e}; in a CUDA "
-        f"graph {graph_ms:.4f} against sdpa {lib_graph_ms:.4f})"
-        + (f"; plan {out['plan']}" if C == 1 else ""))
+        f"graph {graph_ms:.4f} ({out['graph_bound_share']:.1%} of the "
+        f"bound) against sdpa {lib_graph_ms:.4f})"
+        + (f"; route {out['kernel_route']}" if C > 1 else "")
+        + (f"; plan {out['plan']}" if "plan" in out else ""))
     return out
 
 
@@ -2707,19 +2733,35 @@ def phase_evoformer_op(torch):
             qs, ks, vs, attn_mask=am), 10)
         lib_dev_ms = _device_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=am), 5)
+        # in CUDA graphs: the kernel with both biases, the mask bias only
+        # and neither (what the biases cost), SDPA beside them
+        graph = {lab: _graph_ms(torch, [
+            lambda a=a, b=b: ek.evoformer_flash(q, k, v, a, b)])
+            for lab, a, b in (("both", mb2, pb2), ("mask", mb2, None),
+                              ("none", None, None))}
+        graph["sdpa"] = _graph_ms(torch, [
+            lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                   attn_mask=am)])
         del qs, ks, vs, am
         nbytes = 4 * q.numel() * 2 + mb2.numel() * 4 + pb2.numel() * 4
         flops = 4 * B * N * Hh * S * S * Dh
-        per[name] = (ms, plain_ms, lib_ms, nbytes, flops, dev_ms, lib_dev_ms)
+        plan = ek.evo_plan(ek.kernel_head_dim(Dh), B, N, Hh, S, S)
+        per[name] = (ms, plain_ms, lib_ms, nbytes, flops, dev_ms, lib_dev_ms,
+                     graph, plan.rows, plan.pair_bias_bytes)
         bound_ms, by = _bound(nbytes, flops, BF16_FLOPS_PER_S)
         log(f"[ops timing] evoformer_fwd {name} {list(q.shape)}: {ms:.4f} "
             f"ms (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, bound "
             f"{bound_ms:.4f} by {by}); device time {dev_ms}, sdpa device "
-            f"time {lib_dev_ms}")
+            f"time {lib_dev_ms}; in CUDA graphs {graph}; {plan.rows} MSA "
+            f"rows a block: the pair bias ({pb2.numel() * 4 / 1e6:.2f} MB) "
+            f"crosses L2 {plan.groups} times, "
+            f"{plan.pair_bias_bytes / 1e9:.3f} GB a call "
+            f"({pb2.numel() * 4 * N / 1e9:.3f} GB at one row a block)")
         torch.cuda.empty_cache()
     del cases
     torch.cuda.empty_cache()
-    ms, plain_ms, lib_ms, nbytes, flops, dev_ms, lib_dev_ms = per["msa"]
+    ms, plain_ms, lib_ms, nbytes, flops, dev_ms, lib_dev_ms, graph, rows, \
+        pb_bytes = per["msa"]
     return [_op_row(
         "evoformer_fwd", EVO_SOURCE, launches, worst, ms, plain_ms, lib_ms,
         nbytes, flops, BF16_FLOPS_PER_S, device_ms=dev_ms,
@@ -2729,8 +2771,12 @@ def phase_evoformer_op(torch):
                      "with mask + pair bias as attn_mask (bf16, built "
                      "outside the timed window)",
         shape={"q": list(EVO_MSA), "case": "msa", "dtype": "bf16"},
+        graph_ms=graph["both"], library_graph_ms=graph["sdpa"],
+        msa_rows_a_block=rows, pair_bias_l2_bytes=pb_bytes,
         cases={n: dict(zip(("ms", "plain_ms", "library_ms", "bytes",
-                            "flops", "device_ms", "library_device_ms"), r))
+                            "flops", "device_ms", "library_device_ms",
+                            "graph_ms", "msa_rows_a_block",
+                            "pair_bias_l2_bytes"), r))
                for n, r in per.items()})]
 
 

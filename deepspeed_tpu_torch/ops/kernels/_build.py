@@ -35,8 +35,10 @@ _L = ctypes.c_longlong
 #: C signatures of each library's entry points
 SIGNATURES = {
     "paged_attention": {
-        "paged_prefill_launch": [_P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+        # q, k_pool, v_pool, tables, start_pos, seq_lens, out, S, C, H,
+        # KV, D, maxb, bs, scale, window, slots, route, grid, stream
+        "paged_prefill_launch": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 4
+        + [_P],
         # ..., out, part, counters, S, H, KV, D, maxb, bs, scale, window,
         # is_bf16, splits, keys per split, stream
         "paged_decode_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _I,
@@ -86,9 +88,9 @@ SIGNATURES = {
         "sparse_fwd_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
     },
     # q, k, v, o, mask bias, pair bias, host strides, B, N, H, Sq, Sk, D,
-    # scale, is_bf16, stream
+    # scale, is_bf16, MSA rows a block (evoformer.evo_plan), stream
     "evoformer": {
-        "evoformer_fwd_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+        "evoformer_fwd_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     },
 }
 

@@ -14,24 +14,39 @@
 //
 // Bound on the H100: bytes at AlphaFold 2's sizes (c = 32: 4 D flops a
 // score against q, k, v, o and the biases read once -- the MSA row
-// attention's 403 MB of q/k/v/o alone is 0.12 ms). bf16 runs the
-// tensor-core tile of flash_fwd_mma_kernel (flash_tile.cuh): one block of
-// 4 warps owns 64 query rows of one (b, n, h), K/V tiles of 64 keys
-// double-buffered in shared memory by cp.async, mma.sync m16n8k16 with
-// fp32 accumulators. D = 16, 32 and 64 run natively; the wrapper zero-pads
-// q, k and v along D to the next of these for any other D <= 64 (the
-// scores are unchanged and the output is sliced back), and raises
-// NotImplementedError above 64 (the D = 64 instance already takes 251
-// registers a thread, so a D = 128 one would spill). The kernel reads
-// q/k/v/o through their strides, so the [B, N, S, H, D] tensors need no
-// transposed [B N, H, S, D] copies (the JAX wrapper makes them, :159).
-// Each thread reads the biases of its own score elements straight from
-// device memory as f32: a quad of threads covers 8 neighbouring keys of a
-// row, so every 32-byte sector of the [Sq, Sk] pair-bias rows that is
-// fetched is used whole; the pair bias of one (b, h) is read by the N
-// blocks that share it, mostly from L2. Ragged Sq and Sk are masked in
-// the kernel, so nothing is padded (the JAX tiles pad Sq to 8 and Sk to
-// 128, :92-93).
+// attention's 403 MB of q/k/v/o alone is 0.12 ms). What held the first
+// port (one block of 4 warps per (b, n, h, 64-query tile), each thread
+// loading its score elements' biases from device memory into registers
+// before the product) was not those bytes: timed on an H100 with both
+// biases, the mask bias only and neither (tools/port_step_ab.py --evo),
+// it read 1.29 / 1.09 / 0.90 ms at the MSA shape, so the biases cost 0.4
+// ms -- the 0.8 MB mask bias nearly as much as the 4.7 MB pair bias --
+// through the registers they held across the product (fewer blocks an
+// SM) and the latency of their loads, and the pair bias besides crossed
+// L2 once per MSA row (2.4 GB a call).
+//
+// So bf16 runs evoformer_fwd_mma_kernel: a block owns 64 query rows of
+// one (b, h) and EVO_SETS = 2 MSA rows, one warp set of 4 warps each
+// (16 query rows a warp), each set the online softmax of its row as the
+// tensor-core tile of flash_tile.cuh runs it (mma.sync m16n8k16, fp32
+// accumulators). Each 64-key step stages, by cp.async through two stages,
+// the sets' K/V tiles and mask-bias rows and one [64 x 64] f32 pair-bias
+// tile for both rows; the scores read the biases from shared memory
+// (8-byte reads of a swizzled tile, no bank conflicts), so they arrive
+// under the previous tile's products, hold no registers across a product
+// (<= 128 registers: 4 blocks' worth of warps an SM at D <= 32) and the
+// pair bias crosses L2 once per two rows. Holding several rows' states a
+// thread (R = 4 or 8 rows a block, as first designed) took 181-255
+// registers and ran slower than the first port; four sets of one row
+// halved the pair bias again but ran slower with 16 warps on one
+// barrier. D = 16, 32 and 64 run natively; the wrapper zero-pads q, k and
+// v along D to the next of these for any other D <= 64 (the scores are
+// unchanged and the output is sliced back), and raises
+// NotImplementedError above 64. The kernel reads q/k/v/o through their
+// strides, so the [B, N, S, H, D] tensors need no transposed [B N, H, S,
+// D] copies (the JAX wrapper makes them, :159). Ragged Sq and Sk are
+// masked in the kernel, so nothing is padded (the JAX tiles pad Sq to 8
+// and Sk to 128, :92-93).
 //
 // Numerics follow the Pallas kernel: scores in fp32 scaled after the
 // product, then + mask bias, then + pair bias, all in f32 (a -1e9 mask
@@ -52,6 +67,11 @@ namespace {
 
 constexpr int F32_NT = 128;
 constexpr float M_FLOOR = -1e30f;
+// MSA rows a block: one warp set of 4 warps each, sharing each staged
+// pair-bias tile (`evoformer.evo_plan`). Two keep 16 warps an SM at D <=
+// 32 (<= 128 registers a thread); four halved the pair bias's L2 traffic
+// again but, all 16 warps on one barrier, ran slower on an H100.
+constexpr int EVO_SETS = 2;
 
 struct EvoStrides {
   long long b, n, t, h;            // elements; the D stride is 1
@@ -71,34 +91,133 @@ __device__ __forceinline__ long long head_at(const EvoStrides& s, int b,
   return b * s.b + n * s.n + h * s.h;
 }
 
+// Shared memory of a stage: each set's K and V tiles ([64][D + 8] bf16
+// each), the pair-bias tile (64 x 64 f32, each row's 8-float column groups
+// XORed with (row % 4) * 8 so that a half-warp's 8-byte reads of four
+// rows fall on distinct banks) and each set's mask-bias tile (64 f32).
 template <int D>
-__global__ void __launch_bounds__(NT)
+__host__ __device__ constexpr size_t evo_stage_bytes() {
+  return EVO_SETS * (2 * tile_elems<D>() * sizeof(bf16) +
+                          64 * sizeof(float)) +
+         64 * 64 * sizeof(float);
+}
+__device__ __forceinline__ int bias_at(int r, int c) {
+  return r * 64 + (c ^ ((r & 3) * 8));
+}
+
+// Columns [c0, c0 + 64) of `rows` f32 rows (row stride `ld` elements) into
+// a bias tile by cp.async, thread `tid` of `nt`: 16 bytes a copy when
+// `vec` (ld % 4 == 0 and a 16-byte aligned base: every row starts
+// aligned), else 4; columns past `cols` zeros, rows past `rows` skipped
+// (their scores are masked); `swz`: the pair-bias tile's layout.
+__device__ __forceinline__ void stage_bias(float* dst, const float* src,
+                                           long long ld, int rows, int c0,
+                                           int cols, int vec, bool swz,
+                                           int tid, int nt) {
+  if (vec) {
+    for (int i = tid; i < 64 * 16; i += nt) {
+      const int r = i / 16, c = (i % 16) * 4;
+      if (r >= rows) break;
+      const int n = max(0, min(4, cols - c0 - c));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       smem_addr(dst + (swz ? bias_at(r, c) : c))),
+                   "l"(src + (n ? r * ld + c0 + c : 0)), "r"(n * 4));
+    }
+  } else {
+    for (int i = tid; i < 64 * 64; i += nt) {
+      const int r = i / 64, c = i % 64;
+      if (r >= rows) break;
+      const bool live = c0 + c < cols;
+      cp_async4(dst + (swz ? bias_at(r, c) : c),
+                src + (live ? r * ld + c0 + c : 0), live);
+    }
+  }
+}
+
+// Rows [r0, r0 + 64) of one (b, n, h)'s K or V into a [64][D + 8] tile,
+// 16 bytes a copy by thread `tid` of 128; rows at or past `rows` zeros.
+template <int D>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           long long stride_t, int r0,
+                                           int rows, int tid) {
+  constexpr int LD = D + 8, CH = D / 8;
+  for (int i = tid; i < 64 * CH; i += NT) {
+    const int r = i / CH, ch = i % CH;
+    const bool live = r0 + r < rows;
+    cp_async16(dst + r * LD + ch * 8,
+               src + (live ? (long long)(r0 + r) * stride_t + ch * 8 : 0),
+               live);
+  }
+}
+
+// One block owns 64 query rows of one (b, h) and W = EVO_SETS MSA
+// rows n0 .. n0 + W - 1: warp set ws (warps 4 ws .. 4 ws + 3, 16 query
+// rows each) runs row n0 + ws with its own online softmax, as one block
+// of the one-row design did. Each 64-key tile's pair-bias block [64 x 64]
+// is staged once for the W rows, beside the sets' K/V tiles and mask-bias
+// rows, through two cp.async stages: the biases arrive under the previous
+// tile's products, their values are read from shared memory where the
+// scores take them (never held in registers across a product), and the
+// pair bias crosses L2 once per W rows. A set past N (the last group's
+// tail) loads and computes nothing.
+template <int D>
+__global__ void __launch_bounds__(NT * EVO_SETS, (D <= 32 ? 2 : 1))
 evoformer_fwd_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o,
                          const float* __restrict__ mb,
                          const float* __restrict__ pb, EvoStrides sq,
                          EvoStrides sk, EvoStrides sv, EvoStrides so, int N,
-                         int H, int Sq, int Sk, float scale) {
+                         int H, int Sq, int Sk, float scale, int vec) {
+  constexpr int W = EVO_SETS;
   constexpr int ND = D / 8, TE = tile_elems<D>();
+  constexpr int SB = (int)evo_stage_bytes<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);   // [buf][K, V][64][D+8]
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, bn = blockIdx.z;
-  const int b = bn / N, n = bn % N;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int groups = (N + W - 1) / W;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y;
+  const int b = blockIdx.z / groups;
+  const int ws = threadIdx.x / NT, n = (blockIdx.z % groups) * W + ws;
+  const bool live_row = n < N;                // warp-uniform
+  const int tid = threadIdx.x % NT;           // within the set
+  const int warp = tid / 32, lane = tid % 32;
   const int quad = lane / 4, qi = lane % 4;
   const int row[2] = {q0 + warp * 16 + quad, q0 + warp * 16 + quad + 8};
-  const float* mrow = mb ? mb + (long long)bn * Sk : nullptr;
-  const float* prow[2] = {nullptr, nullptr};
-  if (pb)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      prow[i] = pb + (((long long)b * H + h) * Sq + min(row[i], Sq - 1)) * Sk;
+  const int rloc[2] = {warp * 16 + quad, warp * 16 + quad + 8};
+  const float* mrow = mb && live_row ? mb + ((long long)b * N + n) * Sk
+                                     : nullptr;
+  const float* pblk =
+      pb ? pb + (((long long)b * H + h) * Sq + q0) * Sk : nullptr;
+  const int qrows = min(BQ, Sq - q0);
 
   uint32_t qf[D / 16][4];
-  load_a<D>(qf, q + head_at(sq, b, n, h), sq.t, row, Sq, qi);
-  const bf16* kb = k + head_at(sk, b, n, h);
-  const bf16* vb = v + head_at(sv, b, n, h);
+  const int nn = live_row ? n : 0;
+  load_a<D>(qf, q + head_at(sq, b, nn, h), sq.t, row, live_row ? Sq : 0,
+            qi);
+  const bf16* kb = k + head_at(sk, b, nn, h);
+  const bf16* vb = v + head_at(sv, b, nn, h);
+  // stage `buf`: the sets' [K][V] bf16 tiles, the pair-bias tile, the
+  // sets' mask rows
+  auto kv_at = [&](int buf) {
+    return reinterpret_cast<bf16*>(smem_raw + buf * SB) + ws * 2 * TE;
+  };
+  auto pbias_at = [&](int buf) {
+    return reinterpret_cast<float*>(smem_raw + buf * SB +
+                                    W * 2 * TE * sizeof(bf16));
+  };
+  auto prefetch = [&](int buf, int t0) {
+    if (live_row) {
+      bf16* kv = kv_at(buf);
+      stage_rows<D>(kv, kb, sk.t, t0, Sk, tid);
+      stage_rows<D>(kv + TE, vb, sv.t, t0, Sk, tid);
+      if (mrow)
+        stage_bias(pbias_at(buf) + 64 * 64 + ws * 64, mrow, 0, 1, t0, Sk,
+                   vec, false, tid, NT);
+    }
+    if (pblk)
+      stage_bias(pbias_at(buf), pblk, Sk, qrows, t0, Sk, vec, true,
+                 threadIdx.x, NT * W);
+    cp_async_commit();
+  };
 
   float acc[ND][4];
 #pragma unroll
@@ -108,51 +227,53 @@ evoformer_fwd_mma_kernel(const bf16* __restrict__ q,
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};             // this thread's partial row sums
 
-  stage_tile<D>(smem, kb, sk.t, 0, Sk);
-  stage_tile<D>(smem + TE, vb, sv.t, 0, Sk);
-  cp_async_commit();
+  prefetch(0, 0);
   for (int t0 = 0, it = 0; t0 < Sk; t0 += BK, ++it) {
-    const bf16* ks = smem + (it & 1) * 2 * TE;
+    const bf16* ks = kv_at(it & 1);
     const bf16* vs = ks + TE;
+    const float* pbt = pbias_at(it & 1);
+    const float* mbt = pbt + 64 * 64 + ws * 64;
     if (t0 + BK < Sk) {
-      bf16* nk = smem + ((it + 1) & 1) * 2 * TE;
-      stage_tile<D>(nk, kb, sk.t, t0 + BK, Sk);
-      stage_tile<D>(nk + TE, vb, sv.t, t0 + BK, Sk);
-      cp_async_commit();
+      prefetch((it + 1) & 1, t0 + BK);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    // this thread's bias values, read before the product so that their
-    // latency hides under it; the mask bias of a column serves both rows
-    float mbv[8][2], pbv[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = t0 + nt * 8 + qi * 2 + (e & 1);
-        if (e < 2) mbv[nt][e] = mrow && j < Sk ? __ldg(mrow + j) : 0.f;
-        pbv[nt][e] = pb && j < Sk ? __ldg(prow[e / 2] + j) : 0.f;
-      }
+    if (!live_row) {                  // the tail's sets keep the barriers
+      __syncthreads();
+      continue;
+    }
     float sc[8][4];
     mma_abt<D>(sc, qf, ks, lane);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < 8; ++nt) {
+      // this thread's two keys of the column tile; the mask bias of a key
+      // serves both rows
+      const int c = nt * 8 + qi * 2, j0 = t0 + c;
+      const float2 mv = mrow ? *reinterpret_cast<const float2*>(mbt + c)
+                             : make_float2(0.f, 0.f);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e / 2, j = t0 + nt * 8 + qi * 2 + (e & 1);
-        float x = -INFINITY;
-        if (j < Sk && row[i] < Sq) {
-          // (s * scale + mask) + pair, each rounded as the plain version
-          x = __fmul_rn(sc[nt][e], scale);
-          if (mrow) x = __fadd_rn(x, mbv[nt][e & 1]);
-          if (pb) x = __fadd_rn(x, pbv[nt][e]);
+      for (int i = 0; i < 2; ++i) {
+        const float2 pv =
+            pblk ? *reinterpret_cast<const float2*>(pbt + bias_at(rloc[i], c))
+                 : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int e = 2 * i + x;
+          float y = -INFINITY;
+          if (j0 + x < Sk && row[i] < Sq) {
+            // (s * scale + mask) + pair, each rounded as the plain version
+            y = __fmul_rn(sc[nt][e], scale);
+            if (mrow) y = __fadd_rn(y, x ? mv.y : mv.x);
+            if (pblk) y = __fadd_rn(y, x ? pv.y : pv.x);
+          }
+          sc[nt][e] = y;
+          mx[i] = fmaxf(mx[i], y);
         }
-        sc[nt][e] = x;
-        mx[i] = fmaxf(mx[i], x);
       }
+    }
     float alpha[2], rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -189,7 +310,8 @@ evoformer_fwd_mma_kernel(const bf16* __restrict__ q,
     li += __shfl_xor_sync(0xffffffffu, li, 2);
     inv[i] = li == 0.f ? 0.f : 1.f / li;      // every key -inf: O = 0
   }
-  store_rows<D>(o + head_at(so, b, n, h), so.t, acc, row, Sq, inv, qi);
+  if (live_row)
+    store_rows<D>(o + head_at(so, b, n, h), so.t, acc, row, Sq, inv, qi);
 }
 
 template <int D>
@@ -238,13 +360,20 @@ evoformer_fwd_f32_kernel(const float* __restrict__ q,
 template <int D>
 cudaError_t fwd(const Args& a, bool bf, cudaStream_t stream) {
   if (bf) {
-    dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B * a.N);
-    constexpr size_t smem = 4 * tile_elems<D>() * sizeof(bf16);
+    constexpr int W = EVO_SETS;
+    const long long groups = (long long)a.B * ((a.N + W - 1) / W);
+    if (groups > 65535) return cudaErrorInvalidValue;
+    dim3 grid((a.Sq + BQ - 1) / BQ, a.H, (unsigned)groups);
+    constexpr size_t smem = 2 * evo_stage_bytes<D>();
     cudaError_t err = smem_opt_in(evoformer_fwd_mma_kernel<D>, smem);
     if (err != cudaSuccess) return err;
-    evoformer_fwd_mma_kernel<D><<<grid, NT, smem, stream>>>(
+    // 16-byte bias copies where every bias row starts 16-byte aligned
+    const int vec = a.Sk % 4 == 0 && (uintptr_t)a.mb % 16 == 0 &&
+                    (uintptr_t)a.pb % 16 == 0;
+    evoformer_fwd_mma_kernel<D><<<grid, NT * W, smem, stream>>>(
         (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (bf16*)a.o,
-        a.mb, a.pb, a.sq, a.sk, a.sv, a.so, a.N, a.H, a.Sq, a.Sk, a.scale);
+        a.mb, a.pb, a.sq, a.sk, a.sv, a.so, a.N, a.H, a.Sq, a.Sk, a.scale,
+        vec);
   } else {
     const long long n = (long long)a.B * a.N * a.H * a.Sq;
     evoformer_fwd_f32_kernel<D><<<(unsigned)((n + F32_NT - 1) / F32_NT),
@@ -267,9 +396,10 @@ int evoformer_fwd_launch(const void* q, const void* k, const void* v,
                          void* o, const void* mask_bias,
                          const void* pair_bias, const long long* strides,
                          int B, int N, int H, int Sq, int Sk, int D,
-                         float scale, int is_bf16, void* stream) {
+                         float scale, int is_bf16, int rows,
+                         void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || H > 65535 ||
-      (long long)B * N > 65535 || (D != 16 && D != 32 && D != 64))
+      (D != 16 && D != 32 && D != 64) || (is_bf16 && rows != EVO_SETS))
     return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     const void* ptrs[4] = {q, k, v, o};

@@ -5,21 +5,29 @@
 // K1 paged_prefill replaces the Pallas kernel `_paged_kernel`
 //   (deepspeed_tpu/ops/kernels/paged_attention.py:45, launched at :938).
 //   It serves SplitFuse prefill chunks (C > 1 queries per slot).
-//   Bound on the H100: at serving chunk sizes (256 queries over <= a few
-//   thousand keys) the work is 4*D FLOPs per (query, key) pair against
-//   2*D*2 bytes per live key row, so it sits near the bf16 ridge; by
-//   shape it is FLOP-bound for long chunks and byte-bound for short ones.
-//   So bf16 runs on the tensor cores: paged_prefill_mma_kernel, one block
-//   of 4 warps per (sequence, 64-query tile, head), each warp 16 query
-//   rows, mma.sync m16n8k16 (bf16 in, fp32 accumulate) for Q.K^T and
-//   P.V with the scores, probabilities and output kept in registers.
-//   fp32 inputs (the parity oracle) take paged_attn_kernel below
-//   on the CUDA cores. Both keep device-memory traffic at the live rows:
-//   the key loop covers [lo, hi) of the tile (causal end, sequence
+//   Bound on the H100: bytes at the served shapes (Llama-2-7B's prefill
+//   step, 64 slots x 512 queries over 512 keys of 32 KV heads of 128:
+//   0.3205 ms of q, K, V and o at 3.35 TB/s, against 0.14 ms of tensor
+//   work) or the tensor cores (TinyLlama's second chunk, GQA 8: 4*D FLOPs
+//   a (query, key) pair against K/V shared by 8 heads). The first port
+//   (one block of 4 warps per (slot, 64 queries, head), synchronous
+//   loads, mma.sync) re-read every K/V tile per query tile and head from
+//   L2 with no overlap of loads and products: 1.61-1.64 ms at the 7B
+//   shape, 1.8x SDPA. So bf16 at head dims 64 and 128 (C >= 64) runs
+//   paged_prefill_wgmma_kernel (its section below): persistent blocks
+//   dealt items (slot, head, 128 queries), a head's query tiles side by
+//   side so that its K/V is read from L2 after the first, K/V through the
+//   block table by TMA (or a cp.async gather) into rings a producer warp
+//   group fills while two consumer warpgroups run both products on wgmma.
+//   paged_prefill_mma_kernel (4 warps per (slot, 64-query tile, head),
+//   mma.sync m16n8k16 with K's and V's fragments by ldmatrix) keeps head
+//   dims 16, 32, 80 and 96 and chunks of fewer than 64 queries; fp32 (the
+//   parity oracle) takes paged_attn_kernel on the CUDA cores. The route
+//   is the wrapper's, from the shapes alone (`prefill_route`). Every
+//   kernel's key loop covers [lo, hi) of its rows (causal end, sequence
 //   length and sliding window), never a dead or padded table entry.
 //   Head dims 16, 32, 64, 80, 96 and 128 are instantiated (the tiny test
-//   config's 16, TinyLlama's 64, phi-2's 80, phi3's 96, Llama's 128);
-//   the tensor-core loops step D in 16s, so every multiple of 16 fits.
+//   config's 16, TinyLlama's 64, phi-2's 80, phi3's 96, Llama's 128).
 //
 // K2 paged_decode replaces the Pallas kernel `_decode_grouped_kernel`
 //   (paged_attention.py:205, launched at :615). One query per sequence.
@@ -61,16 +69,12 @@
 // and the decode-loop ring (the port's decode loop appends each step's
 // K/V to the pool before attending).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "flash_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int NT = 256;            // threads per block
+constexpr int CC_NT = 256;         // threads per block of the fp32 kernel
 constexpr int PF_ROWS = 32;        // K1: queries per block
 constexpr int PF_TK = 32;          // K1: keys per tile
 constexpr int DEC_ROWS = 16;       // K2 fp32: query heads of a block
@@ -105,7 +109,7 @@ constexpr size_t smem_bytes() {
 // of the g heads of KV head blockIdx.y, at query 0. PREFILL: rows are
 // PF_ROWS consecutive queries (tile blockIdx.y) of head blockIdx.z.
 template <typename T, int D, int ROWS, int TK, bool DECODE>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(CC_NT)
 paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                   const T* __restrict__ v_pool,
                   const int* __restrict__ tables,
@@ -145,7 +149,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   // never index past the block table, whatever seq_lens says
   const int seq_len = min(seq_lens[s], maxb * bs);
 
-  for (int r = tid; r < ROWS; r += NT) {
+  for (int r = tid; r < ROWS; r += CC_NT) {
     int lo_r = 0, hi_r = 0;
     if (r < nrows) {
       const int pos = start + (DECODE ? 0 : c0 + r);
@@ -158,7 +162,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     l_s[r] = 0.f;
     a_s[r] = 0.f;
   }
-  for (int i = tid; i < ROWS * D; i += NT) {
+  for (int i = tid; i < ROWS * D; i += CC_NT) {
     const int r = i / D, d = i % D;
     float v = 0.f;
     if (r < nrows) {
@@ -181,7 +185,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
   if (hi == 0) lo = 0;
 
-  constexpr int PAIRS = (ROWS * D + NT - 1) / NT;
+  constexpr int PAIRS = (ROWS * D + CC_NT - 1) / CC_NT;
   float acc[PAIRS];
 #pragma unroll
   for (int k = 0; k < PAIRS; ++k) acc[k] = 0.f;
@@ -189,7 +193,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int warp = tid / 32, lane = tid % 32;
   for (int t0 = lo; t0 < hi; t0 += TK) {
     // stage the K/V tile: token j lives in row table[j / bs] * bs + j % bs
-    for (int i = tid; i < TK * D; i += NT) {
+    for (int i = tid; i < TK * D; i += CC_NT) {
       const int r = i / D, d = i % D;
       const int j = t0 + r;
       float kv = 0.f, vv = 0.f;
@@ -205,7 +209,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     }
     __syncthreads();
     // scores, masked per row
-    for (int i = tid; i < ROWS * TK; i += NT) {
+    for (int i = tid; i < ROWS * TK; i += CC_NT) {
       const int r = i / TK, c = i % TK;
       const int j = t0 + c;
       float sc = -INFINITY;
@@ -221,7 +225,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     }
     __syncthreads();
     // online softmax: one warp per row
-    for (int r = warp; r < ROWS; r += NT / 32) {
+    for (int r = warp; r < ROWS; r += CC_NT / 32) {
       float* pr = ps + r * (TK + 1);
       float mt = -INFINITY;
       for (int c = lane; c < TK; c += 32) mt = fmaxf(mt, pr[c]);
@@ -251,7 +255,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     // acc = acc * alpha + P @ V
 #pragma unroll
     for (int k = 0; k < PAIRS; ++k) {
-      const int i = tid + k * NT;
+      const int i = tid + k * CC_NT;
       if (i < ROWS * D) {
         const int r = i / D, d = i % D;
         const float* pr = ps + r * (TK + 1);
@@ -266,7 +270,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
 #pragma unroll
   for (int k = 0; k < PAIRS; ++k) {
-    const int i = tid + k * NT;
+    const int i = tid + k * CC_NT;
     if (i < ROWS * D) {
       const int r = i / D, d = i % D;
       if (r < nrows) {
@@ -286,73 +290,6 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 constexpr int MMA_NT = 128;        // K1 bf16: threads per block (4 warps)
 constexpr int MMA_ROWS = 64;       // K1 bf16: queries per block
 constexpr int MMA_TK = 64;         // K1 bf16: keys per tile
-
-// c += a * b for one m16n8k16 tile. Fragment layout (PTX ISA, mma.m16n8k16
-// .bf16), with quad = lane / 4 and qi = lane % 4:
-//   a[0..3]: rows quad / quad+8 / quad / quad+8, columns 2qi..2qi+1 (+8
-//            for a[2], a[3]) of the 16 x 16 A tile;
-//   b0, b1:  rows (k) 2qi..2qi+1 (+8 for b1), column (n) quad of B;
-//   c[0..3]: rows quad, quad, quad+8, quad+8; columns 2qi, 2qi+1 (x2).
-// In each 32-bit register the lower column (or row for B) is the low half.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
-                                          __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t ld2(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared without waiting, or zeros when `live` is false
-// (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(live ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8. Plain: lane t gets row t / 4, columns
-// 2 (t % 4), +1 of each; .trans: column t / 4, rows 2 (t % 4), +1.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
-                                        const __nv_bfloat16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
-                                          const __nv_bfloat16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
 
 // The live key range [lo, hi) of the query at chunk row c (window <= 0:
 // none); a row past the chunk or with no live key has lo == hi.
@@ -382,6 +319,8 @@ paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int NS = MMA_TK / 8;     // 8-key column tiles of a score tile
   constexpr int ND = D / 8;          // 8-wide column tiles of the output
   constexpr int LD = D + 8;          // padded smem row: no bank conflicts
+  static_assert(NS == 8 && LD * MMA_TK == tile_elems<D>(),
+                "mma_abt / mma_pv take [64][D + 8] tiles");
   __shared__ __align__(16) __nv_bfloat16 ks[MMA_TK * LD];
   __shared__ __align__(16) __nv_bfloat16 vs[MMA_TK * LD];
 
@@ -454,17 +393,10 @@ paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    // scores: this warp's 16 rows x MMA_TK keys
+    // scores: this warp's 16 rows x MMA_TK keys, K's B fragments by
+    // ldmatrix
     float sc[NS][4];
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
-      const __nv_bfloat16* kr = ks + (nt * 8 + quad) * LD + qi * 2;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        mma_16816(sc[nt], qf[kk], ld2(kr + kk * 16), ld2(kr + kk * 16 + 8));
-    }
+    mma_abt<D>(sc, qf, ks, lane);
     // mask, scale, row max over the quad that shares a row
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -504,21 +436,9 @@ paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[dn][e] *= alpha[e / 2];
 
-    // o += P.V: the score accumulators re-pack as A fragments
-#pragma unroll
-    for (int kk = 0; kk < MMA_TK / 16; ++kk) {
-      const uint32_t a[4] = {pack2(sc[2 * kk][0], sc[2 * kk][1]),
-                             pack2(sc[2 * kk][2], sc[2 * kk][3]),
-                             pack2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                             pack2(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-      const __nv_bfloat16* vr = vs + (kk * 16 + qi * 2) * LD + quad;
-#pragma unroll
-      for (int dn = 0; dn < ND; ++dn) {
-        const __nv_bfloat16* v0 = vr + dn * 8;
-        mma_16816(o[dn], a, pack2(v0[0], v0[LD]),
-                  pack2(v0[8 * LD], v0[9 * LD]));
-      }
-    }
+    // o += P.V: the score accumulators re-pack as A fragments, V's B
+    // fragments by ldmatrix.trans
+    mma_pv<D>(o, sc, vs, lane);
     __syncthreads();
   }
 
@@ -534,6 +454,517 @@ paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int dn = 0; dn < ND; ++dn)
       *reinterpret_cast<uint32_t*>(orow + dn * 8 + qi * 2) =
           pack2(o[dn][2 * i] * inv, o[dn][2 * i + 1] * inv);
+  }
+}
+
+// --------------------------- K1 in bf16 at head dims 64 and 128: wgmma + TMA
+//
+// paged_prefill_wgmma_kernel: a persistent block an SM walks work items
+// (slot, query head, 128-query tile): a (slot, head)'s query tiles side
+// by side, last first, then the next head of the slot (the query heads
+// of one KV head next to each other), so that the blocks at work at one
+// time read the same K/V tiles and those reads hit L2; dealt in rounds
+// of alternating direction (pw_item), so that a block's long and short
+// tiles of the causal triangle pair up. The deal depends on the shapes
+// alone
+// (`paged_attention.prefill_plan` states it); each item finds its live
+// key range on the device and an item with none skips its key loop.
+//
+// Warpgroup 0 is the producer, warpgroups 1 and 2 the consumers (64 query
+// rows each). The producer's thread 0 loads the item's Q by TMA (a 4-D map
+// over [S, C, H, D]: rows past the chunk arrive as zeros) and the K/V
+// tiles of 128 keys by TMA through rings on mbarriers: each tile is two
+// halves of 64 keys, each half one 64 x 64 box a 64-column block of D,
+// whose row coordinate in a 2-D map over the flat [slots, KV * D] pool is
+// table[s, j / bs] * bs + j % bs (a half never crosses a block's end when
+// bs % 64 == 0). A half not wholly inside the item's live range [lo, hi)
+// (the range's two ends), and every half when bs % 64 != 0 (GATHER), is
+// gathered by the producer's 128 threads instead: 16-byte cp.async rows
+// through the block table into the same 128-byte-swizzled layout, rows
+// outside [lo, hi) zero-filled (no table entry outside the range is read,
+// and a zero probability never meets garbage in V), completing on the
+// same mbarrier (cp.async.mbarrier.arrive). The consumers run S = Q K^T on
+// m64n128k16 wgmma from shared memory, the online softmax in registers
+// with the causal / window / length mask only on tiles that cross a row's
+// range, and O += P V on m64nDk16 wgmma with P as register A fragments,
+// taking turns on the tensor cores as in flash_fwd_wgmma_kernel. One block
+// owns an item: no split, no atomics, the same bits from call to call.
+
+constexpr int PW_ROWS = 128;        // queries of a work item
+constexpr int PW_KEYS = 128;        // keys of a K/V tile (two 64-key halves)
+constexpr int PW_THREADS = 384;     // a producer warpgroup and two consumers
+constexpr int PW_PRODUCER_BAR = 3;  // named barrier of the producer's threads
+
+template <int D>
+__host__ __device__ constexpr int pw_stages() {
+  return D == 64 ? 4 : 2;
+}
+template <int D>
+__host__ __device__ constexpr size_t pw_smem_bytes() {
+  return (size_t)(2 * PW_ROWS * D + pw_stages<D>() * 2 * PW_KEYS * D) *
+             sizeof(__nv_bfloat16) +
+         (4 + 4 * pw_stages<D>()) * sizeof(uint64_t);
+}
+
+// the copies this thread started by cp.async arrive on `bar` once done
+// (the arrival is added to the phase's count, so the phase waits for it)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Work item `item`: query tile qt of (slot s, head h), and the union of its
+// live rows' key ranges [lo, hi) (a superset: the first row's lo, the last
+// live row's hi; both grow with the row), covered by `ntiles` tiles of
+// PW_KEYS keys from tbeg (a multiple of PW_KEYS).
+struct PwItem {
+  int s, h, kvh, q0, start, seq_len, lo, hi, tbeg, ntiles;
+  __device__ __forceinline__ PwItem(int item, int S, int C, int H, int g,
+                                    const int* start_pos,
+                                    const int* seq_lens, int cap,
+                                    int window) {
+    const int nqt = (C + PW_ROWS - 1) / PW_ROWS;
+    const int qt = nqt - 1 - item % nqt, sh = item / nqt;
+    s = sh / H;
+    h = sh % H;
+    kvh = h / g;
+    q0 = qt * PW_ROWS;
+    start = start_pos[s];
+    seq_len = min(seq_lens[s], cap);      // never past the block table
+    int l_, h_;
+    live_range(q0, C, start, seq_len, window, lo, h_);
+    live_range(min(C, q0 + PW_ROWS) - 1, C, start, seq_len, window, l_, hi);
+    if (hi <= lo) {
+      tbeg = ntiles = 0;
+    } else {
+      tbeg = lo / PW_KEYS * PW_KEYS;
+      ntiles = (hi - tbeg + PW_KEYS - 1) / PW_KEYS;
+    }
+  }
+};
+
+// The r-th work item of this block: rounds of gridDim.x items, dealt
+// forward in even rounds and backward in odd ones.
+__device__ __forceinline__ int pw_item(int r) {
+  return r * (int)gridDim.x +
+         (r & 1 ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+}
+
+// Softmax of one [64 x 128] score tile in place (this thread's two rows,
+// 32 columns each) at keys [k0, +128): scale, the mask (MASK: key j of row
+// i is live iff lo[i] <= j < hi[i]), the running max m and sum l (this
+// thread's columns), the probabilities left in sc, and alpha, the factor
+// that rescales O to the new max. POS: scale > 0, so the scale folds into
+// the exponent's multiplier.
+template <bool MASK, bool POS>
+__device__ __forceinline__ void pw_softmax(float (&sc)[64], int k0,
+                                           const int (&lo)[2],
+                                           const int (&hi)[2], float scale,
+                                           float (&m)[2], float (&l)[2],
+                                           float (&alpha)[2], int qi) {
+  float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      float v = POS ? sc[4 * n + x] : sc[4 * n + x] * scale;
+      if (MASK) {
+        const int j = k0 + n * 8 + qi * 2 + (x & 1);
+        if (j < lo[x / 2] || j >= hi[x / 2]) v = -INFINITY;
+      }
+      sc[4 * n + x] = v;
+      mx[x / 2][x & 1] = fmaxf(mx[x / 2][x & 1], v);
+    }
+  float m_neg[2];
+  const float mul = POS ? scale * LOG2E : LOG2E;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mr = fmaxf(mx[i][0], mx[i][1]);
+    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 1));
+    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
+    if (POS) mr *= scale;
+    const float m_new = fmaxf(m[i], mr);
+    // a row with nothing live yet keeps m = -inf: exp through a finite
+    // stand-in so no (-inf) - (-inf) NaN appears; p and alpha come out 0
+    const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+    alpha[i] = ex2((m[i] - m_safe) * LOG2E);
+    m[i] = m_new;
+    m_neg[i] = -m_safe * LOG2E;
+  }
+  float rs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float p = ex2(fmaf(sc[4 * n + x], mul, m_neg[x / 2]));
+      sc[4 * n + x] = p;
+      rs[x / 2][x & 1] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    l[i] = l[i] * alpha[i] + (rs[i][0] + rs[i][1]);
+}
+
+// What one consumer warpgroup carries from tile to tile (the paged twin
+// of flash_attention.cu's WsState). Tiles are counted over the block's
+// whole walk (kbase), which picks each tile's ring buffer and phase.
+template <int D>
+struct PwState {
+  static constexpr int S = pw_stages<D>();
+  static constexpr int BOX = PW_KEYS * 64, TKV = PW_KEYS * D;  // elements
+  static constexpr int QBOX = PW_ROWS * 64;
+  const __nv_bfloat16 *qa, *kring, *vring;
+  uint64_t *kfull, *vfull, *kempty, *vempty;
+  // this thread's rows' ranges; every live row of the warpgroup sees
+  // [lo_all, hi_all); the item's range [klo, khi) and first tile tbeg
+  int lo[2], hi[2], lo_all, hi_all, klo, khi, tbeg, qi, cw, kbase;
+  float scale;
+  float sc[64], acc[D / 2], m[2], l[2], alpha[2];
+  uint32_t pa[8][4];
+  bool signal, gather;
+
+  // the two consumers take turns on the tensor cores (named barrier
+  // 1 + cw: its turn), as WsState's do
+  __device__ __forceinline__ void turn() { bar_sync<256>(1 + cw); }
+  __device__ __forceinline__ void pass() {
+    bar_arrive<256>(1 + (cw + 1) % 2);
+  }
+
+  // a tile partly gathered by cp.async: its generic-proxy writes ordered
+  // before this thread's wgmma reads them
+  __device__ __forceinline__ void fence_if_gathered(int t) {
+    const int k0 = tbeg + t * PW_KEYS;
+    if (gather || k0 < klo || k0 + PW_KEYS > khi) fence_async_smem();
+  }
+  __device__ __forceinline__ void wait_k(int t) {
+    const int g = kbase + t;
+    mbar_wait(kfull + g % S, (g / S) & 1);
+    fence_if_gathered(t);
+  }
+  __device__ __forceinline__ void wait_v(int t) {
+    const int g = kbase + t;
+    mbar_wait(vfull + g % S, (g / S) & 1);
+    fence_if_gathered(t);
+  }
+  // issue S = Q K_t^T into sc, committed
+  __device__ __forceinline__ void scores(int t) {
+    const __nv_bfloat16* ks = kring + ((kbase + t) % S) * TKV;
+    fence_regs(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<0>(sc,
+                  wg_desc(qa + (kk / 4) * QBOX + (kk % 4) * 16, 16, 1024),
+                  wg_desc(ks + (kk / 4) * BOX + (kk % 4) * 16, 16, 1024),
+                  kk > 0, std::integral_constant<int, PW_KEYS>());
+    wg_commit();
+  }
+  // O rescaled by the last softmax's alpha, then O += P V_t issued,
+  // committed
+  __device__ __forceinline__ void pv(int t) {
+    const __nv_bfloat16* vs = vring + ((kbase + t) % S) * TKV;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[4 * n + x] *= alpha[x / 2];
+    wait_v(t);
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < PW_KEYS / 16; ++kk)
+      wgmma_rs<1>(acc, pa[kk], wg_desc(vs + kk * 16 * 64, BOX * 2, 1024), 1,
+                  std::integral_constant<int, D>());
+    wg_commit();
+  }
+  __device__ __forceinline__ void softmax(int t) {
+    const int k0 = tbeg + t * PW_KEYS;
+    const bool mask = k0 + PW_KEYS > hi_all || k0 < lo_all;
+    if (scale > 0.f) {
+      if (mask)
+        pw_softmax<true, true>(sc, k0, lo, hi, scale, m, l, alpha, qi);
+      else
+        pw_softmax<false, true>(sc, k0, lo, hi, scale, m, l, alpha, qi);
+    } else {
+      if (mask)
+        pw_softmax<true, false>(sc, k0, lo, hi, scale, m, l, alpha, qi);
+      else
+        pw_softmax<false, false>(sc, k0, lo, hi, scale, m, l, alpha, qi);
+    }
+  }
+  // the probabilities as bf16 pairs in the A fragments of the P V
+  // product; the sums above were taken before this cast
+  __device__ __forceinline__ void pack_p() {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  }
+  __device__ __forceinline__ void free_k(int t) {
+    if (signal) mbar_arrive(kempty + (kbase + t) % S);
+  }
+  __device__ __forceinline__ void free_v(int t) {
+    if (signal) mbar_arrive(vempty + (kbase + t) % S);
+  }
+  // tile 0: S_0 and its softmax
+  __device__ __forceinline__ void first() {
+    if (cw == 1) bar_arrive<256>(1);         // opens the item's round
+    wait_k(0);
+    turn();
+    scores(0);
+    pass();
+    wg_wait<0>();
+    fence_regs(sc);
+    free_k(0);
+    softmax(0);
+    pack_p();
+  }
+  // tile t (>= 1): S_t and P V_{t-1} on the tensor cores together, S_t's
+  // softmax under P V_{t-1}
+  __device__ __forceinline__ void step(int t) {
+    wait_k(t);
+    turn();
+    scores(t);
+    pv(t - 1);
+    pass();
+    wg_wait<1>();                            // S_t done
+    fence_regs(sc);
+    free_k(t);
+    softmax(t);
+    wg_wait<0>();                            // P V_{t-1} done
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+    free_v(t - 1);
+    pack_p();
+  }
+  // the last tile's P V
+  __device__ __forceinline__ void last(int t) {
+    turn();
+    pv(t);
+    if (cw != 1) pass();
+    wg_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+    free_v(t);
+  }
+};
+
+template <int D, bool GATHER>
+__global__ void __launch_bounds__(PW_THREADS, 1)
+paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __nv_bfloat16* __restrict__ k_pool,
+                           const __nv_bfloat16* __restrict__ v_pool,
+                           const int* __restrict__ tables,
+                           const int* __restrict__ start_pos,
+                           const int* __restrict__ seq_lens,
+                           __nv_bfloat16* __restrict__ out, int S, int C,
+                           int H, int KV, int maxb, int bs, float sm_scale,
+                           int window) {
+  using St = PwState<D>;
+  constexpr int ST = St::S, NB = D / 64;
+  constexpr int BOX = St::BOX, QBOX = St::QBOX, TKV = St::TKV;
+  constexpr int TQ = PW_ROWS * D;
+  extern __shared__ __align__(1024) unsigned char pw_smem[];
+  // Q [2][NB][128 x 64], then the K and V rings [ST][NB][128 x 64]
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(pw_smem);
+  __nv_bfloat16* kring = qs + 2 * TQ;
+  __nv_bfloat16* vring = kring + ST * TKV;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(vring + ST * TKV);
+  uint64_t* qempty = qfull + 2;
+  uint64_t* kfull = qempty + 2;
+  uint64_t* vfull = kfull + ST;
+  uint64_t* kempty = vfull + ST;
+  uint64_t* vempty = kempty + ST;
+  const int g = H / KV, cap = maxb * bs, KVD = KV * D;
+  const int items = ((C + PW_ROWS - 1) / PW_ROWS) * S * H;
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(qfull + i);
+      mbar_init(qempty + i, 2);
+    }
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(kfull + i);
+      mbar_init(vfull + i);
+      mbar_init(kempty + i, 2);
+      mbar_init(vempty + i, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    set_max_regs<40, false>();
+    const int ptid = threadIdx.x;              // 0..127
+    // tile gt of the block's walk of K or V (keys [t0, t0 + 128) of item
+    // `it`) into its ring once the consumers freed the buffer: wholly
+    // live halves by TMA (thread 0), the others gathered by all 128
+    // threads with rows outside [lo, hi) zero-filled. Only thread 0 waits
+    // for the buffer of a tile it loads alone, and the others meet it at
+    // a gathered tile before they wait: a parity wait cannot tell its
+    // phase from one two phases away, so every waiter must have waited
+    // for the buffer's previous phase, as thread 0 has.
+    auto load = [&](const CUtensorMap* tm, const __nv_bfloat16* pool,
+                    __nv_bfloat16* ring, uint64_t* full, uint64_t* empty,
+                    int gt, int t0, const PwItem& it) {
+      const int st = gt % ST;
+      bool tma[2];
+#pragma unroll
+      for (int bh = 0; bh < 2; ++bh) {
+        const int k0 = t0 + bh * 64;
+        tma[bh] = !GATHER && k0 >= it.lo && k0 + 64 <= it.hi;
+      }
+      const bool gathered = !(tma[0] && tma[1]);
+      if (gathered) bar_sync<128>(PW_PRODUCER_BAR);   // all at this tile
+      if (ptid == 0 || gathered) mbar_wait(empty + st, ((gt / ST) & 1) ^ 1);
+      __nv_bfloat16* dst = ring + st * TKV;
+      const int* table = tables + (size_t)it.s * maxb;
+#pragma unroll
+      for (int bh = 0; bh < 2; ++bh) {
+        if (tma[bh]) continue;
+        const int k0 = t0 + bh * 64;
+        // 64 rows x D / 8 chunks of 16 bytes, row-major over the threads
+        for (int i = ptid; i < 64 * (D / 8); i += 128) {
+          const int r = i / (D / 8), ch = i % (D / 8), j = k0 + r;
+          const bool live = j >= it.lo && j < it.hi;
+          const __nv_bfloat16* src = pool;
+          if (live)
+            src += ((size_t)table[j / bs] * bs + j % bs) * KVD +
+                   (size_t)it.kvh * D + ch * 8;
+          cp_async16(reinterpret_cast<unsigned char*>(dst + (ch / 8) * BOX) +
+                         swizzled(bh * 64 + r, (ch % 8) * 8),
+                     src, live);
+        }
+      }
+      if (gathered) {
+        cp_async_mbar_arrive(full + st);
+        bar_sync<128>(PW_PRODUCER_BAR);    // every thread's arrival is in
+      }
+      if (ptid == 0) {
+        mbar_expect(full + st, (uint32_t)(tma[0] + tma[1]) * NB * 64 * 64 *
+                                   (uint32_t)sizeof(__nv_bfloat16));
+#pragma unroll
+        for (int bh = 0; bh < 2; ++bh) {
+          if (!tma[bh]) continue;
+          const int k0 = t0 + bh * 64;
+          const int row = table[k0 / bs] * bs + k0 % bs;
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb)
+            tma_box(dst + nb * BOX + bh * 64 * 64, tm, it.kvh * D + nb * 64,
+                    row, full + st);
+        }
+      }
+    };
+    int kbase = 0, qn = 0;
+    for (int r = 0; r * (int)gridDim.x < items; ++r) {
+      if (pw_item(r) >= items) continue;
+      const PwItem it(pw_item(r), S, C, H, g, start_pos, seq_lens, cap,
+                      window);
+      if (it.ntiles == 0) continue;
+      if (ptid == 0) {
+        const int qb = qn & 1;
+        mbar_wait(qempty + qb, ((qn >> 1) & 1) ^ 1);
+        mbar_expect(qfull + qb, TQ * sizeof(__nv_bfloat16));
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb)
+            tma_box4(qs + qb * TQ + nb * QBOX + half * 64 * 64, &tm_q,
+                     nb * 64, it.h, it.q0 + half * 64, it.s, qfull + qb);
+      }
+      load(&tm_k, k_pool, kring, kfull, kempty, kbase, it.tbeg, it);
+      for (int t = 0; t < it.ntiles; ++t) {
+        if (t + 1 < it.ntiles)
+          load(&tm_k, k_pool, kring, kfull, kempty, kbase + t + 1,
+               it.tbeg + (t + 1) * PW_KEYS, it);
+        load(&tm_v, v_pool, vring, vfull, vempty, kbase + t,
+             it.tbeg + t * PW_KEYS, it);
+      }
+      kbase += it.ntiles;
+      ++qn;
+    }
+    return;
+  }
+  set_max_regs<232, true>();
+  const int cw = wg - 1;                      // rows 64 cw of an item
+  const int lane = threadIdx.x % 32, qi = lane % 4;
+  const int rloc = cw * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;
+  St w;
+  w.kring = kring;
+  w.vring = vring;
+  w.kfull = kfull;
+  w.vfull = vfull;
+  w.kempty = kempty;
+  w.vempty = vempty;
+  w.qi = qi;
+  w.cw = cw;
+  w.scale = sm_scale;
+  w.signal = threadIdx.x % 128 == 0;
+  w.gather = GATHER;
+  w.kbase = 0;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) w.sc[i] = 0.f;
+  int qn = 0;
+  for (int r = 0; r * (int)gridDim.x < items; ++r) {
+    if (pw_item(r) >= items) continue;
+    const PwItem it(pw_item(r), S, C, H, g, start_pos, seq_lens, cap,
+                    window);
+    const int row[2] = {it.q0 + rloc, it.q0 + rloc + 8};
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      live_range(row[i], C, it.start, it.seq_len, window, w.lo[i], w.hi[i]);
+    // every live row of this warpgroup sees [lo_all, hi_all): its first
+    // row's hi and its last live row's lo (none live: no mask, the rows
+    // are never stored)
+    const int first = it.q0 + cw * 64;
+    w.lo_all = 0;
+    w.hi_all = 0x7fffffff;
+    if (first < C) {
+      int l_, h_;
+      live_range(first, C, it.start, it.seq_len, window, l_, w.hi_all);
+      live_range(min(C, first + 64) - 1, C, it.start, it.seq_len, window,
+                 w.lo_all, h_);
+    }
+    w.klo = it.lo;
+    w.khi = it.hi;
+    w.tbeg = it.tbeg;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) w.acc[i] = 0.f;
+    w.m[0] = w.m[1] = -INFINITY;
+    w.l[0] = w.l[1] = 0.f;                    // this thread's partial sums
+    const int n = it.ntiles;
+    if (n > 0) {
+      const int qb = qn & 1;
+      w.qa = qs + qb * TQ + cw * 64 * 64;     // this warpgroup's rows of Q
+      mbar_wait(qfull + qb, (qn >> 1) & 1);
+      w.first();
+      for (int t = 1; t < n; ++t) w.step(t);
+      w.last(n - 1);
+      if (w.signal) mbar_arrive(qempty + qb);   // Q read for the last time
+      w.kbase += n;
+      ++qn;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float li = w.l[i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      if (row[i] >= C) continue;
+      const float inv = li == 0.f ? 0.f : 1.f / li;   // no live key: zeros
+      __nv_bfloat16* p =
+          out + (((size_t)it.s * C + row[i]) * H + it.h) * D + qi * 2;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<uint32_t*>(p + c * 8) = pack2(
+            w.acc[4 * c + 2 * i] * inv, w.acc[4 * c + 2 * i + 1] * inv);
+    }
   }
 }
 
@@ -923,6 +1354,65 @@ cudaError_t launch_mma(const void* q, const void* k_pool, const void* v_pool,
   return cudaGetLastError();
 }
 
+// A tiled TMA map over bf16 data with 64 x `rows` boxes (64 elements of
+// the innermost dim, `rows` of the third dim for Q, of the second for the
+// pool), the 128-byte swizzle that wgmma reads.
+cudaError_t pw_map(CUtensorMap* map, const void* base, int rank,
+                   const cuuint64_t* dims, const cuuint64_t* strides,
+                   const cuuint32_t* box) {
+  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, base,
+                           dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int D, bool GATHER>
+cudaError_t launch_wgmma(const void* q, const void* k_pool,
+                         const void* v_pool, const int* tables,
+                         const int* start_pos, const int* seq_lens,
+                         void* out, int S, int C, int H, int KV, int maxb,
+                         int bs, float sm_scale, int window, int slots,
+                         int grid, cudaStream_t stream) {
+  // TMA bases and 16-byte rows; a TMA half never crosses a block's end
+  if (((uintptr_t)q | (uintptr_t)k_pool | (uintptr_t)v_pool |
+       (uintptr_t)out) % 16)
+    return cudaErrorMisalignedAddress;
+  if (grid < 1 || C < 64 || (!GATHER && (bs % 64 || slots < 64)))
+    return cudaErrorInvalidValue;
+  if ((long long)((C + PW_ROWS - 1) / PW_ROWS) * S * H > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  constexpr size_t E = sizeof(__nv_bfloat16);
+  // Q [S, C, H, D] as (d, h, c, s), boxes of 64 queries of one head
+  const cuuint64_t qd[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)C,
+                            (cuuint64_t)S};
+  const cuuint64_t qst[3] = {(cuuint64_t)D * E, (cuuint64_t)H * D * E,
+                             (cuuint64_t)C * H * D * E};
+  const cuuint32_t qbox[4] = {64, 1, 64, 1};
+  // the pool [slots, KV * D], boxes of 64 token rows
+  const cuuint64_t kd[2] = {(cuuint64_t)KV * D, (cuuint64_t)slots};
+  const cuuint64_t kst[1] = {(cuuint64_t)KV * D * E};
+  const cuuint32_t kbox[2] = {64, 64};
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = pw_map(&tq, q, 4, qd, qst, qbox);
+  tk = tv = tq;                  // GATHER reads the pool by cp.async only
+  if (!GATHER && err == cudaSuccess)
+    err = pw_map(&tk, k_pool, 2, kd, kst, kbox);
+  if (!GATHER && err == cudaSuccess)
+    err = pw_map(&tv, v_pool, 2, kd, kst, kbox);
+  if (err != cudaSuccess) return err;
+  auto kern = paged_prefill_wgmma_kernel<D, GATHER>;
+  constexpr size_t smem = pw_smem_bytes<D>();
+  int per_sm = 0;
+  err = blocks_per_sm(reinterpret_cast<const void*>(kern), PW_THREADS, smem,
+                      &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  kern<<<grid, PW_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<const __nv_bfloat16*>(k_pool),
+      static_cast<const __nv_bfloat16*>(v_pool), tables, start_pos, seq_lens,
+      static_cast<__nv_bfloat16*>(out), S, C, H, KV, maxb, bs, sm_scale,
+      window);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, int ROWS, int TK, bool DECODE>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const int* tables, const int* start_pos,
@@ -936,7 +1426,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   if (err != cudaSuccess) return err;
   dim3 grid = DECODE ? dim3(S, KV, (H / KV + ROWS - 1) / ROWS)
                      : dim3(S, (C + ROWS - 1) / ROWS, H);
-  kern<<<grid, NT, smem, stream>>>(
+  kern<<<grid, CC_NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), tables, start_pos, seq_lens,
       static_cast<T*>(out), C, H, KV, maxb, bs, sm_scale, window);
@@ -964,7 +1454,7 @@ struct ByDim {
                          const int* sl, void* out, int S, int C, int H,
                          int KV, int maxb, int bs, float sm_scale, int window,
                          cudaStream_t st) {
-    // K1 in bf16 runs on the tensor cores; fp32 (both) on the CUDA cores
+    // K1 in bf16 on mma.sync; fp32 (both) on the CUDA cores
     if constexpr (!DECODE && std::is_same<T, __nv_bfloat16>::value)
       return launch_mma<D>(q, k_pool, v_pool, t, sp, sl, out, S, C, H, KV,
                            maxb, bs, sm_scale, window, st);
@@ -974,6 +1464,12 @@ struct ByDim {
                                             sm_scale, window, st);
   }
 };
+
+// K1's routes, as ops/kernels/paged_attention.py `prefill_route` numbers
+// them: the CUDA-core kernel (fp32), mma.sync (bf16), and the wgmma kernel
+// with K/V by TMA or by the cp.async gather (bf16, D = 64 and 128)
+enum PrefillRoute { PF_F32 = 0, PF_MMA = 1, PF_WGMMA_TMA = 2,
+                    PF_WGMMA_GATHER = 3 };
 
 bool heads_ok(int S, int H, int KV, int maxb, int bs) {
   return S > 0 && H > 0 && KV > 0 && H % KV == 0 && bs > 0 && maxb > 0;
@@ -985,12 +1481,14 @@ extern "C" {
 
 // q [S, C, H, D]; k_pool / v_pool [slots, KV*D]; tables [S, maxb] int32;
 // start_pos / seq_lens [S] int32; out [S, C, H, D]. window <= 0: none.
+// `route` (PrefillRoute) as the wrapper chose it from the shapes; the
+// wgmma routes run `grid` persistent blocks (`prefill_plan`).
 int paged_prefill_launch(const void* q, const void* k_pool,
                          const void* v_pool, const void* tables,
                          const void* start_pos, const void* seq_lens,
                          void* out, int S, int C, int H, int KV, int D,
                          int maxb, int bs, float sm_scale, int window,
-                         int is_bf16, void* stream) {
+                         int slots, int route, int grid, void* stream) {
   if (!heads_ok(S, H, KV, maxb, bs) || C < 1)
     return (int)cudaErrorInvalidValue;
   const int* t = static_cast<const int*>(tables);
@@ -999,12 +1497,33 @@ int paged_prefill_launch(const void* q, const void* k_pool,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using BF = ByDim<__nv_bfloat16, false>;
   using FP = ByDim<float, false>;
-  return (int)(is_bf16 ? BY_HEAD_DIM(D, BF::template run, q, k_pool, v_pool,
-                                     t, sp, sl, out, S, C, H, KV, maxb, bs,
-                                     sm_scale, window, st)
-                       : BY_HEAD_DIM(D, FP::template run, q, k_pool, v_pool,
-                                     t, sp, sl, out, S, C, H, KV, maxb, bs,
-                                     sm_scale, window, st));
+  switch (route) {
+    case PF_F32:
+      return (int)BY_HEAD_DIM(D, FP::template run, q, k_pool, v_pool, t, sp,
+                              sl, out, S, C, H, KV, maxb, bs, sm_scale,
+                              window, st);
+    case PF_MMA:
+      return (int)BY_HEAD_DIM(D, BF::template run, q, k_pool, v_pool, t, sp,
+                              sl, out, S, C, H, KV, maxb, bs, sm_scale,
+                              window, st);
+    case PF_WGMMA_TMA:
+    case PF_WGMMA_GATHER: {
+      const bool g = route == PF_WGMMA_GATHER;
+      if (D == 64)
+        return (int)(g ? launch_wgmma<64, true>
+                       : launch_wgmma<64, false>)(
+            q, k_pool, v_pool, t, sp, sl, out, S, C, H, KV, maxb, bs,
+            sm_scale, window, slots, grid, st);
+      if (D == 128)
+        return (int)(g ? launch_wgmma<128, true>
+                       : launch_wgmma<128, false>)(
+            q, k_pool, v_pool, t, sp, sl, out, S, C, H, KV, maxb, bs,
+            sm_scale, window, slots, grid, st);
+      return (int)cudaErrorInvalidValue;
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // as above with C == 1. bf16 runs the split kernel on `splits` splits of

@@ -20,6 +20,10 @@ extra forward's work, no backward kernel. Its forward launches the kernel
 for CUDA tensors (or raises) and runs :func:`evoformer_flash_plain` for CPU
 tensors. Only a launch counts in :data:`LAUNCHES`.
 
+In bf16 a block owns 64 query rows of one (b, h) and :data:`EVO_ROWS`
+MSA rows, and stages each 64-key pair-bias tile once for them beside
+their K/V tiles (:func:`evo_plan`).
+
 The kernel runs head dims 16, 32 and 64 natively. For any other D up to
 64 the wrapper zero-pads q, k and v along D to the next of these (the
 scores and so the softmax are unchanged; the output is sliced back) and
@@ -29,7 +33,7 @@ keeps the scale of the true D; a D above 64 raises NotImplementedError.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -39,6 +43,41 @@ LAUNCHES: Dict[str, int] = {"evoformer_fwd": 0}
 #: zero-padded to the next one (:func:`kernel_head_dim`)
 KERNEL_HEAD_DIMS = (16, 32, 64)
 _M_FLOOR = -1e30
+#: the bf16 kernel: MSA rows a block (a warp set of 4 warps each, every set
+#: on the block's 64 query rows), query / key tile rows, and the shared
+#: memory a block may take on an H100
+EVO_ROWS = 2
+EVO_TILE = 64
+SMEM_LIMIT = 232448
+
+
+class EvoPlan(NamedTuple):
+    """The bf16 kernel's launch for kernel head dim ``D`` over ``N`` MSA
+    rows: a block owns ``rows`` MSA rows of one (b, h, 64-query tile),
+    ``grid`` is (query tiles, H, B x row groups), the last group ragged when
+    ``rows`` does not divide N; ``smem_bytes`` of dynamic shared memory
+    (two cp.async stages, each the sets' K/V tiles and mask-bias rows and
+    one 64 x 64 f32 pair-bias tile); ``pair_bias_bytes`` the pair bias the
+    blocks read through L2, once per row group."""
+    rows: int
+    groups: int
+    grid: tuple
+    smem_bytes: int
+    pair_bias_bytes: int
+
+
+def evo_plan(D: int, B: int, N: int, H: int, Sq: int, Sk: int) -> EvoPlan:
+    """The bf16 kernel's plan, as ``csrc/evoformer.cu`` launches it
+    (``EVO_SETS``, ``evo_stage_bytes``); the wrapper passes ``rows`` and the
+    launch refuses any other. Shared memory does not grow with Sk: the key
+    loop streams 64-key tiles."""
+    if D not in KERNEL_HEAD_DIMS or min(B, N, H, Sq, Sk) < 1:
+        raise ValueError(f"evo_plan({D}, {B}, {N}, {H}, {Sq}, {Sk})")
+    R, T = EVO_ROWS, EVO_TILE
+    groups = -(-N // R)
+    stage = R * (2 * T * (D + 8) * 2 + T * 4) + T * T * 4
+    return EvoPlan(R, groups, (-(-Sq // T), H, B * groups), 2 * stage,
+                   B * H * Sq * Sk * 4 * groups)
 
 
 def reset_launch_counts() -> None:
@@ -137,7 +176,8 @@ def evoformer_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         0 if mb is None else mb.data_ptr(), 0 if pb is None else pb.data_ptr(),
         ctypes.addressof(strides), B, N, H, Sq, Sk, Dk, float(D ** -0.5),
-        int(q.dtype == torch.bfloat16), stream)
+        int(q.dtype == torch.bfloat16), evo_plan(Dk, B, N, H, Sq, Sk).rows,
+        stream)
     if err != 0:
         raise RuntimeError(f"evoformer_fwd failed: cudaError {err}")
     LAUNCHES["evoformer_fwd"] += 1

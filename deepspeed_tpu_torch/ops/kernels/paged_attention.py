@@ -5,7 +5,13 @@ so a step touches only the blocks a sequence occupies. Two hand-written
 CUDA kernels (``csrc/paged_attention.cu``) replace the two Pallas kernels:
 
 - ``paged_prefill`` (K1) for C > 1 queries per slot — replaces
-  ``_paged_kernel``;
+  ``_paged_kernel``. In bf16 at head dims 64 and 128 with C >= 64 it is a
+  persistent wgmma kernel: work items (slot, query head, 128 queries),
+  a head's query tiles side by side, dealt by :func:`prefill_plan` from
+  the shapes alone, K/V through the block table by TMA (block sizes that
+  are multiples of 64) or a cp.async gather, both products on wgmma, one
+  block an item (the same bits from call to call). Other head dims and smaller chunks take
+  an mma.sync kernel (:func:`prefill_route`);
 - ``paged_decode`` (K2) for C == 1 — replaces ``_decode_grouped_kernel``.
   In bf16 it is split-context flash-decoding: one block per (sequence, KV
   head, chunk of <= 16 query heads, split of the context), K/V streamed
@@ -31,7 +37,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -79,6 +85,94 @@ def decode_plan(S: int, KV: int, g: int, cap: int, sms: int):
     splits = max(1, min(-(-DEC_WAVES * sms // pairs), most))
     per = -(-tiles // splits)
     return head_chunks, -(-tiles // per), per * DEC_TILE
+
+
+#: K1 (bf16) on wgmma: queries of a work item (two consumer warpgroups of
+#: 64), keys of a K/V tile, the head dims it is built for and the fewest
+#: queries a slot it takes (a chunk of fewer runs the mma.sync kernel)
+PREFILL_ROWS, PREFILL_KEYS = 128, 128
+WGMMA_PREFILL_HEAD_DIMS = (64, 128)
+WGMMA_PREFILL_MIN_C = 64
+#: rows of a TMA box of the pool: a block size that is a multiple of it
+#: loads K/V by TMA, any other by the cp.async gather
+PREFILL_BOX = 64
+#: K1's routes, numbered as ``csrc/paged_attention.cu``'s PrefillRoute
+PREFILL_ROUTES = ("f32", "mma", "wgmma_tma", "wgmma_gather")
+
+
+def prefill_route(C: int, D: int, dtype: torch.dtype,
+                  block_size: int) -> str:
+    """K1's kernel for a chunk of ``C`` queries a slot at head dim ``D``:
+    a pure function of the shapes (never chosen on failure). fp32 runs the
+    CUDA-core kernel (the parity oracle); bf16 runs the wgmma kernel at
+    head dims 64 and 128 when C >= 64 -- its K/V by TMA when the block
+    size is a multiple of the 64-row box, else by the cp.async gather --
+    and the mma.sync kernel otherwise (head dims 16, 32, 80 and 96, and
+    small SplitFuse chunks)."""
+    if dtype == torch.float32:
+        return "f32"
+    if D in WGMMA_PREFILL_HEAD_DIMS and C >= WGMMA_PREFILL_MIN_C:
+        return "wgmma_tma" if block_size % PREFILL_BOX == 0 \
+            else "wgmma_gather"
+    return "mma"
+
+
+class PrefillPlan(NamedTuple):
+    """The wgmma K1's deal: ``items`` work items (slot, query head,
+    128-query tile) over ``grid`` persistent blocks; ``blocks[b]`` lists
+    block b's items in order as ``(slot, head, query tile, key tiles)``,
+    the key tiles counted for the worst case (every slot full)."""
+    items: int
+    grid: int
+    blocks: Tuple[Tuple[Tuple[int, int, int, int], ...], ...]
+
+
+def prefill_item(item: int, S: int, C: int, H: int) -> Tuple[int, int, int]:
+    """(slot, head, query tile) of work item ``item``, as the kernel's
+    ``PwItem`` reads it: a (slot, head)'s query tiles side by side, last
+    first, then the next head of the slot, so that the blocks at work at
+    one time read the same K/V (one head's tiles, then the query heads of
+    one KV head) and find it in L2."""
+    nqt = -(-C // PREFILL_ROWS)
+    s, h = divmod(item // nqt, H)
+    return s, h, nqt - 1 - item % nqt
+
+
+def prefill_worst_tiles(qt: int, C: int, cap: int) -> int:
+    """Key tiles of query tile ``qt`` when its slot is full: the chunk's
+    queries at the table's last C positions, no window."""
+    start = max(0, cap - C)
+    hi = min(cap, start + min(C, (qt + 1) * PREFILL_ROWS))
+    return -(-hi // PREFILL_KEYS)
+
+
+@functools.lru_cache(maxsize=256)
+def prefill_plan(S: int, C: int, H: int, cap: int, sms: int) -> PrefillPlan:
+    """The wgmma K1's launch plan from shapes alone (no read of
+    ``start_pos`` or ``seq_lens``, so no device sync): ``S`` slots of ``C``
+    queries and ``H`` query heads over a block table of ``cap = maxb *
+    block_size`` keys, on a card of ``sms`` SMs (one block an SM).
+
+    Items run a (slot, head)'s query tiles side by side
+    (:func:`prefill_item`) and are dealt in rounds of one item a block,
+    forward in even rounds and backward in odd ones, so that under the
+    causal diagonal each block's long and short items pair up (the
+    kernel's ``pw_item``). Each item finds its live key range
+    on the device; one with none skips its key loop."""
+    if min(S, C, H, cap, sms) < 1:
+        raise ValueError(f"prefill_plan({S}, {C}, {H}, {cap}, {sms})")
+    nqt = -(-C // PREFILL_ROWS)
+    items = nqt * S * H
+    grid = min(items, sms)
+    blocks = [[] for _ in range(grid)]
+    for r in range(-(-items // grid)):
+        for blk in range(grid):
+            item = r * grid + (grid - 1 - blk if r % 2 else blk)
+            if item >= items:
+                continue
+            s, h, qt = prefill_item(item, S, C, H)
+            blocks[blk].append((s, h, qt, prefill_worst_tiles(qt, C, cap)))
+    return PrefillPlan(items, grid, tuple(tuple(b) for b in blocks))
 
 
 _LIB = None                        # the loaded kernel library
@@ -245,9 +339,15 @@ def _run(name, q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,
             float(sm_scale), window, int(q.dtype == torch.bfloat16), splits,
             kps, stream)
     else:
+        route = prefill_route(C, D, q.dtype, block_size)
+        grid = 0
+        if route.startswith("wgmma"):
+            grid = prefill_plan(S, C, H, maxb * block_size,
+                                sm_count(q.device)).grid
         err = lib.paged_prefill_launch(
             *common, S, C, H, KV, D, maxb, block_size, float(sm_scale),
-            window, int(q.dtype == torch.bfloat16), stream)
+            window, k_pool.shape[0], PREFILL_ROUTES.index(route), grid,
+            stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: cudaError {err}")
     LAUNCHES[name] += 1
@@ -259,7 +359,7 @@ def paged_prefill(q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,
                   sliding_window: Optional[int] = None,
                   num_kv_heads: Optional[int] = None) -> torch.Tensor:
     """K1: attention for q ``[S, C, H, D]``, any C >= 1 (CUDA kernel on a
-    card, the plain version on the CPU)."""
+    card, by :func:`prefill_route`; the plain version on the CPU)."""
     return _run("paged_prefill", q, k_pool, v_pool, block_tables, start_pos,
                 seq_lens, block_size=block_size, sm_scale=sm_scale,
                 sliding_window=sliding_window, num_kv_heads=num_kv_heads)

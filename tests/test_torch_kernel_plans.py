@@ -263,3 +263,76 @@ def test_split_merge_emulation_matches_plain(dtype, tol, window, bs, maxb):
     diff = got.float() - ref.float()
     assert diff.abs().max().item() <= tol
     assert (diff.norm() / ref.float().norm()).item() <= 2.0 ** -8
+
+
+# ------------------------------------------- the Evoformer kernel's plan
+
+from deepspeed_tpu_torch.ops.kernels import evoformer as ev  # noqa: E402
+
+# AlphaFold 2 fine-tuning (chip_smoke.py phase 21): MSA row attention with
+# pair bias and triangle attention, as (B, N, S, H, D)
+EVO_MSA, EVO_TRI = (1, 512, 384, 8, 32), (1, 384, 384, 4, 32)
+#: an H100 SM's shared memory, and what the runtime keeps of it a block
+SM_SMEM, BLOCK_RESERVED = 233472, 1024
+
+
+@pytest.mark.parametrize("D", ev.KERNEL_HEAD_DIMS)
+def test_evo_plan_rows_a_block(D):
+    """Two MSA rows a block at every head dim: one warp set each."""
+    plan = ev.evo_plan(D, 1, 512, 8, 384, 384)
+    assert plan.rows == ev.EVO_ROWS == 2
+    assert plan.groups == 256
+
+
+@pytest.mark.parametrize("N", [1, 2, 5, 384, 512, 513])
+@pytest.mark.parametrize("B,H,Sq", [(1, 4, 40), (2, 3, 300), (1, 8, 384)])
+def test_evo_plan_covers_every_row_once(N, B, H, Sq):
+    """Each (b, n, h, query tile) belongs to exactly one block's warp set;
+    the sets past N in the last group (an N tail) own nothing."""
+    plan = ev.evo_plan(32, B, N, H, Sq, Sq)
+    nqt, gh, gz = plan.grid
+    assert nqt == -(-Sq // ev.EVO_TILE) and gh == H
+    assert gz == B * plan.groups <= 65535
+    owned = np.zeros((B, N, H, nqt), np.int32)
+    tail = 0
+    for qt in range(nqt):
+        for h in range(H):
+            for z in range(gz):
+                b, grp = divmod(z, plan.groups)
+                for ws in range(plan.rows):
+                    n = grp * plan.rows + ws
+                    if n < N:
+                        owned[b, n, h, qt] += 1
+                    else:
+                        tail += 1
+    assert (owned == 1).all()
+    assert tail == (plan.groups * plan.rows - N) * B * H * nqt
+
+
+@pytest.mark.parametrize("shape", [EVO_MSA, EVO_TRI, (1, 64, 300, 8, 32),
+                                   (1, 16, 130, 4, 64), (1, 128, 1024, 4, 32),
+                                   (1, 128, 1024, 4, 64),
+                                   (1, 128, 1024, 4, 16)])
+def test_evo_plan_shared_memory_fits(shape):
+    """At most 227 KB a block at the AlphaFold shapes and at Sk = 1024 (the
+    key loop streams tiles: nothing grows with Sk), and two blocks an SM
+    at head dims 16 and 32."""
+    B, N, S, H, D = shape
+    plan = ev.evo_plan(ev.kernel_head_dim(D), B, N, H, S, S)
+    assert plan.smem_bytes <= ev.SMEM_LIMIT
+    assert plan.smem_bytes == ev.evo_plan(ev.kernel_head_dim(D), B, N, H,
+                                          S, 64).smem_bytes
+    if D <= 32:
+        assert 2 * (plan.smem_bytes + BLOCK_RESERVED) <= SM_SMEM
+
+
+def test_evo_plan_pair_bias_crosses_l2_once_a_row_group():
+    """The MSA shape's f32 pair bias [1, 8, 384, 384] (4.72 MB) is read
+    once per two MSA rows: 1.21 GB a call where one row a block read 2.42
+    GB."""
+    B, N, S, H, D = EVO_MSA
+    plan = ev.evo_plan(D, B, N, H, S, S)
+    assert plan.pair_bias_bytes == B * H * S * S * 4 * (N // 2)
+    assert abs(plan.pair_bias_bytes - 1.208e9) < 1e6
+    with pytest.raises(ValueError):
+        ev.evo_plan(48, B, N, H, S, S)

@@ -844,3 +844,124 @@ def test_flash_fwd_raises_on_a_stride_tma_cannot_take():
         fa.flash_bwd_dq(qq, k2, v2, qq, lse, delta, causal=True,
                         sm_scale=D ** -0.5)
     assert fa.LAUNCHES["flash_bwd"] == fa.LAUNCHES["flash_bwd_dq"] == 0
+
+
+# ---------------------------------------------- K1 on wgmma + TMA (PR 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("group", [1, 8, 32])
+@pytest.mark.parametrize("bs", [16, 64, 640])
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_prefill_wgmma_matches_plain_on_card(D, bs, group, window):
+    """K1's wgmma kernel (K/V by TMA at block 64 and 640, by the cp.async
+    gather at 16) at GQA groups 1, 8 and 32, against the plain version:
+    bf16 within 8e-3 max-abs (1.6e-2 at D = 128) and 2**-8 of the plain
+    output's norm. A ragged chunk (C = 200: a 72-row second query tile),
+    start positions inside a block, ragged seq_lens with an idle slot, a
+    window whose edge falls inside a tile; the idle slot is zeros, two
+    calls give the same bits, each call counts one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(D + bs + group + (window or 0))
+    KV = 32 // group
+    H = KV * group
+    S, C = 4, 200
+    start = np.array([0, 37, 0, 450], np.int32)
+    lens = np.array([200, 237, 0, 650], np.int32)
+    maxb = -(-700 // bs)
+    nb = S * maxb
+    kp, vp = _pool(rng, nb, bs, KV, D)
+    tables = rng.permutation(nb).astype(np.int32).reshape(S, maxb)
+    q = rng.standard_normal((S, C, H, D)).astype(np.float32)
+    assert port.prefill_route(C, D, torch.bfloat16, bs) == (
+        "wgmma_tma" if bs % 64 == 0 else "wgmma_gather")
+    kw = dict(block_size=bs, sm_scale=D ** -0.5, sliding_window=window,
+              num_kv_heads=KV)
+    args = [torch.from_numpy(a).cuda() for a in
+            (q, kp, vp, tables, start, lens)]
+    args[:3] = [a.bfloat16() for a in args[:3]]
+    port.reset_launch_counts()
+    got = port.paged_prefill(*args, **kw)
+    again = port.paged_prefill(*args, **kw)
+    torch.cuda.synchronize()
+    assert port.LAUNCHES["paged_prefill"] == 2, port.LAUNCHES
+    assert torch.equal(got, again)
+    ref = port.paged_attention_plain(*(a.cpu() for a in args), **kw)
+    diff = got.float().cpu() - ref.float()
+    err = diff.abs().max().item()
+    rel = (diff.norm() / ref.float().norm()).item()
+    assert err <= (8e-3 if D <= 64 else 1.6e-2) and rel <= 2.0 ** -8, \
+        (err, rel)
+    assert not got[2].any(), "idle slot must emit zeros"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,C,KV,D,bs", [
+    (16, 256, 4, 64, 64),     # TinyLlama's second prefill chunk
+    (64, 512, 32, 128, 640),  # Llama-2-7B's prefill step
+])
+def test_paged_prefill_wgmma_at_the_served_shapes_on_card(S, C, KV, D, bs):
+    """The served shapes, every slot full (many items a persistent block,
+    where a producer thread that skipped a buffer's waits could once fall
+    two phases behind), against the plain version, bit-identical between
+    two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(S + C)
+    H, ctx = 32, 512
+    maxb = -(-ctx // bs)
+    nb = S * maxb
+    kp, vp = _pool(rng, nb, bs, KV, D)
+    tables = rng.permutation(nb).astype(np.int32).reshape(S, maxb)
+    start = np.full(S, ctx - C, np.int32)
+    lens = np.full(S, ctx, np.int32)
+    q = rng.standard_normal((S, C, H, D)).astype(np.float32)
+    kw = dict(block_size=bs, sm_scale=D ** -0.5, sliding_window=None,
+              num_kv_heads=KV)
+    args = [torch.from_numpy(a).cuda() for a in
+            (q, kp, vp, tables, start, lens)]
+    args[:3] = [a.bfloat16() for a in args[:3]]
+    got = port.paged_prefill(*args, **kw)
+    assert torch.equal(got, port.paged_prefill(*args, **kw))
+    ref = port.paged_attention_plain(*args, **kw)
+    diff = got.float() - ref.float()
+    assert diff.abs().max().item() <= (8e-3 if D <= 64 else 1.6e-2)
+    assert (diff.norm() / ref.float().norm()).item() <= 2.0 ** -8
+
+
+# ---------------------------- Evoformer: two MSA rows a block (PR 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4, 7])
+@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("biases", ["none", "mask", "pair", "both"])
+def test_evoformer_rows_a_block_match_plain_on_card(N, D, biases):
+    """N a multiple of the rows a block and N with a tail (7 = 2 x 3 + 1),
+    ragged S = 300, the four bias combinations, a fully masked MSA row
+    (zeros out), against the plain version in bf16 (``_close_bf16``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import evoformer as ev
+    assert ev.evo_plan(D, 1, N, 4, 300, 300).groups == -(-N // ev.EVO_ROWS)
+    B, S, H = 1, 300, 4
+    rng = np.random.default_rng(N * D + len(biases))
+    arr = lambda *s: torch.from_numpy(                          # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).cuda()
+    mask = torch.where(torch.from_numpy(rng.random((B, N, S)) < 0.2).cuda(),
+                       -1e9, 0.0).float()
+    mask[0, N - 1] = float("-inf")              # the last row: all masked
+    mb = mask if biases in ("mask", "both") else None
+    pb = arr(B, H, S, S) if biases in ("pair", "both") else None
+    q, k, v = (arr(B, N, S, H, D).bfloat16() for _ in range(3))
+    ev.reset_launch_counts()
+    got = ev.evoformer_flash(q, k, v, mb, pb)
+    ref = ev.evoformer_flash_plain(q, k, v, mb, pb)
+    torch.cuda.synchronize()
+    assert ev.LAUNCHES["evoformer_fwd"] == 1
+    assert got.shape == q.shape and torch.isfinite(got.float()).all()
+    if mb is not None:
+        assert not got[0, N - 1].any()
+    assert _close_bf16(got, ref), (N, D, biases)
