@@ -171,7 +171,10 @@ Phases, in order; any failure exits non-zero before the final line:
              graph; the kernels row reports the shape that loses most
              to ``torch.matmul`` there; ``quantize_sym`` / ``quantize_asym``
              on the [4096, 11008] bf16 leaf (no PyTorch call computes
-             them); the paged kernels at the Llama-2-7B serving shapes.
+             them), by events, torch.profiler's device time and in a CUDA
+             graph, also at 4 bits and at groups of 256, each with its
+             ``quant_plan``; the paged kernels at the Llama-2-7B serving
+             shapes.
 
 18-21, the ops layer's entry points, each called with its kernel's
 launch count at 0 and read just after, at the width of the public model
@@ -183,7 +186,10 @@ bound and one library call:
              over phase 7's micro batch of 4 x 2048); fp32, a ragged
              [1000, 4100], and each backward (the JAX package's VJP in
              plain PyTorch) against autograd of the plain version;
-             ``F.rms_norm`` / ``F.layer_norm`` as the library calls.
+             ``F.rms_norm`` / ``F.layer_norm`` as the library calls, each
+             by events, torch.profiler's device time and in a CUDA graph
+             beside the kernel (with its ``norm_plan``); LayerNorm also at
+             the Llama / GPT widths 4096 and 8192 over 8192 rows.
 19. adamw  — ``fused_adamw_update`` on one flat f32 buffer of
              GPT2Config.xl_1p3b's 1,315,723,264 parameters, 3 steps, p, m
              and v bit-identical to the plain version's after each; a
@@ -225,7 +231,16 @@ bound and one library call:
              path. Each check holds its kernel's launch count above 0.
              The dq / dkv pair's kernels-line rows (the backward at head
              dims 16 and 32) come from here: launches of the two tiny
-             training runs, times at the tiny shape.
+             training runs, times at the tiny shape. Then fault C2
+             (``c2_cases``): ``GPT2Config.tiny`` trained 5 steps in fp16
+             with ``xent_impl="fused"`` against ``"chunked"``
+             (C2_TRAIN_REL), the three xent kernels at hidden 100 (padded
+             to 128) in fp32, bf16 and fp16 and at 2048 in fp16 (phase
+             10's limits), ``DS4Sci_EvoformerAttention`` in fp16 with each
+             bias combination, ``flash_attention`` forward and backward on
+             q/k/v views one element into a wider buffer (D 64 and 128,
+             bf16 and fp16), and both quantizers in fp16 (codes and scales
+             identical), each launch count rising.
 
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
@@ -237,6 +252,10 @@ share), and the top device ops.
 launch plans (64, 128 or 256 rows a block, K split into 1-8 ranges) on the
 three Llama-2-7B projection shapes at M from 128 to 4096 beside
 ``torch.matmul``, which ``fp6_plan``'s route choices are read from.
+``--norm-sweep`` likewise times the norm kernel's rows-route launches
+(vectors a lane, warps a row and a block) at phase 18's shapes beside
+``F.layer_norm`` / ``F.rms_norm`` in CUDA graphs, which ``norm_plan``'s
+choices are read from.
 
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -1295,6 +1314,41 @@ def xent_all(fx, h, e, t, scale, *, plain, **kw):
             fx.xent_bwd_de(scale, h, e, t, lse, **kw)]
 
 
+def check_xent(torch, label, dn, got, ref):
+    """The five xent outputs (``XENT_OUTPUTS``) against their plain
+    versions: fp32 (``dn``) and the logit sum within XENT_REL of the norm,
+    16-bit lse and target logit within XENT_BF16_ROWS_ABS, 16-bit dh and
+    dE within XENT_BF16_MAX_REL of the largest magnitude and 2**-8 of the
+    norm (fp16 held to bf16's limits). Returns each kernel's largest
+    max-abs error."""
+    worst = {}
+    for i, ((name, out), g_, r_) in enumerate(zip(XENT_OUTPUTS, got, ref)):
+        what = f"{label} {name} {out}"
+        if g_.dtype != r_.dtype or g_.shape != r_.shape:
+            raise AssertionError(f"{what}: {g_.dtype} {tuple(g_.shape)} != "
+                                 f"plain")
+        if not torch.isfinite(g_.float()).all():
+            raise AssertionError(f"{what}: non-finite output")
+        diff = g_.float() - r_.float()
+        err = diff.abs().max().item()
+        rel = (diff.norm() / r_.float().norm().clamp_min(1e-30)).item()
+        if dn == "fp32" or out == "lsum":
+            ok, lim = rel <= XENT_REL, f"rel-norm {XENT_REL}"
+        elif i < 3:
+            ok, lim = err <= XENT_BF16_ROWS_ABS, \
+                f"max-abs {XENT_BF16_ROWS_ABS}"
+        else:
+            top = r_.float().abs().max().item()
+            ok = err <= XENT_BF16_MAX_REL * top and rel <= BF16_REL_NORM
+            lim = (f"max-abs {XENT_BF16_MAX_REL} x {top:.3e}, "
+                   f"rel-norm {BF16_REL_NORM:.3e}")
+        log(f"{what} max_abs_err={err:.3e} rel_norm_err={rel:.3e} ({lim})")
+        if not ok:
+            raise AssertionError(f"{what} disagrees with plain")
+        worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
 def phase_xent_parity(torch):
     from deepspeed_tpu_torch.ops.kernels import fused_xent as fx
     torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 products
@@ -1322,35 +1376,11 @@ def phase_xent_parity(torch):
                 raise AssertionError(f"xent parity launches {fx.LAUNCHES}")
             ref = xent_all(fx, h, e, t, scale, plain=True, **kw)
             torch.cuda.synchronize()
-            for i, ((name, out), g_, r_) in enumerate(zip(XENT_OUTPUTS, got,
-                                                          ref)):
-                what = (f"[xent parity] {name} {out} {dn} N{N} V{V} "
-                        f"C{C} ignore={ignore} z={z} eps={eps}")
-                if g_.dtype != r_.dtype or g_.shape != r_.shape:
-                    raise AssertionError(f"{what}: {g_.dtype} "
-                                         f"{tuple(g_.shape)} != plain")
-                if not torch.isfinite(g_.float()).all():
-                    raise AssertionError(f"{what}: non-finite output")
-                diff = g_.float() - r_.float()
-                err = diff.abs().max().item()
-                rel = (diff.norm() / r_.float().norm().clamp_min(1e-30)
-                       ).item()
-                if dn == "fp32" or out == "lsum":
-                    ok, lim = rel <= XENT_REL, f"rel-norm {XENT_REL}"
-                elif i < 3:
-                    ok, lim = err <= XENT_BF16_ROWS_ABS, \
-                        f"max-abs {XENT_BF16_ROWS_ABS}"
-                else:
-                    top = r_.float().abs().max().item()
-                    ok = err <= XENT_BF16_MAX_REL * top and \
-                        rel <= BF16_REL_NORM
-                    lim = (f"max-abs {XENT_BF16_MAX_REL} x {top:.3e}, "
-                           f"rel-norm {BF16_REL_NORM:.3e}")
-                log(f"{what} max_abs_err={err:.3e} rel_norm_err={rel:.3e} "
-                    f"({lim})")
-                if not ok:
-                    raise AssertionError(f"{what} disagrees with plain")
-                if dn == "bf16":
+            errs = check_xent(torch, f"[xent parity] {dn} N{N} V{V} C{C} "
+                              f"ignore={ignore} z={z} eps={eps}", dn, got,
+                              ref)
+            if dn == "bf16":
+                for name, err in errs.items():
                     worst[name] = max(worst[name], err)
             del h, e, t, got, ref
     torch.cuda.empty_cache()
@@ -2237,6 +2267,24 @@ def phase_woq_timing(torch, woq, worst, rows):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOPS_PER_S * 1e3
         launches = int8_run["load_launches"][name]
+        # device and CUDA-graph times, also at 4 bits and at the JAX
+        # default's groups of 256 (quantize_blockwise, quantization.py:105)
+        times = {}
+        for bits, gs in ((8, 128), (4, 128), (8, 256)):
+            kv = dict(bits=bits, group_size=gs, symmetric=sym)
+            fn = lambda kv=kv: qz.quantize_blockwise(leaf, **kv)  # noqa
+            ngv = -(-n // gs)
+            b_v = n * 2 + n * bits // 8 + ngv * 4 * (1 if sym else 2)
+            times[f"{bits}bit_g{gs}"] = {
+                "device_ms": _device_ms(torch, fn, 20),
+                "graph_ms": _graph_ms(torch, [fn]),
+                "bound_ms": max(b_v / HBM_BYTES_PER_S, flops /
+                                F32_FLOPS_PER_S) * 1e3,
+                "plan": qz.quant_plan(gs, leaf.dtype)._asdict()}
+        log(f"[woq timing] {name} [4096, 11008] bf16 device / graph ms: "
+            + "; ".join(f"{k} {v['device_ms']} / {v['graph_ms']:.4f} "
+                        f"(bound {v['bound_ms']:.4f})"
+                        for k, v in times.items()))
         out.append({
             "name": name, "route": "cuda", "source": QUANT_SOURCE,
             "replaces": REPLACES[name], "launches": launches,
@@ -2252,6 +2300,8 @@ def phase_woq_timing(torch, woq, worst, rows):
             "library_call": "none: no single PyTorch call computes it",
             "shape": {"leaf": [4096, 11008], "dtype": "bf16", "bits": 8,
                       "group_size": 128},
+            "device_ms": times["8bit_g128"]["device_ms"],
+            "graph_ms": times["8bit_g128"]["graph_ms"], "variants": times,
             "bytes": nbytes, "flops": flops})
         log(f"[woq timing] {name} [4096, 11008] bf16: {ms:.4f} ms (plain "
             f"{plain_ms:.4f}, bound {max(t_bytes, t_ops):.4f} by "
@@ -2408,27 +2458,133 @@ def phase_norm_ops(torch):
              lambda: F.rms_norm(x, (4096,), w, 1e-5)),
             ("layer_norm", xl, (wl, bl, 1e-5),
              lambda: F.layer_norm(xl, (2048,), wl16, bl16, 1e-5))):
-        kern = getattr(nm, f"fused_{name}")
-        plain = getattr(nm, f"{name}_plain")
-        kw = {"eps": args[-1]}
-        ms = _time_ms(torch, lambda: kern(xx, *args[:-1], **kw), 50)
-        dev_ms = _device_ms(torch, lambda: kern(xx, *args[:-1], **kw), 20)
-        plain_ms = _time_ms(torch, lambda: plain(xx, *args), 10)
-        lib_ms = _time_ms(torch, lib, 50)
-        lib_dev_ms = _device_ms(torch, lib, 20)
-        n = xx.numel()
-        nbytes = 2 * n * 2 + sum(a.numel() * a.element_size()
-                                 for a in args[:-1])
+        t = _norm_times(torch, nm, name, xx, args, lib)
         rows.append(_op_row(
-            name, NORM_SOURCE, launches[name], worst[name], ms, plain_ms,
-            lib_ms, nbytes, 4 * n, F32_FLOPS_PER_S, device_ms=dev_ms,
-            library_device_ms=lib_dev_ms,
-            launches_note="one call of the entry point",
+            name, NORM_SOURCE, launches[name], worst[name], t["ms"],
+            t["plain_ms"], t["library_ms"], t["bytes"], t["flops"],
+            F32_FLOPS_PER_S, device_ms=t["device_ms"],
+            library_device_ms=t["library_device_ms"],
+            graph_ms=t["graph_ms"], library_graph_ms=t["library_graph_ms"],
+            plan=t["plan"], launches_note="one call of the entry point",
             library_call=f"F.{name}, weights in bf16",
             shape={"x": list(xx.shape), "dtype": "bf16"}))
     del x, xl
     torch.cuda.empty_cache()
+    # LayerNorm at the Llama / GPT widths 4096 and 8192 over 8192 rows
+    widths = {}
+    for C in (4096, 8192):
+        xw = rnd(8192, C).to(torch.bfloat16)
+        ww, bw = 1 + 0.1 * rnd(C), 0.1 * rnd(C)
+        ww16, bw16 = ww.to(xw.dtype), bw.to(xw.dtype)
+        nm.reset_launch_counts()
+        err = check_close(torch, f"[ops] layer_norm [8192, {C}] bf16",
+                          nm.fused_layer_norm(xw, ww, bw),
+                          nm.layer_norm_plain(xw, ww, bw, 1e-5),
+                          bf16_max_abs=NORM_BF16_MAX_ABS)
+        if nm.LAUNCHES["layer_norm"] != 1:
+            raise AssertionError(f"layer_norm width {C}: {nm.LAUNCHES}")
+        t = _norm_times(torch, nm, "layer_norm", xw, (ww, bw, 1e-5),
+                        lambda: F.layer_norm(xw, (C,), ww16, bw16, 1e-5))
+        t["bound_ms"], t["bound_by"] = _bound(t["bytes"], t["flops"],
+                                              F32_FLOPS_PER_S)
+        t["max_abs_err"] = err
+        log(f"[ops timing] layer_norm [8192, {C}] bf16: device "
+            f"{t['device_ms']}, graph {t['graph_ms']:.4f} ms (library "
+            f"device {t['library_device_ms']}, graph "
+            f"{t['library_graph_ms']:.4f}; bound {t['bound_ms']:.4f}); plan "
+            f"{t['plan']}")
+        widths[str(C)] = t
+        del xw
+    rows[-1]["widths"] = widths
+    torch.cuda.empty_cache()
     return rows
+
+
+def _norm_times(torch, nm, name, xx, args, lib):
+    """One norm entry point on x ``xx`` (args: weights and eps) timed by
+    CUDA events, by torch.profiler's device time and in a CUDA graph,
+    beside its plain version and the library call ``lib`` (events,
+    device, graph); the bytes (x in and out, the weights once), the
+    operations and the kernel's ``norm_plan``."""
+    kern = getattr(nm, f"fused_{name}")
+    plain = getattr(nm, f"{name}_plain")
+    fn = lambda: kern(xx, *args[:-1], eps=args[-1])        # noqa: E731
+    n = xx.numel()
+    return {
+        "ms": _time_ms(torch, fn, 50), "device_ms": _device_ms(torch, fn, 20),
+        "graph_ms": _graph_ms(torch, [fn]),
+        "plain_ms": _time_ms(torch, lambda: plain(xx, *args), 10),
+        "library_ms": _time_ms(torch, lib, 50),
+        "library_device_ms": _device_ms(torch, lib, 20),
+        "library_graph_ms": _graph_ms(torch, [lib]),
+        "bytes": 2 * n * xx.element_size() + sum(
+            a.numel() * a.element_size() for a in args[:-1]),
+        "flops": 4 * n,
+        "plan": nm.norm_plan(xx.shape[0], xx.shape[1], xx.dtype,
+                             name == "layer_norm")._asdict()}
+
+
+def norm_plan_sweep(torch):
+    """``--norm-sweep``: every rows-route launch of the norm kernel that
+    its instances allow (4, 8 or 16 vectors a lane, the fewest warps a
+    row for each, 16, 8 or 4 warps a block) at phase 18's shapes and
+    LayerNorm's widths 4096 and 8192 (bf16), each in a CUDA graph beside
+    the library call; ``norm_plan``'s choices are read from this table."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import normalization as nm
+    g = torch.Generator(device="cuda").manual_seed(18)
+    table = []
+    plan_fn = nm.norm_plan
+    try:
+        for name, R, C in (("layer_norm", 8192, 2048),
+                           ("rms_norm", 32768, 4096),
+                           ("layer_norm", 8192, 4096),
+                           ("layer_norm", 8192, 8192)):
+            x = torch.randn(R, C, generator=g, device="cuda").bfloat16()
+            w = 1 + 0.1 * torch.randn(C, generator=g, device="cuda")
+            b = 0.1 * torch.randn(C, generator=g, device="cuda")
+            ln = name == "layer_norm"
+            kern = (lambda: nm.fused_layer_norm(x, w, b)) if ln else \
+                (lambda: nm.fused_rms_norm(x, w))
+            w16, b16 = w.bfloat16(), b.bfloat16()
+            lib = (lambda: F.layer_norm(x, (C,), w16, b16, 1e-5)) if ln \
+                else (lambda: F.rms_norm(x, (C,), w16, 1e-6))
+            ref = nm.layer_norm_plain(x, w, b, 1e-5) if ln else \
+                nm.rms_norm_plain(x, w, 1e-6)
+            chosen = plan_fn(R, C, x.dtype, ln)
+            nv = C // 8
+            row = {"name": name, "x": [R, C], "chosen": chosen._asdict(),
+                   "library_graph_ms": _graph_ms(torch, [lib]), "plans": []}
+            for vpl in (4, 8, 16):
+                wpr = -(-nv // (32 * vpl))
+                if wpr > nm.NORM_MAX_TEAM_WARPS:
+                    continue
+                for warps in (16, 8, 4):
+                    teams = max(1, warps // wpr)
+                    p = nm.NormPlan("rows", wpr, vpl, teams,
+                                    32 * wpr * teams, chosen.smem_bytes)
+                    if any(q["plan"] == p._asdict() for q in row["plans"]):
+                        continue
+                    nm.norm_plan = lambda *a, p=p: p
+                    err = (kern().float() - ref.float()).abs().max().item()
+                    if not err <= NORM_BF16_MAX_ABS:
+                        raise AssertionError(f"norm sweep {name} {p}: "
+                                             f"max-abs {err} from plain")
+                    row["plans"].append({"plan": p._asdict(),
+                                         "graph_ms": _graph_ms(torch,
+                                                               [kern])})
+                    nm.norm_plan = plan_fn
+            log(f"[norm sweep] {name} [{R}, {C}] bf16: library graph "
+                f"{row['library_graph_ms']:.4f} ms; chosen "
+                f"{tuple(chosen)[1:4]}; " + "; ".join(
+                    f"(wpr {q['plan']['wpr']}, vpl {q['plan']['vpl']}, "
+                    f"teams {q['plan']['teams']}) {q['graph_ms']:.4f}"
+                    for q in row["plans"]))
+            table.append(row)
+            del x
+    finally:
+        nm.norm_plan = plan_fn
+    return table
 
 
 def phase_adamw_op(torch):
@@ -2959,7 +3115,148 @@ def phase_c1_shapes(torch):
                     f"{Dh}] bf16", got,
                     evo(q, k, v, [mask, pair], use_kernel=False),
                     bf16_max_abs=EVO_BF16_MAX_ABS)
+    out["c2"] = c2_cases(torch)
     return out, pair_rows(torch, fa, tiny, pair_launches, pair_err)
+
+
+# GPT2Config.tiny trained 5 steps in fp16 with the fused loss against the
+# same engine with the chunked loss: the fused backward casts P' to fp16
+# before its product where autograd of the chunked loss keeps fp32, so
+# the trajectories part by about fp16's unit roundoff (2**-11); the limit
+# is twice that
+C2_TRAIN_REL = 1e-3
+
+
+def c2_cases(torch):
+    """Fault C2 (phase 22): inputs the kernels refused on the card and the
+    JAX package computes, each through its kernel, the launch count
+    rising, against its plain or chunked twin: ``GPT2Config.tiny`` trained
+    in fp16 with ``xent_impl="fused"`` against ``"chunked"``
+    (C2_TRAIN_REL); the three xent kernels at hidden 100 (padded to 128 in
+    the wrapper) in fp32, bf16 and fp16; ``DS4Sci_EvoformerAttention`` in
+    fp16; ``flash_attention`` on q/k/v views whose base address and
+    strides TMA cannot take; ``quantize_blockwise`` in fp16 (codes and
+    scales identical)."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.checkpoint import init_gpt2_params
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, make_model
+    from deepspeed_tpu_torch.ops.evoformer_attn import \
+        DS4Sci_EvoformerAttention as evo
+    from deepspeed_tpu_torch.ops.kernels import evoformer as ek
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_xent as fx
+    from deepspeed_tpu_torch.ops.kernels import quantization as qz
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(220)
+    batches = [torch.randint(0, 512, (2, 129), generator=g, device="cuda")
+               for _ in range(5)]
+    ds = {"train_micro_batch_size_per_gpu": 2,
+          "gradient_accumulation_steps": 1,
+          "optimizer": {"type": "AdamW",
+                        "params": {"lr": 1e-3, "weight_decay": 0.01}},
+          "gradient_clipping": 1.0, "steps_per_print": 10_000,
+          "fp16": {"enabled": True}}
+    losses, launches = {}, {}
+    for impl in ("fused", "chunked"):
+        cfg = GPT2Config.tiny(dtype=torch.float16, xent_impl=impl)
+        _, _, loss_fn = make_model(cfg)
+        engine, *_ = initialize(loss_fn=loss_fn, config=ds,
+                                params=init_gpt2_params(cfg, seed=22,
+                                                        device="cuda"))
+        fx.reset_launch_counts()
+        losses[impl] = [float(engine.train_batch({"tokens": b}))
+                        for b in batches]
+        launches[impl] = dict(fx.LAUNCHES)
+        del engine
+    if launches["fused"] != dict.fromkeys(fx.LAUNCHES, len(batches)) or \
+            any(launches["chunked"].values()):
+        raise AssertionError(f"GPT-2 fp16 fused xent: launches {launches}")
+    if not all(math.isfinite(x) for x in losses["fused"]):
+        raise AssertionError(f"GPT-2 fp16 fused xent: {losses['fused']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["fused"],
+                                                  losses["chunked"]))
+    log(f"[c2] GPT2Config.tiny fp16 xent_impl=fused: {losses['fused']} "
+        f"chunked {losses['chunked']} max rel {rel:.3e} (limit "
+        f"{C2_TRAIN_REL}); launches {launches['fused']}")
+    if not rel <= C2_TRAIN_REL:
+        raise AssertionError(f"GPT-2 fp16 fused xent: {rel}")
+    out["gpt2_tiny_fp16_fused_xent"] = {"max_rel": rel,
+                                        "launches": launches["fused"]}
+    # the three xent kernels at hidden 100 in each dtype, fp16 at C 2048
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16,
+              "fp16": torch.float16}
+    for C, names in ((100, ("fp32", "bf16", "fp16")), (XENT_C, ("fp16",))):
+        for dn in names:
+            h, e, t = xent_inputs(torch, N=1000, V=50257, C=C,
+                                  dtype=dtypes[dn], seed=C)
+            scale = torch.tensor([1e-3], device="cuda")
+            kw = dict(ignore=-100, z=1e-4, eps=0.1)
+            fx.reset_launch_counts()
+            got = xent_all(fx, h, e, t, scale, plain=False, **kw)
+            if any(v != 1 for v in fx.LAUNCHES.values()):
+                raise AssertionError(f"xent C={C} {dn}: {fx.LAUNCHES}")
+            ref = xent_all(fx, h, e, t, scale, plain=True, **kw)
+            torch.cuda.synchronize()
+            check_xent(torch, f"[c2] {dn} N1000 V50257 C{C}", dn, got, ref)
+            del h, e, t, got, ref
+    out["xent_c100"] = "fp32, bf16, fp16"
+    # Evoformer in fp16, the four bias combinations at a ragged S
+    for biases in ((), ("mask",), ("pair",), ("mask", "pair")):
+        q, k, v, mask, pair = _evo_inputs(torch, g, (1, 16, 130, 4, 32),
+                                          dtype=torch.float16)
+        bl = [b for nm, b in (("mask", mask), ("pair", pair))
+              if nm in biases]
+        ek.reset_launch_counts()
+        got = evo(q, k, v, bl)
+        torch.cuda.synchronize()
+        if ek.LAUNCHES["evoformer_fwd"] != 1:
+            raise AssertionError(f"evoformer fp16: {ek.LAUNCHES}")
+        check_close(torch, f"[c2] DS4Sci_EvoformerAttention [1, 16, 130, 4, "
+                    f"32] float16 biases {biases}", got,
+                    evo(q, k, v, bl, use_kernel=False))
+    out["evoformer_fp16"] = 4
+    # flash_attention on views one element into a wider buffer
+    for dtype in (torch.bfloat16, torch.float16):
+        for Dh in (64, 128):
+            B, T, Hh = 2, 256, 4
+            buf = torch.randn(B, T, 3 * Hh * Dh + 1, generator=g,
+                              device="cuda").to(dtype)
+            q, k, v = (buf[..., 1 + i * Hh * Dh:1 + (i + 1) * Hh * Dh]
+                       .unflatten(-1, (Hh, Dh)) for i in range(3))
+            do = torch.randn(B, T, Hh, Dh, generator=g, device="cuda").to(
+                dtype)
+            qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+            fa.reset_launch_counts()
+            o = fa.flash_attention(qq, kk, vv, causal=True)
+            o.backward(do)
+            torch.cuda.synchronize()
+            if fa.LAUNCHES["flash_fwd"] != 1 or fa.LAUNCHES["flash_bwd"] != 1:
+                raise AssertionError(f"flash misaligned view: {fa.LAUNCHES}")
+            qc, kc, vc, dc = (x.transpose(1, 2).contiguous()
+                              for x in (q, k, v, do))
+            kw = dict(causal=True, sm_scale=Dh ** -0.5)
+            ro, lse = fa.flash_fwd_plain(qc, kc, vc, **kw)
+            ref = (ro, *fa.flash_bwd_plain(qc, kc, vc, dc, ro, lse, **kw))
+            for name, a, r in zip(("o", "dq", "dk", "dv"),
+                                  (o, qq.grad, kk.grad, vv.grad), ref):
+                check_close(torch, f"[c2] flash_attention {name} on a "
+                            f"misaligned view D{Dh} {str(dtype)[6:]}", a,
+                            r.transpose(1, 2),
+                            bf16_max_abs=FLASH_BF16_MAX_ABS)
+    out["flash_misaligned_view"] = 4
+    # the group quantizer in fp16 (both routes: groups of 128 and 100)
+    x = torch.randn(300, 517, generator=g, device="cuda").half()
+    for sym in (True, False):
+        for bits in (8, 4):
+            for gs in (128, 100):
+                qz.reset_launch_counts()
+                _quant_case(torch, qz, x, bits=bits, gs=gs, sym=sym,
+                            what="[c2] [300, 517] float16")
+                if sum(qz.LAUNCHES.values()) != 1:
+                    raise AssertionError(f"quantize fp16: {qz.LAUNCHES}")
+    out["quantize_fp16"] = 8
+    torch.cuda.empty_cache()
+    return out
 
 
 def pair_rows(torch, fa, tiny, launches, err):
@@ -3004,10 +3301,11 @@ def pair_rows(torch, fa, tiny, launches, err):
 
 
 def main(argv) -> int:
-    unknown = [a for a in argv if a not in ("--trace", "--fp6-sweep")]
+    unknown = [a for a in argv
+               if a not in ("--trace", "--fp6-sweep", "--norm-sweep")]
     if unknown:
         print(f"chip_smoke: unknown arguments {unknown} (only --trace, "
-              f"--fp6-sweep)", file=sys.stderr)
+              f"--fp6-sweep, --norm-sweep)", file=sys.stderr)
         return 2
     try:
         import torch
@@ -3033,6 +3331,11 @@ def main(argv) -> int:
         phase_build()
         print(json.dumps({"fp6_sweep": fp6_plan_sweep(torch), "card": card}),
               flush=True)
+        return 0
+    if "--norm-sweep" in argv:
+        phase_build()
+        print(json.dumps({"norm_sweep": norm_plan_sweep(torch),
+                          "card": card}), flush=True)
         return 0
 
     def run(fn, *args):

@@ -53,11 +53,12 @@ SIGNATURES = {
         # q, k, v, dout, o, lse, dlse, dq, dk, dv, dQ workspace, rows, ...
         "flash_bwd_launch": [_P] * 13 + [_I] * 6 + [_F, _I, _I, _P],
     },
-    # h, e, targets, out, partials, N, V, C, splits, is_bf16, stream
+    # h, e, targets, out, partials, N, V, C, splits, dtype code (0 fp32,
+    # 1 bf16, 2 fp16), stream
     "fused_xent": {
         "xent_fwd_launch": [_P] * 5 + [_I] * 5 + [_P],
         # scale, h, e, targets, lse, out, N, V, C, has_ignore, ignore, z,
-        # eps, is_bf16, out_f32, cluster size, slab width, slab groups,
+        # eps, dtype code, out_f32, cluster size, slab width, slab groups,
         # stream
         "xent_bwd_dh_launch": [_P] * 6 + [_I] * 5 + [_F, _F] + [_I] * 5
         + [_P],
@@ -65,18 +66,22 @@ SIGNATURES = {
         + [_P],
     },
     # x, values, scale, zero, n, group_size, bits, symmetric, recip,
-    # is_bf16, stream
+    # dtype code, route, lanes a group, vectors a lane
+    # (quantization.quant_plan), SMs, stream
     "quantization": {
-        "quantize_launch": [_P] * 4 + [_L, _I, _I, _I, _F, _I, _P],
+        "quantize_launch": [_P] * 4 + [_L, _I, _I, _I, _F] + [_I] * 5
+        + [_P],
     },
     # x, bytes3, scale, out, workspace, counters, M, K, J, is_bf16, route,
     # row tiles, K splits, depth of a split, stream
     "fp6_gemm": {
         "fp6_matmul_launch": [_P] * 6 + [_I] * 8 + [_P],
     },
-    # x, w, b, out, rows, hidden, eps, layer_norm, dtype code, stream
+    # x, w, b, out, rows, hidden, eps, layer_norm, dtype code, route,
+    # warps a row, vectors a lane, rows a block (normalization.norm_plan),
+    # SMs, stream
     "normalization": {
-        "norm_fwd_launch": [_P] * 4 + [_I, _I, _F, _I, _I, _P],
+        "norm_fwd_launch": [_P] * 4 + [_L, _I, _F] + [_I] * 7 + [_P],
     },
     # p, g, m, v, hyper, n, g_is_bf16, stream
     "fused_optimizer": {
@@ -88,7 +93,7 @@ SIGNATURES = {
         "sparse_fwd_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
     },
     # q, k, v, o, mask bias, pair bias, host strides, B, N, H, Sq, Sk, D,
-    # scale, is_bf16, MSA rows a block (evoformer.evo_plan), stream
+    # scale, dtype code, MSA rows a block (evoformer.evo_plan), stream
     "evoformer": {
         "evoformer_fwd_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     },

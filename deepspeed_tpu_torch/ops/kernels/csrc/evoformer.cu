@@ -25,7 +25,9 @@
 // SM) and the latency of their loads, and the pair bias besides crossed
 // L2 once per MSA row (2.4 GB a call).
 //
-// So bf16 runs evoformer_fwd_mma_kernel: a block owns 64 query rows of
+// So bf16 and fp16 run evoformer_fwd_mma_kernel<D, T> (T the 16-bit
+// type: the m16n8k16 product and P's pack in .bf16 or .f16, the biases
+// f32 in both): a block owns 64 query rows of
 // one (b, h) and EVO_SETS = 2 MSA rows, one warp set of 4 warps each
 // (16 query rows a warp), each set the online softmax of its row as the
 // tensor-core tile of flash_tile.cuh runs it (mma.sync m16n8k16, fp32
@@ -50,7 +52,7 @@
 //
 // Numerics follow the Pallas kernel: scores in fp32 scaled after the
 // product, then + mask bias, then + pair bias, all in f32 (a -1e9 mask
-// bias in bf16 would lose the scores under it); P cast to V's dtype (bf16)
+// bias in bf16 would lose the scores under it); P cast to V's dtype (T)
 // before P.V with the row sums taken before that cast; the -1e30 clamp
 // before alpha; __expf. fp32 inputs run a CUDA-core kernel (one thread per
 // query row), a parity oracle for the indexing.
@@ -91,7 +93,7 @@ __device__ __forceinline__ long long head_at(const EvoStrides& s, int b,
   return b * s.b + n * s.n + h * s.h;
 }
 
-// Shared memory of a stage: each set's K and V tiles ([64][D + 8] bf16
+// Shared memory of a stage: each set's K and V tiles ([64][D + 8] 16-bit
 // each), the pair-bias tile (64 x 64 f32, each row's 8-float column groups
 // XORed with (row % 4) * 8 so that a half-warp's 8-byte reads of four
 // rows fall on distinct banks) and each set's mask-bias tile (64 f32).
@@ -136,8 +138,8 @@ __device__ __forceinline__ void stage_bias(float* dst, const float* src,
 
 // Rows [r0, r0 + 64) of one (b, n, h)'s K or V into a [64][D + 8] tile,
 // 16 bytes a copy by thread `tid` of 128; rows at or past `rows` zeros.
-template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+template <int D, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src,
                                            long long stride_t, int r0,
                                            int rows, int tid) {
   constexpr int LD = D + 8, CH = D / 8;
@@ -160,11 +162,11 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
 // scores take them (never held in registers across a product), and the
 // pair bias crosses L2 once per W rows. A set past N (the last group's
 // tail) loads and computes nothing.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(NT * EVO_SETS, (D <= 32 ? 2 : 1))
-evoformer_fwd_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o,
+evoformer_fwd_mma_kernel(const T* __restrict__ q,
+                         const T* __restrict__ k,
+                         const T* __restrict__ v, T* __restrict__ o,
                          const float* __restrict__ mb,
                          const float* __restrict__ pb, EvoStrides sq,
                          EvoStrides sk, EvoStrides sv, EvoStrides so, int N,
@@ -193,20 +195,20 @@ evoformer_fwd_mma_kernel(const bf16* __restrict__ q,
   const int nn = live_row ? n : 0;
   load_a<D>(qf, q + head_at(sq, b, nn, h), sq.t, row, live_row ? Sq : 0,
             qi);
-  const bf16* kb = k + head_at(sk, b, nn, h);
-  const bf16* vb = v + head_at(sv, b, nn, h);
-  // stage `buf`: the sets' [K][V] bf16 tiles, the pair-bias tile, the
+  const T* kb = k + head_at(sk, b, nn, h);
+  const T* vb = v + head_at(sv, b, nn, h);
+  // stage `buf`: the sets' [K][V] 16-bit tiles, the pair-bias tile, the
   // sets' mask rows
   auto kv_at = [&](int buf) {
-    return reinterpret_cast<bf16*>(smem_raw + buf * SB) + ws * 2 * TE;
+    return reinterpret_cast<T*>(smem_raw + buf * SB) + ws * 2 * TE;
   };
   auto pbias_at = [&](int buf) {
     return reinterpret_cast<float*>(smem_raw + buf * SB +
-                                    W * 2 * TE * sizeof(bf16));
+                                    W * 2 * TE * sizeof(T));
   };
   auto prefetch = [&](int buf, int t0) {
     if (live_row) {
-      bf16* kv = kv_at(buf);
+      T* kv = kv_at(buf);
       stage_rows<D>(kv, kb, sk.t, t0, Sk, tid);
       stage_rows<D>(kv + TE, vb, sv.t, t0, Sk, tid);
       if (mrow)
@@ -229,8 +231,8 @@ evoformer_fwd_mma_kernel(const bf16* __restrict__ q,
 
   prefetch(0, 0);
   for (int t0 = 0, it = 0; t0 < Sk; t0 += BK, ++it) {
-    const bf16* ks = kv_at(it & 1);
-    const bf16* vs = ks + TE;
+    const T* ks = kv_at(it & 1);
+    const T* vs = ks + TE;
     const float* pbt = pbias_at(it & 1);
     const float* mbt = pbt + 64 * 64 + ws * 64;
     if (t0 + BK < Sk) {
@@ -245,7 +247,7 @@ evoformer_fwd_mma_kernel(const bf16* __restrict__ q,
       continue;
     }
     float sc[8][4];
-    mma_abt<D>(sc, qf, ks, lane);
+    mma_abt<D, T>(sc, qf, ks, lane);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -298,7 +300,7 @@ evoformer_fwd_mma_kernel(const bf16* __restrict__ q,
     for (int dn = 0; dn < ND; ++dn)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[dn][e] *= alpha[e / 2];
-    mma_pv<D>(acc, sc, vs, lane);
+    mma_pv<D, T>(acc, sc, vs, lane);
     __syncthreads();
   }
 
@@ -357,31 +359,36 @@ evoformer_fwd_f32_kernel(const float* __restrict__ q,
   for (int d = 0; d < D; ++d) orow[d] = acc[d] * inv;
 }
 
+// The 16-bit kernel in T (bf16 or fp16).
+template <int D, typename T>
+cudaError_t fwd_mma(const Args& a, cudaStream_t stream) {
+  constexpr int W = EVO_SETS;
+  const long long groups = (long long)a.B * ((a.N + W - 1) / W);
+  if (groups > 65535) return cudaErrorInvalidValue;
+  dim3 grid((a.Sq + BQ - 1) / BQ, a.H, (unsigned)groups);
+  constexpr size_t smem = 2 * evo_stage_bytes<D>();
+  cudaError_t err = smem_opt_in(evoformer_fwd_mma_kernel<D, T>, smem);
+  if (err != cudaSuccess) return err;
+  // 16-byte bias copies where every bias row starts 16-byte aligned
+  const int vec = a.Sk % 4 == 0 && (uintptr_t)a.mb % 16 == 0 &&
+                  (uintptr_t)a.pb % 16 == 0;
+  evoformer_fwd_mma_kernel<D, T><<<grid, NT * W, smem, stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, a.mb, a.pb,
+      a.sq, a.sk, a.sv, a.so, a.N, a.H, a.Sq, a.Sk, a.scale, vec);
+  return cudaGetLastError();
+}
+
+// dtype: 0 fp32, 1 bf16, 2 fp16
 template <int D>
-cudaError_t fwd(const Args& a, bool bf, cudaStream_t stream) {
-  if (bf) {
-    constexpr int W = EVO_SETS;
-    const long long groups = (long long)a.B * ((a.N + W - 1) / W);
-    if (groups > 65535) return cudaErrorInvalidValue;
-    dim3 grid((a.Sq + BQ - 1) / BQ, a.H, (unsigned)groups);
-    constexpr size_t smem = 2 * evo_stage_bytes<D>();
-    cudaError_t err = smem_opt_in(evoformer_fwd_mma_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    // 16-byte bias copies where every bias row starts 16-byte aligned
-    const int vec = a.Sk % 4 == 0 && (uintptr_t)a.mb % 16 == 0 &&
-                    (uintptr_t)a.pb % 16 == 0;
-    evoformer_fwd_mma_kernel<D><<<grid, NT * W, smem, stream>>>(
-        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (bf16*)a.o,
-        a.mb, a.pb, a.sq, a.sk, a.sv, a.so, a.N, a.H, a.Sq, a.Sk, a.scale,
-        vec);
-  } else {
-    const long long n = (long long)a.B * a.N * a.H * a.Sq;
-    evoformer_fwd_f32_kernel<D><<<(unsigned)((n + F32_NT - 1) / F32_NT),
-                                  F32_NT, 0, stream>>>(
-        (const float*)a.q, (const float*)a.k, (const float*)a.v,
-        (float*)a.o, a.mb, a.pb, a.sq, a.sk, a.sv, a.so, a.B, a.N, a.H,
-        a.Sq, a.Sk, a.scale);
-  }
+cudaError_t fwd(const Args& a, int dtype, cudaStream_t stream) {
+  if (dtype == 1) return fwd_mma<D, bf16>(a, stream);
+  if (dtype == 2) return fwd_mma<D, f16>(a, stream);
+  const long long n = (long long)a.B * a.N * a.H * a.Sq;
+  evoformer_fwd_f32_kernel<D><<<(unsigned)((n + F32_NT - 1) / F32_NT),
+                                F32_NT, 0, stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.o,
+      a.mb, a.pb, a.sq, a.sk, a.sv, a.so, a.B, a.N, a.H, a.Sq, a.Sk,
+      a.scale);
   return cudaGetLastError();
 }
 
@@ -390,18 +397,19 @@ cudaError_t fwd(const Args& a, bool bf, cudaStream_t stream) {
 extern "C" {
 
 // q / k / v / o [B, N, S, H, D] (element strides of b, n, s, h for q, k,
-// v, o in `strides[16]`); mask_bias fp32 [B * N, Sk] or null; pair_bias
-// fp32 [B, H, Sq, Sk] or null.
+// v, o in `strides[16]`; dtype 0 fp32, 1 bf16, 2 fp16); mask_bias fp32
+// [B * N, Sk] or null; pair_bias fp32 [B, H, Sq, Sk] or null.
 int evoformer_fwd_launch(const void* q, const void* k, const void* v,
                          void* o, const void* mask_bias,
                          const void* pair_bias, const long long* strides,
                          int B, int N, int H, int Sq, int Sk, int D,
-                         float scale, int is_bf16, int rows,
+                         float scale, int dtype, int rows,
                          void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || H > 65535 ||
-      (D != 16 && D != 32 && D != 64) || (is_bf16 && rows != EVO_SETS))
+      (D != 16 && D != 32 && D != 64) || dtype < 0 || dtype > 2 ||
+      (dtype && rows != EVO_SETS))
     return (int)cudaErrorInvalidValue;
-  if (is_bf16) {
+  if (dtype) {
     const void* ptrs[4] = {q, k, v, o};
     for (int i = 0; i < 4; ++i)
       if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16)
@@ -416,9 +424,9 @@ int evoformer_fwd_launch(const void* q, const void* k, const void* v,
   const Args a{q, k, v, o, (const float*)mask_bias, (const float*)pair_bias,
                st(0), st(1), st(2), st(3), B, N, H, Sq, Sk, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(D == 16   ? fwd<16>(a, is_bf16, s)
-               : D == 32 ? fwd<32>(a, is_bf16, s)
-                         : fwd<64>(a, is_bf16, s));
+  return (int)(D == 16   ? fwd<16>(a, dtype, s)
+               : D == 32 ? fwd<32>(a, dtype, s)
+                         : fwd<64>(a, dtype, s));
 }
 
 }  // extern "C"

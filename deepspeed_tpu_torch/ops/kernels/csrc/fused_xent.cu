@@ -47,7 +47,7 @@
 // it (CL W = C; at C = 2048 CL = 8 and W = 256; `bwd_plan` in
 // ops/kernels/fused_xent.py picks them). The cluster walks the other axis
 // in rounds of CL 64-wide tiles. Block b computes the logits of tile round
-// CL + b over the full C, forms P' in registers, casts it to bf16 (where
+// CL + b over the full C, forms P' in registers, casts it to h's dtype (where
 // the Pallas kernels cast) and leaves the 16 KB tile in its shared memory;
 // after a cluster barrier every block copies each of the round's CL tiles
 // from its owner (distributed shared memory) and multiplies it into its
@@ -62,11 +62,15 @@
 // double-buffered, one thread issuing the TMA boxes on mbarriers. The
 // sums run over 64-wide K-steps and over the tiles in order.
 //
-// Numerics follow the Pallas kernels: logits in fp32 from bf16 operands;
-// the target logit taken before the vocabulary mask (rows of E past V are
-// staged as zeros, so an id in the padded tile reads 0, as with the JAX
-// wrapper's zero padding); the 1e-37 floor inside the log; P' cast to
-// bf16 before its product, sums in fp32, scale applied at the end.
+// Numerics follow the Pallas kernels: logits in fp32 from 16-bit operands
+// (bf16 or fp16: each kernel is instantiated for both, T); the target
+// logit taken before the vocabulary mask (rows of E past V are staged as
+// zeros, so an id in the padded tile reads 0, as with the JAX wrapper's
+// zero padding); the 1e-37 floor inside the log; P' cast to T before its
+// product, sums in fp32, the loss scale applied in fp32 after the product
+// (as the Pallas kernels do), so a large fp16 loss scale never reaches an
+// fp16 operand. The shared-memory buffers are typed bf16 as 16-bit
+// storage; wgmma reads them as T.
 //
 // fp32 inputs run simple CUDA-core kernels (256 threads, 4 x 4 outputs a
 // thread from 64 x 16 shared tiles), a parity oracle for the indexing and
@@ -78,7 +82,8 @@
 //
 // Layout: h [N, C], E [V, C] row-major and contiguous, targets int32 [N],
 // lse fp32 [N], scale a one-element fp32 device array (the loss's
-// cotangent, read on the device: no host sync). C is a multiple of 64.
+// cotangent, read on the device: no host sync). C is a multiple of 64
+// (the wrapper pads another hidden size with zero columns).
 // Ragged token and vocabulary tiles are masked in the kernels (no padded
 // copies). Kernels launch on the caller's stream, do not synchronise and
 // allocate nothing; each C entry point returns cudaGetLastError().
@@ -107,9 +112,16 @@ constexpr int F_NT = 256;          // threads of the fp32 kernels
 constexpr int FK = 16;             // depth of an fp32 shared tile
 constexpr int FB = 64;             // fp32 output slab width
 
+// two floats rounded to T (bf16 or fp16), lo in the low half
+template <typename T>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 struct Grad {                        // P' parameters
@@ -207,6 +219,7 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[128], int c0,
     }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(FW_NT, 1)
 xent_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
                       const __grid_constant__ CUtensorMap tm_e,
@@ -280,8 +293,8 @@ xent_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_ss<0>(acc, wg_desc(a + kk * 16, 16, 1024),
-                      wg_desc(b + kk * 16, 16, 1024), ks > 0 || kk > 0,
+          wgmma_ss<0, T>(acc, wg_desc(a + kk * 16, 16, 1024),
+                         wg_desc(b + kk * 16, 16, 1024), ks > 0 || kk > 0,
                       std::integral_constant<int, FW_N>());
         wg_commit();
         wg_wait<1>();
@@ -344,7 +357,7 @@ __global__ void xent_combine_kernel(const float* __restrict__ part,
 // blockIdx.z), two warpgroups of 64 rows each. Rounds of CL column tiles:
 // block b computes the logits of tile round CL + b over the full C (wgmma,
 // operands K-major in shared memory, the Q operand shared by the two
-// warpgroups), forms P' in registers and leaves it as bf16 in its shared
+// warpgroups), forms P' in registers and leaves it as T in its shared
 // memory, where every block of the cluster reads it (distributed shared
 // memory, copied into a local staging buffer) to multiply the round's CL
 // tiles into its slab (wgmma, P' K-major and the Q slab MN-major in shared
@@ -446,6 +459,7 @@ struct BwdPipe {
 // fp32 tile in the accumulator layout (warp w of the warpgroup: rows 16 w
 // + lane / 4 (+8); element 4 n + x at column 8 n + 2 (lane % 4) + (x & 1),
 // row +8 for x >= 2), the m16n8 C-fragment layout of mma.sync.
+template <typename T>
 __device__ __forceinline__ void logits_tile(float (&sc)[32], BwdPipe& pipe,
                                             int jt, int wg) {
 #pragma unroll
@@ -458,8 +472,8 @@ __device__ __forceinline__ void logits_tile(float (&sc)[32], BwdPipe& pipe,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_ss<0>(sc, wg_desc(a + wg * TILE + kk * 16, 16, 1024),
-                  wg_desc(a + BW_M * BK + kk * 16, 16, 1024), 1,
+      wgmma_ss<0, T>(sc, wg_desc(a + wg * TILE + kk * 16, 16, 1024),
+                     wg_desc(a + BW_M * BK + kk * 16, 16, 1024), 1,
                   std::integral_constant<int, 64>());
     wg_commit();
     wg_wait<1>();
@@ -482,7 +496,7 @@ __device__ __forceinline__ void stage_ptile(bf16* dst, bf16* own,
   fence_async_smem();
 }
 
-template <bool DE, int W, typename OutT>
+template <bool DE, int W, typename T, typename OutT>
 __global__ void __launch_bounds__(BW_NT, 1)
 xent_bwd_cluster_kernel(const __grid_constant__ CUtensorMap tm_r,
                         const __grid_constant__ CUtensorMap tm_q,
@@ -533,7 +547,7 @@ xent_bwd_cluster_kernel(const __grid_constant__ CUtensorMap tm_r,
   for (int rd = 0; rd < rounds; ++rd) {
     const int j0 = rd * CL, jend = min(j0 + CL, ntiles);
     const int jt = j0 + b;                             // this block's tile
-    uint32_t pk[16];             // P' as bf16 pairs: rows quad, quad + 8
+    uint32_t pk[16];             // P' as T pairs: rows quad, quad + 8
     if (jt < ntiles) {
       if (DE && threadIdx.x < BN) {
         const int tok = jt * BN + threadIdx.x;
@@ -541,7 +555,7 @@ xent_bwd_cluster_kernel(const __grid_constant__ CUtensorMap tm_r,
         tgt_s[threadIdx.x] = tok < N ? tgt[tok] : -1;
       }
       float sc[32];
-      logits_tile(sc, pipe, jt, wg);
+      logits_tile<T>(sc, pipe, jt, wg);
       float p[32];
 #pragma unroll
       for (int n = 0; n < 32; ++n) {
@@ -553,7 +567,7 @@ xent_bwd_cluster_kernel(const __grid_constant__ CUtensorMap tm_r,
                                  gp);
       }
 #pragma unroll
-      for (int i = 0; i < 16; ++i) pk[i] = pack2(p[2 * i], p[2 * i + 1]);
+      for (int i = 0; i < 16; ++i) pk[i] = pack2<T>(p[2 * i], p[2 * i + 1]);
     }
     __syncthreads();                     // the ring is free (dE: lse_s too)
     // keep the copies flowing through the cluster barriers: the next
@@ -588,8 +602,8 @@ xent_bwd_cluster_kernel(const __grid_constant__ CUtensorMap tm_r,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_ss<1>(acc, wg_desc(pa + kk * 16, 16, 1024),
-                    wg_desc(qs + kk * 1024, TILE * sizeof(bf16), 1024), 1,
+        wgmma_ss<1, T>(acc, wg_desc(pa + kk * 16, 16, 1024),
+                       wg_desc(qs + kk * 1024, TILE * sizeof(bf16), 1024), 1,
                     std::integral_constant<int, W>());
       wg_commit();
       if (j + 1 < jend)
@@ -611,7 +625,7 @@ xent_bwd_cluster_kernel(const __grid_constant__ CUtensorMap tm_r,
       const float a = acc[dn * 4 + 2 * i] * sf;
       const float b2 = acc[dn * 4 + 2 * i + 1] * sf;
       if constexpr (sizeof(OutT) == 2) {
-        *reinterpret_cast<uint32_t*>(p + dn * 8) = pack2(a, b2);
+        *reinterpret_cast<uint32_t*>(p + dn * 8) = pack2<OutT>(a, b2);
       } else {
         *reinterpret_cast<float2*>(p + dn * 8) = make_float2(a, b2);
       }
@@ -809,66 +823,84 @@ bool dims_ok(int N, int V, int C) {
   return N > 0 && V > 0 && C > 0 && C % BK == 0;
 }
 
-// A 2-D TMA map of a row-major bf16 [rows, C] matrix, boxes of 64 columns
-// by `box_rows` rows with the 128-byte swizzle.
+// A 2-D TMA map of a row-major [rows, C] matrix of T (bf16 or fp16),
+// boxes of 64 columns by `box_rows` rows with the 128-byte swizzle.
+template <typename T>
 cudaError_t row_major_map(CUtensorMap* map, const void* base, int rows,
                           int C, int box_rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)C * sizeof(bf16)};
+  const cuuint64_t strides[1] = {(cuuint64_t)C * sizeof(T)};
   const cuuint32_t box[2] = {BK, (cuuint32_t)box_rows};
-  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base,
-                           dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  return encode_tensor_map(map,
+                           std::is_same<T, __half>::value
+                               ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                           2, base, dims, strides, box,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // One backward launch on a cluster of CL blocks (W-column slabs, G slab
 // groups: CL W G = C). Refused before launch when no cluster of this size
 // and shared memory fits on the device.
-template <bool DE, int W, typename OutT>
+template <bool DE, int W, typename T, typename OutT>
 cudaError_t bwd_cluster(const void* scale, const void* h, const void* e,
                         const void* tgt, const void* lse, void* out, int N,
                         int C, int CL, int G, const Grad& gp,
                         cudaStream_t stream) {
   const int nrows = DE ? gp.V : N;
   CUtensorMap tm_r, tm_q;                // R in 128-row boxes, Q in 64
-  cudaError_t err = row_major_map(&tm_r, DE ? e : h, nrows, C, BW_M);
+  cudaError_t err = row_major_map<T>(&tm_r, DE ? e : h, nrows, C, BW_M);
   if (err == cudaSuccess)
-    err = row_major_map(&tm_q, DE ? h : e, DE ? N : gp.V, C, BN);
+    err = row_major_map<T>(&tm_q, DE ? h : e, DE ? N : gp.V, C, BN);
   if (err != cudaSuccess) return err;
   constexpr size_t smem = bwd_smem_bytes(W);
-  auto kernel = xent_bwd_cluster_kernel<DE, W, OutT>;
+  auto kernel = xent_bwd_cluster_kernel<DE, W, T, OutT>;
   return cluster_launch(kernel, dim3(CL, (nrows + BW_M - 1) / BW_M, G),
                         dim3(BW_NT), smem, CL, stream, tm_r, tm_q,
                         (const float*)scale, (const int*)tgt,
                         (const float*)lse, (OutT*)out, N, C, CL, gp);
 }
 
-template <bool DE, typename OutT>
+template <bool DE, typename T, typename OutT>
 cudaError_t bwd_plan(const void* scale, const void* h, const void* e,
                      const void* tgt, const void* lse, void* out, int N,
                      int C, int CL, int W, int G, const Grad& gp,
                      cudaStream_t s) {
   if (W == 256)
-    return bwd_cluster<DE, 256, OutT>(scale, h, e, tgt, lse, out, N, C, CL,
-                                      G, gp, s);
+    return bwd_cluster<DE, 256, T, OutT>(scale, h, e, tgt, lse, out, N, C,
+                                         CL, G, gp, s);
   if (W == 128)
-    return bwd_cluster<DE, 128, OutT>(scale, h, e, tgt, lse, out, N, C, CL,
+    return bwd_cluster<DE, 128, T, OutT>(scale, h, e, tgt, lse, out, N, C,
+                                         CL, G, gp, s);
+  return bwd_cluster<DE, 64, T, OutT>(scale, h, e, tgt, lse, out, N, C, CL,
                                       G, gp, s);
-  return bwd_cluster<DE, 64, OutT>(scale, h, e, tgt, lse, out, N, C, CL, G,
-                                   gp, s);
+}
+
+// the 16-bit route in T: dh / dE out in T, or fp32 when out_f32
+template <bool DE, typename T>
+cudaError_t bwd_route(const void* scale, const void* h, const void* e,
+                      const void* tgt, const void* lse, void* out, int N,
+                      int C, int CL, int W, int G, int out_f32,
+                      const Grad& gp, cudaStream_t s) {
+  return out_f32 ? bwd_plan<DE, T, float>(scale, h, e, tgt, lse, out, N, C,
+                                          CL, W, G, gp, s)
+                 : bwd_plan<DE, T, T>(scale, h, e, tgt, lse, out, N, C, CL,
+                                      W, G, gp, s);
 }
 
 template <bool DE>
 cudaError_t bwd(const void* scale, const void* h, const void* e,
                 const void* tgt, const void* lse, void* out, int N, int V,
                 int C, int has_ignore, int ignore, float z, float eps,
-                int is_bf16, int out_f32, int CL, int W, int G,
+                int dtype, int out_f32, int CL, int W, int G,
                 void* stream) {
-  if (!dims_ok(N, V, C)) return cudaErrorInvalidValue;
+  if (!dims_ok(N, V, C) || dtype < 0 || dtype > 2)
+    return cudaErrorInvalidValue;
   const void* ptrs[3] = {h, e, out};
   const Grad gp{V, has_ignore, ignore, z, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nrows = DE ? V : N;
-  if (!is_bf16) {
+  if (dtype == 0) {
     dim3 grid((nrows + 63) / 64, C / FB);
     xent_bwd_f32_kernel<DE><<<grid, F_NT, 0, s>>>(
         (const float*)scale, (const float*)h, (const float*)e,
@@ -879,45 +911,59 @@ cudaError_t bwd(const void* scale, const void* h, const void* e,
   if (CL < 1 || CL > 8 || G < 1 || (W != 64 && W != 128 && W != 256) ||
       (long long)CL * W * G != C || (nrows + BW_M - 1) / BW_M > 65535)
     return cudaErrorInvalidValue;
-  return out_f32 ? bwd_plan<DE, float>(scale, h, e, tgt, lse, out, N, C, CL,
-                                       W, G, gp, s)
-                 : bwd_plan<DE, bf16>(scale, h, e, tgt, lse, out, N, C, CL,
-                                      W, G, gp, s);
+  return dtype == 1
+             ? bwd_route<DE, bf16>(scale, h, e, tgt, lse, out, N, C, CL, W,
+                                   G, out_f32, gp, s)
+             : bwd_route<DE, __half>(scale, h, e, tgt, lse, out, N, C, CL, W,
+                                     G, out_f32, gp, s);
+}
+
+// The 16-bit forward in T (bf16 or fp16): one launch of
+// xent_fwd_wgmma_kernel<T> over (token tiles, splits).
+template <typename T>
+cudaError_t fwd_wgmma(const void* h, const void* e, const void* tgt,
+                      void* part, int N, int V, int C, int splits,
+                      cudaStream_t s) {
+  const void* ptrs[2] = {h, e};
+  if (!aligned16(ptrs, 2)) return cudaErrorMisalignedAddress;
+  CUtensorMap tm_h, tm_e;                // boxes of 128 rows x 64 columns
+  cudaError_t err = row_major_map<T>(&tm_h, h, N, C, FW_M);
+  if (err == cudaSuccess) err = row_major_map<T>(&tm_e, e, V, C, FW_HALF);
+  if (err != cudaSuccess) return err;
+  auto kernel = xent_fwd_wgmma_kernel<T>;
+  int per_sm = 0;
+  err = blocks_per_sm(reinterpret_cast<const void*>(kernel), FW_NT,
+                      fwd_smem_bytes(), &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  kernel<<<dim3((N + FW_M - 1) / FW_M, splits), FW_NT, fwd_smem_bytes(),
+           s>>>(tm_h, tm_e, (const int*)tgt, (float*)part, N, V, C,
+                splits);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// h [N, C], e [V, C] (bf16 or fp32, contiguous), tgt int32 [N] -> out fp32
-// [3, N] (lse, target logit, logit sum); part fp32 [4, splits, N] scratch.
-// bf16 splits the vocabulary into `splits` contiguous ranges of 256-row
-// tiles (the plan of ops/kernels/fused_xent.py `fwd_plan`); fp32 walks
-// 64-row tiles in the same number of ranges.
+// h [N, C], e [V, C] (contiguous; dtype 0 fp32, 1 bf16, 2 fp16), tgt int32
+// [N] -> out fp32 [3, N] (lse, target logit, logit sum); part fp32 [4,
+// splits, N] scratch. bf16 and fp16 split the vocabulary into `splits`
+// contiguous ranges of 256-row tiles (the plan of
+// ops/kernels/fused_xent.py `fwd_plan`); fp32 walks 64-row tiles in the
+// same number of ranges.
 int xent_fwd_launch(const void* h, const void* e, const void* tgt, void* out,
-                    void* part, int N, int V, int C, int splits, int is_bf16,
+                    void* part, int N, int V, int C, int splits, int dtype,
                     void* stream) {
   if (!dims_ok(N, V, C) || splits < 1 || splits > (V + FW_N - 1) / FW_N ||
-      splits > 65535)
+      splits > 65535 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (is_bf16) {
-    const void* ptrs[2] = {h, e};
-    if (!aligned16(ptrs, 2)) return (int)cudaErrorMisalignedAddress;
-    CUtensorMap tm_h, tm_e;              // boxes of 128 rows x 64 columns
-    err = row_major_map(&tm_h, h, N, C, FW_M);
-    if (err == cudaSuccess) err = row_major_map(&tm_e, e, V, C, FW_HALF);
-    if (err != cudaSuccess) return (int)err;
-    int per_sm = 0;
-    err = blocks_per_sm(reinterpret_cast<const void*>(xent_fwd_wgmma_kernel),
-                        FW_NT, fwd_smem_bytes(), &per_sm);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    xent_fwd_wgmma_kernel<<<dim3((N + FW_M - 1) / FW_M, splits), FW_NT,
-                            fwd_smem_bytes(), s>>>(
-        tm_h, tm_e, (const int*)tgt, (float*)part, N, V, C, splits);
-    err = cudaGetLastError();
+  if (dtype == 1) {
+    err = fwd_wgmma<bf16>(h, e, tgt, part, N, V, C, splits, s);
+  } else if (dtype == 2) {
+    err = fwd_wgmma<__half>(h, e, tgt, part, N, V, C, splits, s);
   } else {
     xent_fwd_f32_kernel<<<dim3((N + 63) / 64, splits), F_NT, 0, s>>>(
         (const float*)h, (const float*)e, (const int*)tgt, (float*)part, N,
@@ -931,16 +977,17 @@ int xent_fwd_launch(const void* h, const void* e, const void* tgt, void* out,
 }
 
 // scale fp32 [1], h, e, tgt as above, lse fp32 [N] -> out [N, C] (dh) in
-// h's dtype, or fp32 when out_f32. bf16 runs on clusters of `cl` blocks,
-// each a `w`-column slab, `groups` slab groups (cl w groups = C; the plan
-// of ops/kernels/fused_xent.py `bwd_plan`); fp32 ignores the three.
+// h's dtype, or fp32 when out_f32. bf16 and fp16 run on clusters of `cl`
+// blocks, each a `w`-column slab, `groups` slab groups (cl w groups = C;
+// the plan of ops/kernels/fused_xent.py `bwd_plan`); fp32 ignores the
+// three.
 int xent_bwd_dh_launch(const void* scale, const void* h, const void* e,
                        const void* tgt, const void* lse, void* out, int N,
                        int V, int C, int has_ignore, int ignore, float z,
-                       float eps, int is_bf16, int out_f32, int cl, int w,
+                       float eps, int dtype, int out_f32, int cl, int w,
                        int groups, void* stream) {
   return (int)bwd<false>(scale, h, e, tgt, lse, out, N, V, C, has_ignore,
-                         ignore, z, eps, is_bf16, out_f32, cl, w, groups,
+                         ignore, z, eps, dtype, out_f32, cl, w, groups,
                          stream);
 }
 
@@ -948,10 +995,10 @@ int xent_bwd_dh_launch(const void* scale, const void* h, const void* e,
 int xent_bwd_de_launch(const void* scale, const void* h, const void* e,
                        const void* tgt, const void* lse, void* out, int N,
                        int V, int C, int has_ignore, int ignore, float z,
-                       float eps, int is_bf16, int out_f32, int cl, int w,
+                       float eps, int dtype, int out_f32, int cl, int w,
                        int groups, void* stream) {
   return (int)bwd<true>(scale, h, e, tgt, lse, out, N, V, C, has_ignore,
-                        ignore, z, eps, is_bf16, out_f32, cl, w, groups,
+                        ignore, z, eps, dtype, out_f32, cl, w, groups,
                         stream);
 }
 

@@ -10,8 +10,9 @@
 //   fence_regs       pins accumulators (or register A fragments) between
 //                    wgmma batches (ptxas C7515)
 //   wgmma_ss         one m64nNk16 wgmma, A and B from shared memory, bf16
-//                    at N = 256, bf16 or fp16 at N = 64 and 128 (A
-//                    K-major, or MN-major when TA = 1), fp32 accumulators
+//                    or fp16 at N = 64, 128 and 256 (A K-major, or
+//                    MN-major when TA = 1 at N = 64 and 128), fp32
+//                    accumulators
 //   wgmma_rs         the same with A from registers, N = 64 or 128
 //   ex2              2^x on the MUFU
 //   set_max_regs     setmaxnreg: a warpgroup gives up (producer) or takes
@@ -35,7 +36,8 @@
 //                    on those groups
 //   encode_tensor_map (host)
 //                    cuTensorMapEncodeTiled, looked up once through the
-//                    runtime so that no library links libcuda
+//                    runtime so that no library links libcuda, after
+//                    bind_context makes a context current on the thread
 //   resident_count / blocks_per_sm (host)
 //                    the dynamic shared memory attribute set and the
 //                    occupancy asked once per device and configuration
@@ -293,46 +295,52 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
   }
 }
 
-template <int TB>
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b,
                                          int scale_d,
                                          std::integral_constant<int, 256>) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+#define PORT_WGMMA_SS256(TY)                                                   \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " " \
+      "{" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), \
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), \
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), \
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), \
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), \
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), \
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), \
+        "+f"(d[126]), "+f"(d[127]) \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB))
+  if constexpr (std::is_same<T, __half>::value)
+    PORT_WGMMA_SS256("f16");
+  else
+    PORT_WGMMA_SS256("bf16");
+#undef PORT_WGMMA_SS256
 }
 
 template <int TB, typename T = __nv_bfloat16>
@@ -476,6 +484,34 @@ __device__ __forceinline__ void bulk_wait() {
 }
 // ------------------------------------------------------------------ host
 
+// Make the device's primary context current on this thread if no context
+// is. The runtime's own calls bind it themselves, a driver call does not:
+// PyTorch's autograd engine runs a backward on a thread of its own and,
+// for device 0, makes no context current there until one of its calls
+// needs one, so cuTensorMapEncodeTiled failed there on a TMA kernel's
+// first backward launch (seen on the flash backward, H100 80GB HBM3).
+// cuCtxGetCurrent is a thread-local read; cudaSetDevice runs only when no
+// context is current.
+inline cudaError_t bind_context() {
+  typedef CUresult (*GetCurrent)(CUcontext*);
+  static GetCurrent get = nullptr;
+  if (!get) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuCtxGetCurrent", &fn,
+                                              cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || !fn)
+      return cudaErrorNotSupported;
+    get = reinterpret_cast<GetCurrent>(fn);
+  }
+  CUcontext ctx = nullptr;
+  if (get(&ctx) == CUDA_SUCCESS && ctx) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  return err == cudaSuccess ? cudaSetDevice(dev) : err;
+}
+
 // A tiled TMA map of `rank` (2 to 5) dimensions, innermost first: `dims`
 // elements, `strides` the byte strides of dims 1.. (rank - 1 of them),
 // boxes of `box` elements, no interleave, L2 promotion of 128 bytes,
@@ -486,6 +522,8 @@ inline cudaError_t encode_tensor_map(CUtensorMap* map, CUtensorMapDataType dt,
                                      const cuuint64_t* strides,
                                      const cuuint32_t* box,
                                      CUtensorMapSwizzle swizzle) {
+  cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return bound;
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                              void*, const cuuint64_t*, const cuuint64_t*,
                              const cuuint32_t*, const cuuint32_t*,
@@ -517,7 +555,10 @@ inline cudaError_t encode_tensor_map(CUtensorMap* map, CUtensorMapDataType dt,
 // blocks at the configuration in `cfg` on the device. Both the attribute
 // and the count belong to a device, so each (device, kernel, cluster,
 // shared memory, threads) is asked once and remembered: a launch on the
-// decode path must not pay for the query every call.
+// decode path must not pay for the query every call. The attribute is
+// only ever raised (to the most any configuration of the kernel asked
+// for on the device): a kernel launched at several sizes (the norm
+// kernel's staged weights) keeps every size asked before launchable.
 inline cudaError_t resident_count(const void* kernel, unsigned threads,
                                   size_t smem, const cudaLaunchConfig_t* cfg,
                                   int cl, int* count) {
@@ -531,6 +572,13 @@ inline cudaError_t resident_count(const void* kernel, unsigned threads,
   };
   static Entry seen[256];
   static int n_seen = 0;
+  struct Attr {
+    int dev;
+    const void* fn;
+    size_t smem;
+  };
+  static Attr set[256];
+  static int n_set = 0;
   static std::mutex mu;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -542,10 +590,18 @@ inline cudaError_t resident_count(const void* kernel, unsigned threads,
       *count = seen[i].count;
       return cudaSuccess;
     }
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
+  int a = 0;
+  while (a < n_set && !(set[a].dev == dev && set[a].fn == kernel)) ++a;
+  if (a == n_set || set[a].smem < smem) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    if (a < n_set)
+      set[a].smem = smem;
+    else if (n_set < 256)
+      set[n_set++] = {dev, kernel, smem};
+  }
   err = cfg ? cudaOccupancyMaxActiveClusters(count, kernel, cfg)
             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(count, kernel,
                                                             (int)threads,

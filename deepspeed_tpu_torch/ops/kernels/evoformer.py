@@ -20,9 +20,10 @@ extra forward's work, no backward kernel. Its forward launches the kernel
 for CUDA tensors (or raises) and runs :func:`evoformer_flash_plain` for CPU
 tensors. Only a launch counts in :data:`LAUNCHES`.
 
-In bf16 a block owns 64 query rows of one (b, h) and :data:`EVO_ROWS`
-MSA rows, and stages each 64-key pair-bias tile once for them beside
-their K/V tiles (:func:`evo_plan`).
+The kernel takes fp32, bf16 and fp16 (:data:`KERNEL_DTYPES`). In bf16 and
+fp16 a block owns 64 query rows of one (b, h) and :data:`EVO_ROWS` MSA
+rows, and stages each 64-key pair-bias tile once for them beside their
+K/V tiles (:func:`evo_plan`); the biases stay f32 in every dtype.
 
 The kernel runs head dims 16, 32 and 64 natively. For any other D up to
 64 the wrapper zero-pads q, k and v along D to the next of these (the
@@ -42,8 +43,11 @@ LAUNCHES: Dict[str, int] = {"evoformer_fwd": 0}
 #: head dims the kernel is instantiated for; others up to the last are
 #: zero-padded to the next one (:func:`kernel_head_dim`)
 KERNEL_HEAD_DIMS = (16, 32, 64)
+#: the kernel's dtype codes (fp32 the CUDA-core kernel, bf16 and fp16 the
+#: tensor-core one)
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _M_FLOOR = -1e30
-#: the bf16 kernel: MSA rows a block (a warp set of 4 warps each, every set
+#: the 16-bit kernel: MSA rows a block (a warp set of 4 warps each, every set
 #: on the block's 64 query rows), query / key tile rows, and the shared
 #: memory a block may take on an H100
 EVO_ROWS = 2
@@ -52,7 +56,7 @@ SMEM_LIMIT = 232448
 
 
 class EvoPlan(NamedTuple):
-    """The bf16 kernel's launch for kernel head dim ``D`` over ``N`` MSA
+    """The 16-bit kernel's launch for kernel head dim ``D`` over ``N`` MSA
     rows: a block owns ``rows`` MSA rows of one (b, h, 64-query tile),
     ``grid`` is (query tiles, H, B x row groups), the last group ragged when
     ``rows`` does not divide N; ``smem_bytes`` of dynamic shared memory
@@ -67,7 +71,7 @@ class EvoPlan(NamedTuple):
 
 
 def evo_plan(D: int, B: int, N: int, H: int, Sq: int, Sk: int) -> EvoPlan:
-    """The bf16 kernel's plan, as ``csrc/evoformer.cu`` launches it
+    """The 16-bit kernel's plan, as ``csrc/evoformer.cu`` launches it
     (``EVO_SETS``, ``evo_stage_bytes``); the wrapper passes ``rows`` and the
     launch refuses any other. Shared memory does not grow with Sk: the key
     loop streams 64-key tiles."""
@@ -146,8 +150,9 @@ def evoformer_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return evoformer_flash_plain(q, k, v, mask_bias, pair_bias)
     B, N, Sq, H, D = q.shape
     Sk = k.shape[2]
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"q dtype {q.dtype}: the kernel takes bf16 or fp32")
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"q dtype {q.dtype}: the kernel takes fp32, bf16 "
+                         f"or fp16")
     for t in (k, v, mask_bias, pair_bias):
         if t is not None and t.device != q.device:
             raise ValueError(f"a tensor on {t.device}, q on {q.device}")
@@ -176,7 +181,7 @@ def evoformer_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         0 if mb is None else mb.data_ptr(), 0 if pb is None else pb.data_ptr(),
         ctypes.addressof(strides), B, N, H, Sq, Sk, Dk, float(D ** -0.5),
-        int(q.dtype == torch.bfloat16), evo_plan(Dk, B, N, H, Sq, Sk).rows,
+        KERNEL_DTYPES[q.dtype], evo_plan(Dk, B, N, H, Sq, Sk).rows,
         stream)
     if err != 0:
         raise RuntimeError(f"evoformer_fwd failed: cudaError {err}")

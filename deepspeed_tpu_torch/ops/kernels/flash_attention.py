@@ -526,6 +526,12 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
+        if q.is_cuda and q.dtype != torch.float32 and \
+                q.shape[-1] in WGMMA_FWD_HEAD_DIMS:
+            # the wgmma kernels read q/k/v by TMA: a view whose base or
+            # strides TMA cannot take goes as a dense copy, which the
+            # backward then reads too
+            q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
         o, lse = flash_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale

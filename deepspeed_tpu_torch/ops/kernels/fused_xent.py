@@ -33,9 +33,14 @@ fp32 sums; dE cast to the embedding's dtype at the end. They walk the
 tokens in chunks, so no [N, V] tensor is made at once. Only a launch
 counts in :data:`LAUNCHES`.
 
-The kernels mask the ragged vocabulary and token tiles themselves, so the
-[V, C] embedding is never copied to a padded shape (the JAX wrapper pads
-it when the vocab tile does not divide V).
+The kernels take h in fp32, bf16 or fp16 (:data:`KERNEL_DTYPES`: every
+dtype the engine trains in) and mask the ragged vocabulary and token tiles
+themselves, so the [V, C] embedding is never copied to a padded shape for
+V (the JAX wrapper pads it when the vocab tile does not divide V). A
+hidden size C that is not a multiple of 64 is padded with zero columns in
+h and E inside the wrapper (:func:`kernel_hidden`): a zero column adds an
+exact zero to every fp32 logit, so lse and the target logit are unchanged,
+and dh and dE are sliced back to C.
 """
 
 from __future__ import annotations
@@ -52,6 +57,16 @@ LAUNCHES: Dict[str, int] = {"xent_fwd": 0, "xent_bwd_dh": 0,
                             "xent_bwd_de": 0}
 #: rows of one chunk of the plain versions' token walk
 PLAIN_ROWS = 1024
+#: the kernels' dtype codes: every dtype ``train_batch`` computes in
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the kernels' hidden sizes are multiples of this (others are padded)
+HIDDEN_MULTIPLE = 64
+
+
+def kernel_hidden(C: int) -> int:
+    """The hidden size the kernels run at for hidden size ``C``: the next
+    multiple of :data:`HIDDEN_MULTIPLE` (the wrapper zero-pads h and E)."""
+    return -(-C // HIDDEN_MULTIPLE) * HIDDEN_MULTIPLE
 
 
 def reset_launch_counts() -> None:
@@ -164,14 +179,11 @@ def _check(h2, emb, tgt, *rows):
     for t in (emb, tgt) + rows:
         if t.device != h2.device:
             raise ValueError(f"a tensor on {t.device}, h2 on {h2.device}")
-    if h2.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"h2 dtype {h2.dtype}: the kernels take bf16 or "
-                         f"fp32")
+    if h2.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"h2 dtype {h2.dtype}: the kernels take fp32, bf16 "
+                         f"or fp16")
     if tgt.dtype != torch.int32:
         raise ValueError(f"targets must be int32, got {tgt.dtype}")
-    if h2.shape[1] % 64:
-        raise ValueError(f"hidden size {h2.shape[1]}: the kernels take a "
-                         f"multiple of 64")
     for t in rows:
         if t.dtype != torch.float32:
             raise ValueError("lse and scale must be fp32")
@@ -179,9 +191,14 @@ def _check(h2, emb, tgt, *rows):
 
 def _operands(h2, emb, tgt):
     """Contiguous kernel operands: E in h's dtype (a copy only when the
-    dtypes differ, as the JAX wrapper's cast)."""
-    return (h2.contiguous(), emb.to(h2.dtype).contiguous(),
-            tgt.contiguous())
+    dtypes differ, as the JAX wrapper's cast), h and E zero-padded to
+    :func:`kernel_hidden` columns when C is not a multiple of 64."""
+    h, e = h2.contiguous(), emb.to(h2.dtype).contiguous()
+    pad = kernel_hidden(h.shape[1]) - h.shape[1]
+    if pad:
+        h = torch.nn.functional.pad(h, (0, pad))
+        e = torch.nn.functional.pad(e, (0, pad))
+    return h, e, tgt.contiguous()
 
 
 def _launch(name: str, *args) -> None:
@@ -212,7 +229,7 @@ def xent_fwd(h2: torch.Tensor, emb: torch.Tensor, tgt: torch.Tensor
     part = torch.empty(4, splits, N, dtype=torch.float32, device=h.device)
     _launch("xent_fwd", h.data_ptr(), e.data_ptr(), t.data_ptr(),
             out.data_ptr(), part.data_ptr(), N, V, C, splits,
-            int(h.dtype == torch.bfloat16), _stream(h))
+            KERNEL_DTYPES[h.dtype], _stream(h))
     return out[0], out[1], out[2]
 
 
@@ -279,9 +296,9 @@ def _bwd(name, scale, h2, emb, tgt, lse, ignore, z, eps, out_rows,
     _launch(name, scale.contiguous().data_ptr(), h.data_ptr(), e.data_ptr(),
             t.data_ptr(), lse.contiguous().data_ptr(), out.data_ptr(), N, V,
             C, int(ignore is not None), int(ignore or 0), float(z),
-            float(eps), int(h.dtype == torch.bfloat16),
+            float(eps), KERNEL_DTYPES[h.dtype],
             int(out_dtype == torch.float32), *bwd_plan(C), _stream(h))
-    return out
+    return out[:, :h2.shape[1]]
 
 
 def xent_bwd_dh(scale: torch.Tensor, h2: torch.Tensor, emb: torch.Tensor,

@@ -19,23 +19,70 @@ true IEEE division; rounding is half to even. The padded tail of the last
 group counts in its statistics (so an asymmetric group's min or max may be
 0) and its codes are stored, as the JAX wrapper's zero padding does.
 
-:func:`quantize_blockwise` launches a kernel for a CUDA tensor (or raises)
-and runs :func:`quantize_blockwise_plain` for a CPU tensor. Only a launch
-counts in :data:`LAUNCHES`. :func:`dequantize_blockwise`,
-:func:`pack_int4`, :func:`unpack_int4` and :func:`quant_dequant` are plain
-PyTorch, as they are jnp in the JAX package.
+:func:`quantize_blockwise` launches a kernel for a CUDA tensor of fp32,
+bf16 or fp16 (or raises) and runs :func:`quantize_blockwise_plain` for a
+CPU tensor. :func:`quant_plan` picks the kernel's route from the shapes
+alone: groups held in registers by segments of lanes (``"vector"``, where
+a group is a power-of-two count of 16-byte vectors) or a warp a group
+(``"scalar"``). Only a launch counts in :data:`LAUNCHES`.
+:func:`dequantize_blockwise`, :func:`pack_int4`, :func:`unpack_int4` and
+:func:`quant_dequant` are plain PyTorch, as they are jnp in the JAX
+package.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ...utils.device import sm_count
+
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"quantize_sym": 0, "quantize_asym": 0}
+#: the kernels' dtype codes
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the vector route: 16-byte vectors a lane it is instantiated for, and
+#: the vectors a lane keeps in flight a step (``IN_FLIGHT`` in the source)
+QUANT_VPLS = (1, 2, 4, 8)
+QUANT_IN_FLIGHT = 4
+_ROUTES = {"vector": 0, "scalar": 1}
+
+
+class QuantPlan(NamedTuple):
+    """The quantizer's launch: ``route`` "vector" (a segment of ``lanes``
+    lanes holds a group in registers, ``vpl`` 16-byte vectors a lane;
+    ``groups_per_tile`` groups a warp tile, ``tiles_in_flight`` tiles a
+    warp loads before reducing any; warps take tiles by grid stride) or
+    "scalar" (a warp a group; the other fields 0)."""
+    route: str
+    lanes: int
+    vpl: int
+    groups_per_tile: int
+    tiles_in_flight: int
+
+
+@functools.lru_cache(maxsize=64)
+def quant_plan(group_size: int, dtype: torch.dtype) -> QuantPlan:
+    """The launch for groups of ``group_size`` elements of ``dtype``,
+    from the shapes alone: the vector route where a group is G = 2^k
+    16-byte vectors (G <= 32 x 8), min(G, 32) lanes a group; otherwise the
+    scalar route."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"dtype {dtype}: the kernels take fp32, bf16 or "
+                         f"fp16")
+    n = 16 // dtype.itemsize
+    g = group_size // n
+    if group_size <= 0 or group_size % n or g & (g - 1) or \
+            g > 32 * QUANT_VPLS[-1]:
+        return QuantPlan("scalar", 0, 0, 0, 0)
+    lanes = min(g, 32)
+    vpl = g // lanes
+    return QuantPlan("vector", lanes, vpl, 32 // lanes,
+                     max(1, QUANT_IN_FLIGHT // vpl))
 
 
 def reset_launch_counts() -> None:
@@ -117,19 +164,23 @@ def quantize_blockwise(x: torch.Tensor, *, bits: int = 8,
                        group_size: int = 256,
                        symmetric: bool = True) -> QuantizedTensor:
     """Group-quantize ``x`` to int8/int4 with per-group f32 scales: the
-    CUDA kernel for a CUDA tensor (bf16 or fp32, else it raises), the
-    plain version for a CPU tensor."""
+    CUDA kernel for a CUDA tensor (fp32, bf16 or fp16, else it raises),
+    the plain version for a CPU tensor."""
     _check(x, bits, group_size)
     if not x.is_cuda:
         return quantize_blockwise_plain(x, bits=bits, group_size=group_size,
                                         symmetric=symmetric)
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"x dtype {x.dtype}: the kernels take bf16 or fp32")
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"x dtype {x.dtype}: the kernels take fp32, bf16 "
+                         f"or fp16")
     n = x.numel()
     from . import _build
     lib = _build.load("quantization")
     ng = -(-n // group_size)
+    plan = quant_plan(group_size, x.dtype)
     flat = x.contiguous()
+    if plan.route == "vector" and flat.data_ptr() % 16:
+        flat = flat.clone()           # the vector route's 16-byte loads
     dev = x.device
     width = group_size // 2 if bits == 4 else group_size
     values = torch.empty((ng, width), dtype=torch.int8, device=dev)
@@ -143,7 +194,8 @@ def quantize_blockwise(x: torch.Tensor, *, bits: int = 8,
         flat.data_ptr(), values.data_ptr(), scale.data_ptr(),
         0 if zero is None else zero.data_ptr(), n, group_size, bits,
         int(symmetric), _recip(qmax if symmetric else 2 * qmax),
-        int(x.dtype == torch.bfloat16), stream)
+        KERNEL_DTYPES[x.dtype], _ROUTES[plan.route], plan.lanes, plan.vpl,
+        sm_count(dev), stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: cudaError {err}")
     LAUNCHES[name] += 1

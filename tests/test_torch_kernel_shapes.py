@@ -1,13 +1,25 @@
 """Every shape the port serves or trains lies in its kernels' accepted
 sets, so ``"auto"`` on a card never reaches a kernel that refuses it
-(fault C1), and the fused-xent backward's cluster plans.
+(faults C1 and C2), and the fused-xent backward's cluster plans.
 
 CPU only: the checks are the ones the wrappers make for CUDA tensors
-(``check_kernel_shape``, ``kernel_head_dim``, ``bwd_plan``), called on
-each configuration's heads, head dim and dtype."""
+(``check_kernel_shape``, ``kernel_head_dim``, ``bwd_plan``, the kernels'
+dtype sets), called on each configuration's heads, head dim and dtype;
+the fused-xent wrapper's hidden-size padding through the plain versions
+against the JAX package's loss and gradients (fp32 within 1e-5); the
+group quantizer in fp16 against the JAX package's bit for bit."""
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
+
+from deepspeed_tpu.ops.kernels import fused_xent as jax_fx
+from deepspeed_tpu.ops.kernels import quantization as jq
+from deepspeed_tpu_torch.config import Config
+from deepspeed_tpu_torch.ops.kernels import quantization as qz
+from deepspeed_tpu_torch.utils.dtypes import resolve_dtype
 
 from deepspeed_tpu_torch.inference.v2 import RaggedInferenceConfig
 from deepspeed_tpu_torch.inference.v2.model_runner import \
@@ -118,3 +130,113 @@ def test_xent_backward_plan_covers_every_hidden_size():
 def test_xent_backward_plan_refuses_a_ragged_hidden_size():
     with pytest.raises(ValueError, match="multiple of 64"):
         fx.bwd_plan(100)
+
+
+# ------------------------------------------------ fault C2: dtypes, padding
+
+
+def _engine_dtype(prec):
+    """The compute dtype ``train_batch`` runs in under a ds_config with
+    ``prec`` enabled (or neither), as the engine resolves it."""
+    base = {"train_micro_batch_size_per_gpu": 1}
+    if prec:
+        base[prec] = {"enabled": True}
+    return resolve_dtype(Config.load(base).precision_dtype)
+
+
+@pytest.mark.parametrize("prec", [None, "bf16", "fp16"])
+def test_engine_dtypes_lie_in_the_fused_xent_flash_and_evoformer_sets(prec):
+    """Every dtype the engine trains in (fp32, bf16, fp16) is one the
+    fused-xent, flash and Evoformer kernels take on a card (fault C2:
+    fp16 reached the first and the last, and raised there)."""
+    dtype = _engine_dtype(prec)
+    assert dtype in fx.KERNEL_DTYPES
+    assert dtype in ev.KERNEL_DTYPES
+    assert dtype in fa.KERNEL_DTYPES
+    fa.check_kernel_shape(64, dtype)
+    assert dtype in qz.KERNEL_DTYPES
+
+
+@pytest.mark.parametrize("C", [1, 63, 64, 100, 1600, 2047, 2048])
+def test_xent_kernel_hidden_pads_to_64(C):
+    """The kernels run at the next multiple of 64 (zero columns), and the
+    backward's cluster plan exists there."""
+    Cp = fx.kernel_hidden(C)
+    assert Cp % 64 == 0 and C <= Cp < C + 64
+    CL, W, G = fx.bwd_plan(Cp)
+    assert CL * W * G == Cp
+
+
+@pytest.mark.parametrize("C", [100, 72])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_xent_hidden_padding_gives_the_unpadded_loss_and_grads(C, dtype):
+    """Fault C2: at C = 100 the wrapper pads h and E with zero columns
+    (``_operands``) and slices dh and dE back. Through the plain versions
+    on the padded operands: lse, the target logit and the logit sum equal
+    the unpadded ones (a zero column adds an exact 0 to every f32 logit),
+    dh and dE sliced back equal the unpadded plain versions' (fp32 within
+    1e-6 relative: the products' blocking may change with K), and the
+    padded columns of both are zero; in fp32 the loss and both gradients
+    also match JAX ``fused_lm_xent`` (interpret mode) within 1e-5."""
+    rng = np.random.default_rng(C)
+    N, V = 40, 300
+    h = (rng.standard_normal((N, C)) * 0.5).astype(np.float32)
+    e = (rng.standard_normal((V, C)) * 0.2).astype(np.float32)
+    t = rng.integers(0, V, N).astype(np.int32)
+    t[::7] = -100
+    th, te = torch.from_numpy(h).to(dtype), torch.from_numpy(e).to(dtype)
+    tt = torch.from_numpy(t)
+    hp, ep, _ = fx._operands(th, te, tt)
+    assert hp.shape[1] == ep.shape[1] == fx.kernel_hidden(C)
+    assert not hp[:, C:].any() and not ep[:, C:].any()
+    got = fx.fused_xent_fwd_plain(hp, ep, tt)
+    ref = fx.fused_xent_fwd_plain(th, te, tt)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-6, atol=1e-6)
+    scale = torch.tensor([0.5])
+    kw = dict(ignore=-100, z=1e-4, eps=0.1)
+    for fn in (fx.fused_xent_dh_plain, fx.fused_xent_de_plain):
+        gp = fn(scale, hp, ep, tt, ref[0], **kw)
+        r = fn(scale, th, te, tt, ref[0], **kw)
+        assert not gp[:, C:].any()
+        torch.testing.assert_close(gp[:, :C].float(), r.float(), rtol=1e-6,
+                                   atol=1e-6)
+    if dtype is not torch.float32:
+        return
+    f = lambda a, b: jax_fx.fused_lm_xent(   # noqa: E731
+        a, b, jnp.asarray(t), ignore_index=-100, interpret=True)
+    jl, (jdh, jde) = jax.value_and_grad(f, argnums=(0, 1))(
+        jnp.asarray(h), jnp.asarray(e))
+    ah, ae = (x.clone().requires_grad_(True) for x in (th, te))
+    loss = fx.fused_lm_xent(ah, ae, tt, ignore_index=-100)
+    loss.backward()
+    assert abs(loss.item() - float(jl)) <= 1e-5 * abs(float(jl))
+    for g, want in ((ah.grad, jdh), (ae.grad, jde)):
+        want = np.asarray(want)
+        assert np.abs(g.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("group", [128, 100])
+def test_fp16_quantize_identical_to_jax(bits, symmetric, group):
+    """Fault C2's fourth case: an fp16 weight through the port's group
+    quantizer (the plain version on the CPU, the kernels' function) and
+    JAX ``quantize_blockwise`` (Pallas in interpret mode, which casts any
+    float dtype to f32): codes, scales and zeros the same bits."""
+    rng = np.random.default_rng(group + bits)
+    x = rng.standard_normal((300, 517)).astype(np.float16)
+    x.reshape(-1)[:128] = 0
+    x.reshape(-1)[1000:3000] *= np.float16(40)
+    want = jq.quantize_blockwise(jnp.asarray(x), bits=bits,
+                                 group_size=group, symmetric=symmetric,
+                                 interpret=True)
+    got = qz.quantize_blockwise(torch.from_numpy(x), bits=bits,
+                                group_size=group, symmetric=symmetric)
+    np.testing.assert_array_equal(got.values.numpy(),
+                                  np.asarray(want.values))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
+    if not symmetric:
+        np.testing.assert_array_equal(got.zero.numpy(),
+                                      np.asarray(want.zero))

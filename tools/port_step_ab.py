@@ -3,7 +3,7 @@
 card.
 
     python3 tools/port_step_ab.py OLD_CHECKOUT NEW_CHECKOUT [--rounds N]
-                                  [--trace | --serve | --evo]
+                                  [--trace | --serve | --evo | --ops]
 
 Runs the same work in each checkout, in turns old, new, new, old
 (``--rounds`` such pairs, 1 by default), each run in a process of its own
@@ -26,6 +26,15 @@ readings. Needs a CUDA card; exits non-zero if a run fails.
   triangle shapes with both biases, the mask bias only and neither, and
   ``F.scaled_dot_product_attention`` with mask + pair bias as its
   ``attn_mask`` beside them, each in a CUDA graph (ms a call).
+- ``--ops``: the norm kernels and the group quantizer at phase 18's and
+  phase 17's shapes through their entry points -- ``fused_rms_norm`` on
+  [32768, 4096] bf16, ``fused_layer_norm`` on [8192, C] bf16 for C 2048,
+  4096 and 8192, ``quantize_blockwise`` sym and asym on the [4096, 11008]
+  bf16 leaf at 8 bits / groups of 128, 4 bits / 128 and 8 bits / 256 --
+  and ``F.rms_norm`` / ``F.layer_norm`` beside the norms: each by
+  torch.profiler's device time and in a CUDA graph (ms a call); then
+  phase 15's load-time quantize seconds of Llama-2-7B's int8 and int4
+  modes (``quantize_model_params`` on the seeded weights).
 """
 
 from __future__ import annotations
@@ -92,6 +101,59 @@ print("AB " + json.dumps(out))
 """
 
 
+RUN_OPS = r"""
+import json, torch, chip_smoke as c
+import torch.nn.functional as F
+from deepspeed_tpu_torch.ops.kernels import normalization as nm
+from deepspeed_tpu_torch.ops.kernels import quantization as qz
+c.phase_build()
+g = torch.Generator(device="cuda").manual_seed(18)
+rnd = lambda *s: torch.randn(*s, generator=g, device="cuda")
+out = {}
+def both(name, fn):
+    out[name] = {"device_ms": c._device_ms(torch, fn, 20),
+                 "graph_ms": c._graph_ms(torch, [fn])}
+x = rnd(32768, 4096).bfloat16()
+w = (1 + 0.1 * rnd(4096)).bfloat16()
+both("rms_norm [32768, 4096]", lambda: nm.fused_rms_norm(x, w, eps=1e-5))
+both("F.rms_norm [32768, 4096]", lambda: F.rms_norm(x, (4096,), w, 1e-5))
+del x
+for C in (2048, 4096, 8192):
+    x = rnd(8192, C).bfloat16()
+    w, b = 1 + 0.1 * rnd(C), 0.1 * rnd(C)
+    w16, b16 = w.bfloat16(), b.bfloat16()
+    both(f"layer_norm [8192, {C}]",
+         lambda: nm.fused_layer_norm(x, w, b, eps=1e-5))
+    both(f"F.layer_norm [8192, {C}]",
+         lambda: F.layer_norm(x, (C,), w16, b16, 1e-5))
+    del x
+leaf = (rnd(4096, 11008) / 64.0).bfloat16()
+for sym in (True, False):
+    for bits, gs in ((8, 128), (4, 128), (8, 256)):
+        both(f"quantize_{'sym' if sym else 'asym'} {bits} bits g{gs}",
+             lambda: qz.quantize_blockwise(leaf, bits=bits, group_size=gs,
+                                           symmetric=sym))
+del leaf
+# phase 15's load-time quantize seconds: Llama-2-7B's seeded weights on
+# the card, then quantize_model_params for its int8 and int4 modes
+import time
+from deepspeed_tpu_torch.checkpoint import init_llama_params
+from deepspeed_tpu_torch.inference.quantization import quantize_model_params
+from deepspeed_tpu_torch.models.llama import LlamaConfig
+for mode in ("int8", "int4"):
+    params = init_llama_params(LlamaConfig.llama2_7b(), seed=0,
+                               device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = quantize_model_params(params, c._woq_config(mode))
+    torch.cuda.synchronize()
+    out[f"llama2_7b {mode} quantize s"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+print("AB " + json.dumps(out))
+"""
+
+
 def run(checkout: Path, script: str, trace: bool) -> dict:
     proc = subprocess.run([sys.executable, "-c", script, str(int(trace))],
                           cwd=checkout, capture_output=True, text=True)
@@ -109,6 +171,11 @@ def describe(name: str, r: dict, mode: str) -> str:
                 f"{r['tinyllama_decode_tok_s']:.1f} tok/s; Llama-2-7B bf16 "
                 f"prefill {r['llama7b_prefill_s']:.4f} s, decode "
                 f"{r['llama7b_decode_tok_s']:.1f} tok/s")
+    if mode == "ops":
+        return f"[ops ab] {name}: " + "; ".join(
+            f"{op} {t:.4f}" if isinstance(t, float) else
+            f"{op} device {t['device_ms']} graph {t['graph_ms']:.4f}"
+            for op, t in r.items())
     if mode == "evo":
         return f"[evo ab] {name}: " + "; ".join(
             f"{case} " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
@@ -132,12 +199,13 @@ def main(argv) -> int:
     if "--rounds" in argv:
         rounds = int(argv[argv.index("--rounds") + 1])
         args.remove(str(rounds))
-    modes = [m for m in ("serve", "evo") if f"--{m}" in argv]
+    modes = [m for m in ("serve", "evo", "ops") if f"--{m}" in argv]
     if len(args) != 2 or len(modes) > 1 or (modes and "--trace" in argv):
         print(__doc__, file=sys.stderr)
         return 2
     mode = modes[0] if modes else "train"
-    script = {"train": RUN_TRAIN, "serve": RUN_SERVE, "evo": RUN_EVO}[mode]
+    script = {"train": RUN_TRAIN, "serve": RUN_SERVE, "evo": RUN_EVO,
+              "ops": RUN_OPS}[mode]
     old, new = (Path(a).resolve() for a in args)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
