@@ -198,9 +198,13 @@ bound and one library call:
 20. sparse — ``sparse_attention(impl="flash")`` at BERT-large's attention
              width (16 heads of 64), B = 4, T = 4096, 128-blocks:
              BSLongformer (window 3, global block 0), BigBird (a layout per
-             head) and BSLongformer with one query block cleared (zeros);
-             fp32 at B = 1; SDPA on the token-level boolean mask as the
-             library call.
+             head) and BSLongformer with one query block cleared (zeros),
+             each on the wgmma kernel (``sparse_route`` and
+             ``sparse_plan``'s items logged) and bit-identical from a
+             second call; BSLongformer in fp16 and at head dim 128 (bf16,
+             fp16); fp32 at B = 1; times by events, torch.profiler and a
+             CUDA graph beside SDPA on the token-level boolean mask (the
+             library call) and the bound's share of the graph time.
 21. evoformer — ``DS4Sci_EvoformerAttention`` at AlphaFold 2's
              fine-tuning sizes: MSA row attention with pair bias [1, 512,
              384, 8, 32] and triangle attention [1, 384, 384, 4, 32], -1e9
@@ -240,7 +244,12 @@ bound and one library call:
              bias combination, ``flash_attention`` forward and backward on
              q/k/v views one element into a wider buffer (D 64 and 128,
              bf16 and fp16), and both quantizers in fp16 (codes and scales
-             identical), each launch count rising.
+             identical), each launch count rising. Then fault C3
+             (``c3_cases``): ``flash_attention_sparse`` in fp16 at head
+             dims 64 and 128, at 16, 80 and 96 in bf16 and fp16, at 48
+             (zero-padded to 64) in all three dtypes, and on q/k/v views
+             one element into a wider buffer, each on the route
+             ``sparse_route`` names, its launch count rising.
 
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
@@ -2684,12 +2693,15 @@ def phase_sparse_op(torch):
     impl="flash")`` with BSLongformer (window 3, global block 0) and
     BigBird (1 random, window 3, 1 global, a layout per head), and
     ``sparse_attention(impl="flash")`` on BSLongformer with one query
-    block of head 0 cleared (its rows must be zeros); each against the
-    plain version (the layouts are the configs' own: BigBird's random
-    blocks come from its seed), and fp32
-    on the CUDA-core kernel; timing per layout with
+    block of head 0 cleared (its rows must be zeros); each through the
+    wgmma kernel (``sparse_route``, its ``sparse_plan`` logged) against
+    the plain version (the layouts are the configs' own: BigBird's random
+    blocks come from its seed), a second call bit-identical. Then the same
+    BSLongformer shape in fp16 and at head dim 128 (bf16, fp16), and fp32
+    on the CUDA-core kernel. Timing per layout and case by CUDA events,
+    torch.profiler's device time and a CUDA graph, with
     ``F.scaled_dot_product_attention`` on the token-level boolean mask as
-    the library call."""
+    the library call, and the bound's share of the graph time."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import sparse_attention as sa
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
@@ -2709,6 +2721,19 @@ def phase_sparse_op(torch):
     empty[0, 5] = False
     layouts["bslongformer_empty_row"] = empty
     cfgs["bslongformer_empty_row"] = cfgs["bslongformer"]
+    route = fa.sparse_route(torch.bfloat16, Dh, 128, 128)
+    plans = {}
+    for name, lay in layouts.items():
+        p = fa.sparse_plan(lay, 128, 128, T, T, B, sm_count(q.device))
+        load = [sum(t + fa.SPARSE_ITEM_COST for *_, t in b)
+                for b in p.blocks]
+        plans[name] = {"items": p.items, "grid": p.grid,
+                       "max_load": max(load),
+                       "mean_load": sum(load) / len(load)}
+        log(f"[ops] flash_sparse_fwd {name}: route {route}, plan "
+            f"{plans[name]}")
+    if route != "wgmma":
+        raise AssertionError(f"phase 20's shape routes to {route}")
     mods = {name: sa.SparseSelfAttention(cfgs[name], impl="flash")
             for name in ("bslongformer", "bigbird")}
     torch.cuda.synchronize()
@@ -2718,13 +2743,18 @@ def phase_sparse_op(torch):
         q, k, v, cfgs["bslongformer"], impl="flash", layout=empty)
     torch.cuda.synchronize()
     launches = fa.SPARSE_LAUNCHES["flash_sparse_fwd"]
-    if launches != len(layouts):
-        raise AssertionError(f"flash_sparse_fwd launches {launches}")
+    routes = dict(fa.SPARSE_ROUTES)
+    if launches != len(layouts) or routes["wgmma"] != len(layouts):
+        raise AssertionError(f"flash_sparse_fwd launches {launches}, "
+                             f"routes {routes}")
     scale = Dh ** -0.5
     worst = 0.0
     for name, o in outs.items():
         if not torch.isfinite(o.float()).all():
             raise AssertionError(f"sparse {name}: non-finite output")
+        if not torch.equal(o, sa.sparse_attention(
+                q, k, v, cfgs[name], impl="flash", layout=layouts[name])):
+            raise AssertionError(f"sparse {name}: two calls differ")
         ref = fa.flash_attention_sparse_plain(q, k, v, layouts[name],
                                               sm_scale=scale)
         worst = max(worst, check_close(
@@ -2745,49 +2775,93 @@ def phase_sparse_op(torch):
                                                 sm_scale=scale),
                 fp32_max_abs=OPS_FP32_MAX_ABS)
     del qf, kf, vf
+
+    def times(qq, kk, vv, lay, sdpa):
+        call = lambda: fa.flash_attention_sparse(      # noqa: E731
+            qq, kk, vv, lay, layout="BHTD")
+        r = {"ms": _time_ms(torch, call, 20),
+             "device_ms": _device_ms(torch, call, 10),
+             "graph_ms": _graph_ms(torch, [call])}
+        if sdpa:
+            mask = sa.token_mask(lay, 128, "cuda")[None]  # [1, H, T, T]
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qq, kk, vv, attn_mask=mask)
+            r.update(library_ms=_time_ms(torch, lib, 10),
+                     library_device_ms=_device_ms(torch, lib, 5),
+                     library_graph_ms=_graph_ms(torch, [lib], reps=5))
+            del mask
+        d = qq.shape[-1]
+        r["flops"] = 4 * B * int(lay.sum()) * 128 * 128 * d
+        r["bytes"] = 4 * B * Hh * T * d * qq.element_size()
+        r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["flops"],
+                                              BF16_FLOPS_PER_S)
+        r["bound_share_of_graph"] = r["bound_ms"] / r["graph_ms"]
+        return r
+
     per = {}
     for name in ("bslongformer", "bigbird"):
         lay = layouts[name]
-        ms = _time_ms(torch, lambda: sa.sparse_attention(
-            q, k, v, cfgs[name], impl="flash", layout=lay), 20)
-        dev_ms = _device_ms(torch, lambda: sa.sparse_attention(
-            q, k, v, cfgs[name], impl="flash", layout=lay), 10)
-        plain_ms = _time_ms(torch, lambda: fa.flash_attention_sparse_plain(
-            q, k, v, lay, sm_scale=scale), 2)
-        mask = sa.token_mask(lay, 128, "cuda")[None]      # [1, H, T, T]
-        lib_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask), 10)
-        lib_dev_ms = _device_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask), 5)
-        del mask
-        allowed = int(lay.sum())
-        flops = 4 * B * allowed * 128 * 128 * Dh
-        nbytes = 4 * B * Hh * T * Dh * 2
-        per[name] = (ms, plain_ms, lib_ms, nbytes, flops, allowed, dev_ms,
-                     lib_dev_ms)
-        bound_ms, by = _bound(nbytes, flops, BF16_FLOPS_PER_S)
-        log(f"[ops timing] flash_sparse_fwd {name} ({allowed} of "
-            f"{lay.size} blocks): {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
-            f"{lib_ms:.4f}, bound {bound_ms:.4f} by {by}); device time "
-            f"{dev_ms}, sdpa device time {lib_dev_ms}")
+        r = times(q, k, v, lay, True)
+        r["plain_ms"] = _time_ms(
+            torch, lambda: fa.flash_attention_sparse_plain(
+                q, k, v, lay, sm_scale=scale), 2)
+        r["allowed_blocks"] = int(lay.sum())
+        per[name] = r
+        log(f"[ops timing] flash_sparse_fwd {name} bf16 D{Dh} "
+            f"({r['allowed_blocks']} of {lay.size} blocks): {r['ms']:.4f} ms "
+            f"(device {r['device_ms']}, graph {r['graph_ms']:.4f}; plain "
+            f"{r['plain_ms']:.4f}; sdpa {r['library_ms']:.4f}, device "
+            f"{r['library_device_ms']}, graph {r['library_graph_ms']:.4f}; "
+            f"bound {r['bound_ms']:.4f} by {r['bound_by']}, "
+            f"{100 * r['bound_share_of_graph']:.1f}% of the graph time)")
         torch.cuda.empty_cache()
-    ms, plain_ms, lib_ms, nbytes, flops, allowed, dev_ms, lib_dev_ms = \
-        per["bslongformer"]
+    # the same BSLongformer shape in fp16 and at head dim 128
+    lay = layouts["bslongformer"]
+    cases = {}
+    for d, dt in ((Dh, torch.float16), (128, torch.bfloat16),
+                  (128, torch.float16)):
+        label = f"bslongformer {str(dt)[6:]} D{d}"
+        qq, kk, vv = (torch.randn(B, Hh, T, d, generator=g,
+                                  device="cuda").to(dt) for _ in range(3))
+        if fa.sparse_route(dt, d, 128, 128) != "wgmma":
+            raise AssertionError(f"{label}: not the wgmma route")
+        fa.reset_launch_counts()
+        o = fa.flash_attention_sparse(qq, kk, vv, lay, layout="BHTD")
+        torch.cuda.synchronize()
+        if fa.SPARSE_ROUTES["wgmma"] != 1:
+            raise AssertionError(f"{label}: {fa.SPARSE_ROUTES}")
+        err = check_close(torch, f"[ops] flash_sparse_fwd {label}", o,
+                          fa.flash_attention_sparse_plain(
+                              qq, kk, vv, lay, sm_scale=d ** -0.5),
+                          bf16_max_abs=SPARSE_BF16_MAX_ABS)
+        del o
+        r = times(qq, kk, vv, lay, dt == torch.bfloat16)
+        r["max_abs_err"] = err
+        cases[label] = r
+        log(f"[ops timing] flash_sparse_fwd {label}: {r['ms']:.4f} ms "
+            f"(device {r['device_ms']}, graph {r['graph_ms']:.4f}; bound "
+            f"{r['bound_ms']:.4f}, {100 * r['bound_share_of_graph']:.1f}% "
+            f"of the graph time; sdpa graph {r.get('library_graph_ms')})")
+        del qq, kk, vv
+        torch.cuda.empty_cache()
+    r = per["bslongformer"]
     del q, k, v
     torch.cuda.empty_cache()
     return [_op_row(
-        "flash_sparse_fwd", SPARSE_SOURCE, launches, worst, ms, plain_ms,
-        lib_ms, nbytes, flops, BF16_FLOPS_PER_S, device_ms=dev_ms,
-        library_device_ms=lib_dev_ms,
-        launches_note="one entry-point call per layout (3)",
+        "flash_sparse_fwd", SPARSE_SOURCE, launches, worst, r["ms"],
+        r["plain_ms"], r["library_ms"], r["bytes"], r["flops"],
+        BF16_FLOPS_PER_S, device_ms=r["device_ms"], graph_ms=r["graph_ms"],
+        library_device_ms=r["library_device_ms"],
+        library_graph_ms=r["library_graph_ms"],
+        bound_share_of_graph=r["bound_share_of_graph"],
+        sparse_route=route, routes=routes, plans=plans,
+        launches_note="one entry-point call per layout (3), each on the "
+                      "wgmma route",
         library_call="F.scaled_dot_product_attention with the token-level "
                      "boolean mask",
         shape={"B": B, "H": Hh, "T": T, "D": Dh, "layout": "bslongformer",
-               "allowed_blocks": allowed, "dtype": "bf16"},
-        layouts={n: dict(zip(("ms", "plain_ms", "library_ms", "bytes",
-                              "flops", "allowed_blocks", "device_ms",
-                              "library_device_ms"), r))
-                 for n, r in per.items()})]
+               "allowed_blocks": r["allowed_blocks"], "dtype": "bf16"},
+        layouts=per, cases=cases)]
 
 
 def _evo_inputs(torch, g, shape, dtype=None):
@@ -3116,6 +3190,7 @@ def phase_c1_shapes(torch):
                     evo(q, k, v, [mask, pair], use_kernel=False),
                     bf16_max_abs=EVO_BF16_MAX_ABS)
     out["c2"] = c2_cases(torch)
+    out["c3"] = c3_cases(torch)
     return out, pair_rows(torch, fa, tiny, pair_launches, pair_err)
 
 
@@ -3255,6 +3330,66 @@ def c2_cases(torch):
                 if sum(qz.LAUNCHES.values()) != 1:
                     raise AssertionError(f"quantize fp16: {qz.LAUNCHES}")
     out["quantize_fp16"] = 8
+    torch.cuda.empty_cache()
+    return out
+
+
+def c3_cases(torch):
+    """Fault C3 (phase 22): inputs the block-sparse kernels refused on the
+    card and the JAX package computes, each through the kernel
+    ``sparse_route`` names (its launch count rising), against the plain
+    version: fp16 at head dims 64 and 128 (the wgmma kernel), head dims
+    16, 80 and 96 in bf16 and fp16 (mma.sync), head dim 48 zero-padded to
+    64 in fp32, bf16 and fp16, at a ragged T with GQA 4 -> 2 and a query
+    block with no allowed key block (zeros); then q/k/v views one element
+    into a wider buffer (a dense copy for the kernel) at head dims 64 and
+    80."""
+    import numpy as np
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 products
+    g = torch.Generator(device="cuda").manual_seed(221)
+    rng = np.random.default_rng(221)
+    B, Hh, Hk, T = 2, 4, 2, 300
+    nb = -(-T // 128)
+    bm = rng.random((Hh, nb, nb)) < 0.5
+    bm[:, :, 0] = True
+    bm[1, nb - 1] = False
+    f16, b16, f32 = torch.float16, torch.bfloat16, torch.float32
+    cases = [(f16, 64), (f16, 128), (b16, 16), (f16, 16), (b16, 80),
+             (f16, 80), (b16, 96), (f16, 96), (f32, 48), (b16, 48),
+             (f16, 48)]
+    out = {}
+
+    def run(label, q, k, v):
+        route = fa.sparse_route(q.dtype, q.shape[-1], 128, 128)
+        fa.reset_launch_counts()
+        got = fa.flash_attention_sparse(q, k, v, bm)
+        torch.cuda.synchronize()
+        if fa.SPARSE_ROUTES[route] != 1 or \
+                fa.SPARSE_LAUNCHES["flash_sparse_fwd"] != 1:
+            raise AssertionError(f"{label}: {fa.SPARSE_ROUTES}")
+        if got[:, (nb - 1) * 128:, 1].any():
+            raise AssertionError(f"{label}: an empty query block not 0")
+        ref = fa.flash_attention_sparse_plain(
+            *(t.transpose(1, 2) for t in (q, k, v)), bm,
+            sm_scale=q.shape[-1] ** -0.5).transpose(1, 2)
+        check_close(torch, f"[c3] {label} route {route}", got, ref,
+                    bf16_max_abs=SPARSE_BF16_MAX_ABS,
+                    fp32_max_abs=OPS_FP32_MAX_ABS)
+        out[label] = route
+
+    for dt, d in cases:
+        q, k, v = (torch.randn(B, T, h, d, generator=g, device="cuda").to(dt)
+                   for h in (Hh, Hk, Hk))
+        run(f"flash_attention_sparse {str(dt)[6:]} D{d}", q, k, v)
+    for dt in (b16, f16):
+        for d in (64, 80):
+            buf = torch.randn(B, T, 3 * Hh * d + 1, generator=g,
+                              device="cuda").to(dt)
+            q, k, v = (buf[..., 1 + i * Hh * d:1 + (i + 1) * Hh * d]
+                       .unflatten(-1, (Hh, d)) for i in range(3))
+            run(f"flash_attention_sparse on a misaligned view "
+                f"{str(dt)[6:]} D{d}", q, k, v)
     torch.cuda.empty_cache()
     return out
 

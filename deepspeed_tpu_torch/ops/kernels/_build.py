@@ -87,10 +87,11 @@ SIGNATURES = {
     "fused_optimizer": {
         "adamw_launch": [_P] * 5 + [_L, _I, _P],
     },
-    # q, k, v, o, row_ptr, tiles, host strides, B, H, Hk, Tq, Tk, D, nq,
-    # block_q, scale, is_bf16, stream
+    # q, k, v, o, row_ptr, tiles, the plan's block_ptr and items, host
+    # strides, B, H, Hk, Tq, Tk, D, nq, block_q, scale, dtype code, route
+    # code (flash_attention.SPARSE_ROUTE_CODES), grid, stream
     "sparse_attention": {
-        "sparse_fwd_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+        "sparse_fwd_launch": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _I, _P],
     },
     # q, k, v, o, mask bias, pair bias, host strides, B, N, H, Sq, Sk, D,
     # scale, dtype code, MSA rows a block (evoformer.evo_plan), stream

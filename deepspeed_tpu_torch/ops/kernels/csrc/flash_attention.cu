@@ -23,13 +23,15 @@
 // so bf16 and fp16 run on the tensor cores.
 //
 // The forward at D = 64 and 128 (the training paths' head dims) is built
-// for Hopper (flash_fwd_wgmma_kernel, hopper.cuh): a persistent block an
-// SM walks work items of 192 (D = 64) or 128 (D = 128) query rows, 64 a
-// consumer warpgroup, both products on wgmma (Q K^T from shared memory,
-// P V with P in registers), K/V tiles of 128 keys by TMA in rings on
-// mbarriers filled by a producer warp, the consumers taking turns on the
-// tensor cores, the causal triangle's items dealt heaviest first. D = 16
-// and 32 (GPT2Config.tiny, untimed) keep the mma.sync forward.
+// for Hopper (flash_fwd_wgmma_kernel; hopper.cuh, and flash_ws.cuh for the
+// consumers' walk, which the block-sparse forward shares): a persistent
+// block an SM walks work items of 192 (D = 64) or 128 (D = 128) query
+// rows, 64 a consumer warpgroup, both products on wgmma (Q K^T from
+// shared memory, P V with P in registers), K/V tiles of 128 keys by TMA
+// in rings on mbarriers filled by a producer warp, the consumers taking
+// turns on the tensor cores, the causal triangle's items dealt heaviest
+// first. D = 16 and 32 (GPT2Config.tiny, untimed) keep the mma.sync
+// forward.
 //
 // The backward at D = 64 and 128 (flash_bwd_wgmma_kernel): a persistent
 // block an SM walks work items of (batch, KV head, 128 keys), dK and dV in
@@ -80,6 +82,7 @@
 // cudaGetLastError().
 
 #include "flash_tile.cuh"
+#include "flash_ws.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -253,8 +256,6 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // consumers finish this one. `flash_attention.fwd_schedule` states the
 // deal.
 
-constexpr int WS_K = 128;            // keys of a K/V tile
-
 // consumer warpgroups (64 query rows each) and ring depth by head dim
 template <int D>
 __host__ __device__ constexpr int ws_consumers() {
@@ -274,199 +275,6 @@ __host__ __device__ constexpr size_t ws_smem_bytes() {
                   ws_stages<D>() * 2 * WS_K * D) * 2 +
          (4 + 4 * ws_stages<D>()) * sizeof(uint64_t);
 }
-
-// Softmax of one [64 x 128] score tile in place (this thread's two rows,
-// 32 columns each) at keys [k0, +128): scale, the mask (MASK: key j of row
-// i is live iff j < lim[i]), the running max m and sum l (this thread's
-// columns), the probabilities left in sc, and alpha, the factor that
-// rescales O to the new max. POS: scale > 0, so the row max of the scaled
-// scores is the scaled max of the raw ones and the scale folds into the
-// exponent's multiplier (one multiply an element fewer).
-template <bool MASK, bool POS>
-__device__ __forceinline__ void ws_softmax(float (&sc)[64], int k0,
-                                           const int (&lim)[2], float scale,
-                                           float (&m)[2], float (&l)[2],
-                                           float (&alpha)[2], int qi) {
-  float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      float v = POS ? sc[4 * n + x] : sc[4 * n + x] * scale;
-      if (MASK && k0 + n * 8 + qi * 2 + (x & 1) >= lim[x / 2]) v = -INFINITY;
-      sc[4 * n + x] = v;
-      mx[x / 2][x & 1] = fmaxf(mx[x / 2][x & 1], v);
-    }
-  float m_neg[2];
-  const float mul = POS ? scale * LOG2E : LOG2E;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float mr = fmaxf(mx[i][0], mx[i][1]);
-    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 1));
-    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
-    if (POS) mr *= scale;
-    const float m_new = fmaxf(m[i], mr);
-    // a row with nothing live yet keeps m = -inf: exp through a finite
-    // stand-in so no (-inf) - (-inf) NaN appears; p and alpha come out 0
-    const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-    alpha[i] = ex2((m[i] - m_safe) * LOG2E);
-    m[i] = m_new;
-    m_neg[i] = -m_safe * LOG2E;
-  }
-  float rs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const float p = ex2(fmaf(sc[4 * n + x], mul, m_neg[x / 2]));
-      sc[4 * n + x] = p;
-      rs[x / 2][x & 1] += p;
-    }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    l[i] = l[i] * alpha[i] + (rs[i][0] + rs[i][1]);
-}
-
-// What one consumer warpgroup carries from tile to tile. Tiles are
-// counted over the block's whole walk (kbase: the K/V tiles of the work
-// items before this one), which picks each tile's ring buffer and phase.
-template <int D, typename T>
-struct WsState {
-  static constexpr int S = ws_stages<D>(), NC = ws_consumers<D>();
-  static constexpr int BOX = WS_K * 64, TKV = WS_K * D;   // elements
-  static constexpr int QBOX = 64 * NC * 64;
-  const T *qa, *kring, *vring;
-  uint64_t *kfull, *vfull, *kempty, *vempty;
-  int lim[2], live_all, qi, cw, kbase;
-  float scale;
-  float sc[64], acc[D / 2], m[2], l[2], alpha[2];
-  uint32_t pa[8][4];
-  bool signal;
-
-  // The consumers take turns on the tensor cores, in the order of cw
-  // (named barrier 1 + cw: its turn): one issues its products while the
-  // others run their softmax. The last consumer opens each work item's
-  // first round and passes its last turn of the item to no one, so the
-  // turns balance within the item.
-  __device__ __forceinline__ void turn() { bar_sync<256>(1 + cw); }
-  __device__ __forceinline__ void pass() {
-    bar_arrive<256>(1 + (cw + 1) % NC);
-  }
-
-  __device__ __forceinline__ void wait_k(int t) {
-    const int g = kbase + t;
-    mbar_wait(kfull + g % S, (g / S) & 1);
-  }
-  __device__ __forceinline__ void wait_v(int t) {
-    const int g = kbase + t;
-    mbar_wait(vfull + g % S, (g / S) & 1);
-  }
-  // issue S = Q K_t^T into sc, committed
-  __device__ __forceinline__ void scores(int t) {
-    const T* ks = kring + ((kbase + t) % S) * TKV;
-    fence_regs(sc);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<0, T>(sc, wg_desc(qa + (kk / 4) * QBOX + (kk % 4) * 16, 16,
-                                 1024),
-                     wg_desc(ks + (kk / 4) * BOX + (kk % 4) * 16, 16, 1024),
-                     kk > 0, std::integral_constant<int, WS_K>());
-    wg_commit();
-  }
-  // O rescaled by the last softmax's alpha, then O += P V_t issued,
-  // committed
-  __device__ __forceinline__ void pv(int t) {
-    const T* vs = vring + ((kbase + t) % S) * TKV;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) acc[4 * n + x] *= alpha[x / 2];
-    wait_v(t);
-    fence_regs(acc);
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < WS_K / 16; ++kk)
-      wgmma_rs<1, T>(acc, pa[kk], wg_desc(vs + kk * 16 * 64, BOX * 2, 1024),
-                     1, std::integral_constant<int, D>());
-    wg_commit();
-  }
-  __device__ __forceinline__ void softmax(int t) {
-    const int k0 = t * WS_K;
-    const bool mask = k0 + WS_K > live_all;
-    if (scale > 0.f) {
-      if (mask)
-        ws_softmax<true, true>(sc, k0, lim, scale, m, l, alpha, qi);
-      else
-        ws_softmax<false, true>(sc, k0, lim, scale, m, l, alpha, qi);
-    } else {
-      if (mask)
-        ws_softmax<true, false>(sc, k0, lim, scale, m, l, alpha, qi);
-      else
-        ws_softmax<false, false>(sc, k0, lim, scale, m, l, alpha, qi);
-    }
-  }
-  // the probabilities as T pairs in the A fragments of the P V product;
-  // the sums above were taken before this cast to V's dtype
-  __device__ __forceinline__ void pack_p() {
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pa[kk][r] = pack2<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-  }
-  __device__ __forceinline__ void free_k(int t) {
-    if (signal) mbar_arrive(kempty + (kbase + t) % S);
-  }
-  __device__ __forceinline__ void free_v(int t) {
-    if (signal) mbar_arrive(vempty + (kbase + t) % S);
-  }
-  // tile 0: S_0 and its softmax
-  __device__ __forceinline__ void first() {
-    if (cw == NC - 1) bar_arrive<256>(1);      // opens the item's round
-    wait_k(0);
-    turn();
-    scores(0);
-    pass();
-    wg_wait<0>();
-    fence_regs(sc);
-    free_k(0);
-    softmax(0);
-    pack_p();
-  }
-  // tile t (>= 1): S_t and P V_{t-1} on the tensor cores together, S_t's
-  // softmax under P V_{t-1}
-  __device__ __forceinline__ void step(int t) {
-    wait_k(t);
-    turn();
-    scores(t);
-    pv(t - 1);
-    pass();
-    wg_wait<1>();                             // S_t done
-    fence_regs(sc);
-    free_k(t);
-    softmax(t);
-    wg_wait<0>();                             // P V_{t-1} done
-    fence_regs(acc);
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
-    free_v(t - 1);
-    pack_p();
-  }
-  // the last tile's P V
-  __device__ __forceinline__ void last(int t) {
-    turn();
-    pv(t);
-    if (cw != NC - 1) pass();
-    wg_wait<0>();
-    fence_regs(acc);
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
-    free_v(t);
-  }
-};
 
 // Work item `item` of the schedule: every (batch, head)'s last query tile,
 // then the tiles before, heads of one GQA group side by side.
@@ -501,7 +309,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        T* __restrict__ o, float* __restrict__ lse,
                        Strides so, int B, int H, int Hk, int Tq, int Tk,
                        float scale, int causal) {
-  using St = WsState<D, T>;
+  using St = WsState<D, T, ws_consumers<D>(), ws_stages<D>()>;
   constexpr int S = St::S, NC = St::NC, NB = D / 64;
   constexpr int BOX = St::BOX, QBOX = St::QBOX, TKV = St::TKV;
   constexpr int ROWS = 64 * NC, TQ = ROWS * D;
@@ -609,8 +417,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int qb = qn & 1;
       w.qa = qs + qb * TQ + cw * 64 * 64;     // this warpgroup's rows of Q
       mbar_wait(qfull + qb, (qn >> 1) & 1);
-      w.first();
-      for (int t = 1; t < n; ++t) w.step(t);
+      w.first(0);
+      for (int t = 1; t < n; ++t) w.step(t, t * WS_K);
       w.last(n - 1);
       if (w.signal) mbar_arrive(qempty + qb);   // Q read for the last time
       w.kbase += n;
@@ -1452,32 +1260,6 @@ cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
       st(s, 1), st(s, 2), st(s, 3), d.H, d.Hk, d.Tq, d.Tk, d.scale,
       d.causal);
   return cudaGetLastError();
-}
-
-// A 4-D TMA map over a [B, Hx, T, D] view with element strides `s` of
-// (batch, head, time), boxes of `rows` rows x 64 columns, 128-byte
-// swizzle. A dim of extent 1 takes a packed stride (its own is never
-// used), so only the strides that address data need to be 16-byte
-// multiples.
-template <typename T>
-cudaError_t bhtd_map(CUtensorMap* map, const void* base, Strides s, int B,
-                     int Hx, int T_, int D, int rows) {
-  const long long st_ = T_ > 1 ? s.t : D;
-  const long long sh = Hx > 1 ? s.h : st_ * T_;
-  const long long sb = B > 1 ? s.b : sh * Hx;
-  if (reinterpret_cast<uintptr_t>(base) % 16 || st_ % 8 || sh % 8 || sb % 8)
-    return cudaErrorMisalignedAddress;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T_, (cuuint64_t)Hx,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st_ * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  return encode_tensor_map(map,
-                           std::is_same<T, f16>::value
-                               ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                           4, base, dims, strides, box,
-                           CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int D, typename T>

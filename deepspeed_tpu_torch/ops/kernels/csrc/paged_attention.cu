@@ -607,7 +607,7 @@ __device__ __forceinline__ void pw_softmax(float (&sc)[64], int k0,
 }
 
 // What one consumer warpgroup carries from tile to tile (the paged twin
-// of flash_attention.cu's WsState). Tiles are counted over the block's
+// of flash_ws.cuh's WsState). Tiles are counted over the block's
 // whole walk (kbase), which picks each tile's ring buffer and phase.
 template <int D>
 struct PwState {

@@ -37,16 +37,22 @@ launch counts in :data:`LAUNCHES`, each kernel under its own name.
 A fourth kernel, ``flash_sparse_fwd`` (``csrc/sparse_attention.cu``),
 replaces ``_fwd_sparse_kernel``: block-sparse attention forward over a
 static ``(H, nq, nk)`` block mask, behind :func:`flash_attention_sparse`
-(plain version :func:`flash_attention_sparse_plain`). It counts in
-:data:`SPARSE_LAUNCHES`.
+(plain version :func:`flash_attention_sparse_plain`). :func:`sparse_route`
+picks its kernel from the shapes: in bf16/fp16 at head dims 64 and 128 a
+persistent wgmma + TMA kernel over the live 128-key tiles of each query
+block, its items dealt by :func:`sparse_plan`; at the other head dims
+(16, 32, 80, 96, others up to 128 zero-padded) an mma.sync one; in fp32 a
+CUDA-core one. It counts in :data:`SPARSE_LAUNCHES` and, by route, in
+:data:`SPARSE_ROUTES`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,12 +81,24 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: block-sparse forward launches (a dict of its own: the training phases
 #: hold every entry of :data:`LAUNCHES` to layers x steps)
 SPARSE_LAUNCHES: Dict[str, int] = {"flash_sparse_fwd": 0}
-SPARSE_HEAD_DIMS = (32, 64, 128)
-_TILE = 64                       # key rows of one tile of the sparse kernel
+#: the same launches by the kernel that ran (:func:`sparse_route`)
+SPARSE_ROUTES: Dict[str, int] = {"f32": 0, "mma": 0, "wgmma": 0}
+SPARSE_ROUTE_CODES = {"f32": 0, "mma": 1, "wgmma": 2}
+#: head dims the block-sparse kernels are instantiated for (others up to
+#: the last zero-padded to the next: :func:`sparse_head_dim`), and those
+#: of the wgmma kernel
+SPARSE_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+SPARSE_WGMMA_HEAD_DIMS = (64, 128)
+#: the wgmma route's query rows an item and keys a K/V tile, and an item's
+#: cost in the plan beyond its tiles (its start and its stores), in tiles
+SPARSE_ROWS = 128
+SPARSE_KEYS = 128
+SPARSE_ITEM_COST = 1
+_TILE = 64                       # key rows of a tile of the mma / f32 route
 
 
 def reset_launch_counts() -> None:
-    for d in (LAUNCHES, SPARSE_LAUNCHES):
+    for d in (LAUNCHES, SPARSE_LAUNCHES, SPARSE_ROUTES):
         for k in d:
             d[k] = 0
 
@@ -616,49 +634,212 @@ def flash_attention_sparse_plain(q: torch.Tensor, k: torch.Tensor,
     return o.reshape(B, H, Tq, D).to(q.dtype)
 
 
+def sparse_head_dim(head_dim: int) -> int:
+    """The head dim the block-sparse kernels run ``head_dim`` at: itself
+    when instantiated (:data:`SPARSE_HEAD_DIMS`), else the next one up
+    (the wrapper zero-pads q, k and v to it: zero columns add nothing to
+    Q K^T, and the extra output columns are sliced away).
+    NotImplementedError past the largest."""
+    for d in SPARSE_HEAD_DIMS:
+        if head_dim <= d:
+            return d
+    raise NotImplementedError(
+        f"head_dim {head_dim}: the block-sparse kernels for head dims above "
+        f"{SPARSE_HEAD_DIMS[-1]} are not ported")
+
+
+def sparse_route(dtype: torch.dtype, head_dim: int, block_q: int,
+                 block_k: int) -> str:
+    """The block-sparse kernel a card runs, from the shapes alone (never
+    chosen on failure; a view a route cannot read goes to it as a dense
+    copy): ``"f32"`` (the CUDA-core kernel) for fp32; ``"wgmma"`` for
+    bf16 / fp16 at kernel head dims 64 and 128 (:func:`sparse_head_dim`)
+    with ``block_q`` and ``block_k`` multiples of 128; ``"mma"`` (mma.sync)
+    for the other head dims and for blocks of 64 (mod 128). Blocks that
+    are no multiple of 64 raise NotImplementedError (the public entry
+    clamps them to multiples of 128, so no JAX caller reaches this)."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"q dtype {dtype}: the block-sparse kernels take "
+                         f"fp32, bf16 or fp16")
+    dk = sparse_head_dim(head_dim)
+    if block_q % _TILE or block_k % _TILE:
+        raise NotImplementedError(
+            f"block_q {block_q} / block_k {block_k}: the block-sparse "
+            f"kernels for blocks that are no multiple of {_TILE} are not "
+            f"ported")
+    if dtype == torch.float32:
+        return "f32"
+    if dk in SPARSE_WGMMA_HEAD_DIMS and block_q % SPARSE_ROWS == 0 \
+            and block_k % SPARSE_KEYS == 0:
+        return "wgmma"
+    return "mma"
+
+
 def sparse_tile_csr(block_mask: np.ndarray, block_k: int, tk: int,
-                    device) -> Tuple[torch.Tensor, torch.Tensor]:
+                    device, tile: int = _TILE
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(row_ptr, tiles)``: for each (head, query block), in order, the
-    64-key tiles of its allowed key blocks that start below ``tk``
-    (ascending), as int32 CSR on ``device``; built on the host once per
-    mask and kept on the device (the kernel only reads them)."""
+    ``tile``-key tiles (64, or :data:`SPARSE_KEYS` on the wgmma route) of
+    its allowed key blocks that start below ``tk`` (ascending), as int32
+    CSR on ``device``; built on the host once per mask and kept on the
+    device (the kernel only reads them)."""
     bm = np.asarray(block_mask) > 0
-    return _tile_csr(bm.tobytes(), bm.shape, block_k, tk, str(device))
+    return _tile_csr(bm.tobytes(), bm.shape, block_k, tk, str(device), tile)
+
+
+def _live_tiles(bm: np.ndarray, block_k: int, tk: int,
+                tile: int) -> np.ndarray:
+    """``[h, nq, nk * block_k / tile]`` bool: the live key tiles."""
+    nk = bm.shape[2]
+    per = block_k // tile
+    live = np.repeat(bm, per, axis=2)
+    live &= (np.arange(nk * per) * tile < tk)[None, None, :]
+    return live
 
 
 @functools.lru_cache(maxsize=64)
 def _tile_csr(mask_bytes: bytes, shape: Tuple[int, int, int], block_k: int,
-              tk: int, device: str) -> Tuple[torch.Tensor, torch.Tensor]:
+              tk: int, device: str, tile: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     bm = np.frombuffer(mask_bytes, dtype=bool).reshape(shape)
-    h, nq, nk = shape
-    per = block_k // _TILE
-    live = np.repeat(bm, per, axis=2)                   # [h, nq, nk * per]
-    live &= (np.arange(nk * per) * _TILE < tk)[None, None, :]
-    counts = live.reshape(h * nq, -1).sum(axis=1)
-    row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    tiles = np.nonzero(live.reshape(h * nq, -1))[1].astype(np.int32)
+    h, nq, _ = shape
+    live = _live_tiles(bm, block_k, tk, tile).reshape(h * nq, -1)
+    row_ptr = np.concatenate([[0], np.cumsum(live.sum(axis=1))]).astype(
+        np.int32)
+    tiles = np.nonzero(live)[1].astype(np.int32)
     return (torch.from_numpy(row_ptr).to(device),
             torch.from_numpy(np.concatenate([tiles, [0]]).astype(np.int32)
                              ).to(device))
 
 
+class SparsePlan(NamedTuple):
+    """The wgmma block-sparse forward's deal: ``items`` work items (batch,
+    head, :data:`SPARSE_ROWS`-row query tile) over ``grid`` persistent
+    blocks; ``blocks[i]`` lists block i's items in the order it walks them,
+    as ``(b, h, query tile, live key tiles)``."""
+    items: int
+    grid: int
+    blocks: Tuple[Tuple[Tuple[int, int, int, int], ...], ...]
+
+
+def sparse_item_tiles(block_mask, block_q: int, block_k: int, Tq: int,
+                      Tk: int) -> np.ndarray:
+    """``[H, ceil(Tq / SPARSE_ROWS)]`` int: the live
+    :data:`SPARSE_KEYS`-key tiles each (head, query tile) of the wgmma
+    route walks (its query block's CSR row)."""
+    bm = np.asarray(block_mask) > 0
+    counts = _live_tiles(bm, block_k, Tk, SPARSE_KEYS).sum(axis=2)
+    qb = np.arange(-(-Tq // SPARSE_ROWS)) * SPARSE_ROWS // block_q
+    return counts[:, qb]
+
+
+def sparse_plan(block_mask, block_q: int, block_k: int, Tq: int, Tk: int,
+                B: int, sms: int) -> SparsePlan:
+    """The wgmma route's launch plan from the mask and the shapes (nothing
+    on the device): the (batch, head, query tile) items, heaviest first
+    (most live key tiles; BSLongformer's global rows carry every tile),
+    a (batch, head)'s items side by side within equal weights so that the
+    blocks at work at one time read the same K/V from L2; each item goes
+    to the least loaded of ``min(items, sms)`` persistent blocks (ties to
+    the lowest index), counting an item as its tiles plus
+    :data:`SPARSE_ITEM_COST` for its start and its stores. Each block then
+    walks its items heaviest first, and no atomics decide who computes
+    what, so the output is the same from call to call."""
+    bm = np.asarray(block_mask) > 0
+    if min(B, Tq, Tk, sms) < 1 or block_q % SPARSE_ROWS or \
+            block_k % SPARSE_KEYS:
+        raise ValueError(f"sparse_plan: block_q {block_q}, block_k "
+                         f"{block_k}, Tq {Tq}, Tk {Tk}, B {B}, sms {sms}")
+    H = bm.shape[0]
+    if bm.shape != (H, -(-Tq // block_q), -(-Tk // block_k)):
+        raise ValueError(f"sparse_plan: block_mask shape {bm.shape} for Tq "
+                         f"{Tq}, Tk {Tk}, blocks {block_q} x {block_k}")
+    per = sparse_item_tiles(bm, block_q, block_k, Tq, Tk)   # [H, nqt]
+    nqt = per.shape[1]
+    n = B * H * nqt
+    weight = np.tile(per.reshape(-1), B)            # by code (b, h, qt)
+    order = np.lexsort((np.arange(n), -weight))
+    grid = min(n, sms)
+    blocks: List[List[Tuple[int, int, int, int]]] = [[] for _ in
+                                                      range(grid)]
+    heap = [(0, blk) for blk in range(grid)]
+    for code in order.tolist():
+        load, blk = heapq.heappop(heap)
+        t = int(weight[code])
+        bh, qt = divmod(code, nqt)
+        blocks[blk].append((bh // H, bh % H, qt, t))
+        heapq.heappush(heap, (load + t + SPARSE_ITEM_COST, blk))
+    return SparsePlan(n, grid, tuple(tuple(b) for b in blocks))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_tensors(mask_bytes: bytes, shape: Tuple[int, int, int],
+                  block_q: int, block_k: int, tq: int, tk: int, B: int,
+                  sms: int, device: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """:func:`sparse_plan` as the kernel reads it: ``block_ptr`` int32
+    ``[grid + 1]`` and ``items`` int32 (each ``(b * H + h) * nqt + qt``)
+    on ``device``, and the grid; cached beside the CSR."""
+    bm = np.frombuffer(mask_bytes, dtype=bool).reshape(shape)
+    plan = sparse_plan(bm, block_q, block_k, tq, tk, B, sms)
+    H, nqt = shape[0], -(-tq // SPARSE_ROWS)
+    sizes = [len(b) for b in plan.blocks]
+    block_ptr = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    items = np.array([(b * H + h) * nqt + qt for blk in plan.blocks
+                      for b, h, qt, _ in blk], np.int32)
+    return (torch.from_numpy(block_ptr).to(device),
+            torch.from_numpy(items).to(device), plan.grid)
+
+
+def _rows_ready(t: torch.Tensor) -> torch.Tensor:
+    """t itself when the mma.sync kernel can read it (16-byte rows: the
+    base and every (batch, head, time) stride 16-byte multiples), else a
+    dense copy."""
+    ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for st in t.stride()[:3])
+    return t if ok else t.contiguous()
+
+
+def _unit_ready(t: torch.Tensor) -> torch.Tensor:
+    """t itself when its head_dim stride is 1 (the fp32 kernel's one
+    need), else a dense copy."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
 def flash_sparse_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      block_mask: np.ndarray, *, sm_scale: float,
                      block_q: int = 128, block_k: int = 128) -> torch.Tensor:
-    """The block-sparse forward on ``[B, H, T, D]`` (CUDA kernel on a card,
-    the plain version on the CPU); ``block_mask`` a host array of shape
-    ``(H, ceil(Tq / block_q), ceil(Tk / block_k))``."""
+    """The block-sparse forward on ``[B, H, T, D]`` (a CUDA kernel on a
+    card, by :func:`sparse_route`; the plain version on the CPU);
+    ``block_mask`` a host array of shape ``(H, ceil(Tq / block_q),
+    ceil(Tk / block_k))``. A head dim without an instance is zero-padded
+    to :func:`sparse_head_dim`, ``sm_scale`` staying the caller's."""
     _check_sparse(q, k, v)
     if not q.is_cuda:
         return flash_attention_sparse_plain(q, k, v, block_mask,
                                             sm_scale=sm_scale,
                                             block_q=block_q, block_k=block_k)
-    if block_q % _TILE or block_k % _TILE:
-        raise ValueError(f"block_q {block_q} / block_k {block_k}: the kernel "
-                         f"takes multiples of {_TILE}")
     B, H, Tq, D = q.shape
     Hk, Tk = k.shape[1], k.shape[2]
-    row_ptr, tiles = sparse_tile_csr(block_mask, block_k, Tk, q.device)
+    route = sparse_route(q.dtype, D, block_q, block_k)
+    dk = sparse_head_dim(D)
+    if dk != D:
+        q, k, v = (torch.nn.functional.pad(t, (0, dk - D))
+                   for t in (q, k, v))
+    else:
+        ready = {"wgmma": _tma_ready, "mma": _rows_ready,
+                 "f32": _unit_ready}[route]
+        q, k, v = (ready(t) for t in (q, k, v))
+    bm = np.asarray(block_mask) > 0
+    row_ptr, tiles = sparse_tile_csr(
+        bm, block_k, Tk, q.device, SPARSE_KEYS if route == "wgmma" else _TILE)
+    block_ptr = items = None
+    grid = 0
+    if route == "wgmma":
+        from ...utils.device import sm_count
+        block_ptr, items, grid = _plan_tensors(
+            bm.tobytes(), bm.shape, block_q, block_k, Tq, Tk, B,
+            sm_count(q.device), str(q.device))
     o = _empty_like_order(q)
     from . import _build
     lib = _build.load("sparse_attention")
@@ -667,13 +848,18 @@ def flash_sparse_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.sparse_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        row_ptr.data_ptr(), tiles.data_ptr(), ctypes.addressof(strides), B,
-        H, Hk, Tq, Tk, D, np.asarray(block_mask).shape[1], block_q,
-        float(sm_scale), int(q.dtype == torch.bfloat16), stream)
+        row_ptr.data_ptr(), tiles.data_ptr(),
+        None if block_ptr is None else block_ptr.data_ptr(),
+        None if items is None else items.data_ptr(),
+        ctypes.addressof(strides), B, H, Hk, Tq, Tk, dk, bm.shape[1],
+        block_q, float(sm_scale), KERNEL_DTYPES[q.dtype],
+        SPARSE_ROUTE_CODES[route], grid, stream)
     if err != 0:
-        raise RuntimeError(f"flash_sparse_fwd failed: cudaError {err}")
+        raise RuntimeError(f"flash_sparse_fwd ({route}) failed: cudaError "
+                           f"{err}")
     SPARSE_LAUNCHES["flash_sparse_fwd"] += 1
-    return o
+    SPARSE_ROUTES[route] += 1
+    return o if dk == D else o[..., :D]
 
 
 def _check_sparse(q, k, v):
@@ -693,13 +879,6 @@ def _check_sparse(q, k, v):
             raise ValueError(f"a tensor on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise ValueError(f"k/v dtype {t.dtype} != q dtype {q.dtype}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"q dtype {q.dtype}: the kernel takes bf16 or fp32")
-    for t in (q, k, v):
-        if t.stride(-1) != 1:
-            raise ValueError("the kernel needs a unit head_dim stride")
-    if D not in SPARSE_HEAD_DIMS:
-        raise ValueError(f"head_dim {D}: the kernel takes {SPARSE_HEAD_DIMS}")
 
 
 class _SparseFlash(torch.autograd.Function):

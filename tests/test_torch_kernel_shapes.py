@@ -240,3 +240,40 @@ def test_fp16_quantize_identical_to_jax(bits, symmetric, group):
     if not symmetric:
         np.testing.assert_array_equal(got.zero.numpy(),
                                       np.asarray(want.zero))
+
+
+# ---------------------------------------- fault C3: the block-sparse kernel
+
+#: head dims of the models whose attention the block-sparse path serves
+#: (BERT-large's 64 at phase 20, the GPT-2 and Llama widths, Phi-2's 80,
+#: Phi-3's 96) and some without an instance
+SPARSE_MODEL_HEAD_DIMS = sorted(
+    {c.head_dim for c in GPT2_CONFIGS.values()}
+    | {c.head_dim for c in LLAMA_CONFIGS.values()} | {64, 80, 96, 48, 100})
+
+
+@pytest.mark.parametrize("D", SPARSE_MODEL_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32])
+@pytest.mark.parametrize("block", [64, 128, 256])
+def test_sparse_shapes_lie_in_the_kernels_accepted_set(D, dtype, block):
+    """Fault C3: every dtype the engine runs and every model head dim up to
+    128 reaches a block-sparse kernel on a card (natively or zero-padded to
+    ``sparse_head_dim``), at the blocks the public entry passes (multiples
+    of 128 after its clamp) and at 64; bf16 / fp16 at kernel head dims 64
+    and 128 with 128-multiple blocks take the wgmma kernel."""
+    route = fa.sparse_route(dtype, D, block, block)
+    dk = fa.sparse_head_dim(D)
+    assert dk in fa.SPARSE_HEAD_DIMS and dk >= D
+    want = "f32" if dtype == torch.float32 else (
+        "wgmma" if dk in (64, 128) and block % 128 == 0 else "mma")
+    assert route == want
+
+
+def test_sparse_kernels_refuse_what_they_do_not_take():
+    with pytest.raises(NotImplementedError, match="head_dim 160"):
+        fa.sparse_route(torch.bfloat16, 160, 128, 128)
+    with pytest.raises(NotImplementedError, match="block_q 96"):
+        fa.sparse_route(torch.float16, 64, 96, 96)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.sparse_route(torch.float64, 64, 128, 128)

@@ -470,12 +470,15 @@ def test_slice5_kernels_raise_on_unsupported_input():
     fa.reset_launch_counts()
     ev.reset_launch_counts()
     fo.reset_launch_counts()
-    h = torch.randn(1, 128, 2, 64, device="cuda", dtype=torch.float16)
+    h = torch.randn(1, 128, 2, 64, device="cuda", dtype=torch.float64)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention_sparse(h, h, h, np.ones((2, 1, 1), bool))
     with pytest.raises(ValueError, match="host"):
         fa.flash_attention_sparse(h.float(), h.float(), h.float(),
                                   torch.ones(2, 1, 1, device="cuda"))
+    wide = torch.randn(1, 128, 2, 192, device="cuda", dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="head_dim 192"):
+        fa.flash_attention_sparse(wide, wide, wide, np.ones((2, 1, 1), bool))
     e = torch.randn(1, 2, 16, 2, 128, device="cuda")
     with pytest.raises(NotImplementedError, match="head_dim"):
         ev.evoformer_flash(e, e, e)
@@ -1275,3 +1278,151 @@ def test_tma_kernels_launch_first_on_a_fresh_thread():
     for a, b in zip(got[0], want):
         # dQ is added by bulk reduce-add: its last bits vary between calls
         assert torch.allclose(a.float(), b.float(), rtol=1e-2, atol=1e-2)
+
+
+# ------------------------------------- fault C3 and the wgmma sparse kernel
+
+
+def _close_sparse(got, ref):
+    """A 16-bit block-sparse output against its plain version: bf16 by
+    ``_close_bf16``; fp16 within the flash limits (4e-3 max-abs, 2**-8 of
+    the plain output's norm)."""
+    if got.dtype == torch.bfloat16:
+        return _close_bf16(got, ref)
+    diff = got.float() - ref.float()
+    return diff.abs().max().item() <= 4e-3 and \
+        (diff.norm() / ref.float().norm()).item() <= 2.0 ** -8
+
+
+def _sparse_layout(kind, H, T, seed):
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    nb = -(-T // 128)
+    if kind == "random":
+        bm = np.random.default_rng(seed).random((H, nb, nb)) < 0.5
+        bm[:, :, 0] = True
+    else:
+        cfg = sa.BSLongformerSparsityConfig(
+            H, block=128, num_sliding_window_blocks=3,
+            global_block_indices=[0]) if kind == "bslongformer" else \
+            sa.BigBirdSparsityConfig(
+                H, block=128, num_random_blocks=1,
+                num_sliding_window_blocks=3, num_global_blocks=1,
+                different_layout_per_head=True, seed=seed)
+        bm = cfg.make_layout(nb * 128).astype(bool)
+    bm[H - 1, nb - 1] = False                 # a query block with no key
+    return bm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("kind", ["bslongformer", "bigbird", "random"])
+@pytest.mark.parametrize("T", [1000, 1024])
+def test_sparse_wgmma_matches_plain_on_card(D, dtype, kind, T):
+    """The wgmma block-sparse kernel (``sparse_route`` "wgmma") against
+    its plain version on BTHD views: the three layouts, a ragged T (its
+    last key tile masked, its last query tile part past Tq), GQA 4 -> 2,
+    a query block with no allowed key block (zeros); the same bits from a
+    second call; one launch a call, counted on the wgmma route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    B, H, Hk = 2, 4, 2
+    bm = _sparse_layout(kind, H, T, T + D)
+    g = torch.Generator(device="cuda").manual_seed(D + T)
+    q, k, v = (torch.randn(B, T, h, D, generator=g, device="cuda").to(dtype)
+               for h in (H, Hk, Hk))
+    assert fa.sparse_route(dtype, D, 128, 128) == "wgmma"
+    fa.reset_launch_counts()
+    got = fa.flash_attention_sparse(q, k, v, bm)
+    again = fa.flash_attention_sparse(q, k, v, bm)
+    torch.cuda.synchronize()
+    assert fa.SPARSE_LAUNCHES["flash_sparse_fwd"] == 2
+    assert fa.SPARSE_ROUTES == {"f32": 0, "mma": 0, "wgmma": 2}
+    assert torch.equal(got, again)
+    ref = fa.flash_attention_sparse_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bm,
+        sm_scale=D ** -0.5).transpose(1, 2)
+    nb = bm.shape[1]
+    assert not got[:, (nb - 1) * 128:, H - 1].any()
+    assert _close_sparse(got, ref), (D, dtype, kind, T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 48, 80, 96, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_sparse_c3_head_dims_match_plain_on_card(D, dtype):
+    """Fault C3: head dims the card refused before, natively (16, 32, 80,
+    96 on the mma.sync kernel) or zero-padded (48 to 64 on the wgmma
+    kernel, 100 to 128), in all three dtypes, against the plain version
+    (fp32 within 1e-5, TF32 off for the plain products), at a ragged T
+    with GQA 4 -> 2 and an empty query block; then 64-row blocks (the
+    mma.sync route at every 16-bit head dim)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, Hk, T = 2, 4, 2, 300
+    rng = np.random.default_rng(D)
+    for block in (128, 64):
+        nb = -(-T // block)
+        bm = rng.random((H, nb, nb)) < 0.5
+        bm[:, :, 0] = True
+        bm[1, nb - 1] = False
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (B, T, h, D)).astype(np.float32)).cuda().to(dtype)
+            for h in (H, Hk, Hk))
+        route = fa.sparse_route(dtype, D, block, block)
+        fa.reset_launch_counts()
+        got = fa.flash_attention_sparse(q, k, v, bm, block_q=block,
+                                        block_k=block)
+        torch.cuda.synchronize()
+        assert fa.SPARSE_ROUTES[route] == 1 and \
+            fa.SPARSE_LAUNCHES["flash_sparse_fwd"] == 1
+        assert got.shape == q.shape and got.dtype == dtype
+        ref = fa.flash_attention_sparse_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bm,
+            sm_scale=D ** -0.5, block_q=block,
+            block_k=block).transpose(1, 2)
+        assert not got[:, (nb - 1) * block:, 1].any()
+        if dtype == torch.float32:
+            assert (got - ref).abs().max().item() <= 1e-5, (D, block)
+        else:
+            assert _close_sparse(got, ref), (D, dtype, block, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_sparse_c3_misaligned_view_runs_on_card(D, dtype):
+    """Fault C3: q/k/v views one element into a wider buffer (a base and
+    strides that neither 16-byte rows nor TMA can take), and a head_dim
+    stride of 2: the wrapper hands each route a dense copy and the result
+    matches the plain version on the same values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, T, H = 2, 256, 2
+    g = torch.Generator(device="cuda").manual_seed(D)
+    buf = torch.randn(B, T, 3 * H * D + 1, generator=g,
+                      device="cuda").to(dtype)
+    q, k, v = (buf[..., 1 + i * H * D:1 + (i + 1) * H * D].unflatten(
+        -1, (H, D)) for i in range(3))
+    wide = torch.randn(B, T, H, 2 * D, generator=g, device="cuda").to(dtype)
+    bm = np.ones((H, 2, 2), bool)
+    bm[0, 1, 0] = False
+    for qq, kk, vv in ((q, k, v), (wide[..., ::2], k, wide[..., 1::2])):
+        fa.reset_launch_counts()
+        got = fa.flash_attention_sparse(qq, kk, vv, bm)
+        torch.cuda.synchronize()
+        assert fa.SPARSE_LAUNCHES["flash_sparse_fwd"] == 1
+        ref = fa.flash_attention_sparse_plain(
+            *(t.transpose(1, 2).contiguous() for t in (qq, kk, vv)), bm,
+            sm_scale=D ** -0.5).transpose(1, 2)
+        if dtype == torch.float32:
+            assert (got - ref).abs().max().item() <= 1e-5, D
+        else:
+            assert _close_sparse(got, ref), (D, dtype)

@@ -238,3 +238,74 @@ def test_tile_lists():
     assert again[0] is row_ptr
     _, tiles2 = fa.sparse_tile_csr(bm, 128, 384, "cpu")
     assert tiles2.tolist()[:4] == [0, 1, 4, 5]
+
+
+# ------------------------------------- fault C3: the widened sparse kernels
+
+C3_LIMITS = {torch.float32: 2e-5, torch.bfloat16: 8e-3, torch.float16: 4e-3}
+
+
+@pytest.mark.parametrize("D", [16, 48, 80, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_c3_cpu_path_matches_jax_kernel(D, dtype):
+    """Fault C3: inputs the card refused before (fp16; head dims 16, 48,
+    80, 96) and that the JAX package computes: the port's CPU path (the
+    kernels' plain version) against the JAX kernel in interpret mode, in
+    the same dtype, with GQA, a ragged T and an empty query block. fp32
+    within 2e-5 (the flash path's limit above); bf16 / fp16 within the
+    card's limits for the kernel against its plain version (8e-3 / 4e-3
+    max-abs and 2**-8 of the norm: P is rounded to the 16-bit type against
+    the JAX kernel's running max, the plain version's row max)."""
+    rng = np.random.default_rng(D)
+    B, H, Hk, T = 1, 4, 2, 300
+    nb = -(-T // 128)
+    bm = rng.random((H, nb, nb)) < 0.6
+    bm[:, :, 0] = True
+    bm[1, nb - 1] = False
+    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    k, v = _qkv(rng, (B, T, Hk, D), 2)
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+           torch.float16: jnp.float16}[dtype]
+    want = np.array(jfas(*(jnp.asarray(a).astype(jdt) for a in (q, k, v)),
+                         bm, interpret=True).astype(jnp.float32))
+    got = fa.flash_attention_sparse(
+        *(torch.from_numpy(a).to(dtype) for a in (q, k, v)), bm)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    assert not got[:, (nb - 1) * 128:, 1].any()
+    diff = got.float().numpy() - want
+    assert np.abs(diff).max() <= C3_LIMITS[dtype], (D, dtype)
+    if dtype != torch.float32:
+        assert np.linalg.norm(diff) <= 2.0 ** -8 * np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("D", [8, 40, 48, 72, 100, 112])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_c3_padded_head_dim_gives_the_unpadded_result(D, dtype):
+    """What the card path does at a head dim without an instance: q, k, v
+    zero-padded to ``sparse_head_dim(D)`` with the caller's scale, the
+    extra output columns sliced away. Zero columns add exact zeros to
+    every score, so the plain version gives the unpadded result (within
+    fp32 rounding of the longer sums, 1e-6; the 16-bit outputs to one
+    unit in the last place of their type)."""
+    rng = np.random.default_rng(D + 1)
+    B, H, T = 2, 2, 200
+    dk = fa.sparse_head_dim(D)
+    assert dk > D and dk in fa.SPARSE_HEAD_DIMS
+    bm = rng.random((H, 2, 2)) < 0.7
+    bm[:, :, 0] = True
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _qkv(rng, (B, H, T, D)))
+    kw = dict(sm_scale=D ** -0.5)
+    ref = fa.flash_attention_sparse_plain(q, k, v, bm, **kw)
+    padded = fa.flash_attention_sparse_plain(
+        *(torch.nn.functional.pad(t, (0, dk - D)) for t in (q, k, v)), bm,
+        **kw)
+    assert not padded[..., D:].any()
+    got = padded[..., :D]
+    ulp = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7,
+           torch.float16: 2.0 ** -10}[dtype]
+    tol = ulp * ref.float().abs().clamp_min(1.0)
+    assert ((got.float() - ref.float()).abs() <= tol).all(), (D, dtype)

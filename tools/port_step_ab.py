@@ -31,10 +31,15 @@ readings. Needs a CUDA card; exits non-zero if a run fails.
   [32768, 4096] bf16, ``fused_layer_norm`` on [8192, C] bf16 for C 2048,
   4096 and 8192, ``quantize_blockwise`` sym and asym on the [4096, 11008]
   bf16 leaf at 8 bits / groups of 128, 4 bits / 128 and 8 bits / 256 --
-  and ``F.rms_norm`` / ``F.layer_norm`` beside the norms: each by
-  torch.profiler's device time and in a CUDA graph (ms a call); then
-  phase 15's load-time quantize seconds of Llama-2-7B's int8 and int4
-  modes (``quantize_model_params`` on the seeded weights).
+  and ``F.rms_norm`` / ``F.layer_norm`` beside the norms; phase 20's
+  block-sparse forward (``flash_attention_sparse`` on BSLongformer and
+  BigBird at B 4, T 4096, 16 heads of 64 in bf16 and fp16, and
+  BSLongformer at head dim 128) with ``F.scaled_dot_product_attention``
+  on the boolean mask beside it (an input a tree's kernel refuses is
+  recorded as refused): each by torch.profiler's device time and in a
+  CUDA graph (ms a call); then phase 15's load-time quantize seconds of
+  Llama-2-7B's int8 and int4 modes (``quantize_model_params`` on the
+  seeded weights).
 """
 
 from __future__ import annotations
@@ -134,6 +139,40 @@ for sym in (True, False):
              lambda: qz.quantize_blockwise(leaf, bits=bits, group_size=gs,
                                            symmetric=sym))
 del leaf
+# phase 20's block-sparse forward (BERT-large's 16 heads of 64 over 4 x
+# 4096 tokens) on both layouts, fp16 and head dim 128 beside it, and SDPA
+# on the token-level boolean mask; a kernel that refuses an input (fp16 on
+# a tree before fault C3) is recorded as refused
+from deepspeed_tpu_torch.ops import sparse_attention as sa
+from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+H, T = c.SPARSE_H, c.SPARSE_T
+lays = {"bslongformer": sa.BSLongformerSparsityConfig(
+            H, block=128, num_sliding_window_blocks=3,
+            global_block_indices=[0]).make_layout(T),
+        "bigbird": sa.BigBirdSparsityConfig(
+            H, block=128, num_random_blocks=1, num_sliding_window_blocks=3,
+            num_global_blocks=1, different_layout_per_head=True
+            ).make_layout(T)}
+for D, dt in ((64, torch.bfloat16), (64, torch.float16),
+              (128, torch.bfloat16)):
+    q, k, v = (rnd(c.SPARSE_B, H, T, D).to(dt) for _ in range(3))
+    for name, lay in lays.items():
+        if D == 128 and name == "bigbird":
+            continue
+        label = f"flash_sparse_fwd {name} {str(dt)[6:]} D{D}"
+        try:
+            both(label, lambda: fa.flash_attention_sparse(
+                q, k, v, lay, layout="BHTD"))
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[label] = {"refused": str(e)[:100]}
+        if dt == torch.bfloat16:
+            mask = sa.token_mask(lay, 128, "cuda")[None]
+            both(f"sdpa on the mask {name} D{D}",
+                 lambda: F.scaled_dot_product_attention(q, k, v,
+                                                        attn_mask=mask))
+            del mask
+    del q, k, v
+    torch.cuda.empty_cache()
 # phase 15's load-time quantize seconds: Llama-2-7B's seeded weights on
 # the card, then quantize_model_params for its int8 and int4 modes
 import time
@@ -174,6 +213,7 @@ def describe(name: str, r: dict, mode: str) -> str:
     if mode == "ops":
         return f"[ops ab] {name}: " + "; ".join(
             f"{op} {t:.4f}" if isinstance(t, float) else
+            f"{op} refused ({t['refused']})" if "refused" in t else
             f"{op} device {t['device_ms']} graph {t['graph_ms']:.4f}"
             for op, t in r.items())
     if mode == "evo":
