@@ -251,6 +251,39 @@ bound and one library call:
              one element into a wider buffer, each on the route
              ``sparse_route`` names, its launch count rising.
 
+23. kv pool — the int8 and fp16 KV pool, ALiBi and the decode ring
+             (fault C4 and the rest of B1). Each K1 route and K2 against
+             the plain version, bit-identical from a second call, the
+             launch counts of the route and of what the call takes
+             (``ROUTE_LAUNCHES``: int8, alibi, ring, fp16) rising: fp16 on
+             K1's wgmma (TMA and gather) and mma.sync routes and in K2 at
+             GQA 1, 8 and 32; an int8 pool with its scales in bf16, fp16
+             and fp32 compute, with and without a window; K2's ring round
+             at ring counts 1, 5 and 32 over an int8 pool (and fp16); ALiBi
+             at Bloom-7B1's heads (32 of 128) on every route in the three
+             dtypes; D 64, 96 and 128. Limits: bf16 8e-3 (1.6e-2 above D
+             64), fp16 4e-3, both 2**-8 of the norm; fp32 1e-5. Then
+             engine parity at TinyLlama's width with 2 layers (TF32 off),
+             4 prompts x 128 tokens, 33 new: an fp32 engine on an int8
+             pool with decode loops of 0 and 16 steps (the loop's ring),
+             ``paged_flash`` token-identical to ``dense``; an fp16 engine
+             on an fp16 pool fed the dense engine's tokens, its prefill
+             and decode logits within 2**-8 of the norm of dense's (the
+             dense path rounds scores to fp16, the kernels do not, so
+             free-running streams may part; their agreement is
+             printed). Then Llama-2-7B as phase 15
+             serves it (64 x 512-token prompts, 128 new, decode loop 32,
+             bf16 weights) from an int8 pool through K1 (mma.sync) and K2
+             (split, with the ring's split in each loop step): pool bytes
+             (data and scales), prefill s, decode tok/s and peak memory
+             beside phase 15's bf16-pool run, the idle share under
+             ``--trace``. Then each new variant timed as phase 5 times
+             (K2 over int8 at the 7B shape beside K2 over bf16, with its
+             bound; K2 with a 16-row ring; K1 over int8 on the 7B prefill
+             step; fp16 at phase 5's shapes; ALiBi at Bloom-7B1's heads on
+             the 7B shapes), SDPA beside each: over an int8 pool SDPA on
+             the same K/V in bf16, a reference only.
+
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
 and one over a ``train_batch`` follows phases 7 and 11: the device's busy
@@ -290,6 +323,8 @@ BF16_FLOPS_PER_S = 989e12         # H100 SXM dense bf16 tensor core
 # unit roundoff of the plain output's norm
 BF16_MAX_ABS, BF16_REL_NORM = 8e-3, 2.0 ** -8
 FP32_MAX_ABS = 1e-4
+# phase 23's fp32 limit (the int8 pool's and ALiBi's CUDA-core kernel)
+KV_FP32_MAX_ABS = 1e-5
 # flash kernels: twice the largest bf16 max-abs reading (7.8e-3 at the
 # slice shape, half a bf16 ulp at magnitude 2-4; outputs reach ~5); fp32
 # ten times the largest reading (9.5e-7)
@@ -430,6 +465,23 @@ def paged_inputs(torch, rng, *, S, C, lens, block_size, maxb, dtype,
     q = torch.randn(S, C, H, D, device=dev).to(dtype)
     t = lambda a: torch.from_numpy(a).to(dev)       # noqa: E731
     return q, kp, vp, t(tables), t(start), t(lens)
+
+
+def kv_extras(torch, kp, vp, KVh, Hh, *, quant=False, alibi=False):
+    """What a paged call adds to the plain pool: with ``quant`` the pool's
+    rows quantized to int8 (``k_pool`` / ``v_pool``) with their [KV,
+    slots] scales, with ``alibi`` the slopes of ``alibi_slopes(H)``."""
+    from deepspeed_tpu_torch.inference.v2.kv_quant import quantize_rows
+    from deepspeed_tpu_torch.models._lm_utils import alibi_slopes
+    ex = {}
+    if quant:
+        kq, ks = quantize_rows(kp, KVh)
+        vq, vs = quantize_rows(vp, KVh)
+        ex.update(k_pool=kq, v_pool=vq, k_scales=ks.contiguous(),
+                  v_scales=vs.contiguous())
+    if alibi:
+        ex["alibi_slopes"] = alibi_slopes(Hh).cuda()
+    return ex
 
 
 # ---------------------------------------------------------------- phases
@@ -697,67 +749,116 @@ def _k2_plan(pa, q, S, KV, g, maxb, bs):
 
 
 def time_paged(torch, rng, name, *, S, C, ctx, block_size, maxb,
-               heads=(H, KV, D), bf16_max_abs=BF16_MAX_ABS):
-    """Kernel ``name`` at one shape (bf16, every slot at context ``ctx``,
-    queries at its last C positions): its time, its plain version's,
-    ``F.scaled_dot_product_attention`` on the same live K/V laid out
-    contiguously, the bound, and the kernel's error against its plain
+               heads=(H, KV, D), bf16_max_abs=BF16_MAX_ABS,
+               dtype=None, quant=False, alibi=False, ring=0):
+    """Kernel ``name`` at one shape (every slot at context ``ctx``,
+    queries at its last C positions; bf16 unless ``dtype``; with
+    ``quant`` an int8 pool and its scales, ``alibi`` ALiBi slopes,
+    ``ring`` that many decode-loop ring rows after the pool's ``ctx``
+    keys): its time, its plain version's, ``F.scaled_dot_product_attention``
+    on the same live K/V (and ring) laid out contiguously -- over an int8
+    pool the same K/V in bf16, a reference only, since no PyTorch call
+    computes the scaled int8 function; with ALiBi the bias as the float
+    ``attn_mask`` --, the bound, and the kernel's error against its plain
     version there."""
     from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    dtype = dtype or torch.bfloat16
     Hh, KVh, Dh = heads
     q, kp, vp, tab, st, ln = paged_inputs(
         torch, rng, S=S, C=C, lens=[ctx] * S, block_size=block_size,
-        maxb=maxb, dtype=torch.bfloat16, heads=heads)
+        maxb=maxb, dtype=dtype, heads=heads)
+    ex = kv_extras(torch, kp, vp, KVh, Hh, quant=quant, alibi=alibi)
+    if ring:
+        carry = torch.randn(ring, 2, S, KVh * Dh, device="cuda").to(dtype)
+        ex.update(ring_k=carry[:, 0], ring_v=carry[:, 1], ring_count=ring)
+        st = st + ring                 # the query sits past the ring rows
+    kp, vp = ex.pop("k_pool", kp), ex.pop("v_pool", vp)
     kw = dict(block_size=block_size, sm_scale=Dh ** -0.5,
-              sliding_window=None, num_kv_heads=KVh)
+              sliding_window=None, num_kv_heads=KVh, **ex)
     fn = getattr(pa, name)
     # the kernel against its plain version at these shapes too
     got = fn(q, kp, vp, tab, st, ln, **kw)
     ref = pa.paged_attention_plain(q, kp, vp, tab, st, ln, **kw)
-    err = check_close(torch, f"[timing] {name} at S={S} C={C} ctx={ctx} "
-                      f"H={Hh} KV={KVh} D={Dh}", got, ref,
-                      bf16_max_abs=bf16_max_abs)
+    what = (f"{name} at S={S} C={C} ctx={ctx} H={Hh} KV={KVh} D={Dh} "
+            f"{str(dtype)[6:]}" + (" int8 pool" if quant else "")
+            + (" alibi" if alibi else "") + (f" ring {ring}" if ring else ""))
+    err = check_close(torch, f"[timing] {what}", got, ref,
+                      bf16_max_abs=bf16_max_abs,
+                      fp32_max_abs=KV_FP32_MAX_ABS)
     del got, ref
     ms = _time_ms(torch, lambda: fn(q, kp, vp, tab, st, ln, **kw), 50)
     plain_ms = _time_ms(torch, lambda: pa.paged_attention_plain(
         q, kp, vp, tab, st, ln, **kw), 3)
     j = torch.arange(ctx, device="cuda")
     idx = tab.long()[:, j // block_size] * block_size + j % block_size
-    kc = kp[idx].reshape(S, ctx, KVh, Dh).transpose(1, 2).contiguous()
-    vc = vp[idx].reshape(S, ctx, KVh, Dh).transpose(1, 2).contiguous()
-    qc = q.transpose(1, 2).contiguous()                   # [S, H, C, D]
-    pos = ctx - C + torch.arange(C, device="cuda")
-    mask = (j[None, :] <= pos[:, None])                   # [C, ctx]
+    lib_dt = torch.bfloat16 if quant else dtype
+
+    def dense(pool, sc):
+        x = pool[idx].float()
+        if sc is not None:                    # the dequantized rows
+            x = (x.reshape(S, ctx, KVh, Dh) * sc.T[idx][..., None])
+        x = x.reshape(S, ctx, KVh, Dh)
+        if ring:
+            x = torch.cat([x, ex["ring_" + ("k" if pool is kp else "v")]
+                           .float().transpose(0, 1).reshape(
+                               S, ring, KVh, Dh)], dim=1)
+        return x.to(lib_dt).transpose(1, 2).contiguous()
+    kc = dense(kp, ex.get("k_scales"))
+    vc = dense(vp, ex.get("v_scales"))
+    qc = q.transpose(1, 2).contiguous().to(lib_dt)         # [S, H, C, D]
+    T = ctx + ring
+    pos = ctx - C + ring + torch.arange(C, device="cuda")
+    jt = torch.arange(T, device="cuda")
+    # pool columns sit at positions j, ring row r at ctx + r
+    mask = jt[None, :] <= pos[:, None]                     # [C, T]
+    if alibi:
+        dist = (pos[:, None] - jt[None, :]).float()
+        mask = torch.where(mask, -kw["alibi_slopes"][:, None, None] * dist,
+                           float("-inf")).to(lib_dt)       # [H, C, T]
     lib_ms = _time_ms(torch, _sdpa(qc, kc, vc, mask), 50)
     graph_ms = _graph_ms(torch, [lambda: fn(q, kp, vp, tab, st, ln, **kw)])
     lib_graph_ms = _graph_ms(torch, [_sdpa(qc, kc, vc, mask)])
     # bound: each input read once, each output written once (live K/V
-    # rows only), and the FLOPs of the causal pairs
-    pairs = S * sum(min(ctx, p + 1) for p in range(ctx - C, ctx))
+    # rows, their scales, the ring rows), and the FLOPs of the causal pairs
+    el = q.element_size()
+    pairs = S * sum(min(ctx, p + 1) for p in range(ctx - C, ctx)) \
+        + S * C * ring
     flops = 4 * Hh * Dh * pairs
-    nbytes = (2 * S * ctx * KVh * Dh + 2 * S * C * Hh * Dh) * 2 \
-        + tab.numel() * 4 + 2 * S * 4
+    nbytes = (2 * S * ctx * KVh * Dh * (1 if quant else el)
+              + 2 * S * C * Hh * Dh * el + 2 * S * ring * KVh * Dh * el
+              + (2 * S * ctx * KVh * 4 if quant else 0)
+              + (Hh * 4 if alibi else 0)
+              + tab.numel() * 4 + 2 * S * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / (F32_FLOPS_PER_S if dtype == torch.float32
+                     else BF16_FLOPS_PER_S) * 1e3
     out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": lib_ms, "max_abs_err": err,
            "shape": {"S": S, "C": C, "H": Hh, "KV": KVh, "D": Dh,
                      "context": ctx, "block_size": block_size,
-                     "dtype": "bf16"},
+                     "dtype": str(dtype)[6:], "int8_pool": quant,
+                     "alibi": alibi, "ring": ring},
            "bytes": nbytes, "flops": flops, "graph_ms": graph_ms,
            "library_graph_ms": lib_graph_ms}
+    if quant:
+        out["library_note"] = ("SDPA over the same K/V in bf16: a "
+                               "reference only (no PyTorch call computes "
+                               "the scaled int8 function)")
     out["bound_share"] = out["bound_ms"] / ms
     out["graph_bound_share"] = out["bound_ms"] / graph_ms
     if C == 1:
         out["plan"] = _k2_plan(pa, q, S, KVh, Hh // KVh, maxb, block_size)
+        if ring:
+            out["plan"]["ring_split"] = 1
     else:
-        out["kernel_route"] = pa.prefill_route(C, Dh, q.dtype, block_size)
+        out["kernel_route"] = pa.prefill_route(C, Dh, q.dtype, block_size,
+                                               quant)
         if out["kernel_route"].startswith("wgmma"):
             plan = pa.prefill_plan(S, C, Hh, maxb * block_size,
                                    sm_count(q.device))
             out["plan"] = {"items": plan.items, "grid": plan.grid}
-    log(f"[timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
+    log(f"[timing] {what}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
         f"{lib_ms:.4f}, bound {out['bound_ms']:.4f} by {out['bound_by']}, "
         f"{out['bound_share']:.1%} of it; max_abs_err {err:.3e}; in a CUDA "
         f"graph {graph_ms:.4f} ({out['graph_bound_share']:.1%} of the "
@@ -1949,7 +2050,9 @@ def phase_woq_serving(torch, trace=False):
             "prefill_tokens": tm["prefill_tokens"],
             "decode_s": tm["decode_s"], "decode_tokens": tm["decode_tokens"],
             "decode_tok_s": tm["decode_tokens"] / tm["decode_s"],
-            "peak_bytes": peak, "first_token_agreement_with_bf16": agree}
+            "peak_bytes": peak, "first_token_agreement_with_bf16": agree,
+            "pool_bytes": eng.kv_cache.memory_bytes(),
+            "first_tokens": [o[0] for o in out]}
         log(f"[woq serving] {mode}: weights {weight_bytes / 1e9:.3f} GB "
             f"(dense {dense_bytes / 1e9:.3f}), quantize {quant_s:.3f} s "
             f"({load_launches['quantize_sym']} quantize_sym launches), "
@@ -3435,6 +3538,395 @@ def pair_rows(torch, fa, tiny, launches, err):
     return rows
 
 
+# ----------------------------------------------- phase 23: the KV pool
+
+# phase 23's engines: TinyLlama's width (hidden 2048, 32 heads, 4 KV heads
+# of 64) with 2 layers, 4 prompts x 128 tokens, 33 new tokens (the first,
+# then two 16-step decode loops)
+KV_ENGINE_LAYERS, KV_ENGINE_SEQS, KV_ENGINE_PROMPT, KV_ENGINE_GEN = \
+    2, 4, 128, 33
+# Bloom-7B1's attention (bigscience/bloom-7b1: 32 heads of 128, ALiBi)
+BLOOM_HEADS = (32, 32, 128)
+
+
+def _kv_case(torch, rng, pa, name, *, heads, S, C, lens, bs, maxb, dtype,
+             quant=False, alibi=False, window=None, ring=0, route=None):
+    """One phase-23 kernel case: the wrapper on the card against its plain
+    version (phase 2's limits: bf16 8e-3, 1.6e-2 at D 128; fp16 4e-3; both
+    2**-8 of the norm; fp32 1e-5), bit-identical from a second call, the
+    launch counts of its route and of each thing it takes rising."""
+    Hh, KVh, Dh = heads
+    q, kp, vp, tab, st, ln = paged_inputs(
+        torch, rng, S=S, C=C, lens=lens, block_size=bs, maxb=maxb,
+        dtype=dtype, heads=heads)
+    ex = kv_extras(torch, kp, vp, KVh, Hh, quant=quant, alibi=alibi)
+    kp, vp = ex.pop("k_pool", kp), ex.pop("v_pool", vp)
+    if ring:
+        carry = torch.randn(32, 3, 2, S, KVh * Dh, device="cuda").to(dtype)
+        ex.update(ring_k=carry[:, 1, 0], ring_v=carry[:, 1, 1],
+                  ring_count=ring)
+        st = (ln + ring - 1).to(torch.int32)
+    kw = dict(block_size=bs, sm_scale=Dh ** -0.5, sliding_window=window,
+              num_kv_heads=KVh, **ex)
+    fn = getattr(pa, name)
+    keys = [route or ("decode_split" if dtype != torch.float32 else
+                      "decode_f32")]
+    keys += [k for k, on in (("int8", quant), ("alibi", alibi),
+                             ("ring", ring), ("fp16",
+                                              dtype == torch.float16)) if on]
+    before = {k: pa.ROUTE_LAUNCHES[k] for k in keys}
+    got = fn(q, kp, vp, tab, st, ln, **kw)
+    again = fn(q, kp, vp, tab, st, ln, **kw)
+    torch.cuda.synchronize()
+    for k in keys:
+        if pa.ROUTE_LAUNCHES[k] != before[k] + 2:
+            raise AssertionError(f"[kv pool] {name}: {k} launches "
+                                 f"{before[k]} -> {pa.ROUTE_LAUNCHES[k]}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"[kv pool] {name}: two calls differ")
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"[kv pool] {name}: non-finite output")
+    idle = ln == 0
+    if idle.any() and got[idle].abs().max().item() != 0.0:
+        raise AssertionError(f"[kv pool] {name}: idle slot not zero")
+    ref = pa.paged_attention_plain(q, kp, vp, tab, st, ln, **kw)
+    return check_close(
+        torch, f"[kv pool] {name} {keys[0]} {str(dtype)[6:]} H={Hh} KV={KVh}"
+        f" D={Dh} C={C} bs={bs} window={window}"
+        + (" int8" if quant else "") + (" alibi" if alibi else "")
+        + (f" ring {ring}" if ring else ""), got, ref,
+        bf16_max_abs=BF16_MAX_ABS if Dh <= 64 else PAGED7_BF16_MAX_ABS,
+        fp32_max_abs=KV_FP32_MAX_ABS)
+
+
+def _kv_engine(torch, cfg, params, prompts, **kw):
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig)
+    rcfg = RaggedInferenceConfig(
+        max_seqs=KV_ENGINE_SEQS, chunk_size=64, block_size=64,
+        num_blocks=32, max_blocks_per_seq=4, **kw)
+    eng = InferenceEngineV2(cfg, params, rcfg, device="cuda")
+    return eng, eng.generate(prompts, max_new_tokens=KV_ENGINE_GEN)
+
+
+def phase_kv_pool(torch, woq, trace=False):
+    """Phase 23: the int8 and fp16 KV pool, ALiBi and the decode ring.
+    Each K1 route and K2 against the plain version (fp16: fault C4; an
+    int8 pool with its scales in bf16, fp16 and fp32 compute; ALiBi at
+    Bloom-7B1's heads; an int8 pool under a window; K2's ring round at
+    ring counts 1, 5 and 32); engine parity at TinyLlama's width; then
+    Llama-2-7B served from an int8 pool as phase 15 serves it, beside
+    phase 15's bf16-pool run; then each new variant timed. Returns
+    (result, kernels-line rows)."""
+    import numpy as np
+    from deepspeed_tpu_torch.checkpoint import init_llama_params
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig)
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    rng = np.random.default_rng(23)
+    out = {}
+    worst = {}
+
+    def case(key, *a, **kw):
+        err = _kv_case(torch, rng, pa, *a, **kw)
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    pa.reset_launch_counts()
+    # 1. the kernels against their plain versions
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    pre_lens = [256, 512, 1024, 0]
+    for heads in ((32, 4, 64), (32, 32, 96), (32, 32, 128)):
+        Dh = heads[2]
+        for bs, maxb in ((64, 32), (16, 128)):
+            # fp16 on every K1 route these shapes reach (C4)
+            route = "prefill_" + pa.prefill_route(256, Dh, f16, bs)
+            case("paged_prefill_fp16", "paged_prefill", heads=heads, S=4,
+                 C=256, lens=pre_lens, bs=bs, maxb=maxb, dtype=f16,
+                 route=route)
+        case("paged_prefill_fp16", "paged_prefill", heads=heads, S=4, C=40,
+             lens=[40, 300, 0, 1000], bs=16, maxb=128, dtype=f16,
+             route="prefill_mma")
+        for dt in (bf, f16, f32):
+            route = "prefill_" + pa.prefill_route(256, Dh, dt, 64, True)
+            for window in (None, 300):
+                case("paged_prefill_int8", "paged_prefill", heads=heads,
+                     S=4, C=256, lens=pre_lens, bs=64, maxb=32, dtype=dt,
+                     quant=True, window=window, route=route)
+    # K2: GQA 1, 8 and 32 at D 64, 96 and 128
+    for Dh in (64, 96, 128):
+        for g in (1, 8, 32):
+            heads = (32, 32 // g, Dh)
+            dec_lens = rng.integers(1, 2049, 16)
+            dec_lens[3] = 0                              # an idle slot
+            case("paged_decode_fp16", "paged_decode", heads=heads, S=16,
+                 C=1, lens=dec_lens, bs=64, maxb=32, dtype=f16)
+            for dt in (bf, f16, f32):
+                for window in (None, 700):
+                    case("paged_decode_int8", "paged_decode", heads=heads,
+                         S=16, C=1, lens=dec_lens, bs=64, maxb=32, dtype=dt,
+                         quant=True, window=window)
+            for rc in (1, 5, 32):
+                case("paged_decode_ring", "paged_decode", heads=heads,
+                     S=16, C=1, lens=dec_lens, bs=64, maxb=32, dtype=bf,
+                     quant=True, ring=rc, window=700 if rc == 5 else None)
+            case("paged_decode_ring", "paged_decode", heads=heads, S=16,
+                 C=1, lens=dec_lens, bs=64, maxb=32, dtype=f16, ring=5)
+    # ALiBi at Bloom-7B1's heads on every route, in the three dtypes
+    for dt in (bf, f16, f32):
+        for bs, maxb, C in ((64, 32, 256), (16, 128, 256), (16, 128, 40)):
+            case("paged_prefill_alibi", "paged_prefill", heads=BLOOM_HEADS,
+                 S=4, C=C, lens=[C, 700, 0, 1500], bs=bs, maxb=maxb,
+                 dtype=dt, alibi=True,
+                 route="prefill_" + pa.prefill_route(C, 128, dt, bs))
+        case("paged_decode_alibi", "paged_decode", heads=BLOOM_HEADS, S=16,
+             C=1, lens=rng.integers(1, 2049, 16), bs=64, maxb=32, dtype=dt,
+             alibi=True, window=500 if dt == bf else None)
+    parity_launches = dict(pa.ROUTE_LAUNCHES)
+    log(f"[kv pool] kernel cases: launches {parity_launches}")
+    out["parity_launches"] = parity_launches
+
+    # 2. engine parity: the kernels against the dense path, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prompts = np.random.default_rng(23).integers(
+        1, 32000, (KV_ENGINE_SEQS, KV_ENGINE_PROMPT)).tolist()
+    eng_out = {}
+    cfg = LlamaConfig.tinyllama_1b(num_layers=KV_ENGINE_LAYERS,
+                                   dtype=torch.float32)
+    params = init_llama_params(cfg, seed=23, device="cuda",
+                               dtype=torch.float32)
+    for loop in (0, 16):
+        gens = {}
+        for impl in ("paged_flash", "dense"):
+            pa.reset_launch_counts()
+            eng, gens[impl] = _kv_engine(
+                torch, cfg, params, prompts, dtype="float32",
+                kv_cache_dtype="int8", decode_loop_steps=loop,
+                attention_impl=impl)
+            if impl == "paged_flash":
+                launches = dict(pa.ROUTE_LAUNCHES)
+                want = ["int8", "prefill_f32", "decode_f32"] \
+                    + (["ring"] if loop else [])
+                if not all(launches[k] for k in want) \
+                        or eng.kv_cache.data.dtype != torch.int8:
+                    raise AssertionError(f"[kv pool] engine int8 loop "
+                                         f"{loop}: {launches}")
+            del eng
+        key = f"float32_int8_loop{loop}"
+        if gens["paged_flash"] != gens["dense"]:
+            raise AssertionError(f"[kv pool] engine {key}: kernel tokens "
+                                 f"differ from dense")
+        eng_out[key] = {"tokens_identical": True, "launches": launches}
+        log(f"[kv pool] engine {key}: paged_flash tokens identical to "
+            f"dense over {KV_ENGINE_SEQS} x {KV_ENGINE_GEN}; launches "
+            f"{launches}")
+    del params
+    torch.cuda.empty_cache()
+    # fp16 on an fp16 pool: the dense path rounds the scores to fp16
+    # before its softmax and the kernels keep them fp32 (as the JAX
+    # package's dense path and kernels do), so free-running greedy
+    # streams may part where two logits tie within fp16's rounding. So
+    # the two engines are fed the same tokens (the dense engine's argmax,
+    # one put() a step): prefill and each decode step's logits within
+    # 2**-8 of the norm; the free-running streams' agreement is reported
+    cfg = LlamaConfig.tinyllama_1b(num_layers=KV_ENGINE_LAYERS,
+                                   dtype=torch.float16)
+    params = init_llama_params(cfg, seed=23, device="cuda",
+                               dtype=torch.float16)
+    uids = list(range(KV_ENGINE_SEQS))
+    engs, gens = {}, {}
+    for impl in ("paged_flash", "dense"):
+        engs[impl], gens[impl] = _kv_engine(
+            torch, cfg, params, prompts, dtype="float16",
+            decode_loop_steps=16, attention_impl=impl)
+        if engs[impl].kv_cache.data.dtype != torch.float16:
+            raise AssertionError("wrong pool dtype")
+    pa.reset_launch_counts()
+    feed, worst_rel, worst_abs = prompts, 0.0, 0.0
+    for step in range(KV_ENGINE_GEN):
+        got = {impl: np.stack([v for _, v in sorted(
+            engs[impl].put(uids, feed).items())]) for impl in engs}
+        diff = got["paged_flash"] - got["dense"]
+        worst_rel = max(worst_rel, float(np.linalg.norm(diff)
+                                         / np.linalg.norm(got["dense"])))
+        worst_abs = max(worst_abs, float(np.abs(diff).max()))
+        feed = [[int(t)] for t in got["dense"].argmax(axis=-1)]
+    launches = dict(pa.ROUTE_LAUNCHES)
+    agree = float(np.mean([a == b for a, b in zip(
+        sum(gens["paged_flash"], []), sum(gens["dense"], []))]))
+    del engs, params
+    torch.cuda.empty_cache()
+    if not (launches["fp16"] and launches["decode_split"]
+            and launches["fp16"] > launches["decode_split"]):
+        raise AssertionError(f"[kv pool] engine fp16: {launches}")
+    log(f"[kv pool] engine float16_fp16_pool: {KV_ENGINE_GEN} teacher-"
+        f"forced steps, logits rel-norm {worst_rel:.3e} max-abs "
+        f"{worst_abs:.3e} from dense (limit rel-norm {BF16_REL_NORM:.3e}); "
+        f"free-running greedy tokens agree {agree:.3f}; launches "
+        f"{launches}")
+    if not worst_rel <= BF16_REL_NORM:
+        raise AssertionError("[kv pool] engine fp16: kernel logits differ "
+                             "from dense")
+    eng_out["float16_fp16_pool"] = {
+        "logits_rel_norm": worst_rel, "logits_max_abs": worst_abs,
+        "free_running_token_agreement": agree, "launches": launches}
+    out["engine"] = eng_out
+
+    # 3. Llama-2-7B served from an int8 pool, as phase 15 serves bf16
+    cfg = LlamaConfig.llama2_7b(max_seq_len=2048, dtype=torch.bfloat16)
+    rcfg = RaggedInferenceConfig(
+        max_seqs=WOQ_SEQS, chunk_size=WOQ_PROMPT,
+        block_size=WOQ_PROMPT + WOQ_GEN, num_blocks=WOQ_SEQS + 2,
+        max_blocks_per_seq=1, dtype="bfloat16", kv_cache_dtype="int8",
+        decode_loop_steps=32, attention_impl="paged_flash")
+    prompts = np.random.RandomState(0).randint(
+        1, cfg.vocab_size, size=(WOQ_SEQS, WOQ_PROMPT)).tolist()
+    params = init_llama_params(cfg, seed=0, device="cuda")
+    eng = InferenceEngineV2(cfg, params, rcfg, device="cuda")
+    del params
+    torch.cuda.empty_cache()
+    eng.generate([prompts[0][:80]], max_new_tokens=40)       # warm-up
+    for k in eng.timing:
+        eng.timing[k] = 0 if isinstance(eng.timing[k], int) else 0.0
+    pa.reset_launch_counts()
+    eng.runner.step_counts = {"prefill": 0, "decode": 0}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = eng.generate(prompts, max_new_tokens=WOQ_GEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**pa.LAUNCHES, **pa.ROUTE_LAUNCHES}
+    steps = dict(eng.runner.step_counts)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    want = {"paged_prefill": L * steps["prefill"],
+            "paged_decode": L * steps["decode"],
+            "prefill_mma": L * steps["prefill"],
+            "decode_split": L * steps["decode"],
+            "int8": L * (steps["prefill"] + steps["decode"])}
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if bad or not (steps["prefill"] and steps["decode"]) \
+            or not launches["ring"]:
+        raise AssertionError(f"[kv pool] 7B int8: launches {launches}, "
+                             f"steps {steps} ({bad})")
+    if any(len(o) != WOQ_GEN for o in gen) \
+            or not all(0 <= t < cfg.vocab_size for o in gen for t in o):
+        raise AssertionError("wrong output lengths or token ids")
+    if eng.free_blocks != rcfg.num_blocks:
+        raise AssertionError("KV blocks leaked")
+    logits = eng.put([999], [prompts[0]])[999]
+    eng.flush(999)
+    if not np.isfinite(logits).all():
+        raise AssertionError("non-finite logits")
+    kvc = eng.kv_cache
+    data_b = kvc.data.numel() * kvc.data.element_size()
+    scale_b = kvc.scales.numel() * kvc.scales.element_size()
+    tm = eng.timing
+    bf16_run = woq["bf16"]
+    first = [o[0] for o in gen]
+    serve = {
+        "pool_data_bytes": data_b, "pool_scale_bytes": scale_b,
+        "pool_bytes": kvc.memory_bytes(),
+        "bf16_pool_bytes": bf16_run["pool_bytes"], "steps": steps,
+        "launches": launches, "wall_s": wall, "prefill_s": tm["prefill_s"],
+        "prefill_tokens": tm["prefill_tokens"], "decode_s": tm["decode_s"],
+        "decode_tokens": tm["decode_tokens"],
+        "decode_tok_s": tm["decode_tokens"] / tm["decode_s"],
+        "peak_bytes": peak,
+        "first_token_agreement_with_bf16_pool": float(np.mean(
+            [a == b for a, b in zip(first, bf16_run["first_tokens"])])),
+        "bf16_pool": {k: bf16_run[k] for k in (
+            "prefill_s", "decode_tok_s", "peak_bytes", "wall_s")}}
+    log(f"[kv pool] Llama-2-7B int8 pool: data {data_b / 1e9:.3f} GB + "
+        f"scales {scale_b / 1e9:.3f} GB = {serve['pool_bytes'] / 1e9:.3f} "
+        f"GB (bf16 pool {bf16_run['pool_bytes'] / 1e9:.3f} GB); steps "
+        f"{steps}, prefill {tm['prefill_tokens']} tokens in "
+        f"{tm['prefill_s']:.4f} s (bf16 pool {bf16_run['prefill_s']:.4f}), "
+        f"decode {tm['decode_tokens']} tokens in {tm['decode_s']:.4f} s = "
+        f"{serve['decode_tok_s']:.1f} tok/s (bf16 pool "
+        f"{bf16_run['decode_tok_s']:.1f}), wall {wall:.3f} s, peak memory "
+        f"{peak / 2**30:.2f} GiB (bf16 pool "
+        f"{bf16_run['peak_bytes'] / 2**30:.2f}), first tokens agree with "
+        f"the bf16 pool's {serve['first_token_agreement_with_bf16_pool']:.3f}"
+        f"; launches {launches}")
+    if trace:
+        log("[trace] Llama-2-7B int8 pool:")
+        serve["trace"] = phase_trace(torch, eng, prompts)
+        log(f"[trace] Llama-2-7B int8 pool decode window: device idle share "
+            f"{serve['trace']['decode'].get('idle_share')} (bf16 pool "
+            f"{bf16_run.get('trace', {}).get('decode', {}).get('idle_share')})")
+    out["llama2_7b_int8"] = serve
+    del eng
+    torch.cuda.empty_cache()
+
+    # 4. each variant timed: at the 7B shapes (K2 at 64 x 576, one split;
+    # K1 on the 64 x 512 prefill step) and, for fp16, phase 5's TinyLlama
+    # shapes; ALiBi at Bloom-7B1's heads on the 7B shapes
+    rows = []
+    lin = dict(block_size=WOQ_PROMPT + WOQ_GEN, maxb=1)
+    dec7 = dict(S=WOQ_SEQS, C=1, ctx=WOQ_PROMPT + WOQ_GEN // 2, **lin)
+    pre7 = dict(S=WOQ_SEQS, C=WOQ_PROMPT, ctx=WOQ_PROMPT, **lin)
+    h7 = (H7, KV7, D7)
+    specs = [
+        ("paged_decode_int8", "paged_decode", dict(**dec7, heads=h7,
+                                                   quant=True),
+         launches["paged_decode"], "llama2_7b int8 serving"),
+        ("paged_decode_ring", "paged_decode", dict(**dec7, heads=h7,
+                                                   quant=True, ring=16),
+         launches["ring"], "llama2_7b int8 serving"),
+        ("paged_prefill_int8", "paged_prefill", dict(**pre7, heads=h7,
+                                                     quant=True),
+         launches["paged_prefill"], "llama2_7b int8 serving"),
+        ("paged_decode_fp16", "paged_decode",
+         dict(S=16, C=1, ctx=544, block_size=64, maxb=16,
+              dtype=torch.float16),
+         eng_out["float16_fp16_pool"]["launches"]["decode_split"],
+         "TinyLlama-width fp16 engine"),
+        ("paged_prefill_fp16", "paged_prefill",
+         dict(S=16, C=256, ctx=512, block_size=64, maxb=16,
+              dtype=torch.float16),
+         eng_out["float16_fp16_pool"]["launches"]["fp16"]
+         - eng_out["float16_fp16_pool"]["launches"]["decode_split"],
+         "TinyLlama-width fp16 engine"),
+        ("paged_decode_alibi", "paged_decode", dict(**dec7,
+                                                    heads=BLOOM_HEADS,
+                                                    alibi=True),
+         parity_launches["alibi"], "phase 23's kernel cases (no served "
+         "model takes ALiBi yet)"),
+        ("paged_prefill_alibi", "paged_prefill", dict(**pre7,
+                                                      heads=BLOOM_HEADS,
+                                                      alibi=True),
+         parity_launches["alibi"], "phase 23's kernel cases (no served "
+         "model takes ALiBi yet)"),
+    ]
+    trng = np.random.default_rng(230)
+    timing = {}
+    for row_name, fn_name, kw, n_launch, launches_from in specs:
+        t = time_paged(torch, trng, fn_name,
+                       bf16_max_abs=PAGED7_BF16_MAX_ABS, **kw)
+        timing[row_name] = t
+        rows.append({"name": row_name, "route": "cuda", "source": SOURCE,
+                     "replaces": REPLACES[fn_name], "launches": n_launch,
+                     "launches_from": launches_from,
+                     **t, "max_abs_err": max(worst.get(row_name, 0.0),
+                                             t["max_abs_err"])})
+        torch.cuda.empty_cache()
+    # the bf16 pool's K2 at the same 7B shape, in this call, for the ratio
+    t = time_paged(torch, trng, "paged_decode", **dec7, heads=h7,
+                   bf16_max_abs=PAGED7_BF16_MAX_ABS)
+    timing["paged_decode_bf16_7b"] = t
+    log(f"[kv pool] K2 at the 7B shape: int8 pool "
+        f"{timing['paged_decode_int8']['ms']:.4f} ms (graph "
+        f"{timing['paged_decode_int8']['graph_ms']:.4f}, bound "
+        f"{timing['paged_decode_int8']['bound_ms']:.4f}) against bf16 "
+        f"{t['ms']:.4f} (graph {t['graph_ms']:.4f}, bound "
+        f"{t['bound_ms']:.4f})")
+    out["timing"] = timing
+    return out, rows
+
+
 def main(argv) -> int:
     unknown = [a for a in argv
                if a not in ("--trace", "--fp6-sweep", "--norm-sweep")]
@@ -3506,6 +3998,8 @@ def main(argv) -> int:
     rows += run(phase_evoformer_op, torch)
     c1, c1_rows = run(phase_c1_shapes, torch)
     rows += c1_rows
+    kv_pool, kv_rows = run(phase_kv_pool, torch, woq, tracing)
+    rows += kv_rows
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     result = {"kernels": rows, "card": card, "phase_s": phase_s,
               "serving": {k: serving[k] for k in
@@ -3519,12 +4013,14 @@ def main(argv) -> int:
               "fused_training_parity": fused_parity,
               "woq_serving": {m: {k: v for k, v in r.items() if k != "trace"}
                               for m, r in woq.items()},
-              "woq_engine_parity": woq_parity, "c1": c1}
+              "woq_engine_parity": woq_parity, "c1": c1,
+              "kv_pool": {k: v for k, v in kv_pool.items() if k != "timing"}}
     if trace is not None:
         result["trace"] = trace
         result["train_trace"] = train["trace"]
         result["gpt1p3b_trace"] = bench["fused"]["trace"]
         result["woq_trace"] = {m: r["trace"] for m, r in woq.items()}
+        result["kv_pool_trace"] = kv_pool["llama2_7b_int8"].pop("trace")
     print(json.dumps(result), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

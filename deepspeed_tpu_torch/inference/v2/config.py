@@ -4,7 +4,6 @@ Only the fields this port reads. Features the port does not have yet are
 refused here, at construction, with the knob's name:
 
 - ``tp_size`` / ``seq_size`` / ``ep_size`` > 1 (multi-device serving);
-- ``kv_cache_dtype="int8"`` (the quantized pool);
 - ``prefix_cache=True``;
 - ``serve_pipeline_depth`` > 0. The JAX package defaults to 2 (an
   overlapped plan/dispatch/commit pipeline); this port runs depth 0, the
@@ -26,7 +25,9 @@ class RaggedInferenceConfig:
     num_blocks: int = 256             # pool size (blocks of block_size tokens)
     max_blocks_per_seq: int = 32      # width of the block table
     dtype: str = "bfloat16"           # KV pool dtype
-    kv_cache_dtype: str = "auto"      # "auto" = dtype; "int8" not ported
+    # "auto" = dtype; "int8": int8 rows with per-(token, KV head) f32
+    # scales (kv_quant.py)
+    kv_cache_dtype: str = "auto"
     # "auto": the CUDA paged kernels on a card, the dense gather-and-mask
     # path on the CPU; "paged_flash" / "dense" force one.
     attention_impl: str = "auto"
@@ -50,13 +51,10 @@ class RaggedInferenceConfig:
             raise ValueError(
                 f"attention_impl must be 'auto', 'paged_flash' or 'dense', "
                 f"got {self.attention_impl!r}")
-        if self.kv_cache_dtype == "int8":
-            raise NotImplementedError(
-                "kv_cache_dtype='int8' (quantized KV pool) is not ported "
-                "yet; use kv_cache_dtype='auto'")
-        if self.kv_cache_dtype != "auto":
+        if self.kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(
-                f"kv_cache_dtype must be 'auto', got {self.kv_cache_dtype!r}")
+                f"kv_cache_dtype must be 'auto' or 'int8', got "
+                f"{self.kv_cache_dtype!r}")
         for knob in ("tp_size", "seq_size", "ep_size"):
             v = getattr(self, knob)
             if v < 1:

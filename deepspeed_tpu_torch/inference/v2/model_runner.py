@@ -9,9 +9,15 @@ corrupt a live sequence's KV.
 
 The decode loop is a Python loop of greedy steps that feeds each step's
 tokens to the next on the device, with one host sync per ``n`` tokens.
-The JAX package keeps fresh K/V in a ring buffer inside its fused loop
-because TPU scatters are slow; here every step appends to the pool and
-then attends, which is the same attention over the same keys.
+Over a bf16, fp16 or fp32 pool every step appends its K/V to the pool and
+then attends: the JAX package's fused loop keeps its fresh K/V in a ring
+buffer because TPU scatters are slow, and appending computes the same
+attention over the same keys. Over an int8 pool the loop keeps the JAX
+package's ring (``RingKV``): each step's K/V go into a compute-dtype ring,
+attended unquantized after the settled pool, and the ring is quantized
+into the pool once, when the loop ends. Appending would quantize the
+loop's own tokens before they are attended, which is not what the JAX
+package computes.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 from ...ops.kernels.fp6_gemm import Fp6GemmWeight, fp6_matmul
 from ..quantization import dequantize_leaf
 from .config import RaggedInferenceConfig
+from .kv_quant import RingKV, pool_parts, quantize_rows
 
 
 class RaggedBatch(NamedTuple):
@@ -43,25 +50,38 @@ def resolve_attention_impl(cfg: RaggedInferenceConfig,
 
 
 def _gather_ctx(pool, li, batch, cfg, S, KV, D, dtype):
-    """[S, max_context, KV, D] context gathered through the block tables."""
+    """[S, max_context, KV, D] context gathered through the block tables.
+    An int8 pool is dequantized per gathered row (the dense path only: the
+    kernels scale scores and probabilities instead)."""
+    data, scales = pool_parts(pool)
     bs = cfg.block_size
-    j = torch.arange(cfg.max_context, device=pool.device)
+    j = torch.arange(cfg.max_context, device=data.device)
     ctx_idx = batch.block_tables.long()[:, j // bs] * bs + j % bs
-    k_ctx = pool[li, 0][ctx_idx].reshape(S, -1, KV, D)
-    v_ctx = pool[li, 1][ctx_idx].reshape(S, -1, KV, D)
-    return k_ctx.to(dtype), v_ctx.to(dtype)
+    k_ctx = data[li, 0][ctx_idx].reshape(S, -1, KV, D)
+    v_ctx = data[li, 1][ctx_idx].reshape(S, -1, KV, D)
+    if scales is None:
+        return k_ctx.to(dtype), v_ctx.to(dtype)
+    ks = scales[li, 0].T[ctx_idx]                              # [S, T, KV]
+    vs = scales[li, 1].T[ctx_idx]
+    return ((k_ctx.float() * ks[..., None]).to(dtype),
+            (v_ctx.float() * vs[..., None]).to(dtype))
 
 
-def _grouped_dense_attention(q, k_ctx, v_ctx, mask, scale, dtype):
-    """Masked grouped-GQA attention core of the dense path. q [S, C, H, D];
-    k/v_ctx [S, T, KV, D]; mask [S, C, T]. KV stays at native width."""
+def _grouped_dense_attention(q, k_ctx, v_ctx, mask, dist, scale, dtype,
+                             alibi_slopes):
+    """Masked grouped-GQA attention core of the dense paths. q [S, C, H,
+    D]; k/v_ctx [S, T, KV, D]; mask/dist [S, C, T] (or [S, 1, T]
+    broadcasting over C). KV stays at native width."""
     S, C, H, D = q.shape
     KV = k_ctx.shape[2]
     g = H // KV
     qg = q.reshape(S, C, KV, g, D)
     s_att = torch.einsum("sckgd,stkd->skgct", qg, k_ctx) * scale
     s_att = s_att.to(torch.float32)
-    s_att = s_att.masked_fill(~mask[:, None, None, :, :], float("-inf"))
+    if alibi_slopes is not None:
+        s_att = s_att - alibi_slopes.float().reshape(KV, g)[
+            None, :, :, None, None] * dist[:, None, None]
+    s_att = s_att.masked_fill(~mask[:, None, None], float("-inf"))
     p_att = torch.softmax(s_att, dim=-1).to(dtype)
     # fully-masked rows (idle slots) produce NaN softmax garbage that is
     # never read; keep numerics finite
@@ -70,12 +90,48 @@ def _grouped_dense_attention(q, k_ctx, v_ctx, mask, scale, dtype):
         S, C, H * D)
 
 
-def paged_attention(pool: torch.Tensor, li: int, q, k, v,
-                    batch: RaggedBatch, cfg: RaggedInferenceConfig, pos,
-                    valid_q, scale: float, dtype,
+def _dense_ring_attention(pool, ring, li, q, batch, cfg, settled_lens,
+                          rcount, scale, dtype, alibi_slopes,
+                          sliding_window):
+    """Ring-mode attention on the dense path: the gathered settled context
+    and the ring concatenate along the context axis, the settled part
+    masked column-exactly at ``settled_lens``."""
+    S, C, H, D = q.shape
+    KV = ring.shape[4] // D
+    T = cfg.max_context
+    k_ctx, v_ctx = _gather_ctx(pool, li, batch, cfg, S, KV, D, dtype)
+    R = ring.shape[0]
+    ring_k = ring[:, li, 0].transpose(0, 1).reshape(S, R, KV, D)
+    ring_v = ring[:, li, 1].transpose(0, 1).reshape(S, R, KV, D)
+    k_full = torch.cat([k_ctx, ring_k.to(dtype)], dim=1)
+    v_full = torch.cat([v_ctx, ring_v.to(dtype)], dim=1)
+    # columns: [0, T) settled (valid below settled_lens), [T, T+R) ring
+    # (valid below rcount); ring row r sits rcount-1-r behind the query
+    jr = torch.arange(T + R, device=q.device)
+    pool_col = jr[None, :] < T
+    dist = torch.where(pool_col,
+                       batch.start_pos.long()[:, None] - jr[None, :],
+                       rcount - 1 - (jr[None, :] - T)).float()
+    mask = torch.where(pool_col, jr[None, :] < settled_lens.long()[:, None],
+                       (jr[None, :] - T) < rcount)
+    if sliding_window is not None:
+        mask = mask & (dist < sliding_window)
+    return _grouped_dense_attention(q, k_full, v_full, mask[:, None],
+                                    dist[:, None], scale, dtype,
+                                    alibi_slopes)
+
+
+def paged_attention(kv, li: int, q, k, v, batch: RaggedBatch,
+                    cfg: RaggedInferenceConfig, pos, valid_q, scale: float,
+                    dtype, alibi_slopes: Optional[torch.Tensor] = None,
                     sliding_window: Optional[int] = None) -> torch.Tensor:
     """Append this step's K/V through the block tables (in place), then
-    attend. q: [S, C, H, D]; k/v: [S, C, KV, D]. Dispatches on
+    attend. q: [S, C, H, D]; k/v: [S, C, KV, D]. ``kv`` is the pool
+    tensor, a :class:`KVPool` (int8 rows and scales: the step's K/V are
+    quantized per (token, KV head) as they are written), or, inside the
+    decode loop over an int8 pool, a :class:`RingKV`: the pool is then
+    read-only and the step's K/V go into ring row ``t``, attended by the
+    kernels' ring round. ``alibi_slopes`` [H] f32: ALiBi. Dispatches on
     ``cfg.attention_impl`` (``resolve_attention_impl``):
 
       "paged_flash" — the paged kernels (ops/kernels/paged_attention.py),
@@ -86,41 +142,68 @@ def paged_attention(pool: torch.Tensor, li: int, q, k, v,
     S, C, H, D = q.shape
     KV = k.shape[2]
     bs = cfg.block_size
-    trash = pool.shape[2] - 1
-    tables = batch.block_tables.long()
-    blk = torch.gather(
-        tables, 1, torch.clamp(pos // bs, max=cfg.max_blocks_per_seq - 1))
-    write_idx = torch.where(valid_q, blk * bs + pos % bs,
-                            torch.full_like(blk, trash)).reshape(-1)
-    pool[li, 0].index_copy_(0, write_idx,
-                            k.reshape(S * C, KV * D).to(pool.dtype))
-    pool[li, 1].index_copy_(0, write_idx,
-                            v.reshape(S * C, KV * D).to(pool.dtype))
-
-    impl = resolve_attention_impl(cfg, pool.device)
-    if impl == "paged_flash":
-        from ...ops.kernels import flash_paged_attention
-        seq_lens = torch.where(batch.n_tokens > 0,
-                               batch.start_pos + batch.n_tokens,
-                               torch.zeros_like(batch.n_tokens))
-        # q joins the pool's dtype so the kernel reads one dtype (fp32
-        # accumulation inside); the pool itself is never cast or copied
-        y = flash_paged_attention(
-            q.to(pool.dtype).contiguous(), pool[li, 0], pool[li, 1],
-            batch.block_tables, batch.start_pos, seq_lens,
-            block_size=bs, sm_scale=scale, sliding_window=sliding_window,
-            num_kv_heads=KV)
-        return y.reshape(S, C, H * D).to(dtype)
-    if impl != "dense":
+    impl = resolve_attention_impl(cfg, q.device)
+    if impl not in ("paged_flash", "dense"):
         raise ValueError(
             f"attention_impl must be 'auto', 'paged_flash' or 'dense', "
             f"got {cfg.attention_impl!r}")
-    k_ctx, v_ctx = _gather_ctx(pool, li, batch, cfg, S, KV, D, dtype)
-    j = torch.arange(cfg.max_context, device=pool.device)
-    mask = j[None, None, :] <= pos[:, :, None]               # [S, C, T]
-    if sliding_window is not None:
-        mask = mask & ((pos[:, :, None] - j[None, None, :]) < sliding_window)
-    return _grouped_dense_attention(q, k_ctx, v_ctx, mask, scale, dtype)
+    if isinstance(kv, RingKV):
+        pool, ring, t, rcount = kv
+        data, scales = pool_parts(pool)
+        ring[t, li, 0] = k.reshape(S, KV * D).to(ring.dtype)
+        ring[t, li, 1] = v.reshape(S, KV * D).to(ring.dtype)
+        # the pool holds the settled tokens, the ring rows 0 .. t the rest
+        seq_lens = torch.where(batch.n_tokens > 0, batch.start_pos - t,
+                               torch.zeros_like(batch.start_pos))
+        if impl == "dense":
+            y = _dense_ring_attention(pool, ring, li, q, batch, cfg,
+                                      seq_lens, rcount, scale, dtype,
+                                      alibi_slopes, sliding_window)
+            return y.reshape(S, C, H * D).to(dtype)
+        ring_kw = dict(ring_k=ring[:, li, 0], ring_v=ring[:, li, 1],
+                       ring_count=rcount)
+    else:
+        data, scales = pool_parts(kv)
+        trash = data.shape[2] - 1
+        tables = batch.block_tables.long()
+        blk = torch.gather(tables, 1, torch.clamp(
+            pos // bs, max=cfg.max_blocks_per_seq - 1))
+        write_idx = torch.where(valid_q, blk * bs + pos % bs,
+                                torch.full_like(blk, trash)).reshape(-1)
+        for x, rows in ((0, k.reshape(S * C, KV * D)),
+                        (1, v.reshape(S * C, KV * D))):
+            if scales is None:
+                data[li, x].index_copy_(0, write_idx, rows.to(data.dtype))
+            else:
+                codes, sc = quantize_rows(rows, KV)
+                data[li, x].index_copy_(0, write_idx, codes)
+                scales[li, x].index_copy_(1, write_idx, sc)
+        if impl == "dense":
+            k_ctx, v_ctx = _gather_ctx(kv, li, batch, cfg, S, KV, D, dtype)
+            j = torch.arange(cfg.max_context, device=q.device)
+            dist = (pos[:, :, None] - j[None, None, :]).float()  # [S, C, T]
+            mask = dist >= 0
+            if sliding_window is not None:
+                mask = mask & (dist < sliding_window)
+            return _grouped_dense_attention(q, k_ctx, v_ctx, mask, dist,
+                                            scale, dtype, alibi_slopes)
+        seq_lens = torch.where(batch.n_tokens > 0,
+                               batch.start_pos + batch.n_tokens,
+                               torch.zeros_like(batch.n_tokens))
+        ring_kw = {}
+    from ...ops.kernels import flash_paged_attention
+    # q joins the pool's dtype so the kernel reads one dtype (fp32
+    # accumulation inside); the pool itself is never cast or copied. Over
+    # an int8 pool q stays in the compute dtype and the kernels scale
+    # scores and probabilities by the scales.
+    y = flash_paged_attention(
+        q.to(data.dtype if scales is None else dtype).contiguous(),
+        data[li, 0], data[li, 1], batch.block_tables, batch.start_pos,
+        seq_lens, block_size=bs, sm_scale=scale,
+        sliding_window=sliding_window, num_kv_heads=KV,
+        alibi_slopes=alibi_slopes, scales_full=scales, pool_layer=li,
+        **ring_kw)
+    return y.reshape(S, C, H * D).to(dtype)
 
 
 def woq_mm(h: torch.Tensor, w: Any, dtype) -> torch.Tensor:
@@ -185,18 +268,28 @@ class RaggedRunnerBase:
         active [S]: 1 live / 0 idle. ``eos_id`` >= 0 freezes a slot once
         it emits eos (it keeps emitting eos and stops appending KV).
         Slots must hold KV blocks for start_pos .. start_pos + n - 1.
-        Returns (tokens [S, n] int32, consumed [S] int32 or None — KV
-        positions each slot appended, None when EOS is off), on the
-        device: the caller's readback is the loop's one host sync."""
+        Over an int8 pool (a KVPool) the steps' K/V ride a compute-dtype
+        ring [n, L, 2, S, KV*D], flushed into the pool at the end (module
+        docstring). Returns (tokens [S, n] int32, consumed [S] int32 or
+        None — KV positions each slot appended, None when EOS is off), on
+        the device: the caller's readback is the loop's one host sync."""
+        _, scales = pool_parts(pool)
+        ring = None
+        if scales is not None:
+            ring = torch.zeros(
+                (n, self.num_layers, 2, tok0.shape[0],
+                 self.kv_heads * self.head_dim), dtype=self.compute_dtype,
+                device=tok0.device)
         tok, pos = tok0, start_pos
         done = torch.zeros_like(active, dtype=torch.bool)
         use_eos = eos_id >= 0
         out = []
-        for _ in range(n):
+        for t in range(n):
             alive = active * (~done).to(active.dtype) if use_eos else active
             batch = RaggedBatch(tokens=tok[:, None], start_pos=pos,
                                 n_tokens=alive, block_tables=block_tables)
-            nxt = torch.argmax(self._forward(params, pool, batch),
+            kv = pool if ring is None else RingKV(pool, ring, t, t + 1)
+            nxt = torch.argmax(self._forward(params, kv, batch),
                                dim=-1).to(torch.int32)
             if use_eos:
                 nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
@@ -206,5 +299,33 @@ class RaggedRunnerBase:
                 pos = pos + 1
             out.append(nxt)
             tok = nxt
+        if ring is not None:
+            self._flush_ring(pool, ring, block_tables, start_pos, active)
         toks = torch.stack(out, dim=1)
         return toks, (pos - start_pos if use_eos else None)
+
+    def _flush_ring(self, pool, ring, block_tables, start0, active) -> None:
+        """Quantize the loop's ring rows once and write them into the
+        int8 pool and its scales, in place: ring row r of an active slot
+        goes to position ``start0 + r`` through its block table (every
+        row, also those an EOS-frozen slot wrote after it froze, as the
+        JAX package's flush does: they lie past the slot's consumed
+        positions and are overwritten before they are read); idle slots'
+        rows go to the trash row."""
+        data, scales = pool_parts(pool)
+        R, L, _, S, KVD = ring.shape
+        bs = self.cfg.block_size
+        pos = start0.long()[:, None] + torch.arange(R, device=ring.device)
+        blk = torch.gather(block_tables.long(), 1, torch.clamp(
+            pos // bs, max=block_tables.shape[1] - 1))
+        idx = torch.where(active[:, None] > 0, blk * bs + pos % bs,
+                          torch.full_like(blk, data.shape[2] - 1))
+        idx = idx.reshape(-1)
+        # a layer at a time: the fp32 temporaries of the quantizer stay
+        # 1/L of the ring's
+        for li in range(L):
+            rows = ring[:, li].permute(1, 2, 0, 3).reshape(2 * S * R, KVD)
+            codes, sc = quantize_rows(rows, self.kv_heads)  # sc [KV, rows]
+            data[li].index_copy_(1, idx, codes.reshape(2, S * R, KVD))
+            scales[li].index_copy_(2, idx, sc.reshape(
+                self.kv_heads, 2, S * R).transpose(0, 1))

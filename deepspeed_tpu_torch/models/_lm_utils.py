@@ -1,8 +1,10 @@
 """Shared causal-LM plumbing (port of ``deepspeed_tpu/models/_lm_utils.py``:
-``make_causal_lm``, ``lm_head_xent`` and ``chunked_lm_xent``)."""
+``make_causal_lm``, ``lm_head_xent``, ``chunked_lm_xent`` and
+``alibi_slopes``)."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -134,3 +136,15 @@ def chunked_lm_xent(hidden: torch.Tensor, embedding: torch.Tensor,
         valid &= targets != ignore_index
     return total / valid.sum().clamp_min(1)
 
+
+
+def alibi_slopes(num_heads: int) -> torch.Tensor:
+    """ALiBi per-head slopes (Press et al.) [H] f32: a geometric schedule
+    over the nearest power of two p, with the odd multiples of the 2p
+    schedule filling the remainder (so the extra slopes interleave and
+    never repeat one), as the JAX package's ``alibi_slopes``."""
+    p = 2 ** math.floor(math.log2(num_heads))
+    base = [2 ** (-8.0 * (i + 1) / p) for i in range(p)]
+    if p < num_heads:
+        base += [2 ** (-4.0 * (2 * i + 1) / p) for i in range(num_heads - p)]
+    return torch.tensor(base[:num_heads], dtype=torch.float32)

@@ -35,14 +35,17 @@ _L = ctypes.c_longlong
 #: C signatures of each library's entry points
 SIGNATURES = {
     "paged_attention": {
-        # q, k_pool, v_pool, tables, start_pos, seq_lens, out, S, C, H,
-        # KV, D, maxb, bs, scale, window, slots, route, grid, stream
-        "paged_prefill_launch": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 4
+        # q, k_pool, v_pool, tables, start_pos, seq_lens, out, k_scales,
+        # v_scales, alibi, S, C, H, KV, D, maxb, bs, scale, window, slots,
+        # route, grid, dtype code (0 fp32, 1 bf16, 2 fp16), int8 pool,
+        # stream
+        "paged_prefill_launch": [_P] * 10 + [_I] * 7 + [_F] + [_I] * 6
         + [_P],
-        # ..., out, part, counters, S, H, KV, D, maxb, bs, scale, window,
-        # is_bf16, splits, keys per split, stream
-        "paged_decode_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _I,
-                                                      _P],
+        # q, ..., alibi, part, counters, ring_k, ring_v, S, H, KV, D, maxb,
+        # bs, scale, window, slots, dtype code, int8 pool, splits, keys per
+        # split, ring row stride, ring count, stream
+        "paged_decode_launch": [_P] * 14 + [_I] * 6 + [_F] + [_I] * 6
+        + [_L, _I, _P],
     },
     # pointers, a host pointer to the int64 strides, B, H, Hk, Tq, Tk, D,
     # scale, causal, dtype code (0 fp32, 1 bf16, 2 fp16), stream

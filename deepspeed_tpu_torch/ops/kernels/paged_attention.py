@@ -5,22 +5,31 @@ so a step touches only the blocks a sequence occupies. Two hand-written
 CUDA kernels (``csrc/paged_attention.cu``) replace the two Pallas kernels:
 
 - ``paged_prefill`` (K1) for C > 1 queries per slot — replaces
-  ``_paged_kernel``. In bf16 at head dims 64 and 128 with C >= 64 it is a
-  persistent wgmma kernel: work items (slot, query head, 128 queries),
-  a head's query tiles side by side, dealt by :func:`prefill_plan` from
-  the shapes alone, K/V through the block table by TMA (block sizes that
-  are multiples of 64) or a cp.async gather, both products on wgmma, one
-  block an item (the same bits from call to call). Other head dims and smaller chunks take
-  an mma.sync kernel (:func:`prefill_route`);
+  ``_paged_kernel``. In bf16 or fp16 at head dims 64 and 128 with C >= 64
+  it is a persistent wgmma kernel: work items (slot, query head, 128
+  queries), a head's query tiles side by side, dealt by
+  :func:`prefill_plan` from the shapes alone, K/V through the block table
+  by TMA (block sizes that are multiples of 64) or a cp.async gather,
+  both products on wgmma, one block an item (the same bits from call to
+  call). Other head dims, smaller chunks and an int8 pool take an
+  mma.sync kernel (:func:`prefill_route`);
 - ``paged_decode`` (K2) for C == 1 — replaces ``_decode_grouped_kernel``.
-  In bf16 it is split-context flash-decoding: one block per (sequence, KV
-  head, chunk of <= 16 query heads, split of the context), K/V streamed
-  as bf16 by 16-byte ``cp.async``, both products on ``mma.sync``; the last
-  split of each group to finish merges the splits' fp32 partials in split
-  order.
+  In bf16 or fp16 it is split-context flash-decoding: one block per
+  (sequence, KV head, chunk of <= 16 query heads, split of the context),
+  K/V streamed by 16-byte ``cp.async``, both products on ``mma.sync``;
+  the last split of each group to finish merges the splits' fp32
+  partials in split order. A decode-loop ring (below) is one more split.
   :func:`decode_plan` picks the splits from the shapes alone, so a decode
   step reads nothing back from the card. fp32 runs a CUDA-core kernel,
   the parity oracle.
+
+What the Pallas kernels compute, all of it: an int8 pool with per-(token,
+KV head) f32 scales (``inference/v2/kv_quant.py``: the K scale multiplies
+score column j after Q.K^T, the V scale probability column j after the
+row sum and before P's cast to the compute dtype), ALiBi (``score -=
+slope[h] * (pos - j)`` before the mask), and the decode loop's ring: the
+loop's own K/V, unquantized in the compute dtype, attended after the
+settled pool (row r sits ``ring_count - 1 - r`` behind the query).
 
 Layout contract (as in the JAX package and ``kv_cache.py``): the pool is
 ``[slots, KV*D]`` flat token rows with ``slots = (num_blocks + 1) *
@@ -45,6 +54,13 @@ from ...utils.device import scratch, sm_count
 
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"paged_prefill": 0, "paged_decode": 0}
+#: the same launches by route (K1: :data:`PREFILL_ROUTES`; K2: ``split``
+#: or ``f32``) and by what they took: an int8 pool, ALiBi slopes, a
+#: decode-loop ring, fp16
+ROUTE_LAUNCHES: Dict[str, int] = {
+    k: 0 for k in ("prefill_f32", "prefill_mma", "prefill_wgmma_tma",
+                   "prefill_wgmma_gather", "decode_f32", "decode_split",
+                   "int8", "alibi", "ring", "fp16")}
 
 #: head dims both kernels are instantiated for (any GQA group: K2 splits a
 #: group wider than its 16-row block across blocks)
@@ -100,18 +116,23 @@ PREFILL_BOX = 64
 PREFILL_ROUTES = ("f32", "mma", "wgmma_tma", "wgmma_gather")
 
 
-def prefill_route(C: int, D: int, dtype: torch.dtype,
-                  block_size: int) -> str:
-    """K1's kernel for a chunk of ``C`` queries a slot at head dim ``D``:
-    a pure function of the shapes (never chosen on failure). fp32 runs the
-    CUDA-core kernel (the parity oracle); bf16 runs the wgmma kernel at
-    head dims 64 and 128 when C >= 64 -- its K/V by TMA when the block
-    size is a multiple of the 64-row box, else by the cp.async gather --
-    and the mma.sync kernel otherwise (head dims 16, 32, 80 and 96, and
-    small SplitFuse chunks)."""
+def prefill_route(C: int, D: int, dtype: torch.dtype, block_size: int,
+                  quant: bool = False) -> str:
+    """K1's kernel for a chunk of ``C`` queries a slot at head dim ``D``
+    in compute dtype ``dtype``, over an int8 pool when ``quant``: a pure
+    function of the shapes (never chosen on failure). fp32 runs the
+    CUDA-core kernel (the parity oracle). An int8 pool in bf16 or fp16
+    runs the mma.sync kernel, which widens the int8 rows to the compute
+    dtype in registers as it stages them (TMA copies bytes and cannot
+    widen). Otherwise bf16 and fp16 run the wgmma kernel at head dims 64
+    and 128 when C >= 64 -- its K/V by TMA when the block size is a
+    multiple of the 64-row box, else by the cp.async gather -- and the
+    mma.sync kernel elsewhere (head dims 16, 32, 80 and 96, and small
+    SplitFuse chunks)."""
     if dtype == torch.float32:
         return "f32"
-    if D in WGMMA_PREFILL_HEAD_DIMS and C >= WGMMA_PREFILL_MIN_C:
+    if not quant and D in WGMMA_PREFILL_HEAD_DIMS \
+            and C >= WGMMA_PREFILL_MIN_C:
         return "wgmma_tma" if block_size % PREFILL_BOX == 0 \
             else "wgmma_gather"
     return "mma"
@@ -177,10 +198,14 @@ def prefill_plan(S: int, C: int, H: int, cap: int, sms: int) -> PrefillPlan:
 
 _LIB = None                        # the loaded kernel library
 
+#: q dtype codes of the C entry points
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -188,16 +213,32 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                           start_pos: torch.Tensor, seq_lens: torch.Tensor, *,
                           block_size: int, sm_scale: float,
                           sliding_window: Optional[int],
-                          num_kv_heads: int) -> torch.Tensor:
+                          num_kv_heads: int,
+                          k_scales: Optional[torch.Tensor] = None,
+                          v_scales: Optional[torch.Tensor] = None,
+                          alibi_slopes: Optional[torch.Tensor] = None,
+                          ring_k: Optional[torch.Tensor] = None,
+                          ring_v: Optional[torch.Tensor] = None,
+                          ring_count: int = 0) -> torch.Tensor:
     """The kernels' function in plain PyTorch: gather each sequence's
     context through its block table, mask, softmax in fp32.
 
     Query ``c`` of slot ``s`` (position ``start_pos[s] + c``) attends key
     ``j`` when ``j <= pos``, ``j < seq_lens[s]`` and, with a window,
-    ``j > pos - window``. A row with no such key (an idle slot,
-    ``seq_lens == 0``) is zeros. Products accumulate in fp32; as in the
-    Pallas kernels, the probabilities are cast to the pool dtype before
-    they multiply V, and the row sums are taken before that cast."""
+    ``pos - j < window``. A row with no such key (an idle slot,
+    ``seq_lens == 0``) is zeros. The compute dtype is q's over an int8
+    pool and the pool's otherwise (q is cast to it, as the Pallas kernels
+    do). Score ``(q . k_j) * sm_scale``, times ``k_scales[kv, j]`` over an
+    int8 pool (whose codes widen exactly), less ``slope[h] * (pos - j)``
+    with ALiBi, then the mask. Products accumulate in fp32; the row sums
+    are taken, then probability column j is multiplied by ``v_scales[kv,
+    j]``, then the probabilities are cast to the compute dtype before
+    they multiply V.
+
+    A ring (``ring_k``/``ring_v`` [R, S, KV*D] in the compute dtype, the
+    decode loop's own K/V, C == 1): rows ``r < ring_count`` of a slot with
+    ``seq_lens > 0`` are keys at distance ``ring_count - 1 - r`` behind
+    the query, never scaled, attended after the pool's columns."""
     S, C, H, D = q.shape
     KV = num_kv_heads
     g = H // KV
@@ -205,6 +246,8 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     maxb = block_tables.shape[1]
     T = maxb * bs
     dev = q.device
+    quant = k_pool.dtype == torch.int8
+    cdt = q.dtype if quant else v_pool.dtype
     j = torch.arange(T, device=dev)
     tables = block_tables.long()
     rows = tables[:, j // bs] * bs + j % bs                     # [S, T]
@@ -212,34 +255,61 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     v = v_pool[rows].reshape(S, T, KV, D).float()
     pos = start_pos.long()[:, None] + torch.arange(C, device=dev)[None, :]
     lens = seq_lens.long().clamp(max=T)
-    mask = (j[None, None, :] <= pos[:, :, None]) \
-        & (j[None, None, :] < lens[:, None, None])              # [S, C, T]
+    dist = (pos[:, :, None] - j[None, None, :]).float()        # [S, C, T]
+    mask = (dist >= 0) & (j[None, None, :] < lens[:, None, None])
     if sliding_window is not None:
-        mask = mask & (j[None, None, :] > pos[:, :, None] - sliding_window)
-    qg = q.float().reshape(S, C, KV, g, D)
+        mask = mask & (dist < sliding_window)
+    qg = q.to(cdt).float().reshape(S, C, KV, g, D)
     s = torch.einsum("sckgd,stkd->skgct", qg, k) * sm_scale
+    if k_scales is not None:
+        s = s * k_scales.float()[:, rows].permute(1, 0, 2)[:, :, None, None]
+    slopes = None
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.float().reshape(1, KV, g, 1, 1)
+        s = s - slopes * dist[:, None, None]
     s = s.masked_fill(~mask[:, None, None], float("-inf"))
+    if ring_k is not None:
+        R = ring_k.shape[0]
+        rk = ring_k.to(cdt).float().permute(1, 0, 2).reshape(S, R, KV, D)
+        rv = ring_v.to(cdt).float().permute(1, 0, 2).reshape(S, R, KV, D)
+        r = torch.arange(R, device=dev)
+        rdist = (ring_count - 1 - r).float()                    # [R]
+        rmask = (r[None, :] < ring_count) & (seq_lens[:, None] > 0)
+        if sliding_window is not None:
+            rmask = rmask & (rdist < sliding_window)[None, :]
+        rs = torch.einsum("sckgd,srkd->skgcr", qg, rk) * sm_scale
+        if slopes is not None:
+            rs = rs - slopes * rdist
+        rs = rs.masked_fill(~rmask[:, None, None, None, :], float("-inf"))
+        s = torch.cat([s, rs], dim=-1)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    p = p.to(v_pool.dtype).float()
-    o = torch.einsum("skgct,stkd->sckgd", p, v) \
-        / torch.where(l == 0, torch.ones_like(l), l).permute(0, 3, 1, 2, 4)
+    pp = p[..., :T]
+    if v_scales is not None:
+        pp = pp * v_scales.float()[:, rows].permute(1, 0, 2)[:, :, None, None]
+    o = torch.einsum("skgct,stkd->sckgd", pp.to(cdt).float(), v)
+    if ring_k is not None:
+        o = o + torch.einsum("skgcr,srkd->sckgd",
+                             p[..., T:].to(cdt).float(), rv)
+    o = o / torch.where(l == 0, torch.ones_like(l), l).permute(0, 3, 1, 2, 4)
     return o.reshape(S, C, H, D).to(q.dtype)
 
 
 def check_kernel_shape(num_heads: int, num_kv_heads: int, head_dim: int,
                        dtype: torch.dtype) -> None:
-    """Raise unless both kernels take these heads and dtype (the wrappers'
-    check for CUDA tensors; the CPU tests call it on the configs the port
-    serves): ValueError for malformed heads or a dtype the kernels do not
-    take, NotImplementedError for a head dim that is not ported."""
+    """Raise unless both kernels take these heads and compute dtype (the
+    wrappers' check for CUDA tensors; the CPU tests call it on the
+    configs the port serves): ValueError for malformed heads or a dtype
+    the kernels do not take, NotImplementedError for a head dim that is
+    not ported."""
     if num_heads % num_kv_heads:
         raise ValueError(f"GQA requires H % KV == 0 ({num_heads}/"
                          f"{num_kv_heads})")
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"q dtype {dtype}: the kernels take bf16 or fp32")
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"q dtype {dtype}: the kernels take bf16, fp16 or "
+                         f"fp32")
     if head_dim not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
             f"head_dim {head_dim}: the paged-attention kernels for head "
@@ -254,7 +324,18 @@ def _flat_pool(pool: torch.Tensor, num_kv_heads: Optional[int]):
     return pool, num_kv_heads
 
 
-def _check(q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,
+class _Extras(NamedTuple):
+    """What a call adds to the plain pool: int8 scales [KV, slots], ALiBi
+    slopes [H], the ring [R, S, KV*D] and its count."""
+    k_scales: Optional[torch.Tensor] = None
+    v_scales: Optional[torch.Tensor] = None
+    alibi_slopes: Optional[torch.Tensor] = None
+    ring_k: Optional[torch.Tensor] = None
+    ring_v: Optional[torch.Tensor] = None
+    ring_count: int = 0
+
+
+def _check(q, k_pool, v_pool, block_tables, start_pos, seq_lens, ex, *,
            block_size, KV, decode):
     if q.dim() != 4:
         raise ValueError(f"q must be [S, C, H, D], got {tuple(q.shape)}")
@@ -276,44 +357,94 @@ def _check(q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,
         raise ValueError(f"block_tables must be [S={S}, MAXB]")
     if start_pos.shape != (S,) or seq_lens.shape != (S,):
         raise ValueError(f"start_pos and seq_lens must be [S={S}]")
+    quant = k_pool.dtype == torch.int8
+    if (k_pool.dtype == torch.int8) != (v_pool.dtype == torch.int8):
+        raise ValueError("k_pool and v_pool must both be int8 or neither")
+    if quant:
+        # (the JAX package's errors, flash_paged_attention:727-739)
+        if ex.k_scales is None or ex.v_scales is None:
+            raise ValueError("an int8 k_pool needs scales (scales_full or "
+                             "k_scales+v_scales, see kv_quant.py)")
+        for name, t in (("k_scales", ex.k_scales), ("v_scales", ex.v_scales)):
+            if t.shape != (KV, slots):
+                raise ValueError(f"{name} must be [{KV}, {slots}], got "
+                                 f"{tuple(t.shape)}")
+    elif ex.k_scales is not None or ex.v_scales is not None:
+        raise ValueError("KV scales passed but the pool is not int8")
+    if ex.alibi_slopes is not None and ex.alibi_slopes.shape != (H,):
+        raise ValueError(f"alibi_slopes must be [H={H}], got "
+                         f"{tuple(ex.alibi_slopes.shape)}")
+    if (ex.ring_k is None) != (ex.ring_v is None):
+        raise ValueError("ring_k and ring_v go together")
+    if ex.ring_k is not None:
+        if C != 1:
+            raise ValueError("ring decode requires C == 1 (pure decode "
+                             "steps)")
+        R = ex.ring_k.shape[0]
+        for name, t in (("ring_k", ex.ring_k), ("ring_v", ex.ring_v)):
+            if t.shape != (R, S, KVD):
+                raise ValueError(f"{name} must be [R, S={S}, {KVD}], got "
+                                 f"{tuple(t.shape)}")
+        if not 0 <= ex.ring_count <= R:
+            raise ValueError(f"ring_count {ex.ring_count} outside "
+                             f"[0, R={R}]")
     if not q.is_cuda:
         return
-    dev = q.device
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), ("start_pos", start_pos),
-                    ("seq_lens", seq_lens)):
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, q on {dev}")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), ("start_pos", start_pos),
-                    ("seq_lens", seq_lens)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     check_kernel_shape(H, KV, D, q.dtype)
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+    if not quant and (k_pool.dtype != q.dtype or v_pool.dtype != q.dtype):
         raise ValueError(
             f"pool dtype {k_pool.dtype}/{v_pool.dtype} != q dtype {q.dtype} "
             f"(cast q to the pool dtype)")
+    dev = q.device
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_tables", block_tables), ("start_pos", start_pos),
+                    ("seq_lens", seq_lens), ("k_scales", ex.k_scales),
+                    ("v_scales", ex.v_scales),
+                    ("alibi_slopes", ex.alibi_slopes)):
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("k_scales", ex.k_scales), ("v_scales", ex.v_scales),
+                    ("alibi_slopes", ex.alibi_slopes)):
+        if t is not None and t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+    for name, t in (("ring_k", ex.ring_k), ("ring_v", ex.ring_v)):
+        if t is None:
+            continue
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} on {dev} (the "
+                             f"compute dtype), got {t.dtype} on {t.device}")
+        if t.stride(2) != 1 or t.stride(1) != KVD:
+            raise ValueError(f"{name}'s rows [S, KV*D] must be dense")
+    if ex.ring_k is not None and ex.ring_k.stride() != ex.ring_v.stride():
+        raise ValueError("ring_k and ring_v must share their strides")
     for name, t in (("block_tables", block_tables), ("start_pos", start_pos),
                     ("seq_lens", seq_lens)):
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
 
 
-def _run(name, q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _run(name, q, k_pool, v_pool, block_tables, start_pos, seq_lens, ex, *,
          block_size, sm_scale, sliding_window, num_kv_heads):
     """Both wrappers: check the arguments, then the plain version for CPU
     tensors, or launch kernel ``name`` and count the launch."""
     decode = name == "paged_decode"
     k_pool, KV = _flat_pool(k_pool, num_kv_heads)
     v_pool, _ = _flat_pool(v_pool, KV)
-    _check(q, k_pool, v_pool, block_tables, start_pos, seq_lens,
+    _check(q, k_pool, v_pool, block_tables, start_pos, seq_lens, ex,
            block_size=block_size, KV=KV, decode=decode)
     if not q.is_cuda:
         return paged_attention_plain(
             q, k_pool, v_pool, block_tables, start_pos, seq_lens,
             block_size=block_size, sm_scale=sm_scale,
-            sliding_window=sliding_window, num_kv_heads=KV)
+            sliding_window=sliding_window, num_kv_heads=KV, **ex._asdict())
     global _LIB
     if _LIB is None:
         from . import _build
@@ -321,58 +452,87 @@ def _run(name, q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,
     lib = _LIB
     S, C, H, D = q.shape
     maxb = block_tables.shape[1]
+    slots = k_pool.shape[0]
+    quant = k_pool.dtype == torch.int8
     out = torch.empty_like(q)
     window = int(sliding_window) if sliding_window is not None else 0
     stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
               block_tables.data_ptr(), start_pos.data_ptr(),
-              seq_lens.data_ptr(), out.data_ptr())
+              seq_lens.data_ptr(), out.data_ptr(), _ptr(ex.k_scales),
+              _ptr(ex.v_scales), _ptr(ex.alibi_slopes))
+    code = DTYPE_CODES[q.dtype]
     if decode:
         hc, splits, kps = decode_plan(S, KV, H // KV, maxb * block_size,
                                       sm_count(q.device))
+        ring = ex.ring_k is not None
+        # the ring is one more split, merged after the pool's in order
+        total = splits + int(ring)
         part = cnt = 0
-        if splits > 1 and q.dtype == torch.bfloat16:
-            part, cnt = scratch(q.device, stream, S * H * splits * (D + 2),
+        if total > 1 and q.dtype != torch.float32:
+            part, cnt = scratch(q.device, stream, S * H * total * (D + 2),
                                 S * KV * hc)
         err = lib.paged_decode_launch(
-            *common, part, cnt, S, H, KV, D, maxb, block_size,
-            float(sm_scale), window, int(q.dtype == torch.bfloat16), splits,
-            kps, stream)
+            *common, part, cnt, _ptr(ex.ring_k), _ptr(ex.ring_v), S, H, KV,
+            D, maxb, block_size, float(sm_scale), window, slots, code,
+            int(quant), splits, kps,
+            ex.ring_k.stride(0) if ring else 0,
+            int(ex.ring_count) if ring else 0, stream)
+        route = "decode_f32" if q.dtype == torch.float32 else "decode_split"
     else:
-        route = prefill_route(C, D, q.dtype, block_size)
+        route = prefill_route(C, D, q.dtype, block_size, quant)
         grid = 0
         if route.startswith("wgmma"):
             grid = prefill_plan(S, C, H, maxb * block_size,
                                 sm_count(q.device)).grid
         err = lib.paged_prefill_launch(
             *common, S, C, H, KV, D, maxb, block_size, float(sm_scale),
-            window, k_pool.shape[0], PREFILL_ROUTES.index(route), grid,
-            stream)
+            window, slots, PREFILL_ROUTES.index(route), grid, code,
+            int(quant), stream)
+        route = "prefill_" + route
     if err != 0:
         raise RuntimeError(f"{name} failed: cudaError {err}")
     LAUNCHES[name] += 1
+    ROUTE_LAUNCHES[route] += 1
+    for key, on in (("int8", quant), ("alibi", ex.alibi_slopes is not None),
+                    ("ring", ex.ring_k is not None),
+                    ("fp16", q.dtype == torch.float16)):
+        ROUTE_LAUNCHES[key] += int(on)
     return out
 
 
 def paged_prefill(q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,
                   block_size: int, sm_scale: float,
                   sliding_window: Optional[int] = None,
-                  num_kv_heads: Optional[int] = None) -> torch.Tensor:
+                  num_kv_heads: Optional[int] = None,
+                  k_scales: Optional[torch.Tensor] = None,
+                  v_scales: Optional[torch.Tensor] = None,
+                  alibi_slopes: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """K1: attention for q ``[S, C, H, D]``, any C >= 1 (CUDA kernel on a
     card, by :func:`prefill_route`; the plain version on the CPU)."""
     return _run("paged_prefill", q, k_pool, v_pool, block_tables, start_pos,
-                seq_lens, block_size=block_size, sm_scale=sm_scale,
+                seq_lens, _Extras(k_scales, v_scales, alibi_slopes),
+                block_size=block_size, sm_scale=sm_scale,
                 sliding_window=sliding_window, num_kv_heads=num_kv_heads)
 
 
 def paged_decode(q, k_pool, v_pool, block_tables, start_pos, seq_lens, *,
                  block_size: int, sm_scale: float,
                  sliding_window: Optional[int] = None,
-                 num_kv_heads: Optional[int] = None) -> torch.Tensor:
+                 num_kv_heads: Optional[int] = None,
+                 k_scales: Optional[torch.Tensor] = None,
+                 v_scales: Optional[torch.Tensor] = None,
+                 alibi_slopes: Optional[torch.Tensor] = None,
+                 ring_k: Optional[torch.Tensor] = None,
+                 ring_v: Optional[torch.Tensor] = None,
+                 ring_count: int = 0) -> torch.Tensor:
     """K2: decode attention for q ``[S, 1, H, D]`` over any number of
-    blocks per sequence (the linear layout is MAXB = 1)."""
+    blocks per sequence (the linear layout is MAXB = 1), and the ring."""
     return _run("paged_decode", q, k_pool, v_pool, block_tables, start_pos,
-                seq_lens, block_size=block_size, sm_scale=sm_scale,
+                seq_lens, _Extras(k_scales, v_scales, alibi_slopes, ring_k,
+                                  ring_v, int(ring_count)),
+                block_size=block_size, sm_scale=sm_scale,
                 sliding_window=sliding_window, num_kv_heads=num_kv_heads)
 
 
@@ -384,24 +544,42 @@ def flash_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                           num_kv_heads: Optional[int] = None,
                           alibi_slopes: Optional[torch.Tensor] = None,
                           k_scales: Optional[torch.Tensor] = None,
-                          v_scales: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          v_scales: Optional[torch.Tensor] = None,
+                          scales_full: Optional[torch.Tensor] = None,
+                          pool_layer: Optional[int] = None,
+                          ring_k: Optional[torch.Tensor] = None,
+                          ring_v: Optional[torch.Tensor] = None,
+                          ring_count: int = 0) -> torch.Tensor:
     """Flash attention over paged KV; K1 for C > 1, K2 for C == 1.
 
-    q ``[S, C, H, D]`` (the step's K/V already appended to the pool);
-    k_pool/v_pool ``[slots, KV*D]`` (or ``[slots, KV, D]``);
-    block_tables ``[S, MAXB]`` int32; start_pos ``[S]`` int32 — position
-    of ``q[s, 0]``; seq_lens ``[S]`` int32 — live context length (0 marks
-    an idle slot, which emits zeros). Returns ``[S, C, H, D]`` in q.dtype.
-    ALiBi and int8-pool scales are not ported yet."""
-    if alibi_slopes is not None:
-        raise NotImplementedError("ALiBi in the paged kernels is not ported")
-    if k_scales is not None or v_scales is not None \
-            or k_pool.dtype == torch.int8:
-        raise NotImplementedError("the int8 KV pool is not ported")
+    q ``[S, C, H, D]`` (the step's K/V already in the pool, or in the
+    ring); k_pool/v_pool ``[slots, KV*D]`` (or ``[slots, KV, D]``) in q's
+    dtype, or int8 with scales; block_tables ``[S, MAXB]`` int32;
+    start_pos ``[S]`` int32 — position of ``q[s, 0]``; seq_lens ``[S]``
+    int32 — live context length in the pool (0 marks an idle slot, which
+    emits zeros; with a ring, the settled length, ring tokens excluded).
+    ``alibi_slopes`` ``[H]`` f32: ALiBi. An int8 pool takes its f32
+    scales as ``k_scales``/``v_scales`` ``[KV, slots]``, or as
+    ``scales_full`` ``[L, 2, KV, slots]`` with ``pool_layer`` (as the JAX
+    package does); q then stays in the compute dtype. ``ring_k``/
+    ``ring_v`` ``[R, S, KV*D]`` in q's dtype (views of the decode loop's
+    ``[R, L, 2, S, KV*D]`` carry at one layer; rows dense) with
+    ``ring_count`` valid rows: decode only. Returns ``[S, C, H, D]`` in
+    q.dtype. See :func:`paged_attention_plain` for the function."""
+    if scales_full is not None:
+        li = int(pool_layer) if pool_layer is not None else 0
+        if k_scales is None:
+            k_scales, v_scales = scales_full[li, 0], scales_full[li, 1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    fn = paged_decode if q.shape[1] == 1 else paged_prefill
-    return fn(q, k_pool, v_pool, block_tables, start_pos, seq_lens,
-              block_size=block_size, sm_scale=sm_scale,
-              sliding_window=sliding_window, num_kv_heads=num_kv_heads)
+    kw = dict(block_size=block_size, sm_scale=sm_scale,
+              sliding_window=sliding_window, num_kv_heads=num_kv_heads,
+              k_scales=k_scales, v_scales=v_scales, alibi_slopes=alibi_slopes)
+    if q.shape[1] == 1:
+        return paged_decode(q, k_pool, v_pool, block_tables, start_pos,
+                            seq_lens, ring_k=ring_k, ring_v=ring_v,
+                            ring_count=ring_count, **kw)
+    if ring_k is not None:
+        raise ValueError("ring decode requires C == 1 (pure decode steps)")
+    return paged_prefill(q, k_pool, v_pool, block_tables, start_pos,
+                         seq_lens, **kw)

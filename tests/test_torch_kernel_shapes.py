@@ -47,8 +47,11 @@ LLAMA_CONFIGS = {"tiny": LlamaConfig.tiny(),
 
 
 @pytest.mark.parametrize("name", sorted(LLAMA_CONFIGS))
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 def test_llama_configs_lie_in_the_paged_kernels_accepted_set(name, dtype):
+    """Every served config in every compute dtype an engine takes (fp16:
+    fault C4, closed by the kernels' fp16 instances)."""
     cfg = LLAMA_CONFIGS[name]
     assert resolve_attention_impl(RaggedInferenceConfig(),
                                   torch.device("cuda")) == "paged_flash"
@@ -67,7 +70,7 @@ def test_paged_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="GQA"):
         pa.check_kernel_shape(4, 3, 64, torch.bfloat16)
     with pytest.raises(ValueError, match="dtype"):
-        pa.check_kernel_shape(4, 2, 64, torch.float16)
+        pa.check_kernel_shape(4, 2, 64, torch.float64)
 
 
 GPT2_CONFIGS = {"tiny": GPT2Config.tiny(), "xl_1p3b": GPT2Config.xl_1p3b(),

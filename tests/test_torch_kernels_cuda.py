@@ -1426,3 +1426,199 @@ def test_sparse_c3_misaligned_view_runs_on_card(D, dtype):
             assert (got - ref).abs().max().item() <= 1e-5, D
         else:
             assert _close_sparse(got, ref), (D, dtype)
+
+
+# ------------- fault C4 (fp16), the int8 pool, ALiBi and the decode ring
+
+#: kernel-vs-plain limits of the paged kernels: bf16 8e-3 (1.6e-2 above
+#: D = 64) and fp16 4e-3, both with 2**-8 of the plain output's norm;
+#: fp32 1e-5
+PAGED_LIMITS = {torch.bfloat16: (8e-3, 1.6e-2, 2.0 ** -8),
+                torch.float16: (4e-3, 4e-3, 2.0 ** -8),
+                torch.float32: (1e-5, 1e-5, 1.0)}
+
+
+def _paged_case(rng, *, S, C, H, KV, D, bs, maxb, lens, dtype, quant=False,
+                alibi=False):
+    """Seeded inputs of one paged call on the card: q [S, C, H, D] at the
+    last C positions of each context (``lens``; 0 marks an idle slot),
+    shuffled block tables, the pool (standard normal rows, as the tests
+    above: the max-abs limits are about one output ulp at magnitudes up
+    to 1-2) in ``dtype`` or, with ``quant``, int8 codes and [KV, slots]
+    scales from ``quantize_rows``; ALiBi
+    slopes of ``alibi_slopes(H)``. Returns (args, extras)."""
+    from deepspeed_tpu_torch.inference.v2.kv_quant import quantize_rows
+    from deepspeed_tpu_torch.models._lm_utils import alibi_slopes
+    nb = S * maxb
+    kp, vp = _pool(rng, nb, bs, KV, D)
+    tables = rng.permutation(nb).astype(np.int32).reshape(S, maxb)
+    lens = np.asarray(lens, np.int32)
+    start = np.maximum(lens - C, 0).astype(np.int32)
+    q = rng.standard_normal((S, C, H, D)).astype(np.float32)
+    ex = {}
+    if quant:
+        kq, ks = quantize_rows(torch.from_numpy(kp), KV)
+        vq, vs = quantize_rows(torch.from_numpy(vp), KV)
+        pool = [kq.cuda(), vq.cuda()]
+        ex.update(k_scales=ks.contiguous().cuda(),
+                  v_scales=vs.contiguous().cuda())
+    else:
+        pool = [torch.from_numpy(a).cuda().to(dtype) for a in (kp, vp)]
+    if alibi:
+        ex["alibi_slopes"] = alibi_slopes(H).cuda()
+    args = [torch.from_numpy(q).cuda().to(dtype), *pool] + [
+        torch.from_numpy(a).cuda() for a in (tables, start, lens)]
+    return args, ex
+
+
+def _check_paged(fn, args, ex, kw, D, what, launches=None):
+    """Run ``fn`` on the card twice (the same bits), against the plain
+    version on the CPU within PAGED_LIMITS; ``launches``: the
+    ROUTE_LAUNCHES keys that each call must add to."""
+    port.reset_launch_counts()
+    got = fn(*args, **kw, **ex)
+    again = fn(*args, **kw, **ex)
+    torch.cuda.synchronize()
+    for key in launches or ():
+        assert port.ROUTE_LAUNCHES[key] == 2, (what, key, port.ROUTE_LAUNCHES)
+    assert torch.equal(got, again), what
+    ref = port.paged_attention_plain(
+        *(a.cpu() for a in args), **kw,
+        **{k: v.cpu() if isinstance(v, torch.Tensor) else v
+           for k, v in ex.items()})
+    lo, hi, rel_tol = PAGED_LIMITS[args[0].dtype]
+    tol = lo if D <= 64 else hi
+    diff = got.float().cpu() - ref.float()
+    err = diff.abs().max().item()
+    rel = (diff.norm() / ref.float().norm()).item()
+    assert err <= tol and rel <= rel_tol, (what, err, rel)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 96, 128])
+@pytest.mark.parametrize("group", [1, 8, 32])
+def test_paged_kernels_c4_fp16_match_plain_on_card(D, group):
+    """Fault C4: fp16 q and pool, which the kernels refused, on every K1
+    route the shapes reach at this head dim (mma.sync at C = 40; at D 64
+    and 128 the wgmma kernel with K/V by TMA at block 64 and by the
+    cp.async gather at block 16) and in K2 (split over its context), GQA
+    1, 8 and 32, an idle slot; fp16 within 4e-3 and 2**-8 of the norm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(D * 100 + group)
+    KV = 2
+    H = KV * group
+    dt = torch.float16
+    cases = [("paged_prefill", 40, 16, 8)]
+    if D in port.WGMMA_PREFILL_HEAD_DIMS:
+        cases += [("paged_prefill", 128, 64, 4),
+                  ("paged_prefill", 128, 16, 16)]
+    cases += [("paged_decode", 1, 64, 16)]
+    for name, C, bs, maxb in cases:
+        lens = [C, 0, maxb * bs - 3, maxb * bs // 2 + C]
+        args, ex = _paged_case(rng, S=4, C=C, H=H, KV=KV, D=D, bs=bs,
+                               maxb=maxb, lens=lens, dtype=dt)
+        kw = dict(block_size=bs, sm_scale=D ** -0.5, sliding_window=None,
+                  num_kv_heads=KV)
+        route = ("decode_split" if name == "paged_decode" else
+                 "prefill_" + port.prefill_route(C, D, dt, bs))
+        got = _check_paged(getattr(port, name), args, ex, kw, D,
+                           (name, D, group, C, bs), (route, "fp16"))
+        assert not got[1].any(), "idle slot must emit zeros"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("window", [None, 50])
+def test_paged_kernels_int8_pool_match_plain_on_card(D, dtype, window):
+    """An int8 pool with per-(token, KV head) scales in bf16, fp16 and
+    fp32 compute: K1 (C = 40 and 128, both on the mma.sync kernel that
+    widens the codes, or the fp32 kernel) and K2 (split, GQA 4), with and
+    without a window, and ALiBi on K2; against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(D + (window or 0))
+    H, KV = 16, 4
+    for name, C, bs, maxb, alibi in (("paged_prefill", 40, 16, 8, False),
+                                     ("paged_prefill", 128, 64, 4, False),
+                                     ("paged_decode", 1, 64, 32, False),
+                                     ("paged_decode", 1, 64, 32, True)):
+        lens = [C, maxb * bs - 5, 0, 300 + C]
+        args, ex = _paged_case(rng, S=4, C=C, H=H, KV=KV, D=D, bs=bs,
+                               maxb=maxb, lens=lens, dtype=dtype, quant=True,
+                               alibi=alibi)
+        kw = dict(block_size=bs, sm_scale=D ** -0.5, sliding_window=window,
+                  num_kv_heads=KV)
+        if name == "paged_decode":
+            route = "decode_f32" if dtype == torch.float32 else "decode_split"
+        else:
+            route = "prefill_" + port.prefill_route(C, D, dtype, bs, True)
+            assert route in ("prefill_mma", "prefill_f32"), route
+        got = _check_paged(getattr(port, name), args, ex, kw, D,
+                           (name, D, dtype, window, C), (route, "int8"))
+        assert not got[2].any(), "idle slot must emit zeros"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_paged_kernels_alibi_match_plain_on_card(dtype):
+    """ALiBi at Bloom-7B1's heads (32 of 128, no GQA) and at 12 heads of
+    64 (a head count that is no power of two): K1 on each route the
+    shapes reach (wgmma by TMA and by the gather, mma.sync at C = 40, or
+    the fp32 kernel) and K2, with a window once; against the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(17)
+    for H, KV, D in ((32, 32, 128), (12, 12, 64), (8, 8, 96)):
+        for name, C, bs, maxb, window in (
+                ("paged_prefill", 128, 64, 4, None),
+                ("paged_prefill", 128, 16, 16, 100),
+                ("paged_prefill", 40, 16, 8, None),
+                ("paged_decode", 1, 64, 16, None),
+                ("paged_decode", 1, 64, 16, 200)):
+            lens = [C, maxb * bs - 1, 0, maxb * bs // 2]
+            args, ex = _paged_case(rng, S=4, C=C, H=H, KV=KV, D=D, bs=bs,
+                                   maxb=maxb, lens=lens, dtype=dtype,
+                                   alibi=True)
+            kw = dict(block_size=bs, sm_scale=D ** -0.5,
+                      sliding_window=window, num_kv_heads=KV)
+            _check_paged(getattr(port, name), args, ex, kw, D,
+                         (name, H, D, C, bs, window), ("alibi",))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring_count", [1, 5, 32])
+@pytest.mark.parametrize("dtype,quant", [
+    (torch.bfloat16, True), (torch.float16, True), (torch.float32, True),
+    (torch.bfloat16, False)])
+def test_paged_decode_ring_matches_plain_on_card(ring_count, dtype, quant):
+    """K2's ring round: the decode loop's own K/V as a [R, S, KV*D] view
+    of its [R, L, 2, S, KV*D] carry in the compute dtype, rows below
+    ``ring_count`` attended after the settled pool (int8 with scales, or
+    bf16), an idle slot, and once with a window and ALiBi; the ring's
+    split merges with the pool's in split order (the same bits twice)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(ring_count + 7 * quant)
+    S, H, KV, D, bs, maxb, R, L = 4, 32, 4, 128, 64, 32, 32, 3
+    for window, alibi in ((None, False), (40, True)):
+        settled = [1, maxb * bs - 40, 0, 700]
+        args, ex = _paged_case(rng, S=S, C=1, H=H, KV=KV, D=D, bs=bs,
+                               maxb=maxb, lens=settled, dtype=dtype,
+                               quant=quant, alibi=alibi)
+        # the query sits ring_count - 1 past the settled tokens
+        args[4] = (args[5] + ring_count - 1).to(torch.int32)
+        carry = torch.from_numpy(rng.standard_normal(
+            (R, L, 2, S, KV * D)).astype(np.float32)).cuda().to(dtype)
+        ex.update(ring_k=carry[:, 1, 0], ring_v=carry[:, 1, 1],
+                  ring_count=ring_count)
+        kw = dict(block_size=bs, sm_scale=D ** -0.5, sliding_window=window,
+                  num_kv_heads=KV)
+        got = _check_paged(port.paged_decode, args, ex, kw, D,
+                           (dtype, quant, ring_count, window), ("ring",))
+        assert not got[2].any(), "idle slot must emit zeros"

@@ -168,9 +168,18 @@ def test_put_and_flush_return_every_block(refs):
 
 def test_config_refuses_unported_features():
     for kw in ({"tp_size": 2}, {"seq_size": 2}, {"ep_size": 2},
-               {"kv_cache_dtype": "int8"}, {"prefix_cache": True},
-               {"serve_pipeline_depth": 2}):
+               {"prefix_cache": True}, {"serve_pipeline_depth": 2}):
         with pytest.raises(NotImplementedError):
             RaggedInferenceConfig(**kw)
     with pytest.raises(ValueError):
         RaggedInferenceConfig(attention_impl="flash")
+
+
+def test_config_accepts_the_int8_and_fp16_pools():
+    """``kv_cache_dtype="int8"`` is ported (it left the refusals above);
+    other names are refused as the JAX package refuses them."""
+    assert RaggedInferenceConfig(kv_cache_dtype="int8").kv_cache_dtype \
+        == "int8"
+    assert RaggedInferenceConfig(dtype="float16").dtype == "float16"
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        RaggedInferenceConfig(kv_cache_dtype="fp8")

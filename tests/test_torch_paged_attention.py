@@ -74,10 +74,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     pool = torch.zeros(8, 16)
     tabs = torch.zeros(1, 2, dtype=torch.int32)
     pos = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="alibi_slopes"):
         port.flash_paged_attention(q, pool, pool, tabs, pos, pos,
                                    block_size=4, num_kv_heads=2,
-                                   alibi_slopes=torch.ones(2))
+                                   alibi_slopes=torch.ones(3))   # not [H]
     with pytest.raises(ValueError):
         port.paged_decode(q, pool, pool, tabs, pos, pos, block_size=4,
                           sm_scale=1.0, num_kv_heads=2)       # C != 1
