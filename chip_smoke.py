@@ -283,6 +283,32 @@ bound and one library call:
              step; fp16 at phase 5's shapes; ALiBi at Bloom-7B1's heads on
              the 7B shapes), SDPA beside each: over an int8 pool SDPA on
              the same K/V in bf16, a reference only.
+24. hf serving — a random checkpoint in HuggingFace's layout with
+             Qwen/Qwen2-7B's published config.json (qwen2: 28 layers,
+             hidden 3584, 28 heads, 4 KV heads of 128, biased q/k/v,
+             vocab 152064, untied; Qwen2-1.5B's when the temporary space
+             cannot hold ~15.2 GB), bf16 tensors made on the card from a
+             seed and written one at a time into safetensors shards of at
+             most 5 GB with their index, removed at the end. Served
+             through ``build_hf_engine``: the load seconds and parameter
+             bytes, every loaded leaf bit-identical to the tensor written;
+             16 prompts x 512 tokens, 64 new, greedy at pipeline depth 0,
+             at depth 2 and through the decode loop, identical streams,
+             K1 (wgmma, TMA) and K2 (split) launched 28 times a step (GQA
+             7 at D 128); ``decode_pipelined`` with an EOS taken from a
+             greedy stream ending there and giving back its blocks;
+             sampled streams (temperature 0.8, top-k 50, top-p 0.95)
+             identical on the three paths, temperature 0 identical to
+             greedy, threefry keys and bits on the card equal to the
+             CPU's, and a chi-squared test of the sampler's draws against
+             the distribution its masks define on one logits row (p >
+             1e-3); the first tokens of a dense-attention engine built
+             from the same directory; ``quantization_mode="wf8"``: one
+             group-quantizer launch per quantized leaf (196), a few tokens
+             served, first tokens against bf16. Prefill s, decode tok/s
+             at depths 0 and 2 and peak memory; then K1, K2 and the
+             quantizer at this path's shapes against their plain versions
+             and timed, as phase 5 times.
 
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
@@ -3927,6 +3953,486 @@ def phase_kv_pool(torch, woq, trace=False):
     return out, rows
 
 
+# ---------------------------------------------------------------- HF serving
+
+# phase 24: the published config.json of Qwen/Qwen2-7B (model_type qwen2:
+# biased q/k/v, GQA 7 at head dim 128, untied head), and of Qwen2-1.5B
+# for a card machine whose temporary space cannot hold the 7B shards
+QWEN2_7B = {"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+            "hidden_size": 3584, "intermediate_size": 18944,
+            "num_hidden_layers": 28, "num_attention_heads": 28,
+            "num_key_value_heads": 4, "vocab_size": 152064,
+            "max_position_embeddings": 131072, "rope_theta": 1000000.0,
+            "rms_norm_eps": 1e-06, "tie_word_embeddings": False,
+            "hidden_act": "silu", "sliding_window": 131072,
+            "use_sliding_window": False, "max_window_layers": 28,
+            "bos_token_id": 151643, "eos_token_id": 151643,
+            "torch_dtype": "bfloat16"}
+QWEN2_1P5B = {**QWEN2_7B, "hidden_size": 1536, "intermediate_size": 8960,
+              "num_attention_heads": 12, "num_key_value_heads": 2,
+              "vocab_size": 151936, "max_window_layers": 21,
+              "tie_word_embeddings": True}
+#: HF's default max_shard_size ("5GB")
+HF_SHARD_BYTES = 5_000_000_000
+HF_SEQS, HF_PROMPT, HF_GEN = 16, 512, 64
+HF_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+#: the sampler's chi-squared test: draws, and the least p-value passed
+CHI2_DRAWS, CHI2_MIN_P = 1 << 16, 1e-3
+
+
+def _qwen2_specs(hf):
+    """Every tensor of the checkpoint in writing order: (HF name, HF
+    shape, kind, tree path, transposed in the tree)."""
+    M, I, V = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
+    kvd = hf["num_key_value_heads"] * M // hf["num_attention_heads"]
+    specs = [("model.embed_tokens.weight", (V, M), "embed",
+              "embed/embedding", False)]
+    for i in range(hf["num_hidden_layers"]):
+        p, t = f"model.layers.{i}", f"layer_{i}"
+        specs.append((f"{p}.input_layernorm.weight", (M,), "norm",
+                       f"{t}/input_norm/scale", False))
+        for x, n in (("q", M), ("k", kvd), ("v", kvd)):
+            specs += [(f"{p}.self_attn.{x}_proj.weight", (n, M), "linear",
+                       f"{t}/attn/{x}_proj/kernel", True),
+                      (f"{p}.self_attn.{x}_proj.bias", (n,), "bias",
+                       f"{t}/attn/{x}_proj/bias", False)]
+        specs.append((f"{p}.self_attn.o_proj.weight", (M, M), "linear",
+                      f"{t}/attn/o_proj/kernel", True))
+        specs.append((f"{p}.post_attention_layernorm.weight", (M,), "norm",
+                      f"{t}/post_attn_norm/scale", False))
+        for x, shape in (("gate", (I, M)), ("up", (I, M)), ("down", (M, I))):
+            specs.append((f"{p}.mlp.{x}_proj.weight", shape, "linear",
+                          f"{t}/mlp/{x}_proj/kernel", True))
+    specs.append(("model.norm.weight", (M,), "norm", "final_norm/scale",
+                  False))
+    if not hf["tie_word_embeddings"]:
+        specs.append(("lm_head.weight", (V, M), "linear", "lm_head/kernel",
+                      True))
+    return specs
+
+
+def _qwen2_tensor(torch, gen, kind, shape):
+    """One bf16 tensor on the card, at ``init_llama_params``'s scales
+    (embedding std 1, a [out, in] weight std 1/sqrt(in), norm scales
+    ones); the q/k/v biases normal with std 0.02, so that the bias path
+    shows."""
+    if kind == "norm":
+        return torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+    t = torch.randn(shape, generator=gen, device="cuda")
+    std = {"embed": 1.0, "bias": 0.02}.get(kind)
+    return (t * (std if std is not None else shape[1] ** -0.5)).to(
+        torch.bfloat16)
+
+
+def write_hf_checkpoint(torch, path, hf, seed):
+    """A random checkpoint in HF's layout: ``config.json``, safetensors
+    shards of at most HF_SHARD_BYTES and ``model.safetensors.index.json``,
+    each tensor made on the card and written as it is made, so that one
+    tensor at a time sits in host memory. Returns the bytes written."""
+    import numpy as np
+    specs = _qwen2_specs(hf)
+    shards, size = [[]], 0
+    for s in specs:
+        n = 2 * math.prod(s[1])
+        if size and size + n > HF_SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append(s)
+        size += n
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    weight_map, total = {}, 0
+    for k, shard in enumerate(shards):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        header, off = {"__metadata__": {"format": "pt"}}, 0
+        for name, shape, *_ in shard:
+            n = 2 * math.prod(shape)
+            header[name] = {"dtype": "BF16", "shape": list(shape),
+                            "data_offsets": [off, off + n]}
+            off += n
+            weight_map[name] = fname
+        hb = json.dumps(header, separators=(",", ":")).encode()
+        hb += b" " * (-len(hb) % 8)
+        with open(path / fname, "wb") as f:
+            f.write(len(hb).to_bytes(8, "little"))
+            f.write(hb)
+            for name, shape, kind, *_ in shard:
+                t = _qwen2_tensor(torch, gen, kind, shape)
+                f.write(np.ascontiguousarray(
+                    t.view(torch.int16).cpu().numpy()).data)
+        total += off
+    (path / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map},
+        indent=2))
+    (path / "config.json").write_text(json.dumps(hf, indent=2))
+    return total, len(shards)
+
+
+def _check_written(torch, params, hf, seed):
+    """Every loaded leaf equals, bit for bit, the tensor written (made
+    again from the same seed, in the same order)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    n = 0
+    for name, shape, kind, path, transposed in _qwen2_specs(hf):
+        t = _qwen2_tensor(torch, gen, kind, shape)
+        leaf = params
+        for k in path.split("/"):
+            leaf = leaf[k]
+        want = t.t() if transposed else t
+        if leaf.dtype != torch.bfloat16 or leaf.shape != want.shape \
+                or not torch.equal(leaf.view(torch.int16),
+                                   want.view(torch.int16)):
+            raise AssertionError(f"[hf] loaded {path} differs from the "
+                                 f"written {name}")
+        n += 1
+    return n
+
+
+def _chi2_sampler(torch, logits_row):
+    """The sampler's draws (temperature 0.8, top-k 50, top-p 0.95, keys
+    from CHI2_DRAWS (seed, position) pairs) against the distribution its
+    masks define on one logits row: the softmax of row / T over the top
+    50, cut where the mass before a rank reaches 0.95 (computed in fp32
+    on the CPU as the sampler computes it), renormalized. Returns (chi2,
+    degrees of freedom, p)."""
+    import numpy as np
+    from scipy.stats import chi2
+    from deepspeed_tpu_torch.inference.v2 import model_runner as mr
+    T, K, P = (HF_SAMPLING[k] for k in ("temperature", "top_k", "top_p"))
+    row = torch.as_tensor(logits_row, dtype=torch.float32)
+    vals, idxs = mr._topk_by_index(row[None], 256)
+    x = (vals[0] / T)[:K]
+    p = torch.softmax(x, dim=-1)
+    keep = (torch.cumsum(p, dim=-1) - p) < P
+    probs = np.exp(x[keep].double().numpy() - float(x[keep].max()))
+    probs /= probs.sum()
+    allowed = idxs[0, :K][keep].numpy()
+    B = 2048
+    counts = np.zeros(len(allowed), np.int64)
+    lr = row.cuda()[None].expand(B, -1)
+    cfg = {k: torch.full((B,), v, device="cuda", dtype=dt)
+           for k, v, dt in (("temps", T, torch.float32),
+                            ("top_ks", K, torch.int32),
+                            ("top_ps", P, torch.float32))}
+    where = {int(t): i for i, t in enumerate(allowed)}
+    for b in range(CHI2_DRAWS // B):
+        seeds = torch.arange(b * B, (b + 1) * B, device="cuda")
+        keys = mr._sample_keys(seeds, seeds * 7 + 3)
+        tok = mr._select_tokens(lr, keys, cfg["temps"], cfg["top_ks"],
+                                cfg["top_ps"], cand=256).cpu().numpy()
+        for t in tok:
+            if int(t) not in where:
+                raise AssertionError(f"[hf] sampler drew {t}, outside "
+                                     f"its top-k / top-p set")
+            counts[where[int(t)]] += 1
+    expected = probs * CHI2_DRAWS
+    # bins with fewer than 5 expected draws merge into one
+    small = expected < 5
+    obs = np.append(counts[~small], counts[small].sum())
+    exp = np.append(expected[~small], expected[small].sum())
+    if exp[-1] == 0:
+        obs, exp = obs[:-1], exp[:-1]
+    stat = float(((obs - exp) ** 2 / exp).sum())
+    dof = len(exp) - 1
+    return stat, dof, float(chi2.sf(stat, dof)), len(allowed)
+
+
+def phase_hf_serving(torch):
+    """Phase 24: a random Qwen2-7B checkpoint written in HF's layout,
+    served through ``build_hf_engine`` (module docstring)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig,
+                                                  SamplingParams,
+                                                  build_hf_engine)
+    from deepspeed_tpu_torch.inference.quantization import woq_memory_bytes
+    from deepspeed_tpu_torch.inference.v2 import model_runner as mr
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    from deepspeed_tpu_torch.ops.kernels import quantization as qz
+    from deepspeed_tpu_torch.utils import random as trandom
+    out, rows = {}, []
+    tmp = Path(tempfile.mkdtemp(prefix="qwen2_"))
+    try:
+        free = shutil.disk_usage(tmp).free
+        need = 2 * sum(math.prod(s[1]) for s in _qwen2_specs(QWEN2_7B))
+        hf, model = (QWEN2_7B, "Qwen/Qwen2-7B") if free > need * 1.05 \
+            else (QWEN2_1P5B, "Qwen/Qwen2-1.5B")
+        log(f"[hf] {tmp}: {free / 1e9:.1f} GB free, the 7B shards need "
+            f"{need / 1e9:.2f} GB: writing {model}'s shape")
+        out["model"], out["free_bytes"] = model, free
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes, nshards = write_hf_checkpoint(torch, tmp, hf, seed=24)
+        out["write_s"] = time.perf_counter() - t0
+        out["checkpoint_bytes"], out["shards"] = nbytes, nshards
+        log(f"[hf] wrote {nbytes / 1e9:.3f} GB in {nshards} shards in "
+            f"{out['write_s']:.1f} s")
+        L = hf["num_hidden_layers"]
+        maxb = -(-(HF_PROMPT + HF_GEN) // 64)
+
+        def rcfg(**kw):
+            return RaggedInferenceConfig(
+                max_seqs=HF_SEQS, chunk_size=256, block_size=64,
+                num_blocks=HF_SEQS * maxb + 8, max_blocks_per_seq=maxb,
+                dtype="bfloat16", **{"attention_impl": "paged_flash",
+                                     "decode_loop_steps": 0, **kw})
+
+        # ---- load
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng0 = build_hf_engine(str(tmp), engine_config=rcfg(
+            serve_pipeline_depth=0), dtype="bfloat16")
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["param_bytes"] = woq_memory_bytes(eng0.params)
+        out["leaves_bit_identical"] = _check_written(torch, eng0.params, hf,
+                                                     seed=24)
+        log(f"[hf] build_hf_engine: {out['load_s']:.1f} s, parameters "
+            f"{out['param_bytes'] / 1e9:.3f} GB; "
+            f"{out['leaves_bit_identical']} leaves bit-identical to the "
+            f"written tensors")
+        cfg, params = eng0.model_cfg, eng0.params
+        if (cfg.num_heads // cfg.num_kv_heads, cfg.head_dim, cfg.qkv_bias) \
+                != (hf["num_attention_heads"] // hf["num_key_value_heads"],
+                    128, True):
+            raise AssertionError(f"[hf] config {cfg}")
+        engs = {"depth0": eng0,
+                "depth2": InferenceEngineV2(cfg, params, rcfg(
+                    serve_pipeline_depth=2), device="cuda"),
+                "loop16": InferenceEngineV2(cfg, params, rcfg(
+                    serve_pipeline_depth=2, decode_loop_steps=16),
+                    device="cuda")}
+        rng = np.random.default_rng(24)
+        prompts = rng.integers(1, cfg.vocab_size,
+                               (HF_SEQS, HF_PROMPT)).tolist()
+        for e in engs.values():            # warm-up: handles, staging
+            e.generate([prompts[0][:80]], max_new_tokens=20)
+
+        # ---- greedy at depth 0, depth 2 and through the decode loop
+        gens, runs = {}, {}
+        for name, e in engs.items():
+            for k in e.timing:
+                e.timing[k] = 0 if isinstance(e.timing[k], int) else 0.0
+            e.runner.step_counts = {"prefill": 0, "decode": 0}
+            for k in e.pipeline_stats:
+                e.pipeline_stats[k] *= 0
+            pa.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gens[name] = e.generate(prompts, max_new_tokens=HF_GEN)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps = dict(e.runner.step_counts)
+            launches = {**pa.LAUNCHES, **pa.ROUTE_LAUNCHES}
+            want = {"paged_prefill": L * steps["prefill"],
+                    "prefill_wgmma_tma": L * steps["prefill"],
+                    "paged_decode": L * steps["decode"],
+                    "decode_split": L * steps["decode"]}
+            bad = {k: (launches[k], v) for k, v in want.items()
+                   if launches[k] != v}
+            if bad or not (steps["prefill"] and steps["decode"]):
+                raise AssertionError(f"[hf] {name}: launches {launches}, "
+                                     f"steps {steps} ({bad})")
+            if any(len(o) != HF_GEN for o in gens[name]) or \
+                    e.free_blocks != e.config.num_blocks:
+                raise AssertionError(f"[hf] {name}: lengths or blocks")
+            tm = e.timing
+            runs[name] = {
+                "steps": steps, "launches": {k: launches[k] for k in want},
+                "launches_per_step": {k: v // max(1, steps[
+                    "prefill" if "prefill" in k else "decode"])
+                    for k, v in want.items()},
+                "pipeline_stats": dict(e.pipeline_stats),
+                "prefill_s": tm["prefill_s"], "decode_s": tm["decode_s"],
+                "decode_tokens": tm["decode_tokens"],
+                "decode_tok_s": tm["decode_tokens"] / tm["decode_s"],
+                "wall_s": wall}
+            log(f"[hf] greedy {name}: prefill {tm['prefill_tokens']} tokens "
+                f"in {tm['prefill_s']:.4f} s, decode {tm['decode_tokens']} "
+                f"in {tm['decode_s']:.4f} s = "
+                f"{runs[name]['decode_tok_s']:.1f} tok/s, wall {wall:.3f} "
+                f"s; steps {steps}; launches {runs[name]['launches']}; "
+                f"pipeline {e.pipeline_stats}")
+        st2 = runs["depth2"]["pipeline_stats"]
+        if not (st2["fed_steps"] and st2["readbacks"] == st2["steps"]):
+            raise AssertionError(f"[hf] depth 2 pipeline {st2}")
+        if not gens["depth0"] == gens["depth2"] == gens["loop16"]:
+            raise AssertionError("[hf] greedy streams differ between "
+                                 "depth 0, depth 2 and the decode loop")
+        greedy = gens["depth0"]
+        log("[hf] greedy streams identical at depth 0, depth 2 and "
+            "through the decode loop")
+        out["greedy"] = runs
+
+        # ---- EOS on the delayed readback (depth 2)
+        e2 = engs["depth2"]
+        eos = greedy[1][9]
+        free0 = e2.free_blocks
+        uids = list(range(100, 100 + HF_SEQS))
+        first = e2.put(uids, prompts, _greedy=True)
+        res = e2.decode_pipelined(uids, [first[u] for u in uids],
+                                  HF_GEN - 1, eos_token_id=eos)
+        for i, u in enumerate(uids):
+            g = greedy[i][1:]
+            want = g[:g.index(eos) + 1] if eos in g else g
+            if res[u] != want:
+                raise AssertionError(f"[hf] EOS stream {i} differs")
+            s = e2.state.get(u)
+            if len(s.kv_blocks) != -(-s.seen_tokens // 64) or \
+                    s.seen_tokens != HF_PROMPT + len(want):
+                raise AssertionError(f"[hf] EOS rollback of {i}: "
+                                     f"{s.seen_tokens}, {len(s.kv_blocks)}")
+        for u in uids:
+            e2.flush(u)
+        if e2.free_blocks != free0:
+            raise AssertionError("[hf] EOS rollback leaked blocks")
+        ended = sum(1 for i in range(HF_SEQS) if eos in greedy[i][1:])
+        out["eos"] = {"eos": eos, "streams_ended": ended,
+                      "free_blocks": e2.free_blocks}
+        log(f"[hf] decode_pipelined with eos {eos}: {ended} streams end at "
+            f"it, as the greedy streams; free blocks back to {free0}")
+
+        # ---- sampling
+        sp = SamplingParams(**HF_SAMPLING)
+        samp = {n: e.generate(prompts, max_new_tokens=HF_GEN, sampling=sp,
+                              seed=24) for n, e in engs.items()}
+        if not samp["depth0"] == samp["depth2"] == samp["loop16"]:
+            raise AssertionError("[hf] sampled streams differ by path")
+        if samp["depth0"] == greedy:
+            raise AssertionError("[hf] sampling at temperature 0.8 gave "
+                                 "the greedy streams")
+        t0p = {u: SamplingParams(temperature=0.0, logprobs=True)
+               for u in uids}
+        first = e2.put(uids, prompts, _greedy=True, sampling=t0p)
+        res = e2.decode_pipelined(uids, [first[u] for u in uids],
+                                  HF_GEN - 1)
+        if [[first[u]] + res[u] for u in uids] != greedy:
+            raise AssertionError("[hf] temperature 0 differs from greedy")
+        lps = [e2.logprobs_of(u) for u in uids]
+        for u in uids:
+            e2.flush(u)
+        if not all(len(x) == HF_GEN and all(v <= 0 for v in x)
+                   for x in lps):
+            raise AssertionError("[hf] logprobs")
+        n = 4096
+        seeds = torch.randint(0, 2 ** 31 - 1, (n,), generator=None)
+        pos = torch.randint(0, 1 << 20, (n,))
+        kc = mr._sample_keys(seeds.cuda(), pos.cuda())
+        kh = mr._sample_keys(seeds, pos)
+        if not (torch.equal(kc.cpu(), kh)
+                and torch.equal(trandom.random_bits(kc, 256).cpu(),
+                                trandom.random_bits(kh, 256))
+                and torch.equal(trandom.uniform(kc, 256).cpu(),
+                                trandom.uniform(kh, 256))):
+            raise AssertionError("[hf] threefry on the card differs from "
+                                 "the CPU's")
+        logits = eng0.put([999], [prompts[0]])[999]
+        eng0.flush(999)
+        stat, dof, pval, support = _chi2_sampler(torch, logits)
+        out["sampling"] = {"params": HF_SAMPLING, "streams_identical": True,
+                           "temperature0_is_greedy": True,
+                           "keys_bits_uniform_equal_cpu": n,
+                           "chi2": stat, "dof": dof, "p": pval,
+                           "support": support, "draws": CHI2_DRAWS}
+        log(f"[hf] sampled streams identical at depth 0, depth 2 and "
+            f"through the decode loop; temperature 0 = greedy; threefry "
+            f"keys, bits and uniforms of {n} (seed, position) pairs equal "
+            f"the CPU's; chi2 {stat:.2f} on {dof} dof over {support} "
+            f"tokens, p = {pval:.4f} (limit {CHI2_MIN_P})")
+        if not pval > CHI2_MIN_P:
+            raise AssertionError("[hf] the sampler's draws fail chi2")
+        del engs, e, e2, eng0, params
+        torch.cuda.empty_cache()
+
+        # ---- dense attention on the same directory: first tokens
+        engd = build_hf_engine(str(tmp), engine_config=rcfg(
+            attention_impl="dense"), dtype="bfloat16")
+        fd = engd.put(list(range(HF_SEQS)), prompts, _greedy=True)
+        agree = float(np.mean([fd[i] == greedy[i][0]
+                               for i in range(HF_SEQS)]))
+        out["dense_first_token_agreement"] = agree
+        log(f"[hf] first tokens: paged kernels against dense attention "
+            f"agree on {agree:.3f}")
+        del engd
+        torch.cuda.empty_cache()
+
+        # ---- wf8 at load: the group quantizer once per quantized leaf
+        qz.reset_launch_counts()
+        t0 = time.perf_counter()
+        engq = build_hf_engine(str(tmp), engine_config=rcfg(),
+                               dtype="bfloat16", quantization_mode="wf8")
+        torch.cuda.synchronize()
+        qload = time.perf_counter() - t0
+        qlaunch = qz.LAUNCHES["quantize_sym"]
+        if qlaunch != 7 * L or qz.LAUNCHES["quantize_asym"]:
+            raise AssertionError(f"[hf] wf8 launches {qz.LAUNCHES}")
+        pa.reset_launch_counts()
+        gq = engq.generate(prompts, max_new_tokens=4)
+        if not (pa.LAUNCHES["paged_prefill"] and pa.LAUNCHES["paged_decode"]):
+            raise AssertionError(f"[hf] wf8 serving {pa.LAUNCHES}")
+        qagree = float(np.mean([a[0] == b[0] for a, b in zip(gq, greedy)]))
+        qbytes = woq_memory_bytes(engq.params)
+        out["wf8"] = {"load_s": qload, "quantize_launches": qlaunch,
+                      "param_bytes": qbytes,
+                      "first_token_agreement_with_bf16": qagree}
+        log(f"[hf] wf8: build {qload:.1f} s, {qlaunch} quantize_sym "
+            f"launches ({7 * L} leaves), parameters {qbytes / 1e9:.3f} GB; "
+            f"first tokens agree with bf16 on {qagree:.3f}")
+        del engq
+        torch.cuda.empty_cache()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"[hf] peak memory {out['peak_bytes'] / 2**30:.2f} GiB")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- the path's kernels at its shapes: K1 on the second 256-token
+    # chunk of the 16 x 512 prompts, K2 mid-decode, the quantizer on the
+    # gate_proj leaf
+    trng = np.random.default_rng(240)
+    heads = (hf["num_attention_heads"], hf["num_key_value_heads"], 128)
+    main = out["greedy"]["depth2"]
+    for name, C, ctx in (("paged_prefill", 256, HF_PROMPT),
+                         ("paged_decode", 1, HF_PROMPT + HF_GEN // 2)):
+        t = time_paged(torch, trng, name, S=HF_SEQS, C=C, ctx=ctx,
+                       block_size=64, maxb=maxb, heads=heads,
+                       bf16_max_abs=PAGED7_BF16_MAX_ABS)
+        rows.append({"name": f"{name}_qwen2", "route": "cuda",
+                     "source": SOURCE, "replaces": REPLACES[name],
+                     "launches": main["launches"][name],
+                     "launches_from": f"phase 24, {model} greedy at "
+                                      f"depth 2", **t})
+        torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(241)
+    M, I = hf["hidden_size"], hf["intermediate_size"]
+    leaf = (torch.randn(M, I, generator=g, device="cuda") * M ** -0.5).to(
+        torch.bfloat16)
+    err = _quant_case(torch, qz, leaf, bits=8, gs=128, sym=True,
+                      what=f"[{M}, {I}] bf16 {model} gate_proj")
+    kw = dict(bits=8, group_size=128, symmetric=True)
+    n_el = leaf.numel()
+    ms = _time_ms(torch, lambda: qz.quantize_blockwise(leaf, **kw), 50)
+    plain_ms = _time_ms(torch, lambda: qz.quantize_blockwise_plain(
+        leaf, **kw), 5)
+    rows.append(_op_row(
+        "quantize_sym", QUANT_SOURCE, out["wf8"]["quantize_launches"], err,
+        ms, plain_ms, None, n_el * 2 + n_el + -(-n_el // 128) * 4, 3 * n_el,
+        F32_FLOPS_PER_S, launches_from=f"phase 24, {model} wf8 at load",
+        library_call="none: no single PyTorch call computes it",
+        shape={"leaf": [M, I], "dtype": "bf16", "bits": 8,
+               "group_size": 128},
+        graph_ms=_graph_ms(torch, [lambda: qz.quantize_blockwise(
+            leaf, **kw)])))
+    rows[-1]["name"] = "quantize_sym_qwen2"
+    del leaf
+    torch.cuda.empty_cache()
+    return out, rows
+
+
 def main(argv) -> int:
     unknown = [a for a in argv
                if a not in ("--trace", "--fp6-sweep", "--norm-sweep")]
@@ -4000,6 +4506,8 @@ def main(argv) -> int:
     rows += c1_rows
     kv_pool, kv_rows = run(phase_kv_pool, torch, woq, tracing)
     rows += kv_rows
+    hf, hf_rows = run(phase_hf_serving, torch)
+    rows += hf_rows
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     result = {"kernels": rows, "card": card, "phase_s": phase_s,
               "serving": {k: serving[k] for k in
@@ -4014,7 +4522,8 @@ def main(argv) -> int:
               "woq_serving": {m: {k: v for k, v in r.items() if k != "trace"}
                               for m, r in woq.items()},
               "woq_engine_parity": woq_parity, "c1": c1,
-              "kv_pool": {k: v for k, v in kv_pool.items() if k != "timing"}}
+              "kv_pool": {k: v for k, v in kv_pool.items() if k != "timing"},
+              "hf_serving": hf}
     if trace is not None:
         result["trace"] = trace
         result["train_trace"] = train["trace"]

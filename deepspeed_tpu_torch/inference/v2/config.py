@@ -4,10 +4,11 @@ Only the fields this port reads. Features the port does not have yet are
 refused here, at construction, with the knob's name:
 
 - ``tp_size`` / ``seq_size`` / ``ep_size`` > 1 (multi-device serving);
-- ``prefix_cache=True``;
-- ``serve_pipeline_depth`` > 0. The JAX package defaults to 2 (an
-  overlapped plan/dispatch/commit pipeline); this port runs depth 0, the
-  synchronous path the JAX package keeps as its parity oracle.
+- ``prefix_cache=True``.
+
+``serve_pipeline_depth`` is the JAX package's: the number of steps the
+serve loop plans and dispatches ahead of the oldest step's commit (2 by
+default); 0 is the synchronous path, the parity oracle.
 """
 
 from __future__ import annotations
@@ -35,7 +36,9 @@ class RaggedInferenceConfig:
     seq_size: int = 1
     ep_size: int = 1
     prefix_cache: bool = False
-    serve_pipeline_depth: int = 0
+    # steps planned and dispatched ahead of the oldest commit; 0 plans,
+    # dispatches and commits each step in turn
+    serve_pipeline_depth: int = 2
     # tokens generated per decode_loop call (one host sync per call);
     # 0/1 sends every token through put()
     decode_loop_steps: int = 16
@@ -68,12 +71,8 @@ class RaggedInferenceConfig:
                 "prefix_cache=True is not ported yet")
         if self.serve_pipeline_depth < 0:
             raise ValueError(
-                f"serve_pipeline_depth must be >= 0, got "
-                f"{self.serve_pipeline_depth}")
-        if self.serve_pipeline_depth > 0:
-            raise NotImplementedError(
-                f"serve_pipeline_depth={self.serve_pipeline_depth}: the "
-                f"pipelined serve loop is not ported yet (use 0)")
+                f"serve_pipeline_depth must be >= 0 (0 = synchronous), "
+                f"got {self.serve_pipeline_depth}")
         if self.decode_loop_steps < 0:
             raise ValueError(
                 f"decode_loop_steps must be >= 0, got "

@@ -7,8 +7,17 @@ keeps logits for each slot's last scheduled token only. Padded query
 positions write into the trash row (the pool's last row), so they never
 corrupt a live sequence's KV.
 
-The decode loop is a Python loop of greedy steps that feeds each step's
-tokens to the next on the device, with one host sync per ``n`` tokens.
+Token selection stays on the device: ``step_greedy`` takes the argmax,
+``step_sample_fb`` the per-slot sampler (``_select_tokens``: temperature,
+top-k, top-p and gumbel noise keyed by ``(seed, position)``, the JAX
+package's function in plain PyTorch, as the JAX package computes it
+outside any kernel). The ``_fb`` steps take each fed slot's input token
+from the previous step's on-device token output (the pipelined serve
+loop's feedback), so a steady decode needs no host round trip a token.
+
+The decode loop is a Python loop of greedy or sampled steps that feeds
+each step's tokens to the next on the device, with one host sync per
+``n`` tokens.
 Over a bf16, fp16 or fp32 pool every step appends its K/V to the pool and
 then attends: the JAX package's fused loop keeps its fresh K/V in a ring
 buffer because TPU scatters are slow, and appending computes the same
@@ -28,8 +37,81 @@ import torch
 
 from ...ops.kernels.fp6_gemm import Fp6GemmWeight, fp6_matmul
 from ..quantization import dequantize_leaf
+from ...utils.random import PRNGKey, fold_in, gumbel
 from .config import RaggedInferenceConfig
 from .kv_quant import RingKV, pool_parts, quantize_rows
+from .sampling import SAMPLE_CANDIDATES
+
+
+# --------------------------------------------------------------------- #
+# on-device per-slot token selection (sampling.py has the host half)
+# --------------------------------------------------------------------- #
+
+
+def _sample_keys(seeds: torch.Tensor, positions: torch.Tensor
+                 ) -> torch.Tensor:
+    """Per-slot threefry keys [S, 2], a pure function of (seed, absolute
+    position of the token being selected): ``fold_in(PRNGKey(seed),
+    position)``, bit for bit ``jax.random``'s."""
+    return fold_in(PRNGKey(seeds), positions)
+
+
+def _topk_by_index(logits: torch.Tensor, k: int):
+    """``torch.topk`` with ``jax.lax.top_k``'s order: values descending,
+    ties ranked by index. Each fp32 logit becomes an order-preserving
+    int32 and joins its reversed index below it in one int64 key, so the
+    keys are distinct and ``torch.topk`` over them has one answer."""
+    V = logits.shape[-1]
+    b = max(1, (V - 1).bit_length())
+    bits = logits.to(torch.float32).contiguous().view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    rev = (1 << b) - 1 - torch.arange(V, device=logits.device)
+    _, idxs = torch.topk((ordered << b) | rev, k, dim=-1)
+    return torch.gather(logits, -1, idxs), idxs
+
+
+def _select_tokens(logits: torch.Tensor, keys: torch.Tensor,
+                   temps: torch.Tensor, top_ks: torch.Tensor,
+                   top_ps: torch.Tensor, *, cand: int) -> torch.Tensor:
+    """Per-slot temperature / top-k / top-p categorical, [S, V] -> [S]
+    int32 (JAX ``model_runner._select_tokens``). A slot at temperature
+    <= 0 takes the argmax (first index on ties, as the greedy step).
+    Otherwise, over the top-``cand`` logits in ``jax.lax.top_k``'s order:
+    divide by the temperature, mask ranks >= top_k (0 = off), softmax,
+    mask ranks whose mass before them reaches top_p (rank 0 always
+    stays), add gumbel noise to the masked values, take the argmax."""
+    greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    vals, idxs = _topk_by_index(logits, cand)
+    x = (vals / torch.clamp(temps[:, None], min=1e-6)).to(torch.float32)
+    ar = torch.arange(cand, device=logits.device)[None, :]
+    x = x.masked_fill((top_ks[:, None] > 0) & (ar >= top_ks[:, None]),
+                      float("-inf"))
+    p = torch.softmax(x, dim=-1)
+    mass_before = torch.cumsum(p, dim=-1) - p
+    x = x.masked_fill(~(mass_before < top_ps[:, None]), float("-inf"))
+    choice = torch.argmax(x + gumbel(keys, cand), dim=-1)
+    samp = torch.gather(idxs, 1, choice[:, None])[:, 0]
+    return torch.where(temps <= 0.0, greedy_tok, samp.to(torch.int32))
+
+
+def _chosen_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """log p(tok) under the unmodified model distribution (the softmax
+    of the full-width logits), [S] fp32."""
+    lf = logits.to(torch.float32)
+    picked = torch.gather(lf, 1, tok.long()[:, None])[:, 0]
+    return picked - torch.logsumexp(lf, dim=-1)
+
+
+def _feed_tokens(batch: "RaggedBatch", prev_tok, feed_mask, feed_idx
+                 ) -> "RaggedBatch":
+    """The batch with each fed slot's first token taken from
+    ``prev_tok[feed_idx]`` (the previous step's on-device token output),
+    the rest as staged. No host sync: a gather and a select."""
+    fed = prev_tok[torch.clamp(feed_idx.long(), 0, prev_tok.shape[0] - 1)]
+    tok0 = torch.where(feed_mask > 0, fed, batch.tokens[:, 0])
+    tokens = torch.cat([tok0[:, None].to(batch.tokens.dtype),
+                        batch.tokens[:, 1:]], dim=1)
+    return batch._replace(tokens=tokens)
 
 
 class RaggedBatch(NamedTuple):
@@ -260,19 +342,50 @@ class RaggedRunnerBase:
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
     @torch.inference_mode()
+    def step_greedy_fb(self, params, pool, batch: RaggedBatch, prev_tok,
+                       feed_mask, feed_idx) -> torch.Tensor:
+        """Greedy step with device token feedback: slot i's input token
+        is ``prev_tok[feed_idx[i]]`` where ``feed_mask[i]`` is set (the
+        previous step's token output, still on the device), else
+        ``batch.tokens[i, 0]``. Returns token ids [S] int32."""
+        return self.step_greedy(params, pool, _feed_tokens(
+            batch, prev_tok, feed_mask, feed_idx))
+
+    @torch.inference_mode()
+    def step_sample_fb(self, params, pool, batch: RaggedBatch, prev_tok,
+                       feed_mask, feed_idx, seeds, spos, temps, top_ks,
+                       top_ps):
+        """The sampled sibling of :meth:`step_greedy_fb`: per-slot
+        temperature / top-k / top-p selection with
+        ``fold_in(PRNGKey(seeds[i]), spos[i])`` keys; slots at temperature
+        0 take the argmax. Returns (token ids [S] int32, chosen-token
+        logprobs [S] fp32); the tokens feed the next step."""
+        logits = self._forward(params, pool, _feed_tokens(
+            batch, prev_tok, feed_mask, feed_idx))
+        cand = min(SAMPLE_CANDIDATES, logits.shape[-1])
+        tok = _select_tokens(logits, _sample_keys(seeds, spos), temps,
+                             top_ks, top_ps, cand=cand)
+        return tok, _chosen_logprob(logits, tok)
+
+    @torch.inference_mode()
     def decode_loop(self, params, pool, tok0, start_pos, active,
-                    block_tables, n: int, *, eos_id: int = -1):
-        """Greedy-decode ``n`` tokens per active slot, feeding each step's
-        tokens to the next on the device. tok0 [S] int32: each slot's next
-        input token (KV not yet appended); start_pos [S]: its position;
-        active [S]: 1 live / 0 idle. ``eos_id`` >= 0 freezes a slot once
-        it emits eos (it keeps emitting eos and stops appending KV).
-        Slots must hold KV blocks for start_pos .. start_pos + n - 1.
-        Over an int8 pool (a KVPool) the steps' K/V ride a compute-dtype
-        ring [n, L, 2, S, KV*D], flushed into the pool at the end (module
-        docstring). Returns (tokens [S, n] int32, consumed [S] int32 or
-        None — KV positions each slot appended, None when EOS is off), on
-        the device: the caller's readback is the loop's one host sync."""
+                    block_tables, n: int, *, seeds=None, temps=None,
+                    top_ks=None, top_ps=None, eos_id: int = -1):
+        """Decode ``n`` tokens per active slot, feeding each step's
+        tokens to the next on the device: greedy when ``temps`` is None,
+        else the per-slot sampler (``seeds``, ``temps``, ``top_ks``,
+        ``top_ps`` [S], keys from each slot's seed and the position of
+        the token selected). tok0 [S] int32: each slot's next input token
+        (KV not yet appended); start_pos [S]: its position; active [S]: 1
+        live / 0 idle. ``eos_id`` >= 0 freezes a slot once it emits eos
+        (it keeps emitting eos and stops appending KV). Slots must hold KV
+        blocks for start_pos .. start_pos + n - 1. Over an int8 pool (a
+        KVPool) the steps' K/V ride a compute-dtype ring [n, L, 2, S,
+        KV*D], flushed into the pool at the end (module docstring).
+        Returns (tokens [S, n] int32, chosen-token logprobs [S, n] fp32 or
+        None when greedy, consumed [S] int32 or None — KV positions each
+        slot appended, None when EOS is off), on the device: the caller's
+        readback is the loop's one host sync."""
         _, scales = pool_parts(pool)
         ring = None
         if scales is not None:
@@ -283,14 +396,22 @@ class RaggedRunnerBase:
         tok, pos = tok0, start_pos
         done = torch.zeros_like(active, dtype=torch.bool)
         use_eos = eos_id >= 0
-        out = []
+        sample = temps is not None
+        cand = min(SAMPLE_CANDIDATES, self.model_cfg.vocab_size)
+        out, lps = [], []
         for t in range(n):
             alive = active * (~done).to(active.dtype) if use_eos else active
             batch = RaggedBatch(tokens=tok[:, None], start_pos=pos,
                                 n_tokens=alive, block_tables=block_tables)
             kv = pool if ring is None else RingKV(pool, ring, t, t + 1)
-            nxt = torch.argmax(self._forward(params, kv, batch),
-                               dim=-1).to(torch.int32)
+            logits = self._forward(params, kv, batch)
+            if sample:
+                # the key of the token that will sit at position pos + 1
+                nxt = _select_tokens(logits, _sample_keys(seeds, pos + 1),
+                                     temps, top_ks, top_ps, cand=cand)
+                lps.append(_chosen_logprob(logits, nxt))
+            else:
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             if use_eos:
                 nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
                 pos = pos + (~done).to(pos.dtype)
@@ -302,7 +423,8 @@ class RaggedRunnerBase:
         if ring is not None:
             self._flush_ring(pool, ring, block_tables, start_pos, active)
         toks = torch.stack(out, dim=1)
-        return toks, (pos - start_pos if use_eos else None)
+        return (toks, torch.stack(lps, dim=1) if sample else None,
+                pos - start_pos if use_eos else None)
 
     def _flush_ring(self, pool, ring, block_tables, start0, active) -> None:
         """Quantize the loop's ring rows once and write them into the

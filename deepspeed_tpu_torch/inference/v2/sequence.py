@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field
-from typing import List
+from typing import Any, List
 
 
 class SequenceStatus(enum.Enum):
@@ -38,6 +38,18 @@ class SequenceDescriptor:
     # continuation token not already accounted)
     prompt_log: List[int] = field(default_factory=list)
     gen_log: List[int] = field(default_factory=list)
+    # per-request sampling identity (sampling.SamplingParams; None =
+    # greedy), attached at admission by put(..., sampling=...)
+    sampling: Any = None
+    # chosen-token log-probabilities (unmodified model distribution),
+    # one per committed token when sampling.logprobs is set
+    logprob_log: List[float] = field(default_factory=list)
+    # pipelined serving (serve_pipeline_depth > 0): placeholder tokens in
+    # pending_tokens whose value is still on the device (an in-flight
+    # step's token output). The scheduler takes one only while its
+    # producing step is the latest dispatched; otherwise that step's
+    # commit patches the real value in.
+    spec_pending: int = 0
 
     @property
     def in_flight(self) -> int:

@@ -81,6 +81,19 @@ class StateManager:
                     f"({self.cfg.max_blocks_per_seq})")
             seq.kv_blocks.extend(self.kv_cache.reserve(need))
 
+    def trim_blocks(self, seq: SequenceDescriptor) -> int:
+        """Free the KV blocks beyond what ``seq.seen_tokens`` needs: the
+        rollback of the pipeline's EOS retraction (the caller has already
+        retracted ``seen_tokens``). Stale KV inside the kept tail block is
+        harmless: appends are addressed by position, so the next tokens
+        overwrite it. Returns the number of blocks freed."""
+        needed = -(-seq.seen_tokens // self.cfg.block_size)
+        extra = seq.kv_blocks[needed:]
+        if extra:
+            del seq.kv_blocks[needed:]
+            self.kv_cache.free(extra)
+        return len(extra)
+
     def flush(self, uid: int) -> None:
         """Release a sequence and its KV blocks."""
         seq = self._seqs.pop(uid, None)

@@ -168,11 +168,24 @@ def test_put_and_flush_return_every_block(refs):
 
 def test_config_refuses_unported_features():
     for kw in ({"tp_size": 2}, {"seq_size": 2}, {"ep_size": 2},
-               {"prefix_cache": True}, {"serve_pipeline_depth": 2}):
+               {"prefix_cache": True}):
         with pytest.raises(NotImplementedError):
             RaggedInferenceConfig(**kw)
     with pytest.raises(ValueError):
         RaggedInferenceConfig(attention_impl="flash")
+
+
+def test_config_accepts_the_pipelined_serve_loop():
+    """``serve_pipeline_depth`` > 0 is ported (it left the refusals
+    above) with the JAX package's default of 2; below 0 is refused as the
+    JAX package refuses it."""
+    assert RaggedInferenceConfig().serve_pipeline_depth == 2
+    assert RaggedInferenceConfig(serve_pipeline_depth=2) \
+        .serve_pipeline_depth == 2
+    assert RaggedInferenceConfig(serve_pipeline_depth=0) \
+        .serve_pipeline_depth == 0
+    with pytest.raises(ValueError, match="serve_pipeline_depth"):
+        RaggedInferenceConfig(serve_pipeline_depth=-1)
 
 
 def test_config_accepts_the_int8_and_fp16_pools():

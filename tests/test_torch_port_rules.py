@@ -34,15 +34,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not FORBIDDEN.search("from deepspeed_tpu_torch import x")
 
 
-def test_cuda_requested_without_a_card_raises(monkeypatch):
+def test_cuda_requested_without_a_card_raises(monkeypatch, tmp_path):
     from deepspeed_tpu_torch import resolve_device
-    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  build_hf_engine)
     from deepspeed_tpu_torch.models.llama import LlamaConfig
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngineV2(LlamaConfig.tiny(), {})
+    (tmp_path / "config.json").write_text('{"model_type": "llama"}')
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_hf_engine(str(tmp_path))
     from deepspeed_tpu_torch.checkpoint import init_llama_params
     with pytest.raises(RuntimeError, match="CUDA"):
         init_llama_params(LlamaConfig.tiny(), seed=0)
@@ -104,7 +108,9 @@ def test_import_builds_no_kernel():
         "        'ops.fp_quantizer', 'inference.quantization',\n"
         "        'ops.kernels.normalization', 'ops.kernels.fused_optimizer',\n"
         "        'ops.kernels.evoformer', 'ops.sparse_attention',\n"
-        "        'ops.evoformer_attn'}\n"
+        "        'ops.evoformer_attn', 'models.registry',\n"
+        "        'checkpoint.hf_loader', 'inference.v2.engine_factory',\n"
+        "        'utils.random', 'inference.v2.sampling'}\n"
         "assert {p.__name__ + '.' + n for n in need} <= set(names), names\n"
         "from deepspeed_tpu_torch.ops.kernels import _build\n"
         "assert not _build._libs and not _build.build_logs\n"
