@@ -143,8 +143,10 @@ Phases, in order; any failure exits non-zero before the final line:
              intermediate 11008) at full width and depth, bf16, seeded
              weights made on the card, served as the JAX package's
              example serves it (``examples/llama7b_serve_woq.py:52-89``):
-             64 prompts x 512 tokens, 128 new tokens, chunk 512, block 640,
-             one block per sequence, 66 blocks, decode loop 32, bf16 KV.
+             64 prompts x 512 tokens, 128 new tokens, chunk 512 (prefill in
+             two 256-query steps: the 256-token ``prefill_chunk_cap``, as
+             the JAX engine cuts it), block 640, one block per sequence, 66
+             blocks, decode loop 32, bf16 KV.
              Four runs, one engine alive at a time: bf16; int8 WOQ (group
              128, ``embed``/``norm``/``lm_head`` excluded); int4; fused fp6.
              Each prints its weight bytes, quantize seconds, prefill s,
@@ -308,7 +310,45 @@ bound and one library call:
              served, first tokens against bf16. Prefill s, decode tok/s
              at depths 0 and 2 and peak memory; then K1, K2 and the
              quantizer at this path's shapes against their plain versions
-             and timed, as phase 5 times.
+             and timed, as phase 5 times. The directory and the loaded
+             parameters stay for phase 25, after which they are removed.
+25. prefix serving — the KV block lifecycle on phase 24's Qwen2-7B
+             parameters (bf16, block 64, chunk 256, ``paged_flash``, 8
+             slots, depth 2): six seeded 1000-token system preambles and 48
+             requests (a preamble and a 24-200-token tail, 32 new greedy
+             tokens) in 6 waves of 8, wave w on preambles 2w and 2w+1 (mod
+             6), so waves 4-6 revisit the chains of waves 1-3; a wave is a
+             ``put`` of one leader a preamble, a ``put`` of the other 6 (each
+             takes its preamble's 15 cached blocks and a CoW copy of block
+             15, and starts its prefill at position 1000), a
+             ``decode_pipelined`` and a flush. Runs: (a) cache off on a pool
+             that holds a wave; (b) the device tier on 96 blocks, which
+             cannot hold six chains and a wave (``evicted_pressure`` > 0);
+             (c) (b) with a 256-block host tier, at depth 2 (the launches
+             read here) and at depth 0 (every block move held bit-exact as
+             it happens: a CoW copy equals its source, a promotion's rows
+             equal its buffer and hash as at the demotion gather), whose
+             streams must be identical, with ``demoted``, ``promoted``,
+             ``host_hit_blocks`` > 0 and ``evicted_pressure`` 0; (d) (c) over
+             an int8 pool (codes and scales moved and checked together);
+             (e) (c) with a journal: a pause and resume of one follower a
+             wave (rows equal before and after), two requests aborted with
+             steps in flight (their flush deferred), one past a 1 ms
+             deadline (rejected), a ``request_drain`` in wave 4, ``drain``
+             (every block back, the journal's sequences equal the
+             manifest's), and a ``replay`` on a fresh engine finished to 32
+             tokens. After every wave the cache's invariants and exact
+             refcounts hold and, after the last flush, every block is back.
+             Printed: each run's ``prefix_stats``, pauses, prefill seconds a
+             wave, decode tok/s, ``promote_wait_s``, drain seconds, and the
+             share of first tokens and whole streams equal to (a)'s (bf16
+             at another batch size need not round alike). Then K1 and K2 at
+             the steps recorded on run (c)'s hit path (K1: the followers'
+             first chunks, 256 queries a slot with 24-200 live from
+             position 1000, blocks shared between slots; K2: the first
+             decode step), in bf16, fp16 and over an int8 pool, against
+             their plain versions and timed beside SDPA and the bound (a
+             shared block's bytes counted once).
 
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
@@ -336,6 +376,7 @@ import dataclasses
 import itertools
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -407,6 +448,9 @@ PAGED7_BF16_MAX_ABS = 1.6e-2
 # the WOQ serving runs: the JAX package's 7B example
 # (examples/llama7b_serve_woq.py:52-89), bf16 KV pool
 WOQ_SEQS, WOQ_PROMPT, WOQ_GEN = 64, 512, 128
+# the prefill chunk phases 15 and 23 run: min(chunk 512, the 256-token
+# prefill_chunk_cap), two 256-query chunks a prompt (fault C5)
+WOQ_CHUNK = 256
 WOQ_MODES = {"bf16": None, "int8": {"num_bits": 8},
              "int4": {"num_bits": 4},
              "fp6_fused": {"dtype": "fp6", "fused_gemm": True}}
@@ -2018,6 +2062,9 @@ def phase_woq_serving(torch, trace=False):
         load_launches = {**qz.LAUNCHES, **f6.LAUNCHES}
         weight_bytes = woq_memory_bytes(params)
         eng = InferenceEngineV2(cfg, params, rcfg, device="cuda")
+        if rcfg.effective_chunk != WOQ_CHUNK:
+            raise AssertionError(f"[woq serving] prefill chunk "
+                                 f"{rcfg.effective_chunk}")
         del params
         torch.cuda.empty_cache()
         # warm-up outside the measured run: a prefill, one decode loop
@@ -2446,14 +2493,15 @@ def phase_woq_timing(torch, woq, worst, rows):
             f"{out[-1]['bound_by']})")
     del leaf
     torch.cuda.empty_cache()
-    # the paged kernels at the 7B serving shapes: the prefill step (64
-    # slots x 512 queries) and mid-decode (64 slots at context 576)
+    # the paged kernels at the 7B serving shapes: the second prefill step
+    # (64 slots x 256 queries over 512 keys) and mid-decode (64 slots at
+    # context 576)
     rng = np.random.default_rng(17)
     bf16_run = woq["bf16"]
     for row in rows:
         if row["name"] not in ("paged_prefill", "paged_decode"):
             continue
-        C = WOQ_PROMPT if row["name"] == "paged_prefill" else 1
+        C = WOQ_CHUNK if row["name"] == "paged_prefill" else 1
         ctx = WOQ_PROMPT if C > 1 else WOQ_PROMPT + WOQ_GEN // 2
         t = time_paged(torch, rng, row["name"], S=WOQ_SEQS, C=C, ctx=ctx,
                        block_size=WOQ_PROMPT + WOQ_GEN, maxb=1,
@@ -3893,7 +3941,7 @@ def phase_kv_pool(torch, woq, trace=False):
     rows = []
     lin = dict(block_size=WOQ_PROMPT + WOQ_GEN, maxb=1)
     dec7 = dict(S=WOQ_SEQS, C=1, ctx=WOQ_PROMPT + WOQ_GEN // 2, **lin)
-    pre7 = dict(S=WOQ_SEQS, C=WOQ_PROMPT, ctx=WOQ_PROMPT, **lin)
+    pre7 = dict(S=WOQ_SEQS, C=WOQ_CHUNK, ctx=WOQ_PROMPT, **lin)
     h7 = (H7, KV7, D7)
     specs = [
         ("paged_decode_int8", "paged_decode", dict(**dec7, heads=h7,
@@ -4140,7 +4188,10 @@ def _chi2_sampler(torch, logits_row):
 
 def phase_hf_serving(torch):
     """Phase 24: a random Qwen2-7B checkpoint written in HF's layout,
-    served through ``build_hf_engine`` (module docstring)."""
+    served through ``build_hf_engine`` (module docstring). Returns (out,
+    rows, keep): ``keep`` holds the checkpoint directory, its model config
+    and its loaded bf16 parameters for phase 25, whose caller removes the
+    directory (``keep["dir"]``); on a failure here it is removed now."""
     import shutil
     import tempfile
 
@@ -4156,6 +4207,7 @@ def phase_hf_serving(torch):
     from deepspeed_tpu_torch.utils import random as trandom
     out, rows = {}, []
     tmp = Path(tempfile.mkdtemp(prefix="qwen2_"))
+    kept = False
     try:
         free = shutil.disk_usage(tmp).free
         need = 2 * sum(math.prod(s[1]) for s in _qwen2_specs(QWEN2_7B))
@@ -4345,6 +4397,8 @@ def phase_hf_serving(torch):
             f"tokens, p = {pval:.4f} (limit {CHI2_MIN_P})")
         if not pval > CHI2_MIN_P:
             raise AssertionError("[hf] the sampler's draws fail chi2")
+        # phase 25 serves these very parameters
+        keep = {"dir": tmp, "model": model, "cfg": cfg, "params": params}
         del engs, e, e2, eng0, params
         torch.cuda.empty_cache()
 
@@ -4386,8 +4440,10 @@ def phase_hf_serving(torch):
         torch.cuda.empty_cache()
         out["peak_bytes"] = torch.cuda.max_memory_allocated()
         log(f"[hf] peak memory {out['peak_bytes'] / 2**30:.2f} GiB")
+        kept = True
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not kept:
+            shutil.rmtree(tmp, ignore_errors=True)
 
     # ---- the path's kernels at its shapes: K1 on the second 256-token
     # chunk of the 16 x 512 prompts, K2 mid-decode, the quantizer on the
@@ -4430,6 +4486,582 @@ def phase_hf_serving(torch):
     rows[-1]["name"] = "quantize_sym_qwen2"
     del leaf
     torch.cuda.empty_cache()
+    return out, rows, keep
+
+
+# ---------------------------------------------------------------- prefix
+
+# phase 25: the shared-prefix workload on phase 24's Qwen2-7B. Six
+# 1000-token system preambles, 48 requests (a preamble and a 24-200-token
+# tail, PFX_NEW greedy tokens) in 6 waves of 8: wave w takes preambles
+# 2w and 2w+1 (mod 6), so waves 4-6 revisit the chains of waves 1-3.
+PFX_PREAMBLES, PFX_PRE_LEN, PFX_WAVES, PFX_WAVE = 6, 1000, 6, 8
+PFX_TAIL, PFX_NEW = (24, 200), 32
+# run (b)'s pool (six chains plus a wave do not fit) and run (c)'s host
+# tier; run (a)'s pool holds a whole wave without the cache
+PFX_BLOCKS, PFX_HOST = 96, 256
+
+
+def _pfx_waves(vocab, seed=25):
+    """[(leaders, followers)] a wave: (uid, prompt) lists, the leaders
+    one request per preamble."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pres = [rng.integers(1, vocab, PFX_PRE_LEN).tolist()
+            for _ in range(PFX_PREAMBLES)]
+    waves, uid = [], 0
+    for w in range(PFX_WAVES):
+        pair = ((2 * w) % PFX_PREAMBLES, (2 * w + 1) % PFX_PREAMBLES)
+        reqs = []
+        for i in range(PFX_WAVE):
+            n = int(rng.integers(PFX_TAIL[0], PFX_TAIL[1] + 1))
+            reqs.append((uid, pres[pair[i % 2]]
+                         + rng.integers(1, vocab, n).tolist()))
+            uid += 1
+        waves.append((reqs[:2], reqs[2:]))
+    return waves
+
+
+def _digest(t):
+    """A hash of a tensor's bytes (device or host)."""
+    import hashlib
+    if t is None:
+        return None
+    return hashlib.sha1(t.detach().contiguous().view(-1).view(
+        __import__("torch").uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def _pfx_block(kv, b):
+    bs = kv.cfg.block_size
+    return (kv.data[:, :, b * bs:(b + 1) * bs],
+            None if kv.scales is None else kv.scales[..., b * bs:(b + 1) * bs])
+
+
+def _pfx_instrument(torch, eng):
+    """Hold every block move of ``eng`` bit-exact as it happens: a CoW
+    copy's rows (and scales) equal its source block's; a promotion's
+    destination rows equal the buffer it scatters, and a promoted entry's
+    buffer hashes as its rows did at the demotion gather. Returns the
+    counts of each check."""
+    kv, pc = eng.kv_cache, eng._prefix
+    seen = {"cow_checked": 0, "promotes_checked": 0,
+            "promoted_vs_demotion_hash": 0}
+    sums, pending = {}, []
+    copy0, demote0 = kv.copy_block, pc.demote
+    promote0, blocks0 = pc.promote, kv.promote_blocks
+
+    def same(a, b):
+        return torch.equal(a[0], b[0].to(a[0].device)) and (
+            a[1] is None or torch.equal(a[1], b[1].to(a[1].device)))
+
+    def copy_block(src, dst):
+        copy0(src, dst)
+        if not same(_pfx_block(kv, dst), _pfx_block(kv, src)):
+            raise AssertionError(f"[prefix] CoW copy {src} -> {dst}")
+        seen["cow_checked"] += 1
+
+    def demote(entries, refs):
+        for e, r in zip(entries, refs):
+            rows, sc = r.get()
+            sums[id(e)] = (_digest(rows), _digest(sc))
+        return demote0(entries, refs)
+
+    def promote(entry, block):
+        pending.append((id(entry), block))
+        return promote0(entry, block)
+
+    def promote_blocks(promotes):
+        blocks0(promotes)
+        for buf, dst in promotes:
+            if not same(_pfx_block(kv, dst), buf):
+                raise AssertionError(f"[prefix] promotion into {dst}")
+            seen["promotes_checked"] += 1
+        for eid, dst in pending:
+            rows, sc = _pfx_block(kv, dst)
+            if (_digest(rows), _digest(sc)) != sums.pop(eid):
+                raise AssertionError(f"[prefix] promoted block {dst} "
+                                     f"differs from its demotion gather")
+            seen["promoted_vs_demotion_hash"] += 1
+        pending.clear()
+    kv.copy_block, pc.demote = copy_block, demote
+    pc.promote, kv.promote_blocks = promote, promote_blocks
+    return seen
+
+
+def _pfx_pause_resume(torch, eng, uid):
+    """Pause ``uid`` and resume it at once: its rows (and scales) after
+    the restore equal its rows before the offload."""
+    kv = eng.kv_cache
+    seq = eng.state.get(uid)
+    before = [t.clone() if t is not None else None
+              for t in kv.gather_blocks(seq.kv_blocks)]
+    eng.pause(uid)
+    eng.resume(uid)
+    after = kv.gather_blocks(seq.kv_blocks)
+    if not all(a is None or torch.equal(a, b)
+               for a, b in zip(after, before)):
+        raise AssertionError(f"[prefix] resumed {uid}'s rows differ")
+
+
+PFX_STATS = ("prefill_chunks_skipped_frac", "host_hit_frac", "matched_tokens",
+             "prefill_tokens", "cow_copies", "demoted", "promoted",
+             "host_hit_blocks", "evicted_pressure", "evicted_cap",
+             "host_evicted")
+
+
+def _pfx_serve(torch, eng, waves, *, wave_hook=None, decode_hook=None,
+               stop=None):
+    """Serve the waves on ``eng`` (each: a put of the leaders, a put of
+    the followers, ``decode_pipelined`` for the rest of PFX_NEW tokens, a
+    flush), the cache's invariants after each. ``wave_hook(w, uids)``
+    runs before a wave's decode, ``decode_hook(w)`` may return a
+    ``_pre_commit`` hook for it; ``stop``: the wave after whose decode the
+    run stops (its sequences stay live). Returns streams, per-wave
+    prefill seconds, decode seconds and tokens."""
+    streams, prefill_s, dec_s, dec_tok = {}, [], 0.0, 0
+    for w, (leaders, rest) in enumerate(waves):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = {}
+        for group in (leaders, rest):
+            first.update(eng.put([u for u, _ in group],
+                                 [p for _, p in group], _greedy=True))
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        uids = [u for u, _ in leaders + rest if u in first]
+        if wave_hook is not None:
+            wave_hook(w, uids)
+        orig = eng._pre_commit
+        hook = decode_hook(w) if decode_hook is not None else None
+        if hook is not None:
+            eng._pre_commit = hook
+        t0 = time.perf_counter()
+        res = eng.decode_pipelined(uids, [first[u] for u in uids],
+                                   PFX_NEW - 1)
+        torch.cuda.synchronize()
+        eng._pre_commit = orig
+        dec_s += time.perf_counter() - t0
+        dec_tok += sum(len(v) for v in res.values())
+        for u in uids:
+            streams[u] = [first[u]] + res[u]
+        if stop == w:
+            return streams, prefill_s, dec_s, dec_tok
+        for u in uids:
+            eng.flush(u)
+        if eng._prefix is not None:
+            eng._prefix.check_invariants()
+            eng._prefix.assert_exact_refs(eng.state.sequences.values())
+    if eng.free_blocks != eng.config.num_blocks:
+        raise AssertionError(f"[prefix] blocks not back: {eng.free_blocks}")
+    return streams, prefill_s, dec_s, dec_tok
+
+
+def _pfx_agree(streams, ref):
+    uids = [u for u in streams if u in ref]
+    first = sum(streams[u][:1] == ref[u][:1] for u in uids)
+    whole = sum(streams[u] == ref[u] for u in uids)
+    return {"first_token": first / len(uids), "stream": whole / len(uids),
+            "requests": len(uids)}
+
+
+def time_hit_path(torch, rng, name, rec, *, heads, block_size, num_blocks,
+                  dtype, quant):
+    """K1 or K2 at a step recorded on the prefix cache's hit path (start
+    positions, live queries, block tables shared between slots) over a
+    random pool of the engine's size: against its plain version (the
+    phase's limits), its time (events and a CUDA graph), the plain
+    version's, SDPA on each slot's context gathered and padded (with its
+    causal mask; over an int8 pool the same K/V in bf16, a reference
+    only), and the bound: bytes of the live queries, the output, and the
+    distinct blocks the tables touch (a shared block read once), or the
+    FLOPs of the live causal pairs."""
+    from deepspeed_tpu_torch.inference.v2.kv_quant import quantize_rows
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    Hh, KVh, Dh = heads
+    start, ntok, tables, C = rec["start"], rec["ntok"], rec["tables"], \
+        rec["C"]
+    S = len(start)
+    lens = (start + ntok) * (ntok > 0)
+    slots = (num_blocks + 1) * block_size
+    dev = "cuda"
+    kp = torch.randn(slots, KVh * Dh, device=dev)
+    vp = torch.randn(slots, KVh * Dh, device=dev)
+    ex = {}
+    cdt = torch.bfloat16 if quant else dtype
+    if quant:
+        kq, ks = quantize_rows(kp, KVh)
+        vq, vs = quantize_rows(vp, KVh)
+        ex = dict(k_scales=ks.contiguous(), v_scales=vs.contiguous())
+        kp, vp = kq, vq
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    q = torch.randn(S, C, Hh, Dh, device=dev).to(cdt)
+    t = lambda a: torch.from_numpy(a).to(dev)       # noqa: E731
+    tab, st, ln = t(tables), t(start), t(lens)
+    kw = dict(block_size=block_size, sm_scale=Dh ** -0.5,
+              sliding_window=None, num_kv_heads=KVh, **ex)
+    fn = getattr(pa, name)
+    got = fn(q, kp, vp, tab, st, ln, **kw)
+    ref = pa.paged_attention_plain(q, kp, vp, tab, st, ln, **kw)
+    live = torch.from_numpy(ntok > 0)
+    qmask = torch.zeros(S, C, dtype=torch.bool)
+    for s in range(S):
+        qmask[s, :int(ntok[s])] = True
+    what = (f"{name} on the hit path at S={S} C={C} starts "
+            f"{sorted(set(int(x) for x in start[ntok > 0]))[:4]} live "
+            f"queries {[int(x) for x in ntok]} H={Hh} KV={KVh} D={Dh} "
+            f"{str(cdt)[6:]}" + (" int8 pool" if quant else ""))
+    qm = qmask.to(dev)
+    err = check_close(torch, f"[prefix] {what}", got[qm], ref[qm],
+                      bf16_max_abs=PAGED7_BF16_MAX_ABS)
+    if got[~live.to(dev)].any():
+        raise AssertionError("[prefix] an idle slot's rows are not zero")
+    again = fn(q, kp, vp, tab, st, ln, **kw)
+    if not torch.equal(got, again):
+        raise AssertionError(f"[prefix] {name} differs call to call")
+    del got, ref, again
+    call = lambda: fn(q, kp, vp, tab, st, ln, **kw)   # noqa: E731
+    ms = _time_ms(torch, call, 50)
+    graph_ms = _graph_ms(torch, [call])
+    plain_ms = _time_ms(torch, lambda: pa.paged_attention_plain(
+        q, kp, vp, tab, st, ln, **kw), 3)
+    T = int(lens.max())
+    j = torch.arange(T, device=dev)
+    idx = tab.long()[:, j // block_size] * block_size + j % block_size
+
+    def dense(pool, sc):
+        x = pool[idx].float()
+        if sc is not None:
+            x = x.reshape(S, T, KVh, Dh) * sc.T[idx][..., None]
+        return x.reshape(S, T, KVh, Dh).to(cdt).transpose(1, 2) \
+            .contiguous()
+    kc, vc = dense(kp, ex.get("k_scales")), dense(vp, ex.get("v_scales"))
+    qc = q.transpose(1, 2).contiguous()
+    pos = st.long()[:, None] + torch.arange(C, device=dev)[None, :]
+    mask = (j[None, None, :] <= pos[:, :, None]) \
+        & (j[None, None, :] < ln.long()[:, None, None])
+    mask = mask | ~qm[:, :, None]            # padded rows: any finite row
+    lib_ms = _time_ms(torch, _sdpa(qc, kc, vc, mask[:, None]), 50)
+    lib_graph_ms = _graph_ms(torch, [_sdpa(qc, kc, vc, mask[:, None])])
+    el = q.element_size()
+    blocks = {int(tables[s, i]) for s in range(S) if ntok[s]
+              for i in range(-(-int(lens[s]) // block_size))}
+    nq = int(ntok.sum())
+    kv_el = 1 if quant else el
+    nbytes = (2 * nq * Hh * Dh * el
+              + 2 * len(blocks) * block_size * KVh * Dh * kv_el
+              + (2 * len(blocks) * block_size * KVh * 4 if quant else 0)
+              + tables.size * 4 + 2 * S * 4)
+    pairs = sum(int(start[s]) * int(ntok[s])
+                + int(ntok[s]) * (int(ntok[s]) + 1) // 2 for s in range(S))
+    flops = 4 * Hh * Dh * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    out = {"ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": lib_ms, "library_graph_ms": lib_graph_ms,
+           "max_abs_err": err, "bytes": nbytes, "flops": flops,
+           "shape": {"S": S, "C": C, "H": Hh, "KV": KVh, "D": Dh,
+                     "start": [int(x) for x in start],
+                     "live_queries": [int(x) for x in ntok],
+                     "distinct_blocks": len(blocks),
+                     "table_blocks": int(sum(-(-int(n) // block_size)
+                                             for n in lens)),
+                     "block_size": block_size, "dtype": str(cdt)[6:],
+                     "int8_pool": quant}}
+    if quant:
+        out["library_note"] = ("SDPA over the same K/V in bf16: a "
+                               "reference only (no PyTorch call computes "
+                               "the scaled int8 function)")
+    if C > 1:
+        out["kernel_route"] = pa.prefill_route(C, Dh, cdt, block_size, quant)
+    out["graph_bound_share"] = out["bound_ms"] / graph_ms
+    log(f"[prefix] {what}: {ms:.4f} ms (graph {graph_ms:.4f}, plain "
+        f"{plain_ms:.4f}, sdpa {lib_ms:.4f} / graph {lib_graph_ms:.4f}, "
+        f"bound {out['bound_ms']:.4f} by {out['bound_by']}, "
+        f"{out['graph_bound_share']:.1%} of it in the graph; "
+        f"{len(blocks)} distinct blocks of {out['shape']['table_blocks']} "
+        f"in the tables)" + (f"; route {out['kernel_route']}"
+                             if C > 1 else ""))
+    return out
+
+
+def phase_prefix_serving(torch, ctx):
+    """Phase 25: the shared-prefix workload (PFX_*) on phase 24's
+    Qwen2-7B parameters (module docstring)."""
+    import tempfile
+
+    import numpy as np
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig,
+                                                  manifest_from_journal)
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    cfg, params, model = ctx["cfg"], ctx["params"], ctx["model"]
+    L = cfg.num_layers
+    maxb = -(-(PFX_PRE_LEN + PFX_TAIL[1] + PFX_NEW) // 64)
+    waves = _pfx_waves(cfg.vocab_size)
+    out, rows = {"model": model, "max_blocks_per_seq": maxb}, []
+
+    def engine(**kw):
+        base = dict(max_seqs=PFX_WAVE, chunk_size=256, block_size=64,
+                    max_blocks_per_seq=maxb, dtype="bfloat16",
+                    attention_impl="paged_flash", decode_loop_steps=0,
+                    serve_pipeline_depth=2, num_blocks=PFX_BLOCKS,
+                    prefix_cache=True)
+        base.update(kw)
+        eng = InferenceEngineV2(cfg, params, RaggedInferenceConfig(**base),
+                                device="cuda")
+        eng.pause_count = 0
+        pause0 = eng.pause
+
+        def pause(uid):
+            eng.pause_count += 1
+            pause0(uid)
+        eng.pause = pause
+        return eng
+
+    def report(name, eng, streams, prefill_s, dec_s, dec_tok, extra=None):
+        st = eng.prefix_stats
+        r = {"prefix_stats": {k: st[k] for k in PFX_STATS if k in st},
+             "pauses": eng.pause_count,
+             "resumes": eng.pause_count,
+             "prefill_s_per_wave": prefill_s, "decode_s": dec_s,
+             "decode_tokens": dec_tok, "decode_tok_s": dec_tok / dec_s,
+             "promote_wait_s": eng.pipeline_stats["promote_wait_s"],
+             "num_blocks": eng.config.num_blocks,
+             "host_blocks": eng.config.prefix_cache_host_blocks,
+             "pipeline_depth": eng.pipeline_depth,
+             "kv_cache_dtype": eng.config.kv_cache_dtype, **(extra or {})}
+        if "a" in out:
+            r["agreement_with_a"] = _pfx_agree(streams, out["a"]["streams"])
+        out[name] = r
+        log(f"[prefix] run ({name}): {r['prefix_stats']}; pauses "
+            f"{r['pauses']}; prefill s a wave "
+            f"{[round(x, 4) for x in prefill_s]}; decode {dec_tok} tokens "
+            f"in {dec_s:.3f} s = {r['decode_tok_s']:.1f} tok/s; "
+            f"promote_wait_s {r['promote_wait_s']:.4f}"
+            + (f"; agreement with (a) {r['agreement_with_a']}"
+               if "agreement_with_a" in r else ""))
+        return r
+
+    # warm-up on a throwaway engine: handles, staging, the first launches
+    w0 = engine(num_blocks=2 * maxb + 4)
+    w0.generate([waves[0][0][0][1][:300]], max_new_tokens=4)
+    del w0
+
+    # (a) cache off, a pool that holds a whole wave
+    eng = engine(prefix_cache=False, num_blocks=PFX_WAVE * maxb + 8)
+    res = _pfx_serve(torch, eng, waves)
+    report("a", eng, *res)
+    out["a"]["streams"] = res[0]
+    del eng
+
+    # (b) the device tier only
+    eng = engine()
+    res = _pfx_serve(torch, eng, waves)
+    report("b", eng, *res)
+    if not out["b"]["prefix_stats"]["evicted_pressure"] > 0:
+        raise AssertionError("[prefix] (b) never evicted under pressure")
+    del eng
+
+    # (c) with the host tier, at depth 2 (the kernels' launches read
+    # here: the phase's main path) and at depth 0 (every block move held
+    # bit-exact as it happens)
+    eng = engine(prefix_cache_host_blocks=PFX_HOST)
+    rec = {}
+    disp0 = eng._dispatch_step
+
+    def record(plan):
+        n = plan.ntok.numpy()
+        key = "prefill" if plan.tokens.shape[1] > 1 else "decode"
+        if key not in rec and (key == "decode" and "prefill" in rec
+                               or key == "prefill"
+                               and (plan.start.numpy()[n > 1]
+                                    == PFX_PRE_LEN).sum() >= 2):
+            rec[key] = {"start": plan.start.numpy().copy(),
+                        "ntok": n.copy(),
+                        "tables": plan.tables.numpy().copy(),
+                        "C": plan.tokens.shape[1]}
+        return disp0(plan)
+    eng._dispatch_step = record
+    pa.reset_launch_counts()
+    eng.runner.step_counts = {"prefill": 0, "decode": 0}
+    res = _pfx_serve(torch, eng, waves)
+    launches = {**pa.LAUNCHES, **pa.ROUTE_LAUNCHES}
+    steps = dict(eng.runner.step_counts)
+    want = {"paged_prefill": L * steps["prefill"],
+            "prefill_wgmma_tma": L * steps["prefill"],
+            "paged_decode": L * steps["decode"],
+            "decode_split": L * steps["decode"]}
+    if any(launches[k] != v for k, v in want.items()) \
+            or not (steps["prefill"] and steps["decode"]):
+        raise AssertionError(f"[prefix] (c) launches {launches}, steps "
+                             f"{steps}")
+    report("c", eng, *res, extra={"launches": {k: launches[k]
+                                               for k in want},
+                                  "steps": steps})
+    streams_c = res[0]
+    st = out["c"]["prefix_stats"]
+    if not (st["demoted"] > 0 and st["promoted"] > 0
+            and st["host_hit_blocks"] > 0 and st["evicted_pressure"] == 0):
+        raise AssertionError(f"[prefix] (c) host tier: {st}")
+    if set(rec) != {"prefill", "decode"}:
+        raise AssertionError(f"[prefix] hit-path steps not recorded: "
+                             f"{list(rec)}")
+    del eng
+    eng = engine(prefix_cache_host_blocks=PFX_HOST, serve_pipeline_depth=0)
+    seen = _pfx_instrument(torch, eng)
+    res = _pfx_serve(torch, eng, waves)
+    report("c_depth0", eng, *res, extra={"checked": dict(seen)})
+    if res[0] != streams_c:
+        raise AssertionError("[prefix] (c) streams differ between "
+                             "depth 0 and depth 2")
+    if not (seen["cow_checked"] and seen["promotes_checked"]
+            and seen["promoted_vs_demotion_hash"]):
+        raise AssertionError(f"[prefix] block moves not checked: {seen}")
+    log(f"[prefix] (c) depth 0 = depth 2, streams identical; block moves "
+        f"held bit-exact: {seen}")
+    del eng
+
+    # (d) (c) over an int8 pool (codes and scales move together)
+    eng = engine(prefix_cache_host_blocks=PFX_HOST, kv_cache_dtype="int8")
+    seen = _pfx_instrument(torch, eng)
+    pa.reset_launch_counts()
+    res = _pfx_serve(torch, eng, waves)
+    launches = {**pa.LAUNCHES, **pa.ROUTE_LAUNCHES}
+    if not (launches["prefill_mma"] and launches["int8"]
+            and launches["decode_split"]):
+        raise AssertionError(f"[prefix] (d) launches {launches}")
+    report("d", eng, *res, extra={
+        "checked": dict(seen), "pool_bytes": eng.kv_cache.memory_bytes(),
+        "launches": {k: launches[k] for k in ("paged_prefill", "prefill_mma",
+                                              "paged_decode", "int8")}})
+    del eng
+
+    # (e) on (c)'s config with a journal: a pause/resume of one follower
+    # a wave, two requests aborted with steps in flight (wave 2), one
+    # request past its deadline (wave 3), then a drain in wave 4 and a
+    # replay of its manifest on a fresh engine
+    jdir = Path(tempfile.mkdtemp(prefix="journal_"))
+    try:
+        jpath = str(jdir / "serve.jsonl")
+        eng = engine(prefix_cache_host_blocks=PFX_HOST, serve_journal=jpath)
+        aborted, deferred = waves[1][1][0][0], []
+        late = waves[2][1][1][0]
+
+        def wave_hook(w, uids):
+            if w < 3:
+                _pfx_pause_resume(torch, eng, waves[w][1][2][0])
+
+        def decode_hook(w):
+            orig, n = eng._pre_commit, [0]
+            if w not in (1, 3):
+                return None
+
+            def hook(fl):
+                r = orig(fl)
+                n[0] += 1
+                if w == 1 and n[0] == 3:
+                    for u in (aborted, aborted + 1):
+                        eng.abort(u)
+                    deferred.append(sum(len(f.aborts)
+                                        for f in eng._live_ring))
+                if w == 3 and n[0] == 5:
+                    eng.request_drain()
+                return r
+            return hook
+        put0 = eng.put
+
+        def put(uids, toks, **kw):
+            if late in uids:
+                kw["deadlines"] = {late: 1e-3}
+            return put0(uids, toks, **kw)
+        eng.put = put
+        res = _pfx_serve(torch, eng, waves[:4], wave_hook=wave_hook,
+                         decode_hook=decode_hook, stop=3)
+        streams_e = res[0]
+        if deferred != [2]:
+            raise AssertionError(f"[prefix] (e) aborts not deferred: "
+                                 f"{deferred}")
+        if eng.rejections.get(late, {}).get("reason") \
+                != "deadline_exceeded":
+            raise AssertionError(f"[prefix] (e) deadline: "
+                                 f"{eng.rejections}")
+        t0 = time.perf_counter()
+        manifest = eng.drain()
+        drain_s = time.perf_counter() - t0
+        if not manifest["pool"]["fully_recovered"]:
+            raise AssertionError(f"[prefix] (e) drain: {manifest['pool']}")
+        jm = manifest_from_journal(jpath)
+        key = lambda m: [(s["uid"], s["prompt"], s["generated"])  # noqa
+                         for s in m["sequences"]]
+        if key(jm) != key(manifest):
+            raise AssertionError("[prefix] (e) journal and manifest differ")
+        report("e", eng, *res, extra={
+            "drain_s": drain_s, "manifest_sequences":
+            len(manifest["sequences"]), "deferred_aborts": deferred[0],
+            "rejections": {str(u): r["reason"]
+                           for u, r in eng.rejections.items()}})
+        del eng
+        surv = engine(prefix_cache_host_blocks=PFX_HOST)
+        t0 = time.perf_counter()
+        nxt = surv.replay(manifest)
+        gen = {s["uid"]: list(s["generated"]) + [nxt[s["uid"]]]
+               for s in manifest["sequences"]}
+        uids = sorted(gen)
+        more = surv.decode_pipelined(uids, [gen[u][-1] for u in uids],
+                                     [PFX_NEW - len(gen[u]) for u in uids])
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        for u in uids:
+            gen[u] += more[u]
+            surv.flush(u)
+        if surv.free_blocks != surv.config.num_blocks \
+                or any(len(g) != PFX_NEW for g in gen.values()):
+            raise AssertionError("[prefix] (e) replay lengths or blocks")
+        out["e"].update(
+            replay_s=replay_s, replay_pauses=surv.pause_count,
+            replay_agreement_with_c=_pfx_agree(gen, streams_c),
+            waves_1_3_agreement_with_c=_pfx_agree(
+                {u: v for u, v in streams_e.items()
+                 if u not in (aborted, aborted + 1, late)
+                 and u < 3 * PFX_WAVE}, streams_c))
+        log(f"[prefix] (e) drain {drain_s:.4f} s ({len(uids)} sequences "
+            f"manifested, journal equal, pool fully recovered); replay and "
+            f"finish {replay_s:.3f} s with {surv.pause_count} pauses; "
+            f"replayed streams agree with (c) "
+            f"{out['e']['replay_agreement_with_c']}, waves 1-3's (but the "
+            f"two aborted and the expired) "
+            f"{out['e']['waves_1_3_agreement_with_c']}")
+        del surv
+    finally:
+        shutil.rmtree(jdir, ignore_errors=True)
+    out["a"].pop("streams")
+    torch.cuda.empty_cache()
+
+    # the two kernels at the recorded hit-path steps
+    trng = np.random.default_rng(250)
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    for name, key in (("paged_prefill", "prefill"),
+                      ("paged_decode", "decode")):
+        for dtype, quant, tag in ((torch.bfloat16, False, ""),
+                                  (torch.float16, False, "_fp16"),
+                                  (torch.bfloat16, True, "_int8")):
+            t = time_hit_path(torch, trng, name, rec[key], heads=heads,
+                              block_size=64, num_blocks=PFX_BLOCKS,
+                              dtype=dtype, quant=quant)
+            if tag == "_fp16":
+                n, src = 0, ("no fp16 pool is served in phase 25: held "
+                             "at the hit-path shape only")
+            else:
+                run_ = "d" if quant else "c"
+                n = out[run_]["launches"][name]
+                src = f"phase 25, {model} run ({run_})"
+            rows.append({"name": f"{name}_prefix_hit{tag}", "route": "cuda",
+                         "source": SOURCE, "replaces": REPLACES[name],
+                         "launches": n, "launches_from": src, **t})
+            torch.cuda.empty_cache()
     return out, rows
 
 
@@ -4506,8 +5138,15 @@ def main(argv) -> int:
     rows += c1_rows
     kv_pool, kv_rows = run(phase_kv_pool, torch, woq, tracing)
     rows += kv_rows
-    hf, hf_rows = run(phase_hf_serving, torch)
+    hf, hf_rows, hf_ctx = run(phase_hf_serving, torch)
     rows += hf_rows
+    try:
+        prefix, prefix_rows = run(phase_prefix_serving, torch, hf_ctx)
+    finally:
+        shutil.rmtree(hf_ctx.pop("dir"), ignore_errors=True)
+    del hf_ctx
+    torch.cuda.empty_cache()
+    rows += prefix_rows
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     result = {"kernels": rows, "card": card, "phase_s": phase_s,
               "serving": {k: serving[k] for k in
@@ -4523,7 +5162,7 @@ def main(argv) -> int:
                               for m, r in woq.items()},
               "woq_engine_parity": woq_parity, "c1": c1,
               "kv_pool": {k: v for k, v in kv_pool.items() if k != "timing"},
-              "hf_serving": hf}
+              "hf_serving": hf, "prefix_serving": prefix}
     if trace is not None:
         result["trace"] = trace
         result["train_trace"] = train["trace"]

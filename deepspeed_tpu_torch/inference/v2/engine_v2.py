@@ -25,13 +25,26 @@ turn: the parity oracle.
 
 Token selection is on the device: greedy, or per-request sampling
 (``put(..., sampling=...)``, ``sampling.py``) with ``(seed, position)``
-threefry keys. Prefix caching, pause/offload, drain/replay, speculative
-decoding and telemetry are not ported yet (``config.py`` refuses their
-knobs); a pool too small for the pending work raises.
+threefry keys.
+
+The KV block lifecycle: with ``prefix_cache`` a fresh prompt's longest
+cached block chain is shared (``prefix_cache.py``), a partial tail is
+copied, and a chain demoted to the host tier is promoted back; when the
+scheduler starves the engine pauses (host-offloads) the least recently
+scheduled block holder and resumes it as room appears, and sheds a
+request with a structured rejection (``rejections``) when nothing else
+helps. ``abort`` cancels a request at any time, ``request_deadline_s``
+aborts late ones, ``request_drain`` / ``drain`` / ``replay`` carry live
+requests across a restart (``drain.py``), and a dispatch that raises an
+I/O-class error is retried. Every release of a block waits for the
+commit of the last in-flight step that writes it. Speculative decoding
+(A5.2) and telemetry, the watchdog and fault injection (A6) are not
+ported.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -43,14 +56,19 @@ from ...utils.device import resolve_device
 from ...utils.dtypes import resolve_dtype
 from .blocked_allocator import OutOfBlocksError
 from .config import RaggedInferenceConfig
+from .drain import (EngineDrainingError, ReplayJournal, ServeDrainError,
+                    ServeStepError, build_manifest, write_manifest)
 from .kv_cache import BlockedKVCache
 from .llama_runner import LlamaRaggedRunner
 from .model_runner import RaggedBatch
+from .prefix_cache import PrefixCache
 from .sampling import (SAMPLE_CANDIDATES, SamplingParams, derive_seed,
                        host_token, seed_of, stage_slot)
 from .scheduler import SplitFuseScheduler
 from .sequence import SequenceStatus
 from .state_manager import StateManager
+
+logger = logging.getLogger(__name__)
 
 #: the value a speculatively scheduled decode token carries in
 #: ``pending_tokens`` while its real value is still an in-flight device
@@ -85,13 +103,14 @@ class _PlannedStep:
 
 class _InFlightStep:
     """A dispatched, uncommitted step: its device result and what its
-    commit needs. ``dead`` slots were killed by a later-seen EOS (their
-    readback is discarded); ``rollbacks`` are (seq, n_tokens) retractions
-    that wait for THIS step to have run, since its KV appends still
-    target the blocks they free."""
+    commit needs. ``dead`` slots were killed by a later-seen EOS or an
+    abort (their readback is discarded); ``rollbacks`` are (seq,
+    n_tokens) retractions and ``aborts`` are sequences whose flush waits
+    for THIS step to have run, since its KV appends still target the
+    blocks they free."""
 
     __slots__ = ("sched", "result", "use_greedy", "dead", "rollbacks",
-                 "logprobs")
+                 "aborts", "logprobs")
 
     def __init__(self, sched, result, use_greedy, logprobs=None):
         self.sched = sched
@@ -99,6 +118,7 @@ class _InFlightStep:
         self.use_greedy = use_greedy
         self.dead: set = set()
         self.rollbacks: List[Tuple[Any, int]] = []
+        self.aborts: List[Any] = []
         #: the sampled step's [S] chosen-token logprobs (None if greedy)
         self.logprobs = logprobs
 
@@ -135,6 +155,15 @@ class InferenceEngineV2:
             self.runner.head_dim, dtype=resolve_dtype(self.config.dtype),
             device=self.device)
         self.state = StateManager(self.config, self.kv_cache)
+        cfg = self.config
+        self._prefix: Optional[PrefixCache] = None
+        if cfg.prefix_cache:
+            self._prefix = PrefixCache(
+                cfg.block_size, max_blocks=cfg.prefix_cache_max_blocks,
+                policy=cfg.prefix_cache_policy,
+                host_blocks=cfg.prefix_cache_host_blocks)
+            self.kv_cache.attach_prefix_cache(self._prefix)
+            self.state.prefix = self._prefix
         self.scheduler = SplitFuseScheduler(self.config, self.state)
         self._step_counter = 0
         #: steps planned and dispatched ahead of the oldest commit
@@ -150,14 +179,34 @@ class InferenceEngineV2:
         #: steps dispatched, steps with device-fed slots, host seconds in
         #: plan / dispatch / the commit's blocking readback, and the
         #: device-to-host readbacks made
+        #: device-to-host readbacks made, dispatches retried, and host
+        #: seconds enqueuing host-tier promotions
         self.pipeline_stats = {"steps": 0, "fed_steps": 0, "plan_s": 0.0,
                                "dispatch_s": 0.0, "commit_block_s": 0.0,
-                               "readbacks": 0}
+                               "readbacks": 0, "retries": 0,
+                               "promote_wait_s": 0.0}
         #: host wall time of generate's phases: the prompt put() (prefill,
         #: ends in the readback of its last step) and everything after
         #: (decode), with the tokens each produced
         self.timing = {"prefill_s": 0.0, "decode_s": 0.0,
                        "prefill_tokens": 0, "decode_tokens": 0}
+        # ---- serve-side resilience (drain.py) ----
+        self.request_deadline_s = float(cfg.request_deadline_s)
+        #: True once any sequence carries a deadline: the deadline sweep
+        #: is then armed
+        self._has_deadlines = self.request_deadline_s > 0
+        self.serve_step_retries = int(cfg.serve_step_retries)
+        self.serve_retry_backoff_s = float(cfg.serve_retry_backoff_s)
+        self.serve_shed = bool(cfg.serve_shed)
+        self.journal = ReplayJournal(cfg.serve_journal) \
+            if cfg.serve_journal else None
+        #: any object with a boolean ``preempted`` (attach_preemption)
+        self.preemption = None
+        self._drain_requested = False
+        self._live_ring: Optional[deque] = None
+        #: structured rejections (load shedding, deadlines, drain-time
+        #: admission refusals): uid -> record
+        self.rejections: Dict[int, Dict[str, Any]] = {}
 
     # ------------------------------------------------------------------ #
     # reference-parity surface
@@ -166,6 +215,8 @@ class InferenceEngineV2:
     def put(self, batch_uids: Sequence[int],
             batch_tokens: Sequence[Sequence[int]],
             _greedy: bool = False,
+            arrivals: Optional[Dict[int, float]] = None,
+            deadlines: Optional[Dict[int, float]] = None,
             sampling: Optional[Dict[int, SamplingParams]] = None
             ) -> Dict[int, Any]:
         """Feed tokens, run scheduled steps until all fed work is consumed,
@@ -175,21 +226,69 @@ class InferenceEngineV2:
         maps uid -> :class:`SamplingParams`, attached to a fresh sequence
         for its life: on the ``_greedy`` path its tokens are sampled on
         the device (temperature 0 is the greedy token). Steps run through
-        the pipeline (``serve_pipeline_depth``). A fresh prompt that
-        could never fit the KV pool raises OutOfBlocksError."""
+        the pipeline (``serve_pipeline_depth``); the pool may be
+        oversubscribed (idle sequences are paused to host memory and
+        resumed as room appears).
+
+        Admission: while the engine is draining, a fresh request is
+        refused with a record in :attr:`rejections` (a continuation of a
+        live one is not fed: it rides the drain manifest); so is a fresh
+        prompt that could never fit the pool (``kv_pool_exhausted``,
+        unless ``serve_shed`` is off). A refused uid is absent from the
+        returned dict. ``arrivals`` maps uid -> its ``time.monotonic()``
+        arrival, the anchor of its deadline; ``deadlines`` maps uid -> a
+        deadline in seconds (overriding ``request_deadline_s``). Both
+        apply to fresh sequences. With ``prefix_cache`` a fresh prompt
+        first takes its longest cached chain."""
+        admitted: List[int] = []
         bs = self.config.block_size
         for uid, toks in zip(batch_uids, batch_tokens):
             seq0 = self.state.get(uid)
             fresh = seq0 is None or (seq0.seen_tokens == 0
                                      and not seq0.kv_blocks)
-            need = -(-(len(toks) + 1) // bs)
-            if fresh and need > self.config.num_blocks:
-                raise OutOfBlocksError(
-                    f"sequence {uid}: prompt needs {need} blocks, the pool "
-                    f"has {self.config.num_blocks}")
+            if self._draining():
+                if fresh:
+                    self._reject(uid, "draining",
+                                 detail="engine is draining for preemption")
+                continue
+            if fresh and self.serve_shed:
+                # a prompt whose KV (plus one generated token) exceeds the
+                # whole pool can never be served: shed it at the door
+                need = -(-(len(toks) + 1) // bs)
+                if need > self.config.num_blocks:
+                    self._reject(
+                        uid, "kv_pool_exhausted", needed_blocks=need,
+                        num_blocks=self.config.num_blocks,
+                        detail="prompt exceeds the whole KV pool")
+                    continue
             seq = self.state.put_tokens(uid, toks)
-            if fresh and sampling and sampling.get(uid) is not None:
-                seq.sampling = sampling[uid]
+            admitted.append(uid)
+            # a reused uid sheds its stale rejection record
+            self.rejections.pop(uid, None)
+            if fresh:
+                sp = sampling.get(uid) if sampling else None
+                if sp is not None:
+                    seq.sampling = sp
+                arrived = arrivals.get(uid) if arrivals else None
+                dl = deadlines.get(uid) if deadlines else None
+                if dl is None and self.request_deadline_s > 0:
+                    dl = self.request_deadline_s
+                if dl is not None and dl > 0 and seq.deadline_at is None:
+                    seq.deadline_at = dl + (
+                        arrived if arrived is not None
+                        else time.monotonic())
+                    seq.deadline_s = dl
+                    self._has_deadlines = True
+                if self.journal is not None \
+                        and seq.seen_tokens == 0 and not seq.kv_blocks:
+                    # prompt still building: (re-)journal the full chain
+                    # with its sampling identity
+                    self.journal.admit(uid, seq.prompt_log,
+                                       sampling=seq.sampling.to_dict()
+                                       if seq.sampling is not None
+                                       else None)
+            if self._prefix is not None:
+                self._match_prefix(seq)
         done: Dict[int, Any] = {}
 
         def work_left():
@@ -201,11 +300,62 @@ class InferenceEngineV2:
 
         self._drive_pipeline(
             work_left, lambda: self._plan_step(greedy=_greedy), commit_one)
+        if self._prefix is not None:
+            self._register_prefix(admitted)
         return done
 
+    def _match_prefix(self, seq) -> None:
+        """The prefix-cache hit path: point a fresh prompt's table at the
+        longest cached chain and enqueue the device copies the match asks
+        for (CoW block copies, then one batched host-to-device promotion
+        scatter), on the stream ahead of any step that reads them.
+        ``pipeline_stats["promote_wait_s"]`` is the host time enqueuing
+        the promotion takes."""
+        plan = self.state.match_prefix(seq)
+        for src, dst in plan.copies:
+            self.kv_cache.copy_block(src, dst)
+        if plan.promotes:
+            t0 = time.perf_counter()
+            self.kv_cache.promote_blocks(plan.promotes)
+            self.pipeline_stats["promote_wait_s"] += \
+                time.perf_counter() - t0
+
+    def _register_prefix(self, batch_uids) -> None:
+        """Insert this put() call's prefilled prompt blocks into the cache
+        (their KV writes are enqueued; stream order makes them safe to
+        share)."""
+        for uid in batch_uids:
+            seq = self.state.get(uid)
+            if seq is not None:
+                self.state.register_prefix(seq)
+
+    @property
+    def prefix_stats(self) -> Dict[str, Any]:
+        """The host-side prefix-cache counters merged with the cache's,
+        and the skipped-chunk fraction: matched / (matched + prefilled
+        prompt tokens), and the share of matched tokens the host tier
+        served."""
+        st = dict(self.state.prefix_stats)
+        if self._prefix is not None:
+            st.update(self._prefix.stats)
+            st["cached_blocks"] = self._prefix.cached_blocks
+            st["evictable_blocks"] = self._prefix.evictable_blocks
+            st["host_cached_blocks"] = self._prefix.host_cached_blocks
+            st["host_tier_blocks"] = self._prefix.host_blocks
+        ran = st["prefill_tokens"]
+        hit = st["matched_tokens"]
+        st["prefill_chunks_skipped_frac"] = (
+            hit / (hit + ran) if hit + ran else 0.0)
+        st["host_hit_frac"] = (
+            st["host_matched_tokens"] / hit if hit else 0.0)
+        return st
+
     def query(self, uid: int) -> Tuple[int, int]:
-        """(tokens seen, max additional tokens before block exhaustion)."""
+        """(tokens seen, max additional tokens before block exhaustion).
+        A paused sequence reports 0 headroom: resume() it first."""
         seq = self.state.get_or_create(uid)
+        if seq.status is SequenceStatus.PAUSED:
+            return seq.seen_tokens, 0
         free_local = self.config.max_blocks_per_seq - len(seq.kv_blocks)
         free = min(free_local, self.kv_cache.free_blocks)
         slack = len(seq.kv_blocks) * self.config.block_size - seq.seen_tokens
@@ -213,7 +363,7 @@ class InferenceEngineV2:
 
     def flush(self, uid: int) -> None:
         """Release a sequence and its KV blocks."""
-        self.state.flush(uid)
+        self._flush_uid(uid)
 
     @property
     def free_blocks(self) -> int:
@@ -233,29 +383,326 @@ class InferenceEngineV2:
                         on_dispatch=None) -> None:
         """The ring-drive loop behind put() and decode_pipelined: fill
         the in-flight ring up to ``pipeline_depth`` steps (plan and
-        dispatch), then commit the oldest. ``commit_one(ring)`` pops and
+        dispatch; expired deadlines are aborted and paused sequences
+        resumed first), then commit the oldest. Nothing schedulable with
+        nothing in flight: pause a block holder, else shed a request,
+        else raise (``serve_shed`` off). ``commit_one(ring)`` pops and
         applies the oldest step; ``on_dispatch(plan, fl)`` runs after each
-        dispatch. Nothing schedulable with nothing in flight is a pool too
-        small for the pending work: pause/offload of idle sequences is
-        not ported, so that raises."""
+        dispatch. Once draining (``request_drain`` or an attached
+        preemption flag), no step is planned, every dispatched step is
+        committed, and the loop returns."""
         depth = max(1, self.pipeline_depth)
         ring: deque = deque()
-        while ring or work_left():
-            while len(ring) < depth and work_left():
-                plan = make_plan()
-                if plan is None:
+        self._live_ring = ring
+        try:
+            while ring or (work_left() and not self._draining()):
+                while len(ring) < depth and not self._draining() \
+                        and work_left():
+                    self._expire_deadlines()
+                    self._try_resume()
+                    plan = make_plan()
+                    if plan is None:
+                        break
+                    fl = self._dispatch_with_retry(plan)
+                    ring.append(fl)
+                    if on_dispatch is not None:
+                        on_dispatch(plan, fl)
+                if ring:
+                    commit_one(ring)
+                    continue
+                if self._draining():
                     break
-                fl = self._dispatch_step(plan)
-                ring.append(fl)
-                if on_dispatch is not None:
-                    on_dispatch(plan, fl)
-            if ring:
-                commit_one(ring)
+                if not work_left():
+                    # an expiry or abort cleared the last pending work
+                    continue
+                if not self._relieve_kv_pressure() \
+                        and not self._shed_starved():
+                    raise RuntimeError(
+                        "scheduler starved: KV pool too small even after "
+                        "pausing all idle sequences "
+                        f"(free blocks={self.kv_cache.free_blocks})")
+        finally:
+            self._live_ring = None
+
+    # ------------------------------------------------------------------ #
+    # serve-side resilience: drain / replay / abort / shed / deadlines
+    # ------------------------------------------------------------------ #
+
+    def attach_preemption(self, handler) -> None:
+        """Poll ``handler.preempted`` inside the serve loop: once it is
+        true the pipeline stops planning, commits everything in flight
+        and returns; the caller then runs :meth:`drain`. (The signal
+        handler itself is A6.)"""
+        self.preemption = handler
+
+    def request_drain(self) -> None:
+        """Put the engine into draining mode (idempotent): no new
+        admissions, no new planned steps; in-flight steps still commit."""
+        self._drain_requested = True
+
+    @property
+    def draining(self) -> bool:
+        return self._draining()
+
+    def _draining(self) -> bool:
+        return self._drain_requested or (
+            self.preemption is not None and self.preemption.preempted)
+
+    def _reject(self, uid: int, reason: str, **fields) -> None:
+        """Record a structured rejection (load shed / deadline / drain
+        refusal): the crash-free failure path a serving layer turns into
+        a retriable response."""
+        # the JAX record's shape: retry_after_s is set by an admission
+        # controller (A6), None here
+        rec = {"uid": uid, "reason": reason, "time": time.time(),
+               "retry_after_s": None, **fields}
+        self.rejections[uid] = rec
+        logger.warning(f"serve rejection uid={uid}: {reason} "
+                       + (str(fields) if fields else ""))
+
+    def _expire_deadlines(self) -> None:
+        """Abort requests with pending work whose deadline has passed (a
+        request that owes nothing right now is left alone)."""
+        if not self._has_deadlines:
+            return
+        now = time.monotonic()
+        for seq in list(self.state.sequences.values()):
+            if not seq.in_flight:
                 continue
-            if work_left():
-                raise RuntimeError(
-                    "scheduler starved: KV pool too small for the pending "
-                    f"work (free blocks={self.kv_cache.free_blocks})")
+            if seq.deadline_at is not None and now > seq.deadline_at \
+                    and seq.status is not SequenceStatus.FINISHED:
+                self._reject(seq.uid, "deadline_exceeded",
+                             deadline_s=seq.deadline_s
+                             if seq.deadline_s is not None
+                             else self.request_deadline_s,
+                             deadline_at=seq.deadline_at,
+                             seen_tokens=seq.seen_tokens,
+                             generated=len(seq.gen_log))
+                self.abort(seq.uid)
+
+    def _shed_starved(self) -> bool:
+        """Load shedding: the scheduler starved with the pool exhausted
+        even after eviction and pausing. Abort the cheapest victim to
+        redo (not yet started first, then the largest demand) with a
+        rejection record."""
+        if not self.serve_shed:
+            return False
+        cands = [s for s in self.state.sequences.values()
+                 if s.in_flight and s.status is not SequenceStatus.FINISHED]
+        if not cands:
+            return False
+        victim = min(cands, key=lambda s: (s.seen_tokens != 0,
+                                           -(s.seen_tokens + s.in_flight)))
+        self._reject(
+            victim.uid, "kv_pool_exhausted",
+            needed_blocks=victim.blocks_needed(victim.in_flight,
+                                               self.config.block_size),
+            free_blocks=self.kv_cache.free_blocks,
+            seen_tokens=victim.seen_tokens)
+        self.abort(victim.uid)
+        return True
+
+    def abort(self, uid: int) -> bool:
+        """Cancel a sequence at any time, releasing its state exactly:
+        pending work is dropped, its slots in every in-flight step are
+        killed, and its flush (blocks to the allocator, prefix refcounts
+        decref'd) waits for the commit of the last in-flight step that
+        still writes its blocks. Returns False for an unknown uid."""
+        seq = self.state.get(uid)
+        if seq is None:
+            return False
+        if seq.status is SequenceStatus.FINISHED:
+            return True                    # already cancelled
+        seq.pending_tokens.clear()
+        seq.spec_pending = 0
+        seq.status = SequenceStatus.FINISHED   # the scheduler skips it
+        last_fl = None
+        if self._live_ring:
+            for fl in self._live_ring:
+                touched = False
+                for j, item in enumerate(fl.sched):
+                    if item.seq.uid == uid:
+                        # already-dead slots count too: their KV writes
+                        # (and any rollback) still reference the blocks
+                        fl.dead.add(j)
+                        touched = True
+                if touched or any(s is seq for s, _ in fl.rollbacks):
+                    last_fl = fl
+        if last_fl is not None:
+            last_fl.aborts.append(seq)
+        else:
+            self._flush_uid(uid)
+        return True
+
+    def _flush_uid(self, uid: int) -> None:
+        """The one engine-level release path (flush, deferred abort,
+        drain): journal the finish, then free through the state manager
+        (shared blocks decref'd, private blocks to the allocator)."""
+        if self.journal is not None and self.state.get(uid) is not None:
+            self.journal.finish(uid)
+        self.state.flush(uid)
+
+    def drain(self, path: Optional[str] = None,
+              ledger: Any = None) -> Dict[str, Any]:
+        """Cooperative drain: stop admitting, snapshot every live
+        sequence into a replay manifest (uid, prompt, tokens generated so
+        far, scheduler state), release all engine state, and publish the
+        manifest atomically at ``path`` if given. Call with no steps in
+        flight (after the interrupted engine call returned). Returns the
+        manifest; ``pool`` says whether every block came back. The
+        restart ledger (``ledger``) is A6."""
+        if ledger is not None:
+            raise NotImplementedError(
+                "drain(ledger=...): the restart ledger is not ported yet "
+                "(A6)")
+        if self._live_ring is not None:
+            raise ServeDrainError(
+                "drain() called with steps in flight — request_drain() "
+                "and let the interrupted engine call return first")
+        self.request_drain()
+        # land pending demotion copies: the host tier survives the drain
+        self.kv_cache.finalize_demotions()
+        manifest = build_manifest(self)
+        if self.journal is not None:
+            # retire the journal before flushing: the flushes must not
+            # journal finishes for sequences the manifest still owes
+            self.journal.close()
+            self.journal = None
+        for uid in list(self.state.sequences):
+            self._flush_uid(uid)
+        free = self.kv_cache.free_blocks
+        manifest["pool"] = {
+            "num_blocks": self.config.num_blocks,
+            "free_blocks_after_drain": free,
+            "fully_recovered": free == self.config.num_blocks,
+        }
+        manifest["rejections"] = list(self.rejections.values())
+        if path:
+            write_manifest(manifest, path)
+            manifest["path"] = path
+        return manifest
+
+    def replay(self, manifest: Dict[str, Any]) -> Dict[int, Any]:
+        """Re-admit a drained replica's sequences here: each re-enters as
+        ``prompt + generated`` and is prefilled (with the prefix cache,
+        mostly as hits), and the returned ``{uid: next token}`` is the one
+        the uninterrupted run would have emitted next. Sampled sequences
+        keep their SamplingParams. The sequences stay live, with their
+        prompt/generated split restored."""
+        if self._draining():
+            raise EngineDrainingError(
+                "replay() on a draining engine — replay belongs on the "
+                "restarted or survivor replica")
+        recs = manifest.get("sequences", [])
+        uids = [int(r["uid"]) for r in recs]
+        chains = [list(r["prompt"]) + list(r["generated"]) for r in recs]
+        sp_map = {int(r["uid"]): SamplingParams.from_dict(r["sampling"])
+                  for r in recs if r.get("sampling")}
+        out = self.put(uids, chains, _greedy=True, sampling=sp_map or None)
+        for r in recs:
+            seq = self.state.get(int(r["uid"]))
+            if seq is not None:
+                seq.prompt_log = list(r["prompt"])
+                seq.gen_log = list(r["generated"]) + seq.gen_log
+        return out
+
+    def _dispatch_with_retry(self, plan: _PlannedStep) -> _InFlightStep:
+        """Dispatch with bounded retry: an I/O-class failure redispatches
+        the same planned step (a failed dispatch changed no host state)
+        after an exponential backoff; past ``serve_step_retries`` it
+        raises ServeStepError."""
+        delay = self.serve_retry_backoff_s
+        attempt = 0
+        while True:
+            try:
+                return self._dispatch_step(plan)
+            except (OSError, ConnectionError) as e:
+                attempt += 1
+                self.pipeline_stats["retries"] += 1
+                if attempt > self.serve_step_retries:
+                    raise ServeStepError(
+                        f"serve step dispatch failed {attempt} times; "
+                        f"last error: {e}") from e
+                logger.warning(
+                    f"serve step dispatch transient failure ({e}); "
+                    f"retry {attempt}/{self.serve_step_retries} in "
+                    f"{delay:.3f}s")
+                if delay > 0:
+                    time.sleep(delay)
+                delay *= 2
+
+    # ------------------------------------------------------------------ #
+    # pause / resume: oversubscribing the pool through host memory
+    # ------------------------------------------------------------------ #
+
+    def _resume_headroom(self, seq) -> int:
+        """Blocks needed to restore ``seq`` and schedule its next chunk
+        (resuming with less would thrash)."""
+        bs = self.config.block_size
+        n = min(seq.in_flight, self.config.effective_chunk)
+        total = -(-(seq.seen_tokens + n) // bs)
+        return max(total, seq.paused_blocks)
+
+    def _try_resume(self) -> None:
+        """Restore paused sequences with pending work, oldest first, while
+        free blocks cover their saved KV and their next chunk."""
+        paused = sorted(
+            (s for s in self.state.sequences.values()
+             if s.status is SequenceStatus.PAUSED and s.in_flight > 0),
+            key=lambda s: s.last_step)
+        for seq in paused:
+            if self._resume_headroom(seq) > self.kv_cache.free_blocks:
+                break
+            self.resume(seq.uid)
+
+    def _relieve_kv_pressure(self) -> bool:
+        """Pause the least recently scheduled block holder: idle ones
+        first, then one with pending work (its KV is complete up to
+        ``seen_tokens``). False when no sequence holds a block."""
+        holders = [s for s in self.state.sequences.values()
+                   if s.status is not SequenceStatus.PAUSED and s.kv_blocks]
+        idle = sorted((s for s in holders if not s.in_flight),
+                      key=lambda s: s.last_step)
+        if idle:
+            self.pause(idle[0].uid)
+            return True
+        pending = sorted((s for s in holders if s.in_flight),
+                         key=lambda s: s.last_step)
+        if pending:
+            self.pause(pending[0].uid)
+            return True
+        return False
+
+    def pause(self, uid: int) -> None:
+        """Offload a sequence's KV blocks to host memory and release them,
+        so other sequences can use the pool. Pending tokens may wait: KV
+        is complete up to ``seen_tokens``. Shared blocks are decref'd;
+        resume() restores the copy into private blocks."""
+        seq = self.state.get(uid)
+        if seq is None:
+            raise KeyError(f"unknown sequence {uid}")
+        if seq.status is SequenceStatus.PAUSED:
+            return
+        seq.host_kv = self.kv_cache.offload(seq.kv_blocks)
+        seq.paused_blocks = len(seq.kv_blocks)
+        self.state.release_blocks(seq, seq.kv_blocks)
+        seq.kv_blocks = []
+        seq.status = SequenceStatus.PAUSED
+
+    def resume(self, uid: int) -> None:
+        """Reserve blocks for a paused sequence and restore its KV from
+        host memory as it was (block ids may differ)."""
+        seq = self.state.get(uid)
+        if seq is None:
+            raise KeyError(f"unknown sequence {uid}")
+        if seq.status is not SequenceStatus.PAUSED:
+            return
+        blocks = self.kv_cache.reserve(seq.paused_blocks)
+        self.kv_cache.restore(seq.host_kv, blocks)
+        seq.kv_blocks = list(blocks)
+        seq.host_kv = None
+        seq.paused_blocks = 0
+        seq.status = SequenceStatus.WAITING
 
     def _staging_bufs(self, S: int, C: int) -> Tuple[torch.Tensor, ...]:
         """The next of ``pipeline_depth + 1`` reused staging sets for an
@@ -305,10 +752,10 @@ class InferenceEngineV2:
             item.seq.last_sched = self.state.step
         cfg = self.config
         # shape buckets: a pure-decode step (one token per slot) runs
-        # [S, 1] instead of padding every slot to the chunk; the slot dim
-        # rounds up to a power of two (16 .. 512) within max_seqs
+        # [S, 1] instead of padding every slot to the prefill chunk; the
+        # slot dim rounds up to a power of two (16 .. 512) within max_seqs
         C = 1 if all(len(item.tokens) == 1 for item in sched) \
-            else cfg.chunk_size
+            else cfg.effective_chunk
         S = cfg.max_seqs
         for b in (16, 32, 64, 128, 256, 512):
             if len(sched) <= b <= cfg.max_seqs:
@@ -374,10 +821,10 @@ class InferenceEngineV2:
             # one sampler step serves fed and unfed steps: an unfed step
             # passes its all-zero mask and a [1] dummy source
             prev = self._feed_src if plan.fed else self._no_feed
-            self.pipeline_stats["fed_steps"] += int(plan.fed)
             result, logprobs = self.runner.step_sample_fb(
                 self.params, pool, batch, prev, dev(plan.feed_mask),
                 dev(plan.feed_idx), *(dev(t) for t in plan.sample))
+            self.pipeline_stats["fed_steps"] += int(plan.fed)
         elif plan.fed:
             result = self.runner.step_greedy_fb(
                 self.params, pool, batch, self._feed_src,
@@ -416,14 +863,20 @@ class InferenceEngineV2:
         return result, lps
 
     def _finish_commit(self, fl: _InFlightStep) -> None:
-        """Shared exit of both commit paths: the EOS rollbacks that had to
-        wait for this step to run. A rollback whose sequence was flushed
-        meanwhile is a no-op (its blocks went back with the flush)."""
+        """Shared exit of both commit paths: the EOS rollbacks, then the
+        deferred abort flushes, that had to wait for this step to run. A
+        rollback whose sequence was flushed meanwhile is a no-op (its
+        blocks went back with the flush). Pending demotion copies are
+        complete here (the readback synchronized the stream): they are
+        materialized."""
         for seq, retract in fl.rollbacks:
             if self.state.get(seq.uid) is not seq:
                 continue
             seq.seen_tokens -= retract
             self.state.trim_blocks(seq)
+        for seq in fl.aborts:
+            self._flush_uid(seq.uid)
+        self.kv_cache.finalize_demotions()
 
     @staticmethod
     def _log_token(seq, i: int, lps) -> None:
@@ -434,9 +887,10 @@ class InferenceEngineV2:
     def _commit_step(self, fl: _InFlightStep) -> Tuple[int, Dict[int, Any]]:
         """COMMIT (the put() path): read the step back and apply it to host
         state. Greedy or sampled last-chunk tokens extend each sequence's
-        ``gen_log``."""
+        ``gen_log`` and the journal."""
         result, lps = self._pre_commit(fl)
         out: Dict[int, Any] = {}
+        journal_toks: Dict[int, List[int]] = {}
         for i, item in enumerate(fl.sched):
             if i in fl.dead or not item.is_last_chunk:
                 continue
@@ -445,9 +899,13 @@ class InferenceEngineV2:
                 out[item.seq.uid] = tok
                 item.seq.gen_log.append(tok)
                 self._log_token(item.seq, i, lps)
+                if self.journal is not None:
+                    journal_toks[item.seq.uid] = [tok]
             else:
                 out[item.seq.uid] = result[i]
             item.seq.status = SequenceStatus.WAITING
+        if self.journal is not None:
+            self.journal.tokens(journal_toks)
         self._finish_commit(fl)
         return len(fl.sched), out
 
@@ -525,6 +983,7 @@ class InferenceEngineV2:
         def commit_one(ring):
             fl = ring.popleft()
             toks, lps = self._pre_commit(fl)
+            journal_toks: Dict[int, List[int]] = {}
             for i, item in enumerate(fl.sched):
                 seq = item.seq
                 u = seq.uid
@@ -539,6 +998,8 @@ class InferenceEngineV2:
                 out[u].append(tok)
                 seq.gen_log.append(tok)
                 self._log_token(seq, i, lps)
+                if self.journal is not None:
+                    journal_toks.setdefault(u, []).append(tok)
                 if patch and seq.spec_pending and seq.pending_tokens \
                         and seq.pending_tokens[0] == _SPEC_TOKEN:
                     # this step produced the queued placeholder, and its
@@ -569,6 +1030,8 @@ class InferenceEngineV2:
                     # the dead steps' KV appends still target the blocks
                     # being retracted: free them once the last has run
                     last_fl.rollbacks.append((seq, retract))
+            if self.journal is not None:
+                self.journal.tokens(journal_toks)
             self._finish_commit(fl)
 
         def speculate(plan, fl):
@@ -668,8 +1131,8 @@ class InferenceEngineV2:
         seqs = []
         for uid in batch_uids:
             seq = self.state.get(uid)
-            if seq is None:
-                raise ValueError(f"sequence {uid} missing")
+            if seq is None or seq.status is SequenceStatus.PAUSED:
+                raise ValueError(f"sequence {uid} missing or paused")
             if seq.in_flight:
                 raise ValueError(f"sequence {uid} has pending tokens; "
                                  f"drain with put() first")
@@ -713,8 +1176,10 @@ class InferenceEngineV2:
             for s in seqs) else None
         consumed = self._readback(consumed) if consumed is not None \
             else None
+        self.kv_cache.finalize_demotions()   # the readback synchronized
         self._step_counter += n
         out: Dict[int, List[int]] = {}
+        journal_toks: Dict[int, List[int]] = {}
         for i, (uid, seq) in enumerate(zip(batch_uids, seqs)):
             used = int(consumed[i]) if consumed is not None else n
             hist = []
@@ -725,10 +1190,14 @@ class InferenceEngineV2:
             if lps is not None and seq.sampling is not None \
                     and seq.sampling.logprobs:
                 seq.logprob_log.extend(float(v) for v in lps[i][:used])
+            if self.journal is not None:
+                journal_toks[uid] = hist
             seq.seen_tokens += used
             seq.last_step = self._step_counter
             seq.status = SequenceStatus.WAITING
             out[uid] = toks[i].tolist()
+        if self.journal is not None:
+            self.journal.tokens(journal_toks)
         return out
 
     # ------------------------------------------------------------------ #
@@ -760,13 +1229,24 @@ class InferenceEngineV2:
         outputs: Dict[int, List[int]] = {u: [] for u in uids}
         last_tok: Dict[int, int] = {}
 
+        def drop_rejected():
+            # shed or deadline-aborted requests leave with what they got;
+            # their records stay in self.rejections
+            for u in list(live):
+                if u in self.rejections:
+                    live.discard(u)
+
         t0 = time.perf_counter()
         results = self.put(uids, [list(p) for p in prompts], _greedy=True,
                            sampling=sp_map)
         t1 = time.perf_counter()
         self.timing["prefill_s"] += t1 - t0
         self.timing["prefill_tokens"] += sum(len(p) for p in prompts)
+        drop_rejected()
         for u in uids:
+            if u not in results:
+                live.discard(u)
+                continue
             nxt = host_token(results[u])
             outputs[u].append(nxt)
             if (eos_token_id is not None and nxt == eos_token_id) or \
@@ -794,15 +1274,30 @@ class InferenceEngineV2:
                     self.flush(u)
 
         while live:
+            self._try_resume()
             lu = sorted(live)
+            # pause/resume lets sequences progress unevenly: loop by the
+            # least remaining budget; shorter tails take the per-step paths
             need = min(max_new_tokens - len(outputs[u]) for u in lu)
             if N > 1 and need >= N and len(lu) <= self.config.max_seqs:
-                try:
-                    outs = self.decode_batch(
-                        lu, [last_tok[u] for u in lu], N,
-                        sampling=sampling, eos_token_id=eos_token_id)
-                except OutOfBlocksError:
-                    outs = None        # pool too tight: the per-step paths
+                # under KV pressure, pause the least recently scheduled
+                # holders and keep the loop running on the rest; paused
+                # sequences resume on later rounds
+                outs = None
+                ready = [u for u in lu if self.state.sequences[u].status
+                         is not SequenceStatus.PAUSED]
+                while ready:
+                    try:
+                        outs = self.decode_batch(
+                            ready, [last_tok[u] for u in ready], N,
+                            sampling=sampling, eos_token_id=eos_token_id)
+                        break
+                    except OutOfBlocksError:
+                        if not self._relieve_kv_pressure():
+                            break
+                        ready = [u for u in ready
+                                 if self.state.sequences[u].status
+                                 is not SequenceStatus.PAUSED]
                 if outs:
                     for u in list(outs):
                         finish_chunk(u, outs[u])
@@ -816,10 +1311,15 @@ class InferenceEngineV2:
                     eos_token_id=eos_token_id)
                 for u in lu:
                     finish_chunk(u, outs[u])
+                drop_rejected()
                 continue
             # depth 0: token-at-a-time
             results = self.put(lu, [[last_tok[u]] for u in lu], _greedy=True)
+            drop_rejected()
             for u in lu:
+                if u not in results:
+                    live.discard(u)
+                    continue
                 nxt = host_token(results[u])
                 outputs[u].append(nxt)
                 if (eos_token_id is not None and nxt == eos_token_id) or \

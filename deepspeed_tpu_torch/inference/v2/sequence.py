@@ -2,22 +2,23 @@
 ``deepspeed_tpu/inference/v2/sequence.py``).
 
 Per-sequence host state: tokens seen by the model, KV blocks owned, tokens
-still waiting, and scheduling status. The prefix-cache, offload,
-sampling, speculative and telemetry fields of the JAX descriptor belong to
-features this port has not taken over yet.
+still waiting, scheduling status, the prefix-cache and pause (host
+offload) fields, the deadline, and the replay chain. The speculative and
+telemetry fields of the JAX descriptor belong to features this port has
+not taken over yet (A5.2, A6).
 """
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field
-from typing import Any, List
+from typing import Any, List, Optional, Set
 
 
 class SequenceStatus(enum.Enum):
     WAITING = "waiting"        # has pending tokens, not yet scheduled
     RUNNING = "running"        # scheduled in the current/last batch
-    PAUSED = "paused"          # KV evicted to host (not ported yet)
+    PAUSED = "paused"          # KV offloaded to host (engine.pause)
     FINISHED = "finished"      # flushed / EOS'd by the caller
 
 
@@ -28,11 +29,26 @@ class SequenceDescriptor:
     seen_tokens: int = 0                  # tokens whose KV is in cache
     kv_blocks: List[int] = field(default_factory=list)
     status: SequenceStatus = SequenceStatus.WAITING
+    host_kv: Any = None                   # offloaded KV (engine.pause)
+    paused_blocks: int = 0                # block count captured at pause()
     last_step: int = 0                    # engine step last scheduled (LRU)
     # scheduler-clock stamp (one tick per scheduler invocation): what
     # prefill aging measures waiting time against
     last_sched: int = 0
+    # prefix caching: block ids in kv_blocks co-owned by the prefix cache
+    # (and maybe other sequences). Release paths decref these through the
+    # cache; only cache eviction frees a shared block.
+    shared: Set[int] = field(default_factory=set)
+    # the initial prompt while its full blocks await registration into
+    # the prefix cache; None once registered (or with caching off)
+    prefix_tokens: Optional[List[int]] = None
+    # prompt length including a cache-matched span: positions below it
+    # count as prefill work in the skipped-chunk accounting
     prompt_len: int = 0
+    # host-tier promote-ahead: scheduler ticks this sequence's first
+    # prefill chunk yields to other work after its match promoted blocks
+    # from host memory, so the host-to-device copies start first
+    promote_defer: int = 0
     # the replay chain: every token fed while the sequence was a fresh
     # prompt, then every committed greedy output (and caller-fed
     # continuation token not already accounted)
@@ -50,6 +66,14 @@ class SequenceDescriptor:
     # producing step is the latest dispatched; otherwise that step's
     # commit patches the real value in.
     spec_pending: int = 0
+    # draft tokens proposed for / accepted by this sequence (stay 0 until
+    # speculative decoding, A5.2; drain manifests carry them)
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    # absolute time.monotonic() deadline (None = none), and the duration
+    # it came from, which rejection records report
+    deadline_at: Optional[float] = None
+    deadline_s: Optional[float] = None
 
     @property
     def in_flight(self) -> int:

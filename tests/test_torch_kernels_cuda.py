@@ -1622,3 +1622,153 @@ def test_paged_decode_ring_matches_plain_on_card(ring_count, dtype, quant):
         got = _check_paged(port.paged_decode, args, ex, kw, D,
                            (dtype, quant, ring_count, window), ("ring",))
         assert not got[2].any(), "idle slot must emit zeros"
+
+
+def _prefix_hit_case(rng, *, C, H, KV, D, bs, dtype, quant):
+    """The prefix cache's hit path as K1 and K2 see it: three slots whose
+    tables share the blocks of a 1000-token preamble (one block id in
+    three tables), each with private blocks after it, and an idle slot.
+    K1 (C > 1): each slot's first chunk after a CoW tail, starting at
+    position 1000 (40 rows into block 15) with 24, 200 and 117 of the C
+    queries live. K2 (C = 1): a decode at the end of each context."""
+    from deepspeed_tpu_torch.inference.v2.kv_quant import quantize_rows
+    pre, ntok = 1000, np.array([24, 200, 117, 0])
+    maxb = -(-(pre + 200) // bs)
+    nshared = pre // bs + 1
+    S = 4
+    nb = nshared + S * (maxb - nshared) + 1
+    ids = rng.permutation(nb)
+    tables = np.zeros((S, maxb), np.int32)
+    tables[:, :nshared] = ids[:nshared]
+    for s in range(S):
+        lo = nshared + s * (maxb - nshared)
+        tables[s, nshared:] = ids[lo:lo + maxb - nshared]
+    lens = np.where(ntok > 0, pre + ntok, 0).astype(np.int32)
+    start = (np.full(S, pre, np.int32) if C > 1
+             else np.maximum(lens - 1, 0).astype(np.int32))
+    kp, vp = _pool(rng, nb, bs, KV, D)
+    q = rng.standard_normal((S, C, H, D)).astype(np.float32)
+    ex = {}
+    if quant:
+        kq, ks = quantize_rows(torch.from_numpy(kp), KV)
+        vq, vs = quantize_rows(torch.from_numpy(vp), KV)
+        pool = [kq.cuda(), vq.cuda()]
+        ex.update(k_scales=ks.contiguous().cuda(),
+                  v_scales=vs.contiguous().cuda())
+    else:
+        pool = [torch.from_numpy(a).cuda().to(dtype) for a in (kp, vp)]
+    args = [torch.from_numpy(q).cuda().to(dtype), *pool] + [
+        torch.from_numpy(a).cuda() for a in (tables, start, lens)]
+    return args, ex
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype,quant", [(torch.bfloat16, False),
+                                         (torch.float16, False),
+                                         (torch.bfloat16, True)])
+def test_paged_kernels_at_prefix_hit_shapes_on_card(D, dtype, quant):
+    """K1 and K2 on the prefix cache's hit path against the plain
+    version: an unaligned start (1000, block 64), fewer live queries than
+    C = 256, blocks shared by three slots' tables, GQA 7 (28 heads on 4),
+    in bf16, fp16 and over an int8 pool with scales (K1 then on mma.sync);
+    the limits of the tests above, the same bits from a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(D + 7 * int(quant))
+    KV, bs = 4, 64
+    for name, C in (("paged_prefill", 256), ("paged_decode", 1)):
+        args, ex = _prefix_hit_case(rng, C=C, H=7 * KV, KV=KV, D=D, bs=bs,
+                                    dtype=dtype, quant=quant)
+        kw = dict(block_size=bs, sm_scale=D ** -0.5, sliding_window=None,
+                  num_kv_heads=KV)
+        route = ("decode_split" if C == 1 else
+                 "prefill_" + port.prefill_route(C, D, dtype, bs, quant))
+        if quant and C > 1:
+            assert route == "prefill_mma"
+        got = _check_paged(getattr(port, name), args, ex, kw, D,
+                           (name, D, dtype, quant), (route,))
+        assert not got[3].any(), "idle slot must emit zeros"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_prefix_block_moves_bit_exact_on_card(quant):
+    """The KV block movers on a card pool (bf16, or int8 with scales):
+    the CoW copy, pause's offload (pinned host, non-blocking) and
+    restore, and a demotion's gather then promotion, both before the
+    demotion is materialized (from the device gather) and after (from
+    the pinned host copy): every moved block bit-identical, scales with
+    rows, with no host wait between the moves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.inference.v2 import (BlockedKVCache,
+                                                  PrefixCache,
+                                                  RaggedInferenceConfig,
+                                                  StateManager)
+    bs = 64
+    cfg = RaggedInferenceConfig(
+        block_size=bs, num_blocks=12, max_blocks_per_seq=4,
+        kv_cache_dtype="int8" if quant else "auto", prefix_cache=True,
+        prefix_cache_host_blocks=8)
+    kv = BlockedKVCache(cfg, 3, 4, 128, torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    if quant:
+        kv.data.copy_(torch.randint(-127, 128, kv.data.shape, generator=g,
+                                    device="cuda", dtype=torch.int8))
+        kv.scales.copy_(torch.rand(kv.scales.shape, generator=g,
+                                   device="cuda"))
+    else:
+        kv.data.copy_(torch.randn(kv.data.shape, generator=g,
+                                  device="cuda").to(torch.bfloat16))
+
+    def block(b):
+        rows = kv.data[:, :, b * bs:(b + 1) * bs].clone()
+        sc = kv.scales[..., b * bs:(b + 1) * bs].clone() if quant else None
+        return rows, sc
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and (a[1] is None
+                                            or torch.equal(a[1], b[1]))
+    before = {b: block(b) for b in range(12)}
+    kv.copy_block(3, 9)
+    host = kv.offload([1, 9, 4])
+    assert host[0].is_pinned()
+    kv.data[:, :, bs:2 * bs].zero_()                   # reuse block 1
+    kv.restore(host, [10, 11, 1])
+    torch.cuda.synchronize()
+    assert same(block(9), before[3])
+    for b, src in ((10, 1), (11, 3), (1, 4)):
+        assert same(block(b), before[src]), b
+    # demote a cached two-block chain, then promote it back
+    pc = PrefixCache(bs, host_blocks=8)
+    kv.attach_prefix_cache(pc)
+    sm = StateManager(cfg, kv)
+    sm.prefix = pc
+    for materialize in (False, True):
+        seq = sm.put_tokens(0, list(range(1, 2 * bs + 2)))
+        plan = sm.match_prefix(seq)
+        if plan:
+            kv.promote_blocks(plan.promotes)
+        sm.ensure_blocks(seq, seq.in_flight)
+        seq.seen_tokens += seq.in_flight
+        seq.pending_tokens.clear()
+        chain = {i: block(b) for i, b in enumerate(seq.kv_blocks[:2])}
+        sm.register_prefix(seq)
+        sm.flush(0)
+        held = kv.reserve(cfg.num_blocks)
+        for b in held:
+            kv.data[:, :, b * bs:(b + 1) * bs].zero_()
+        if materialize:
+            kv.finalize_demotions()
+        kv.free(held)
+        seq = sm.put_tokens(1, list(range(1, 2 * bs + 2)))
+        plan = sm.match_prefix(seq)
+        assert plan.promoted_blocks == 2
+        kv.promote_blocks(plan.promotes)
+        torch.cuda.synchronize()
+        for i, b in enumerate(seq.kv_blocks[:2]):
+            assert same(block(b), chain[i]), (materialize, i)
+        pc.check_invariants()
+        pc.assert_exact_refs([seq])
+        sm.flush(1)

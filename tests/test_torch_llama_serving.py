@@ -167,12 +167,16 @@ def test_put_and_flush_return_every_block(refs):
 
 
 def test_config_refuses_unported_features():
-    for kw in ({"tp_size": 2}, {"seq_size": 2}, {"ep_size": 2},
-               {"prefix_cache": True}):
+    """Multi-device serving (A8) is refused; the prefix cache, with its
+    host tier, is ported and builds."""
+    for kw in ({"tp_size": 2}, {"seq_size": 2}, {"ep_size": 2}):
         with pytest.raises(NotImplementedError):
             RaggedInferenceConfig(**kw)
     with pytest.raises(ValueError):
         RaggedInferenceConfig(attention_impl="flash")
+    cfg = RaggedInferenceConfig(prefix_cache=True,
+                                prefix_cache_host_blocks=16)
+    assert cfg.prefix_cache and cfg.prefix_cache_host_blocks == 16
 
 
 def test_config_accepts_the_pipelined_serve_loop():

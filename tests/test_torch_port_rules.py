@@ -90,8 +90,9 @@ def test_import_builds_no_kernel():
     """Import every module of the port with process spawning disabled;
     no library may be loaded and no nvcc started. The walk reaches the
     training slice's modules too (config, runtime, ops, models), the WOQ
-    slice's (the quantizers and the fp6 GEMM) and the ops slice's (norms,
-    AdamW, sparse and Evoformer attention)."""
+    slice's (the quantizers and the fp6 GEMM), the ops slice's (norms,
+    AdamW, sparse and Evoformer attention) and the KV block lifecycle's
+    (the prefix cache, drain/replay)."""
     code = (
         "import subprocess, sys, pkgutil, importlib\n"
         "def _no(*a, **k): raise AssertionError('spawned at import')\n"
@@ -110,7 +111,8 @@ def test_import_builds_no_kernel():
         "        'ops.kernels.evoformer', 'ops.sparse_attention',\n"
         "        'ops.evoformer_attn', 'models.registry',\n"
         "        'checkpoint.hf_loader', 'inference.v2.engine_factory',\n"
-        "        'utils.random', 'inference.v2.sampling'}\n"
+        "        'utils.random', 'inference.v2.sampling',\n"
+        "        'inference.v2.prefix_cache', 'inference.v2.drain'}\n"
         "assert {p.__name__ + '.' + n for n in need} <= set(names), names\n"
         "from deepspeed_tpu_torch.ops.kernels import _build\n"
         "assert not _build._libs and not _build.build_logs\n"
