@@ -349,6 +349,38 @@ bound and one library call:
              decode step), in bf16, fp16 and over an int8 pool, against
              their plain versions and timed beside SDPA and the bound (a
              shared block's bytes counted once).
+26. gpt2 serving — a random checkpoint in HuggingFace's layout with
+             openai-community/gpt2-xl's published config.json (gpt2: 48
+             layers, n_embd 1600, 25 heads of 64 with no GQA, vocab 50257,
+             1024 positions; ~3.1 GB in bf16), written and removed as in
+             phase 24, served through ``build_hf_engine`` by the GPT-2
+             ragged runner: every loaded leaf bit-identical to the tensor
+             written; 16 prompts x 256 tokens, 32 new, greedy and sampled
+             (phase 24's sampling) at pipeline depths 0 and 2, streams
+             identical between the depths, K1 (wgmma, TMA) and K2 (split)
+             launched 48 times a step; the card's greedy first tokens
+             equal numpy's argmax over the 50257 logits ``put`` returns.
+             Prefill s and decode tok/s; then K1 and K2 at 25 heads of 64
+             against their plain versions and timed, as phase 5 times.
+27. spec decoding — speculative decoding on Llama-2-7B
+             (``LlamaConfig.llama2_7b``, seeded random weights on the card,
+             bf16, ``paged_flash``, block 64, 8 slots, depth 2, prefix cache
+             on): 8 prompts of a shared 128-token preamble, cached by a
+             warm-up, and 128 tokens of a per-prompt 16-token pattern
+             repeated; ``put``, then ``decode_pipelined`` for 47 tokens.
+             Cases: (a) spec off; (b) ``ngram``, K = 4; (c) ``draft``, a
+             random model at TinyLlama-1.1B's widths (rejected often: the
+             rollback path); (d) ``draft``, the target's own parameters.
+             (b)-(d) must give (a)'s streams token for token, (d) must
+             accept every draft (acceptance exactly 1.0), the preamble
+             must be matched, the prefix cache's invariants and exact
+             refcounts hold, and after the flushes every block of the
+             target's and of the draft's pool is back. Printed: acceptance,
+             rounds, tokens a round, decode tok/s against (a), K2 launches
+             a verify round and the host seconds a round (propose, verify,
+             commit). Then K1 at the prefill after the preamble and K2 at
+             the verify's 8-slot decode shape against their plain versions
+             and timed.
 
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
@@ -4063,22 +4095,25 @@ def _qwen2_tensor(torch, gen, kind, shape):
     """One bf16 tensor on the card, at ``init_llama_params``'s scales
     (embedding std 1, a [out, in] weight std 1/sqrt(in), norm scales
     ones); the q/k/v biases normal with std 0.02, so that the bias path
-    shows."""
+    shows. GPT-2's kinds: a Conv1D weight ([in, out]) std 1/sqrt(in), an
+    embedding std 1/sqrt(width) (``init_gpt2_params``'s scales)."""
     if kind == "norm":
         return torch.ones(shape, dtype=torch.bfloat16, device="cuda")
     t = torch.randn(shape, generator=gen, device="cuda")
-    std = {"embed": 1.0, "bias": 0.02}.get(kind)
+    std = {"embed": 1.0, "bias": 0.02, "conv1d": shape[0] ** -0.5,
+           "gpt2_embed": shape[-1] ** -0.5}.get(kind)
     return (t * (std if std is not None else shape[1] ** -0.5)).to(
         torch.bfloat16)
 
 
-def write_hf_checkpoint(torch, path, hf, seed):
+def write_hf_checkpoint(torch, path, hf, seed, specs=None):
     """A random checkpoint in HF's layout: ``config.json``, safetensors
     shards of at most HF_SHARD_BYTES and ``model.safetensors.index.json``,
     each tensor made on the card and written as it is made, so that one
-    tensor at a time sits in host memory. Returns the bytes written."""
+    tensor at a time sits in host memory. ``specs``: the tensors
+    (default ``_qwen2_specs(hf)``). Returns the bytes written."""
     import numpy as np
-    specs = _qwen2_specs(hf)
+    specs = specs or _qwen2_specs(hf)
     shards, size = [[]], 0
     for s in specs:
         n = 2 * math.prod(s[1])
@@ -4116,13 +4151,13 @@ def write_hf_checkpoint(torch, path, hf, seed):
     return total, len(shards)
 
 
-def _check_written(torch, params, hf, seed):
+def _check_written(torch, params, hf, seed, specs=None):
     """Every loaded leaf equals, bit for bit, the tensor written (made
     again from the same seed, in the same order)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     n = 0
-    for name, shape, kind, path, transposed in _qwen2_specs(hf):
+    for name, shape, kind, path, transposed in specs or _qwen2_specs(hf):
         t = _qwen2_tensor(torch, gen, kind, shape)
         leaf = params
         for k in path.split("/"):
@@ -5065,6 +5100,372 @@ def phase_prefix_serving(torch, ctx):
     return out, rows
 
 
+# ---------------------------------------------------------------- gpt2
+
+# phase 26: the published config.json of openai-community/gpt2-xl (gpt2:
+# 48 layers, n_embd 1600, 25 heads of 64 with no GQA, vocab 50257, 1024
+# positions), its tensors in bf16
+GPT2_XL = {"architectures": ["GPT2LMHeadModel"], "model_type": "gpt2",
+           "vocab_size": 50257, "n_positions": 1024, "n_ctx": 1024,
+           "n_embd": 1600, "n_layer": 48, "n_head": 25,
+           "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5,
+           "resid_pdrop": 0.1, "embd_pdrop": 0.1, "attn_pdrop": 0.1,
+           "initializer_range": 0.02, "bos_token_id": 50256,
+           "eos_token_id": 50256, "torch_dtype": "bfloat16"}
+GPT2_SEQS, GPT2_PROMPT, GPT2_GEN = 16, 256, 32
+
+
+def _gpt2_specs(hf):
+    """Every tensor of a GPT-2 checkpoint in HF's layout, in writing order
+    (the names of the hub's gpt2-xl: no ``transformer.`` prefix; Conv1D
+    weights are [in, out], as the tree holds them)."""
+    C, V, P = hf["n_embd"], hf["vocab_size"], hf["n_positions"]
+    specs = [("wte.weight", (V, C), "gpt2_embed", "wte/embedding", False),
+             ("wpe.weight", (P, C), "gpt2_embed", "wpe/embedding", False)]
+    for i in range(hf["n_layer"]):
+        h = f"h.{i}"
+        for ln in ("ln_1", "ln_2"):
+            specs += [(f"{h}.{ln}.weight", (C,), "norm",
+                       f"h_{i}/{ln}/scale", False),
+                      (f"{h}.{ln}.bias", (C,), "bias", f"h_{i}/{ln}/bias",
+                       False)]
+        for mod, name, din, dout in (("attn", "c_attn", C, 3 * C),
+                                     ("attn", "c_proj", C, C),
+                                     ("mlp", "c_fc", C, 4 * C),
+                                     ("mlp", "c_proj", 4 * C, C)):
+            specs += [(f"{h}.{mod}.{name}.weight", (din, dout), "conv1d",
+                       f"h_{i}/{mod}/{name}/kernel", False),
+                      (f"{h}.{mod}.{name}.bias", (dout,), "bias",
+                       f"h_{i}/{mod}/{name}/bias", False)]
+    specs += [("ln_f.weight", (C,), "norm", "ln_f/scale", False),
+              ("ln_f.bias", (C,), "bias", "ln_f/bias", False)]
+    return specs
+
+
+def phase_gpt2_serving(torch):
+    """Phase 26: GPT-2 XL from a random checkpoint in HF's layout through
+    ``build_hf_engine`` (module docstring). Returns (out, rows)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig,
+                                                  SamplingParams,
+                                                  build_hf_engine)
+    from deepspeed_tpu_torch.inference.quantization import woq_memory_bytes
+    from deepspeed_tpu_torch.inference.v2.model_runner import \
+        GPT2RaggedRunner
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    hf, model = GPT2_XL, "openai-community/gpt2-xl"
+    specs = _gpt2_specs(hf)
+    L = hf["n_layer"]
+    heads = (hf["n_head"], hf["n_head"], hf["n_embd"] // hf["n_head"])
+    maxb = -(-(GPT2_PROMPT + GPT2_GEN) // 64)
+    out, rows = {"model": model}, []
+    tmp = Path(tempfile.mkdtemp(prefix="gpt2xl_"))
+    try:
+        t0 = time.perf_counter()
+        nbytes, nshards = write_hf_checkpoint(torch, tmp, hf, seed=26,
+                                              specs=specs)
+        out["write_s"] = time.perf_counter() - t0
+        out["checkpoint_bytes"], out["shards"] = nbytes, nshards
+
+        def rcfg(**kw):
+            return RaggedInferenceConfig(
+                max_seqs=GPT2_SEQS, chunk_size=256, block_size=64,
+                num_blocks=GPT2_SEQS * maxb + 8, max_blocks_per_seq=maxb,
+                dtype="bfloat16", **{"attention_impl": "paged_flash",
+                                     "decode_loop_steps": 0, **kw})
+
+        t0 = time.perf_counter()
+        eng0 = build_hf_engine(str(tmp), engine_config=rcfg(
+            serve_pipeline_depth=0), dtype="bfloat16")
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["param_bytes"] = woq_memory_bytes(eng0.params)
+        out["leaves_bit_identical"] = _check_written(
+            torch, eng0.params, hf, seed=26, specs=specs)
+        cfg, params = eng0.model_cfg, eng0.params
+        if not isinstance(eng0.runner, GPT2RaggedRunner) or \
+                (eng0.runner.kv_heads, eng0.runner.head_dim) != heads[1:]:
+            raise AssertionError(f"[gpt2] runner {eng0.runner}")
+        log(f"[gpt2] {model}: wrote {nbytes / 1e9:.3f} GB in {nshards} "
+            f"shards in {out['write_s']:.1f} s; build_hf_engine "
+            f"{out['load_s']:.1f} s, parameters "
+            f"{out['param_bytes'] / 1e9:.3f} GB, "
+            f"{out['leaves_bit_identical']} leaves bit-identical")
+        engs = {"depth0": eng0,
+                "depth2": InferenceEngineV2(cfg, params, rcfg(
+                    serve_pipeline_depth=2), device="cuda")}
+        rng = np.random.default_rng(26)
+        prompts = rng.integers(0, cfg.vocab_size,
+                               (GPT2_SEQS, GPT2_PROMPT)).tolist()
+        for e in engs.values():              # warm-up
+            e.generate([prompts[0][:80]], max_new_tokens=8)
+        sp = SamplingParams(**HF_SAMPLING)
+        gens, runs = {}, {}
+        for mode in ("greedy", "sampled"):
+            for name, e in engs.items():
+                e.timing.update({k: 0 if isinstance(v, int) else 0.0
+                                 for k, v in e.timing.items()})
+                e.runner.step_counts = {"prefill": 0, "decode": 0}
+                pa.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gens[mode, name] = e.generate(
+                    prompts, max_new_tokens=GPT2_GEN,
+                    sampling=sp if mode == "sampled" else None, seed=26)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                steps = dict(e.runner.step_counts)
+                launches = {**pa.LAUNCHES, **pa.ROUTE_LAUNCHES}
+                want = {"paged_prefill": L * steps["prefill"],
+                        "prefill_wgmma_tma": L * steps["prefill"],
+                        "paged_decode": L * steps["decode"],
+                        "decode_split": L * steps["decode"]}
+                bad = {k: (launches[k], v) for k, v in want.items()
+                       if launches[k] != v}
+                if bad or not (steps["prefill"] and steps["decode"]):
+                    raise AssertionError(f"[gpt2] {mode} {name}: launches "
+                                         f"{launches}, steps {steps}")
+                if any(len(o) != GPT2_GEN for o in gens[mode, name]) or \
+                        e.free_blocks != e.config.num_blocks:
+                    raise AssertionError(f"[gpt2] {name}: lengths, blocks")
+                tm = e.timing
+                runs[f"{mode}_{name}"] = r = {
+                    "steps": steps,
+                    "launches": {k: launches[k] for k in want},
+                    "prefill_s": tm["prefill_s"], "decode_s": tm["decode_s"],
+                    "decode_tokens": tm["decode_tokens"],
+                    "decode_tok_s": tm["decode_tokens"] / tm["decode_s"],
+                    "wall_s": wall,
+                    "pipeline_stats": dict(e.pipeline_stats)}
+                log(f"[gpt2] {mode} {name}: prefill {tm['prefill_tokens']}"
+                    f" tokens in {tm['prefill_s']:.4f} s, decode "
+                    f"{tm['decode_tokens']} in {tm['decode_s']:.4f} s = "
+                    f"{r['decode_tok_s']:.1f} tok/s; steps {steps}; "
+                    f"launches {r['launches']}")
+            if gens[mode, "depth0"] != gens[mode, "depth2"]:
+                raise AssertionError(f"[gpt2] {mode} streams differ between "
+                                     f"depth 0 and depth 2")
+        if gens["greedy", "depth0"] == gens["sampled", "depth0"]:
+            raise AssertionError("[gpt2] sampling gave the greedy streams")
+        log("[gpt2] greedy and sampled streams identical at depths 0 and 2")
+        # the argmax over the odd vocabulary: the on-card greedy token of
+        # each prompt against numpy's argmax of the logits put returns
+        logits = eng0.put(list(range(100, 104)), prompts[:4])
+        for u in range(100, 104):
+            eng0.flush(u)
+        am = [int(np.argmax(logits[100 + i])) for i in range(4)]
+        if am != [g[0] for g in gens["greedy", "depth0"][:4]]:
+            raise AssertionError(f"[gpt2] argmax over {cfg.vocab_size}: "
+                                 f"{am}")
+        out["argmax_checked"] = 4
+        out["runs"] = runs
+        out["vocab_size"], out["heads"] = cfg.vocab_size, list(heads)
+        del engs, e, eng0, params
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # K1 on the 16 x 256 prefill step, K2 mid-decode, at 25 heads of 64
+    trng = np.random.default_rng(260)
+    main = runs["greedy_depth2"]
+    for name, C, ctx in (("paged_prefill", 256, GPT2_PROMPT),
+                         ("paged_decode", 1, GPT2_PROMPT + GPT2_GEN // 2)):
+        t = time_paged(torch, trng, name, S=GPT2_SEQS, C=C, ctx=ctx,
+                       block_size=64, maxb=maxb, heads=heads)
+        rows.append({"name": f"{name}_gpt2_xl", "route": "cuda",
+                     "source": SOURCE, "replaces": REPLACES[name],
+                     "launches": main["launches"][name],
+                     "launches_from": f"phase 26, {model} greedy at "
+                                      f"depth 2", **t})
+    torch.cuda.empty_cache()
+    return out, rows
+
+
+# ---------------------------------------------------------------- spec
+
+# phase 27: speculative decoding on Llama-2-7B (bf16, prefix cache on).
+# Eight prompts: a shared 128-token preamble (two blocks, cached by the
+# warm-up) and 128 tokens of a per-prompt 16-token pattern repeated.
+SPEC_SEQS, SPEC_PRE, SPEC_PROMPT, SPEC_GEN, SPEC_K = 8, 128, 256, 48, 4
+
+
+def _spec_run(torch, pa, eng, prompts, L):
+    """One case: the prompts through ``put``, then ``decode_pipelined``
+    for SPEC_GEN - 1 tokens, the launch counts zeroed just before each
+    and read just after. Returns (streams, record)."""
+    uids = list(range(len(prompts)))
+    st0 = dict(eng.spec_stats)
+    pa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = eng.put(uids, prompts, _greedy=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prefill = {**pa.LAUNCHES}
+    pa.reset_launch_counts()
+    steps0 = eng.runner.step_counts["decode"]
+    out = eng.decode_pipelined(uids, [first[u] for u in uids],
+                               SPEC_GEN - 1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    decode = {**pa.LAUNCHES, **{f"route_{k}": v
+                                for k, v in pa.ROUTE_LAUNCHES.items()}}
+    streams = [[first[u]] + out[u] for u in uids]
+    st = {k: eng.spec_stats[k] - st0[k] for k in st0}
+    seqs = [eng.state.get(u) for u in uids]
+    rec = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
+           "decode_tokens": sum(len(out[u]) for u in uids),
+           "prefill_launches": prefill, "decode_launches": decode,
+           "target_decode_steps": eng.runner.step_counts["decode"] - steps0,
+           "spec_stats": st,
+           "spec_proposed": sum(s.spec_proposed for s in seqs),
+           "spec_accepted": sum(s.spec_accepted for s in seqs),
+           "prefix": {k: eng.prefix_stats[k] for k in
+                      ("matched_tokens", "trims")}}
+    rec["decode_tok_s"] = rec["decode_tokens"] / rec["decode_s"]
+    if st["rounds"]:
+        rec["acceptance"] = st["accepted"] / max(1, st["proposed"])
+        # a sequence commits its accepted drafts and one token a round
+        rec["tokens_per_seq_round"] = rec["decode_tokens"] / max(
+            1, rec["decode_tokens"] - st["accepted"])
+        rec["host_s_per_round"] = (st["propose_s"] + st["verify_s"]
+                                   + st["commit_s"]) / st["rounds"]
+        rec["verify_s_per_round"] = st["verify_s"] / st["rounds"]
+        rec["propose_s_per_round"] = st["propose_s"] / st["rounds"]
+        rec["target_k2_per_round"] = L * rec["target_decode_steps"] \
+            / st["rounds"]
+    eng._prefix.check_invariants()
+    eng._prefix.assert_exact_refs(eng.state.sequences.values())
+    for u in uids:
+        eng.flush(u)
+    d = eng._draft_engine
+    rec["free_blocks"] = eng.free_blocks
+    rec["draft_free_blocks"] = d.free_blocks if d is not None else None
+    if eng.free_blocks != eng.config.num_blocks or (
+            d is not None and (d.free_blocks != d.config.num_blocks
+                               or d.state.sequences)):
+        raise AssertionError(f"[spec] blocks not back: {rec}")
+    if not (prefill["paged_prefill"] and decode["paged_decode"]):
+        raise AssertionError(f"[spec] launches {prefill} {decode}")
+    return streams, rec
+
+
+def phase_spec_decoding(torch):
+    """Phase 27: speculative decoding on Llama-2-7B (module docstring).
+    Returns (out, rows)."""
+    import numpy as np
+    from deepspeed_tpu_torch.checkpoint import init_llama_params
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig)
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    cfg = LlamaConfig.llama2_7b(dtype=torch.bfloat16)
+    dcfg = LlamaConfig.tinyllama_1b(dtype=torch.bfloat16)
+    params = init_llama_params(cfg, seed=27, device="cuda")
+    maxb = -(-(SPEC_PROMPT + SPEC_GEN + SPEC_K + 1) // 64)
+    L = cfg.num_layers
+
+    def rcfg(**kw):
+        return RaggedInferenceConfig(
+            max_seqs=SPEC_SEQS, chunk_size=256, block_size=64,
+            num_blocks=SPEC_SEQS * maxb + 8, max_blocks_per_seq=maxb,
+            dtype="bfloat16", attention_impl="paged_flash",
+            decode_loop_steps=0, serve_pipeline_depth=2, prefix_cache=True,
+            **kw)
+
+    rng = np.random.default_rng(27)
+    pre = rng.integers(1, cfg.vocab_size, SPEC_PRE).tolist()
+    prompts = [pre + (rng.integers(1, cfg.vocab_size, 16).tolist()
+                      * 8)[:SPEC_PROMPT - SPEC_PRE]
+               for _ in range(SPEC_SEQS)]
+    cases = {"a_off": {}, "b_ngram": {"spec_decode": "ngram"},
+             "c_draft_tinyllama": {"spec_decode": "draft"},
+             "d_draft_self": {"spec_decode": "draft"}}
+    out, streams = {"cases": {}}, {}
+    for name, kw in cases.items():
+        eng = InferenceEngineV2(cfg, params, rcfg(spec_k=SPEC_K, **kw),
+                                device="cuda")
+        if name == "c_draft_tinyllama":
+            eng.attach_draft(dcfg, init_llama_params(dcfg, seed=28,
+                                                     device="cuda"))
+        elif name == "d_draft_self":
+            eng.attach_draft(cfg, params)
+        # warm-up: the preamble (cached, two full blocks) and 8 tokens
+        f = eng.put([99], [pre], _greedy=True)
+        eng.decode_pipelined([99], [f[99]], 8)
+        eng.flush(99)
+        eng.spec_stats.update({k: 0 if isinstance(v, int) else 0.0
+                               for k, v in eng.spec_stats.items()})
+        streams[name], rec = _spec_run(torch, pa, eng, prompts, L)
+        if rec["prefix"]["matched_tokens"] < SPEC_SEQS * SPEC_PRE:
+            raise AssertionError(f"[spec] {name}: the preamble was not "
+                                 f"matched: {rec['prefix']}")
+        out["cases"][name] = rec
+        log(f"[spec] {name}: prefill {rec['prefill_s']:.4f} s, decode "
+            f"{rec['decode_tokens']} tokens in {rec['decode_s']:.4f} s = "
+            f"{rec['decode_tok_s']:.1f} tok/s; "
+            + (f"acceptance {rec['acceptance']:.4f} "
+               f"({rec['spec_stats']['accepted']} of "
+               f"{rec['spec_stats']['proposed']}), "
+               f"{rec['spec_stats']['rounds']} rounds, "
+               f"{rec['tokens_per_seq_round']:.2f} tokens a sequence a "
+               f"round, host "
+               f"{rec['host_s_per_round']:.4f} s a round (propose "
+               f"{rec['propose_s_per_round']:.4f}, verify "
+               f"{rec['verify_s_per_round']:.4f}), target K2 "
+               f"{rec['target_k2_per_round']:.1f} launches a round; "
+               if "acceptance" in rec else "")
+            + f"launches {rec['decode_launches']}; trims "
+              f"{rec['prefix']['trims']}")
+        del eng
+        torch.cuda.empty_cache()
+    ref = streams["a_off"]
+    for name in ("b_ngram", "c_draft_tinyllama", "d_draft_self"):
+        if streams[name] != ref:
+            bad = sum(a != b for a, b in zip(streams[name], ref))
+            raise AssertionError(f"[spec] {name}: {bad} streams differ "
+                                 f"from spec off")
+        if not out["cases"][name]["spec_stats"]["rounds"]:
+            raise AssertionError(f"[spec] {name}: no verify round ran")
+    acc_d = out["cases"]["d_draft_self"]["acceptance"]
+    if acc_d != 1.0:
+        raise AssertionError(f"[spec] a draft that is the target accepted "
+                             f"{acc_d}, not 1.0")
+    out["streams_identical"] = True
+    base = out["cases"]["a_off"]["decode_tok_s"]
+    out["tok_s_against_off"] = {n: r["decode_tok_s"] / base
+                                for n, r in out["cases"].items()}
+    log(f"[spec] (b)-(d) streams identical to (a); (d) acceptance 1.0; "
+        f"decode tok/s against (a): {out['tok_s_against_off']}")
+    # K2 at the verify rounds' shape (8 slots mid-decode at 128 heads of
+    # 32 x 128), K1 at the prefill after the cached preamble
+    trng = np.random.default_rng(270)
+    verify = sum(r["decode_launches"]["paged_decode"]
+                 for n, r in out["cases"].items() if n != "a_off")
+    prefill = sum(r["prefill_launches"]["paged_prefill"]
+                  for r in out["cases"].values())
+    rows = []
+    for name, C, ctx, n in (
+            ("paged_prefill", SPEC_PROMPT - SPEC_PRE, SPEC_PROMPT, prefill),
+            ("paged_decode", 1, SPEC_PROMPT + SPEC_GEN // 2, verify)):
+        t = time_paged(torch, trng, name, S=SPEC_SEQS, C=C, ctx=ctx,
+                       block_size=64, maxb=maxb, heads=(32, 32, 128),
+                       bf16_max_abs=PAGED7_BF16_MAX_ABS)
+        rows.append({"name": f"{name}_spec_7b", "route": "cuda",
+                     "source": SOURCE, "replaces": REPLACES[name],
+                     "launches": n,
+                     "launches_from": "phase 27, Llama-2-7B: prefill of "
+                     "the four cases" if C > 1 else "phase 27, Llama-2-7B:"
+                     " decode of cases (b)-(d), the draft's steps too",
+                     **t})
+    del params
+    torch.cuda.empty_cache()
+    return out, rows
+
+
 def main(argv) -> int:
     unknown = [a for a in argv
                if a not in ("--trace", "--fp6-sweep", "--norm-sweep")]
@@ -5147,6 +5548,10 @@ def main(argv) -> int:
     del hf_ctx
     torch.cuda.empty_cache()
     rows += prefix_rows
+    gpt2, gpt2_rows = run(phase_gpt2_serving, torch)
+    rows += gpt2_rows
+    spec, spec_rows = run(phase_spec_decoding, torch)
+    rows += spec_rows
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     result = {"kernels": rows, "card": card, "phase_s": phase_s,
               "serving": {k: serving[k] for k in
@@ -5162,7 +5567,8 @@ def main(argv) -> int:
                               for m, r in woq.items()},
               "woq_engine_parity": woq_parity, "c1": c1,
               "kv_pool": {k: v for k, v in kv_pool.items() if k != "timing"},
-              "hf_serving": hf, "prefix_serving": prefix}
+              "hf_serving": hf, "prefix_serving": prefix,
+              "gpt2_serving": gpt2, "spec_decoding": spec}
     if trace is not None:
         result["trace"] = trace
         result["train_trace"] = train["trace"]

@@ -1,5 +1,6 @@
 """HuggingFace checkpoint loading: shards -> the port's parameter tree
-(port of ``deepspeed_tpu/checkpoint/hf_loader.py``, the Llama family).
+(port of ``deepspeed_tpu/checkpoint/hf_loader.py``, the Llama family and
+GPT-2).
 
 - A safetensors reader with no dependency: the format is an 8-byte
   little-endian header length, a JSON header, then the raw little-endian
@@ -10,10 +11,13 @@
 - The HF -> tree name map of the Llama family (llama, mistral, qwen,
   qwen2, phi3), with the ``[out, in]`` -> ``[in, out]`` transpose of the
   linear weights and the splits of phi3's fused ``qkv_proj`` /
-  ``gate_up_proj`` and qwen v1's fused ``c_attn``.
+  ``gate_up_proj`` and qwen v1's fused ``c_attn``; and GPT-2's, whose
+  ``Conv1D`` weights are already ``[in, out]`` and whose tied
+  ``lm_head.weight`` is dropped.
 
 The tree has the paths of ``checkpoint/jax_params.py``
-(``embed/embedding``, ``layer_i/attn/q_proj/kernel``, ...), which is what
+(``embed/embedding``, ``layer_i/attn/q_proj/kernel``, ...; GPT-2's
+``wte/embedding``, ``h_i/attn/c_attn/kernel``, ...), which is what
 ``InferenceEngineV2`` takes. Leaves keep the shard's dtype. Shards are
 read one tensor at a time and each tensor goes to ``device`` as it is
 read, so a checkpoint never sits in host memory whole.
@@ -35,8 +39,9 @@ from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
 
+from ..models.gpt2 import GPT2Config
 from ..utils.device import resolve_device
-from .jax_params import llama_param_shapes
+from .jax_params import gpt2_param_shapes, llama_param_shapes
 
 logger = logging.getLogger(__name__)
 
@@ -122,7 +127,26 @@ _LLAMA_MAP = [
      "layer_{0}/mlp/{1}_proj/kernel", "linear"),
 ]
 
+# HF's GPT-2 Conv1D weights are already [in, out]: no transpose
+_GPT2_MAP = [
+    (r"(?:transformer\.)?wte\.weight", "wte/embedding", "embed"),
+    (r"(?:transformer\.)?wpe\.weight", "wpe/embedding", "embed"),
+    (r"(?:transformer\.)?ln_f\.(weight|bias)",
+     "ln_f/{w:scale,b:bias}", "vector"),
+    (r"(?:transformer\.)?h\.(\d+)\.ln_(1|2)\.(weight|bias)",
+     "h_{0}/ln_{1}/{w:scale,b:bias}", "vector"),
+    (r"(?:transformer\.)?h\.(\d+)\.attn\.c_attn\.(weight|bias)",
+     "h_{0}/attn/c_attn/{w:kernel,b:bias}", "conv1d"),
+    (r"(?:transformer\.)?h\.(\d+)\.attn\.c_proj\.(weight|bias)",
+     "h_{0}/attn/c_proj/{w:kernel,b:bias}", "conv1d"),
+    (r"(?:transformer\.)?h\.(\d+)\.mlp\.c_fc\.(weight|bias)",
+     "h_{0}/mlp/c_fc/{w:kernel,b:bias}", "conv1d"),
+    (r"(?:transformer\.)?h\.(\d+)\.mlp\.c_proj\.(weight|bias)",
+     "h_{0}/mlp/c_proj/{w:kernel,b:bias}", "conv1d"),
+]
+
 ARCH_MAPS = {
+    "gpt2": _GPT2_MAP,
     "llama": _LLAMA_MAP,
     "mistral": _LLAMA_MAP,
     "qwen": _LLAMA_MAP,    # v1: fused names split by _split_qwen_fused
@@ -222,7 +246,8 @@ class _Converter:
     def add(self, name: str, arr: torch.Tensor) -> None:
         if _IGNORED_TENSORS.match(name):
             return
-        if self.tied and name.endswith("lm_head.weight"):
+        if (self.tied or self.arch == "gpt2") \
+                and name.endswith("lm_head.weight"):
             return                       # tied duplicate of the embedding
         for rx, tmpl, kind in self.rules:
             m = rx.match(name)
@@ -281,7 +306,8 @@ def _check_tree(params: Dict[str, Any], cfg) -> None:
             elif tuple(node[k].shape) != tuple(v):
                 raise ValueError(f"{'/'.join(p)}: shape "
                                  f"{tuple(node[k].shape)} != expected {v}")
-    walk(llama_param_shapes(cfg), params, ())
+    walk(gpt2_param_shapes(cfg) if isinstance(cfg, GPT2Config)
+         else llama_param_shapes(cfg), params, ())
 
 
 def load_hf_model(model_dir: str, strict: bool = True, device: Any = None):

@@ -1,9 +1,20 @@
 """Ragged engine configuration (port of ``deepspeed_tpu/inference/v2/config.py``).
 
-Only the fields this port reads. Features the port does not have yet are
-refused here, at construction, with the knob's name: ``tp_size`` /
-``seq_size`` / ``ep_size`` > 1 (multi-device serving, A8). The JAX
-package's ``DSTPU_*`` environment overrides are not ported (A9).
+Every field of the JAX dataclass, with its default and its validation.
+Features the port does not have yet are refused here, at construction,
+with the knob's name and queue item: ``tp_size`` / ``seq_size`` /
+``ep_size`` > 1 and any value but the default of the multi-device comm
+knobs (``tp_quantized_comm``, ``tp_comm_overlap``, ``tp_comm_chunks``,
+``ep_comm_overlap``, ``ep_comm_chunks``, ``ep_capacity_factor``) raise
+``NotImplementedError`` naming A8. ``greedy``, ``temperature`` and
+``top_k`` are accepted and never read, as in the JAX package's v2 engine
+(``generate`` takes its sampling as an argument). The JAX package's
+``DSTPU_*`` environment overrides are not ported (A9).
+
+``spec_decode`` / ``spec_k`` / ``spec_ngram`` arm speculative decoding
+for greedy sequences (``speculative.py``): "ngram" self-drafts from the
+sequence's own history, "draft" proposes with a small model paired by
+``InferenceEngineV2.attach_draft``.
 
 ``serve_pipeline_depth`` is the JAX package's: the number of steps the
 serve loop plans and dispatches ahead of the oldest step's commit (2 by
@@ -18,6 +29,16 @@ together take at most ``token_budget`` tokens.
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+#: the JAX package's ``comm.TP_OVERLAP_MODES``
+TP_OVERLAP_MODES = ("off", "rs_ag", "rs_ag_chunked")
+
+#: the multi-device comm knobs and their defaults: any other value is
+#: refused (A8)
+_MULTI_DEVICE_DEFAULTS = {
+    "ep_comm_overlap": "off", "ep_comm_chunks": 2,
+    "ep_capacity_factor": 2.0, "tp_quantized_comm": False,
+    "tp_comm_overlap": "off", "tp_comm_chunks": 2}
 
 
 @dataclass
@@ -39,6 +60,16 @@ class RaggedInferenceConfig:
     tp_size: int = 1
     seq_size: int = 1
     ep_size: int = 1
+    # expert-parallel dispatch / combine overlap ("off" or "chunked"),
+    # its chunk count and the dispatch capacity slack (A8)
+    ep_comm_overlap: str = "off"
+    ep_comm_chunks: int = 2
+    ep_capacity_factor: float = 2.0
+    # int8 TP all-reduces, decomposed TP collectives ("off", "rs_ag",
+    # "rs_ag_chunked") and their chunk count (A8)
+    tp_quantized_comm: bool = False
+    tp_comm_overlap: str = "off"
+    tp_comm_chunks: int = 2
     # cap on the SplitFuse prefill chunk scheduled (and on the step's
     # token width): min(chunk_size, cap); 0 disables the cap
     prefill_chunk_cap: int = 256
@@ -69,6 +100,18 @@ class RaggedInferenceConfig:
     # steps planned and dispatched ahead of the oldest commit; 0 plans,
     # dispatches and commits each step in turn
     serve_pipeline_depth: int = 2
+    # speculative decoding of greedy sequences (speculative.py): "off",
+    # "ngram" (prompt-lookup self-drafting) or "draft" (a small model
+    # paired by attach_draft); drafts a sequence a round, and the n-gram
+    # width the ngram proposer matches
+    spec_decode: str = "off"
+    spec_k: int = 4
+    spec_ngram: int = 3
+    # the JAX package's sampling defaults: accepted, never read (generate
+    # takes its sampling as an argument)
+    greedy: bool = True
+    temperature: float = 1.0
+    top_k: int = 0
     # tokens generated per decode_loop call (one host sync per call);
     # 0/1 sends every token through put()
     decode_loop_steps: int = 16
@@ -95,7 +138,31 @@ class RaggedInferenceConfig:
             if v > 1:
                 raise NotImplementedError(
                     f"{knob}={v}: multi-device serving is not ported yet "
-                    f"(set {knob}=1)")
+                    f"(queue item A8; set {knob}=1)")
+        if self.ep_comm_overlap not in ("off", "chunked"):
+            raise ValueError(
+                f"ep_comm_overlap must be 'off' or 'chunked', got "
+                f"{self.ep_comm_overlap!r}")
+        if self.ep_comm_chunks < 1:
+            raise ValueError(
+                f"ep_comm_chunks must be >= 1, got {self.ep_comm_chunks}")
+        if self.ep_capacity_factor <= 0:
+            raise ValueError(
+                f"ep_capacity_factor must be > 0, got "
+                f"{self.ep_capacity_factor}")
+        if self.tp_comm_overlap not in TP_OVERLAP_MODES:
+            raise ValueError(
+                f"tp_comm_overlap must be one of {TP_OVERLAP_MODES}, "
+                f"got {self.tp_comm_overlap!r}")
+        if self.tp_comm_chunks < 1:
+            raise ValueError(
+                f"tp_comm_chunks must be >= 1, got {self.tp_comm_chunks}")
+        for knob, default in _MULTI_DEVICE_DEFAULTS.items():
+            v = getattr(self, knob)
+            if v != default:
+                raise NotImplementedError(
+                    f"{knob}={v!r}: multi-device serving is not ported yet "
+                    f"(queue item A8; leave it at {default!r})")
         if self.prefill_chunk_cap < 0:
             raise ValueError(
                 f"prefill_chunk_cap must be >= 0 (0 = uncapped), got "
@@ -128,20 +195,32 @@ class RaggedInferenceConfig:
             raise ValueError(
                 f"serve_pipeline_depth must be >= 0 (0 = synchronous), "
                 f"got {self.serve_pipeline_depth}")
+        if self.spec_decode not in ("off", "ngram", "draft"):
+            raise ValueError(
+                f"spec_decode must be 'off', 'ngram' or 'draft', got "
+                f"{self.spec_decode!r}")
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
+        if self.spec_ngram < 1:
+            raise ValueError(
+                f"spec_ngram must be >= 1, got {self.spec_ngram}")
         if self.decode_loop_steps < 0:
             raise ValueError(
                 f"decode_loop_steps must be >= 0, got "
                 f"{self.decode_loop_steps}")
 
     def validate(self, model_cfg=None) -> None:
-        """Config x model checks, run at engine construction."""
+        """Config x model checks, run at engine construction: the model
+        needs a ported ragged runner (dense Llama or GPT-2; the others
+        are A5.4)."""
         if model_cfg is None:
             return
+        from ...models.gpt2 import GPT2Config
         from ...models.llama import LlamaConfig
-        if not isinstance(model_cfg, LlamaConfig):
+        if not isinstance(model_cfg, (LlamaConfig, GPT2Config)):
             raise NotImplementedError(
-                f"{type(model_cfg).__name__}: only the dense Llama runner "
-                f"is ported")
+                f"{type(model_cfg).__name__}: only the dense Llama and "
+                f"GPT-2 ragged runners are ported (queue item A5.4)")
 
     @property
     def max_context(self) -> int:

@@ -4,10 +4,11 @@ engine (port of ``deepspeed_tpu/inference/v2/engine_factory.py``).
 ``config.json`` -> arch and model config (``models/registry.py``), shards
 -> parameter tree (``checkpoint/hf_loader.py``), optional weight-only
 quantization (``inference/quantization.py``), then
-:class:`InferenceEngineV2`. The port serves the architectures that the
-JAX package sends to the dense Llama runner; the other architectures JAX
-serves raise ``NotImplementedError`` naming queue item A5.4, and both
-checks come before any shard is read.
+:class:`InferenceEngineV2`, and with ``draft_model_dir`` a draft model
+paired for speculative decoding (``attach_draft``). The port serves the
+architectures that the JAX package sends to the dense Llama runner, and
+GPT-2; the other architectures JAX serves raise ``NotImplementedError``
+naming queue item A5.4, and both checks come before any shard is read.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ logger = logging.getLogger(__name__)
 #: architectures the JAX package serves through build_hf_engine
 _RAGGED_ARCHES = {"llama", "mistral", "qwen", "qwen2", "phi3", "phi", "gpt2",
                   "opt", "mixtral", "qwen2_moe", "bloom", "gpt_neox", "gptj"}
-#: ... of which the port has a runner for (the dense Llama runner)
-_PORTED_ARCHES = {"llama", "mistral", "qwen", "qwen2", "phi3"}
+#: ... of which the port has a runner for (dense Llama, GPT-2)
+_PORTED_ARCHES = {"llama", "mistral", "qwen", "qwen2", "phi3", "gpt2"}
 
 #: the JAX factory's module lists for quantization_mode "wf8" / "wf4"
 WOQ_MODULES = ["proj", "fc", "attn", "mlp"]
@@ -51,25 +52,16 @@ def build_hf_engine(model_dir: str,
     weights keep the checkpoint's dtype. ``quantization_mode``: None,
     ``"wf8"`` (int8 weight-only) or ``"wf4"`` (int4), as the JAX
     factory's. ``tp_size`` > 1 is refused by the config (multi-device
-    serving is not ported). ``device`` defaults to ``cuda`` and raises
-    without a card; pass ``"cpu"`` for the plain path. Each tensor goes to
-    the device as it is read."""
-    if draft_model_dir is not None:
-        raise NotImplementedError(
-            "draft_model_dir: speculative decoding is not ported yet "
-            "(queue item A5.2)")
-    with open(os.path.join(model_dir, "config.json")) as f:
-        arch_name = json.load(f).get("model_type", "").lower()
-    if arch_name not in _RAGGED_ARCHES:
-        # fail BEFORE reading the (possibly multi-GB) weight shards
-        raise ValueError(
-            f"architecture '{arch_name}' is not servable via build_hf_engine "
-            f"(have {sorted(_RAGGED_ARCHES)}); load params yourself and use "
-            "InferenceEngineV2")
-    if arch_name not in _PORTED_ARCHES:
-        raise NotImplementedError(
-            f"architecture '{arch_name}': its ragged runner is not ported "
-            f"yet (queue item A5.4); ported: {sorted(_PORTED_ARCHES)}")
+    serving is not ported). ``draft_model_dir``: a small draft checkpoint
+    of the target's vocabulary (any ported family), loaded with the same
+    ``dtype`` override and paired by ``engine.attach_draft``; speculation
+    uses it when the config's ``spec_decode`` is "draft". ``device``
+    defaults to ``cuda`` and raises without a card; pass ``"cpu"`` for
+    the plain path. Each tensor goes to the device as it is read."""
+    for d in (model_dir, draft_model_dir):
+        if d is not None:
+            _check_servable(d)
+
     bits = None
     if quantization_mode:
         bits = {"wf8": 8, "wf4": 4}.get(quantization_mode)
@@ -92,6 +84,32 @@ def build_hf_engine(model_dir: str,
             "enabled": True, "num_bits": bits, "modules": WOQ_MODULES,
             "excluded_modules": WOQ_EXCLUDED}})
     engine = InferenceEngineV2(model_cfg, params, cfg, device=dev)
+    if draft_model_dir is not None:
+        d_arch, d_cfg, d_params = load_hf_model(draft_model_dir,
+                                                strict=strict, device=dev)
+        if dtype is not None:
+            d_cfg = dataclasses.replace(d_cfg, dtype=resolve_dtype(dtype))
+        engine.attach_draft(d_cfg, d_params)
+        logger.info("build_hf_engine: draft %s from %s (spec_decode=%s)",
+                    d_arch, draft_model_dir, cfg.spec_decode)
     logger.info("build_hf_engine: %s from %s (quant=%s)", arch, model_dir,
                 quantization_mode or "off")
     return engine
+
+
+def _check_servable(model_dir: str) -> None:
+    """Refuse a checkpoint whose architecture build_hf_engine does not
+    serve (ValueError) or whose runner is not ported (A5.4), from its
+    ``config.json`` alone."""
+    with open(os.path.join(model_dir, "config.json")) as f:
+        arch_name = json.load(f).get("model_type", "").lower()
+    if arch_name not in _RAGGED_ARCHES:
+        # fail BEFORE reading the (possibly multi-GB) weight shards
+        raise ValueError(
+            f"architecture '{arch_name}' is not servable via build_hf_engine "
+            f"(have {sorted(_RAGGED_ARCHES)}); load params yourself and use "
+            "InferenceEngineV2")
+    if arch_name not in _PORTED_ARCHES:
+        raise NotImplementedError(
+            f"architecture '{arch_name}': its ragged runner is not ported "
+            f"yet (queue item A5.4); ported: {sorted(_PORTED_ARCHES)}")

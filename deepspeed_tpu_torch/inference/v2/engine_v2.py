@@ -37,13 +37,24 @@ helps. ``abort`` cancels a request at any time, ``request_deadline_s``
 aborts late ones, ``request_drain`` / ``drain`` / ``replay`` carry live
 requests across a restart (``drain.py``), and a dispatch that raises an
 I/O-class error is retried. Every release of a block waits for the
-commit of the last in-flight step that writes it. Speculative decoding
-(A5.2) and telemetry, the watchdog and fault injection (A6) are not
-ported.
+commit of the last in-flight step that writes it.
+
+Speculative decoding (``spec_decode``, ``speculative.py``): with "ngram"
+or "draft" (a small model paired by ``attach_draft``), ``decode_pipelined``
+sends an all-greedy batch through ``decode_spec``: a proposer drafts
+``spec_k`` tokens a sequence, one verify pass of the decode loop scores
+the K+1 positions, the longest agreeing prefix plus the model's own next
+token is committed, and the rest is rolled back by ``trim_blocks``. The
+streams are those of non-speculative greedy decode.
+
+The runner comes from the model config: ``LlamaRaggedRunner`` for a
+``LlamaConfig``, ``GPT2RaggedRunner`` for a ``GPT2Config``. Telemetry
+(``slo_report``), the watchdog and fault injection (A6) are not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from collections import deque
@@ -60,7 +71,7 @@ from .drain import (EngineDrainingError, ReplayJournal, ServeDrainError,
                     ServeStepError, build_manifest, write_manifest)
 from .kv_cache import BlockedKVCache
 from .llama_runner import LlamaRaggedRunner
-from .model_runner import RaggedBatch
+from .model_runner import GPT2RaggedRunner, RaggedBatch
 from .prefix_cache import PrefixCache
 from .sampling import (SAMPLE_CANDIDATES, SamplingParams, derive_seed,
                        host_token, seed_of, stage_slot)
@@ -134,11 +145,22 @@ def _move_tree(tree, device):
     return tree.to(device)
 
 
+def _runner_for(model_cfg: Any, cfg: RaggedInferenceConfig):
+    """The ragged runner of the model's family (the JAX engine's
+    ``_runner_for``): dense Llama, else GPT-2 (``config.validate`` has
+    refused the families without a ported runner)."""
+    from ...models.llama import LlamaConfig
+    if isinstance(model_cfg, LlamaConfig):
+        return LlamaRaggedRunner(model_cfg, cfg)
+    return GPT2RaggedRunner(model_cfg, cfg)
+
+
 class InferenceEngineV2:
     def __init__(self, model_cfg: Any, params: Any,
                  config: Optional[RaggedInferenceConfig] = None,
                  device: Any = None):
-        """``model_cfg``: a :class:`~...models.llama.LlamaConfig`.
+        """``model_cfg``: a :class:`~...models.llama.LlamaConfig` or a
+        :class:`~...models.gpt2.GPT2Config`.
         ``params``: its parameter tree (``checkpoint/jax_params.py``),
         dense or weight-only-quantized (``inference/quantization.py``),
         moved to ``device`` if it lives elsewhere. ``device`` defaults to
@@ -148,7 +170,7 @@ class InferenceEngineV2:
         self.config = config or RaggedInferenceConfig()
         self.config.validate(model_cfg)
         self.model_cfg = model_cfg
-        self.runner = LlamaRaggedRunner(model_cfg, self.config)
+        self.runner = _runner_for(model_cfg, self.config)
         self.params = _move_tree(params, self.device)
         self.kv_cache = BlockedKVCache(
             self.config, self.runner.num_layers, self.runner.kv_heads,
@@ -207,6 +229,21 @@ class InferenceEngineV2:
         #: structured rejections (load shedding, deadlines, drain-time
         #: admission refusals): uid -> record
         self.rejections: Dict[int, Dict[str, Any]] = {}
+        # ---- speculative decoding (speculative.py) ----
+        self.spec_mode = cfg.spec_decode
+        self.spec_k = int(cfg.spec_k)
+        self.spec_ngram = int(cfg.spec_ngram)
+        #: the paired draft engine (attach_draft) for spec_mode "draft"
+        self._draft_engine: Optional["InferenceEngineV2"] = None
+        #: the proposer, built at the first speculative round
+        self._proposer = None
+        #: verify rounds, drafts proposed and accepted (the committable
+        #: window, as each sequence's spec_proposed / spec_accepted), and
+        #: host seconds proposing, in the verify (dispatch and readback)
+        #: and in the round's commit
+        self.spec_stats = {"rounds": 0, "proposed": 0, "accepted": 0,
+                           "propose_s": 0.0, "verify_s": 0.0,
+                           "commit_s": 0.0}
 
     # ------------------------------------------------------------------ #
     # reference-parity surface
@@ -540,6 +577,10 @@ class InferenceEngineV2:
         (shared blocks decref'd, private blocks to the allocator)."""
         if self.journal is not None and self.state.get(uid) is not None:
             self.journal.finish(uid)
+        if self._proposer is not None:
+            # a draft-model proposer mirrors live sequences on its own
+            # engine: release its copy with ours
+            self._proposer.drop(uid)
         self.state.flush(uid)
 
     def drain(self, path: Optional[str] = None,
@@ -922,8 +963,10 @@ class InferenceEngineV2:
         ``pipeline_depth`` steps ahead of the delayed commit, and each
         step's input tokens come from the previous step's on-device token
         output. Sequences with SamplingParams are sampled on the device in
-        the same pipeline. Speculative decoding (``decode_spec``) is not
-        ported yet (queue item A5.2).
+        the same pipeline. With ``spec_decode`` armed, a batch whose every
+        sequence is greedy (no sampling, no logprobs) and has no pending
+        tokens goes through :meth:`decode_spec` instead, with the same
+        tokens.
 
         Scheduling past the newest committed token is speculative: when
         the delayed readback shows a sequence emitted ``eos_token_id`` (or
@@ -935,6 +978,23 @@ class InferenceEngineV2:
         Sequences must have no pending tokens (drain with put() first);
         returns {uid: emitted tokens}, ending with eos when it fired. The
         stream is the synchronous path's."""
+        if self.spec_mode != "off" and batch_uids and all(
+                (s := self.state.get(u)) is not None
+                and (s.sampling is None
+                     or (s.sampling.greedy and not s.sampling.logprobs))
+                and not s.in_flight for u in batch_uids):
+            # sampled sequences would need rejection sampling, and a
+            # logprobs request the sampler's per-token output, which the
+            # verify pass does not produce
+            return self.decode_spec(batch_uids, first_tokens, n,
+                                    eos_token_id=eos_token_id)
+        return self._decode_pipelined_impl(batch_uids, first_tokens, n,
+                                           eos_token_id=eos_token_id)
+
+    def _decode_pipelined_impl(self, batch_uids: Sequence[int],
+                               first_tokens: Sequence[int], n,
+                               eos_token_id: Optional[int] = None
+                               ) -> Dict[int, List[int]]:
         cfg = self.config
         if len(batch_uids) != len(first_tokens):
             raise ValueError(
@@ -1055,6 +1115,242 @@ class InferenceEngineV2:
                                                eligible=eligible),
             commit_one, on_dispatch=speculate)
         self._feed_src, self._feed_slot = None, {}
+        return out
+
+    # ------------------------------------------------------------------ #
+    # speculative decoding (speculative.py)
+    # ------------------------------------------------------------------ #
+
+    def attach_draft(self, draft_model_cfg: Any, draft_params: Any,
+                     draft_config: Optional[RaggedInferenceConfig] = None
+                     ) -> "InferenceEngineV2":
+        """Pair a small draft model with this engine for
+        ``spec_decode="draft"``. The draft runs as its own engine on this
+        engine's device, over the same slot and block geometry with its
+        own KV pool, and must share the target's vocabulary. Its journal
+        is off and it never speculates itself: draft tokens are
+        proposals, never served output. Returns the draft engine."""
+        tv = getattr(self.runner.model_cfg, "vocab_size", None)
+        dv = getattr(draft_model_cfg, "vocab_size", None)
+        if tv != dv:
+            raise ValueError(
+                f"draft model vocab_size {dv} != target {tv}: a drafting "
+                f"pair must share the tokenizer")
+        if draft_config is None:
+            draft_config = dataclasses.replace(
+                self.config, prefix_cache=False, serve_pipeline_depth=0,
+                spec_decode="off", serve_journal="",
+                request_deadline_s=0.0, ep_size=1)
+        draft = InferenceEngineV2(draft_model_cfg, draft_params,
+                                  draft_config, device=self.device)
+        draft.journal = None
+        draft.spec_mode = "off"
+        self._draft_engine = draft
+        self._proposer = None
+        return draft
+
+    def _spec_proposer(self):
+        if self._proposer is None:
+            from .speculative import build_proposer
+            self._proposer = build_proposer(self)
+        return self._proposer
+
+    @property
+    def spec_enabled(self) -> bool:
+        """True when greedy decode routes through speculative decoding."""
+        return self.spec_mode != "off"
+
+    def slo_report(self, *args, **kwargs):
+        """The JAX engine's SLO report (speculation's acceptance among
+        it) comes from its telemetry observer, which is not ported: read
+        :attr:`spec_stats` and each sequence's ``spec_proposed`` /
+        ``spec_accepted``."""
+        raise NotImplementedError(
+            "slo_report: serving telemetry is not ported yet (queue item "
+            "A6); speculation's counters are in spec_stats")
+
+    def decode_spec(self, batch_uids: Sequence[int],
+                    first_tokens: Sequence[int], n,
+                    eos_token_id: Optional[int] = None
+                    ) -> Dict[int, List[int]]:
+        """Speculative greedy decode. Each round a proposer drafts
+        ``spec_k`` tokens a sequence, one verify pass of the decode loop
+        (``draft_toks``) scores all K+1 positions, and the host commits
+        the longest agreeing prefix plus the model's own token at the
+        first disagreement (or the bonus token after a full acceptance):
+        each round advances a sequence by 1 .. K+1 tokens.
+
+        Rollback: the verify appended KV for all K+1 positions; the host
+        retracts ``seen_tokens`` to the accepted length and frees the
+        blocks past it by ``trim_blocks`` (cache-shared blocks are
+        decref'd, never freed). Rows past the accepted length in a kept
+        block are overwritten by the next round before anything reads
+        them, and decode positions never lie in shared prefix blocks.
+
+        Returns {uid: emitted tokens} as :meth:`decode_pipelined` does
+        (budgets, eos truncation); sequences must have no pending tokens.
+        Under KV pressure it pauses block holders and retries; sequences
+        it cannot serve (pressure, or a context too near its cap for K+1
+        more positions) finish on the pipelined path, which can shed."""
+        from .speculative import accept_length
+        cfg = self.config
+        if len(batch_uids) != len(first_tokens):
+            raise ValueError(
+                f"{len(batch_uids)} uids but {len(first_tokens)} "
+                f"first_tokens")
+        if isinstance(n, (list, tuple)):
+            budgets = {u: int(b) for u, b in zip(batch_uids, n)}
+        else:
+            budgets = {u: int(n) for u in batch_uids}
+        seqs: Dict[int, Any] = {}
+        for uid in batch_uids:
+            seq = self.state.get(uid)
+            if seq is None:
+                raise ValueError(f"unknown sequence {uid}")
+            if seq.in_flight:
+                raise ValueError(f"sequence {uid} has pending tokens; "
+                                 f"drain with put() first")
+            seqs[uid] = seq
+        out: Dict[int, List[int]] = {u: [] for u in batch_uids}
+        last = {u: int(t) for u, t in zip(batch_uids, first_tokens)}
+        live = {u for u in batch_uids if budgets[u] > 0}
+        proposer = self._spec_proposer()
+        K = self.spec_k
+        # one verify length for every round: a budget's tail verifies a
+        # few positions past it and the commit truncates
+        L = K + 1
+        S, MAXB = cfg.max_seqs, cfg.max_blocks_per_seq
+        bs = cfg.block_size
+        st = self.spec_stats
+        # per-call staging: each round reads its verify back before the
+        # next round rewrites these
+        tok0 = np.zeros((S,), np.int32)
+        start = np.zeros((S,), np.int32)
+        active = np.zeros((S,), np.int32)
+        tables = np.zeros((S, MAXB), np.int32)
+        draft_arr = np.zeros((S, L), np.int32)
+        while live:
+            if self._draining():
+                # stop proposing: the outstanding budgets ride the drain
+                break
+            self._try_resume()
+            for u in list(live):
+                # shed or aborted out of band
+                if seqs[u].status is SequenceStatus.FINISHED \
+                        or u in self.rejections:
+                    live.discard(u)
+            ready = sorted(
+                (u for u in live
+                 if seqs[u].status is not SequenceStatus.PAUSED
+                 # never verify past a sequence's context capacity: a
+                 # straggler near its cap takes the pipelined path below
+                 and seqs[u].seen_tokens + L <= cfg.max_context),
+                key=lambda u: len(out[u]))[:S]
+            if not ready:
+                if live and self._relieve_kv_pressure():
+                    continue
+                break
+            rem = {u: budgets[u] - len(out[u]) for u in ready}
+            need = sum(seqs[u].blocks_needed(L, bs) for u in ready)
+            if need > self.kv_cache.free_blocks or any(
+                    len(seqs[u].kv_blocks)
+                    + seqs[u].blocks_needed(L, bs) > MAXB
+                    for u in ready):
+                if self._relieve_kv_pressure():
+                    continue
+                break                       # irreducible pressure
+            t0 = time.perf_counter()
+            histories = [seqs[u].prompt_log + seqs[u].gen_log
+                         for u in ready]
+            drafts_list = proposer.propose_batch(
+                [seqs[u] for u in ready], histories, K)
+            t1 = time.perf_counter()
+            for u in ready:
+                self.state.ensure_blocks(seqs[u], L)
+            for b in (tok0, start, active, tables, draft_arr):
+                b.fill(0)
+            for i, u in enumerate(ready):
+                seq = seqs[u]
+                tok0[i] = last[u]
+                start[i] = seq.seen_tokens
+                active[i] = 1
+                tables[i, :len(seq.kv_blocks)] = seq.kv_blocks
+                row = list(drafts_list[i])[:K]
+                while len(row) < K:
+                    # a short or absent proposal pads by repeating: a pad
+                    # is a draft the verify may still accept
+                    row.append(row[-1] if row else last[u])
+                draft_arr[i, 0] = last[u]
+                draft_arr[i, 1:] = row
+            dev = self._to_device
+            toks, _, _ = self.runner.decode_loop(
+                self.params, self.kv_cache.pool, dev(tok0), dev(start),
+                dev(active), dev(tables), L, draft_toks=dev(draft_arr))
+            toks = self._readback(toks)
+            t2 = time.perf_counter()
+            self.kv_cache.finalize_demotions()   # the readback synchronized
+            self._step_counter += L
+            journal_toks: Dict[int, List[int]] = {}
+            for i, u in enumerate(ready):
+                seq = seqs[u]
+                emitted = [int(t) for t in toks[i]]
+                d_row = [int(t) for t in draft_arr[i, 1:]]
+                j = accept_length(d_row, emitted)
+                acc = emitted[:j + 1]
+                if len(acc) > rem[u]:
+                    acc = acc[:rem[u]]
+                if eos_token_id is not None and eos_token_id in acc:
+                    acc = acc[:acc.index(eos_token_id) + 1]
+                a = len(acc)
+                seen0 = seq.seen_tokens
+                # consumed inputs = committed tokens = a; the other L - a
+                # appended positions are retracted (nothing is in flight:
+                # the readback is done)
+                seq.seen_tokens = seen0 + a
+                self.state.trim_blocks(seq)
+                seq.last_step = self._step_counter
+                seq.status = SequenceStatus.WAITING
+                # the replay chain: the fed first token joins gen_log
+                # unless it is one of our own committed outputs
+                hist = []
+                if len(seq.prompt_log) + len(seq.gen_log) <= seen0:
+                    hist.append(int(draft_arr[i, 0]))
+                hist.extend(acc)
+                seq.gen_log.extend(hist)
+                out[u].extend(acc)
+                last[u] = acc[-1]
+                # acceptance over the committable window: drafts kept
+                # (a - 1 of the consumed inputs) over the drafts that
+                # could commit this round (rem - 1 at a budget's tail)
+                prop_eff = min(K, rem[u] - 1)
+                acc_drafts = min(j, a - 1)
+                seq.spec_proposed += prop_eff
+                seq.spec_accepted += acc_drafts
+                st["proposed"] += prop_eff
+                st["accepted"] += acc_drafts
+                proposer.observe_commit(seq, seen0, acc, d_row)
+                if self.journal is not None:
+                    journal_toks[u] = hist
+                if len(out[u]) >= budgets[u] or (
+                        eos_token_id is not None
+                        and acc[-1] == eos_token_id):
+                    live.discard(u)
+            if self.journal is not None:
+                self.journal.tokens(journal_toks)
+            st["rounds"] += 1
+            st["propose_s"] += t1 - t0
+            st["verify_s"] += t2 - t1
+            st["commit_s"] += time.perf_counter() - t2
+        if live:
+            # pressure or the context cap: the stragglers finish on the
+            # pipelined path (which can shed)
+            lu = sorted(live)
+            res = self._decode_pipelined_impl(
+                lu, [last[u] for u in lu],
+                [budgets[u] - len(out[u]) for u in lu],
+                eos_token_id=eos_token_id)
+            for u in lu:
+                out[u].extend(res.get(u) or [])
         return out
 
     # ------------------------------------------------------------------ #

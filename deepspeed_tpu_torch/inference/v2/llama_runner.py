@@ -23,7 +23,7 @@ from .model_runner import (RaggedBatch, RaggedRunnerBase, paged_attention,
 
 def _llama_ragged_step(params, pool, batch: RaggedBatch, *,
                        model_cfg: LlamaConfig, cfg: RaggedInferenceConfig,
-                       dtype) -> torch.Tensor:
+                       dtype, fused_woq: bool = True) -> torch.Tensor:
     S, C = batch.tokens.shape
     H = model_cfg.num_heads
     KV = model_cfg.num_kv_heads
@@ -43,9 +43,9 @@ def _llama_ragged_step(params, pool, batch: RaggedBatch, *,
         h = rms_norm(x, p["input_norm"]["scale"],
                      model_cfg.rms_eps).to(dtype)
         pa = p["attn"]
-        q = woq_mm(h, pa["q_proj"]["kernel"], dtype)
-        k = woq_mm(h, pa["k_proj"]["kernel"], dtype)
-        v = woq_mm(h, pa["v_proj"]["kernel"], dtype)
+        q = woq_mm(h, pa["q_proj"]["kernel"], dtype, fused_woq)
+        k = woq_mm(h, pa["k_proj"]["kernel"], dtype, fused_woq)
+        v = woq_mm(h, pa["v_proj"]["kernel"], dtype, fused_woq)
         if model_cfg.qkv_bias:
             q = q + pa["q_proj"]["bias"].to(dtype)
             k = k + pa["k_proj"]["bias"].to(dtype)
@@ -57,14 +57,14 @@ def _llama_ragged_step(params, pool, batch: RaggedBatch, *,
         y = paged_attention(pool, li, q, k, v, batch, cfg, pos, valid_q,
                             scale, dtype,
                             sliding_window=model_cfg.sliding_window)
-        x = x + woq_mm(y, pa["o_proj"]["kernel"], dtype)
+        x = x + woq_mm(y, pa["o_proj"]["kernel"], dtype, fused_woq)
 
         h = rms_norm(x, p["post_attn_norm"]["scale"],
                      model_cfg.rms_eps).to(dtype)
         pm = p["mlp"]
-        m = F.silu(woq_mm(h, pm["gate_proj"]["kernel"], dtype)) \
-            * woq_mm(h, pm["up_proj"]["kernel"], dtype)
-        x = x + woq_mm(m, pm["down_proj"]["kernel"], dtype)
+        m = F.silu(woq_mm(h, pm["gate_proj"]["kernel"], dtype, fused_woq)) \
+            * woq_mm(h, pm["up_proj"]["kernel"], dtype, fused_woq)
+        x = x + woq_mm(m, pm["down_proj"]["kernel"], dtype, fused_woq)
 
     x = rms_norm(x, params["final_norm"]["scale"], model_cfg.rms_eps)
     last = torch.clamp(batch.n_tokens.long() - 1, min=0)
@@ -75,7 +75,7 @@ def _llama_ragged_step(params, pool, batch: RaggedBatch, *,
         w_out = dequantize_leaf(params["embed"]["embedding"]).T
     else:
         w_out = params["lm_head"]["kernel"]
-        if isinstance(w_out, Fp6GemmWeight):
+        if fused_woq and isinstance(w_out, Fp6GemmWeight):
             return woq_mm(x_last, w_out, torch.float32)
         w_out = dequantize_leaf(w_out)
     return x_last @ w_out.to(torch.float32)

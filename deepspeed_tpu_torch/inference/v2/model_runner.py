@@ -17,7 +17,8 @@ loop's feedback), so a steady decode needs no host round trip a token.
 
 The decode loop is a Python loop of greedy or sampled steps that feeds
 each step's tokens to the next on the device, with one host sync per
-``n`` tokens.
+``n`` tokens. Given ``draft_toks`` it is speculative decoding's verify
+pass instead: step t consumes the caller's ``draft_toks[:, t]``.
 Over a bf16, fp16 or fp32 pool every step appends its K/V to the pool and
 then attends: the JAX package's fused loop keeps its fresh K/V in a ring
 buffer because TPU scatters are slow, and appending computes the same
@@ -27,6 +28,10 @@ attended unquantized after the settled pool, and the ring is quantized
 into the pool once, when the loop ends. Appending would quantize the
 loop's own tokens before they are attended, which is not what the JAX
 package computes.
+
+Runners: ``LlamaRaggedRunner`` (``llama_runner.py``) and
+:class:`GPT2RaggedRunner` (below), picked by the engine from the model
+config.
 """
 
 from __future__ import annotations
@@ -35,6 +40,9 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+import torch.nn.functional as F
+
+from ...models.gpt2 import GPT2Config
 from ...ops.kernels.fp6_gemm import Fp6GemmWeight, fp6_matmul
 from ..quantization import dequantize_leaf
 from ...utils.random import PRNGKey, fold_in, gumbel
@@ -288,16 +296,19 @@ def paged_attention(kv, li: int, q, k, v, batch: RaggedBatch,
     return y.reshape(S, C, H * D).to(dtype)
 
 
-def woq_mm(h: torch.Tensor, w: Any, dtype) -> torch.Tensor:
-    """``h @ w`` with weight-only-quantized dispatch: an
-    ``Fp6GemmWeight`` goes through the fused fp6 GEMM (h in its dtype); a
-    ``QuantizedTensor`` or ``FPQuantizedTensor`` is dequantized here, at
-    its use, to f32 and cast to ``dtype`` (``bf16(f32(v) * scale)``, as
-    the JAX runner's dequantize-then-cast); a dense tensor is cast to
-    ``dtype``. The JAX runner dequantizes the whole tree at the top of its
-    jitted step and XLA fuses each dequant into its matmul; eagerly, a
-    whole-tree f32 view of a 7B model would be 27 GB a step."""
-    if isinstance(w, Fp6GemmWeight):
+def woq_mm(h: torch.Tensor, w: Any, dtype, fused: bool = True
+           ) -> torch.Tensor:
+    """``h @ w`` with weight-only-quantized dispatch: with ``fused`` (the
+    runner's ``supports_fused_woq``) an ``Fp6GemmWeight`` goes through the
+    fused fp6 GEMM (h in its dtype); a ``QuantizedTensor`` or
+    ``FPQuantizedTensor``, and an ``Fp6GemmWeight`` without ``fused``, is
+    dequantized here, at its use, to f32 and cast to ``dtype``
+    (``bf16(f32(v) * scale)``, as the JAX runner's dequantize-then-cast);
+    a dense tensor is cast to ``dtype``. The JAX runner dequantizes the
+    whole tree at the top of its jitted step and XLA fuses each dequant
+    into its matmul; eagerly, a whole-tree f32 view of a 7B model would be
+    27 GB a step."""
+    if fused and isinstance(w, Fp6GemmWeight):
         return fp6_matmul(h, w)
     return h @ dequantize_leaf(w).to(dtype)
 
@@ -305,10 +316,13 @@ def woq_mm(h: torch.Tensor, w: Any, dtype) -> torch.Tensor:
 class RaggedRunnerBase:
     """Shared runner plumbing: the step, its greedy variant and the decode
     loop around a family's ``step_fn(params, pool, batch, *, model_cfg,
-    cfg, dtype) -> logits [S, V] fp32``. Counts the steps it runs by kind
-    (``step_counts``: C > 1 is prefill, C == 1 is decode)."""
+    cfg, dtype, fused_woq) -> logits [S, V] fp32``. Counts the steps it
+    runs by kind (``step_counts``: C > 1 is prefill, C == 1 is decode).
+    ``supports_fused_woq``: whether the family's matmuls take a packed fp6
+    leaf through the fp6 GEMM (else it is dequantized at its use)."""
 
     step_fn = None
+    supports_fused_woq = True
 
     def __init__(self, model_cfg: Any, cfg: RaggedInferenceConfig,
                  compute_dtype: Any = None):
@@ -328,7 +342,8 @@ class RaggedRunnerBase:
         self.step_counts[kind] += 1
         return type(self).step_fn(params, pool, batch,
                                   model_cfg=self.model_cfg, cfg=self.cfg,
-                                  dtype=self.compute_dtype)
+                                  dtype=self.compute_dtype,
+                                  fused_woq=self.supports_fused_woq)
 
     @torch.inference_mode()
     def step(self, params, pool, batch: RaggedBatch) -> torch.Tensor:
@@ -370,7 +385,8 @@ class RaggedRunnerBase:
     @torch.inference_mode()
     def decode_loop(self, params, pool, tok0, start_pos, active,
                     block_tables, n: int, *, seeds=None, temps=None,
-                    top_ks=None, top_ps=None, eos_id: int = -1):
+                    top_ks=None, top_ps=None, eos_id: int = -1,
+                    draft_toks=None):
         """Decode ``n`` tokens per active slot, feeding each step's
         tokens to the next on the device: greedy when ``temps`` is None,
         else the per-slot sampler (``seeds``, ``temps``, ``top_ks``,
@@ -378,8 +394,13 @@ class RaggedRunnerBase:
         the token selected). tok0 [S] int32: each slot's next input token
         (KV not yet appended); start_pos [S]: its position; active [S]: 1
         live / 0 idle. ``eos_id`` >= 0 freezes a slot once it emits eos
-        (it keeps emitting eos and stops appending KV). Slots must hold KV
-        blocks for start_pos .. start_pos + n - 1. Over an int8 pool (a
+        (it keeps emitting eos and stops appending KV). ``draft_toks``
+        [S, n] int32 makes the loop speculative decoding's verify pass:
+        step t consumes ``draft_toks[:, t]`` instead of the previous
+        step's output (column 0 is each slot's last committed token), so
+        the tokens are the model's choice after every draft prefix. Slots
+        must hold KV blocks for start_pos .. start_pos + n - 1. Over an
+        int8 pool (a
         KVPool) the steps' K/V ride a compute-dtype ring [n, L, 2, S,
         KV*D], flushed into the pool at the end (module docstring).
         Returns (tokens [S, n] int32, chosen-token logprobs [S, n] fp32 or
@@ -400,6 +421,8 @@ class RaggedRunnerBase:
         cand = min(SAMPLE_CANDIDATES, self.model_cfg.vocab_size)
         out, lps = [], []
         for t in range(n):
+            if draft_toks is not None:
+                tok = draft_toks[:, t]
             alive = active * (~done).to(active.dtype) if use_eos else active
             batch = RaggedBatch(tokens=tok[:, None], start_pos=pos,
                                 n_tokens=alive, block_tables=block_tables)
@@ -451,3 +474,82 @@ class RaggedRunnerBase:
             data[li].index_copy_(1, idx, codes.reshape(2, S * R, KVD))
             scales[li].index_copy_(2, idx, sc.reshape(
                 self.kv_heads, 2, S * R).transpose(0, 1))
+
+
+# --------------------------------------------------------------------- #
+# GPT-2
+# --------------------------------------------------------------------- #
+
+
+def _layer_norm(x: torch.Tensor, p, eps: float) -> torch.Tensor:
+    """LayerNorm of fp32 ``x`` over its last dim (the JAX runner's
+    ``_layer_norm``: the mean, the biased variance, rsqrt)."""
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * p["scale"].float() \
+        + p["bias"].float()
+
+
+def _dense(h, p, dtype, fused: bool):
+    """``h @ kernel (+ bias)`` in ``dtype`` through :func:`woq_mm`."""
+    y = woq_mm(h, p["kernel"], dtype, fused)
+    if "bias" in p:
+        y = y + p["bias"].to(dtype)
+    return y
+
+
+def _gpt2_ragged_step(params, pool, batch: RaggedBatch, *,
+                      model_cfg: GPT2Config, cfg: RaggedInferenceConfig,
+                      dtype, fused_woq: bool = False) -> torch.Tensor:
+    """One ragged step of GPT-2 (the JAX package's ``_gpt2_ragged_step``):
+    token and position embeddings (positions clamped to ``max_seq_len -
+    1``), per layer LayerNorm in fp32, the fused ``c_attn`` split q|k|v,
+    paged attention, ``c_proj``, LayerNorm, the MLP with tanh GELU; the
+    final LayerNorm in fp32 and the tied head ``x_last @ wte.T`` in
+    fp32. Returns last-token logits [S, V] fp32."""
+    S, C = batch.tokens.shape
+    H = model_cfg.num_heads
+    D = model_cfg.hidden_size // H
+    scale = 1.0 / (D ** 0.5)
+    dev = batch.tokens.device
+    eps = model_cfg.layer_norm_eps
+
+    cols = torch.arange(C, device=dev)
+    pos = batch.start_pos.long()[:, None] + cols[None, :]
+    valid_q = cols[None, :] < batch.n_tokens.long()[:, None]
+    pos_c = torch.clamp(pos, max=model_cfg.max_seq_len - 1)
+
+    wte = dequantize_leaf(params["wte"]["embedding"])
+    wpe = dequantize_leaf(params["wpe"]["embedding"])
+    # the sum in fp32: the JAX runner adds the (fp32) embedding rows
+    x = (wte[batch.tokens.long()].float() + wpe[pos_c].float()).to(dtype)
+
+    for li in range(model_cfg.num_layers):
+        p = params[f"h_{li}"]
+        h = _layer_norm(x.float(), p["ln_1"], eps).to(dtype)
+        qkv = _dense(h, p["attn"]["c_attn"], dtype, fused_woq)
+        q, k, v = torch.chunk(qkv, 3, dim=-1)
+        y = paged_attention(pool, li, q.reshape(S, C, H, D),
+                            k.reshape(S, C, H, D), v.reshape(S, C, H, D),
+                            batch, cfg, pos, valid_q, scale, dtype)
+        x = x + _dense(y, p["attn"]["c_proj"], dtype, fused_woq)
+
+        h = _layer_norm(x.float(), p["ln_2"], eps).to(dtype)
+        m = F.gelu(_dense(h, p["mlp"]["c_fc"], dtype, fused_woq),
+                   approximate="tanh")
+        x = x + _dense(m, p["mlp"]["c_proj"], dtype, fused_woq)
+
+    x = _layer_norm(x.float(), params["ln_f"], eps)
+    last = torch.clamp(batch.n_tokens.long() - 1, min=0)
+    x_last = x[torch.arange(S, device=dev), last]               # [S, C] fp32
+    return x_last @ wte.T.float()
+
+
+class GPT2RaggedRunner(RaggedRunnerBase):
+    """Paged-KV prefill and decode over the GPT-2 tree
+    (``checkpoint/jax_params.py``: wte / wpe / h_i / ln_f). Its matmuls
+    dequantize a packed leaf at its use, fp6 too (``supports_fused_woq``
+    False, as the JAX runner's ``dequantize_tree(keep_fused=False)``)."""
+
+    supports_fused_woq = False
+    step_fn = staticmethod(_gpt2_ragged_step)

@@ -3,9 +3,9 @@
 
 Per-sequence host state: tokens seen by the model, KV blocks owned, tokens
 still waiting, scheduling status, the prefix-cache and pause (host
-offload) fields, the deadline, and the replay chain. The speculative and
-telemetry fields of the JAX descriptor belong to features this port has
-not taken over yet (A5.2, A6).
+offload) fields, the deadline, the replay chain and speculative
+decoding's counters. The telemetry fields of the JAX descriptor belong to
+A6.
 """
 
 from __future__ import annotations
@@ -66,8 +66,9 @@ class SequenceDescriptor:
     # producing step is the latest dispatched; otherwise that step's
     # commit patches the real value in.
     spec_pending: int = 0
-    # draft tokens proposed for / accepted by this sequence (stay 0 until
-    # speculative decoding, A5.2; drain manifests carry them)
+    # draft tokens proposed for / accepted by this sequence over the
+    # committable window of each verify round (decode_spec; drain
+    # manifests carry them)
     spec_proposed: int = 0
     spec_accepted: int = 0
     # absolute time.monotonic() deadline (None = none), and the duration

@@ -2,10 +2,11 @@
 ``deepspeed_tpu/models/registry.py``).
 
 Maps an architecture name, or a HuggingFace ``config.json``'s
-``model_type``, to the port's model config. The port carries the entries
-that give a :class:`LlamaConfig`: llama, mistral (``sliding_window``),
-qwen2 (``qkv_bias``), qwen (v1: its own key names, ``intermediate_size``
-counting both SwiGLU branches), phi3, internlm and internlm2. The other
+``model_type``, to the port's model config. The port carries gpt2 (a
+:class:`GPT2Config`) and the entries that give a :class:`LlamaConfig`:
+llama, mistral (``sliding_window``), qwen2 (``qkv_bias``), qwen (v1: its
+own key names, ``intermediate_size`` counting both SwiGLU branches),
+phi3, internlm and internlm2. The other
 architectures the JAX registry knows raise ``NotImplementedError`` naming
 the queue item that ports their models; an unknown name raises
 ``ValueError``, as the JAX registry does.
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple
 
+from .gpt2 import GPT2, GPT2Config
 from .llama import Llama, LlamaConfig
 
 
@@ -40,6 +42,16 @@ def _hf_llama(d: Dict[str, Any], **extra) -> Dict[str, Any]:
     )
     base.update(extra)
     return base
+
+
+def _entry_gpt2(d):
+    return GPT2Config(
+        vocab_size=d.get("vocab_size", 50257),
+        max_seq_len=d.get("n_positions", 1024),
+        num_layers=d.get("n_layer", 12),
+        num_heads=d.get("n_head", 12),
+        hidden_size=d.get("n_embd", 768),
+        layer_norm_eps=d.get("layer_norm_epsilon", 1e-5))
 
 
 def _entry_llama(d):
@@ -90,6 +102,7 @@ def _entry_internlm(d):
 
 
 ARCHITECTURES: Dict[str, ArchEntry] = {
+    "gpt2": ArchEntry(GPT2Config, GPT2, _entry_gpt2),
     "llama": ArchEntry(LlamaConfig, Llama, _entry_llama),
     "mistral": ArchEntry(LlamaConfig, Llama, _entry_mistral),
     "qwen": ArchEntry(LlamaConfig, Llama, _entry_qwen),
@@ -102,8 +115,8 @@ ARCHITECTURES: Dict[str, ArchEntry] = {
 #: the JAX registry's other architectures, each with the queue item
 #: (ROADMAP.md) that ports its model
 NOT_PORTED: Dict[str, str] = {
-    **{a: "A5.4" for a in ("gpt2", "opt", "bloom", "gpt_neox", "gptj",
-                            "falcon", "phi", "mixtral", "qwen2_moe")},
+    **{a: "A5.4" for a in ("opt", "bloom", "gpt_neox", "gptj", "falcon",
+                            "phi", "mixtral", "qwen2_moe")},
     **{a: "A9" for a in ("bert", "distilbert", "gpt_neo",
                           "unet2dconditionmodel", "autoencoderkl")},
 }

@@ -14,8 +14,9 @@ written in the test (no download) served by both packages on the CPU.
 - The registry: ``config_from_hf`` gives the JAX package's fields for
   every Llama-family entry (internlm's ``bias=True`` refused as JAX
   refuses it); unported architectures raise ``NotImplementedError``
-  naming their queue item before any shard is read; unknown and
-  unservable ones raise JAX's ``ValueError``.
+  naming their queue item before any shard is read (a draft checkpoint's
+  too); unknown and unservable ones raise JAX's ``ValueError``. GPT-2's
+  HF path is tested in ``tests/test_torch_gpt2_serving.py``.
 """
 
 import json
@@ -291,7 +292,7 @@ def test_unservable_archs_raise_jax_value_error(tmp_path, arch):
         thf.load_hf_model(str(tmp_path), device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["gpt2", "bloom", "mixtral", "opt", "phi",
+@pytest.mark.parametrize("arch", ["bloom", "mixtral", "opt", "phi",
                                   "gpt_neox", "gptj", "qwen2_moe"])
 def test_unported_archs_raise_before_reading_shards(tmp_path, arch):
     """Architectures the JAX package serves whose runners wait for queue
@@ -320,10 +321,14 @@ def test_registry_refusals():
         == set(jreg.ARCHITECTURES)
 
 
-def test_factory_refusals(ckpt):
+def test_factory_refusals(ckpt, tmp_path):
     d = ckpt("llama")
-    with pytest.raises(NotImplementedError, match="A5.2"):
-        build_hf_engine(d, draft_model_dir=d, device="cpu")
+    # a draft checkpoint whose runner is not ported: refused before any
+    # shard of either checkpoint is read
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "opt"}))
+    (tmp_path / "model.safetensors").write_bytes(b"\xff" * 64)
+    with pytest.raises(NotImplementedError, match="A5.4"):
+        build_hf_engine(d, draft_model_dir=str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="tp_size"):
         build_hf_engine(d, tp_size=2, device="cpu")
     with pytest.raises(ValueError, match="quantization_mode"):

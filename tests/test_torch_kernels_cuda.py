@@ -1772,3 +1772,91 @@ def test_prefix_block_moves_bit_exact_on_card(quant):
         pc.check_invariants()
         pc.assert_exact_refs([seq])
         sm.flush(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,C", [("paged_prefill", 256),
+                                    ("paged_decode", 1)])
+def test_paged_kernels_at_gpt2_xl_shapes_on_card(name, C):
+    """K1 and K2 at GPT-2 XL's heads (25 query heads on 25 KV heads of 64,
+    no GQA: an odd KV-head count through ``decode_plan`` and
+    ``prefill_route``), 16 slots at context 256 (K1: the 256-query prefill
+    chunk, wgmma by TMA; K2: one query a slot), bf16 and fp16, against the
+    plain version; limits as in chip_smoke.py."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(26)
+    S, H, D, bs, ctx = 16, 25, 64, 64, 256
+    maxb = ctx // bs
+    kp, vp = _pool(rng, S * maxb, bs, H, D)
+    tables = rng.permutation(S * maxb).reshape(S, maxb).astype(np.int32)
+    lens = np.full(S, ctx, np.int32)
+    start = lens - C
+    q = rng.standard_normal((S, C, H, D)).astype(np.float32)
+    for dt, tol in ((torch.bfloat16, 8e-3), (torch.float16, 4e-3)):
+        args = [torch.from_numpy(a).cuda() for a in
+                (q, kp, vp, tables, start, lens)]
+        args[:3] = [a.to(dt) for a in args[:3]]
+        kw = dict(block_size=bs, sm_scale=D ** -0.5, sliding_window=None,
+                  num_kv_heads=H)
+        port.reset_launch_counts()
+        got = getattr(port, name)(*args, **kw)
+        assert port.LAUNCHES[name] == 1
+        ref = port.paged_attention_plain(*[a.cpu() for a in args], **kw)
+        diff = got.float().cpu() - ref.float()
+        err = diff.abs().max().item()
+        rel = (diff.norm() / ref.float().norm()).item()
+        assert err <= tol and rel <= 2.0 ** -8, (dt, err, rel)
+        if C > 1:
+            assert port.prefill_route(C, D, dt, bs) == "wgmma_tma"
+
+
+@pytest.mark.cuda
+def test_verify_feed_matches_self_fed_loop_on_card():
+    """Speculative decoding's verify on the card: a GPT-2 (25 heads of
+    64, vocabulary 50257, bf16, paged kernels) decodes 6 tokens a slot
+    self-fed; the verify pass fed [its first input, its own first 5
+    outputs] from the same state gives the same 6 tokens (the argmax over
+    the odd vocabulary included), and a draft row that breaks at step 3
+    gives the same tokens up to and including step 3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.checkpoint import init_gpt2_params
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig)
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    cfg = GPT2Config(vocab_size=50257, max_seq_len=1024, num_layers=2,
+                     num_heads=25, hidden_size=1600, dtype=torch.bfloat16)
+    params = init_gpt2_params(cfg, seed=3, device="cuda",
+                              dtype=torch.bfloat16)
+    eng = InferenceEngineV2(cfg, params, RaggedInferenceConfig(
+        max_seqs=4, chunk_size=128, block_size=64, num_blocks=32,
+        max_blocks_per_seq=6, dtype="bfloat16", attention_impl="paged_flash",
+        decode_loop_steps=0), device="cuda")
+    rng = np.random.default_rng(4)
+    uids = [0, 1, 2]
+    first = eng.put(uids, [rng.integers(0, 50257, n).tolist()
+                           for n in (100, 64, 130)], _greedy=True)
+    n = 6
+    tok0 = torch.zeros(4, dtype=torch.int32)
+    start = torch.zeros(4, dtype=torch.int32)
+    active = torch.zeros(4, dtype=torch.int32)
+    tables = torch.zeros(4, 6, dtype=torch.int32)
+    for i, u in enumerate(uids):
+        s = eng.state.get(u)
+        eng.state.ensure_blocks(s, n)
+        tok0[i], start[i], active[i] = first[u], s.seen_tokens, 1
+        tables[i, :len(s.kv_blocks)] = torch.tensor(s.kv_blocks)
+    dev = [t.cuda() for t in (tok0, start, active, tables)]
+    own, _, _ = eng.runner.decode_loop(eng.params, eng.kv_cache.pool, *dev,
+                                       n)
+    own = own.cpu()
+    drafts = torch.cat([tok0[:, None], own[:, :n - 1]], dim=1)
+    got, _, _ = eng.runner.decode_loop(eng.params, eng.kv_cache.pool, *dev,
+                                       n, draft_toks=drafts.cuda())
+    assert torch.equal(got.cpu()[:3], own[:3])
+    broken = drafts.clone()
+    broken[:, 3] = (broken[:, 3] + 1) % 50257
+    got2, _, _ = eng.runner.decode_loop(eng.params, eng.kv_cache.pool,
+                                        *dev, n, draft_toks=broken.cuda())
+    assert torch.equal(got2.cpu()[:3, :3], own[:3, :3])
