@@ -381,6 +381,34 @@ bound and one library call:
              commit). Then K1 at the prefill after the preamble and K2 at
              the verify's 8-slot decode shape against their plain versions
              and timed.
+28. families — the dense runners of A5.4. (a) A random checkpoint in
+             HuggingFace's layout with EleutherAI/gpt-j-6b's published
+             config.json uncut (28 layers, n_embd 4096, 16 heads of 256,
+             rotary_dim 64, vocab 50400, an untied lm_head with a bias;
+             ~12.1 GB in bf16), written and removed as in phase 24, served
+             through ``build_hf_engine`` by the GPT-J runner: every loaded
+             leaf bit-identical to the tensor written; 16 prompts x 256
+             tokens, 32 new, greedy and sampled at depth 0, depth 2 and
+             through the decode loop (16 steps a call), streams identical
+             across the three, K1 (mma.sync: head dim 256) and K2 launched
+             28 times a step. Load s, prefill s, decode tok/s, peak
+             memory; then K1 and K2 at 16 heads of 256 against their plain
+             versions and timed beside SDPA. (b) bigscience/bloom-7b1,
+             EleutherAI/gpt-neox-20b, facebook/opt-6.7b and microsoft/
+             phi-2 at their published widths with the depth cut to 4
+             layers (``reduced``), through ``build_hf_engine``, and
+             tiiuae/falcon-7b's (71 query heads on 1 KV head of 64) from
+             seeded parameters through ``InferenceEngineV2`` (no HF name
+             map): 8 prompts x 256 tokens, 16 new; in fp32 with TF32 off
+             the kernels' greedy streams equal the dense path's; in bf16
+             identical at depths 0 and 2; each launch counted by route
+             (ALiBi on every BLOOM launch, K1 on mma.sync at NeoX's D 96
+             and Phi's D 80, on wgmma by TMA at D 64 and 128); BLOOM once
+             more under ``quantization_mode="wf8"`` (one quantizer launch
+             a q/k/v leaf). Then each family's K1 (its 256-token prefill
+             step) and K2 (mid-decode) at its own heads (BLOOM with ALiBi)
+             against their plain versions and timed beside SDPA, a
+             ``kernels`` row each with the depth-2 bf16 run's launches.
 
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
@@ -396,6 +424,12 @@ three Llama-2-7B projection shapes at M from 128 to 4096 beside
 (vectors a lane, warps a row and a block) at phase 18's shapes beside
 ``F.layer_norm`` / ``F.rms_norm`` in CUDA graphs, which ``norm_plan``'s
 choices are read from.
+``--paged-rows`` builds only the paged-attention library and times K1
+and K2 at the main paths' shapes that head dims 16-128 share with every
+earlier slice (phase 15's 7B int8 pool, its ring and its bf16 pool,
+phase 3's GQA shapes, a Qwen2 int8 prefix-hit-sized K1, Phi-2's D 80 and
+NeoX-20B's D 96 prefill): copied into another checkout, the same rows
+time that checkout's kernels, so two versions compare in one call.
 
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -3999,13 +4033,13 @@ def phase_kv_pool(torch, woq, trace=False):
         ("paged_decode_alibi", "paged_decode", dict(**dec7,
                                                     heads=BLOOM_HEADS,
                                                     alibi=True),
-         parity_launches["alibi"], "phase 23's kernel cases (no served "
-         "model takes ALiBi yet)"),
+         parity_launches["alibi"], "phase 23's kernel cases (BLOOM's "
+         "served ALiBi rows are phase 28's)"),
         ("paged_prefill_alibi", "paged_prefill", dict(**pre7,
                                                       heads=BLOOM_HEADS,
                                                       alibi=True),
-         parity_launches["alibi"], "phase 23's kernel cases (no served "
-         "model takes ALiBi yet)"),
+         parity_launches["alibi"], "phase 23's kernel cases (BLOOM's "
+         "served ALiBi rows are phase 28's)"),
     ]
     trng = np.random.default_rng(230)
     timing = {}
@@ -5466,12 +5500,550 @@ def phase_spec_decoding(torch):
     return out, rows
 
 
+# ---------------------------------------------------------------- families
+
+# phase 28 (a): the published config.json of EleutherAI/gpt-j-6b uncut (28
+# layers, n_embd 4096, 16 heads of 256, rotary_dim 64, vocab 50400, an
+# untied lm_head with a bias), its tensors in bf16
+GPTJ_6B = {"architectures": ["GPTJForCausalLM"], "model_type": "gptj",
+           "vocab_size": 50400, "n_positions": 2048, "n_embd": 4096,
+           "n_layer": 28, "n_head": 16, "rotary_dim": 64, "n_inner": None,
+           "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5,
+           "rotary": True, "tie_word_embeddings": False,
+           "bos_token_id": 50256, "eos_token_id": 50256,
+           "torch_dtype": "bfloat16"}
+GPTJ_SEQS, GPTJ_PROMPT, GPTJ_GEN = 16, 256, 32
+# phase 28 (b): the other families at their published widths, each cut
+# to FAMILY_LAYERS layers (bigscience/bloom-7b1, EleutherAI/gpt-neox-20b,
+# facebook/opt-6.7b, microsoft/phi-2 config.json; tiiuae/falcon-7b's
+# served from seeded parameters: no HF name map)
+FAMILY_LAYERS = 4
+FAMILY_SEQS, FAMILY_PROMPT, FAMILY_GEN = 8, 256, 16
+BLOOM_7B1 = {"architectures": ["BloomForCausalLM"], "model_type": "bloom",
+             "vocab_size": 250880, "hidden_size": 4096, "n_layer": 30,
+             "n_head": 32, "layer_norm_epsilon": 1e-5,
+             "apply_residual_connection_post_layernorm": False,
+             "bos_token_id": 1, "eos_token_id": 2, "pad_token_id": 3,
+             "torch_dtype": "bfloat16"}
+NEOX_20B = {"architectures": ["GPTNeoXForCausalLM"],
+            "model_type": "gpt_neox", "vocab_size": 50432,
+            "hidden_size": 6144, "intermediate_size": 24576,
+            "num_hidden_layers": 44, "num_attention_heads": 64,
+            "max_position_embeddings": 2048, "rotary_pct": 0.25,
+            "rotary_emb_base": 10000, "layer_norm_eps": 1e-5,
+            "use_parallel_residual": True, "tie_word_embeddings": False,
+            "hidden_act": "gelu_fast", "bos_token_id": 0, "eos_token_id": 0,
+            "torch_dtype": "bfloat16"}
+OPT_6P7B = {"architectures": ["OPTForCausalLM"], "model_type": "opt",
+            "vocab_size": 50272, "hidden_size": 4096, "ffn_dim": 16384,
+            "num_hidden_layers": 32, "num_attention_heads": 32,
+            "max_position_embeddings": 2048, "do_layer_norm_before": True,
+            "word_embed_proj_dim": 4096, "activation_function": "relu",
+            "bos_token_id": 2, "eos_token_id": 2, "pad_token_id": 1,
+            "torch_dtype": "bfloat16"}
+PHI_2 = {"architectures": ["PhiForCausalLM"], "model_type": "phi",
+         "vocab_size": 51200, "hidden_size": 2560,
+         "intermediate_size": 10240, "num_hidden_layers": 32,
+         "num_attention_heads": 32, "num_key_value_heads": 32,
+         "max_position_embeddings": 2048, "partial_rotary_factor": 0.4,
+         "rope_theta": 10000.0, "layer_norm_eps": 1e-5,
+         "hidden_act": "gelu_new", "qk_layernorm": False,
+         "tie_word_embeddings": False, "bos_token_id": 50256,
+         "eos_token_id": 50256, "torch_dtype": "bfloat16"}
+FALCON_7B = {"architectures": ["FalconForCausalLM"], "model_type": "falcon",
+             "vocab_size": 65024, "hidden_size": 4544,
+             "num_hidden_layers": 32, "num_attention_heads": 71,
+             "multi_query": True, "parallel_attn": True, "alibi": False,
+             "new_decoder_architecture": False, "bias": False,
+             "bos_token_id": 11, "eos_token_id": 11,
+             "torch_dtype": "bfloat16"}
+#: K1's route each family's bf16 prefill (256 queries, block 64) takes
+FAMILY_ROUTE = {"gptj": "prefill_mma", "bloom": "prefill_wgmma_tma",
+                "gpt_neox": "prefill_mma", "opt": "prefill_wgmma_tma",
+                "phi": "prefill_mma", "falcon": "prefill_wgmma_tma"}
+# the families' K1 / K2 rows hold bf16 within PAGED7_BF16_MAX_ABS; with
+# ALiBi within twice BLOOM's first K1 reading (1.5625e-2, one ulp at
+# outputs of 2-4): the nearest keys' weight puts an output at one V row's
+# size, up to ~5, where a bf16 ulp is 3.125e-2; 2**-8 of the norm as all
+FAMILY_ALIBI_BF16_MAX_ABS = 3.2e-2
+# each family's suffix in its K1 / K2 ``kernels`` rows
+FAMILY_TAG = {"bloom": "bloom_7b1_alibi", "gpt_neox": "gpt_neox_20b_d96",
+              "opt": "opt_6p7b", "phi": "phi_2_d80", "falcon": "falcon_7b_g71"}
+
+
+def _lin(name, dout, din, path, bias=True):
+    """A torch Linear's weight ([out, in], transposed in the tree) and
+    its bias as spec rows (path None: a fused tensor the loader splits)."""
+    rows = [(f"{name}.weight", (dout, din), "linear",
+             path and f"{path}/kernel", True)]
+    if bias:
+        rows.append((f"{name}.bias", (dout,), "bias",
+                     path and f"{path}/bias", False))
+    return rows
+
+
+def _ln(name, M, path):
+    return [(f"{name}.weight", (M,), "norm", f"{path}/scale", False),
+            (f"{name}.bias", (M,), "bias", f"{path}/bias", False)]
+
+
+def _gptj_specs(hf):
+    M, V, L = hf["n_embd"], hf["vocab_size"], hf["n_layer"]
+    I = hf["n_inner"] or 4 * M
+    specs = [("transformer.wte.weight", (V, M), "embed", "wte/embedding",
+              False)]
+    for i in range(L):
+        h, t = f"transformer.h.{i}", f"layer_{i}"
+        specs += _ln(f"{h}.ln_1", M, f"{t}/ln_1")
+        for x in ("q", "k", "v", "out"):
+            specs += _lin(f"{h}.attn.{x}_proj", M, M, f"{t}/{x}_proj",
+                          bias=False)
+        specs += _lin(f"{h}.mlp.fc_in", I, M, f"{t}/fc_in")
+        specs += _lin(f"{h}.mlp.fc_out", M, I, f"{t}/fc_out")
+    specs += _ln("transformer.ln_f", M, "ln_f")
+    specs += _lin("lm_head", V, M, "lm_head")
+    return specs
+
+
+def _bloom_specs(hf):
+    M, V = hf["hidden_size"], hf["vocab_size"]
+    specs = [("transformer.word_embeddings.weight", (V, M), "embed",
+              "word_embeddings/embedding", False)]
+    specs += _ln("transformer.word_embeddings_layernorm", M,
+                 "word_embeddings_layernorm")
+    for i in range(hf["n_layer"]):
+        h, t = f"transformer.h.{i}", f"layer_{i}"
+        specs += _ln(f"{h}.input_layernorm", M, f"{t}/input_layernorm")
+        specs += _lin(f"{h}.self_attention.query_key_value", 3 * M, M, None)
+        specs += _lin(f"{h}.self_attention.dense", M, M,
+                      f"{t}/self_attention/dense")
+        specs += _ln(f"{h}.post_attention_layernorm", M,
+                     f"{t}/post_attention_layernorm")
+        specs += _lin(f"{h}.mlp.dense_h_to_4h", 4 * M, M,
+                      f"{t}/dense_h_to_4h")
+        specs += _lin(f"{h}.mlp.dense_4h_to_h", M, 4 * M,
+                      f"{t}/dense_4h_to_h")
+    return specs + _ln("transformer.ln_f", M, "ln_f")
+
+
+def _neox_specs(hf):
+    M, V, I = hf["hidden_size"], hf["vocab_size"], hf["intermediate_size"]
+    specs = [("gpt_neox.embed_in.weight", (V, M), "embed",
+              "embed_in/embedding", False)]
+    for i in range(hf["num_hidden_layers"]):
+        h, t = f"gpt_neox.layers.{i}", f"layer_{i}"
+        specs += _ln(f"{h}.input_layernorm", M, f"{t}/input_layernorm")
+        specs += _ln(f"{h}.post_attention_layernorm", M,
+                     f"{t}/post_attention_layernorm")
+        specs += _lin(f"{h}.attention.query_key_value", 3 * M, M, None)
+        specs += _lin(f"{h}.attention.dense", M, M, f"{t}/dense")
+        specs += _lin(f"{h}.mlp.dense_h_to_4h", I, M, f"{t}/dense_h_to_4h")
+        specs += _lin(f"{h}.mlp.dense_4h_to_h", M, I, f"{t}/dense_4h_to_h")
+    specs += _ln("gpt_neox.final_layer_norm", M, "final_layer_norm")
+    return specs + _lin("embed_out", V, M, "embed_out", bias=False)
+
+
+def _opt_specs(hf):
+    M, V, F = hf["hidden_size"], hf["vocab_size"], hf["ffn_dim"]
+    P = hf["max_position_embeddings"] + 2
+    d = "model.decoder"
+    specs = [(f"{d}.embed_tokens.weight", (V, M), "embed",
+              "embed_tokens/embedding", False),
+             (f"{d}.embed_positions.weight", (P, M), "gpt2_embed",
+              "embed_positions/embedding", False)]
+    for i in range(hf["num_hidden_layers"]):
+        h, t = f"{d}.layers.{i}", f"layer_{i}"
+        for x in ("q", "k", "v", "out"):
+            specs += _lin(f"{h}.self_attn.{x}_proj", M, M,
+                          f"{t}/self_attn/{x}_proj")
+        specs += _ln(f"{h}.self_attn_layer_norm", M,
+                     f"{t}/self_attn_layer_norm")
+        specs += _lin(f"{h}.fc1", F, M, f"{t}/fc1")
+        specs += _lin(f"{h}.fc2", M, F, f"{t}/fc2")
+        specs += _ln(f"{h}.final_layer_norm", M, f"{t}/final_layer_norm")
+    return specs + _ln(f"{d}.final_layer_norm", M, "final_layer_norm")
+
+
+def _phi_specs(hf):
+    M, V, I = hf["hidden_size"], hf["vocab_size"], hf["intermediate_size"]
+    specs = [("model.embed_tokens.weight", (V, M), "embed",
+              "embed_tokens/embedding", False)]
+    for i in range(hf["num_hidden_layers"]):
+        h, t = f"model.layers.{i}", f"layer_{i}"
+        specs += _ln(f"{h}.input_layernorm", M, f"{t}/input_layernorm")
+        for x in ("q", "k", "v"):
+            specs += _lin(f"{h}.self_attn.{x}_proj", M, M,
+                          f"{t}/self_attn/{x}_proj")
+        specs += _lin(f"{h}.self_attn.dense", M, M, f"{t}/self_attn/dense")
+        specs += _lin(f"{h}.mlp.fc1", I, M, f"{t}/fc1")
+        specs += _lin(f"{h}.mlp.fc2", M, I, f"{t}/fc2")
+    specs += _ln("model.final_layernorm", M, "final_layernorm")
+    return specs + _lin("lm_head", V, M, "lm_head")
+
+
+def paged_rows(torch):
+    """``--paged-rows``: K1 and K2 timed (against their plain versions
+    too) at PAGED_ROWS's shapes. Returns name -> reading."""
+    import numpy as np
+    from deepspeed_tpu_torch.ops.kernels import _build
+    t0 = time.perf_counter()
+    _build.build(["paged_attention"])
+    log(f"[build] paged_attention {time.perf_counter() - t0:.1f} s")
+    lin = dict(block_size=WOQ_PROMPT + WOQ_GEN, maxb=1)
+    dec7 = dict(S=WOQ_SEQS, C=1, ctx=WOQ_PROMPT + WOQ_GEN // 2,
+                heads=(H7, KV7, D7), **lin)
+    pre7 = dict(S=WOQ_SEQS, C=WOQ_CHUNK, ctx=WOQ_PROMPT,
+                heads=(H7, KV7, D7), **lin)
+    fam = dict(S=FAMILY_SEQS, C=FAMILY_PROMPT, ctx=FAMILY_PROMPT,
+               block_size=64, maxb=-(-(FAMILY_PROMPT + FAMILY_GEN) // 64))
+    rows = (("paged_prefill_int8", "paged_prefill", dict(pre7, quant=True)),
+            ("paged_decode_int8", "paged_decode", dict(dec7, quant=True)),
+            ("paged_decode_ring", "paged_decode", dict(dec7, quant=True,
+                                                       ring=16)),
+            ("paged_decode_bf16_7b", "paged_decode", dec7),
+            ("paged_prefill", "paged_prefill",
+             dict(S=16, C=256, ctx=512, block_size=64, maxb=8,
+                  heads=(H, KV, D))),
+            ("paged_decode", "paged_decode",
+             dict(S=16, C=1, ctx=544, block_size=64, maxb=9,
+                  heads=(H, KV, D))),
+            ("paged_prefill_int8_qwen2", "paged_prefill",
+             dict(S=8, C=256, ctx=1256, block_size=64, maxb=20,
+                  heads=(28, 4, 128), quant=True)),
+            ("paged_prefill_phi_2_d80", "paged_prefill",
+             dict(fam, heads=(32, 32, 80))),
+            ("paged_prefill_gpt_neox_20b_d96", "paged_prefill",
+             dict(fam, heads=(64, 64, 96))))
+    rng = np.random.default_rng(17)
+    out = {}
+    for name, fn, kw in rows:
+        t = time_paged(torch, rng, fn, bf16_max_abs=PAGED7_BF16_MAX_ABS,
+                       **kw)
+        out[name] = {k: t[k] for k in ("ms", "graph_ms", "plain_ms",
+                                       "library_ms", "bound_ms",
+                                       "max_abs_err", "shape")}
+        out[name]["route"] = t.get("kernel_route", "decode_split")
+        torch.cuda.empty_cache()
+    return out
+
+
+def _family_gen(torch, pa, eng, prompts, gen, L, route, alibi=False,
+                sampling=None, seed=28):
+    """One ``generate`` of ``prompts`` with the launch counts zeroed just
+    before and read just after: each kernel launched L times a step of
+    its kind, K1 on ``route``, ALiBi on every launch or none. Returns
+    (streams, record)."""
+    e = eng
+    e.timing.update({k: 0 if isinstance(v, int) else 0.0
+                     for k, v in e.timing.items()})
+    e.runner.step_counts = {"prefill": 0, "decode": 0}
+    pa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = e.generate(prompts, max_new_tokens=gen, sampling=sampling,
+                         seed=seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = dict(e.runner.step_counts)
+    launches = {**pa.LAUNCHES, **pa.ROUTE_LAUNCHES}
+    f32 = e.runner.compute_dtype == torch.float32
+    want = {"paged_prefill": L * steps["prefill"],
+            ("prefill_f32" if f32 else route): L * steps["prefill"],
+            "paged_decode": L * steps["decode"],
+            ("decode_f32" if f32 else "decode_split"): L * steps["decode"],
+            "alibi": L * (steps["prefill"] + steps["decode"]) * alibi}
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if bad or not (steps["prefill"] and steps["decode"]):
+        raise AssertionError(f"[family] launches {bad}, steps {steps}")
+    if any(len(o) != gen for o in streams) or \
+            e.free_blocks != e.config.num_blocks:
+        raise AssertionError("[family] stream lengths or blocks")
+    tm = e.timing
+    return streams, {
+        "steps": steps, "launches": {k: launches[k] for k in want},
+        "prefill_s": tm["prefill_s"], "decode_s": tm["decode_s"],
+        "decode_tokens": tm["decode_tokens"],
+        "decode_tok_s": tm["decode_tokens"] / tm["decode_s"],
+        "wall_s": wall}
+
+
+def _family_cfg(seqs, prompt, gen, **kw):
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceConfig
+    maxb = -(-(prompt + gen) // 64)
+    base = dict(max_seqs=seqs, chunk_size=256, block_size=64,
+                num_blocks=seqs * maxb + 8, max_blocks_per_seq=maxb,
+                dtype="bfloat16", attention_impl="paged_flash",
+                decode_loop_steps=0, serve_pipeline_depth=0)
+    base.update(kw)
+    return RaggedInferenceConfig(**base)
+
+
+def _gptj_whole(torch, pa, out):
+    """Phase 28 (a): GPT-J-6B uncut through build_hf_engine, depth 0,
+    depth 2 and the decode loop, greedy and sampled."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from deepspeed_tpu_torch.inference.quantization import woq_memory_bytes
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  SamplingParams,
+                                                  build_hf_engine)
+    from deepspeed_tpu_torch.inference.v2.bloom_gptj_neox_runner import \
+        GPTJRaggedRunner
+    hf, L = GPTJ_6B, GPTJ_6B["n_layer"]
+    specs = _gptj_specs(hf)
+    rec = out["gptj_6b"] = {"model": "EleutherAI/gpt-j-6b"}
+    tmp = Path(tempfile.mkdtemp(prefix="gptj6b_"))
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases left allocated; the peak is read against it
+    rec["start_bytes"] = torch.cuda.memory_allocated()
+    try:
+        t0 = time.perf_counter()
+        nbytes, nshards = write_hf_checkpoint(torch, tmp, hf, seed=28,
+                                              specs=specs)
+        rec["write_s"] = time.perf_counter() - t0
+        rec["checkpoint_bytes"], rec["shards"] = nbytes, nshards
+
+        def rcfg(**kw):
+            return _family_cfg(GPTJ_SEQS, GPTJ_PROMPT, GPTJ_GEN, **kw)
+
+        t0 = time.perf_counter()
+        eng0 = build_hf_engine(str(tmp), engine_config=rcfg(),
+                               dtype="bfloat16")
+        torch.cuda.synchronize()
+        rec["load_s"] = time.perf_counter() - t0
+        rec["param_bytes"] = woq_memory_bytes(eng0.params)
+        rec["leaves_bit_identical"] = _check_written(
+            torch, eng0.params, hf, seed=28, specs=specs)
+        cfg, params = eng0.model_cfg, eng0.params
+        heads = (hf["n_head"], hf["n_head"], hf["n_embd"] // hf["n_head"])
+        if not isinstance(eng0.runner, GPTJRaggedRunner) or \
+                (eng0.runner.kv_heads, eng0.runner.head_dim) != heads[1:]:
+            raise AssertionError(f"[gptj] runner {eng0.runner}")
+        log(f"[gptj] {rec['model']}: wrote {nbytes / 1e9:.3f} GB in "
+            f"{nshards} shards in {rec['write_s']:.1f} s; build_hf_engine "
+            f"{rec['load_s']:.1f} s, parameters "
+            f"{rec['param_bytes'] / 1e9:.3f} GB, "
+            f"{rec['leaves_bit_identical']} leaves bit-identical")
+        engs = {"depth0": eng0,
+                "depth2": InferenceEngineV2(cfg, params, rcfg(
+                    serve_pipeline_depth=2), device="cuda"),
+                "loop": InferenceEngineV2(cfg, params, rcfg(
+                    serve_pipeline_depth=2, decode_loop_steps=16),
+                    device="cuda")}
+        rng = np.random.default_rng(28)
+        prompts = rng.integers(0, cfg.vocab_size,
+                               (GPTJ_SEQS, GPTJ_PROMPT)).tolist()
+        for e in engs.values():              # warm-up
+            e.generate([prompts[0][:80]], max_new_tokens=20)
+        sp = SamplingParams(**HF_SAMPLING)
+        runs, gens = {}, {}
+        for mode in ("greedy", "sampled"):
+            for name, e in engs.items():
+                gens[mode, name], r = _family_gen(
+                    torch, pa, e, prompts, GPTJ_GEN, L, "prefill_mma",
+                    sampling=sp if mode == "sampled" else None)
+                runs[f"{mode}_{name}"] = r
+                log(f"[gptj] {mode} {name}: prefill {r['prefill_s']:.4f} "
+                    f"s, decode {r['decode_tokens']} tokens in "
+                    f"{r['decode_s']:.4f} s = {r['decode_tok_s']:.1f} "
+                    f"tok/s; steps {r['steps']}; launches {r['launches']}")
+            if not gens[mode, "depth0"] == gens[mode, "depth2"] \
+                    == gens[mode, "loop"]:
+                raise AssertionError(f"[gptj] {mode} streams differ "
+                                     f"between depth 0, depth 2, the loop")
+        if gens["greedy", "depth0"] == gens["sampled", "depth0"]:
+            raise AssertionError("[gptj] sampling gave the greedy streams")
+        rec["runs"] = runs
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"[gptj] greedy and sampled streams identical at depths 0 and "
+            f"2 and through the loop; peak memory "
+            f"{rec['peak_bytes'] / 2**30:.2f} GiB, "
+            f"{(rec['peak_bytes'] - rec['start_bytes']) / 2**30:.2f} GiB "
+            f"over the {rec['start_bytes'] / 2**30:.2f} GiB allocated at "
+            f"the phase's start")
+        del engs, e, eng0, params
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # K1 on the 16 x 256 prefill step, K2 mid-decode, at 16 heads of 256
+    trng = np.random.default_rng(280)
+    maxb = -(-(GPTJ_PROMPT + GPTJ_GEN) // 64)
+    main = runs["greedy_depth2"]
+    rows = []
+    for name, C, ctx in (("paged_prefill", 256, GPTJ_PROMPT),
+                         ("paged_decode", 1, GPTJ_PROMPT + GPTJ_GEN // 2)):
+        t = time_paged(torch, trng, name, S=GPTJ_SEQS, C=C, ctx=ctx,
+                       block_size=64, maxb=maxb, heads=heads,
+                       bf16_max_abs=PAGED7_BF16_MAX_ABS)
+        rows.append({"name": f"{name}_gptj_6b_d256", "route": "cuda",
+                     "source": SOURCE, "replaces": REPLACES[name],
+                     "launches": main["launches"][name],
+                     "launches_from": "phase 28, EleutherAI/gpt-j-6b "
+                                      "greedy at depth 2", **t})
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _family_one(torch, pa, qz, fam, hf, specs, tmp):
+    """Phase 28 (b), one family at FAMILY_LAYERS layers: the fp32 kernel
+    path's greedy streams against the dense path's (exactly), bf16 at
+    depths 0 and 2 (identical), BLOOM also under wf8; then K1 and K2 at
+    the family's heads and step shapes against their plain versions.
+    Returns (record, kernels rows)."""
+    import dataclasses
+
+    import numpy as np
+    from deepspeed_tpu_torch.checkpoint import init_family_params
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  build_hf_engine)
+    from deepspeed_tpu_torch.models.registry import config_from_hf
+    L = FAMILY_LAYERS
+    alibi = fam == "bloom"
+    rec = {"layers": L}
+
+    def rcfg(**kw):
+        return _family_cfg(FAMILY_SEQS, FAMILY_PROMPT, FAMILY_GEN, **kw)
+
+    t0 = time.perf_counter()
+    if specs is None:                      # Falcon: seeded parameters
+        _, cfg = config_from_hf(hf)
+        params = init_family_params(cfg, seed=28, device="cuda",
+                                    dtype=torch.bfloat16)
+        eng0 = InferenceEngineV2(cfg, params, rcfg(), device="cuda")
+    else:
+        nbytes, _ = write_hf_checkpoint(torch, tmp, hf, seed=28,
+                                        specs=specs)
+        rec["checkpoint_bytes"] = nbytes
+        eng0 = build_hf_engine(str(tmp), engine_config=rcfg(),
+                               dtype="bfloat16")
+        cfg, params = eng0.model_cfg, eng0.params
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    rec["heads"] = [cfg.num_heads, eng0.runner.kv_heads,
+                    eng0.runner.head_dim]
+    rng = np.random.default_rng(281)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (FAMILY_SEQS, FAMILY_PROMPT)).tolist()
+    route = FAMILY_ROUTE[fam]
+    # fp32 with TF32 off: the kernels' streams are the dense path's
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        c32 = dataclasses.replace(cfg, dtype=torch.float32)
+        got = {}
+        for impl in ("paged_flash", "dense"):
+            e = InferenceEngineV2(c32, params, rcfg(
+                dtype="float32", attention_impl=impl), device="cuda")
+            if impl == "dense":
+                got[impl] = e.generate(prompts, max_new_tokens=FAMILY_GEN)
+            else:
+                got[impl], rec["fp32_kernels"] = _family_gen(
+                    torch, pa, e, prompts, FAMILY_GEN, L, route, alibi)
+            del e
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if got["paged_flash"] != got["dense"]:
+        raise AssertionError(f"[family] {fam}: fp32 kernel streams differ "
+                             f"from the dense path's")
+    runs, gens = {}, {}
+    for name, e in (("depth0", eng0),
+                    ("depth2", InferenceEngineV2(cfg, params, rcfg(
+                        serve_pipeline_depth=2), device="cuda"))):
+        e.generate([prompts[0][:80]], max_new_tokens=4)       # warm-up
+        gens[name], runs[name] = _family_gen(torch, pa, e, prompts,
+                                             FAMILY_GEN, L, route, alibi)
+    if gens["depth0"] != gens["depth2"]:
+        raise AssertionError(f"[family] {fam}: bf16 streams differ "
+                             f"between depth 0 and depth 2")
+    rec["bf16"] = runs
+    rec["routes"] = {k: v for k, v in runs["depth2"]["launches"].items()}
+    log(f"[family] {fam} ({L} layers, heads {rec['heads']}): setup "
+        f"{rec['setup_s']:.1f} s; fp32 "
+        f"kernel streams == dense; bf16 depths 0 and 2 identical; prefill "
+        f"{runs['depth2']['prefill_s']:.4f} s, decode "
+        f"{runs['depth2']['decode_tok_s']:.1f} tok/s; launches "
+        f"{runs['depth2']['launches']}")
+    del e, eng0, params
+    torch.cuda.empty_cache()
+    if fam == "bloom":
+        qz.reset_launch_counts()
+        engq = build_hf_engine(str(tmp), engine_config=rcfg(),
+                               dtype="bfloat16", quantization_mode="wf8")
+        torch.cuda.synchronize()
+        qlaunch = qz.LAUNCHES["quantize_sym"]
+        if qlaunch != 3 * L or qz.LAUNCHES["quantize_asym"]:
+            raise AssertionError(f"[family] bloom wf8 launches {qz.LAUNCHES}")
+        gq, rq = _family_gen(torch, pa, engq, prompts, 4, L, route, alibi)
+        rec["wf8"] = {"quantize_launches": qlaunch, **rq,
+                      "first_token_agreement_with_bf16": float(np.mean(
+                          [a[0] == b[0] for a, b in
+                           zip(gq, gens["depth0"])]))}
+        log(f"[family] bloom wf8: {qlaunch} quantize_sym launches (q/k/v "
+            f"of {L} layers); first tokens agree with bf16 on "
+            f"{rec['wf8']['first_token_agreement_with_bf16']:.3f}")
+        del engq
+        torch.cuda.empty_cache()
+    # K1 on the 8 x 256 prefill step, K2 mid-decode, at this family's
+    # heads (Falcon's group of 71, NeoX's D 96, Phi's D 80, BLOOM's ALiBi)
+    trng = np.random.default_rng(282)
+    maxb = -(-(FAMILY_PROMPT + FAMILY_GEN) // 64)
+    rows = []
+    for name, C, ctx in (("paged_prefill", FAMILY_PROMPT, FAMILY_PROMPT),
+                         ("paged_decode", 1,
+                          FAMILY_PROMPT + FAMILY_GEN // 2)):
+        t = time_paged(torch, trng, name, S=FAMILY_SEQS, C=C, ctx=ctx,
+                       block_size=64, maxb=maxb, heads=tuple(rec["heads"]),
+                       bf16_max_abs=(FAMILY_ALIBI_BF16_MAX_ABS if alibi
+                                     else PAGED7_BF16_MAX_ABS), alibi=alibi)
+        rows.append({"name": f"{name}_{FAMILY_TAG[fam]}", "route": "cuda",
+                     "source": SOURCE, "replaces": REPLACES[name],
+                     "launches": runs["depth2"]["launches"][name],
+                     "launches_from": f"phase 28, {fam} ({L} layers) bf16 "
+                                      f"greedy at depth 2", **t})
+        torch.cuda.empty_cache()
+    return rec, rows
+
+
+def phase_family_serving(torch):
+    """Phase 28: the dense families of A5.4 on the card (module
+    docstring). Returns (out, rows)."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    from deepspeed_tpu_torch.ops.kernels import quantization as qz
+    out = {"reduced": {"families": f"depth cut to {FAMILY_LAYERS} layers "
+                                   f"(published widths kept)",
+                       "gptj_6b": "none"}}
+    rows = _gptj_whole(torch, pa, out)
+    for fam, hf, specs_fn in (("bloom", BLOOM_7B1, _bloom_specs),
+                              ("gpt_neox", NEOX_20B, _neox_specs),
+                              ("opt", OPT_6P7B, _opt_specs),
+                              ("phi", PHI_2, _phi_specs),
+                              ("falcon", FALCON_7B, None)):
+        key = "n_layer" if "n_layer" in hf else "num_hidden_layers"
+        cut = {**hf, key: FAMILY_LAYERS}
+        tmp = Path(tempfile.mkdtemp(prefix=f"{fam}_"))
+        try:
+            out[fam], fam_rows = _family_one(
+                torch, pa, qz, fam, cut, specs_fn(cut) if specs_fn else None,
+                tmp)
+            rows += fam_rows
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return out, rows
+
+
 def main(argv) -> int:
     unknown = [a for a in argv
-               if a not in ("--trace", "--fp6-sweep", "--norm-sweep")]
+               if a not in ("--trace", "--fp6-sweep", "--norm-sweep",
+                            "--paged-rows")]
     if unknown:
         print(f"chip_smoke: unknown arguments {unknown} (only --trace, "
-              f"--fp6-sweep, --norm-sweep)", file=sys.stderr)
+              f"--fp6-sweep, --norm-sweep, --paged-rows)", file=sys.stderr)
         return 2
     try:
         import torch
@@ -5496,6 +6068,10 @@ def main(argv) -> int:
     if "--fp6-sweep" in argv:
         phase_build()
         print(json.dumps({"fp6_sweep": fp6_plan_sweep(torch), "card": card}),
+              flush=True)
+        return 0
+    if "--paged-rows" in argv:
+        print(json.dumps({"paged_rows": paged_rows(torch), "card": card}),
               flush=True)
         return 0
     if "--norm-sweep" in argv:
@@ -5552,6 +6128,8 @@ def main(argv) -> int:
     rows += gpt2_rows
     spec, spec_rows = run(phase_spec_decoding, torch)
     rows += spec_rows
+    families, family_rows = run(phase_family_serving, torch)
+    rows += family_rows
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     result = {"kernels": rows, "card": card, "phase_s": phase_s,
               "serving": {k: serving[k] for k in
@@ -5568,7 +6146,8 @@ def main(argv) -> int:
               "woq_engine_parity": woq_parity, "c1": c1,
               "kv_pool": {k: v for k, v in kv_pool.items() if k != "timing"},
               "hf_serving": hf, "prefix_serving": prefix,
-              "gpt2_serving": gpt2, "spec_decoding": spec}
+              "gpt2_serving": gpt2, "spec_decoding": spec,
+              "family_serving": families}
     if trace is not None:
         result["trace"] = trace
         result["train_trace"] = train["trace"]

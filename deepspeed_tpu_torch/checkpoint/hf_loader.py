@@ -1,6 +1,6 @@
 """HuggingFace checkpoint loading: shards -> the port's parameter tree
-(port of ``deepspeed_tpu/checkpoint/hf_loader.py``, the Llama family and
-GPT-2).
+(port of ``deepspeed_tpu/checkpoint/hf_loader.py``: the Llama family,
+GPT-2, OPT, BLOOM, GPT-NeoX, GPT-J and Phi).
 
 - A safetensors reader with no dependency: the format is an 8-byte
   little-endian header length, a JSON header, then the raw little-endian
@@ -11,9 +11,12 @@ GPT-2).
 - The HF -> tree name map of the Llama family (llama, mistral, qwen,
   qwen2, phi3), with the ``[out, in]`` -> ``[in, out]`` transpose of the
   linear weights and the splits of phi3's fused ``qkv_proj`` /
-  ``gate_up_proj`` and qwen v1's fused ``c_attn``; and GPT-2's, whose
+  ``gate_up_proj`` and qwen v1's fused ``c_attn``; GPT-2's, whose
   ``Conv1D`` weights are already ``[in, out]`` and whose tied
-  ``lm_head.weight`` is dropped.
+  ``lm_head.weight`` is dropped; and the maps of OPT, Phi, BLOOM,
+  GPT-NeoX and GPT-J, with BLOOM's and NeoX's fused ``query_key_value``
+  split head by head (its rows are ordered (head, [q k v], D)). Falcon
+  has no map, as in the JAX loader.
 
 The tree has the paths of ``checkpoint/jax_params.py``
 (``embed/embedding``, ``layer_i/attn/q_proj/kernel``, ...; GPT-2's
@@ -39,9 +42,8 @@ from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
 
-from ..models.gpt2 import GPT2Config
 from ..utils.device import resolve_device
-from .jax_params import gpt2_param_shapes, llama_param_shapes
+from .jax_params import param_shapes
 
 logger = logging.getLogger(__name__)
 
@@ -145,6 +147,116 @@ _GPT2_MAP = [
      "h_{0}/mlp/c_proj/{w:kernel,b:bias}", "conv1d"),
 ]
 
+_OPT_MAP = [
+    # .bin checkpoints carry lm_head.weight even when tied; the converter
+    # drops it for tie_embeddings configs
+    (r"lm_head\.weight", "lm_head/kernel", "linear"),
+    (r"(?:model\.)?decoder\.embed_tokens\.weight", "embed_tokens/embedding",
+     "embed"),
+    (r"(?:model\.)?decoder\.embed_positions\.weight",
+     "embed_positions/embedding", "embed"),
+    (r"(?:model\.)?decoder\.final_layer_norm\.(weight|bias)",
+     "final_layer_norm/{w:scale,b:bias}", "vector"),
+    (r"(?:model\.)?decoder\.project_in\.weight", "project_in/kernel",
+     "linear"),
+    (r"(?:model\.)?decoder\.project_out\.weight", "project_out/kernel",
+     "linear"),
+    (r"(?:model\.)?decoder\.layers\.(\d+)\.self_attn\.(q|k|v|out)_proj\.weight",
+     "layer_{0}/self_attn/{1}_proj/kernel", "linear"),
+    (r"(?:model\.)?decoder\.layers\.(\d+)\.self_attn\.(q|k|v|out)_proj\.bias",
+     "layer_{0}/self_attn/{1}_proj/bias", "vector"),
+    (r"(?:model\.)?decoder\.layers\.(\d+)\.self_attn_layer_norm\.(weight|bias)",
+     "layer_{0}/self_attn_layer_norm/{w:scale,b:bias}", "vector"),
+    (r"(?:model\.)?decoder\.layers\.(\d+)\.final_layer_norm\.(weight|bias)",
+     "layer_{0}/final_layer_norm/{w:scale,b:bias}", "vector"),
+    (r"(?:model\.)?decoder\.layers\.(\d+)\.fc(1|2)\.weight",
+     "layer_{0}/fc{1}/kernel", "linear"),
+    (r"(?:model\.)?decoder\.layers\.(\d+)\.fc(1|2)\.bias",
+     "layer_{0}/fc{1}/bias", "vector"),
+]
+
+_PHI_MAP = [
+    (r"model\.embed_tokens\.weight", "embed_tokens/embedding", "embed"),
+    (r"model\.final_layernorm\.(weight|bias)",
+     "final_layernorm/{w:scale,b:bias}", "vector"),
+    (r"lm_head\.weight", "lm_head/kernel", "linear"),
+    (r"lm_head\.bias", "lm_head/bias", "vector"),
+    (r"model\.layers\.(\d+)\.input_layernorm\.(weight|bias)",
+     "layer_{0}/input_layernorm/{w:scale,b:bias}", "vector"),
+    (r"model\.layers\.(\d+)\.self_attn\.(q|k|v)_proj\.weight",
+     "layer_{0}/self_attn/{1}_proj/kernel", "linear"),
+    (r"model\.layers\.(\d+)\.self_attn\.(q|k|v)_proj\.bias",
+     "layer_{0}/self_attn/{1}_proj/bias", "vector"),
+    (r"model\.layers\.(\d+)\.self_attn\.dense\.weight",
+     "layer_{0}/self_attn/dense/kernel", "linear"),
+    (r"model\.layers\.(\d+)\.self_attn\.dense\.bias",
+     "layer_{0}/self_attn/dense/bias", "vector"),
+    (r"model\.layers\.(\d+)\.mlp\.fc(1|2)\.weight",
+     "layer_{0}/fc{1}/kernel", "linear"),
+    (r"model\.layers\.(\d+)\.mlp\.fc(1|2)\.bias",
+     "layer_{0}/fc{1}/bias", "vector"),
+]
+
+_BLOOM_MAP = [
+    (r"lm_head\.weight", "lm_head/kernel", "linear"),   # untied variants
+    (r"(?:transformer\.)?word_embeddings\.weight",
+     "word_embeddings/embedding", "embed"),
+    (r"(?:transformer\.)?word_embeddings_layernorm\.(weight|bias)",
+     "word_embeddings_layernorm/{w:scale,b:bias}", "vector"),
+    (r"(?:transformer\.)?ln_f\.(weight|bias)", "ln_f/{w:scale,b:bias}",
+     "vector"),
+    (r"(?:transformer\.)?h\.(\d+)\.(input|post_attention)_layernorm\.(weight|bias)",
+     "layer_{0}/{1}_layernorm/{w:scale,b:bias}", "vector"),
+    (r"(?:transformer\.)?h\.(\d+)\.self_attention\.(q|k|v)_proj\.weight",
+     "layer_{0}/self_attention/{1}_proj/kernel", "linear"),
+    (r"(?:transformer\.)?h\.(\d+)\.self_attention\.(q|k|v)_proj\.bias",
+     "layer_{0}/self_attention/{1}_proj/bias", "vector"),
+    (r"(?:transformer\.)?h\.(\d+)\.self_attention\.dense\.weight",
+     "layer_{0}/self_attention/dense/kernel", "linear"),
+    (r"(?:transformer\.)?h\.(\d+)\.self_attention\.dense\.bias",
+     "layer_{0}/self_attention/dense/bias", "vector"),
+    (r"(?:transformer\.)?h\.(\d+)\.mlp\.dense_(h_to_4h|4h_to_h)\.weight",
+     "layer_{0}/dense_{1}/kernel", "linear"),
+    (r"(?:transformer\.)?h\.(\d+)\.mlp\.dense_(h_to_4h|4h_to_h)\.bias",
+     "layer_{0}/dense_{1}/bias", "vector"),
+]
+
+_NEOX_MAP = [
+    (r"gpt_neox\.embed_in\.weight", "embed_in/embedding", "embed"),
+    (r"gpt_neox\.final_layer_norm\.(weight|bias)",
+     "final_layer_norm/{w:scale,b:bias}", "vector"),
+    (r"embed_out\.weight", "embed_out/kernel", "linear"),
+    (r"gpt_neox\.layers\.(\d+)\.(input|post_attention)_layernorm\.(weight|bias)",
+     "layer_{0}/{1}_layernorm/{w:scale,b:bias}", "vector"),
+    (r"gpt_neox\.layers\.(\d+)\.attention\.(q|k|v)_proj\.weight",
+     "layer_{0}/{1}_proj/kernel", "linear"),
+    (r"gpt_neox\.layers\.(\d+)\.attention\.(q|k|v)_proj\.bias",
+     "layer_{0}/{1}_proj/bias", "vector"),
+    (r"gpt_neox\.layers\.(\d+)\.attention\.dense\.weight",
+     "layer_{0}/dense/kernel", "linear"),
+    (r"gpt_neox\.layers\.(\d+)\.attention\.dense\.bias",
+     "layer_{0}/dense/bias", "vector"),
+    (r"gpt_neox\.layers\.(\d+)\.mlp\.dense_(h_to_4h|4h_to_h)\.weight",
+     "layer_{0}/dense_{1}/kernel", "linear"),
+    (r"gpt_neox\.layers\.(\d+)\.mlp\.dense_(h_to_4h|4h_to_h)\.bias",
+     "layer_{0}/dense_{1}/bias", "vector"),
+]
+
+_GPTJ_MAP = [
+    (r"transformer\.wte\.weight", "wte/embedding", "embed"),
+    (r"transformer\.ln_f\.(weight|bias)", "ln_f/{w:scale,b:bias}", "vector"),
+    (r"lm_head\.weight", "lm_head/kernel", "linear"),
+    (r"lm_head\.bias", "lm_head/bias", "vector"),
+    (r"transformer\.h\.(\d+)\.ln_1\.(weight|bias)",
+     "layer_{0}/ln_1/{w:scale,b:bias}", "vector"),
+    (r"transformer\.h\.(\d+)\.attn\.(q|k|v|out)_proj\.weight",
+     "layer_{0}/{1}_proj/kernel", "linear"),
+    (r"transformer\.h\.(\d+)\.mlp\.fc_(in|out)\.weight",
+     "layer_{0}/fc_{1}/kernel", "linear"),
+    (r"transformer\.h\.(\d+)\.mlp\.fc_(in|out)\.bias",
+     "layer_{0}/fc_{1}/bias", "vector"),
+]
+
 ARCH_MAPS = {
     "gpt2": _GPT2_MAP,
     "llama": _LLAMA_MAP,
@@ -152,6 +264,11 @@ ARCH_MAPS = {
     "qwen": _LLAMA_MAP,    # v1: fused names split by _split_qwen_fused
     "qwen2": _LLAMA_MAP,
     "phi3": _LLAMA_MAP,    # fused names split by _split_phi3_fused
+    "phi": _PHI_MAP,
+    "opt": _OPT_MAP,
+    "bloom": _BLOOM_MAP,   # fused qkv split by _split_headwise_qkv
+    "gpt_neox": _NEOX_MAP,  # likewise
+    "gptj": _GPTJ_MAP,
 }
 
 
@@ -203,9 +320,29 @@ def _split_qwen_fused(name: str, arr: torch.Tensor, hf_cfg: Dict
     return [(n, arr)]                               # lm_head etc.
 
 
+def _split_headwise_qkv(name: str, arr: torch.Tensor, hf_cfg: Dict
+                        ) -> List[Tuple[str, torch.Tensor]]:
+    """BLOOM's and GPT-NeoX's fused ``query_key_value`` weight or bias,
+    whose rows are ordered (head, [q k v], head_dim), -> the ``q_proj`` /
+    ``k_proj`` / ``v_proj`` names beside it (the reference's containers
+    de-interleave the same way)."""
+    m = re.match(r"(.*\.)query_key_value\.(weight|bias)$", name)
+    if not m:
+        return [(name, arr)]
+    heads = int(hf_cfg.get("n_head", hf_cfg.get("num_attention_heads")))
+    rest = tuple(arr.shape[1:])
+    D = arr.shape[0] // (3 * heads)
+    a = arr.reshape((heads, 3, D) + rest)
+    return [(f"{m.group(1)}{w}_proj.{m.group(2)}",
+             a[:, j].reshape((heads * D,) + rest))
+            for j, w in enumerate("qkv")]
+
+
 SPECIAL_HANDLERS = {
     "phi3": _split_phi3_fused,
     "qwen": _split_qwen_fused,
+    "bloom": _split_headwise_qkv,
+    "gpt_neox": _split_headwise_qkv,
 }
 
 
@@ -284,7 +421,7 @@ def convert_hf_state(arch: str, state: Dict[str, torch.Tensor],
     """Map an HF state dict onto the port's nested tree. ``tied=True``
     drops a serialized ``lm_head.weight`` (tie_word_embeddings models
     unembed through the embedding). ``hf_cfg`` is needed for the archs
-    whose fused tensors are split (phi3, qwen)."""
+    whose fused tensors are split (phi3, qwen, bloom, gpt_neox)."""
     conv = _Converter(arch, resolve_device(device), tied)
     split = SPECIAL_HANDLERS.get(arch)
     for name, arr in state.items():
@@ -306,8 +443,7 @@ def _check_tree(params: Dict[str, Any], cfg) -> None:
             elif tuple(node[k].shape) != tuple(v):
                 raise ValueError(f"{'/'.join(p)}: shape "
                                  f"{tuple(node[k].shape)} != expected {v}")
-    walk(gpt2_param_shapes(cfg) if isinstance(cfg, GPT2Config)
-         else llama_param_shapes(cfg), params, ())
+    walk(param_shapes(cfg), params, ())
 
 
 def load_hf_model(model_dir: str, strict: bool = True, device: Any = None):

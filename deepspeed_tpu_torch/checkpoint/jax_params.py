@@ -1,5 +1,5 @@
-"""Llama and GPT-2 parameter trees: from the JAX package's flax tree, or
-seeded.
+"""Parameter trees of the served families: from the JAX package's flax
+tree, or seeded.
 
 The Llama tree keeps flax's paths and layouts: ``embed/embedding``
 ``[V, M]``, ``layer_i/{input_norm,post_attn_norm}/scale`` ``[M]``,
@@ -18,6 +18,15 @@ Dense kernels stay in flax's ``[in, out]`` layout (the port's ``Dense``
 computes ``x @ kernel``). The LayerNorm scales and biases are fp32 whatever
 ``param_dtype`` is, as flax makes them (its ``nn.LayerNorm`` is built
 without ``param_dtype``); every other leaf takes ``param_dtype``.
+
+The dense families of A5.4 (OPT, BLOOM, GPT-NeoX, GPT-J, Falcon, Phi)
+keep their flax trees too (``*_param_shapes``: the paths each JAX model's
+``init`` makes). One pair of functions serves all six, keyed by the
+config's type: :func:`family_params_from_numpy` and the seeded
+:func:`init_family_params`. Their LayerNorm leaves (every ``scale`` and
+``bias`` of a node named ``ln_*``, ``*layernorm`` or ``*layer_norm``)
+stay fp32 whatever dtype the rest takes: a norm's affine multiplies fp32
+statistics, and a bf16 copy of an fp32 flax leaf would round it.
 """
 
 from __future__ import annotations
@@ -28,8 +37,13 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from ..models.bloom import BloomConfig
+from ..models.falcon import FalconConfig
 from ..models.gpt2 import GPT2Config
+from ..models.gpt_neox import GPTJConfig, GPTNeoXConfig
 from ..models.llama import LlamaConfig
+from ..models.opt import OPTConfig
+from ..models.phi import PhiConfig
 from ..ops.fp_quantizer import FORMATS, FPQuantizedTensor
 from ..ops.kernels.fp6_gemm import Fp6GemmWeight
 from ..ops.kernels.quantization import QuantizedTensor
@@ -71,10 +85,17 @@ def _is_scale(path: Tuple[str, ...]) -> bool:
 
 
 def _is_layer_norm(path: Tuple[str, ...]) -> bool:
-    return len(path) > 1 and path[-2] in ("ln_1", "ln_2", "ln_f")
+    """A leaf of a LayerNorm node (``ln_1``, ``ln_f``, ``ln_attn``,
+    ``input_layernorm``, ``self_attn_layer_norm``, ...)."""
+    if len(path) < 2:
+        return False
+    n = path[-2]
+    return n.startswith("ln_") or n.endswith(("layernorm", "layer_norm"))
 
 
-def _gpt2_dtype(path: Tuple[str, ...], dt: torch.dtype) -> torch.dtype:
+def _ln_fp32_dtype(path: Tuple[str, ...], dt: torch.dtype) -> torch.dtype:
+    """flax's dtypes for a tree of GPT-2 or a dense family: LayerNorm
+    leaves fp32, the rest ``dt``."""
     return torch.float32 if _is_layer_norm(path) else dt
 
 
@@ -258,7 +279,7 @@ def gpt2_params_from_numpy(tree: Mapping[str, Any], cfg: GPT2Config,
     dev = resolve_device(device)
     dt = resolve_dtype(dtype if dtype is not None else cfg.param_dtype)
     return _from_numpy(tree, gpt2_param_shapes(cfg), lambda path: dict(
-        device=dev, dtype=_gpt2_dtype(path, dt)))
+        device=dev, dtype=_ln_fp32_dtype(path, dt)))
 
 
 def init_gpt2_params(cfg: GPT2Config, seed: int = 0, device: Any = None,
@@ -276,9 +297,9 @@ def init_gpt2_params(cfg: GPT2Config, seed: int = 0, device: Any = None,
 
     def make(path, shape):
         if path[-1] == "scale":
-            return torch.ones(shape, dtype=_gpt2_dtype(path, dt), device=dev)
+            return torch.ones(shape, dtype=_ln_fp32_dtype(path, dt), device=dev)
         if path[-1] == "bias":
-            return torch.zeros(shape, dtype=_gpt2_dtype(path, dt),
+            return torch.zeros(shape, dtype=_ln_fp32_dtype(path, dt),
                                device=dev)
         fan_in = shape[1] if path[-1] == "embedding" else shape[0]
         t = torch.randn(shape, generator=gen, dtype=torch.float32,
@@ -286,3 +307,206 @@ def init_gpt2_params(cfg: GPT2Config, seed: int = 0, device: Any = None,
         return (t * (1.0 / math.sqrt(fan_in))).to(dt)
 
     return _map_tree(gpt2_param_shapes(cfg), make)
+
+
+# --------------------------------------------------------------------- #
+# the dense families of A5.4
+# --------------------------------------------------------------------- #
+
+
+def _dense(din: int, dout: int, bias: bool = True) -> Dict[str, Any]:
+    d: Dict[str, Any] = {"kernel": (din, dout)}
+    if bias:
+        d["bias"] = (dout,)
+    return d
+
+
+def _norm(M: int) -> Dict[str, Any]:
+    return {"scale": (M,), "bias": (M,)}
+
+
+def opt_param_shapes(cfg: OPTConfig) -> Dict[str, Any]:
+    """The flax tree of ``OPT(cfg)``: a ``word_embed_proj_dim`` embedding
+    projected in and out (opt-350m), positions offset by 2, the final
+    LayerNorm on pre-LN models only, ``lm_head`` when untied."""
+    M, F, V = cfg.hidden_size, cfg.ffn_dim, cfg.vocab_size
+    E = cfg.word_embed_proj_dim or M
+    tree: Dict[str, Any] = {
+        "embed_tokens": {"embedding": (V, E)},
+        "embed_positions": {"embedding": (cfg.max_seq_len
+                                          + cfg.POSITION_OFFSET, M)}}
+    if E != M:
+        tree["project_in"] = _dense(E, M, bias=False)
+        tree["project_out"] = _dense(M, E, bias=False)
+    for li in range(cfg.num_layers):
+        tree[f"layer_{li}"] = {
+            "self_attn": {f"{n}_proj": _dense(M, M)
+                          for n in ("q", "k", "v", "out")},
+            "self_attn_layer_norm": _norm(M),
+            "fc1": _dense(M, F), "fc2": _dense(F, M),
+            "final_layer_norm": _norm(M)}
+    if cfg.do_layer_norm_before:
+        tree["final_layer_norm"] = _norm(M)
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = _dense(E, V, bias=False)
+    return tree
+
+
+def bloom_param_shapes(cfg: BloomConfig) -> Dict[str, Any]:
+    """The flax tree of ``Bloom(cfg)``."""
+    M, V = cfg.hidden_size, cfg.vocab_size
+    tree: Dict[str, Any] = {"word_embeddings": {"embedding": (V, M)},
+                            "word_embeddings_layernorm": _norm(M)}
+    for li in range(cfg.num_layers):
+        attn = {f"{n}_proj": _dense(M, M) for n in "qkv"}
+        attn["dense"] = _dense(M, M)
+        tree[f"layer_{li}"] = {
+            "input_layernorm": _norm(M), "self_attention": attn,
+            "post_attention_layernorm": _norm(M),
+            "dense_h_to_4h": _dense(M, 4 * M),
+            "dense_4h_to_h": _dense(4 * M, M)}
+    tree["ln_f"] = _norm(M)
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = _dense(M, V, bias=False)
+    return tree
+
+
+def gpt_neox_param_shapes(cfg: GPTNeoXConfig) -> Dict[str, Any]:
+    """The flax tree of ``GPTNeoX(cfg)``: ``embed_out`` when untied."""
+    M, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    HD = cfg.num_heads * cfg.head_dim
+    tree: Dict[str, Any] = {"embed_in": {"embedding": (V, M)}}
+    for li in range(cfg.num_layers):
+        layer = {f"{n}_proj": _dense(M, HD) for n in "qkv"}
+        layer.update({"input_layernorm": _norm(M), "dense": _dense(HD, M),
+                      "post_attention_layernorm": _norm(M),
+                      "dense_h_to_4h": _dense(M, I),
+                      "dense_4h_to_h": _dense(I, M)})
+        tree[f"layer_{li}"] = layer
+    tree["final_layer_norm"] = _norm(M)
+    if not cfg.tie_embeddings:
+        tree["embed_out"] = _dense(M, V, bias=False)
+    return tree
+
+
+def gptj_param_shapes(cfg: GPTJConfig) -> Dict[str, Any]:
+    """The flax tree of ``GPTJ(cfg)``: bias-free q/k/v/out, a biased
+    ``lm_head`` when untied."""
+    M, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    HD = cfg.num_heads * cfg.head_dim
+    tree: Dict[str, Any] = {"wte": {"embedding": (V, M)}}
+    for li in range(cfg.num_layers):
+        layer = {f"{n}_proj": _dense(M, HD, bias=False) for n in "qkv"}
+        layer.update({"ln_1": _norm(M),
+                      "out_proj": _dense(HD, M, bias=False),
+                      "fc_in": _dense(M, I), "fc_out": _dense(I, M)})
+        tree[f"layer_{li}"] = layer
+    tree["ln_f"] = _norm(M)
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = _dense(M, V)
+    return tree
+
+
+def falcon_param_shapes(cfg: FalconConfig) -> Dict[str, Any]:
+    """The flax tree of ``Falcon(cfg)``: bias-free projections, K/V at
+    ``num_kv_heads`` width, ``ln_attn`` / ``ln_mlp`` on the new decoder
+    architecture, ``post_attention_layernorm`` on a serial block."""
+    M, V, D = cfg.hidden_size, cfg.vocab_size, cfg.head_dim
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    tree: Dict[str, Any] = {"word_embeddings": {"embedding": (V, M)}}
+    for li in range(cfg.num_layers):
+        layer: Dict[str, Any] = {
+            "self_attention": {
+                "q_proj": _dense(M, H * D, bias=False),
+                "k_proj": _dense(M, KV * D, bias=False),
+                "v_proj": _dense(M, KV * D, bias=False),
+                "dense": _dense(H * D, M, bias=False)},
+            "mlp": {"dense_h_to_4h": _dense(M, 4 * M, bias=False),
+                    "dense_4h_to_h": _dense(4 * M, M, bias=False)}}
+        if cfg.new_decoder_architecture:
+            layer.update(ln_attn=_norm(M), ln_mlp=_norm(M))
+        else:
+            layer["input_layernorm"] = _norm(M)
+            if not cfg.parallel_attn:
+                layer["post_attention_layernorm"] = _norm(M)
+        tree[f"layer_{li}"] = layer
+    tree["ln_f"] = _norm(M)
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = _dense(M, V, bias=False)
+    return tree
+
+
+def phi_param_shapes(cfg: PhiConfig) -> Dict[str, Any]:
+    """The flax tree of ``Phi(cfg)``: biased projections, a biased
+    ``lm_head``."""
+    M, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    tree: Dict[str, Any] = {"embed_tokens": {"embedding": (V, M)}}
+    for li in range(cfg.num_layers):
+        attn = {f"{n}_proj": _dense(M, M) for n in "qkv"}
+        attn["dense"] = _dense(M, M)
+        tree[f"layer_{li}"] = {"input_layernorm": _norm(M),
+                               "self_attn": attn, "fc1": _dense(M, I),
+                               "fc2": _dense(I, M)}
+    tree["final_layernorm"] = _norm(M)
+    tree["lm_head"] = _dense(M, V)
+    return tree
+
+
+#: the dense families' shape functions, by config type
+FAMILY_SHAPES = {OPTConfig: opt_param_shapes, BloomConfig: bloom_param_shapes,
+                 GPTNeoXConfig: gpt_neox_param_shapes,
+                 GPTJConfig: gptj_param_shapes,
+                 FalconConfig: falcon_param_shapes,
+                 PhiConfig: phi_param_shapes}
+
+
+def param_shapes(cfg: Any) -> Dict[str, Any]:
+    """The tree of shapes of any served family's config."""
+    if isinstance(cfg, LlamaConfig):
+        return llama_param_shapes(cfg)
+    if isinstance(cfg, GPT2Config):
+        return gpt2_param_shapes(cfg)
+    fn = FAMILY_SHAPES.get(type(cfg))
+    if fn is None:
+        raise TypeError(f"no parameter tree for {type(cfg).__name__}")
+    return fn(cfg)
+
+
+def family_params_from_numpy(tree: Mapping[str, Any], cfg: Any,
+                             device: Any = None,
+                             dtype: Any = None) -> Dict[str, Any]:
+    """The JAX tree of an OPT, BLOOM, GPT-NeoX, GPT-J, Falcon or Phi model
+    (leaves as numpy arrays) -> the port's tree of torch tensors on
+    ``device`` (default ``cuda``) in ``dtype`` (default
+    ``cfg.param_dtype``), the LayerNorm leaves fp32. Paths and shapes are
+    checked against ``cfg``; an extra or missing leaf raises."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype if dtype is not None else cfg.param_dtype)
+    return _from_numpy(tree, FAMILY_SHAPES[type(cfg)](cfg), lambda path: dict(
+        device=dev, dtype=_ln_fp32_dtype(path, dt)))
+
+
+def init_family_params(cfg: Any, seed: int = 0, device: Any = None,
+                       dtype: Any = None) -> Dict[str, Any]:
+    """Seeded random weights of a dense family made directly on ``device``
+    (default ``cuda``) with an explicit ``torch.Generator``: Dense kernels
+    normal with std 1/sqrt(fan_in), embeddings with std 1/sqrt(width),
+    biases zero, LayerNorm scales one and biases zero (fp32); the rest in
+    ``dtype`` (default ``cfg.param_dtype``)."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype if dtype is not None else cfg.param_dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+
+    def make(path, shape):
+        ldt = _ln_fp32_dtype(path, dt)
+        if path[-1] == "scale":
+            return torch.ones(shape, dtype=ldt, device=dev)
+        if path[-1] == "bias":
+            return torch.zeros(shape, dtype=ldt, device=dev)
+        fan_in = shape[1] if path[-1] == "embedding" else shape[0]
+        t = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=dev)
+        return (t * (1.0 / math.sqrt(fan_in))).to(ldt)
+
+    return _map_tree(FAMILY_SHAPES[type(cfg)](cfg), make)

@@ -211,16 +211,28 @@ class RaggedInferenceConfig:
 
     def validate(self, model_cfg=None) -> None:
         """Config x model checks, run at engine construction: the model
-        needs a ported ragged runner (dense Llama or GPT-2; the others
-        are A5.4)."""
+        needs a ported ragged runner. Accepted: ``LlamaConfig`` (llama,
+        mistral, qwen, qwen2, phi3, internlm), ``GPT2Config``,
+        ``OPTConfig``, ``BloomConfig``, ``GPTNeoXConfig``, ``GPTJConfig``,
+        ``FalconConfig`` and ``PhiConfig``; any other (the MoE families,
+        mixtral and qwen2_moe) raises NotImplementedError naming queue
+        item A5.4."""
         if model_cfg is None:
             return
+        from ...models.bloom import BloomConfig
+        from ...models.falcon import FalconConfig
         from ...models.gpt2 import GPT2Config
+        from ...models.gpt_neox import GPTJConfig, GPTNeoXConfig
         from ...models.llama import LlamaConfig
-        if not isinstance(model_cfg, (LlamaConfig, GPT2Config)):
+        from ...models.opt import OPTConfig
+        from ...models.phi import PhiConfig
+        if not isinstance(model_cfg, (LlamaConfig, GPT2Config, OPTConfig,
+                                      BloomConfig, GPTNeoXConfig,
+                                      GPTJConfig, FalconConfig, PhiConfig)):
             raise NotImplementedError(
-                f"{type(model_cfg).__name__}: only the dense Llama and "
-                f"GPT-2 ragged runners are ported (queue item A5.4)")
+                f"{type(model_cfg).__name__}: the dense families' ragged "
+                f"runners are ported; the MoE runners (mixtral, "
+                f"qwen2_moe) are queue item A5.4")
 
     @property
     def max_context(self) -> int:

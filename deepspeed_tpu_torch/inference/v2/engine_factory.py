@@ -5,10 +5,14 @@ engine (port of ``deepspeed_tpu/inference/v2/engine_factory.py``).
 -> parameter tree (``checkpoint/hf_loader.py``), optional weight-only
 quantization (``inference/quantization.py``), then
 :class:`InferenceEngineV2`, and with ``draft_model_dir`` a draft model
-paired for speculative decoding (``attach_draft``). The port serves the
-architectures that the JAX package sends to the dense Llama runner, and
-GPT-2; the other architectures JAX serves raise ``NotImplementedError``
-naming queue item A5.4, and both checks come before any shard is read.
+paired for speculative decoding (``attach_draft``). The port serves
+every architecture the JAX factory serves but the MoE ones: the dense
+Llama family (llama, mistral, qwen, qwen2, phi3), gpt2, opt, bloom,
+gpt_neox, gptj and phi. mixtral and qwen2_moe raise
+``NotImplementedError`` naming queue item A5.4; an architecture the JAX
+factory does not serve (falcon among them: it has no HF name map, and
+``InferenceEngineV2`` serves its config) raises ``ValueError``. Both
+checks come before any shard is read.
 """
 
 from __future__ import annotations
@@ -30,8 +34,9 @@ logger = logging.getLogger(__name__)
 #: architectures the JAX package serves through build_hf_engine
 _RAGGED_ARCHES = {"llama", "mistral", "qwen", "qwen2", "phi3", "phi", "gpt2",
                   "opt", "mixtral", "qwen2_moe", "bloom", "gpt_neox", "gptj"}
-#: ... of which the port has a runner for (dense Llama, GPT-2)
-_PORTED_ARCHES = {"llama", "mistral", "qwen", "qwen2", "phi3", "gpt2"}
+#: ... of which the port has a runner for (all but the MoE families)
+_PORTED_ARCHES = {"llama", "mistral", "qwen", "qwen2", "phi3", "gpt2",
+                  "opt", "bloom", "gpt_neox", "gptj", "phi"}
 
 #: the JAX factory's module lists for quantization_mode "wf8" / "wf4"
 WOQ_MODULES = ["proj", "fc", "attn", "mlp"]
@@ -99,8 +104,8 @@ def build_hf_engine(model_dir: str,
 
 def _check_servable(model_dir: str) -> None:
     """Refuse a checkpoint whose architecture build_hf_engine does not
-    serve (ValueError) or whose runner is not ported (A5.4), from its
-    ``config.json`` alone."""
+    serve (ValueError) or whose runner is not ported (mixtral and
+    qwen2_moe: A5.4), from its ``config.json`` alone."""
     with open(os.path.join(model_dir, "config.json")) as f:
         arch_name = json.load(f).get("model_type", "").lower()
     if arch_name not in _RAGGED_ARCHES:
@@ -111,5 +116,6 @@ def _check_servable(model_dir: str) -> None:
             "InferenceEngineV2")
     if arch_name not in _PORTED_ARCHES:
         raise NotImplementedError(
-            f"architecture '{arch_name}': its ragged runner is not ported "
-            f"yet (queue item A5.4); ported: {sorted(_PORTED_ARCHES)}")
+            f"architecture '{arch_name}': the MoE ragged runners are not "
+            f"ported yet (queue item A5.4); ported: "
+            f"{sorted(_PORTED_ARCHES)}")

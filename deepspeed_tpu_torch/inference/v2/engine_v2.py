@@ -47,8 +47,8 @@ the K+1 positions, the longest agreeing prefix plus the model's own next
 token is committed, and the rest is rolled back by ``trim_blocks``. The
 streams are those of non-speculative greedy decode.
 
-The runner comes from the model config: ``LlamaRaggedRunner`` for a
-``LlamaConfig``, ``GPT2RaggedRunner`` for a ``GPT2Config``. Telemetry
+The runner comes from the model config (``_runner_for``): the Llama,
+GPT-2, OPT, BLOOM, GPT-NeoX, GPT-J, Falcon and Phi runners. Telemetry
 (``slo_report``), the watchdog and fault injection (A6) are not ported.
 """
 
@@ -147,11 +147,35 @@ def _move_tree(tree, device):
 
 def _runner_for(model_cfg: Any, cfg: RaggedInferenceConfig):
     """The ragged runner of the model's family (the JAX engine's
-    ``_runner_for``): dense Llama, else GPT-2 (``config.validate`` has
-    refused the families without a ported runner)."""
+    ``_runner_for``, branch by branch): dense Llama, OPT, Falcon, Phi,
+    BLOOM, GPT-NeoX, GPT-J, else GPT-2 (``config.validate`` has refused
+    the families without a ported runner)."""
     from ...models.llama import LlamaConfig
+    from ...models.opt import OPTConfig
     if isinstance(model_cfg, LlamaConfig):
         return LlamaRaggedRunner(model_cfg, cfg)
+    if isinstance(model_cfg, OPTConfig):
+        from .opt_runner import OPTRaggedRunner
+        return OPTRaggedRunner(model_cfg, cfg)
+    from ...models.falcon import FalconConfig
+    from ...models.phi import PhiConfig
+    if isinstance(model_cfg, FalconConfig):
+        from .falcon_phi_runner import FalconRaggedRunner
+        return FalconRaggedRunner(model_cfg, cfg)
+    if isinstance(model_cfg, PhiConfig):
+        from .falcon_phi_runner import PhiRaggedRunner
+        return PhiRaggedRunner(model_cfg, cfg)
+    from ...models.bloom import BloomConfig
+    from ...models.gpt_neox import GPTJConfig, GPTNeoXConfig
+    if isinstance(model_cfg, BloomConfig):
+        from .bloom_gptj_neox_runner import BloomRaggedRunner
+        return BloomRaggedRunner(model_cfg, cfg)
+    if isinstance(model_cfg, GPTNeoXConfig):
+        from .bloom_gptj_neox_runner import GPTNeoXRaggedRunner
+        return GPTNeoXRaggedRunner(model_cfg, cfg)
+    if isinstance(model_cfg, GPTJConfig):
+        from .bloom_gptj_neox_runner import GPTJRaggedRunner
+        return GPTJRaggedRunner(model_cfg, cfg)
     return GPT2RaggedRunner(model_cfg, cfg)
 
 
@@ -159,8 +183,9 @@ class InferenceEngineV2:
     def __init__(self, model_cfg: Any, params: Any,
                  config: Optional[RaggedInferenceConfig] = None,
                  device: Any = None):
-        """``model_cfg``: a :class:`~...models.llama.LlamaConfig` or a
-        :class:`~...models.gpt2.GPT2Config`.
+        """``model_cfg``: a :class:`~...models.llama.LlamaConfig`,
+        :class:`~...models.gpt2.GPT2Config`, or the config of OPT, BLOOM,
+        GPT-NeoX, GPT-J, Falcon or Phi (``models/``).
         ``params``: its parameter tree (``checkpoint/jax_params.py``),
         dense or weight-only-quantized (``inference/quantization.py``),
         moved to ``device`` if it lives elsewhere. ``device`` defaults to

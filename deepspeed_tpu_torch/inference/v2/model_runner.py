@@ -29,19 +29,23 @@ into the pool once, when the loop ends. Appending would quantize the
 loop's own tokens before they are attended, which is not what the JAX
 package computes.
 
-Runners: ``LlamaRaggedRunner`` (``llama_runner.py``) and
-:class:`GPT2RaggedRunner` (below), picked by the engine from the model
-config.
+Runners: ``LlamaRaggedRunner`` (``llama_runner.py``),
+:class:`GPT2RaggedRunner` (below), ``OPTRaggedRunner``
+(``opt_runner.py``), ``BloomRaggedRunner`` / ``GPTNeoXRaggedRunner`` /
+``GPTJRaggedRunner`` (``bloom_gptj_neox_runner.py``) and
+``FalconRaggedRunner`` / ``PhiRaggedRunner`` (``falcon_phi_runner.py``),
+picked by the engine from the model config.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
 import torch.nn.functional as F
 
+from ...models._dense import head
 from ...models.gpt2 import GPT2Config
 from ...ops.kernels.fp6_gemm import Fp6GemmWeight, fp6_matmul
 from ..quantization import dequantize_leaf
@@ -481,21 +485,48 @@ class RaggedRunnerBase:
 # --------------------------------------------------------------------- #
 
 
-def _layer_norm(x: torch.Tensor, p, eps: float) -> torch.Tensor:
-    """LayerNorm of fp32 ``x`` over its last dim (the JAX runner's
-    ``_layer_norm``: the mean, the biased variance, rsqrt)."""
+def _layer_norm(x: torch.Tensor, p, eps: float,
+                dtype=torch.float32) -> torch.Tensor:
+    """LayerNorm of ``x`` over its last dim in fp32 (the JAX runners'
+    ``_layer_norm`` of ``x.astype(f32)``: the mean, the biased variance,
+    rsqrt), the result cast to ``dtype``."""
+    x = x.float()
     mu = x.mean(-1, keepdim=True)
     var = (x - mu).square().mean(-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + eps) * p["scale"].float() \
-        + p["bias"].float()
+    return ((x - mu) * torch.rsqrt(var + eps) * p["scale"].float()
+            + p["bias"].float()).to(dtype)
 
 
-def _dense(h, p, dtype, fused: bool):
-    """``h @ kernel (+ bias)`` in ``dtype`` through :func:`woq_mm`."""
+def _linear(h, p, dtype, fused: bool = False):
+    """A flax ``{kernel[, bias]}`` node applied in ``dtype`` (the JAX
+    runners' ``_linear``): the product through :func:`woq_mm` (a packed
+    leaf dequantized at its use unless ``fused``), then the bias."""
     y = woq_mm(h, p["kernel"], dtype, fused)
     if "bias" in p:
         y = y + p["bias"].to(dtype)
     return y
+
+
+def step_positions(batch: RaggedBatch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pos [S, C] int64, valid_q [S, C] bool): each scheduled token's
+    absolute position, and whether it is one of the slot's live tokens."""
+    C = batch.tokens.shape[1]
+    cols = torch.arange(C, device=batch.tokens.device)
+    pos = batch.start_pos.long()[:, None] + cols[None, :]
+    return pos, cols[None, :] < batch.n_tokens.long()[:, None]
+
+
+def last_token(x: torch.Tensor, batch: RaggedBatch) -> torch.Tensor:
+    """Each slot's row of its last scheduled token, x [S, C, M] -> [S, M]."""
+    last = torch.clamp(batch.n_tokens.long() - 1, min=0)
+    return x[torch.arange(x.shape[0], device=x.device), last]
+
+
+def head_logits(x_last: torch.Tensor, params, head_key: str,
+                tied_key: str) -> torch.Tensor:
+    """fp32 logits [S, V] of the last tokens' rows (``models._dense.head``),
+    a packed leaf dequantized here."""
+    return head(x_last, params, tied_key, head_key, leaf=dequantize_leaf)
 
 
 def _gpt2_ragged_step(params, pool, batch: RaggedBatch, *,
@@ -511,12 +542,9 @@ def _gpt2_ragged_step(params, pool, batch: RaggedBatch, *,
     H = model_cfg.num_heads
     D = model_cfg.hidden_size // H
     scale = 1.0 / (D ** 0.5)
-    dev = batch.tokens.device
     eps = model_cfg.layer_norm_eps
 
-    cols = torch.arange(C, device=dev)
-    pos = batch.start_pos.long()[:, None] + cols[None, :]
-    valid_q = cols[None, :] < batch.n_tokens.long()[:, None]
+    pos, valid_q = step_positions(batch)
     pos_c = torch.clamp(pos, max=model_cfg.max_seq_len - 1)
 
     wte = dequantize_leaf(params["wte"]["embedding"])
@@ -526,23 +554,21 @@ def _gpt2_ragged_step(params, pool, batch: RaggedBatch, *,
 
     for li in range(model_cfg.num_layers):
         p = params[f"h_{li}"]
-        h = _layer_norm(x.float(), p["ln_1"], eps).to(dtype)
-        qkv = _dense(h, p["attn"]["c_attn"], dtype, fused_woq)
+        h = _layer_norm(x, p["ln_1"], eps, dtype)
+        qkv = _linear(h, p["attn"]["c_attn"], dtype, fused_woq)
         q, k, v = torch.chunk(qkv, 3, dim=-1)
         y = paged_attention(pool, li, q.reshape(S, C, H, D),
                             k.reshape(S, C, H, D), v.reshape(S, C, H, D),
                             batch, cfg, pos, valid_q, scale, dtype)
-        x = x + _dense(y, p["attn"]["c_proj"], dtype, fused_woq)
+        x = x + _linear(y, p["attn"]["c_proj"], dtype, fused_woq)
 
-        h = _layer_norm(x.float(), p["ln_2"], eps).to(dtype)
-        m = F.gelu(_dense(h, p["mlp"]["c_fc"], dtype, fused_woq),
+        h = _layer_norm(x, p["ln_2"], eps, dtype)
+        m = F.gelu(_linear(h, p["mlp"]["c_fc"], dtype, fused_woq),
                    approximate="tanh")
-        x = x + _dense(m, p["mlp"]["c_proj"], dtype, fused_woq)
+        x = x + _linear(m, p["mlp"]["c_proj"], dtype, fused_woq)
 
-    x = _layer_norm(x.float(), params["ln_f"], eps)
-    last = torch.clamp(batch.n_tokens.long() - 1, min=0)
-    x_last = x[torch.arange(S, device=dev), last]               # [S, C] fp32
-    return x_last @ wte.T.float()
+    x = _layer_norm(x, params["ln_f"], eps)
+    return last_token(x, batch) @ wte.T.float()
 
 
 class GPT2RaggedRunner(RaggedRunnerBase):

@@ -4,6 +4,7 @@
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -148,3 +149,11 @@ def alibi_slopes(num_heads: int) -> torch.Tensor:
     if p < num_heads:
         base += [2 ** (-4.0 * (2 * i + 1) / p) for i in range(num_heads - p)]
     return torch.tensor(base[:num_heads], dtype=torch.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def alibi_slopes_on(num_heads: int, device: torch.device) -> torch.Tensor:
+    """``alibi_slopes(num_heads)`` on ``device``, made once per (H, device):
+    the JAX runners' ``tp_alibi_slopes`` on one device. (A copy from
+    pageable host memory each step would wait for the card's stream.)"""
+    return alibi_slopes(num_heads).to(device)

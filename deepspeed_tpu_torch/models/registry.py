@@ -3,21 +3,28 @@
 
 Maps an architecture name, or a HuggingFace ``config.json``'s
 ``model_type``, to the port's model config. The port carries gpt2 (a
-:class:`GPT2Config`) and the entries that give a :class:`LlamaConfig`:
+:class:`GPT2Config`), the entries that give a :class:`LlamaConfig`:
 llama, mistral (``sliding_window``), qwen2 (``qkv_bias``), qwen (v1: its
 own key names, ``intermediate_size`` counting both SwiGLU branches),
-phi3, internlm and internlm2. The other
-architectures the JAX registry knows raise ``NotImplementedError`` naming
-the queue item that ports their models; an unknown name raises
-``ValueError``, as the JAX registry does.
+phi3, internlm and internlm2, and the dense families opt, bloom,
+gpt_neox, gptj, falcon and phi. The other architectures the JAX registry
+knows raise ``NotImplementedError`` naming the queue item that ports
+their models (mixtral and qwen2_moe: A5.4; the encoders and diffusion
+models: A9); an unknown name raises ``ValueError``, as the JAX registry
+does.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple
 
+from .bloom import Bloom, BloomConfig
+from .falcon import Falcon, FalconConfig
 from .gpt2 import GPT2, GPT2Config
+from .gpt_neox import GPTJ, GPTJConfig, GPTNeoX, GPTNeoXConfig
 from .llama import Llama, LlamaConfig
+from .opt import OPT, OPTConfig
+from .phi import Phi, PhiConfig
 
 
 class ArchEntry(NamedTuple):
@@ -101,6 +108,88 @@ def _entry_internlm(d):
     return LlamaConfig(**_hf_llama(d))
 
 
+def _entry_opt(d):
+    proj = d.get("word_embed_proj_dim")
+    return OPTConfig(
+        vocab_size=d.get("vocab_size", 50272),
+        max_seq_len=d.get("max_position_embeddings", 2048),
+        num_layers=d.get("num_hidden_layers", 12),
+        num_heads=d.get("num_attention_heads", 12),
+        hidden_size=d.get("hidden_size", 768),
+        ffn_dim=d.get("ffn_dim", 3072),
+        do_layer_norm_before=d.get("do_layer_norm_before", True),
+        word_embed_proj_dim=(proj if proj and
+                             proj != d.get("hidden_size", 768) else None),
+        tie_embeddings=d.get("tie_word_embeddings", True))
+
+
+def _entry_bloom(d):
+    return BloomConfig(
+        vocab_size=d.get("vocab_size", 250880),
+        num_layers=d.get("n_layer", d.get("num_hidden_layers", 30)),
+        num_heads=d.get("n_head", d.get("num_attention_heads", 32)),
+        hidden_size=d.get("hidden_size", d.get("n_embed", 4096)),
+        layer_norm_eps=d.get("layer_norm_epsilon", 1e-5),
+        tie_embeddings=d.get("tie_word_embeddings", True))
+
+
+def _entry_gpt_neox(d):
+    return GPTNeoXConfig(
+        vocab_size=d.get("vocab_size", 50432),
+        max_seq_len=d.get("max_position_embeddings", 2048),
+        num_layers=d.get("num_hidden_layers", 44),
+        num_heads=d.get("num_attention_heads", 64),
+        hidden_size=d.get("hidden_size", 6144),
+        intermediate_size=d.get("intermediate_size", 24576),
+        rotary_pct=d.get("rotary_pct", 0.25),
+        rope_theta=d.get("rope_theta", d.get("rotary_emb_base", 10000.0)),
+        layer_norm_eps=d.get("layer_norm_eps", 1e-5),
+        use_parallel_residual=d.get("use_parallel_residual", True),
+        tie_embeddings=d.get("tie_word_embeddings", False))
+
+
+def _entry_gptj(d):
+    return GPTJConfig(
+        vocab_size=d.get("vocab_size", 50400),
+        max_seq_len=d.get("n_positions", 2048),
+        num_layers=d.get("n_layer", 28),
+        num_heads=d.get("n_head", 16),
+        hidden_size=d.get("n_embd", 4096),
+        intermediate_size=d.get("n_inner") or 4 * d.get("n_embd", 4096),
+        rotary_dim=d.get("rotary_dim", 64),
+        layer_norm_eps=d.get("layer_norm_epsilon", 1e-5),
+        tie_embeddings=d.get("tie_word_embeddings", False))
+
+
+def _entry_falcon(d):
+    new_arch = d.get("new_decoder_architecture", False)
+    return FalconConfig(
+        vocab_size=d.get("vocab_size", 65024),
+        max_seq_len=d.get("max_position_embeddings", 2048),
+        num_layers=d.get("num_hidden_layers", 32),
+        num_heads=d.get("num_attention_heads", 71),
+        num_kv_heads=(d.get("num_kv_heads", 8) if new_arch
+                      else (d.get("num_attention_heads", 71)
+                            if not d.get("multi_query", True) else 1)),
+        hidden_size=d.get("hidden_size", 4544),
+        alibi=d.get("alibi", False),
+        parallel_attn=d.get("parallel_attn", True),
+        new_decoder_architecture=new_arch,
+        tie_embeddings=d.get("tie_word_embeddings", True))
+
+
+def _entry_phi(d):
+    return PhiConfig(
+        vocab_size=d.get("vocab_size", 51200),
+        max_seq_len=d.get("max_position_embeddings", 2048),
+        num_layers=d.get("num_hidden_layers", 24),
+        num_heads=d.get("num_attention_heads", 32),
+        hidden_size=d.get("hidden_size", 2048),
+        intermediate_size=d.get("intermediate_size", 8192),
+        rotary_fraction=d.get("partial_rotary_factor", 0.5),
+        rope_theta=d.get("rope_theta", 10000.0))
+
+
 ARCHITECTURES: Dict[str, ArchEntry] = {
     "gpt2": ArchEntry(GPT2Config, GPT2, _entry_gpt2),
     "llama": ArchEntry(LlamaConfig, Llama, _entry_llama),
@@ -110,13 +199,19 @@ ARCHITECTURES: Dict[str, ArchEntry] = {
     "phi3": ArchEntry(LlamaConfig, Llama, _entry_phi3),
     "internlm": ArchEntry(LlamaConfig, Llama, _entry_internlm),
     "internlm2": ArchEntry(LlamaConfig, Llama, _entry_llama),
+    "opt": ArchEntry(OPTConfig, OPT, _entry_opt),
+    "bloom": ArchEntry(BloomConfig, Bloom, _entry_bloom),
+    "gpt_neox": ArchEntry(GPTNeoXConfig, GPTNeoX, _entry_gpt_neox),
+    "gptj": ArchEntry(GPTJConfig, GPTJ, _entry_gptj),
+    "falcon": ArchEntry(FalconConfig, Falcon, _entry_falcon),
+    "phi": ArchEntry(PhiConfig, Phi, _entry_phi),
 }
 
 #: the JAX registry's other architectures, each with the queue item
-#: (ROADMAP.md) that ports its model
+#: (ROADMAP.md) that ports its model: the MoE families (A5.4), the
+#: encoders and the diffusion models (A9)
 NOT_PORTED: Dict[str, str] = {
-    **{a: "A5.4" for a in ("opt", "bloom", "gpt_neox", "gptj", "falcon",
-                            "phi", "mixtral", "qwen2_moe")},
+    **{a: "A5.4" for a in ("mixtral", "qwen2_moe")},
     **{a: "A9" for a in ("bert", "distilbert", "gpt_neo",
                           "unet2dconditionmodel", "autoencoderkl")},
 }

@@ -26,8 +26,14 @@
 //   is the wrapper's, from the shapes alone (`prefill_route`). Every
 //   kernel's key loop covers [lo, hi) of its rows (causal end, sequence
 //   length and sliding window), never a dead or padded table entry.
-//   Head dims 16, 32, 64, 80, 96 and 128 are instantiated (the tiny test
-//   config's 16, TinyLlama's 64, phi-2's 80, phi3's 96, Llama's 128).
+//   Head dims 16, 32, 64, 80, 96, 128 and 256 are instantiated (the tiny
+//   test config's 16, TinyLlama's 64, phi-2's 80, phi3's and GPT-NeoX-20B's
+//   96, Llama's 128, GPT-J-6B's 256). At 256 the mma.sync kernels keep Q in
+//   shared memory and load its fragments by ldmatrix a k-step (QFrags):
+//   held in registers, Q's 64 beside the output's 128 fp32 accumulators
+//   would pass the 255 registers a thread may hold. Their tiles take
+//   dynamic shared memory (K1: 99.5 KiB at 256; K2: two ring stages, 140
+//   KiB with Q's tile, 143 KiB over an int8 pool).
 //   bf16 and fp16 run the tensor-core kernels; an int8 pool runs
 //   paged_prefill_mma_kernel in either (fp32: paged_attn_kernel).
 //
@@ -43,7 +49,7 @@
 //   the context), so a short batch still fills the card (the split count
 //   comes from the shapes alone, `decode_plan` in paged_attention.py; no
 //   host read of seq_lens). K and V stream as stored (bf16, fp16, or int8
-//   at half the bytes, with their scales) into a ring of 3 or 4
+//   at half the bytes, with their scales) into a ring of 2 to 4
 //   shared-memory stages by 16-byte cp.async, one block-table read per
 //   staged row, one __syncthreads a 64-key tile (two over an int8 pool,
 //   whose tiles widen into a compute-dtype tile first). Both products run on
@@ -159,6 +165,51 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Q's A fragments (m16n8k16) of the 16 query rows a warp multiplies. Up
+// to head dim 128 they sit in registers, KS x 4 of them, held for the whole
+// key range. At 256 those 64 registers beside the output's 128 fp32
+// accumulators would pass the 255 a thread may hold, so Q stays in a
+// [16][D + 8] shared tile of T and each k-step's fragment comes by
+// ldmatrix (`tile` is this lane's ldmatrix row; rows past the live ones
+// hold zeros).
+template <int D, typename T>
+struct QFrags {
+  static constexpr bool SMEM = D > 128;
+  uint32_t r[SMEM ? 1 : D / 16][4];
+  const T* tile;
+
+  __device__ __forceinline__ void get(int kk, uint32_t (&a)[4]) const {
+    if constexpr (SMEM) {
+      ldsm_x4(a, tile + kk * 16);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = r[kk][e];
+    }
+  }
+};
+
+// Point a QFrags at the [16][ld] tile `t`: lane l gives row l % 8 (+8 for
+// lanes 8-15 and 24-31) at column 8 (l / 16), the four 8 x 8 matrices of
+// an A fragment.
+template <int D, typename T>
+__device__ __forceinline__ void qfrags_at(QFrags<D, T>& f, const T* t,
+                                          int ld, int lane) {
+  f.tile = t + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
+}
+
+// Copy `nrows` rows of D elements (row r at src + r * stride) into a
+// [rows][D + 8] shared tile of T, 4 bytes a thread a step, rows nrows ..
+// rows - 1 as zeros. Called by every thread of a block of `nt`.
+template <int D, typename T>
+__device__ __forceinline__ void stage_q(T* dst, const T* src, size_t stride,
+                                        int rows, int nrows, int nt) {
+  for (int i = threadIdx.x; i < rows * (D / 2); i += nt) {
+    const int r = i / (D / 2), c = (i % (D / 2)) * 2;
+    *reinterpret_cast<uint32_t*>(dst + r * (D + 8) + c) =
+        r < nrows ? ld2(src + r * stride + c) : 0u;
+  }
 }
 
 template <int D, int ROWS, int TK>
@@ -411,6 +462,50 @@ __device__ __forceinline__ void live_range(int c, int C, int start,
   }
 }
 
+// Dynamic shared memory of K1's mma.sync kernel: the K and V tiles
+// [MMA_TK][D + 8] of T, their scales [2][MMA_TK] f32 (int8), and at head
+// dim 256 Q's [MMA_ROWS][D + 8] tile (QFrags).
+template <int D, typename T>
+__host__ __device__ constexpr size_t mma_smem_bytes() {
+  return ((size_t)2 * MMA_TK + (QFrags<D, T>::SMEM ? MMA_ROWS : 0)) *
+             (D + 8) * sizeof(T) +
+         2 * MMA_TK * sizeof(float);
+}
+
+// S[16 x 64] = Q . K^T for a warp's 16 rows against a staged [64][D + 8]
+// K tile: mma_abt with Q's fragments from registers; from Q's shared tile
+// (head dim 256) a k-step pair's fragments are loaded once for the eight
+// column tiles (the same products in the same order).
+template <int D, typename T>
+__device__ __forceinline__ void qk_tile(float (&acc)[8][4],
+                                        const QFrags<D, T>& q, const T* ks,
+                                        int lane) {
+  if constexpr (!QFrags<D, T>::SMEM) {
+    mma_abt<D, T>(acc, q.r, ks, lane);
+  } else {
+    constexpr int LD = D + 8, KS = D / 16;
+    static_assert(KS % 2 == 0, "k-steps go in pairs");
+    const T* base = ks + (lane & 7) * LD + (lane >> 3) * 8;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; kk += 2) {
+      uint32_t a0[4], a1[4];
+      q.get(kk, a0);
+      q.get(kk + 1, a1);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        uint32_t b[4];
+        ldsm_x4(b, base + nt * 8 * LD + kk * 16);
+        mma_16816<T>(acc[nt], a0, b[0], b[1]);
+        mma_16816<T>(acc[nt], a1, b[2], b[3]);
+      }
+    }
+  }
+}
+
 // KT: the pool's element, T (bf16 or fp16) or int8_t (codes widened to T
 // in registers as they are staged, 16 a thread; their scales staged
 // beside the tile).
@@ -433,9 +528,11 @@ paged_prefill_mma_kernel(const T* __restrict__ q,
   constexpr int EPC = 16 / sizeof(KT);   // pool elements a 16-byte load
   static_assert(NS == 8 && LD * MMA_TK == tile_elems<D>(),
                 "mma_abt / mma_pv take [64][D + 8] tiles");
-  __shared__ __align__(16) T ks[MMA_TK * LD];
-  __shared__ __align__(16) T vs[MMA_TK * LD];
-  __shared__ float ksc[MMA_TK], vsc[MMA_TK];   // the tile's scales (int8)
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  T* ks = reinterpret_cast<T*>(mma_smem);
+  T* vs = ks + MMA_TK * LD;
+  float* ksc = reinterpret_cast<float*>(vs + MMA_TK * LD);  // scales (int8)
+  float* vsc = ksc + MMA_TK;
 
   const int s = blockIdx.x, c0 = blockIdx.y * MMA_ROWS, h = blockIdx.z;
   const int kvh = h / (H / KV);
@@ -465,17 +562,26 @@ paged_prefill_mma_kernel(const T* __restrict__ q,
   }
   if (hi == 0) lo = 0;
 
-  // Q as A fragments, loaded once (rows past the chunk are zeros)
-  uint32_t qf[KS][4];
+  // Q as A fragments, loaded once (rows past the chunk are zeros): in
+  // registers, or at head dim 256 in a shared tile, 16 rows a warp
+  QFrags<D, T> qf;
+  if constexpr (QFrags<D, T>::SMEM) {
+    T* qs = reinterpret_cast<T*>(vsc + MMA_TK);
+    stage_q<D, T>(qs, q + (((size_t)s * C + c0) * H + h) * D,
+                  (size_t)H * D, MMA_ROWS, min(MMA_ROWS, C - c0), MMA_NT);
+    __syncthreads();
+    qfrags_at(qf, qs + warp * 16 * LD, LD, lane);
+  } else {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool live = crow[i] < C;
-    const T* qr =
-        q + (((size_t)s * C + (live ? crow[i] : 0)) * H + h) * D + qi * 2;
+    for (int i = 0; i < 2; ++i) {
+      const bool live = crow[i] < C;
+      const T* qr =
+          q + (((size_t)s * C + (live ? crow[i] : 0)) * H + h) * D + qi * 2;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      qf[kk][i] = live ? ld2(qr + kk * 16) : 0u;
-      qf[kk][i + 2] = live ? ld2(qr + kk * 16 + 8) : 0u;
+      for (int kk = 0; kk < KS; ++kk) {
+        qf.r[kk][i] = live ? ld2(qr + kk * 16) : 0u;
+        qf.r[kk][i + 2] = live ? ld2(qr + kk * 16 + 8) : 0u;
+      }
     }
   }
 
@@ -532,7 +638,7 @@ paged_prefill_mma_kernel(const T* __restrict__ q,
     // scores: this warp's 16 rows x MMA_TK keys, K's B fragments by
     // ldmatrix
     float sc[NS][4];
-    mma_abt<D, T>(sc, qf, ks, lane);
+    qk_tile<D, T>(sc, qf, ks, lane);
     // scale (and K scale), ALiBi, mask, row max over the quad that
     // shares a row
     float mx[2] = {-INFINITY, -INFINITY};
@@ -1131,18 +1237,22 @@ constexpr int DEC_NT = 128;        // K2: threads per block (4 warps)
 constexpr int DEC_TILE = 64;       // K2: keys per staged tile, 16 a warp
 constexpr int DEC_HEADS = 16;      // K2: query heads of a block (mma M)
 
-// stages of the K/V ring: deeper where a tile is small
+// stages of the K/V ring: deeper where a tile is small (at head dim 256 a
+// stage of K and V is 66 KB, and two keep one tile in flight a block)
 template <int D>
-__host__ __device__ constexpr int dec_stages() { return D <= 64 ? 4 : 3; }
+__host__ __device__ constexpr int dec_stages() {
+  return D <= 64 ? 4 : (D <= 128 ? 3 : 2);
+}
 
 // Shared memory of K2 over a pool of KT: the K/V ring [stage][K, V]
 // [DEC_TILE][D + 8] of T (a ring split always stages T rows); over an
 // int8 pool, the int8 ring [stage][K, V][DEC_TILE][D + 16], the widened
 // tile [K, V][DEC_TILE][D + 8] of T and the scales [stage][K, V]
-// [DEC_TILE] instead. After the key loop the same bytes hold the four
-// warps' partial states (o [16][D], m [16], l [16] fp32 each).
+// [DEC_TILE] instead; at head dim 256 Q's [16][D + 8] tile of T follows
+// (QFrags). After the key loop the same bytes hold the four warps'
+// partial states (o [16][D], m [16], l [16] fp32 each).
 template <int D, typename T, typename KT>
-__host__ __device__ constexpr size_t dec_smem_bytes() {
+__host__ __device__ constexpr size_t dec_stage_bytes() {
   constexpr int ST = dec_stages<D>();
   const size_t ring = (size_t)ST * 2 * DEC_TILE * (D + 8) * sizeof(T);
   const size_t q8 = std::is_same<KT, int8_t>::value
@@ -1150,8 +1260,14 @@ __host__ __device__ constexpr size_t dec_smem_bytes() {
                               (size_t)2 * DEC_TILE * (D + 8) * sizeof(T) +
                               (size_t)ST * 2 * DEC_TILE * sizeof(float)
                         : 0;
+  return ring > q8 ? ring : q8;
+}
+template <int D, typename T, typename KT>
+__host__ __device__ constexpr size_t dec_smem_bytes() {
+  const size_t big =
+      dec_stage_bytes<D, T, KT>() +
+      (QFrags<D, T>::SMEM ? (size_t)DEC_HEADS * (D + 8) * sizeof(T) : 0);
   const size_t merge = (size_t)4 * DEC_HEADS * (D + 2) * sizeof(float);
-  const size_t big = ring > q8 ? ring : q8;
   return big > merge ? big : merge;
 }
 
@@ -1232,7 +1348,7 @@ struct DecRows {
 // done).
 template <int D, typename T, typename KT>
 __device__ __forceinline__ void dec_attend(
-    const uint32_t (&qf)[D / 16][4], const KT* __restrict__ kp,
+    const QFrags<D, T>& qf, const KT* __restrict__ kp,
     const KT* __restrict__ vp, const DecRows src,
     const float* __restrict__ ksc_g, const float* __restrict__ vsc_g,
     int a, int b, int dpos, const float (&slope)[2], float sm_scale,
@@ -1332,10 +1448,11 @@ __device__ __forceinline__ void dec_attend(
                   ((lane >> 3) & 1) * 8;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      uint32_t r4[4];
+      uint32_t r4[4], a[4];
       ldsm_x4(r4, kb + kk * 16);
-      mma_16816<T>(sc[0], qf[kk], r4[0], r4[1]);
-      mma_16816<T>(sc[1], qf[kk], r4[2], r4[3]);
+      qf.get(kk, a);
+      mma_16816<T>(sc[0], a, r4[0], r4[1]);
+      mma_16816<T>(sc[1], a, r4[2], r4[3]);
     }
     // scale, the K scale of column j (int8), ALiBi, mask; row max over
     // the quad that shares a row
@@ -1472,18 +1589,27 @@ paged_decode_split_kernel(const T* __restrict__ q,
   }
 
   // Q as A fragments, held for the whole range (rows past the group are
-  // zeros), and the rows' ALiBi slopes (0 without)
-  uint32_t qf[KS][4];
+  // zeros): in registers, or at head dim 256 in a shared tile past the
+  // ring's bytes; and the rows' ALiBi slopes (0 without)
+  QFrags<D, T> qf;
+  if constexpr (QFrags<D, T>::SMEM) {
+    T* qs = reinterpret_cast<T*>(dec_smem + dec_stage_bytes<D, T, KT>());
+    stage_q<D, T>(qs, q + row0 * D, D, DEC_HEADS, nrows, DEC_NT);
+    __syncthreads();
+    qfrags_at(qf, qs, D + 8, lane);
+  }
   float slope[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = quad + 8 * i;
     const bool live = r < nrows;
-    const T* qr = q + (row0 + (live ? r : 0)) * D + qi * 2;
+    if constexpr (!QFrags<D, T>::SMEM) {
+      const T* qr = q + (row0 + (live ? r : 0)) * D + qi * 2;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      qf[kk][i] = live ? ld2(qr + kk * 16) : 0u;
-      qf[kk][i + 2] = live ? ld2(qr + kk * 16 + 8) : 0u;
+      for (int kk = 0; kk < KS; ++kk) {
+        qf.r[kk][i] = live ? ld2(qr + kk * 16) : 0u;
+        qf.r[kk][i + 2] = live ? ld2(qr + kk * 16 + 8) : 0u;
+      }
     }
     slope[i] = live && ex.alibi != nullptr ? ex.alibi[h0 + r] : 0.f;
   }
@@ -1625,7 +1751,11 @@ cudaError_t launch_mma(const void* q, const void* k_pool, const void* v_pool,
       ((uintptr_t)q | (uintptr_t)out) % 4)
     return cudaErrorMisalignedAddress;
   dim3 grid(S, (C + MMA_ROWS - 1) / MMA_ROWS, H);
-  paged_prefill_mma_kernel<D, T, KT><<<grid, MMA_NT, 0, stream>>>(
+  constexpr size_t smem = mma_smem_bytes<D, T>();
+  auto kern = paged_prefill_mma_kernel<D, T, KT>;
+  cudaError_t err = smem_ready(kern, MMA_NT, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, MMA_NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KT*>(k_pool),
       static_cast<const KT*>(v_pool), tables, start_pos, seq_lens,
       static_cast<T*>(out), ex, C, H, KV, maxb, bs, sm_scale, window);
@@ -1730,6 +1860,7 @@ cudaError_t by_head_dim(int D, const A&... a) {
     case 80: return Fn::template run<80>(a...);
     case 96: return Fn::template run<96>(a...);
     case 128: return Fn::template run<128>(a...);
+    case 256: return Fn::template run<256>(a...);
     default: return cudaErrorInvalidValue;
   }
 }

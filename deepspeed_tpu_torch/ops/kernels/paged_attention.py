@@ -63,8 +63,8 @@ ROUTE_LAUNCHES: Dict[str, int] = {
                    "int8", "alibi", "ring", "fp16")}
 
 #: head dims both kernels are instantiated for (any GQA group: K2 splits a
-#: group wider than its 16-row block across blocks)
-KERNEL_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+#: group wider than its 16-row block across blocks); 256 is GPT-J-6B's
+KERNEL_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 
 #: K2 (bf16): query heads of a block, keys of a staged tile, the fewest
 #: keys worth a split of their own, the blocks the plan aims for in SMs (a
@@ -127,8 +127,8 @@ def prefill_route(C: int, D: int, dtype: torch.dtype, block_size: int,
     widen). Otherwise bf16 and fp16 run the wgmma kernel at head dims 64
     and 128 when C >= 64 -- its K/V by TMA when the block size is a
     multiple of the 64-row box, else by the cp.async gather -- and the
-    mma.sync kernel elsewhere (head dims 16, 32, 80 and 96, and small
-    SplitFuse chunks)."""
+    mma.sync kernel elsewhere (head dims 16, 32, 80, 96 and 256, and
+    small SplitFuse chunks)."""
     if dtype == torch.float32:
         return "f32"
     if not quant and D in WGMMA_PREFILL_HEAD_DIMS \

@@ -64,6 +64,62 @@ def test_paged_kernels_take_any_gqa_group(group):
     pa.check_kernel_shape(group * 2, 2, 64, torch.bfloat16)
 
 
+def _family_configs():
+    """The dense families of A5.4 at their published widths (the
+    registry's entries of each config.json): (heads, KV heads, head
+    dim)."""
+    from deepspeed_tpu_torch.models.bloom import BloomConfig
+    from deepspeed_tpu_torch.models.falcon import FalconConfig
+    from deepspeed_tpu_torch.models.gpt_neox import (GPTJConfig,
+                                                     GPTNeoXConfig)
+    from deepspeed_tpu_torch.models.opt import OPTConfig
+    from deepspeed_tpu_torch.models.phi import PhiConfig
+    cfgs = {"gpt-j-6b": GPTJConfig(),
+            "bloom-7b1": BloomConfig(),
+            "gpt-neox-20b": GPTNeoXConfig(),
+            "opt-6.7b": OPTConfig(num_layers=32, num_heads=32,
+                                  hidden_size=4096, ffn_dim=16384),
+            "phi-2": PhiConfig(num_layers=32, hidden_size=2560,
+                               intermediate_size=10240,
+                               rotary_fraction=0.4),
+            "falcon-7b": FalconConfig()}
+    return {k: (c.num_heads, getattr(c, "num_kv_heads", c.num_heads),
+                c.head_dim) for k, c in cfgs.items()}
+
+
+FAMILY_HEADS = {"gpt-j-6b": (16, 16, 256), "bloom-7b1": (32, 32, 128),
+                "gpt-neox-20b": (64, 64, 96), "opt-6.7b": (32, 32, 128),
+                "phi-2": (32, 32, 80), "falcon-7b": (71, 1, 64)}
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_HEADS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_family_configs_lie_in_the_paged_kernels_accepted_set(name, dtype):
+    """Every dense family the port serves, at its published heads, in
+    every compute dtype: GPT-J-6B's head dim 256 included (the kernels'
+    D 256 instances), Falcon-7B's group of 71 (K2 splits it into 5 head
+    chunks)."""
+    H, KV, D = _family_configs()[name]
+    assert (H, KV, D) == FAMILY_HEADS[name]
+    pa.check_kernel_shape(H, KV, D, dtype)
+    if name == "falcon-7b":
+        assert pa.decode_plan(16, KV, H // KV, 512, 132)[0] == 5
+
+
+@pytest.mark.parametrize("C", [1, 40, 64, 256])
+@pytest.mark.parametrize("quant", [False, True])
+def test_head_dim_256_takes_the_mma_prefill_route(C, quant):
+    """K1 at head dim 256 runs the mma.sync kernel in bf16 and fp16 (the
+    wgmma kernel is built for 64 and 128), the CUDA-core kernel in fp32,
+    at every chunk, block size and pool."""
+    assert 256 in pa.KERNEL_HEAD_DIMS
+    for bs in (16, 64):
+        for dt in (torch.bfloat16, torch.float16):
+            assert pa.prefill_route(C, 256, dt, bs, quant) == "mma"
+        assert pa.prefill_route(C, 256, torch.float32, bs, quant) == "f32"
+
+
 def test_paged_kernels_refuse_what_they_do_not_take():
     with pytest.raises(NotImplementedError, match="head_dim 40"):
         pa.check_kernel_shape(4, 2, 40, torch.bfloat16)

@@ -91,8 +91,9 @@ def test_import_builds_no_kernel():
     no library may be loaded and no nvcc started. The walk reaches the
     training slice's modules too (config, runtime, ops, models), the WOQ
     slice's (the quantizers and the fp6 GEMM), the ops slice's (norms,
-    AdamW, sparse and Evoformer attention) and the KV block lifecycle's
-    (the prefix cache, drain/replay)."""
+    AdamW, sparse and Evoformer attention), the KV block lifecycle's
+    (the prefix cache, drain/replay) and the dense families' (their
+    models and ragged runners)."""
     code = (
         "import subprocess, sys, pkgutil, importlib\n"
         "def _no(*a, **k): raise AssertionError('spawned at import')\n"
@@ -112,7 +113,11 @@ def test_import_builds_no_kernel():
         "        'ops.evoformer_attn', 'models.registry',\n"
         "        'checkpoint.hf_loader', 'inference.v2.engine_factory',\n"
         "        'utils.random', 'inference.v2.sampling',\n"
-        "        'inference.v2.prefix_cache', 'inference.v2.drain'}\n"
+        "        'inference.v2.prefix_cache', 'inference.v2.drain',\n"
+        "        'models.opt', 'models.bloom', 'models.gpt_neox',\n"
+        "        'models.falcon', 'models.phi', 'models._dense',\n"
+        "        'inference.v2.opt_runner', 'inference.v2.falcon_phi_runner',\n"
+        "        'inference.v2.bloom_gptj_neox_runner'}\n"
         "assert {p.__name__ + '.' + n for n in need} <= set(names), names\n"
         "from deepspeed_tpu_torch.ops.kernels import _build\n"
         "assert not _build._libs and not _build.build_logs\n"

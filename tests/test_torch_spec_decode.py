@@ -560,7 +560,8 @@ def test_build_hf_engine_with_a_draft_checkpoint(tmp_path):
     assert _counters(eng) == _counters(jeng)
     bad = tmp_path / "bad"
     bad.mkdir()
-    (bad / "config.json").write_text(json.dumps({"model_type": "bloom"}))
+    (bad / "config.json").write_text(json.dumps(
+        {"model_type": "qwen2_moe"}))
     (bad / "model.safetensors").write_bytes(b"\xff" * 64)
     with pytest.raises(NotImplementedError, match="A5.4"):
         build_hf_engine(dirs["target"], draft_model_dir=str(bad),
