@@ -409,6 +409,31 @@ bound and one library call:
              step) and K2 (mid-decode) at its own heads (BLOOM with ALiBi)
              against their plain versions and timed beside SDPA, a
              ``kernels`` row each with the depth-2 bf16 run's launches.
+29. moe     — the MoE families. (a) A random checkpoint in HF's layout at
+             Qwen/Qwen1.5-MoE-A2.7B's published config.json uncut (24
+             layers, hidden 2048, 16 heads of 128, 60 experts top-4 of
+             width 1408 over the full softmax, a shared expert of 5632,
+             vocab 151936; 28.6 GB in bf16) through ``build_hf_engine``,
+             the host's resident set sampled during the load, every
+             tensor checked bit for bit; 16 prompts x 256 tokens, 32
+             greedy tokens, depth 2, with the grouped GEMM's launches
+             counted (three a layer a step) beside K1's and K2's. (b)
+             mistralai/Mixtral-8x7B-v0.1's widths (8 experts top-2 of
+             14336, 32 heads on 8 KV heads) at 8 of its 32 layers from
+             seeded parameters on the card, the same traffic; a 2-layer
+             Mixtral checkpoint through ``build_hf_engine`` for the
+             expert stacking at full width. (c) Both families at 4 layers
+             in fp32 (TF32 off): the grouped kernel's greedy streams equal
+             the plain grouped route's; Qwen-MoE at 4 layers under the
+             factory's wf8 lists; one ``_moe_mlp`` call at decode and one
+             at prefill under ``torch.cuda.set_sync_debug_mode("error")``.
+             (d) The grouped GEMM alone at both families' prefill and
+             decode shapes (gate / up and down), experts left empty and
+             runs no tile divides, against an fp32 reference and its plain
+             twin, timed by events and in a CUDA graph beside
+             ``torch._grouped_mm`` (a per-expert matmul loop where this
+             torch lacks it), a ``kernels`` row each; K1/K2 at both
+             families' heads likewise.
 
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
@@ -6037,6 +6062,591 @@ def phase_family_serving(torch):
     return out, rows
 
 
+# ------------------------------------------------------------------ phase 29
+# (a) the published config.json of Qwen/Qwen1.5-MoE-A2.7B uncut: 24 layers,
+# hidden 2048, 16 heads on 16 KV heads of 128, 60 experts top-4 of width
+# 1408 (full-softmax weights: norm_topk_prob false), a shared expert of
+# 5632, vocab 151936; its tensors in bf16 (about 14.3 B parameters)
+QWEN_MOE = {"architectures": ["Qwen2MoeForCausalLM"],
+            "model_type": "qwen2_moe", "hidden_size": 2048,
+            "intermediate_size": 5632, "moe_intermediate_size": 1408,
+            "shared_expert_intermediate_size": 5632,
+            "num_hidden_layers": 24, "num_attention_heads": 16,
+            "num_key_value_heads": 16, "num_experts": 60,
+            "num_experts_per_tok": 4, "norm_topk_prob": False,
+            "decoder_sparse_step": 1, "mlp_only_layers": [],
+            "vocab_size": 151936, "max_position_embeddings": 8192,
+            "rope_theta": 1000000.0, "rms_norm_eps": 1e-06,
+            "tie_word_embeddings": False, "hidden_act": "silu",
+            "router_aux_loss_coef": 0.001, "bos_token_id": 151643,
+            "eos_token_id": 151643, "torch_dtype": "bfloat16"}
+# (b) the published config.json of mistralai/Mixtral-8x7B-v0.1: hidden
+# 4096, 32 heads on 8 KV heads of 128, 8 experts top-2 of width 14336,
+# vocab 32000; served at MOE_MIXTRAL_LAYERS of its 32 layers (the whole
+# model, 93 GB in bf16, does not fit an 80 GB card)
+MIXTRAL_8X7B = {"architectures": ["MixtralForCausalLM"],
+                "model_type": "mixtral", "hidden_size": 4096,
+                "intermediate_size": 14336, "num_hidden_layers": 32,
+                "num_attention_heads": 32, "num_key_value_heads": 8,
+                "num_local_experts": 8, "num_experts_per_tok": 2,
+                "vocab_size": 32000, "max_position_embeddings": 32768,
+                "rope_theta": 1e6, "rms_norm_eps": 1e-5,
+                "sliding_window": None, "tie_word_embeddings": False,
+                "hidden_act": "silu", "router_aux_loss_coef": 0.02,
+                "bos_token_id": 1, "eos_token_id": 2,
+                "torch_dtype": "bfloat16"}
+MOE_MIXTRAL_LAYERS = 8
+#: layers of the Mixtral checkpoint that exercises the expert stacking
+MOE_MIXTRAL_HF_LAYERS = 2
+MOE_SEQS, MOE_PROMPT, MOE_GEN = 16, 256, 32
+#: (c): the parity engines' depth and traffic
+MOE_PARITY_LAYERS = 4
+MOE_PARITY_SEQS, MOE_PARITY_PROMPT, MOE_PARITY_GEN = 8, 64, 8
+GROUPED_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/grouped_gemm.cu"
+#: no Pallas kernel: the JAX package's grouped products are
+#: jax.lax.ragged_dot calls
+GROUPED_REPLACES = ("deepspeed_tpu/moe/sharded_moe.py:230 (jax.lax."
+                    "ragged_dot; no pallas_call)")
+#: the grouped GEMM against an fp32 reference: bf16 within 2**-7 of the
+#: reference's largest magnitude (one ulp of a bf16 output in the top
+#: binade: the output's half-ulp rounding, up to 2**-8 of it, plus the
+#: fp32 sums' order), against its bf16 plain twin likewise (the two
+#: round fp32 sums of another order), fp32 within 1e-5 of the largest
+#: magnitude (summation order)
+GROUPED_BF16_REL = 2.0 ** -7
+GROUPED_FP32_REL = 1e-5
+MOE_TAG = {"qwen2_moe": "qwen1p5_moe", "mixtral": "mixtral_8x7b"}
+
+
+def _moe_specs(hf):
+    """Every tensor of a Mixtral or Qwen2-MoE checkpoint in writing order:
+    (HF name, HF shape, kind, tree path, transposed in the tree); an
+    expert's path ends in ``#e``, its slot in the tree's stack."""
+    qwen = hf["model_type"] == "qwen2_moe"
+    M, V = hf["hidden_size"], hf["vocab_size"]
+    E = hf["num_experts" if qwen else "num_local_experts"]
+    I = hf["moe_intermediate_size" if qwen else "intermediate_size"]
+    kvd = hf["num_key_value_heads"] * M // hf["num_attention_heads"]
+    specs = [("model.embed_tokens.weight", (V, M), "embed",
+              "embed/embedding", False)]
+    for i in range(hf["num_hidden_layers"]):
+        p, t = f"model.layers.{i}", f"layer_{i}"
+        specs.append((f"{p}.input_layernorm.weight", (M,), "norm",
+                      f"{t}/input_norm/scale", False))
+        for x, n in (("q", M), ("k", kvd), ("v", kvd)):
+            specs.append((f"{p}.self_attn.{x}_proj.weight", (n, M),
+                          "linear", f"{t}/attn/{x}_proj/kernel", True))
+            if qwen:
+                specs.append((f"{p}.self_attn.{x}_proj.bias", (n,), "bias",
+                              f"{t}/attn/{x}_proj/bias", False))
+        specs.append((f"{p}.self_attn.o_proj.weight", (M, M), "linear",
+                      f"{t}/attn/o_proj/kernel", True))
+        specs.append((f"{p}.post_attention_layernorm.weight", (M,), "norm",
+                      f"{t}/post_attn_norm/scale", False))
+        moe = f"{p}.mlp" if qwen else f"{p}.block_sparse_moe"
+        specs.append((f"{moe}.gate.weight", (E, M), "linear",
+                      f"{t}/moe/gate", True))
+        names = (("gate_proj", "up_proj", "down_proj") if qwen
+                 else ("w1", "w3", "w2"))
+        for e in range(E):
+            for hn, kind, shape in zip(names, ("wi_gate", "wi_up", "wo"),
+                                       ((I, M), (I, M), (M, I))):
+                specs.append((f"{moe}.experts.{e}.{hn}.weight", shape,
+                              "linear", f"{t}/moe/{kind}#{e}", True))
+        if qwen:
+            SE = hf["shared_expert_intermediate_size"]
+            for x, shape in (("gate", (SE, M)), ("up", (SE, M)),
+                             ("down", (M, SE))):
+                specs.append((f"{p}.mlp.shared_expert.{x}_proj.weight",
+                              shape, "linear", f"{t}/shared_{x}_proj/kernel",
+                              True))
+            specs.append((f"{p}.mlp.shared_expert_gate.weight", (1, M),
+                          "linear", f"{t}/shared_expert_gate/kernel", True))
+    specs.append(("model.norm.weight", (M,), "norm", "final_norm/scale",
+                  False))
+    return specs + [("lm_head.weight", (V, M), "linear", "lm_head/kernel",
+                     True)]
+
+
+class _RssPeak:
+    """The process's resident set sampled every 5 ms on a thread (from
+    /proc/self/statm) while the block runs: ``peak - start`` bytes."""
+
+    def __init__(self):
+        import os
+        import threading
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _rss(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _run(self):
+        while not self.stop.is_set():
+            self.peak = max(self.peak, self._rss())
+            self.stop.wait(0.005)
+
+    def __enter__(self):
+        self.start = self.peak = self._rss()
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, self._rss())
+        self.delta = self.peak - self.start
+
+
+def _moe_gen(torch, pa, gg, eng, prompts, gen, L, route):
+    """``_family_gen`` with the grouped GEMM's launches zeroed just before
+    and read just after: three a layer a step (gate, up, down)."""
+    gg.reset_launch_counts()
+    streams, r = _family_gen(torch, pa, eng, prompts, gen, L, route)
+    steps = r["steps"]["prefill"] + r["steps"]["decode"]
+    r["launches"]["grouped_gemm"] = gg.LAUNCHES["grouped_gemm"]
+    r["grouped_gemm_per_step"] = gg.LAUNCHES["grouped_gemm"] / steps
+    if gg.LAUNCHES["grouped_gemm"] != 3 * L * steps:
+        raise AssertionError(f"[moe] grouped_gemm launches "
+                             f"{gg.LAUNCHES['grouped_gemm']}, want 3 x {L} "
+                             f"layers x {steps} steps")
+    return streams, r
+
+
+def _moe_serve(torch, pa, gg, tag, eng, L, out):
+    """Phase 29's traffic on ``eng`` (depth 2): MOE_SEQS prompts of
+    MOE_PROMPT tokens, MOE_GEN greedy tokens each, after a warm-up.
+    Returns the run's record."""
+    import numpy as np
+    cfg = eng.model_cfg
+    prompts = np.random.default_rng(29).integers(
+        0, cfg.vocab_size, (MOE_SEQS, MOE_PROMPT)).tolist()
+    eng.generate([prompts[0][:80]], max_new_tokens=4)        # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    streams, r = _moe_gen(torch, pa, gg, eng, prompts, MOE_GEN, L,
+                          "prefill_wgmma_tma")
+    r["peak_bytes"] = torch.cuda.max_memory_allocated()
+    r["prefill_step_s"] = r["prefill_s"] / r["steps"]["prefill"]
+    out["serving"] = r
+    log(f"[moe] {tag}: {MOE_SEQS} x {MOE_PROMPT} prompts, {MOE_GEN} new: "
+        f"prefill {r['prefill_s']:.4f} s ({r['steps']['prefill']} steps, "
+        f"{r['prefill_step_s']:.4f} s a step), decode {r['decode_tokens']} "
+        f"tokens in {r['decode_s']:.4f} s = {r['decode_tok_s']:.1f} tok/s; "
+        f"grouped_gemm {r['grouped_gemm_per_step']:.0f} launches a step; "
+        f"launches {r['launches']}; peak {r['peak_bytes'] / 2**30:.2f} GiB")
+    return r
+
+
+def _check_moe_written(torch, params, hf, seed):
+    """``_check_written`` over ``_moe_specs``: every loaded leaf, and
+    every expert slot of the stacks, equals the tensor written."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    n = 0
+    for name, shape, kind, path, transposed in _moe_specs(hf):
+        t = _qwen2_tensor(torch, gen, kind, shape)
+        path, _, slot = path.partition("#")
+        leaf = params
+        for k in path.split("/"):
+            leaf = leaf[k]
+        if slot:
+            leaf = leaf[int(slot)]
+        want = t.t() if transposed else t
+        if leaf.dtype != torch.bfloat16 or leaf.shape != want.shape \
+                or not torch.equal(leaf.view(torch.int16),
+                                   want.view(torch.int16)):
+            raise AssertionError(f"[moe] loaded {path}{'#' + slot if slot else ''}"
+                                 f" differs from the written {name}")
+        n += 1
+    return n
+
+
+def _moe_from_hf(torch, hf, seed, out, check=True):
+    """Write ``hf``'s random checkpoint, load it through
+    ``build_hf_engine`` (depth 2) with the host's resident set sampled,
+    and check every leaf against what was written. Returns the engine;
+    the directory is removed."""
+    import tempfile
+
+    from deepspeed_tpu_torch.inference.quantization import woq_memory_bytes
+    from deepspeed_tpu_torch.inference.v2 import build_hf_engine
+    specs = _moe_specs(hf)
+    need = 2 * sum(math.prod(s[1]) for s in specs)
+    tmp = Path(tempfile.mkdtemp(prefix=f"{hf['model_type']}_"))
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"[moe] {tmp}: {free / 1e9:.1f} GB free, the shards need "
+            f"{need / 1e9:.2f} GB")
+        if free < need * 1.05:
+            raise AssertionError(f"[moe] {free / 1e9:.1f} GB free under "
+                                 f"{tmp}; {need / 1e9:.2f} GB needed")
+        t0 = time.perf_counter()
+        nbytes, nshards = write_hf_checkpoint(torch, tmp, hf, seed=seed,
+                                              specs=specs)
+        out["write_s"] = time.perf_counter() - t0
+        out["checkpoint_bytes"], out["shards"] = nbytes, nshards
+        maxb = -(-(MOE_PROMPT + MOE_GEN) // 64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _RssPeak() as rss:
+            eng = build_hf_engine(str(tmp), engine_config=_family_cfg(
+                MOE_SEQS, MOE_PROMPT, MOE_GEN, serve_pipeline_depth=2),
+                dtype="bfloat16")
+            torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["host_rss_peak_bytes"] = rss.peak
+        out["host_rss_load_delta_bytes"] = rss.delta
+        out["param_bytes"] = woq_memory_bytes(eng.params)
+        if check:
+            out["leaves_bit_identical"] = _check_moe_written(
+                torch, eng.params, hf, seed)
+        log(f"[moe] {hf['model_type']} ({hf['num_hidden_layers']} layers): "
+            f"wrote {nbytes / 1e9:.3f} GB in {nshards} shards in "
+            f"{out['write_s']:.1f} s; build_hf_engine {out['load_s']:.1f} s "
+            f"(blocks of {maxb} x 64), parameters "
+            f"{out['param_bytes'] / 1e9:.3f} GB; host resident set "
+            f"{rss.start / 2**30:.2f} -> peak {rss.peak / 2**30:.2f} GiB "
+            f"during the load (+{rss.delta / 2**30:.3f} GiB); "
+            f"{out.get('leaves_bit_identical')} tensors bit-identical")
+        return eng
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _moe_parity(torch, pa, gg, qz, mcfg, fam, out):
+    """Phase 29 (c) for one family: MOE_PARITY_LAYERS layers in fp32 (TF32
+    off) from a seed, the kernel route's greedy streams against the plain
+    grouped route's (``ragged_dot_plain`` in the engine's place); for
+    Qwen-MoE a bf16 engine under the factory's wf8 lists, and one
+    ``_moe_mlp`` call at decode and one at prefill under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    import numpy as np
+    from deepspeed_tpu_torch.checkpoint import init_family_params
+    from deepspeed_tpu_torch.inference.quantization import \
+        quantize_model_params
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2 import engine_factory as ef
+    from deepspeed_tpu_torch.inference.v2 import llama_runner as lr
+    from deepspeed_tpu_torch.moe import sharded_moe
+    L = MOE_PARITY_LAYERS
+    rec = out.setdefault("parity", {})
+    prompts = np.random.default_rng(291).integers(
+        0, mcfg.vocab_size, (MOE_PARITY_SEQS, MOE_PARITY_PROMPT)).tolist()
+
+    def rcfg(**kw):
+        return _family_cfg(MOE_PARITY_SEQS, MOE_PARITY_PROMPT,
+                           MOE_PARITY_GEN, **kw)
+
+    c32 = dataclasses.replace(mcfg, num_layers=L, dtype=torch.float32)
+    params = init_family_params(c32, seed=292, device="cuda",
+                                dtype=torch.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel = sharded_moe.ragged_dot
+    got = {}
+    try:
+        for route in ("kernel", "plain"):
+            sharded_moe.ragged_dot = kernel if route == "kernel" \
+                else gg.ragged_dot_plain
+            e = InferenceEngineV2(c32, params, rcfg(dtype="float32"),
+                                  device="cuda")
+            gg.reset_launch_counts()
+            got[route] = e.generate(prompts, max_new_tokens=MOE_PARITY_GEN)
+            n = gg.LAUNCHES["grouped_gemm"]
+            if (n > 0) != (route == "kernel"):
+                raise AssertionError(f"[moe] {fam} fp32 {route} route: "
+                                     f"{n} grouped_gemm launches")
+            del e
+    finally:
+        sharded_moe.ragged_dot = kernel
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del params
+    torch.cuda.empty_cache()
+    if got["kernel"] != got["plain"]:
+        raise AssertionError(f"[moe] {fam}: fp32 streams differ between "
+                             f"the kernel and the plain grouped route")
+    rec[fam] = {"layers": L, "fp32_kernel_equals_plain": True}
+    log(f"[moe] {fam} at {L} layers, fp32: the grouped kernel's greedy "
+        f"streams equal the plain grouped route's ({MOE_PARITY_SEQS} x "
+        f"{MOE_PARITY_PROMPT} prompts, {MOE_PARITY_GEN} new)")
+    if fam != "qwen2_moe":
+        return
+    c16 = dataclasses.replace(c32, dtype=torch.bfloat16)
+    params = init_family_params(c16, seed=293, device="cuda",
+                                dtype=torch.bfloat16)
+    # the MoE layer waits for nothing on the host
+    p0 = params["layer_0"]["moe"]
+    sync = {}
+    for kind, C in (("decode", 1), ("prefill", MOE_PROMPT)):
+        h = torch.randn(MOE_SEQS, C, c16.hidden_size, device="cuda",
+                        dtype=torch.bfloat16)
+        gg.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = lr._moe_mlp(p0, h, c16, torch.bfloat16)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if y.shape != h.shape or not torch.isfinite(y).all() \
+                or gg.LAUNCHES["grouped_gemm"] != 3:
+            raise AssertionError(f"[moe] _moe_mlp under sync debug: "
+                                 f"{tuple(y.shape)}, launches {gg.LAUNCHES}")
+        sync[kind] = MOE_SEQS * C
+    rec["sync_free_moe_mlp_rows"] = sync
+    log(f"[moe] _moe_mlp ran under set_sync_debug_mode('error') at "
+        f"{sync} tokens: no host sync, 3 grouped_gemm launches each")
+    eng = InferenceEngineV2(c16, params, rcfg(), device="cuda")
+    want = eng.generate(prompts, max_new_tokens=4)
+    del eng
+    qz.reset_launch_counts()
+    qparams = quantize_model_params(params, {"quantized_weights": {
+        "enabled": True, "num_bits": 8, "modules": ef.WOQ_MODULES,
+        "excluded_modules": ef.WOQ_EXCLUDED}})
+    torch.cuda.synchronize()
+    qn = qz.LAUNCHES["quantize_sym"]
+    if qn != 7 * L:                    # q/k/v/o and the shared expert's 3
+        raise AssertionError(f"[moe] wf8 quantizer launches {qz.LAUNCHES}")
+    engq = InferenceEngineV2(c16, qparams, rcfg(), device="cuda")
+    gq, rq = _moe_gen(torch, pa, gg, engq, prompts, 4, L,
+                      "prefill_wgmma_tma")
+    agree = float(np.mean([a[0] == b[0] for a, b in zip(gq, want)]))
+    rec["wf8"] = {"layers": L, "quantize_launches": qn, **rq,
+                  "first_token_agreement_with_bf16": agree}
+    log(f"[moe] qwen2_moe wf8 at {L} layers: {qn} quantize_sym launches "
+        f"(attention and the shared expert); first tokens agree with bf16 "
+        f"on {agree:.3f}; launches {rq['launches']}")
+    del engq, qparams, params
+    torch.cuda.empty_cache()
+
+
+def time_grouped(torch, gg, name, *, tokens, k, E, K, N, dead=0,
+                 dtype=None):
+    """The grouped GEMM alone at one shape: ``tokens`` tokens routed top-k
+    over E experts by random logits (the last ``dead`` experts never
+    picked), x [tokens * k, K] and w [E, K, N] random. Checks it against
+    an fp32 reference and its plain twin, bit-identical call to call;
+    times it by CUDA events and in a CUDA graph beside its plain twin and
+    the library yardstick (``torch._grouped_mm`` where this torch has it,
+    else a per-expert ``torch.matmul`` loop in a graph; timed only)."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+    dtype = dtype or torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(sum(map(ord, name)))
+    logits = torch.randn(tokens, E, generator=gen, device="cuda")
+    if dead:
+        logits[:, E - dead:] = -1e4
+    top = torch.topk(logits, k, dim=-1).indices.reshape(-1)
+    off = sharded_moe.group_offsets(top, E)
+    R = tokens * k
+    x = torch.randn(R, K, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(E, K, N, generator=gen, device="cuda")
+         * K ** -0.5).to(dtype)
+    sizes = (off[1:] - off[:-1]).tolist()
+    live = sum(1 for s in sizes if s)
+    plan = gg.grouped_plan(R, E)
+    got = gg.ragged_dot(x, w, off)
+    again = gg.ragged_dot(x, w, off)
+    torch.cuda.synchronize()
+    ref = gg.ragged_dot_plain(x.float(), w.float(), off)
+    twin = gg.ragged_dot_plain(x, w, off)
+    top_mag = ref.abs().max().item()
+    err = (got.float() - ref).abs().max().item()
+    twin_err = (got.float() - twin.float()).abs().max().item()
+    f32 = dtype == torch.float32
+    lim = (GROUPED_FP32_REL if f32 else GROUPED_BF16_REL) * top_mag
+    what = (f"{name}: R={R} ({tokens} tokens x top-{k}) over E={E} "
+            f"({live} routed), K={K} -> N={N} {str(dtype)[6:]}, tile "
+            f"{plan.bm} rows, {plan.tiles} row-tile slots")
+    log(f"[grouped] {what}: max_abs_err {err:.3e} against fp32 (limit "
+        f"{lim:.3e}), {twin_err:.3e} against the plain twin; rows an "
+        f"expert {min(sizes)}-{max(sizes)}")
+    if not err <= lim or (not f32 and twin_err > GROUPED_BF16_REL * top_mag):
+        raise AssertionError(f"[grouped] {what} disagrees: {err}, "
+                             f"{twin_err}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"[grouped] {what}: two calls differ")
+    del ref, twin, again
+    fn = lambda: gg.ragged_dot(x, w, off)                   # noqa: E731
+    ms = _time_ms(torch, fn, 20)
+    graph_ms = _graph_ms(torch, [fn])
+    plain_ms = _time_ms(torch, lambda: gg.ragged_dot_plain(x, w, off), 3)
+    lib, lib_name = None, "torch._grouped_mm"
+    if hasattr(torch, "_grouped_mm") and not f32:
+        ends = off[1:].contiguous()
+        try:
+            y = torch._grouped_mm(x, w, offs=ends)
+            if (y.float() - got.float()).abs().max().item() \
+                    > GROUPED_BF16_REL * top_mag:
+                raise RuntimeError("disagrees with the kernel")
+            lib = lambda: torch._grouped_mm(x, w, offs=ends)  # noqa: E731
+        except RuntimeError as exc:
+            log(f"[grouped] torch._grouped_mm refused: {exc}")
+    if lib is None:
+        lib_name = "per-expert torch.matmul loop"
+        cuts = off.tolist()
+
+        def lib():
+            for e in range(E):
+                if cuts[e + 1] > cuts[e]:
+                    torch.matmul(x[cuts[e]:cuts[e + 1]], w[e])
+    lib_ms = _time_ms(torch, lib, 20)
+    lib_graph_ms = _graph_ms(torch, [lib])
+    el = x.element_size()
+    nbytes = R * K * el + live * K * N * el + R * N * el + 4 * (E + 1)
+    flops = 2 * R * K * N
+    bound_ms, by = _bound(nbytes, flops, F32_FLOPS_PER_S if f32
+                          else BF16_FLOPS_PER_S)
+    out = {"ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "library_graph_ms": lib_graph_ms,
+           "library": lib_name, "bound_ms": bound_ms, "bound_by": by,
+           "max_abs_err": err, "twin_max_abs_err": twin_err,
+           "bytes": nbytes, "flops": flops,
+           "bound_share": bound_ms / ms, "graph_bound_share":
+               bound_ms / graph_ms,
+           "shape": {"R": R, "tokens": tokens, "k": k, "E": E,
+                     "routed": live, "K": K, "N": N,
+                     "dtype": str(dtype)[6:], "row_tile": plan.bm,
+                     "row_tile_slots": plan.tiles,
+                     "rows_min": min(sizes), "rows_max": max(sizes)}}
+    log(f"[grouped] {name}: {ms:.4f} ms (graph {graph_ms:.4f}; plain "
+        f"{plain_ms:.4f}; {lib_name} {lib_ms:.4f}, graph "
+        f"{lib_graph_ms:.4f}); bound {bound_ms:.4f} by {by}, "
+        f"{out['graph_bound_share']:.1%} of it in the graph")
+    return out
+
+
+def phase_moe_serving(torch):
+    """Phase 29: the MoE families on the card (module docstring). Returns
+    (out, rows)."""
+    import numpy as np
+    from deepspeed_tpu_torch.checkpoint import init_family_params
+    from deepspeed_tpu_torch.inference.quantization import woq_memory_bytes
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.llama_runner import \
+        LlamaRaggedRunner
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig
+    from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    from deepspeed_tpu_torch.ops.kernels import quantization as qz
+    out = {"reduced": {
+        "qwen1p5_moe": "none",
+        "mixtral_8x7b": f"depth cut to {MOE_MIXTRAL_LAYERS} of 32 layers "
+                        f"(93 GB in bf16 uncut; published widths kept); "
+                        f"its HF checkpoint at {MOE_MIXTRAL_HF_LAYERS}",
+        "parity": f"{MOE_PARITY_LAYERS} layers"}}
+    rows = []
+    serve = {}
+    # (a) Qwen1.5-MoE-A2.7B uncut through build_hf_engine
+    rec = out["qwen1p5_moe"] = {"model": "Qwen/Qwen1.5-MoE-A2.7B"}
+    torch.cuda.empty_cache()
+    eng = _moe_from_hf(torch, QWEN_MOE, 29, rec)
+    qcfg = eng.model_cfg
+    if not isinstance(qcfg, MixtralConfig) or \
+            not isinstance(eng.runner, LlamaRaggedRunner) or \
+            (qcfg.num_experts, qcfg.experts_top_k, qcfg.norm_topk_prob,
+             qcfg.shared_expert_size) != tuple(QWEN_MOE[k] for k in (
+                "num_experts", "num_experts_per_tok", "norm_topk_prob",
+                "shared_expert_intermediate_size")):
+        raise AssertionError(f"[moe] qwen config {qcfg}")
+    serve["qwen2_moe"] = _moe_serve(torch, pa, gg, "qwen1p5_moe", eng,
+                                    QWEN_MOE["num_hidden_layers"], rec)
+    del eng
+    torch.cuda.empty_cache()
+    # (b) Mixtral-8x7B at its widths: seeded parameters on the card, and
+    # a small HF checkpoint for the expert stacking at full width
+    rec = out["mixtral_8x7b"] = {"model": "mistralai/Mixtral-8x7B-v0.1",
+                                 "layers": MOE_MIXTRAL_LAYERS}
+    mcfg = MixtralConfig.mixtral_8x7b(num_layers=MOE_MIXTRAL_LAYERS)
+    t0 = time.perf_counter()
+    params = init_family_params(mcfg, seed=294, device="cuda",
+                                dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    rec["param_bytes"] = woq_memory_bytes(params)
+    log(f"[moe] mixtral_8x7b at {MOE_MIXTRAL_LAYERS} layers: "
+        f"{rec['param_bytes'] / 1e9:.3f} GB of seeded parameters in "
+        f"{rec['init_s']:.1f} s")
+    eng = InferenceEngineV2(mcfg, params, _family_cfg(
+        MOE_SEQS, MOE_PROMPT, MOE_GEN, serve_pipeline_depth=2),
+        device="cuda")
+    serve["mixtral"] = _moe_serve(torch, pa, gg, "mixtral_8x7b", eng,
+                                  MOE_MIXTRAL_LAYERS, rec)
+    del eng, params
+    torch.cuda.empty_cache()
+    hf2 = {**MIXTRAL_8X7B, "num_hidden_layers": MOE_MIXTRAL_HF_LAYERS}
+    rec["hf"] = {"layers": MOE_MIXTRAL_HF_LAYERS}
+    eng = _moe_from_hf(torch, hf2, 295, rec["hf"])
+    prompts = np.random.default_rng(296).integers(
+        0, hf2["vocab_size"], (4, 64)).tolist()
+    streams = eng.generate(prompts, max_new_tokens=8)
+    if [len(s) for s in streams] != [8] * 4:
+        raise AssertionError("[moe] mixtral HF streams")
+    del eng
+    torch.cuda.empty_cache()
+    # (c) parity on the card
+    _moe_parity(torch, pa, gg, qz, qcfg, "qwen2_moe", out)
+    _moe_parity(torch, pa, gg, qz, mcfg, "mixtral", out)
+    # (d) the kernel alone at the served shapes, then K1 / K2 at both
+    # families' heads
+    pre, dec = MOE_SEQS * MOE_PROMPT, MOE_SEQS
+    q = (QWEN_MOE["num_experts_per_tok"], QWEN_MOE["num_experts"],
+         QWEN_MOE["hidden_size"], QWEN_MOE["moe_intermediate_size"])
+    m = (MIXTRAL_8X7B["num_experts_per_tok"],
+         MIXTRAL_8X7B["num_local_experts"], MIXTRAL_8X7B["hidden_size"],
+         MIXTRAL_8X7B["intermediate_size"])
+    # (name, family, tokens, k, E, K, N, experts never picked): gate / up
+    # (hidden -> width) and down (width -> hidden), at the prefill step's
+    # tokens and a decode step's; empty experts at prefill too
+    cases = (("grouped_gemm", "qwen2_moe", pre, q[0], q[1], q[2], q[3], 3),
+             ("grouped_gemm_qwen1p5_moe_prefill_down", "qwen2_moe", pre,
+              q[0], q[1], q[3], q[2], 3),
+             ("grouped_gemm_qwen1p5_moe_decode", "qwen2_moe", dec, q[0],
+              q[1], q[2], q[3], 0),
+             ("grouped_gemm_qwen1p5_moe_decode_down", "qwen2_moe", dec,
+              q[0], q[1], q[3], q[2], 0),
+             ("grouped_gemm_mixtral_8x7b_prefill", "mixtral", pre, m[0],
+              m[1], m[2], m[3], 1),
+             ("grouped_gemm_mixtral_8x7b_prefill_down", "mixtral", pre,
+              m[0], m[1], m[3], m[2], 1),
+             ("grouped_gemm_mixtral_8x7b_decode", "mixtral", dec, m[0],
+              m[1], m[2], m[3], 0),
+             ("grouped_gemm_mixtral_8x7b_decode_down", "mixtral", dec,
+              m[0], m[1], m[3], m[2], 0))
+    for name, fam, tokens, k, E, K, N, dead in cases:
+        t = time_grouped(torch, gg, name, tokens=tokens, k=k, E=E, K=K, N=N,
+                         dead=dead)
+        rows.append({"name": name, "route": "cuda",
+                     "source": GROUPED_SOURCE, "replaces": GROUPED_REPLACES,
+                     "launches": serve[fam]["launches"]["grouped_gemm"],
+                     "launches_from": f"phase 29, {MOE_TAG[fam]} bf16 "
+                                      f"greedy at depth 2", **t})
+        torch.cuda.empty_cache()
+    out["grouped_fp32"] = time_grouped(
+        torch, gg, "grouped_gemm_fp32", tokens=dec, k=m[0], E=m[1], K=m[2],
+        N=m[3] // 8, dtype=torch.float32)
+    maxb = -(-(MOE_PROMPT + MOE_GEN) // 64)
+    trng = np.random.default_rng(297)
+    for fam, hf in (("qwen2_moe", QWEN_MOE), ("mixtral", MIXTRAL_8X7B)):
+        nh = hf["num_attention_heads"]
+        heads = (nh, hf["num_key_value_heads"], hf["hidden_size"] // nh)
+        for name, C, ctx in (("paged_prefill", MOE_PROMPT, MOE_PROMPT),
+                             ("paged_decode", 1,
+                              MOE_PROMPT + MOE_GEN // 2)):
+            t = time_paged(torch, trng, name, S=MOE_SEQS, C=C, ctx=ctx,
+                           block_size=64, maxb=maxb, heads=heads,
+                           bf16_max_abs=PAGED7_BF16_MAX_ABS)
+            rows.append({"name": f"{name}_{MOE_TAG[fam]}", "route": "cuda",
+                         "source": SOURCE, "replaces": REPLACES[name],
+                         "launches": serve[fam]["launches"][name],
+                         "launches_from": f"phase 29, {MOE_TAG[fam]} bf16 "
+                                          f"greedy at depth 2", **t})
+            torch.cuda.empty_cache()
+    return out, rows
+
+
 def main(argv) -> int:
     unknown = [a for a in argv
                if a not in ("--trace", "--fp6-sweep", "--norm-sweep",
@@ -6130,6 +6740,8 @@ def main(argv) -> int:
     rows += spec_rows
     families, family_rows = run(phase_family_serving, torch)
     rows += family_rows
+    moe, moe_rows = run(phase_moe_serving, torch)
+    rows += moe_rows
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     result = {"kernels": rows, "card": card, "phase_s": phase_s,
               "serving": {k: serving[k] for k in
@@ -6147,7 +6759,7 @@ def main(argv) -> int:
               "kv_pool": {k: v for k, v in kv_pool.items() if k != "timing"},
               "hf_serving": hf, "prefix_serving": prefix,
               "gpt2_serving": gpt2, "spec_decoding": spec,
-              "family_serving": families}
+              "family_serving": families, "moe_serving": moe}
     if trace is not None:
         result["trace"] = trace
         result["train_trace"] = train["trace"]

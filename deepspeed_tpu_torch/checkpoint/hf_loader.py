@@ -1,6 +1,6 @@
 """HuggingFace checkpoint loading: shards -> the port's parameter tree
 (port of ``deepspeed_tpu/checkpoint/hf_loader.py``: the Llama family,
-GPT-2, OPT, BLOOM, GPT-NeoX, GPT-J and Phi).
+GPT-2, OPT, BLOOM, GPT-NeoX, GPT-J, Phi, Mixtral and Qwen2-MoE).
 
 - A safetensors reader with no dependency: the format is an 8-byte
   little-endian header length, a JSON header, then the raw little-endian
@@ -15,8 +15,11 @@ GPT-2, OPT, BLOOM, GPT-NeoX, GPT-J and Phi).
   ``Conv1D`` weights are already ``[in, out]`` and whose tied
   ``lm_head.weight`` is dropped; and the maps of OPT, Phi, BLOOM,
   GPT-NeoX and GPT-J, with BLOOM's and NeoX's fused ``query_key_value``
-  split head by head (its rows are ordered (head, [q k v], D)). Falcon
-  has no map, as in the JAX loader.
+  split head by head (its rows are ordered (head, [q k v], D)); and
+  the MoE maps of Mixtral and Qwen2-MoE, whose per-expert SwiGLU weights
+  are stacked into the tree's ``[E, in, out]`` leaves on the device as
+  they stream (``_ExpertStacker``). Falcon has no map, as in the JAX
+  loader.
 
 The tree has the paths of ``checkpoint/jax_params.py``
 (``embed/embedding``, ``layer_i/attn/q_proj/kernel``, ...; GPT-2's
@@ -338,12 +341,108 @@ def _split_headwise_qkv(name: str, arr: torch.Tensor, hf_cfg: Dict
             for j, w in enumerate("qkv")]
 
 
+class _ExpertStacker:
+    """Per-expert SwiGLU weights -> the tree's stacked experts, one tensor
+    at a time (port of ``_stack_moe_experts``): expert ``e``'s HF ``[out,
+    in]`` weight goes to the device and lands transposed in slot ``e`` of
+    an ``[E, in, out]`` stack there, which is handed on as
+    ``model.layers.{i}.moe_stacked.{wi_gate|wi_up|wo}`` (kind "stacked":
+    no further transpose) once its E experts have arrived. Host memory
+    holds one tensor at a time; a layer's stacks wait on the device.
+    Built for one checkpoint: it keeps the stacks in progress."""
+
+    expert_re = ""
+    kinds: Dict[str, str] = {}
+    experts_key = ""
+
+    def __init__(self, hf_cfg: Dict, device: torch.device):
+        self.rx = re.compile(self.expert_re)
+        self.E = int(hf_cfg.get(self.experts_key, 8))
+        self.device = device
+        self.stacks: Dict[Tuple[int, str], Tuple[torch.Tensor, set]] = {}
+
+    def __call__(self, name: str, arr: torch.Tensor, hf_cfg: Dict
+                 ) -> List[Tuple[str, torch.Tensor]]:
+        m = self.rx.match(name)
+        if not m:
+            return [(name, arr)]
+        layer, e, which = int(m.group(1)), int(m.group(2)), m.group(3)
+        if e >= self.E:
+            raise ValueError(f"{name}: expert {e} of {self.E}")
+        key = (layer, self.kinds[which])
+        if key not in self.stacks:
+            self.stacks[key] = (torch.empty(
+                (self.E, arr.shape[1], arr.shape[0]), dtype=arr.dtype,
+                device=self.device), set())
+        stack, seen = self.stacks[key]
+        stack[e].copy_(arr.to(self.device).t())
+        seen.add(e)
+        if len(seen) < self.E:
+            return []
+        del self.stacks[key]
+        return [(f"model.layers.{layer}.moe_stacked.{key[1]}", stack)]
+
+    def finish(self) -> None:
+        if self.stacks:
+            raise ValueError(
+                "checkpoint lacks experts of "
+                + ", ".join(f"layer {l} {k} ({len(seen)} of {self.E})"
+                            for (l, k), (_, seen) in self.stacks.items()))
+
+
+class _MixtralExperts(_ExpertStacker):
+    expert_re = (r"model\.layers\.(\d+)\.block_sparse_moe\.experts\.(\d+)"
+                 r"\.(w1|w2|w3)\.weight$")
+    kinds = {"w1": "wi_gate", "w3": "wi_up", "w2": "wo"}
+    experts_key = "num_local_experts"
+
+
+class _Qwen2MoeExperts(_ExpertStacker):
+    expert_re = (r"model\.layers\.(\d+)\.mlp\.experts\.(\d+)\."
+                 r"(gate_proj|up_proj|down_proj)\.weight$")
+    kinds = {"gate_proj": "wi_gate", "up_proj": "wi_up", "down_proj": "wo"}
+    experts_key = "num_experts"
+
+
+#: pre-conversion transforms keyed by arch: a function of one tensor
+#: (fused-tensor splitting), or a class built for each checkpoint that
+#: keeps state across tensors (per-expert stacking)
 SPECIAL_HANDLERS = {
     "phi3": _split_phi3_fused,
     "qwen": _split_qwen_fused,
     "bloom": _split_headwise_qkv,
     "gpt_neox": _split_headwise_qkv,
+    "mixtral": _MixtralExperts,
+    "qwen2_moe": _Qwen2MoeExperts,
 }
+
+_MOE_STACKED_RULES = [
+    (r"model\.layers\.(\d+)\.moe_stacked\.(wi_gate|wi_up|wo)",
+     "layer_{0}/moe/{1}", "stacked"),
+]
+
+_MIXTRAL_MAP = _LLAMA_MAP + _MOE_STACKED_RULES + [
+    (r"model\.layers\.(\d+)\.block_sparse_moe\.gate\.weight",
+     "layer_{0}/moe/gate", "linear"),
+]
+
+_QWEN2_MOE_MAP = _LLAMA_MAP + _MOE_STACKED_RULES + [
+    (r"model\.layers\.(\d+)\.mlp\.gate\.weight",
+     "layer_{0}/moe/gate", "linear"),
+    (r"model\.layers\.(\d+)\.mlp\.shared_expert\.(gate|up|down)_proj\.weight",
+     "layer_{0}/shared_{1}_proj/kernel", "linear"),
+    (r"model\.layers\.(\d+)\.mlp\.shared_expert_gate\.weight",
+     "layer_{0}/shared_expert_gate/kernel", "linear"),
+]
+
+ARCH_MAPS["mixtral"] = _MIXTRAL_MAP
+ARCH_MAPS["qwen2_moe"] = _QWEN2_MOE_MAP
+
+
+def _handler(arch: str, hf_cfg: Dict, device: torch.device):
+    """The arch's pre-conversion transform for one checkpoint, or None."""
+    h = SPECIAL_HANDLERS.get(arch)
+    return h(hf_cfg or {}, device) if isinstance(h, type) else h
 
 
 def _fw_path(template: str, groups: Tuple[str, ...]) -> str:
@@ -421,12 +520,16 @@ def convert_hf_state(arch: str, state: Dict[str, torch.Tensor],
     """Map an HF state dict onto the port's nested tree. ``tied=True``
     drops a serialized ``lm_head.weight`` (tie_word_embeddings models
     unembed through the embedding). ``hf_cfg`` is needed for the archs
-    whose fused tensors are split (phi3, qwen, bloom, gpt_neox)."""
-    conv = _Converter(arch, resolve_device(device), tied)
-    split = SPECIAL_HANDLERS.get(arch)
+    whose fused tensors are split (phi3, qwen, bloom, gpt_neox) or whose
+    experts are stacked (mixtral, qwen2_moe: their expert count)."""
+    dev = resolve_device(device)
+    conv = _Converter(arch, dev, tied)
+    split = _handler(arch, hf_cfg, dev)
     for name, arr in state.items():
         for n, a in (split(name, arr, hf_cfg) if split else [(name, arr)]):
             conv.add(n, a)
+    if hasattr(split, "finish"):
+        split.finish()
     return conv.finish(strict)
 
 
@@ -457,12 +560,14 @@ def load_hf_model(model_dir: str, strict: bool = True, device: Any = None):
     arch, cfg = config_from_hf(hf_cfg)
     tied = bool(getattr(cfg, "tie_embeddings", False))
     conv = _Converter(arch, dev, tied)       # fails before any shard
-    split = SPECIAL_HANDLERS.get(arch)
+    split = _handler(arch, hf_cfg, dev)
     n = 0
     for name, arr in iter_hf_tensors(model_dir):
         n += arr.numel()
         for nm, a in (split(name, arr, hf_cfg) if split else [(name, arr)]):
             conv.add(nm, a)
+    if hasattr(split, "finish"):
+        split.finish()
     params = conv.finish(strict)
     if tied:
         params.pop("lm_head", None)

@@ -27,6 +27,13 @@ config's type: :func:`family_params_from_numpy` and the seeded
 ``bias`` of a node named ``ln_*``, ``*layernorm`` or ``*layer_norm``)
 stay fp32 whatever dtype the rest takes: a norm's affine multiplies fp32
 statistics, and a bf16 copy of an fp32 flax leaf would round it.
+
+The same pair serves the MoE families (``MixtralConfig``: Mixtral and
+Qwen2-MoE, :func:`mixtral_param_shapes`): the Llama tree with each
+layer's ``mlp`` replaced by ``moe/{gate, wi_gate, wi_up, wo}`` (or
+``wi``, ``wo``) and, with a shared expert, ``shared_{gate,up,down}_proj``
+and ``shared_expert_gate``. Its norm scales and the router ``gate`` (an
+fp32 ``param`` in flax, read in fp32 by the router) stay fp32.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from ..models.falcon import FalconConfig
 from ..models.gpt2 import GPT2Config
 from ..models.gpt_neox import GPTJConfig, GPTNeoXConfig
 from ..models.llama import LlamaConfig
+from ..models.mixtral import MixtralConfig
 from ..models.opt import OPTConfig
 from ..models.phi import PhiConfig
 from ..ops.fp_quantizer import FORMATS, FPQuantizedTensor
@@ -80,6 +88,31 @@ def llama_param_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
     return tree
 
 
+def mixtral_param_shapes(cfg: MixtralConfig) -> Dict[str, Any]:
+    """Nested dict of shapes mirroring the flax tree of ``Mixtral(cfg)``:
+    the Llama tree with a ``moe`` node for ``mlp`` (the router ``gate``
+    [M, E] and the stacked experts, [E, in, out]) and Qwen2-MoE's shared
+    expert beside it."""
+    tree = llama_param_shapes(cfg)
+    M, E, I = cfg.hidden_size, cfg.num_experts, cfg.intermediate_size
+    SE = cfg.shared_expert_size
+    for li in range(cfg.num_layers):
+        layer = tree[f"layer_{li}"]
+        del layer["mlp"]
+        moe: Dict[str, Any] = {"gate": (M, E)}
+        if cfg.gated_experts:
+            moe.update(wi_gate=(E, M, I), wi_up=(E, M, I), wo=(E, I, M))
+        else:
+            moe.update(wi=(E, M, I), wo=(E, I, M))
+        layer["moe"] = moe
+        if SE:
+            layer["shared_gate_proj"] = {"kernel": (M, SE)}
+            layer["shared_up_proj"] = {"kernel": (M, SE)}
+            layer["shared_down_proj"] = {"kernel": (SE, M)}
+            layer["shared_expert_gate"] = {"kernel": (M, 1)}
+    return tree
+
+
 def _is_scale(path: Tuple[str, ...]) -> bool:
     return path[-1] == "scale"
 
@@ -97,6 +130,17 @@ def _ln_fp32_dtype(path: Tuple[str, ...], dt: torch.dtype) -> torch.dtype:
     """flax's dtypes for a tree of GPT-2 or a dense family: LayerNorm
     leaves fp32, the rest ``dt``."""
     return torch.float32 if _is_layer_norm(path) else dt
+
+
+def _family_dtype(cfg: Any, path: Tuple[str, ...],
+                  dt: torch.dtype) -> torch.dtype:
+    """A leaf's dtype in :func:`family_params_from_numpy` /
+    :func:`init_family_params`: fp32 for the MoE families' norm scales and
+    router gate, and for a dense family's LayerNorm leaves; else ``dt``."""
+    if isinstance(cfg, MixtralConfig):
+        return torch.float32 if _is_scale(path) or path[-2:] == (
+            "moe", "gate") else dt
+    return _ln_fp32_dtype(path, dt)
 
 
 def _map_tree(shapes: Mapping[str, Any], fn, path=()) -> Dict[str, Any]:
@@ -124,17 +168,21 @@ def llama_params_from_numpy(tree: Mapping[str, Any], cfg: LlamaConfig,
 def woq_params_from_numpy(tree: Mapping[str, Any], cfg: LlamaConfig,
                           device: Any = None,
                           dtype: Any = None) -> Dict[str, Any]:
-    """The JAX package's weight-only-quantized Llama tree -> the port's.
-    Its leaves are the JAX ``QuantizedTensor``, ``Fp6GemmWeight`` or
-    ``FPQuantizedTensor`` (arrays as numpy), or dense numpy arrays; each
-    packed leaf becomes the port's NamedTuple of the same name with the
-    same bits on ``device`` (default ``cuda``), each dense leaf a tensor
-    as :func:`llama_params_from_numpy` makes it. Paths, the logical shape
-    of every leaf and the shapes of the packed arrays are checked."""
+    """The JAX package's weight-only-quantized Llama or MoE (Mixtral,
+    Qwen2-MoE) tree -> the port's. Its leaves are the JAX
+    ``QuantizedTensor``, ``Fp6GemmWeight`` or ``FPQuantizedTensor``
+    (arrays as numpy), or dense numpy arrays; each packed leaf becomes the
+    port's NamedTuple of the same name with the same bits on ``device``
+    (default ``cuda``), each dense leaf a tensor as
+    :func:`llama_params_from_numpy` (:func:`family_params_from_numpy` for
+    the MoE families) makes it. Paths, the logical shape of every leaf
+    and the shapes of the packed arrays are checked."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype if dtype is not None else cfg.dtype)
-    return _from_numpy(tree, llama_param_shapes(cfg), lambda path: dict(
-        device=dev, dtype=torch.float32 if _is_scale(path) else dt),
+    return _from_numpy(tree, param_shapes(cfg), lambda path: dict(
+        device=dev, dtype=_family_dtype(cfg, path, dt)
+        if isinstance(cfg, MixtralConfig)
+        else torch.float32 if _is_scale(path) else dt),
         packed=lambda path, shape, node: _packed_leaf(path, shape, node,
                                                       dev))
 
@@ -310,7 +358,7 @@ def init_gpt2_params(cfg: GPT2Config, seed: int = 0, device: Any = None,
 
 
 # --------------------------------------------------------------------- #
-# the dense families of A5.4
+# the dense families of A5.4 (the MoE families' tree is above)
 # --------------------------------------------------------------------- #
 
 
@@ -457,54 +505,68 @@ FAMILY_SHAPES = {OPTConfig: opt_param_shapes, BloomConfig: bloom_param_shapes,
                  GPTNeoXConfig: gpt_neox_param_shapes,
                  GPTJConfig: gptj_param_shapes,
                  FalconConfig: falcon_param_shapes,
-                 PhiConfig: phi_param_shapes}
+                 PhiConfig: phi_param_shapes,
+                 MixtralConfig: mixtral_param_shapes}
 
 
 def param_shapes(cfg: Any) -> Dict[str, Any]:
     """The tree of shapes of any served family's config."""
+    fn = FAMILY_SHAPES.get(type(cfg))
+    if fn is not None:
+        return fn(cfg)
     if isinstance(cfg, LlamaConfig):
         return llama_param_shapes(cfg)
     if isinstance(cfg, GPT2Config):
         return gpt2_param_shapes(cfg)
-    fn = FAMILY_SHAPES.get(type(cfg))
-    if fn is None:
-        raise TypeError(f"no parameter tree for {type(cfg).__name__}")
-    return fn(cfg)
+    raise TypeError(f"no parameter tree for {type(cfg).__name__}")
 
 
 def family_params_from_numpy(tree: Mapping[str, Any], cfg: Any,
                              device: Any = None,
                              dtype: Any = None) -> Dict[str, Any]:
-    """The JAX tree of an OPT, BLOOM, GPT-NeoX, GPT-J, Falcon or Phi model
-    (leaves as numpy arrays) -> the port's tree of torch tensors on
-    ``device`` (default ``cuda``) in ``dtype`` (default
-    ``cfg.param_dtype``), the LayerNorm leaves fp32. Paths and shapes are
-    checked against ``cfg``; an extra or missing leaf raises."""
+    """The JAX tree of an OPT, BLOOM, GPT-NeoX, GPT-J, Falcon, Phi or MoE
+    (Mixtral, Qwen2-MoE) model (leaves as numpy arrays) -> the port's tree
+    of torch tensors on ``device`` (default ``cuda``) in ``dtype``
+    (default ``cfg.param_dtype``, the MoE configs' ``cfg.dtype``), the
+    leaves of :func:`_family_dtype` fp32. Paths and shapes are checked
+    against ``cfg``; an extra or missing leaf raises."""
     dev = resolve_device(device)
-    dt = resolve_dtype(dtype if dtype is not None else cfg.param_dtype)
+    dt = _default_dtype(cfg, dtype)
     return _from_numpy(tree, FAMILY_SHAPES[type(cfg)](cfg), lambda path: dict(
-        device=dev, dtype=_ln_fp32_dtype(path, dt)))
+        device=dev, dtype=_family_dtype(cfg, path, dt)))
+
+
+def _default_dtype(cfg: Any, dtype: Any) -> torch.dtype:
+    if dtype is None:
+        dtype = getattr(cfg, "param_dtype", None) or cfg.dtype
+    return resolve_dtype(dtype)
 
 
 def init_family_params(cfg: Any, seed: int = 0, device: Any = None,
                        dtype: Any = None) -> Dict[str, Any]:
-    """Seeded random weights of a dense family made directly on ``device``
-    (default ``cuda``) with an explicit ``torch.Generator``: Dense kernels
-    normal with std 1/sqrt(fan_in), embeddings with std 1/sqrt(width),
-    biases zero, LayerNorm scales one and biases zero (fp32); the rest in
-    ``dtype`` (default ``cfg.param_dtype``)."""
+    """Seeded random weights of a dense or MoE family made directly on
+    ``device`` (default ``cuda``) with an explicit ``torch.Generator``:
+    Dense kernels and expert stacks normal with std 1/sqrt(fan_in),
+    embeddings with std 1/sqrt(width) (1 for the MoE families, as
+    :func:`init_llama_params`), biases zero, norm scales one; the leaves
+    of :func:`_family_dtype` fp32, the rest in ``dtype`` (default as
+    :func:`family_params_from_numpy`)."""
     dev = resolve_device(device)
-    dt = resolve_dtype(dtype if dtype is not None else cfg.param_dtype)
+    dt = _default_dtype(cfg, dtype)
+    moe = isinstance(cfg, MixtralConfig)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
 
     def make(path, shape):
-        ldt = _ln_fp32_dtype(path, dt)
+        ldt = _family_dtype(cfg, path, dt)
         if path[-1] == "scale":
             return torch.ones(shape, dtype=ldt, device=dev)
         if path[-1] == "bias":
             return torch.zeros(shape, dtype=ldt, device=dev)
-        fan_in = shape[1] if path[-1] == "embedding" else shape[0]
+        if path[-1] == "embedding":
+            fan_in = 1 if moe else shape[1]
+        else:
+            fan_in = shape[-2]
         t = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=dev)
         return (t * (1.0 / math.sqrt(fan_in))).to(ldt)

@@ -7,7 +7,12 @@ CUDA kernels for CUDA tensors), to minifloat storage
 (``ops/fp_quantizer.py``) or to the fused fp6 GEMM layout
 (``ops/kernels/fp6_gemm.py``). The ragged runner dequantizes each leaf at
 its use (``model_runner.woq_mm``); fp6 GEMM leaves stay packed and go
-through the fused kernel.
+through the fused kernel. In an MoE tree, as in the JAX quantizer, the
+3-D expert stacks (``moe/wi_gate`` ...) take the generic packed form
+(the fused fp6 layout is for 2-D weights) and are dequantized at their
+use, before the grouped GEMM; the 2-D leaves (the shared expert, and the
+router, which ``_moe_mlp`` unpacks rather than send its tiny product to
+the fp6 kernel) are packed as any other.
 
 Config schema (the JAX package's):
     {"quantized_weights": {"enabled": true, "num_bits": 8,

@@ -212,11 +212,11 @@ class RaggedInferenceConfig:
     def validate(self, model_cfg=None) -> None:
         """Config x model checks, run at engine construction: the model
         needs a ported ragged runner. Accepted: ``LlamaConfig`` (llama,
-        mistral, qwen, qwen2, phi3, internlm), ``GPT2Config``,
+        mistral, qwen, qwen2, phi3, internlm) and its subclass
+        ``MixtralConfig`` (mixtral, qwen2_moe), ``GPT2Config``,
         ``OPTConfig``, ``BloomConfig``, ``GPTNeoXConfig``, ``GPTJConfig``,
-        ``FalconConfig`` and ``PhiConfig``; any other (the MoE families,
-        mixtral and qwen2_moe) raises NotImplementedError naming queue
-        item A5.4."""
+        ``FalconConfig`` and ``PhiConfig``: every config the JAX engine
+        serves. Any other raises ValueError."""
         if model_cfg is None:
             return
         from ...models.bloom import BloomConfig
@@ -229,10 +229,9 @@ class RaggedInferenceConfig:
         if not isinstance(model_cfg, (LlamaConfig, GPT2Config, OPTConfig,
                                       BloomConfig, GPTNeoXConfig,
                                       GPTJConfig, FalconConfig, PhiConfig)):
-            raise NotImplementedError(
-                f"{type(model_cfg).__name__}: the dense families' ragged "
-                f"runners are ported; the MoE runners (mixtral, "
-                f"qwen2_moe) are queue item A5.4")
+            raise ValueError(
+                f"{type(model_cfg).__name__}: no ragged runner serves this "
+                f"model config")
 
     @property
     def max_context(self) -> int:

@@ -6,13 +6,12 @@ engine (port of ``deepspeed_tpu/inference/v2/engine_factory.py``).
 quantization (``inference/quantization.py``), then
 :class:`InferenceEngineV2`, and with ``draft_model_dir`` a draft model
 paired for speculative decoding (``attach_draft``). The port serves
-every architecture the JAX factory serves but the MoE ones: the dense
-Llama family (llama, mistral, qwen, qwen2, phi3), gpt2, opt, bloom,
-gpt_neox, gptj and phi. mixtral and qwen2_moe raise
-``NotImplementedError`` naming queue item A5.4; an architecture the JAX
+every architecture the JAX factory serves: the dense Llama family
+(llama, mistral, qwen, qwen2, phi3), gpt2, opt, bloom, gpt_neox, gptj,
+phi, and the MoE families mixtral and qwen2_moe. An architecture the JAX
 factory does not serve (falcon among them: it has no HF name map, and
-``InferenceEngineV2`` serves its config) raises ``ValueError``. Both
-checks come before any shard is read.
+``InferenceEngineV2`` serves its config) raises ``ValueError`` before
+any shard is read.
 """
 
 from __future__ import annotations
@@ -31,12 +30,10 @@ from .engine_v2 import InferenceEngineV2
 
 logger = logging.getLogger(__name__)
 
-#: architectures the JAX package serves through build_hf_engine
+#: architectures the JAX package serves through build_hf_engine, all of
+#: them ported
 _RAGGED_ARCHES = {"llama", "mistral", "qwen", "qwen2", "phi3", "phi", "gpt2",
                   "opt", "mixtral", "qwen2_moe", "bloom", "gpt_neox", "gptj"}
-#: ... of which the port has a runner for (all but the MoE families)
-_PORTED_ARCHES = {"llama", "mistral", "qwen", "qwen2", "phi3", "gpt2",
-                  "opt", "bloom", "gpt_neox", "gptj", "phi"}
 
 #: the JAX factory's module lists for quantization_mode "wf8" / "wf4"
 WOQ_MODULES = ["proj", "fc", "attn", "mlp"]
@@ -104,8 +101,7 @@ def build_hf_engine(model_dir: str,
 
 def _check_servable(model_dir: str) -> None:
     """Refuse a checkpoint whose architecture build_hf_engine does not
-    serve (ValueError) or whose runner is not ported (mixtral and
-    qwen2_moe: A5.4), from its ``config.json`` alone."""
+    serve (ValueError), from its ``config.json`` alone."""
     with open(os.path.join(model_dir, "config.json")) as f:
         arch_name = json.load(f).get("model_type", "").lower()
     if arch_name not in _RAGGED_ARCHES:
@@ -114,8 +110,3 @@ def _check_servable(model_dir: str) -> None:
             f"architecture '{arch_name}' is not servable via build_hf_engine "
             f"(have {sorted(_RAGGED_ARCHES)}); load params yourself and use "
             "InferenceEngineV2")
-    if arch_name not in _PORTED_ARCHES:
-        raise NotImplementedError(
-            f"architecture '{arch_name}': the MoE ragged runners are not "
-            f"ported yet (queue item A5.4); ported: "
-            f"{sorted(_PORTED_ARCHES)}")

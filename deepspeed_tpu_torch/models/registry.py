@@ -6,12 +6,12 @@ Maps an architecture name, or a HuggingFace ``config.json``'s
 :class:`GPT2Config`), the entries that give a :class:`LlamaConfig`:
 llama, mistral (``sliding_window``), qwen2 (``qkv_bias``), qwen (v1: its
 own key names, ``intermediate_size`` counting both SwiGLU branches),
-phi3, internlm and internlm2, and the dense families opt, bloom,
-gpt_neox, gptj, falcon and phi. The other architectures the JAX registry
-knows raise ``NotImplementedError`` naming the queue item that ports
-their models (mixtral and qwen2_moe: A5.4; the encoders and diffusion
-models: A9); an unknown name raises ``ValueError``, as the JAX registry
-does.
+phi3, internlm and internlm2, the dense families opt, bloom, gpt_neox,
+gptj, falcon and phi, and the MoE families mixtral and qwen2_moe (a
+:class:`MixtralConfig`). The other architectures the JAX registry knows
+(the encoders and diffusion models) raise ``NotImplementedError`` naming
+the queue item that ports them, A9; an unknown name raises
+``ValueError``, as the JAX registry does.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from .falcon import Falcon, FalconConfig
 from .gpt2 import GPT2, GPT2Config
 from .gpt_neox import GPTJ, GPTJConfig, GPTNeoX, GPTNeoXConfig
 from .llama import Llama, LlamaConfig
+from .mixtral import Mixtral, MixtralConfig
 from .opt import OPT, OPTConfig
 from .phi import Phi, PhiConfig
 
@@ -106,6 +107,35 @@ def _entry_internlm(d):
             "internlm configs with bias=True (o_proj bias) are not "
             "supported; bias=False checkpoints load as llama")
     return LlamaConfig(**_hf_llama(d))
+
+
+def _entry_mixtral(d):
+    return MixtralConfig(**_hf_llama(
+        d,
+        num_experts=d.get("num_local_experts", 8),
+        experts_top_k=d.get("num_experts_per_tok", 2),
+        router_aux_loss_coef=d.get("router_aux_loss_coef", 0.02)))
+
+
+def _entry_qwen2_moe(d):
+    """Qwen2-MoE: the Mixtral block with biased q/k/v and an always-on
+    sigmoid-gated shared expert; the router's weights are the full
+    softmax's unless ``norm_topk_prob``. Every layer must be sparse."""
+    if int(d.get("decoder_sparse_step", 1)) != 1 or d.get("mlp_only_layers"):
+        raise ValueError(
+            "qwen2_moe configs with dense layers interleaved "
+            "(decoder_sparse_step != 1 or mlp_only_layers) are not "
+            "supported — every layer is treated as sparse MoE here")
+    return MixtralConfig(**_hf_llama(
+        d,
+        qkv_bias=True,
+        intermediate_size=d.get("moe_intermediate_size",
+                                d.get("intermediate_size", 11008)),
+        num_experts=d.get("num_experts", 8),
+        experts_top_k=d.get("num_experts_per_tok", 2),
+        shared_expert_size=d.get("shared_expert_intermediate_size", 0),
+        norm_topk_prob=d.get("norm_topk_prob", False),
+        router_aux_loss_coef=d.get("router_aux_loss_coef", 0.001)))
 
 
 def _entry_opt(d):
@@ -199,6 +229,8 @@ ARCHITECTURES: Dict[str, ArchEntry] = {
     "phi3": ArchEntry(LlamaConfig, Llama, _entry_phi3),
     "internlm": ArchEntry(LlamaConfig, Llama, _entry_internlm),
     "internlm2": ArchEntry(LlamaConfig, Llama, _entry_llama),
+    "mixtral": ArchEntry(MixtralConfig, Mixtral, _entry_mixtral),
+    "qwen2_moe": ArchEntry(MixtralConfig, Mixtral, _entry_qwen2_moe),
     "opt": ArchEntry(OPTConfig, OPT, _entry_opt),
     "bloom": ArchEntry(BloomConfig, Bloom, _entry_bloom),
     "gpt_neox": ArchEntry(GPTNeoXConfig, GPTNeoX, _entry_gpt_neox),
@@ -208,13 +240,11 @@ ARCHITECTURES: Dict[str, ArchEntry] = {
 }
 
 #: the JAX registry's other architectures, each with the queue item
-#: (ROADMAP.md) that ports its model: the MoE families (A5.4), the
-#: encoders and the diffusion models (A9)
+#: (ROADMAP.md) that ports its model: the encoders and the diffusion
+#: models (A9)
 NOT_PORTED: Dict[str, str] = {
-    **{a: "A5.4" for a in ("mixtral", "qwen2_moe")},
-    **{a: "A9" for a in ("bert", "distilbert", "gpt_neo",
-                          "unet2dconditionmodel", "autoencoderkl")},
-}
+    a: "A9" for a in ("bert", "distilbert", "gpt_neo",
+                      "unet2dconditionmodel", "autoencoderkl")}
 
 
 def get_arch(name: str) -> ArchEntry:

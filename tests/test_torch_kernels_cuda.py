@@ -2034,3 +2034,177 @@ def test_families_one_step_on_card(fam):
     assert port.ROUTE_LAUNCHES["alibi"] == (
         cfg.num_layers * (steps["prefill"] + steps["decode"])
         if fam == "bloom" else 0)
+
+
+# ------------------------------------------------- the grouped expert GEMM
+
+#: group sizes of the grouped GEMM's card cases: a decode step (a row an
+#: expert, over more than 32 experts: two steps of the warp's scan), empty
+#: experts among runs that fill no tile evenly, one live expert, a
+#: prefill-sized run
+GROUPED_SIZES = {
+    "decode_60": (1,) * 52 + (2, 0, 0, 3, 1, 0, 4, 1),
+    "ragged_empty": (0, 37, 0, 0, 129, 5, 0, 64),
+    "one_live": (0, 0, 300, 0),
+    "prefill_70": tuple(int(n) for n in
+                        np.random.default_rng(7).integers(0, 300, 70)),
+}
+#: against an fp32 reference: bf16 / fp16 within 2**-7 / 2**-10 of the
+#: largest magnitude (one ulp of an output in the top binade: its
+#: half-ulp rounding plus the fp32 sums' order), fp32 within 1e-5 of it
+#: (summation order)
+GROUPED_REL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+               torch.float32: 1e-5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("K,N", [(64, 136), (200, 512)])
+@pytest.mark.parametrize("case", sorted(GROUPED_SIZES))
+def test_grouped_gemm_matches_plain_on_card(case, K, N, dtype):
+    """The grouped GEMM against an fp32 reference of the same inputs, at
+    every row-tile height its plan picks (the cases' rows an expert run
+    from 1 to 300), with N not a multiple of the 128-column tile and K
+    not a multiple of the 32-deep step; bit-identical between calls; one
+    launch a call; experts with no rows never read (their weights are
+    NaN here and would poison the output)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+    sizes = GROUPED_SIZES[case]
+    R, E = sum(sizes), len(sizes)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(R + K + N)
+    x = torch.randn(R, K, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(E, K, N, generator=g, device="cuda")
+         * K ** -0.5).to(dtype)
+    for e, n in enumerate(sizes):
+        if not n:
+            w[e] = float("nan")
+    off = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
+                       dtype=torch.int32, device="cuda")
+    gg.reset_launch_counts()
+    got = gg.ragged_dot(x, w, off)
+    again = gg.ragged_dot(x, w, off)
+    torch.cuda.synchronize()
+    assert gg.LAUNCHES["grouped_gemm"] == 2
+    ref = gg.ragged_dot_plain(x.float(), w.float(), off)
+    err = (got.float() - ref).abs().max().item()
+    assert err <= GROUPED_REL[dtype] * ref.abs().max().item(), (case, err)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_refuses_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+    x = torch.zeros(4, 12, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(2, 12, 16, device="cuda", dtype=torch.bfloat16)
+    off = torch.tensor([0, 2, 4], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gg.ragged_dot(x, w, off)
+    with pytest.raises(ValueError, match="int32"):
+        gg.ragged_dot(x[:, :8].contiguous(), w[:, :8].contiguous(),
+                      off.long())
+    with pytest.raises(ValueError, match="on cpu"):
+        gg.ragged_dot(x, w, off.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 4])
+def test_grouped_moe_ffn_waits_for_nothing_on_card(k):
+    """The MoE layer on CUDA tensors under
+    ``torch.cuda.set_sync_debug_mode("error")``: no operation waits for
+    the device (a bincount, nonzero or mask index would raise); its
+    output is the plain grouped route's within bf16's limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.moe import sharded_moe
+    from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+    g = torch.Generator(device="cuda")
+    g.manual_seed(k)
+    S, M, E, H = 48, 64, 12, 96
+    x = torch.randn(S, M, generator=g, device="cuda").to(torch.bfloat16)
+    logits = torch.randn(S, E, generator=g, device="cuda")
+    ws = [(torch.randn(E, a, b, generator=g, device="cuda") * a ** -0.5)
+          .to(torch.bfloat16) for a, b in ((M, H), (M, H), (H, M))]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, l_aux = sharded_moe.grouped_moe_ffn(
+            x, logits, k, ws, F.silu, torch.bfloat16,
+            normalize_weights=k == 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    kernel = sharded_moe.ragged_dot
+    sharded_moe.ragged_dot = gg.ragged_dot_plain
+    try:
+        ref, ref_aux = sharded_moe.grouped_moe_ffn(
+            x, logits, k, ws, F.silu, torch.bfloat16,
+            normalize_weights=k == 2)
+    finally:
+        sharded_moe.ragged_dot = kernel
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2.0 ** -6 * ref.float().abs().max().item(), err
+    assert torch.equal(l_aux, ref_aux)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam", ["mixtral", "qwen2_moe"])
+def test_moe_families_one_step_on_card(fam):
+    """Each MoE family served on the card from seeded weights (its tiny
+    config; Qwen2-MoE with a shared expert, top-4 over the full softmax):
+    in fp32 with TF32 off the grouped kernel's greedy tokens equal the
+    plain grouped route's, and a bf16 engine launches the grouped GEMM
+    three times a layer a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    from deepspeed_tpu_torch.checkpoint import init_family_params
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig)
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig
+    from deepspeed_tpu_torch.moe import sharded_moe
+    from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+    over = {} if fam == "mixtral" else dict(
+        num_experts=8, experts_top_k=4, shared_expert_size=96,
+        qkv_bias=True, norm_topk_prob=False)
+    cfg = MixtralConfig.tiny(**over)
+    params = init_family_params(cfg, seed=1, device="cuda",
+                                dtype=torch.float32)
+    prompts = [list(range(3, 3 + n)) for n in (9, 30, 17)]
+
+    def engine(dt):
+        return InferenceEngineV2(
+            dataclasses.replace(cfg, dtype=getattr(torch, dt)), params,
+            RaggedInferenceConfig(max_seqs=4, chunk_size=16, block_size=16,
+                                  num_blocks=32, max_blocks_per_seq=4,
+                                  dtype=dt, attention_impl="paged_flash"),
+            device="cuda")
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel = sharded_moe.ragged_dot
+    try:
+        got = engine("float32").generate(prompts, max_new_tokens=6)
+        sharded_moe.ragged_dot = gg.ragged_dot_plain
+        want = engine("float32").generate(prompts, max_new_tokens=6)
+    finally:
+        sharded_moe.ragged_dot = kernel
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert got == want
+    params = init_family_params(cfg, seed=1, device="cuda",
+                                dtype=torch.bfloat16)
+    eng = engine("bfloat16")
+    gg.reset_launch_counts()
+    out = eng.generate(prompts, max_new_tokens=6)
+    torch.cuda.synchronize()
+    steps = eng.runner.step_counts
+    assert [len(o) for o in out] == [6, 6, 6]
+    assert gg.LAUNCHES["grouped_gemm"] == 3 * cfg.num_layers * (
+        steps["prefill"] + steps["decode"])

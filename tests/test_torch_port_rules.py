@@ -92,8 +92,9 @@ def test_import_builds_no_kernel():
     training slice's modules too (config, runtime, ops, models), the WOQ
     slice's (the quantizers and the fp6 GEMM), the ops slice's (norms,
     AdamW, sparse and Evoformer attention), the KV block lifecycle's
-    (the prefix cache, drain/replay) and the dense families' (their
-    models and ragged runners)."""
+    (the prefix cache, drain/replay), the dense families' (their
+    models and ragged runners) and the MoE families' (Mixtral, the
+    grouped MoE layer and the grouped GEMM)."""
     code = (
         "import subprocess, sys, pkgutil, importlib\n"
         "def _no(*a, **k): raise AssertionError('spawned at import')\n"
@@ -117,7 +118,8 @@ def test_import_builds_no_kernel():
         "        'models.opt', 'models.bloom', 'models.gpt_neox',\n"
         "        'models.falcon', 'models.phi', 'models._dense',\n"
         "        'inference.v2.opt_runner', 'inference.v2.falcon_phi_runner',\n"
-        "        'inference.v2.bloom_gptj_neox_runner'}\n"
+        "        'inference.v2.bloom_gptj_neox_runner', 'models.mixtral',\n"
+        "        'moe.sharded_moe', 'ops.kernels.grouped_gemm'}\n"
         "assert {p.__name__ + '.' + n for n in need} <= set(names), names\n"
         "from deepspeed_tpu_torch.ops.kernels import _build\n"
         "assert not _build._libs and not _build.build_logs\n"

@@ -526,8 +526,8 @@ def test_build_hf_engine_with_a_draft_checkpoint(tmp_path):
     """Two GPT-2 checkpoints written by ``transformers`` (a 2-layer target
     and a 1-layer draft of its vocabulary): both packages'
     ``build_hf_engine(draft_model_dir=)`` give the spec-off streams; the
-    draft takes the dtype override; an unported draft architecture is
-    refused before any shard is read."""
+    draft takes the dtype override; a draft architecture the factory
+    does not serve is refused before any shard is read."""
     transformers = pytest.importorskip("transformers")
     from deepspeed_tpu.inference.v2.engine_factory import \
         build_hf_engine as jax_build_hf_engine
@@ -561,8 +561,8 @@ def test_build_hf_engine_with_a_draft_checkpoint(tmp_path):
     bad = tmp_path / "bad"
     bad.mkdir()
     (bad / "config.json").write_text(json.dumps(
-        {"model_type": "qwen2_moe"}))
+        {"model_type": "bert"}))
     (bad / "model.safetensors").write_bytes(b"\xff" * 64)
-    with pytest.raises(NotImplementedError, match="A5.4"):
+    with pytest.raises(ValueError, match="not servable"):
         build_hf_engine(dirs["target"], draft_model_dir=str(bad),
                         device="cpu")
