@@ -432,8 +432,10 @@ bound and one library call:
              runs no tile divides, against an fp32 reference and its plain
              twin, timed by events and in a CUDA graph beside
              ``torch._grouped_mm`` (a per-expert matmul loop where this
-             torch lacks it), a ``kernels`` row each; K1/K2 at both
-             families' heads likewise.
+             torch lacks it), a ``kernels`` row each naming its route
+             (prefill on the persistent wgmma kernel, decode on mma.sync;
+             launches: that route's in the served run) and the host's µs
+             a call; K1/K2 at both families' heads likewise.
 
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
@@ -6207,6 +6209,7 @@ def _moe_gen(torch, pa, gg, eng, prompts, gen, L, route):
     streams, r = _family_gen(torch, pa, eng, prompts, gen, L, route)
     steps = r["steps"]["prefill"] + r["steps"]["decode"]
     r["launches"]["grouped_gemm"] = gg.LAUNCHES["grouped_gemm"]
+    r["launches"]["grouped_wgmma"] = gg.LAUNCHES["grouped_wgmma"]
     r["grouped_gemm_per_step"] = gg.LAUNCHES["grouped_gemm"] / steps
     if gg.LAUNCHES["grouped_gemm"] != 3 * L * steps:
         raise AssertionError(f"[moe] grouped_gemm launches "
@@ -6227,6 +6230,10 @@ def _moe_serve(torch, pa, gg, tag, eng, L, out):
     torch.cuda.reset_peak_memory_stats()
     streams, r = _moe_gen(torch, pa, gg, eng, prompts, MOE_GEN, L,
                           "prefill_wgmma_tma")
+    # prefill on the wgmma route, decode on mma.sync
+    if not 0 < r["launches"]["grouped_wgmma"] < r["launches"]["grouped_gemm"]:
+        raise AssertionError(f"[moe] {tag}: grouped launches by route "
+                             f"{r['launches']}")
     r["peak_bytes"] = torch.cuda.max_memory_allocated()
     r["prefill_step_s"] = r["prefill_s"] / r["steps"]["prefill"]
     out["serving"] = r
@@ -6446,10 +6453,15 @@ def time_grouped(torch, gg, name, *, tokens, k, E, K, N, dead=0,
          * K ** -0.5).to(dtype)
     sizes = (off[1:] - off[:-1]).tolist()
     live = sum(1 for s in sizes if s)
-    plan = gg.grouped_plan(R, E)
+    from deepspeed_tpu_torch.utils.device import sm_count
+    plan = gg.grouped_plan(R, E, N, dtype, sm_count(x.device))
+    gg.reset_launch_counts()
     got = gg.ragged_dot(x, w, off)
     again = gg.ragged_dot(x, w, off)
     torch.cuda.synchronize()
+    if gg.LAUNCHES["grouped_wgmma"] != (2 if plan.route == "wgmma" else 0):
+        raise AssertionError(f"[grouped] {name}: route {plan.route}, "
+                             f"launches {gg.LAUNCHES}")
     ref = gg.ragged_dot_plain(x.float(), w.float(), off)
     twin = gg.ragged_dot_plain(x, w, off)
     top_mag = ref.abs().max().item()
@@ -6458,8 +6470,9 @@ def time_grouped(torch, gg, name, *, tokens, k, E, K, N, dead=0,
     f32 = dtype == torch.float32
     lim = (GROUPED_FP32_REL if f32 else GROUPED_BF16_REL) * top_mag
     what = (f"{name}: R={R} ({tokens} tokens x top-{k}) over E={E} "
-            f"({live} routed), K={K} -> N={N} {str(dtype)[6:]}, tile "
-            f"{plan.bm} rows, {plan.tiles} row-tile slots")
+            f"({live} routed), K={K} -> N={N} {str(dtype)[6:]}, route "
+            f"{plan.route}, tile {plan.bm} x {plan.bn}, {plan.tiles} "
+            f"row-tile slots, grid {plan.grid}")
     log(f"[grouped] {what}: max_abs_err {err:.3e} against fp32 (limit "
         f"{lim:.3e}), {twin_err:.3e} against the plain twin; rows an "
         f"expert {min(sizes)}-{max(sizes)}")
@@ -6472,6 +6485,14 @@ def time_grouped(torch, gg, name, *, tokens, k, E, K, N, dead=0,
     fn = lambda: gg.ragged_dot(x, w, off)                   # noqa: E731
     ms = _time_ms(torch, fn, 20)
     graph_ms = _graph_ms(torch, [fn])
+    # the host's time a call (wrapper, plan, tensor maps, launch), the
+    # calls queued behind one another without a wait
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        fn()
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
     plain_ms = _time_ms(torch, lambda: gg.ragged_dot_plain(x, w, off), 3)
     lib, lib_name = None, "torch._grouped_mm"
     if hasattr(torch, "_grouped_mm") and not f32:
@@ -6499,7 +6520,8 @@ def time_grouped(torch, gg, name, *, tokens, k, E, K, N, dead=0,
     flops = 2 * R * K * N
     bound_ms, by = _bound(nbytes, flops, F32_FLOPS_PER_S if f32
                           else BF16_FLOPS_PER_S)
-    out = {"ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+    out = {"grouped_route": plan.route, "host_us": host_us,
+           "ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
            "library_ms": lib_ms, "library_graph_ms": lib_graph_ms,
            "library": lib_name, "bound_ms": bound_ms, "bound_by": by,
            "max_abs_err": err, "twin_max_abs_err": twin_err,
@@ -6509,12 +6531,14 @@ def time_grouped(torch, gg, name, *, tokens, k, E, K, N, dead=0,
            "shape": {"R": R, "tokens": tokens, "k": k, "E": E,
                      "routed": live, "K": K, "N": N,
                      "dtype": str(dtype)[6:], "row_tile": plan.bm,
+                     "col_tile": plan.bn, "grid": plan.grid,
                      "row_tile_slots": plan.tiles,
                      "rows_min": min(sizes), "rows_max": max(sizes)}}
-    log(f"[grouped] {name}: {ms:.4f} ms (graph {graph_ms:.4f}; plain "
-        f"{plain_ms:.4f}; {lib_name} {lib_ms:.4f}, graph "
-        f"{lib_graph_ms:.4f}); bound {bound_ms:.4f} by {by}, "
-        f"{out['graph_bound_share']:.1%} of it in the graph")
+    log(f"[grouped] {name} ({plan.route}): {ms:.4f} ms (graph "
+        f"{graph_ms:.4f}; plain {plain_ms:.4f}; {lib_name} {lib_ms:.4f}, "
+        f"graph {lib_graph_ms:.4f}); bound {bound_ms:.4f} by {by}, "
+        f"{out['graph_bound_share']:.1%} of it in the graph; host "
+        f"{host_us:.1f} us a call")
     return out
 
 
@@ -6615,14 +6639,24 @@ def phase_moe_serving(torch):
               m[1], m[2], m[3], 0),
              ("grouped_gemm_mixtral_8x7b_decode_down", "mixtral", dec,
               m[0], m[1], m[3], m[2], 0))
+    # the prefill shapes take the wgmma route, the decode shapes mma.sync;
+    # each row's launches are its route's in the served run
     for name, fam, tokens, k, E, K, N, dead in cases:
         t = time_grouped(torch, gg, name, tokens=tokens, k=k, E=E, K=K, N=N,
                          dead=dead)
+        want = "wgmma" if tokens == pre else "mma"
+        if t["grouped_route"] != want:
+            raise AssertionError(f"[grouped] {name}: route "
+                                 f"{t['grouped_route']}, want {want}")
+        launched = serve[fam]["launches"]
+        n = launched["grouped_wgmma"] if want == "wgmma" else \
+            launched["grouped_gemm"] - launched["grouped_wgmma"]
         rows.append({"name": name, "route": "cuda",
                      "source": GROUPED_SOURCE, "replaces": GROUPED_REPLACES,
-                     "launches": serve[fam]["launches"]["grouped_gemm"],
+                     "launches": n,
                      "launches_from": f"phase 29, {MOE_TAG[fam]} bf16 "
-                                      f"greedy at depth 2", **t})
+                                      f"greedy at depth 2, the {want} "
+                                      f"route's", **t})
         torch.cuda.empty_cache()
     out["grouped_fp32"] = time_grouped(
         torch, gg, "grouped_gemm_fp32", tokens=dec, k=m[0], E=m[1], K=m[2],

@@ -96,10 +96,11 @@ SIGNATURES = {
     "sparse_attention": {
         "sparse_fwd_launch": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _I, _P],
     },
-    # x, w, offsets, y, E, K, N, row-tile height, row-tile slots
-    # (grouped_gemm.grouped_plan), dtype code, stream
+    # x, w, offsets, y, R, E, K, N, and grouped_gemm.grouped_plan's row
+    # tile, row-tile slots, route code, column tile and grid; dtype code,
+    # stream
     "grouped_gemm": {
-        "grouped_gemm_launch": [_P] * 4 + [_I] * 6 + [_P],
+        "grouped_gemm_launch": [_P] * 4 + [_I] * 10 + [_P],
     },
     # q, k, v, o, mask bias, pair bias, host strides, B, N, H, Sq, Sk, D,
     # scale, dtype code, MSA rows a block (evoformer.evo_plan), stream

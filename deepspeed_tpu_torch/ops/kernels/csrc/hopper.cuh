@@ -29,6 +29,12 @@
 //   tma_box / tma_box3 / tma_box4
 //                    one 2-D, 3-D or 4-D TMA box (cp.async.bulk.tensor)
 //                    into shared memory, completing on an mbarrier
+//   tma_box3_mc      a 3-D box multicast to the same offset of every CTA
+//                    of a cluster mask, completing on each one's mbarrier
+//   cluster_rank / peer_addr / mbar_arrive_remote
+//                    this CTA's rank in its cluster; a shared address as
+//                    the same offset of another CTA of the cluster (mapa);
+//                    an arrival on an mbarrier at such an address
 //   bulk_load / bulk_reduce_add / bulk_commit / bulk_wait
 //                    contiguous bulk copies: global to shared on an
 //                    mbarrier; shared fp32 added into global
@@ -203,6 +209,41 @@ __device__ __forceinline__ void tma_box3(void* dst, const CUtensorMap* tm,
       "l"(reinterpret_cast<uint64_t>(tm)), "r"(x), "r"(y), "r"(z),
       "r"(smem_addr(bar))
       : "memory");
+}
+// the same, multicast: the box lands at `dst`'s offset in each CTA of
+// the cluster whose bit is set in `mask`, each completing on its own
+// mbarrier at `bar`'s offset
+__device__ __forceinline__ void tma_box3_mc(void* dst, const CUtensorMap* tm,
+                                            int x, int y, int z,
+                                            uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(x), "r"(y), "r"(z),
+      "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// the shared::cluster address of `p`'s offset in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+// one arrival on the mbarrier at shared::cluster address `addr` (this
+// CTA's or another's), with the default CTA-scope release: enough to hand
+// a buffer this CTA's finished wgmma reads leave free to another CTA's
+// TMA writes; a cluster-scope release there cost a fence each arrival
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t addr) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
 }
 
 // d += A . B for one m64nNk16 wgmma of 16-bit operands (bf16; T = bf16

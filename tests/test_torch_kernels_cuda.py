@@ -2041,14 +2041,22 @@ def test_families_one_step_on_card(fam):
 #: group sizes of the grouped GEMM's card cases: a decode step (a row an
 #: expert, over more than 32 experts: two steps of the warp's scan), empty
 #: experts among runs that fill no tile evenly, one live expert, a
-#: prefill-sized run
+#: prefill-sized run; then cases of the wgmma route: a live expert before
+#: each empty, NaN-poisoned one and a single live expert of 700 rows
+#: (128-row tiles), 33-80 rows an expert (64-row tiles)
 GROUPED_SIZES = {
     "decode_60": (1,) * 52 + (2, 0, 0, 3, 1, 0, 4, 1),
     "ragged_empty": (0, 37, 0, 0, 129, 5, 0, 64),
     "one_live": (0, 0, 300, 0),
     "prefill_70": tuple(int(n) for n in
                         np.random.default_rng(7).integers(0, 300, 70)),
+    "live_then_poisoned": (300, 0, 257, 0, 129, 0, 0, 511),
+    "single_live_700": (0, 700, 0),
+    "rows_64": (40, 0, 56, 60, 33, 50, 0, 80),
 }
+#: the cases whose plan takes the wgmma route at every dtype but fp32
+GROUPED_WGMMA = ("one_live", "prefill_70", "live_then_poisoned",
+                 "single_live_700", "rows_64")
 #: against an fp32 reference: bf16 / fp16 within 2**-7 / 2**-10 of the
 #: largest magnitude (one ulp of an output in the top binade: its
 #: half-ulp rounding plus the fp32 sums' order), fp32 within 1e-5 of it
@@ -2060,15 +2068,19 @@ GROUPED_REL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
-@pytest.mark.parametrize("K,N", [(64, 136), (200, 512)])
+@pytest.mark.parametrize("K,N", [(64, 136), (200, 512), (200, 1408),
+                                 (200, 128), (8, 24)])
 @pytest.mark.parametrize("case", sorted(GROUPED_SIZES))
 def test_grouped_gemm_matches_plain_on_card(case, K, N, dtype):
     """The grouped GEMM against an fp32 reference of the same inputs, at
     every row-tile height its plan picks (the cases' rows an expert run
-    from 1 to 300), with N not a multiple of the 128-column tile and K
-    not a multiple of the 32-deep step; bit-identical between calls; one
-    launch a call; experts with no rows never read (their weights are
-    NaN here and would poison the output)."""
+    from 1 to 700) and both routes of 16-bit inputs, with N not a
+    multiple of the column tile (136: one 256-column tile; 1408: six, the
+    last half past N), both column tiles (128 at N 128 and 24), K not a
+    multiple of the K step (200) and K, N below one TMA box (8, 24);
+    bit-identical between calls; one launch a call, counted by route;
+    experts with no rows never read (their weights are NaN here and
+    would poison the output)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
@@ -2089,6 +2101,9 @@ def test_grouped_gemm_matches_plain_on_card(case, K, N, dtype):
     again = gg.ragged_dot(x, w, off)
     torch.cuda.synchronize()
     assert gg.LAUNCHES["grouped_gemm"] == 2
+    wgmma = case in GROUPED_WGMMA and dtype != torch.float32
+    assert (gg.grouped_plan(R, E, N, dtype).route == "wgmma") == wgmma
+    assert gg.LAUNCHES["grouped_wgmma"] == (2 if wgmma else 0)
     ref = gg.ragged_dot_plain(x.float(), w.float(), off)
     err = (got.float() - ref).abs().max().item()
     assert err <= GROUPED_REL[dtype] * ref.abs().max().item(), (case, err)

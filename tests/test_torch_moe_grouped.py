@@ -15,6 +15,14 @@ package's ``grouped_moe_ffn`` and ``jax.lax.ragged_dot``, all in fp32.
 - A plain emulation of the kernel's walk (each block's expert and rows
   found from the offsets as ``find_tile`` does, by a prefix sum of each
   expert's tile count) covers every row once and reads no empty expert.
+- ``grouped_plan``'s route and column tile at the served shapes
+  (Qwen1.5-MoE-A2.7B and Mixtral-8x7B, prefill and decode) and at the
+  32 / 64 row-tile boundary.
+- A plain emulation of the wgmma route's persistent walk (tile L =
+  block + i grid, expert -> column tile -> row tile, each K step a TMA box
+  of x and a 3-D box of w[e] zero-filled past K): every output element
+  written once, empty (NaN-poisoned) experts never read, tiles in that
+  order, and its slots cover every split of R rows over E experts.
 """
 
 import itertools
@@ -191,3 +199,198 @@ def test_kernel_walk_emulation_equals_plain(sizes):
     assert read == {e for e, n in enumerate(sizes) if n}
     np.testing.assert_allclose(y.numpy(), gg.ragged_dot_plain(x, w, off)
                                .numpy(), **TOL)
+
+
+@pytest.mark.parametrize("R,E,N,dtype,want", [
+    # Qwen1.5-MoE-A2.7B: 16 x 256 prompt tokens top-4 over 60 experts,
+    # 2048 -> 1408 (gate / up) and 1408 -> 2048 (down); 16 decode tokens
+    (16384, 60, 1408, torch.bfloat16, (128, "wgmma", 256, 6)),
+    (16384, 60, 2048, torch.bfloat16, (128, "wgmma", 256, 8)),
+    (64, 60, 1408, torch.bfloat16, (16, "mma", 128, 11)),
+    (64, 60, 2048, torch.bfloat16, (16, "mma", 128, 16)),
+    # Mixtral-8x7B: 4096 prompt tokens top-2 over 8, 4096 -> 14336 and
+    # back; 16 decode tokens
+    (8192, 8, 14336, torch.bfloat16, (128, "wgmma", 256, 56)),
+    (8192, 8, 4096, torch.float16, (128, "wgmma", 256, 16)),
+    (32, 8, 14336, torch.bfloat16, (16, "mma", 128, 112)),
+    (32, 8, 4096, torch.float32, (16, "f32", 64, 64)),
+    # the 32 / 64 boundary: 32 rows an expert stay on mma.sync, 33 go to
+    # 64-row wgmma tiles; the column tile by bytes a K step over all
+    # column tiles, ceil(N / bn) (bm + bn): N = 136 one 256-column tile
+    # (384) against two of 128 (512), N = 24 one 128-column tile
+    (256, 8, 512, torch.bfloat16, (32, "mma", 128, 4)),
+    (264, 8, 512, torch.float16, (64, "wgmma", 256, 2)),
+    (512, 8, 136, torch.bfloat16, (64, "wgmma", 256, 1)),
+    (520, 8, 136, torch.bfloat16, (128, "wgmma", 256, 1)),
+    (520, 8, 24, torch.bfloat16, (128, "wgmma", 128, 1)),
+    (520, 8, 136, torch.float32, (128, "f32", 64, 3)),
+])
+def test_grouped_plan_routes_at_the_served_shapes(R, E, N, dtype, want):
+    plan = gg.grouped_plan(R, E, N, dtype, 132)
+    assert (plan.bm, plan.route, plan.bn, plan.col_tiles) == want
+    slots = plan.tiles * plan.col_tiles
+    assert plan.grid == (min(132, slots + slots % 2)
+                         if plan.route == "wgmma" else slots)
+    assert plan.route != "wgmma" or plan.grid % 2 == 0    # pairs
+
+
+def _expert_of(o, t, bm):
+    """``find_expert``: the expert owning row tile t, 32 experts a warp
+    step (e, first row, rows, first tile), or None past the last tile."""
+    E, base = len(o) - 1, 0
+    for e0 in range(0, E, 32):
+        lane = list(range(e0, min(e0 + 32, E)))
+        tiles = [-(-(o[e + 1] - o[e]) // bm) for e in lane]
+        inc = list(itertools.accumulate(tiles))
+        for i, e in enumerate(lane):
+            first = base + inc[i] - tiles[i]
+            if tiles[i] and first <= t < first + tiles[i]:
+                return e, o[e], o[e + 1] - o[e], first
+        base += inc[-1]
+    return None
+
+
+def _tile_of(o, L, plan):
+    """``w_tile``: tile L's (e, ct, rt, r0, r1, n0), or None past the
+    last real tile."""
+    NT, bm = plan.col_tiles, plan.bm
+    found = _expert_of(o, L // NT, bm)
+    if found is None:
+        return None
+    e, lo, n, first = found
+    tiles, local = -(-n // bm), L - first * NT
+    ct, rt = local // tiles, local % tiles
+    return e, ct, rt, lo + rt * bm, lo + n, ct * plan.bn
+
+
+def _wgmma_walk(o, plan):
+    """Each block's tiles in the wgmma route's persistent order, in
+    clusters of two as the kernel walks them: the pair of blocks (2q, 2q
+    + 1) takes tiles L, L + 1 for L = 2q, 2q + grid, ... while tile L is
+    real (rank 1 idles a step whose tile is past the last). Returns
+    ({block: [(L, e, ct, rt, r0, r1, n0)]}, steps whose two tiles share
+    their weight boxes, steps in all)."""
+    walk, shared, steps = {}, 0, 0
+    for b in range(0, plan.grid, 2):
+        walk[b], walk[b + 1] = [], []
+        for L in range(b, plan.tiles * plan.col_tiles, plan.grid):
+            t0 = _tile_of(o, L, plan)
+            if t0 is None:
+                break
+            t1 = _tile_of(o, L + 1, plan)
+            steps += 1
+            shared += t1 is not None and t1[:2] == t0[:2]
+            walk[b].append((L, *t0))
+            if t1 is not None:
+                walk[b + 1].append((L + 1, *t1))
+    return walk, shared, steps
+
+
+def _emulate_wgmma(x, w, off, plan):
+    """The wgmma route in plain PyTorch: each tile's 64-deep K steps as
+    its TMA boxes (x rows r0 .. r0 + bm, zeros past R; w[e] rows of the
+    step, zeros past K, never another expert's), fp32 sums in K order,
+    rows r < r1 and columns c < N stored. Returns (y, writes per element,
+    experts read, the walk)."""
+    R, K = x.shape
+    E, _, N = w.shape
+    o = off.tolist()
+    walk, _, _ = _wgmma_walk(o, plan)
+    xp = torch.cat([x, torch.zeros(plan.bm, K)])
+    y = torch.full((R, N), float("nan"))
+    written = torch.zeros(R, N, dtype=torch.int64)
+    read = set()
+    for tiles in walk.values():
+        for L, e, ct, rt, r0, r1, n0 in tiles:
+            read.add(e)
+            acc = torch.zeros(plan.bm, plan.bn)
+            for k0 in range(0, K, 64):
+                a = torch.zeros(plan.bm, 64)
+                b = torch.zeros(64, plan.bn)
+                k1 = min(k0 + 64, K)
+                a[:, :k1 - k0] = xp[r0:r0 + plan.bm, k0:k1]
+                n1 = min(n0 + plan.bn, N)
+                b[:k1 - k0, :n1 - n0] = w[e, k0:k1, n0:n1]
+                acc += a @ b
+            rows, cols = min(r1, r0 + plan.bm) - r0, min(N, n0 + plan.bn) - n0
+            y[r0:r0 + rows, n0:n0 + cols] = acc[:rows, :cols]
+            written[r0:r0 + rows, n0:n0 + cols] += 1
+    return y, written, read, walk
+
+
+@pytest.mark.parametrize("sizes,K,N,sms", [
+    ((300, 0, 257, 0, 129, 0, 0, 511), 200, 136, 5),   # K past the step
+    ((0, 0, 700, 0), 72, 1408 // 4, 3),                 # one live expert
+    ((130, 70, 0, 200, 64, 65), 64, 264, 132),          # grid > tiles
+])
+def test_wgmma_walk_emulation_equals_plain(sizes, K, N, sms):
+    rng = np.random.default_rng(sum(sizes) + K)
+    R, E = sum(sizes), len(sizes)
+    x = torch.from_numpy(rng.standard_normal((R, K)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((E, K, N)).astype(np.float32))
+    for e, n in enumerate(sizes):
+        if not n:
+            w[e] = float("nan")                   # read would poison y
+    off = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]).astype(
+        np.int32))
+    plan = gg.grouped_plan(R, E, N, torch.bfloat16, sms)
+    assert plan.route == "wgmma"
+    y, written, read, walk = _emulate_wgmma(x, w, off, plan)
+    assert written.eq(1).all()
+    assert read == {e for e, n in enumerate(sizes) if n}
+    np.testing.assert_allclose(y.numpy(), gg.ragged_dot_plain(x, w, off)
+                               .numpy(), atol=1e-4, rtol=1e-5)
+    # the tiles by L: expert -> column tile -> row tile, each once
+    order = sorted(t for tiles in walk.values() for t in tiles)
+    assert [t[0] for t in order] == list(range(len(order)))
+    keys = [(e, ct, rt) for _, e, ct, rt, *_ in order]
+    assert keys == sorted(keys) and len(set(keys)) == len(keys)
+    for b, tiles in walk.items():
+        assert [t[0] for t in tiles] == list(range(b, b + plan.grid * len(
+            tiles), plan.grid))
+        # a pair's two tiles are neighbours in the walk
+        if b % 2:
+            assert len(tiles) <= len(walk[b - 1])
+
+
+@pytest.mark.parametrize("R,E,N", [(70, 1, 8), (129, 2, 264), (300, 4, 136),
+                                   (300, 6, 136), (2000, 9, 1408),
+                                   (4096, 60, 520)])
+def test_wgmma_walk_slots_cover_every_split(R, E, N):
+    """The persistent walk's slots (row-tile slots x column tiles) hold
+    every tile of any split of R rows over E experts, so each block's walk
+    reaches the last real tile; a split's tiles all appear once."""
+    rng = np.random.default_rng(R + E + N)
+    plan = gg.grouped_plan(R, E, N, torch.float16, 7)
+    assert plan.route == "wgmma"
+    for _ in range(20):
+        cuts = np.sort(rng.integers(0, R + 1, E - 1))
+        sizes = np.diff(np.concatenate([[0], cuts, [R]]))
+        o = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+        real = _tiles(sizes, plan.bm) * plan.col_tiles
+        assert real <= plan.tiles * plan.col_tiles
+        walk, shared, steps = _wgmma_walk(o, plan)
+        assert sum(len(t) for t in walk.values()) == real
+        assert steps == -(-real // 2) and shared <= steps
+
+
+@pytest.mark.parametrize("tokens,k,E,N,dead,share", [
+    (4096, 4, 60, 1408, 3, 0.60),     # Qwen1.5-MoE-A2.7B gate / up
+    (4096, 4, 60, 2048, 3, 0.60),     # its down
+    (4096, 2, 8, 14336, 1, 0.90),     # Mixtral-8x7B gate / up
+])
+def test_wgmma_pairs_share_weights_at_the_served_prefill(tokens, k, E, N,
+                                                         dead, share):
+    """At phase 29's prefill shapes (top-k of random logits, the last
+    ``dead`` experts never picked) most steps of a cluster pair are two
+    row tiles of one (expert, column tile), whose weight boxes the kernel
+    multicasts: 67% at Qwen1.5-MoE's (3 row tiles an expert and column
+    tile), 97% at Mixtral's."""
+    rng = np.random.default_rng(tokens + E + N)
+    logits = rng.standard_normal((tokens, E))
+    logits[:, E - dead:] = -1e4
+    top = np.argsort(-logits, axis=1)[:, :k].reshape(-1)
+    o = np.concatenate([[0], np.cumsum(np.bincount(top, minlength=E))])
+    plan = gg.grouped_plan(tokens * k, E, N, torch.bfloat16, 132)
+    _, shared, steps = _wgmma_walk(o.tolist(), plan)
+    assert shared / steps >= share, (shared, steps)

@@ -3,7 +3,8 @@
 card.
 
     python3 tools/port_step_ab.py OLD_CHECKOUT NEW_CHECKOUT [--rounds N]
-                                  [--trace | --serve | --evo | --ops]
+                                  [--trace | --serve | --evo | --ops |
+                                   --grouped]
 
 Runs the same work in each checkout, in turns old, new, new, old
 (``--rounds`` such pairs, 1 by default), each run in a process of its own
@@ -39,7 +40,14 @@ readings. Needs a CUDA card; exits non-zero if a run fails.
   recorded as refused): each by torch.profiler's device time and in a
   CUDA graph (ms a call); then phase 15's load-time quantize seconds of
   Llama-2-7B's int8 and int4 modes (``quantize_model_params`` on the
-  seeded weights).
+  seeded weights); then the grouped shapes below.
+- ``--grouped``: the grouped expert GEMM alone (``ragged_dot``, its
+  library built alone) at phase 29's shapes -- Qwen1.5-MoE-A2.7B (16 x
+  256 prompt tokens top-4 over 60 experts, 3 never picked; 2048 -> 1408
+  and back) and Mixtral-8x7B (top-2 over 8, 1 never picked; 4096 ->
+  14336 and back) at prefill, and both at a 16-token decode step -- with
+  ``torch._grouped_mm`` on the same inputs beside each, by torch.profiler
+  and in a CUDA graph (ms a call).
 """
 
 from __future__ import annotations
@@ -189,8 +197,51 @@ for mode in ("int8", "int4"):
     out[f"llama2_7b {mode} quantize s"] = time.perf_counter() - t0
     del params
     torch.cuda.empty_cache()
-print("AB " + json.dumps(out))
 """
+
+
+GROUPED = r"""
+from deepspeed_tpu_torch.moe import sharded_moe
+from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+# (name, tokens, k, E, K, N, experts never picked), inputs as
+# chip_smoke.time_grouped makes them
+for name, tokens, k, E, K, N, dead in (
+        ("qwen1p5_moe_prefill", 4096, 4, 60, 2048, 1408, 3),
+        ("qwen1p5_moe_prefill_down", 4096, 4, 60, 1408, 2048, 3),
+        ("mixtral_8x7b_prefill", 4096, 2, 8, 4096, 14336, 1),
+        ("mixtral_8x7b_prefill_down", 4096, 2, 8, 14336, 4096, 1),
+        ("qwen1p5_moe_decode", 16, 4, 60, 2048, 1408, 0),
+        ("mixtral_8x7b_decode", 16, 2, 8, 4096, 14336, 0)):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(sum(map(ord, name)))
+    logits = torch.randn(tokens, E, generator=gen, device="cuda")
+    if dead:
+        logits[:, E - dead:] = -1e4
+    top = torch.topk(logits, k, dim=-1).indices.reshape(-1)
+    off = sharded_moe.group_offsets(top, E)
+    x = torch.randn(tokens * k, K, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(E, K, N, generator=gen, device="cuda")
+         * K ** -0.5).bfloat16()
+    both(f"grouped {name}", lambda: gg.ragged_dot(x, w, off))
+    if hasattr(torch, "_grouped_mm"):
+        ends = off[1:].contiguous()
+        both(f"_grouped_mm {name}",
+             lambda: torch._grouped_mm(x, w, offs=ends))
+    del x, w
+    torch.cuda.empty_cache()
+"""
+
+RUN_GROUPED = r"""
+import json, torch, chip_smoke as c
+from deepspeed_tpu_torch.ops.kernels import _build
+_build.build(["grouped_gemm"])
+out = {}
+def both(name, fn):
+    out[name] = {"device_ms": c._device_ms(torch, fn, 20),
+                 "graph_ms": c._graph_ms(torch, [fn])}
+""" + GROUPED + 'print("AB " + json.dumps(out))\n'
+
+RUN_OPS += GROUPED + 'print("AB " + json.dumps(out))\n'
 
 
 def run(checkout: Path, script: str, trace: bool) -> dict:
@@ -210,8 +261,8 @@ def describe(name: str, r: dict, mode: str) -> str:
                 f"{r['tinyllama_decode_tok_s']:.1f} tok/s; Llama-2-7B bf16 "
                 f"prefill {r['llama7b_prefill_s']:.4f} s, decode "
                 f"{r['llama7b_decode_tok_s']:.1f} tok/s")
-    if mode == "ops":
-        return f"[ops ab] {name}: " + "; ".join(
+    if mode in ("ops", "grouped"):
+        return f"[{mode} ab] {name}: " + "; ".join(
             f"{op} {t:.4f}" if isinstance(t, float) else
             f"{op} refused ({t['refused']})" if "refused" in t else
             f"{op} device {t['device_ms']} graph {t['graph_ms']:.4f}"
@@ -239,13 +290,14 @@ def main(argv) -> int:
     if "--rounds" in argv:
         rounds = int(argv[argv.index("--rounds") + 1])
         args.remove(str(rounds))
-    modes = [m for m in ("serve", "evo", "ops") if f"--{m}" in argv]
+    modes = [m for m in ("serve", "evo", "ops", "grouped")
+             if f"--{m}" in argv]
     if len(args) != 2 or len(modes) > 1 or (modes and "--trace" in argv):
         print(__doc__, file=sys.stderr)
         return 2
     mode = modes[0] if modes else "train"
     script = {"train": RUN_TRAIN, "serve": RUN_SERVE, "evo": RUN_EVO,
-              "ops": RUN_OPS}[mode]
+              "ops": RUN_OPS, "grouped": RUN_GROUPED}[mode]
     old, new = (Path(a).resolve() for a in args)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
