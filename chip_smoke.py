@@ -436,6 +436,37 @@ bound and one library call:
              (prefill on the persistent wgmma kernel, decode on mma.sync;
              launches: that route's in the served run) and the host's µs
              a call; K1/K2 at both families' heads likewise.
+30. fleet   — serving telemetry, step attribution and the replica fleet
+             at Llama-2-7B's full width and depth (32 layers, bf16,
+             seeded; two replicas share the card, each with its own copy
+             of the weights and a KV pool of 200 blocks of 64). (a) One
+             engine with ``DSTPU_TELEMETRY=0``, then on: 16 x 512-token
+             prompts, 64 greedy tokens (31 by the depth-2 pipeline, 32 by
+             the decode loop); the streams identical; the token counter
+             equal to the tokens streamed, TTFT counted 16 times and TPOT
+             the rest; the attribution of the prefill, the pipelined
+             decode and the loop windows (plan, dispatch, device_execute,
+             commit_apply, host_gap in ms a step, closing within 1%), and
+             decode tok/s with telemetry on and off. (b) 32 requests in 4
+             groups sharing a 256-token preamble (64-token tails, 32 new)
+             through two mixed replicas behind the prefix-aware router:
+             each group on one replica, prefix hits on both, the streams
+             equal one engine's, the fleet histograms' counts the
+             replicas' sums. (c) The same through a prefill and a decode
+             specialist: every handed-off block gathered again at the
+             destination equals the copy the source sent (scales too),
+             the streams equal (b)'s; over an int8 pool again against an
+             int8 engine; handoff blocks, bytes and exposed seconds. (d)
+             A real SIGTERM (``PreemptionHandler``) on one replica between
+             decode rounds: the pool drains it and replays its sequences
+             on the other, the streams gapless and equal (b)'s, the
+             restart ledger written; a ``during_handoff_gather`` fault
+             keeps its sequence on the prefill replica, losing nothing and
+             leaking no block. (e) ``DSTPU_TRACE_DIR`` over a prefill and
+             a decode window: the exported Chrome trace holds the plan /
+             dispatch / commit ranges with K1 and K2 launched inside the
+             dispatch ranges. Then K1 and K2 at this phase's bf16 and int8
+             shapes against their plain versions, timed beside SDPA.
 
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
@@ -6681,6 +6712,651 @@ def phase_moe_serving(torch):
     return out, rows
 
 
+# ------------------------------------------------------------------ fleet
+
+# phase 30: fleet serving (A6's serving half) at Llama-2-7B's full width
+# and depth. (a): FLEET_SEQS prompts of FLEET_PROMPT tokens, FLEET_GEN
+# greedy tokens (the pipelined decode at depth 2, then FLEET_LOOP steps of
+# the decode loop); (b)-(d): FLEET_GROUPS groups of FLEET_PER_GROUP
+# requests sharing a FLEET_PRE-token preamble, a FLEET_TAIL-token tail,
+# FLEET_NEW greedy tokens in pool rounds of FLEET_ROUND
+FLEET_SEQS, FLEET_PROMPT, FLEET_GEN, FLEET_LOOP = 16, 512, 64, 32
+FLEET_GROUPS, FLEET_PER_GROUP = 4, 8
+FLEET_PRE, FLEET_TAIL, FLEET_NEW, FLEET_ROUND = 256, 64, 32, 8
+#: each replica's KV pool: a decode specialist holds every (b) request's
+#: chain privately (32 x 6 blocks of 64), ~6.7 GB at 7B in bf16
+FLEET_BLOCKS = 200
+FLEET_BLOCK = 64
+FLEET_DTYPE = "bfloat16"
+
+
+def _fleet_engine(torch, cfg, params, **kw):
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig)
+    maxb = -(-(FLEET_PROMPT + FLEET_GEN) // FLEET_BLOCK)
+    rcfg = RaggedInferenceConfig(
+        max_seqs=FLEET_GROUPS * FLEET_PER_GROUP, chunk_size=256,
+        block_size=FLEET_BLOCK, num_blocks=FLEET_BLOCKS,
+        max_blocks_per_seq=maxb, dtype=FLEET_DTYPE,
+        attention_impl="paged_flash", decode_loop_steps=FLEET_LOOP,
+        serve_pipeline_depth=2, prefix_cache=True, **kw)
+    return InferenceEngineV2(cfg, params, rcfg, device="cuda")
+
+
+def _attrib_ms(rep, steps):
+    """An attribution report's step-wall components in ms a step."""
+    comps = rep["components_s"]
+    return {c: comps[c] / steps * 1e3 for c in
+            ("plan", "dispatch", "device_execute", "commit_apply",
+             "host_gap")}
+
+
+def _slo_brief(rep):
+    """An SLO report without its histograms' buckets."""
+    out = {k: rep[k] for k in ("requests", "tokens_committed",
+                               "goodput_frac")}
+    for k in ("ttft_s", "tpot_s", "queue_wait_s"):
+        out[k] = {q: rep[k][q] for q in ("count", "p50", "p99")}
+    return out
+
+
+def _fleet_tel_engine(torch, cfg, params, telemetry):
+    """(a)'s engine with telemetry on or off (``DSTPU_TELEMETRY`` at its
+    construction), warmed up by one short request through every path."""
+    import os
+    prev = os.environ.get("DSTPU_TELEMETRY")
+    os.environ["DSTPU_TELEMETRY"] = "1" if telemetry else "0"
+    try:
+        eng = _fleet_engine(torch, cfg, params)
+    finally:
+        if prev is None:
+            os.environ.pop("DSTPU_TELEMETRY")
+        else:
+            os.environ["DSTPU_TELEMETRY"] = prev
+    if (eng.metrics is not None) != telemetry:
+        raise AssertionError(f"[fleet] telemetry {telemetry}: metrics "
+                             f"{eng.metrics}")
+    w = eng.put([900], [list(range(1, 81))], _greedy=True)
+    w2 = eng.decode_pipelined([900], [w[900]], 4)
+    eng.decode_batch([900], [w2[900][-1]], FLEET_LOOP)
+    eng.flush(900)
+    return eng
+
+
+def _fleet_run(torch, eng, prompts):
+    """(a) once: the prompts through ``put``, the pipelined decode, then
+    the decode loop, each window bracketed by registry snapshots (with
+    telemetry on: the counters checked against the streams and each
+    window's attribution). Returns (streams, record)."""
+    from deepspeed_tpu_torch.telemetry import attribution_report
+    telemetry = eng.metrics is not None
+    uids = list(range(len(prompts)))
+    snap = (lambda: eng.metrics.snapshot()) if telemetry else dict
+    n_pipe = FLEET_GEN - 1 - FLEET_LOOP
+    torch.cuda.synchronize()
+    s0, t0 = snap(), time.perf_counter()
+    first = eng.put(uids, prompts, _greedy=True)
+    torch.cuda.synchronize()
+    s1, t1 = snap(), time.perf_counter()
+    pipe = eng.decode_pipelined(uids, [first[u] for u in uids], n_pipe)
+    torch.cuda.synchronize()
+    s2, t2 = snap(), time.perf_counter()
+    loop = eng.decode_batch(uids, [pipe[u][-1] for u in uids], FLEET_LOOP)
+    torch.cuda.synchronize()
+    s3, t3 = snap(), time.perf_counter()
+    streams = [[first[u]] + pipe[u] + loop[u] for u in uids]
+    for u in uids:
+        eng.flush(u)
+    rec = {"telemetry": telemetry, "prefill_s": t1 - t0,
+           "decode_pipelined_s": t2 - t1, "decode_loop_s": t3 - t2,
+           "decode_tok_s": len(uids) * n_pipe / (t2 - t1),
+           "decode_loop_tok_s": len(uids) * FLEET_LOOP / (t3 - t2)}
+    if not telemetry:
+        if eng.slo_report() != {}:
+            raise AssertionError("[fleet] telemetry off: slo_report")
+        return streams, rec
+    c0, c3 = s0["counters"], s3["counters"]
+    h0, h3 = s0["histograms"], s3["histograms"]
+
+    def dc(k):
+        return c3.get(k, 0) - c0.get(k, 0)
+
+    def dh(k):
+        return h3.get(k, {}).get("count", 0) \
+            - h0.get(k, {}).get("count", 0)
+    total = sum(len(s) for s in streams)
+    rec["counters"] = {"tokens_committed": dc("serve_tokens_committed"),
+                       "ttft_count": dh("serve_ttft_s"),
+                       "tpot_count": dh("serve_tpot_s"),
+                       "tokens_streamed": total}
+    if (dc("serve_tokens_committed") != total
+            or dh("serve_ttft_s") != len(uids)
+            or dh("serve_tpot_s") != total - len(uids)):
+        raise AssertionError(f"[fleet] (a) counters {rec['counters']}")
+    pre_steps = s1["counters"]["serve_steps"] - c0.get("serve_steps", 0)
+    for name, a, b, n in (("prefill", s0, s1, pre_steps),
+                          ("decode", s1, s2, n_pipe),
+                          ("decode_loop", s2, s3, FLEET_LOOP)):
+        rep = attribution_report(b, a)
+        rec[f"attrib_{name}"] = {
+            "steps": n, "ms_per_step": _attrib_ms(rep, n),
+            "step_wall_ms": rep["step_wall_s"] / n * 1e3,
+            "closure_err_frac": rep["closure_err_frac"],
+            "dominant": rep["dominant"]}
+        if rep["closure_err_frac"] is None \
+                or rep["closure_err_frac"] >= 0.01:
+            raise AssertionError(f"[fleet] (a) {name} attribution "
+                                 f"does not close: {rep}")
+    rec["slo"] = _slo_brief(eng.slo_report())
+    return streams, rec
+
+
+def _fleet_prompts(vocab):
+    import numpy as np
+    rng = np.random.default_rng(31)
+    pres = [rng.integers(1, vocab, FLEET_PRE).tolist()
+            for _ in range(FLEET_GROUPS)]
+    return {u: pres[u % FLEET_GROUPS]
+            + rng.integers(1, vocab, FLEET_TAIL).tolist()
+            for u in range(FLEET_GROUPS * FLEET_PER_GROUP)}
+
+
+def _fleet_drive(pool, prompts, kill_at=None, kill=None):
+    """One group head a ``put`` (its preamble is cached when the next
+    request is placed), the rest in one ``put``, then decode rounds of
+    FLEET_ROUND; ``kill(streams)`` runs before round ``kill_at``. Returns
+    (streams, owners at admission, final owners)."""
+    toks, placed = {}, {}
+    heads = list(range(FLEET_GROUPS))
+    rest = [u for u in prompts if u not in heads]
+    for batch in [[u] for u in heads] + [rest]:
+        out = pool.put(batch, [prompts[u] for u in batch], _greedy=True)
+        for u in batch:
+            toks[u] = [int(out[u])]
+            placed[u] = pool.owner_of(u).replica_id
+    rounds = 0
+    while True:
+        live = [u for u in toks if len(toks[u]) < FLEET_NEW
+                and u in pool.state.sequences]
+        if not live:
+            break
+        if rounds == kill_at:
+            kill(toks)
+        outs = pool.decode_pipelined(live, [toks[u][-1] for u in live],
+                                     FLEET_ROUND)
+        for u in live:
+            toks[u].extend(outs[u][:FLEET_NEW - len(toks[u])])
+        rounds += 1
+    owners = {u: pool.owner_of(u).replica_id for u in toks}
+    for u in toks:
+        pool.flush(u)
+    return toks, placed, owners
+
+
+def _fleet_check_released(pool, what):
+    for r in pool.replicas():
+        e = r.engine
+        if r.state == "dead":
+            continue
+        if e.state.sequences or e.free_blocks != e.config.num_blocks:
+            raise AssertionError(
+                f"[fleet] {what}: {r.replica_id} holds "
+                f"{len(e.state.sequences)} sequences, "
+                f"{e.free_blocks} of {e.config.num_blocks} blocks free")
+        if e._prefix is not None:
+            e._prefix.check_invariants()
+
+
+def _fleet_disagg(torch, cfg, pa_, pb, prompts, want, kv=None):
+    """(c): a prefill specialist and a decode specialist; every handoff's
+    blocks gathered again at the destination and held against the copy
+    the source sent. Returns the record."""
+    from deepspeed_tpu_torch.serving import ReplicaPool
+    kw = {"kv_cache_dtype": kv} if kv else {}
+    pool = ReplicaPool([_fleet_engine(torch, cfg, pa_, **kw),
+                        _fleet_engine(torch, cfg, pb, **kw)],
+                       policy="prefix_aware", seed=0,
+                       roles=["prefill", "decode"])
+    dec = pool.replicas()[1].engine
+    adopt = dec.handoff_in
+    checked = {"sequences": 0, "blocks": 0}
+
+    def handoff_in(manifest, exposed_s=0.0):
+        res = adopt(manifest, exposed_s=exposed_s)
+        for rec in manifest["sequences"]:
+            if int(rec["uid"]) not in res["accepted"]:
+                continue
+            seq = dec.state.get(int(rec["uid"]))
+            rows, scales = dec.kv_cache.gather_blocks(seq.kv_blocks)
+            sent = rec["kv"] if isinstance(rec["kv"], tuple) \
+                else (rec["kv"], None)
+            ok = torch.equal(rows.cpu(), sent[0].cpu()) and (
+                (scales is None) == (sent[1] is None)) and (
+                scales is None or torch.equal(scales.cpu(),
+                                              sent[1].cpu()))
+            if not ok:
+                raise AssertionError(f"[fleet] (c) handoff of "
+                                     f"{rec['uid']} not bit-exact")
+            checked["sequences"] += 1
+            checked["blocks"] += int(rec["blocks"])
+        return res
+    dec.handoff_in = handoff_in
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, placed, owners = _fleet_drive(pool, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if toks != want:
+        bad = sum(toks[u] != want[u] for u in want)
+        raise AssertionError(f"[fleet] (c){' ' + kv if kv else ''}: {bad} "
+                             f"streams differ")
+    # each put prefilled on r0 and handed its sequences to r1 before
+    # returning: the caller sees them on r1 from the first decode on
+    if set(placed.values()) != {"r1"} or set(owners.values()) != {"r1"}:
+        raise AssertionError(f"[fleet] (c) placements {placed} {owners}")
+    pre_m = pool.replicas()[0].engine.metrics
+    dec_m = dec.metrics
+    exposed = dec_m.histogram("serve_handoff_exposed_s")
+    rec = {"handoff_seqs": pre_m.counter("serve_handoff_seqs").value,
+           "handoff_blocks": pre_m.counter("serve_handoff_blocks").value,
+           "handoff_bytes": pre_m.counter("serve_handoff_bytes").value,
+           "adopted": dec_m.counter("serve_handoff_seqs_in").value,
+           "exposed_s_total": exposed.sum, "exposed_count": exposed.count,
+           "bit_exact": checked, "wall_s": wall}
+    if rec["handoff_seqs"] != len(prompts) \
+            or checked["sequences"] != len(prompts) \
+            or checked["blocks"] != rec["handoff_blocks"]:
+        raise AssertionError(f"[fleet] (c) handoffs {rec}")
+    _fleet_check_released(pool, "(c)")
+    # the wrapper's closure holds the engine: drop it with the pool
+    del dec.handoff_in
+    del pool, dec, handoff_in
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _fleet_trace(torch, eng, vocab):
+    """(e): ``DSTPU_TRACE_DIR`` over a prefill of two fresh prompts and
+    one pipelined decode window; the exported Chrome trace must hold the
+    plan / dispatch / commit ranges, with the K1 and K2 launches inside
+    the dispatch ranges (by the launch's correlation id, or the range's
+    span on the device). Returns the record."""
+    import os
+    import tempfile
+    from deepspeed_tpu_torch.telemetry import maybe_trace, trace_path
+    import numpy as np
+    fresh = np.random.default_rng(32).integers(
+        1, vocab, (2, FLEET_PRE)).tolist()
+    tmp = tempfile.mkdtemp(prefix="fleet_trace_")
+    os.environ["DSTPU_TRACE_DIR"] = tmp
+    try:
+        with maybe_trace("fleet_decode") as on:
+            if not on:
+                raise AssertionError("[fleet] (e) tracing did not start")
+            f = eng.put([60, 61], fresh, _greedy=True)
+            eng.decode_pipelined([60, 61], [f[60], f[61]], 8)
+            torch.cuda.synchronize()
+        path = trace_path("fleet_decode")
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+        size = os.path.getsize(path)
+    finally:
+        os.environ.pop("DSTPU_TRACE_DIR", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    eng.flush(60)
+    eng.flush(61)
+    spans = {n: [e for e in events if e.get("ph") == "X"
+                 and e.get("cat") == "user_annotation"
+                 and e.get("name") == n]
+             for n in ("plan", "dispatch", "commit")}
+    gpu_spans = [e for e in events if e.get("ph") == "X"
+                 and e.get("cat") == "gpu_user_annotation"
+                 and e.get("name") == "dispatch"]
+    kernels = {k: [e for e in events if e.get("cat") == "kernel"
+                   and k in e.get("name", "")]
+               for k in ("paged_prefill", "paged_decode")}
+    launches = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if corr is not None and e.get("cat") in ("cuda_runtime",
+                                                  "cuda_driver"):
+            launches[corr] = e
+
+    def inside(e, rng):
+        return any(r["ts"] <= e["ts"] <= r["ts"] + r["dur"]
+                   and (r.get("tid") == e.get("tid") or "tid" not in e)
+                   for r in rng)
+    rec = {"trace_bytes": size,
+           "spans": {n: len(v) for n, v in spans.items()},
+           "gpu_dispatch_spans": len(gpu_spans),
+           "launch_events": len(launches), "kernels": {}}
+    cats = sorted({str(e.get("cat")) for e in events})
+    for k, ks in kernels.items():
+        by_launch = sum(
+            1 for e in ks
+            if (e.get("args") or {}).get("correlation") in launches
+            and inside(launches[e["args"]["correlation"]],
+                       spans["dispatch"]))
+        by_device = sum(1 for e in ks if any(
+            r["ts"] <= e["ts"] and e["ts"] + e.get("dur", 0)
+            <= r["ts"] + r["dur"] for r in gpu_spans))
+        rec["kernels"][k] = {"events": len(ks),
+                             "launch_in_dispatch": by_launch,
+                             "device_in_dispatch": by_device}
+        if not ks or not (by_launch or by_device):
+            raise AssertionError(f"[fleet] (e) {k}: no launch inside a "
+                                 f"dispatch range: {rec}; categories "
+                                 f"{cats}")
+    if not all(spans.values()):
+        raise AssertionError(f"[fleet] (e) missing phase ranges: {rec}; "
+                             f"categories {cats}")
+    return rec
+
+
+def phase_fleet_serving(torch):
+    """Phase 30: serving telemetry, step attribution and the replica
+    fleet on the card at Llama-2-7B's full width and depth (module
+    docstring). Returns (out, rows)."""
+    import os
+    import signal
+    import tempfile
+    import numpy as np
+    from deepspeed_tpu_torch.checkpoint import init_llama_params
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    from deepspeed_tpu_torch.resilience import (DISAGG_FAULT_SITE,
+                                                FaultInjector,
+                                                PreemptionHandler,
+                                                RestartLedger,
+                                                set_fault_injector)
+    from deepspeed_tpu_torch.serving import ReplicaPool
+    cfg = LlamaConfig.llama2_7b(dtype=torch.bfloat16)
+    # two replicas, each with its own copy of the same seeded weights
+    pa_ = init_llama_params(cfg, seed=30, device="cuda")
+    pb = init_llama_params(cfg, seed=30, device="cuda")
+    out = {"model": "Llama-2-7B, 32 layers, bf16, seeded (seed 30)",
+           "reduced": "none"}
+    launches = {}
+
+    def count(part):
+        launches[part] = {**pa.LAUNCHES,
+                          "int8": pa.ROUTE_LAUNCHES["int8"]}
+        pa.reset_launch_counts()
+
+    # (a) one engine with telemetry off and one with it on, in turns
+    # (off, on, on, off) over two prompt sets
+    rng = np.random.default_rng(30)
+    psets = [rng.integers(1, cfg.vocab_size,
+                          (FLEET_SEQS, FLEET_PROMPT)).tolist()
+             for _ in range(2)]
+    pa.reset_launch_counts()
+    engs = {False: _fleet_tel_engine(torch, cfg, pa_, False),
+            True: _fleet_tel_engine(torch, cfg, pa_, True)}
+    runs = []
+    for k, on in enumerate((False, True, True, False)):
+        streams, rec = _fleet_run(torch, engs[on], psets[k // 2])
+        runs.append((streams, rec))
+    for k in (0, 2):
+        if runs[k][0] != runs[k + 1][0]:
+            bad = sum(a != b for a, b in zip(runs[k][0], runs[k + 1][0]))
+            raise AssertionError(f"[fleet] (a) {bad} streams differ "
+                                 f"between telemetry on and off")
+    recs = [r for _, r in runs]
+    tok = {on: [r["decode_tok_s"] for r in recs if r["telemetry"] == on]
+           for on in (False, True)}
+    r_on = recs[1]
+    out["a"] = {"runs": recs, "streams_identical": True,
+                "decode_tok_s_on": tok[True], "decode_tok_s_off": tok[False],
+                "telemetry_tok_s_ratio": sum(tok[True]) / sum(tok[False])}
+    for r in (recs[1], recs[2]):
+        for name in ("prefill", "decode", "decode_loop"):
+            a = r[f"attrib_{name}"]
+            log(f"[fleet] (a) {name} attribution, ms a step over "
+                f"{a['steps']} steps: "
+                + ", ".join(f"{c} {v:.3f}"
+                            for c, v in a["ms_per_step"].items())
+                + f"; wall {a['step_wall_ms']:.3f}, closure_err_frac "
+                  f"{a['closure_err_frac']:.2e}, dominant {a['dominant']}")
+    log(f"[fleet] (a) decode tok/s in turns off, on, on, off: "
+        + ", ".join(f"{r['decode_tok_s']:.1f}" for r in recs)
+        + f" (on / off {out['a']['telemetry_tok_s_ratio']:.4f}); loop "
+        + ", ".join(f"{r['decode_loop_tok_s']:.1f}" for r in recs)
+        + "; prefill s " + ", ".join(f"{r['prefill_s']:.4f}" for r in recs)
+        + f"; counters {r_on['counters']}")
+    eng = engs[True]
+    del engs
+    # (e) spans on the card, on the same engine
+    out["e"] = _fleet_trace(torch, eng, cfg.vocab_size)
+    log(f"[fleet] (e) trace: {out['e']}")
+    del eng
+    torch.cuda.empty_cache()
+    count("a_e")
+
+    # (b) two mixed replicas behind the prefix-aware router, against one
+    # engine serving the same calls
+    fprompts = _fleet_prompts(cfg.vocab_size)
+    one = ReplicaPool([_fleet_engine(torch, cfg, pa_)], seed=0)
+    want, _, _ = _fleet_drive(one, fprompts)
+    _fleet_check_released(one, "(b) one engine")
+    del one
+    torch.cuda.empty_cache()
+    pool = ReplicaPool([_fleet_engine(torch, cfg, pa_),
+                        _fleet_engine(torch, cfg, pb)],
+                       policy="prefix_aware", seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, placed, owners = _fleet_drive(pool, fprompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if toks != want:
+        bad = sum(toks[u] != want[u] for u in want)
+        raise AssertionError(f"[fleet] (b) {bad} streams differ from one "
+                             f"engine's")
+    groups = {g: sorted({placed[u] for u in fprompts
+                         if u % FLEET_GROUPS == g})
+              for g in range(FLEET_GROUPS)}
+    hits = {r.replica_id: r.engine.prefix_stats["matched_tokens"]
+            for r in pool.replicas()}
+    if any(len(v) != 1 for v in groups.values()) \
+            or not all(hits.values()):
+        raise AssertionError(f"[fleet] (b) routing {groups}, hits {hits}")
+    snap = pool.fleet_snapshot()
+    per = [r.engine.metrics.snapshot()["histograms"]
+           for r in pool.replicas()]
+    for name, h in snap["histograms"].items():
+        if h["count"] != sum(p.get(name, {"count": 0})["count"]
+                             for p in per):
+            raise AssertionError(f"[fleet] (b) rollup {name}")
+    out["b"] = {"groups": groups, "prefix_hit_tokens": hits,
+                "wall_s": wall, "streams_equal_one_engine": True,
+                "fleet_slo": _slo_brief(pool.slo_report()),
+                "tokens": sum(len(t) for t in toks.values())}
+    _fleet_check_released(pool, "(b)")
+    log(f"[fleet] (b) groups {groups}, prefix-hit tokens {hits}, "
+        f"{out['b']['tokens']} tokens in {wall:.3f} s; streams equal one "
+        f"engine's; fleet histogram counts = the replicas' sums")
+    del pool
+    torch.cuda.empty_cache()
+    count("b")
+
+    # (c) disaggregated: prefill on r0, decode on r1, over bf16 and int8
+    out["c"] = {"bf16": _fleet_disagg(torch, cfg, pa_, pb, fprompts, want)}
+    count("c_bf16")
+    one = ReplicaPool([_fleet_engine(torch, cfg, pa_,
+                                     kv_cache_dtype="int8")], seed=0)
+    want8, _, _ = _fleet_drive(one, fprompts)
+    del one
+    torch.cuda.empty_cache()
+    out["c"]["int8"] = _fleet_disagg(torch, cfg, pa_, pb, fprompts, want8,
+                                     kv="int8")
+    count("c_int8")
+    for k, r in out["c"].items():
+        log(f"[fleet] (c) {k}: {r['handoff_seqs']} sequences handed off, "
+            f"{r['handoff_blocks']} blocks, {r['handoff_bytes']} bytes, "
+            f"exposed {r['exposed_s_total']:.4f} s over "
+            f"{r['exposed_count']} transfers; bit-exact "
+            f"{r['bit_exact']}; wall {r['wall_s']:.3f} s")
+
+    # (d) elastic: a real SIGTERM on r0 mid-decode; then a fault in the
+    # handoff gather
+    tmp = tempfile.mkdtemp(prefix="fleet_ledger_")
+    ledger_path = os.path.join(tmp, "ledger.json")
+    try:
+        pool = ReplicaPool([_fleet_engine(torch, cfg, pa_),
+                            _fleet_engine(torch, cfg, pb)],
+                           policy="prefix_aware", seed=0,
+                           ledger=RestartLedger(ledger_path))
+        handler = PreemptionHandler()
+        pool.replicas()[0].engine.attach_preemption(handler)
+        at_kill = {}
+
+        def kill(streams):
+            # the streams as they stand, and who owns each, at the signal
+            at_kill.update({u: (list(t), pool.owner_of(u).replica_id)
+                            for u, t in streams.items()})
+            os.kill(os.getpid(), signal.SIGTERM)
+        try:
+            toks, _, owners = _fleet_drive(pool, fprompts, kill_at=1,
+                                           kill=kill)
+        finally:
+            handler.uninstall()
+        r0 = pool.replicas()[0]
+        with open(ledger_path) as fh:
+            events = [e["event"] for e in json.load(fh)["events"]]
+        if not handler.preempted or r0.state != "dead" \
+                or not r0.manifest["pool"]["fully_recovered"] \
+                or set(owners.values()) != {"r1"} \
+                or "fleet_drain" not in events \
+                or "fleet_replay" not in events:
+            raise AssertionError(f"[fleet] (d) absorb: {r0.state} "
+                                 f"{owners} {events}")
+        drained = sorted(u for u, (_, o) in at_kill.items() if o == "r0")
+        stayed = sorted(u for u in fprompts if u not in drained)
+        # gapless: every stream whole, nothing emitted before the signal
+        # changed; the survivor's own streams as (b)'s
+        if any(len(toks[u]) != FLEET_NEW for u in toks) or any(
+                toks[u][:len(at_kill[u][0])] != at_kill[u][0]
+                or at_kill[u][0] != want[u][:len(at_kill[u][0])]
+                for u in toks) or any(toks[u] != want[u] for u in stayed):
+            raise AssertionError(f"[fleet] (d) streams after the absorb: "
+                                 f"{ {u: (toks[u], want[u]) for u in toks} }")
+        # the drained streams continue as the same manifest replayed on
+        # one fresh engine, driven in the same rounds
+        ref = ReplicaPool([_fleet_engine(torch, cfg, pa_)], seed=0)
+        for u, t in ref.replay_manifest(r0.manifest).items():
+            ref._stash_replay(u, t)
+        ref_toks = {u: list(at_kill[u][0]) for u in drained}
+        while True:
+            live = [u for u in drained if len(ref_toks[u]) < FLEET_NEW]
+            if not live:
+                break
+            res = ref.decode_pipelined(
+                live, [ref_toks[u][-1] for u in live], FLEET_ROUND)
+            for u in live:
+                ref_toks[u].extend(res[u][:FLEET_NEW - len(ref_toks[u])])
+        if any(toks[u] != ref_toks[u] for u in drained):
+            raise AssertionError(f"[fleet] (d) the drained streams differ "
+                                 f"from the manifest's replay on one "
+                                 f"engine")
+        for u in drained:
+            ref.flush(u)
+        _fleet_check_released(ref, "(d) replay reference")
+        del ref
+        # and against (b)'s uninterrupted streams: a replay re-prefills
+        # the generated tokens, which bf16 need not round as the decode
+        # steps that first wrote them did
+        first_diff = {u: next((i for i, (a, b) in enumerate(
+            zip(toks[u], want[u])) if a != b), None) for u in drained}
+        out["d"] = {"drained_sequences": len(r0.manifest["sequences"]),
+                    "drained": drained, "ledger_events": events,
+                    "tokens_at_signal": {u: len(at_kill[u][0])
+                                         for u in drained},
+                    "streams_whole": True,
+                    "stayed_equal_b": True,
+                    "drained_equal_replay_on_one_engine": True,
+                    "drained_equal_b": sum(v is None
+                                           for v in first_diff.values()),
+                    "drained_first_token_differing_from_b": first_diff,
+                    "drained_token_agreement_with_b": float(np.mean([
+                        a == b for u in drained
+                        for a, b in zip(toks[u], want[u])]))}
+        _fleet_check_released(pool, "(d)")
+        # the signal's closure holds the pool: both go
+        del pool, r0, kill
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    pool = ReplicaPool([_fleet_engine(torch, cfg, pa_),
+                        _fleet_engine(torch, cfg, pb)],
+                       policy="prefix_aware", seed=0,
+                       roles=["prefill", "decode"])
+    inj = FaultInjector(site=DISAGG_FAULT_SITE, mode="raise", times=1)
+    set_fault_injector(inj)
+    try:
+        toks, placed, owners = _fleet_drive(pool, fprompts)
+    finally:
+        set_fault_injector(None)
+    if inj._fired != 1 or toks != want or owners[0] != "r0" \
+            or set(owners[u] for u in fprompts if u) != {"r1"}:
+        raise AssertionError(f"[fleet] (d) aborted handoff: fired "
+                             f"{inj._fired}, owners {owners}")
+    _fleet_check_released(pool, "(d) fault")
+    out["d"]["aborted_handoff"] = {"fired": inj._fired,
+                                   "kept_on_prefill": [0],
+                                   "streams_equal_b": True}
+    d = out["d"]
+    log(f"[fleet] (d) SIGTERM on r0 between decode rounds: "
+        f"{d['drained_sequences']} sequences drained and replayed on r1; "
+        f"every stream whole, the survivor's own {len(stayed)} equal "
+        f"(b)'s, the drained equal the manifest's replay on one engine; "
+        f"against (b): {d['drained_equal_b']} of {len(drained)} drained "
+        f"streams equal, token agreement "
+        f"{d['drained_token_agreement_with_b']:.4f}, first differing "
+        f"token {d['drained_first_token_differing_from_b']}; ledger "
+        f"{events}. A during_handoff_gather fault kept uid 0 on r0, lost "
+        f"nothing, leaked no block, streams equal (b)'s")
+    del pool
+    torch.cuda.empty_cache()
+    count("d")
+    out["launches"] = launches
+    log(f"[fleet] launches {launches}")
+    for part, n in launches.items():
+        if not (n["paged_prefill"] and n["paged_decode"]):
+            raise AssertionError(f"[fleet] {part}: K1 / K2 not launched: "
+                                 f"{n}")
+    del pa_, pb
+    torch.cuda.empty_cache()
+    # K1 / K2 at this phase's shapes against their plain versions, timed
+    maxb = -(-(FLEET_PROMPT + FLEET_GEN) // FLEET_BLOCK)
+    bf = {k: sum(v[k] for p, v in launches.items() if p != "c_int8")
+          for k in ("paged_prefill", "paged_decode")}
+    i8 = launches["c_int8"]
+    trng = np.random.default_rng(300)
+    rows = []
+    for name, C, ctx, S, quant, n, src in (
+            ("paged_prefill", 256, FLEET_PROMPT, FLEET_SEQS, False,
+             bf["paged_prefill"], "(a)-(e) over bf16 pools"),
+            ("paged_decode", 1, FLEET_PROMPT + FLEET_GEN // 2, FLEET_SEQS,
+             False, bf["paged_decode"], "(a)-(e) over bf16 pools"),
+            ("paged_prefill", FLEET_TAIL, FLEET_PRE + FLEET_TAIL,
+             FLEET_GROUPS * FLEET_PER_GROUP - FLEET_GROUPS, True,
+             i8["paged_prefill"], "(c) over int8 pools"),
+            ("paged_decode", 1, FLEET_PRE + FLEET_TAIL + FLEET_NEW // 2,
+             FLEET_GROUPS * FLEET_PER_GROUP, True, i8["paged_decode"],
+             "(c) over int8 pools")):
+        t = time_paged(torch, trng, name, S=S, C=C, ctx=ctx,
+                       block_size=FLEET_BLOCK, maxb=maxb,
+                       heads=(32, 32, 128), quant=quant,
+                       bf16_max_abs=PAGED7_BF16_MAX_ABS)
+        rows.append({"name": f"{name}_fleet_7b" + ("_int8" if quant
+                                                    else ""),
+                     "route": "cuda", "source": SOURCE,
+                     "replaces": REPLACES[name], "launches": n,
+                     "launches_from": f"phase 30, Llama-2-7B, {src}", **t})
+        torch.cuda.empty_cache()
+    return out, rows
+
+
 def main(argv) -> int:
     unknown = [a for a in argv
                if a not in ("--trace", "--fp6-sweep", "--norm-sweep",
@@ -6776,6 +7452,8 @@ def main(argv) -> int:
     rows += family_rows
     moe, moe_rows = run(phase_moe_serving, torch)
     rows += moe_rows
+    fleet, fleet_rows = run(phase_fleet_serving, torch)
+    rows += fleet_rows
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     result = {"kernels": rows, "card": card, "phase_s": phase_s,
               "serving": {k: serving[k] for k in
@@ -6793,7 +7471,8 @@ def main(argv) -> int:
               "kv_pool": {k: v for k, v in kv_pool.items() if k != "timing"},
               "hf_serving": hf, "prefix_serving": prefix,
               "gpt2_serving": gpt2, "spec_decoding": spec,
-              "family_serving": families, "moe_serving": moe}
+              "family_serving": families, "moe_serving": moe,
+              "fleet_serving": fleet}
     if trace is not None:
         result["trace"] = trace
         result["train_trace"] = train["trace"]

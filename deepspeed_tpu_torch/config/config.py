@@ -313,8 +313,8 @@ class Config(ConfigModel):
         if self.resilience.watchdog.enabled \
                 or self.resilience.preemption.enabled:
             raise NotImplementedError(
-                "the step watchdog and preemption are not ported "
-                "(ROADMAP A6)")
+                "the training engine's step watchdog and preemption are "
+                "not ported (ROADMAP A7.1; the serving engine has both)")
 
     # ------------------------------------------------------------------ #
     # batch-size resolution: train_batch = micro * gas * dp_world

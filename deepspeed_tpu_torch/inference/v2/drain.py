@@ -172,8 +172,9 @@ def build_manifest(engine) -> Dict[str, Any]:
             # sampling identity restored (seed + position-folded keys)
             "sampling": seq.sampling.to_dict()
             if seq.sampling is not None else None,
-            # the fleet trace context: the port has no tracing yet (A6)
-            "trace": None,
+            # the fleet trace context: the survivor's replay spans join
+            # the same logical track
+            "trace": seq.trace_id,
             "scheduler": engine.scheduler.describe(seq),
         })
     return {

@@ -48,14 +48,27 @@ token is committed, and the rest is rolled back by ``trim_blocks``. The
 streams are those of non-speculative greedy decode.
 
 The runner comes from the model config (``_runner_for``): the Llama,
-GPT-2, OPT, BLOOM, GPT-NeoX, GPT-J, Falcon and Phi runners. Telemetry
-(``slo_report``), the watchdog and fault injection (A6) are not ported.
+GPT-2, OPT, BLOOM, GPT-NeoX, GPT-J, Falcon and Phi runners.
+
+Telemetry (``telemetry/serve.py``; off with ``DSTPU_TELEMETRY=0``): the
+observer ``_obs`` turns the plan / dispatch / commit boundaries into
+the registry (:attr:`metrics`: TTFT, TPOT, queue wait, outcome counters,
+step-time attribution) and the flight ring (:attr:`flight`), and
+:meth:`slo_report` summarises them. The watchdog (``attach_watchdog``,
+or ``DSTPU_SERVE_WATCHDOG=1``) names the phase a stalled step hung in;
+the fault sites ``pre_dispatch``, ``mid_commit``,
+``during_prefill_chunk``, ``during_cow_copy`` and
+``during_handoff_gather`` fire through ``resilience.fault_injection``.
+``handoff_out`` / ``handoff_in`` move a prefilled sequence's KV block
+chain and identity to another engine (``serving/pool.py``'s
+prefill -> decode handoff).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -63,6 +76,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...resilience.fault_injection import get_fault_injector
+from ...telemetry.serve import serve_observer
 from ...utils.device import resolve_device
 from ...utils.dtypes import resolve_dtype
 from .blocked_allocator import OutOfBlocksError
@@ -269,6 +284,16 @@ class InferenceEngineV2:
         self.spec_stats = {"rounds": 0, "proposed": 0, "accepted": 0,
                            "propose_s": 0.0, "verify_s": 0.0,
                            "commit_s": 0.0}
+        #: the serve loop's StepWatchdog (attach_watchdog)
+        self._watchdog = None
+        if os.environ.get("DSTPU_SERVE_WATCHDOG") == "1":
+            from ...resilience.watchdog import StepWatchdog
+            self._watchdog = StepWatchdog(action="log")
+        #: the telemetry observer (telemetry/serve.py; None with
+        #: DSTPU_TELEMETRY=0): per-request SLO metrics, step-time
+        #: attribution and the phase flight recorder, recorded at the
+        #: host-side boundaries this loop already owns
+        self._obs = serve_observer(self)
 
     # ------------------------------------------------------------------ #
     # reference-parity surface
@@ -279,7 +304,8 @@ class InferenceEngineV2:
             _greedy: bool = False,
             arrivals: Optional[Dict[int, float]] = None,
             deadlines: Optional[Dict[int, float]] = None,
-            sampling: Optional[Dict[int, SamplingParams]] = None
+            sampling: Optional[Dict[int, SamplingParams]] = None,
+            traces: Optional[Dict[int, str]] = None
             ) -> Dict[int, Any]:
         """Feed tokens, run scheduled steps until all fed work is consumed,
         and return {uid: last-token logits (numpy [V] fp32)} for sequences
@@ -300,8 +326,12 @@ class InferenceEngineV2:
         returned dict. ``arrivals`` maps uid -> its ``time.monotonic()``
         arrival, the anchor of its deadline; ``deadlines`` maps uid -> a
         deadline in seconds (overriding ``request_deadline_s``). Both
-        apply to fresh sequences. With ``prefix_cache`` a fresh prompt
-        first takes its longest cached chain."""
+        apply to fresh sequences (``arrivals`` is also the telemetry
+        admission stamp). ``traces`` maps uid -> a fleet-wide trace id
+        (``ReplicaPool.put`` mints them), attached at admission, tagged
+        onto the request's flight spans and carried by the drain
+        manifest. With ``prefix_cache`` a fresh prompt first takes its
+        longest cached chain."""
         admitted: List[int] = []
         bs = self.config.block_size
         for uid, toks in zip(batch_uids, batch_tokens):
@@ -331,7 +361,15 @@ class InferenceEngineV2:
                 sp = sampling.get(uid) if sampling else None
                 if sp is not None:
                     seq.sampling = sp
+                tid = traces.get(uid) if traces else None
+                if tid is not None:
+                    # before on_admit: the admit span carries the trace
+                    seq.trace_id = tid
                 arrived = arrivals.get(uid) if arrivals else None
+                if self._obs is not None:
+                    self._obs.on_admit(
+                        seq, arrived if arrived is not None
+                        else time.monotonic())
                 dl = deadlines.get(uid) if deadlines else None
                 if dl is None and self.request_deadline_s > 0:
                     dl = self.request_deadline_s
@@ -348,7 +386,8 @@ class InferenceEngineV2:
                     self.journal.admit(uid, seq.prompt_log,
                                        sampling=seq.sampling.to_dict()
                                        if seq.sampling is not None
-                                       else None)
+                                       else None,
+                                       trace=seq.trace_id)
             if self._prefix is not None:
                 self._match_prefix(seq)
         done: Dict[int, Any] = {}
@@ -374,13 +413,21 @@ class InferenceEngineV2:
         ``pipeline_stats["promote_wait_s"]`` is the host time enqueuing
         the promotion takes."""
         plan = self.state.match_prefix(seq)
+        if plan:
+            # fault site: a replica dying between the match (the table
+            # already points at shared blocks) and the CoW copies
+            get_fault_injector().maybe_fire("during_cow_copy")
         for src, dst in plan.copies:
             self.kv_cache.copy_block(src, dst)
         if plan.promotes:
             t0 = time.perf_counter()
             self.kv_cache.promote_blocks(plan.promotes)
-            self.pipeline_stats["promote_wait_s"] += \
-                time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.pipeline_stats["promote_wait_s"] += dt
+            if self._obs is not None:
+                # promoted_blocks, not len(promotes): a host-tier CoW
+                # tail is copied without flipping its source entry
+                self._obs.on_promote(plan.promoted_blocks, dt)
 
     def _register_prefix(self, batch_uids) -> None:
         """Insert this put() call's prefilled prompt blocks into the cache
@@ -452,50 +499,89 @@ class InferenceEngineV2:
         applies the oldest step; ``on_dispatch(plan, fl)`` runs after each
         dispatch. Once draining (``request_drain`` or an attached
         preemption flag), no step is planned, every dispatched step is
-        committed, and the loop returns."""
+        committed, and the loop returns. The watchdog brackets each
+        iteration and names its phases; the telemetry observer's
+        attribution window is the whole loop."""
         depth = max(1, self.pipeline_depth)
         ring: deque = deque()
+        wd = self._watchdog
+        obs = self._obs
         self._live_ring = ring
+        if obs is not None:
+            # step-time attribution window: everything until the loop
+            # exit is accounted, the unbracketed residual as host gap
+            obs.on_loop_enter()
         try:
             while ring or (work_left() and not self._draining()):
-                while len(ring) < depth and not self._draining() \
-                        and work_left():
-                    self._expire_deadlines()
-                    self._try_resume()
-                    plan = make_plan()
-                    if plan is None:
+                if wd is not None:
+                    wd.step_start(self._step_counter)
+                try:
+                    while len(ring) < depth and not self._draining() \
+                            and work_left():
+                        self._expire_deadlines()
+                        self._try_resume()
+                        if wd is not None:
+                            wd.phase("plan")
+                        if obs is not None:
+                            obs.phase("plan", self._step_counter)
+                        plan = make_plan()
+                        if plan is None:
+                            break
+                        if wd is not None:
+                            wd.phase("dispatch")
+                        if obs is not None:
+                            obs.phase("dispatch", self._step_counter)
+                        fl = self._dispatch_with_retry(plan)
+                        ring.append(fl)
+                        if on_dispatch is not None:
+                            on_dispatch(plan, fl)
+                    if ring:
+                        commit_one(ring)
+                        continue
+                    if self._draining():
                         break
-                    fl = self._dispatch_with_retry(plan)
-                    ring.append(fl)
-                    if on_dispatch is not None:
-                        on_dispatch(plan, fl)
-                if ring:
-                    commit_one(ring)
-                    continue
-                if self._draining():
-                    break
-                if not work_left():
-                    # an expiry or abort cleared the last pending work
-                    continue
-                if not self._relieve_kv_pressure() \
-                        and not self._shed_starved():
-                    raise RuntimeError(
-                        "scheduler starved: KV pool too small even after "
-                        "pausing all idle sequences "
-                        f"(free blocks={self.kv_cache.free_blocks})")
+                    if not work_left():
+                        # an expiry or abort cleared the last pending work
+                        continue
+                    if not self._relieve_kv_pressure() \
+                            and not self._shed_starved():
+                        raise RuntimeError(
+                            "scheduler starved: KV pool too small even "
+                            "after pausing all idle sequences "
+                            f"(free blocks={self.kv_cache.free_blocks})")
+                except BaseException:
+                    if wd is not None:
+                        wd.step_abort()
+                    raise
+                finally:
+                    if wd is not None:
+                        wd.step_end(self._step_counter)
+                    if obs is not None:
+                        # close the open flight span at the boundary
+                        obs.phase("idle")
         finally:
             self._live_ring = None
+            if obs is not None:
+                obs.on_loop_exit()
 
     # ------------------------------------------------------------------ #
     # serve-side resilience: drain / replay / abort / shed / deadlines
     # ------------------------------------------------------------------ #
 
     def attach_preemption(self, handler) -> None:
-        """Poll ``handler.preempted`` inside the serve loop: once it is
-        true the pipeline stops planning, commits everything in flight
-        and returns; the caller then runs :meth:`drain`. (The signal
-        handler itself is A6.)"""
+        """Poll ``handler.preempted`` inside the serve loop (a
+        :class:`~...resilience.preemption.PreemptionHandler`, or any
+        object with a boolean ``preempted``): once it is true the
+        pipeline stops planning, commits everything in flight and
+        returns; the caller then runs :meth:`drain`."""
         self.preemption = handler
+
+    def attach_watchdog(self, wd) -> None:
+        """Cover the serve loop with a
+        :class:`~...resilience.watchdog.StepWatchdog`: each pipeline
+        iteration is bracketed and its plan / dispatch / commit phases
+        named, so a stalled step's diagnosis says where it hung."""
+        self._watchdog = wd
 
     def request_drain(self) -> None:
         """Put the engine into draining mode (idempotent): no new
@@ -512,13 +598,18 @@ class InferenceEngineV2:
 
     def _reject(self, uid: int, reason: str, **fields) -> None:
         """Record a structured rejection (load shed / deadline / drain
-        refusal): the crash-free failure path a serving layer turns into
-        a retriable response."""
-        # the JAX record's shape: retry_after_s is set by an admission
-        # controller (A6), None here
+        refusal / admission door): the crash-free failure path a serving
+        layer turns into a retriable response."""
+        # retry_after_s is first-class in the record (None unless the
+        # admission controller's door rejection sets it)
         rec = {"uid": uid, "reason": reason, "time": time.time(),
-               "retry_after_s": None, **fields}
+               "retry_after_s": fields.pop("retry_after_s", None),
+               **fields}
         self.rejections[uid] = rec
+        if self._obs is not None:
+            seq = self.state.get(uid)
+            self._obs.on_reject(reason, uid,
+                                seq.trace_id if seq is not None else None)
         logger.warning(f"serve rejection uid={uid}: {reason} "
                        + (str(fields) if fields else ""))
 
@@ -575,6 +666,8 @@ class InferenceEngineV2:
             return False
         if seq.status is SequenceStatus.FINISHED:
             return True                    # already cancelled
+        if self._obs is not None:
+            self._obs.on_abort(uid in self.rejections)
         seq.pending_tokens.clear()
         seq.spec_pending = 0
         seq.status = SequenceStatus.FINISHED   # the scheduler skips it
@@ -598,8 +691,12 @@ class InferenceEngineV2:
 
     def _flush_uid(self, uid: int) -> None:
         """The one engine-level release path (flush, deferred abort,
-        drain): journal the finish, then free through the state manager
-        (shared blocks decref'd, private blocks to the allocator)."""
+        drain): count the outcome, journal the finish, then free through
+        the state manager (shared blocks decref'd, private blocks to the
+        allocator)."""
+        if self._obs is not None:
+            self._obs.on_flush(self.state.get(uid),
+                               uid in self.rejections, self._draining())
         if self.journal is not None and self.state.get(uid) is not None:
             self.journal.finish(uid)
         if self._proposer is not None:
@@ -613,19 +710,21 @@ class InferenceEngineV2:
         """Cooperative drain: stop admitting, snapshot every live
         sequence into a replay manifest (uid, prompt, tokens generated so
         far, scheduler state), release all engine state, and publish the
-        manifest atomically at ``path`` if given. Call with no steps in
-        flight (after the interrupted engine call returned). Returns the
-        manifest; ``pool`` says whether every block came back. The
-        restart ledger (``ledger``) is A6."""
-        if ledger is not None:
-            raise NotImplementedError(
-                "drain(ledger=...): the restart ledger is not ported yet "
-                "(A6)")
+        manifest atomically at ``path`` if given. Appends a
+        ``serve_drain`` record to ``ledger`` (a
+        :class:`~...resilience.ledger.RestartLedger`, or one at
+        ``DSTPU_RESTART_LEDGER``). With telemetry on, the manifest
+        carries the SLO report (``telemetry``) and the flight ring
+        records the drain span (and is dumped under
+        ``DSTPU_FLIGHT_DIR``). Call with no steps in flight (after the
+        interrupted engine call returned). Returns the manifest;
+        ``pool`` says whether every block came back."""
         if self._live_ring is not None:
             raise ServeDrainError(
                 "drain() called with steps in flight — request_drain() "
                 "and let the interrupted engine call return first")
         self.request_drain()
+        t_drain0 = time.perf_counter()
         # land pending demotion copies: the host tier survives the drain
         self.kv_cache.finalize_demotions()
         manifest = build_manifest(self)
@@ -643,9 +742,24 @@ class InferenceEngineV2:
             "fully_recovered": free == self.config.num_blocks,
         }
         manifest["rejections"] = list(self.rejections.values())
+        if self._obs is not None:
+            # the drain span and the SLO report, attached before the
+            # publish so the file carries it too
+            self._obs.flight.record("drain", t_drain0,
+                                    time.perf_counter(),
+                                    step=self._step_counter)
+            self._obs.on_drain(manifest)
         if path:
             write_manifest(manifest, path)
             manifest["path"] = path
+        if ledger is None and os.environ.get("DSTPU_RESTART_LEDGER"):
+            from ...resilience.ledger import RestartLedger
+            ledger = RestartLedger(os.environ["DSTPU_RESTART_LEDGER"])
+        if ledger is not None:
+            ledger.record("serve_drain",
+                          sequences=len(manifest["sequences"]),
+                          manifest=path,
+                          fully_recovered=manifest["pool"]["fully_recovered"])
         return manifest
 
     def replay(self, manifest: Dict[str, Any]) -> Dict[int, Any]:
@@ -653,8 +767,9 @@ class InferenceEngineV2:
         ``prompt + generated`` and is prefilled (with the prefix cache,
         mostly as hits), and the returned ``{uid: next token}`` is the one
         the uninterrupted run would have emitted next. Sampled sequences
-        keep their SamplingParams. The sequences stay live, with their
-        prompt/generated split restored."""
+        keep their SamplingParams, traced ones their trace id. The
+        sequences stay live, with their prompt/generated split
+        restored."""
         if self._draining():
             raise EngineDrainingError(
                 "replay() on a draining engine — replay belongs on the "
@@ -664,7 +779,19 @@ class InferenceEngineV2:
         chains = [list(r["prompt"]) + list(r["generated"]) for r in recs]
         sp_map = {int(r["uid"]): SamplingParams.from_dict(r["sampling"])
                   for r in recs if r.get("sampling")}
-        out = self.put(uids, chains, _greedy=True, sampling=sp_map or None)
+        # the trace context survives the membership change: the replayed
+        # request's spans join the track its first replica started
+        tr_map = {int(r["uid"]): r["trace"]
+                  for r in recs if r.get("trace")}
+        if self._obs is not None:
+            with self._obs.flight.span("replay", step=self._step_counter,
+                                       sequences=len(recs)):
+                out = self.put(uids, chains, _greedy=True,
+                               sampling=sp_map or None,
+                               traces=tr_map or None)
+        else:
+            out = self.put(uids, chains, _greedy=True,
+                           sampling=sp_map or None, traces=tr_map or None)
         for r in recs:
             seq = self.state.get(int(r["uid"]))
             if seq is not None:
@@ -685,6 +812,8 @@ class InferenceEngineV2:
             except (OSError, ConnectionError) as e:
                 attempt += 1
                 self.pipeline_stats["retries"] += 1
+                if self._obs is not None:
+                    self._obs.on_retry()
                 if attempt > self.serve_step_retries:
                     raise ServeStepError(
                         f"serve step dispatch failed {attempt} times; "
@@ -770,6 +899,137 @@ class InferenceEngineV2:
         seq.paused_blocks = 0
         seq.status = SequenceStatus.WAITING
 
+    # ------------------------------------------------------------------ #
+    # the disaggregated-serving handoff (serving/pool.py): a prefill
+    # replica hands a freshly prefilled sequence, its KV block chain and
+    # its replay identity, to a decode replica. The records are a
+    # superset of the drain manifest's, so a failed handoff falls back to
+    # replay from the same records.
+    # ------------------------------------------------------------------ #
+
+    def handoff_out(self, batch_uids: Sequence[int]) -> Dict[str, Any]:
+        """Snapshot and release sequences for migration to another
+        engine. For each uid with no pending work, gather its exact KV
+        block chain (``kv_cache.gather_blocks``: one indexing copy on the
+        stream, rows block-major, an int8 pool's scales with them) and
+        build a record with its full replay identity: prompt / generated
+        split, sampling, trace context, logprobs, deadline and telemetry
+        stamps. Only once every record is built are the sources released
+        (journal finish, proposer drop, ``state.flush``), without counting
+        an outcome: the request goes on at the destination. A fault in
+        the gather loop (the ``during_handoff_gather`` site) therefore
+        leaves every sequence live here. The records' ``kv`` is the
+        device copy (rows, or (rows, scales) for an int8 pool); the
+        caller moves it."""
+        recs: List[Dict[str, Any]] = []
+        blocks_moved = 0
+        bytes_moved = 0
+        for uid in batch_uids:
+            seq = self.state.get(uid)
+            if seq is None or not seq.kv_blocks or seq.in_flight \
+                    or seq.status in (SequenceStatus.PAUSED,
+                                      SequenceStatus.FINISHED):
+                continue
+            get_fault_injector().maybe_fire("during_handoff_gather")
+            rows, scales = self.kv_cache.gather_blocks(seq.kv_blocks)
+            recs.append({
+                "uid": seq.uid,
+                "prompt": list(seq.prompt_log),
+                "generated": list(seq.gen_log),
+                "sampling": seq.sampling.to_dict()
+                if seq.sampling is not None else None,
+                "trace": seq.trace_id,
+                "seen_tokens": seq.seen_tokens,
+                "blocks": len(seq.kv_blocks),
+                "kv": rows if scales is None else (rows, scales),
+                "logprobs": list(seq.logprob_log),
+                "deadline_at": seq.deadline_at,
+                "deadline_s": seq.deadline_s,
+                "stamps": (seq.admitted_at, seq.first_sched_at,
+                           seq.first_token_at, seq.last_token_at),
+            })
+            blocks_moved += len(seq.kv_blocks)
+            bytes_moved += rows.numel() * rows.element_size()
+            if scales is not None:
+                bytes_moved += scales.numel() * scales.element_size()
+        # released after every record is built: the loop above changes
+        # no state
+        for rec in recs:
+            uid = rec["uid"]
+            if self.journal is not None:
+                self.journal.finish(uid)
+            if self._proposer is not None:
+                self._proposer.drop(uid)
+            self.state.flush(uid)
+        if recs and self._obs is not None:
+            self._obs.on_handoff_out(len(recs), blocks_moved, bytes_moved)
+        return {"version": 1, "source": "handoff", "time": time.time(),
+                "seq_size": max(1, int(self.config.seq_size)),
+                "sequences": recs}
+
+    def handoff_in(self, manifest: Dict[str, Any],
+                   exposed_s: float = 0.0) -> Dict[str, List[int]]:
+        """Adopt migrated sequences from :meth:`handoff_out`'s manifest:
+        reserve each record's block count, scatter its KV (host or
+        device, scales with the rows) with one ``restore`` a sequence,
+        and rebuild the descriptor so the next decode step continues the
+        stream with no re-prefill. Blocks arrive private (never shared
+        with the prefix cache). Records the pool cannot cover are
+        returned in ``spilled`` for the caller to replay from their
+        chains. ``exposed_s`` (the caller's measured, non-overlapped
+        transfer time) is observed into ``serve_handoff_exposed_s``."""
+        if self._draining():
+            raise EngineDrainingError(
+                "handoff_in() on a draining engine — migrate to a "
+                "serving replica")
+        accepted: List[int] = []
+        spilled: List[int] = []
+        blocks_in = 0
+        for rec in manifest.get("sequences", []):
+            uid = int(rec["uid"])
+            if self.state.get(uid) is not None:
+                raise ValueError(
+                    f"handoff_in: sequence {uid} already live on this "
+                    f"engine")
+            nblocks = int(rec["blocks"])
+            try:
+                blocks = self.kv_cache.reserve(nblocks)
+            except OutOfBlocksError:
+                spilled.append(uid)
+                continue
+            kv = rec["kv"]
+            self.kv_cache.restore(kv if isinstance(kv, tuple)
+                                  else (kv, None), blocks)
+            seq = self.state.get_or_create(uid)
+            seq.kv_blocks = list(blocks)
+            seq.prompt_log = list(rec["prompt"])
+            seq.gen_log = list(rec["generated"])
+            seq.prompt_len = len(seq.prompt_log)
+            seq.seen_tokens = int(rec["seen_tokens"])
+            seq.prefix_tokens = None     # never registered here: private
+            seq.status = SequenceStatus.WAITING
+            if rec.get("sampling"):
+                seq.sampling = SamplingParams.from_dict(rec["sampling"])
+            seq.trace_id = rec.get("trace")
+            seq.logprob_log = list(rec.get("logprobs") or [])
+            (seq.admitted_at, seq.first_sched_at, seq.first_token_at,
+             seq.last_token_at) = rec.get("stamps") or (None,) * 4
+            if rec.get("deadline_at") is not None:
+                seq.deadline_at = rec["deadline_at"]
+                seq.deadline_s = rec.get("deadline_s")
+                self._has_deadlines = True
+            if self.journal is not None:
+                # the full chain as the admitted prompt, as a replay
+                # admission would journal it
+                self.journal.admit(
+                    uid, seq.prompt_log + seq.gen_log,
+                    sampling=rec.get("sampling"), trace=seq.trace_id)
+            accepted.append(uid)
+            blocks_in += nblocks
+        if accepted and self._obs is not None:
+            self._obs.on_handoff_in(len(accepted), blocks_in, exposed_s)
+        return {"accepted": accepted, "spilled": spilled}
+
     def _staging_bufs(self, S: int, C: int) -> Tuple[torch.Tensor, ...]:
         """The next of ``pipeline_depth + 1`` reused staging sets for an
         [S, C] step, zeroed (top_p ones): tokens, start, ntok, tables,
@@ -816,6 +1076,9 @@ class InferenceEngineV2:
         for item in sched:
             item.seq.last_step = self._step_counter
             item.seq.last_sched = self.state.step
+        if self._obs is not None:
+            # first-schedule stamps -> the queue-wait histogram
+            self._obs.on_sched(sched, time.monotonic())
         cfg = self.config
         # shape buckets: a pure-decode step (one token per slot) runs
         # [S, 1] instead of padding every slot to the prefill chunk; the
@@ -857,7 +1120,15 @@ class InferenceEngineV2:
                 # will occupy, whatever the chunking or the depth
                 stage_slot((seeds, spos, temps, topks, topps), i, seq,
                            item.start_pos + len(item.tokens))
-        self.pipeline_stats["plan_s"] += time.perf_counter() - t0
+        if any(len(item.tokens) > 1 for item in sched):
+            # fault site: a replica dying with a freshly planned
+            # multi-token prefill chunk (tokens consumed on the host, the
+            # step never dispatched)
+            get_fault_injector().maybe_fire("during_prefill_chunk")
+        dt = time.perf_counter() - t0
+        self.pipeline_stats["plan_s"] += dt
+        if self._obs is not None:
+            self._obs.on_plan(dt)
         return _PlannedStep(sched, *bufs[:6], has_feed, greedy,
                             sample=bufs[6:] if use_sample else None)
 
@@ -875,6 +1146,9 @@ class InferenceEngineV2:
         """DISPATCH: enqueue the step on the device and return without
         waiting for it. A greedy or sampled step's [S] token output
         becomes the feedback source of the next plan's placeholders."""
+        # fault site: planned but not yet enqueued ("ioerror" is the
+        # transient _dispatch_with_retry absorbs)
+        get_fault_injector().maybe_fire("pre_dispatch")
         t0 = time.perf_counter()
         dev = self._to_device
         batch = RaggedBatch(tokens=dev(plan.tokens),
@@ -905,19 +1179,31 @@ class InferenceEngineV2:
             self._feed_slot = {item.seq.uid: i
                                for i, item in enumerate(plan.sched)}
         self.pipeline_stats["steps"] += 1
-        self.pipeline_stats["dispatch_s"] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.pipeline_stats["dispatch_s"] += dt
+        if self._obs is not None:
+            self._obs.on_dispatch(dt, plan.fed)
         return _InFlightStep(plan.sched, result, plan.use_greedy,
                              logprobs=logprobs)
 
     def _readback(self, t: torch.Tensor) -> np.ndarray:
-        """The one blocking device-to-host copy of a result."""
+        """The one blocking device-to-host copy of a result: where the
+        card's work shows up as host time (telemetry's
+        ``device_execute``)."""
         self.pipeline_stats["readbacks"] += 1
         return t.cpu().numpy()
 
     def _pre_commit(self, fl: _InFlightStep):
-        """Shared entry of both commit paths: the step's blocking readback
-        (its tokens or logits, and its logprobs only when a sequence of
-        the step asked for them). Returns (result, logprobs or None)."""
+        """Shared entry of both commit paths: the watchdog's and the
+        flight ring's commit phase, the ``mid_commit`` fault site, then
+        the step's blocking readback (its tokens or logits, and its
+        logprobs only when a sequence of the step asked for them).
+        Returns (result, logprobs or None)."""
+        if self._watchdog is not None:
+            self._watchdog.phase("commit")
+        if self._obs is not None:
+            self._obs.phase("commit", self._step_counter)
+        get_fault_injector().maybe_fire("mid_commit")
         t0 = time.perf_counter()
         result = self._readback(fl.result)
         lps = None
@@ -925,7 +1211,10 @@ class InferenceEngineV2:
                 item.seq.sampling is not None and item.seq.sampling.logprobs
                 for item in fl.sched):
             lps = self._readback(fl.logprobs)
-        self.pipeline_stats["commit_block_s"] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.pipeline_stats["commit_block_s"] += dt
+        if self._obs is not None:
+            self._obs.on_commit_block(dt)
         return result, lps
 
     def _finish_commit(self, fl: _InFlightStep) -> None:
@@ -955,6 +1244,9 @@ class InferenceEngineV2:
         state. Greedy or sampled last-chunk tokens extend each sequence's
         ``gen_log`` and the journal."""
         result, lps = self._pre_commit(fl)
+        obs = self._obs
+        now = time.monotonic() if obs is not None else 0.0
+        t_apply = time.perf_counter() if obs is not None else 0.0
         out: Dict[int, Any] = {}
         journal_toks: Dict[int, List[int]] = {}
         for i, item in enumerate(fl.sched):
@@ -969,10 +1261,17 @@ class InferenceEngineV2:
                     journal_toks[item.seq.uid] = [tok]
             else:
                 out[item.seq.uid] = result[i]
+            if obs is not None:
+                # the last chunk's output is the request's first
+                # host-visible result: TTFT / TPOT
+                obs.on_token_commit(item.seq, now)
             item.seq.status = SequenceStatus.WAITING
         if self.journal is not None:
             self.journal.tokens(journal_toks)
         self._finish_commit(fl)
+        if obs is not None:
+            obs.on_commit_apply(time.perf_counter() - t_apply)
+            obs.after_commit(self._step_counter)
         return len(fl.sched), out
 
     # ------------------------------------------------------------------ #
@@ -1068,6 +1367,9 @@ class InferenceEngineV2:
         def commit_one(ring):
             fl = ring.popleft()
             toks, lps = self._pre_commit(fl)
+            obs = self._obs
+            now = time.monotonic() if obs is not None else 0.0
+            t_apply = time.perf_counter() if obs is not None else 0.0
             journal_toks: Dict[int, List[int]] = {}
             for i, item in enumerate(fl.sched):
                 seq = item.seq
@@ -1083,6 +1385,8 @@ class InferenceEngineV2:
                 out[u].append(tok)
                 seq.gen_log.append(tok)
                 self._log_token(seq, i, lps)
+                if obs is not None:
+                    obs.on_token_commit(seq, now)
                 if self.journal is not None:
                     journal_toks.setdefault(u, []).append(tok)
                 if patch and seq.spec_pending and seq.pending_tokens \
@@ -1118,6 +1422,9 @@ class InferenceEngineV2:
             if self.journal is not None:
                 self.journal.tokens(journal_toks)
             self._finish_commit(fl)
+            if obs is not None:
+                obs.on_commit_apply(time.perf_counter() - t_apply)
+                obs.after_commit(self._step_counter)
 
         def speculate(plan, fl):
             # every live sequence of this step gets a placeholder whose
@@ -1153,8 +1460,9 @@ class InferenceEngineV2:
         ``spec_decode="draft"``. The draft runs as its own engine on this
         engine's device, over the same slot and block geometry with its
         own KV pool, and must share the target's vocabulary. Its journal
-        is off and it never speculates itself: draft tokens are
-        proposals, never served output. Returns the draft engine."""
+        and telemetry are off and it never speculates itself: draft
+        tokens are proposals, never served output. Returns the draft
+        engine."""
         tv = getattr(self.runner.model_cfg, "vocab_size", None)
         dv = getattr(draft_model_cfg, "vocab_size", None)
         if tv != dv:
@@ -1169,6 +1477,7 @@ class InferenceEngineV2:
         draft = InferenceEngineV2(draft_model_cfg, draft_params,
                                   draft_config, device=self.device)
         draft.journal = None
+        draft._obs = None
         draft.spec_mode = "off"
         self._draft_engine = draft
         self._proposer = None
@@ -1185,14 +1494,28 @@ class InferenceEngineV2:
         """True when greedy decode routes through speculative decoding."""
         return self.spec_mode != "off"
 
-    def slo_report(self, *args, **kwargs):
-        """The JAX engine's SLO report (speculation's acceptance among
-        it) comes from its telemetry observer, which is not ported: read
-        :attr:`spec_stats` and each sequence's ``spec_proposed`` /
-        ``spec_accepted``."""
-        raise NotImplementedError(
-            "slo_report: serving telemetry is not ported yet (queue item "
-            "A6); speculation's counters are in spec_stats")
+    # ------------------------------------------------------------------ #
+    # telemetry accessors (telemetry/serve.py; None or {} with
+    # DSTPU_TELEMETRY=0)
+    # ------------------------------------------------------------------ #
+
+    @property
+    def metrics(self):
+        """This engine's MetricsRegistry (per engine, so a dead replica's
+        and a survivor's stats never mix), or None."""
+        return self._obs.registry if self._obs is not None else None
+
+    @property
+    def flight(self):
+        """This engine's phase FlightRecorder, or None."""
+        return self._obs.flight if self._obs is not None else None
+
+    def slo_report(self) -> Dict[str, Any]:
+        """TTFT / TPOT / queue-wait percentiles, outcome counts, goodput
+        and speculation's acceptance for everything this engine served
+        ({} with telemetry off). The step-time attribution is
+        ``telemetry.attribution_report(eng.metrics.snapshot())``."""
+        return self._obs.slo_report() if self._obs is not None else {}
 
     def decode_spec(self, batch_uids: Sequence[int],
                     first_tokens: Sequence[int], n,
@@ -1254,6 +1577,11 @@ class InferenceEngineV2:
         active = np.zeros((S,), np.int32)
         tables = np.zeros((S, MAXB), np.int32)
         draft_arr = np.zeros((S, L), np.int32)
+        obs = self._obs
+        if obs is not None:
+            # attribution window: each round is one verify dispatch and
+            # one readback; accept / rollback bookkeeping is the apply
+            obs.on_loop_enter()
         while live:
             if self._draining():
                 # stop proposing: the outstanding budgets ride the drain
@@ -1308,13 +1636,21 @@ class InferenceEngineV2:
                 draft_arr[i, 0] = last[u]
                 draft_arr[i, 1:] = row
             dev = self._to_device
+            t_d = time.perf_counter()
             toks, _, _ = self.runner.decode_loop(
                 self.params, self.kv_cache.pool, dev(tok0), dev(start),
                 dev(active), dev(tables), L, draft_toks=dev(draft_arr))
+            t_r = time.perf_counter()
+            if obs is not None:
+                obs.on_fused_dispatch(t_r - t_d)
             toks = self._readback(toks)
             t2 = time.perf_counter()
+            if obs is not None:
+                obs.on_commit_block(t2 - t_r)
             self.kv_cache.finalize_demotions()   # the readback synchronized
             self._step_counter += L
+            now = time.monotonic() if obs is not None else 0.0
+            round_prop = round_acc = 0
             journal_toks: Dict[int, List[int]] = {}
             for i, u in enumerate(ready):
                 seq = seqs[u]
@@ -1353,9 +1689,15 @@ class InferenceEngineV2:
                 seq.spec_accepted += acc_drafts
                 st["proposed"] += prop_eff
                 st["accepted"] += acc_drafts
+                round_prop += prop_eff
+                round_acc += acc_drafts
                 proposer.observe_commit(seq, seen0, acc, d_row)
                 if self.journal is not None:
                     journal_toks[u] = hist
+                if obs is not None and a:
+                    obs.on_token_commit(seq, now, n=a)
+                    # a traced request's spec-round mark on its track
+                    obs.on_spec_commit(seq, acc_drafts, prop_eff)
                 if len(out[u]) >= budgets[u] or (
                         eos_token_id is not None
                         and acc[-1] == eos_token_id):
@@ -1365,7 +1707,14 @@ class InferenceEngineV2:
             st["rounds"] += 1
             st["propose_s"] += t1 - t0
             st["verify_s"] += t2 - t1
-            st["commit_s"] += time.perf_counter() - t2
+            dt = time.perf_counter() - t2
+            st["commit_s"] += dt
+            if obs is not None:
+                obs.on_commit_apply(dt)
+                obs.on_spec(round_prop, round_acc)
+                obs.after_commit(self._step_counter)
+        if obs is not None:
+            obs.on_loop_exit()
         if live:
             # pressure or the context cap: the stragglers finish on the
             # pipelined path (which can shed)
@@ -1485,20 +1834,34 @@ class InferenceEngineV2:
             active[i] = 1
             tables[i, :len(seq.kv_blocks)] = seq.kv_blocks
         samp = self._stage_loop_sampling(seqs, S, sampling)
+        obs = self._obs
+        if obs is not None:
+            # attribution window of the fused path: one dispatch and one
+            # blocking readback cover n steps; the bookkeeping after is
+            # the commit apply
+            obs.on_loop_enter()
+        t_d = time.perf_counter()
         toks, lps, consumed = self.runner.decode_loop(
             self.params, self.kv_cache.pool, self._to_device(tok0),
             self._to_device(start), self._to_device(active),
             self._to_device(tables), n,
             eos_id=-1 if eos_token_id is None else int(eos_token_id),
             **samp)
+        t_r = time.perf_counter()
+        if obs is not None:
+            obs.on_fused_dispatch(t_r - t_d)
         toks = self._readback(toks)
         lps = self._readback(lps) if lps is not None and any(
             s.sampling is not None and s.sampling.logprobs
             for s in seqs) else None
         consumed = self._readback(consumed) if consumed is not None \
             else None
+        if obs is not None:
+            obs.on_commit_block(time.perf_counter() - t_r)
+        t_apply = time.perf_counter() if obs is not None else 0.0
         self.kv_cache.finalize_demotions()   # the readback synchronized
         self._step_counter += n
+        now = time.monotonic() if obs is not None else 0.0
         out: Dict[int, List[int]] = {}
         journal_toks: Dict[int, List[int]] = {}
         for i, (uid, seq) in enumerate(zip(batch_uids, seqs)):
@@ -1517,8 +1880,16 @@ class InferenceEngineV2:
             seq.last_step = self._step_counter
             seq.status = SequenceStatus.WAITING
             out[uid] = toks[i].tolist()
+            if obs is not None and used > 0:
+                # one fused chunk commits `used` tokens at one stamp:
+                # TPOT is the interval split evenly
+                obs.on_token_commit(seq, now, n=used)
         if self.journal is not None:
             self.journal.tokens(journal_toks)
+        if obs is not None:
+            obs.on_commit_apply(time.perf_counter() - t_apply)
+            obs.after_commit(self._step_counter)
+            obs.on_loop_exit()
         return out
 
     # ------------------------------------------------------------------ #

@@ -4,8 +4,8 @@
 Per-sequence host state: tokens seen by the model, KV blocks owned, tokens
 still waiting, scheduling status, the prefix-cache and pause (host
 offload) fields, the deadline, the replay chain and speculative
-decoding's counters. The telemetry fields of the JAX descriptor belong to
-A6.
+decoding's counters, and telemetry's lifecycle stamps and fleet trace
+context.
 """
 
 from __future__ import annotations
@@ -75,6 +75,17 @@ class SequenceDescriptor:
     # it came from, which rejection records report
     deadline_at: Optional[float] = None
     deadline_s: Optional[float] = None
+    # telemetry lifecycle stamps (time.monotonic; None until reached, or
+    # with DSTPU_TELEMETRY=0): admission, first scheduled chunk, first
+    # and latest committed output token (telemetry/serve.py)
+    admitted_at: Optional[float] = None
+    first_sched_at: Optional[float] = None
+    first_token_at: Optional[float] = None
+    last_token_at: Optional[float] = None
+    # the fleet-wide trace context (minted by ReplicaPool.put, or any
+    # caller's put(..., traces=...)), carried across drain and replay;
+    # None = untraced
+    trace_id: Optional[str] = None
 
     @property
     def in_flight(self) -> int:

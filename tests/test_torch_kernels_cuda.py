@@ -2223,3 +2223,84 @@ def test_moe_families_one_step_on_card(fam):
     assert [len(o) for o in out] == [6, 6, 6]
     assert gg.LAUNCHES["grouped_gemm"] == 3 * cfg.num_layers * (
         steps["prefill"] + steps["decode"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["auto", "int8"])
+def test_fleet_disagg_handoff_and_counters_on_card(kv):
+    """Two TinyLlama-width replicas (2 layers, seeded) on the one card as a
+    prefill and a decode specialist: every handed-off block arrives
+    bit-exact (scales too over an int8 pool), the streams equal one
+    engine's, K1 / K2 launch, and each engine's token counter equals the
+    tokens it committed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.checkpoint import init_llama_params
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig)
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.serving import ReplicaPool
+    cfg = LlamaConfig.tinyllama_1b(num_layers=2, dtype=torch.bfloat16)
+    params = init_llama_params(cfg, seed=5, device="cuda")
+
+    def engine():
+        return InferenceEngineV2(cfg, params, RaggedInferenceConfig(
+            max_seqs=8, chunk_size=64, block_size=64, num_blocks=48,
+            max_blocks_per_seq=4, dtype="bfloat16",
+            attention_impl="paged_flash", kv_cache_dtype=kv,
+            prefix_cache=True, serve_pipeline_depth=2), device="cuda")
+
+    rng = np.random.default_rng(9)
+    pre = rng.integers(1, cfg.vocab_size, 128).tolist()
+    prompts = {u: pre + rng.integers(1, cfg.vocab_size, 40).tolist()
+               for u in range(6)}
+
+    def drive(pool):
+        out = pool.put(list(prompts), [prompts[u] for u in prompts],
+                       _greedy=True)
+        toks = {u: [int(out[u])] for u in prompts}
+        res = pool.decode_pipelined(list(toks), [t[0] for t in
+                                                 toks.values()], 11)
+        for u in toks:
+            toks[u] += res[u]
+            pool.flush(u)
+        return toks
+
+    want = drive(ReplicaPool([engine()], seed=0))
+    pool = ReplicaPool([engine(), engine()], seed=0,
+                       roles=["prefill", "decode"])
+    dec = pool.replicas()[1].engine
+    adopt, exact = dec.handoff_in, []
+
+    def handoff_in(manifest, exposed_s=0.0):
+        res = adopt(manifest, exposed_s=exposed_s)
+        for rec in manifest["sequences"]:
+            rows, scales = dec.kv_cache.gather_blocks(
+                dec.state.get(int(rec["uid"])).kv_blocks)
+            sent = rec["kv"] if isinstance(rec["kv"], tuple) \
+                else (rec["kv"], None)
+            exact.append(torch.equal(rows.cpu(), sent[0].cpu()) and (
+                scales is None if sent[1] is None
+                else torch.equal(scales.cpu(), sent[1].cpu())))
+        return res
+    dec.handoff_in = handoff_in
+    port.reset_launch_counts()
+    got = drive(pool)
+    torch.cuda.synchronize()
+    assert got == want
+    assert len(exact) == len(prompts) and all(exact)
+    assert port.LAUNCHES["paged_prefill"] > 0
+    assert port.LAUNCHES["paged_decode"] > 0
+    assert (port.ROUTE_LAUNCHES["int8"] > 0) == (kv == "int8")
+    pre_m, dec_m = (r.engine.metrics for r in pool.replicas())
+    assert pre_m.counter("serve_handoff_seqs").value == len(prompts)
+    assert dec_m.counter("serve_handoff_seqs_in").value == len(prompts)
+    # the prefill replica committed each first token, the decode replica
+    # the rest; the fleet's counter is every token streamed
+    assert pre_m.counter("serve_tokens_committed").value == len(prompts)
+    assert dec_m.counter("serve_tokens_committed").value == \
+        sum(len(t) for t in got.values()) - len(prompts)
+    assert pool.fleet_snapshot()["counters"]["serve_tokens_committed"] \
+        == sum(len(t) for t in got.values())
+    for r in pool.replicas():
+        assert r.engine.free_blocks == r.engine.config.num_blocks

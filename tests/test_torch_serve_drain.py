@@ -7,8 +7,9 @@ cache off). A drain at any point, then a replay of its manifest on a
 fresh engine of either package, gives that stream token for token: a
 manifest written by the JAX engine replays on the port and the port's on
 the JAX engine, and the two engines' manifests and journals for the same
-run are equal field for field but for time stamps (and the JAX drain's
-telemetry report: telemetry is A6). Releases are exact:
+run are equal field for field but for time stamps (the telemetry reports
+the drains attach too, but for their latency percentiles). Releases are
+exact:
 every block back, refcounts zero, nothing freed twice (the allocator
 detects a double free).
 """
@@ -36,6 +37,7 @@ from deepspeed_tpu_torch.inference.v2 import (EngineDrainingError,
                                               load_replay_state,
                                               manifest_from_journal)
 from deepspeed_tpu_torch.inference.v2.drain import write_manifest
+from deepspeed_tpu_torch.resilience import RestartLedger
 from deepspeed_tpu_torch.models.llama import LlamaConfig
 
 UIDS = (0, 1, 2)
@@ -140,12 +142,15 @@ def _finish(eng, manifest, n=N_TOK):
 
 
 def _untimed(m):
-    """A manifest without its time stamps, and without the telemetry
-    report the JAX engine's drain attaches (telemetry is A6)."""
+    """A manifest without its time stamps; of the telemetry report's
+    latency histograms, only their counts."""
     m = json.loads(json.dumps(m))
     m.pop("time", None)
     m.pop("path", None)
-    m.pop("telemetry", None)
+    tel = m.get("telemetry")
+    if tel is not None:
+        for k in ("ttft_s", "tpot_s", "queue_wait_s"):
+            tel[k] = {"count": tel[k]["count"]}
     for r in m.get("rejections", []):
         r.pop("time", None)
     return m
@@ -187,8 +192,14 @@ def test_drain_replay_parity_and_release(oracle, tmp_path):
         assert s["prompt"] == list(PROMPTS[s["uid"]])
         assert s["generated"] == oracle[s["uid"]]
     _assert_released(eng2, m3)
-    with pytest.raises(NotImplementedError, match="A6"):
-        _engine().drain(ledger=object())
+    # the restart ledger gets the JAX engine's serve_drain record
+    led = RestartLedger(None)
+    eng3 = _engine()
+    _serve(eng3, n=2)
+    m4 = eng3.drain(ledger=led)
+    assert [(e["event"], e["sequences"], e["manifest"],
+             e["fully_recovered"]) for e in led.events] == [
+        ("serve_drain", len(m4["sequences"]), None, True)]
 
 
 @pytest.mark.parametrize("prefix", [True, False])

@@ -312,8 +312,11 @@ def test_ngram_parity_counters_and_exact_release():
         eng.flush(u)
     assert eng.kv_cache.free_blocks == eng.config.num_blocks
     eng._prefix.check_invariants()
-    with pytest.raises(NotImplementedError, match="A6"):
-        eng.slo_report()
+    # the SLO report's speculation counters are the JAX engine's
+    rep, jrep = eng.slo_report(), jeng.slo_report()
+    assert rep["spec"] == jrep["spec"] and rep["spec"]["proposed"] > 0
+    assert rep["spec_accept_rate"] == jrep["spec_accept_rate"]
+    assert rep["spec"]["proposed"] == st["proposed"]
 
 
 def test_budget_exact_and_eos_truncation():

@@ -1,0 +1,86 @@
+"""Shared helpers of the port's CPU parity tests: the JAX package's own
+test classes compiled against the port's modules, and the tiny Llama
+(fp32) both packages serve."""
+
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+_CACHE = {}
+
+
+def port_cases(path, names, modules, overrides=None, keep=()):
+    """The test classes (or fixtures) ``names`` of the JAX test file
+    ``path``, compiled with its imports of ``deepspeed_tpu.<m>`` for each
+    ``m`` in ``modules`` (and ``from deepspeed_tpu import <m>``) pointed
+    at the port, but for the modules in ``keep`` (not ported: they stay
+    the JAX package's). ``overrides`` replace module-level helpers of
+    that file, so its cases build port engines."""
+    src = (ROOT / path).read_text()
+    for m in modules:
+        src = re.sub(rf"\bdeepspeed_tpu\.{re.escape(m)}\b",
+                     f"deepspeed_tpu_torch.{m}", src)
+        src = re.sub(rf"\bfrom deepspeed_tpu import {re.escape(m)}\b",
+                     f"from deepspeed_tpu_torch import {m}", src)
+    for m in keep:
+        src = src.replace(f"deepspeed_tpu_torch.{m}", f"deepspeed_tpu.{m}")
+    ns = {"__name__": f"jax_cases.{Path(path).stem}",
+          "__file__": str(ROOT / path)}
+    exec(compile(src, str(ROOT / path), "exec"), ns)
+    ns.update(overrides or {})
+    return [ns[n] for n in names]
+
+
+def tiny_llama():
+    """(JAX config, JAX params, port config, port params) of
+    ``LlamaConfig.tiny`` in fp32, built once per process."""
+    if "llama" not in _CACHE:
+        from deepspeed_tpu.models import llama as jllama
+        from deepspeed_tpu_torch.checkpoint import llama_params_from_numpy
+        from deepspeed_tpu_torch.models.llama import LlamaConfig
+        jcfg = jllama.LlamaConfig.tiny(dtype=jnp.float32)
+        _, init_fn, _ = jllama.make_model(jcfg)
+        # the tree's shapes without compiling the initializer; weights
+        # from a seeded numpy draw (norm scales near 1)
+        shapes = jax.eval_shape(
+            lambda: init_fn(jax.random.PRNGKey(0), seq_len=16))
+        rng = np.random.default_rng(0)
+
+        def draw(path, leaf):
+            x = rng.normal(0.0, 0.02, leaf.shape)
+            if "norm" in jax.tree_util.keystr(path):
+                x = 1.0 + 5.0 * x
+            return x.astype(np.float32)
+
+        tree = jax.tree_util.tree_map_with_path(draw, shapes)
+        jparams = jax.tree.map(jnp.asarray, tree)
+        cfg = LlamaConfig.tiny(dtype=torch.float32)
+        params = llama_params_from_numpy(tree, cfg, device="cpu",
+                                         dtype=torch.float32)
+        _CACHE["llama"] = (jcfg, jparams, cfg, params)
+    return _CACHE["llama"]
+
+
+def port_engine(base, **kw):
+    """A port engine on the CPU over the tiny Llama, config ``base``
+    updated by ``kw``."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig)
+    _, _, cfg, params = tiny_llama()
+    return InferenceEngineV2(cfg, params,
+                             RaggedInferenceConfig(**{**base, **kw}),
+                             device="cpu")
+
+
+def jax_engine(base, **kw):
+    """The JAX engine over the same tiny Llama."""
+    from deepspeed_tpu.inference.v2 import (InferenceEngineV2,
+                                            RaggedInferenceConfig)
+    jcfg, jparams, _, _ = tiny_llama()
+    return InferenceEngineV2(jcfg, jparams,
+                             RaggedInferenceConfig(**{**base, **kw}))
