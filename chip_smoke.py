@@ -465,8 +465,36 @@ bound and one library call:
              leaking no block. (e) ``DSTPU_TRACE_DIR`` over a prefill and
              a decode window: the exported Chrome trace holds the plan /
              dispatch / commit ranges with K1 and K2 launched inside the
-             dispatch ranges. Then K1 and K2 at this phase's bf16 and int8
-             shapes against their plain versions, timed beside SDPA.
+             dispatch ranges. (f) (d)'s drain and replay once more in
+             fp32 with TF32 off at 4 layers of the same width: every
+             drained sequence's replayed stream equals the uninterrupted
+             run. Then K1 and K2 at this phase's bf16 and
+             int8 shapes against their plain versions, timed beside SDPA.
+31. loadgen — the open-loop load generator on phase 30's weights and
+             engine configuration with ``attention_impl="auto"`` (K1/K2),
+             at most 16 live requests. The longest shape (512-token
+             prompt, 128 new) alone first; the deadline is 15 s from
+             arrival (twice that shape's time if it takes longer). (a)
+             32 requests offered at once: the completed rate is R. (b)
+             ``sweep_capacity`` at 0.5, 0.8, 1.0 and 1.3 R, 32 requests a
+             rate, Poisson arrivals (seed 0), ``WorkloadMix``'s default
+             shapes (prompts 128 / 256 / 512, generations 32 / 64 / 128),
+             half the requests opening with one 256-token preamble, every
+             one deadlined: offered, completed and goodput rps, TTFT /
+             TPOT / queue-wait p50 / p90 / p99, sheds and deadline misses
+             of each rate, the knee (goodput SLO 0.9), every pass's books
+             balanced, and the 1.0 R pass's step attribution. (c) K1/K2
+             launched in (a)-(b), then held against their plain versions
+             at the largest prefill (16 x 256 queries over 512 keys) and
+             decode (16 slots at 640 keys) shapes and timed. (d)
+             ``telemetry.top.render`` of the engine's
+             ``DSTPU_TELEMETRY_EXPORT`` snapshot names goodput and TTFT.
+             (e) The serve fault drill (``faultdrill.main``, sites
+             mid_commit and sigterm) with its workers on the card. (f)
+             Phase 7's steps once more with ``wall_clock_breakdown``: the
+             ``train_batch`` timer's mean within 5% of phase 7's step
+             time, the first loss bit-identical and the rest within 1e-4
+             relative of phase 7's.
 
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
@@ -6731,15 +6759,16 @@ FLEET_DTYPE = "bfloat16"
 
 
 def _fleet_engine(torch, cfg, params, **kw):
+    """Phase 30's engine configuration; ``kw`` overrides its fields."""
     from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                                   RaggedInferenceConfig)
     maxb = -(-(FLEET_PROMPT + FLEET_GEN) // FLEET_BLOCK)
-    rcfg = RaggedInferenceConfig(
-        max_seqs=FLEET_GROUPS * FLEET_PER_GROUP, chunk_size=256,
-        block_size=FLEET_BLOCK, num_blocks=FLEET_BLOCKS,
-        max_blocks_per_seq=maxb, dtype=FLEET_DTYPE,
-        attention_impl="paged_flash", decode_loop_steps=FLEET_LOOP,
-        serve_pipeline_depth=2, prefix_cache=True, **kw)
+    rcfg = RaggedInferenceConfig(**{
+        "max_seqs": FLEET_GROUPS * FLEET_PER_GROUP, "chunk_size": 256,
+        "block_size": FLEET_BLOCK, "num_blocks": FLEET_BLOCKS,
+        "max_blocks_per_seq": maxb, "dtype": FLEET_DTYPE,
+        "attention_impl": "paged_flash", "decode_loop_steps": FLEET_LOOP,
+        "serve_pipeline_depth": 2, "prefix_cache": True, **kw})
     return InferenceEngineV2(cfg, params, rcfg, device="cuda")
 
 
@@ -7053,10 +7082,96 @@ def _fleet_trace(torch, eng, vocab):
     return rec
 
 
+#: (f): layers of Llama-2-7B (full width) the fp32 replay check serves
+REPLAY_LAYERS = 4
+
+
+def _fleet_replay_fp32(torch):
+    """(f): (d)'s SIGTERM drain and replay once more in fp32 with TF32
+    off, at REPLAY_LAYERS of Llama-2-7B's layers and its full width: every
+    stream, the drained sequences' replayed continuations too, must equal
+    the uninterrupted run (one engine, the same calls). Returns the
+    record."""
+    import os
+    import signal
+    import numpy as np
+    from deepspeed_tpu_torch.checkpoint import init_llama_params
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.resilience import PreemptionHandler
+    from deepspeed_tpu_torch.serving import ReplicaPool
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = LlamaConfig.llama2_7b(num_layers=REPLAY_LAYERS,
+                                    dtype=torch.float32)
+        pa_ = init_llama_params(cfg, seed=30, device="cuda")
+        pb = init_llama_params(cfg, seed=30, device="cuda")
+        fprompts = _fleet_prompts(cfg.vocab_size)
+        one = ReplicaPool([_fleet_engine(torch, cfg, pa_,
+                                         dtype="float32")], seed=0)
+        want, _, _ = _fleet_drive(one, fprompts)
+        del one
+        pool = ReplicaPool([_fleet_engine(torch, cfg, pa_, dtype="float32"),
+                            _fleet_engine(torch, cfg, pb, dtype="float32")],
+                           policy="prefix_aware", seed=0)
+        handler = PreemptionHandler()
+        pool.replicas()[0].engine.attach_preemption(handler)
+        at_kill = {}
+
+        def kill(streams):
+            at_kill.update({u: (list(t), pool.owner_of(u).replica_id)
+                            for u, t in streams.items()})
+            os.kill(os.getpid(), signal.SIGTERM)
+        try:
+            toks, _, owners = _fleet_drive(pool, fprompts, kill_at=1,
+                                           kill=kill)
+        finally:
+            handler.uninstall()
+        r0 = pool.replicas()[0]
+        if not handler.preempted or r0.state != "dead" \
+                or set(owners.values()) != {"r1"}:
+            raise AssertionError(f"[fleet] (f) absorb: {r0.state} "
+                                 f"{owners}")
+        _fleet_check_released(pool, "(f)")
+        drained = sorted(u for u, (_, o) in at_kill.items() if o == "r0")
+        stayed = [u for u in fprompts if u not in drained]
+        first_diff = {u: next((i for i, (a, b) in enumerate(
+            zip(toks[u], want[u])) if a != b), None) for u in drained}
+        rec = {"model": f"Llama-2-7B width, {REPLAY_LAYERS} layers, fp32, "
+                        f"TF32 off, seeded (seed 30)",
+               "drained": len(drained),
+               "drained_equal_uninterrupted": sum(
+                   v is None for v in first_diff.values()),
+               "first_token_differing": first_diff,
+               "token_agreement": float(np.mean([
+                   a == b for u in drained
+                   for a, b in zip(toks[u], want[u])])),
+               "stayed_equal_uninterrupted": sum(
+                   toks[u] == want[u] for u in stayed),
+               "stayed": len(stayed),
+               "streams_whole": all(len(toks[u]) == FLEET_NEW
+                                    for u in toks)}
+        del pool, r0, kill, handler, pa_, pb
+        torch.cuda.empty_cache()
+        # in fp32 a replay's re-prefill of the generated tokens gives the
+        # decode steps' tokens (bf16 need not: (d))
+        if rec["drained_equal_uninterrupted"] != rec["drained"] \
+                or rec["stayed_equal_uninterrupted"] != rec["stayed"] \
+                or not rec["drained"] or not rec["streams_whole"]:
+            raise AssertionError(f"[fleet] (f) fp32 replay: {rec}")
+        return rec
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
 def phase_fleet_serving(torch):
     """Phase 30: serving telemetry, step attribution and the replica
     fleet on the card at Llama-2-7B's full width and depth (module
-    docstring). Returns (out, rows)."""
+    docstring). Returns (out, rows, weights): ``weights`` holds the
+    seeded bf16 parameters (``"params"``) for phase 31 to serve."""
     import os
     import signal
     import tempfile
@@ -7318,17 +7433,29 @@ def phase_fleet_serving(torch):
     del pool
     torch.cuda.empty_cache()
     count("d")
+    # (f) the drain and replay of (d) once more in fp32, TF32 off
+    out["f"] = _fleet_replay_fp32(torch)
+    count("f")
+    f = out["f"]
+    log(f"[fleet] (f) fp32 drain and replay at {REPLAY_LAYERS} layers: "
+        f"{f['drained_equal_uninterrupted']} of {f['drained']} drained "
+        f"streams equal the uninterrupted run (token agreement "
+        f"{f['token_agreement']:.4f}, first differing token "
+        f"{f['first_token_differing']}); the survivor's own "
+        f"{f['stayed_equal_uninterrupted']} of {f['stayed']} equal")
     out["launches"] = launches
     log(f"[fleet] launches {launches}")
     for part, n in launches.items():
-        if not (n["paged_prefill"] and n["paged_decode"]):
+        if part != "f" and not (n["paged_prefill"] and n["paged_decode"]):
             raise AssertionError(f"[fleet] {part}: K1 / K2 not launched: "
                                  f"{n}")
-    del pa_, pb
+    # the seeded weights go on to phase 31; the second copy goes here
+    del pb
     torch.cuda.empty_cache()
     # K1 / K2 at this phase's shapes against their plain versions, timed
     maxb = -(-(FLEET_PROMPT + FLEET_GEN) // FLEET_BLOCK)
-    bf = {k: sum(v[k] for p, v in launches.items() if p != "c_int8")
+    bf = {k: sum(v[k] for p, v in launches.items()
+                 if p not in ("c_int8", "f"))
           for k in ("paged_prefill", "paged_decode")}
     i8 = launches["c_int8"]
     trng = np.random.default_rng(300)
@@ -7354,6 +7481,282 @@ def phase_fleet_serving(torch):
                      "replaces": REPLACES[name], "launches": n,
                      "launches_from": f"phase 30, Llama-2-7B, {src}", **t})
         torch.cuda.empty_cache()
+    return out, rows, {"params": pa_}
+
+
+# phase 31: the open-loop load generator on phase 30's 7B engine
+# configuration (attention "auto"): LOADGEN_LIVE slots (max_live), a
+# saturating pass of LOADGEN_SAT requests offered at once, then a Poisson
+# sweep of LOADGEN_N requests a rate at LOADGEN_FRACS of its completed rate
+LOADGEN_LIVE, LOADGEN_SAT, LOADGEN_N = 16, 32, 32
+LOADGEN_FRACS = (0.5, 0.8, 1.0, 1.3)
+#: WorkloadMix's default shapes: prompts up to 512, generations up to 128
+LOADGEN_MAX_PROMPT, LOADGEN_MAX_GEN = 512, 128
+#: a chat service's system prompt, opening half the requests
+LOADGEN_PRE = 256
+LOADGEN_DEADLINE_S = 15.0
+LOADGEN_SLO = 0.9
+#: (f): the train_batch timer's mean against phase 7's step time
+TIMER_TOL = 0.05
+
+
+def _loadgen_engine(torch, cfg, params):
+    """Phase 30 (a)'s engine configuration with ``attention_impl="auto"``
+    (K1/K2 on the card) and a block table long enough for the mix's
+    longest request (512 + 128 tokens: 10 blocks of 64)."""
+    return _fleet_engine(
+        torch, cfg, params, attention_impl="auto",
+        max_blocks_per_seq=-(-(LOADGEN_MAX_PROMPT + LOADGEN_MAX_GEN)
+                             // FLEET_BLOCK))
+
+
+def _pass_row(rep):
+    """One open-loop pass's report, as phase 31 prints it."""
+    lat = rep["latency"]
+    r = rep["requests"]
+    row = {"offered_rps": rep["rates_rps"]["offered"],
+           "completed_rps": rep["rates_rps"]["completed"],
+           "goodput_rps": rep["rates_rps"]["goodput"],
+           "goodput_frac": rep["goodput_frac"],
+           "shed": r["shed"] + r["shed_late"],
+           "deadline_missed": r["deadline_expired"]
+           + r["completed"] - r["goodput"],
+           "balance_ok": r["balance_ok"], "requests": r,
+           "duration_s": rep["duration_s"],
+           "output_tokens_per_sec": rep.get("output_tokens_per_sec"),
+           "max_offer_lag_s": rep["open_loop"]["max_offer_lag_s"]}
+    for k in ("ttft_s", "tpot_s", "queue_wait_s"):
+        row[k.replace("_s", "_ms")] = {
+            q: (lat[k][q] * 1e3 if lat[k].get(q) is not None else None)
+            for q in ("p50", "p90", "p99")}
+    return row
+
+
+def _timers_check(torch, train):
+    """(f): phase 7's GPT-2-1.3B steps once more with
+    ``wall_clock_breakdown`` on. Returns the record."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.checkpoint import init_gpt2_params
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, make_model
+    from deepspeed_tpu_torch.utils.timer import TRAIN_BATCH_TIMER
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cfg = GPT2Config.xl_1p3b(dtype=torch.bfloat16)
+    _, _, loss_fn = make_model(cfg)
+    params = init_gpt2_params(cfg, seed=0, device="cuda")
+    engine, *_ = initialize(loss_fn=loss_fn, params=params, config={
+        **train_config(TRAIN_MB, TRAIN_GAS), "wall_clock_breakdown": True})
+    del params
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B = TRAIN_MB * TRAIN_GAS
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, TRAIN_T + 1),
+                                     generator=g, device="cuda")}
+    losses = [engine.train_batch(batch) for _ in range(2)]      # warm-up
+    timer = engine.timers(TRAIN_BATCH_TIMER)
+    timer.reset()
+    for _ in range(TRAIN_STEPS):
+        losses.append(engine.train_batch(batch))
+    timer_ms = timer.mean() * 1e3
+    count = timer.count
+    losses = [float(x) for x in losses]
+    del engine, batch
+    torch.cuda.empty_cache()
+    step_ms = sum(train["step_ms"]) / len(train["step_ms"])
+    diffs = [abs(a - b) / abs(b) for a, b in zip(losses, train["losses"])]
+    rec = {"timer_mean_ms": timer_ms, "timer_count": count,
+           "phase7_step_ms": step_ms, "ratio": timer_ms / step_ms,
+           "losses": losses, "losses_equal_phase7": losses == train["losses"],
+           "max_loss_rel_diff": max(diffs)}
+    if count != TRAIN_STEPS or abs(timer_ms / step_ms - 1) > TIMER_TOL:
+        raise AssertionError(f"[loadgen] (f) train_batch timer {rec}")
+    # the first loss is computed before any update: bit for bit
+    if losses[0] != train["losses"][0] or max(diffs) > 1e-4:
+        raise AssertionError(f"[loadgen] (f) losses with the timers on "
+                             f"{losses} against phase 7's "
+                             f"{train['losses']}")
+    return rec
+
+
+def phase_loadgen(torch, weights, train):
+    """Phase 31: the open-loop load generator, the snapshot renderer,
+    the serve fault drill and the wall-clock timers on the card (module
+    docstring). ``weights`` is phase 30's box of seeded Llama-2-7B
+    parameters (taken from it here), ``train`` phase 7's record. Returns
+    (out, rows)."""
+    import io
+    import os
+    import tempfile
+    import numpy as np
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    from deepspeed_tpu_torch.resilience import faultdrill
+    from deepspeed_tpu_torch.telemetry import attribution_report
+    from deepspeed_tpu_torch.telemetry import loadgen as lg
+    from deepspeed_tpu_torch.telemetry import top
+    cfg = LlamaConfig.llama2_7b(dtype=torch.bfloat16)
+    params = weights.pop("params")
+    out = {"model": "Llama-2-7B, 32 layers, bf16, seeded (seed 30; phase "
+                    "30's weights)", "reduced": "none"}
+    tmp = tempfile.mkdtemp(prefix="loadgen_")
+    export = os.path.join(tmp, "serve.json")
+    os.environ["DSTPU_TELEMETRY_EXPORT"] = export
+    try:
+        eng = _loadgen_engine(torch, cfg, params)
+    finally:
+        os.environ.pop("DSTPU_TELEMETRY_EXPORT")
+    del params
+    try:
+        # the longest shape alone (a 512-token prompt, 128 new): the
+        # deadline must leave it room; also the engine's first calls
+        longest = lg.WorkloadMix(
+            prompt_lens=(LOADGEN_MAX_PROMPT,), prompt_probs=(1.0,),
+            gen_lens=(LOADGEN_MAX_GEN,), gen_probs=(1.0,),
+            vocab_size=cfg.vocab_size)
+        alone = lg.run_open_loop(eng, lg.build_requests(
+            lg.TraceArrivals([0.0]), longest, 1, seed=31,
+            uid_base=31_000_000)).report
+        longest_s = alone["duration_s"]
+        deadline = 2.0 * longest_s if longest_s > LOADGEN_DEADLINE_S \
+            else LOADGEN_DEADLINE_S
+        out["longest_alone_s"] = longest_s
+        out["deadline_s"] = deadline
+        mix = lg.WorkloadMix(shared_prefix_frac=0.5,
+                             shared_prefix_len=LOADGEN_PRE,
+                             deadline_frac=1.0, deadline_s=deadline,
+                             vocab_size=cfg.vocab_size)
+        log(f"[loadgen] the longest shape alone {longest_s:.3f} s; "
+            f"deadline {deadline:.1f} s; mix {mix.describe()}")
+        # every pass from here on, with the registry around it
+        passes = []
+        run = lg.run_open_loop
+
+        def recorded(engine, requests, **kw):
+            s0 = engine.metrics.snapshot()
+            res = run(engine, requests, **kw)
+            passes.append((res.report, s0, engine.metrics.snapshot()))
+            return res
+        pa.reset_launch_counts()
+        # (a) the service rate: every request offered at once
+        torch.cuda.synchronize()
+        sat = lg.run_open_loop(eng, lg.build_requests(
+            lg.TraceArrivals([0.0] * LOADGEN_SAT), lg.WorkloadMix(
+                shared_prefix_frac=0.5, shared_prefix_len=LOADGEN_PRE,
+                vocab_size=cfg.vocab_size), LOADGEN_SAT, seed=1,
+            uid_base=32_000_000), max_live=LOADGEN_LIVE).report
+        R = sat["rates_rps"]["completed"]
+        out["a"] = _pass_row(sat)
+        out["R_rps"] = R
+        log(f"[loadgen] (a) saturating pass: {LOADGEN_SAT} requests at "
+            f"once, max_live {LOADGEN_LIVE}: R = {R} rps completed, "
+            f"{sat['output_tokens_per_sec']} tok/s, {sat['duration_s']} s; "
+            f"balance_ok {sat['requests']['balance_ok']}")
+        # (b) the sweep
+        rates = [f * R for f in LOADGEN_FRACS]
+        lg.run_open_loop = recorded
+        try:
+            sweep = lg.sweep_capacity(
+                eng, rates, LOADGEN_N, mix, seed=0,
+                goodput_slo_frac=LOADGEN_SLO, process="poisson",
+                decode_burst=8, max_live=LOADGEN_LIVE)
+        finally:
+            lg.run_open_loop = run
+        torch.cuda.synchronize()
+        launches = dict(pa.LAUNCHES)
+        out["b"] = {"knee_rps": sweep["knee_rps"],
+                    "knee_goodput_rps": sweep["knee_goodput_rps"],
+                    "curve": sweep["curve"], "passes": []}
+        for frac, (rep, s0, s1) in zip(LOADGEN_FRACS, passes):
+            row = {"frac_of_R": frac, **_pass_row(rep)}
+            steps = s1["counters"]["serve_steps"] \
+                - s0["counters"].get("serve_steps", 0)
+            att = attribution_report(s1, s0)
+            row["steps"] = steps
+            row["attribution_ms_per_step"] = _attrib_ms(att, steps)
+            row["attribution_closure_err_frac"] = att["closure_err_frac"]
+            out["b"]["passes"].append(row)
+            log(f"[loadgen] (b) {frac:.1f} R: offered {row['offered_rps']} "
+                f"rps, completed {row['completed_rps']}, goodput "
+                f"{row['goodput_rps']} ({row['goodput_frac']}); TTFT ms "
+                f"{row['ttft_ms']}, TPOT ms {row['tpot_ms']}, queue wait "
+                f"ms {row['queue_wait_ms']}; shed {row['shed']}, deadline "
+                f"missed {row['deadline_missed']}; balance_ok "
+                f"{row['balance_ok']}")
+        r10 = out["b"]["passes"][LOADGEN_FRACS.index(1.0)]
+        log(f"[loadgen] (b) knee {sweep['knee_rps']} rps (goodput "
+            f"{sweep['knee_goodput_rps']} rps at SLO {LOADGEN_SLO}); the "
+            f"1.0 R pass's attribution, ms a step over {r10['steps']} "
+            f"steps: " + ", ".join(
+                f"{c} {v:.3f}"
+                for c, v in r10["attribution_ms_per_step"].items())
+            + f" (closure_err_frac {r10['attribution_closure_err_frac']})")
+        books = [sat] + [rep for rep, _, _ in passes]
+        if not all(rep["requests"]["balance_ok"] for rep in books) \
+                or len(passes) != len(LOADGEN_FRACS) \
+                or sat["requests"]["completed"] != LOADGEN_SAT:
+            raise AssertionError(f"[loadgen] books: {out['a']} "
+                                 f"{out['b']['passes']}")
+        # (c) the kernels of the whole of (a) and (b)
+        out["launches"] = launches
+        log(f"[loadgen] (c) K1 / K2 launches over (a) and (b): {launches}")
+        if not (launches["paged_prefill"] and launches["paged_decode"]):
+            raise AssertionError(f"[loadgen] K1 / K2 not launched: "
+                                 f"{launches}")
+        # (d) the renderer over the engine's export after (b)
+        snap = top.load_snapshot(export)
+        text = top.render(snap)
+        out["d"] = {"export_bytes": os.path.getsize(export),
+                    "render_lines": len(text.splitlines())}
+        log("[loadgen] (d) top.render of the export:\n" + text)
+        if not text or "goodput" not in text or "ttft" not in text:
+            raise AssertionError("[loadgen] (d) render names no goodput "
+                                 "or TTFT")
+        if eng.state.sequences or eng.free_blocks != eng.config.num_blocks:
+            raise AssertionError(f"[loadgen] the engine holds "
+                                 f"{len(eng.state.sequences)} sequences, "
+                                 f"{eng.free_blocks} blocks free after "
+                                 f"(b)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del eng
+    torch.cuda.empty_cache()
+    # K1 / K2 against their plain versions at the phase's largest
+    # prefill and decode shapes, timed
+    maxb = -(-(LOADGEN_MAX_PROMPT + LOADGEN_MAX_GEN) // FLEET_BLOCK)
+    trng = np.random.default_rng(310)
+    rows = []
+    for name, C, ctx in (
+            ("paged_prefill", 256, LOADGEN_MAX_PROMPT),
+            ("paged_decode", 1, LOADGEN_MAX_PROMPT + LOADGEN_MAX_GEN)):
+        t = time_paged(torch, trng, name, S=LOADGEN_LIVE, C=C, ctx=ctx,
+                       block_size=FLEET_BLOCK, maxb=maxb,
+                       heads=(32, 32, 128),
+                       bf16_max_abs=PAGED7_BF16_MAX_ABS)
+        rows.append({"name": f"{name}_loadgen_7b", "route": "cuda",
+                     "source": SOURCE, "replaces": REPLACES[name],
+                     "launches": launches[name],
+                     "launches_from": "phase 31, Llama-2-7B, (a) and (b)",
+                     **t})
+        torch.cuda.empty_cache()
+    # (e) the serve fault drill, its workers on the card
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = faultdrill.main(["--mode", "serve", "--sites",
+                              "mid_commit,sigterm", "--device", "cuda"])
+    drill = json.loads(buf.getvalue()[buf.getvalue().index("{"):])
+    out["e"] = {"rc": rc, "results": drill["results"]}
+    log(f"[loadgen] (e) fault drill rc {rc}: " + "; ".join(
+        f"{r['site']}: crash_rc {r.get('crash_rc')}, recovered "
+        f"{r['recovered']}, parity {r.get('token_parity')}"
+        for r in drill["results"]))
+    if rc != 0:
+        raise AssertionError(f"[loadgen] (e) fault drill: {drill}")
+    # (f) the timers
+    out["f"] = _timers_check(torch, train)
+    f = out["f"]
+    log(f"[loadgen] (f) train_batch timer {f['timer_mean_ms']:.2f} ms "
+        f"over {f['timer_count']} steps against phase 7's "
+        f"{f['phase7_step_ms']:.2f} ms (ratio {f['ratio']:.4f}); losses "
+        f"equal phase 7's: {f['losses_equal_phase7']} (max relative "
+        f"difference {f['max_loss_rel_diff']:.3e})")
     return out, rows
 
 
@@ -7452,8 +7855,11 @@ def main(argv) -> int:
     rows += family_rows
     moe, moe_rows = run(phase_moe_serving, torch)
     rows += moe_rows
-    fleet, fleet_rows = run(phase_fleet_serving, torch)
+    fleet, fleet_rows, weights = run(phase_fleet_serving, torch)
     rows += fleet_rows
+    loadgen, loadgen_rows = run(phase_loadgen, torch, weights, train)
+    del weights
+    rows += loadgen_rows
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     result = {"kernels": rows, "card": card, "phase_s": phase_s,
               "serving": {k: serving[k] for k in
@@ -7472,7 +7878,7 @@ def main(argv) -> int:
               "hf_serving": hf, "prefix_serving": prefix,
               "gpt2_serving": gpt2, "spec_decoding": spec,
               "family_serving": families, "moe_serving": moe,
-              "fleet_serving": fleet}
+              "fleet_serving": fleet, "loadgen": loadgen}
     if trace is not None:
         result["trace"] = trace
         result["train_trace"] = train["trace"]

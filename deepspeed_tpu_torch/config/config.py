@@ -189,7 +189,6 @@ class ResilienceConfig(ConfigModel):
 #: sub-tree without that key, when it is empty).
 UNPORTED_KEYS: Dict[str, Any] = {
     "activation_checkpointing": ({}, "A7 (runtime/activation_checkpointing.py)"),
-    "wall_clock_breakdown": (False, "A7 (the training observatory)"),
     "memory_breakdown": (False, "A7 (the training observatory)"),
     "dump_state": (False, "A7 (the training observatory)"),
     "curriculum_learning": ({}, "A7 (data_pipeline/)"),
@@ -250,6 +249,7 @@ class Config(ConfigModel):
     gradient_clipping: float = 0.0
 
     steps_per_print: int = 10
+    wall_clock_breakdown: bool = False
     seed: int = 1234
     compile: bool = True              # eager engine: no effect (see above)
 

@@ -1,7 +1,9 @@
 """Resilience layer (port of ``deepspeed_tpu/resilience``, its serving
-half): fault injection, the step watchdog, preemption grace and the
-restart ledger. The fault drill (``faultdrill.py``) is A6b; the training
-engine's use of the watchdog and of preemption is A7.1."""
+half): fault injection, the step watchdog, preemption grace, the restart
+ledger and the serve fault drill (``python -m
+deepspeed_tpu_torch.resilience.faultdrill --mode serve``). The training
+engine's use of the watchdog and of preemption, and the drill's training
+modes, are A7.1."""
 
 from .fault_injection import (
     DISAGG_FAULT_SITE,

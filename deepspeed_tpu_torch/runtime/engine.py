@@ -9,13 +9,17 @@ gradients with respect to those copies for each micro-batch (cast to
 unscale under fp16, clip by the global norm, update with optax, keep the
 old state on an fp16 overflow, update the loss scale and advance the step
 counter. This engine runs the same step eagerly in
-that order. The compute-dtype copies are fresh leaf tensors whose
+that order. With ``wall_clock_breakdown`` the ``train_batch`` timer
+(``utils/timer.py``) brackets each step and stops after a synchronize on
+the loss, as the JAX engine's does; a ``ThroughputTimer`` reports
+samples/s every ``steps_per_print`` steps. The compute-dtype copies are fresh leaf tensors whose
 gradients autograd returns in the compute dtype; it does not use
 ``torch.autocast``, which keeps fp32 leaves and yields fp32 gradients. The
 optimizer updates the master params and moments in place.
 
-Host synchronisation: none per step in bf16/fp32; under fp16 the overflow
-flag is read back each step (the JAX engine reads it back too). Not in this
+Host synchronisation: none per step in bf16/fp32 (one, on the loss, with
+``wall_clock_breakdown``); under fp16 the overflow flag is read back each
+step (the JAX engine reads it back too). Not in this
 slice: the forward/backward/step trio, ``save_checkpoint`` /
 ``load_checkpoint``, the training observatory, the flops profiler and the
 monitors (ROADMAP A7).
@@ -33,6 +37,8 @@ from ..config.config import Config, ConfigError
 from ..ops.optimizers import AdamState, build_optimizer
 from ..utils.device import resolve_device
 from ..utils.dtypes import cast_floating, resolve_dtype
+from ..utils.timer import (TRAIN_BATCH_TIMER, NoopTimer,
+                           SynchronizedWallClockTimer, ThroughputTimer)
 from ..utils.tree import flatten, unflatten
 from . import loss_scaler as ls
 from .lr_schedules import build_schedule
@@ -120,6 +126,11 @@ class Engine:
         self.global_steps = 0
         self.global_samples = 0
         self.skipped_steps = 0
+        self.timers = SynchronizedWallClockTimer() \
+            if config.wall_clock_breakdown else NoopTimer()
+        self.tput_timer = ThroughputTimer(
+            batch_size=config.train_batch_size,
+            steps_per_output=config.steps_per_print)
 
     # ------------------------------------------------------------------ #
 
@@ -152,6 +163,8 @@ class Engine:
         if lead != expected:
             raise ConfigError(f"train_batch expects leading dim == "
                               f"train_batch_size ({expected}), got {lead}")
+        self.tput_timer.start()
+        self.timers(TRAIN_BATCH_TIMER).start()
         batch = _to_device(batch, self.device)
         gas, mb = self.gradient_accumulation_steps, self.micro_batch_size
         fp16 = cfg.fp16.enabled
@@ -215,6 +228,8 @@ class Engine:
             skipped=not finite)
         self.global_steps += 1
         self.global_samples += expected
+        self.timers(TRAIN_BATCH_TIMER).stop(barrier_value=mean_loss)
+        self.tput_timer.stop(global_step=True, report_speed=True)
         if not finite:
             self.skipped_steps += 1
             logger.info(f"step={self.global_steps}: OVERFLOW — step "
@@ -225,6 +240,9 @@ class Engine:
                 f"step={self.global_steps} loss={mean_loss.item():.4f} "
                 f"lr={lr:.3e} grad_norm={grad_norm.item():.3f} "
                 f"loss_scale={scale:.1f}")
+            if cfg.wall_clock_breakdown:
+                self.timers.log([TRAIN_BATCH_TIMER],
+                                normalizer=cfg.steps_per_print)
         return mean_loss
 
     @torch.no_grad()

@@ -355,7 +355,6 @@ def test_batch_size_resolution_matches(sizes):
     {"resilience": {"watchdog": {"enabled": True}}},
     {"compression_training": {"weight_quantization": {}}},
     {"tensorboard": {"enabled": True}},
-    {"wall_clock_breakdown": True},
     {"mesh": {"data": 2}},
     {"optimizer": {"type": "Lamb", "params": {}}},
     {"optimizer": {"type": "Adam", "params": {"moment_dtype": "bf16",
@@ -453,6 +452,43 @@ def test_engine_fp32_trajectory_matches():
         np.testing.assert_allclose(tlr, jlr, rtol=1e-6)
         assert js == ts == 1.0
     assert teng.global_steps == 5 and teng.global_samples == 20
+
+
+def test_wall_clock_breakdown_times_train_batch(monkeypatch):
+    """``wall_clock_breakdown`` (ported with ``utils/timer.py``): the
+    ``train_batch`` timer and the throughput timer report every
+    ``steps_per_print`` steps, and the losses equal the run with the
+    timers off, bit for bit (the JAX engine's trajectory is held above)."""
+    from deepspeed_tpu_torch.utils import timer as tm
+    logged = []
+    monkeypatch.setattr(tm, "log_dist",
+                        lambda msg, ranks=None: logged.append(msg))
+    tcfg = GPT2Config.tiny(dtype=torch.float32, attention_impl="xla")
+    _, _, tloss = make_model(tcfg)
+    engines = []
+    for timers in (True, False):
+        ds = {**_ds("fp32"), "steps_per_print": 2,
+              "wall_clock_breakdown": timers}
+        eng, *_ = initialize(loss_fn=tloss, config=ds, device="cpu",
+                             params=init_gpt2_params(tcfg, seed=3,
+                                                     device="cpu"))
+        engines.append(eng)
+    on, off = engines
+    assert isinstance(on.timers, tm.SynchronizedWallClockTimer)
+    assert isinstance(off.timers, tm.NoopTimer)
+    rng = np.random.default_rng(7)
+    for _ in range(4):
+        toks = torch.from_numpy(rng.integers(0, 512, (4, 33)))
+        assert float(on.train_batch({"tokens": toks})) == \
+            float(off.train_batch({"tokens": toks}))
+    assert on.timers.has_timer(tm.TRAIN_BATCH_TIMER)
+    assert on.tput_timer.global_step_count == 4
+    times = [m for m in logged if m.startswith("time (ms) | ")]
+    assert len(times) == 2 and all(
+        m.startswith("time (ms) | train_batch: ") and
+        float(m.rsplit(" ", 1)[1]) > 0.0 for m in times)
+    # both engines' throughput timers report at steps 2 and 4
+    assert sum("RunningAvgSamplesPerSec" in m for m in logged) == 4
 
 
 def test_engine_grad_norm_is_the_exact_global_norm():

@@ -3,11 +3,15 @@ control, the replica pool with elastic membership, and disaggregated
 prefill -> decode serving with its KV handoff.
 
 - The JAX package's router cases (``TestRouterPolicy``,
-  ``TestMergeSourceScheme``), admission cases (``TestControlLaw``) and
-  disaggregated-serving cases (``TestDisaggParity``, the fault cases,
+  ``TestMergeSourceScheme``), the loadgen-driven pool cases
+  (``TestPoolSmoke``, ``TestRollupExactness``, ``TestElasticMembership``,
+  and the slow ``TestFleetSlow`` with its fault drill), admission cases
+  (``TestControlLaw``) and disaggregated-serving cases
+  (``TestDisaggParity``, the fault cases with the slow subprocess drill,
   ``TestKillSwitchAndRoles``) run here on the port: compiled from their
   files with the imports pointed at the port and the engines built by
-  the port (the tiny Llama, fp32, dense attention).
+  the port (the tiny Llama, or the loadgen's tiny GPT-2, fp32, dense
+  attention), the drills' workers on the CPU.
 - For the same seed and inputs the port's router picks the replica the
   JAX router picks, and its admission controller makes the same level
   transitions with the same ``retry_after_s``.
@@ -30,7 +34,9 @@ from deepspeed_tpu.serving.router import Router as JaxRouter
 from deepspeed_tpu_torch.serving import (ReplicaPool, build_admission,
                                          build_replica_engines)
 from deepspeed_tpu_torch.serving.admission import AdmissionController
+from deepspeed_tpu_torch.resilience import faultdrill
 from deepspeed_tpu_torch.serving.router import Router
+from deepspeed_tpu_torch.telemetry import loadgen
 from deepspeed_tpu_torch.telemetry.registry import MetricsRegistry
 from torch_port_cases import jax_engine, port_cases, port_engine
 
@@ -45,10 +51,27 @@ def _engine(**kw):
     return port_engine(DISAGG, **kw)
 
 
-TestRouterPolicy, TestMergeSourceScheme = port_cases(
+def _tiny_engine(**kw):
+    """The loadgen's tiny GPT-2 engine, on the CPU."""
+    return loadgen._tiny_engine(device="cpu", **kw)
+
+
+@pytest.fixture(autouse=True)
+def _drills_on_the_cpu(monkeypatch):
+    """The fault drills' workers build their engines on the CPU."""
+    monkeypatch.setitem(faultdrill._DEVICE, "name", "cpu")
+
+
+(TestRouterPolicy, TestMergeSourceScheme, TestPoolSmoke,
+ TestRollupExactness, TestElasticMembership, TestFleetSlow,
+ smoke_pool) = port_cases(
     "tests/unit/test_serving_fleet.py",
-    ("TestRouterPolicy", "TestMergeSourceScheme"),
-    ("serving", "telemetry.registry"), keep=("telemetry.loadgen",))
+    ("TestRouterPolicy", "TestMergeSourceScheme", "TestPoolSmoke",
+     "TestRollupExactness", "TestElasticMembership", "TestFleetSlow",
+     "smoke_pool"),
+    ("serving", "telemetry.registry", "telemetry.loadgen",
+     "resilience.faultdrill"),
+    overrides={"_tiny_engine": _tiny_engine})
 (TestControlLaw,) = port_cases(
     "tests/unit/test_admission.py", ("TestControlLaw",),
     ("serving.admission", "telemetry.registry"))
@@ -57,11 +80,9 @@ TestRouterPolicy, TestMergeSourceScheme = port_cases(
     "tests/unit/test_serving_disagg.py",
     ("TestDisaggParity", "TestDisaggFaults", "TestKillSwitchAndRoles",
      "greedy_oracle"),
-    ("serving", "inference.v2", "resilience.fault_injection"),
+    ("serving", "inference.v2", "resilience.fault_injection",
+     "resilience.faultdrill"),
     overrides={"_engine": _engine})
-# the subprocess fault drill drives the JAX package's faultdrill, which
-# the port has not yet (A6b)
-del TestDisaggFaults.test_disagg_faultdrill_subprocess
 
 
 # ------------------------------------------------------------------ #

@@ -1,24 +1,29 @@
 """Port parity for serving telemetry, on the CPU.
 
 - The JAX package's own registry, histogram, flight-recorder, merge,
-  time-series and rollup cases (``tests/unit/test_telemetry.py``) run
-  here on the port's modules: the classes are compiled from that file
-  with its imports of the telemetry modules pointed at the port (the
-  JAX ``dstpu_top`` renderer, A6b, reads the port's exports). So are
-  its serve-engine cases, with its ``_engine`` replaced by a port engine
-  (the tiny Llama below, fp32, dense attention, depth 2, prefix cache).
+  time-series, rollup and monitor-bridge cases
+  (``tests/unit/test_telemetry.py``) run here on the port's modules: the
+  classes are compiled from that file with its imports of the telemetry
+  modules pointed at the port (the snapshot renderer too). So are its
+  serve-engine cases, with its ``_engine`` replaced by a port engine (the
+  tiny Llama below, fp32, dense attention, depth 2, prefix cache).
 - The same event sequence fed to both packages' registries gives equal
   snapshots, and equal ``merge_snapshots``.
 - The same workload served by the JAX engine and the port engine gives
   equal counters, equal histogram counts, equal metric names, equal
-  gauges but for the pool's bytes (the port's pool has one more block:
-  the trash block padded positions write to), the same phase spans per
-  step in the flight ring, and equal SLO-report counts.
+  gauges (the KV pool's bytes too: both pools hold ``num_blocks + 1``
+  blocks), the same phase spans per step in the flight ring, and equal
+  SLO-report counts.
+- For the same snapshot JSON (one engine's export, a fleet merge, with
+  sampled series, admission and handoff rows) the port's renderer gives
+  the JAX text character for character, and so do its fleet view and
+  trace merge.
 - Step-time attribution closes: the components sum to the window's wall
   within 0.35 and to the observer's own step wall within 1%.
 - ``DSTPU_TELEMETRY=0`` gives the same tokens and ``metrics is None``.
 """
 
+import json
 import time
 
 import numpy as np
@@ -46,18 +51,19 @@ def _jax_engine(**kw):
 
 (TestHistogram, TestRegistry, TestFlightRecorder, TestServeTelemetry,
  TestHistogramMerge, TestFleetRollup, TestTimeSeries,
- TestFlightDropsAndRequestSpans, TestRollupHardening) = port_cases(
+ TestFlightDropsAndRequestSpans, TestRollupHardening,
+ TestMonitorBridge) = port_cases(
     "tests/unit/test_telemetry.py",
     ("TestHistogram", "TestRegistry", "TestFlightRecorder",
      "TestServeTelemetry", "TestHistogramMerge", "TestFleetRollup",
      "TestTimeSeries", "TestFlightDropsAndRequestSpans",
-     "TestRollupHardening"),
-    ("telemetry.registry", "telemetry.flight_recorder", "telemetry",
-     "inference.v2", "resilience.fault_injection"),
-    overrides={"_engine": _engine},
-    # the snapshot renderer (A6b) stays the JAX package's: it reads the
-    # port's exported JSON
-    keep=("telemetry.top",))
+     "TestRollupHardening", "TestMonitorBridge"),
+    ("telemetry.registry", "telemetry.flight_recorder", "telemetry.top",
+     "telemetry", "inference.v2", "resilience.fault_injection"),
+    overrides={"_engine": _engine})
+# the CSV monitor writer is the JAX package's monitor/ (A9), not the
+# bridge: its case stays with the JAX tests
+del TestMonitorBridge.test_csv_monitor_keeps_handles
 
 
 # ------------------------------------------------------------------ #
@@ -117,9 +123,6 @@ N_TOK = 8
 _rng = np.random.default_rng(55)
 _SHARED = _rng.integers(1, 512, 10).tolist()
 PROMPTS = [_SHARED + _rng.integers(1, 512, 5).tolist() for _ in range(3)]
-#: gauges that differ by layout, not by accounting: the port's pool holds
-#: one more block (the trash block padded positions write to)
-LAYOUT_GAUGES = {"kv_pool_bytes_total", "kv_pool_bytes_per_chip"}
 
 
 def _serve(eng, n=N_TOK):
@@ -176,8 +179,7 @@ def test_counters_histograms_and_spans_equal_jax(served_pair):
             js["histograms"][k]["count"], k
     assert set(js["gauges"]) == set(ts["gauges"])
     for k in js["gauges"]:
-        if k not in LAYOUT_GAUGES:
-            assert ts["gauges"][k] == js["gauges"][k], k
+        assert ts["gauges"][k] == js["gauges"][k], k
     assert _phase_steps(teng.flight) == _phase_steps(jeng.flight)
     total = sum(len(t) for t in tt.values())
     c = ts["counters"]
@@ -249,8 +251,16 @@ def test_attribution_train_half_and_comm_share_name_their_items():
         attribution.train_attribution_report({})
     with pytest.raises(NotImplementedError, match="A9"):
         attribution.comm_share(None)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        from deepspeed_tpu_torch.telemetry import run_open_loop  # noqa
+    # the A6b names are the port's own now
+    from deepspeed_tpu_torch.telemetry import (MonitorBridge,
+                                               attach_monitor, loadgen,
+                                               monitor_bridge,
+                                               run_open_loop,
+                                               sweep_capacity)
+    assert run_open_loop is loadgen.run_open_loop
+    assert sweep_capacity is loadgen.sweep_capacity
+    assert attach_monitor is monitor_bridge.attach_monitor
+    assert MonitorBridge is monitor_bridge.MonitorBridge
     with pytest.raises(NotImplementedError, match="A7.6"):
         from deepspeed_tpu_torch.telemetry import goodput_report  # noqa
 
@@ -280,3 +290,128 @@ def test_profiler_ranges_name_the_phases(tmp_path, monkeypatch):
     monkeypatch.delenv("DSTPU_TRACE_DIR")
     with ttel.maybe_trace("x") as on:
         assert not on
+
+
+# ------------------------------------------------------------------ #
+# the snapshot renderer: the JAX text for the same snapshot
+# ------------------------------------------------------------------ #
+
+def _rich_registry(name, seed):
+    """A registry carrying every row the renderer draws: outcomes,
+    speculation, handoffs, attribution components and their sampled
+    counter series, prefix and host tier, the pool, admission, dropped
+    flight spans, and sampled rate series."""
+    from deepspeed_tpu_torch.telemetry.registry import MetricsRegistry
+    rng = np.random.default_rng(seed)
+    r = MetricsRegistry(name)
+    for c in ("serve_requests_admitted", "serve_requests_completed",
+              "serve_requests_shed", "serve_requests_deadline_expired",
+              "serve_requests_rejected_admission", "serve_requests_aborted",
+              "serve_requests_drained", "serve_steps_device_fed",
+              "spec_proposed", "spec_rounds", "serve_handoff_seqs",
+              "serve_handoff_seqs_in", "serve_handoff_fallback_replays",
+              "serve_handoff_blocks", "prefix_matched_tokens",
+              "prefix_prefill_tokens", "prefix_cow_copies",
+              "prefix_evicted_blocks", "prefix_demoted_blocks",
+              "prefix_promoted_blocks", "prefix_host_hit_blocks",
+              "prefix_host_evicted_blocks", "admission_rejected",
+              "flight_spans_dropped"):
+        r.counter(c).inc(int(rng.integers(1, 50)))
+    r.counter("serve_handoff_bytes").inc(float(rng.uniform(1e6, 1e9)))
+    r.counter("brownout_transitions", level="2").inc(3)
+    for g, v in (("prefix_cached_blocks", 17), ("prefix_evictable_blocks", 5),
+                 ("prefix_host_blocks", 9), ("kv_pool_blocks_total", 64),
+                 ("kv_pool_blocks_free", 40),
+                 ("kv_pool_bytes_per_chip", 133120),
+                 ("admission_window", 6), ("admission_level", 2)):
+        r.gauge(g).set(v)
+    for h in ("serve_ttft_s", "serve_tpot_s", "serve_queue_wait_s",
+              "serve_commit_block_s", "serve_handoff_exposed_s",
+              "prefix_promote_wait_s", "serve_plan_s", "serve_dispatch_s",
+              "serve_commit_apply_s", "serve_host_gap_s"):
+        for v in rng.lognormal(-5, 1.0, 40):
+            r.histogram(h).observe(float(v))
+    steps, tok = r.counter("serve_steps"), r.counter("serve_tokens_committed")
+    acc = r.counter("spec_accepted")
+    comps = {c: r.counter("serve_attrib_seconds_total", component=c)
+             for c in ("plan", "dispatch", "device_execute", "commit_apply",
+                       "host_gap")}
+    for i in range(12):
+        steps.inc(int(rng.integers(1, 9)))
+        tok.inc(int(rng.integers(10, 90)))
+        acc.inc(int(rng.integers(0, 4)))
+        r.counter("spec_proposed").inc(4)
+        for c in comps.values():
+            c.inc(float(rng.uniform(0, 0.02)))
+        r.counter("serve_requests_completed").inc(int(rng.integers(0, 3)))
+        r.sample(now=1000.0 + i)
+    return r
+
+
+def _both(fn, *a, **k):
+    from deepspeed_tpu.telemetry import top as jtop
+    from deepspeed_tpu_torch.telemetry import top as ttop
+    return getattr(jtop, fn)(*a, **k), getattr(ttop, fn)(*a, **k)
+
+
+def test_top_render_equals_jax(served_pair):
+    _, teng, _, _ = served_pair
+    # exported snapshots carry their time and uptime (the header reads
+    # them: a snapshot without would render the clock at the call)
+    snaps = [json.loads(r.to_json()) for r in
+             (teng.metrics, _rich_registry("r0", 1), _rich_registry("r1", 2))]
+    for snap in snaps:
+        j, t = _both("render", snap)
+        assert t == j and "goodput" in t and "ttft" in t
+    for row in ("speculation", "handoff", "step time", "dominant/window",
+                "host tier", "admission", "flight ring",
+                "rates (sampled series)"):
+        assert row in t, row
+    later = json.loads(_rich_registry("r0", 3).to_json())
+    later["time"] = snaps[1]["time"] + 2.5
+    j, t = _both("render", later, snaps[1])
+    assert t == j
+
+
+def test_top_fleet_view_and_cli_equal_jax(tmp_path, capsys):
+    from deepspeed_tpu.telemetry import top as jtop
+    from deepspeed_tpu_torch.telemetry import top as ttop
+    paths = []
+    for i in range(2):
+        p = str(tmp_path / f"replica_{i}.json")
+        _rich_registry(f"r{i}", 10 + i).export(p)
+        paths.append(p)
+    (jm, jsrc), (tm, tsrc) = _both("load_fleet", paths)
+    assert tm == jm and tsrc == jsrc
+    j, t = _both("render_sources", tsrc)
+    assert t == j
+    outs = []
+    for mod in (jtop, ttop):
+        assert mod.main([str(tmp_path / "replica_*.json")]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[1] == outs[0] and "per-source breakdown" in outs[1]
+    assert ttop.main([str(tmp_path / "missing.json")]) == 2
+    with pytest.raises(NotImplementedError, match="A7.6"):
+        ttop.main(["--train", paths[0]])
+
+
+def test_top_trace_merge_equals_jax(tmp_path, capsys):
+    from deepspeed_tpu.telemetry import top as jtop
+    from deepspeed_tpu_torch.telemetry import top as ttop
+    eng = _engine()
+    r = eng.put([0, 1], [PROMPTS[0], PROMPTS[1]], _greedy=True)
+    eng.decode_pipelined([0, 1], [r[0], r[1]], 3)
+    dumps = []
+    for i in range(2):
+        d = tmp_path / f"d{i}"
+        d.mkdir()
+        p = str(d / "flight_0.json")
+        eng.flight.dump(p, reason="test")
+        dumps.append(p)
+    outs = []
+    for k, mod in enumerate((jtop, ttop)):
+        out = str(tmp_path / f"merged_{k}.json")
+        assert mod.merge_trace_files(dumps, out) == 0
+        outs.append((json.loads(open(out).read()),
+                     capsys.readouterr().out.replace(out, "OUT")))
+    assert outs[1] == outs[0]

@@ -14,14 +14,19 @@ ROOT = Path(__file__).resolve().parents[1]
 _CACHE = {}
 
 
-def port_cases(path, names, modules, overrides=None, keep=()):
+def port_cases(path, names, modules, overrides=None, keep=(), subs=()):
     """The test classes (or fixtures) ``names`` of the JAX test file
     ``path``, compiled with its imports of ``deepspeed_tpu.<m>`` for each
     ``m`` in ``modules`` (and ``from deepspeed_tpu import <m>``) pointed
     at the port, but for the modules in ``keep`` (not ported: they stay
     the JAX package's). ``overrides`` replace module-level helpers of
-    that file, so its cases build port engines."""
+    that file, so its cases build port engines; ``subs`` are (old, new)
+    source replacements made first, each of which must match."""
     src = (ROOT / path).read_text()
+    for old, new in subs:
+        if old not in src:
+            raise ValueError(f"{path}: {old!r} not found")
+        src = src.replace(old, new)
     for m in modules:
         src = re.sub(rf"\bdeepspeed_tpu\.{re.escape(m)}\b",
                      f"deepspeed_tpu_torch.{m}", src)
@@ -84,3 +89,39 @@ def jax_engine(base, **kw):
     jcfg, jparams, _, _ = tiny_llama()
     return InferenceEngineV2(jcfg, jparams,
                              RaggedInferenceConfig(**{**base, **kw}))
+
+
+class StagingTripwire:
+    """The port's warm-path tripwire, in the place of the JAX package's
+    ``RecompileTripwire`` (which counts XLA compiles, a thing the port
+    does not do): the staging sets (``InferenceEngineV2._staging_bufs``,
+    the per-step-shape host buffers a step is planned into, pinned on a
+    card) that any engine allocates inside a ``with`` region. A warm pass
+    over step shapes it has already run must allocate none."""
+
+    available = True
+
+    def __init__(self):
+        self.fresh_allocations = 0
+
+    @property
+    def fresh_compiles(self):
+        """The JAX tripwire's name for the count."""
+        return self.fresh_allocations
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.inference.v2.engine_v2 import \
+            InferenceEngineV2
+        self._cls = InferenceEngineV2
+        self._orig = orig = InferenceEngineV2._staging_bufs
+        tw = self
+
+        def counted(eng, S, C):
+            if (S, C) not in eng._staging:
+                tw.fresh_allocations += 1
+            return orig(eng, S, C)
+        InferenceEngineV2._staging_bufs = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._staging_bufs = self._orig
