@@ -383,9 +383,9 @@ bound and one library call:
              and timed.
 28. families — the dense runners of A5.4. (a) A random checkpoint in
              HuggingFace's layout with EleutherAI/gpt-j-6b's published
-             config.json uncut (28 layers, n_embd 4096, 16 heads of 256,
-             rotary_dim 64, vocab 50400, an untied lm_head with a bias;
-             ~12.1 GB in bf16), written and removed as in phase 24, served
+             config.json at 14 of its 28 layers (n_embd 4096, 16 heads of
+             256, rotary_dim 64, vocab 50400, an untied lm_head with a
+             bias; ~6.5 GB in bf16), written and removed as in phase 24, served
              through ``build_hf_engine`` by the GPT-J runner: every loaded
              leaf bit-identical to the tensor written; 16 prompts x 256
              tokens, 32 new, greedy and sampled at depth 0, depth 2 and
@@ -410,10 +410,10 @@ bound and one library call:
              against their plain versions and timed beside SDPA, a
              ``kernels`` row each with the depth-2 bf16 run's launches.
 29. moe     — the MoE families. (a) A random checkpoint in HF's layout at
-             Qwen/Qwen1.5-MoE-A2.7B's published config.json uncut (24
-             layers, hidden 2048, 16 heads of 128, 60 experts top-4 of
+             Qwen/Qwen1.5-MoE-A2.7B's published config.json at 12 of its
+             24 layers (hidden 2048, 16 heads of 128, 60 experts top-4 of
              width 1408 over the full softmax, a shared expert of 5632,
-             vocab 151936; 28.6 GB in bf16) through ``build_hf_engine``,
+             vocab 151936; ~15 GB in bf16) through ``build_hf_engine``,
              the host's resident set sampled during the load, every
              tensor checked bit for bit; 16 prompts x 256 tokens, 32
              greedy tokens, depth 2, with the grouped GEMM's launches
@@ -495,6 +495,29 @@ bound and one library call:
              ``train_batch`` timer's mean within 5% of phase 7's step
              time, the first loss bit-identical and the rest within 1e-4
              relative of phase 7's.
+32. family training — the Llama and MoE families trained through their
+             ``make_model`` entry points and ``Engine.train_batch``, bf16
+             compute over fp32 master params, random weights from a
+             seed, 2 warm-up and 5 timed steps on one batch, every
+             launch count zeroed before and read after: (a)
+             TinyLlama-1.1B whole (GQA 8, micro 4 x seq 2048, fused
+             xent), (b) Qwen1.5-MoE-A2.7B at published widths, 2 of 24
+             layers (micro 2 x seq 1024; top-4 on the grouped GEMM and
+             its backward, B18), (c) Mixtral-8x7B at published widths, 1
+             of 32 layers (micro 2 x seq 1024; the capacity route with
+             second-expert sampling, flash at GQA 4, D 128). Launches as
+             reckoned (flash a layer, xent a step, 3 grouped products,
+             3 dX and 3 dW a layer); losses finite and falling; 3 steps
+             on fresh batches within 1e-4 of the plain routes (``xla``
+             attention, chunked xent, the plain ``ragged_dot``). At each
+             run's shapes the flash forward and backward at GQA, the
+             xent kernels, the grouped forward and B18 (dX and dW, an
+             empty expert, ragged groups; 2**-7 of the largest output)
+             against their plain versions and timed beside SDPA /
+             ``torch._grouped_mm``; (b)'s grouped layer forward and
+             backward under ``set_sync_debug_mode("error")``. Step ms,
+             tokens/s, peak memory; with ``--trace`` a profiler window
+             over one step a run.
 
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
@@ -1492,9 +1515,10 @@ def _flash_bound(B, T, Hh, Dh, products, n_bf16, n_rows):
             else "bytes", nbytes, flops)
 
 
-def _sdpa_bwd_ms(torch, q, k, v, do):
+def _sdpa_bwd_ms(torch, q, k, v, do, **sdpa_kw):
     """The library yardstick of the backward: SDPA's backward (dQ, dK and
-    dV, the backend SDPA picks) on the same q/k/v/dO. By events, one
+    dV, the backend SDPA picks; ``sdpa_kw`` besides ``is_causal``, as
+    ``enable_gqa``) on the same q/k/v/dO. By events, one
     ``torch.autograd.grad`` call a step on a kept graph; in a CUDA graph,
     forward and backward captured together, less the forward alone.
     Returns (events ms, graph ms)."""
@@ -1504,8 +1528,8 @@ def _sdpa_bwd_ms(torch, q, k, v, do):
         # fresh leaves a call: their autograd nodes then belong to the
         # stream the call runs on (the graph's, while it is captured)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        return F.scaled_dot_product_attention(*leaves, is_causal=True), \
-            leaves
+        return F.scaled_dot_product_attention(
+            *leaves, **{"is_causal": True, **sdpa_kw}), leaves
 
     o, leaves = fwd()
     ev = _time_ms(torch, lambda: torch.autograd.grad(
@@ -5588,9 +5612,11 @@ def phase_spec_decoding(torch):
 
 # ---------------------------------------------------------------- families
 
-# phase 28 (a): the published config.json of EleutherAI/gpt-j-6b uncut (28
+# phase 28 (a): the published config.json of EleutherAI/gpt-j-6b (28
 # layers, n_embd 4096, 16 heads of 256, rotary_dim 64, vocab 50400, an
-# untied lm_head with a bias), its tensors in bf16
+# untied lm_head with a bias), its tensors in bf16, served at GPTJ_LAYERS
+# of its layers (cut for the whole script's time: it ran 825-993 s with
+# phase 32)
 GPTJ_6B = {"architectures": ["GPTJForCausalLM"], "model_type": "gptj",
            "vocab_size": 50400, "n_positions": 2048, "n_embd": 4096,
            "n_layer": 28, "n_head": 16, "rotary_dim": 64, "n_inner": None,
@@ -5598,6 +5624,7 @@ GPTJ_6B = {"architectures": ["GPTJForCausalLM"], "model_type": "gptj",
            "rotary": True, "tie_word_embeddings": False,
            "bos_token_id": 50256, "eos_token_id": 50256,
            "torch_dtype": "bfloat16"}
+GPTJ_LAYERS = 14
 GPTJ_SEQS, GPTJ_PROMPT, GPTJ_GEN = 16, 256, 32
 # phase 28 (b): the other families at their published widths, each cut
 # to FAMILY_LAYERS layers (bigscience/bloom-7b1, EleutherAI/gpt-neox-20b,
@@ -5865,8 +5892,9 @@ def _family_cfg(seqs, prompt, gen, **kw):
 
 
 def _gptj_whole(torch, pa, out):
-    """Phase 28 (a): GPT-J-6B uncut through build_hf_engine, depth 0,
-    depth 2 and the decode loop, greedy and sampled."""
+    """Phase 28 (a): GPT-J-6B at GPTJ_LAYERS of its layers through
+    build_hf_engine, depth 0, depth 2 and the decode loop, greedy and
+    sampled."""
     import shutil
     import tempfile
 
@@ -5877,7 +5905,7 @@ def _gptj_whole(torch, pa, out):
                                                   build_hf_engine)
     from deepspeed_tpu_torch.inference.v2.bloom_gptj_neox_runner import \
         GPTJRaggedRunner
-    hf, L = GPTJ_6B, GPTJ_6B["n_layer"]
+    hf, L = {**GPTJ_6B, "n_layer": GPTJ_LAYERS}, GPTJ_LAYERS
     specs = _gptj_specs(hf)
     rec = out["gptj_6b"] = {"model": "EleutherAI/gpt-j-6b"}
     tmp = Path(tempfile.mkdtemp(prefix="gptj6b_"))
@@ -6103,7 +6131,9 @@ def phase_family_serving(torch):
     from deepspeed_tpu_torch.ops.kernels import quantization as qz
     out = {"reduced": {"families": f"depth cut to {FAMILY_LAYERS} layers "
                                    f"(published widths kept)",
-                       "gptj_6b": "none"}}
+                       "gptj_6b": f"depth cut to {GPTJ_LAYERS} of 28 "
+                                  f"layers (published widths kept; the "
+                                  f"whole script's time)"}}
     rows = _gptj_whole(torch, pa, out)
     for fam, hf, specs_fn in (("bloom", BLOOM_7B1, _bloom_specs),
                               ("gpt_neox", NEOX_20B, _neox_specs),
@@ -6124,10 +6154,12 @@ def phase_family_serving(torch):
 
 
 # ------------------------------------------------------------------ phase 29
-# (a) the published config.json of Qwen/Qwen1.5-MoE-A2.7B uncut: 24 layers,
+# (a) the published config.json of Qwen/Qwen1.5-MoE-A2.7B: 24 layers,
 # hidden 2048, 16 heads on 16 KV heads of 128, 60 experts top-4 of width
 # 1408 (full-softmax weights: norm_topk_prob false), a shared expert of
-# 5632, vocab 151936; its tensors in bf16 (about 14.3 B parameters)
+# 5632, vocab 151936; its tensors in bf16 (about 14.3 B parameters).
+# Phase 29 serves it at MOE_QWEN_LAYERS of its layers (cut for the whole
+# script's time: it ran 825-993 s with phase 32)
 QWEN_MOE = {"architectures": ["Qwen2MoeForCausalLM"],
             "model_type": "qwen2_moe", "hidden_size": 2048,
             "intermediate_size": 5632, "moe_intermediate_size": 1408,
@@ -6156,6 +6188,7 @@ MIXTRAL_8X7B = {"architectures": ["MixtralForCausalLM"],
                 "hidden_act": "silu", "router_aux_loss_coef": 0.02,
                 "bos_token_id": 1, "eos_token_id": 2,
                 "torch_dtype": "bfloat16"}
+MOE_QWEN_LAYERS = 12
 MOE_MIXTRAL_LAYERS = 8
 #: layers of the Mixtral checkpoint that exercises the expert stacking
 MOE_MIXTRAL_HF_LAYERS = 2
@@ -6615,17 +6648,22 @@ def phase_moe_serving(torch):
     from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
     from deepspeed_tpu_torch.ops.kernels import quantization as qz
     out = {"reduced": {
-        "qwen1p5_moe": "none",
+        "qwen1p5_moe": f"depth cut to {MOE_QWEN_LAYERS} of 24 layers "
+                       f"(published widths kept; the whole script's "
+                       f"time)",
         "mixtral_8x7b": f"depth cut to {MOE_MIXTRAL_LAYERS} of 32 layers "
                         f"(93 GB in bf16 uncut; published widths kept); "
                         f"its HF checkpoint at {MOE_MIXTRAL_HF_LAYERS}",
         "parity": f"{MOE_PARITY_LAYERS} layers"}}
     rows = []
     serve = {}
-    # (a) Qwen1.5-MoE-A2.7B uncut through build_hf_engine
-    rec = out["qwen1p5_moe"] = {"model": "Qwen/Qwen1.5-MoE-A2.7B"}
+    # (a) Qwen1.5-MoE-A2.7B at MOE_QWEN_LAYERS layers through
+    # build_hf_engine
+    rec = out["qwen1p5_moe"] = {"model": "Qwen/Qwen1.5-MoE-A2.7B",
+                                "layers": MOE_QWEN_LAYERS}
     torch.cuda.empty_cache()
-    eng = _moe_from_hf(torch, QWEN_MOE, 29, rec)
+    qwen = {**QWEN_MOE, "num_hidden_layers": MOE_QWEN_LAYERS}
+    eng = _moe_from_hf(torch, qwen, 29, rec)
     qcfg = eng.model_cfg
     if not isinstance(qcfg, MixtralConfig) or \
             not isinstance(eng.runner, LlamaRaggedRunner) or \
@@ -6635,7 +6673,7 @@ def phase_moe_serving(torch):
                 "shared_expert_intermediate_size")):
         raise AssertionError(f"[moe] qwen config {qcfg}")
     serve["qwen2_moe"] = _moe_serve(torch, pa, gg, "qwen1p5_moe", eng,
-                                    QWEN_MOE["num_hidden_layers"], rec)
+                                    MOE_QWEN_LAYERS, rec)
     del eng
     torch.cuda.empty_cache()
     # (b) Mixtral-8x7B at its widths: seeded parameters on the card, and
@@ -7760,6 +7798,481 @@ def phase_loadgen(torch, weights, train):
     return out, rows
 
 
+# ------------------------------------------------------- family training
+
+#: phase 32's runs, (micro batch, sequence) each, bf16 compute over fp32
+#: master params: (a) TinyLlama-1.1B at all 22 layers, (b) Qwen1.5-MoE-
+#: A2.7B (phase 29's QWEN_MOE, published widths) at FT_LAYERS of its 24,
+#: (c) Mixtral-8x7B (MIXTRAL_8X7B) at FT_LAYERS of its 32
+FT_RUNS = {"tinyllama_1b": (4, 2048), "qwen1p5_moe": (2, 1024),
+           "mixtral_8x7b": (2, 1024)}
+FT_LAYERS = {"qwen1p5_moe": 2, "mixtral_8x7b": 1}
+FT_WARMUP, FT_STEPS, FT_PARITY_STEPS, FT_SEED = 2, 5, 3, 32
+#: kernel route against the plain routes: phase 7's bf16 limit on the
+#: losses of the first FT_PARITY_STEPS steps, relative
+FT_PARITY_REL = 1e-4
+#: B18 (grouped_wgrad and grouped_dgrad, the grouped GEMM's backward) has
+#: no Pallas twin: JAX differentiates jax.lax.ragged_dot
+B18_REPLACES = ("deepspeed_tpu/moe/sharded_moe.py:230 (the VJP of "
+                "jax.lax.ragged_dot; no pallas_call)")
+
+
+def ft_config(torch, run, **kw):
+    """The run's model config: published widths, cut in depth only."""
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.models.registry import config_from_hf
+    base = dict(dtype=torch.bfloat16, xent_impl="fused",
+                attention_impl="auto")
+    base.update(kw)
+    if run == "tinyllama_1b":
+        return LlamaConfig.tinyllama_1b(**base)
+    _, cfg = config_from_hf(QWEN_MOE if run == "qwen1p5_moe"
+                            else MIXTRAL_8X7B)
+    return dataclasses.replace(cfg, num_layers=FT_LAYERS[run], **base)
+
+
+def _ft_engine(torch, cfg, mb):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import llama, mixtral
+    mod = mixtral if isinstance(cfg, mixtral.MixtralConfig) else llama
+    _, init_fn, loss_fn = mod.make_model(cfg)
+    engine, *_ = initialize(loss_fn=loss_fn, config=train_config(mb, 1),
+                            params=init_fn(seed=FT_SEED, device="cuda"))
+    return engine
+
+
+def _ft_want(torch, cfg, fa, fx, gg, steps):
+    """Each kernel's launches in ``steps`` training steps of ``cfg``: a
+    flash forward and backward a layer, the three xent kernels a step,
+    and on the grouped route three expert products a layer forward, their
+    three data gradients and three weight gradients."""
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig, moe_layer
+    L = cfg.num_layers
+    want = dict(flash_want(fa, cfg.head_dim, torch.bfloat16, L * steps,
+                           L * steps))
+    want.update(dict.fromkeys(fx.LAUNCHES, steps))
+    grouped = isinstance(cfg, MixtralConfig) and \
+        moe_layer(cfg).route(True) == "grouped"
+    n = 3 * L * steps if grouped else 0
+    want.update(grouped_gemm=n, grouped_dgrad=n, grouped_wgrad=n)
+    return want, grouped
+
+
+def _ft_launches(fa, fx, gg):
+    out = {**fa.LAUNCHES, **fx.LAUNCHES}
+    out.update({k: gg.LAUNCHES[k] for k in
+                ("grouped_gemm", "grouped_dgrad", "grouped_wgrad")})
+    return out
+
+
+def ft_train(torch, run, trace):
+    """One run's main path: 2 warm-up and 5 timed ``train_batch`` steps on
+    one seeded batch, every count zeroed just before and read just after;
+    then FT_PARITY_STEPS steps over fresh seeded batches on the kernel
+    route and on the plain routes (``attention_impl="xla"``,
+    ``xent_impl="chunked"``, the plain ``ragged_dot``; remat for
+    TinyLlama's [B, H, T, T] scores), each from the same seeded weights."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_xent as fx
+    from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+    torch.backends.cuda.matmul.allow_tf32 = True
+    mb, T = FT_RUNS[run]
+    cfg = ft_config(torch, run)
+    t0 = time.perf_counter()
+    engine = _ft_engine(torch, cfg, mb)
+    n_params = sum(p.numel() for p in engine.state.params)
+    g = torch.Generator(device="cuda").manual_seed(FT_SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (mb, T + 1),
+                                     generator=g, device="cuda")}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    for m in (fa, fx, gg):
+        m.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [engine.train_batch(batch) for _ in range(FT_WARMUP)]
+    evs = [torch.cuda.Event(enable_timing=True)
+           for _ in range(FT_STEPS + 1)]
+    t0 = time.perf_counter()
+    evs[0].record()
+    for i in range(FT_STEPS):
+        losses.append(engine.train_batch(batch))
+        evs[i + 1].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / FT_STEPS
+    launches = _ft_launches(fa, fx, gg)
+    peak = torch.cuda.max_memory_allocated()
+    want, grouped = _ft_want(torch, cfg, fa, fx, gg, FT_WARMUP + FT_STEPS)
+    if launches != want:
+        raise AssertionError(f"[family training] {run}: launches "
+                             f"{launches} != {want}")
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"[family training] {run}: losses not finite "
+                             f"and falling: {losses}")
+    step_ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(FT_STEPS)]
+    step_s = sum(step_ms) / FT_STEPS / 1e3
+    out = {"params": n_params, "layers": cfg.num_layers, "micro_batch": mb,
+           "seq": T, "setup_s": setup_s, "step_ms": step_ms,
+           "host_wall_s": wall, "tokens_per_s": mb * T / step_s,
+           "peak_bytes": peak, "losses": losses, "launches": launches,
+           "launches_per_step": {k: v / (FT_WARMUP + FT_STEPS)
+                                 for k, v in launches.items() if v},
+           "grouped_route": grouped}
+    log(f"[family training] {run}: {n_params} params, {cfg.num_layers} "
+        f"layers, micro {mb} x seq {T}: step {step_s * 1e3:.1f} ms (events;"
+        f" host wall {wall * 1e3:.1f} ms), {out['tokens_per_s']:.0f} "
+        f"tokens/s, peak {peak / 2**30:.2f} GiB; losses "
+        f"{[round(x, 5) for x in losses]}; launches {launches}")
+    if trace:
+        out["trace"] = _ft_trace(torch, engine, batch, run)
+    del engine
+    torch.cuda.empty_cache()
+    # the parity: both routes from the same weights over the same fresh
+    # batches (on the timed run's one batch the loss falls ~1.2 a step,
+    # and Adam's first, sign-like update turns rounding into a share of
+    # that fall)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (mb, T + 1),
+                                        generator=g, device="cuda")}
+               for _ in range(FT_PARITY_STEPS)]
+    plain_cfg = dataclasses.replace(cfg, attention_impl="xla",
+                                    xent_impl="chunked",
+                                    remat=run == "tinyllama_1b")
+    runs = {}
+    saved = sharded_moe.ragged_dot
+    for route, rcfg in (("kernels", cfg), ("plain", plain_cfg)):
+        if route == "plain":
+            sharded_moe.ragged_dot = gg.ragged_dot_plain
+        try:
+            engine = _ft_engine(torch, rcfg, mb)
+            runs[route] = [float(engine.train_batch(b)) for b in batches]
+        finally:
+            sharded_moe.ragged_dot = saved
+        del engine
+        torch.cuda.empty_cache()
+    kern, plain = runs["kernels"], runs["plain"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(kern, plain))
+    log(f"[family training] {run} parity: kernels {kern} plain {plain} "
+        f"max rel {rel:.3e} (limit {FT_PARITY_REL})")
+    if not rel <= FT_PARITY_REL:
+        raise AssertionError(f"[family training] {run}: kernel route "
+                             f"{rel} from the plain routes")
+    out["parity"] = {"kernels": kern, "plain": plain, "max_rel": rel}
+    return cfg, out
+
+
+def _ft_trace(torch, engine, batch, run):
+    """``--trace`` only: torch.profiler over one ``train_batch``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = _device_summary(prof, wall, 1, top=12)
+    for part in ("flash_", "xent_", "grouped_"):
+        out[f"{part}ms"] = _kernel_ms_by_name(prof, part)
+    log(f"[trace] family training {run}: {json.dumps(out)}")
+    return out
+
+
+def _flash_gqa_bound(B, T, Hh, Hk, Dh, products, n_q, n_kv, n_rows):
+    """(bound ms, bound_by, bytes, flops) of a causal flash kernel at GQA:
+    ``products`` matrix products a live (query, key) pair, ``n_q`` bf16
+    [B, H, T, D] and ``n_kv`` bf16 [B, Hk, T, D] tensors read or written,
+    ``n_rows`` fp32 [B, H, T] rows."""
+    flops = 2 * Dh * products * B * Hh * T * (T + 1) // 2
+    nbytes = (n_q * Hh + n_kv * Hk) * B * T * Dh * 2 + n_rows * B * Hh * T * 4
+    ms, by = _bound(nbytes, flops, BF16_FLOPS_PER_S)
+    return ms, by, nbytes, flops
+
+
+def ft_flash(torch, run, cfg, mb, T):
+    """Flash forward and backward at the run's GQA shape against their
+    plain versions (bf16), then timed by events and in a CUDA graph beside
+    the plain versions and SDPA with ``enable_gqa`` (forward, and its
+    backward as ``_sdpa_bwd_ms`` takes it)."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    Hh, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v, do = flash_inputs(torch, B=mb, Tq=T, Tk=T, H=Hh, Hk=Hk, D=Dh,
+                               dtype=torch.bfloat16, seed=T + Hk)
+    kw = dict(causal=True, sm_scale=Dh ** -0.5)
+    got = flash_all(fa, q, k, v, do, plain=False, **kw)
+    ref = flash_all(fa, q, k, v, do, plain=True, **kw)
+    errs = {"flash_fwd": 0.0, "flash_bwd": 0.0}
+    for (name, part), g_, r_ in zip(flash_outputs(fa, Dh, torch.bfloat16),
+                                    got, ref):
+        # dK and dV sum H / Hk query heads: their outputs grow with the
+        # group, so the bf16 limit is the larger of the flash limit and
+        # 2**-7 of the largest output (as the grouped GEMM's)
+        lim = max(FLASH_BF16_MAX_ABS,
+                  GROUPED_BF16_REL * r_.float().abs().max().item())
+        e = check_close(torch, f"[family training] {run} {name} {part} "
+                        f"B{mb} T{T} H{Hh}/{Hk} D{Dh}", g_, r_,
+                        bf16_max_abs=lim)
+        key = "flash_fwd" if name == "flash_fwd" else "flash_bwd"
+        errs[key] = max(errs[key], e)
+    o, lse = ref[0], ref[1]
+    del got, ref
+    sdpa = dict(is_causal=True)
+    try:
+        F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **sdpa)
+        sdpa["enable_gqa"] = True
+    except TypeError:
+        sdpa = None
+    out = {}
+    for name, kern, plain, work in (
+            ("flash_fwd", lambda: fa.flash_fwd(q, k, v, **kw),
+             lambda: fa.flash_fwd_plain(q, k, v, **kw), (2, 2, 2, 1)),
+            ("flash_bwd", lambda: fa.flash_bwd(q, k, v, do, o, lse, None,
+                                               **kw),
+             lambda: fa.flash_bwd_plain(q, k, v, do, o, lse, None, **kw),
+             (5, 4, 4, 2))):
+        bound, by, nbytes, flops = _flash_gqa_bound(mb, T, Hh, Hk, Dh,
+                                                    *work)
+        r = {"shape": {"B": mb, "T": T, "H": Hh, "Hk": Hk, "D": Dh,
+                       "dtype": "bf16", "causal": True},
+             "max_abs_err": errs[name], "ms": _time_ms(torch, kern, 10),
+             "graph_ms": _graph_ms(torch, [kern], reps=10),
+             "plain_ms": _time_ms(torch, plain, 2), "bound_ms": bound,
+             "bound_by": by, "bytes": nbytes, "flops": flops,
+             "library_ms": None, "library_graph_ms": None}
+        if sdpa is not None and name == "flash_fwd":
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, **sdpa)
+            r["library_ms"] = _time_ms(torch, lib, 10)
+            r["library_graph_ms"] = _graph_ms(torch, [lib], reps=10)
+        elif sdpa is not None:
+            r["library_ms"], r["library_graph_ms"] = _sdpa_bwd_ms(
+                torch, q, k, v, do, **sdpa)
+        r["bound_share"] = bound / r["graph_ms"]
+        out[name] = r
+        log(f"[family training] {run} {name} GQA {Hh}/{Hk} D{Dh}: "
+            f"{r['ms']:.4f} ms (graph {r['graph_ms']:.4f}, plain "
+            f"{r['plain_ms']:.4f}, SDPA {r['library_ms']}, graph "
+            f"{r['library_graph_ms']}); bound {bound:.4f} by {by}, "
+            f"{r['bound_share']:.1%} of it")
+    return out
+
+
+def ft_xent(torch, run, cfg, mb, T):
+    """The fused xent's three kernels at the run's (N, V, C) in bf16
+    against their plain versions."""
+    from deepspeed_tpu_torch.ops.kernels import fused_xent as fx
+    N, V, C = mb * T, cfg.vocab_size, cfg.hidden_size
+    h, e, t = xent_inputs(torch, N=N, V=V, C=C, dtype=torch.bfloat16,
+                          seed=V, bad_ids=False)
+    scale = torch.tensor([1.0 / N], device="cuda")
+    kw = dict(ignore=None, z=0.0, eps=0.0)
+    got = xent_all(fx, h, e, t, scale, plain=False, **kw)
+    ref = xent_all(fx, h, e, t, scale, plain=True, **kw)
+    return check_xent(torch, f"[family training] {run} N{N} V{V} C{C}",
+                      "bf16", got, ref)
+
+
+def _b18_routing(torch, gg, tokens, k, E, dead, seed):
+    """Offsets of ``tokens`` routed top-k over E experts by seeded logits,
+    the last ``dead`` experts never picked."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn(tokens, E, generator=g, device="cuda")
+    logits[:, E - dead:] = -1e4
+    top = torch.topk(logits, k, dim=-1).indices.reshape(-1)
+    return sharded_moe.group_offsets(top, E), g
+
+
+def _grouped_mm_lib(torch, fn, check, tol):
+    """``torch._grouped_mm`` as ``fn`` computes it, if this torch has it
+    and it agrees with ``check`` within ``tol``; else None (timed only,
+    never on the path)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    try:
+        y = fn()
+        if (y.float() - check.float()).abs().max().item() > tol:
+            raise RuntimeError("disagrees with the kernel")
+        return fn
+    except RuntimeError as exc:
+        log(f"[B18] torch._grouped_mm refused: {exc}")
+        return None
+
+
+def time_b18(torch, gg, name, *, tokens, k, E, K, N, dead):
+    """B18, both directions, at one expert-product shape: x [R, K] routed
+    rows, w [E, K, N], dy [R, N] bf16 (R = tokens k, the last ``dead``
+    experts empty). dX (``ragged_dot_dgrad``: mma.sync over w read in
+    place as its transpose) and dW (``grouped_wgrad_kernel``) against fp32
+    references within 2**-7 of the largest magnitude and against their
+    bf16 plain twins; dW of an empty expert exactly zero; a group whose
+    length is no multiple of the tiles; each bit-identical between two
+    calls. Timed by events and in a CUDA graph beside the plain twins and
+    ``torch._grouped_mm``."""
+    off, g = _b18_routing(torch, gg, tokens, k, E, dead, len(name) + K)
+    R = tokens * k
+    x = torch.randn(R, K, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(E, K, N, generator=g, device="cuda")
+         * K ** -0.5).to(torch.bfloat16)
+    dy = torch.randn(R, N, generator=g, device="cuda").to(torch.bfloat16)
+    sizes = (off[1:] - off[:-1]).tolist()
+    live = sum(1 for s in sizes if s)
+    if sizes.count(0) < 1 or all(s % 32 == 0 for s in sizes):
+        raise AssertionError(f"[B18] {name}: want an empty expert and a "
+                             f"ragged group, got {sizes}")
+    gg.reset_launch_counts()
+    dx, dw = gg.ragged_dot_dgrad(dy, w, off), gg.ragged_dot_wgrad(x, dy, off)
+    dx2, dw2 = gg.ragged_dot_dgrad(dy, w, off), gg.ragged_dot_wgrad(x, dy,
+                                                                     off)
+    torch.cuda.synchronize()
+    if gg.LAUNCHES["grouped_dgrad"] != 2 or gg.LAUNCHES["grouped_wgrad"] != 2:
+        raise AssertionError(f"[B18] {name}: launches {gg.LAUNCHES}")
+    wt = w.transpose(1, 2).contiguous()
+    refs = {"grouped_dgrad": gg.ragged_dot_plain(dy.float(), wt.float(), off),
+            "grouped_wgrad": gg.ragged_dot_wgrad_plain(x.float(), dy.float(),
+                                                       off)}
+    twins = {"grouped_dgrad": lambda: gg.ragged_dot_plain(dy, wt, off),
+             "grouped_wgrad": lambda: gg.ragged_dot_wgrad_plain(x, dy, off)}
+    got = {"grouped_dgrad": (dx, dx2), "grouped_wgrad": (dw, dw2)}
+    for e, s in enumerate(sizes):
+        if s == 0 and dw[e].any():
+            raise AssertionError(f"[B18] {name}: dW of empty expert {e} "
+                                 f"not zero")
+    ends = off[1:].contiguous()
+    libs = {"grouped_dgrad": lambda: torch._grouped_mm(
+                dy, w.transpose(1, 2), offs=ends),
+            "grouped_wgrad": lambda: torch._grouped_mm(
+                x.t(), dy, offs=ends)}
+    calls = {"grouped_dgrad": lambda: gg.ragged_dot_dgrad(dy, w, off),
+             "grouped_wgrad": lambda: gg.ragged_dot_wgrad(x, dy, off)}
+    el = 2
+    work = {"grouped_dgrad": (R * N * el + live * K * N * el + R * K * el,
+                              2 * R * K * N),
+            "grouped_wgrad": (R * K * el + R * N * el + E * K * N * el,
+                              2 * R * K * N)}
+    out = {}
+    for kname in ("grouped_dgrad", "grouped_wgrad"):
+        a, b = got[kname]
+        ref = refs[kname]
+        top = ref.abs().max().item()
+        err = (a.float() - ref).abs().max().item()
+        twin = twins[kname]()
+        twin_err = (a.float() - twin.float()).abs().max().item()
+        lim = GROUPED_BF16_REL * top
+        log(f"[B18] {name} {kname}: R={R} over E={E} ({live} routed), K={K}"
+            f" N={N}: max_abs_err {err:.3e} against fp32, {twin_err:.3e} "
+            f"against the plain twin (limit {lim:.3e}); rows an expert "
+            f"{min(sizes)}-{max(sizes)}")
+        if not (err <= lim and twin_err <= lim):
+            raise AssertionError(f"[B18] {name} {kname} disagrees: {err}, "
+                                 f"{twin_err}")
+        if not torch.equal(a, b):
+            raise AssertionError(f"[B18] {name} {kname}: two calls differ")
+        lib = _grouped_mm_lib(torch, libs[kname], a, lim)
+        nbytes, flops = work[kname]
+        bound_ms, by = _bound(nbytes, flops, BF16_FLOPS_PER_S)
+        r = {"max_abs_err": err, "twin_max_abs_err": twin_err,
+             "ms": _time_ms(torch, calls[kname], 10),
+             "graph_ms": _graph_ms(torch, [calls[kname]], reps=10),
+             "plain_ms": _time_ms(torch, twins[kname], 2),
+             "library_ms": _time_ms(torch, lib, 10) if lib else None,
+             "library_graph_ms": _graph_ms(torch, [lib], reps=10)
+             if lib else None,
+             "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
+             "flops": flops,
+             "shape": {"R": R, "tokens": tokens, "k": k, "E": E,
+                       "routed": live, "K": K, "N": N, "dtype": "bf16",
+                       "rows_min": min(sizes), "rows_max": max(sizes)}}
+        r["graph_bound_share"] = bound_ms / r["graph_ms"]
+        log(f"[B18] {name} {kname}: {r['ms']:.4f} ms (graph "
+            f"{r['graph_ms']:.4f}; plain {r['plain_ms']:.4f}; "
+            f"torch._grouped_mm {r['library_ms']}, graph "
+            f"{r['library_graph_ms']}); bound {bound_ms:.4f} by {by}, "
+            f"{r['graph_bound_share']:.1%} of it in the graph")
+        out[kname] = r
+    return out
+
+
+def ft_grouped_sync(torch, cfg, mb, T):
+    """The grouped MoE layer's forward and backward at run (b)'s shapes
+    under ``torch.cuda.set_sync_debug_mode("error")``: no device value
+    reaches the host on the grouped path (offsets, the kernels, B18)."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.moe import sharded_moe
+    g = torch.Generator(device="cuda").manual_seed(FT_SEED + 1)
+    M, E, I = cfg.hidden_size, cfg.num_experts, cfg.intermediate_size
+    S = mb * T
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(
+            torch.bfloat16).requires_grad_()
+    tokens = rnd(S, M)
+    ws = (rnd(E, M, I, scale=M ** -0.5), rnd(E, M, I, scale=M ** -0.5),
+          rnd(E, I, M, scale=I ** -0.5))
+    wg = torch.randn(M, E, generator=g, device="cuda") * M ** -0.5
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, l_aux = sharded_moe.grouped_moe_ffn(
+            tokens, tokens.float() @ wg, cfg.experts_top_k, ws, F.silu,
+            torch.bfloat16, normalize_weights=False)
+        (y.float().square().mean() + l_aux).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ok = all(torch.isfinite(t.grad.float()).all().item()
+             for t in (tokens, *ws))
+    log(f"[family training] grouped path forward + backward at S={S}, "
+        f"E={E}, top-{cfg.experts_top_k}: no host sync; grads finite {ok}")
+    if not ok:
+        raise AssertionError("[family training] grouped path grads not "
+                             "finite")
+    return True
+
+
+def phase_family_training(torch, trace):
+    """Phase 32: train the Llama and MoE families on the card through
+    their ``make_model`` entry points and ``Engine.train_batch`` (module
+    docstring), hold every kernel of each run against its plain version at
+    the run's shapes, and time B18 and the flash kernels at GQA."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+    out, rows = {}, []
+    for run in FT_RUNS:
+        mb, T = FT_RUNS[run]
+        cfg, r = ft_train(torch, run, trace)
+        r["xent_max_abs_err"] = ft_xent(torch, run, cfg, mb, T)
+        if run != "qwen1p5_moe":
+            r["flash_gqa"] = ft_flash(torch, run, cfg, mb, T)
+        else:
+            K, N = cfg.hidden_size, cfg.intermediate_size
+            r["grouped_fwd"] = time_grouped(
+                torch, gg, "qwen1p5_moe_train_gate_up", tokens=mb * T,
+                k=cfg.experts_top_k, E=cfg.num_experts, K=K, N=N, dead=3)
+            b18 = {"gate_up": time_b18(
+                       torch, gg, "qwen1p5_moe_train_gate_up",
+                       tokens=mb * T, k=cfg.experts_top_k,
+                       E=cfg.num_experts, K=K, N=N, dead=3),
+                   "down": time_b18(
+                       torch, gg, "qwen1p5_moe_train_down", tokens=mb * T,
+                       k=cfg.experts_top_k, E=cfg.num_experts, K=N, N=K,
+                       dead=3)}
+            r["b18"] = b18
+            r["grouped_no_sync"] = ft_grouped_sync(torch, cfg, mb, T)
+            for kname in ("grouped_dgrad", "grouped_wgrad"):
+                row = dict(b18["gate_up"][kname])
+                row.update(name=kname, route="cuda", source=GROUPED_SOURCE,
+                           replaces=B18_REPLACES,
+                           launches=r["launches"][kname],
+                           launches_per_step=r["launches_per_step"][kname],
+                           launches_from=f"phase 32 {run}",
+                           down=b18["down"][kname])
+                rows.append(row)
+        out[run] = r
+        torch.cuda.empty_cache()
+    return out, rows
+
+
 def main(argv) -> int:
     unknown = [a for a in argv
                if a not in ("--trace", "--fp6-sweep", "--norm-sweep",
@@ -7860,6 +8373,12 @@ def main(argv) -> int:
     loadgen, loadgen_rows = run(phase_loadgen, torch, weights, train)
     del weights
     rows += loadgen_rows
+    family_training, ft_rows = run(phase_family_training, torch, tracing)
+    rows += ft_rows
+    for r in rows:
+        if r["name"] in ("flash_fwd", "flash_bwd"):
+            r["gqa"] = {run: t["flash_gqa"][r["name"]] for run, t in
+                        family_training.items() if "flash_gqa" in t}
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     result = {"kernels": rows, "card": card, "phase_s": phase_s,
               "serving": {k: serving[k] for k in
@@ -7878,13 +8397,18 @@ def main(argv) -> int:
               "hf_serving": hf, "prefix_serving": prefix,
               "gpt2_serving": gpt2, "spec_decoding": spec,
               "family_serving": families, "moe_serving": moe,
-              "fleet_serving": fleet, "loadgen": loadgen}
+              "fleet_serving": fleet, "loadgen": loadgen,
+              "family_training": {run: {k: v for k, v in r.items()
+                                        if k != "trace"}
+                                  for run, r in family_training.items()}}
     if trace is not None:
         result["trace"] = trace
         result["train_trace"] = train["trace"]
         result["gpt1p3b_trace"] = bench["fused"]["trace"]
         result["woq_trace"] = {m: r["trace"] for m, r in woq.items()}
         result["kv_pool_trace"] = kv_pool["llama2_7b_int8"].pop("trace")
+        result["family_training_trace"] = {
+            run: r["trace"] for run, r in family_training.items()}
     print(json.dumps(result), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

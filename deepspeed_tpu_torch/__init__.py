@@ -10,7 +10,8 @@ import time.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise instead of falling back.
 
-Training on one card::
+Training on one card (GPT-2, the Llama family, Mixtral / Qwen2-MoE and
+the dense families: ``models.registry.get_arch(name).make_model``)::
 
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models.gpt2 import GPT2Config, make_model
@@ -35,8 +36,8 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
     """Build a training engine (port of ``deepspeed_tpu.initialize``).
     Returns ``(engine, optimizer, dataloader, lr_scheduler)``; the
     optimizer and the schedule are the engine's own, the dataloader is
-    None (not ported). ``loss_fn(params, batch, generator) -> loss`` is the
-    model, ``params`` its nested parameter dict, ``config`` a ds_config
+    None (not ported). ``loss_fn(params, batch, key) -> loss`` is the
+    model (``key`` a threefry key, ``utils/random.py``), ``params`` its nested parameter dict, ``config`` a ds_config
     dict, JSON path or ``Config``. Runs on ``cuda`` unless
     ``device="cpu"``; without a card it raises."""
     from .config.config import Config

@@ -34,6 +34,14 @@ layer's ``mlp`` replaced by ``moe/{gate, wi_gate, wi_up, wo}`` (or
 ``wi``, ``wo``) and, with a shared expert, ``shared_{gate,up,down}_proj``
 and ``shared_expert_gate``. Its norm scales and the router ``gate`` (an
 fp32 ``param`` in flax, read in fp32 by the router) stay fp32.
+
+The standalone MoE layer (``moe/layer.MoE``) has its flax tree too
+(:func:`moe_param_shapes`): ``gate [M, E]``, the stacked experts
+``wi [E, M, H]`` / ``wo [E, H, M]`` (or ``wi_gate``, ``wi_up``, ``wo``)
+and, with ``use_residual``, ``residual_fc1``, ``residual_fc2`` and
+``coefficient`` (biased Dense nodes); :func:`moe_params_from_numpy`
+carries a JAX-initialised tree across and :func:`init_moe_params` draws a
+seeded one (flax's lecun-normal scale, zero biases).
 """
 
 from __future__ import annotations
@@ -538,7 +546,8 @@ def family_params_from_numpy(tree: Mapping[str, Any], cfg: Any,
 
 def _default_dtype(cfg: Any, dtype: Any) -> torch.dtype:
     if dtype is None:
-        dtype = getattr(cfg, "param_dtype", None) or cfg.dtype
+        dtype = cfg.dtype if isinstance(cfg, MixtralConfig) else (
+            getattr(cfg, "param_dtype", None) or cfg.dtype)
     return resolve_dtype(dtype)
 
 
@@ -572,3 +581,48 @@ def init_family_params(cfg: Any, seed: int = 0, device: Any = None,
         return (t * (1.0 / math.sqrt(fan_in))).to(ldt)
 
     return _map_tree(FAMILY_SHAPES[type(cfg)](cfg), make)
+
+
+def moe_param_shapes(layer: Any) -> Dict[str, Any]:
+    """The flax tree of a standalone ``MoE`` layer (``moe/layer.MoE``)."""
+    M, E, H = layer.d_model, layer.num_experts, layer.width
+    tree: Dict[str, Any] = {"gate": (M, E)}
+    if layer.gated:
+        tree.update(wi_gate=(E, M, H), wi_up=(E, M, H), wo=(E, H, M))
+    else:
+        tree.update(wi=(E, M, H), wo=(E, H, M))
+    if layer.use_residual:
+        tree["residual_fc1"] = _dense(M, H)
+        tree["residual_fc2"] = _dense(H, M)
+        tree["coefficient"] = _dense(M, 2)
+    return tree
+
+
+def moe_params_from_numpy(tree: Mapping[str, Any], layer: Any,
+                          device: Any = None,
+                          dtype: Any = torch.float32) -> Dict[str, Any]:
+    """A JAX ``MoE`` layer's tree (numpy leaves) -> the port's, on
+    ``device`` (default ``cuda``) in ``dtype``; shapes checked."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype)
+    return _from_numpy(tree, moe_param_shapes(layer),
+                       lambda path: dict(device=dev, dtype=dt))
+
+
+def init_moe_params(layer: Any, seed: int = 0, device: Any = None,
+                    dtype: Any = torch.float32) -> Dict[str, Any]:
+    """Seeded weights of a standalone ``MoE`` layer: normal with std
+    1/sqrt(fan_in) (flax's lecun normal scale; fan_in the second-to-last
+    dim), biases zero; drawn with numpy from ``seed``."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype)
+    rng = np.random.default_rng(int(seed))
+
+    def make(path, shape):
+        if path[-1] == "bias":
+            return torch.zeros(shape, dtype=dt, device=dev)
+        x = rng.standard_normal(shape) / math.sqrt(shape[-2])
+        return torch.from_numpy(x.astype(np.float32)).to(device=dev,
+                                                         dtype=dt)
+
+    return _map_tree(moe_param_shapes(layer), make)

@@ -8,8 +8,12 @@ Dense kernels ``[in, out]`` with an optional ``bias``, LayerNorm
 ``scale`` / ``bias``, embeddings ``[V, M]``. A model adopts the tensors it
 is given (no copy), so the full-sequence forward and a ragged engine
 built from the same tree share one set of weights; the forward is the
-oracle of the runners' prefill logits. Training entry points of these
-families are not ported (ROADMAP A7).
+oracle of the runners' prefill logits. The same forward is
+differentiable (:meth:`TreeModel.logits` over any nested param dict, each
+block under ``torch.utils.checkpoint`` when ``cfg.remat``), and each
+family's ``make_model`` is ``make_causal_lm`` over it: full fp32 logits
+and plain attention, as the JAX package trains these families (no Pallas
+kernel on their path).
 """
 
 from __future__ import annotations
@@ -20,22 +24,45 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ._lm_utils import alibi_slopes_on
 from .llama import _module_tree, _tree_module
 
 
 class TreeModel(nn.Module):
-    """A causal LM whose forward reads the nested parameter dict."""
+    """A causal LM whose forward reads the nested parameter dict: a family
+    defines ``embed(p, tokens)``, ``block(lp, x)`` and ``final(p, x)``
+    (fp32 logits). Built without ``params`` it holds none (the training
+    entry point passes them to :meth:`logits`)."""
 
-    def __init__(self, cfg: Any, params: Dict[str, Any]):
+    def __init__(self, cfg: Any, params: Optional[Dict[str, Any]] = None):
         super().__init__()
         self.cfg = cfg
-        self.tree = _tree_module(params)
+        self.tree = _tree_module(params or {})
 
     def params(self) -> Dict[str, Any]:
         """The nested-dict parameter tree (flax paths, torch tensors)."""
         return _module_tree(self.tree)
+
+    def logits(self, p: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, T] -> logits [B, T, V] fp32 over the tree ``p``,
+        differentiable."""
+        cfg = self.cfg
+        x = self.embed(p, tokens)
+        for li in range(cfg.num_layers):
+            lp = p[f"layer_{li}"]
+            if getattr(cfg, "remat", False) and torch.is_grad_enabled():
+                x = checkpoint(self.block, lp, x, use_reentrant=False)
+            else:
+                x = self.block(lp, x)
+        return self.final(p, x)
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, T] -> logits [B, T, V] in fp32 (the serving
+        oracle)."""
+        return self.logits(self.params(), tokens)
 
 
 def dense(x: torch.Tensor, p: Dict[str, Any], dt) -> torch.Tensor:

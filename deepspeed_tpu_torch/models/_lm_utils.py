@@ -17,20 +17,30 @@ from ..utils.tree import flatten, unflatten
 
 def make_causal_lm(model: torch.nn.Module, cfg):
     """``(model, init_fn, loss_fn)`` with the engine's contract
-    ``loss_fn(params, batch, generator) -> loss``: batch =
-    ``{"tokens": [B, T+1]}``, next-token NLL over full logits. ``model``
-    maps tokens to logits; ``loss_fn`` runs it through ``functional_call``
-    on the nested param dict, and ``init_fn()`` returns a copy of the
-    module's own parameters as that dict."""
+    ``loss_fn(params, batch, key) -> loss`` (the key is not read): batch
+    = ``{"tokens": [B, T+1]}``, next-token NLL over full logits. A model
+    over a parameter tree (the dense families' ``TreeModel``) computes the
+    logits with ``model.logits(params, tokens)`` and ``init_fn(seed=0,
+    device=None)`` makes seeded weights (``init_family_params``); another
+    module runs through ``functional_call`` on the nested param dict, and
+    ``init_fn()`` returns a copy of its own parameters as that dict."""
+    tree_model = hasattr(model, "logits")
 
-    def init_fn():
+    def init_fn(seed: int = 0, device=None):
+        if tree_model:
+            from ..checkpoint.jax_params import init_family_params
+            return init_family_params(cfg, seed=seed, device=device)
         return unflatten({n: p.detach().clone()
                           for n, p in model.named_parameters()})
 
-    def loss_fn(params, batch, generator=None):
+    def loss_fn(params, batch, key=None):
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        logits = functional_call(model, flatten(params), (inputs,)).float()
+        if tree_model:
+            logits = model.logits(params, inputs).float()
+        else:
+            logits = functional_call(model, flatten(params),
+                                     (inputs,)).float()
         logp = torch.log_softmax(logits, dim=-1)
         nll = -logp.gather(-1, targets[..., None].long())[..., 0]
         return nll.mean()

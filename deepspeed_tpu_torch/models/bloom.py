@@ -26,6 +26,7 @@ class BloomConfig:
     tie_embeddings: bool = True
     dtype: Any = torch.bfloat16        # compute dtype
     param_dtype: Any = torch.float32
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -48,24 +49,34 @@ class Bloom(TreeModel):
     post_attention_layernorm, dense_h_to_4h, dense_4h_to_h}``, ``ln_f``,
     ``lm_head`` when untied."""
 
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        cfg, p = self.cfg, self.params()
-        dt, eps = cfg.dtype, cfg.layer_norm_eps
-        B, T = tokens.shape
-        H, D = cfg.num_heads, cfg.head_dim
-        bias = alibi_bias(H, T, tokens.device).to(dt)
+    def embed(self, p, tokens):
+        cfg, dt = self.cfg, self.cfg.dtype
         x = p["word_embeddings"]["embedding"][tokens.long()].to(dt)
-        x = layer_norm(x, p["word_embeddings_layernorm"], eps, dt)
-        for li in range(cfg.num_layers):
-            lp = p[f"layer_{li}"]
-            pa = lp["self_attention"]
-            h = layer_norm(x, lp["input_layernorm"], eps, dt)
-            q, k, v = (dense(h, pa[f"{n}_proj"], dt).reshape(B, T, H, D)
-                       for n in "qkv")
-            x = x + dense(causal_attention(q, k, v, bias), pa["dense"], dt)
-            h = layer_norm(x, lp["post_attention_layernorm"], eps, dt)
-            x = x + dense(gelu(dense(h, lp["dense_h_to_4h"], dt)),
-                          lp["dense_4h_to_h"], dt)
-        x = layer_norm(x, p["ln_f"], eps, torch.float32)
+        return layer_norm(x, p["word_embeddings_layernorm"],
+                          cfg.layer_norm_eps, dt)
+
+    def block(self, lp, x):
+        cfg = self.cfg
+        dt, eps = cfg.dtype, cfg.layer_norm_eps
+        B, T, _ = x.shape
+        H, D = cfg.num_heads, cfg.head_dim
+        bias = alibi_bias(H, T, x.device).to(dt)
+        pa = lp["self_attention"]
+        h = layer_norm(x, lp["input_layernorm"], eps, dt)
+        q, k, v = (dense(h, pa[f"{n}_proj"], dt).reshape(B, T, H, D)
+                   for n in "qkv")
+        x = x + dense(causal_attention(q, k, v, bias), pa["dense"], dt)
+        h = layer_norm(x, lp["post_attention_layernorm"], eps, dt)
+        return x + dense(gelu(dense(h, lp["dense_h_to_4h"], dt)),
+                         lp["dense_4h_to_h"], dt)
+
+    def final(self, p, x):
+        x = layer_norm(x, p["ln_f"], self.cfg.layer_norm_eps, torch.float32)
         return head(x, p, "word_embeddings")
+
+
+def make_model(cfg: BloomConfig):
+    """``(model, init_fn, loss_fn)``: ``make_causal_lm`` over
+    :class:`Bloom`."""
+    from ._lm_utils import make_causal_lm
+    return make_causal_lm(Bloom(cfg), cfg)

@@ -33,6 +33,7 @@ class FalconConfig:
     tie_embeddings: bool = True
     dtype: Any = torch.bfloat16        # compute dtype
     param_dtype: Any = torch.float32
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -56,41 +57,48 @@ class Falcon(TreeModel):
     post_attention_layernorm (serial), mlp/dense_h_to_4h,
     mlp/dense_4h_to_h}``, ``ln_f``, ``lm_head`` when untied."""
 
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        cfg, p = self.cfg, self.params()
+    def embed(self, p, tokens):
+        return p["word_embeddings"]["embedding"][tokens.long()].to(
+            self.cfg.dtype)
+
+    def block(self, lp, x):
+        cfg = self.cfg
         dt, eps = cfg.dtype, cfg.layer_norm_eps
-        B, T = tokens.shape
+        B, T, _ = x.shape
         H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        pos = torch.arange(T, device=tokens.device)[None, :]
-        bias = alibi_bias(H, T, tokens.device).to(dt) if cfg.alibi else None
-        x = p["word_embeddings"]["embedding"][tokens.long()].to(dt)
-        for li in range(cfg.num_layers):
-            lp = p[f"layer_{li}"]
-            if cfg.new_decoder_architecture:
-                attn_in = layer_norm(x, lp["ln_attn"], eps, dt)
-                mlp_in = layer_norm(x, lp["ln_mlp"], eps, dt)
-            else:
-                attn_in = mlp_in = layer_norm(x, lp["input_layernorm"],
-                                              eps, dt)
-            pa = lp["self_attention"]
-            q = dense(attn_in, pa["q_proj"], dt).reshape(B, T, H, D)
-            k = dense(attn_in, pa["k_proj"], dt).reshape(B, T, KV, D)
-            v = dense(attn_in, pa["v_proj"], dt).reshape(B, T, KV, D)
-            if not cfg.alibi:
-                q = apply_rope(q, pos, cfg.rope_theta)
-                k = apply_rope(k, pos, cfg.rope_theta)
-            attn = dense(causal_attention(q, k, v, bias), pa["dense"], dt)
+        pos = torch.arange(T, device=x.device)[None, :]
+        bias = alibi_bias(H, T, x.device).to(dt) if cfg.alibi else None
+        if cfg.new_decoder_architecture:
+            attn_in = layer_norm(x, lp["ln_attn"], eps, dt)
+            mlp_in = layer_norm(x, lp["ln_mlp"], eps, dt)
+        else:
+            attn_in = mlp_in = layer_norm(x, lp["input_layernorm"], eps, dt)
+        pa = lp["self_attention"]
+        q = dense(attn_in, pa["q_proj"], dt).reshape(B, T, H, D)
+        k = dense(attn_in, pa["k_proj"], dt).reshape(B, T, KV, D)
+        v = dense(attn_in, pa["v_proj"], dt).reshape(B, T, KV, D)
+        if not cfg.alibi:
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+        attn = dense(causal_attention(q, k, v, bias), pa["dense"], dt)
 
-            def mlp(z):
-                return dense(gelu(dense(z, lp["mlp"]["dense_h_to_4h"], dt)),
-                             lp["mlp"]["dense_4h_to_h"], dt)
+        def mlp(z):
+            return dense(gelu(dense(z, lp["mlp"]["dense_h_to_4h"], dt)),
+                         lp["mlp"]["dense_4h_to_h"], dt)
 
-            if cfg.parallel_attn or cfg.new_decoder_architecture:
-                x = x + attn + mlp(mlp_in)
-            else:
-                x = x + attn
-                x = x + mlp(layer_norm(x, lp["post_attention_layernorm"],
-                                       eps, dt))
-        x = layer_norm(x, p["ln_f"], eps, torch.float32)
+        if cfg.parallel_attn or cfg.new_decoder_architecture:
+            return x + attn + mlp(mlp_in)
+        x = x + attn
+        return x + mlp(layer_norm(x, lp["post_attention_layernorm"], eps,
+                                  dt))
+
+    def final(self, p, x):
+        x = layer_norm(x, p["ln_f"], self.cfg.layer_norm_eps, torch.float32)
         return head(x, p, "word_embeddings")
+
+
+def make_model(cfg: FalconConfig):
+    """``(model, init_fn, loss_fn)``: ``make_causal_lm`` over
+    :class:`Falcon`."""
+    from ._lm_utils import make_causal_lm
+    return make_causal_lm(Falcon(cfg), cfg)

@@ -359,8 +359,8 @@ class GPT2(nn.Module):
 
 
 def make_model(cfg: GPT2Config):
-    """``(model, init_fn, loss_fn)``. ``loss_fn(params, batch, generator)``
-    is the engine's contract: batch = ``{"tokens": [B, T+1]}``, params the
+    """``(model, init_fn, loss_fn)``. ``loss_fn(params, batch, key)`` is
+    the engine's contract (the threefry key is not read): batch = ``{"tokens": [B, T+1]}``, params the
     nested dict of flax's paths, the mean next-token NLL through
     ``lm_head_xent`` (chunked or fused, by ``cfg.xent_impl``).
     ``init_fn(seed=0, device=None)`` makes seeded weights
@@ -371,7 +371,7 @@ def make_model(cfg: GPT2Config):
         from ..checkpoint.jax_params import init_gpt2_params
         return init_gpt2_params(cfg, seed=seed, device=device)
 
-    def loss_fn(params, batch, generator=None):
+    def loss_fn(params, batch, key=None):
         from ._lm_utils import lm_head_xent
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]

@@ -65,6 +65,7 @@ class GPTNeoXConfig:
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16         # compute dtype
     param_dtype: Any = torch.float32
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -91,34 +92,35 @@ class GPTNeoX(TreeModel):
     post_attention_layernorm, dense_h_to_4h, dense_4h_to_h}``,
     ``final_layer_norm``, ``embed_out`` (untied)."""
 
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        cfg, p = self.cfg, self.params()
+    def embed(self, p, tokens):
+        return p["embed_in"]["embedding"][tokens.long()].to(self.cfg.dtype)
+
+    def block(self, lp, x):
+        cfg = self.cfg
         dt, eps = cfg.dtype, cfg.layer_norm_eps
-        B, T = tokens.shape
+        B, T, _ = x.shape
         H, D = cfg.num_heads, cfg.head_dim
-        pos = torch.arange(T, device=tokens.device)[None, :]
-        x = p["embed_in"]["embedding"][tokens.long()].to(dt)
-        for li in range(cfg.num_layers):
-            lp = p[f"layer_{li}"]
-            h = layer_norm(x, lp["input_layernorm"], eps, dt)
-            q, k, v = (dense(h, lp[f"{n}_proj"], dt).reshape(B, T, H, D)
-                       for n in "qkv")
-            q = apply_partial_rope(q, pos, cfg.rope_theta, cfg.rotary_dim)
-            k = apply_partial_rope(k, pos, cfg.rope_theta, cfg.rotary_dim)
-            attn = dense(causal_attention(q, k, v), lp["dense"], dt)
+        pos = torch.arange(T, device=x.device)[None, :]
+        h = layer_norm(x, lp["input_layernorm"], eps, dt)
+        q, k, v = (dense(h, lp[f"{n}_proj"], dt).reshape(B, T, H, D)
+                   for n in "qkv")
+        q = apply_partial_rope(q, pos, cfg.rope_theta, cfg.rotary_dim)
+        k = apply_partial_rope(k, pos, cfg.rope_theta, cfg.rotary_dim)
+        attn = dense(causal_attention(q, k, v), lp["dense"], dt)
 
-            def mlp(z):
-                return dense(gelu(dense(z, lp["dense_h_to_4h"], dt)),
-                             lp["dense_4h_to_h"], dt)
+        def mlp(z):
+            return dense(gelu(dense(z, lp["dense_h_to_4h"], dt)),
+                         lp["dense_4h_to_h"], dt)
 
-            ln2 = lp["post_attention_layernorm"]
-            if cfg.use_parallel_residual:
-                x = x + attn + mlp(layer_norm(x, ln2, eps, dt))
-            else:
-                x = x + attn
-                x = x + mlp(layer_norm(x, ln2, eps, dt))
-        x = layer_norm(x, p["final_layer_norm"], eps, torch.float32)
+        ln2 = lp["post_attention_layernorm"]
+        if cfg.use_parallel_residual:
+            return x + attn + mlp(layer_norm(x, ln2, eps, dt))
+        x = x + attn
+        return x + mlp(layer_norm(x, ln2, eps, dt))
+
+    def final(self, p, x):
+        x = layer_norm(x, p["final_layer_norm"], self.cfg.layer_norm_eps,
+                       torch.float32)
         return head(x, p, "embed_in", head_key="embed_out")
 
 
@@ -136,6 +138,7 @@ class GPTJConfig:
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16         # compute dtype
     param_dtype: Any = torch.float32
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -158,25 +161,40 @@ class GPTJ(TreeModel):
     ``layer_i/{ln_1, {q,k,v,out}_proj, fc_in, fc_out}``, ``ln_f``,
     ``lm_head`` (untied, biased)."""
 
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        cfg, p = self.cfg, self.params()
+    def embed(self, p, tokens):
+        return p["wte"]["embedding"][tokens.long()].to(self.cfg.dtype)
+
+    def block(self, lp, x):
+        cfg = self.cfg
         dt, eps = cfg.dtype, cfg.layer_norm_eps
-        B, T = tokens.shape
+        B, T, _ = x.shape
         H, D = cfg.num_heads, cfg.head_dim
-        pos = torch.arange(T, device=tokens.device)[None, :]
-        x = p["wte"]["embedding"][tokens.long()].to(dt)
-        for li in range(cfg.num_layers):
-            lp = p[f"layer_{li}"]
-            h = layer_norm(x, lp["ln_1"], eps, dt)
-            q, k, v = (dense(h, lp[f"{n}_proj"], dt).reshape(B, T, H, D)
-                       for n in "qkv")
-            q = apply_partial_rope_interleaved(q, pos, cfg.rope_theta,
-                                               cfg.rotary_dim)
-            k = apply_partial_rope_interleaved(k, pos, cfg.rope_theta,
-                                               cfg.rotary_dim)
-            attn = dense(causal_attention(q, k, v), lp["out_proj"], dt)
-            m = dense(gelu(dense(h, lp["fc_in"], dt)), lp["fc_out"], dt)
-            x = x + attn + m                   # parallel residual, one LN
-        x = layer_norm(x, p["ln_f"], eps, torch.float32)
+        pos = torch.arange(T, device=x.device)[None, :]
+        h = layer_norm(x, lp["ln_1"], eps, dt)
+        q, k, v = (dense(h, lp[f"{n}_proj"], dt).reshape(B, T, H, D)
+                   for n in "qkv")
+        q = apply_partial_rope_interleaved(q, pos, cfg.rope_theta,
+                                           cfg.rotary_dim)
+        k = apply_partial_rope_interleaved(k, pos, cfg.rope_theta,
+                                           cfg.rotary_dim)
+        attn = dense(causal_attention(q, k, v), lp["out_proj"], dt)
+        m = dense(gelu(dense(h, lp["fc_in"], dt)), lp["fc_out"], dt)
+        return x + attn + m                    # parallel residual, one LN
+
+    def final(self, p, x):
+        x = layer_norm(x, p["ln_f"], self.cfg.layer_norm_eps, torch.float32)
         return head(x, p, "wte")
+
+
+def make_model_neox(cfg: GPTNeoXConfig):
+    """``(model, init_fn, loss_fn)``: ``make_causal_lm`` over
+    :class:`GPTNeoX`."""
+    from ._lm_utils import make_causal_lm
+    return make_causal_lm(GPTNeoX(cfg), cfg)
+
+
+def make_model_gptj(cfg: GPTJConfig):
+    """``(model, init_fn, loss_fn)``: ``make_causal_lm`` over
+    :class:`GPTJ`."""
+    from ._lm_utils import make_causal_lm
+    return make_causal_lm(GPTJ(cfg), cfg)

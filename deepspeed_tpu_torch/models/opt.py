@@ -27,6 +27,7 @@ class OPTConfig:
     tie_embeddings: bool = True
     dtype: Any = torch.bfloat16             # compute dtype
     param_dtype: Any = torch.float32
+    remat: bool = False
 
     #: OPT's learned positions start at index 2 (a pad-token legacy)
     POSITION_OFFSET = 2
@@ -53,34 +54,46 @@ class OPT(TreeModel):
     self_attn_layer_norm, fc1, fc2, final_layer_norm}``, the pre-LN
     ``final_layer_norm``, and ``lm_head`` when untied."""
 
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        cfg, p = self.cfg, self.params()
-        dt, eps = cfg.dtype, cfg.layer_norm_eps
-        pre = cfg.do_layer_norm_before
-        B, T = tokens.shape
-        H, D = cfg.num_heads, cfg.head_dim
+    def embed(self, p, tokens):
+        cfg, dt = self.cfg, self.cfg.dtype
         x = p["embed_tokens"]["embedding"][tokens.long()].to(dt)
         if "project_in" in p:
             x = dense(x, p["project_in"], dt)
-        pos = torch.arange(T, device=tokens.device) + cfg.POSITION_OFFSET
-        x = x + p["embed_positions"]["embedding"][pos].to(dt)
-        for li in range(cfg.num_layers):
-            lp = p[f"layer_{li}"]
-            ln1, ln2 = lp["self_attn_layer_norm"], lp["final_layer_norm"]
-            pa = lp["self_attn"]
-            h = layer_norm(x, ln1, eps, dt) if pre else x
-            q, k, v = (dense(h, pa[f"{n}_proj"], dt).reshape(B, T, H, D)
-                       for n in "qkv")
-            x = x + dense(causal_attention(q, k, v), pa["out_proj"], dt)
-            if not pre:
-                x = layer_norm(x, ln1, eps, dt)
-            h = layer_norm(x, ln2, eps, dt) if pre else x
-            x = x + dense(torch.relu(dense(h, lp["fc1"], dt)), lp["fc2"], dt)
-            if not pre:
-                x = layer_norm(x, ln2, eps, dt)
-        if pre:
-            x = layer_norm(x, p["final_layer_norm"], eps, torch.float32)
+        pos = torch.arange(tokens.shape[1], device=tokens.device) \
+            + cfg.POSITION_OFFSET
+        return x + p["embed_positions"]["embedding"][pos].to(dt)
+
+    def block(self, lp, x):
+        cfg = self.cfg
+        dt, eps = cfg.dtype, cfg.layer_norm_eps
+        pre = cfg.do_layer_norm_before
+        B, T, _ = x.shape
+        H, D = cfg.num_heads, cfg.head_dim
+        ln1, ln2 = lp["self_attn_layer_norm"], lp["final_layer_norm"]
+        pa = lp["self_attn"]
+        h = layer_norm(x, ln1, eps, dt) if pre else x
+        q, k, v = (dense(h, pa[f"{n}_proj"], dt).reshape(B, T, H, D)
+                   for n in "qkv")
+        x = x + dense(causal_attention(q, k, v), pa["out_proj"], dt)
+        if not pre:
+            x = layer_norm(x, ln1, eps, dt)
+        h = layer_norm(x, ln2, eps, dt) if pre else x
+        x = x + dense(torch.relu(dense(h, lp["fc1"], dt)), lp["fc2"], dt)
+        if not pre:
+            x = layer_norm(x, ln2, eps, dt)
+        return x
+
+    def final(self, p, x):
+        cfg = self.cfg
+        if cfg.do_layer_norm_before:
+            x = layer_norm(x, p["final_layer_norm"], cfg.layer_norm_eps,
+                           torch.float32)
         if "project_out" in p:
-            x = dense(x, p["project_out"], dt)
+            x = dense(x, p["project_out"], cfg.dtype)
         return head(x, p, "embed_tokens")
+
+
+def make_model(cfg: OPTConfig):
+    """``(model, init_fn, loss_fn)``: ``make_causal_lm`` over :class:`OPT`."""
+    from ._lm_utils import make_causal_lm
+    return make_causal_lm(OPT(cfg), cfg)

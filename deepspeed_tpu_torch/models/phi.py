@@ -30,6 +30,7 @@ class PhiConfig:
     layer_norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16         # compute dtype
     param_dtype: Any = torch.float32
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -64,25 +65,33 @@ class Phi(TreeModel):
     ``embed_tokens``, ``layer_i/{input_layernorm, self_attn/{q,k,v}_proj,
     self_attn/dense, fc1, fc2}``, ``final_layernorm``, ``lm_head``."""
 
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, T] -> logits [B, T, V] in fp32."""
-        cfg, p = self.cfg, self.params()
+    def embed(self, p, tokens):
+        return p["embed_tokens"]["embedding"][tokens.long()].to(
+            self.cfg.dtype)
+
+    def block(self, lp, x):
+        cfg = self.cfg
         dt, eps = cfg.dtype, cfg.layer_norm_eps
-        B, T = tokens.shape
+        B, T, _ = x.shape
         H, D = cfg.num_heads, cfg.head_dim
-        pos = torch.arange(T, device=tokens.device)[None, :]
-        x = p["embed_tokens"]["embedding"][tokens.long()].to(dt)
-        for li in range(cfg.num_layers):
-            lp = p[f"layer_{li}"]
-            h = layer_norm(x, lp["input_layernorm"], eps, dt)
-            pa = lp["self_attn"]
-            q, k, v = (dense(h, pa[f"{n}_proj"], dt).reshape(B, T, H, D)
-                       for n in "qkv")
-            q = apply_partial_rope(q, pos, cfg.rope_theta, cfg.rotary_dim)
-            k = apply_partial_rope(k, pos, cfg.rope_theta, cfg.rotary_dim)
-            attn = dense(causal_attention(q, k, v), pa["dense"], dt)
-            m = dense(gelu(dense(h, lp["fc1"], dt)), lp["fc2"], dt)
-            x = x + attn + m                       # parallel residual
-        x = layer_norm(x, p["final_layernorm"], eps, torch.float32)
+        pos = torch.arange(T, device=x.device)[None, :]
+        h = layer_norm(x, lp["input_layernorm"], eps, dt)
+        pa = lp["self_attn"]
+        q, k, v = (dense(h, pa[f"{n}_proj"], dt).reshape(B, T, H, D)
+                   for n in "qkv")
+        q = apply_partial_rope(q, pos, cfg.rope_theta, cfg.rotary_dim)
+        k = apply_partial_rope(k, pos, cfg.rope_theta, cfg.rotary_dim)
+        attn = dense(causal_attention(q, k, v), pa["dense"], dt)
+        m = dense(gelu(dense(h, lp["fc1"], dt)), lp["fc2"], dt)
+        return x + attn + m                        # parallel residual
+
+    def final(self, p, x):
+        x = layer_norm(x, p["final_layernorm"], self.cfg.layer_norm_eps,
+                       torch.float32)
         return head(x, p, "embed_tokens")
+
+
+def make_model(cfg: PhiConfig):
+    """``(model, init_fn, loss_fn)``: ``make_causal_lm`` over :class:`Phi`."""
+    from ._lm_utils import make_causal_lm
+    return make_causal_lm(Phi(cfg), cfg)

@@ -11,7 +11,9 @@ gptj, falcon and phi, and the MoE families mixtral and qwen2_moe (a
 :class:`MixtralConfig`). The other architectures the JAX registry knows
 (the encoders and diffusion models) raise ``NotImplementedError`` naming
 the queue item that ports them, A9; an unknown name raises
-``ValueError``, as the JAX registry does.
+``ValueError``, as the JAX registry does. Each entry's ``make_model`` is
+the family's training entry point, ``(model, init_fn, loss_fn)`` for the
+engine, as in the JAX registry.
 """
 
 from __future__ import annotations
@@ -19,18 +21,27 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, NamedTuple
 
 from .bloom import Bloom, BloomConfig
+from .bloom import make_model as make_bloom
 from .falcon import Falcon, FalconConfig
+from .falcon import make_model as make_falcon
 from .gpt2 import GPT2, GPT2Config
-from .gpt_neox import GPTJ, GPTJConfig, GPTNeoX, GPTNeoXConfig
+from .gpt2 import make_model as make_gpt2
+from .gpt_neox import (GPTJ, GPTJConfig, GPTNeoX, GPTNeoXConfig,
+                       make_model_gptj, make_model_neox)
 from .llama import Llama, LlamaConfig
+from .llama import make_model as make_llama
 from .mixtral import Mixtral, MixtralConfig
+from .mixtral import make_model as make_mixtral
 from .opt import OPT, OPTConfig
+from .opt import make_model as make_opt
 from .phi import Phi, PhiConfig
+from .phi import make_model as make_phi
 
 
 class ArchEntry(NamedTuple):
     config_cls: type
     model_cls: type
+    make_model: Callable
     from_hf: Callable[[Dict[str, Any]], Any]
 
 
@@ -221,22 +232,25 @@ def _entry_phi(d):
 
 
 ARCHITECTURES: Dict[str, ArchEntry] = {
-    "gpt2": ArchEntry(GPT2Config, GPT2, _entry_gpt2),
-    "llama": ArchEntry(LlamaConfig, Llama, _entry_llama),
-    "mistral": ArchEntry(LlamaConfig, Llama, _entry_mistral),
-    "qwen": ArchEntry(LlamaConfig, Llama, _entry_qwen),
-    "qwen2": ArchEntry(LlamaConfig, Llama, _entry_qwen2),
-    "phi3": ArchEntry(LlamaConfig, Llama, _entry_phi3),
-    "internlm": ArchEntry(LlamaConfig, Llama, _entry_internlm),
-    "internlm2": ArchEntry(LlamaConfig, Llama, _entry_llama),
-    "mixtral": ArchEntry(MixtralConfig, Mixtral, _entry_mixtral),
-    "qwen2_moe": ArchEntry(MixtralConfig, Mixtral, _entry_qwen2_moe),
-    "opt": ArchEntry(OPTConfig, OPT, _entry_opt),
-    "bloom": ArchEntry(BloomConfig, Bloom, _entry_bloom),
-    "gpt_neox": ArchEntry(GPTNeoXConfig, GPTNeoX, _entry_gpt_neox),
-    "gptj": ArchEntry(GPTJConfig, GPTJ, _entry_gptj),
-    "falcon": ArchEntry(FalconConfig, Falcon, _entry_falcon),
-    "phi": ArchEntry(PhiConfig, Phi, _entry_phi),
+    "gpt2": ArchEntry(GPT2Config, GPT2, make_gpt2, _entry_gpt2),
+    "llama": ArchEntry(LlamaConfig, Llama, make_llama, _entry_llama),
+    "mistral": ArchEntry(LlamaConfig, Llama, make_llama, _entry_mistral),
+    "qwen": ArchEntry(LlamaConfig, Llama, make_llama, _entry_qwen),
+    "qwen2": ArchEntry(LlamaConfig, Llama, make_llama, _entry_qwen2),
+    "phi3": ArchEntry(LlamaConfig, Llama, make_llama, _entry_phi3),
+    "internlm": ArchEntry(LlamaConfig, Llama, make_llama, _entry_internlm),
+    "internlm2": ArchEntry(LlamaConfig, Llama, make_llama, _entry_llama),
+    "mixtral": ArchEntry(MixtralConfig, Mixtral, make_mixtral,
+                         _entry_mixtral),
+    "qwen2_moe": ArchEntry(MixtralConfig, Mixtral, make_mixtral,
+                           _entry_qwen2_moe),
+    "opt": ArchEntry(OPTConfig, OPT, make_opt, _entry_opt),
+    "bloom": ArchEntry(BloomConfig, Bloom, make_bloom, _entry_bloom),
+    "gpt_neox": ArchEntry(GPTNeoXConfig, GPTNeoX, make_model_neox,
+                          _entry_gpt_neox),
+    "gptj": ArchEntry(GPTJConfig, GPTJ, make_model_gptj, _entry_gptj),
+    "falcon": ArchEntry(FalconConfig, Falcon, make_falcon, _entry_falcon),
+    "phi": ArchEntry(PhiConfig, Phi, make_phi, _entry_phi),
 }
 
 #: the JAX registry's other architectures, each with the queue item

@@ -1,3 +1,6 @@
-from .sharded_moe import group_offsets, grouped_moe_ffn
+from .layer import MoE, Experts
+from .sharded_moe import (capacity, gate, group_offsets, grouped_moe_ffn,
+                          top1gating, top2gating, topkgating)
 
-__all__ = ["group_offsets", "grouped_moe_ffn"]
+__all__ = ["MoE", "Experts", "capacity", "gate", "group_offsets",
+           "grouped_moe_ffn", "top1gating", "top2gating", "topkgating"]

@@ -101,6 +101,11 @@ SIGNATURES = {
     # stream
     "grouped_gemm": {
         "grouped_gemm_launch": [_P] * 4 + [_I] * 10 + [_P],
+        # x, dy, offsets, dw, R, E, K, N, dtype code, stream
+        "grouped_wgrad_launch": [_P] * 4 + [_I] * 5 + [_P],
+        # dy, w, offsets, dx, R, E, K, N, dgrad_plan's row tile and
+        # row-tile slots, dtype code, stream
+        "grouped_dgrad_launch": [_P] * 4 + [_I] * 7 + [_P],
     },
     # q, k, v, o, mask bias, pair bias, host strides, B, N, H, Sq, Sk, D,
     # scale, dtype code, MSA rows a block (evoformer.evo_plan), stream

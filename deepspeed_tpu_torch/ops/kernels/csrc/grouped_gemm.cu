@@ -111,6 +111,7 @@ constexpr int GBK = 32;            // K depth a stage
 constexpr int GSTAGES = 3;         // cp.async stages
 constexpr int ALD = GBK + 8;       // A tile row (elements)
 constexpr int BLD = GBN + 8;       // B tile row (elements)
+constexpr int BLDT = GBK + 8;      // B tile row, transposed (elements)
 constexpr unsigned FULL = 0xffffffffu;
 
 // One warp finds the expert that owns row tile t of the tiles laid out
@@ -166,8 +167,10 @@ __device__ __forceinline__ void find_tile(const int* __restrict__ off, int E,
 
 // Stage K columns [k0, k0 + 32) of rows [r0, r0 + BM) of x (rows past
 // r1 and columns past K are zeros) and rows [k0, k0 + 32) of columns
-// [n0, n0 + 128) of w_e (past K or N zeros).
-template <int BM, int NTH, typename T>
+// [n0, n0 + 128) of w_e (past K or N zeros). TB: w_e is [N][K] (the data
+// gradient's w_e^T, read in place), staged as its rows [n0, n0 + 128),
+// columns [k0, k0 + 32).
+template <int BM, int NTH, bool TB, typename T>
 __device__ __forceinline__ void stage(T* As, T* Bs, const T* __restrict__ x,
                                       const T* __restrict__ we, int r0, int r1,
                                       int k0, int n0, int K, int N) {
@@ -176,6 +179,15 @@ __device__ __forceinline__ void stage(T* As, T* Bs, const T* __restrict__ x,
     const bool live = r0 + r < r1 && k0 + c < K;
     cp_async16(As + r * ALD + c,
                x + (live ? (long long)(r0 + r) * K + k0 + c : 0), live);
+  }
+  if (TB) {
+    for (int i = threadIdx.x; i < GBN * (GBK / 8); i += NTH) {
+      const int r = i / (GBK / 8), c = (i % (GBK / 8)) * 8;
+      const bool live = n0 + r < N && k0 + c < K;
+      cp_async16(Bs + r * BLDT + c,
+                 we + (live ? (long long)(n0 + r) * K + k0 + c : 0), live);
+    }
+    return;
   }
   for (int i = threadIdx.x; i < GBK * (GBN / 8); i += NTH) {
     const int r = i / (GBN / 8), c = (i % (GBN / 8)) * 8;
@@ -186,8 +198,10 @@ __device__ __forceinline__ void stage(T* As, T* Bs, const T* __restrict__ x,
 }
 
 // BM rows x 128 columns a block; WM x WN warps, each (BM / WM) rows x
-// (128 / WN) columns: MT 16-row and NTL 8-column mma tiles.
-template <typename T, int BM, int WM, int WN>
+// (128 / WN) columns: MT 16-row and NTL 8-column mma tiles. TB: w is
+// [E, N, K] (the data gradient's w^T), its B fragments by plain
+// ldmatrix from [n][k] rows.
+template <typename T, int BM, int WM, int WN, bool TB = false>
 __global__ void __launch_bounds__(32 * WM * WN)
     grouped_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
                        const int* __restrict__ off, T* __restrict__ y, int E,
@@ -196,6 +210,7 @@ __global__ void __launch_bounds__(32 * WM * WN)
   constexpr int MT = BM / WM / 16, NTL = GBN / WN / 8;
   static_assert(MT >= 1 && NTL % 2 == 0, "warp tile");
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int BST = TB ? GBN * BLDT : GBK * BLD;   // B stage (elements)
   T* As = reinterpret_cast<T*>(smem_raw);
   T* Bs = As + GSTAGES * BM * ALD;
   __shared__ int found[3];
@@ -224,8 +239,8 @@ __global__ void __launch_bounds__(32 * WM * WN)
 #pragma unroll
   for (int s = 0; s < GSTAGES - 1; ++s) {
     if (s < steps)
-      stage<BM, NTH>(As + s * BM * ALD, Bs + s * GBK * BLD, x, we, r0, r1,
-                     s * GBK, n0, K, N);
+      stage<BM, NTH, TB>(As + s * BM * ALD, Bs + s * BST, x, we, r0, r1,
+                         s * GBK, n0, K, N);
     cp_async_commit();
   }
   for (int s = 0; s < steps; ++s) {
@@ -235,12 +250,12 @@ __global__ void __launch_bounds__(32 * WM * WN)
     const int nxt = s + GSTAGES - 1;
     if (nxt < steps) {
       const int b = nxt % GSTAGES;
-      stage<BM, NTH>(As + b * BM * ALD, Bs + b * GBK * BLD, x, we, r0, r1,
-                     nxt * GBK, n0, K, N);
+      stage<BM, NTH, TB>(As + b * BM * ALD, Bs + b * BST, x, we, r0, r1,
+                         nxt * GBK, n0, K, N);
     }
     cp_async_commit();
     const T* A = As + (s % GSTAGES) * BM * ALD;
-    const T* B = Bs + (s % GSTAGES) * GBK * BLD;
+    const T* B = Bs + (s % GSTAGES) * BST;
 #pragma unroll
     for (int kk = 0; kk < GBK / 16; ++kk) {
       uint32_t a[MT][4];
@@ -251,8 +266,14 @@ __global__ void __launch_bounds__(32 * WM * WN)
 #pragma unroll
       for (int j = 0; j < NTL; j += 2) {
         uint32_t b[4];
-        ldsm_x4_t(b, B + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * BLD +
-                         col_w + j * 8 + (lane >> 4) * 8);
+        if (TB)   // matrix l / 8: columns + 8 (l / 16), K + 8 (l / 8 & 1)
+          ldsm_x4(b, B + (col_w + j * 8 + (lane & 7) + (lane >> 4) * 8) *
+                             BLDT +
+                         kk * 16 + ((lane >> 3) & 1) * 8);
+        else
+          ldsm_x4_t(b, B + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               BLD +
+                           col_w + j * 8 + (lane >> 4) * 8);
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
           mma_16816<T>(acc[i][j], a[i], b[0], b[1]);
@@ -488,7 +509,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
 // fp32 on the CUDA cores: BM rows x 64 columns a block of 256 threads
 // (16 x 16), each thread BM / 16 rows (strided by 16) x 4 columns; K in
 // steps of 16 through shared memory.
-template <int BM>
+template <int BM, bool TB = false>
 __global__ void __launch_bounds__(256)
     grouped_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                        const int* __restrict__ off, float* __restrict__ y,
@@ -519,7 +540,9 @@ __global__ void __launch_bounds__(256)
     for (int i = threadIdx.x; i < FK * FN; i += 256) {
       const int r = i / FN, c = i % FN;
       Bs[r][c] = (k0 + r < K && n0 + c < N)
-                     ? we[(long long)(k0 + r) * N + n0 + c] : 0.f;
+                     ? (TB ? we[(long long)(n0 + c) * K + k0 + r]
+                           : we[(long long)(k0 + r) * N + n0 + c])
+                     : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -548,12 +571,13 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T, int BM, int WM, int WN>
+template <typename T, int BM, int WM, int WN, bool TB = false>
 cudaError_t launch_mma(const void* x, const void* w, const int* off, void* y,
                        int E, int K, int N, int tiles, cudaStream_t st) {
-  auto kern = grouped_mma_kernel<T, BM, WM, WN>;
+  auto kern = grouped_mma_kernel<T, BM, WM, WN, TB>;
   const size_t smem =
-      (size_t)GSTAGES * (BM * ALD + GBK * BLD) * sizeof(T);
+      (size_t)GSTAGES * (BM * ALD + (TB ? GBN * BLDT : GBK * BLD)) *
+      sizeof(T);
   cudaError_t err = smem_opt_in(kern, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(tiles, (N + GBN - 1) / GBN);
@@ -574,14 +598,31 @@ cudaError_t dispatch_mma(int bm, const void* x, const void* w, const int* off,
   return cudaErrorInvalidValue;
 }
 
-template <int BM>
+template <int BM, bool TB = false>
 cudaError_t launch_f32(const void* x, const void* w, const int* off, void* y,
                        int E, int K, int N, int tiles, cudaStream_t st) {
   dim3 grid(tiles, (N + 63) / 64);
-  grouped_f32_kernel<BM><<<grid, 256, 0, st>>>(
+  grouped_f32_kernel<BM, TB><<<grid, 256, 0, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), off,
       static_cast<float*>(y), E, K, N);
   return cudaGetLastError();
+}
+
+// the data gradient: w [E, N, K] read in place as w^T (mma.sync at row
+// tiles of 16, 32 or 64 in 16-bit; the CUDA-core kernel in fp32)
+template <typename T>
+cudaError_t dispatch_dgrad(int bm, const void* x, const void* w,
+                           const int* off, void* y, int E, int K, int N,
+                           int tiles, cudaStream_t st) {
+  switch (bm) {
+    case 16:
+      return launch_mma<T, 16, 1, 4, true>(x, w, off, y, E, K, N, tiles, st);
+    case 32:
+      return launch_mma<T, 32, 2, 2, true>(x, w, off, y, E, K, N, tiles, st);
+    case 64:
+      return launch_mma<T, 64, 2, 2, true>(x, w, off, y, E, K, N, tiles, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // x [R, K] in boxes of BM rows x 64, w [E, K, N] in boxes of 64 x 64 x
@@ -652,6 +693,195 @@ cudaError_t dispatch_wgmma(int bm, int bn, const void* x, const void* w,
   return cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------- backward
+//
+// grouped_wgrad (the weight gradient of ragged_dot, B18): dw[e] = x_e^T @
+// dy_e for every expert e, x [R, K] and dy [R, N] sorted by expert, dw [E,
+// K, N] in x's dtype. JAX differentiates `jax.lax.ragged_dot` itself, so
+// no Pallas kernel stands behind it. One block an output tile (expert,
+// 64 rows of K, 128 columns of N): the block reads its expert's offsets
+// on the device and walks that expert's rows 32 at a time, staging the
+// 32 x 64 slab of x and the 32 x 128 slab of dy by cp.async through three
+// shared-memory stages. Eight warps (2 along K x 4 along N) each hold a
+// 32 x 32 piece in fp32 accumulators on mma.sync m16n8k16: the A
+// fragments (x^T) come from the x slab by transposing ldmatrix, the B
+// fragments (dy) from the dy slab by transposing ldmatrix as in the
+// forward. Rows past the expert's end are zero-filled, so an expert with
+// no rows writes zeros and a ragged tail adds nothing. The sum runs over
+// the rows in one fixed order and rounds once: a call's bits repeat.
+// fp32 takes grouped_wgrad_f32_kernel, a plain CUDA-core tile of 64 x 64.
+// The data gradient (dx = dy @ w_e^T, grouped_dgrad_launch) is
+// grouped_mma_kernel<..., TB = true> at row tiles of 16, 32 or 64: it
+// stages w_e's rows (the output columns here, K contiguous) as they lie
+// and takes its B fragments by plain ldmatrix, so w is never copied
+// transposed; fp32 takes grouped_f32_kernel<BM, true>.
+
+constexpr int WGK = 64;            // rows of dw (K) a block
+constexpr int WGN = 128;           // columns of dw (N) a block
+constexpr int WGR = 32;            // rows of x / dy a stage
+constexpr int WG_ALD = WGK + 8;    // x slab row (elements)
+constexpr int WG_BLD = WGN + 8;    // dy slab row (elements)
+
+template <typename T>
+__device__ __forceinline__ void wgrad_stage(T* As, T* Bs,
+                                            const T* __restrict__ x,
+                                            const T* __restrict__ dy, int r0,
+                                            int r1, int k0, int n0, int K,
+                                            int N) {
+  for (int i = threadIdx.x; i < WGR * (WGK / 8); i += 256) {
+    const int r = i / (WGK / 8), c = (i % (WGK / 8)) * 8;
+    const bool live = r0 + r < r1 && k0 + c < K;
+    cp_async16(As + r * WG_ALD + c,
+               x + (live ? (long long)(r0 + r) * K + k0 + c : 0), live);
+  }
+  for (int i = threadIdx.x; i < WGR * (WGN / 8); i += 256) {
+    const int r = i / (WGN / 8), c = (i % (WGN / 8)) * 8;
+    const bool live = r0 + r < r1 && n0 + c < N;
+    cp_async16(Bs + r * WG_BLD + c,
+               dy + (live ? (long long)(r0 + r) * N + n0 + c : 0), live);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+    grouped_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                         const int* __restrict__ off, T* __restrict__ dw,
+                         int K, int N) {
+  __shared__ __align__(16) T As[GSTAGES][WGR * WG_ALD];
+  __shared__ __align__(16) T Bs[GSTAGES][WGR * WG_BLD];
+  const int e = blockIdx.z;
+  const int k0 = blockIdx.y * WGK, n0 = blockIdx.x * WGN;
+  const int r0 = off[e], r1 = off[e + 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row_w = (warp >> 2) * 32, col_w = (warp & 3) * 32;
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+
+  const int steps = r1 > r0 ? (r1 - r0 + WGR - 1) / WGR : 0;
+#pragma unroll
+  for (int s = 0; s < GSTAGES - 1; ++s) {
+    if (s < steps)
+      wgrad_stage<T>(As[s], Bs[s], x, dy, r0 + s * WGR, r1, k0, n0, K, N);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<GSTAGES - 2>();
+    __syncthreads();
+    const int nxt = s + GSTAGES - 1;
+    if (nxt < steps) {
+      const int b = nxt % GSTAGES;
+      wgrad_stage<T>(As[b], Bs[b], x, dy, r0 + nxt * WGR, r1, k0, n0, K, N);
+    }
+    cp_async_commit();
+    const T* A = As[s % GSTAGES];
+    const T* B = Bs[s % GSTAGES];
+#pragma unroll
+    for (int kk = 0; kk < WGR / 16; ++kk) {
+      // A = x^T: matrix l / 8 of lane l is (K rows + 8 (l / 8 & 1), x
+      // rows + 8 (l / 16)); the x slab's rows are the reduction index
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4_t(a[i], A + (kk * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) *
+                                WG_ALD +
+                            row_w + i * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        uint32_t b[4];
+        ldsm_x4_t(b, B + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                             WG_BLD +
+                         col_w + j * 8 + (lane >> 4) * 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_16816<T>(acc[i][j], a[i], b[0], b[1]);
+          mma_16816<T>(acc[i][j + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  T* dwe = dw + (long long)e * K * N;
+  const int quad = lane >> 2, qi = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kr = k0 + row_w + i * 16 + quad + h * 8;
+      if (kr >= K) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n0 + col_w + j * 8 + qi * 2;
+        if (c < N)
+          *reinterpret_cast<uint32_t*>(dwe + (long long)kr * N + c) =
+              pack2<T>(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// fp32: a 64 x 64 tile of dw[e] a block of 256 threads (16 x 16), 4 x 4
+// a thread; the expert's rows 16 at a time through shared memory
+__global__ void __launch_bounds__(256)
+    grouped_wgrad_f32_kernel(const float* __restrict__ x,
+                             const float* __restrict__ dy,
+                             const int* __restrict__ off,
+                             float* __restrict__ dw, int K, int N) {
+  constexpr int FR = 16, FT = 64;
+  __shared__ float As[FR][FT];
+  __shared__ float Bs[FR][FT];
+  const int e = blockIdx.z;
+  const int k0 = blockIdx.y * FT, n0 = blockIdx.x * FT;
+  const int r0 = off[e], r1 = off[e + 1];
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int rs = r0; rs < r1; rs += FR) {
+    for (int i = threadIdx.x; i < FR * FT; i += 256) {
+      const int r = i / FT, c = i % FT;
+      const bool row = rs + r < r1;
+      As[r][c] = row && k0 + c < K ? x[(long long)(rs + r) * K + k0 + c]
+                                   : 0.f;
+      Bs[r][c] = row && n0 + c < N ? dy[(long long)(rs + r) * N + n0 + c]
+                                   : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < FR; ++rr) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[rr][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[rr][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* dwe = dw + (long long)e * K * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kr = k0 + ty * 4 + i;
+    if (kr >= K) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + tx * 4 + j;
+      if (c < N) dwe[(long long)kr * N + c] = acc[i][j];
+    }
+  }
+}
+
 }  // namespace
 
 // dtype code: 0 fp32, 1 bf16, 2 fp16. The plan (grouped_plan): bm, the
@@ -688,6 +918,67 @@ extern "C" int grouped_gemm_launch(const void* x, const void* w,
       case 32: err = launch_f32<32>(x, w, off, y, E, K, N, tiles, st); break;
       case 64: err = launch_f32<64>(x, w, off, y, E, K, N, tiles, st); break;
       case 128: err = launch_f32<128>(x, w, off, y, E, K, N, tiles, st); break;
+    }
+  }
+  return (int)err;
+}
+
+// dw [E, K, N] = per-expert x_e^T @ dy_e; x [R, K], dy [R, N] sorted by
+// expert, offsets [E + 1] int32 on the device; dtype code as above.
+extern "C" int grouped_wgrad_launch(const void* x, const void* dy,
+                                    const void* offsets, void* dw, int R,
+                                    int E, int K, int N, int dtype,
+                                    void* stream) {
+  if (E <= 0 || E > 65535 || K <= 0 || N <= 0 || R < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* off = static_cast<const int*>(offsets);
+  if (dtype == 0) {
+    dim3 grid((N + 63) / 64, (K + 63) / 64, E);
+    grouped_wgrad_f32_kernel<<<grid, 256, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), off,
+        static_cast<float*>(dw), K, N);
+  } else if (dtype == 1 || dtype == 2) {
+    if (K % 8 || N % 8) return (int)cudaErrorInvalidValue;
+    dim3 grid((N + WGN - 1) / WGN, (K + WGK - 1) / WGK, E);
+    if (dtype == 1)
+      grouped_wgrad_kernel<bf16><<<grid, 256, 0, st>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(dy), off,
+          static_cast<bf16*>(dw), K, N);
+    else
+      grouped_wgrad_kernel<f16><<<grid, 256, 0, st>>>(
+          static_cast<const f16*>(x), static_cast<const f16*>(dy), off,
+          static_cast<f16*>(dw), K, N);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// dx [R, N] = per-expert dy_e @ w_e^T: dy [R, K] sorted by expert, w
+// [E, N, K] (the forward's weight, whose rows are the output columns
+// here), offsets as the forward's; bm the row tile (16, 32 or 64;
+// grouped_gemm.dgrad_plan), tiles its row-tile slots.
+extern "C" int grouped_dgrad_launch(const void* dy, const void* w,
+                                    const void* offsets, void* dx, int R,
+                                    int E, int K, int N, int bm, int tiles,
+                                    int dtype, void* stream) {
+  if (tiles <= 0 || E <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* off = static_cast<const int*>(offsets);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 1)
+    err = dispatch_dgrad<bf16>(bm, dy, w, off, dx, E, K, N, tiles, st);
+  else if (dtype == 2)
+    err = dispatch_dgrad<f16>(bm, dy, w, off, dx, E, K, N, tiles, st);
+  else if (dtype == 0) {
+    switch (bm) {
+      case 16: err = launch_f32<16, true>(dy, w, off, dx, E, K, N, tiles, st);
+        break;
+      case 32: err = launch_f32<32, true>(dy, w, off, dx, E, K, N, tiles, st);
+        break;
+      case 64: err = launch_f32<64, true>(dy, w, off, dx, E, K, N, tiles, st);
+        break;
     }
   }
   return (int)err;

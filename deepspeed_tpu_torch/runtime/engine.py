@@ -1,6 +1,7 @@
 """The training engine on one card (port of
 ``deepspeed_tpu/runtime/engine.py``: ``TrainState``, ``StepMetrics``,
-``Engine.train_batch`` / ``eval_batch`` and the accessors).
+``Engine.train_batch`` / ``eval_batch``, the ``forward`` / ``backward`` /
+``step`` trio and the accessors).
 
 The JAX engine compiles one step: cast the master params (fp32, or
 ``param_dtype`` with fp32 LayerNorms) to the compute dtype, take
@@ -17,12 +18,23 @@ gradients autograd returns in the compute dtype; it does not use
 ``torch.autocast``, which keeps fp32 leaves and yields fp32 gradients. The
 optimizer updates the master params and moments in place.
 
+Keys: the engine carries a threefry key (``utils/random.py``), seeded as
+``jax.random.PRNGKey(config.seed)``, and each step splits it as the JAX
+engine does, ``split(key, gas + 1)``: the first is the next step's key,
+micro-batch ``i`` gets key ``i + 1`` as ``loss_fn(params, batch, key)``'s
+third argument (an int64 ``[2]`` tensor on the engine's device), the key
+the JAX engine passes. Models that draw noise (the MoE gating) derive
+theirs from it, so a recompute under ``torch.utils.checkpoint`` redraws
+the same noise. The trio queues micro-batches (``forward``) and runs
+``train_batch`` on their concatenation at the accumulation boundary
+(``step``), as the JAX engine does.
+
 Host synchronisation: none per step in bf16/fp32 (one, on the loss, with
 ``wall_clock_breakdown``); under fp16 the overflow flag is read back each
 step (the JAX engine reads it back too). Not in this
-slice: the forward/backward/step trio, ``save_checkpoint`` /
-``load_checkpoint``, the training observatory, the flops profiler and the
-monitors (ROADMAP A7).
+slice: ``save_checkpoint`` / ``load_checkpoint`` (A7.2), the training
+watchdog and preemption (A7.1b), the training observatory, the flops
+profiler and the monitors (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import torch
 from ..config.config import Config, ConfigError
 from ..ops.optimizers import AdamState, build_optimizer
 from ..utils.device import resolve_device
+from ..utils import random as trandom
 from ..utils.dtypes import cast_floating, resolve_dtype
 from ..utils.timer import (TRAIN_BATCH_TIMER, NoopTimer,
                            SynchronizedWallClockTimer, ThroughputTimer)
@@ -45,7 +58,7 @@ from .lr_schedules import build_schedule
 
 logger = logging.getLogger("deepspeed_tpu_torch")
 
-LossFn = Callable[..., Any]    # (params, batch, generator) -> loss | (loss, aux)
+LossFn = Callable[..., Any]    # (params, batch, key) -> loss | (loss, aux)
 
 
 class TrainState(NamedTuple):
@@ -57,6 +70,7 @@ class TrainState(NamedTuple):
     params: List[torch.Tensor]
     opt_state: AdamState
     scale_state: ls.LossScaleState
+    rng: torch.Tensor                # threefry key [2] (int64 words)
 
 
 class StepMetrics(NamedTuple):
@@ -89,9 +103,15 @@ def _rows(batch: Any, lo: int, hi: int) -> Any:
     return batch[lo:hi]
 
 
+def _concat(batches: List[Any]) -> Any:
+    if isinstance(batches[0], dict):
+        return {k: _concat([b[k] for b in batches]) for k in batches[0]}
+    return torch.cat([torch.as_tensor(b) for b in batches], dim=0)
+
+
 class Engine:
     def __init__(self, loss_fn: LossFn, params: Any, config: Config,
-                 device: Any = None):
+                 device: Any = None, rng: Any = None):
         self.device = resolve_device(device)
         self.config = config
         self.loss_fn = loss_fn
@@ -116,12 +136,14 @@ class Engine:
         self._names = list(flat)
         master = [torch.as_tensor(v).detach().to(self.device).clone()
                   for v in flat.values()]
+        key = trandom.as_key(rng) if rng is not None \
+            else trandom.PRNGKey(int(config.seed))
         self.state = TrainState(
             step=0, params=master,
             opt_state=self.optimizer.init(master),
-            scale_state=ls.init_state(config.fp16))
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(config.seed))
+            scale_state=ls.init_state(config.fp16),
+            rng=key.to(self.device))
+        self._micro_queue: List[Any] = []
         self._last_metrics: Optional[StepMetrics] = None
         self.global_steps = 0
         self.global_samples = 0
@@ -149,9 +171,10 @@ class Engine:
             out.append(c)
         return out
 
-    def _loss(self, copies: List[torch.Tensor], batch: Any):
+    def _loss(self, copies: List[torch.Tensor], batch: Any,
+              key: torch.Tensor):
         out = self.loss_fn(unflatten(dict(zip(self._names, copies))), batch,
-                           self.generator)
+                           key)
         return out[0] if isinstance(out, tuple) else out
 
     def train_batch(self, batch: Any) -> torch.Tensor:
@@ -170,6 +193,7 @@ class Engine:
         fp16 = cfg.fp16.enabled
         st = self.state
         scale = st.scale_state.scale
+        keys = trandom.split(st.rng, gas + 1)
 
         trainable = [i for i, p in enumerate(st.params)
                      if p.is_floating_point()]
@@ -180,7 +204,7 @@ class Engine:
         copies = self._compute_copies()
         for i in range(gas):
             micro = _rows(batch, i * mb, (i + 1) * mb)
-            loss = self._loss(copies, micro)
+            loss = self._loss(copies, micro, keys[i + 1])
             obj = loss * scale if fp16 else loss
             grads = torch.autograd.grad(obj, [copies[j] for j in trainable],
                                         allow_unused=True)
@@ -222,7 +246,8 @@ class Engine:
             opt_state = opt_state._replace(count=new.count)
         self.state = st._replace(
             step=st.step + (1 if finite else 0), opt_state=opt_state,
-            scale_state=ls.update_state(st.scale_state, finite, cfg.fp16))
+            scale_state=ls.update_state(st.scale_state, finite, cfg.fp16),
+            rng=keys[0])
         self._last_metrics = StepMetrics(
             loss=mean_loss, grad_norm=grad_norm, lr=lr, loss_scale=scale,
             skipped=not finite)
@@ -246,13 +271,39 @@ class Engine:
         return mean_loss
 
     @torch.no_grad()
-    def eval_batch(self, batch: Any, generator: Optional[torch.Generator]
-                   = None):
-        """``loss_fn`` on the params cast to the compute dtype."""
+    def eval_batch(self, batch: Any, rng: Any = None):
+        """``loss_fn`` on the params cast to the compute dtype, with the key
+        ``rng`` (default ``PRNGKey(0)``, as the JAX engine's)."""
+        key = trandom.as_key(rng) if rng is not None else trandom.PRNGKey(0)
         return self.loss_fn(
             cast_floating(self.params, self.compute_dtype),
-            _to_device(batch, self.device),
-            generator if generator is not None else self.generator)
+            _to_device(batch, self.device), key.to(self.device))
+
+    # the forward / backward / step trio ---------------------------------
+
+    def forward(self, micro_batch: Any) -> torch.Tensor:
+        """Queue a micro-batch. Returns the previous step's mean loss (the
+        step computes the true loss at the accumulation boundary), zero
+        before the first."""
+        self._micro_queue.append(micro_batch)
+        m = self._last_metrics
+        return m.loss if m is not None else torch.zeros(
+            (), device=self.device)
+
+    def backward(self, loss: Any = None) -> Any:
+        return loss
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return len(self._micro_queue) >= self.gradient_accumulation_steps
+
+    def step(self) -> Optional[torch.Tensor]:
+        """``train_batch`` over the queued micro-batches once ``gas`` of
+        them are queued (their concatenation, in order); else None."""
+        if not self.is_gradient_accumulation_boundary():
+            return None
+        batch = _concat(self._micro_queue)
+        self._micro_queue = []
+        return self.train_batch(batch)
 
     def get_lr(self) -> List[float]:
         return [float(self.lr_schedule(self.state.step))]

@@ -5,12 +5,20 @@ The port's sampler keys every sampled token by ``fold_in(PRNGKey(seed),
 position)`` (``inference/v2/sampling.py``), as the JAX package does, so
 that a seed gives the same stream in both packages. The contract:
 
-- ``PRNGKey``, ``fold_in`` and ``random_bits`` give the same uint32 words
-  as ``jax.random.PRNGKey``, ``jax.random.fold_in`` and
-  ``jax.random.bits`` (32-bit): keys ``(0, seed)``, the hash of
-  ``(0, data)`` for ``fold_in``, and ``x0 ^ x1`` of the hash of the
-  counter pair ``(i >> 32, i & 0xFFFFFFFF)`` for element ``i`` of a
-  ``random_bits`` draw (the partitionable layout);
+- ``PRNGKey``, ``fold_in``, ``split`` and ``random_bits`` give the same
+  uint32 words as ``jax.random.PRNGKey``, ``jax.random.fold_in``,
+  ``jax.random.split`` and ``jax.random.bits`` (32-bit): keys
+  ``(0, seed)``, the hash of ``(0, data)`` for ``fold_in``, the hash of
+  the counter pair ``(i >> 32, i & 0xFFFFFFFF)`` for key ``i`` of a
+  ``split`` (so ``split(key, n)[i] == fold_in(key, i)``), and ``x0 ^ x1``
+  of that hash for element ``i`` of a ``random_bits`` draw (the
+  partitionable layout);
+- ``make_rng`` is flax's ``Scope.make_rng`` over an ``rngs`` stream:
+  the key folded with the first four bytes (big-endian) of the SHA-1 of
+  the module path's names and the scope's call counter (flax 0.12 with
+  ``flax_fix_rng_separator`` off, its default: no separator bytes). The
+  training engine's keys and each MoE layer's gating key come from
+  these two (``runtime/engine.py``, ``moe/layer.py``);
 - ``uniform`` builds its floats from those bits as JAX does,
   ``((bits >> 9) | 0x3F800000)`` read as fp32 less 1, so its values equal
   ``jax.random.uniform``'s bit for bit;
@@ -30,6 +38,7 @@ keys.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Sequence, Union
 
 import numpy as np
@@ -85,6 +94,41 @@ def fold_in(key: torch.Tensor,
     d = _words(data, key.device)
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
     return torch.stack([y0, y1], dim=-1)
+
+
+def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, n)`` of one key ``[2]``: ``[n, 2]``."""
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], i >> 32, i & _M32)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def _static_hash(data: Sequence[Union[str, int]]) -> int:
+    m = hashlib.sha1()
+    for x in data:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        elif isinstance(x, int):
+            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
+        else:
+            raise ValueError(f"expected int or str, got {x!r}")
+    return int.from_bytes(m.digest()[:4], byteorder="big")
+
+
+def make_rng(key: torch.Tensor, path: Sequence[str],
+             counter: int = 1) -> torch.Tensor:
+    """flax's ``make_rng`` of the stream whose root key is ``key``, called
+    for the ``counter``-th time in the scope at ``path`` (module names from
+    the root, as ``("layer_0", "moe")``)."""
+    return fold_in(key, _static_hash(tuple(path) + (int(counter),)))
+
+
+def as_key(key) -> torch.Tensor:
+    """A key ``[2]`` as the port's int64 words, from a port key or any
+    array of two uint32 words (a ``jax.random.PRNGKey``, numpy)."""
+    if isinstance(key, torch.Tensor):
+        return key.to(torch.int64) & _M32
+    return torch.as_tensor(np.asarray(key).astype(np.int64)) & _M32
 
 
 def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -2304,3 +2304,138 @@ def test_fleet_disagg_handoff_and_counters_on_card(kv):
         == sum(len(t) for t in got.values())
     for r in pool.replicas():
         assert r.engine.free_blocks == r.engine.config.num_blocks
+
+
+#: B18's cases: rows an expert with empty experts and groups that are no
+#: multiple of the wgrad kernel's 32-row stage or the forward's row tiles
+B18_SIZES = {
+    "ragged_empty": (0, 37, 0, 0, 129, 5, 0, 64),
+    "one_row": (1, 0, 0, 0),
+    "prefill_60": tuple(int(n) for n in
+                        np.random.default_rng(9).integers(0, 300, 60)) +
+    (0,),
+    "all_empty_but_tail": (0, 0, 0, 33),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("K,N", [(64, 136), (200, 1408), (8, 24),
+                                 (1408, 256)])
+@pytest.mark.parametrize("case", sorted(B18_SIZES))
+def test_grouped_gemm_backward_matches_plain_on_card(case, K, N, dtype):
+    """B18: ``ragged_dot``'s data gradient (mma.sync over the weights read
+    in place as their transpose) and weight gradient (``grouped_wgrad_kernel``)
+    against fp32 references of the same inputs, through autograd, with
+    empty experts (their dW exactly zero) and ragged groups, K and N not
+    multiples of the tiles; bit-identical between calls; one launch each
+    a call. Limits as the forward's (2**-7 / 2**-10 / 1e-5 of the largest
+    magnitude)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+    sizes = B18_SIZES[case]
+    R, E = sum(sizes), len(sizes)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(R + K + N)
+    x = torch.randn(R, K, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(E, K, N, generator=g, device="cuda")
+         * K ** -0.5).to(dtype)
+    dy = torch.randn(R, N, generator=g, device="cuda").to(dtype)
+    off = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
+                       dtype=torch.int32, device="cuda")
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    gg.reset_launch_counts()
+    gg.ragged_dot(xl, wl, off).backward(dy)
+    torch.cuda.synchronize()
+    assert gg.LAUNCHES["grouped_dgrad"] == 1
+    assert gg.LAUNCHES["grouped_wgrad"] == 1
+    assert gg.LAUNCHES["grouped_gemm"] == 1
+    ref_dx = gg.ragged_dot_plain(dy.float(), w.float().transpose(
+        1, 2).contiguous(), off)
+    ref_dw = gg.ragged_dot_wgrad_plain(x.float(), dy.float(), off)
+    for got, ref in ((xl.grad, ref_dx), (wl.grad, ref_dw)):
+        err = (got.float() - ref).abs().max().item()
+        assert err <= GROUPED_REL[dtype] * max(ref.abs().max().item(),
+                                               1e-30), (case, err)
+    for e, n in enumerate(sizes):
+        if not n:
+            assert not wl.grad[e].any()
+    assert torch.equal(gg.ragged_dot_wgrad(x, dy, off),
+                       gg.ragged_dot_wgrad(x, dy, off))
+    assert torch.equal(gg.ragged_dot_dgrad(dy, w, off),
+                       gg.ragged_dot_dgrad(dy, w, off))
+
+
+@pytest.mark.cuda
+def test_grouped_backward_waits_for_nothing_on_card():
+    """The grouped MoE layer's forward and backward (the offsets, the
+    forward kernel, B18) read no device value on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.moe import sharded_moe
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    S, M, I, E = 300, 64, 96, 6
+    tok = torch.randn(S, M, generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    ws = [(torch.randn(*s, generator=g, device="cuda") * 0.1).to(
+        torch.bfloat16).requires_grad_()
+        for s in ((E, M, I), (E, M, I), (E, I, M))]
+    logits = torch.randn(S, E, generator=g, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, l_aux = sharded_moe.grouped_moe_ffn(tok, logits, 4, ws, F.silu,
+                                               torch.bfloat16,
+                                               normalize_weights=False)
+        (y.float().sum() + l_aux).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t.grad.float()).all() for t in (tok, *ws))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("H,Hk,D,T", [(32, 8, 64, 512), (32, 4, 64, 512),
+                                      (32, 8, 128, 384), (32, 4, 128, 384),
+                                      (16, 4, 64, 300)])
+def test_flash_backward_gqa_matches_plain_on_card(H, Hk, D, T, dtype):
+    """The flash backward with GQA 4 and 8 at head dims 64 and 128 (the
+    training shapes of TinyLlama and Mixtral, cut in length), through
+    ``flash_attention``'s autograd in the BTHD layout with native KV heads,
+    against ``flash_bwd_plain``: dQ, dK and dV within 2**-8 of the norm
+    and a max-abs of the flash limits (1.6e-2 / 4e-3) or 2**-7 / 2**-10
+    of the largest output, the larger (dK and dV sum a KV head's H / Hk
+    query heads, so they grow with the group)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    B = 2
+    g = torch.Generator(device="cuda")
+    g.manual_seed(H + Hk + D + T)
+    q, k, v, do = (torch.randn(B, T, h, D, generator=g, device="cuda").to(
+        dtype) for h in (H, Hk, Hk, H))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_launch_counts()
+    o = fa.flash_attention(*leaves, causal=True, layout="BTHD")
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd"] == 1
+    for name in fa.bwd_launch_names(D, dtype):
+        assert fa.LAUNCHES[name] == 1, fa.LAUNCHES
+    kw = dict(causal=True, sm_scale=D ** -0.5)
+    tq, tk, tv, tdo = (t.transpose(1, 2) for t in (q, k, v, do))
+    ro, rlse = fa.flash_fwd_plain(tq, tk, tv, **kw)
+    ref = fa.flash_bwd_plain(tq, tk, tv, tdo, ro, rlse, **kw)
+    tol, rel_top = (1.6e-2, 2.0 ** -7) if dtype == torch.bfloat16 \
+        else (4e-3, 2.0 ** -10)
+    for name, got, r in zip(("dq", "dk", "dv"), leaves, ref):
+        diff = got.grad.transpose(1, 2).float() - r.float()
+        err = diff.abs().max().item()
+        lim = max(tol, rel_top * r.float().abs().max().item())
+        rel = (diff.norm() / r.float().norm()).item()
+        assert err <= lim and rel <= 2.0 ** -8, (name, err, lim, rel)

@@ -22,6 +22,7 @@ download), the JAX tests' shapes (``tests/unit/test_hf_loader.py``
 
 import json
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -212,7 +213,8 @@ def test_registry_entry_equals_jax(name):
     jarch, jcfg = jreg.config_from_hf(d)
     arch, cfg = treg.config_from_hf(d)
     assert arch == jarch == name and isinstance(cfg, MixtralConfig)
-    fields = set(cfg.__dataclass_fields__) - {"dtype"}
+    fields = set(cfg.__dataclass_fields__) - {"dtype", "param_dtype"}
+    assert cfg.param_dtype == torch.float32 and jcfg.param_dtype == jnp.float32
     assert fields <= set(jcfg.__dataclass_fields__)
     for f in sorted(fields):
         assert getattr(cfg, f) == getattr(jcfg, f), f

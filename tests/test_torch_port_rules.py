@@ -95,7 +95,8 @@ def test_import_builds_no_kernel():
     (the prefix cache, drain/replay), the dense families' (their
     models and ragged runners), the MoE families' (Mixtral, the
     grouped MoE layer and the grouped GEMM) and serving telemetry's and
-    the fleet's (telemetry, serving, resilience, logging)."""
+    the fleet's (telemetry, serving, resilience, logging) and the
+    training slice of the families' (the MoE layer, the keys)."""
     code = (
         "import subprocess, sys, pkgutil, importlib\n"
         "def _no(*a, **k): raise AssertionError('spawned at import')\n"
@@ -121,6 +122,7 @@ def test_import_builds_no_kernel():
         "        'inference.v2.opt_runner', 'inference.v2.falcon_phi_runner',\n"
         "        'inference.v2.bloom_gptj_neox_runner', 'models.mixtral',\n"
         "        'moe.sharded_moe', 'ops.kernels.grouped_gemm',\n"
+        "        'moe.layer', 'utils.random',\n"
         "        'utils.logging', 'telemetry.registry', 'telemetry.serve',\n"
         "        'telemetry.trace', 'telemetry.attribution',\n"
         "        'telemetry.flight_recorder', 'serving.pool',\n"
@@ -135,3 +137,34 @@ def test_import_builds_no_kernel():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_registry_carries_every_jax_training_entry_point():
+    """Each architecture the JAX registry gives a ``make_model`` either has
+    one in the port's registry (the same function's name, callable) or is
+    one the port has not ported, which raises naming A9."""
+    import ast
+    src = (ROOT / "deepspeed_tpu" / "models" / "registry.py").read_text()
+    jax_makes = {}
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Dict):
+            for k, v in zip(node.keys, node.values):
+                if isinstance(k, ast.Constant) and isinstance(v, ast.Call) \
+                        and getattr(v.func, "id", "") == "ArchEntry":
+                    make = v.args[2]
+                    jax_makes[k.value] = None if isinstance(
+                        make, ast.Constant) else make.id
+    assert len(jax_makes) >= 20
+    from deepspeed_tpu_torch.models import registry as reg
+    for arch, make in jax_makes.items():
+        if arch in reg.NOT_PORTED:
+            with pytest.raises(NotImplementedError, match="A9"):
+                reg.get_arch(arch)
+            continue
+        entry = reg.get_arch(arch)
+        assert make is not None and callable(entry.make_model), arch
+        # the JAX module's alias (make_llama, make_model_neox, ...) names
+        # the same entry point: its family's make_model
+        assert entry.make_model.__name__ in (make, "make_model"), arch
+        assert entry.make_model.__module__.startswith(
+            "deepspeed_tpu_torch.models."), arch

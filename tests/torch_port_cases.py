@@ -125,3 +125,27 @@ class StagingTripwire:
 
     def __exit__(self, *exc):
         self._cls._staging_bufs = self._orig
+
+
+def seeded_tree(init, seed=0):
+    """A flax initializer's tree drawn with numpy from a seed, without
+    running (or compiling) the initializer: ``init()`` is traced by
+    ``jax.eval_shape`` for the shapes. Matrices are normal with std
+    1/sqrt(fan_in) (the second-to-last dim; embeddings std 1), biases
+    normal with std 0.05, norm scales 1 plus that. Leaves are numpy
+    arrays in each leaf's dtype."""
+    shapes = jax.eval_shape(init)
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = jax.tree_util.keystr(path)
+        if "scale" in name or leaf.ndim == 1:
+            x = rng.normal(0.0, 0.05, leaf.shape) + (
+                1.0 if "scale" in name else 0.0)
+        elif "embedding" in name:
+            x = rng.normal(0.0, 1.0, leaf.shape)
+        else:
+            x = rng.normal(0.0, 1.0, leaf.shape) / np.sqrt(leaf.shape[-2])
+        return x.astype(leaf.dtype)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
