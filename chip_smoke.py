@@ -514,7 +514,10 @@ bound and one library call:
              xent kernels, the grouped forward and B18 (dX and dW, an
              empty expert, ragged groups; 2**-7 of the largest output)
              against their plain versions and timed beside SDPA /
-             ``torch._grouped_mm``; (b)'s grouped layer forward and
+             ``torch._grouped_mm``, B18 also at Mixtral-8x7B's expert
+             product (2048 tokens top-2 over 8, one expert empty, 4096
+             <-> 14336; its training takes the capacity route, so B18 is
+             held and timed there alone); (b)'s grouped layer forward and
              backward under ``set_sync_debug_mode("error")``. Step ms,
              tokens/s, peak memory; with ``--trace`` a profiler window
              over one step a run.
@@ -7815,6 +7818,17 @@ FT_PARITY_REL = 1e-4
 #: no Pallas twin: JAX differentiates jax.lax.ragged_dot
 B18_REPLACES = ("deepspeed_tpu/moe/sharded_moe.py:230 (the VJP of "
                 "jax.lax.ragged_dot; no pallas_call)")
+#: B18 at Mixtral-8x7B's expert product, timed beside run (b): tokens,
+#: top-k, experts, K, N (one expert left empty); dW 481 GFLOP against
+#: ~1.09 GB, bound by operations
+B18_MIXTRAL = (2048, 2, 8, 4096, 14336)
+#: B18's launch counts: every dX and dW, and those on the wgmma routes
+B18_KEYS = ("grouped_gemm", "grouped_dgrad", "grouped_dgrad_wgmma",
+            "grouped_wgrad", "grouped_wgrad_wgmma")
+#: B18's kernels by count: the routes phase 32 (b) takes
+B18_KERNELS = {"grouped_dgrad": "grouped_wgmma_kernel<bf16, BN, 2, KB = "
+                                "true> (dX: w read in place, K-major B)",
+               "grouped_wgrad": "grouped_wgrad_wgmma_kernel<bf16, BN, CL>"}
 
 
 def ft_config(torch, run, **kw):
@@ -7854,14 +7868,15 @@ def _ft_want(torch, cfg, fa, fx, gg, steps):
     grouped = isinstance(cfg, MixtralConfig) and \
         moe_layer(cfg).route(True) == "grouped"
     n = 3 * L * steps if grouped else 0
-    want.update(grouped_gemm=n, grouped_dgrad=n, grouped_wgrad=n)
+    # B18 at the grouped runs' prefill-sized groups (hundreds of rows an
+    # expert): every dX and dW on its wgmma route
+    want.update(dict.fromkeys(B18_KEYS, n))
     return want, grouped
 
 
 def _ft_launches(fa, fx, gg):
     out = {**fa.LAUNCHES, **fx.LAUNCHES}
-    out.update({k: gg.LAUNCHES[k] for k in
-                ("grouped_gemm", "grouped_dgrad", "grouped_wgrad")})
+    out.update({k: gg.LAUNCHES[k] for k in B18_KEYS})
     return out
 
 
@@ -8103,13 +8118,14 @@ def _grouped_mm_lib(torch, fn, check, tol):
 def time_b18(torch, gg, name, *, tokens, k, E, K, N, dead):
     """B18, both directions, at one expert-product shape: x [R, K] routed
     rows, w [E, K, N], dy [R, N] bf16 (R = tokens k, the last ``dead``
-    experts empty). dX (``ragged_dot_dgrad``: mma.sync over w read in
-    place as its transpose) and dW (``grouped_wgrad_kernel``) against fp32
-    references within 2**-7 of the largest magnitude and against their
-    bf16 plain twins; dW of an empty expert exactly zero; a group whose
-    length is no multiple of the tiles; each bit-identical between two
-    calls. Timed by events and in a CUDA graph beside the plain twins and
-    ``torch._grouped_mm``."""
+    experts empty). dX (``ragged_dot_dgrad``: the forward's kernels over w
+    read in place as its transpose, on ``grouped_plan``'s route) and dW
+    (``ragged_dot_wgrad``: ``wgrad_plan``'s) against fp32 references
+    within 2**-7 of the largest magnitude and against their bf16 plain
+    twins; dW of an empty expert exactly zero; a group whose length is no
+    multiple of the tiles; each bit-identical between two calls; both on
+    their wgmma routes (``LAUNCHES``). Timed by events and in a CUDA graph
+    beside the plain twins and ``torch._grouped_mm``."""
     off, g = _b18_routing(torch, gg, tokens, k, E, dead, len(name) + K)
     R = tokens * k
     x = torch.randn(R, K, generator=g, device="cuda").to(torch.bfloat16)
@@ -8126,8 +8142,14 @@ def time_b18(torch, gg, name, *, tokens, k, E, K, N, dead):
     dx2, dw2 = gg.ragged_dot_dgrad(dy, w, off), gg.ragged_dot_wgrad(x, dy,
                                                                      off)
     torch.cuda.synchronize()
-    if gg.LAUNCHES["grouped_dgrad"] != 2 or gg.LAUNCHES["grouped_wgrad"] != 2:
-        raise AssertionError(f"[B18] {name}: launches {gg.LAUNCHES}")
+    if any(gg.LAUNCHES[k] != 2 for k in B18_KEYS[1:]):
+        raise AssertionError(f"[B18] {name}: launches {gg.LAUNCHES}, want "
+                             f"two of each, on the wgmma routes")
+    from deepspeed_tpu_torch.utils.device import sm_count
+    plans = {"grouped_dgrad": gg.grouped_plan(R, E, K, torch.bfloat16,
+                                              sm_count(x.device))._asdict(),
+             "grouped_wgrad": gg.wgrad_plan(R, E, K, N, torch.bfloat16,
+                                            sm_count(x.device))._asdict()}
     wt = w.transpose(1, 2).contiguous()
     refs = {"grouped_dgrad": gg.ragged_dot_plain(dy.float(), wt.float(), off),
             "grouped_wgrad": gg.ragged_dot_wgrad_plain(x.float(), dy.float(),
@@ -8180,7 +8202,8 @@ def time_b18(torch, gg, name, *, tokens, k, E, K, N, dead):
              "library_graph_ms": _graph_ms(torch, [lib], reps=10)
              if lib else None,
              "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
-             "flops": flops,
+             "flops": flops, "kernel": B18_KERNELS[kname],
+             "plan": plans[kname],
              "shape": {"R": R, "tokens": tokens, "k": k, "E": E,
                        "routed": live, "K": K, "N": N, "dtype": "bf16",
                        "rows_min": min(sizes), "rows_max": max(sizes)}}
@@ -8257,6 +8280,10 @@ def phase_family_training(torch, trace):
                        torch, gg, "qwen1p5_moe_train_down", tokens=mb * T,
                        k=cfg.experts_top_k, E=cfg.num_experts, K=N, N=K,
                        dead=3)}
+            b18["mixtral_expert"] = time_b18(
+                torch, gg, "mixtral_8x7b_expert", tokens=B18_MIXTRAL[0],
+                k=B18_MIXTRAL[1], E=B18_MIXTRAL[2], K=B18_MIXTRAL[3],
+                N=B18_MIXTRAL[4], dead=1)
             r["b18"] = b18
             r["grouped_no_sync"] = ft_grouped_sync(torch, cfg, mb, T)
             for kname in ("grouped_dgrad", "grouped_wgrad"):
@@ -8264,9 +8291,11 @@ def phase_family_training(torch, trace):
                 row.update(name=kname, route="cuda", source=GROUPED_SOURCE,
                            replaces=B18_REPLACES,
                            launches=r["launches"][kname],
+                           launches_wgmma=r["launches"][kname + "_wgmma"],
                            launches_per_step=r["launches_per_step"][kname],
                            launches_from=f"phase 32 {run}",
-                           down=b18["down"][kname])
+                           down=b18["down"][kname],
+                           mixtral_expert=b18["mixtral_expert"][kname])
                 rows.append(row)
         out[run] = r
         torch.cuda.empty_cache()

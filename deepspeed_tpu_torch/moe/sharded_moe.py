@@ -23,8 +23,8 @@ into offsets with ``cumsum`` on the device, where the kernel reads them
 device).
 
 It is differentiable: ``ragged_dot`` has a backward (the grouped GEMM
-over a transposed weight copy for the rows, ``grouped_wgrad_kernel`` for
-the weights), the router's gradient flows through the selected weights
+reading the weights in place as their transpose for the rows,
+``grouped_wgrad_wgmma_kernel`` for the weights), the router's gradient flows through the selected weights
 and ``gates.mean`` as in JAX, and the counts carry none. The
 expert-parallel variants are not ported (queue item A8).
 """

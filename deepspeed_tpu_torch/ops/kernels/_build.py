@@ -101,11 +101,12 @@ SIGNATURES = {
     # stream
     "grouped_gemm": {
         "grouped_gemm_launch": [_P] * 4 + [_I] * 10 + [_P],
-        # x, dy, offsets, dw, R, E, K, N, dtype code, stream
-        "grouped_wgrad_launch": [_P] * 4 + [_I] * 5 + [_P],
-        # dy, w, offsets, dx, R, E, K, N, dgrad_plan's row tile and
-        # row-tile slots, dtype code, stream
-        "grouped_dgrad_launch": [_P] * 4 + [_I] * 7 + [_P],
+        # x, dy, offsets, dw, R, E, K, N, wgrad_plan's column tile,
+        # cluster flag and grid, dtype code, stream
+        "grouped_wgrad_launch": [_P] * 4 + [_I] * 8 + [_P],
+        # dy, w, offsets, dx, R, E, K (the reduction), N (dx's columns),
+        # grouped_plan's five as the forward's, dtype code, stream
+        "grouped_dgrad_launch": [_P] * 4 + [_I] * 10 + [_P],
     },
     # q, k, v, o, mask bias, pair bias, host strides, B, N, H, Sq, Sk, D,
     # scale, dtype code, MSA rows a block (evoformer.evo_plan), stream

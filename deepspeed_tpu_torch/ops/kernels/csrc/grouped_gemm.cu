@@ -1,5 +1,8 @@
 // Grouped expert GEMM for Hopper (sm_90a): y[o_e:o_{e+1}] = x[o_e:o_{e+1}]
-// @ w[e] for every expert e, with the row offsets o read on the device.
+// @ w[e] for every expert e, with the row offsets o read on the device,
+// and its two gradients (the backward section below): dx by the same
+// kernels over w read in place as its transpose, dw by a kernel of its
+// own.
 //
 // grouped_gemm replaces no Pallas kernel: the JAX package's dropless MoE
 // multiplies each expert's rows with `jax.lax.ragged_dot`
@@ -97,6 +100,13 @@
 // Route "f32": a plain CUDA-core kernel (tiles of BM x 64, 256 threads)
 // for the parity runs. K % 8 == 0 and N % 8 == 0 for the 16-bit routes
 // (16-byte copies and TMA rows).
+//
+// The data gradient takes the route and plan the forward would take for
+// its shapes, with w's rows as the output columns: on "wgmma" the weight
+// boxes come from a 3-D map over w [E, N, K] (the reduction contiguous),
+// which is wgmma's native K-major B (KB), where the forward's are
+// MN-major; on "mma" the B fragments come by plain ldmatrix from w's
+// rows (TB).
 //
 // Kernels launch on the caller's stream, do not synchronise and allocate
 // nothing; the C entry point returns cudaGetLastError().
@@ -343,7 +353,11 @@ __device__ __forceinline__ WTile w_tile(const int* off, int E, int L,
 }
 
 // A block of a producer warpgroup and NC consumer warpgroups (64 rows of
-// the BM = 64 NC row tile each), persistent, in clusters of two. The pair
+// the BM = 64 NC row tile each), persistent, in clusters of two. KB: w
+// is [E, N, K] (the data gradient's w^T read in place: the reduction is
+// its contiguous axis), so a weight box is 64 output columns x 64 of K,
+// K-major, which is wgmma's native B; otherwise w is [E, K, N] and a box
+// 64 of K x 64 columns, MN-major (the forward). The pair
 // walks pairs of consecutive tiles L, L + 1 (L = its rank-0 block's index
 // + i gridDim.x) while L is real; rank r takes tile L + r, and a rank with
 // no tile (past the last) steps through the pair's stages idle. When both
@@ -355,7 +369,7 @@ __device__ __forceinline__ WTile w_tile(const int* off, int E, int L,
 // between tiles. full[s]: the bytes of stage s (its own x box, its weight
 // boxes from either rank) landed; empty[s]: the consumers of both blocks
 // are done with stage s, which a multicast into either may then refill.
-template <typename T, int BN, int NC>
+template <typename T, int BN, int NC, bool KB>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
     grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                          const __grid_constant__ CUtensorMap tm_w,
@@ -423,13 +437,15 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
             if (pair) {
 #pragma unroll 1
               for (int j = rank; j < boxes; j += 2)
-                tma_box3_mc(st + AB + j * BB, &tm_w, t.n0 + 64 * j, k * WK,
-                            t.e, full + s, 3);
+                tma_box3_mc(st + AB + j * BB, &tm_w,
+                            KB ? k * WK : t.n0 + 64 * j,
+                            KB ? t.n0 + 64 * j : k * WK, t.e, full + s, 3);
             } else {
 #pragma unroll 1
               for (int j = 0; j < boxes; ++j)
-                tma_box3(st + AB + j * BB, &tm_w, t.n0 + 64 * j, k * WK,
-                         t.e, full + s);
+                tma_box3(st + AB + j * BB, &tm_w,
+                         KB ? k * WK : t.n0 + 64 * j,
+                         KB ? t.n0 + 64 * j : k * WK, t.e, full + s);
             }
           }
         __syncwarp();
@@ -470,11 +486,15 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
         mbar_wait(full + s, (g / ST) & 1);
         fence_regs(acc);
         wg_fence();
+        // B: K-major (KB), a k16 step 32 bytes into each 128-byte row as
+        // for A; else MN-major, a k16 step 16 rows of every box
 #pragma unroll
         for (int kk = 0; kk < WK / 16; ++kk)
-          wgmma_ss<1, T>(acc, wg_desc(a + kk * 32, 16, 1024),
-                         wg_desc(b + kk * 2048, BB, 1024), k > 0 || kk > 0,
-                         std::integral_constant<int, BN>());
+          wgmma_ss<KB ? 0 : 1, T>(
+              acc, wg_desc(a + kk * 32, 16, 1024),
+              KB ? wg_desc(b + kk * 32, 16, 1024)
+                 : wg_desc(b + kk * 2048, BB, 1024),
+              k > 0 || kk > 0, std::integral_constant<int, BN>());
         wg_commit();
         // the step before this one is done: its stage may be refilled
         wg_wait<1>();
@@ -571,258 +591,294 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T, int BM, int WM, int WN, bool TB = false>
-cudaError_t launch_mma(const void* x, const void* w, const int* off, void* y,
-                       int E, int K, int N, int tiles, cudaStream_t st) {
-  auto kern = grouped_mma_kernel<T, BM, WM, WN, TB>;
-  const size_t smem =
-      (size_t)GSTAGES * (BM * ALD + (TB ? GBN * BLDT : GBK * BLD)) *
-      sizeof(T);
-  cudaError_t err = smem_opt_in(kern, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(tiles, (N + GBN - 1) / GBN);
-  kern<<<grid, 32 * WM * WN, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), off,
-      static_cast<T*>(y), E, K, N);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_mma(int bm, const void* x, const void* w, const int* off,
-                         void* y, int E, int K, int N, int tiles,
-                         cudaStream_t st) {
-  switch (bm) {
-    case 16: return launch_mma<T, 16, 1, 4>(x, w, off, y, E, K, N, tiles, st);
-    case 32: return launch_mma<T, 32, 2, 2>(x, w, off, y, E, K, N, tiles, st);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <int BM, bool TB = false>
-cudaError_t launch_f32(const void* x, const void* w, const int* off, void* y,
-                       int E, int K, int N, int tiles, cudaStream_t st) {
-  dim3 grid(tiles, (N + 63) / 64);
-  grouped_f32_kernel<BM, TB><<<grid, 256, 0, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), off,
-      static_cast<float*>(y), E, K, N);
-  return cudaGetLastError();
-}
-
-// the data gradient: w [E, N, K] read in place as w^T (mma.sync at row
-// tiles of 16, 32 or 64 in 16-bit; the CUDA-core kernel in fp32)
-template <typename T>
-cudaError_t dispatch_dgrad(int bm, const void* x, const void* w,
-                           const int* off, void* y, int E, int K, int N,
-                           int tiles, cudaStream_t st) {
-  switch (bm) {
-    case 16:
-      return launch_mma<T, 16, 1, 4, true>(x, w, off, y, E, K, N, tiles, st);
-    case 32:
-      return launch_mma<T, 32, 2, 2, true>(x, w, off, y, E, K, N, tiles, st);
-    case 64:
-      return launch_mma<T, 64, 2, 2, true>(x, w, off, y, E, K, N, tiles, st);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// x [R, K] in boxes of BM rows x 64, w [E, K, N] in boxes of 64 x 64 x
-// 1, both 128-byte swizzled
-template <typename T>
-cudaError_t w_maps(CUtensorMap* tm_x, CUtensorMap* tm_w, const void* x,
-                   const void* w, int R, int E, int K, int N, int bm) {
-  const CUtensorMapDataType dt = std::is_same<T, f16>::value
-                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const cuuint64_t xd[2] = {(cuuint64_t)K, (cuuint64_t)R};
-  const cuuint64_t xs[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t xb[2] = {WK, (cuuint32_t)bm};
-  cudaError_t err = encode_tensor_map(tm_x, dt, 2, x, xd, xs, xb,
-                                      CU_TENSOR_MAP_SWIZZLE_128B);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t wd[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)E};
-  const cuuint64_t ws[2] = {(cuuint64_t)N * 2, (cuuint64_t)K * N * 2};
-  const cuuint32_t wb[3] = {64, WK, 1};
-  return encode_tensor_map(tm_w, dt, 3, w, wd, ws, wb,
-                           CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
-// in clusters of two: an even grid of at most twice the clusters the
-// device holds at once
-template <typename T, int BN, int NC>
-cudaError_t launch_wgmma(const void* x, const void* w, const int* off,
-                         void* y, int R, int E, int K, int N, int slots,
-                         int grid, cudaStream_t st) {
-  CUtensorMap tm_x, tm_w;
-  cudaError_t err = w_maps<T>(&tm_x, &tm_w, x, w, R, E, K, N, 64 * NC);
-  if (err != cudaSuccess) return err;
-  auto kern = grouped_wgmma_kernel<T, BN, NC>;
-  constexpr size_t smem = w_smem_bytes<BN, NC>();
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2);
-  cfg.blockDim = dim3(128 * (NC + 1));
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 2;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = resident_count(reinterpret_cast<const void*>(kern), 128 * (NC + 1),
-                       smem, &cfg, 2, &clusters);
-  if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorInvalidConfiguration;
-  grid = min(grid + (grid & 1), 2 * clusters);
-  return cluster_launch(kern, dim3(grid), dim3(128 * (NC + 1)), smem, 2, st,
-                        tm_x, tm_w, off, static_cast<T*>(y), E, K, N, slots);
-}
-
-template <typename T>
-cudaError_t dispatch_wgmma(int bm, int bn, const void* x, const void* w,
-                           const int* off, void* y, int R, int E, int K,
-                           int N, int slots, int grid, cudaStream_t st) {
-  if (bm == 128 && bn == 256)
-    return launch_wgmma<T, 256, 2>(x, w, off, y, R, E, K, N, slots, grid, st);
-  if (bm == 128 && bn == 128)
-    return launch_wgmma<T, 128, 2>(x, w, off, y, R, E, K, N, slots, grid, st);
-  if (bm == 64 && bn == 256)
-    return launch_wgmma<T, 256, 1>(x, w, off, y, R, E, K, N, slots, grid, st);
-  if (bm == 64 && bn == 128)
-    return launch_wgmma<T, 128, 1>(x, w, off, y, R, E, K, N, slots, grid, st);
-  return cudaErrorInvalidValue;
-}
-
 // ------------------------------------------------------------- backward
 //
-// grouped_wgrad (the weight gradient of ragged_dot, B18): dw[e] = x_e^T @
-// dy_e for every expert e, x [R, K] and dy [R, N] sorted by expert, dw [E,
-// K, N] in x's dtype. JAX differentiates `jax.lax.ragged_dot` itself, so
-// no Pallas kernel stands behind it. One block an output tile (expert,
-// 64 rows of K, 128 columns of N): the block reads its expert's offsets
-// on the device and walks that expert's rows 32 at a time, staging the
-// 32 x 64 slab of x and the 32 x 128 slab of dy by cp.async through three
-// shared-memory stages. Eight warps (2 along K x 4 along N) each hold a
-// 32 x 32 piece in fp32 accumulators on mma.sync m16n8k16: the A
-// fragments (x^T) come from the x slab by transposing ldmatrix, the B
-// fragments (dy) from the dy slab by transposing ldmatrix as in the
-// forward. Rows past the expert's end are zero-filled, so an expert with
-// no rows writes zeros and a ragged tail adds nothing. The sum runs over
-// the rows in one fixed order and rounds once: a call's bits repeat.
-// fp32 takes grouped_wgrad_f32_kernel, a plain CUDA-core tile of 64 x 64.
-// The data gradient (dx = dy @ w_e^T, grouped_dgrad_launch) is
-// grouped_mma_kernel<..., TB = true> at row tiles of 16, 32 or 64: it
-// stages w_e's rows (the output columns here, K contiguous) as they lie
-// and takes its B fragments by plain ldmatrix, so w is never copied
-// transposed; fp32 takes grouped_f32_kernel<BM, true>.
+// The gradients of ragged_dot (B18; JAX differentiates jax.lax.ragged_dot
+// itself, so no Pallas kernel stands behind them). The data gradient dx =
+// dy @ w_e^T is the forward's kernels over w read in place as its
+// transpose (grouped_dgrad_launch): grouped_wgmma_kernel<..., KB = true>
+// at row tiles of 64 and 128, grouped_mma_kernel<..., TB = true> at 16
+// and 32, grouped_f32_kernel<BM, true> in fp32, planned by grouped_plan
+// as the forward is.
+//
+// The weight gradient dw[e] = x_e^T @ dy_e (x [R, K] and dy [R, N] sorted
+// by expert, dw [E, K, N] in x's dtype) is grouped_wgrad_wgmma_kernel in
+// 16-bit. Its bound is bytes: the written dw is most of what it moves
+// (346 of 403 MB at Qwen1.5-MoE-A2.7B's 8192 rows over 60 experts, 2048
+// -> 1408; 0.12 ms at 3.35 TB/s), with operations near it where the
+// experts are few and wide (Mixtral-8x7B: 481 GFLOP, 0.49 ms). The
+// design:
+//   1. Tiles of 128 rows of K x BN (256 or 128, the forward's bytes rule
+//      over ceil(N / bn) (128 + bn)) columns of N, walked by persistent
+//      blocks (one an SM) expert by expert (wg_tile): the blocks in flight
+//      share one expert's x and dy slabs in L2. Where the experts have
+//      many rows (wgrad_plan: 256 or more an expert on the mean) the
+//      blocks run in clusters of two over
+//      neighbouring tiles, two K tiles of one column tile, whose dy boxes
+//      each block loads half of and multicasts into both: a step then
+//      reads 32 KB from L2 a block, not 48. At Mixtral-8x7B's shapes (512
+//      rows an expert; the products are the bound) the loads from L2 held
+//      the kernel alone to 52% of its bound, and the clusters took 5-10%
+//      off its time; at Qwen1.5-MoE-A2.7B's (136 rows an expert, 3 steps
+//      a tile; the stores are the bound) the blocks walk alone, column
+//      tile fastest (tools/port_step_ab.py --b18, H100 80GB HBM3).
+//   2. A producer thread keeps a ring of TMA stages: a step is 64 of the
+//      expert's rows, two 64 x 64 boxes of x (2-D map over x [R, K]) and
+//      BN / 64 boxes of dy (over dy [R, N]), 128-byte swizzled; boxes of
+//      dy wholly past N (and of x past K) are not loaded.
+//   3. Two consumer warpgroups (64 rows of K each) run m64nBNk16 wgmma
+//      with A = x_e^T MN-major (K, dw's row, is x's contiguous axis) and
+//      B = dy_e MN-major, fp32 accumulators in registers.
+//   4. The ragged tail: the last step of an expert reads rows past its end
+//      (the next expert's rows, or TMA's zeros past R), which would be
+//      summed into dw. The consumers zero those rows in both operands
+//      (a row is 128 bytes whichever way its 16-byte chunks are swizzled)
+//      and fence them to the async proxy before the step's wgmma; the
+//      two warpgroups meet at a named barrier there, each having zeroed
+//      its x box and half the dy boxes.
+//   5. The epilogue: each consumer rounds its 64 x BN accumulators into a
+//      128-byte-swizzled shared tile and one thread stores it by TMA (a
+//      3-D map over dw [E, K, N], which clips rows past K and columns
+//      past N); the store drains while the next tile's loads and products
+//      run, and the tile is rewritten only once that store has read it.
+// An expert with no rows takes no step and stores zeros. The rows are
+// summed in one fixed order in fp32 and rounded once: a call's bits
+// repeat. fp32 takes grouped_wgrad_f32_kernel, a plain CUDA-core tile.
 
-constexpr int WGK = 64;            // rows of dw (K) a block
-constexpr int WGN = 128;           // columns of dw (N) a block
-constexpr int WGR = 32;            // rows of x / dy a stage
-constexpr int WG_ALD = WGK + 8;    // x slab row (elements)
-constexpr int WG_BLD = WGN + 8;    // dy slab row (elements)
+constexpr int WG_KT = 128;          // rows of dw (K) a tile
+constexpr int WG_BOX = 64 * 64 * 2; // one 64 x 64 box of 16-bit elements
+constexpr int WG_RING = 160 * 1024; // ring bytes at most
 
-template <typename T>
-__device__ __forceinline__ void wgrad_stage(T* As, T* Bs,
-                                            const T* __restrict__ x,
-                                            const T* __restrict__ dy, int r0,
-                                            int r1, int k0, int n0, int K,
-                                            int N) {
-  for (int i = threadIdx.x; i < WGR * (WGK / 8); i += 256) {
-    const int r = i / (WGK / 8), c = (i % (WGK / 8)) * 8;
-    const bool live = r0 + r < r1 && k0 + c < K;
-    cp_async16(As + r * WG_ALD + c,
-               x + (live ? (long long)(r0 + r) * K + k0 + c : 0), live);
-  }
-  for (int i = threadIdx.x; i < WGR * (WGN / 8); i += 256) {
-    const int r = i / (WGN / 8), c = (i % (WGN / 8)) * 8;
-    const bool live = r0 + r < r1 && n0 + c < N;
-    cp_async16(Bs + r * WG_BLD + c,
-               dy + (live ? (long long)(r0 + r) * N + n0 + c : 0), live);
-  }
+// stage bytes: two x boxes and BN / 64 dy boxes
+template <int BN>
+__host__ __device__ constexpr int wg_stage_bytes() {
+  return (2 + BN / 64) * WG_BOX;
+}
+template <int BN>
+__host__ __device__ constexpr int wg_stages() {
+  return WG_RING / wg_stage_bytes<BN>();
+}
+// the ring, the two consumers' output tiles, the barriers, the offsets
+template <int BN>
+__host__ __device__ constexpr size_t wg_smem_bytes() {
+  return (size_t)wg_stages<BN>() * wg_stage_bytes<BN>() + WG_KT * BN * 2 +
+         2 * wg_stages<BN>() * sizeof(uint64_t) + W_OFFS * sizeof(int);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-    grouped_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                         const int* __restrict__ off, T* __restrict__ dw,
-                         int K, int N) {
-  __shared__ __align__(16) T As[GSTAGES][WGR * WG_ALD];
-  __shared__ __align__(16) T Bs[GSTAGES][WGR * WG_BLD];
-  const int e = blockIdx.z;
-  const int k0 = blockIdx.y * WGK, n0 = blockIdx.x * WGN;
-  const int r0 = off[e], r1 = off[e + 1];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row_w = (warp >> 2) * 32, col_w = (warp & 3) * 32;
+// Tile L of the walk: expert e = L / (k tiles x column tiles), then, in
+// clusters (CL), column tile and K tile (fastest: neighbouring tiles
+// share a dy slab), else K tile and column tile (fastest: neighbouring
+// blocks store side by side in the same rows of dw, which the stores,
+// the bound at few rows an expert, take 2-4% faster). steps: the
+// expert's 64-row steps; boxes: dy boxes short of N. e = -1 past the last
+// tile.
+struct WgTile {
+  int e, k0, n0, boxes, r0, r1, steps;
+};
+template <int BN, bool CL>
+__device__ __forceinline__ WgTile wg_tile(const int* offs, int L, int KT,
+                                          int NT, int N, int slots) {
+  if (L >= slots) return {-1, 0, 0, 0, 0, 0, 0};
+  const int per = KT * NT, rem = L % per, e = L / per;
+  const int kt = CL ? rem % KT : rem / NT, nt = CL ? rem / KT : rem % NT;
+  const int n0 = nt * BN, r0 = offs[e], r1 = offs[e + 1];
+  int boxes = 0;
+#pragma unroll
+  for (int j = 0; j < BN / 64; ++j) boxes += n0 + 64 * j < N;
+  return {e, kt * WG_KT, n0, boxes, r0, r1, (r1 - r0 + 63) / 64};
+}
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
-
-  const int steps = r1 > r0 ? (r1 - r0 + WGR - 1) / WGR : 0;
-#pragma unroll
-  for (int s = 0; s < GSTAGES - 1; ++s) {
-    if (s < steps)
-      wgrad_stage<T>(As[s], Bs[s], x, dy, r0 + s * WGR, r1, k0, n0, K, N);
-    cp_async_commit();
-  }
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<GSTAGES - 2>();
-    __syncthreads();
-    const int nxt = s + GSTAGES - 1;
-    if (nxt < steps) {
-      const int b = nxt % GSTAGES;
-      wgrad_stage<T>(As[b], Bs[b], x, dy, r0 + nxt * WGR, r1, k0, n0, K, N);
+// A block of a producer warpgroup and two consumer warpgroups, persistent,
+// in clusters of two where CL (else block b takes tiles b, b + grid, ...
+// alone). The pair walks pairs of neighbouring tiles L, L + 1
+// (L = its rank-0 block's index + i gridDim.x); rank r takes tile L + r.
+// When both are K tiles of one (expert, column tile) they need the same dy
+// boxes: each rank loads half of them and multicasts them into both
+// blocks, so the pair reads its dy slab from L2 once. The pair steps
+// through max(its tiles' steps) ring stages, a rank past its own steps
+// (or without a tile) idling through them, so that the two rings stay in
+// step. The K steps are counted over the whole walk (g), which picks each
+// one's ring stage and phase, so the ring runs on across tiles. full[s]:
+// stage s's boxes landed (its x boxes, its dy boxes from either rank);
+// empty[s]: the consumers of both blocks are done with stage s.
+template <typename T, int BN, bool CL>
+__global__ void __launch_bounds__(384, 1)
+    grouped_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                               const __grid_constant__ CUtensorMap tm_dy,
+                               const __grid_constant__ CUtensorMap tm_dw,
+                               const int* __restrict__ off, int E, int K,
+                               int N) {
+  constexpr int ST = wg_stages<BN>(), SB = wg_stage_bytes<BN>();
+  constexpr int OB = 64 * BN * 2;   // one consumer's output tile
+  extern __shared__ __align__(1024) unsigned char w_smem[];
+  unsigned char* out = w_smem + ST * SB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(out + 2 * OB);
+  uint64_t* empty = full + ST;
+  int* s_off = reinterpret_cast<int*>(empty + ST);
+  const int KT = (K + WG_KT - 1) / WG_KT, NT = (N + BN - 1) / BN;
+  const int slots = E * KT * NT;
+  const int rank = CL ? (int)cluster_rank() : 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s);
+      mbar_init(empty + s, CL ? 4 : 2);
     }
-    cp_async_commit();
-    const T* A = As[s % GSTAGES];
-    const T* B = Bs[s % GSTAGES];
-#pragma unroll
-    for (int kk = 0; kk < WGR / 16; ++kk) {
-      // A = x^T: matrix l / 8 of lane l is (K rows + 8 (l / 8 & 1), x
-      // rows + 8 (l / 16)); the x slab's rows are the reduction index
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm_x4_t(a[i], A + (kk * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) *
-                                WG_ALD +
-                            row_w + i * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        uint32_t b[4];
-        ldsm_x4_t(b, B + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                             WG_BLD +
-                         col_w + j * 8 + (lane >> 4) * 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_16816<T>(acc[i][j], a[i], b[0], b[1]);
-          mma_16816<T>(acc[i][j + 1], a[i], b[2], b[3]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const bool staged = E < W_OFFS;
+  if (staged)
+    for (int i = threadIdx.x; i <= E; i += blockDim.x) s_off[i] = off[i];
+  // both blocks' barriers initialised before either signals the other's
+  if constexpr (CL) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+  const int* offs = staged ? s_off : off;
+  const int wg = __shfl_sync(FULL, (int)threadIdx.x / 128, 0);
+
+  if (wg == 0) {
+    set_max_regs<40, false>();
+    if (threadIdx.x == 0) {
+      int g = 0;
+      for (int L = blockIdx.x - rank; L < slots; L += gridDim.x) {
+        const WgTile t0 = wg_tile<BN, CL>(offs, L, KT, NT, N, slots);
+        const WgTile t1 = wg_tile<BN, CL>(offs, CL ? L + 1 : slots, KT, NT, N,
+                                      slots);
+        const WgTile t = rank ? t1 : t0;
+        const bool pair = t1.e == t0.e && t1.n0 == t0.n0;
+        const int xboxes = t.k0 + 64 < K ? 2 : 1;
+        const int steps = max(t0.steps, t1.steps);
+        for (int k = 0; k < steps; ++k, ++g) {
+          const int s = g % ST, r = t.r0 + 64 * k;
+          unsigned char* st = w_smem + s * SB;
+          mbar_wait(empty + s, ((g / ST) & 1) ^ 1);
+          if (k >= t.steps) {          // idle: the stage's phase, no bytes
+            mbar_arrive(full + s);
+            continue;
+          }
+          mbar_expect(full + s, (xboxes + t.boxes) * WG_BOX);
+#pragma unroll 1
+          for (int j = 0; j < xboxes; ++j)
+            tma_box(st + j * WG_BOX, &tm_x, t.k0 + 64 * j, r, full + s);
+          if (pair) {
+#pragma unroll 1
+            for (int j = rank; j < t.boxes; j += 2)
+              tma_box_mc(st + (2 + j) * WG_BOX, &tm_dy, t.n0 + 64 * j, r,
+                         full + s, 3);
+          } else {
+#pragma unroll 1
+            for (int j = 0; j < t.boxes; ++j)
+              tma_box(st + (2 + j) * WG_BOX, &tm_dy, t.n0 + 64 * j, r,
+                      full + s);
+          }
         }
       }
     }
-  }
-  cp_async_wait<0>();
-
-  T* dwe = dw + (long long)e * K * N;
-  const int quad = lane >> 2, qi = lane & 3;
+    __syncwarp();
+  } else {
+    set_max_regs<232, true>();
+    const int cw = wg - 1, tid = threadIdx.x % 128, warp = tid / 32;
+    const int lane = tid % 32, quad = lane / 4, qi = lane % 4;
+    unsigned char* mine = out + cw * OB;
+    // stage s is free in this block: counted in both blocks' empty[s],
+    // by thread 0 of the warpgroup here and thread 32 there
+    const uint32_t peer_empty = CL ? peer_addr(empty, rank ^ 1) : 0u;
+    auto release = [&](int s) {
+      if (tid == 0) mbar_arrive(empty + s);
+      if (CL && tid == 32) mbar_arrive_remote(peer_empty + 8 * s);
+    };
+    float acc[BN / 2];
+    int g = 0;
+    for (int L = blockIdx.x - rank; L < slots; L += gridDim.x) {
+      const WgTile t0 = wg_tile<BN, CL>(offs, L, KT, NT, N, slots);
+      const WgTile t1 = wg_tile<BN, CL>(offs, CL ? L + 1 : slots, KT, NT, N,
+                                    slots);
+      const WgTile t = rank ? t1 : t0;
+      const int steps = max(t0.steps, t1.steps);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      int k = 0;
+      for (; k < t.steps; ++k, ++g) {
+        const int s = g % ST, r = t.r0 + 64 * k;
+        unsigned char* st = w_smem + s * SB;
+        mbar_wait(full + s, (g / ST) & 1);
+        if (r + 64 > t.r1) {
+          // rows live .. 63 of this step lie past the expert: zero them in
+          // this consumer's x box and in dy boxes cw, cw + 2, ... (this
+          // block's copies; a multicast box is zeroed in each block)
+          const int live = t.r1 - r, chunks = (64 - live) * 8;
+          const int nb = 1 + (t.boxes - cw + 1) / 2;
+          for (int i = tid; i < nb * chunks; i += 128) {
+            const int b = i / chunks;
+            const int box = b == 0 ? cw : 2 * b + cw;
+            *reinterpret_cast<uint4*>(st + box * WG_BOX + live * 128 +
+                                      (i % chunks) * 16) =
+                make_uint4(0u, 0u, 0u, 0u);
+          }
+          fence_async_smem();
+          bar_sync<256>(1);
+        }
+        fence_regs(acc);
+        wg_fence();
+        // A = x^T: its box's rows are the reduction (64 K columns a row),
+        // B = dy: the same; a k16 step is 16 rows (2048 bytes) of each
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int kr = k0 + row_w + i * 16 + quad + h * 8;
-      if (kr >= K) continue;
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<1, T, 1>(acc,
+                            wg_desc(st + cw * WG_BOX + kk * 2048, WG_BOX,
+                                    1024),
+                            wg_desc(st + 2 * WG_BOX + kk * 2048, WG_BOX,
+                                    1024),
+                            k > 0 || kk > 0,
+                            std::integral_constant<int, BN>());
+        wg_commit();
+        // the step before this one is done: its stage may be refilled
+        wg_wait<1>();
+        fence_regs(acc);
+        if (k > 0) release((g - 1) % ST);
+      }
+      if (k > 0) {
+        wg_wait<0>();
+        fence_regs(acc);
+        release((g - 1) % ST);
+      }
+      for (; k < steps; ++k, ++g) {      // idle: the other rank's steps
+        mbar_wait(full + g % ST, (g / ST) & 1);
+        release(g % ST);
+      }
+      if (t.e < 0) continue;
+      // the previous tile's store has read this consumer's output tile
+      if (tid == 0) bulk_wait<0, true>();
+      bar_sync<128>(2 + cw);
+      // accumulator (n, x): row 16 warp + lane / 4 (+8 for x >= 2),
+      // column 8 n + 2 (lane % 4) + (x & 1); box n / 8 of the tile
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = n0 + col_w + j * 8 + qi * 2;
-        if (c < N)
-          *reinterpret_cast<uint32_t*>(dwe + (long long)kr * N + c) =
-              pack2<T>(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(
+              mine + (n / 8) * WG_BOX +
+              swizzled(16 * warp + quad + 8 * h, (8 * n) % 64 + 2 * qi)) =
+              pack2<T>(acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]);
+      fence_async_smem();
+      bar_sync<128>(2 + cw);
+      if (tid == 0 && t.k0 + 64 * cw < K) {
+#pragma unroll 1
+        for (int j = 0; j < t.boxes; ++j)
+          tma_store3(&tm_dw, mine + j * WG_BOX, t.n0 + 64 * j,
+                     t.k0 + 64 * cw, t.e);
+        bulk_commit();
       }
     }
+    if (tid == 0) bulk_wait<0, false>();
+  }
+  // neither block leaves while the other may still arrive on its barriers
+  // or multicast into it
+  if constexpr (CL) {
+    cluster_arrive();
+    cluster_wait();
   }
 }
 
@@ -882,6 +938,212 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+template <typename T, int BM, int WM, int WN, bool TB = false>
+cudaError_t launch_mma(const void* x, const void* w, const int* off, void* y,
+                       int E, int K, int N, int tiles, cudaStream_t st) {
+  auto kern = grouped_mma_kernel<T, BM, WM, WN, TB>;
+  const size_t smem =
+      (size_t)GSTAGES * (BM * ALD + (TB ? GBN * BLDT : GBK * BLD)) *
+      sizeof(T);
+  cudaError_t err = smem_opt_in(kern, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(tiles, (N + GBN - 1) / GBN);
+  kern<<<grid, 32 * WM * WN, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), off,
+      static_cast<T*>(y), E, K, N);
+  return cudaGetLastError();
+}
+
+template <typename T, bool TB>
+cudaError_t dispatch_mma(int bm, const void* x, const void* w, const int* off,
+                         void* y, int E, int K, int N, int tiles,
+                         cudaStream_t st) {
+  switch (bm) {
+    case 16:
+      return launch_mma<T, 16, 1, 4, TB>(x, w, off, y, E, K, N, tiles, st);
+    case 32:
+      return launch_mma<T, 32, 2, 2, TB>(x, w, off, y, E, K, N, tiles, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int BM, bool TB = false>
+cudaError_t launch_f32(const void* x, const void* w, const int* off, void* y,
+                       int E, int K, int N, int tiles, cudaStream_t st) {
+  dim3 grid(tiles, (N + 63) / 64);
+  grouped_f32_kernel<BM, TB><<<grid, 256, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), off,
+      static_cast<float*>(y), E, K, N);
+  return cudaGetLastError();
+}
+
+template <typename T>
+CUtensorMapDataType tma_type() {
+  return std::is_same<T, f16>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// a 2-D map over a row-major [rows, cols] 16-bit matrix in boxes of
+// `box_rows` rows x 64 columns, 128-byte swizzled
+template <typename T>
+cudaError_t rows_map(CUtensorMap* tm, const void* p, int rows, int cols,
+                     int box_rows) {
+  const cuuint64_t d[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t s[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t b[2] = {64, (cuuint32_t)box_rows};
+  return encode_tensor_map(tm, tma_type<T>(), 2, p, d, s, b,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// a 3-D map over E row-major [rows, cols] 16-bit matrices in boxes of 64
+// x 64 x 1, 128-byte swizzled: a box never reaches another matrix
+template <typename T>
+cudaError_t stack_map(CUtensorMap* tm, const void* p, int E, int rows,
+                      int cols) {
+  const cuuint64_t d[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                           (cuuint64_t)E};
+  const cuuint64_t s[2] = {(cuuint64_t)cols * 2,
+                           (cuuint64_t)rows * cols * 2};
+  const cuuint32_t b[3] = {64, 64, 1};
+  return encode_tensor_map(tm, tma_type<T>(), 3, p, d, s, b,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// in clusters of two: an even grid of at most twice the clusters the
+// device holds at once. x [R, K] in boxes of 64 NC rows x 64; w [E, K, N]
+// (KB: [E, N, K]) in boxes of 64 x 64 x 1.
+template <typename T, int BN, int NC, bool KB>
+cudaError_t launch_wgmma(const void* x, const void* w, const int* off,
+                         void* y, int R, int E, int K, int N, int slots,
+                         int grid, cudaStream_t st) {
+  CUtensorMap tm_x, tm_w;
+  cudaError_t err = rows_map<T>(&tm_x, x, R, K, 64 * NC);
+  if (err != cudaSuccess) return err;
+  err = KB ? stack_map<T>(&tm_w, w, E, N, K) : stack_map<T>(&tm_w, w, E, K, N);
+  if (err != cudaSuccess) return err;
+  auto kern = grouped_wgmma_kernel<T, BN, NC, KB>;
+  constexpr size_t smem = w_smem_bytes<BN, NC>();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2);
+  cfg.blockDim = dim3(128 * (NC + 1));
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = resident_count(reinterpret_cast<const void*>(kern), 128 * (NC + 1),
+                       smem, &cfg, 2, &clusters);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  grid = min(grid + (grid & 1), 2 * clusters);
+  return cluster_launch(kern, dim3(grid), dim3(128 * (NC + 1)), smem, 2, st,
+                        tm_x, tm_w, off, static_cast<T*>(y), E, K, N, slots);
+}
+
+template <typename T, bool KB>
+cudaError_t dispatch_wgmma(int bm, int bn, const void* x, const void* w,
+                           const int* off, void* y, int R, int E, int K,
+                           int N, int slots, int grid, cudaStream_t st) {
+  if (bm == 128 && bn == 256)
+    return launch_wgmma<T, 256, 2, KB>(x, w, off, y, R, E, K, N, slots, grid,
+                                       st);
+  if (bm == 128 && bn == 128)
+    return launch_wgmma<T, 128, 2, KB>(x, w, off, y, R, E, K, N, slots, grid,
+                                       st);
+  if (bm == 64 && bn == 256)
+    return launch_wgmma<T, 256, 1, KB>(x, w, off, y, R, E, K, N, slots, grid,
+                                       st);
+  if (bm == 64 && bn == 128)
+    return launch_wgmma<T, 128, 1, KB>(x, w, off, y, R, E, K, N, slots, grid,
+                                       st);
+  return cudaErrorInvalidValue;
+}
+
+// the forward (TB false: w [E, K, N]) and the data gradient (TB true: w
+// [E, N, K], read in place as w^T) on the route of the plan
+template <bool TB>
+int grouped_launch(const void* x, const void* w, const void* offsets,
+                   void* y, int R, int E, int K, int N, int bm, int tiles,
+                   int route, int bn, int grid, int dtype, void* stream) {
+  if (tiles <= 0 || E <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* off = static_cast<const int*>(offsets);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (route == 1) {
+    const long long slots = (long long)tiles * ((N + bn - 1) / bn);
+    if (dtype == 0 || grid < 1 || slots > 0x7fffffff ||
+        grid > slots + (slots & 1))
+      return (int)cudaErrorInvalidValue;
+    if (dtype == 1)
+      err = dispatch_wgmma<bf16, TB>(bm, bn, x, w, off, y, R, E, K, N,
+                                     (int)slots, grid, st);
+    else if (dtype == 2)
+      err = dispatch_wgmma<f16, TB>(bm, bn, x, w, off, y, R, E, K, N,
+                                    (int)slots, grid, st);
+  } else if (route == 0 && dtype == 1) {
+    err = dispatch_mma<bf16, TB>(bm, x, w, off, y, E, K, N, tiles, st);
+  } else if (route == 0 && dtype == 2) {
+    err = dispatch_mma<f16, TB>(bm, x, w, off, y, E, K, N, tiles, st);
+  } else if (route == 2 && dtype == 0) {
+    switch (bm) {
+      case 16: err = launch_f32<16, TB>(x, w, off, y, E, K, N, tiles, st);
+        break;
+      case 32: err = launch_f32<32, TB>(x, w, off, y, E, K, N, tiles, st);
+        break;
+      case 64: err = launch_f32<64, TB>(x, w, off, y, E, K, N, tiles, st);
+        break;
+      case 128: err = launch_f32<128, TB>(x, w, off, y, E, K, N, tiles, st);
+        break;
+    }
+  }
+  return (int)err;
+}
+
+template <typename T, int BN, bool CL>
+cudaError_t launch_wgrad(const void* x, const void* dy, const int* off,
+                         void* dw, int R, int E, int K, int N, int grid,
+                         cudaStream_t st) {
+  CUtensorMap tm_x, tm_dy, tm_dw;
+  cudaError_t err = rows_map<T>(&tm_x, x, R, K, 64);
+  if (err == cudaSuccess) err = rows_map<T>(&tm_dy, dy, R, N, 64);
+  if (err == cudaSuccess) err = stack_map<T>(&tm_dw, dw, E, K, N);
+  if (err != cudaSuccess) return err;
+  auto kern = grouped_wgrad_wgmma_kernel<T, BN, CL>;
+  constexpr size_t smem = wg_smem_bytes<BN>();
+  if constexpr (!CL) {
+    int resident = 0;
+    err = blocks_per_sm(reinterpret_cast<const void*>(kern), 384, smem,
+                        &resident);
+    if (err != cudaSuccess) return err;
+    if (resident < 1) return cudaErrorInvalidConfiguration;
+    kern<<<grid, 384, smem, st>>>(tm_x, tm_dy, tm_dw, off, E, K, N);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2);
+  cfg.blockDim = dim3(384);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = resident_count(reinterpret_cast<const void*>(kern), 384, smem, &cfg,
+                       2, &clusters);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  grid = min(grid + (grid & 1), 2 * clusters);
+  return cluster_launch(kern, dim3(grid), dim3(384), smem, 2, st, tm_x,
+                        tm_dy, tm_dw, off, E, K, N);
+}
+
 }  // namespace
 
 // dtype code: 0 fp32, 1 bf16, 2 fp16. The plan (grouped_plan): bm, the
@@ -893,93 +1155,68 @@ extern "C" int grouped_gemm_launch(const void* x, const void* w,
                                    const void* offsets, void* y, int R, int E,
                                    int K, int N, int bm, int tiles, int route,
                                    int bn, int grid, int dtype, void* stream) {
-  if (tiles <= 0 || E <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* off = static_cast<const int*>(offsets);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (route == 1) {
-    const long long slots = (long long)tiles * ((N + bn - 1) / bn);
-    if (dtype == 0 || grid < 1 || slots > 0x7fffffff ||
-        grid > slots + (slots & 1))
-      return (int)cudaErrorInvalidValue;
-    if (dtype == 1)
-      err = dispatch_wgmma<bf16>(bm, bn, x, w, off, y, R, E, K, N,
-                                 (int)slots, grid, st);
-    else if (dtype == 2)
-      err = dispatch_wgmma<f16>(bm, bn, x, w, off, y, R, E, K, N,
-                                (int)slots, grid, st);
-  } else if (route == 0 && dtype == 1) {
-    err = dispatch_mma<bf16>(bm, x, w, off, y, E, K, N, tiles, st);
-  } else if (route == 0 && dtype == 2) {
-    err = dispatch_mma<f16>(bm, x, w, off, y, E, K, N, tiles, st);
-  } else if (route == 2 && dtype == 0) {
-    switch (bm) {
-      case 16: err = launch_f32<16>(x, w, off, y, E, K, N, tiles, st); break;
-      case 32: err = launch_f32<32>(x, w, off, y, E, K, N, tiles, st); break;
-      case 64: err = launch_f32<64>(x, w, off, y, E, K, N, tiles, st); break;
-      case 128: err = launch_f32<128>(x, w, off, y, E, K, N, tiles, st); break;
-    }
-  }
-  return (int)err;
+  return grouped_launch<false>(x, w, offsets, y, R, E, K, N, bm, tiles, route,
+                               bn, grid, dtype, stream);
+}
+
+// dx [R, N] = per-expert dy_e @ w_e^T: dy [R, K] sorted by expert, w
+// [E, N, K] (the forward's weight, whose rows are the output columns
+// here), offsets as the forward's; the plan is grouped_plan's for R rows
+// over E experts into N columns, as the forward's.
+extern "C" int grouped_dgrad_launch(const void* dy, const void* w,
+                                    const void* offsets, void* dx, int R,
+                                    int E, int K, int N, int bm, int tiles,
+                                    int route, int bn, int grid, int dtype,
+                                    void* stream) {
+  return grouped_launch<true>(dy, w, offsets, dx, R, E, K, N, bm, tiles,
+                              route, bn, grid, dtype, stream);
 }
 
 // dw [E, K, N] = per-expert x_e^T @ dy_e; x [R, K], dy [R, N] sorted by
-// expert, offsets [E + 1] int32 on the device; dtype code as above.
+// expert, offsets [E + 1] int32 on the device; dtype code as above. 16-bit
+// (R > 0): the plan (grouped_gemm.wgrad_plan): bn the column tile (256 or
+// 128), cl 1 for clusters of two sharing dy boxes (grid even, at most the
+// tiles rounded up to even, lowered to twice the clusters the device
+// holds at once) or 0 for blocks alone (grid at most the tiles), grid the
+// persistent blocks; fp32: the CUDA-core kernel, the plan unread.
+template <typename T>
+cudaError_t dispatch_wgrad(int bn, int cl, const void* x, const void* dy,
+                           const int* off, void* dw, int R, int E, int K,
+                           int N, int grid, cudaStream_t st) {
+  if (bn == 256 && cl)
+    return launch_wgrad<T, 256, true>(x, dy, off, dw, R, E, K, N, grid, st);
+  if (bn == 256)
+    return launch_wgrad<T, 256, false>(x, dy, off, dw, R, E, K, N, grid, st);
+  if (bn == 128 && cl)
+    return launch_wgrad<T, 128, true>(x, dy, off, dw, R, E, K, N, grid, st);
+  if (bn == 128)
+    return launch_wgrad<T, 128, false>(x, dy, off, dw, R, E, K, N, grid, st);
+  return cudaErrorInvalidValue;
+}
+
 extern "C" int grouped_wgrad_launch(const void* x, const void* dy,
                                     const void* offsets, void* dw, int R,
-                                    int E, int K, int N, int dtype,
-                                    void* stream) {
+                                    int E, int K, int N, int bn, int cl,
+                                    int grid, int dtype, void* stream) {
   if (E <= 0 || E > 65535 || K <= 0 || N <= 0 || R < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(offsets);
   if (dtype == 0) {
-    dim3 grid((N + 63) / 64, (K + 63) / 64, E);
-    grouped_wgrad_f32_kernel<<<grid, 256, 0, st>>>(
+    dim3 g((N + 63) / 64, (K + 63) / 64, E);
+    grouped_wgrad_f32_kernel<<<g, 256, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(dy), off,
         static_cast<float*>(dw), K, N);
-  } else if (dtype == 1 || dtype == 2) {
-    if (K % 8 || N % 8) return (int)cudaErrorInvalidValue;
-    dim3 grid((N + WGN - 1) / WGN, (K + WGK - 1) / WGK, E);
-    if (dtype == 1)
-      grouped_wgrad_kernel<bf16><<<grid, 256, 0, st>>>(
-          static_cast<const bf16*>(x), static_cast<const bf16*>(dy), off,
-          static_cast<bf16*>(dw), K, N);
-    else
-      grouped_wgrad_kernel<f16><<<grid, 256, 0, st>>>(
-          static_cast<const f16*>(x), static_cast<const f16*>(dy), off,
-          static_cast<f16*>(dw), K, N);
-  } else {
+    return (int)cudaGetLastError();
+  }
+  const long long slots = (long long)E * ((K + WG_KT - 1) / WG_KT) *
+                          ((N + bn - 1) / bn);
+  if ((dtype != 1 && dtype != 2) || R < 1 || K % 8 || N % 8 || grid < 1 ||
+      grid > slots + (cl ? slots & 1 : 0) || slots > 0x7fffffff ||
+      (cl && grid % 2))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// dx [R, N] = per-expert dy_e @ w_e^T: dy [R, K] sorted by expert, w
-// [E, N, K] (the forward's weight, whose rows are the output columns
-// here), offsets as the forward's; bm the row tile (16, 32 or 64;
-// grouped_gemm.dgrad_plan), tiles its row-tile slots.
-extern "C" int grouped_dgrad_launch(const void* dy, const void* w,
-                                    const void* offsets, void* dx, int R,
-                                    int E, int K, int N, int bm, int tiles,
-                                    int dtype, void* stream) {
-  if (tiles <= 0 || E <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* off = static_cast<const int*>(offsets);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1)
-    err = dispatch_dgrad<bf16>(bm, dy, w, off, dx, E, K, N, tiles, st);
-  else if (dtype == 2)
-    err = dispatch_dgrad<f16>(bm, dy, w, off, dx, E, K, N, tiles, st);
-  else if (dtype == 0) {
-    switch (bm) {
-      case 16: err = launch_f32<16, true>(dy, w, off, dx, E, K, N, tiles, st);
-        break;
-      case 32: err = launch_f32<32, true>(dy, w, off, dx, E, K, N, tiles, st);
-        break;
-      case 64: err = launch_f32<64, true>(dy, w, off, dx, E, K, N, tiles, st);
-        break;
-    }
-  }
-  return (int)err;
+  return (int)(dtype == 1 ? dispatch_wgrad<bf16>(bn, cl, x, dy, off, dw, R,
+                                                 E, K, N, grid, st)
+                          : dispatch_wgrad<f16>(bn, cl, x, dy, off, dw, R, E,
+                                                K, N, grid, st));
 }

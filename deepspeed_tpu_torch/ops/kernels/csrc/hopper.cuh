@@ -11,8 +11,7 @@
 //                    wgmma batches (ptxas C7515)
 //   wgmma_ss         one m64nNk16 wgmma, A and B from shared memory, bf16
 //                    or fp16 at N = 64, 128 and 256 (A K-major, or
-//                    MN-major when TA = 1 at N = 64 and 128), fp32
-//                    accumulators
+//                    MN-major when TA = 1), fp32 accumulators
 //   wgmma_rs         the same with A from registers, N = 64 or 128
 //   ex2              2^x on the MUFU
 //   set_max_regs     setmaxnreg: a warpgroup gives up (producer) or takes
@@ -29,12 +28,17 @@
 //   tma_box / tma_box3 / tma_box4
 //                    one 2-D, 3-D or 4-D TMA box (cp.async.bulk.tensor)
 //                    into shared memory, completing on an mbarrier
-//   tma_box3_mc      a 3-D box multicast to the same offset of every CTA
-//                    of a cluster mask, completing on each one's mbarrier
+//   tma_box_mc / tma_box3_mc
+//                    a 2-D or 3-D box multicast to the same offset of
+//                    every CTA of a cluster mask, completing on each
+//                    one's mbarrier
 //   cluster_rank / peer_addr / mbar_arrive_remote
 //                    this CTA's rank in its cluster; a shared address as
 //                    the same offset of another CTA of the cluster (mapa);
 //                    an arrival on an mbarrier at such an address
+//   tma_store3       one 3-D TMA box from shared memory into global
+//                    (elements past the map's end are not written), in
+//                    this thread's current bulk group
 //   bulk_load / bulk_reduce_add / bulk_commit / bulk_wait
 //                    contiguous bulk copies: global to shared on an
 //                    mbarrier; shared fp32 added into global
@@ -210,6 +214,18 @@ __device__ __forceinline__ void tma_box3(void* dst, const CUtensorMap* tm,
       "r"(smem_addr(bar))
       : "memory");
 }
+// a 2-D box multicast as tma_box3_mc below
+__device__ __forceinline__ void tma_box_mc(void* dst, const CUtensorMap* tm,
+                                           int col, int row, uint64_t* bar,
+                                           uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(col), "r"(row),
+      "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
+}
 // the same, multicast: the box lands at `dst`'s offset in each CTA of
 // the cluster whose bit is set in `mask`, each completing on its own
 // mbarrier at `bar`'s offset
@@ -336,7 +352,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
   }
 }
 
-template <int TB, typename T = __nv_bfloat16>
+template <int TB, typename T = __nv_bfloat16, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b,
                                          int scale_d,
                                          std::integral_constant<int, 256>) {
@@ -353,7 +369,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n" \
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n" \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
@@ -376,7 +392,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), \
         "+f"(d[126]), "+f"(d[127]) \
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB))
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB))
   if constexpr (std::is_same<T, __half>::value)
     PORT_WGMMA_SS256("f16");
   else
@@ -487,6 +503,17 @@ __device__ __forceinline__ void tma_box4(void* dst, const CUtensorMap* tm,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(tm)), "r"(x), "r"(y), "r"(z), "r"(w),
       "r"(smem_addr(bar))
+      : "memory");
+}
+// one 3-D box of `src` (shared, laid out as the map's box) into the map
+// at (x, y, z); the part past the map's end is not written
+__device__ __forceinline__ void tma_store3(const CUtensorMap* tm,
+                                           const void* src, int x, int y,
+                                           int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(tm)),
+      "r"(smem_addr(src)), "r"(x), "r"(y), "r"(z)
       : "memory");
 }
 // `bytes` (a 16-byte multiple) from global `src` into shared `dst` by the

@@ -21,22 +21,29 @@ the tensor cores with fp32 sums, fp32 on the CUDA cores; another dtype
 raises) and runs :func:`ragged_dot_plain`, a per-expert loop of
 ``x[o_e:o_{e+1}] @ w[e]``, for CPU tensors. It is differentiable (the
 JAX package takes ``jax.lax.ragged_dot``'s VJP): the data gradient ``dx =
-dy @ w_e^T`` is the mma.sync kernel reading ``w`` in place as its
-transpose (:func:`ragged_dot_dgrad`, row tiles from :func:`dgrad_plan`),
-the weight gradient ``dw_e = x_e^T @ dy_e`` is ``grouped_wgrad_kernel``
-(:func:`ragged_dot_wgrad`; plain twin :func:`ragged_dot_wgrad_plain`),
-one block an (expert, 64-row, 128-column) tile of ``dw``, zeros for an
-expert without rows. The offsets carry no gradient. Only a launch counts
-in :data:`LAUNCHES`: every forward launch under ``grouped_gemm``, the
-wgmma route's also under ``grouped_wgmma``, each data-gradient launch
-under ``grouped_dgrad`` and each weight-gradient launch under
-``grouped_wgrad``.
+dy @ w_e^T`` (:func:`ragged_dot_dgrad`) is the forward's kernels reading
+``w`` in place as its transpose, on the route :func:`grouped_plan` gives
+for its shapes (at prefill the persistent wgmma kernel with a K-major B);
+the weight gradient ``dw_e = x_e^T @ dy_e`` (:func:`ragged_dot_wgrad`;
+plain twin :func:`ragged_dot_wgrad_plain`) is a persistent wgmma + TMA
+kernel over (expert, 128 rows of K, 256 or 128 columns of N) tiles,
+walked expert by expert (:func:`wgrad_plan`; where the experts have
+many rows, by blocks in clusters of two that share their dy boxes),
+whose consumers zero the rows past an expert's end before they are
+summed and whose tiles leave by TMA stores; zeros for an expert without
+rows. The offsets carry no
+gradient. Only a launch counts in :data:`LAUNCHES`: every forward launch
+under ``grouped_gemm``, the wgmma route's also under ``grouped_wgmma``;
+each data-gradient launch under ``grouped_dgrad``, the wgmma route's also
+under ``grouped_dgrad_wgmma``; each weight-gradient launch under
+``grouped_wgrad``, the 16-bit (wgmma) kernel's also under
+``grouped_wgrad_wgmma``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -44,7 +51,8 @@ from ...utils.device import sm_count
 
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"grouped_gemm": 0, "grouped_wgmma": 0,
-                             "grouped_dgrad": 0, "grouped_wgrad": 0}
+                             "grouped_dgrad": 0, "grouped_dgrad_wgmma": 0,
+                             "grouped_wgrad": 0, "grouped_wgrad_wgmma": 0}
 
 #: the kernel's row-tile heights
 ROW_TILES = (16, 32, 64, 128)
@@ -53,6 +61,11 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ROUTE_CODES = {"mma": 0, "wgmma": 1, "f32": 2}
 #: the wgmma route's column tiles, widest first
 WGMMA_COL_TILES = (256, 128)
+#: rows of dW (K) a tile of the weight gradient's wgmma kernel
+WGRAD_K_TILE = 128
+#: mean rows an expert from which the weight gradient's blocks run in
+#: clusters of two sharing their dy boxes
+WGRAD_CLUSTER_ROWS = 256
 
 
 def reset_launch_counts() -> None:
@@ -107,15 +120,44 @@ def grouped_plan(R: int, E: int, N: int = 128,
     return GroupedPlan(bm, tiles, route, bn, col_tiles, grid)
 
 
-def dgrad_plan(R: int, E: int) -> Tuple[int, int]:
-    """(row tile, row-tile slots) of the data gradient's launch: the
-    smallest of 16, 32 and 64 rows that holds the mean rows an expert,
-    else 64, and the slots bounding the experts' tiles as
-    :func:`grouped_plan` bounds them."""
-    if R < 1 or E < 1:
-        raise ValueError(f"dgrad_plan({R}, {E})")
-    bm = next((t for t in (16, 32, 64) if R / E <= t), 64)
-    return bm, (R + min(E, R) * (bm - 1)) // bm
+class WgradPlan(NamedTuple):
+    route: str                     # "wgmma" (16-bit) or "f32"
+    bn: int                        # columns of dW a tile
+    cluster: bool                  # blocks in clusters of two (wgmma)
+    k_tiles: int                   # ceil(K / 128) (wgmma), ceil(K / 64)
+    col_tiles: int                 # ceil(N / bn)
+    grid: int                      # blocks of the launch
+
+
+@functools.lru_cache(maxsize=1024)
+def wgrad_plan(R: int, E: int, K: int, N: int,
+               dtype: torch.dtype = torch.bfloat16,
+               sms: int = 132) -> WgradPlan:
+    """The weight gradient's launch plan, from shapes and dtype alone.
+    16-bit: the wgmma kernel, tiles of 128 rows of K by a column tile of
+    256 or 128 chosen as the forward's (the fewer bytes of x and dy a
+    64-row step over all column tiles, ceil(N / bn) (128 + bn); 256 on a
+    tie), E x k_tiles x col_tiles tiles walked expert by expert by a
+    persistent grid of at most ``sms`` blocks. Where the mean rows an
+    expert (R / E) reach :data:`WGRAD_CLUSTER_ROWS` the blocks run in
+    clusters of two (an even count, at most the tiles rounded up to even)
+    over the tiles column tile by column tile, K tile fastest: the pair
+    takes two neighbouring tiles and shares their dy boxes where both are
+    K tiles of one column tile. Below it each block walks alone, K tile by
+    K tile, column tile fastest. fp32: the CUDA-core kernel, a block a 64
+    x 64 tile."""
+    if R < 0 or E < 1 or K < 1 or N < 1:
+        raise ValueError(f"wgrad_plan({R}, {E}, {K}, {N})")
+    if dtype == torch.float32:
+        kt, nt = -(-K // 64), -(-N // 64)
+        return WgradPlan("f32", 64, False, kt, nt, E * kt * nt)
+    bn = min(WGMMA_COL_TILES, key=lambda b: -(-N // b) * (WGRAD_K_TILE + b))
+    kt, nt = -(-K // WGRAD_K_TILE), -(-N // bn)
+    slots = E * kt * nt
+    if R >= WGRAD_CLUSTER_ROWS * E:
+        return WgradPlan("wgmma", bn, True, kt, nt,
+                         min(sms - sms % 2, slots + slots % 2))
+    return WgradPlan("wgmma", bn, False, kt, nt, min(sms, slots))
 
 
 def ragged_dot_plain(x: torch.Tensor, w: torch.Tensor,
@@ -223,21 +265,29 @@ def _lib():
 def ragged_dot_wgrad(x: torch.Tensor, dy: torch.Tensor,
                      group_offsets: torch.Tensor) -> torch.Tensor:
     """``dw[e] = x[o_e:o_{e+1}]^T @ dy[o_e:o_{e+1}]`` for each expert e:
-    [E, K, N] in x's dtype (``grouped_wgrad_kernel`` on a card, the plain
-    version on the CPU); no offset is read on the host."""
+    [E, K, N] in x's dtype (on a card the kernel of :func:`wgrad_plan`,
+    on the CPU the plain version); no offset is read on the host. No rows
+    at all (R = 0) give zeros without a launch."""
     _check_wgrad(x, dy, group_offsets)
     if not x.is_cuda:
         return ragged_dot_wgrad_plain(x, dy, group_offsets)
     E = group_offsets.shape[0] - 1
-    K, N = x.shape[1], dy.shape[1]
+    R, K, N = x.shape[0], x.shape[1], dy.shape[1]
+    if R == 0:
+        return torch.zeros((E, K, N), dtype=x.dtype, device=x.device)
     dw = torch.empty((E, K, N), dtype=x.dtype, device=x.device)
+    plan = wgrad_plan(R, E, K, N, x.dtype, sm_count(x.device))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().grouped_wgrad_launch(
         x.data_ptr(), dy.data_ptr(), group_offsets.data_ptr(), dw.data_ptr(),
-        x.shape[0], E, K, N, DTYPE_CODES[x.dtype], stream)
+        R, E, K, N, plan.bn, int(plan.cluster), plan.grid,
+        DTYPE_CODES[x.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"grouped_wgrad failed: cudaError {err}")
+        raise RuntimeError(f"grouped_wgrad ({plan.route}) failed: cudaError "
+                           f"{err}")
     LAUNCHES["grouped_wgrad"] += 1
+    if plan.route == "wgmma":
+        LAUNCHES["grouped_wgrad_wgmma"] += 1
     return dw
 
 
@@ -245,7 +295,8 @@ def ragged_dot_dgrad(dy: torch.Tensor, w: torch.Tensor,
                      group_offsets: torch.Tensor) -> torch.Tensor:
     """``dx[o_e:o_{e+1}] = dy[o_e:o_{e+1}] @ w[e]^T``: dy [R, N], w [E, K,
     N] -> [R, K] in dy's dtype; on a card one launch reading ``w`` in
-    place (no transposed copy), on the CPU the plain version."""
+    place (no transposed copy) on the route :func:`grouped_plan` gives R
+    rows over E experts into K columns, on the CPU the plain version."""
     if not dy.is_cuda:
         return ragged_dot_plain(dy, w.transpose(1, 2).contiguous(),
                                 group_offsets)
@@ -268,14 +319,18 @@ def ragged_dot_dgrad(dy: torch.Tensor, w: torch.Tensor,
     dx = torch.empty((R, K), dtype=dy.dtype, device=dy.device)
     if R == 0:
         return dx
-    bm, tiles = dgrad_plan(R, E)
+    plan = grouped_plan(R, E, K, dy.dtype, sm_count(dy.device))
     stream = torch.cuda.current_stream(dy.device).cuda_stream
     err = _lib().grouped_dgrad_launch(
         dy.data_ptr(), w.data_ptr(), group_offsets.data_ptr(), dx.data_ptr(),
-        R, E, N, K, bm, tiles, DTYPE_CODES[dy.dtype], stream)
+        R, E, N, K, plan.bm, plan.tiles, ROUTE_CODES[plan.route], plan.bn,
+        plan.grid, DTYPE_CODES[dy.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"grouped_dgrad failed: cudaError {err}")
+        raise RuntimeError(f"grouped_dgrad ({plan.route}) failed: cudaError "
+                           f"{err}")
     LAUNCHES["grouped_dgrad"] += 1
+    if plan.route == "wgmma":
+        LAUNCHES["grouped_dgrad_wgmma"] += 1
     return dx
 
 

@@ -2307,7 +2307,11 @@ def test_fleet_disagg_handoff_and_counters_on_card(kv):
 
 
 #: B18's cases: rows an expert with empty experts and groups that are no
-#: multiple of the wgrad kernel's 32-row stage or the forward's row tiles
+#: multiple of the wgrad kernel's 64-row step or the forward's row tiles;
+#: dX on mma.sync (16- and 32-row tiles: "ragged_empty", "one_row",
+#: "all_empty_but_tail") and on wgmma (64-row tiles: "rows_64"; 128:
+#: "prefill_60", "prefill_8", "clusters"); dW in clusters of two sharing
+#: dy boxes at "clusters" (257 rows an expert), else alone
 B18_SIZES = {
     "ragged_empty": (0, 37, 0, 0, 129, 5, 0, 64),
     "one_row": (1, 0, 0, 0),
@@ -2315,6 +2319,9 @@ B18_SIZES = {
                         np.random.default_rng(9).integers(0, 300, 60)) +
     (0,),
     "all_empty_but_tail": (0, 0, 0, 33),
+    "rows_64": (0, 40, 64, 0, 90, 1, 63, 70, 0),
+    "prefill_8": (0, 517, 130, 64, 0, 333, 201, 1),
+    "clusters": (0, 600, 257, 0, 611, 333, 1),
 }
 
 
@@ -2325,13 +2332,15 @@ B18_SIZES = {
                                  (1408, 256)])
 @pytest.mark.parametrize("case", sorted(B18_SIZES))
 def test_grouped_gemm_backward_matches_plain_on_card(case, K, N, dtype):
-    """B18: ``ragged_dot``'s data gradient (mma.sync over the weights read
-    in place as their transpose) and weight gradient (``grouped_wgrad_kernel``)
-    against fp32 references of the same inputs, through autograd, with
-    empty experts (their dW exactly zero) and ragged groups, K and N not
-    multiples of the tiles; bit-identical between calls; one launch each
-    a call. Limits as the forward's (2**-7 / 2**-10 / 1e-5 of the largest
-    magnitude)."""
+    """B18: ``ragged_dot``'s data gradient (the forward's kernels over the
+    weights read in place as their transpose, on the route of
+    ``grouped_plan``) and weight gradient (``grouped_wgrad_wgmma_kernel``
+    in 16-bit) against fp32 references of the same inputs, through
+    autograd, with empty experts (their dW exactly zero) and ragged
+    groups, K and N not multiples of the tiles; bit-identical between
+    calls; one launch each a call, the wgmma routes counted under their
+    own keys. Limits as the forward's (2**-7 / 2**-10 / 1e-5 of the
+    largest magnitude)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
@@ -2352,6 +2361,16 @@ def test_grouped_gemm_backward_matches_plain_on_card(case, K, N, dtype):
     assert gg.LAUNCHES["grouped_dgrad"] == 1
     assert gg.LAUNCHES["grouped_wgrad"] == 1
     assert gg.LAUNCHES["grouped_gemm"] == 1
+    from deepspeed_tpu_torch.utils.device import sm_count
+    plan = gg.grouped_plan(R, E, K, dtype, sm_count(x.device))
+    assert gg.LAUNCHES["grouped_dgrad_wgmma"] == (plan.route == "wgmma")
+    assert gg.LAUNCHES["grouped_wgrad_wgmma"] == (dtype != torch.float32)
+    if case in ("rows_64", "prefill_60", "prefill_8", "clusters"):
+        assert (plan.route, plan.bm) == (
+            "wgmma" if dtype != torch.float32 else "f32",
+            64 if case == "rows_64" else 128)
+    wplan = gg.wgrad_plan(R, E, K, N, dtype, sm_count(x.device))
+    assert wplan.cluster == (case == "clusters" and dtype != torch.float32)
     ref_dx = gg.ragged_dot_plain(dy.float(), w.float().transpose(
         1, 2).contiguous(), off)
     ref_dw = gg.ragged_dot_wgrad_plain(x.float(), dy.float(), off)
@@ -2366,6 +2385,55 @@ def test_grouped_gemm_backward_matches_plain_on_card(case, K, N, dtype):
                        gg.ragged_dot_wgrad(x, dy, off))
     assert torch.equal(gg.ragged_dot_dgrad(dy, w, off),
                        gg.ragged_dot_dgrad(dy, w, off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("K,N", [(256, 1408), (1408, 512), (72, 136)])
+@pytest.mark.parametrize("sizes", [(3, 70, 0, 129, 5, 200, 1),
+                                   (300, 0, 517, 261, 1, 460)])
+def test_grouped_backward_ignores_the_next_expert_on_card(sizes, K, N,
+                                                          dtype):
+    """The rows past an expert's end, which the weight gradient's last
+    step of that expert loads, are zeroed before they are summed: with
+    the next expert's rows of x and dy made huge (the largest finite
+    value, products past the format's range), every other expert's dW and
+    dX rows are bit for bit what they were. The second split (256 rows
+    an expert) runs dW in clusters of two, whose multicast dy boxes each
+    block zeroes in its own copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+    R, E = sum(sizes), len(sizes)
+    assert gg.wgrad_plan(R, E, K, N, dtype).cluster == (R >= 256 * E)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(K + N)
+    x = torch.randn(R, K, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(E, K, N, generator=g, device="cuda")
+         * K ** -0.5).to(dtype)
+    dy = torch.randn(R, N, generator=g, device="cuda").to(dtype)
+    o = np.concatenate([[0], np.cumsum(sizes)])
+    off = torch.tensor(o, dtype=torch.int32, device="cuda")
+    gg.reset_launch_counts()
+    dw0, dx0 = gg.ragged_dot_wgrad(x, dy, off), gg.ragged_dot_dgrad(dy, w,
+                                                                   off)
+    big = torch.finfo(dtype).max
+    for e in range(E):
+        lo, hi = int(o[e]), int(o[e + 1])
+        if hi == lo:
+            continue
+        xb, dyb = x.clone(), dy.clone()
+        xb[lo:hi], dyb[lo:hi] = big, big
+        dw, dx = gg.ragged_dot_wgrad(xb, dyb, off), gg.ragged_dot_dgrad(
+            dyb, w, off)
+        torch.cuda.synchronize()
+        for f in range(E):
+            if f != e:
+                assert torch.equal(dw[f], dw0[f]), (e, f)
+        keep = torch.ones(R, dtype=torch.bool, device="cuda")
+        keep[lo:hi] = False
+        assert torch.equal(dx[keep], dx0[keep]), e
+    assert gg.LAUNCHES["grouped_wgrad_wgmma"] == gg.LAUNCHES["grouped_wgrad"]
 
 
 @pytest.mark.cuda

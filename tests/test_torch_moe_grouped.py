@@ -394,3 +394,297 @@ def test_wgmma_pairs_share_weights_at_the_served_prefill(tokens, k, E, N,
     plan = gg.grouped_plan(tokens * k, E, N, torch.bfloat16, 132)
     _, shared, steps = _wgmma_walk(o.tolist(), plan)
     assert shared / steps >= share, (shared, steps)
+
+
+# ------------------------------------------------------------- backward
+
+
+def _jax_vjp(x, w, sizes, dy):
+    """(dx, dw) of ``jax.lax.ragged_dot`` by ``jax.vjp``."""
+    gs = jnp.asarray(np.asarray(sizes, np.int32))
+    _, vjp = jax.vjp(lambda a, b: jax.lax.ragged_dot(a, b, gs),
+                     jnp.asarray(x), jnp.asarray(w))
+    dx, dw = vjp(jnp.asarray(dy))
+    return np.asarray(dx), np.asarray(dw)
+
+
+def _wgrad_tile(L, plan):
+    """Tile L's (e, k0, n0): expert L // (k_tiles x col_tiles), then in
+    clusters column tile and K tile (fastest), alone K tile and column
+    tile (fastest)."""
+    per, KT, NT = plan.k_tiles * plan.col_tiles, plan.k_tiles, \
+        plan.col_tiles
+    rem = L % per
+    kt, nt = (rem % KT, rem // KT) if plan.cluster else (rem // NT, rem % NT)
+    return L // per, kt * gg.WGRAD_K_TILE, nt * plan.bn
+
+
+def _wgrad_walk(E, plan):
+    """Each block's tiles in the weight gradient's persistent order: alone,
+    block b takes L = b, b + grid, ...; in clusters of two, the pair (2q,
+    2q + 1) takes tiles L, L + 1 for L = 2q, 2q + grid, ... (rank 1 idles
+    where L + 1 is past the last tile). Returns ({block: [(L, e, k0,
+    n0)]}, pair steps whose two tiles share their dy boxes, pair steps in
+    all)."""
+    slots = E * plan.k_tiles * plan.col_tiles
+    if not plan.cluster:
+        return {b: [(L, *_wgrad_tile(L, plan))
+                    for L in range(b, slots, plan.grid)]
+                for b in range(plan.grid)}, 0, 0
+    walk, shared, steps = {}, 0, 0
+    for b in range(0, plan.grid, 2):
+        walk[b], walk[b + 1] = [], []
+        for L in range(b, slots, plan.grid):
+            t0 = _wgrad_tile(L, plan)
+            walk[b].append((L, *t0))
+            steps += 1
+            if L + 1 < slots:
+                t1 = _wgrad_tile(L + 1, plan)
+                walk[b + 1].append((L + 1, *t1))
+                shared += t1[0] == t0[0] and t1[2] == t0[2]
+    return walk, shared, steps
+
+
+def _emulate_wgrad(x, dy, off, plan):
+    """The weight gradient's kernel in plain PyTorch: each tile's 64-row
+    steps over its expert's rows as its TMA boxes (two 64 x 64 boxes of x
+    at K columns k0 and k0 + 64, the second not loaded past K; BN / 64
+    boxes of dy, those wholly past N not loaded; rows past R zeros, rows
+    past the expert's end the next expert's rows), the boxes not loaded
+    holding NaN (stale shared memory), the rows past the expert's end
+    zeroed in every box before the step's product, fp32 sums in row order,
+    rows past K and columns past N of the tile not stored. Returns (dw,
+    writes per element, the walk)."""
+    R, K = x.shape
+    N = dy.shape[1]
+    E = off.shape[0] - 1
+    o = off.tolist()
+    walk, _, _ = _wgrad_walk(E, plan)
+    pad = lambda t: torch.cat([t, torch.zeros(64, t.shape[1])])  # noqa
+    xp, dyp = pad(x), pad(dy)
+    dw = torch.full((E, K, N), float("nan"))
+    written = torch.zeros(E, K, N, dtype=torch.int64)
+    for tiles in walk.values():
+        for L, e, k0, n0 in tiles:
+            boxes = sum(n0 + 64 * j < N for j in range(plan.bn // 64))
+            acc = torch.zeros(gg.WGRAD_K_TILE, plan.bn)
+            for r in range(o[e], o[e + 1], 64):
+                a = torch.full((64, gg.WGRAD_K_TILE), float("nan"))
+                b = torch.full((64, plan.bn), float("nan"))
+                for j in range(2 if k0 + 64 < K else 1):
+                    c0, c1 = k0 + 64 * j, min(k0 + 64 * j + 64, K)
+                    a[:, 64 * j:64 * j + 64] = 0.0
+                    a[:, 64 * j:64 * j + c1 - c0] = xp[r:r + 64, c0:c1]
+                for j in range(boxes):
+                    c0, c1 = n0 + 64 * j, min(n0 + 64 * j + 64, N)
+                    b[:, 64 * j:64 * j + 64] = 0.0
+                    b[:, 64 * j:64 * j + c1 - c0] = dyp[r:r + 64, c0:c1]
+                live = min(64, o[e + 1] - r)
+                a[live:] = 0.0
+                b[live:] = 0.0
+                acc += a.t() @ b
+            for h in range(2):                    # the two consumers
+                rows = min(K - k0 - 64 * h, 64)
+                if rows <= 0:
+                    continue
+                for j in range(boxes):
+                    cols = min(N - n0 - 64 * j, 64)
+                    sl = (e, slice(k0 + 64 * h, k0 + 64 * h + rows),
+                          slice(n0 + 64 * j, n0 + 64 * j + cols))
+                    dw[sl] = acc[64 * h:64 * h + rows, 64 * j:64 * j + cols]
+                    written[sl] += 1
+    return dw, written, walk
+
+
+#: groups for the backward's walks: empty first and last experts, a
+#: 1-row group, a group of exactly 64 rows, groups that are no multiple
+#: of the 64-row step
+WGRAD_SIZES = [
+    (0, 1, 64, 0, 130, 7, 0),
+    (0, 200, 0, 0, 65, 0),
+    (64, 64, 1, 63, 0, 129),
+    (0, 600, 257, 0, 511),          # 274 rows an expert: clusters of two
+]
+
+
+@pytest.mark.parametrize("sizes", WGRAD_SIZES)
+@pytest.mark.parametrize("K,N,sms", [(200, 136, 5), (40, 24, 3),
+                                     (128, 264, 132)])
+def test_wgrad_walk_emulation_equals_plain_and_jax(sizes, K, N, sms):
+    """The weight gradient's walk (tile order, each tile's 64-row steps,
+    the tail zeroing, the boxes not loaded) equals ``ragged_dot_wgrad_
+    plain`` and the VJP of ``jax.lax.ragged_dot``; every element of dW is
+    stored once, an empty expert's as exact zeros."""
+    rng = np.random.default_rng(sum(sizes) + K + N)
+    R, E = sum(sizes), len(sizes)
+    x = rng.standard_normal((R, K)).astype(np.float32)
+    dy = rng.standard_normal((R, N)).astype(np.float32)
+    w = rng.standard_normal((E, K, N)).astype(np.float32)
+    off = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]).astype(
+        np.int32))
+    plan = gg.wgrad_plan(R, E, K, N, torch.bfloat16, sms)
+    assert plan.route == "wgmma" and plan.grid <= sms
+    assert plan.cluster == (R >= 256 * E)
+    assert not plan.cluster or plan.grid % 2 == 0
+    dw, written, walk = _emulate_wgrad(torch.from_numpy(x),
+                                       torch.from_numpy(dy), off, plan)
+    assert written.eq(1).all()
+    for e, n in enumerate(sizes):
+        if not n:
+            assert dw[e].eq(0).all()
+    plain = gg.ragged_dot_wgrad_plain(torch.from_numpy(x),
+                                      torch.from_numpy(dy), off)
+    np.testing.assert_allclose(dw.numpy(), plain.numpy(), atol=1e-4,
+                               rtol=1e-5)
+    _, jdw = _jax_vjp(x, w, sizes, dy)
+    np.testing.assert_allclose(dw.numpy(), jdw, atol=1e-4, rtol=1e-5)
+    # the tiles by L: expert -> column tile -> K tile in clusters (expert
+    # -> K tile -> column tile alone), each once; a pair's two tiles are
+    # neighbours in the walk
+    order = sorted(t for tiles in walk.values() for t in tiles)
+    assert [t[0] for t in order] == list(range(len(order)))
+    keys = [(e, n0, k0) if plan.cluster else (e, k0, n0)
+            for _, e, k0, n0 in order]
+    assert keys == sorted(keys) and len(set(keys)) == len(keys)
+    for b, tiles in walk.items():
+        if plan.cluster and b % 2:
+            assert [t[0] - 1 for t in tiles] == [
+                t[0] for t in walk[b - 1]][:len(tiles)]
+        if not plan.cluster:
+            assert [t[0] for t in tiles] == list(range(
+                b, b + plan.grid * len(tiles), plan.grid))
+
+
+@pytest.mark.parametrize("R,E,K,N,share", [
+    # Qwen1.5-MoE-A2.7B at phase 32 (b) (136 rows an expert): alone
+    (8192, 60, 2048, 1408, None),
+    (8192, 60, 1408, 2048, None),
+    # Mixtral-8x7B's expert product (512 rows an expert): 32 K tiles
+    (4096, 8, 4096, 14336, 1.0),
+    # 300 rows an expert over 11 K tiles (odd): 10 pairs of 11 share
+    (18000, 60, 1408, 2048, 0.9),
+])
+def test_wgrad_pairs_share_dy_at_the_served_shapes(R, E, K, N, share):
+    """The weight gradient runs in clusters of two from 256 rows an
+    expert; then most pair steps are two K tiles of one (expert, column
+    tile), whose dy boxes the pair multicasts: all of them where the K
+    tiles are even, 10 of 11 where they are odd. Every tile is walked
+    once either way."""
+    plan = gg.wgrad_plan(R, E, K, N, torch.bfloat16, 132)
+    assert plan.cluster == (share is not None)
+    walk, shared, steps = _wgrad_walk(E, plan)
+    assert sorted(t[0] for ts in walk.values() for t in ts) == \
+        list(range(E * plan.k_tiles * plan.col_tiles))
+    if share is not None:
+        assert shared / steps >= share, (shared, steps)
+
+
+def test_wgrad_tail_zeroing_is_what_keeps_the_next_expert_out():
+    """Without the zeroing of the rows past an expert's end, its last
+    step sums the next expert's rows into its dW: the emulation with the
+    zeroing taken out differs from the plain version exactly where a
+    ragged expert has a neighbour."""
+    sizes = (3, 70, 0, 5)
+    rng = np.random.default_rng(7)
+    R, E, K, N = sum(sizes), len(sizes), 64, 64
+    x = torch.from_numpy(rng.standard_normal((R, K)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((R, N)).astype(np.float32))
+    off = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]).astype(
+        np.int32))
+    plan = gg.wgrad_plan(R, E, K, N, torch.bfloat16, 4)
+    o = off.tolist()
+    plain = gg.ragged_dot_wgrad_plain(x, dy, off)
+    for e in range(E):
+        lo, hi = o[e], o[e + 1]
+        steps = range(lo, hi, 64)
+        unzeroed = sum(x[r:r + 64].t() @ dy[r:r + 64] for r in steps) \
+            if hi > lo else torch.zeros(K, N)
+        leaks = hi > lo and hi % 64 != lo % 64 and hi < R
+        assert torch.allclose(unzeroed, plain[e], atol=1e-4) != leaks, e
+    dw, _, _ = _emulate_wgrad(x, dy, off, plan)
+    np.testing.assert_allclose(dw.numpy(), plain.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("R,E,K,N,dtype,want", [
+    # Qwen1.5-MoE-A2.7B's gate / up (2048 -> 1408) and down at phase 32
+    # (b)'s 8192 rows, alone; Mixtral-8x7B's gate / up (4096 -> 14336) and
+    # down at 4096 rows, in clusters: 256 columns by bytes a step
+    (8192, 60, 2048, 1408, torch.bfloat16,
+     ("wgmma", 256, False, 16, 6, 132)),
+    (8192, 60, 1408, 2048, torch.bfloat16,
+     ("wgmma", 256, False, 11, 8, 132)),
+    (4096, 8, 4096, 14336, torch.bfloat16,
+     ("wgmma", 256, True, 32, 56, 132)),
+    (4096, 8, 14336, 4096, torch.float16,
+     ("wgmma", 256, True, 112, 16, 132)),
+    # one 128-column tile (256) against one of 256 (384): 128; 4 tiles,
+    # 3 alone, 3 rounded up to even in clusters (768 rows of 3 experts)
+    (20, 4, 40, 24, torch.bfloat16, ("wgmma", 128, False, 1, 1, 4)),
+    (20, 3, 40, 24, torch.bfloat16, ("wgmma", 128, False, 1, 1, 3)),
+    (768, 3, 40, 24, torch.bfloat16, ("wgmma", 128, True, 1, 1, 4)),
+    (20, 4, 40, 24, torch.float32, ("f32", 64, False, 1, 1, 4)),
+])
+def test_wgrad_plan_at_the_served_shapes(R, E, K, N, dtype, want):
+    plan = gg.wgrad_plan(R, E, K, N, dtype, 132)
+    assert tuple(plan) == want
+
+
+#: dX's shapes: (R, E, dX's columns = the forward's K) at phase 32 (b)'s
+#: Qwen1.5-MoE-A2.7B (2 x 1024 tokens top-4 over 60) gate / up and down,
+#: and Mixtral-8x7B's expert product (2048 tokens top-2 over 8)
+DGRAD_SHAPES = [(8192, 60, 2048, (128, "wgmma", 256, 8)),
+                (8192, 60, 1408, (128, "wgmma", 256, 6)),
+                (4096, 8, 4096, (128, "wgmma", 256, 16)),
+                (4096, 8, 14336, (128, "wgmma", 256, 56)),
+                (64, 60, 2048, (16, "mma", 128, 16)),
+                (300, 6, 136, (64, "wgmma", 256, 1))]
+
+
+@pytest.mark.parametrize("R,E,N,want", DGRAD_SHAPES)
+def test_dgrad_plan_routes_and_slots_cover_every_split(R, E, N, want):
+    """dX takes the forward's plan for R rows over E experts into its K
+    columns: the route and tiles above, and slots holding every tile of
+    any split of R rows over E experts (each tile once in the walk)."""
+    plan = gg.grouped_plan(R, E, N, torch.bfloat16, 132)
+    assert (plan.bm, plan.route, plan.bn, plan.col_tiles) == want
+    rng = np.random.default_rng(R + E + N)
+    for _ in range(10):
+        cuts = np.sort(rng.integers(0, R + 1, E - 1))
+        sizes = np.diff(np.concatenate([[0], cuts, [R]]))
+        real = _tiles(sizes, plan.bm) * plan.col_tiles
+        assert real <= plan.tiles * plan.col_tiles
+        if plan.route == "wgmma":
+            o = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+            walk, _, _ = _wgmma_walk(o, plan)
+            assert sum(len(t) for t in walk.values()) == real
+
+
+@pytest.mark.parametrize("sizes,K,N,sms", [
+    ((0, 1, 64, 0, 230, 7, 0), 200, 136, 5),      # 64-row tiles
+    ((0, 0, 300, 0, 129), 72, 264, 132),          # 128-row tiles
+])
+def test_dgrad_walk_emulation_equals_plain_and_jax(sizes, K, N, sms):
+    """dX = dy @ w_e^T on the wgmma route's walk (the forward's, w read in
+    place as its transpose: K-major weight boxes of 64 output columns x
+    64 of the reduction) equals the plain version and the VJP of
+    ``jax.lax.ragged_dot``."""
+    rng = np.random.default_rng(sum(sizes) + K + N)
+    R, E = sum(sizes), len(sizes)
+    x = rng.standard_normal((R, K)).astype(np.float32)
+    w = rng.standard_normal((E, K, N)).astype(np.float32)
+    dy = rng.standard_normal((R, N)).astype(np.float32)
+    off = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]).astype(
+        np.int32))
+    plan = gg.grouped_plan(R, E, K, torch.bfloat16, sms)
+    assert plan.route == "wgmma"
+    wt = torch.from_numpy(w).transpose(1, 2)      # [E, N, K] read as w^T
+    dx, written, read, _ = _emulate_wgmma(torch.from_numpy(dy), wt, off,
+                                          plan)
+    assert written.eq(1).all()
+    assert read == {e for e, n in enumerate(sizes) if n}
+    plain = gg.ragged_dot_dgrad(torch.from_numpy(dy), torch.from_numpy(w),
+                                off)
+    np.testing.assert_allclose(dx.numpy(), plain.numpy(), atol=1e-4,
+                               rtol=1e-5)
+    jdx, _ = _jax_vjp(x, w, sizes, dy)
+    np.testing.assert_allclose(dx.numpy(), jdx, atol=1e-4, rtol=1e-5)

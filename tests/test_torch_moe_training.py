@@ -133,7 +133,7 @@ def test_gumbel_noise_uses_jax_uniform_bits():
 @pytest.mark.parametrize("sizes", [[3, 0, 5, 1], [0, 0, 9, 0], [4, 4, 4, 4]])
 def test_ragged_dot_backward_matches_jax_vjp(sizes):
     """dX and dW of ``ragged_dot`` (the plain versions of the grouped GEMM
-    over the transposed weights and of ``grouped_wgrad_kernel``) against
+    over the transposed weights and of the weight-gradient kernel) against
     the VJP of ``jax.lax.ragged_dot`` in fp32, experts without rows among
     them (their dW is zero)."""
     rng = np.random.default_rng(sum(sizes))

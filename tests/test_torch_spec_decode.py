@@ -28,6 +28,7 @@ get an ``NgramProposer(noise=...)`` built by the test.
 
 import dataclasses
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -345,31 +346,6 @@ def test_budget_exact_and_eos_truncation():
     assert len(s.kv_blocks) == -(-s.seen_tokens // 4)
 
 
-def test_noisy_proposer_rollback_refcounts_exact(monkeypatch):
-    """Heavy rejection on a shared-prefix chain: every round retracts
-    most of its span; shared blocks are decref'd exactly, never freed.
-    The port's counters equal the JAX engine's under the same noise."""
-    pair = _gpt2()
-    want = _spec_off(PROMPTS, 10)
-    monkeypatch.setenv("DSTPU_SPEC_NOISE", "0.6")
-    jeng = _jax(pair, spec_decode="ngram", spec_k=4)
-    assert _stream(jeng, PROMPTS, 10) == want
-    monkeypatch.delenv("DSTPU_SPEC_NOISE")
-    eng = _noisy(_port(pair, spec_decode="ngram", spec_k=4))
-    got = _stream(eng, PROMPTS, 10)
-    assert got == want
-    assert _counters(eng) == _counters(jeng)
-    assert any(p > a for p, a in _counters(eng).values())
-    st = eng.state.prefix_stats
-    assert st["trims"] > 0, "noisy speculation never rolled back"
-    assert st["trims"] == jeng.state.prefix_stats["trims"]
-    eng._prefix.assert_exact_refs(eng.state.sequences.values())
-    for u in UIDS:
-        eng.flush(u)
-    assert eng.kv_cache.free_blocks == eng.config.num_blocks
-    eng._prefix.check_invariants()
-
-
 @pytest.mark.parametrize("impl", ["dense", "paged_flash"])
 def test_draft_model_same_params_full_acceptance(impl):
     """The target's own parameters as the draft: every draft is accepted
@@ -569,3 +545,48 @@ def test_build_hf_engine_with_a_draft_checkpoint(tmp_path):
     with pytest.raises(ValueError, match="not servable"):
         build_hf_engine(dirs["target"], draft_model_dir=str(bad),
                         device="cpu")
+
+
+@pytest.fixture
+def fresh_reference(monkeypatch):
+    """The JAX engine as a fresh process builds it, whatever ran before in
+    this process: no ``DSTPU_*`` serving or speculation knob from the
+    environment, no fault injector left installed, and no compiled
+    program kept from another test's engines (``jax.clear_caches``)."""
+    from deepspeed_tpu.resilience.fault_injection import set_fault_injector
+    for name in list(os.environ):
+        if name.startswith("DSTPU_"):
+            monkeypatch.delenv(name)
+    set_fault_injector(None)
+    jax.clear_caches()
+
+
+def test_noisy_proposer_rollback_refcounts_exact(monkeypatch,
+                                                 fresh_reference):
+    """Heavy rejection on a shared-prefix chain: every round retracts
+    most of its span; shared blocks are decref'd exactly, never freed.
+    The port's counters equal the JAX engine's under the same noise. The
+    JAX engine is built fresh (``fresh_reference``): in one multi-worker
+    run its noisy stream left spec off's, which no run of the file alone,
+    after other files, or under load has repeated. Last in the file, so
+    that the cleared caches cost no other test here its compiled
+    programs."""
+    pair = _gpt2()
+    want = _spec_off(PROMPTS, 10)
+    monkeypatch.setenv("DSTPU_SPEC_NOISE", "0.6")
+    jeng = _jax(pair, spec_decode="ngram", spec_k=4)
+    assert _stream(jeng, PROMPTS, 10) == want
+    monkeypatch.delenv("DSTPU_SPEC_NOISE")
+    eng = _noisy(_port(pair, spec_decode="ngram", spec_k=4))
+    got = _stream(eng, PROMPTS, 10)
+    assert got == want
+    assert _counters(eng) == _counters(jeng)
+    assert any(p > a for p, a in _counters(eng).values())
+    st = eng.state.prefix_stats
+    assert st["trims"] > 0, "noisy speculation never rolled back"
+    assert st["trims"] == jeng.state.prefix_stats["trims"]
+    eng._prefix.assert_exact_refs(eng.state.sequences.values())
+    for u in UIDS:
+        eng.flush(u)
+    assert eng.kv_cache.free_blocks == eng.config.num_blocks
+    eng._prefix.check_invariants()

@@ -4,7 +4,7 @@ card.
 
     python3 tools/port_step_ab.py OLD_CHECKOUT NEW_CHECKOUT [--rounds N]
                                   [--trace | --serve | --evo | --ops |
-                                   --grouped]
+                                   --grouped | --b18]
 
 Runs the same work in each checkout, in turns old, new, new, old
 (``--rounds`` such pairs, 1 by default), each run in a process of its own
@@ -48,6 +48,14 @@ readings. Needs a CUDA card; exits non-zero if a run fails.
   14336 and back) at prefill, and both at a 16-token decode step -- with
   ``torch._grouped_mm`` on the same inputs beside each, by torch.profiler
   and in a CUDA graph (ms a call).
+- ``--b18``: the grouped GEMM's backward alone (``ragged_dot_dgrad`` and
+  ``ragged_dot_wgrad``, and the forward ``ragged_dot`` on the same
+  inputs; the library built alone) at phase 32 (b)'s shapes
+  -- Qwen1.5-MoE-A2.7B's gate / up and down (2 x 1024 tokens top-4 over
+  60 experts, 3 never picked; 2048 <-> 1408) -- and at Mixtral-8x7B's
+  expert product (2048 tokens top-2 over 8, 1 never picked; 4096 <->
+  14336), with ``torch._grouped_mm`` computing the same products beside
+  each, by torch.profiler and in a CUDA graph (ms a call).
 """
 
 from __future__ import annotations
@@ -243,6 +251,37 @@ def both(name, fn):
 
 RUN_OPS += GROUPED + 'print("AB " + json.dumps(out))\n'
 
+RUN_B18 = RUN_GROUPED.split("from deepspeed_tpu_torch.moe")[0] + r"""
+from deepspeed_tpu_torch.moe import sharded_moe
+from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+for name, tokens, k, E, K, N, dead in (
+        ("qwen1p5_moe_train_gate_up", 2048, 4, 60, 2048, 1408, 3),
+        ("qwen1p5_moe_train_down", 2048, 4, 60, 1408, 2048, 3),
+        ("mixtral_8x7b_expert", 2048, 2, 8, 4096, 14336, 1)):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(sum(map(ord, name)))
+    logits = torch.randn(tokens, E, generator=gen, device="cuda")
+    logits[:, E - dead:] = -1e4
+    top = torch.topk(logits, k, dim=-1).indices.reshape(-1)
+    off = sharded_moe.group_offsets(top, E)
+    x = torch.randn(tokens * k, K, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(E, K, N, generator=gen, device="cuda")
+         * K ** -0.5).bfloat16()
+    dy = torch.randn(tokens * k, N, generator=gen, device="cuda").bfloat16()
+    both(f"fwd {name}", lambda: gg.ragged_dot(x, w, off))
+    both(f"dX {name}", lambda: gg.ragged_dot_dgrad(dy, w, off))
+    both(f"dW {name}", lambda: gg.ragged_dot_wgrad(x, dy, off))
+    if hasattr(torch, "_grouped_mm"):
+        ends = off[1:].contiguous()
+        both(f"_grouped_mm dX {name}",
+             lambda: torch._grouped_mm(dy, w.transpose(1, 2), offs=ends))
+        both(f"_grouped_mm dW {name}",
+             lambda: torch._grouped_mm(x.t(), dy, offs=ends))
+    del x, w, dy
+    torch.cuda.empty_cache()
+print("AB " + json.dumps(out))
+"""
+
 
 def run(checkout: Path, script: str, trace: bool) -> dict:
     proc = subprocess.run([sys.executable, "-c", script, str(int(trace))],
@@ -261,7 +300,7 @@ def describe(name: str, r: dict, mode: str) -> str:
                 f"{r['tinyllama_decode_tok_s']:.1f} tok/s; Llama-2-7B bf16 "
                 f"prefill {r['llama7b_prefill_s']:.4f} s, decode "
                 f"{r['llama7b_decode_tok_s']:.1f} tok/s")
-    if mode in ("ops", "grouped"):
+    if mode in ("ops", "grouped", "b18"):
         return f"[{mode} ab] {name}: " + "; ".join(
             f"{op} {t:.4f}" if isinstance(t, float) else
             f"{op} refused ({t['refused']})" if "refused" in t else
@@ -290,14 +329,14 @@ def main(argv) -> int:
     if "--rounds" in argv:
         rounds = int(argv[argv.index("--rounds") + 1])
         args.remove(str(rounds))
-    modes = [m for m in ("serve", "evo", "ops", "grouped")
+    modes = [m for m in ("serve", "evo", "ops", "grouped", "b18")
              if f"--{m}" in argv]
     if len(args) != 2 or len(modes) > 1 or (modes and "--trace" in argv):
         print(__doc__, file=sys.stderr)
         return 2
     mode = modes[0] if modes else "train"
     script = {"train": RUN_TRAIN, "serve": RUN_SERVE, "evo": RUN_EVO,
-              "ops": RUN_OPS, "grouped": RUN_GROUPED}[mode]
+              "ops": RUN_OPS, "grouped": RUN_GROUPED, "b18": RUN_B18}[mode]
     old, new = (Path(a).resolve() for a in args)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
