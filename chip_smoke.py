@@ -7828,7 +7828,7 @@ B18_KEYS = ("grouped_gemm", "grouped_dgrad", "grouped_dgrad_wgmma",
 #: B18's kernels by count: the routes phase 32 (b) takes
 B18_KERNELS = {"grouped_dgrad": "grouped_wgmma_kernel<bf16, BN, 2, KB = "
                                 "true> (dX: w read in place, K-major B)",
-               "grouped_wgrad": "grouped_wgrad_wgmma_kernel<bf16, BN, CL>"}
+               "grouped_wgrad": "grouped_wgrad_wgmma_kernel<bf16, BN>"}
 
 
 def ft_config(torch, run, **kw):

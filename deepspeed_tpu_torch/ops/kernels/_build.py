@@ -101,9 +101,9 @@ SIGNATURES = {
     # stream
     "grouped_gemm": {
         "grouped_gemm_launch": [_P] * 4 + [_I] * 10 + [_P],
-        # x, dy, offsets, dw, R, E, K, N, wgrad_plan's column tile,
-        # cluster flag and grid, dtype code, stream
-        "grouped_wgrad_launch": [_P] * 4 + [_I] * 8 + [_P],
+        # x, dy, offsets, dw, R, E, K, N, wgrad_plan's column tile, K
+        # tiles, column tiles and grid, dtype code, stream
+        "grouped_wgrad_launch": [_P] * 4 + [_I] * 9 + [_P],
         # dy, w, offsets, dx, R, E, K (the reduction), N (dx's columns),
         # grouped_plan's five as the forward's, dtype code, stream
         "grouped_dgrad_launch": [_P] * 4 + [_I] * 10 + [_P],

@@ -610,18 +610,11 @@ __global__ void __launch_bounds__(256)
 // design:
 //   1. Tiles of 128 rows of K x BN (256 or 128, the forward's bytes rule
 //      over ceil(N / bn) (128 + bn)) columns of N, walked by persistent
-//      blocks (one an SM) expert by expert (wg_tile): the blocks in flight
-//      share one expert's x and dy slabs in L2. Where the experts have
-//      many rows (wgrad_plan: 256 or more an expert on the mean) the
-//      blocks run in clusters of two over
-//      neighbouring tiles, two K tiles of one column tile, whose dy boxes
-//      each block loads half of and multicasts into both: a step then
-//      reads 32 KB from L2 a block, not 48. At Mixtral-8x7B's shapes (512
-//      rows an expert; the products are the bound) the loads from L2 held
-//      the kernel alone to 52% of its bound, and the clusters took 5-10%
-//      off its time; at Qwen1.5-MoE-A2.7B's (136 rows an expert, 3 steps
-//      a tile; the stores are the bound) the blocks walk alone, column
-//      tile fastest (tools/port_step_ab.py --b18, H100 80GB HBM3).
+//      blocks (one an SM) expert by expert, K tile by K tile, column
+//      tile fastest (wg_tile): the blocks in flight share one expert's x
+//      and dy slabs in L2, and neighbouring blocks store side by side in
+//      the same rows of dw. The walk's tile counts come from the plan
+//      (grouped_gemm.wgrad_plan), which the launch checks against WG_KT.
 //   2. A producer thread keeps a ring of TMA stages: a step is 64 of the
 //      expert's rows, two 64 x 64 boxes of x (2-D map over x [R, K]) and
 //      BN / 64 boxes of dy (over dy [R, N]), 128-byte swizzled; boxes of
@@ -665,22 +658,18 @@ __host__ __device__ constexpr size_t wg_smem_bytes() {
          2 * wg_stages<BN>() * sizeof(uint64_t) + W_OFFS * sizeof(int);
 }
 
-// Tile L of the walk: expert e = L / (k tiles x column tiles), then, in
-// clusters (CL), column tile and K tile (fastest: neighbouring tiles
-// share a dy slab), else K tile and column tile (fastest: neighbouring
-// blocks store side by side in the same rows of dw, which the stores,
-// the bound at few rows an expert, take 2-4% faster). steps: the
-// expert's 64-row steps; boxes: dy boxes short of N. e = -1 past the last
-// tile.
+// Tile L of the walk: expert e = L / (k tiles x column tiles), then K
+// tile and column tile (fastest: neighbouring blocks store side by side in
+// the same rows of dw). steps: the expert's 64-row steps; boxes: dy boxes
+// short of N.
 struct WgTile {
   int e, k0, n0, boxes, r0, r1, steps;
 };
-template <int BN, bool CL>
+template <int BN>
 __device__ __forceinline__ WgTile wg_tile(const int* offs, int L, int KT,
-                                          int NT, int N, int slots) {
-  if (L >= slots) return {-1, 0, 0, 0, 0, 0, 0};
+                                          int NT, int N) {
   const int per = KT * NT, rem = L % per, e = L / per;
-  const int kt = CL ? rem % KT : rem / NT, nt = CL ? rem / KT : rem % NT;
+  const int kt = rem / NT, nt = rem % NT;
   const int n0 = nt * BN, r0 = offs[e], r1 = offs[e + 1];
   int boxes = 0;
 #pragma unroll
@@ -688,26 +677,19 @@ __device__ __forceinline__ WgTile wg_tile(const int* offs, int L, int KT,
   return {e, kt * WG_KT, n0, boxes, r0, r1, (r1 - r0 + 63) / 64};
 }
 
-// A block of a producer warpgroup and two consumer warpgroups, persistent,
-// in clusters of two where CL (else block b takes tiles b, b + grid, ...
-// alone). The pair walks pairs of neighbouring tiles L, L + 1
-// (L = its rank-0 block's index + i gridDim.x); rank r takes tile L + r.
-// When both are K tiles of one (expert, column tile) they need the same dy
-// boxes: each rank loads half of them and multicasts them into both
-// blocks, so the pair reads its dy slab from L2 once. The pair steps
-// through max(its tiles' steps) ring stages, a rank past its own steps
-// (or without a tile) idling through them, so that the two rings stay in
-// step. The K steps are counted over the whole walk (g), which picks each
-// one's ring stage and phase, so the ring runs on across tiles. full[s]:
-// stage s's boxes landed (its x boxes, its dy boxes from either rank);
-// empty[s]: the consumers of both blocks are done with stage s.
-template <typename T, int BN, bool CL>
+// A block of a producer warpgroup and two consumer warpgroups, persistent:
+// block b takes tiles b, b + grid, ... of the KT x NT tiles of each of the
+// E experts. The K steps are counted over the whole walk (g), which picks
+// each one's ring stage and phase, so the ring runs on across tiles.
+// full[s]: stage s's boxes landed; empty[s]: both consumers are done with
+// stage s.
+template <typename T, int BN>
 __global__ void __launch_bounds__(384, 1)
     grouped_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                                const __grid_constant__ CUtensorMap tm_dy,
                                const __grid_constant__ CUtensorMap tm_dw,
                                const int* __restrict__ off, int E, int K,
-                               int N) {
+                               int N, int KT, int NT) {
   constexpr int ST = wg_stages<BN>(), SB = wg_stage_bytes<BN>();
   constexpr int OB = 64 * BN * 2;   // one consumer's output tile
   extern __shared__ __align__(1024) unsigned char w_smem[];
@@ -715,26 +697,18 @@ __global__ void __launch_bounds__(384, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(out + 2 * OB);
   uint64_t* empty = full + ST;
   int* s_off = reinterpret_cast<int*>(empty + ST);
-  const int KT = (K + WG_KT - 1) / WG_KT, NT = (N + BN - 1) / BN;
   const int slots = E * KT * NT;
-  const int rank = CL ? (int)cluster_rank() : 0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
       mbar_init(full + s);
-      mbar_init(empty + s, CL ? 4 : 2);
+      mbar_init(empty + s, 2);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   const bool staged = E < W_OFFS;
   if (staged)
     for (int i = threadIdx.x; i <= E; i += blockDim.x) s_off[i] = off[i];
-  // both blocks' barriers initialised before either signals the other's
-  if constexpr (CL) {
-    cluster_arrive();
-    cluster_wait();
-  } else {
-    __syncthreads();
-  }
+  __syncthreads();
   const int* offs = staged ? s_off : off;
   const int wg = __shfl_sync(FULL, (int)threadIdx.x / 128, 0);
 
@@ -742,37 +716,21 @@ __global__ void __launch_bounds__(384, 1)
     set_max_regs<40, false>();
     if (threadIdx.x == 0) {
       int g = 0;
-      for (int L = blockIdx.x - rank; L < slots; L += gridDim.x) {
-        const WgTile t0 = wg_tile<BN, CL>(offs, L, KT, NT, N, slots);
-        const WgTile t1 = wg_tile<BN, CL>(offs, CL ? L + 1 : slots, KT, NT, N,
-                                      slots);
-        const WgTile t = rank ? t1 : t0;
-        const bool pair = t1.e == t0.e && t1.n0 == t0.n0;
+      for (int L = blockIdx.x; L < slots; L += gridDim.x) {
+        const WgTile t = wg_tile<BN>(offs, L, KT, NT, N);
         const int xboxes = t.k0 + 64 < K ? 2 : 1;
-        const int steps = max(t0.steps, t1.steps);
-        for (int k = 0; k < steps; ++k, ++g) {
+        for (int k = 0; k < t.steps; ++k, ++g) {
           const int s = g % ST, r = t.r0 + 64 * k;
           unsigned char* st = w_smem + s * SB;
           mbar_wait(empty + s, ((g / ST) & 1) ^ 1);
-          if (k >= t.steps) {          // idle: the stage's phase, no bytes
-            mbar_arrive(full + s);
-            continue;
-          }
           mbar_expect(full + s, (xboxes + t.boxes) * WG_BOX);
 #pragma unroll 1
           for (int j = 0; j < xboxes; ++j)
             tma_box(st + j * WG_BOX, &tm_x, t.k0 + 64 * j, r, full + s);
-          if (pair) {
 #pragma unroll 1
-            for (int j = rank; j < t.boxes; j += 2)
-              tma_box_mc(st + (2 + j) * WG_BOX, &tm_dy, t.n0 + 64 * j, r,
-                         full + s, 3);
-          } else {
-#pragma unroll 1
-            for (int j = 0; j < t.boxes; ++j)
-              tma_box(st + (2 + j) * WG_BOX, &tm_dy, t.n0 + 64 * j, r,
-                      full + s);
-          }
+          for (int j = 0; j < t.boxes; ++j)
+            tma_box(st + (2 + j) * WG_BOX, &tm_dy, t.n0 + 64 * j, r,
+                    full + s);
         }
       }
     }
@@ -782,21 +740,10 @@ __global__ void __launch_bounds__(384, 1)
     const int cw = wg - 1, tid = threadIdx.x % 128, warp = tid / 32;
     const int lane = tid % 32, quad = lane / 4, qi = lane % 4;
     unsigned char* mine = out + cw * OB;
-    // stage s is free in this block: counted in both blocks' empty[s],
-    // by thread 0 of the warpgroup here and thread 32 there
-    const uint32_t peer_empty = CL ? peer_addr(empty, rank ^ 1) : 0u;
-    auto release = [&](int s) {
-      if (tid == 0) mbar_arrive(empty + s);
-      if (CL && tid == 32) mbar_arrive_remote(peer_empty + 8 * s);
-    };
     float acc[BN / 2];
     int g = 0;
-    for (int L = blockIdx.x - rank; L < slots; L += gridDim.x) {
-      const WgTile t0 = wg_tile<BN, CL>(offs, L, KT, NT, N, slots);
-      const WgTile t1 = wg_tile<BN, CL>(offs, CL ? L + 1 : slots, KT, NT, N,
-                                    slots);
-      const WgTile t = rank ? t1 : t0;
-      const int steps = max(t0.steps, t1.steps);
+    for (int L = blockIdx.x; L < slots; L += gridDim.x) {
+      const WgTile t = wg_tile<BN>(offs, L, KT, NT, N);
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       int k = 0;
@@ -806,8 +753,7 @@ __global__ void __launch_bounds__(384, 1)
         mbar_wait(full + s, (g / ST) & 1);
         if (r + 64 > t.r1) {
           // rows live .. 63 of this step lie past the expert: zero them in
-          // this consumer's x box and in dy boxes cw, cw + 2, ... (this
-          // block's copies; a multicast box is zeroed in each block)
+          // this consumer's x box and in dy boxes cw, cw + 2, ...
           const int live = t.r1 - r, chunks = (64 - live) * 8;
           const int nb = 1 + (t.boxes - cw + 1) / 2;
           for (int i = tid; i < nb * chunks; i += 128) {
@@ -837,18 +783,13 @@ __global__ void __launch_bounds__(384, 1)
         // the step before this one is done: its stage may be refilled
         wg_wait<1>();
         fence_regs(acc);
-        if (k > 0) release((g - 1) % ST);
+        if (k > 0 && tid == 0) mbar_arrive(empty + (g - 1) % ST);
       }
       if (k > 0) {
         wg_wait<0>();
         fence_regs(acc);
-        release((g - 1) % ST);
+        if (tid == 0) mbar_arrive(empty + (g - 1) % ST);
       }
-      for (; k < steps; ++k, ++g) {      // idle: the other rank's steps
-        mbar_wait(full + g % ST, (g / ST) & 1);
-        release(g % ST);
-      }
-      if (t.e < 0) continue;
       // the previous tile's store has read this consumer's output tile
       if (tid == 0) bulk_wait<0, true>();
       bar_sync<128>(2 + cw);
@@ -873,12 +814,6 @@ __global__ void __launch_bounds__(384, 1)
       }
     }
     if (tid == 0) bulk_wait<0, false>();
-  }
-  // neither block leaves while the other may still arrive on its barriers
-  // or multicast into it
-  if constexpr (CL) {
-    cluster_arrive();
-    cluster_wait();
   }
 }
 
@@ -1103,45 +1038,24 @@ int grouped_launch(const void* x, const void* w, const void* offsets,
   return (int)err;
 }
 
-template <typename T, int BN, bool CL>
+template <typename T, int BN>
 cudaError_t launch_wgrad(const void* x, const void* dy, const int* off,
-                         void* dw, int R, int E, int K, int N, int grid,
-                         cudaStream_t st) {
+                         void* dw, int R, int E, int K, int N, int kt, int nt,
+                         int grid, cudaStream_t st) {
   CUtensorMap tm_x, tm_dy, tm_dw;
   cudaError_t err = rows_map<T>(&tm_x, x, R, K, 64);
   if (err == cudaSuccess) err = rows_map<T>(&tm_dy, dy, R, N, 64);
   if (err == cudaSuccess) err = stack_map<T>(&tm_dw, dw, E, K, N);
   if (err != cudaSuccess) return err;
-  auto kern = grouped_wgrad_wgmma_kernel<T, BN, CL>;
+  auto kern = grouped_wgrad_wgmma_kernel<T, BN>;
   constexpr size_t smem = wg_smem_bytes<BN>();
-  if constexpr (!CL) {
-    int resident = 0;
-    err = blocks_per_sm(reinterpret_cast<const void*>(kern), 384, smem,
-                        &resident);
-    if (err != cudaSuccess) return err;
-    if (resident < 1) return cudaErrorInvalidConfiguration;
-    kern<<<grid, 384, smem, st>>>(tm_x, tm_dy, tm_dw, off, E, K, N);
-    return cudaGetLastError();
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2);
-  cfg.blockDim = dim3(384);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 2;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = resident_count(reinterpret_cast<const void*>(kern), 384, smem, &cfg,
-                       2, &clusters);
+  int resident = 0;
+  err = blocks_per_sm(reinterpret_cast<const void*>(kern), 384, smem,
+                      &resident);
   if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorInvalidConfiguration;
-  grid = min(grid + (grid & 1), 2 * clusters);
-  return cluster_launch(kern, dim3(grid), dim3(384), smem, 2, st, tm_x,
-                        tm_dy, tm_dw, off, E, K, N);
+  if (resident < 1) return cudaErrorInvalidConfiguration;
+  kern<<<grid, 384, smem, st>>>(tm_x, tm_dy, tm_dw, off, E, K, N, kt, nt);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1175,29 +1089,25 @@ extern "C" int grouped_dgrad_launch(const void* dy, const void* w,
 // dw [E, K, N] = per-expert x_e^T @ dy_e; x [R, K], dy [R, N] sorted by
 // expert, offsets [E + 1] int32 on the device; dtype code as above. 16-bit
 // (R > 0): the plan (grouped_gemm.wgrad_plan): bn the column tile (256 or
-// 128), cl 1 for clusters of two sharing dy boxes (grid even, at most the
-// tiles rounded up to even, lowered to twice the clusters the device
-// holds at once) or 0 for blocks alone (grid at most the tiles), grid the
-// persistent blocks; fp32: the CUDA-core kernel, the plan unread.
+// 128), kt and nt the K tiles (of WG_KT rows) and column tiles, grid the
+// persistent blocks (at most E kt nt); fp32: the CUDA-core kernel, the
+// plan unread.
 template <typename T>
-cudaError_t dispatch_wgrad(int bn, int cl, const void* x, const void* dy,
+cudaError_t dispatch_wgrad(int bn, const void* x, const void* dy,
                            const int* off, void* dw, int R, int E, int K,
-                           int N, int grid, cudaStream_t st) {
-  if (bn == 256 && cl)
-    return launch_wgrad<T, 256, true>(x, dy, off, dw, R, E, K, N, grid, st);
+                           int N, int kt, int nt, int grid, cudaStream_t st) {
   if (bn == 256)
-    return launch_wgrad<T, 256, false>(x, dy, off, dw, R, E, K, N, grid, st);
-  if (bn == 128 && cl)
-    return launch_wgrad<T, 128, true>(x, dy, off, dw, R, E, K, N, grid, st);
+    return launch_wgrad<T, 256>(x, dy, off, dw, R, E, K, N, kt, nt, grid, st);
   if (bn == 128)
-    return launch_wgrad<T, 128, false>(x, dy, off, dw, R, E, K, N, grid, st);
+    return launch_wgrad<T, 128>(x, dy, off, dw, R, E, K, N, kt, nt, grid, st);
   return cudaErrorInvalidValue;
 }
 
 extern "C" int grouped_wgrad_launch(const void* x, const void* dy,
                                     const void* offsets, void* dw, int R,
-                                    int E, int K, int N, int bn, int cl,
-                                    int grid, int dtype, void* stream) {
+                                    int E, int K, int N, int bn, int kt,
+                                    int nt, int grid, int dtype,
+                                    void* stream) {
   if (E <= 0 || E > 65535 || K <= 0 || N <= 0 || R < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1209,14 +1119,17 @@ extern "C" int grouped_wgrad_launch(const void* x, const void* dy,
         static_cast<float*>(dw), K, N);
     return (int)cudaGetLastError();
   }
-  const long long slots = (long long)E * ((K + WG_KT - 1) / WG_KT) *
-                          ((N + bn - 1) / bn);
-  if ((dtype != 1 && dtype != 2) || R < 1 || K % 8 || N % 8 || grid < 1 ||
-      grid > slots + (cl ? slots & 1 : 0) || slots > 0x7fffffff ||
-      (cl && grid % 2))
+  // the plan's tiles must be the kernel's: kt tiles of WG_KT rows cover K
+  // with none to spare, nt tiles of bn columns cover N
+  const long long slots = (long long)E * kt * nt;
+  if ((dtype != 1 && dtype != 2) || R < 1 || K % 8 || N % 8 || kt < 1 ||
+      nt < 1 || (long long)(kt - 1) * WG_KT >= K ||
+      (long long)kt * WG_KT < K || (long long)(nt - 1) * bn >= N ||
+      (long long)nt * bn < N || grid < 1 || grid > slots ||
+      slots > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  return (int)(dtype == 1 ? dispatch_wgrad<bf16>(bn, cl, x, dy, off, dw, R,
-                                                 E, K, N, grid, st)
-                          : dispatch_wgrad<f16>(bn, cl, x, dy, off, dw, R, E,
-                                                K, N, grid, st));
+  return (int)(dtype == 1 ? dispatch_wgrad<bf16>(bn, x, dy, off, dw, R, E, K,
+                                                 N, kt, nt, grid, st)
+                          : dispatch_wgrad<f16>(bn, x, dy, off, dw, R, E, K,
+                                                N, kt, nt, grid, st));
 }

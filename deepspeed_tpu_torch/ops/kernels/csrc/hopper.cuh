@@ -28,10 +28,8 @@
 //   tma_box / tma_box3 / tma_box4
 //                    one 2-D, 3-D or 4-D TMA box (cp.async.bulk.tensor)
 //                    into shared memory, completing on an mbarrier
-//   tma_box_mc / tma_box3_mc
-//                    a 2-D or 3-D box multicast to the same offset of
-//                    every CTA of a cluster mask, completing on each
-//                    one's mbarrier
+//   tma_box3_mc      a 3-D box multicast to the same offset of every CTA
+//                    of a cluster mask, completing on each one's mbarrier
 //   cluster_rank / peer_addr / mbar_arrive_remote
 //                    this CTA's rank in its cluster; a shared address as
 //                    the same offset of another CTA of the cluster (mapa);
@@ -212,18 +210,6 @@ __device__ __forceinline__ void tma_box3(void* dst, const CUtensorMap* tm,
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(tm)), "r"(x), "r"(y), "r"(z),
       "r"(smem_addr(bar))
-      : "memory");
-}
-// a 2-D box multicast as tma_box3_mc below
-__device__ __forceinline__ void tma_box_mc(void* dst, const CUtensorMap* tm,
-                                           int col, int row, uint64_t* bar,
-                                           uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
-          smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(tm)), "r"(col), "r"(row),
-      "r"(smem_addr(bar)), "h"(mask)
       : "memory");
 }
 // the same, multicast: the box lands at `dst`'s offset in each CTA of

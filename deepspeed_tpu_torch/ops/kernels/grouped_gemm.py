@@ -27,8 +27,7 @@ for its shapes (at prefill the persistent wgmma kernel with a K-major B);
 the weight gradient ``dw_e = x_e^T @ dy_e`` (:func:`ragged_dot_wgrad`;
 plain twin :func:`ragged_dot_wgrad_plain`) is a persistent wgmma + TMA
 kernel over (expert, 128 rows of K, 256 or 128 columns of N) tiles,
-walked expert by expert (:func:`wgrad_plan`; where the experts have
-many rows, by blocks in clusters of two that share their dy boxes),
+walked expert by expert, column tile fastest (:func:`wgrad_plan`),
 whose consumers zero the rows past an expert's end before they are
 summed and whose tiles leave by TMA stores; zeros for an expert without
 rows. The offsets carry no
@@ -61,11 +60,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ROUTE_CODES = {"mma": 0, "wgmma": 1, "f32": 2}
 #: the wgmma route's column tiles, widest first
 WGMMA_COL_TILES = (256, 128)
-#: rows of dW (K) a tile of the weight gradient's wgmma kernel
+#: rows of dW (K) a tile of the weight gradient's wgmma kernel (the CUDA
+#: source's WG_KT; the launch refuses a plan whose K tiles differ)
 WGRAD_K_TILE = 128
-#: mean rows an expert from which the weight gradient's blocks run in
-#: clusters of two sharing their dy boxes
-WGRAD_CLUSTER_ROWS = 256
 
 
 def reset_launch_counts() -> None:
@@ -123,7 +120,6 @@ def grouped_plan(R: int, E: int, N: int = 128,
 class WgradPlan(NamedTuple):
     route: str                     # "wgmma" (16-bit) or "f32"
     bn: int                        # columns of dW a tile
-    cluster: bool                  # blocks in clusters of two (wgmma)
     k_tiles: int                   # ceil(K / 128) (wgmma), ceil(K / 64)
     col_tiles: int                 # ceil(N / bn)
     grid: int                      # blocks of the launch
@@ -137,27 +133,19 @@ def wgrad_plan(R: int, E: int, K: int, N: int,
     16-bit: the wgmma kernel, tiles of 128 rows of K by a column tile of
     256 or 128 chosen as the forward's (the fewer bytes of x and dy a
     64-row step over all column tiles, ceil(N / bn) (128 + bn); 256 on a
-    tie), E x k_tiles x col_tiles tiles walked expert by expert by a
-    persistent grid of at most ``sms`` blocks. Where the mean rows an
-    expert (R / E) reach :data:`WGRAD_CLUSTER_ROWS` the blocks run in
-    clusters of two (an even count, at most the tiles rounded up to even)
-    over the tiles column tile by column tile, K tile fastest: the pair
-    takes two neighbouring tiles and shares their dy boxes where both are
-    K tiles of one column tile. Below it each block walks alone, K tile by
-    K tile, column tile fastest. fp32: the CUDA-core kernel, a block a 64
+    tie), E x k_tiles x col_tiles tiles walked by a persistent grid of
+    at most ``sms`` blocks, block b taking tiles b, b + grid, ... in the
+    order expert, K tile, column tile (fastest). The launch passes k_tiles
+    and col_tiles to the kernel. fp32: the CUDA-core kernel, a block a 64
     x 64 tile."""
     if R < 0 or E < 1 or K < 1 or N < 1:
         raise ValueError(f"wgrad_plan({R}, {E}, {K}, {N})")
     if dtype == torch.float32:
         kt, nt = -(-K // 64), -(-N // 64)
-        return WgradPlan("f32", 64, False, kt, nt, E * kt * nt)
+        return WgradPlan("f32", 64, kt, nt, E * kt * nt)
     bn = min(WGMMA_COL_TILES, key=lambda b: -(-N // b) * (WGRAD_K_TILE + b))
     kt, nt = -(-K // WGRAD_K_TILE), -(-N // bn)
-    slots = E * kt * nt
-    if R >= WGRAD_CLUSTER_ROWS * E:
-        return WgradPlan("wgmma", bn, True, kt, nt,
-                         min(sms - sms % 2, slots + slots % 2))
-    return WgradPlan("wgmma", bn, False, kt, nt, min(sms, slots))
+    return WgradPlan("wgmma", bn, kt, nt, min(sms, E * kt * nt))
 
 
 def ragged_dot_plain(x: torch.Tensor, w: torch.Tensor,
@@ -280,7 +268,7 @@ def ragged_dot_wgrad(x: torch.Tensor, dy: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().grouped_wgrad_launch(
         x.data_ptr(), dy.data_ptr(), group_offsets.data_ptr(), dw.data_ptr(),
-        R, E, K, N, plan.bn, int(plan.cluster), plan.grid,
+        R, E, K, N, plan.bn, plan.k_tiles, plan.col_tiles, plan.grid,
         DTYPE_CODES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"grouped_wgrad ({plan.route}) failed: cudaError "

@@ -2310,8 +2310,8 @@ def test_fleet_disagg_handoff_and_counters_on_card(kv):
 #: multiple of the wgrad kernel's 64-row step or the forward's row tiles;
 #: dX on mma.sync (16- and 32-row tiles: "ragged_empty", "one_row",
 #: "all_empty_but_tail") and on wgmma (64-row tiles: "rows_64"; 128:
-#: "prefill_60", "prefill_8", "clusters"); dW in clusters of two sharing
-#: dy boxes at "clusters" (257 rows an expert), else alone
+#: "prefill_60", "prefill_8", "rows_257"); dW on its wgmma kernel in
+#: 16-bit, 1-10 of its 64-row steps a tile
 B18_SIZES = {
     "ragged_empty": (0, 37, 0, 0, 129, 5, 0, 64),
     "one_row": (1, 0, 0, 0),
@@ -2321,7 +2321,7 @@ B18_SIZES = {
     "all_empty_but_tail": (0, 0, 0, 33),
     "rows_64": (0, 40, 64, 0, 90, 1, 63, 70, 0),
     "prefill_8": (0, 517, 130, 64, 0, 333, 201, 1),
-    "clusters": (0, 600, 257, 0, 611, 333, 1),
+    "rows_257": (0, 600, 257, 0, 611, 333, 1),
 }
 
 
@@ -2365,12 +2365,12 @@ def test_grouped_gemm_backward_matches_plain_on_card(case, K, N, dtype):
     plan = gg.grouped_plan(R, E, K, dtype, sm_count(x.device))
     assert gg.LAUNCHES["grouped_dgrad_wgmma"] == (plan.route == "wgmma")
     assert gg.LAUNCHES["grouped_wgrad_wgmma"] == (dtype != torch.float32)
-    if case in ("rows_64", "prefill_60", "prefill_8", "clusters"):
+    if case in ("rows_64", "prefill_60", "prefill_8", "rows_257"):
         assert (plan.route, plan.bm) == (
             "wgmma" if dtype != torch.float32 else "f32",
             64 if case == "rows_64" else 128)
     wplan = gg.wgrad_plan(R, E, K, N, dtype, sm_count(x.device))
-    assert wplan.cluster == (case == "clusters" and dtype != torch.float32)
+    assert wplan.route == ("f32" if dtype == torch.float32 else "wgmma")
     ref_dx = gg.ragged_dot_plain(dy.float(), w.float().transpose(
         1, 2).contiguous(), off)
     ref_dw = gg.ragged_dot_wgrad_plain(x.float(), dy.float(), off)
@@ -2392,20 +2392,27 @@ def test_grouped_gemm_backward_matches_plain_on_card(case, K, N, dtype):
 @pytest.mark.parametrize("K,N", [(256, 1408), (1408, 512), (72, 136)])
 @pytest.mark.parametrize("sizes", [(3, 70, 0, 129, 5, 200, 1),
                                    (300, 0, 517, 261, 1, 460)])
-def test_grouped_backward_ignores_the_next_expert_on_card(sizes, K, N,
-                                                          dtype):
+@pytest.mark.parametrize("fill", ["max_both", "nan_x", "nan_dy", "inf_x",
+                                  "inf_dy"])
+def test_grouped_backward_ignores_the_next_expert_on_card(fill, sizes, K,
+                                                          N, dtype):
     """The rows past an expert's end, which the weight gradient's last
-    step of that expert loads, are zeroed before they are summed: with
-    the next expert's rows of x and dy made huge (the largest finite
-    value, products past the format's range), every other expert's dW and
-    dX rows are bit for bit what they were. The second split (256 rows
-    an expert) runs dW in clusters of two, whose multicast dy boxes each
-    block zeroes in its own copy."""
+    step of that expert loads, are zeroed in both operands before they
+    are summed: with the next expert's rows of x and dy made huge (the
+    largest finite value, products past the format's range), or with NaN
+    or Inf in those rows of one operand only (which zeroing only the
+    other would turn into NaN, 0 x NaN), every other expert's dW and dX
+    rows are bit for bit what they were."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
     R, E = sum(sizes), len(sizes)
-    assert gg.wgrad_plan(R, E, K, N, dtype).cluster == (R >= 256 * E)
+    # the value and which of x and dy hold it
+    value, in_x, in_dy = {"max_both": (torch.finfo(dtype).max, True, True),
+                          "nan_x": (float("nan"), True, False),
+                          "nan_dy": (float("nan"), False, True),
+                          "inf_x": (float("inf"), True, False),
+                          "inf_dy": (float("inf"), False, True)}[fill]
     g = torch.Generator(device="cuda")
     g.manual_seed(K + N)
     x = torch.randn(R, K, generator=g, device="cuda").to(dtype)
@@ -2417,13 +2424,15 @@ def test_grouped_backward_ignores_the_next_expert_on_card(sizes, K, N,
     gg.reset_launch_counts()
     dw0, dx0 = gg.ragged_dot_wgrad(x, dy, off), gg.ragged_dot_dgrad(dy, w,
                                                                    off)
-    big = torch.finfo(dtype).max
     for e in range(E):
         lo, hi = int(o[e]), int(o[e + 1])
         if hi == lo:
             continue
         xb, dyb = x.clone(), dy.clone()
-        xb[lo:hi], dyb[lo:hi] = big, big
+        if in_x:
+            xb[lo:hi] = value
+        if in_dy:
+            dyb[lo:hi] = value
         dw, dx = gg.ragged_dot_wgrad(xb, dyb, off), gg.ragged_dot_dgrad(
             dyb, w, off)
         torch.cuda.synchronize()

@@ -409,40 +409,20 @@ def _jax_vjp(x, w, sizes, dy):
 
 
 def _wgrad_tile(L, plan):
-    """Tile L's (e, k0, n0): expert L // (k_tiles x col_tiles), then in
-    clusters column tile and K tile (fastest), alone K tile and column
-    tile (fastest)."""
-    per, KT, NT = plan.k_tiles * plan.col_tiles, plan.k_tiles, \
-        plan.col_tiles
+    """Tile L's (e, k0, n0): expert L // (k_tiles x col_tiles), then K
+    tile and column tile (fastest)."""
+    per, NT = plan.k_tiles * plan.col_tiles, plan.col_tiles
     rem = L % per
-    kt, nt = (rem % KT, rem // KT) if plan.cluster else (rem // NT, rem % NT)
-    return L // per, kt * gg.WGRAD_K_TILE, nt * plan.bn
+    return L // per, rem // NT * gg.WGRAD_K_TILE, rem % NT * plan.bn
 
 
 def _wgrad_walk(E, plan):
-    """Each block's tiles in the weight gradient's persistent order: alone,
-    block b takes L = b, b + grid, ...; in clusters of two, the pair (2q,
-    2q + 1) takes tiles L, L + 1 for L = 2q, 2q + grid, ... (rank 1 idles
-    where L + 1 is past the last tile). Returns ({block: [(L, e, k0,
-    n0)]}, pair steps whose two tiles share their dy boxes, pair steps in
-    all)."""
+    """Each block's tiles in the weight gradient's persistent order: block
+    b takes L = b, b + grid, ... Returns {block: [(L, e, k0, n0)]}."""
     slots = E * plan.k_tiles * plan.col_tiles
-    if not plan.cluster:
-        return {b: [(L, *_wgrad_tile(L, plan))
-                    for L in range(b, slots, plan.grid)]
-                for b in range(plan.grid)}, 0, 0
-    walk, shared, steps = {}, 0, 0
-    for b in range(0, plan.grid, 2):
-        walk[b], walk[b + 1] = [], []
-        for L in range(b, slots, plan.grid):
-            t0 = _wgrad_tile(L, plan)
-            walk[b].append((L, *t0))
-            steps += 1
-            if L + 1 < slots:
-                t1 = _wgrad_tile(L + 1, plan)
-                walk[b + 1].append((L + 1, *t1))
-                shared += t1[0] == t0[0] and t1[2] == t0[2]
-    return walk, shared, steps
+    return {b: [(L, *_wgrad_tile(L, plan))
+                for L in range(b, slots, plan.grid)]
+            for b in range(plan.grid)}
 
 
 def _emulate_wgrad(x, dy, off, plan):
@@ -459,7 +439,7 @@ def _emulate_wgrad(x, dy, off, plan):
     N = dy.shape[1]
     E = off.shape[0] - 1
     o = off.tolist()
-    walk, _, _ = _wgrad_walk(E, plan)
+    walk = _wgrad_walk(E, plan)
     pad = lambda t: torch.cat([t, torch.zeros(64, t.shape[1])])  # noqa
     xp, dyp = pad(x), pad(dy)
     dw = torch.full((E, K, N), float("nan"))
@@ -503,7 +483,7 @@ WGRAD_SIZES = [
     (0, 1, 64, 0, 130, 7, 0),
     (0, 200, 0, 0, 65, 0),
     (64, 64, 1, 63, 0, 129),
-    (0, 600, 257, 0, 511),          # 274 rows an expert: clusters of two
+    (0, 600, 257, 0, 511),          # 274 rows an expert: 5-10 steps a tile
 ]
 
 
@@ -524,8 +504,8 @@ def test_wgrad_walk_emulation_equals_plain_and_jax(sizes, K, N, sms):
         np.int32))
     plan = gg.wgrad_plan(R, E, K, N, torch.bfloat16, sms)
     assert plan.route == "wgmma" and plan.grid <= sms
-    assert plan.cluster == (R >= 256 * E)
-    assert not plan.cluster or plan.grid % 2 == 0
+    assert plan.k_tiles == -(-K // gg.WGRAD_K_TILE)
+    assert plan.col_tiles == -(-N // plan.bn)
     dw, written, walk = _emulate_wgrad(torch.from_numpy(x),
                                        torch.from_numpy(dy), off, plan)
     assert written.eq(1).all()
@@ -538,45 +518,46 @@ def test_wgrad_walk_emulation_equals_plain_and_jax(sizes, K, N, sms):
                                rtol=1e-5)
     _, jdw = _jax_vjp(x, w, sizes, dy)
     np.testing.assert_allclose(dw.numpy(), jdw, atol=1e-4, rtol=1e-5)
-    # the tiles by L: expert -> column tile -> K tile in clusters (expert
-    # -> K tile -> column tile alone), each once; a pair's two tiles are
-    # neighbours in the walk
+    # the tiles by L: expert -> K tile -> column tile, each once
     order = sorted(t for tiles in walk.values() for t in tiles)
     assert [t[0] for t in order] == list(range(len(order)))
-    keys = [(e, n0, k0) if plan.cluster else (e, k0, n0)
-            for _, e, k0, n0 in order]
+    keys = [(e, k0, n0) for _, e, k0, n0 in order]
     assert keys == sorted(keys) and len(set(keys)) == len(keys)
     for b, tiles in walk.items():
-        if plan.cluster and b % 2:
-            assert [t[0] - 1 for t in tiles] == [
-                t[0] for t in walk[b - 1]][:len(tiles)]
-        if not plan.cluster:
-            assert [t[0] for t in tiles] == list(range(
-                b, b + plan.grid * len(tiles), plan.grid))
+        assert [t[0] for t in tiles] == list(range(
+            b, b + plan.grid * len(tiles), plan.grid))
 
 
-@pytest.mark.parametrize("R,E,K,N,share", [
-    # Qwen1.5-MoE-A2.7B at phase 32 (b) (136 rows an expert): alone
-    (8192, 60, 2048, 1408, None),
-    (8192, 60, 1408, 2048, None),
-    # Mixtral-8x7B's expert product (512 rows an expert): 32 K tiles
-    (4096, 8, 4096, 14336, 1.0),
-    # 300 rows an expert over 11 K tiles (odd): 10 pairs of 11 share
-    (18000, 60, 1408, 2048, 0.9),
+@pytest.mark.parametrize("R,E,K,N,experts", [
+    # Qwen1.5-MoE-A2.7B at phase 32 (b) (136 rows an expert): 96 and 88
+    # tiles an expert, so a wave of 132 blocks spans two or three experts
+    (8192, 60, 2048, 1408, 3),
+    (8192, 60, 1408, 2048, 2),
+    # Mixtral-8x7B's expert product (512 rows an expert): 32 x 56 tiles
+    # an expert, a wave within one or across two
+    (4096, 8, 4096, 14336, 2),
+    # 300 rows an expert over 11 K tiles and 8 column tiles
+    (18000, 60, 1408, 2048, 2),
 ])
-def test_wgrad_pairs_share_dy_at_the_served_shapes(R, E, K, N, share):
-    """The weight gradient runs in clusters of two from 256 rows an
-    expert; then most pair steps are two K tiles of one (expert, column
-    tile), whose dy boxes the pair multicasts: all of them where the K
-    tiles are even, 10 of 11 where they are odd. Every tile is walked
-    once either way."""
+def test_wgrad_walk_covers_every_tile_at_the_served_shapes(R, E, K, N,
+                                                           experts):
+    """At the served shapes the weight gradient's persistent blocks walk
+    every tile once, and the tiles one wave of blocks runs at once (L in
+    [i grid, (i + 1) grid)) belong to at most ``experts`` experts, whose
+    x and dy slabs they share in L2; neighbouring blocks take
+    neighbouring column tiles of one K tile."""
     plan = gg.wgrad_plan(R, E, K, N, torch.bfloat16, 132)
-    assert plan.cluster == (share is not None)
-    walk, shared, steps = _wgrad_walk(E, plan)
-    assert sorted(t[0] for ts in walk.values() for t in ts) == \
-        list(range(E * plan.k_tiles * plan.col_tiles))
-    if share is not None:
-        assert shared / steps >= share, (shared, steps)
+    assert plan.grid == 132
+    walk = _wgrad_walk(E, plan)
+    tiles = sorted(t for ts in walk.values() for t in ts)
+    assert [t[0] for t in tiles] == list(range(
+        E * plan.k_tiles * plan.col_tiles))
+    for i in range(0, len(tiles), plan.grid):
+        wave = tiles[i:i + plan.grid]
+        assert len({t[1] for t in wave}) <= experts
+    for (_, e0, k0, n0), (_, e1, k1, n1) in zip(tiles, tiles[1:]):
+        if (e1, k1) == (e0, k0):
+            assert n1 == n0 + plan.bn
 
 
 def test_wgrad_tail_zeroing_is_what_keeps_the_next_expert_out():
@@ -607,22 +588,18 @@ def test_wgrad_tail_zeroing_is_what_keeps_the_next_expert_out():
 
 @pytest.mark.parametrize("R,E,K,N,dtype,want", [
     # Qwen1.5-MoE-A2.7B's gate / up (2048 -> 1408) and down at phase 32
-    # (b)'s 8192 rows, alone; Mixtral-8x7B's gate / up (4096 -> 14336) and
-    # down at 4096 rows, in clusters: 256 columns by bytes a step
-    (8192, 60, 2048, 1408, torch.bfloat16,
-     ("wgmma", 256, False, 16, 6, 132)),
-    (8192, 60, 1408, 2048, torch.bfloat16,
-     ("wgmma", 256, False, 11, 8, 132)),
-    (4096, 8, 4096, 14336, torch.bfloat16,
-     ("wgmma", 256, True, 32, 56, 132)),
-    (4096, 8, 14336, 4096, torch.float16,
-     ("wgmma", 256, True, 112, 16, 132)),
-    # one 128-column tile (256) against one of 256 (384): 128; 4 tiles,
-    # 3 alone, 3 rounded up to even in clusters (768 rows of 3 experts)
-    (20, 4, 40, 24, torch.bfloat16, ("wgmma", 128, False, 1, 1, 4)),
-    (20, 3, 40, 24, torch.bfloat16, ("wgmma", 128, False, 1, 1, 3)),
-    (768, 3, 40, 24, torch.bfloat16, ("wgmma", 128, True, 1, 1, 4)),
-    (20, 4, 40, 24, torch.float32, ("f32", 64, False, 1, 1, 4)),
+    # (b)'s 8192 rows; Mixtral-8x7B's gate / up (4096 -> 14336) and down
+    # at 4096 rows: 256 columns by bytes a step
+    (8192, 60, 2048, 1408, torch.bfloat16, ("wgmma", 256, 16, 6, 132)),
+    (8192, 60, 1408, 2048, torch.bfloat16, ("wgmma", 256, 11, 8, 132)),
+    (4096, 8, 4096, 14336, torch.bfloat16, ("wgmma", 256, 32, 56, 132)),
+    (4096, 8, 14336, 4096, torch.float16, ("wgmma", 256, 112, 16, 132)),
+    # one 128-column tile (256) against one of 256 (384): 128; a block a
+    # tile, whatever the rows an expert
+    (20, 4, 40, 24, torch.bfloat16, ("wgmma", 128, 1, 1, 4)),
+    (20, 3, 40, 24, torch.bfloat16, ("wgmma", 128, 1, 1, 3)),
+    (768, 3, 40, 24, torch.bfloat16, ("wgmma", 128, 1, 1, 3)),
+    (20, 4, 40, 24, torch.float32, ("f32", 64, 1, 1, 4)),
 ])
 def test_wgrad_plan_at_the_served_shapes(R, E, K, N, dtype, want):
     plan = gg.wgrad_plan(R, E, K, N, dtype, 132)

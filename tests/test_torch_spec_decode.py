@@ -550,15 +550,22 @@ def test_build_hf_engine_with_a_draft_checkpoint(tmp_path):
 @pytest.fixture
 def fresh_reference(monkeypatch):
     """The JAX engine as a fresh process builds it, whatever ran before in
-    this process: no ``DSTPU_*`` serving or speculation knob from the
-    environment, no fault injector left installed, and no compiled
-    program kept from another test's engines (``jax.clear_caches``)."""
-    from deepspeed_tpu.resilience.fault_injection import set_fault_injector
-    for name in list(os.environ):
-        if name.startswith("DSTPU_"):
-            monkeypatch.delenv(name)
-    set_fault_injector(None)
-    jax.clear_caches()
+    this process: each ``DSTPU_*`` serving or speculation knob found in the
+    environment is removed for the test, and a fault injector found
+    installed is taken out. Returns what it found (printed, and named in
+    the test's assertion messages), so that a failure names the state
+    another test left behind."""
+    from deepspeed_tpu.resilience import fault_injection as fi
+    found = {name: os.environ[name] for name in sorted(os.environ)
+             if name.startswith("DSTPU_")}
+    for name in found:
+        monkeypatch.delenv(name)
+    inj = fi._INJECTOR
+    if inj is not None and inj is not fi._NOOP:
+        found["fault_injector"] = repr(inj)
+        monkeypatch.setattr(fi, "_INJECTOR", None)
+    print(f"fresh_reference removed: {found}")
+    return found
 
 
 def test_noisy_proposer_rollback_refcounts_exact(monkeypatch,
@@ -566,21 +573,20 @@ def test_noisy_proposer_rollback_refcounts_exact(monkeypatch,
     """Heavy rejection on a shared-prefix chain: every round retracts
     most of its span; shared blocks are decref'd exactly, never freed.
     The port's counters equal the JAX engine's under the same noise. The
-    JAX engine is built fresh (``fresh_reference``): in one multi-worker
-    run its noisy stream left spec off's, which no run of the file alone,
-    after other files, or under load has repeated. Last in the file, so
-    that the cleared caches cost no other test here its compiled
-    programs."""
+    JAX engine is built without the ``DSTPU_*`` knobs or fault injector
+    an earlier test may have left (``fresh_reference``): in one
+    multi-worker run its noisy stream left spec off's, which no run of
+    the file alone, after other files, or under load has repeated."""
     pair = _gpt2()
     want = _spec_off(PROMPTS, 10)
     monkeypatch.setenv("DSTPU_SPEC_NOISE", "0.6")
     jeng = _jax(pair, spec_decode="ngram", spec_k=4)
-    assert _stream(jeng, PROMPTS, 10) == want
+    assert _stream(jeng, PROMPTS, 10) == want, fresh_reference
     monkeypatch.delenv("DSTPU_SPEC_NOISE")
     eng = _noisy(_port(pair, spec_decode="ngram", spec_k=4))
     got = _stream(eng, PROMPTS, 10)
-    assert got == want
-    assert _counters(eng) == _counters(jeng)
+    assert got == want, fresh_reference
+    assert _counters(eng) == _counters(jeng), fresh_reference
     assert any(p > a for p, a in _counters(eng).values())
     st = eng.state.prefix_stats
     assert st["trims"] > 0, "noisy speculation never rolled back"
