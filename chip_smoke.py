@@ -286,17 +286,18 @@ bound and one library call:
              the 7B shapes), SDPA beside each: over an int8 pool SDPA on
              the same K/V in bf16, a reference only.
 24. hf serving — a random checkpoint in HuggingFace's layout with
-             Qwen/Qwen2-7B's published config.json (qwen2: 28 layers,
-             hidden 3584, 28 heads, 4 KV heads of 128, biased q/k/v,
-             vocab 152064, untied; Qwen2-1.5B's when the temporary space
-             cannot hold ~15.2 GB), bf16 tensors made on the card from a
+             Qwen/Qwen2-7B's published config.json at 14 of its 28
+             layers (``reduced``: the whole script's time; hidden 3584, 28
+             heads, 4 KV heads of 128, biased q/k/v, vocab 152064,
+             untied; Qwen2-1.5B's when the temporary space cannot hold
+             ~8.7 GB), bf16 tensors made on the card from a
              seed and written one at a time into safetensors shards of at
              most 5 GB with their index, removed at the end. Served
              through ``build_hf_engine``: the load seconds and parameter
              bytes, every loaded leaf bit-identical to the tensor written;
              16 prompts x 512 tokens, 64 new, greedy at pipeline depth 0,
              at depth 2 and through the decode loop, identical streams,
-             K1 (wgmma, TMA) and K2 (split) launched 28 times a step (GQA
+             K1 (wgmma, TMA) and K2 (split) launched 14 times a step (GQA
              7 at D 128); ``decode_pipelined`` with an EOS taken from a
              greedy stream ending there and giving back its blocks;
              sampled streams (temperature 0.8, top-k 50, top-p 0.95)
@@ -306,14 +307,15 @@ bound and one library call:
              the distribution its masks define on one logits row (p >
              1e-3); the first tokens of a dense-attention engine built
              from the same directory; ``quantization_mode="wf8"``: one
-             group-quantizer launch per quantized leaf (196), a few tokens
+             group-quantizer launch per quantized leaf (98), a few tokens
              served, first tokens against bf16. Prefill s, decode tok/s
              at depths 0 and 2 and peak memory; then K1, K2 and the
              quantizer at this path's shapes against their plain versions
              and timed, as phase 5 times. The directory and the loaded
              parameters stay for phase 25, after which they are removed.
 25. prefix serving — the KV block lifecycle on phase 24's Qwen2-7B
-             parameters (bf16, block 64, chunk 256, ``paged_flash``, 8
+             parameters (14 of 28 layers; bf16, block 64, chunk 256,
+             ``paged_flash``, 8
              slots, depth 2): six seeded 1000-token system preambles and 48
              requests (a preamble and a 24-200-token tail, 32 new greedy
              tokens) in 6 waves of 8, wave w on preambles 2w and 2w+1 (mod
@@ -521,6 +523,37 @@ bound and one library call:
              backward under ``set_sync_debug_mode("error")``. Step ms,
              tokens/s, peak memory; with ``--trace`` a profiler window
              over one step a run.
+33. resumable training — the training engine's checkpoints in the JAX
+             package's format (``save_checkpoint`` / ``load_checkpoint``),
+             its preemption and watchdog, and the elastic agent, in a
+             directory of the checkout (its free space printed first; the
+             phase fails when two tags would not fit) removed at the end.
+             (a) Phase 32 (a)'s TinyLlama-1.1B run, whole (22 layers, GQA
+             8, V 32000, bf16 over fp32 masters, AdamW with warm-up, micro
+             4 x seq 2048, flash and the fused xent): 3 steps, a sync
+             save (``global_step3``), a per-leaf digest on the card of the
+             whole state (params, both moments, the counts, the loss-scale
+             state, the key), steps 4-6; a second engine from weights of
+             another seed loads the tag: every digest bit-equal, the
+             counters and ``get_lr()`` equal, and steps 4-6 on the same
+             batches within 1e-4 relative of the uninterrupted ones. Bytes
+             written, the save split into device -> host, write, fsync
+             and checksum, the load into validate, read and host ->
+             device, the host's peak resident set. (b) The second engine
+             (``checkpoint.async_save``) saves at step 6: how long
+             ``save_checkpoint`` holds the caller, steps 7-8 timed over the
+             writer against (a)'s, then ``commit``: the tag validates
+             (deep) and ``latest`` names it. Flash and xent launches as
+             reckoned over (a) and (b)'s 11 steps. (c) A worker subprocess
+             (TinyLlama at 2 of 22 layers, published widths; ``reduced``:
+             the whole model's saves ran in (a) and (b)) with
+             ``resilience.preemption`` and ``resilience.watchdog`` under
+             ``run_elastic``: it sends itself SIGTERM before step 3, saves
+             ``global_step3`` at the step boundary and exits 99; the
+             restarted worker resumes there and finishes step 6; the
+             newest valid tag is ``global_step3``, the ledger holds a
+             ``restart`` (rc 99, a membership change) then ``success``,
+             and the watchdog's heartbeat file exists.
 
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
@@ -4195,6 +4228,9 @@ QWEN2_7B = {"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
             "use_sliding_window": False, "max_window_layers": 28,
             "bos_token_id": 151643, "eos_token_id": 151643,
             "torch_dtype": "bfloat16"}
+#: phases 24-25 serve Qwen2-7B at HF_LAYERS of its 28 layers (published
+#: widths; the whole script's time, cut when phase 33 came)
+HF_LAYERS = 14
 QWEN2_1P5B = {**QWEN2_7B, "hidden_size": 1536, "intermediate_size": 8960,
               "num_attention_heads": 12, "num_key_value_heads": 2,
               "vocab_size": 151936, "max_window_layers": 21,
@@ -4392,12 +4428,17 @@ def phase_hf_serving(torch):
     kept = False
     try:
         free = shutil.disk_usage(tmp).free
-        need = 2 * sum(math.prod(s[1]) for s in _qwen2_specs(QWEN2_7B))
-        hf, model = (QWEN2_7B, "Qwen/Qwen2-7B") if free > need * 1.05 \
+        qwen7 = {**QWEN2_7B, "num_hidden_layers": HF_LAYERS}
+        need = 2 * sum(math.prod(s[1]) for s in _qwen2_specs(qwen7))
+        hf, model = (qwen7, "Qwen/Qwen2-7B") if free > need * 1.05 \
             else (QWEN2_1P5B, "Qwen/Qwen2-1.5B")
         log(f"[hf] {tmp}: {free / 1e9:.1f} GB free, the 7B shards need "
             f"{need / 1e9:.2f} GB: writing {model}'s shape")
         out["model"], out["free_bytes"] = model, free
+        if hf is qwen7:
+            out["reduced"] = (f"depth cut to {HF_LAYERS} of 28 layers "
+                              f"(published widths kept; the whole "
+                              f"script's time)")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         nbytes, nshards = write_hf_checkpoint(torch, tmp, hf, seed=24)
@@ -8302,6 +8343,302 @@ def phase_family_training(torch, trace):
     return out, rows
 
 
+# --------------------------------------------------- resumable training
+
+#: phase 33: phase 32 (a)'s TinyLlama-1.1B run saved and resumed. Steps
+#: before the save and after it; the async save's extra steps; the
+#: preempted worker's depth (of 22 layers), its steps and the step it
+#: sends itself SIGTERM before; the seeds of the batches and of the
+#: second engine's weights
+RT_STEPS, RT_ASYNC_STEPS = 3, 2
+RT_WORKER_LAYERS, RT_WORKER_STEPS, RT_WORKER_SIGTERM = 2, 6, 3
+RT_SEED, RT_OTHER_SEED = 33, 34
+#: resumed losses against the uninterrupted ones: phase 32's bound
+#: between routes (the bf16 flash backward's dQ is not bit-identical
+#: from call to call)
+RT_REL = FT_PARITY_REL
+#: free space the phase needs beyond its two tags (the worker's tags)
+RT_DISK_MARGIN = 8 << 30
+RT_WORKER_TIMEOUT_S = 600
+
+
+def _rt_engine(torch, cfg, mb, seed, **ds):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import llama
+    _, init_fn, loss_fn = llama.make_model(cfg)
+    engine, *_ = initialize(loss_fn=loss_fn, config={**train_config(mb, 1),
+                                                     **ds},
+                            params=init_fn(seed=seed, device="cuda"))
+    return engine
+
+
+def _rt_batches(torch, cfg, mb, T, n):
+    g = torch.Generator(device="cuda").manual_seed(RT_SEED)
+    return [{"tokens": torch.randint(0, cfg.vocab_size, (mb, T + 1),
+                                     generator=g, device="cuda")}
+            for _ in range(n)]
+
+
+def _rt_digest(torch, engine):
+    """A digest of every leaf of the engine's state, on the card, by its
+    path in the checkpoint: a tensor's bits as integers summed plain,
+    position-weighted and squared (int64, wrapping); a scalar as itself."""
+    from deepspeed_tpu_torch.checkpoint import engine_checkpoint as ec
+    words = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for path, v, _ in ec.state_leaves(engine):
+        if not isinstance(v, torch.Tensor):
+            out[path] = v
+            continue
+        w = v.detach().reshape(-1).view(words[v.element_size()]).long()
+        pos = torch.arange(w.numel(), device=w.device) % 1000003 + 1
+        out[path] = torch.stack([w.sum(), (w * pos).sum(),
+                                 (w * w).sum()]).tolist()
+    return out
+
+
+def _rt_steps(torch, engine, batches):
+    """``train_batch`` over ``batches``: the losses and each step's ms by
+    CUDA events."""
+    evs = [torch.cuda.Event(enable_timing=True)
+           for _ in range(len(batches) + 1)]
+    evs[0].record()
+    losses = []
+    for i, b in enumerate(batches):
+        losses.append(engine.train_batch(b))
+        evs[i + 1].record()
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], \
+        [evs[i].elapsed_time(evs[i + 1]) for i in range(len(batches))]
+
+
+def _rt_stats(engine, what):
+    """The engine's split times of its last save or load, the host bytes
+    as ``host_bytes``."""
+    out = dict(engine.checkpoint_stats[what])
+    out["host_bytes"] = out.pop("bytes", None)
+    return out
+
+
+def _rt_tag_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def rt_worker() -> int:
+    """Phase 33 (c)'s worker (a subprocess under ``run_elastic``; set up
+    by env): TinyLlama at RT_WORKER_LAYERS of its 22 layers at published
+    widths, with ``resilience.preemption`` (urgent saves to
+    RT_SAVE_DIR) and ``resilience.watchdog`` (heartbeat RT_HEARTBEAT);
+    resumes from RT_SAVE_DIR, sends itself SIGTERM before step
+    RT_WORKER_SIGTERM, runs to step RT_WORKER_STEPS and writes its
+    progress to RT_PROGRESS."""
+    import os
+    import signal
+    import torch
+    sys.path.insert(0, str(ROOT))
+    save_dir, hb = os.environ["RT_SAVE_DIR"], os.environ["RT_HEARTBEAT"]
+    mb, T = FT_RUNS["tinyllama_1b"]
+    cfg = ft_config(torch, "tinyllama_1b", num_layers=RT_WORKER_LAYERS)
+    engine = _rt_engine(torch, cfg, mb, FT_SEED, resilience={
+        "preemption": {"enabled": True, "save_dir": save_dir},
+        "watchdog": {"enabled": True, "check_interval_s": 0.5,
+                     "heartbeat_file": hb}})
+    path, _ = engine.load_checkpoint(save_dir)
+    batches = _rt_batches(torch, cfg, mb, T, RT_WORKER_STEPS)
+    progress = {"resumed_from": path, "losses": {}}
+    while engine.global_steps < RT_WORKER_STEPS:
+        if engine.global_steps + 1 == RT_WORKER_SIGTERM and path is None:
+            os.kill(os.getpid(), signal.SIGTERM)   # before this step
+        step = engine.global_steps
+        loss = float(engine.train_batch(batches[step]))
+        progress["losses"][step + 1] = loss
+        progress["global_steps"] = engine.global_steps
+        with open(os.environ["RT_PROGRESS"], "a") as f:
+            f.write(json.dumps(progress) + "\n")
+    return 0
+
+
+def phase_resumable_training(torch):
+    """Phase 33: (a) a sync save of phase 32 (a)'s TinyLlama run at step
+    RT_STEPS and its resume on a second engine, every leaf bit-equal; (b)
+    an async save with steps over the writer; (c) a preempted worker
+    restarted under ``run_elastic``."""
+    import tempfile
+    from deepspeed_tpu_torch.checkpoint import (engine_checkpoint as ec,
+                                                validate_checkpoint_dir)
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_xent as fx
+    from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+    torch.backends.cuda.matmul.allow_tf32 = True
+    mb, T = FT_RUNS["tinyllama_1b"]
+    cfg = ft_config(torch, "tinyllama_1b")
+    work = Path(tempfile.mkdtemp(prefix=".phase33-", dir=ROOT))
+    out = {"layers": cfg.num_layers, "micro_batch": mb, "seq": T}
+    try:
+        # ---------------------------------------------------- (a) sync
+        n = 2 * RT_STEPS + RT_ASYNC_STEPS
+        batches = _rt_batches(torch, cfg, mb, T, n)
+        engine = _rt_engine(torch, cfg, mb, FT_SEED)
+        state_bytes = sum(v.numel() * v.element_size()
+                          for _, v, _ in ec.state_leaves(engine)
+                          if isinstance(v, torch.Tensor))
+        free = shutil.disk_usage(work).free
+        need = 2 * state_bytes + RT_DISK_MARGIN
+        log(f"[resumable] {work}: {free / 2**30:.1f} GiB free, "
+            f"{need / 2**30:.1f} GiB needed (two tags of "
+            f"{state_bytes / 2**30:.2f} GiB and the worker's)")
+        out.update(params=sum(p.numel() for p in engine.state.params),
+                   state_bytes=state_bytes, disk_free_bytes=free)
+        if free < need:
+            raise AssertionError(f"[resumable] {free} bytes free under "
+                                 f"{work}, {need} needed")
+        for m in (fa, fx, gg):
+            m.reset_launch_counts()
+        first, _ = _rt_steps(torch, engine, batches[:RT_STEPS])
+        save_dir = work / "ckpt"
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            path = engine.save_checkpoint(str(save_dir))
+            save_s = time.perf_counter() - t0
+        tag = Path(path).name
+        out["sync"] = {"tag": tag, "save_s": save_s,
+                       **_rt_stats(engine, "save"),
+                       "bytes": _rt_tag_bytes(path),
+                       "host_rss_peak_bytes": rss.peak,
+                       "host_rss_delta_bytes": rss.delta}
+        saved = _rt_digest(torch, engine)
+        lr, counters = engine.get_lr()[0], (engine.global_steps,
+                                            engine.global_samples)
+        want, a_ms = _rt_steps(torch, engine, batches[RT_STEPS:2 * RT_STEPS])
+        del engine
+        torch.cuda.empty_cache()
+        engine = _rt_engine(torch, cfg, mb, RT_OTHER_SEED,
+                            checkpoint={"async_save": True})
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            loaded, _ = engine.load_checkpoint(str(save_dir))
+            load_s = time.perf_counter() - t0
+        out["load"] = {"load_s": load_s, **_rt_stats(engine, "load"),
+                       "host_rss_peak_bytes": rss.peak,
+                       "host_rss_delta_bytes": rss.delta}
+        got = _rt_digest(torch, engine)
+        bad = [p for p in saved if got.get(p) != saved[p]]
+        if Path(loaded).name != tag or bad or set(got) != set(saved):
+            raise AssertionError(f"[resumable] loaded {loaded}: leaves "
+                                 f"differ from the saved state: {bad[:8]}")
+        if (engine.get_lr()[0], (engine.global_steps,
+                                 engine.global_samples)) != (lr, counters):
+            raise AssertionError(f"[resumable] lr / counters after the "
+                                 f"load: {engine.get_lr()[0]} "
+                                 f"{engine.global_steps} != {lr} {counters}")
+        resumed, _ = _rt_steps(torch, engine,
+                               batches[RT_STEPS:2 * RT_STEPS])
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, want))
+        out.update(leaves=len(saved), bit_equal=True, lr=lr,
+                   losses={"first": first, "uninterrupted": want,
+                           "resumed": resumed, "max_rel": rel},
+                   step_ms=a_ms)
+        log(f"[resumable] (a) {tag}: {out['sync']['bytes']} bytes, save "
+            f"{save_s:.2f} s {json.dumps(out['sync'])}; load "
+            f"{load_s:.2f} s {json.dumps(out['load'])}; "
+            f"{len(saved)} leaves bit-equal; losses {want} resumed "
+            f"{resumed} (max rel {rel:.3e}, limit {RT_REL}); step ms "
+            f"{[round(x, 2) for x in a_ms]}")
+        if not rel <= RT_REL:
+            raise AssertionError(f"[resumable] resumed losses {rel} from "
+                                 f"the uninterrupted run")
+        # --------------------------------------------------- (b) async
+        t0 = time.perf_counter()
+        path = engine.save_checkpoint(str(save_dir))
+        hold_s = time.perf_counter() - t0
+        ck = engine._ckpt_engine
+        losses, b_ms = _rt_steps(torch, engine, batches[2 * RT_STEPS:])
+        overlapped = ck._thread is not None and ck._thread.is_alive()
+        t0 = time.perf_counter()
+        ck.commit()
+        commit_s = time.perf_counter() - t0
+        ok, reason = validate_checkpoint_dir(path, deep=True)
+        latest = (save_dir / ec.LATEST_FILE).read_text()
+        out["async"] = {"tag": Path(path).name, "hold_s": hold_s,
+                        "commit_wait_s": commit_s,
+                        **_rt_stats(engine, "save"),
+                        "bytes": _rt_tag_bytes(path), "step_ms": b_ms,
+                        "writer_ran_over_steps": overlapped,
+                        "losses": losses, "valid": ok}
+        log(f"[resumable] (b) async {Path(path).name}: save_checkpoint "
+            f"held {hold_s:.2f} s, steps {[round(x, 2) for x in b_ms]} ms "
+            f"over the writer ({overlapped}) against (a)'s "
+            f"{[round(x, 2) for x in a_ms]}, commit waited "
+            f"{commit_s:.2f} s; {json.dumps(out['async'])}; {reason}")
+        if not ok or latest != Path(path).name or \
+                not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"[resumable] async tag: {reason}, latest "
+                                 f"{latest}, losses {losses}")
+        launches = _ft_launches(fa, fx, gg)
+        # engine one's 2 x RT_STEPS steps, engine two's RT_STEPS resumed
+        # and RT_ASYNC_STEPS over the writer
+        expect, _ = _ft_want(torch, cfg, fa, fx, gg,
+                             3 * RT_STEPS + RT_ASYNC_STEPS)
+        out["launches"] = launches
+        if launches != expect:
+            raise AssertionError(f"[resumable] launches {launches} != "
+                                 f"{expect}")
+        del engine, ck
+        torch.cuda.empty_cache()
+        shutil.rmtree(save_dir)
+        # ------------------------------------------- (c) the preempted
+        out["preempted"] = rt_preempted(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def rt_preempted(work):
+    """Phase 33 (c): ``rt_worker`` under ``run_elastic``; the checks of
+    the module docstring."""
+    import os
+    from deepspeed_tpu_torch.checkpoint import find_valid_tag
+    from deepspeed_tpu_torch.elasticity import run_elastic
+    save_dir, ledger = work / "worker", work / "ledger.json"
+    hb, progress = work / "heartbeat.json", work / "progress.jsonl"
+    env = {"RT_SAVE_DIR": str(save_dir), "RT_HEARTBEAT": str(hb),
+           "RT_PROGRESS": str(progress),
+           "PYTHONPATH": str(ROOT) + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    cmd = [sys.executable, "-c", "import sys, chip_smoke; "
+           "sys.exit(chip_smoke.rt_worker())"]
+    t0 = time.perf_counter()
+    rc = run_elastic(cmd, {"max_train_batch_size": 8,
+                           "micro_batch_sizes": [FT_RUNS["tinyllama_1b"][0]],
+                           "min_gpus": 1, "max_gpus": 1, "version": 0.1},
+                     max_restarts=2, min_restart_interval_s=0.0,
+                     crash_loop_budget=1, ledger_path=str(ledger), env=env)
+    wall = time.perf_counter() - t0
+    events = json.loads(ledger.read_text())["events"]
+    kinds = [e["event"] for e in events]
+    restart = next((e for e in events if e["event"] == "restart"), {})
+    runs = [json.loads(x) for x in progress.read_text().splitlines()]
+    tag = find_valid_tag(str(save_dir))
+    out = {"rc": rc, "wall_s": wall, "events": kinds,
+           "restart": {k: restart.get(k) for k in
+                       ("rc", "membership_change", "runtime_s")},
+           "tag": tag, "final_steps": runs[-1]["global_steps"],
+           "resumed_from": runs[-1]["resumed_from"],
+           "losses": runs[-1]["losses"], "heartbeat": hb.exists(),
+           "layers": RT_WORKER_LAYERS}
+    log(f"[resumable] (c) agent rc {rc} in {wall:.1f} s: {kinds}, restart "
+        f"{out['restart']}, resumed from {out['resumed_from']} to step "
+        f"{out['final_steps']}, valid tag {tag}, heartbeat {out['heartbeat']}")
+    if not (rc == 0 and tag == f"global_step{RT_WORKER_SIGTERM}"
+            and restart.get("rc") == 99 and restart.get("membership_change")
+            is True and kinds[-1] == "success"
+            and out["final_steps"] == RT_WORKER_STEPS
+            and Path(out["resumed_from"] or "").name == tag
+            and out["heartbeat"]):
+        raise AssertionError(f"[resumable] the preempted worker: {out}")
+    return out
+
+
 def main(argv) -> int:
     unknown = [a for a in argv
                if a not in ("--trace", "--fp6-sweep", "--norm-sweep",
@@ -8404,7 +8741,10 @@ def main(argv) -> int:
     rows += loadgen_rows
     family_training, ft_rows = run(phase_family_training, torch, tracing)
     rows += ft_rows
+    resumable = run(phase_resumable_training, torch)
     for r in rows:
+        if r["name"] in resumable["launches"]:
+            r["launches_phase33"] = resumable["launches"][r["name"]]
         if r["name"] in ("flash_fwd", "flash_bwd"):
             r["gqa"] = {run: t["flash_gqa"][r["name"]] for run, t in
                         family_training.items() if "flash_gqa" in t}
@@ -8429,7 +8769,8 @@ def main(argv) -> int:
               "fleet_serving": fleet, "loadgen": loadgen,
               "family_training": {run: {k: v for k, v in r.items()
                                         if k != "trace"}
-                                  for run, r in family_training.items()}}
+                                  for run, r in family_training.items()},
+              "resumable_training": resumable}
     if trace is not None:
         result["trace"] = trace
         result["train_trace"] = train["trace"]

@@ -160,6 +160,21 @@ class ElasticityConfig(ConfigModel):
 
 
 @dataclass
+class CheckpointConfig(ConfigModel):
+    """``checkpoint``: the engine reads ``async_save`` (a background
+    writer, ``checkpoint/checkpoint_engine.py``), ``save_retries`` and
+    ``retry_backoff_s`` (bounded retries of a save's I/O); the other keys
+    are accepted and, as in the JAX package, read by nothing."""
+    tag_validation: str = "Warn"      # Ignore | Warn | Fail
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write: Dict[str, Any] = field(default_factory=dict)
+    async_save: bool = False
+    save_retries: int = 3
+    retry_backoff_s: float = 0.5
+
+
+@dataclass
 class WatchdogConfig(ConfigModel):
     enabled: bool = False
     stall_factor: float = 5.0
@@ -192,7 +207,6 @@ UNPORTED_KEYS: Dict[str, Any] = {
     "memory_breakdown": (False, "A7 (the training observatory)"),
     "dump_state": (False, "A7 (the training observatory)"),
     "curriculum_learning": ({}, "A7 (data_pipeline/)"),
-    "checkpoint": ({}, "A7 (checkpoint/)"),
     "prescale_gradients": (False, "A8 (multi-device)"),
     "gradient_predivide_factor": (1.0, "A8 (multi-device)"),
     "prescale_gradients_factor": (1.0, "A8 (multi-device)"),
@@ -258,6 +272,7 @@ class Config(ConfigModel):
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
     elasticity: ElasticityConfig = field(default_factory=ElasticityConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     compression_training: Dict[str, Any] = field(default_factory=dict)
 
     DEPRECATED_ALIASES = {
@@ -307,20 +322,41 @@ class Config(ConfigModel):
         if not is_auto(stages) and stages not in (None, 1):
             raise NotImplementedError(
                 "pipeline parallelism is not ported (ROADMAP A8)")
-        if self.elasticity.enabled:
-            raise NotImplementedError(
-                "elasticity is not ported (ROADMAP A9)")
-        if self.resilience.watchdog.enabled \
-                or self.resilience.preemption.enabled:
-            raise NotImplementedError(
-                "the training engine's step watchdog and preemption are "
-                "not ported (ROADMAP A7.1; the serving engine has both)")
 
     # ------------------------------------------------------------------ #
     # batch-size resolution: train_batch = micro * gas * dp_world
     # ------------------------------------------------------------------ #
 
     def resolve_batch_sizes(self, dp_world_size: int = 1) -> None:
+        if self.elasticity.enabled and not getattr(
+                self.elasticity, "_resolved", False):
+            # elastic mode: the batch configuration is computed, not given
+            # (the JAX package's compute_elastic_config and its
+            # immutable-config check)
+            from ..elasticity import (
+                compute_elastic_config, ensure_immutable_elastic_config)
+            ensure_immutable_elastic_config(self)
+            world = dp_world_size * int(self.elasticity.model_parallel_size)
+            tb, _counts, mb = compute_elastic_config(
+                self, world_size=world, return_microbatch=True)
+            if not self.elasticity.ignore_non_elastic_batch_info:
+                for key, got, want in (
+                        ("train_batch_size", self.train_batch_size, tb),
+                        ("train_micro_batch_size_per_gpu",
+                         self.train_micro_batch_size_per_gpu, mb),
+                        ("gradient_accumulation_steps",
+                         self.gradient_accumulation_steps,
+                         tb // (mb * dp_world_size))):
+                    if not is_auto(got) and got not in (None, want):
+                        raise ConfigError(
+                            f"elasticity is enabled: {key} must be left "
+                            f"'auto' or match the elastic value {want} "
+                            f"(got {got}); set ignore_non_elastic_batch_info "
+                            f"to override")
+            self.train_batch_size = tb
+            self.train_micro_batch_size_per_gpu = mb
+            self.gradient_accumulation_steps = tb // (mb * dp_world_size)
+            self.elasticity._resolved = True
         tb = None if is_auto(self.train_batch_size) else self.train_batch_size
         mb = (None if is_auto(self.train_micro_batch_size_per_gpu)
               else self.train_micro_batch_size_per_gpu)

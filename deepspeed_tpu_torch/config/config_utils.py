@@ -55,6 +55,17 @@ class ConfigModel:
                 kwargs[key] = value
         return cls(**kwargs)
 
+    def to_dict(self) -> Dict[str, Any]:
+        """The config as a JSON-ready dict (a checkpoint's meta records
+        it)."""
+        out = {}
+        for f in dataclasses.fields(self):
+            if f.name.startswith("_"):
+                continue
+            v = getattr(self, f.name)
+            out[f.name] = v.to_dict() if isinstance(v, ConfigModel) else v
+        return out
+
 
 def _nested_config_class(f: dataclasses.Field) -> Optional[Type[ConfigModel]]:
     """If the field's default factory builds a ConfigModel, that class."""

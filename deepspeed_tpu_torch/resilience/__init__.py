@@ -1,9 +1,9 @@
-"""Resilience layer (port of ``deepspeed_tpu/resilience``, its serving
-half): fault injection, the step watchdog, preemption grace, the restart
-ledger and the serve fault drill (``python -m
-deepspeed_tpu_torch.resilience.faultdrill --mode serve``). The training
-engine's use of the watchdog and of preemption, and the drill's training
-modes, are A7.1."""
+"""Resilience layer (port of ``deepspeed_tpu/resilience``): fault
+injection, the step watchdog, preemption grace, the restart ledger and the
+fault drill (``python -m deepspeed_tpu_torch.resilience.faultdrill``:
+the serve modes and the training checkpoint sites). The serving engine
+and the training engine both take the watchdog and preemption; the
+drill's ``collective`` site is A8 and its goodput drill A7.6."""
 
 from .fault_injection import (
     DISAGG_FAULT_SITE,

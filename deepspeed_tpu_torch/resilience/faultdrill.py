@@ -1,18 +1,26 @@
-"""Fault drill — crash a short serve loop at every injection site, then
-prove it recovers.
+"""Fault drill — crash a short train or serve loop at every injection
+site, then prove it recovers.
 
 Port of ``deepspeed_tpu/resilience/faultdrill.py`` (the JAX package's
-``bin/dstpu_faultdrill``), its serve half: host code that the port keeps
-its own copy of (it imports nothing of the JAX package). Run it as
-``python -m deepspeed_tpu_torch.resilience.faultdrill --mode serve``.
-Each worker is a subprocess (``python -c "from
+``bin/dstpu_faultdrill``): host code that the port keeps its own copy of
+(it imports nothing of the JAX package). Run it as ``python -m
+deepspeed_tpu_torch.resilience.faultdrill --mode serve`` (or ``--mode
+train --sites ...``). Each worker is a subprocess (``python -c "from
 deepspeed_tpu_torch.resilience.faultdrill import ..."``) that builds port
 GPT-2 engines (2 layers, hidden 32, fp32, seeded weights) on the device
 ``--device`` names (``cuda`` unless asked otherwise; ``cpu`` runs the
-plain path). Not ported yet: the training modes (``--mode train``, the
-default, and ``train_goodput``), which need the training engine's
-checkpoints and watchdog (ROADMAP A7.1), its goodput ledger (A7.6) and
-the elastic agent (A8); they raise ``NotImplementedError``.
+plain path).
+
+``--mode train`` (the default), for each training site: a worker trains
+the tiny GPT-2 ``DRILL_STEPS`` steps, checkpointing every step, and the
+armed site crashes it (``os._exit``; the save sites after two clean
+saves, ``step`` at ``DRILL_FAULT_STEP``); a second worker resumes from
+the newest valid tag and must finish with ``latest`` pointing at a tag
+that validates. Not ported: the ``collective`` site, which fires in the
+comm facade (ROADMAP A8), and ``train_goodput``, the goodput-ledger drill
+(A7.6); selecting either raises ``NotImplementedError`` before any
+worker runs, so the default site list raises and ``--mode train`` takes
+``--sites pre_save,mid_save,post_save_pre_latest,step``.
 
 ``--mode serve``, for each site in
 :data:`~.fault_injection.SERVE_FAULT_SITES` plus the cooperative
@@ -86,18 +94,32 @@ DISAGG_WAVE = 3
 DISAGG_TOKENS = 6
 
 
-#: the goodput drill's pseudo-site (the training half: not ported yet)
+#: the goodput drill's pseudo-site (not ported: A7.6)
 GOODPUT_SITE = "train_goodput"
+
+#: steps the training drill's worker takes; the step site fires at
+#: DRILL_FAULT_STEP
+DRILL_STEPS = 5
+DRILL_FAULT_STEP = 3
 
 #: where the drill's workers build their engines (``main --device``;
 #: the workers read it as DRILL_DEVICE)
 _DEVICE = {"name": "cuda"}
 
-_TRAIN_NOT_PORTED = (
-    "the training fault drill (--mode train / train_goodput, the "
-    "checkpoint sites) is not ported yet (queue items A7.1: the training "
-    "engine's checkpoints and watchdog; A7.6: the goodput ledger; A8: "
-    "the elastic agent)")
+#: the sites of the JAX drill that the port does not drill yet, with
+#: the queue item that brings each
+NOT_PORTED = {
+    "collective": "the collective site fires in the comm facade, which is "
+                  "multi-device training (ROADMAP A8)",
+    GOODPUT_SITE: "the goodput-ledger drill needs the training "
+                  "observatory's goodput ledger (ROADMAP A7.6)",
+}
+
+
+def _refuse(site: str) -> None:
+    if site in NOT_PORTED:
+        raise NotImplementedError(
+            f"fault drill site '{site}' is not ported: {NOT_PORTED[site]}")
 
 
 def _drill_device():
@@ -122,8 +144,37 @@ def _drill_gpt2(max_seq_len: int, dev):
 
 
 def _worker() -> int:
-    """The training drill's worker: not ported yet."""
-    raise NotImplementedError(_TRAIN_NOT_PORTED)
+    """The training drill's worker (subprocess; configured by env):
+    trains the drill's GPT-2 DRILL_STEPS steps on seeded batches,
+    checkpointing every step to ``DRILL_SAVE_DIR``, after resuming from
+    it when a checkpoint is there; writes its ``global_steps`` to
+    ``DRILL_PROGRESS_FILE`` after each step."""
+    import numpy as np
+    import torch
+
+    from .. import initialize
+    from ..models.gpt2 import make_model
+
+    save_dir = os.environ["DRILL_SAVE_DIR"]
+    progress_file = os.environ["DRILL_PROGRESS_FILE"]
+    dev = _drill_device()
+    mcfg, params = _drill_gpt2(32, dev)
+    engine, _, _, _ = initialize(
+        loss_fn=make_model(mcfg)[2], params=params, device=dev, config={
+            "train_micro_batch_size_per_gpu": 2,
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-2}},
+            "steps_per_print": 1000,
+        })
+    engine.load_checkpoint(save_dir)
+    while engine.global_steps < DRILL_STEPS:
+        rng = np.random.RandomState(engine.global_steps)
+        batch = {"tokens": torch.from_numpy(rng.randint(
+            0, mcfg.vocab_size, size=(engine.config.train_batch_size, 18)))}
+        engine.train_batch(batch)
+        engine.save_checkpoint(save_dir)
+        with open(progress_file, "w") as f:
+            json.dump({"global_steps": engine.global_steps}, f)
+    return 0
 
 
 def _serve_worker() -> int:
@@ -654,8 +705,8 @@ def drill_disagg(workdir: str, verbose: bool = True) -> dict:
 
 
 def drill_train_goodput(workdir: str, verbose: bool = True) -> dict:
-    """The goodput-ledger drill: not ported yet."""
-    raise NotImplementedError(_TRAIN_NOT_PORTED)
+    """The goodput-ledger drill: not ported (A7.6)."""
+    _refuse(GOODPUT_SITE)
 
 
 def _run_worker(env: dict, fn: str = "_worker") -> int:
@@ -670,9 +721,68 @@ def _run_worker(env: dict, fn: str = "_worker") -> int:
 
 
 def drill_site(site: str, workdir: str, verbose: bool = True) -> dict:
-    """The checkpoint crash-then-recover drill of one training site: not
-    ported yet."""
-    raise NotImplementedError(_TRAIN_NOT_PORTED)
+    """Crash-then-recover drill for one training site. Returns a result
+    dict with ``recovered`` True/False plus diagnostics."""
+    _refuse(site)
+    site_dir = os.path.join(workdir, site)
+    os.makedirs(site_dir, exist_ok=True)
+    save_dir = os.path.join(site_dir, "ckpt")
+    progress_file = os.path.join(site_dir, "progress.json")
+    marker = os.path.join(site_dir, "fired.marker")
+
+    env = dict(os.environ)
+    env.update({
+        "DRILL_DEVICE": _DEVICE["name"],
+        "DRILL_SAVE_DIR": save_dir,
+        "DRILL_PROGRESS_FILE": progress_file,
+        "DSTPU_FAULT_SITE": site,
+        "DSTPU_FAULT_MODE": "exit",
+        "DSTPU_FAULT_STEP": str(DRILL_FAULT_STEP),
+        "DSTPU_FAULT_ONCE_FILE": marker,
+        # save sites: let a couple of clean saves land first so recovery
+        # has a previous tag to fall back to
+        "DSTPU_FAULT_SKIP": "2" if site in (
+            "pre_save", "mid_save", "post_save_pre_latest") else "0",
+    })
+
+    result = {"site": site}
+    rc_crash = _run_worker(env)
+    result["crash_rc"] = rc_crash
+    result["fault_fired"] = os.path.exists(marker)
+    if rc_crash == 0 or not result["fault_fired"]:
+        result["recovered"] = False
+        result["error"] = ("worker did not crash — injection site never "
+                           "reached")
+        return result
+
+    rc_rec = _run_worker(env)             # marker disarms the injector
+    result["recover_rc"] = rc_rec
+    progress = {}
+    if os.path.exists(progress_file):
+        with open(progress_file) as f:
+            progress = json.load(f)
+    result["final_steps"] = progress.get("global_steps")
+
+    from ..checkpoint.engine_checkpoint import (
+        LATEST_FILE, validate_checkpoint_dir)
+    latest_ok = False
+    latest_path = os.path.join(save_dir, LATEST_FILE)
+    if os.path.exists(latest_path):
+        with open(latest_path) as f:
+            tag = f.read().strip()
+        latest_ok, reason = validate_checkpoint_dir(
+            os.path.join(save_dir, tag))
+        result["latest_tag"] = tag
+        if not latest_ok:
+            result["latest_invalid"] = reason
+    result["recovered"] = (rc_rec == 0
+                           and progress.get("global_steps") == DRILL_STEPS
+                           and latest_ok)
+    if verbose:
+        print(f"[faultdrill:{site}] crash_rc={rc_crash} "
+              f"recover_rc={rc_rec} final_steps={result['final_steps']} "
+              f"recovered={result['recovered']}", file=sys.stderr)
+    return result
 
 
 def _serve_env(workdir: str, phase: str, **extra) -> dict:
@@ -994,26 +1104,27 @@ def drill_overload(workdir: str, verbose: bool = True) -> dict:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    """``python -m deepspeed_tpu_torch.resilience.faultdrill``. The
-    default ``--mode train`` (the checkpoint drill) is not ported yet and
-    raises, as do ``train_goodput``, ``all`` and a training site in
-    ``--sites``: run ``--mode serve``, ``fleet``, ``disagg`` or
-    ``overload``."""
+    """``python -m deepspeed_tpu_torch.resilience.faultdrill``. Sites the
+    port does not drill (``collective``: A8; ``train_goodput``: A7.6)
+    raise before any worker runs, so the default ``--mode train`` (every
+    training site) and ``all`` raise: name the training sites with
+    ``--sites``."""
     ap = argparse.ArgumentParser(
         prog="python -m deepspeed_tpu_torch.resilience.faultdrill",
-        description="crash a short serve loop at each fault-injection "
-                    "site and verify recovery (exit non-zero on any "
-                    "unrecovered failure)")
+        description="crash a short train or serve loop at each "
+                    "fault-injection site and verify recovery (exit "
+                    "non-zero on any unrecovered failure)")
     ap.add_argument("--mode", default="train",
                     choices=("train", "serve", "fleet", "train_goodput",
                              "overload", "disagg", "all"),
-                    help="train: checkpoint-recovery drill (not ported "
-                         "yet: A7.1); serve: drain/replay drill (serve "
+                    help="train: checkpoint-recovery drill (its "
+                         "collective site is A8); serve: drain/replay "
+                         "drill (serve "
                          "sites + sigterm); fleet: kill-one-of-N "
                          "replica-pool drill (SIGTERM under offered "
                          "load, survivor replay + rollup exactness); "
                          "train_goodput: the goodput-ledger drill (not "
-                         "ported yet: A7.6, A8); overload: 2.5x-capacity "
+                         "ported: A7.6); overload: 2.5x-capacity "
                          "spike, admission controller on vs off; disagg: "
                          "aborted-handoff + prefill-specialist-kill "
                          "drill; all: every mode")
@@ -1054,12 +1165,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         sites = (list(TRAIN_FAULT_SITES) + serve_sites
                  + [FLEET_SITE, GOODPUT_SITE, OVERLOAD_SITE,
                     DISAGG_SITE])
-    if any(site in TRAIN_FAULT_SITES or site == GOODPUT_SITE
-           for site in sites):
-        raise NotImplementedError(_TRAIN_NOT_PORTED)
+    for site in sites:                     # refused before any run
+        _refuse(site)
     workdir = args.workdir or tempfile.mkdtemp(prefix="dstpu_faultdrill_")
 
     results = [drill_fleet(workdir) if site == FLEET_SITE
+               else drill_site(site, workdir)
+               if site in TRAIN_FAULT_SITES
                else drill_overload(workdir)
                if site == OVERLOAD_SITE
                else drill_disagg(workdir)

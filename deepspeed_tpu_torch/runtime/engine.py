@@ -30,16 +30,27 @@ the same noise. The trio queues micro-batches (``forward``) and runs
 (``step``), as the JAX engine does.
 
 Host synchronisation: none per step in bf16/fp32 (one, on the loss, with
-``wall_clock_breakdown``); under fp16 the overflow flag is read back each
-step (the JAX engine reads it back too). Not in this
-slice: ``save_checkpoint`` / ``load_checkpoint`` (A7.2), the training
-watchdog and preemption (A7.1b), the training observatory, the flops
-profiler and the monitors (ROADMAP A7).
+``wall_clock_breakdown`` or the watchdog); under fp16 the overflow flag
+is read back each step (the JAX engine reads it back too).
+
+Resume: ``save_checkpoint`` / ``load_checkpoint`` write and read the JAX
+package's on-disk format (``checkpoint/engine_checkpoint.py``), so a
+tag of either engine resumes in the other. ``resilience.watchdog``
+brackets each ``train_batch`` (``step_start``, ``phase("compiled_step")``,
+``step_end`` after a sync on the loss, ``step_abort`` when the step
+raises), and ``resilience.preemption`` makes a signal, at the next step
+boundary, an urgent save to ``resilience.preemption.save_dir`` (or the
+last save's directory) and ``SystemExit(MEMBERSHIP_CHANGE_EXIT)`` for the
+elastic agent (``elasticity/``) to restart the worker. Not in this
+slice: the training observatory, the flops profiler and the monitors
+(ROADMAP A7).
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import weakref
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -47,6 +58,7 @@ import torch
 
 from ..config.config import Config, ConfigError
 from ..ops.optimizers import AdamState, build_optimizer
+from ..resilience.fault_injection import get_fault_injector
 from ..utils.device import resolve_device
 from ..utils import random as trandom
 from ..utils.dtypes import cast_floating, resolve_dtype
@@ -115,6 +127,12 @@ class Engine:
         self.device = resolve_device(device)
         self.config = config
         self.loss_fn = loss_fn
+        elastic_ws = os.environ.get("DSTPU_ELASTIC_WORLD_SIZE")
+        if elastic_ws and int(elastic_ws) > 1:
+            raise NotImplementedError(
+                f"DSTPU_ELASTIC_WORLD_SIZE={elastic_ws}: the engine trains "
+                f"on one card; multi-device training is not ported "
+                f"(ROADMAP A8)")
 
         config.resolve_batch_sizes(1)
         self.micro_batch_size = config.train_micro_batch_size_per_gpu
@@ -154,6 +172,33 @@ class Engine:
             batch_size=config.train_batch_size,
             steps_per_output=config.steps_per_print)
 
+        # resilience: step watchdog, preemption grace, checkpoints
+        self._last_save_dir: Optional[str] = None
+        self._ckpt_engine = None
+        #: split times of the last save and load
+        #: (``checkpoint/engine_checkpoint.py``)
+        self.checkpoint_stats: Dict[str, Dict[str, float]] = {
+            "save": {}, "load": {}}
+        rcfg = config.resilience
+        self._watchdog = None
+        if rcfg.watchdog.enabled:
+            from ..resilience.watchdog import StepWatchdog
+            w = rcfg.watchdog
+            self._watchdog = StepWatchdog(
+                stall_factor=w.stall_factor,
+                check_interval_s=w.check_interval_s,
+                min_median_samples=w.min_median_samples,
+                min_stall_s=w.min_stall_s, action=w.action,
+                heartbeat_file=w.heartbeat_file)
+            # the polling thread must not outlive the engine (a stale dog
+            # would keep rewriting heartbeat_file and, with action=abort,
+            # could kill a process whose engine is long gone)
+            weakref.finalize(self, self._watchdog.stop)
+        self._preemption = None
+        if rcfg.preemption.enabled:
+            from ..resilience.preemption import PreemptionHandler
+            self._preemption = PreemptionHandler(rcfg.preemption.signals)
+
     # ------------------------------------------------------------------ #
 
     @property
@@ -188,6 +233,35 @@ class Engine:
                               f"train_batch_size ({expected}), got {lead}")
         self.tput_timer.start()
         self.timers(TRAIN_BATCH_TIMER).start()
+        get_fault_injector().maybe_fire("step", step=self.global_steps)
+        wd = self._watchdog
+        if wd is not None:
+            wd.step_start(self.global_steps)
+            wd.phase("compiled_step")
+        try:
+            mean_loss = self._step(batch)
+        except BaseException:
+            # a dead step must not read as an eternal stall (with
+            # action='abort' a stale in-flight marker would kill the
+            # process after the caller recovered)
+            if wd is not None:
+                wd.step_abort()
+            raise
+        if wd is not None:
+            # the recorded duration is the step's device time, not its
+            # enqueue (and a hung step parks here, where the dog watches)
+            try:
+                float(mean_loss)
+            except BaseException:
+                wd.step_abort()
+                raise
+            wd.step_end(self.global_steps)
+        self._maybe_handle_preemption()
+        return mean_loss
+
+    def _step(self, batch: Any) -> torch.Tensor:
+        cfg = self.config
+        expected = cfg.train_batch_size
         batch = _to_device(batch, self.device)
         gas, mb = self.gradient_accumulation_steps, self.micro_batch_size
         fp16 = cfg.fp16.enabled
@@ -315,3 +389,60 @@ class Engine:
         m = self._last_metrics
         return float(m.grad_norm) if m is not None else None
 
+    # resilience ----------------------------------------------------------
+
+    @property
+    def preemption(self):
+        """The PreemptionHandler (None unless resilience.preemption is
+        enabled). External schedulers can call ``.request()`` on it."""
+        return self._preemption
+
+    def _maybe_handle_preemption(self) -> None:
+        """At the step boundary (the only consistent point): urgent save,
+        then exit with MEMBERSHIP_CHANGE_EXIT so the elastic agent
+        restarts the worker."""
+        if self._preemption is None or not self._preemption.preempted:
+            return
+        from ..checkpoint.checkpoint_engine import flush_all_pending
+        from ..resilience.watchdog import MEMBERSHIP_CHANGE_EXIT
+        save_dir = (self.config.resilience.preemption.save_dir
+                    or self._last_save_dir)
+        if save_dir:
+            logger.warning(
+                f"preemption: urgent checkpoint at step {self.global_steps} "
+                f"-> {save_dir}")
+            self.save_checkpoint(save_dir)
+            # async engines: the write must be durable before the exit
+            flush_all_pending()
+        else:
+            logger.error(
+                "preemption: no save_dir configured and no prior "
+                "save_checkpoint dir — exiting WITHOUT a final checkpoint")
+        logger.warning(f"preemption: exiting {MEMBERSHIP_CHANGE_EXIT} "
+                       f"for elastic restart")
+        raise SystemExit(MEMBERSHIP_CHANGE_EXIT)
+
+    # checkpoints (checkpoint/engine_checkpoint.py) ----------------------
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[dict] = None,
+                        save_latest: bool = True) -> str:
+        """Write the state to ``<save_dir>/<tag>`` (default
+        ``global_step<N>``) in the JAX package's format and point
+        ``latest`` at it; returns the tag's directory."""
+        from ..checkpoint.engine_checkpoint import save_checkpoint as _save
+        return _save(self, save_dir, tag=tag, client_state=client_state,
+                     save_latest=save_latest)
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True,
+                        load_module_only: bool = False):
+        """Restore a tag (default: the newest valid one ``latest`` leads
+        to); returns ``(path, client_state)``, ``(None, {})`` when there is
+        nothing to load."""
+        from ..checkpoint.engine_checkpoint import load_checkpoint as _load
+        return _load(self, load_dir, tag=tag,
+                     load_optimizer_states=load_optimizer_states,
+                     load_lr_scheduler_states=load_lr_scheduler_states,
+                     load_module_only=load_module_only)

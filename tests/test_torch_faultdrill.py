@@ -1,18 +1,20 @@
-"""Port parity for the serve fault drill, on the CPU.
+"""Port parity for the fault drill, on the CPU.
 
 - The JAX package's ``TestFaultDrill`` (``tests/unit/test_resilience.py``)
-  runs on the port's fault sites and drill: the documented site set, and
-  (slow, as in JAX) the hard-crash plus SIGTERM serve drill, here with
-  ``--device cpu``; so does the slow ``TestServeDrillFlightDump``
-  (``tests/unit/test_telemetry.py``). The training drill of that class
-  (``test_drill_recovers_torn_save``) needs the training engine's
-  checkpoints (A7.1): the port's drill refuses it, checked below.
+  runs on the port's fault sites and drill, here with ``--device cpu``:
+  the torn-save training drill (``mid_save`` and
+  ``post_save_pre_latest``: a worker crashed at the site, a second one
+  resumes from the newest valid tag and finishes), the documented site
+  set, and (slow, as in JAX) the hard-crash plus SIGTERM serve drill; so
+  does the slow ``TestServeDrillFlightDump``
+  (``tests/unit/test_telemetry.py``).
 - One serve site, ``mid_commit``, crashes a worker subprocess hard and
   recovers on a fresh engine from the journal, token-identical to the
   uninterrupted run, with the pool whole and a flight dump written.
-- ``--mode train`` (the default), ``train_goodput``, ``all`` and a
-  training site name their queue items; without a card the default
-  ``--device`` raises.
+- The sites not ported refuse before any worker runs, naming their queue
+  items: ``collective`` (A8; so the default ``--mode train``, which
+  includes it, and ``all``) and ``train_goodput`` (A7.6); without a card
+  the default ``--device`` raises.
 """
 
 import json
@@ -41,9 +43,12 @@ def _drill_on_the_cpu(monkeypatch):
            '                   "--workdir", str(tmp_path)]',
            '["--mode", "serve", "--sites", "mid_commit,sigterm",\n'
            '                   "--workdir", str(tmp_path), "--device", '
-           '"cpu"]'),))
-# the checkpoint drill is the training half (A7.1): refused below
-del TestFaultDrill.test_drill_recovers_torn_save
+           '"cpu"]'),
+          ('["--sites", "mid_save,post_save_pre_latest",\n'
+           '                   "--workdir", str(tmp_path)]',
+           '["--sites", "mid_save,post_save_pre_latest",\n'
+           '                   "--workdir", str(tmp_path), "--device", '
+           '"cpu"]')))
 (TestServeDrillFlightDump,) = port_cases(
     "tests/unit/test_telemetry.py", ("TestServeDrillFlightDump",),
     ("resilience",))
@@ -73,17 +78,20 @@ def test_serve_drill_site_recovers_on_the_cpu(tmp_path, capsys):
                                   ["--mode", "train_goodput"],
                                   ["--mode", "all"],
                                   ["--mode", "serve", "--sites",
-                                   "mid_commit,pre_save"]])
+                                   "mid_commit,collective"]])
 def test_training_drills_name_their_items(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="A7.1"):
+    """The default training sites and ``all`` include ``collective``
+    (A8); ``train_goodput`` is A7.6. Refused before any worker runs."""
+    item = "A7.6" if "train_goodput" in argv else "A8"
+    with pytest.raises(NotImplementedError, match=item):
         faultdrill.main([*argv, "--device", "cpu", "--workdir",
                          str(tmp_path)])
     assert not os.listdir(tmp_path)          # refused before any run
-    for fn in (faultdrill._worker,
-               lambda: faultdrill.drill_site("step", str(tmp_path)),
-               lambda: faultdrill.drill_train_goodput(str(tmp_path))):
-        with pytest.raises(NotImplementedError, match="A7.6"):
-            fn()
+    with pytest.raises(NotImplementedError, match="A8"):
+        faultdrill.drill_site("collective", str(tmp_path))
+    with pytest.raises(NotImplementedError, match="A7.6"):
+        faultdrill.drill_train_goodput(str(tmp_path))
+    assert not os.listdir(tmp_path)
 
 
 def test_device_defaults_to_the_card(monkeypatch, tmp_path):
@@ -102,4 +110,4 @@ def test_module_entry_point_refuses_the_training_default():
          "--device", "cpu"], cwd=ROOT, capture_output=True, text=True,
         env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "A7.1" in out.stderr
+    assert "NotImplementedError" in out.stderr and "A8" in out.stderr

@@ -351,8 +351,8 @@ def test_batch_size_resolution_matches(sizes):
     {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
     {"hybrid_engine": {"enabled": True}},
     {"pipeline": {"stages": 2}},
-    {"elasticity": {"enabled": True}},
-    {"resilience": {"watchdog": {"enabled": True}}},
+    {"activation_checkpointing": {"partition_activations": True}},
+    {"curriculum_learning": {"enabled": True}},
     {"compression_training": {"weight_quantization": {}}},
     {"tensorboard": {"enabled": True}},
     {"mesh": {"data": 2}},

@@ -6,7 +6,8 @@ the step watchdog, preemption and the restart ledger.
   the port's modules, but for the two that need what is not ported: the
   watchdog naming the last collective (collectives are A8; the port's
   diagnosis names none, checked here) and the training engine's watchdog
-  (A7.1). The fault-site tuples are the JAX ones.
+  (``tests/test_torch_train_resilience.py``). The fault-site tuples are
+  the JAX ones.
 - The JAX serve kill-point model (``TestKillPointModel``,
   ``tests/unit/test_serve_drain.py``) runs on port engines (the tiny
   Llama, fp32): an injected fault at a serve site, then drain and replay,
@@ -61,7 +62,7 @@ def _port_engine_cls(mcfg, params, cfg):
      "_clean_injector"),
     ("resilience",))
 # the collective a stall names is A8 (port version below); the training
-# engine's watchdog is A7.1
+# engine's watchdog is held in test_torch_train_resilience.py
 del TestStepWatchdog.test_stall_diagnosis_names_last_collective
 del TestStepWatchdog.test_engine_wires_watchdog_from_config
 (TestKillPointModel, oracle, _serve, _cfg, _assert_released,
