@@ -555,6 +555,37 @@ bound and one library call:
              ``restart`` (rc 99, a membership change) then ``success``,
              and the watchdog's heartbeat file exists.
 
+34. training options — the training step's remaining options.
+             (a) Phase 11's gpt1p3b (24 layers, hidden 2048, 16 heads of
+             128, V 50304, micro 2 x seq 2048, remat ``qkv_out``, fused
+             xent, compact AdamW) with dropout 0.1 (GPT-2's resid_pdrop)
+             through B19 (``ops/kernels/dropout.py``, JAX's threefry
+             mask): 2 warm-up and 5 timed steps beside phase 11's, every
+             count zeroed before and read after (B19 6 a layer a step:
+             forward, the recompute, backward; flash and xent as phase
+             11); B19 bit-equal to its plain version at layers 0 and 23,
+             both sites (inputs from an eval forward), and timed there
+             beside the plain version and ``F.dropout`` (Philox, other
+             bits: timed only), its bound the integer-pipe instructions of
+             its SASS (``cuobjdump -sass``) at 64 lanes an SM and the SM
+             clock ``nvidia-smi`` reports; 3 steps on fresh batches on
+             B19 and on the plain dropout route within 1e-4. (b) Lamb,
+             Lion, Adagrad, SGD (momentum, Nesterov, decay), OneBitAdam,
+             ZeroOneAdam and OneBitLamb (``freeze_step`` 1) beside the
+             compact AdamW at gpt1p3b's widths, 6 of 24 layers
+             (``reduced``: eight engines inside the script's time), 3
+             steps each: finite losses, the update's ms by CUDA events,
+             the state's bytes. (c) ``checkpoint_sequential`` over
+             TinyLlama-1.1B's 22 blocks (bf16, micro 4 x seq 2048, flash
+             at GQA 8) under ``nothing_saveable`` at intervals 1 and 2,
+             ``dots_saveable``, ``dots_with_no_batch_dims_saveable``,
+             ``everything_saveable`` and ``cpu_checkpointing``, each run
+             twice: forward + backward ms, peak memory above the inputs,
+             flash launches (44 where the blocks are recomputed, 22
+             otherwise), and gradients within 2**-7 of the largest of the
+             uncheckpointed stack's, or twice two uncheckpointed runs'
+             spread where that is larger.
+
 With ``--trace``, a torch.profiler window over the phase-3 engine's
 prefill and one decode loop call follows phase 3 and each phase-15 run,
 and one over a ``train_batch`` follows phases 7 and 11: the device's busy
@@ -639,7 +670,10 @@ REPLACES = {"paged_prefill": "deepspeed_tpu/ops/kernels/paged_attention.py:45",
             "adamw": "deepspeed_tpu/ops/kernels/fused_optimizer.py:27",
             "flash_sparse_fwd":
                 "deepspeed_tpu/ops/kernels/flash_attention.py:117",
-            "evoformer_fwd": "deepspeed_tpu/ops/kernels/evoformer.py:39"}
+            "evoformer_fwd": "deepspeed_tpu/ops/kernels/evoformer.py:39",
+            # B19 replaces no pallas_call: flax's nn.Dropout, XLA-run
+            "dropout": "deepspeed_tpu/models/gpt2.py:140 (flax nn.Dropout "
+                       "over jax.random.bernoulli; no pallas_call)"}
 XENT_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/fused_xent.cu"
 FP6_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/fp6_gemm.cu"
 QUANT_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/quantization.cu"
@@ -8639,6 +8673,469 @@ def rt_preempted(work):
     return out
 
 
+# ------------------------------------------------------------------ #
+# phase 34: the training step's remaining options
+
+
+DROPOUT_SOURCE = "deepspeed_tpu_torch/ops/kernels/csrc/dropout.cu"
+#: GPT-2's published resid_pdrop
+TO_RATE = 0.1
+TO_WARMUP, TO_STEPS, TO_PARITY_STEPS = 2, 5, 3
+#: kernel and plain dropout routes over TO_PARITY_STEPS steps, relative
+TO_PARITY_REL = 1e-4
+#: the layers whose two dropout sites are held bit-equal to plain
+TO_CHECK_LAYERS = (0, 23)
+#: (b): gpt1p3b's widths at 6 of its 24 layers, 3 steps an optimizer
+TO_OPT_LAYERS, TO_OPT_STEPS = 6, 3
+TO_OPTIMIZERS = {
+    "AdamW": {"lr": 3e-4, "weight_decay": 0.01, "moment_dtype": "bfloat16"},
+    "Lamb": {"lr": 3e-4, "weight_decay": 0.01},
+    "Lion": {"lr": 3e-5, "weight_decay": 0.1},
+    "Adagrad": {"lr": 1e-2},
+    "SGD": {"lr": 1e-2, "momentum": 0.9, "nesterov": True,
+            "weight_decay": 0.01},
+    "OneBitAdam": {"lr": 3e-4, "freeze_step": 1},
+    "ZeroOneAdam": {"lr": 3e-4, "freeze_step": 1, "var_update_scaler": 2},
+    "OneBitLamb": {"lr": 3e-4, "freeze_step": 1, "weight_decay": 0.01},
+}
+#: (c): checkpoint_sequential's policies and intervals over TinyLlama's
+#: 22 blocks; the reference is the stack without checkpointing
+TO_POLICIES = (("nothing_saveable", 1), ("nothing_saveable", 2),
+               ("dots_saveable", 1), ("dots_with_no_batch_dims_saveable", 1),
+               ("everything_saveable", 1), ("cpu_checkpointing", 1))
+TO_GRAD_REL = 2.0 ** -7
+#: SASS opcodes of H100's integer pipe (64 lanes an SM) counted in B19's
+#: bound; IMAD issues to the fp32 pipe's 128 lanes (as FFMA does) and is
+#: reported apart. The source's own count (dropout.cu) when the SASS
+#: cannot be read.
+INT_OPCODES = ("LOP3", "SHF", "VIADD", "IADD3", "IADD", "ISETP", "LEA",
+               "PRMT", "SEL", "SHL", "SHR", "IMNMX", "POPC", "FLO", "BMSK")
+FMA_PIPE_OPCODES = ("IMAD", "FFMA", "FADD", "FMUL")
+INT32_LANES_PER_SM = 64
+DROPOUT_SOURCE_INT_OPS = 60
+
+
+def _sass_hot_path(body, per):
+    """(integer-pipe, fp32-pipe) instructions an element on the 16-byte
+    path of a dropout kernel's SASS ``body``: the loop head up to its
+    branch into the vector block, and that block up to the back edge,
+    without the division's slow-path calls; ``per`` elements an
+    iteration. None when the body is not laid out so."""
+    import re
+    ins = []
+    for line in body:
+        m = re.search(r"/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                      line)
+        if m:
+            hexes = re.findall(r"0x([0-9a-f]+)",
+                               line.split("*/", 1)[1].split(";")[0])
+            ins.append((int(m.group(1), 16), m.group(2), line,
+                        int(hexes[-1], 16) if hexes else None))
+    try:
+        ldg = next(a for a, op, l, _ in ins if op == "LDG" and ".128" in l)
+        stg = next(a for a, op, l, _ in ins if op == "STG" and ".128" in l)
+        back, head = next((a, t) for a, op, _, t in ins
+                          if op == "BRA" and a > stg and t is not None
+                          and t < ldg)
+        jump, vec = max(((a, t) for a, op, _, t in ins
+                         if op == "BRA" and t is not None
+                         and head <= a < ldg and t <= ldg),
+                        key=lambda e: e[1])
+    except (StopIteration, ValueError):
+        return None
+    calls = [a for a, op, _, _ in ins if op == "CALL"]
+    skip = [(a, t) for a, op, l, t in ins if op == "BRA" and "@!" in l
+            and t is not None and any(a < c < t for c in calls)]
+
+    def hot(a):
+        return (head <= a <= jump or vec <= a <= back) and \
+            not any(s < a < t for s, t in skip)
+    ints = sum(1 for a, op, _, _ in ins if hot(a) and op in INT_OPCODES)
+    fma = sum(1 for a, op, _, _ in ins if hot(a) and op in FMA_PIPE_OPCODES)
+    return ints / per, fma / per
+
+
+def _dropout_int_ops():
+    """Integer-pipe instructions an element of the bf16 dropout kernel on
+    its 16-byte path, from ``cuobjdump -sass`` of the built library (the
+    source's count without the tool), and how they were counted."""
+    from deepspeed_tpu_torch.ops.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(
+            "dropout"))], capture_output=True, text=True,
+            timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return DROPOUT_SOURCE_INT_OPS, "source count (no cuobjdump)"
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "bfloat16" in line
+        elif inside:
+            body.append(line)
+    hot = _sass_hot_path(body, 8)
+    if hot is None:
+        return DROPOUT_SOURCE_INT_OPS, "source count (no 16-byte path)"
+    return hot[0], (f"cuobjdump -sass, the 16-byte path: {hot[0]} "
+                    f"integer-pipe and {hot[1]} fp32-pipe (IMAD, FFMA; "
+                    f"twice the lanes) instructions an element")
+
+
+def _sm_clock_hz():
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30).stdout.split()[0]
+        return float(out) * 1e6
+    except (OSError, subprocess.SubprocessError, IndexError, ValueError):
+        return 1.98e9
+
+
+def _to_engine(torch, cfg, ds, seed=0):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.checkpoint import init_gpt2_params
+    from deepspeed_tpu_torch.models.gpt2 import make_model
+    _, _, loss_fn = make_model(cfg)
+    engine, *_ = initialize(loss_fn=loss_fn, config=ds,
+                            params=init_gpt2_params(cfg, seed=seed,
+                                                    device="cuda"))
+    return engine
+
+
+def _to_batch(torch):
+    import numpy as np
+    tokens = np.random.RandomState(0).randint(0, 50304,
+                                              size=(BENCH_MB, BENCH_T + 1))
+    return {"tokens": torch.from_numpy(tokens).to("cuda")}
+
+
+def to_dropout(torch, bench):
+    """Phase 34 (a): gpt1p3b with dropout 0.1 through B19; B19 against
+    plain at layers 0 and 23 and timed there; the kernel route against the
+    plain dropout route over 3 fresh batches."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import dropout as kd
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_xent as fx
+    cfg = gpt1p3b_config(torch, dropout=TO_RATE)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    engine = _to_engine(torch, cfg, gpt1p3b_ds())
+    batch = _to_batch(torch)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    for m in (fa, fx, kd):
+        m.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [engine.train_batch(batch) for _ in range(TO_WARMUP)]
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(TO_STEPS + 1)]
+    evs[0].record()
+    for i in range(TO_STEPS):
+        losses.append(engine.train_batch(batch))
+        evs[i + 1].record()
+    torch.cuda.synchronize()
+    launches = {**fa.LAUNCHES, **fx.LAUNCHES, **kd.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    steps = TO_WARMUP + TO_STEPS
+    # forward, the qkv_out recompute and the backward at both sites
+    want = {**dict.fromkeys(fx.LAUNCHES, steps),
+            **flash_want(fa, cfg.head_dim, cfg.dtype, 2 * L * steps,
+                         L * steps), "dropout": 6 * L * steps}
+    if launches != want:
+        raise AssertionError(f"[training options] launches {launches} != "
+                             f"{want}")
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"[training options] losses not finite and "
+                             f"falling: {losses}")
+    step_ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(TO_STEPS)]
+    base_ms = bench["fused"]["step_ms"]
+    out = {"setup_s": setup_s, "step_ms": step_ms, "losses": losses,
+           "launches": launches, "peak_bytes": peak,
+           "launches_per_step": {k: v / steps for k, v in launches.items()
+                                 if v},
+           "no_dropout_step_ms": base_ms}
+    log(f"[training options] (a) gpt1p3b dropout {TO_RATE}: step "
+        f"{sum(step_ms) / TO_STEPS:.2f} ms against phase 11's "
+        f"{sum(base_ms) / len(base_ms):.2f} ms without dropout; step ms "
+        f"{[round(x, 2) for x in step_ms]}; losses "
+        f"{[round(x, 5) for x in losses]}; peak {peak / 2**30:.2f} GiB; "
+        f"launches {launches}")
+
+    # the sites' inputs at layers 0 and 23, from an eval forward (the key
+    # PRNGKey(0)); B19 held to plain bit for bit there
+    sites, seen = {}, [0]
+    inner = kd.dropout
+    check = {2 * i + s for i in TO_CHECK_LAYERS for s in (0, 1)}
+
+    def capture(x, key, rate):
+        if seen[0] in check:
+            sites[seen[0]] = (x.detach().clone(), key.clone())
+        seen[0] += 1
+        return inner(x, key, rate)
+    kd.dropout = capture
+    try:
+        engine.eval_batch(batch)
+    finally:
+        kd.dropout = inner
+    del engine
+    torch.cuda.empty_cache()
+    if sorted(sites) != sorted(check):
+        raise AssertionError(f"[training options] captured sites "
+                             f"{sorted(sites)} != {sorted(check)}")
+    errs = {}
+    for idx, (x, key) in sorted(sites.items()):
+        got = kd.dropout_fwd(x, key, TO_RATE)
+        ref = kd.dropout_plain(x, key, TO_RATE)
+        torch.cuda.synchronize()
+        name = f"h_{idx // 2}/{('attn', 'mlp')[idx % 2]}"
+        errs[name] = (got.float() - ref.float()).abs().max().item()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"[training options] B19 at {name}: not "
+                                 f"bit-equal to plain (max abs "
+                                 f"{errs[name]})")
+    x, key = sites[0]
+    ms = _time_ms(torch, lambda: kd.dropout_fwd(x, key, TO_RATE), 50)
+    graph_ms = _graph_ms(torch, [lambda: kd.dropout_fwd(x, key, TO_RATE)])
+    plain_ms = _time_ms(torch, lambda: kd.dropout_plain(x, key, TO_RATE), 5)
+    lib_ms = _time_ms(torch, lambda: F.dropout(x, TO_RATE, training=True),
+                      50)
+    ops_elem, ops_from = _dropout_int_ops()
+    int_rate = sm_count(x.device) * INT32_LANES_PER_SM * _sm_clock_hz()
+    n = x.numel()
+    row = _op_row("dropout", DROPOUT_SOURCE, launches["dropout"],
+                  max(errs.values()), ms, plain_ms, lib_ms,
+                  2 * n * x.element_size(), ops_elem * n, int_rate,
+                  graph_ms=graph_ms, shape=list(x.shape),
+                  dtype=str(x.dtype), int_ops_per_element=ops_elem,
+                  int_ops_from=ops_from, int32_ops_per_s=int_rate,
+                  library="F.dropout (Philox: other bits, timed only)",
+                  bit_equal_sites=errs)
+    out["b19"] = {k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by")}
+    out["b19"].update(graph_ms=graph_ms, int_ops_per_element=ops_elem,
+                      int_ops_from=ops_from, sites=errs)
+
+    # the kernel route against the plain dropout route, other kernels on
+    g = torch.Generator(device="cuda").manual_seed(34)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size,
+                                        (BENCH_MB, BENCH_T + 1),
+                                        generator=g, device="cuda")}
+               for _ in range(TO_PARITY_STEPS)]
+    runs = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            kd.dropout = kd.dropout_plain
+        try:
+            engine = _to_engine(torch, cfg, gpt1p3b_ds())
+            kd.reset_launch_counts()
+            runs[route] = [float(engine.train_batch(b)) for b in batches]
+            runs[route + "_launches"] = kd.LAUNCHES["dropout"]
+        finally:
+            kd.dropout = inner
+        del engine
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["kernel"],
+                                                  runs["plain"]))
+    out["parity"] = {"kernel": runs["kernel"], "plain": runs["plain"],
+                     "max_rel": rel}
+    log(f"[training options] (a) parity: kernel {runs['kernel']} plain "
+        f"{runs['plain']} max rel {rel:.3e} (limit {TO_PARITY_REL}); the "
+        f"plain route launched B19 {runs['plain_launches']} times")
+    if not rel <= TO_PARITY_REL or runs["plain_launches"] or \
+            runs["kernel_launches"] != 6 * L * TO_PARITY_STEPS:
+        raise AssertionError(f"[training options] dropout routes: {runs}")
+    return out, row
+
+
+def to_optimizers(torch):
+    """Phase 34 (b): each optimizer on gpt1p3b's widths at 6 layers, 3
+    steps on one batch: finite losses, its update's ms a step (CUDA
+    events around ``optimizer.update``) and its state's bytes."""
+    cfg = gpt1p3b_config(torch, num_layers=TO_OPT_LAYERS)
+    batch = _to_batch(torch)
+    out = {}
+    for name, params in TO_OPTIMIZERS.items():
+        ds = gpt1p3b_ds()
+        ds["optimizer"] = {"type": name, "params": dict(params)}
+        engine = _to_engine(torch, cfg, ds)
+        n_params = sum(p.numel() for p in engine.state.params)
+        inner, evs = engine.optimizer.update, []
+
+        def timed(*a, _inner=inner, _evs=evs, **k):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            res = _inner(*a, **k)
+            e.record()
+            _evs.append((s, e))
+            return res
+        engine.optimizer.update = timed
+        losses = [float(engine.train_batch(batch))
+                  for _ in range(TO_OPT_STEPS)]
+        torch.cuda.synchronize()
+        st = engine.state.opt_state
+        state_bytes = sum(t.numel() * t.element_size()
+                          for f in st._fields[1:] for t in getattr(st, f))
+        out[name] = {"losses": losses,
+                     "update_ms": [s.elapsed_time(e) for s, e in evs],
+                     "state_bytes": state_bytes,
+                     "slots": {f: str(getattr(st, f)[0].dtype)
+                               for f in st._fields[1:] if getattr(st, f)},
+                     "count": st.count}
+        if not all(math.isfinite(x) for x in losses) or \
+                st.count != TO_OPT_STEPS:
+            raise AssertionError(f"[training options] {name}: {out[name]}")
+        del engine, st
+        torch.cuda.empty_cache()
+    for name, r in out.items():
+        log(f"[training options] (b) {name}: update "
+            f"{[round(x, 2) for x in r['update_ms']]} ms, state "
+            f"{r['state_bytes'] / 2**30:.3f} GiB ({r['slots']}), losses "
+            f"{[round(x, 5) for x in r['losses']]}")
+    return {"layers": TO_OPT_LAYERS, "params": n_params, "runs": out}
+
+
+def to_checkpoint_policies(torch):
+    """Phase 34 (c): ``checkpoint_sequential`` over TinyLlama-1.1B's 22
+    blocks (bf16, micro 4 x seq 2048, flash at GQA 8) under each policy:
+    forward + backward ms, peak memory above the inputs, flash launches,
+    and every gradient within 2**-7 of the largest of the uncheckpointed
+    stack's."""
+    from deepspeed_tpu_torch.checkpoint import init_llama_params
+    from deepspeed_tpu_torch.config.config import \
+        ActivationCheckpointingConfig
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.runtime import activation_checkpointing as ac
+    from deepspeed_tpu_torch.utils.tree import flatten
+    mb, T = FT_RUNS["tinyllama_1b"]
+    cfg = ft_config(torch, "tinyllama_1b")
+    params = init_llama_params(cfg, seed=FT_SEED, device="cuda",
+                               dtype=torch.bfloat16)
+    flat = [flatten(params[f"layer_{i}"]) for i in range(cfg.num_layers)]
+    stacked = {k: torch.stack([f[k] for f in flat]).requires_grad_()
+               for k in flat[0]}
+    del params, flat
+    torch.cuda.empty_cache()
+    leaves = list(stacked.values())
+    g = torch.Generator(device="cuda").manual_seed(FT_SEED)
+    x = torch.randn(mb, T, cfg.hidden_size, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    dy = torch.randn(x.shape, generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+
+    def block(p, h):
+        return llama.block(cfg, p, h)
+
+    def stack_plain(h):
+        for i in range(cfg.num_layers):
+            h = block(ac._layer(stacked, i), h)
+        return h
+
+    def run(fn):
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        grads = torch.autograd.grad(fn(x), leaves, dy)
+        b.record()
+        torch.cuda.synchronize()
+        return {"ms": a.elapsed_time(b),
+                "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                "launches": {k: v for k, v in fa.LAUNCHES.items() if v}}, \
+            grads
+
+    # twice uncheckpointed: the second is the reference, the first shows
+    # the run-to-run noise (the flash backward sums dQ in an order that
+    # varies between calls)
+    _, again = run(stack_plain)
+    ref, ref_grads = run(stack_plain)
+    top = max(g.float().abs().max().item() for g in ref_grads)
+
+    def spread(grads):
+        """(max |g - ref| over the stack's largest |ref|, the worst leaf
+        by its own largest)."""
+        d = [(a.float() - b.float()).abs().max().item() for a, b in
+             zip(grads, ref_grads)]
+        own = [b.float().abs().max().item() for b in ref_grads]
+        return max(d) / top, max(x / max(o, 1e-30) for x, o in zip(d, own))
+
+    noise = spread(again)
+    del again
+    # a policy's gradients within 2**-7 of the largest, or twice the two
+    # uncheckpointed runs' spread when that is larger (bf16 through 22
+    # blocks: one flipped bit of dQ grows on the way down)
+    limit = max(TO_GRAD_REL, 2 * noise[0])
+    L = cfg.num_layers
+    out = {"layers": L, "micro_batch": mb, "seq": T,
+           "uncheckpointed": ref, "noise": noise, "limit": limit}
+    log(f"[training options] (c) uncheckpointed {ref}; two runs differ by "
+        f"{noise[0]:.3e} of the largest gradient ({noise[1]:.3e} of a "
+        f"leaf's own largest); limit {limit:.3e}")
+    # the recompute's first run on autograd's thread (its cuBLAS handle,
+    # the kernels' first calls there) is not a policy's cost
+    run(lambda h: ac.checkpoint_sequential(block, stacked, h, interval=1,
+                                           policy=ac.nothing_saveable))
+    for name, interval in TO_POLICIES:
+        acfg = ActivationCheckpointingConfig(
+            cpu_checkpointing=True) if name == "cpu_checkpointing" else \
+            ActivationCheckpointingConfig(policy=name)
+        pol = ac.resolve_policy(acfg)
+
+        def fn(h):
+            return ac.checkpoint_sequential(block, stacked, h,
+                                            interval=interval, policy=pol)
+        # twice: the first run pays one-time costs (cpu_checkpointing's
+        # pinned host blocks, which the caching allocator keeps)
+        first, grads = run(fn)
+        del grads
+        rec, grads = run(fn)
+        worst, leaf = spread(grads)
+        rec.update(max_rel=worst, leaf_rel=leaf, first_ms=first["ms"])
+        out[f"{name}/{interval}"] = rec
+        fwd = rec["launches"].get("flash_fwd", 0)
+        want_fwd = L * (1 if name == "everything_saveable" else 2)
+        log(f"[training options] (c) {name} interval {interval}: "
+            f"{rec['ms']:.1f} ms (first run {first['ms']:.1f}; "
+            f"uncheckpointed {ref['ms']:.1f}), peak "
+            f"{rec['peak_bytes'] / 2**30:.2f} GiB (uncheckpointed "
+            f"{ref['peak_bytes'] / 2**30:.2f}), flash {rec['launches']}; "
+            f"grads {worst:.3e} of the largest (limit {limit:.3e}; "
+            f"{leaf:.3e} of a leaf's own)")
+        if not worst <= limit or fwd != want_fwd:
+            raise AssertionError(f"[training options] {name}/{interval}: "
+                                 f"{rec} (flash_fwd {fwd} != {want_fwd})")
+        del grads
+    del stacked, leaves, ref_grads, x, dy
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_training_options(torch, bench):
+    """Phase 34: (a) dropout through B19, (b) the optimizers, (c) the
+    activation-checkpointing policies."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    out = {}
+    t0 = time.perf_counter()
+    out["dropout"], row = to_dropout(torch, bench)
+    out["dropout_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["optimizers"] = to_optimizers(torch)
+    out["optimizers_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["policies"] = to_checkpoint_policies(torch)
+    out["policies_s"] = time.perf_counter() - t0
+    out["launches"] = out["dropout"]["launches"]
+    log(f"[training options] {json.dumps(out)}")
+    return out, [row]
+
+
 def main(argv) -> int:
     unknown = [a for a in argv
                if a not in ("--trace", "--fp6-sweep", "--norm-sweep",
@@ -8742,9 +9239,13 @@ def main(argv) -> int:
     family_training, ft_rows = run(phase_family_training, torch, tracing)
     rows += ft_rows
     resumable = run(phase_resumable_training, torch)
+    options, option_rows = run(phase_training_options, torch, bench)
+    rows += option_rows
     for r in rows:
         if r["name"] in resumable["launches"]:
             r["launches_phase33"] = resumable["launches"][r["name"]]
+        if r["name"] in options["launches"] and r["name"] != "dropout":
+            r["launches_phase34"] = options["launches"][r["name"]]
         if r["name"] in ("flash_fwd", "flash_bwd"):
             r["gqa"] = {run: t["flash_gqa"][r["name"]] for run, t in
                         family_training.items() if "flash_gqa" in t}
@@ -8770,7 +9271,8 @@ def main(argv) -> int:
               "family_training": {run: {k: v for k, v in r.items()
                                         if k != "trace"}
                                   for run, r in family_training.items()},
-              "resumable_training": resumable}
+              "resumable_training": resumable,
+              "training_options": options}
     if trace is not None:
         result["trace"] = trace
         result["train_trace"] = train["trace"]

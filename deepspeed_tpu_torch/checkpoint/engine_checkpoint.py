@@ -20,12 +20,18 @@ back:
   ``scale_state/{scale,growth_tracker,hysteresis,overflows}``, ``rng``;
   inside a dict every level's keys sorted as strings (``layer_10`` before
   ``layer_2``), where the engine keeps the tree's insertion order;
-- the optimizer's structure, the optax chain the JAX package builds:
-  AdamW (and Adam with ``adam_w_mode``) ``opt_state/0/{count,mu,nu}`` and
-  the schedule's ``opt_state/2/count``; Adam with L2 decay
-  ``opt_state/1/0/...`` and ``opt_state/1/1/count`` (``opt_state/0`` and
-  ``opt_state/1`` without decay); the compact AdamW ``opt_state/{count,
-  mu,nu}``. Both optax counts are the port's one ``AdamState.count``;
+- the optimizer's structure, the optax chain the JAX package builds
+  (``Optimizer.layout`` in ``ops/optimizers.py``): AdamW (and Adam with
+  ``adam_w_mode``) ``opt_state/0/{count,mu,nu}`` and the schedule's
+  ``opt_state/2/count``; Adam with L2 decay ``opt_state/1/0/...`` and
+  ``opt_state/1/1/count`` (``opt_state/0`` and ``opt_state/1`` without
+  decay); Lamb ``opt_state/0/{count,mu,nu}`` and ``opt_state/3/count``;
+  Lion ``opt_state/0/{count,mu}`` and ``opt_state/2/count``; Adagrad
+  ``opt_state/0/sum_of_squares`` and ``opt_state/1/count``; SGD its
+  ``trace`` (with momentum) and schedule count under ``opt_state/`` or,
+  with a decay, ``opt_state/1/``; the compact AdamW and the 1-bit
+  optimizers ``opt_state/{count,mu,nu}``. Every optax count of a chain is
+  the port's one ``count``;
 - the dtypes: ``step``, the counts and the loss-scale integers int32,
   ``scale`` float32, ``rng`` uint32 ``[2]`` (the port holds int64 words);
 - bf16 leaves (compact-AdamW moments, bf16 master params) as numpy writes
@@ -138,22 +144,6 @@ def _retry_io(fn, what: str, retries: int, backoff_s: float):
 
 # ------------------------------------------------------------------ layout
 
-def opt_layout(optimizer) -> Tuple[str, Optional[str]]:
-    """(the prefix of the Adam state's ``count`` / ``mu`` / ``nu``, the
-    schedule count's path or None) of the optax chain the JAX package
-    builds for ``optimizer`` (``ops/optimizers.build_optimizer``); the JAX
-    engine always hands optax a schedule, so a chain ends in its count."""
-    from ..ops.optimizers import CompactAdamW
-    if isinstance(optimizer, CompactAdamW):
-        return "opt_state", None                 # adamw_compact
-    if optimizer.decoupled:
-        return "opt_state/0", "opt_state/2/count"   # optax.adamw
-    if optimizer.weight_decay:
-        # chain(add_decayed_weights, adam)
-        return "opt_state/1/0", "opt_state/1/1/count"
-    return "opt_state/0", "opt_state/1/count"    # optax.adam
-
-
 def param_order(names: List[str]) -> List[int]:
     """Indices of the engine's flat names in ``jax.tree_util``'s order:
     at every level of the nested dict the keys sorted as strings."""
@@ -170,7 +160,6 @@ def state_leaves(engine) -> List[Tuple[str, Any, str]]:
     engine's or a Python scalar."""
     st = engine.state
     order = param_order(engine._names)
-    adam, sched = opt_layout(engine.optimizer)
     paths = [_jax_path(engine._names[i]) for i in order]
 
     def tensors(prefix, ts):
@@ -179,11 +168,11 @@ def state_leaves(engine) -> List[Tuple[str, Any, str]]:
 
     out = [("step", st.step, "int32")]
     out += tensors("params", st.params)
-    out.append((f"{adam}/count", st.opt_state.count, "int32"))
-    out += tensors(f"{adam}/mu", st.opt_state.mu)
-    out += tensors(f"{adam}/nu", st.opt_state.nu)
-    if sched is not None:
-        out.append((sched, st.opt_state.count, "int32"))
+    for path, field in engine.optimizer.layout():
+        if field == "count":
+            out.append((path, st.opt_state.count, "int32"))
+        else:
+            out += tensors(path, getattr(st.opt_state, field))
     ss = st.scale_state
     out += [("scale_state/scale", ss.scale, "float32"),
             ("scale_state/growth_tracker", ss.growth_tracker, "int32"),
@@ -608,7 +597,8 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
         if engine.device.type == "cuda":
             torch.cuda.synchronize(engine.device)
     h2d_s += time.perf_counter() - t_read
-    adam, sched = opt_layout(engine.optimizer)
+    count_path = next(p for p, f in engine.optimizer.layout()
+                      if f == "count")
     step = int(scalars["step"])
     if only_params:
         engine.state = st._replace(step=step)
@@ -617,7 +607,7 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
         engine.state = st._replace(
             step=step,
             opt_state=st.opt_state._replace(
-                count=int(scalars[f"{adam}/count"])),
+                count=int(scalars[count_path])),
             scale_state=LossScaleState(
                 scale=float(scalars["scale_state/scale"]),
                 growth_tracker=int(scalars["scale_state/growth_tracker"]),

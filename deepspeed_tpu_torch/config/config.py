@@ -198,12 +198,31 @@ class ResilienceConfig(ConfigModel):
     preemption: PreemptionConfig = field(default_factory=PreemptionConfig)
 
 
+# --------------------------------------------------------------------------- #
+# Activation checkpointing
+# --------------------------------------------------------------------------- #
+
+@dataclass
+class ActivationCheckpointingConfig(ConfigModel):
+    """``activation_checkpointing`` sub-tree, the JAX package's fields. The
+    engine does not read it (nor does the JAX engine): a user passes it to
+    ``runtime.activation_checkpointing.configure``, whose ``policy`` names
+    a selective-checkpointing policy and ``cpu_checkpointing`` keeps the
+    saved matmul outputs in pinned host memory."""
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Union[int, None] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+    policy: Union[str, None] = None
+
+
 #: keys of the JAX package's config that this slice does not port, with
 #: the value that leaves them off and the ROADMAP item that brings them.
 #: A dict value counts as off when its "enabled" is false (or, for a
 #: sub-tree without that key, when it is empty).
 UNPORTED_KEYS: Dict[str, Any] = {
-    "activation_checkpointing": ({}, "A7 (runtime/activation_checkpointing.py)"),
     "memory_breakdown": (False, "A7 (the training observatory)"),
     "dump_state": (False, "A7 (the training observatory)"),
     "curriculum_learning": ({}, "A7 (data_pipeline/)"),
@@ -273,6 +292,8 @@ class Config(ConfigModel):
     elasticity: ElasticityConfig = field(default_factory=ElasticityConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    activation_checkpointing: ActivationCheckpointingConfig = field(
+        default_factory=ActivationCheckpointingConfig)
     compression_training: Dict[str, Any] = field(default_factory=dict)
 
     DEPRECATED_ALIASES = {

@@ -14,6 +14,17 @@ input, kernel and bias to it (the product rounded, then the bias added);
 LayerNorm takes its statistics in fp32 (E[x^2] - E[x]^2, clipped at 0) and
 returns the compute dtype; GELU is the tanh form (flax's default); the
 loss reads the tied embedding cast to the compute dtype.
+
+Dropout (``dropout > 0``) goes where flax applies it: on the attention's
+output projection (inside the ``res`` stage, ``x + drop(attn_out)``) and
+on the MLP's (inside ``out``). Each site's key is flax's ``make_rng
+("dropout")`` of the loss's key at the site's scope path, ``("h_3",
+"attn", "Dropout_0")`` (``utils/random.make_rng``; the same under
+``nn.remat``), derived for every site in one batched ``fold_in`` on the
+key's device; the mask is JAX's bits (``ops/kernels/dropout.py``: the
+CUDA kernel on a card, its plain version on the CPU). A recomputed
+segment takes its layer's keys as an input of the checkpoint, so it draws
+the same mask.
 """
 
 from __future__ import annotations
@@ -28,6 +39,8 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.kernels import dropout as kdropout
+from ..utils import random as trandom
 from ..utils.dtypes import resolve_dtype
 from ..utils.tree import flatten
 
@@ -40,7 +53,7 @@ class GPT2Config:
     num_heads: int = 12
     hidden_size: int = 768
     mlp_ratio: int = 4
-    dropout: float = 0.0               # > 0 not ported (needs JAX's RNG)
+    dropout: float = 0.0               # resid_pdrop: after each projection
     dtype: Any = torch.bfloat16        # compute dtype
     param_dtype: Any = torch.float32
     remat: bool = False
@@ -79,10 +92,9 @@ class GPT2Config:
 
     def check_ported(self) -> None:
         """Raise for what this slice does not serve."""
-        if self.dropout > 0:
-            raise NotImplementedError(
-                "GPT-2 dropout > 0 is not ported (it needs the JAX "
-                "package's RNG stream)")
+        if not 0.0 <= self.dropout <= 1.0:
+            raise ValueError(f"dropout must be in [0, 1], got "
+                             f"{self.dropout}")
         if self.remat:
             kept_stages(self.remat_policy)           # ValueError if unknown
         if self.attention_impl == "flash_sharded":
@@ -278,12 +290,13 @@ def remat_segments(policy: str):
 class Block(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()
+        self.rate = cfg.dropout
         self.ln_1 = LayerNorm(cfg.hidden_size, cfg)
         self.attn = CausalSelfAttention(cfg)
         self.ln_2 = LayerNorm(cfg.hidden_size, cfg)
         self.mlp = MLP(cfg)
 
-    def stage(self, name: str, *a):
+    def stage(self, name: str, *a, keys=None):
         if name == "ln_1":
             return self.ln_1(a[0])
         if name == "qkv":
@@ -300,21 +313,28 @@ class Block(nn.Module):
             return F.gelu(a[0], approximate="tanh")
         if name == "mlp_out":
             return self.mlp.c_proj(a[0])
-        return a[0] + a[1]                              # "res", "out"
+        y = a[1]                                        # "res", "out"
+        if keys is not None:
+            # flax's Dropout on attn_out (the res stage) / mlp_out (out)
+            y = kdropout.dropout(y, keys[0 if name == "res" else 1],
+                                 self.rate)
+        return a[0] + y
 
-    def forward(self, x, target: str = "out"):
+    def forward(self, x, target: str = "out", keys=None):
         """The block (``x`` a tensor), or one stage ``target`` of it from a
-        dict of the stages already computed."""
+        dict of the stages already computed; ``keys`` [2, 2] the two
+        dropout sites' keys (None: no dropout)."""
         env = dict(x) if isinstance(x, dict) else {"x": x}
         for name in _evaluated(target, env):
-            env[name] = self.stage(name, *(env[d] for d in _READS[name]))
+            env[name] = self.stage(name, *(env[d] for d in _READS[name]),
+                                   keys=keys)
         return env[target]
 
 
-def _run_segment(block: Block, names, target, inputs, *tensors):
+def _run_segment(block: Block, names, target, inputs, keys, *tensors):
     n = len(inputs)
     return functional_call(block, dict(zip(names, tensors[n:])),
-                           (dict(zip(inputs, tensors[:n])), target))
+                           (dict(zip(inputs, tensors[:n])), target, keys))
 
 
 class GPT2(nn.Module):
@@ -327,17 +347,39 @@ class GPT2(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"h_{i}", Block(cfg))
         self.ln_f = LayerNorm(cfg.hidden_size, cfg)
+        #: the dropout sites' static hashes (flax's scope paths), h_0's
+        #: attn and mlp first
+        self._site_hashes = [trandom.static_hash((f"h_{i}", site,
+                                                  "Dropout_0", 1))
+                             for i in range(cfg.num_layers)
+                             for site in ("attn", "mlp")]
 
-    def forward(self, tokens, return_hidden: bool = False):
+    def dropout_keys(self, key: torch.Tensor) -> torch.Tensor:
+        """Every dropout site's ``make_rng("dropout")`` key under the
+        loss's ``key``: ``[num_layers, 2, 2]`` (layer, attn / mlp, words),
+        one ``fold_in`` on the key's device."""
+        key = trandom.as_key(key)
+        data = torch.tensor(self._site_hashes, dtype=torch.int64,
+                            device=key.device)
+        return trandom.fold_in(key, data).view(self.cfg.num_layers, 2, 2)
+
+    def forward(self, tokens, return_hidden: bool = False, key=None):
         cfg = self.cfg
         T = tokens.shape[1]
         x = self.wte(tokens) + self.wpe(
             torch.arange(T, device=tokens.device)[None, :])
+        keys = None
+        if cfg.dropout > 0:
+            if key is None:
+                raise ValueError("GPT-2 with dropout > 0 needs the loss's "
+                                 "key (flax's 'dropout' rng)")
+            keys = self.dropout_keys(key)
         segments = remat_segments(cfg.remat_policy) if cfg.remat else None
         for i in range(cfg.num_layers):
             block = getattr(self, f"h_{i}")
+            lk = None if keys is None else keys[i]
             if segments is None:
-                x = block(x)
+                x = block(x, "out", lk)
                 continue
             # a segment's recompute runs in the backward pass, after an
             # outer functional_call has put the meta parameters back: the
@@ -347,9 +389,9 @@ class GPT2(nn.Module):
             for target, inputs, recompute in segments:
                 given = {k: env[k] for k in inputs}
                 env[target] = checkpoint(
-                    _run_segment, block, names, target, inputs,
+                    _run_segment, block, names, target, inputs, lk,
                     *given.values(), *tensors, use_reentrant=False) \
-                    if recompute else block(given, target)
+                    if recompute else block(given, target, lk)
             x = env["out"]
         x = self.ln_f(x)
         if return_hidden:
@@ -360,7 +402,9 @@ class GPT2(nn.Module):
 
 def make_model(cfg: GPT2Config):
     """``(model, init_fn, loss_fn)``. ``loss_fn(params, batch, key)`` is
-    the engine's contract (the threefry key is not read): batch = ``{"tokens": [B, T+1]}``, params the
+    the engine's contract (the threefry key feeds dropout, read only when
+    ``cfg.dropout > 0``, as the JAX loss passes ``rngs`` only then):
+    batch = ``{"tokens": [B, T+1]}``, params the
     nested dict of flax's paths, the mean next-token NLL through
     ``lm_head_xent`` (chunked or fused, by ``cfg.xent_impl``).
     ``init_fn(seed=0, device=None)`` makes seeded weights
@@ -375,8 +419,10 @@ def make_model(cfg: GPT2Config):
         from ._lm_utils import lm_head_xent
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        hidden = functional_call(model, flatten(params), (inputs,),
-                                 {"return_hidden": True})
+        hidden = functional_call(
+            model, flatten(params), (inputs,),
+            {"return_hidden": True,
+             "key": key if cfg.dropout > 0 else None})
         return lm_head_xent(hidden, params["wte"]["embedding"], targets, cfg)
 
     return model, init_fn, loss_fn

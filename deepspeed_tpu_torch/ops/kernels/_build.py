@@ -108,6 +108,11 @@ SIGNATURES = {
         # grouped_plan's five as the forward's, dtype code, stream
         "grouped_dgrad_launch": [_P] * 4 + [_I] * 10 + [_P],
     },
+    # x, y, key (int64 [2] on the device), n, keep_prob, divisor, dtype
+    # code (0 fp32, 1 bf16, 2 fp16), SMs, stream
+    "dropout": {
+        "dropout_launch": [_P] * 3 + [_L, _F, _F, _I, _I, _P],
+    },
     # q, k, v, o, mask bias, pair bias, host strides, B, N, H, Sq, Sk, D,
     # scale, dtype code, MSA rows a block (evoformer.evo_plan), stream
     "evoformer": {

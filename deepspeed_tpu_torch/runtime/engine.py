@@ -10,7 +10,11 @@ gradients with respect to those copies for each micro-batch (cast to
 unscale under fp16, clip by the global norm, update with optax, keep the
 old state on an fp16 overflow, update the loss scale and advance the step
 counter. This engine runs the same step eagerly in
-that order. With ``wall_clock_breakdown`` the ``train_batch`` timer
+that order, with any optimizer of ``ops/optimizers.py`` (its state, the
+``opt_state``, is that optimizer's NamedTuple of a count and slot lists).
+A 1-bit name (OneBitAdam, ZeroOneAdam, OneBitLamb) logs the JAX engine's
+warning for one data-parallel rank and runs the 1-bit math with
+full-precision gradients, as the JAX engine does on one device. With ``wall_clock_breakdown`` the ``train_batch`` timer
 (``utils/timer.py``) brackets each step and stops after a synchronize on
 the loss, as the JAX engine's does; a ``ThroughputTimer`` reports
 samples/s every ``steps_per_print`` steps. The compute-dtype copies are fresh leaf tensors whose
@@ -41,9 +45,11 @@ brackets each ``train_batch`` (``step_start``, ``phase("compiled_step")``,
 raises), and ``resilience.preemption`` makes a signal, at the next step
 boundary, an urgent save to ``resilience.preemption.save_dir`` (or the
 last save's directory) and ``SystemExit(MEMBERSHIP_CHANGE_EXIT)`` for the
-elastic agent (``elasticity/``) to restart the worker. Not in this
-slice: the training observatory, the flops profiler and the monitors
-(ROADMAP A7).
+elastic agent (``elasticity/``) to restart the worker. The config's
+``activation_checkpointing`` sub-tree is not read here (nor by the JAX
+engine): pass it to ``runtime.activation_checkpointing.configure``. Not
+in this slice: the training observatory (ROADMAP A7.6), the flops
+profiler and the monitors (A9).
 """
 
 from __future__ import annotations
@@ -57,7 +63,8 @@ import numpy as np
 import torch
 
 from ..config.config import Config, ConfigError
-from ..ops.optimizers import AdamState, build_optimizer
+from ..ops.optimizers import ONEBIT_NAMES, OptState, build_optimizer, \
+    subset
 from ..resilience.fault_injection import get_fault_injector
 from ..utils.device import resolve_device
 from ..utils import random as trandom
@@ -80,7 +87,7 @@ class TrainState(NamedTuple):
     updates)."""
     step: int
     params: List[torch.Tensor]
-    opt_state: AdamState
+    opt_state: OptState              # the optimizer's (ops/optimizers.py)
     scale_state: ls.LossScaleState
     rng: torch.Tensor                # threefry key [2] (int64 words)
 
@@ -148,6 +155,13 @@ class Engine:
         self.optimizer = build_optimizer(
             config.optimizer.type, config.optimizer.params,
             learning_rate=self.lr_schedule)
+        if config.optimizer.type.lower() in ONEBIT_NAMES:
+            # the JAX engine's warning on one data-parallel rank: the 1-bit
+            # math runs, its compressed allreduce does not (ROADMAP A8)
+            logger.warning(
+                "1-bit optimizer requested but compressed allreduce needs "
+                "dp>1, ZeRO stage<=1 and no seq/inner sharding; running "
+                "with full-precision gradient communication")
 
         # the engine owns its master params: copies, never the caller's
         flat = flatten(params)
@@ -313,10 +327,8 @@ class Engine:
         opt_state = st.opt_state
         if finite:
             params = [st.params[j] for j in trainable]
-            sub = AdamState(count=opt_state.count,
-                            mu=[opt_state.mu[j] for j in trainable],
-                            nu=[opt_state.nu[j] for j in trainable])
-            new = self.optimizer.update(grads, sub, params)
+            new = self.optimizer.update(grads, subset(opt_state, trainable),
+                                        params)
             opt_state = opt_state._replace(count=new.count)
         self.state = st._replace(
             step=st.step + (1 if finite else 0), opt_state=opt_state,

@@ -22,6 +22,9 @@ that a seed gives the same stream in both packages. The contract:
 - ``uniform`` builds its floats from those bits as JAX does,
   ``((bits >> 9) | 0x3F800000)`` read as fp32 less 1, so its values equal
   ``jax.random.uniform``'s bit for bit;
+- ``bernoulli`` is ``jax.random.bernoulli``: ``uniform(key, n) < p`` with
+  ``p`` rounded to fp32, the mask flax's ``nn.Dropout`` draws (the
+  dropout kernel, ``ops/kernels/dropout.py``, is held to it bit for bit);
 - ``gumbel`` is ``-log(-log(u))`` over ``uniform`` on ``[tiny, 1)``,
   returned in fp32. The two logarithms are taken in fp64 and the result
   rounded once, so it is the correctly rounded value; XLA's fp32 log is
@@ -115,6 +118,10 @@ def _static_hash(data: Sequence[Union[str, int]]) -> int:
     return int.from_bytes(m.digest()[:4], byteorder="big")
 
 
+#: the hash ``make_rng`` folds in, public for callers that batch it
+static_hash = _static_hash
+
+
 def make_rng(key: torch.Tensor, path: Sequence[str],
              counter: int = 1) -> torch.Tensor:
     """flax's ``make_rng`` of the stream whose root key is ``key``, called
@@ -150,6 +157,12 @@ def uniform(key: torch.Tensor, n: int, minval: float = 0.0,
     lo = float(np.float32(minval))
     span = float(np.float32(maxval) - np.float32(minval))
     return torch.clamp(f * span + lo, min=lo)
+
+
+def bernoulli(key: torch.Tensor, p: float, n: int) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, (n,))`` for each key: ``[..., n]``
+    bool, ``uniform(key, n) < float32(p)`` (JAX converts ``p`` to fp32)."""
+    return uniform(key, n) < float(np.float32(p))
 
 
 def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -177,13 +177,11 @@ def test_param_dtypes_follow_flax_with_bf16_params():
 
 
 def test_gpt2_refuses_what_the_slice_does_not_serve(monkeypatch):
-    """Dropout (with and without remat: the JAX package's RNG stream) and
-    ``flash_sharded`` raise at ``make_model``; the fused loss raises under
-    a process group of more than one rank, for either head layout (the
-    shard_map wrappers, ROADMAP A8)."""
-    for kw in (dict(dropout=0.1), dict(remat=True, remat_policy="dots",
-                                       dropout=0.1),
-               dict(attention_impl="flash_sharded")):
+    """``flash_sharded`` raises at ``make_model``; the fused loss raises
+    under a process group of more than one rank, for either head layout
+    (the shard_map wrappers, ROADMAP A8). Dropout is served
+    (``tests/test_torch_dropout.py``)."""
+    for kw in (dict(attention_impl="flash_sharded"),):
         with pytest.raises(NotImplementedError):
             make_model(GPT2Config.tiny(**kw))
     import torch.distributed as dist
@@ -351,14 +349,13 @@ def test_batch_size_resolution_matches(sizes):
     {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
     {"hybrid_engine": {"enabled": True}},
     {"pipeline": {"stages": 2}},
-    {"activation_checkpointing": {"partition_activations": True}},
+    {"memory_breakdown": True},
     {"curriculum_learning": {"enabled": True}},
     {"compression_training": {"weight_quantization": {}}},
     {"tensorboard": {"enabled": True}},
     {"mesh": {"data": 2}},
-    {"optimizer": {"type": "Lamb", "params": {}}},
-    {"optimizer": {"type": "Adam", "params": {"moment_dtype": "bf16",
-                                               "adam_w_mode": False}}},
+    {"dump_state": True},
+    {"flops_profiler": {"enabled": True}},
 ])
 def test_config_refuses_unported_features(extra):
     cfg = {"train_batch_size": 2, **extra}

@@ -2516,3 +2516,61 @@ def test_flash_backward_gqa_matches_plain_on_card(H, Hk, D, T, dtype):
         lim = max(tol, rel_top * r.float().abs().max().item())
         rel = (diff.norm() / r.float().norm()).item()
         assert err <= lim and rel <= 2.0 ** -8, (name, err, lim, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("n", [1, 7, 4099, 2 * 2048 * 64 + 3])
+def test_dropout_matches_plain_on_card(n, rate, dtype):
+    """B19 against its plain version, bit for bit: the forward on a flat
+    tensor of odd length and on an unaligned view (the scalar path), the
+    backward through autograd (the same kernel on dy), under a key that a
+    fold_in derived on the card (read there through its pointer)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import dropout as kd
+    from deepspeed_tpu_torch.utils import random as tr
+    g = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn(n + 1, device="cuda", generator=g).to(dtype)
+    dy = torch.randn(n, device="cuda", generator=g).to(dtype)
+    key = tr.fold_in(tr.PRNGKey(7, device="cuda"), n)
+    assert key.is_cuda
+    for xs in (x[:n], x[1:]):             # aligned, then offset by one
+        kd.reset_launch_counts()
+        got = kd.dropout_fwd(xs, key, rate)
+        torch.cuda.synchronize()
+        assert kd.LAUNCHES["dropout"] == 1
+        want = kd.dropout_plain(xs, key, rate)
+        assert torch.equal(got.view(-1).cpu(), want.view(-1).cpu())
+    xg = x[:n].clone().requires_grad_()
+    xp = x[:n].clone().requires_grad_()
+    (dk,) = torch.autograd.grad(kd.dropout(xg, key, rate), xg, dy)
+    (dp,) = torch.autograd.grad(kd.dropout_plain(xp, key, rate), xp, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(dk.cpu(), dp.cpu())
+    keep = (want != 0).float().mean().item() if n > 1000 else None
+    if keep is not None:
+        assert abs(keep - (1 - rate)) < 0.02
+
+
+@pytest.mark.cuda
+def test_dropout_shapes_and_keys_on_card():
+    """A [2, 64, 96] bf16 tensor and its transpose (made contiguous by
+    the wrapper: the mask follows the row-major index of the given
+    shape), a key row of a batched fold_in, and a CPU key (refused)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.kernels import dropout as kd
+    from deepspeed_tpu_torch.utils import random as tr
+    x = torch.randn(2, 64, 96, device="cuda").to(torch.bfloat16)
+    keys = tr.fold_in(tr.PRNGKey(3, device="cuda"),
+                      torch.arange(4, device="cuda"))
+    for xs in (x, x.transpose(1, 2)):
+        got = kd.dropout_fwd(xs, keys[2], 0.1)
+        want = kd.dropout_plain(xs.contiguous(), keys[2], 0.1)
+        assert got.shape == xs.shape
+        assert torch.equal(got.cpu(), want.cpu())
+    with pytest.raises(ValueError):
+        kd.dropout_fwd(x, tr.PRNGKey(3), 0.1)

@@ -96,8 +96,10 @@ def test_import_builds_no_kernel():
     models and ragged runners), the MoE families' (Mixtral, the
     grouped MoE layer and the grouped GEMM) and serving telemetry's and
     the fleet's (telemetry, serving, resilience, logging), the
-    training slice of the families' (the MoE layer, the keys) and
-    resumable training's (checkpoints, the elastic agent)."""
+    training slice of the families' (the MoE layer, the keys),
+    resumable training's (checkpoints, the elastic agent) and the training
+    options' (activation checkpointing, progressive layer drop, the
+    dropout kernel)."""
     code = (
         "import subprocess, sys, pkgutil, importlib\n"
         "def _no(*a, **k): raise AssertionError('spawned at import')\n"
@@ -132,7 +134,9 @@ def test_import_builds_no_kernel():
         "        'resilience.preemption', 'resilience.ledger',\n"
         "        'checkpoint.engine_checkpoint', 'checkpoint.checkpoint_engine',\n"
         "        'checkpoint.zero_to_fp32', 'checkpoint.ds_to_universal',\n"
-        "        'elasticity.elasticity', 'elasticity.elastic_agent'}\n"
+        "        'elasticity.elasticity', 'elasticity.elastic_agent',\n"
+        "        'runtime.activation_checkpointing',\n"
+        "        'runtime.progressive_layer_drop', 'ops.kernels.dropout'}\n"
         "assert {p.__name__ + '.' + n for n in need} <= set(names), names\n"
         "from deepspeed_tpu_torch.ops.kernels import _build\n"
         "assert not _build._libs and not _build.build_logs\n"
